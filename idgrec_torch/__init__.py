@@ -5,12 +5,15 @@ this package imports nothing of it (tests/test_torch_isolation.py).
 Module names mirror the JAX package's, so each counterpart is found
 under the same path.
 
-What runs today is LightGCN serving in the quantized int8 mode:
-`models.get_model("LightGCN")` builds the int8 count matrix on the
-device, `serving.Recommender` computes the propagated embeddings once
-through the hand-written Hopper kernels in `csrc/` and answers top-K
-requests. Every entry point takes an explicit ``device`` and runs on
-the card unless the caller asks for ``device="cpu"``.
+What runs today is LightGCN in the quantized int8 mode, served and
+trained: `models.get_model("LightGCN")` builds the int8 count matrix on
+the device; `serving.Recommender` computes the propagated embeddings
+once through the hand-written Hopper kernels in `csrc/` and answers
+top-K requests; `engine.sampler.NegativeSampler`,
+`engine.trainer.EpochRunner` and `engine.evaluator.Evaluator` sample,
+train (the backward runs the same kernels) and evaluate. Every entry
+point takes an explicit ``device`` and runs on the card unless the
+caller asks for ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

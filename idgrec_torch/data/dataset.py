@@ -1,5 +1,6 @@
 """Interaction dataset loader (the port's own copy of
-idgrec_tpu/data/dataset.py, reduced to what serving needs).
+idgrec_tpu/data/dataset.py, reduced to what serving, training and
+evaluation need).
 
 Reads the reference dataset format, one line per user
 ``uid iid iid ...``, and keeps the CSR user->item structure as numpy
@@ -96,6 +97,7 @@ class Dataset:
     test_user: np.ndarray  # int64 [num_test]
     test_item: np.ndarray  # int64 [num_test]
     pos_length: list[int] = field(default_factory=list)
+    _test_dict: dict | None = field(default=None, repr=False, compare=False)
 
     @property
     def num_nodes(self) -> int:
@@ -169,9 +171,44 @@ class Dataset:
             test_item=test_item,
         )
 
+    @property
+    def sparsity(self) -> float:
+        return 1 - (self.num_train + self.num_test) / self.num_users / self.num_items
+
+    def get_statistics(self) -> str:
+        """Stats line in the exact format of the reference (the header
+        of its committed logs)."""
+        strs = "dataset:" + self.name + "\t"
+        strs += "num_users:%d, num_items:%d \t" % (self.num_users, self.num_items)
+        strs += "|num_train:%d, num_test:%d, sparsity: %.6f" % (
+            self.num_train,
+            self.num_test,
+            self.sparsity,
+        )
+        return strs
+
     def positive_items(self, user: int) -> np.ndarray:
         """Sorted unique positive item ids of one user."""
         return self.col_idx[self.row_ptr[user] : self.row_ptr[user + 1]]
+
+    @property
+    def test_dict(self) -> dict[int, list[int]]:
+        """Test ground truth: user -> items in file order."""
+        if self._test_dict is None:
+            d: dict[int, list[int]] = {}
+            for u, i in zip(self.test_user.tolist(), self.test_item.tolist()):
+                d.setdefault(u, []).append(i)
+            self._test_dict = d
+        return self._test_dict
+
+    def padded_test_truth(self, users: np.ndarray, pad: int = -1) -> np.ndarray:
+        """[len(users), max_truth] ground-truth item ids padded with -1."""
+        lists = [self.test_dict.get(int(u), []) for u in users]
+        width = max((len(l) for l in lists), default=1) or 1
+        out = np.full((len(users), width), pad, dtype=np.int32)
+        for r, l in enumerate(lists):
+            out[r, : len(l)] = l
+        return out
 
 
 def make_synthetic_dataset(

@@ -2,14 +2,15 @@
 idgrec_tpu/models/base.py).
 
 A model is an `nn.Module` that owns its embedding tables and its graph
-on one device. Serving needs two methods: `eval_embeddings`, the
-representation computed once per sweep, and `score_batch`, the
-full-catalog scores of a user batch against it.
+on one device. Training needs `loss_terms`, the per-term losses of a
+sampled (user, pos, neg) batch; serving and evaluation need
+`eval_embeddings`, the representation computed once per sweep, and
+`score_batch`, the full-catalog scores of a user batch against it.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ class RecModel(nn.Module):
     config's ``seed`` when not given."""
 
     model_name: str = "RecModel"
+    loss_names: Sequence[str] = ("loss",)
 
     def __init__(self, config: Config, data: Dataset, *, device=None,
                  generator: torch.Generator | None = None):
@@ -67,6 +69,15 @@ class RecModel(nn.Module):
             xavier_uniform(generator, (self.num_users, d)).to(self.device))
         self.item_emb = nn.Parameter(
             xavier_uniform(generator, (self.num_items, d)).to(self.device))
+
+    def loss_terms(self, batch: dict[str, torch.Tensor],
+                   generator: torch.Generator | None = None,
+                   epoch: int = 0) -> tuple[torch.Tensor, ...]:
+        """The per-term scalar losses of one batch, in the order of
+        ``loss_names``; their sum is what the trainer differentiates.
+        ``batch`` holds int64 [B] tensors "user", "pos", "neg" on the
+        model's device. Fixed arity."""
+        raise NotImplementedError
 
     def eval_embeddings(self) -> Any:
         """Representation used for full-catalog scoring, computed once
@@ -95,7 +106,8 @@ def split_user_item(emb: torch.Tensor, num_users: int) -> tuple[torch.Tensor, to
 
 def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
                        include_layer0: bool = True, reduce: str = "mean") -> torch.Tensor:
-    """K-layer linear propagation with layer combination, forward.
+    """K-layer linear propagation with layer combination,
+    differentiable in ``emb0``.
 
     reduce='mean' + include_layer0 is canonical LightGCN. The quantized
     fused backend runs the chain through kernels K1-K3 (ops/chainmm.py);
@@ -116,3 +128,28 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
     raise NotImplementedError(
         "propagation outside the int8 fused chain (the per-application "
         "loop over graph.matmul) is ROADMAP A.3/A.4")
+
+
+def batch_final_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
+                           batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
+    """(user_all[u], item_all[pos], item_all[neg]) with the backward's
+    batch-cotangent row scatters on kernel K4 in the quantized compute
+    modes (ops/scatter.py); plain indexing otherwise."""
+    from idgrec_torch.ops import scatter as _scatter
+
+    if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
+                                      user_all.shape[1], compute_dtype):
+        return _scatter.gather_batch_embeddings(user_all, item_all, batch["user"],
+                                                batch["pos"], batch["neg"])
+    return user_all[batch["user"]], item_all[batch["pos"]], item_all[batch["neg"]]
+
+
+def batch_user_pos_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
+                              batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
+    """Two-gather twin of `batch_final_embeddings` (align/uniform models)."""
+    from idgrec_torch.ops import scatter as _scatter
+
+    if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
+                                      user_all.shape[1], compute_dtype):
+        return _scatter.gather_user_pos(user_all, item_all, batch["user"], batch["pos"])
+    return user_all[batch["user"]], item_all[batch["pos"]]

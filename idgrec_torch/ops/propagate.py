@@ -157,17 +157,36 @@ def _quantize_rows(zT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return quantize_rows(zT, zT.abs().amax(dim=1))
 
 
+def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor):
+    qi, si = _quantize_rows(ziT.contiguous())
+    qu, su = _quantize_rows(zuT.contiguous())
+    yuT, yiT = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
+    return yuT * si, yiT * su
+
+
+class _QuantFusedDualT(torch.autograd.Function):
+    """`_qfdt_impl` with the straight-through fully-quantized backward:
+    the same function on the swapped cotangents."""
+
+    @staticmethod
+    def forward(ctx, m, ziT, zuT):
+        ctx.m = m
+        return _qfdt_impl(m, ziT, zuT)
+
+    @staticmethod
+    def backward(ctx, g_yuT, g_yiT):
+        dzuT, dziT = _qfdt_impl(ctx.m, g_yiT, g_yuT)
+        return None, dziT, dzuT
+
+
 def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
                        quant: str = "int8") -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ q8(zi), Mᵀ @ q8(zu)) in transposed layout: ziT [d, I_pad],
-    zuT [d, U_pad] -> (yuT [d, U_pad], yiT [d, I_pad]) f32. Forward
-    only: the straight-through backward comes with the training port."""
+    zuT [d, U_pad] -> (yuT [d, U_pad], yiT [d, I_pad]) f32, with the
+    straight-through quantized backward."""
     if quant != "int8":
         raise NotImplementedError(f"quant {quant!r}: the int4 kernels are ROADMAP B.B2")
-    qi, si = _quantize_rows(ziT)
-    qu, su = _quantize_rows(zuT)
-    yuT, yiT = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
-    return yuT * si, yiT * su
+    return _QuantFusedDualT.apply(m, ziT, zuT)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +251,8 @@ def fused_chain_t(
     """K applications of Â in transposed [d, N] layout with one layout
     transpose at each end, each application one K1 sweep between two K3
     quantizations, the epilogue in PyTorch (counterpart of the JAX
-    fused_chain_t, forward only).
+    fused_chain_t). Differentiable in ``emb0`` by autograd through
+    `quant_fused_dual_t`.
 
     reduce: 'mean' | 'sum' over the layer stack, or None for the
     per-layer list in [N, d] layout. The activation chains, the user
@@ -241,7 +261,7 @@ def fused_chain_t(
         raise NotImplementedError("activation and self-loop chains are ROADMAP B.B4")
     nu, ni = adj.num_users, adj.num_items
     u_pad, i_pad = adj.padded_shape
-    xT = emb0.detach().to(torch.float32).T
+    xT = emb0.to(torch.float32).T
     hu = _pad_cols(xT[:, :nu], u_pad)
     hi = _pad_cols(xT[:, nu:], i_pad)
     ru = _pad_cols(adj.right_u, u_pad)[None, :]
