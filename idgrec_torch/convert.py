@@ -11,6 +11,11 @@ parameters); `torch.optim.Adam` holds ``step``, ``exp_avg`` and
 ``exp_avg_sq`` per parameter. `adam_state_to_numpy` and
 `load_adam_state` map one onto the other, so both packages can take the
 same step from the same state.
+
+`load_jax_checkpoint` reads a checkpoint written by the JAX package's
+``train_model(checkpoint_dir=...)`` into the port's model and Adam: the
+way trained weights cross, train in one package and serve from the
+other.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from idgrec_torch.engine import checkpoint as ckpt
 
 EMBEDDING_KEYS = ("user_emb", "item_emb")
 
@@ -84,3 +91,46 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, count: 
             "exp_avg": put(mu[k]),
             "exp_avg_sq": put(nu[k]),
         }
+
+
+# A JAX checkpoint's tree is {"opt_state", "params", "rng", "state"},
+# flattened in sorted key order. For a model whose parameters are the
+# two tables and whose state is empty, under optax.adam, the leaves are
+#   0      opt_state: ScaleByAdamState.count
+#   1, 2   opt_state: mu {item_emb, user_emb}
+#   3, 4   opt_state: nu {item_emb, user_emb}
+#   5, 6   params {item_emb, user_emb}
+#   7      rng: the JAX key
+JAX_NUM_LEAVES = 8
+_TABLE_ORDER = ("item_emb", "user_emb")
+
+
+def split_adam_and_params(leaves) -> tuple[int, dict, dict, dict]:
+    """(count, mu, nu, params) from the first seven leaves of a
+    checkpoint in the layout above, which the port's own checkpoints
+    share (engine/checkpoint.py)."""
+    if len(leaves) < 7 or np.ndim(leaves[0]) > 1 or np.size(leaves[0]) != 1:
+        raise ValueError("not a checkpoint of two embedding tables under Adam: "
+                         f"{len(leaves)} leaves, first of shape {np.shape(leaves[0])}")
+    mu, nu, params = (dict(zip(_TABLE_ORDER, leaves[i : i + 2])) for i in (1, 3, 5))
+    return int(np.asarray(leaves[0]).reshape(())), mu, nu, params
+
+
+def load_jax_checkpoint(model: torch.nn.Module, optimizer: torch.optim.Adam | None,
+                        directory: str, epoch: int | None = None) -> dict:
+    """Load a checkpoint written by the JAX package's ``train_model``
+    into ``model`` and, when given, ``optimizer`` (Adam's step and
+    moments). ``epoch`` defaults to the latest. Reads numpy only; the
+    JAX key in the checkpoint has no counterpart and is left behind.
+    Returns the sidecar (``epoch``, ``best``, ...)."""
+    epoch = ckpt.resolve_epoch(directory, epoch)
+    leaves, meta = ckpt.read_checkpoint(directory, epoch)
+    if len(leaves) != JAX_NUM_LEAVES:
+        raise ValueError(
+            f"{directory}/ckpt_{epoch}.npz has {len(leaves)} leaves; a JAX checkpoint of "
+            f"two embedding tables under Adam has {JAX_NUM_LEAVES}")
+    count, mu, nu, params = split_adam_and_params(leaves)
+    load_jax_params(model, params)
+    if optimizer is not None:
+        load_adam_state(optimizer, model, count, mu, nu)
+    return meta

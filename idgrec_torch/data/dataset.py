@@ -1,6 +1,6 @@
 """Interaction dataset loader (the port's own copy of
-idgrec_tpu/data/dataset.py, reduced to what serving, training and
-evaluation need).
+idgrec_tpu/data/dataset.py, reduced to what serving, training,
+evaluation and the run harness need).
 
 Reads the reference dataset format, one line per user
 ``uid iid iid ...``, and keeps the CSR user->item structure as numpy
@@ -209,6 +209,41 @@ class Dataset:
         for r, l in enumerate(lists):
             out[r, : len(l)] = l
         return out
+
+    def create_sparsity_split(self) -> tuple[list[list[int]], list[str]]:
+        """Quartile split of test users by interaction count, with the
+        reference's accounting (boundary handling and the trailing split
+        emission) so sparsity studies stay comparable. Returns the user
+        groups and one log line per group."""
+        all_users = list(self.test_dict.keys())
+        user_n_iid: dict[int, list[int]] = {}
+        for uid in all_users:
+            num_iids = len(self.positive_items(uid)) + len(self.test_dict[uid])
+            user_n_iid.setdefault(num_iids, []).append(uid)
+
+        split_uids: list[list[int]] = []
+        split_state: list[str] = []
+        temp: list[int] = []
+        total = self.num_train + self.num_test
+        n_count = total
+        n_rates = 0
+
+        def emit(n_iids):
+            split_uids.append(temp)
+            split_state.append("\t #inter per user<=[%d], #users=[%d], #all rates=[%d]"
+                               % (n_iids, len(temp), n_rates))
+
+        for idx, n_iids in enumerate(sorted(user_n_iid)):
+            temp += user_n_iid[n_iids]
+            n_rates += n_iids * len(user_n_iid[n_iids])
+            n_count -= n_iids * len(user_n_iid[n_iids])
+            if n_rates >= 0.25 * total:
+                emit(n_iids)
+                temp = []
+                n_rates = 0
+            if idx == len(user_n_iid) - 1 or n_count == 0:
+                emit(n_iids)
+        return split_uids, split_state
 
 
 def make_synthetic_dataset(

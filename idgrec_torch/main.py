@@ -1,0 +1,123 @@
+"""Program entry: ``python -m idgrec_torch.main --model=LightGCN``
+(counterpart of idgrec_tpu/main.py).
+
+The same flags as the JAX package's CLI (--model, --seed, --seed_flag,
+--dataset, --dataset_path, --configure_dir, --log_dir, --epochs,
+--checkpoint_dir, --profile_dir, --mesh, --data_parallel), the same
+numbered model menu when no model is given (without a terminal: the
+listing and exit code 2 instead of a blocking prompt), per-model config
+files in the same ``key = value`` format, the same log layout. One flag
+more: ``--device`` (default the card; ``cpu`` runs the kernels' plain
+versions).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="ID-GRec-Torch")
+    parser.add_argument("--seed_flag", type=bool, default=True, help="Fix random seed or not")
+    parser.add_argument("--seed", type=int, default=2024, help="random seed for init")
+    parser.add_argument("--model", type=str, default="unknown", help="model name")
+    parser.add_argument("--dataset", type=str, default=None,
+                        help="override the config's dataset name")
+    parser.add_argument("--dataset_path", type=str, default=None,
+                        help="override the config's dataset root")
+    parser.add_argument("--configure_dir", type=str, default=None,
+                        help="directory of <model>.txt config files")
+    parser.add_argument("--log_dir", type=str, default="log")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="override training_epochs")
+    parser.add_argument("--checkpoint_dir", type=str, default=None,
+                        help="save checkpoints and resume from the latest one")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of one epoch here")
+    parser.add_argument("--mesh", type=str, default="auto", choices=["auto", "off"],
+                        help="auto: shard over all visible cards when >1 "
+                             "(not ported: raises); off: single-device")
+    parser.add_argument("--data_parallel", type=int, default=None,
+                        help="data-axis width of the mesh")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+
+    print("ID-GRec-Torch: the PyTorch/CUDA port of the framework for ID-based graph "
+          "recommendation")
+    print("-" * 100)
+
+    import torch
+
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.data.dataset import Dataset
+    from idgrec_torch.device import resolve_device
+    from idgrec_torch.engine.loop import train_model
+    from idgrec_torch.models import available_models
+
+    models = available_models()
+    if args.model == "unknown":
+        print("Available models:")
+        for i, name in enumerate(models, start=1):
+            print(f"\t {i}. {name}")
+        if sys.stdin.isatty():
+            while True:
+                selected = input("Please input the identifier or name of the model:")
+                if selected in models:
+                    args.model = selected
+                    break
+                try:
+                    idx = int(selected)
+                    if 1 <= idx <= len(models):
+                        args.model = models[idx - 1]
+                        break
+                except ValueError:
+                    pass
+                print("Input Error. Please select from the list of implemented models.")
+        else:
+            print("error: pass --model=<NAME> (no interactive terminal)")
+            return 2
+
+    config = load_model_config(args.model, args.configure_dir)
+    if args.dataset:
+        config.set("dataset", args.dataset)
+    if args.dataset_path:
+        config.set("dataset_path", args.dataset_path)
+    if args.epochs is not None:
+        config.set("training_epochs", args.epochs)
+
+    data_dir = os.path.join(config.str("dataset_path"), config.str("dataset"))
+    print(f"Loading dataset from {data_dir} ...")
+    data = Dataset.load(data_dir, name=config.str("dataset"))
+    print(data.get_statistics())
+
+    device = resolve_device(args.device)
+    if args.mesh == "auto" and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"--mesh auto with {torch.cuda.device_count()} visible cards: sharded training "
+            "is ROADMAP A.9; pass --mesh off to train on one card")
+
+    seed = args.seed if args.seed_flag else None
+    result = train_model(
+        args.model,
+        data,
+        config=config,
+        seed=seed,
+        log_dir=args.log_dir,
+        checkpoint_dir=args.checkpoint_dir,
+        profile_dir=args.profile_dir,
+        device=device,
+    )
+    print("Best epoch:", result.best.epoch,
+          "Best recall:", result.best.recall, "Best NDCG:", result.best.ndcg)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,5 @@
 """Model zoo of the port. Importing this package registers every ported
-model (LightGCN so far; ROADMAP A.9 lists the rest)."""
+model (LightGCN so far; ROADMAP A.7 lists the rest)."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model

@@ -50,6 +50,12 @@ class RecModel(nn.Module):
 
     model_name: str = "RecModel"
     loss_names: Sequence[str] = ("loss",)
+    # run-harness contract (engine/loop.py): whether early stopping ends
+    # the run, how an epoch is batched ("bpr_triples" or "user_rows"),
+    # and how many graph aggregations a step makes (throughput model)
+    respects_early_stop: bool = True
+    batching: str = "bpr_triples"
+    aggregates_per_step: int = 1
 
     def __init__(self, config: Config, data: Dataset, *, device=None,
                  generator: torch.Generator | None = None):
@@ -78,6 +84,11 @@ class RecModel(nn.Module):
         ``batch`` holds int64 [B] tensors "user", "pos", "neg" on the
         model's device. Fixed arity."""
         raise NotImplementedError
+
+    def epoch_context(self, epoch: int, np_rng: np.random.Generator) -> Any:
+        """Per-epoch host-side setup before the epoch's steps (nothing
+        for a model with a fixed graph)."""
+        return ()
 
     def eval_embeddings(self) -> Any:
         """Representation used for full-catalog scoring, computed once
@@ -112,7 +123,7 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
     reduce='mean' + include_layer0 is canonical LightGCN. The quantized
     fused backend runs the chain through kernels K1-K3 (ops/chainmm.py);
     with no layer, the combine is emb0 alone. Other backends, and the
-    per-application loop over graph.matmul, are ROADMAP A.3/A.4."""
+    per-application loop over graph.matmul, are ROADMAP A.4."""
     if reduce not in ("mean", "sum"):
         raise ValueError(f"unknown reduce {reduce!r}")
     if num_layers == 0:
@@ -126,8 +137,8 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
     if _chainmm.supports_chain_resident(graph, emb0.shape[1], num_layers, reduce, None):
         return _chainmm.fused_chain_resident(graph, emb0, num_layers, include_layer0, reduce)
     raise NotImplementedError(
-        "propagation outside the int8 fused chain (the per-application "
-        "loop over graph.matmul) is ROADMAP A.3/A.4")
+        "propagation outside the quantized fused chain (the per-application "
+        "loop over graph.matmul) is ROADMAP A.4")
 
 
 def batch_final_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,

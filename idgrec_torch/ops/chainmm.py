@@ -9,6 +9,8 @@ each a hand-written kernel:
 
     K3 quantize_rows (ops/propagate.py)   z -> int8 q, per-feature scale
     K1 dual_int8_t   (ops/fusedmm.py)     one read of M, both directions
+       (K5 dual_int4_t when the adjacency is nibble-packed: the chain's
+       int4 mode, the same activations and the same integer products)
     K2 chain_sweep_epilogue (this module) dequantize, normalize, combine,
                                           next input and its amax
 
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import torch
 
@@ -159,28 +161,32 @@ chain_sweep_inject.launches = 0
 
 
 class ChainOps(NamedTuple):
-    """The per-sweep operations of the chain."""
+    """The per-sweep operations of the chain; the dual by the
+    adjacency's ``quant``."""
 
-    dual: Callable
+    dual: Mapping[str, Callable]
     quantize: Callable
     epilogue: Callable
     inject: Callable
 
 
-KERNELS = ChainOps(fusedmm.fused_adj_matmul_int8_t, propagate.quantize_rows,
-                   chain_sweep_epilogue, chain_sweep_inject)
-PLAIN = ChainOps(fusedmm.fused_adj_matmul_int8_t_plain, propagate.quantize_rows_plain,
-                 chain_sweep_epilogue_plain, chain_sweep_inject_plain)
+KERNELS = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t,
+                    "int4": fusedmm.fused_adj_matmul_int4_t},
+                   propagate.quantize_rows, chain_sweep_epilogue, chain_sweep_inject)
+PLAIN = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t_plain,
+                  "int4": fusedmm.fused_adj_matmul_int4_t_plain},
+                 propagate.quantize_rows_plain, chain_sweep_epilogue_plain,
+                 chain_sweep_inject_plain)
 
 
 def supports_chain_resident(adj, d: int, num_layers: int, reduce: str | None,
                             activation, include_layer0: bool = True,
                             seed: bool = False) -> bool:
-    """Whether `fused_chain_resident` can run this chain: the int8 fused
-    backend, no self-loop diag, a reduce mode, at least one layer, and
+    """Whether `fused_chain_resident` can run this chain: the int8 or
+    int4 fused backend, no self-loop diag, a reduce mode, at least one layer, and
     no activation or seed (the tanh chains are ROADMAP B.B4). The TPU's
     VMEM budget and mesh checks have no counterpart here."""
-    if not isinstance(adj, propagate.FusedSquareAdj) or adj.quant != "int8":
+    if not isinstance(adj, propagate.FusedSquareAdj) or adj.quant not in KERNELS.dual:
         return False
     if num_layers < 1 or reduce not in ("mean", "sum"):
         return False
@@ -213,7 +219,7 @@ def _run_chain(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int,
     for k in range(num_layers):
         qu, su = ops.quantize(zu, amax_u)
         qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual(adj.m8, qu, qi)
+        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
         combine = COMBINE_ADD if (include_layer0 or k > 0) else COMBINE_SET
         more = k < num_layers - 1
         # yu = M @ qi dequantizes by the item input's scale, yi by the user's
@@ -242,7 +248,7 @@ def _run_chain_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, num_layers: int,
     for k in range(num_layers):
         qu, su = ops.quantize(zu, amax_u)
         qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual(adj.m8, qu, qi)
+        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
         more = k < num_layers - 1
         inject = include_layer0 or more
         zu, amax_u = ops.inject(yu, si[:, 0], ru, lu, gu, inject, more)

@@ -1,13 +1,15 @@
 """Graph propagation: the quantized fused backend (the port's counterpart
-of idgrec_tpu/ops/propagate.py, int8 only).
+of idgrec_tpu/ops/propagate.py, the int8 and int4 modes).
 
 Every normalization factors as Â = diag(L) · [[0, M], [Mᵀ, 0]] · diag(R)
 with M the integer interaction-count matrix, stored as dense int8
-[U_pad, I_pad] on the device. In the quantized mode each application
-quantizes the right-scaled activations per feature to int8, runs both
-directions of M as int8 products (kernel K1, ops/fusedmm.py) and
-dequantizes. Activations live in the transposed [d, N] layout for the
-whole chain.
+[U_pad, I_pad] on the device, or in the int4 mode nibble-packed as
+[U_pad, I_pad // 2] (`fusedmm.pack_nibbles`). In the quantized modes
+each application quantizes the right-scaled activations per feature to
+int8, runs both directions of M as int8 products (kernel K1 or, on the
+packed matrix, K5; ops/fusedmm.py) and dequantizes. int4 changes the
+storage only: its results equal int8's bit for bit. Activations live in
+the transposed [d, N] layout for the whole chain.
 
 This module holds kernel K3 (`quantize_rows`, csrc/quantize_rows.cu)
 beside its plain version, the per-sweep chain `fused_chain_t`, and
@@ -157,10 +159,13 @@ def _quantize_rows(zT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return quantize_rows(zT, zT.abs().amax(dim=1))
 
 
-def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor):
+_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
+
+
+def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor, quant: str):
     qi, si = _quantize_rows(ziT.contiguous())
     qu, su = _quantize_rows(zuT.contiguous())
-    yuT, yiT = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
+    yuT, yiT = _DUALS[quant](m, qu, qi)
     return yuT * si, yiT * su
 
 
@@ -169,24 +174,25 @@ class _QuantFusedDualT(torch.autograd.Function):
     the same function on the swapped cotangents."""
 
     @staticmethod
-    def forward(ctx, m, ziT, zuT):
-        ctx.m = m
-        return _qfdt_impl(m, ziT, zuT)
+    def forward(ctx, m, ziT, zuT, quant):
+        ctx.m, ctx.quant = m, quant
+        return _qfdt_impl(m, ziT, zuT, quant)
 
     @staticmethod
     def backward(ctx, g_yuT, g_yiT):
-        dzuT, dziT = _qfdt_impl(ctx.m, g_yiT, g_yuT)
-        return None, dziT, dzuT
+        dzuT, dziT = _qfdt_impl(ctx.m, g_yiT, g_yuT, ctx.quant)
+        return None, dziT, dzuT, None
 
 
 def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
                        quant: str = "int8") -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ q8(zi), Mᵀ @ q8(zu)) in transposed layout: ziT [d, I_pad],
     zuT [d, U_pad] -> (yuT [d, U_pad], yiT [d, I_pad]) f32, with the
-    straight-through quantized backward."""
-    if quant != "int8":
-        raise NotImplementedError(f"quant {quant!r}: the int4 kernels are ROADMAP B.B2")
-    return _QuantFusedDualT.apply(m, ziT, zuT)
+    straight-through quantized backward. ``quant`` 'int4' takes the
+    nibble-packed matrix [U_pad, I_pad // 2] and gives the same values."""
+    if quant not in _DUALS:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    return _QuantFusedDualT.apply(m, ziT, zuT, quant)
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +201,10 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
 @dataclass(frozen=True)
 class FusedSquareAdj:
     """Square normalized adjacency over int8 M [U_pad, I_pad], both
-    directions from one sweep of M per application (kernel K1)."""
+    directions from one sweep of M per application (kernel K1; K5 when
+    ``quant`` is 'int4' and M is stored nibble-packed)."""
 
-    m8: torch.Tensor       # int8 [U_pad, I_pad] from fusedmm.pad_matrix
+    m8: torch.Tensor       # int8 [U_pad, I_pad] from fusedmm.pad_matrix, or packed [U_pad, I_pad // 2]
     left_u: torch.Tensor   # f32 [U]
     left_i: torch.Tensor   # f32 [I]
     right_u: torch.Tensor  # f32 [U]
@@ -216,7 +223,10 @@ class FusedSquareAdj:
 
     @property
     def padded_shape(self) -> tuple[int, int]:
-        return tuple(self.m8.shape)
+        """Logical padded [U_pad, I_pad]: the int4 matrix is stored at
+        half the column width."""
+        u_pad, cols = self.m8.shape
+        return (u_pad, 2 * cols if self.quant == "int4" else cols)
 
     @property
     def device(self) -> torch.device:
@@ -225,14 +235,16 @@ class FusedSquareAdj:
 
 def supports_chain_t(graph, d: int | None = None) -> bool:
     """True when `fused_chain_t` applies: the quantized fused backend
-    with a matrix and width the K1 kernel's geometry covers."""
-    if not isinstance(graph, FusedSquareAdj) or graph.quant != "int8":
+    with a matrix and width the geometry of K1 (int8) or K5 (int4)
+    covers."""
+    if not isinstance(graph, FusedSquareAdj) or graph.quant not in _DUALS:
         return False
     u_pad, i_pad = graph.padded_shape
-    if i_pad % fusedmm.TI != 0 or fusedmm.pick_row_tile(u_pad) is None:
+    col_mult = fusedmm.PACK_TILE if graph.quant == "int4" else fusedmm.TI
+    if i_pad % col_mult != 0 or fusedmm.pick_row_tile(u_pad) is None:
         return False
     if d is not None and graph.device.type == "cuda":
-        return fusedmm.kernel_accepts(u_pad, i_pad, d)
+        return fusedmm.kernel_accepts(u_pad, i_pad, d, graph.quant)
     return True
 
 
@@ -345,10 +357,15 @@ def build_adjacency(
 ) -> FusedSquareAdj:
     """Normalized square adjacency on ``device`` (default the card).
 
-    Ported: variant 'sym' in compute_dtype 'int8' on the fused backend.
-    The matrix is padded to (TU, TI) multiples whatever ``emb_size``:
-    the JAX package's wider PANEL padding exists only for its TPU
-    panelized kernel."""
+    Ported: variant 'sym' in compute_dtype 'int8' or 'int4' on the
+    fused backend. The matrix is padded to (TU, TI) multiples whatever
+    ``emb_size``: the JAX package's wider PANEL padding exists only for
+    its TPU panelized kernel. int4 pads the columns to
+    `fusedmm.PACK_TILE`, refuses counts above `fusedmm.NIBBLE_MAX` and
+    packs the matrix on the device; its rows keep the TU multiple (the
+    JAX package pads them to 2,048, a tile preference of its TPU
+    kernel), so an int4 and an int8 adjacency differ in stored columns
+    only."""
     dev = resolve_device(device)
     _, quant = _split_quant(compute_dtype)
     backend = resolve_backend(data, backend, copies=3 if with_transpose else 1,
@@ -356,15 +373,13 @@ def build_adjacency(
     if quant == "none":
         raise NotImplementedError(
             f"compute_dtype = {compute_dtype}: exact-mode propagation "
-            "(DenseSquareAdj, GatherSquareAdj) is ROADMAP A.3")
-    if quant == "int4":
-        raise NotImplementedError("compute_dtype = int4: the nibble-packed kernels are ROADMAP B.B2")
+            "(DenseSquareAdj, GatherSquareAdj) is ROADMAP A.4")
     if backend != "fused":
         raise NotImplementedError(
-            f"backend {backend!r} with compute_dtype = int8: only the fused "
-            "backend is ported (dense/gather: ROADMAP A.3, bitpack: A.10)")
+            f"backend {backend!r} with compute_dtype = {compute_dtype}: only the fused "
+            "backend is ported (dense/gather: ROADMAP A.4, bitpack: ROADMAP A.8)")
     if variant != "sym":
-        raise NotImplementedError(f"variant {variant!r}: only 'sym' is ported (ROADMAP A.3)")
+        raise NotImplementedError(f"variant {variant!r}: only 'sym' is ported (ROADMAP A.4)")
     if with_transpose:
         logging.getLogger("idgrec_torch").warning(
             "with_transpose (batch-rows partial propagation) is not available "
@@ -375,6 +390,14 @@ def build_adjacency(
     lu, li = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
     zeros_u = torch.zeros(nu, dtype=torch.float32, device=dev)
     zeros_i = torch.zeros(ni, dtype=torch.float32, device=dev)
-    m8 = fusedmm.pad_matrix(_count_matrix_int8(data, dev), fusedmm.TI,
+    item_mult = fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI
+    m8 = fusedmm.pad_matrix(_count_matrix_int8(data, dev), item_mult,
                             row_multiple=fusedmm.TU)
+    if quant == "int4":
+        top = int(m8.max()) if m8.numel() else 0
+        if top > fusedmm.NIBBLE_MAX:
+            raise ValueError(
+                "compute_dtype = int4 requires interaction counts "
+                f"<= {fusedmm.NIBBLE_MAX} (got {top}); use int8")
+        m8 = fusedmm.pack_nibbles(m8)
     return FusedSquareAdj(m8, lu, li, lu, li, zeros_u, zeros_i, nu, ni, False, quant)

@@ -12,9 +12,12 @@ A `Recommender` wraps a model and answers top-K requests:
 
 Example:
 
-    model = get_model("LightGCN")(cfg, data)          # on the card
-    rec = Recommender(model, data)
+    rec = Recommender.from_train_result("LightGCN", data, cfg, result)
     items, scores = rec.recommend([1, 17, 42], k=10)
+
+`Recommender.from_checkpoint` serves from a directory of training
+checkpoints, the deploy path: train in one process, recommend from the
+saved weights in another.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from idgrec_torch import convert
+from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
+from idgrec_torch.engine import checkpoint as ckpt
+from idgrec_torch.models import get_model
 
 _MASK_VALUE = -1e9
 
@@ -56,6 +63,30 @@ class Recommender:
             slots = np.arange(data.nnz) - np.repeat(data.row_ptr[:-1], deg)
             excl[rows, slots] = data.col_idx
         self._excl = excl
+
+    @classmethod
+    def from_train_result(cls, model_name: str, data: Dataset, config: Config, result,
+                          device=None, **kw) -> "Recommender":
+        """Serve the tables of a `train_model` result from a new model
+        on ``device`` (default the card)."""
+        model = get_model(model_name)(config, data, device=device)
+        model.load_state_dict({k: v.detach().to(model.device) for k, v in result.params.items()})
+        return cls(model, data, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, model_name: str, data: Dataset, config: Config,
+                        checkpoint_dir: str, epoch: int | None = None, device=None,
+                        **kw) -> "Recommender":
+        """Serve from a training checkpoint written by
+        ``train_model(checkpoint_dir=...)`` of this package or of the
+        JAX package: both keep Adam's state and the tables in the same
+        first seven leaves. Loads the latest checkpoint unless ``epoch``
+        picks one."""
+        epoch = ckpt.resolve_epoch(checkpoint_dir, epoch)
+        model = get_model(model_name)(config, data, device=device)
+        leaves, _meta = ckpt.read_checkpoint(checkpoint_dir, epoch)
+        convert.load_jax_params(model, convert.split_adam_and_params(leaves)[3])
+        return cls(model, data, **kw)
 
     def _score_impl(self, repr_, users: torch.Tensor, excl_rows: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where one LightGCN int8 training step of the port spends its time, on
-one NVIDIA GPU.
+"""Where one LightGCN training step of the port spends its time, on one
+NVIDIA GPU, in int8 or int4.
 
-    python3 scripts/torch_step_profile.py [--steps 40]
+    python3 scripts/torch_step_profile.py [--steps 40] [--compute_dtype int8|int4]
 
 Builds the yelp2018-scale model of chip_smoke.py, warms up, then
 
@@ -48,7 +48,9 @@ BATCH = 2048
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=40)
-    steps = parser.parse_args().steps
+    parser.add_argument("--compute_dtype", default="int8", choices=["int8", "int4"])
+    args = parser.parse_args()
+    steps = args.steps
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -60,7 +62,8 @@ def main() -> int:
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-scale")
     cfg = load_model_config("LightGCN").updated(embedding_size=64, GCN_layer=3,
-                                                compute_dtype="int8", batch_size=BATCH)
+                                                compute_dtype=args.compute_dtype,
+                                                batch_size=BATCH)
     model = get_model("LightGCN")(cfg, data, device=dev,
                                   generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -119,7 +122,7 @@ def main() -> int:
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
     device_ms = sum(by_kernel.values())
-    result = {"card": card, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+    result = {"card": card, "compute_dtype": args.compute_dtype, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)

@@ -1,10 +1,12 @@
-"""Kernels K1-K4 against their plain PyTorch versions on the card.
+"""Kernels K1-K5 against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU with nvcc (the kernels build at first use);
 without one they skip with a reason. Run them on the card with
-``python -m pytest tests/test_torch_cuda.py``.
+``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
-Tolerances: K1's raw integer products are equal; K3 and K2 are
+Tolerances: K1's and K5's raw integer products are equal to their plain
+versions', and K5's to K1's on the unpacked matrix; the int4 chain and
+its gradient are bit-equal to the int8 chain's; K3 and K2 are
 bit-equal (IEEE division, round-half-even, no FMA contraction, an
 order-free max), K2's inject mode too; K4 is bit-equal (no atomics:
 duplicates are added in batch order); the 3-sweep chain and its
@@ -182,3 +184,83 @@ def test_training_step_gradients_equal_plain_path(cuda, monkeypatch):
     want = grads()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _counts(rng, u_pad, i_pad, density, top):
+    mask = rng.random((u_pad, i_pad)) < density
+    return torch.from_numpy(np.where(mask, rng.integers(1, top + 1, (u_pad, i_pad)), 0)
+                            .astype(np.int8))
+
+
+@pytest.mark.parametrize("u_pad,i_pad,density,top", [
+    (3072, 4096, 0.02, 3),      # sparse counts, two tiles, several strips and row shares
+    (1024, 2048, 1.0, 7),       # dense at the largest count: no tile is skipped
+    (64, 2048, 0.3, 7),         # one chunk
+    (2048, 2048, 0.0, 1),       # all zero
+    (31744, 38912, 0.001, 1),   # the full shape of the yelp2018-scale matrix
+])
+def test_k5_equals_plain_and_k1(cuda, u_pad, i_pad, density, top):
+    rng = np.random.default_rng(0)
+    m = _counts(rng, u_pad, i_pad, density, top).to(cuda)
+    m4 = fusedmm.pack_nibbles(m)
+    assert m4.shape == (u_pad, i_pad // 2) and torch.equal(fusedmm.unpack_nibbles(m4), m)
+    qu, qi = _int8(rng, (64, u_pad)).to(cuda), _int8(rng, (64, i_pad)).to(cuda)
+    before = fusedmm.fused_adj_matmul_int4_t.launches
+    got = fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)
+    assert fusedmm.fused_adj_matmul_int4_t.launches == before + 1
+    for a, b, c in zip(got, fusedmm.fused_adj_matmul_int4_t_plain(m4, qu, qi),
+                       fusedmm.fused_adj_matmul_int8_t(m, qu, qi)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_k5_unpacks_high_nibbles_above_seven(cuda):
+    """A byte whose high nibble is 8..15 is negative as int8: the
+    kernel unpacks unsigned, as `unpack_nibbles` does."""
+    rng = np.random.default_rng(1)
+    m4 = torch.from_numpy(rng.integers(-128, 128, (128, 1024)).astype(np.int8)).to(cuda)
+    qu, qi = _int8(rng, (64, 128)).to(cuda), _int8(rng, (64, 2048)).to(cuda)
+    for a, b in zip(fusedmm.fused_adj_matmul_int4_t(m4, qu, qi),
+                    fusedmm.fused_adj_matmul_int4_t_plain(m4, qu, qi)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "alignment", "width", "columns", "rows"])
+def test_k5_rejects_what_it_does_not_take(cuda, case):
+    def z(shape, dtype=torch.int8):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    m4, qu, qi = z((1024, 1024)), z((64, 1024)), z((64, 2048))
+    if case == "dtype":
+        qu = z((64, 1024), torch.uint8)
+    elif case == "shape":
+        qi = z((64, 1024))              # the stored, not the logical, column count
+    elif case == "alignment":
+        qu = z((64 * 1024 + 1,))[1:].view(64, 1024)
+    elif case == "width":
+        qu, qi = z((32, 1024)), z((32, 2048))
+    elif case == "columns":
+        m4, qi = z((1024, 512)), z((64, 1024))   # I_pad = 1,024 is not a PACK_TILE multiple
+    else:
+        m4, qu = z((96, 1024)), z((64, 96))
+    with pytest.raises(ValueError):
+        fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)
+
+
+def test_int4_chain_and_gradient_equal_int8(cuda):
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj8 = propagate.build_adjacency(data, compute_dtype="int8", emb_size=64, device=cuda)
+    adj4 = propagate.build_adjacency(data, compute_dtype="int4", emb_size=64, device=cuda)
+    assert adj4.quant == "int4" and adj4.padded_shape == (3072, 6144)
+    assert chainmm.supports_chain_resident(adj4, 64, 3, "mean", None)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = (torch.rand(data.num_nodes, 64, generator=g) - 0.5).to(cuda)
+    cot = (torch.randn(data.num_nodes, 64, generator=g) / 512).to(cuda)
+    outs = []
+    for adj, fn in ((adj8, chainmm.fused_chain_resident), (adj4, chainmm.fused_chain_resident),
+                    (adj4, chainmm.fused_chain_resident_plain)):
+        xx = x.clone().requires_grad_(True)
+        out = fn(adj, xx, 3)
+        out.backward(cot)
+        outs.append((out.detach(), xx.grad))
+    for out, grad in outs[1:]:
+        assert torch.equal(out, outs[0][0]) and torch.equal(grad, outs[0][1])

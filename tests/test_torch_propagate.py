@@ -158,7 +158,7 @@ def test_resolve_backend_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(compute_dtype="bfloat16"), dict(compute_dtype="float32"),
-    dict(compute_dtype="int4"), dict(compute_dtype="int8", backend="gather"),
+    dict(compute_dtype="int4", backend="bitpack"), dict(compute_dtype="int8", backend="gather"),
     dict(compute_dtype="int8", backend="dense"), dict(compute_dtype="int8", variant="self"),
 ])
 def test_unported_paths_raise(kw):
