@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K5 from idgrec_torch/csrc and holds
+Builds the hand-written kernels K1-K8 from idgrec_torch/csrc and holds
 each against its plain PyTorch version at the shapes of the main paths:
-LightGCN (d=64, 3 layers, int8 and int4 chains) over the yelp2018-scale
-synthetic dataset, random weights from a seed. K5 (the dual product on
-the nibble-packed matrix) is also held to K1 on the unpacked matrix, and
-the int4 chain, backward chain and one step's gradients to int8's, all
-exactly. Then it drives the paths, each with the launch counts set to 0
-just before and read just after:
+LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode)
+over the yelp2018-scale synthetic dataset, random weights from a seed.
+K5 (the dual product on the nibble-packed matrix) is also held to K1 on
+the unpacked matrix, and the int4 chain, backward chain and one step's
+gradients to int8's, all exactly. K7 and K8 (the per-application duals
+in [N, d] layout) are held to K1 and K5 on the transposed activations,
+and three `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
+K6 (the bfloat16 dual) to its plain version within a stated tolerance,
+bit-equal across two launches, and its backward to autograd through the
+plain version. Then it drives the paths, each with the launch counts set
+to 0 just before and read just after:
 
 * serving, int8: `serving.Recommender` answers four requests, checked
   against the plain path;
@@ -25,7 +30,18 @@ just before and read just after:
   items, checked against the plain path;
 * the command lines: `idgrec_torch.main` trains and
   `idgrec_torch.serve` serves, in process, on a 2,000 x 3,000 dataset
-  written to a temporary directory.
+  written to a temporary directory;
+* the exact mode, bfloat16 on the fused backend (every layer, forward
+  and backward, one launch of K6): `serving.Recommender` answers the
+  four requests, checked against the float32 gather model with the same
+  weights; two runs of 128 full steps through `EpochRunner`, the BPR
+  sum falling; one `Evaluator.evaluate` sweep;
+* the other exact backends (dense bfloat16, dense float32, gather
+  float32): eval embeddings held to each other, then a few tens of
+  steps each; no kernel of the port runs in them;
+* LightGCN int8 and int4 at embedding_size 128, a width the chain's
+  kernels decline: a few steps through the per-application loop, K7 and
+  K8 in both directions.
 
 It times each kernel beside its bound, its plain version and a library
 call, and the paths end to end.
@@ -60,8 +76,9 @@ REQUEST_SIZES = (1, 17, 256, 2048)
 BATCH, EPOCHS, TOP_KS = 2048, 2, (10, 20)
 # the command-line phase: users, items, train, test of its dataset
 QUICK = (2000, 3000, 60_000, 10_000)
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s
-PEAKS = {"H100": (3.35e12, 1979e12)}
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s,
+# dense bf16 ops/s
+PEAKS = {"H100": (3.35e12, 1979e12, 989e12)}
 # tolerances: K1's raw integer products, K3's scales and integers, the
 # 3-layer chain and the served scores are equal to the plain versions'
 # (K2 is built with -fmad=false and keeps the plain operation order);
@@ -73,8 +90,28 @@ PEAKS = {"H100": (3.35e12, 1979e12)}
 # chain and one step's gradients and loss terms are equal to int8's;
 # the two Recommender constructors of the run harness serve equal items
 # and scores.
+# K7's and K8's raw integer products are equal to their plain versions',
+# to K1's and K5's on the transposed activations and to each other;
+# three `FusedSquareAdj.matmul` calls equal the chain's layers. K6 is
+# within TIGHT of its plain version (identical bfloat16 operands, exact
+# products: only the order of the float32 additions differs) and equal
+# across two launches; its backward is within BF16 of the largest
+# gradient of autograd through the plain version (the kernel rounds the
+# cotangent to bfloat16 going in, autograd rounds the gradient coming
+# out). The bfloat16 model's scores are within BF16_SCORE of the float32
+# gather model's for the same weights (logits below 0.01 at these random
+# weights, three layers of operands rounded at 2**-9), and its served
+# ids equal except among such scores. Eval embeddings: dense float32
+# against gather within F32_SUM of the largest entry, bfloat16 dense
+# against bfloat16 fused within TIGHT, bfloat16 against float32 within
+# BF16 of the largest entry.
 TIGHT = dict(rtol=3e-5, atol=3e-6)
 TIE = 1e-5
+BF16 = 2.0 ** -7
+BF16_SCORE = 2e-5
+F32_SUM = 1e-5
+# the exact paths: steps of 2,048 triples per run
+BF16_STEPS, OTHER_STEPS, WIDE_STEPS, WIDE_DIM = 128, 24, 12, 128
 
 
 def log(msg: str) -> None:
@@ -88,12 +125,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str) -> tuple[float, float, str]:
-    for key, (bw, ops) in PEAKS.items():
+def peaks_for(name: str) -> tuple[float, float, float, str]:
+    for key, (bw, ops, bf16_ops) in PEAKS.items():
         if key in name:
             note = "H100 SXM data sheet" + ("" if ("HBM3" in name or "SXM" in name)
                                            else " (assumed for this H100 variant)")
-            return bw, ops, note
+            return bw, ops, bf16_ops, note
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
@@ -217,6 +254,30 @@ def check_answers(ref_rec, data, users: np.ndarray, items, scores) -> None:
             "plain path outside ties")
 
 
+def check_answers_close(ref_rec, data, users: np.ndarray, items, scores, tol: float) -> None:
+    """`check_answers` against a reference model in another arithmetic:
+    each served score within ``tol`` of the reference's score of the
+    same item, ids equal except among reference scores within ``tol``
+    of the reference's at that rank."""
+    n = users.size
+    require(items.shape == (n, K) and scores.shape == (n, K), f"shape {items.shape}")
+    require(np.isfinite(scores).all(), "non-finite scores")
+    require(((items >= 0) & (items < data.num_items)).all(), "item id out of range")
+    require((np.diff(scores, axis=1) <= 0).all(), "scores not non-increasing")
+    for row, u in enumerate(users.tolist()):
+        seen = data.col_idx[data.row_ptr[u]: data.row_ptr[u + 1]]
+        require(not np.isin(items[row], seen).any(), f"user {u}: a train positive was served")
+    ref_items, ref_scores = ref_rec.recommend(users, k=K)
+    ratings = masked_ratings(ref_rec, users).cpu().numpy()
+    chosen = np.take_along_axis(ratings, items, axis=1)
+    err = float(np.abs(scores.astype(np.float64) - chosen).max())
+    require(err <= tol, f"served scores differ from the reference model's by {err} > {tol}")
+    near = np.abs(chosen - ref_scores) <= tol
+    require(((items == ref_items) | near).all(),
+            f"{int((~((items == ref_items) | near)).sum())} served ids differ from the "
+            f"reference model's outside scores within {tol}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -245,7 +306,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    bw, int8_ops, peak_note = peaks_for(name)
+    bw, int8_ops, bf16_ops, peak_note = peaks_for(name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks from the {peak_note}")
 
     # ---- build every kernel, one nvcc per source, all at once
@@ -487,7 +548,9 @@ def main() -> int:
                      chainmm.chain_sweep_inject, propagate.quantize_rows,
                      scatter.scatter_add_rows)
     int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
-    counters = int8_counters + (fusedmm.fused_adj_matmul_int4_t,)
+    n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
+                  fusedmm.fused_adj_matmul_int4)
+    counters = int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -522,8 +585,8 @@ def main() -> int:
     # ---- times, per sweep of the chain, beside bounds
     d = DIM
 
-    def bound(nbytes: float, ops: float) -> tuple[float, str]:
-        tb, to = nbytes / bw * 1e3, ops / int8_ops * 1e3
+    def bound(nbytes: float, ops: float, peak: float = int8_ops) -> tuple[float, str]:
+        tb, to = nbytes / bw * 1e3, ops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     k1_bytes = u_pad * i_pad + d * (u_pad + i_pad) + 4 * d * (u_pad + i_pad)
@@ -842,17 +905,313 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- K7 and K8, the per-application duals in [N, d] layout, on K1's and
+    # K5's inputs transposed: equal to their plain versions, to K1 and K5, and
+    # to each other
+    quN, qiN, qi4N = qu.T.contiguous(), qi.T.contiguous(), qi4.T.contiguous()
+    yu7, yi7 = fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN)
+    yu7_p, yi7_p = fusedmm.fused_adj_matmul_int8_plain(adj.m8, quN, qiN)
+    errs["K7"] = max(max_abs(yu7, yu7_p), max_abs(yi7, yi7_p))
+    require(torch.equal(yu7, yu7_p) and torch.equal(yi7, yi7_p),
+            f"K7 differs from its plain version: max abs err {errs['K7']}")
+    require(torch.equal(yu7, yu.T) and torch.equal(yi7, yi.T),
+            "K7 differs from K1 on the transposed activations")
+    yu8, yi8 = fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)
+    yu8_p, yi8_p = fusedmm.fused_adj_matmul_int4_plain(adj4.m8, quN, qi4N)
+    errs["K8"] = max(max_abs(yu8, yu8_p), max_abs(yi8, yi8_p))
+    require(torch.equal(yu8, yu8_p) and torch.equal(yi8, yi8_p),
+            f"K8 differs from its plain version: max abs err {errs['K8']}")
+    require(torch.equal(yu8, yu4.T) and torch.equal(yi8, yi4.T),
+            "K8 differs from K5 on the transposed activations")
+    require(torch.equal(yu8, yu7) and torch.equal(yi8[:i_pad], yi7)
+            and not bool(yi8[i_pad:].any()), "K8 differs from K7 on the unpacked matrix")
+    log(f"K7 and K8 equal their plain versions, K1 and K5 transposed, and each other exactly "
+        f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums)")
+    k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN), 20)
+    k8_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N), 20)
+    k1_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
+    k5_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
+    log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms beside K1 {k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms "
+        f"beside K5 {k5_now:.4f} ms, per application")
+    del yu7_p, yi7_p, yu8_p, yi8_p, yu7, yi7, yu8, yi8
+
+    # three `FusedSquareAdj.matmul` calls against the chain's layers
+    for graph, mode in ((adj, "int8"), (adj4, "int4")):
+        layers = propagate.fused_chain_t(graph, emb0, LAYERS, True, None)
+        h = emb0
+        for k, want in enumerate(layers[1:], 1):
+            h = graph.matmul(h)
+            require(torch.equal(h, want), f"{mode}: matmul applied {k} times differs from the "
+                                          f"chain's layer {k}: max abs err {max_abs(h, want)}")
+        del layers, h
+    log(f"{LAYERS} FusedSquareAdj.matmul calls equal the chain's layers exactly, int8 and int4")
+
+    # ---- K6, the bfloat16 dual, on the first application's inputs of the
+    # exact model (the same tables as the int8 model's at its start)
+    cfg_bf = cfg.updated(compute_dtype="bfloat16", propagation_backend="fused")
+    model_bf = get_model("LightGCN")(cfg_bf, data, device=dev,
+                                     generator=torch.Generator().manual_seed(0))
+    adj_bf = model_bf.graph
+    require(isinstance(adj_bf, propagate.FusedSquareAdj) and adj_bf.quant == "none"
+            and tuple(adj_bf.m8.shape) == (u_pad, i_pad) and torch.equal(adj_bf.m8, adj.m8),
+            "the exact fused adjacency is not the int8 matrix")
+    require(torch.equal(concat_user_item(model_bf.user_emb, model_bf.item_emb).detach(), emb0),
+            "the exact model's tables differ from the int8 model's initial tables")
+    zu6 = (adj_bf.right_u[:, None] * emb0[:nu]).contiguous()
+    zi6 = (adj_bf.right_i[:, None] * emb0[nu:]).contiguous()
+    y6 = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+    y6_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+    y6_p = fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6, zi6)
+    errs["K6"] = 0.0
+    for what, a, b, c in zip(("yu", "yi"), y6, y6_again, y6_p):
+        require(tuple(a.shape) == tuple(c.shape) and a.dtype == torch.float32
+                and bool(torch.isfinite(a).all()), f"K6 {what}: shape, type or non-finite")
+        require(torch.equal(a, b), f"K6 {what}: two launches differ, max abs err {max_abs(a, b)}")
+        assert_close(a, c, f"K6 {what}", **TIGHT)
+        errs["K6"] = max(errs["K6"], max_abs(a, c))
+    log(f"K6 matches its plain version (max abs err {errs['K6']:.3e}, largest sum "
+        f"{float(max(y6_p[0].abs().max(), y6_p[1].abs().max())):.3e}); two launches bit-equal")
+    # the backward: the swapped product of the batch cotangent, against
+    # autograd through the plain version
+    g6 = (cot[:nu].contiguous(), cot[nu:].contiguous())
+    grads6 = []
+    for fn in (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_plain):
+        a, b = zu6.clone().requires_grad_(True), zi6.clone().requires_grad_(True)
+        torch.autograd.backward(list(fn(adj_bf.m8, a, b)), list(g6))
+        grads6.append((a.grad, b.grad))
+    for what, got, ref in zip(("d zu", "d zi"), *grads6):
+        top = float(ref.abs().max())
+        require(top > 0 and max_abs(got, ref) <= BF16 * top,
+                f"K6 backward {what}: max abs err {max_abs(got, ref)} above {BF16} of {top}")
+    log(f"K6 backward (swapped cotangents) within {BF16} of autograd through the plain version")
+    del grads6, y6_again
+
+    k6_bytes = u_pad * i_pad + 2 * d * (u_pad + i_pad) + 4 * d * (u_pad + i_pad)
+    k6_bound = bound(k6_bytes, 4.0 * u_pad * i_pad * d, bf16_ops)
+    k6_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6), 20)
+    k6_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6, zi6), 3, 1)
+    # library yardstick: two torch.matmul calls on a bfloat16 copy of M
+    # (results rounded to bfloat16), the copy's time stated apart
+    copy_ms = cuda_ms(lambda: adj_bf.m8.to(torch.bfloat16), 3, 1)
+    m_bf = adj_bf.m8.to(torch.bfloat16)
+    zu16 = torch.nn.functional.pad(zu6.to(torch.bfloat16), (0, 0, 0, u_pad - nu))
+    zi16 = torch.nn.functional.pad(zi6.to(torch.bfloat16), (0, 0, 0, i_pad - ni))
+    lib6 = (m_bf @ zi16, m_bf.T @ zu16)
+    for what, a, c in zip(("yu", "yi"), lib6, y6_p):
+        require(max_abs(a[: c.shape[0]].float(), c) <= BF16 * float(c.abs().max()),
+                f"torch.matmul on the bfloat16 copy disagrees with K6's plain version ({what})")
+    k6_lib = cuda_ms(lambda: (m_bf @ zi16, m_bf.T @ zu16), 10)
+    log(f"K6 {k6_ms:.4f} ms per application (bound {k6_bound[0]:.4f} ms by {k6_bound[1]}, plain "
+        f"{k6_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6_lib:.4f} ms, the copy "
+        f"{copy_ms:.4f} ms more)")
+    del m_bf, zu16, zi16, lib6, y6, y6_p
+
+    # ---- the exact path at full width: bfloat16 on the fused backend
+    cfg_gather = cfg.updated(compute_dtype="float32", propagation_backend="gather")
+    t0 = time.perf_counter()
+    model_gather = get_model("LightGCN")(cfg_gather, data, device=dev,
+                                         generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    require(isinstance(model_gather.graph, propagate.GatherSquareAdj), "gather adjacency")
+    log(f"gather adjacency ({model_gather.graph.graph.rows.numel()} padded edges) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ref_gather = Recommender(model_gather, data)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rec_bf = Recommender(model_bf, data)
+    torch.cuda.synchronize()
+    embed_bf_first_ms = (time.perf_counter() - t0) * 1e3
+    answers_bf = [rec_bf.recommend(users, k=K) for users in requests]
+    runner_bf = EpochRunner(model_bf, lr, BATCH, BF16_STEPS * BATCH)
+    require(runner_bf.num_batches == BF16_STEPS, f"{runner_bf.num_batches} steps per run")
+    triple = neg_sampler.sample_epoch(gen)
+    bf_terms, bf_run_ms = [], []
+    for run in range(2):
+        part = [t_[run * BF16_STEPS * BATCH: (run + 1) * BF16_STEPS * BATCH] for t_ in triple]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf_terms.append(runner_bf.run_epoch(*part, generator=gen, epoch=run).cpu().numpy())
+        bf_run_ms.append((time.perf_counter() - t0) * 1e3)
+    evaluator_bf = Evaluator(model_bf, data, cfg_bf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result_bf = evaluator_bf.evaluate()
+    torch.cuda.synchronize()
+    eval_bf_ms = (time.perf_counter() - t0) * 1e3
+    bf_launches = read_counts()
+    log(f"exact bfloat16-fused path launches: {bf_launches}")
+    # a Recommender's chain, six products a step, the evaluation's chain
+    want_k6 = LAYERS + 2 * BF16_STEPS * 2 * LAYERS + LAYERS
+    require(bf_launches["fused_adj_matmul"] == want_k6,
+            f"bfloat16-fused path: {bf_launches['fused_adj_matmul']} K6 launches, expected "
+            f"{want_k6}")
+    require(all(n == 0 for name_, n in bf_launches.items() if name_ != "fused_adj_matmul"),
+            "another kernel ran on the bfloat16-fused path")
+    for users, (items, scores) in zip(requests, answers_bf):
+        check_answers_close(ref_gather, data, users, items, scores, BF16_SCORE)
+    log(f"bfloat16-fused model served {len(requests)} requests: checked against the float32 "
+        f"gather model within {BF16_SCORE}")
+    for run, terms in enumerate(bf_terms):
+        require(terms.shape == (2,) and bool(np.isfinite(terms).all()), f"run {run}: {terms}")
+        log(f"bfloat16-fused run {run}: bpr sum {terms[0]:.4f} (mean {terms[0] / BF16_STEPS:.6f})"
+            f", reg sum {terms[1]:.6f}; {bf_run_ms[run]:.1f} ms = "
+            f"{bf_run_ms[run] / BF16_STEPS:.3f} ms per step")
+    require(bf_terms[0][0] < BF16_STEPS * np.log(2.0) and bf_terms[1][0] < bf_terms[0][0],
+            f"bfloat16-fused BPR sum did not fall: {bf_terms[0][0]} then {bf_terms[1][0]}")
+    for name_ in ("recall", "precision", "ndcg"):
+        v = result_bf[name_]
+        require(v.shape == (len(TOP_KS),) and bool(np.isfinite(v).all())
+                and bool(((v >= 0) & (v <= 1)).all()), f"bfloat16-fused {name_} {v}")
+    require(bool(torch.isfinite(model_bf.user_emb).all() and torch.isfinite(model_bf.item_emb).all()),
+            "non-finite parameters after bfloat16-fused training")
+    embed_bf_ms = host_ms(model_bf.eval_embeddings, 5)
+    bf_step_ms = bf_run_ms[1] / BF16_STEPS
+    log(f"bfloat16-fused: eval embeddings {embed_bf_ms:.3f} ms (first {embed_bf_first_ms:.3f}), "
+        f"{bf_step_ms:.3f} ms per step, eval sweep {eval_bf_ms:.2f} ms, recall@{TOP_KS[-1]} "
+        f"{result_bf['recall'][-1]:.5f}")
+    del rec_bf, runner_bf, ref_gather, evaluator_bf
+
+    # ---- the other exact backends: eval embeddings held to each other from
+    # the same weights, then a few tens of steps each
+    def fresh(cfg_):
+        return get_model("LightGCN")(cfg_, data, device=dev,
+                                     generator=torch.Generator().manual_seed(0))
+
+    embed_fused_bf = torch.cat(fresh(cfg_bf).eval_embeddings())
+    reset_counts()
+    exact_models = {
+        "dense bfloat16": fresh(cfg.updated(compute_dtype="bfloat16", propagation_backend="dense")),
+        "dense float32": fresh(cfg.updated(compute_dtype="float32", propagation_backend="dense")),
+        "gather float32": model_gather,
+    }
+    for label, kind in (("dense bfloat16", propagate.DenseSquareAdj),
+                        ("dense float32", propagate.DenseSquareAdj)):
+        require(isinstance(exact_models[label].graph, kind), f"{label} adjacency")
+    embeds = {label: torch.cat(m_.eval_embeddings()) for label, m_ in exact_models.items()}
+    embeds["fused bfloat16"] = embed_fused_bf
+    top = float(embeds["gather float32"].abs().max())
+    err_f32 = max_abs(embeds["dense float32"], embeds["gather float32"])
+    require(err_f32 <= F32_SUM * top, f"dense float32 against gather: {err_f32} of {top}")
+    assert_close(embeds["dense bfloat16"], embeds["fused bfloat16"],
+                 "dense bfloat16 against fused bfloat16 eval embeddings", **TIGHT)
+    err_bf = max_abs(embeds["dense bfloat16"], embeds["gather float32"])
+    require(err_bf <= BF16 * top, f"bfloat16 against float32 eval embeddings: {err_bf} of {top}")
+    again = torch.cat(model_gather.eval_embeddings())
+    require(torch.equal(again, embeds["gather float32"]), "the gather product is not repeatable")
+    log(f"eval embeddings from the same weights: dense float32 within {err_f32:.3e} of gather, "
+        f"bfloat16 within {err_bf:.3e} (largest entry {top:.3e}); dense and fused bfloat16 within "
+        f"TIGHT (max abs err {max_abs(embeds['dense bfloat16'], embeds['fused bfloat16']):.3e})")
+    del embeds, again, embed_fused_bf
+    other_ms = {}
+    for label, m_ in exact_models.items():
+        runner_ = EpochRunner(m_, lr, BATCH, OTHER_STEPS * BATCH)
+        part = [t_[: OTHER_STEPS * BATCH] for t_ in triple]
+        embed_ms_ = host_ms(m_.eval_embeddings, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms = runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy()
+        step_ms_ = (time.perf_counter() - t0) * 1e3 / OTHER_STEPS
+        require(bool(np.isfinite(terms).all()) and terms[0] < OTHER_STEPS * np.log(2.0),
+                f"{label}: loss terms {terms}")
+        other_ms[label] = (step_ms_, embed_ms_)
+        log(f"{label}: {step_ms_:.3f} ms per step over {OTHER_STEPS} steps (bpr mean "
+            f"{terms[0] / OTHER_STEPS:.6f}), eval embeddings {embed_ms_:.3f} ms")
+        del runner_
+    other_launches = read_counts()
+    require(all(n == 0 for n in other_launches.values()),
+            f"a kernel of the port ran on the dense or gather backends: {other_launches}")
+    del exact_models, model_gather
+    torch.cuda.empty_cache()
+
+    # ---- LightGCN int8 and int4 at a width the chain's kernels decline:
+    # the per-application loop through K7 and K8, forward and backward
+    wide = {}
+    reset_counts()
+    for mode in ("int8", "int4"):
+        m_ = fresh(cfg.updated(compute_dtype=mode, embedding_size=WIDE_DIM))
+        require(not chainmm.supports_chain_resident(m_.graph, WIDE_DIM, LAYERS, "mean", None),
+                f"{mode}: the chain took d = {WIDE_DIM}")
+        runner_ = EpochRunner(m_, lr, BATCH, WIDE_STEPS * BATCH)
+        part = [t_[: WIDE_STEPS * BATCH] for t_ in triple]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms = runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy()
+        wide[mode] = (terms, (time.perf_counter() - t0) * 1e3 / WIDE_STEPS, m_)
+        require(bool(np.isfinite(terms).all()) and terms[0] < WIDE_STEPS * np.log(2.0),
+                f"{mode} at d = {WIDE_DIM}: loss terms {terms}")
+        del runner_
+    wide_launches = read_counts()
+    log(f"d = {WIDE_DIM} path launches: {wide_launches}")
+    want_wide = WIDE_STEPS * 2 * LAYERS
+    require(wide_launches["fused_adj_matmul_int8"] == want_wide
+            and wide_launches["fused_adj_matmul_int4"] == want_wide
+            and wide_launches["fused_adj_matmul_int8_t"] == 0
+            and wide_launches["fused_adj_matmul_int4_t"] == 0,
+            f"d = {WIDE_DIM}: expected {want_wide} launches each of K7 and K8 and none of K1, K5")
+    require(np.array_equal(wide["int8"][0], wide["int4"][0])
+            and torch.equal(wide["int8"][2].user_emb, wide["int4"][2].user_emb),
+            f"int4 at d = {WIDE_DIM} differs from int8: {wide['int4'][0]} and {wide['int8'][0]}")
+    log(f"d = {WIDE_DIM} through the per-application loop: int8 {wide['int8'][1]:.3f} ms per step, "
+        f"int4 {wide['int4'][1]:.3f} ms per step over {WIDE_STEPS} steps; equal loss terms and "
+        f"weights")
+
+    # K7 and K8 at the shapes this path gives them: the first application's
+    # quantized activations of the d = 128 model
+    m128, m128_4 = wide["int8"][2], wide["int4"][2]
+    a128, a128_4 = m128.graph, m128_4.graph
+    qu128, _ = propagate._quantize_cols(torch.nn.functional.pad(
+        a128.right_u[:, None] * m128.user_emb.detach(), (0, 0, 0, u_pad - nu)))
+    qi128, _ = propagate._quantize_cols(torch.nn.functional.pad(
+        a128.right_i[:, None] * m128.item_emb.detach(), (0, 0, 0, i_pad4 - ni)))
+    qi128_8 = qi128[:i_pad].contiguous()
+    dw = WIDE_DIM
+    wide_kernels = {}
+    for tag, fn, plain, m_store, qi_, cols in (
+            ("K7", fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain, a128.m8,
+             qi128_8, i_pad),
+            ("K8", fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain, a128_4.m8,
+             qi128, i_pad4)):
+        got = fn(m_store, qu128, qi_)
+        want = plain(m_store, qu128, qi_)
+        err = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"{tag} at d = {dw} differs from its plain version: max abs err {err}")
+        errs[tag] = max(errs[tag], err)
+        m_bytes = m_store.numel()
+        bnd = bound(m_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols),
+                    4.0 * u_pad * cols * dw)
+        ms = cuda_ms(lambda: fn(m_store, qu128, qi_), 20)
+        plain_ms = cuda_ms(lambda: plain(m_store, qu128, qi_), 3, 1)
+        m_dense = fusedmm.unpack_nibbles(m_store) if tag == "K8" else m_store
+        lib = int_mm_ms(m_dense, qu128.T.contiguous(), qi_.T.contiguous(),
+                        got[0].T.contiguous(), got[1].T.contiguous())
+        wide_kernels[tag] = (ms, plain_ms, bnd, lib)
+        log(f"{tag} at d = {dw}: {ms:.4f} ms per application (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"plain {plain_ms:.4f} ms, torch._int_mm x2 on transposed operands {lib})")
+        del got, want, m_dense
+    del wide, m128, m128_4
+
     n_steps = EPOCHS * steps
 
+    by_path = {"serving": launches, "training": train_launches,
+               "int4_epoch": int4_epoch_launches, "run_harness": harness_launches,
+               "command_lines": cli_launches, "bf16_fused": bf_launches,
+               "exact_dense_gather": other_launches, "wide_d128": wide_launches}
+
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit):
-        by_path = {"serving": launches, "training": train_launches,
-                   "int4_epoch": int4_epoch_launches, "run_harness": harness_launches,
-                   "command_lines": cli_launches}
         counts = {path: c[fn.__name__] for path, c in by_path.items()}
-        # per training step of the mode the kernel serves (the eval
-        # sweep's chain included in the int8 count)
-        per_step = (counts["int4_epoch"] / steps if fn is fusedmm.fused_adj_matmul_int4_t
-                    else counts["training"] / n_steps)
+        # per training step of the path the kernel serves (the int8 count
+        # with the eval sweep's chain; K6's without the chains of the
+        # Recommender and of the evaluation)
+        if fn is fusedmm.fused_adj_matmul_int4_t:
+            per_step = counts["int4_epoch"] / steps
+        elif fn is fusedmm.fused_adj_matmul:
+            per_step = (counts["bf16_fused"] - 2 * LAYERS) / (2 * BF16_STEPS)
+        elif fn in (fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int4):
+            per_step = counts["wide_d128"] / WIDE_STEPS
+        else:
+            per_step = counts["training"] / n_steps
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(counts.values()), "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib, "unit": unit,
@@ -880,13 +1239,29 @@ def main() -> int:
               "idgrec_tpu/ops/scatter.py:40", scatter.scatter_add_rows, errs["K4"], k4_ms,
               k4_plain, k4_bound, k4_lib,
               "one step: 2 launches (2,048 rows into the user table, 4,096 into the item table)"),
+        entry("dual_bf16", "idgrec_torch/csrc/dual_bf16.cu", "idgrec_tpu/ops/fusedmm.py:98",
+              fusedmm.fused_adj_matmul, errs["K6"], k6_ms, k6_plain, k6_bound, k6_lib,
+              "one application at d = 64: 1 launch, its pad, cast, amax and scratch fill inside; "
+              "library: torch.matmul x2 on a bfloat16 copy of M, the copy not counted"),
+        entry("dual_int8_n", "idgrec_torch/csrc/dual_int8_n.cu", "idgrec_tpu/ops/fusedmm.py:211",
+              fusedmm.fused_adj_matmul_int8, errs["K7"], *wide_kernels["K7"],
+              f"one application at d = {WIDE_DIM}: 1 launch, two feature groups"),
+        entry("dual_int4_n", "idgrec_torch/csrc/dual_int4_n.cu", "idgrec_tpu/ops/fusedmm.py:442",
+              fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
+              f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, two "
+              "feature groups"),
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']}), "
             f"launches: {k['launches_serving']} serving, {k['launches_training']} training, "
             f"{k['launches_int4_epoch']} int4 epoch, {k['launches_run_harness']} run harness, "
-            f"{k['launches_command_lines']} command lines ({k['launches_per_step']:.2f} per step)")
+            f"{k['launches_command_lines']} command lines, {k['launches_bf16_fused']} "
+            f"bfloat16-fused, {k['launches_wide_d128']} d = {WIDE_DIM} "
+            f"({k['launches_per_step']:.2f} per step)")
+    log(f"exact modes, ms per training step: fused bfloat16 {bf_step_ms:.3f}, "
+        + ", ".join(f"{label} {v[0]:.3f}" for label, v in other_ms.items())
+        + f"; beside int8 {step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

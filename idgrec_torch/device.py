@@ -21,3 +21,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_exact_matmul(device: torch.device) -> None:
+    """Raise unless float32 products on the card run in full float32
+    (the JAX scoring uses Precision.HIGHEST, and the exact-mode products
+    keep a float32 accumulator's value)."""
+    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                                  or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("float32 matmul must run in full precision: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False and "
+                           "float32 matmul precision 'highest'")

@@ -31,7 +31,12 @@ from idgrec_torch.device import resolve_device
 from idgrec_torch.engine import checkpoint as ckpt
 from idgrec_torch.engine.evaluator import BestResults, Evaluator
 from idgrec_torch.engine.logging_utils import RunLogger, loss_string
-from idgrec_torch.engine.profiling import ThroughputMeter, debug_options, maybe_trace
+from idgrec_torch.engine.profiling import (
+    ThroughputMeter,
+    debug_options,
+    dense_dims_of,
+    maybe_trace,
+)
 from idgrec_torch.engine.sampler import NegativeSampler
 from idgrec_torch.engine.trainer import EpochRunner
 from idgrec_torch.models import get_model
@@ -122,7 +127,7 @@ def train_model(
         num_layers=getattr(model, "num_layers", 0) or 0,
         steps_per_epoch=runner.num_batches,
         aggregates_per_step=model.aggregates_per_step,
-        dense_dims=getattr(graph, "padded_shape", None),
+        dense_dims=dense_dims_of(graph),
     )
 
     history: list[dict] = []

@@ -53,6 +53,15 @@ def debug_options(config) -> None:
         torch.autograd.set_detect_anomaly(True)
 
 
+def dense_dims_of(graph) -> tuple[int, int] | None:
+    """Padded (U, I) of the count matrix when ``graph`` multiplies by a
+    dense one (the fused and dense backends), else None."""
+    padded = getattr(graph, "padded_shape", None)
+    if padded is not None:
+        return tuple(padded)
+    return tuple(graph.m.shape) if hasattr(graph, "m") else None
+
+
 @dataclass
 class ThroughputMeter:
     """Static per-epoch work model; turns epoch seconds into rates."""

@@ -18,7 +18,7 @@ from torch import nn
 
 from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
-from idgrec_torch.device import resolve_device
+from idgrec_torch.device import check_exact_matmul, resolve_device
 
 
 def xavier_uniform(generator: torch.Generator, shape: tuple[int, ...],
@@ -29,16 +29,6 @@ def xavier_uniform(generator: torch.Generator, shape: tuple[int, ...],
     limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
     out = torch.empty(shape, dtype=dtype, device=generator.device)
     return out.uniform_(-limit, limit, generator=generator)
-
-
-def check_exact_matmul(device: torch.device) -> None:
-    """Raise unless float32 products on the card run in full float32
-    (the JAX scoring uses Precision.HIGHEST)."""
-    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
-                                  or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("float32 matmul must run in full precision: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False and "
-                           "float32 matmul precision 'highest'")
 
 
 class RecModel(nn.Module):
@@ -121,9 +111,11 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
     differentiable in ``emb0``.
 
     reduce='mean' + include_layer0 is canonical LightGCN. The quantized
-    fused backend runs the chain through kernels K1-K3 (ops/chainmm.py);
-    with no layer, the combine is emb0 alone. Other backends, and the
-    per-application loop over graph.matmul, are ROADMAP A.4."""
+    fused backend runs the chain through kernels K1-K3 or K5
+    (ops/chainmm.py) where they take the shapes; every other adjacency,
+    and a width the chain's kernels do not take, runs one
+    ``graph.matmul`` per layer and combines the layers here. With no
+    layer, the combine is emb0 alone."""
     if reduce not in ("mean", "sum"):
         raise ValueError(f"unknown reduce {reduce!r}")
     if num_layers == 0:
@@ -133,12 +125,35 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
                 "to combine (GCN_layer must be >= 1 for this model)")
         return emb0
     from idgrec_torch.ops import chainmm as _chainmm
+    from idgrec_torch.ops.propagate import true_divide
 
     if _chainmm.supports_chain_resident(graph, emb0.shape[1], num_layers, reduce, None):
         return _chainmm.fused_chain_resident(graph, emb0, num_layers, include_layer0, reduce)
-    raise NotImplementedError(
-        "propagation outside the quantized fused chain (the per-application "
-        "loop over graph.matmul) is ROADMAP A.4")
+    h = emb0
+    total, terms = (emb0, 1) if include_layer0 else (None, 0)
+    for _ in range(num_layers):
+        h = graph.matmul(h)
+        # the stack's sum in layer order: ((h0 + h1) + h2) + ...
+        total = h if total is None else total + h
+        terms += 1
+    # divide, not multiply by the reciprocal (inexact for 3 layers)
+    return true_divide(total, float(terms)) if reduce == "mean" else total
+
+
+def lightgcn_layer_outputs(graph, emb0: torch.Tensor, num_layers: int) -> list[torch.Tensor]:
+    """[emb0, Â·emb0, Â²·emb0, ...]: the per-layer list some
+    self-supervised models contrast across."""
+    from idgrec_torch.ops import propagate as _prop
+
+    if (num_layers > 0 and _prop.supports_chain_t(graph, emb0.shape[1])
+            and not graph.has_diag):
+        return _prop.fused_chain_t(graph, emb0, num_layers, include_layer0=True, reduce=None)
+    outs = [emb0]
+    h = emb0
+    for _ in range(num_layers):
+        h = graph.matmul(h)
+        outs.append(h)
+    return outs
 
 
 def batch_final_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,

@@ -26,8 +26,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dual_int8_t", "dual_int4_t", "chain_sweep_epilogue", "quantize_rows",
-                  "scatter_add_rows")
+KERNEL_SOURCES = ("dual_int8_t", "dual_int4_t", "dual_bf16", "dual_int8_n", "dual_int4_n",
+                  "chain_sweep_epilogue", "quantize_rows", "scatter_add_rows")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -93,7 +93,7 @@ def chain_sweep_epilogue(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor
     d, n = y.shape
     for name, t, shape in (("y", y, (d, n)), ("c", c, (d, n)), ("s_in", s_in, (d,)),
                            ("post", post, (n,)), ("pre", pre, (n,))):
-        propagate._check_rows(name, t, torch.float32, shape, y.device)
+        fusedmm._check_operand(name, t, torch.float32, shape, y.device)
     if n % 4:
         raise ValueError(f"chain_sweep_epilogue takes N % 4 == 0, got N={n}")
     if combine not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD):
@@ -142,7 +142,7 @@ def chain_sweep_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
     d, n = y.shape
     for name, t, shape in (("y", y, (d, n)), ("g", g, (d, n)), ("s_in", s_in, (d,)),
                            ("post", post, (n,)), ("pre", pre, (n,))):
-        propagate._check_rows(name, t, torch.float32, shape, y.device)
+        fusedmm._check_operand(name, t, torch.float32, shape, y.device)
     if n % 4:
         raise ValueError(f"chain_sweep_inject takes N % 4 == 0, got N={n}")
     out = torch.empty_like(y)

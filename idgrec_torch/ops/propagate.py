@@ -1,19 +1,31 @@
-"""Graph propagation: the quantized fused backend (the port's counterpart
-of idgrec_tpu/ops/propagate.py, the int8 and int4 modes).
+"""Graph propagation backends (the port's counterpart of
+idgrec_tpu/ops/propagate.py).
 
 Every normalization factors as Â = diag(L) · [[0, M], [Mᵀ, 0]] · diag(R)
-with M the integer interaction-count matrix, stored as dense int8
-[U_pad, I_pad] on the device, or in the int4 mode nibble-packed as
-[U_pad, I_pad // 2] (`fusedmm.pack_nibbles`). In the quantized modes
-each application quantizes the right-scaled activations per feature to
-int8, runs both directions of M as int8 products (kernel K1 or, on the
-packed matrix, K5; ops/fusedmm.py) and dequantizes. int4 changes the
-storage only: its results equal int8's bit for bit. Activations live in
-the transposed [d, N] layout for the whole chain.
+(plus a self-loop diagonal for the `self` variant) with M the integer
+interaction-count matrix. Three backends apply it behind one facade
+(``matmul(x, gate=None)``):
 
-This module holds kernel K3 (`quantize_rows`, csrc/quantize_rows.cu)
-beside its plain version, the per-sweep chain `fused_chain_t`, and
-`build_adjacency`. Backends and variants the port does not have yet raise
+* **fused** (`FusedSquareAdj`): M as dense int8 [U_pad, I_pad] on the
+  device, both directions from one read of M per application. In the
+  exact mode (``quant`` 'none') the activations are rounded to bfloat16
+  and accumulated in float32 (kernel K6, ops/fusedmm.py). In the
+  quantized modes each application quantizes the right-scaled
+  activations per feature to int8, runs both directions as int8 products
+  and dequantizes: kernels K7 (int8) and K8 (int4, M nibble-packed as
+  [U_pad, I_pad // 2]) per application in [N, d] layout, or K1 and K5 in
+  the transposed [d, N] layout that the whole chain keeps
+  (`fused_chain_t`, ops/chainmm.py). int4 changes the storage only: its
+  results equal int8's bit for bit.
+* **dense** (`DenseSquareAdj`): the same int8 M, two plain matrix
+  products per application, which the JAX package leaves to XLA and the
+  port to `torch.matmul`: exact in bfloat16 or float32, or int8-quantized.
+* **gather** (`GatherSquareAdj`): row-sorted COO gather and sorted
+  segment sum (ops/spmm.py), for graphs whose dense matrix does not fit.
+
+This module also holds kernel K3 (`quantize_rows`,
+csrc/quantize_rows.cu) beside its plain version, and `build_adjacency`.
+The bitpack backend and the batch-row partial product raise
 `NotImplementedError` naming their ROADMAP item.
 """
 
@@ -33,6 +45,7 @@ from idgrec_torch.data import graph as graph_lib
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
 from idgrec_torch.ops import _build, fusedmm
+from idgrec_torch.ops.spmm import spmm
 
 # Dense-backend memory budget: the int8 count matrix (and its copies)
 # may use at most this fraction of the device's memory.
@@ -85,9 +98,16 @@ def _count_matrix_int8(data: Dataset, device: torch.device) -> torch.Tensor:
     return m
 
 
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
+def _f32_vec(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, dtype=np.float64).astype(np.float32)).to(device)
+
+
 def _inv_pow_vec(x: np.ndarray, p: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        graph_lib._inv_pow(x.astype(np.float64), p).astype(np.float32)).to(device)
+    return _f32_vec(graph_lib._inv_pow(x.astype(np.float64), p), device)
 
 
 def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
@@ -119,13 +139,6 @@ def _k3_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-    if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be a contiguous 16-byte-aligned tensor on {device}")
-
-
 def quantize_rows(z: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 wrapper (see `quantize_rows_plain`). CPU tensors take the
     plain version; CUDA tensors launch csrc/quantize_rows.cu or raise."""
@@ -134,7 +147,7 @@ def quantize_rows(z: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, to
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     d, n = z.shape
-    _check_rows("z", z, torch.float32, (d, n), z.device)
+    fusedmm._check_operand("z", z, torch.float32, (d, n), z.device)
     if amax.dtype != torch.float32 or tuple(amax.shape) != (d,) or amax.device != z.device:
         raise ValueError(f"amax: expected float32 ({d},) on {z.device}")
     if n % 4:
@@ -196,13 +209,191 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the per-application duals in [N, d] layout
+
+
+def _quantize_cols(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-column (= per-feature in [N, d] layout) symmetric int8
+    quantization, z ≈ q · diag(scale): the transpose of
+    `_quantize_rows`, the same scales and the same integers."""
+    amax = z.abs().amax(dim=0)
+    scale = torch.where(amax > 0.0, true_divide(amax, 127.0), torch.ones_like(amax))
+    return torch.round(z / scale).to(torch.int8), scale
+
+
+def _quant_impl(dual, m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+    """Quantize both sides per feature, run ``dual(m, qu, qi)`` on the
+    integers, dequantize each product by its input's scales."""
+    qi, si = _quantize_cols(zi)
+    qu, su = _quantize_cols(zu)
+    yu, yi = dual(m, qu, qi)
+    return yu * si, yi * su
+
+
+def _exact_impl(dtype: torch.dtype, m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+    """(M @ zi, Mᵀ @ zu) on operands rounded to ``dtype``, keeping the
+    float32 accumulator's value as the JAX product does
+    (`preferred_element_type`): a bfloat16 `torch.matmul` would round
+    its result to bfloat16, so the rounded operands are multiplied in
+    float32 (exact products, TF32 off)."""
+    return fusedmm.dual_matmul_f32(m, zu.to(dtype), zi.to(dtype))
+
+
+class _SwappedDual(torch.autograd.Function):
+    """``impl(m, zi, zu) -> (yu, yi)`` with the backward of a symmetric
+    operator: the same function on the swapped cotangents,
+    (dzu, dzi) = impl(m, g_yi, g_yu). Straight-through for the quantized
+    impls. Saves only the matrix, so no float copy of M outlives a
+    call."""
+
+    @staticmethod
+    def forward(ctx, impl, m, zi, zu):
+        ctx.impl, ctx.m = impl, m
+        return impl(m, zi, zu)
+
+    @staticmethod
+    def backward(ctx, g_yu, g_yi):
+        dzu, dzi = ctx.impl(ctx.m, g_yi, g_yu)
+        return None, None, dzi, dzu
+
+
+def quant_dual_matmul(m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+    """(M @ q8(zi), Mᵀ @ q8(zu)) as two plain int8 products, f32 out
+    (the dense backend's quantized mode). m int8 [U_pad, I_pad]; zi
+    [I_pad, d]; zu [U_pad, d] f32. Differentiable in zi and zu,
+    straight-through with a quantized backward."""
+    # integer operands in float32: exact while every sum stays below 2**24
+    return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.dual_matmul_f32), m, zi, zu)
+
+
+def quant_fused_dual(m8: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+    """`quant_dual_matmul` through kernel K7: one read of M feeds both
+    int8 products."""
+    return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.fused_adj_matmul_int8),
+                              m8, zi, zu)
+
+
+def quant_fused_dual4(m4: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+    """int4 twin of `quant_fused_dual` on the nibble-packed matrix
+    (kernel K8): the same activations and the same values."""
+    return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.fused_adj_matmul_int4),
+                              m4, zi, zu)
+
+
+def exact_dual_matmul(m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor,
+                      dtype: torch.dtype):
+    """(M @ zi, Mᵀ @ zu) in the exact mode of the dense backend:
+    operands rounded to ``dtype`` (bfloat16 or float32), float32 result.
+    The backward is the same product on the swapped cotangents, rounded
+    to ``dtype`` like any operand."""
+    return _SwappedDual.apply(functools.partial(_exact_impl, dtype), m, zi, zu)
+
+
+def _gated(adj, gate: torch.Tensor | None):
+    """(right_u, right_i, left_u, left_i) of ``adj`` with the optional
+    per-node multiplicative gate applied on both sides."""
+    right_u, right_i, left_u, left_i = adj.right_u, adj.right_i, adj.left_u, adj.left_i
+    if gate is not None:
+        gu, gi = gate[: adj.num_users], gate[adj.num_users:]
+        right_u, right_i = right_u * gu, right_i * gi
+        left_u, left_i = left_u * gu, left_i * gi
+    return right_u, right_i, left_u, left_i
+
+
+def _finish(adj, x: torch.Tensor, yu: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
+    """The self-loop diagonal, the concatenation and the cast back."""
+    if adj.has_diag:
+        xu, xi = x[: adj.num_users], x[adj.num_users:]
+        yu = yu + adj.diag_u[:, None] * xu.to(torch.float32)
+        yi = yi + adj.diag_i[:, None] * xi.to(torch.float32)
+    return torch.cat([yu, yi], dim=0).to(x.dtype)
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class DenseSquareAdj:
+    """Square normalized adjacency diag(L)·[[0,M],[Mᵀ,0]]·diag(R)
+    (+ diag) over the int8 count matrix, two plain products per
+    application. The batch-row partial product (``matmul_rows``) is
+    ROADMAP B.B9."""
+
+    m: torch.Tensor        # int8 [pad(U), pad(I)]
+    left_u: torch.Tensor   # f32 [U]
+    left_i: torch.Tensor   # f32 [I]
+    right_u: torch.Tensor  # f32 [U]
+    right_i: torch.Tensor  # f32 [I]
+    diag_u: torch.Tensor   # f32 [U] (zeros when no self loop)
+    diag_i: torch.Tensor   # f32 [I]
+    num_users: int
+    num_items: int
+    compute_dtype_name: str = "bfloat16"
+    has_diag: bool = False
+    # "int8": both directions quantize the activations per feature and
+    # run as int8 products; "none": exact bfloat16 or float32 operands
+    quant: str = "none"
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        n = self.num_users + self.num_items
+        return (n, n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.m.device
+
+    @property
+    def supports_rows(self) -> bool:
+        return False
+
+    def matmul_rows(self, x, rows_u, rows_i):
+        raise NotImplementedError("the batch-row partial product is ROADMAP B.B9")
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        """Â @ x for x [U+I, d]; optional per-node multiplicative gate
+        applied on both sides."""
+        nu, ni = self.num_users, self.num_items
+        right_u, right_i, left_u, left_i = _gated(self, gate)
+        u_pad, i_pad = self.m.shape
+        zi = _pad_rows(right_i[:, None] * x[nu:].to(torch.float32), i_pad)
+        zu = _pad_rows(right_u[:, None] * x[:nu].to(torch.float32), u_pad)
+        if self.quant == "int8":
+            yu, yi = quant_dual_matmul(self.m, zi, zu)
+        else:
+            yu, yi = exact_dual_matmul(self.m, zi, zu, _DTYPES[self.compute_dtype_name])
+        return _finish(self, x, left_u[:, None] * yu[:nu], left_i[:, None] * yi[:ni])
+
+
+@dataclass(frozen=True)
+class GatherSquareAdj:
+    """Square normalized adjacency as a sparse graph (ops/spmm.py)."""
+
+    graph: graph_lib.SparseGraph
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.graph.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.device
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        g = self.graph
+        if gate is None:
+            return spmm(g, x)
+        vals = g.vals * gate[g.rows] * gate[g.cols]
+        t_vals = vals if g.symmetric else g.t_vals * gate[g.t_rows] * gate[g.t_cols]
+        return spmm(g.with_values(vals, t_vals), x)
 
 
 @dataclass(frozen=True)
 class FusedSquareAdj:
     """Square normalized adjacency over int8 M [U_pad, I_pad], both
-    directions from one sweep of M per application (kernel K1; K5 when
-    ``quant`` is 'int4' and M is stored nibble-packed)."""
+    directions from one sweep of M per application: kernel K6 in the
+    exact mode (``quant`` 'none'), K7 in int8, K8 in int4 (M stored
+    nibble-packed); the transposed chain runs K1 and K5."""
 
     m8: torch.Tensor       # int8 [U_pad, I_pad] from fusedmm.pad_matrix, or packed [U_pad, I_pad // 2]
     left_u: torch.Tensor   # f32 [U]
@@ -214,7 +405,7 @@ class FusedSquareAdj:
     num_users: int
     num_items: int
     has_diag: bool = False
-    quant: str = "int8"
+    quant: str = "none"
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -231,6 +422,28 @@ class FusedSquareAdj:
     @property
     def device(self) -> torch.device:
         return self.m8.device
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        """Â @ x for x [U+I, d], one launch of the mode's kernel;
+        optional per-node multiplicative gate applied on both sides. In
+        the quantized modes the result equals one layer of the
+        transposed chain bit for bit. A width or shape the kernel does
+        not take raises ValueError (the TPU's VMEM-driven choice between
+        kernel bodies and library products has no counterpart here)."""
+        nu, ni = self.num_users, self.num_items
+        right_u, right_i, left_u, left_i = _gated(self, gate)
+        zu = right_u[:, None] * x[:nu].to(torch.float32)
+        zi = right_i[:, None] * x[nu:].to(torch.float32)
+        if self.quant in _N_DUALS:
+            u_pad, i_pad = self.padded_shape
+            yu, yi = _N_DUALS[self.quant](self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
+            yu, yi = yu[:nu], yi[:ni]
+        else:
+            yu, yi = fusedmm.fused_adj_matmul(self.m8, zu, zi)
+        return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
+
+
+_N_DUALS = {"int8": quant_fused_dual, "int4": quant_fused_dual4}
 
 
 def supports_chain_t(graph, d: int | None = None) -> bool:
@@ -354,11 +567,17 @@ def build_adjacency(
     with_transpose: bool = False,
     emb_size: int | None = None,
     device=None,
-) -> FusedSquareAdj:
+):
     """Normalized square adjacency on ``device`` (default the card).
 
-    Ported: variant 'sym' in compute_dtype 'int8' or 'int4' on the
-    fused backend. The matrix is padded to (TU, TI) multiples whatever
+    variant: 'sym', 'self' (A + I) or 'gen' with (alpha, beta).
+    backend: 'auto', 'dense', 'fused' or 'gather'; 'bitpack' is ROADMAP
+    A.8. compute_dtype: 'bfloat16' (default) or 'float32', exact on
+    every backend; 'int8' on dense or fused, 'int4' on fused.
+    with_transpose (the stored row-gather copies of the dense backend's
+    batch-row partial product) is ROADMAP B.B9.
+
+    The fused matrix is padded to (TU, TI) multiples whatever
     ``emb_size``: the JAX package's wider PANEL padding exists only for
     its TPU panelized kernel. int4 pads the columns to
     `fusedmm.PACK_TILE`, refuses counts above `fusedmm.NIBBLE_MAX` and
@@ -367,29 +586,57 @@ def build_adjacency(
     kernel), so an int4 and an int8 adjacency differ in stored columns
     only."""
     dev = resolve_device(device)
-    _, quant = _split_quant(compute_dtype)
+    dtype_name, quant = _split_quant(compute_dtype)
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}: expected one of "
+                         f"{sorted(_DTYPES)} or int8, int4")
     backend = resolve_backend(data, backend, copies=3 if with_transpose else 1,
                               compute_dtype=compute_dtype, device=dev)
-    if quant == "none":
+    if backend == "bitpack":
+        raise NotImplementedError("the bitpack backend is ROADMAP A.8")
+    if quant != "none":
+        if backend not in ("dense", "fused"):
+            raise ValueError(f"compute_dtype = {quant} requires the dense or fused backend")
+        if backend == "fused" and with_transpose:
+            logging.getLogger("idgrec_torch").warning(
+                "with_transpose (batch-rows partial propagation) is not available "
+                "on the quantized fused backend; full-width products will be used")
+    if backend == "dense" and with_transpose:
         raise NotImplementedError(
-            f"compute_dtype = {compute_dtype}: exact-mode propagation "
-            "(DenseSquareAdj, GatherSquareAdj) is ROADMAP A.4")
-    if backend != "fused":
-        raise NotImplementedError(
-            f"backend {backend!r} with compute_dtype = {compute_dtype}: only the fused "
-            "backend is ported (dense/gather: ROADMAP A.4, bitpack: ROADMAP A.8)")
-    if variant != "sym":
-        raise NotImplementedError(f"variant {variant!r}: only 'sym' is ported (ROADMAP A.4)")
-    if with_transpose:
-        logging.getLogger("idgrec_torch").warning(
-            "with_transpose (batch-rows partial propagation) is not available "
-            "on the quantized fused backend; full-width products will be used")
+            "with_transpose (the dense backend's batch-row partial product) is ROADMAP B.B9")
+    if variant not in ("sym", "self", "gen"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if variant == "gen" and (alpha is None or beta is None):
+        raise ValueError("variant 'gen' needs alpha and beta")
+
+    if backend == "gather":
+        if variant == "sym":
+            return GatherSquareAdj(graph_lib.normalized_adjacency(data, device=dev))
+        if variant == "self":
+            return GatherSquareAdj(graph_lib.normalized_adjacency_with_self(data, device=dev))
+        return GatherSquareAdj(
+            graph_lib.generalized_normalized_adjacency(data, alpha, beta, device=dev))
 
     du, di = graph_lib._degrees(data)
     nu, ni = data.num_users, data.num_items
-    lu, li = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
-    zeros_u = torch.zeros(nu, dtype=torch.float32, device=dev)
-    zeros_i = torch.zeros(ni, dtype=torch.float32, device=dev)
+    diag_u = torch.zeros(nu, dtype=torch.float32, device=dev)
+    diag_i = torch.zeros(ni, dtype=torch.float32, device=dev)
+    has_diag = False
+    if variant == "sym":
+        lu, li = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
+        ru, ri = lu, li
+    elif variant == "self":
+        lu, li = _inv_pow_vec(du + 1.0, 0.5, dev), _inv_pow_vec(di + 1.0, 0.5, dev)
+        ru, ri = lu, li
+        diag_u, diag_i = _f32_vec(1.0 / (du + 1.0), dev), _f32_vec(1.0 / (di + 1.0), dev)
+        has_diag = True
+    else:
+        lu, li = _inv_pow_vec(du, alpha, dev), _inv_pow_vec(di, alpha, dev)
+        ru, ri = _inv_pow_vec(du, beta, dev), _inv_pow_vec(di, beta, dev)
+
+    if backend == "dense":
+        return DenseSquareAdj(_count_matrix_int8(data, dev), lu, li, ru, ri, diag_u, diag_i,
+                              nu, ni, dtype_name, has_diag, quant)
     item_mult = fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI
     m8 = fusedmm.pad_matrix(_count_matrix_int8(data, dev), item_mult,
                             row_multiple=fusedmm.TU)
@@ -400,4 +647,4 @@ def build_adjacency(
                 "compute_dtype = int4 requires interaction counts "
                 f"<= {fusedmm.NIBBLE_MAX} (got {top}); use int8")
         m8 = fusedmm.pack_nibbles(m8)
-    return FusedSquareAdj(m8, lu, li, lu, li, zeros_u, zeros_i, nu, ni, False, quant)
+    return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant)

@@ -2,7 +2,8 @@
 """Benchmark of the PyTorch/CUDA port: LightGCN training throughput at
 yelp2018 scale (the run of the JAX package's bench.py, in idgrec_torch).
 
-    python3 scripts/torch_bench.py [--quick] [--compute_dtype best|int8|int4]
+    python3 scripts/torch_bench.py [--quick] [--compute_dtype best|int8|int4|bfloat16|float32]
+                                   [--backend auto|dense|fused|gather]
 
 Builds the synthetic dataset at exactly yelp2018 scale (31,668 users /
 38,048 items / 1,237,259 train interactions, seed 0), trains LightGCN
@@ -15,6 +16,9 @@ sampling and shuffle on the device, 605 steps of full-graph propagation
 epoch in int8 and in int4, keeps the faster and drops the other's
 adjacency before the timed epochs. int4 is a bit-identical nibble-unpack
 of the int8 arithmetic, so the choice changes the time and nothing else.
+``--compute_dtype bfloat16`` or ``float32`` times an exact mode on the
+backend ``--backend`` names (``auto`` resolves to dense when the matrix
+fits); the exact modes are not candidates of ``best``.
 
 Progress goes to stderr. Stdout carries the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``) and, as the last line,
@@ -66,11 +70,12 @@ def main(argv=None) -> int:
     parser.add_argument("--batch_size", "--batch-size", type=int, default=2048)
     parser.add_argument("--layers", type=int, default=3)
     parser.add_argument("--emb", type=int, default=64)
-    parser.add_argument("--backend", default="auto", help="propagation backend: auto|fused")
+    parser.add_argument("--backend", default="auto",
+                        choices=["auto", "dense", "fused", "gather"], help="propagation backend")
     parser.add_argument("--compute_dtype", "--compute-dtype", default="best",
-                        choices=["best", "int8", "int4"],
+                        choices=["best", "int8", "int4", "bfloat16", "float32"],
                         help="best trains one trial epoch in int8 and in int4 and keeps the "
-                             "faster")
+                             "faster; bfloat16 and float32 are the exact modes")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
@@ -80,7 +85,7 @@ def main(argv=None) -> int:
     from idgrec_torch.data.dataset import make_synthetic_dataset
     from idgrec_torch.device import resolve_device
     from idgrec_torch.engine.evaluator import Evaluator
-    from idgrec_torch.engine.profiling import ThroughputMeter
+    from idgrec_torch.engine.profiling import ThroughputMeter, dense_dims_of
     from idgrec_torch.engine.sampler import NegativeSampler
     from idgrec_torch.engine.trainer import EpochRunner
     from idgrec_torch.models import get_model
@@ -177,10 +182,12 @@ def main(argv=None) -> int:
 
     meter = ThroughputMeter(
         num_train=data.num_train, nnz=data.nnz, emb_size=args.emb, num_layers=args.layers,
-        steps_per_epoch=setup["runner"].num_batches, dense_dims=model.graph.padded_shape)
+        steps_per_epoch=setup["runner"].num_batches,
+        dense_dims=dense_dims_of(model.graph))
     rates = meter.rates(epoch_time)
     log(f"propagation: {rates['sparse_gflops']:.1f} sparse-GFLOP/s (algorithmic), "
-        f"{rates['mxu_gflops']:.1f} dense-GFLOP/s (the fused backend's tensor-core work)")
+        f"{rates['mxu_gflops']:.1f} dense-GFLOP/s (the fused backend's tensor-core work; 0 "
+        "on the other backends)")
     pairs_per_sec = data.num_train / epoch_time
     log(f"mode {chosen}: epoch time {epoch_time:.3f}s, {pairs_per_sec:,.0f} pairs/s")
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where one LightGCN training step of the port spends its time, on one
-NVIDIA GPU, in int8 or int4.
+NVIDIA GPU, in any compute mode.
 
-    python3 scripts/torch_step_profile.py [--steps 40] [--compute_dtype int8|int4]
+    python3 scripts/torch_step_profile.py [--steps 40]
+        [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather]
 
 Builds the yelp2018-scale model of chip_smoke.py, warms up, then
 
@@ -48,7 +49,9 @@ BATCH = 2048
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=40)
-    parser.add_argument("--compute_dtype", default="int8", choices=["int8", "int4"])
+    parser.add_argument("--compute_dtype", default="int8",
+                        choices=["int8", "int4", "bfloat16", "float32"])
+    parser.add_argument("--backend", default="auto", choices=["auto", "dense", "fused", "gather"])
     args = parser.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -63,6 +66,7 @@ def main() -> int:
     data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-scale")
     cfg = load_model_config("LightGCN").updated(embedding_size=64, GCN_layer=3,
                                                 compute_dtype=args.compute_dtype,
+                                                propagation_backend=args.backend,
                                                 batch_size=BATCH)
     model = get_model("LightGCN")(cfg, data, device=dev,
                                   generator=torch.Generator().manual_seed(0))
@@ -122,7 +126,7 @@ def main() -> int:
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
     device_ms = sum(by_kernel.values())
-    result = {"card": card, "compute_dtype": args.compute_dtype, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+    result = {"card": card, "compute_dtype": args.compute_dtype, "backend": args.backend, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)

@@ -214,8 +214,46 @@ def test_bench_script_quick_on_the_cpu(capsys):
     assert len(terms) == 2 and terms[0] == terms[1]
 
 
-@pytest.mark.parametrize("argv", [["--compute_dtype", "bfloat16"], ["--scale", "ml-1m"]])
+@pytest.mark.parametrize("argv", [["--compute_dtype", "float16"], ["--scale", "ml-1m"]])
 def test_bench_script_refuses_unknown_choices(argv):
     with pytest.raises(SystemExit) as err:
         _load_bench().main(argv)
     assert err.value.code == 2
+
+
+@pytest.mark.parametrize("backend,dtype", [("dense", "bfloat16"), ("gather", "bfloat16"),
+                                           ("fused", "float32")])
+def test_main_trains_in_the_exact_modes(workdir, capsys, backend, dtype):
+    tmp = workdir["tmp"]
+    conf = tmp / f"conf_{backend}_{dtype}"
+    conf.mkdir()
+    (conf / "LightGCN.txt").write_text(_CONFIG.format(root=tmp / "data", dtype=dtype)
+                                       + f"propagation_backend = {backend}\n")
+    code = t_main.main(["--model", "LightGCN", "--configure_dir", str(conf), "--device", "cpu",
+                        "--log_dir", str(tmp / f"log_{backend}"), "--checkpoint_dir",
+                        str(tmp / f"ck_{backend}")])
+    out = capsys.readouterr().out
+    assert code == 0 and f"compute_dtype : {dtype}" in out
+    assert f"propagation_backend : {backend}" in out and "Best epoch:" in out
+    losses = [float(line.split("training loss: ")[1].split(" = ")[0])
+              for line in out.splitlines() if "training loss" in line]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    # what was trained is served from its checkpoint
+    assert t_serve.main(["--model", "LightGCN", "--configure_dir", str(conf), "--device", "cpu",
+                         "--checkpoint_dir", str(tmp / f"ck_{backend}"), "--users", "1,17"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["user"] for r in rows] == [1, 17] and all(len(r["items"]) == 10 for r in rows)
+
+
+@pytest.mark.parametrize("backend,dtype", [("fused", "bfloat16"), ("gather", "float32"),
+                                           ("auto", "bfloat16")])
+def test_bench_script_times_an_exact_mode(capsys, backend, dtype):
+    bench = _load_bench()
+    assert bench.main(["--quick", "--device", "cpu", "--epochs", "1", "--batch_size", "16384",
+                       "--emb", "16", "--layers", "2", "--compute_dtype", dtype,
+                       "--backend", backend]) == 0
+    captured = capsys.readouterr()
+    last = json.loads(captured.out.strip().splitlines()[-1])
+    assert last["metric"] == "lightgcn_yelp2018scale_train_pairs_per_sec" and last["value"] > 0
+    assert f"mode {dtype}: warmup epoch" in captured.err and "trial epoch" not in captured.err
+    assert captured.err.count("eval sweep") == 2

@@ -243,3 +243,48 @@ def test_throughput_meter_matches_jax(dense_dims):
 def test_loss_string_matches_jax(sums, n):
     assert t_logging.loss_string(np.asarray(sums, np.float32), n) == \
         j_logging.loss_string(np.asarray(sums, np.float32), n)
+
+
+@pytest.mark.parametrize("backend,dtype", [("dense", "bfloat16"), ("gather", "bfloat16"),
+                                           ("gather", "float32"), ("fused", "bfloat16")])
+def test_train_model_runs_in_the_exact_modes(tmp_path, backend, dtype):
+    from idgrec_torch.ops import propagate as t_prop
+
+    res = _train(tmp_path, {"compute_dtype": dtype, "propagation_backend": backend},
+                 checkpoint_dir=str(tmp_path / "ck"))
+    totals = _totals(res)
+    assert len(totals) == 4 and totals[-1] < totals[0] < np.log(2.0) + 1e-3
+    want = {"dense": t_prop.DenseSquareAdj, "gather": t_prop.GatherSquareAdj,
+            "fused": t_prop.FusedSquareAdj}[backend]
+    model = t_get_model("LightGCN")(TConfig({**_CFG, "compute_dtype": dtype,
+                                             "propagation_backend": backend}), _tdata(),
+                                    device="cpu")
+    assert isinstance(model.graph, want)
+    # a second call resumes from the last checkpoint (epoch 3) and trains the
+    # rest: resume == straight run
+    again = _train(tmp_path, {"compute_dtype": dtype, "propagation_backend": backend},
+                   checkpoint_dir=str(tmp_path / "ck"))
+    assert [h["epoch"] for h in again.history] == [4]
+    assert again.history[0]["loss"] == res.history[-1]["loss"]
+    for k in ("user_emb", "item_emb"):
+        assert torch.equal(again.params[k], res.params[k])
+
+
+def test_int8_at_width_32_through_the_loop_equals_the_chain(tmp_path, monkeypatch):
+    """On the card a width the chain's kernels decline (d != 64) takes
+    one `FusedSquareAdj.matmul` per layer; the same route forced on the
+    CPU trains to the same weights as the chain, bit for bit."""
+    from idgrec_torch.ops import chainmm as t_chainmm
+
+    cfg = {"embedding_size": "32", "training_epochs": "2"}
+    chain = _train(tmp_path / "chain", cfg)
+    calls = []
+    monkeypatch.setattr(t_chainmm, "supports_chain_resident",
+                        lambda *args, **kw: calls.append(args[1]) or False)
+    loop = _train(tmp_path / "loop", cfg)
+    assert calls and set(calls) == {32}
+    assert _totals(loop) == _totals(chain)
+    for k in ("user_emb", "item_emb"):
+        assert torch.equal(loop.params[k], chain.params[k])
+    for name in ("recall", "ndcg"):
+        np.testing.assert_array_equal(loop.last_result[name], chain.last_result[name])

@@ -157,13 +157,15 @@ def test_resolve_backend_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(compute_dtype="bfloat16"), dict(compute_dtype="float32"),
-    dict(compute_dtype="int4", backend="bitpack"), dict(compute_dtype="int8", backend="gather"),
-    dict(compute_dtype="int8", backend="dense"), dict(compute_dtype="int8", variant="self"),
+    dict(compute_dtype="bfloat16", backend="bitpack"), dict(compute_dtype="float32", backend="bitpack"),
+    dict(compute_dtype="int4", backend="bitpack"), dict(compute_dtype="int8", backend="bitpack"),
+    dict(compute_dtype="int8", backend="dense", with_transpose=True),
+    dict(compute_dtype="bfloat16", backend="dense", with_transpose=True),
 ])
 def test_unported_paths_raise(kw):
     tdata, _ = _pair((40, 60, 500, 100), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = "B.B9" if kw.get("with_transpose") else "A.8"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         t_prop.build_adjacency(tdata, device="cpu", **kw)
 
 
