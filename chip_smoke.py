@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K8 from idgrec_torch/csrc and holds
+Builds the hand-written kernels K1-K10 from idgrec_torch/csrc and holds
 each against its plain PyTorch version at the shapes of the main paths:
 LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode)
-over the yelp2018-scale synthetic dataset, random weights from a seed.
+and EGCF (d=64, 3 tanh layers after the seed sweep) over the
+yelp2018-scale synthetic dataset, random weights from a seed.
 K5 (the dual product on the nibble-packed matrix) is also held to K1 on
 the unpacked matrix, and the int4 chain, backward chain and one step's
 gradients to int8's, all exactly. K7 and K8 (the per-application duals
@@ -41,7 +42,20 @@ to 0 just before and read just after:
   steps each; no kernel of the port runs in them;
 * LightGCN int8 and int4 at embedding_size 128, a width the chain's
   kernels decline: a few steps through the per-application loop, K7 and
-  K8 in both directions.
+  K8 in both directions;
+* EGCF (configure/EGCF.txt: ssl_lambda 0.1, temperature 0.1, parallel
+  mode) in int8 on the tanh chain (K3, K1, K9, K10; K2 for the item
+  prologue): K9 and K10 against their plain versions on the seed chain's
+  first sweeps, the 3-layer tanh + seed chain forward and backward
+  against the plain chain and int4 against int8 (exact), its forward
+  against `fused_chain_t` (exact; the gap of its autograd gradient is
+  printed); serving four requests through `Recommender`, one step's
+  gradient and loss terms against the plain path, two full epochs and
+  an evaluation; 24 int4 steps equal to int8's; bfloat16 on the fused
+  backend (K6 per application with tanh) served against the float32
+  gather EGCF and trained 24 steps; `train_model` for one epoch with a
+  checkpoint, both `Recommender` constructors, and
+  `main.main(["--model=EGCF", ...])` on the command-line dataset.
 
 It times each kernel beside its bound, its plain version and a library
 call, and the paths end to end.
@@ -79,6 +93,8 @@ QUICK = (2000, 3000, 60_000, 10_000)
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s,
 # dense bf16 ops/s
 PEAKS = {"H100": (3.35e12, 1979e12, 989e12)}
+# float32 outside the tensor cores (the same data sheet): K9's and K10's work
+F32_OPS = 67e12
 # tolerances: K1's raw integer products, K3's scales and integers, the
 # 3-layer chain and the served scores are equal to the plain versions'
 # (K2 is built with -fmad=false and keeps the plain operation order);
@@ -101,7 +117,12 @@ PEAKS = {"H100": (3.35e12, 1979e12, 989e12)}
 # out). The bfloat16 model's scores are within BF16_SCORE of the float32
 # gather model's for the same weights (logits below 0.01 at these random
 # weights, three layers of operands rounded at 2**-9), and its served
-# ids equal except among such scores. Eval embeddings: dense float32
+# ids equal except among such scores (EGCF's bar follows the same rule,
+# 2**-7 of the largest logit times the sigmoid's slope 1/4, from its own
+# logits). K9 and K10, the tanh + seed chain forward and backward, one
+# EGCF step and EGCF's int4 run are equal to the plain versions' and to
+# int8's; torch.tanh on the card is the CUDA math library's tanhf, which
+# K9 calls. Eval embeddings: dense float32
 # against gather within F32_SUM of the largest entry, bfloat16 dense
 # against bfloat16 fused within TIGHT, bfloat16 against float32 within
 # BF16 of the largest entry.
@@ -186,13 +207,10 @@ class PlainChainModel:
 
     @torch.no_grad()
     def eval_embeddings(self):
-        from idgrec_torch.models.base import concat_user_item, split_user_item
-        from idgrec_torch.ops import chainmm
+        from idgrec_torch.ops import chainmm, scatter
 
-        m = self.model
-        emb0 = concat_user_item(m.user_emb, m.item_emb)
-        final = chainmm.fused_chain_resident_plain(m.graph, emb0, m.num_layers)
-        return split_user_item(final, m.num_users)
+        with plain_kernels(chainmm, scatter):
+            return self.model.eval_embeddings()
 
     def score_batch(self, repr_, users):
         return self.model.score_batch(repr_, users)
@@ -284,6 +302,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from idgrec_torch import convert
         from idgrec_torch import main as cli_main
         from idgrec_torch import serve as cli_serve
         from idgrec_torch.config import default_configure_dir, load_model_config
@@ -550,7 +569,8 @@ def main() -> int:
     int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
     n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                   fusedmm.fused_adj_matmul_int4)
-    counters = int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters
+    tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
+    counters = int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters + tanh_counters
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -1192,24 +1212,364 @@ def main() -> int:
         del got, want, m_dense
     del wide, m128, m128_4
 
+    # ==== EGCF (parallel mode): the tanh chain with the seed sweep, K9 and K10
+    cfg_e = load_model_config("EGCF").updated(
+        embedding_size=DIM, GCN_layer=LAYERS, compute_dtype="int8", batch_size=BATCH,
+        test_batch_size=2048, dataset=data.name)
+    require(cfg_e.float("ssl_lambda") == 0.1 and cfg_e.float("temperature") == 0.1
+            and cfg_e.str("mode") == "parallel", "EGCF's config")
+
+    def fresh_egcf(cfg_):
+        return get_model("EGCF")(cfg_, data, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+
+    t0 = time.perf_counter()
+    egcf = fresh_egcf(cfg_e)
+    egcf4 = fresh_egcf(cfg_e.updated(compute_dtype="int4"))
+    torch.cuda.synchronize()
+    log(f"EGCF int8 and int4 models (item table [{ni}, {DIM}] alone, adjacencies on the card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(convert.table_names(egcf) == ("item_emb",)
+            and torch.equal(egcf.item_emb, egcf4.item_emb)
+            and torch.equal(egcf.graph.m8, adj.m8), "EGCF tables or adjacency")
+    require(chainmm.supports_chain_resident(egcf.graph, DIM, LAYERS, "sum", torch.tanh, False,
+                                            True), "the resident chain declines EGCF")
+
+    # ---- (a) K9 and K10 against their plain versions, on the seed chain's
+    # first sweeps (the item side quantized once, a zero user input)
+    xi_e = propagate._pad_cols(egcf.item_emb.detach().T, i_pad).contiguous()
+    zi_e, ai_e = chainmm.chain_sweep_epilogue(xi_e, ones_d, torch.ones(i_pad, device=dev), ri,
+                                              torch.empty_like(xi_e), chainmm.COMBINE_NONE, True)
+    qi_e, si_e = propagate.quantize_rows(zi_e, ai_e)
+    qu_0 = torch.zeros((DIM, u_pad), dtype=torch.int8, device=dev)
+    yu_seed, _ = fusedmm.fused_adj_matmul_int8_t(adj.m8, qu_0, qi_e)
+    hs_u = torch.empty((2, DIM, u_pad), device=dev)
+    hs_i = torch.empty((2, DIM, i_pad), device=dev)
+
+    def both_tanh(y, s_, post, pre, c, h_slot, combine, want):
+        c_k, c_p, h_p = c.clone(), c.clone(), torch.empty_like(h_slot)
+        zk, ak = chainmm.chain_sweep_tanh(y, s_, post, pre, c_k, h_slot, combine, want)
+        zp, ap = chainmm.chain_sweep_tanh_plain(y, s_, post, pre, c_p, h_p, combine, want)
+        same = (torch.equal(h_slot, h_p) and torch.equal(c_k, c_p)
+                and (not want or (torch.equal(zk, zp) and torch.equal(ak, ap))))
+        err = max(max_abs(h_slot, h_p), max_abs(c_k, c_p),
+                  max_abs(zk, zp) if want else 0.0, max_abs(ak, ap) if want else 0.0)
+        require(same, f"K9 combine={combine} want_next={want} differs from its plain version: "
+                      f"max abs err {err}")
+        errs["K9"] = max(errs.get("K9", 0.0), err)
+        return zk, ak, c_k
+
+    cu_e = torch.zeros((DIM, u_pad), device=dev)
+    ci_e = torch.zeros((DIM, i_pad), device=dev)
+    zu_e, au_e, _ = both_tanh(yu_seed, si_e[:, 0], lu, ru, cu_e, hs_u[0],
+                              chainmm.COMBINE_NONE, True)
+    qu_e, su_e = propagate.quantize_rows(zu_e, au_e)
+    yu_e, yi_e = fusedmm.fused_adj_matmul_int8_t(adj.m8, qu_e, qi_e)
+    _, _, cu_e = both_tanh(yu_e, si_e[:, 0], lu, ru, cu_e, hs_u[1], chainmm.COMBINE_SET, True)
+    _, _, ci_e = both_tanh(yi_e, su_e[:, 0], li, ri, ci_e, hs_i[1], chainmm.COMBINE_SET, True)
+    both_tanh(yu_e, si_e[:, 0], lu, ru, cu_e, hs_u[1], chainmm.COMBINE_ADD, False)
+    both_tanh(yi_e, su_e[:, 0], li, ri, ci_e, hs_i[1], chainmm.COMBINE_ADD, True)
+    require(torch.equal(hs_u[0], torch.tanh(lu[None, :] * (yu_seed * si_e))),
+            "K9's tanh is not torch.tanh on the card")
+    log(f"K9 equals its plain version exactly (torch.tanh on the card, "
+        f"{int((hs_u[0] != 0).sum())} + {int((hs_u[1] != 0).sum())} non-zero user outputs)")
+    for inject, want_next in ((True, True), (False, True), (True, False), (False, False)):
+        for y, s_, post, pre, g_, h_ in ((yu_e, si_e[:, 0], ru, lu, gu, hs_u[1]),
+                                         (yi_e, su_e[:, 0], ri, li, gi, hs_i[1])):
+            h_arg = h_ if want_next else None
+            ok, ak = chainmm.chain_sweep_tanh_inject(y, s_, post, pre, g_, h_arg, inject, want_next)
+            op, ap = chainmm.chain_sweep_tanh_inject_plain(y, s_, post, pre, g_, h_arg, inject,
+                                                           want_next)
+            same = torch.equal(ok, op) and (not want_next or torch.equal(ak, ap))
+            require(same, f"K10 inject={inject} want_next={want_next} differs from its plain "
+                          f"version: max abs err {max_abs(ok, op)}")
+            errs["K10"] = max(errs.get("K10", 0.0), max_abs(ok, op))
+    log("K10 equals its plain version exactly")
+
+    # one forward sweep (both sides, combine ADD, next input) and one backward sweep
+    # (inject, next input), as the chain runs them in the middle of the chain
+    def k9_pair(fn):
+        fn(yu_e, si_e[:, 0], lu, ru, cu_e, hs_u[1], chainmm.COMBINE_ADD, True)
+        fn(yi_e, su_e[:, 0], li, ri, ci_e, hs_i[1], chainmm.COMBINE_ADD, True)
+
+    def k10_pair(fn):
+        fn(yu_e, si_e[:, 0], ru, lu, gu, hs_u[1], True, True)
+        fn(yi_e, su_e[:, 0], ri, li, gi, hs_i[1], True, True)
+
+    # K9: y read, h and z written, the combine read and written: 20 bytes an
+    # element; K10: y, g and h read, the next input written: 16
+    k9_bound = bound(20.0 * d * n_all + 8.0 * n_all + 8.0 * d, 7.0 * d * n_all, F32_OPS)
+    k10_bound = bound(16.0 * d * n_all + 8.0 * n_all + 8.0 * d, 8.0 * d * n_all, F32_OPS)
+    k9_ms = cuda_ms(lambda: k9_pair(chainmm.chain_sweep_tanh), 50)
+    k9_plain = cuda_ms(lambda: k9_pair(chainmm.chain_sweep_tanh_plain), 20)
+    k10_ms = cuda_ms(lambda: k10_pair(chainmm.chain_sweep_tanh_inject), 50)
+    k10_plain = cuda_ms(lambda: k10_pair(chainmm.chain_sweep_tanh_inject_plain), 20)
+    log(f"K9 {k9_ms:.4f} ms per sweep (2 launches; bound {k9_bound[0]:.4f} by {k9_bound[1]}, plain "
+        f"{k9_plain:.4f}); K10 {k10_ms:.4f} ms (bound {k10_bound[0]:.4f}, plain {k10_plain:.4f})")
+    del yu_seed, hs_u, hs_i, cu_e, ci_e, zu_e, xi_e, zi_e
+
+    # ---- (b) the 3-layer tanh + seed chain, forward and backward: the kernels
+    # against the plain chain, int4 against int8, and the per-sweep route
+    x0_e = torch.cat([torch.zeros((nu, DIM), device=dev), egcf.item_emb.detach()])
+    chain_runs = []
+    for graph, fn in ((adj, chainmm.fused_chain_resident),
+                      (adj, chainmm.fused_chain_resident_plain),
+                      (adj4, chainmm.fused_chain_resident),
+                      (adj, propagate.fused_chain_t)):
+        x = x0_e.clone().requires_grad_(True)
+        out = fn(graph, x, LAYERS, False, "sum", torch.tanh, True)
+        out.backward(cot)
+        chain_runs.append((out.detach(), x.grad))
+    (ck, gk), (cp, gp), (c4, g4), (ct, gt) = chain_runs
+    require(tuple(ck.shape) == (nu + ni, DIM) and bool(torch.isfinite(ck).all())
+            and bool(torch.isfinite(gk).all()) and bool(gk[nu:].abs().sum() > 0),
+            "tanh chain: shape, non-finite or all-zero gradient")
+    require(torch.equal(ck, cp), f"tanh + seed chain differs from the plain chain: max abs err "
+                                 f"{max_abs(ck, cp)}")
+    require(torch.equal(gk, gp), f"tanh + seed backward chain differs from the plain backward: "
+                                 f"max abs err {max_abs(gk, gp)}")
+    require(not bool(gk[:nu].any()), "the seed chain gave the zero user input a gradient")
+    require(torch.equal(c4, ck) and torch.equal(g4, gk), "the int4 tanh chain differs from int8's")
+    fused_t_fwd_equal = torch.equal(ct, ck)
+    fused_t_grad_err = max_abs(gt, gk)
+    require(fused_t_fwd_equal, f"fused_chain_t's forward differs from the kernel chain: max abs err "
+                               f"{max_abs(ct, ck)}")
+    log(f"3-layer tanh + seed chain: forward and backward equal the plain chain, int4 equals int8; "
+        f"fused_chain_t's forward equal, its autograd gradient within {fused_t_grad_err:.3e} "
+        f"(largest {float(gk.abs().max()):.3e}; autograd's tanh backward rounds 1 - h^2 once)")
+    del chain_runs, ck, gk, cp, gp, c4, g4, ct, gt
+
+    # ---- (c) serving EGCF int8: eval embeddings and four requests
+    reset_counts()
+    t0 = time.perf_counter()
+    rec_e = Recommender(egcf, data)
+    torch.cuda.synchronize()
+    egcf_first_embed_ms = (time.perf_counter() - t0) * 1e3
+    answers_e = [rec_e.recommend(users, k=K) for users in requests]
+    egcf_serve_launches = read_counts()
+    log(f"EGCF serving path launches: {egcf_serve_launches}")
+    egcf_chain_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
+                           propagate.quantize_rows, chainmm.chain_sweep_tanh)
+    for fn in egcf_chain_counters:
+        require(fn.launches > 0, f"{fn.__name__} was never launched on EGCF's serving path")
+    require(egcf_serve_launches["chain_sweep_tanh"] == 2 * LAYERS + 1
+            and egcf_serve_launches["fused_adj_matmul_int8_t"] == LAYERS + 1,
+            "EGCF serving: expected one chain of 4 sweeps")
+    ref_rec_e = Recommender(PlainChainModel(egcf), data)
+    for users, (items, scores) in zip(requests, answers_e):
+        check_answers(ref_rec_e, data, users, items, scores)
+    egcf_embed_ms = host_ms(egcf.eval_embeddings, 5)
+    egcf4_embed_ms = host_ms(egcf4.eval_embeddings, 5)
+    egcf_req_ms = {b: host_ms(lambda u=users: rec_e.recommend(u, k=K), 5)
+                   for b, users in zip(REQUEST_SIZES, requests)}
+    log(f"EGCF served {len(requests)} requests, checked against the plain path; eval embeddings "
+        f"{egcf_embed_ms:.3f} ms (first {egcf_first_embed_ms:.3f}; int4 {egcf4_embed_ms:.3f}); per "
+        "request: " + ", ".join(f"{b} users {t:.3f} ms" for b, t in egcf_req_ms.items()))
+    del rec_e, ref_rec_e
+
+    # ---- (d) one step against the plain path, two epochs, an evaluation
+    def egcf_step(m):
+        m.zero_grad(set_to_none=True)
+        terms = m.loss_terms(batch)
+        sum(terms).backward()
+        out = (m.item_emb.grad.clone(), *(t_.detach() for t_ in terms))
+        m.zero_grad(set_to_none=True)
+        return out
+
+    got_e = egcf_step(egcf)
+    with plain_kernels(chainmm, scatter):
+        want_e = egcf_step(egcf)
+    for what, a, b in zip(("d item_emb", "bpr", "reg", "ssl"), got_e, want_e):
+        require(bool(torch.isfinite(a).all()), f"EGCF step, {what}: not finite")
+        require(torch.equal(a, b), f"EGCF step, {what}: kernel path differs from the plain path, "
+                                   f"max abs err {max_abs(a, b)}")
+    log(f"one EGCF step: item gradient and loss terms equal the plain path's (bpr "
+        f"{float(got_e[1]):.6f}, reg {float(got_e[2]):.3e}, ssl {float(got_e[3]):.6f})")
+    del got_e, want_e
+
+    lr_e = cfg_e.float("learn_rate")
+    runner_e = EpochRunner(egcf, lr_e, BATCH, data.num_train)
+    evaluator_e = Evaluator(egcf, data, cfg_e)
+    reset_counts()
+    e_epoch_ms, e_terms = [], []
+    for epoch in range(EPOCHS):
+        triple_e = neg_sampler.sample_epoch(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_terms.append(runner_e.run_epoch(*triple_e, generator=gen, epoch=epoch).cpu().numpy())
+        e_epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    result_e = evaluator_e.evaluate()
+    torch.cuda.synchronize()
+    e_eval_ms = (time.perf_counter() - t0) * 1e3
+    egcf_train_launches = read_counts()
+    log(f"EGCF training path launches: {egcf_train_launches}")
+    for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject, scatter.scatter_add_rows):
+        require(fn.launches > 0, f"{fn.__name__} was never launched on EGCF's training path")
+    # per step: forward 4 sweeps, backward 4 (the seed's included); the eval chain 4
+    want_dual = EPOCHS * steps * 2 * (LAYERS + 1) + LAYERS + 1
+    require(egcf_train_launches["fused_adj_matmul_int8_t"] == want_dual
+            and egcf_train_launches["chain_sweep_inject"] == 0
+            and egcf_train_launches["fused_adj_matmul_int4_t"] == 0,
+            f"EGCF training: expected {want_dual} K1 launches and no K2-inject or K5")
+    for epoch, terms in enumerate(e_terms):
+        require(terms.shape == (3,) and bool(np.isfinite(terms).all()),
+                f"EGCF epoch {epoch}: loss terms {terms}")
+        log(f"EGCF epoch {epoch}: bpr sum {terms[0]:.4f}, reg sum {terms[1]:.6f}, ssl sum "
+            f"{terms[2]:.4f}; {e_epoch_ms[epoch]:.1f} ms = {e_epoch_ms[epoch] / steps:.3f} ms per "
+            "step")
+    require(e_terms[0][0] < steps * np.log(2.0) and e_terms[1][0] < e_terms[0][0],
+            f"EGCF's BPR sum did not fall: {e_terms[0][0]} then {e_terms[1][0]}")
+    for name_ in ("recall", "precision", "ndcg"):
+        v = result_e[name_]
+        require(v.shape == (2,) and bool(np.isfinite(v).all())
+                and bool(((v >= 0) & (v <= 1)).all()), f"EGCF {name_} {v}")
+    require(bool(torch.isfinite(egcf.item_emb).all()), "non-finite EGCF parameters")
+    egcf_step_ms = float(np.mean(e_epoch_ms)) / steps
+    log(f"EGCF training: {egcf_step_ms:.3f} ms per step, {float(np.mean(e_epoch_ms)):.1f} ms per "
+        f"epoch; eval sweep {e_eval_ms:.2f} ms, recall@{cfg_e.int_list('top_K')} "
+        f"{np.round(result_e['recall'], 5).tolist()}")
+    del runner_e, evaluator_e, triple_e
+
+    # ---- (e) int4 against int8: 24 steps from the same weights, equal terms and weights
+    egcf8 = fresh_egcf(cfg_e)
+    part = [t_[: OTHER_STEPS * BATCH] for t_ in triple]
+    e_runs = {}
+    reset_counts()
+    for mode, m_ in (("int8", egcf8), ("int4", egcf4)):
+        runner_ = EpochRunner(m_, lr_e, BATCH, OTHER_STEPS * BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_runs[mode] = (runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy(),
+                        (time.perf_counter() - t0) * 1e3 / OTHER_STEPS)
+    egcf_int4_launches = read_counts()
+    require(np.array_equal(e_runs["int8"][0], e_runs["int4"][0])
+            and torch.equal(egcf8.item_emb, egcf4.item_emb),
+            f"EGCF int4 differs from int8 over {OTHER_STEPS} steps: {e_runs}")
+    require(egcf_int4_launches["fused_adj_matmul_int4_t"] == OTHER_STEPS * 2 * (LAYERS + 1),
+            f"EGCF int4 steps: K5 launches {egcf_int4_launches}")
+    log(f"EGCF int4 over {OTHER_STEPS} steps: loss terms and weights equal int8's; "
+        f"{e_runs['int4'][1]:.3f} ms per step beside int8 {e_runs['int8'][1]:.3f}")
+    del egcf8, egcf4
+
+    # ---- (f) bfloat16 on the fused backend: K6 per application with tanh
+    cfg_e_bf = cfg_e.updated(compute_dtype="bfloat16", propagation_backend="fused")
+    egcf_bf = fresh_egcf(cfg_e_bf)
+    egcf_gather = fresh_egcf(cfg_e.updated(compute_dtype="float32", propagation_backend="gather"))
+    ref_gather_e = Recommender(egcf_gather, data)
+    reset_counts()
+    rec_e_bf = Recommender(egcf_bf, data)
+    answers_e_bf = [rec_e_bf.recommend(users, k=K) for users in requests]
+    runner_ = EpochRunner(egcf_bf, lr_e, BATCH, OTHER_STEPS * BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf_e_terms = runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy()
+    egcf_bf_step_ms = (time.perf_counter() - t0) * 1e3 / OTHER_STEPS
+    egcf_bf_launches = read_counts()
+    want_k6_e = (LAYERS + 1) * (1 + 2 * OTHER_STEPS)
+    require(egcf_bf_launches["fused_adj_matmul"] == want_k6_e
+            and all(n == 0 for name_, n in egcf_bf_launches.items() if name_ != "fused_adj_matmul"),
+            f"EGCF bfloat16-fused: expected {want_k6_e} K6 launches and nothing else: "
+            f"{egcf_bf_launches}")
+    # LightGCN's rule for BF16_SCORE: 2**-7 of the largest logit, times the
+    # sigmoid's slope at 0 (1/4); EGCF sums three tanh layers, so its logits
+    # are larger and the bar follows them
+    ref_u, ref_i = ref_gather_e._repr
+    top_logit = max(float((ref_u[torch.from_numpy(u_).to(dev)] @ ref_i.T).abs().max())
+                    for u_ in requests)
+    egcf_bf_tol = BF16 * top_logit / 4.0
+    for users, (items, scores) in zip(requests, answers_e_bf):
+        check_answers_close(ref_gather_e, data, users, items, scores, egcf_bf_tol)
+    require(bool(np.isfinite(bf_e_terms).all()) and bf_e_terms[0] < OTHER_STEPS * np.log(2.0),
+            f"EGCF bfloat16-fused loss terms {bf_e_terms}")
+    egcf_bf_embed_ms = host_ms(egcf_bf.eval_embeddings, 3)
+    log(f"EGCF bfloat16-fused: served {len(requests)} requests, checked against the float32 gather "
+        f"EGCF within {egcf_bf_tol:.3e} (largest logit {top_logit:.4f}); {egcf_bf_step_ms:.3f} ms "
+        f"per step over {OTHER_STEPS} steps, "
+        f"eval embeddings {egcf_bf_embed_ms:.3f} ms")
+    del egcf_bf, egcf_gather, ref_gather_e, rec_e_bf, runner_
+    torch.cuda.empty_cache()
+
+    # ---- (g) the run harness and the command line for EGCF
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_egcf_")
+    try:
+        ck_e = os.path.join(tmp, "ck")
+        reset_counts()
+        t0 = time.perf_counter()
+        res_e = loop_lib.train_model("EGCF", data, config=cfg_e, seed=0,
+                                     log_dir=os.path.join(tmp, "log"), echo=False, max_epochs=1,
+                                     checkpoint_dir=ck_e)
+        rec_ck_e = Recommender.from_checkpoint("EGCF", data, cfg_e, ck_e)
+        items_ck, scores_ck = rec_ck_e.recommend(requests[1], k=K)
+        rec_res_e = Recommender.from_train_result("EGCF", data, cfg_e, res_e)
+        items_res, scores_res = rec_res_e.recommend(requests[1], k=K)
+        egcf_harness_s = time.perf_counter() - t0
+        egcf_harness_launches = read_counts()
+        log(f"EGCF run-harness launches: {egcf_harness_launches}")
+        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,):
+            require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's train_model")
+        require(ckpt_lib.latest_checkpoint(ck_e) == 1
+                and np.array_equal(items_ck, items_res) and np.array_equal(scores_ck, scores_res),
+                "EGCF: no checkpoint, or from_checkpoint and from_train_result disagree")
+        require(set(res_e.params) == {"item_emb"} and len(res_e.history) == 1
+                and bool(np.isfinite(res_e.last_result["recall"]).all()), "EGCF's train_model")
+        del rec_ck_e, rec_res_e, res_e
+
+        quick_e = make_synthetic_dataset(*QUICK, seed=0, name="quick")
+        write_dataset(os.path.join(tmp, "data", "quick"), quick_e)
+        conf_e = os.path.join(tmp, "conf")
+        os.makedirs(conf_e)
+        with open(os.path.join(default_configure_dir(), "EGCF.txt")) as f:
+            text_e = f.read()
+        with open(os.path.join(conf_e, "EGCF.txt"), "w") as f:
+            f.write(text_e + f"\ndataset_path = {os.path.join(tmp, 'data')}\n"
+                    "dataset = quick\ntraining_epochs = 1\n")
+        out_e = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_e):
+            code_e = cli_main.main(["--model=EGCF", "--configure_dir", conf_e, "--log_dir",
+                                    os.path.join(tmp, "cli_log"), "--checkpoint_dir",
+                                    os.path.join(tmp, "cli_ck")])
+        egcf_cli_s = time.perf_counter() - t0
+        egcf_cli_launches = read_counts()
+        require(code_e == 0 and "Best epoch:" in out_e.getvalue()
+                and "compute_dtype : int8" in out_e.getvalue(), "EGCF's command line")
+        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,):
+            require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's command line")
+        log(f"EGCF run harness: train_model one epoch with evaluation and a checkpoint, both "
+            f"Recommender constructors, {egcf_harness_s:.2f} s; main.main(['--model=EGCF', ...]) "
+            f"on {quick_e.num_users} x {quick_e.num_items} in {egcf_cli_s:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del egcf
+    torch.cuda.empty_cache()
+
     n_steps = EPOCHS * steps
 
     by_path = {"serving": launches, "training": train_launches,
                "int4_epoch": int4_epoch_launches, "run_harness": harness_launches,
                "command_lines": cli_launches, "bf16_fused": bf_launches,
-               "exact_dense_gather": other_launches, "wide_d128": wide_launches}
+               "exact_dense_gather": other_launches, "wide_d128": wide_launches,
+               "egcf_serving": egcf_serve_launches, "egcf_training": egcf_train_launches,
+               "egcf_int4": egcf_int4_launches, "egcf_bf16_fused": egcf_bf_launches,
+               "egcf_run_harness": egcf_harness_launches,
+               "egcf_command_line": egcf_cli_launches}
+    egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit):
         counts = {path: c[fn.__name__] for path, c in by_path.items()}
         # per training step of the path the kernel serves (the int8 count
         # with the eval sweep's chain; K6's without the chains of the
-        # Recommender and of the evaluation)
+        # Recommender and of the evaluation; K9's and K10's on EGCF's)
         if fn is fusedmm.fused_adj_matmul_int4_t:
             per_step = counts["int4_epoch"] / steps
         elif fn is fusedmm.fused_adj_matmul:
             per_step = (counts["bf16_fused"] - 2 * LAYERS) / (2 * BF16_STEPS)
         elif fn in (fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int4):
             per_step = counts["wide_d128"] / WIDE_STEPS
+        elif fn in egcf_tanh:
+            per_step = counts["egcf_training"] / n_steps
         else:
             per_step = counts["training"] / n_steps
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -1250,6 +1610,14 @@ def main() -> int:
               fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
               f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, two "
               "feature groups"),
+        entry("chain_sweep_tanh", "idgrec_torch/csrc/chain_sweep_tanh.cu",
+              "idgrec_tpu/ops/chainmm.py:366", chainmm.chain_sweep_tanh, errs["K9"], k9_ms,
+              k9_plain, k9_bound, None,
+              "one forward sweep of the tanh chain: 2 launches (users, items; the seed sweep 1)"),
+        entry("chain_sweep_tanh_inject", "idgrec_torch/csrc/chain_sweep_tanh.cu",
+              "idgrec_tpu/ops/chainmm.py:391", chainmm.chain_sweep_tanh_inject, errs["K10"],
+              k10_ms, k10_plain, k10_bound, None,
+              "one backward sweep of the tanh chain: 2 launches (the seed sweep 1)"),
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
@@ -1257,8 +1625,16 @@ def main() -> int:
             f"launches: {k['launches_serving']} serving, {k['launches_training']} training, "
             f"{k['launches_int4_epoch']} int4 epoch, {k['launches_run_harness']} run harness, "
             f"{k['launches_command_lines']} command lines, {k['launches_bf16_fused']} "
-            f"bfloat16-fused, {k['launches_wide_d128']} d = {WIDE_DIM} "
-            f"({k['launches_per_step']:.2f} per step)")
+            f"bfloat16-fused, {k['launches_wide_d128']} d = {WIDE_DIM}; EGCF "
+            f"{k['launches_egcf_serving']} serving, {k['launches_egcf_training']} training, "
+            f"{k['launches_egcf_int4']} int4, {k['launches_egcf_bf16_fused']} bfloat16-fused, "
+            f"{k['launches_egcf_run_harness']} run harness, {k['launches_egcf_command_line']} "
+            f"command line ({k['launches_per_step']:.2f} per step)")
+    log(f"EGCF: eval embeddings {egcf_embed_ms:.3f} ms (int4 {egcf4_embed_ms:.3f}, bfloat16-fused "
+        f"{egcf_bf_embed_ms:.3f}), {egcf_step_ms:.3f} ms per step, {float(np.mean(e_epoch_ms)):.1f} "
+        f"ms per epoch (int8); int4 {e_runs['int4'][1]:.3f} and int8 {e_runs['int8'][1]:.3f} ms per "
+        f"step over {OTHER_STEPS} steps; bfloat16-fused {egcf_bf_step_ms:.3f}; beside LightGCN "
+        f"int8 {step_ms:.3f}")
     log(f"exact modes, ms per training step: fused bfloat16 {bf_step_ms:.3f}, "
         + ", ".join(f"{label} {v[0]:.3f}" for label, v in other_ms.items())
         + f"; beside int8 {step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")

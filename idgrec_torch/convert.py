@@ -1,8 +1,11 @@
 """Carry parameters and Adam state between the JAX package and the port.
 
-The JAX models keep their tables in a parameter pytree,
-``{"user_emb": [U, d], "item_emb": [I, d]}``; the port's models keep
-them as `nn.Parameter`s of the same names. Pass the JAX arrays as
+The JAX models keep their tables in a parameter pytree whose keys each
+model names (`init_params`): LightGCN ``{"user_emb": [U, d],
+"item_emb": [I, d]}``, EGCF ``{"item_emb": [I, d]}``. The port's models
+keep them as `nn.Parameter`s of the same names (`RecModel.init_params`),
+so every function here works on whatever tables the model has, in the
+JAX flatten order (sorted names, `table_names`). Pass the JAX arrays as
 numpy (``jax.device_get``), so this module needs no JAX.
 
 Adam state crosses as numpy too: optax's ``ScaleByAdamState`` holds
@@ -27,22 +30,26 @@ import torch
 
 from idgrec_torch.engine import checkpoint as ckpt
 
-EMBEDDING_KEYS = ("user_emb", "item_emb")
+
+def table_names(model: torch.nn.Module) -> tuple[str, ...]:
+    """The model's tables in the JAX flatten order (sorted names)."""
+    return tuple(sorted(name for name, _ in model.named_parameters()))
 
 
-def state_dict_from_jax(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """The port's module state for JAX embedding parameters: float32
+def state_dict_from_jax(params: Mapping[str, np.ndarray],
+                        names: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """The port's module state for the JAX parameters ``names``: float32
     CPU tensors under the same names."""
-    missing = [k for k in EMBEDDING_KEYS if k not in params]
+    missing = [k for k in names if k not in params]
     if missing:
         raise KeyError(f"JAX parameters lack {missing}")
-    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in EMBEDDING_KEYS}
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in names}
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy JAX embedding parameters into ``model`` (shapes must match)
+    """Copy JAX parameters into ``model``'s tables (shapes must match)
     and return it."""
-    state = state_dict_from_jax(params)
+    state = state_dict_from_jax(params, table_names(model))
     for k, v in state.items():
         have = tuple(getattr(model, k).shape)
         if tuple(v.shape) != have:
@@ -54,7 +61,7 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, np.ndarray]) ->
 def jax_params_from_model(model: torch.nn.Module) -> dict[str, np.ndarray]:
     """The way back: the model's tables as the JAX parameter pytree of
     numpy arrays."""
-    return {k: getattr(model, k).detach().cpu().numpy().copy() for k in EMBEDDING_KEYS}
+    return {k: getattr(model, k).detach().cpu().numpy().copy() for k in table_names(model)}
 
 
 def adam_state_to_numpy(optimizer: torch.optim.Adam, model: torch.nn.Module) -> dict:
@@ -62,7 +69,7 @@ def adam_state_to_numpy(optimizer: torch.optim.Adam, model: torch.nn.Module) -> 
     optimizer's state for the model's tables (zeros before any step):
     the fields of optax's ``ScaleByAdamState``."""
     out = {"count": 0, "mu": {}, "nu": {}}
-    for k in EMBEDDING_KEYS:
+    for k in table_names(model):
         p = getattr(model, k)
         st = optimizer.state.get(p, {})
         zeros = np.zeros(tuple(p.shape), np.float32)
@@ -77,7 +84,7 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, count: 
                     mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray]) -> None:
     """Set the optimizer's state for the model's tables from optax's
     ``count``, ``mu`` and ``nu`` (numpy)."""
-    for k in EMBEDDING_KEYS:
+    for k in table_names(model):
         p = getattr(model, k)
         for name, tree in (("mu", mu), ("nu", nu)):
             if tuple(np.shape(tree[k])) != tuple(p.shape):
@@ -94,25 +101,30 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, count: 
 
 
 # A JAX checkpoint's tree is {"opt_state", "params", "rng", "state"},
-# flattened in sorted key order. For a model whose parameters are the
-# two tables and whose state is empty, under optax.adam, the leaves are
-#   0      opt_state: ScaleByAdamState.count
-#   1, 2   opt_state: mu {item_emb, user_emb}
-#   3, 4   opt_state: nu {item_emb, user_emb}
-#   5, 6   params {item_emb, user_emb}
-#   7      rng: the JAX key
-JAX_NUM_LEAVES = 8
-_TABLE_ORDER = ("item_emb", "user_emb")
+# flattened in sorted key order. For a model with n tables and an empty
+# state, under optax.adam, the leaves are
+#   0                 opt_state: ScaleByAdamState.count
+#   1 .. n            opt_state: mu {tables, sorted}
+#   n+1 .. 2n         opt_state: nu {tables, sorted}
+#   2n+1 .. 3n        params {tables, sorted}
+#   3n+1              rng: the JAX key
+# LightGCN (item_emb, user_emb) has 8 leaves, EGCF (item_emb) 5.
 
 
-def split_adam_and_params(leaves) -> tuple[int, dict, dict, dict]:
-    """(count, mu, nu, params) from the first seven leaves of a
-    checkpoint in the layout above, which the port's own checkpoints
-    share (engine/checkpoint.py)."""
-    if len(leaves) < 7 or np.ndim(leaves[0]) > 1 or np.size(leaves[0]) != 1:
-        raise ValueError("not a checkpoint of two embedding tables under Adam: "
+def jax_num_leaves(model: torch.nn.Module) -> int:
+    """The leaf count of a JAX checkpoint of ``model`` in the layout above."""
+    return 3 * len(table_names(model)) + 2
+
+
+def split_adam_and_params(leaves, names: tuple[str, ...]) -> tuple[int, dict, dict, dict]:
+    """(count, mu, nu, params) from the first 3n + 1 leaves of a
+    checkpoint of the tables ``names`` (sorted) in the layout above,
+    which the port's own checkpoints share (engine/checkpoint.py)."""
+    n = len(names)
+    if len(leaves) < 3 * n + 1 or np.ndim(leaves[0]) > 1 or np.size(leaves[0]) != 1:
+        raise ValueError(f"not a checkpoint of {n} tables under Adam: "
                          f"{len(leaves)} leaves, first of shape {np.shape(leaves[0])}")
-    mu, nu, params = (dict(zip(_TABLE_ORDER, leaves[i : i + 2])) for i in (1, 3, 5))
+    mu, nu, params = (dict(zip(names, leaves[i: i + n])) for i in (1, n + 1, 2 * n + 1))
     return int(np.asarray(leaves[0]).reshape(())), mu, nu, params
 
 
@@ -125,11 +137,13 @@ def load_jax_checkpoint(model: torch.nn.Module, optimizer: torch.optim.Adam | No
     Returns the sidecar (``epoch``, ``best``, ...)."""
     epoch = ckpt.resolve_epoch(directory, epoch)
     leaves, meta = ckpt.read_checkpoint(directory, epoch)
-    if len(leaves) != JAX_NUM_LEAVES:
+    names = table_names(model)
+    want = jax_num_leaves(model)
+    if len(leaves) != want:
         raise ValueError(
             f"{directory}/ckpt_{epoch}.npz has {len(leaves)} leaves; a JAX checkpoint of "
-            f"two embedding tables under Adam has {JAX_NUM_LEAVES}")
-    count, mu, nu, params = split_adam_and_params(leaves)
+            f"{', '.join(names)} under Adam has {want}")
+    count, mu, nu, params = split_adam_and_params(leaves, names)
     load_jax_params(model, params)
     if optimizer is not None:
         load_adam_state(optimizer, model, count, mu, nu)

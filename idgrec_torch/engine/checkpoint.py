@@ -12,15 +12,17 @@ structure, so no pickled code is involved.
 The tree is nested dicts of arrays, flattened in sorted key order (the
 order `jax.tree.leaves` gives a dict). The run harness writes
 
-    opt_state: count, mu{item_emb, user_emb}, nu{item_emb, user_emb}
-    params:    item_emb, user_emb
+    opt_state: count, mu{tables}, nu{tables}
+    params:    tables
     rng:       device, host
 
-where ``count``/``mu``/``nu`` are Adam's ``step``/``exp_avg``/
-``exp_avg_sq`` (`convert.adam_state_to_numpy`) and ``rng`` holds the
-byte states of the run's explicit `torch.Generator`s. The first seven
-leaves are those of a checkpoint written by the JAX package's
-``train_model`` for the same model (`convert.load_jax_checkpoint`).
+where the tables are the model's own, sorted by name (LightGCN
+item_emb, user_emb; EGCF item_emb), ``count``/``mu``/``nu`` are Adam's
+``step``/``exp_avg``/``exp_avg_sq`` (`convert.adam_state_to_numpy`) and
+``rng`` holds the byte states of the run's explicit
+`torch.Generator`s. The first 3n + 1 leaves of n tables are those of a
+checkpoint written by the JAX package's ``train_model`` for the same
+model (`convert.load_jax_checkpoint`).
 """
 
 from __future__ import annotations

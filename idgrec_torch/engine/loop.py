@@ -45,7 +45,7 @@ from idgrec_torch.models.base import RecModel
 
 @dataclass
 class TrainResult:
-    params: dict[str, torch.Tensor]  # the trained tables, on the run's device
+    params: dict[str, torch.Tensor]  # the model's trained tables by name, on the run's device
     state: Any
     best: BestResults
     history: list[dict] = field(default_factory=list)
@@ -219,6 +219,6 @@ def train_model(
                 % (best.epoch, best.recall, best.ndcg))
     logger.event(kind="best", epoch=best.epoch, recall=best.recall, ndcg=best.ndcg)
     logger.close()
-    params = {k: getattr(model, k).detach() for k in convert.EMBEDDING_KEYS}
+    params = {k: getattr(model, k).detach() for k in convert.table_names(model)}
     return TrainResult(params=params, state={}, best=best, history=history,
                        last_result=last_result)

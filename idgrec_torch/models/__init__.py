@@ -1,9 +1,9 @@
 """Model zoo of the port. Importing this package registers every ported
-model (LightGCN so far; ROADMAP A.7 lists the rest)."""
+model (LightGCN and EGCF so far; ROADMAP A.7 lists the rest)."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
 
-from idgrec_torch.models import lightgcn  # noqa: F401
+from idgrec_torch.models import egcf, lightgcn  # noqa: F401
 
 __all__ = ["registry", "available_models", "get_model"]

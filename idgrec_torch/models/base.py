@@ -2,10 +2,13 @@
 idgrec_tpu/models/base.py).
 
 A model is an `nn.Module` that owns its embedding tables and its graph
-on one device. Training needs `loss_terms`, the per-term losses of a
-sampled (user, pos, neg) batch; serving and evaluation need
-`eval_embeddings`, the representation computed once per sweep, and
-`score_batch`, the full-catalog scores of a user batch against it.
+on one device. Each model names and draws its own tables
+(`RecModel.init_params`, the counterpart of the JAX ``init_params``):
+LightGCN a user and an item table, EGCF an item table alone. Training
+needs `loss_terms`, the per-term losses of a sampled (user, pos, neg)
+batch; serving and evaluation need `eval_embeddings`, the
+representation computed once per sweep, and `score_batch`, the
+full-catalog scores of a user batch against it.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ class RecModel(nn.Module):
     """Base class: embedding-table recommender over a fixed graph.
 
     ``device`` defaults to the card; ``generator`` (a CPU
-    `torch.Generator`) draws the initial tables, seeded from the
-    config's ``seed`` when not given."""
+    `torch.Generator`) draws the initial tables (`init_params`), seeded
+    from the config's ``seed`` when not given. Each table becomes an
+    `nn.Parameter` of the model under its name."""
 
     model_name: str = "RecModel"
     loss_names: Sequence[str] = ("loss",)
@@ -60,11 +64,15 @@ class RecModel(nn.Module):
         self.compute_dtype = config.str("compute_dtype", "bfloat16")
         if generator is None:
             generator = torch.Generator().manual_seed(config.int("seed"))
+        for name, table in self.init_params(generator).items():
+            setattr(self, name, nn.Parameter(table.to(self.device)))
+
+    def init_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The model's initial tables by name, drawn from ``generator``
+        in order: here a user table, then an item table."""
         d = self.embedding_size
-        self.user_emb = nn.Parameter(
-            xavier_uniform(generator, (self.num_users, d)).to(self.device))
-        self.item_emb = nn.Parameter(
-            xavier_uniform(generator, (self.num_items, d)).to(self.device))
+        return {"user_emb": xavier_uniform(generator, (self.num_users, d)),
+                "item_emb": xavier_uniform(generator, (self.num_items, d))}
 
     def loss_terms(self, batch: dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,

@@ -1,5 +1,5 @@
 """Whole-chain quantized propagation (counterpart of
-idgrec_tpu/ops/chainmm.py, no activation), forward and backward.
+idgrec_tpu/ops/chainmm.py), forward and backward, linear or with tanh.
 
 The TPU ran the K-layer chain as one Pallas kernel whose state (int8
 activations, scales, dual accumulators, layer combine; ~52 MB at
@@ -33,6 +33,19 @@ through K3, K1 and K2's inject mode (`chain_sweep_inject`), and needs
 nothing of the forward but the adjacency. Both chains are one
 `torch.autograd.Function`, so the plain chain's gradient is the
 reference of the kernel chain's.
+
+The tanh chain (EGCF's; the TPU kernel's ``activation='tanh'``, ROADMAP
+B.B4) runs the same three launches a sweep with K9 `chain_sweep_tanh`
+in K2's place: h = tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N]
+stream,
+the combine sums the counted layers (layer 0 is never one), and the
+next input is r ⊙ h. Its backward (K10 `chain_sweep_tanh_inject`) reads
+that stream: G = [g +] r ⊙ dequant(...), next input l ⊙ ((1 − h²) ⊙ G).
+With ``seed_users_from_items`` a seed sweep comes first: it consumes a
+zero user input and the item embeddings, keeps only its user direction
+(hu = tanh(l_u ⊙ M(r_i ⊙ E_i))), and the first counted layer reuses its
+item quantization. The backward appends the matching sweep that maps
+the user side of G₀ back to the items through the seed application.
 """
 
 from __future__ import annotations
@@ -160,6 +173,126 @@ def chain_sweep_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
 chain_sweep_inject.launches = 0
 
 
+_K9 = "chain_sweep_tanh"
+
+
+def chain_sweep_tanh_plain(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
+                           pre: torch.Tensor, c: torch.Tensor, h_out: torch.Tensor,
+                           combine: int, want_next: bool):
+    """Plain version of K9 for one side of one forward sweep of the
+    tanh chain, [d, N] layout: h = tanh(post ⊙ (y ⊙ s_in)) into
+    ``h_out``; c = h (SET) or c + h (ADD), in place; when ``want_next``,
+    z = pre ⊙ h and amax = max |z| per feature. y, c, h_out f32 [d, N];
+    s_in f32 [d]; post, pre f32 [N]. Returns (z, amax) or (None, None)."""
+    h = torch.tanh(post[None, :] * (y * s_in[:, None]))
+    h_out.copy_(h)
+    if combine == COMBINE_SET:
+        c.copy_(h)
+    elif combine == COMBINE_ADD:
+        c.add_(h)
+    if not want_next:
+        return None, None
+    z = pre[None, :] * h
+    return z, z.abs().amax(dim=1)
+
+
+@functools.cache
+def _k9_lib() -> ctypes.CDLL:
+    lib = _build.library(_K9)
+    lib.chain_sweep_tanh.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                                     + [ctypes.c_void_p])
+    lib.chain_sweep_tanh.restype = ctypes.c_int
+    lib.chain_sweep_tanh_inject.argtypes = lib.chain_sweep_tanh.argtypes
+    lib.chain_sweep_tanh_inject.restype = ctypes.c_int
+    return lib
+
+
+def chain_sweep_tanh(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
+                     pre: torch.Tensor, c: torch.Tensor, h_out: torch.Tensor, combine: int,
+                     want_next: bool):
+    """K9 wrapper (see `chain_sweep_tanh_plain`). CPU tensors take the
+    plain version; CUDA tensors launch csrc/chain_sweep_tanh.cu or
+    raise."""
+    if y.device.type == "cpu":
+        return chain_sweep_tanh_plain(y, s_in, post, pre, c, h_out, combine, want_next)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    d, n = y.shape
+    for name, t, shape in (("y", y, (d, n)), ("c", c, (d, n)), ("h_out", h_out, (d, n)),
+                           ("s_in", s_in, (d,)), ("post", post, (n,)), ("pre", pre, (n,))):
+        fusedmm._check_operand(name, t, torch.float32, shape, y.device)
+    if n % 4:
+        raise ValueError(f"chain_sweep_tanh takes N % 4 == 0, got N={n}")
+    if combine not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD):
+        raise ValueError(f"unknown combine mode {combine}")
+    z = torch.empty_like(y) if want_next else y
+    amax = torch.zeros(d, dtype=torch.float32, device=y.device)
+    lib = _k9_lib()
+    code = lib.chain_sweep_tanh(y.data_ptr(), s_in.data_ptr(), post.data_ptr(), pre.data_ptr(),
+                                c.data_ptr(), h_out.data_ptr(), z.data_ptr(), amax.data_ptr(),
+                                d, n, combine, int(want_next),
+                                torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, _K9, code)
+    chain_sweep_tanh.launches += 1
+    return (z, amax) if want_next else (None, None)
+
+
+chain_sweep_tanh.launches = 0
+
+
+def chain_sweep_tanh_inject_plain(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
+                                  pre: torch.Tensor, g: torch.Tensor, h: torch.Tensor | None,
+                                  inject: bool, want_next: bool):
+    """Plain version of K10 for one side of one backward sweep of the
+    tanh chain, [d, N] layout: store = post ⊙ (y ⊙ s_in), g + store when
+    ``inject``. With ``want_next`` returns (pre ⊙ ((1 − h²) ⊙ store),
+    its per-feature amax), h the forward's tanh output of the layer
+    the next sweep differentiates; else (store, None) and h is not
+    read. g is read only."""
+    store = post[None, :] * (y * s_in[:, None])
+    if inject:
+        store = g + store
+    if not want_next:
+        return store, None
+    z = pre[None, :] * ((1.0 - h * h) * store)
+    return z, z.abs().amax(dim=1)
+
+
+def chain_sweep_tanh_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
+                            pre: torch.Tensor, g: torch.Tensor, h: torch.Tensor | None,
+                            inject: bool, want_next: bool):
+    """K10 wrapper (see `chain_sweep_tanh_inject_plain`). CPU tensors
+    take the plain version; CUDA tensors launch
+    csrc/chain_sweep_tanh.cu `chain_sweep_tanh_inject` or raise."""
+    if y.device.type == "cpu":
+        return chain_sweep_tanh_inject_plain(y, s_in, post, pre, g, h, inject, want_next)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    d, n = y.shape
+    checks = [("y", y, (d, n)), ("g", g, (d, n)), ("s_in", s_in, (d,)), ("post", post, (n,)),
+              ("pre", pre, (n,))]
+    if want_next:
+        checks.append(("h", h, (d, n)))
+    for name, t, shape in checks:
+        fusedmm._check_operand(name, t, torch.float32, shape, y.device)
+    if n % 4:
+        raise ValueError(f"chain_sweep_tanh_inject takes N % 4 == 0, got N={n}")
+    out = torch.empty_like(y)
+    amax = torch.zeros(d, dtype=torch.float32, device=y.device)
+    lib = _k9_lib()
+    code = lib.chain_sweep_tanh_inject(y.data_ptr(), s_in.data_ptr(), post.data_ptr(),
+                                       pre.data_ptr(), g.data_ptr(),
+                                       (h if want_next else y).data_ptr(), out.data_ptr(),
+                                       amax.data_ptr(), d, n, int(bool(inject)), int(want_next),
+                                       torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, _K9, code)
+    chain_sweep_tanh_inject.launches += 1
+    return out, (amax if want_next else None)
+
+
+chain_sweep_tanh_inject.launches = 0
+
+
 class ChainOps(NamedTuple):
     """The per-sweep operations of the chain; the dual by the
     adjacency's ``quant``."""
@@ -168,29 +301,38 @@ class ChainOps(NamedTuple):
     quantize: Callable
     epilogue: Callable
     inject: Callable
+    tanh: Callable
+    tanh_inject: Callable
 
 
 KERNELS = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t,
                     "int4": fusedmm.fused_adj_matmul_int4_t},
-                   propagate.quantize_rows, chain_sweep_epilogue, chain_sweep_inject)
+                   propagate.quantize_rows, chain_sweep_epilogue, chain_sweep_inject,
+                   chain_sweep_tanh, chain_sweep_tanh_inject)
 PLAIN = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t_plain,
                   "int4": fusedmm.fused_adj_matmul_int4_t_plain},
                  propagate.quantize_rows_plain, chain_sweep_epilogue_plain,
-                 chain_sweep_inject_plain)
+                 chain_sweep_inject_plain, chain_sweep_tanh_plain,
+                 chain_sweep_tanh_inject_plain)
 
 
 def supports_chain_resident(adj, d: int, num_layers: int, reduce: str | None,
                             activation, include_layer0: bool = True,
                             seed: bool = False) -> bool:
     """Whether `fused_chain_resident` can run this chain: the int8 or
-    int4 fused backend, no self-loop diag, a reduce mode, at least one layer, and
-    no activation or seed (the tanh chains are ROADMAP B.B4). The TPU's
-    VMEM budget and mesh checks have no counterpart here."""
+    int4 fused backend, no self-loop diag, a reduce mode, at least one
+    layer, and an activation of None or `torch.tanh`; a tanh chain (and
+    the seed, which needs one) excludes layer 0 (the JAX rules). The
+    TPU's VMEM budget and mesh checks have no counterpart here."""
     if not isinstance(adj, propagate.FusedSquareAdj) or adj.quant not in KERNELS.dual:
         return False
     if num_layers < 1 or reduce not in ("mean", "sum"):
         return False
-    if activation is not None or seed or adj.has_diag:
+    if activation is not None and activation is not torch.tanh:
+        return False
+    if (activation is not None or seed) and include_layer0:
+        return False
+    if (seed and activation is None) or adj.has_diag:
         return False
     return propagate.supports_chain_t(adj, d)
 
@@ -292,27 +434,170 @@ class _ChainT(torch.autograd.Function):
         return torch.cat([Gu[:, :nu], Gi[:, :ni]], dim=1), None, None, None, None, None
 
 
+def _run_chain_act(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int, seed: bool,
+                   ops: ChainOps):
+    """The tanh chain's forward from h0 = (xu, xi): the combine (cu, ci)
+    of the counted layers and the h streams (hs_u [n_sweeps, d, U_pad],
+    hs_i [n_sweeps, d, I_pad]; slice k is sweep k's tanh output).
+
+    With ``seed``, sweep 0 consumes a zero user input (q = 0, scale 1)
+    and discards its item direction (hs_i[0] is never written), and
+    sweep 1 reuses its item quantization without rounding again."""
+    u_pad, i_pad = adj.padded_shape
+    d = xu.shape[0]
+    ru, ri, lu, li = _vectors(adj, u_pad, i_pad)
+    dev = xu.device
+    first = 1 if seed else 0  # the sweep of the first counted layer
+    n_sweeps = num_layers + first
+    hs_u = torch.empty((n_sweeps, d, u_pad), dtype=torch.float32, device=dev)
+    hs_i = torch.empty((n_sweeps, d, i_pad), dtype=torch.float32, device=dev)
+    cu, ci = torch.empty_like(xu), torch.empty_like(xi)
+    ones_d = torch.ones(d, dtype=torch.float32, device=dev)
+    # prologue: z = r ⊙ h0 (multiplication by one is exact)
+    zi, amax_i = ops.epilogue(xi, ones_d, torch.ones(i_pad, device=dev), ri, ci,
+                              COMBINE_NONE, True)
+    if seed:
+        qu = torch.zeros((d, u_pad), dtype=torch.int8, device=dev)
+        su = torch.ones((d, 1), dtype=torch.float32, device=dev)
+    else:
+        zu, amax_u = ops.epilogue(xu, ones_d, torch.ones(u_pad, device=dev), ru, cu,
+                                  COMBINE_NONE, True)
+    for k in range(n_sweeps):
+        if not (seed and k == 0):
+            qu, su = ops.quantize(zu, amax_u)
+        if not (seed and k == 1):
+            qi, si = ops.quantize(zi, amax_i)
+        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
+        combine = (COMBINE_NONE, COMBINE_SET, COMBINE_ADD)[(k >= first) + (k > first)]
+        more = k < n_sweeps - 1
+        # yu = M @ qi dequantizes by the item input's scale, yi by the user's
+        zu, amax_u = ops.tanh(yu, si[:, 0], lu, ru, cu, hs_u[k], combine, more)
+        if not (seed and k == 0):
+            zi, amax_i = ops.tanh(yi, su[:, 0], li, ri, ci, hs_i[k], combine, more)
+    return cu, ci, hs_u, hs_i
+
+
+def _run_chain_act_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, hs_u: torch.Tensor,
+                       hs_i: torch.Tensor, num_layers: int, seed: bool, ops: ChainOps):
+    """The tanh chain's backward: the cotangent (Gu, Gi) of h0 from the
+    combine's cotangent g = (gu, gi) and the forward's h streams.
+
+    Sweep t yields G of layer K−1−t, injecting g for every counted
+    layer (k ≥ 1), and prepares l ⊙ ((1 − h²) ⊙ G) with h read from the
+    stream (slice K−1−t with the seed sweep, K−2−t without). With
+    ``seed``, sweep K−1 yields G₀ without inject: its user side goes on
+    through hu_seed's derivative (slice 0), its item side is parked; the
+    appended seed sweep maps the users back to the items,
+    dE_i = G₀_i + r_i ⊙ dequant(Mᵀ q(z_u)), and the user direction is
+    zero (the seed consumed a zero user input)."""
+    u_pad, i_pad = adj.padded_shape
+    d = gu.shape[0]
+    ru, ri, lu, li = _vectors(adj, u_pad, i_pad)
+    dev = gu.device
+    n_sweeps = num_layers + (1 if seed else 0)
+    last = n_sweeps - 1
+    ones_d = torch.ones(d, dtype=torch.float32, device=dev)
+    # prologue: z = l ⊙ ((1 − h_K²) ⊙ g), h_K the forward's last slice
+    zu, amax_u = ops.tanh_inject(gu, ones_d, torch.ones(u_pad, device=dev), lu, gu,
+                                 hs_u[last], False, True)
+    zi, amax_i = ops.tanh_inject(gi, ones_d, torch.ones(i_pad, device=dev), li, gi,
+                                 hs_i[last], False, True)
+    for k in range(n_sweeps):
+        qu, su = ops.quantize(zu, amax_u)
+        if seed and k == last:
+            # the seed sweep's user direction is discarded: any item input will do
+            qi = torch.zeros((d, i_pad), dtype=torch.int8, device=dev)
+            si = torch.ones((d, 1), dtype=torch.float32, device=dev)
+        else:
+            qi, si = ops.quantize(zi, amax_i)
+        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
+        if not seed:
+            more = k < last
+            hidx = num_layers - 2 - k
+            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[hidx] if more else None,
+                                         more, more)
+            zi, amax_i = ops.tanh_inject(yi, su[:, 0], ri, li, gi, hs_i[hidx] if more else None,
+                                         more, more)
+        elif k < num_layers - 1:
+            hidx = num_layers - 1 - k
+            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[hidx], True, True)
+            zi, amax_i = ops.tanh_inject(yi, su[:, 0], ri, li, gi, hs_i[hidx], True, True)
+        elif k == num_layers - 1:
+            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[0], False, True)
+            g0_i, _ = ops.tanh_inject(yi, su[:, 0], ri, li, gi, None, False, False)
+        else:
+            zi, _ = ops.tanh_inject(yi, su[:, 0], ri, li, g0_i, None, True, False)
+            zu = torch.zeros_like(gu)
+    return zu, zi
+
+
+class _ChainActT(torch.autograd.Function):
+    """The tanh chain's combine in [d, nu + ni] layout with the
+    straight-through quantized backward. Saves the forward's h streams,
+    which the backward's tanh derivatives read."""
+
+    @staticmethod
+    def forward(ctx, embT, adj, num_layers, reduce, seed, ops):
+        nu, ni = adj.num_users, adj.num_items
+        u_pad, i_pad = adj.padded_shape
+        xu = propagate._pad_cols(embT[:, :nu], u_pad).contiguous()
+        xi = propagate._pad_cols(embT[:, nu:], i_pad).contiguous()
+        cu, ci, hs_u, hs_i = _run_chain_act(adj, xu, xi, num_layers, seed, ops)
+        ctx.chain = (adj, num_layers, reduce, seed, ops)
+        ctx.hs = (hs_u, hs_i)
+        if reduce == "mean":
+            cu = propagate.true_divide(cu, float(num_layers))
+            ci = propagate.true_divide(ci, float(num_layers))
+        return torch.cat([cu[:, :nu], ci[:, :ni]], dim=1)
+
+    @staticmethod
+    def backward(ctx, gT):
+        adj, num_layers, reduce, seed, ops = ctx.chain
+        nu, ni = adj.num_users, adj.num_items
+        u_pad, i_pad = adj.padded_shape
+        gT = gT.to(torch.float32)
+        if reduce == "mean":
+            gT = propagate.true_divide(gT, float(num_layers))
+        gu = propagate._pad_cols(gT[:, :nu], u_pad).contiguous()
+        gi = propagate._pad_cols(gT[:, nu:], i_pad).contiguous()
+        Gu, Gi = _run_chain_act_bwd(adj, gu, gi, *ctx.hs, num_layers, seed, ops)
+        return torch.cat([Gu[:, :nu], Gi[:, :ni]], dim=1), None, None, None, None, None
+
+
 def _chain(adj, emb0: torch.Tensor, num_layers: int, include_layer0: bool,
-           reduce: str, ops: ChainOps) -> torch.Tensor:
+           reduce: str, ops: ChainOps, activation=None, seed: bool = False) -> torch.Tensor:
     if reduce not in ("mean", "sum"):
         raise ValueError(f"unknown reduce {reduce!r}")
     embT = emb0.to(torch.float32).T
-    outT = _ChainT.apply(embT, adj, num_layers, include_layer0, reduce, ops)
+    if activation is None and not seed:
+        outT = _ChainT.apply(embT, adj, num_layers, include_layer0, reduce, ops)
+    elif activation is not torch.tanh or include_layer0:
+        raise ValueError("the activation chain takes torch.tanh without layer 0 "
+                         "(the seed needs it too)")
+    else:
+        outT = _ChainActT.apply(embT, adj, num_layers, reduce, seed, ops)
     return outT.T.contiguous().to(emb0.dtype)
 
 
 def fused_chain_resident(adj, emb0: torch.Tensor, num_layers: int,
-                         include_layer0: bool = True, reduce: str = "mean") -> torch.Tensor:
+                         include_layer0: bool = True, reduce: str = "mean", activation=None,
+                         seed_users_from_items: bool = False) -> torch.Tensor:
     """The K-layer chain's layer combine, [N, d], through kernels K1-K3
-    (drop-in for `propagate.fused_chain_t` in reduce modes).
-    Differentiable in ``emb0``: the backward is the straight-through
-    quantized chain through the same kernels."""
-    return _chain(adj, emb0, num_layers, include_layer0, reduce, KERNELS)
+    or K5 (drop-in for `propagate.fused_chain_t` in reduce modes).
+    ``activation`` None or `torch.tanh` (K9 and K10 then take K2's
+    place); ``seed_users_from_items`` is EGCF's parallel-mode seeding
+    and needs tanh and ``include_layer0=False``. Differentiable in
+    ``emb0``: the backward is the straight-through quantized chain
+    through the same kernels."""
+    return _chain(adj, emb0, num_layers, include_layer0, reduce, KERNELS, activation,
+                  seed_users_from_items)
 
 
 def fused_chain_resident_plain(adj, emb0: torch.Tensor, num_layers: int,
-                               include_layer0: bool = True,
-                               reduce: str = "mean") -> torch.Tensor:
+                               include_layer0: bool = True, reduce: str = "mean",
+                               activation=None, seed_users_from_items: bool = False
+                               ) -> torch.Tensor:
     """`fused_chain_resident` through the kernels' plain versions, on
     any device: the reference chain, and the reference gradient."""
-    return _chain(adj, emb0, num_layers, include_layer0, reduce, PLAIN)
+    return _chain(adj, emb0, num_layers, include_layer0, reduce, PLAIN, activation,
+                  seed_users_from_items)

@@ -472,6 +472,7 @@ def fused_chain_t(
     include_layer0: bool = True,
     reduce: str | None = "mean",
     activation=None,
+    seed_users_from_items: bool = False,
 ):
     """K applications of Â in transposed [d, N] layout with one layout
     transpose at each end, each application one K1 sweep between two K3
@@ -480,10 +481,14 @@ def fused_chain_t(
     `quant_fused_dual_t`.
 
     reduce: 'mean' | 'sum' over the layer stack, or None for the
-    per-layer list in [N, d] layout. The activation chains, the user
-    seeding and the self-loop diag are ROADMAP B.B4."""
-    if activation is not None or adj.has_diag:
-        raise NotImplementedError("activation and self-loop chains are ROADMAP B.B4")
+    per-layer list in [N, d] layout. activation: an elementwise function
+    applied after each application (EGCF's tanh; the resident chain runs
+    it on kernels K9 and K10, ROADMAP B.B4), after the self-loop diag
+    when the adjacency has one. seed_users_from_items: EGCF's
+    parallel-mode seeding (needs an activation and no diag; emb0's user
+    rows must be zero): one dual application first sets
+    hu = activation(l_u ⊙ (M @ (r_i ⊙ h_i))) and leaves the items at
+    their embeddings."""
     nu, ni = adj.num_users, adj.num_items
     u_pad, i_pad = adj.padded_shape
     xT = emb0.to(torch.float32).T
@@ -493,12 +498,29 @@ def fused_chain_t(
     ri = _pad_cols(adj.right_i, i_pad)[None, :]
     lu = _pad_cols(adj.left_u, u_pad)[None, :]
     li = _pad_cols(adj.left_i, i_pad)[None, :]
+    if adj.has_diag:
+        du = _pad_cols(adj.diag_u, u_pad)[None, :]
+        di = _pad_cols(adj.diag_i, i_pad)[None, :]
+
+    if seed_users_from_items:
+        if activation is None or adj.has_diag:
+            raise ValueError("the user seeding needs an activation and no self-loop diag")
+        # the user input is zero: it quantizes to zeros (scale 1), and the
+        # item direction of this application is dropped
+        yuT, _ = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant)
+        hu = activation(lu * yuT)
 
     layers = [(hu, hi)] if (include_layer0 or reduce is None) else []
     for _ in range(num_layers):
         yuT, yiT = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant)
         # left * (raw * s): the JAX chain's operation order
-        hu, hi = lu * yuT, li * yiT
+        nhu, nhi = lu * yuT, li * yiT
+        if adj.has_diag:
+            nhu = nhu + du * hu
+            nhi = nhi + di * hi
+        if activation is not None:
+            nhu, nhi = activation(nhu), activation(nhi)
+        hu, hi = nhu, nhi
         layers.append((hu, hi))
 
     def _back(pair):

@@ -79,13 +79,14 @@ class Recommender:
                         **kw) -> "Recommender":
         """Serve from a training checkpoint written by
         ``train_model(checkpoint_dir=...)`` of this package or of the
-        JAX package: both keep Adam's state and the tables in the same
-        first seven leaves. Loads the latest checkpoint unless ``epoch``
-        picks one."""
+        JAX package: both keep Adam's state and the model's tables in
+        the same first leaves (`convert.split_adam_and_params`). Loads
+        the latest checkpoint unless ``epoch`` picks one."""
         epoch = ckpt.resolve_epoch(checkpoint_dir, epoch)
         model = get_model(model_name)(config, data, device=device)
         leaves, _meta = ckpt.read_checkpoint(checkpoint_dir, epoch)
-        convert.load_jax_params(model, convert.split_adam_and_params(leaves)[3])
+        convert.load_jax_params(
+            model, convert.split_adam_and_params(leaves, convert.table_names(model))[3])
         return cls(model, data, **kw)
 
     def _score_impl(self, repr_, users: torch.Tensor, excl_rows: torch.Tensor,

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where one LightGCN training step of the port spends its time, on one
-NVIDIA GPU, in any compute mode.
+"""Where one training step of the port spends its time, on one NVIDIA
+GPU, for a ported model in any compute mode.
 
-    python3 scripts/torch_step_profile.py [--steps 40]
+    python3 scripts/torch_step_profile.py [--model LightGCN|EGCF] [--steps 40]
         [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather]
 
-Builds the yelp2018-scale model of chip_smoke.py, warms up, then
+Builds the yelp2018-scale model of chip_smoke.py (its config file's
+loss weights, d = 64, 3 layers, batch 2,048), warms up, then
 
 * times the step's phases on the host clock, each ending in a
   synchronize (forward to the loss, backward, Adam), and the whole step
@@ -48,6 +49,7 @@ BATCH = 2048
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--model", default="LightGCN", choices=["LightGCN", "EGCF"])
     parser.add_argument("--steps", type=int, default=40)
     parser.add_argument("--compute_dtype", default="int8",
                         choices=["int8", "int4", "bfloat16", "float32"])
@@ -64,11 +66,13 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-scale")
-    cfg = load_model_config("LightGCN").updated(embedding_size=64, GCN_layer=3,
-                                                compute_dtype=args.compute_dtype,
-                                                propagation_backend=args.backend,
-                                                batch_size=BATCH)
-    model = get_model("LightGCN")(cfg, data, device=dev,
+    cfg = load_model_config(args.model).updated(embedding_size=64, GCN_layer=3,
+                                                 compute_dtype=args.compute_dtype,
+                                                 propagation_backend=args.backend,
+                                                 batch_size=BATCH)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    model = get_model(args.model)(cfg, data, device=dev,
                                   generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(0)
     users, pos, neg = NegativeSampler(data).sample_epoch(gen)
@@ -88,8 +92,7 @@ def main() -> int:
 
     def step(i):
         runner.opt.zero_grad(set_to_none=True)
-        bpr, reg = model.loss_terms(batch(i))
-        (bpr + reg).backward()
+        sum(model.loss_terms(batch(i))).backward()
         runner.opt.step()
 
     for i in range(10):
@@ -99,7 +102,7 @@ def main() -> int:
         runner.opt.zero_grad(set_to_none=True)
         terms, ms = sync_ms(lambda: model.loss_terms(batch(i)))
         phases["forward"].append(ms)
-        phases["backward"].append(sync_ms(lambda: (terms[0] + terms[1]).backward())[1])
+        phases["backward"].append(sync_ms(lambda: sum(terms).backward())[1])
         phases["adam"].append(sync_ms(runner.opt.step)[1])
     phase_ms = {k: float(np.median(v)) for k, v in phases.items()}
     _, whole = sync_ms(lambda: [step(i) for i in range(10 + steps, 10 + 2 * steps)])
@@ -126,7 +129,8 @@ def main() -> int:
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
     device_ms = sum(by_kernel.values())
-    result = {"card": card, "compute_dtype": args.compute_dtype, "backend": args.backend, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+    result = {"card": card, "model": args.model, "compute_dtype": args.compute_dtype,
+              "backend": args.backend, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)

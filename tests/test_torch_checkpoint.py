@@ -209,9 +209,9 @@ def test_load_jax_checkpoint_into_model_and_adam(jax_run):
     model = t_get_model("LightGCN")(tcfg, tdata, device="cpu")
     runner = TRunner(model, 0.01, 256, tdata.num_train)
     meta = convert.load_jax_checkpoint(model, runner.opt, jax_run["ck"])
-    assert meta["epoch"] == 2 and meta["num_leaves"] == convert.JAX_NUM_LEAVES
+    assert meta["epoch"] == 2 and meta["num_leaves"] == convert.jax_num_leaves(model) == 8
     jparams = jax.device_get(jax_run["res"].params)
-    for k in convert.EMBEDDING_KEYS:
+    for k in convert.table_names(model):
         np.testing.assert_array_equal(getattr(model, k).detach().numpy(), np.asarray(jparams[k]))
     adam = convert.adam_state_to_numpy(runner.opt, model)
     assert adam["count"] == 2 * 12 and float(np.abs(adam["mu"]["user_emb"]).max()) > 0
@@ -249,4 +249,5 @@ def test_load_jax_checkpoint_refuses_what_it_cannot_read(resumed, tmp_path):
     other = t_get_model("LightGCN")(TConfig({**_CFG, "embedding_size": "8"}), tdata, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         leaves, _ = t_ckpt.read_checkpoint(resumed["a"], 4)
-        convert.load_jax_params(other, convert.split_adam_and_params(leaves)[3])
+        convert.load_jax_params(
+            other, convert.split_adam_and_params(leaves, convert.table_names(other))[3])

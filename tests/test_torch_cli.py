@@ -104,7 +104,7 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin.isatty", lambda: False, raising=False)
     assert t_main.main([]) == 2
     out = capsys.readouterr().out
-    assert "Available models:" in out and "\t 1. LightGCN" in out
+    assert "Available models:" in out and "\t 1. EGCF" in out and "\t 2. LightGCN" in out
     assert "error: pass --model=<NAME> (no interactive terminal)" in out
 
 
@@ -155,7 +155,9 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     ("empty_users", "error: --users is empty"),
     ("bad_users", "error: --users must be comma-separated integers"),
     ("missing_checkpoint", "error: no checkpoints under"),
-    ("unknown_model", "error: unknown model 'Nope'; available: LightGCN"),
+    # the id keeps the name this case had while LightGCN was the only model
+    pytest.param("unknown_model", "error: unknown model 'Nope'; available: EGCF, LightGCN",
+                 id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),
     ("approx", "error: topk_mode='approx'"),

@@ -1,4 +1,4 @@
-"""Kernels K1-K8 against their plain PyTorch versions on the card.
+"""Kernels K1-K10 against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU with nvcc (the kernels build at first use);
 without one they skip with a reason. Run them on the card with
@@ -21,7 +21,11 @@ with its plain version within rtol 3e-5 / atol 3e-6 of the largest sum
 float32 additions differs) and gives the same bits on every launch; its
 backward against autograd through the plain version within 2**-7
 relative to the largest gradient (the kernel rounds the cotangent to
-bfloat16 going in, autograd rounds the gradient coming out)."""
+bfloat16 going in, autograd rounds the gradient coming out). K9 and K10
+are bit-equal to their plain versions (the CUDA math library's tanhf is
+PyTorch's tanh on the card; no FMA contraction), and so are the tanh
+chain with and without the seed sweep, forward and backward, and one
+EGCF training step; the forward also equals `fused_chain_t`'s."""
 
 from __future__ import annotations
 
@@ -474,3 +478,130 @@ def test_int8_trains_at_width_128_through_k7(cuda):
     assert fusedmm.fused_adj_matmul_int8.launches == before + 4   # 2 layers, forward and backward
     assert bool(torch.isfinite(model.user_emb.grad).all())
     assert bool(model.item_emb.grad.abs().sum() > 0)
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10, the tanh chain's epilogues, and the tanh + seed chain (EGCF)
+
+
+@pytest.mark.parametrize("d,n", [(64, 4096), (64, 38912), (16, 1028), (3, 4)])
+@pytest.mark.parametrize("combine", [chainmm.COMBINE_NONE, chainmm.COMBINE_SET,
+                                     chainmm.COMBINE_ADD])
+@pytest.mark.parametrize("want_next", [True, False])
+def test_k9_equals_plain(cuda, d, n, combine, want_next):
+    g = torch.Generator(device="cpu").manual_seed(6)
+    y = (torch.randn(d, n, generator=g) * 200).to(cuda)
+    s = (torch.rand(d, generator=g) * 1e-2).to(cuda)
+    post, pre = torch.rand(n, generator=g).to(cuda), torch.rand(n, generator=g).to(cuda)
+    c = torch.randn(d, n, generator=g).to(cuda)
+    c1, c2 = c.clone(), c.clone()
+    h1, h2 = torch.full_like(c, float("nan")), torch.full_like(c, float("nan"))
+    before = chainmm.chain_sweep_tanh.launches
+    z1, a1 = chainmm.chain_sweep_tanh(y, s, post, pre, c1, h1, combine, want_next)
+    assert chainmm.chain_sweep_tanh.launches == before + 1
+    z2, a2 = chainmm.chain_sweep_tanh_plain(y, s, post, pre, c2, h2, combine, want_next)
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
+    assert torch.equal(h1, torch.tanh(post[None, :] * (y * s[:, None])))
+    if want_next:
+        assert torch.equal(z1, z2) and torch.equal(a1, a2)
+    else:
+        assert z1 is None and a1 is None
+
+
+@pytest.mark.parametrize("d,n", [(64, 4096), (16, 1028), (3, 4)])
+@pytest.mark.parametrize("inject", [True, False])
+@pytest.mark.parametrize("want_next", [True, False])
+def test_k10_equals_plain(cuda, d, n, inject, want_next):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    y = (torch.randn(d, n, generator=g) * 200).to(cuda)
+    s = (torch.rand(d, generator=g) * 1e-2).to(cuda)
+    post, pre = torch.rand(n, generator=g).to(cuda), torch.rand(n, generator=g).to(cuda)
+    cot = (torch.randn(d, n, generator=g) * 1e-3).to(cuda)
+    h = torch.tanh(torch.randn(d, n, generator=g)).to(cuda)
+    cot0 = cot.clone()
+    h_arg = h if want_next else None
+    out1, a1 = chainmm.chain_sweep_tanh_inject(y, s, post, pre, cot, h_arg, inject, want_next)
+    out2, a2 = chainmm.chain_sweep_tanh_inject_plain(y, s, post, pre, cot, h_arg, inject,
+                                                     want_next)
+    assert torch.equal(out1, out2) and torch.equal(cot, cot0)
+    assert (a1 is None and a2 is None) if not want_next else torch.equal(a1, a2)
+
+
+def test_k9_k10_reject_what_they_do_not_take(cuda):
+    y = torch.zeros(4, 8, device=cuda)
+    ones4, ones8 = torch.ones(4, device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="h_out"):
+        chainmm.chain_sweep_tanh(y, ones4, ones8, ones8, y.clone(), torch.zeros(4, 6, device=cuda),
+                                 chainmm.COMBINE_NONE, True)
+    with pytest.raises(ValueError, match="N % 4"):
+        z = torch.zeros(4, 6, device=cuda)
+        chainmm.chain_sweep_tanh(z, ones4, torch.ones(6, device=cuda), torch.ones(6, device=cuda),
+                                 z.clone(), z.clone(), chainmm.COMBINE_NONE, True)
+    with pytest.raises(ValueError, match="h"):
+        chainmm.chain_sweep_tanh_inject(y, ones4, ones8, ones8, y, torch.zeros(4, 6, device=cuda),
+                                        False, True)
+
+
+@pytest.mark.parametrize("seed", [True, False])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_tanh_chain_equals_plain_chain(cuda, seed, layers, quant):
+    """Forward and backward of the tanh chain through K3, K1 or K5, K9
+    and K10 against the plain versions' chain, and int4 against int8."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, compute_dtype=quant, emb_size=64, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = (torch.rand(data.num_nodes, 64, generator=g) - 0.5)
+    if seed:
+        x[: data.num_users] = 0.0
+    x = x.to(cuda)
+    cot = torch.zeros(data.num_nodes, 64)
+    rows = torch.randint(0, data.num_nodes, (512,), generator=g)
+    cot[rows] = torch.randn(512, 64, generator=g) / 512
+    cot = cot.to(cuda)
+    outs, grads = [], []
+    for fn in (chainmm.fused_chain_resident, chainmm.fused_chain_resident_plain):
+        xx = x.clone().requires_grad_(True)
+        out = fn(adj, xx, layers, False, "sum", torch.tanh, seed)
+        out.backward(cot)
+        outs.append(out.detach())
+        grads.append(xx.grad)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
+    assert bool(grads[0].abs().sum() > 0)
+    if seed:
+        assert not bool(grads[0][: data.num_users].any())
+    # the per-sweep route on the card: the same forward bits
+    assert torch.equal(outs[0], propagate.fused_chain_t(adj, x, layers, False, "sum",
+                                                        torch.tanh, seed))
+
+
+def test_egcf_step_equals_plain_path(cuda, monkeypatch):
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = Config({"dataset": "t", "embedding_size": "64", "reg_lambda": "0.0001",
+                  "GCN_layer": "3", "compute_dtype": "int8", "ssl_lambda": "0.1",
+                  "temperature": "0.1", "mode": "parallel"})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    model = get_model("EGCF")(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cpu").manual_seed(5)
+    pick = torch.randint(0, data.num_train, (2048,), generator=g).numpy()
+    batch = {"user": torch.from_numpy(data.train_user[pick]).to(cuda),
+             "pos": torch.from_numpy(data.train_item[pick]).to(cuda),
+             "neg": torch.randint(0, data.num_items, (2048,), generator=g).to(cuda)}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        terms = model.loss_terms(batch)
+        sum(terms).backward()
+        return (model.item_emb.grad.clone(), *(t.detach() for t in terms))
+
+    before = chainmm.chain_sweep_tanh.launches, chainmm.chain_sweep_tanh_inject.launches
+    got = step()
+    assert chainmm.chain_sweep_tanh.launches - before[0] == 2 * 3 + 1  # the seed: users only
+    # the prologue, three sweeps of both sides, the seed sweep's item side
+    assert chainmm.chain_sweep_tanh_inject.launches - before[1] == 2 + 2 * 3 + 1
+    monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
+    monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
+    want = step()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

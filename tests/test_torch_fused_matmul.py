@@ -298,8 +298,8 @@ def test_loop_equals_resident_chain_forward_and_backward(datasets, monkeypatch, 
 
 
 def test_self_loop_variant_takes_the_loop(datasets):
-    """The chain's kernels have no diagonal term (ROADMAP B.B4), so the
-    `self` variant runs one `matmul` per layer in every quantized mode."""
+    """The resident chain has no diagonal term, so the `self` variant
+    runs one `matmul` per layer in every quantized mode."""
     t, j = _build(datasets, "self", "int8")
     assert t.has_diag and not t_chainmm.supports_chain_resident(t, D, 2, "mean", None)
     x = np.random.default_rng(12).normal(size=(t.shape[0], D)).astype(np.float32)

@@ -85,3 +85,44 @@ def test_reg_loss_indexed_value_and_grads(batch):
     (3.0 * t_losses.reg_loss(ua[idx[0]], ia[idx[1]], ia[idx[2]])).backward()
     np.testing.assert_allclose(ut_t.grad.numpy(), ua.grad.numpy(), **BAR)
     np.testing.assert_allclose(it_t.grad.numpy(), ia.grad.numpy(), **BAR)
+
+
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("temperature", [0.1, 0.5])
+def test_infonce_loss_value_and_grads(same, temperature):
+    """Both views, or one view against itself (EGCF's InfoNCE(u, u))."""
+    a, b, _ = _embs(5, b=32, d=16)
+    ta = torch.from_numpy(a).requires_grad_(True)
+    tb = ta if same else torch.from_numpy(b).requires_grad_(True)
+    got = t_losses.infonce_loss(ta, tb, temperature)
+    got.backward()
+    if same:
+        ref, grads = jax.value_and_grad(
+            lambda x: j_losses.infonce_loss(x, x, temperature))(jnp.asarray(a))
+        pairs = [(ta, grads)]
+    else:
+        ref, grads = jax.value_and_grad(
+            lambda x, y: j_losses.infonce_loss(x, y, temperature), argnums=(0, 1))(
+            jnp.asarray(a), jnp.asarray(b))
+        pairs = list(zip((ta, tb), grads))
+    np.testing.assert_allclose(got.item(), float(ref), **BAR)
+    for t, g in pairs:
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **BAR)
+    assert t_losses._INFONCE_EPS == j_losses._INFONCE_EPS == 1e-5
+
+
+@pytest.mark.parametrize("sizes", [(64, 64), (64,), (48, 64)])  # powers of two and not
+def test_reg_loss_counted_value_and_grads(sizes):
+    rng = np.random.default_rng(6)
+    table = rng.normal(size=(25, 8)).astype(np.float32)
+    idxs = [rng.integers(0, 25, s) for s in sizes]  # many duplicates
+    tt = torch.from_numpy(table).requires_grad_(True)
+    got = t_losses.reg_loss_counted(tt, *(torch.from_numpy(i) for i in idxs))
+    assert got.item() == t_losses.reg_loss(*(tt[torch.from_numpy(i)] for i in idxs)).item()
+    (3.0 * got).backward()
+    ref, grad = jax.value_and_grad(lambda t: 3.0 * j_losses.reg_loss_counted(
+        t, *(jnp.asarray(i, jnp.int32) for i in idxs)))(jnp.asarray(table))
+    np.testing.assert_allclose(3.0 * got.item(), float(ref), **BAR)
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(grad), **BAR)
+    if all(s & (s - 1) == 0 for s in sizes):
+        np.testing.assert_array_equal(tt.grad.numpy(), np.asarray(grad))

@@ -74,7 +74,7 @@ def test_params_carried_over(served):
     with pytest.raises(ValueError):
         convert.load_jax_params(tmodel, {"user_emb": np.zeros((2, 16)), "item_emb": params["item_emb"]})
     with pytest.raises(KeyError):
-        convert.state_dict_from_jax({"user_emb": params["user_emb"]})
+        convert.state_dict_from_jax({"user_emb": params["user_emb"]}, ("item_emb", "user_emb"))
 
 
 def test_eval_embeddings_noise(served):
