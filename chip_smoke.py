@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K10 from idgrec_torch/csrc and holds
+Builds the hand-written kernels K1-K13 from idgrec_torch/csrc and holds
 each against its plain PyTorch version at the shapes of the main paths:
-LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode)
-and EGCF (d=64, 3 tanh layers after the seed sweep) over the
-yelp2018-scale synthetic dataset, random weights from a seed.
+LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode,
+the bitpack backend, the batch-row partial product) and EGCF (d=64, 3
+tanh layers after the seed sweep) over the yelp2018-scale synthetic
+dataset, random weights from a seed.
 K5 (the dual product on the nibble-packed matrix) is also held to K1 on
 the unpacked matrix, and the int4 chain, backward chain and one step's
 gradients to int8's, all exactly. K7 and K8 (the per-application duals
@@ -55,7 +56,19 @@ to 0 just before and read just after:
   backend (K6 per application with tanh) served against the float32
   gather EGCF and trained 24 steps; `train_model` for one epoch with a
   checkpoint, both `Recommender` constructors, and
-  `main.main(["--model=EGCF", ...])` on the command-line dataset.
+  `main.main(["--model=EGCF", ...])` on the command-line dataset;
+* the bitpack backend (K11, one launch per direction): K11 against its
+  plain version, itself and K6 on the same binary matrix, its backward
+  against autograd through the plain version; LightGCN in bfloat16 and
+  float32 (both feed K11 bfloat16 activations): eval embeddings against
+  bfloat16-fused, four requests against the float32 gather model, two
+  runs of 64 steps with the BPR sum falling, one evaluation; EGCF
+  bfloat16 served against the float32 gather EGCF and trained 24 steps;
+* the batch-row partial product (K12 forward, K13 backward): both
+  against their plain versions in bfloat16 and float32 at the step's
+  rows, one LightGCN bfloat16 step on `dense` with
+  `batch_rows_propagation = 1` against the full propagation's, then
+  2 x 12 steps with and without batch rows in turns.
 
 It times each kernel beside its bound, its plain version and a library
 call, and the paths end to end.
@@ -119,7 +132,17 @@ F32_OPS = 67e12
 # weights, three layers of operands rounded at 2**-9), and its served
 # ids equal except among such scores (EGCF's bar follows the same rule,
 # 2**-7 of the largest logit times the sigmoid's slope 1/4, from its own
-# logits). K9 and K10, the tanh + seed chain forward and backward, one
+# logits). K11 is within TIGHT of its plain version, K12 and K13 within
+# TIGHT's rtol and its atol times their largest entry (K13's cotangents
+# are far below unit scale), each equal across two launches; K11 within
+# TIGHT of K6 on the same binary
+# matrix (the same bfloat16 operands and exact products), its backward
+# within BF16 (K6's rule); bitpack eval embeddings within TIGHT of
+# bfloat16-fused's, its served scores within BF16_SCORE of the float32
+# gather model's; one batch-rows step's loss terms within TIGHT and its
+# gradients within BF16 of the full propagation's (the partial rounds the
+# cotangent to bfloat16 where the dense product rounds elsewhere).
+# K9 and K10, the tanh + seed chain forward and backward, one
 # EGCF step and EGCF's int4 run are equal to the plain versions' and to
 # int8's; torch.tanh on the card is the CUDA math library's tanhf, which
 # K9 calls. Eval embeddings: dense float32
@@ -133,6 +156,8 @@ BF16_SCORE = 2e-5
 F32_SUM = 1e-5
 # the exact paths: steps of 2,048 triples per run
 BF16_STEPS, OTHER_STEPS, WIDE_STEPS, WIDE_DIM = 128, 24, 12, 128
+# the bitpack path: two runs of BIT_STEPS steps per compute dtype
+BIT_STEPS = 64
 
 
 def log(msg: str) -> None:
@@ -314,7 +339,8 @@ def main() -> int:
         from idgrec_torch.engine.trainer import EpochRunner
         from idgrec_torch.models import get_model
         from idgrec_torch.models.base import concat_user_item
-        from idgrec_torch.ops import _build, chainmm, fusedmm, losses, propagate, scatter
+        from idgrec_torch.ops import (_build, bitmm, chainmm, fusedmm, gathermm, losses,
+                                      propagate, scatter)
         from idgrec_torch.serving import Recommender
     except ImportError as e:
         print(f"chip_smoke: the idgrec_torch package is missing beside this script: {e}",
@@ -570,7 +596,9 @@ def main() -> int:
     n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                   fusedmm.fused_adj_matmul_int4)
     tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
-    counters = int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters + tanh_counters
+    row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
+    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters + tanh_counters
+                + row_counters)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -1545,6 +1573,276 @@ def main() -> int:
     del egcf
     torch.cuda.empty_cache()
 
+    # ==== the bitpack backend (K11) and the batch-row partial product (K12, K13)
+    t0 = time.perf_counter()
+    model_bp = fresh(cfg.updated(compute_dtype="bfloat16", propagation_backend="bitpack"))
+    torch.cuda.synchronize()
+    adj_bp = model_bp.graph
+    bp_bytes = adj_bp.packed.numel() + adj_bp.packed_t.numel()
+    log(f"bitpack adjacency packed {list(adj_bp.packed.shape)} + {list(adj_bp.packed_t.shape)} = "
+        f"{bp_bytes / 1e9:.3f} GB on the card in {time.perf_counter() - t0:.1f} s")
+    require(isinstance(adj_bp, propagate.BitSquareAdj)
+            and torch.equal(bitmm.unpack_rows(adj_bp.packed), adj.m8.view(torch.uint8))
+            and torch.equal(bitmm.unpack_rows(adj_bp.packed_t)[:i_pad, :u_pad],
+                            adj.m8.T.view(torch.uint8)),
+            "the packed bits are not the int8 matrix")
+    nnz_bp = int(torch.count_nonzero(adj.m8))
+
+    # ---- K11 on the first application's inputs: against its plain version,
+    # against itself, against K6 on the same binary matrix, its backward
+    zu11 = (adj_bp.right_u[:, None] * emb0[:nu]).contiguous()
+    zi11 = (adj_bp.right_i[:, None] * emb0[nu:]).contiguous()
+    k11_dirs = ((adj_bp.packed, zi11, nu), (adj_bp.packed_t, zu11, ni))
+    y11 = [bitmm.bit_matmul(p_, x_, n_) for p_, x_, n_ in k11_dirs]
+    y11_again = [bitmm.bit_matmul(p_, x_, n_) for p_, x_, n_ in k11_dirs]
+    y11_p = [bitmm.bit_matmul_plain(p_, x_, n_) for p_, x_, n_ in k11_dirs]
+    y6 = fusedmm.fused_adj_matmul(adj_bf.m8, zu11, zi11)
+    errs["K11"] = 0.0
+    for what, a, b, c, k6 in zip(("yu", "yi"), y11, y11_again, y11_p, y6):
+        require(a.dtype == torch.float32 and tuple(a.shape) == tuple(c.shape)
+                and bool(torch.isfinite(a).all()), f"K11 {what}: shape, type or non-finite")
+        require(torch.equal(a, b), f"K11 {what}: two launches differ, max abs err {max_abs(a, b)}")
+        assert_close(a, c, f"K11 {what}", **TIGHT)
+        assert_close(a, k6, f"K11 against K6 {what}", **TIGHT)
+        errs["K11"] = max(errs["K11"], max_abs(a, c))
+    log(f"K11 matches its plain version (max abs err {errs['K11']:.3e}) and K6 (max abs err "
+        f"{max(max_abs(a, b) for a, b in zip(y11, y6)):.3e}); two launches bit-equal")
+    grads11 = []
+    for fn in (lambda a, b: bitmm.bit_adj_matmul(adj_bp.packed, adj_bp.packed_t, a, b),
+               lambda a, b: (bitmm.bit_matmul_plain(adj_bp.packed, b, nu),
+                             bitmm.bit_matmul_plain(adj_bp.packed_t, a, ni))):
+        a, b = zu11.clone().requires_grad_(True), zi11.clone().requires_grad_(True)
+        torch.autograd.backward(list(fn(a, b)), [cot[:nu].contiguous(), cot[nu:].contiguous()])
+        grads11.append((a.grad, b.grad))
+    for what, got, ref in zip(("d xu", "d xi"), *grads11):
+        top = float(ref.abs().max())
+        require(top > 0 and max_abs(got, ref) <= BF16 * top,
+                f"K11 backward {what}: max abs err {max_abs(got, ref)} above {BF16} of {top}")
+    log(f"K11 backward (swapped cotangents) within {BF16} of autograd through the plain version")
+    del grads11, y11_again, y6
+
+    k11_ms = [cuda_ms(lambda p_=p_, x_=x_, n_=n_: bitmm.bit_matmul(p_, x_, n_), 20)
+              for p_, x_, n_ in k11_dirs]
+    k11_plain = sum(cuda_ms(lambda p_=p_, x_=x_, n_=n_: bitmm.bit_matmul_plain(p_, x_, n_), 3, 1)
+                    for p_, x_, n_ in k11_dirs)
+    # the function needs one add per set bit and feature in each direction
+    # (the bits are 0/1); K11 itself multiplies every bit, zeros included,
+    # which is its design's work, not the bound
+    k11_ops = 2 * 2.0 * nnz_bp * d
+    k11_work = sum(2.0 * 8 * p_.shape[0] * p_.shape[1] * d for p_, _, _ in k11_dirs)
+    k11_bytes = bp_bytes + sum(2.0 * p_.shape[1] * d + 4.0 * 8 * p_.shape[0] * d
+                               for p_, _, _ in k11_dirs)
+    k11_bound = bound(k11_bytes, k11_ops, bf16_ops)
+    # library yardstick: torch.matmul x2 on bfloat16 unpacked copies (results
+    # rounded to bfloat16), the copies not counted
+    lib_ops = []
+    for p_, x_, n_ in k11_dirs:
+        m_bf16 = bitmm.unpack_rows(p_).to(torch.bfloat16)
+        lib_ops.append((m_bf16, torch.nn.functional.pad(x_.to(torch.bfloat16),
+                                                        (0, 0, 0, p_.shape[1] - x_.shape[0]))))
+    for (m_bf16, x_bf16), c in zip(lib_ops, y11_p):
+        got = (m_bf16 @ x_bf16)[: c.shape[0]].float()
+        require(max_abs(got, c) <= BF16 * float(c.abs().max()),
+                "torch.matmul on the unpacked copy disagrees with K11's plain version")
+    k11_lib = cuda_ms(lambda: [m_bf16 @ x_bf16 for m_bf16, x_bf16 in lib_ops], 10)
+    del lib_ops, y11, y11_p
+    torch.cuda.empty_cache()
+    log(f"K11 {k11_ms[0]:.4f} ms (users, [{8 * adj_bp.packed.shape[0]}, "
+        f"{adj_bp.packed.shape[1]}]) + {k11_ms[1]:.4f} ms (items) = {sum(k11_ms):.4f} ms per "
+        f"application (bound {k11_bound[0]:.4f} ms by {k11_bound[1]} for {nnz_bp} set bits a "
+        f"direction; K11 multiplies all {k11_work:.4e} bits x features, "
+        f"{k11_work / bf16_ops * 1e3:.4f} ms at the bfloat16 peak; plain {k11_plain:.4f} ms, "
+        f"torch.matmul x2 on bfloat16 unpacked copies {k11_lib:.4f} ms)")
+
+    # ---- the bitpack path, LightGCN bfloat16 and float32: eval embeddings
+    # against bfloat16-fused, serving against the float32 gather model, two
+    # runs of BIT_STEPS steps, one evaluation
+    ref_gather = Recommender(fresh(cfg_gather), data)
+    embed_fused_bf = torch.cat(fresh(cfg_bf).eval_embeddings())
+    bit_runs = {}
+    triple_b = neg_sampler.sample_epoch(gen)
+    for dt in ("bfloat16", "float32"):
+        cfg_b = cfg.updated(compute_dtype=dt, propagation_backend="bitpack")
+        m_b = model_bp if dt == "bfloat16" else fresh(cfg_b)
+        emb_b = torch.cat(m_b.eval_embeddings())
+        assert_close(emb_b, embed_fused_bf, f"bitpack {dt} against bfloat16-fused eval embeddings",
+                     **TIGHT)
+        reset_counts()
+        t0 = time.perf_counter()
+        rec_b = Recommender(m_b, data)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        answers_b = [rec_b.recommend(users, k=K) for users in requests]
+        runner_b = EpochRunner(m_b, lr, BATCH, BIT_STEPS * BATCH)
+        terms_b, run_ms = [], []
+        for run in range(2):
+            part = [t_[run * BIT_STEPS * BATCH: (run + 1) * BIT_STEPS * BATCH] for t_ in triple_b]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            terms_b.append(runner_b.run_epoch(*part, generator=gen, epoch=run).cpu().numpy())
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+        evaluator_b = Evaluator(m_b, data, cfg_b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result_b = evaluator_b.evaluate()
+        torch.cuda.synchronize()
+        eval_b_ms = (time.perf_counter() - t0) * 1e3
+        launches_b = read_counts()
+        log(f"bitpack {dt} path launches: {launches_b}")
+        # a Recommender's chain, 12 a step (3 layers x 2 directions, forward
+        # and backward), the evaluation's chain
+        want_k11 = 2 * LAYERS + 2 * BIT_STEPS * 4 * LAYERS + 2 * LAYERS
+        require(launches_b["bit_matmul"] == want_k11
+                and all(n == 0 for name_, n in launches_b.items() if name_ != "bit_matmul"),
+                f"bitpack {dt}: expected {want_k11} K11 launches and nothing else")
+        for users, (items, scores) in zip(requests, answers_b):
+            check_answers_close(ref_gather, data, users, items, scores, BF16_SCORE)
+        require(all(t_.shape == (2,) and bool(np.isfinite(t_).all()) for t_ in terms_b)
+                and terms_b[0][0] < BIT_STEPS * np.log(2.0) and terms_b[1][0] < terms_b[0][0],
+                f"bitpack {dt}: BPR sums did not fall: {terms_b}")
+        for name_ in ("recall", "precision", "ndcg"):
+            v = result_b[name_]
+            require(v.shape == (len(TOP_KS),) and bool(np.isfinite(v).all())
+                    and bool(((v >= 0) & (v <= 1)).all()), f"bitpack {dt} {name_} {v}")
+        embed_b_ms = host_ms(m_b.eval_embeddings, 5)
+        bit_runs[dt] = (launches_b, run_ms[1] / BIT_STEPS, embed_b_ms, eval_b_ms)
+        log(f"bitpack {dt}: eval embeddings within TIGHT of bfloat16-fused, {len(requests)} "
+            f"requests within {BF16_SCORE} of the float32 gather model; {embed_b_ms:.3f} ms eval "
+            f"embeddings (first {first_ms:.3f}), BPR sums {terms_b[0][0]:.4f} then "
+            f"{terms_b[1][0]:.4f}, {run_ms[0] / BIT_STEPS:.3f} / {run_ms[1] / BIT_STEPS:.3f} ms per "
+            f"step, eval sweep {eval_b_ms:.2f} ms, recall@{TOP_KS[-1]} "
+            f"{result_b['recall'][-1]:.5f}")
+        del rec_b, runner_b, m_b, evaluator_b
+    del model_bp, adj_bp, ref_gather, embed_fused_bf
+    torch.cuda.empty_cache()
+
+    # ---- the bitpack path, EGCF parallel bfloat16: serving against the
+    # float32 gather EGCF, OTHER_STEPS steps
+    egcf_bp = fresh_egcf(cfg_e.updated(compute_dtype="bfloat16", propagation_backend="bitpack"))
+    ref_gather_e = Recommender(fresh_egcf(cfg_e.updated(compute_dtype="float32",
+                                                        propagation_backend="gather")), data)
+    reset_counts()
+    rec_e_bp = Recommender(egcf_bp, data)
+    answers_e_bp = [rec_e_bp.recommend(users, k=K) for users in requests]
+    runner_ = EpochRunner(egcf_bp, lr_e, BATCH, OTHER_STEPS * BATCH)
+    part = [t_[: OTHER_STEPS * BATCH] for t_ in triple]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp_e_terms = runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy()
+    egcf_bp_step_ms = (time.perf_counter() - t0) * 1e3 / OTHER_STEPS
+    egcf_bp_launches = read_counts()
+    want_k11_e = 2 * (LAYERS + 1) * (1 + 2 * OTHER_STEPS)
+    require(egcf_bp_launches["bit_matmul"] == want_k11_e
+            and all(n == 0 for name_, n in egcf_bp_launches.items() if name_ != "bit_matmul"),
+            f"EGCF bitpack: expected {want_k11_e} K11 launches and nothing else: "
+            f"{egcf_bp_launches}")
+    ref_u, ref_i = ref_gather_e._repr
+    top_logit_bp = max(float((ref_u[torch.from_numpy(u_).to(dev)] @ ref_i.T).abs().max())
+                       for u_ in requests)
+    egcf_bp_tol = BF16 * top_logit_bp / 4.0
+    for users, (items, scores) in zip(requests, answers_e_bp):
+        check_answers_close(ref_gather_e, data, users, items, scores, egcf_bp_tol)
+    require(bool(np.isfinite(bp_e_terms).all()) and bp_e_terms[0] < OTHER_STEPS * np.log(2.0),
+            f"EGCF bitpack loss terms {bp_e_terms}")
+    log(f"EGCF bitpack bfloat16: served {len(requests)} requests within {egcf_bp_tol:.3e} of the "
+        f"float32 gather EGCF; {egcf_bp_step_ms:.3f} ms per step over {OTHER_STEPS} steps")
+    del egcf_bp, ref_gather_e, rec_e_bp, runner_
+    torch.cuda.empty_cache()
+
+    # ---- the batch-row partial product: LightGCN bfloat16 on dense with
+    # batch_rows_propagation = 1, against the same model without it
+    cfg_full = cfg.updated(compute_dtype="bfloat16", propagation_backend="dense")
+    model_rows = fresh(cfg_full.updated(batch_rows_propagation=1))
+    model_full = fresh(cfg_full)
+    adj_rows = model_rows.graph
+    require(adj_rows.supports_rows and not model_full.graph.supports_rows
+            and torch.equal(adj_rows.m_t, adj_rows.m.T), "the dense adjacency's row copies")
+    log(f"dense adjacency with the transpose: M {list(adj_rows.m.shape)} and Mᵀ "
+        f"{list(adj_rows.m_t.shape)}, {2 * adj_rows.m.numel() / 1e9:.3f} GB")
+    got_r, want_r = step_grads(model_rows), step_grads(model_full)
+    for what, a, b in zip(("bpr", "reg"), got_r[2:], want_r[2:]):
+        assert_close(a, b, f"batch rows, one step's {what}", **TIGHT)
+    for what, a, b in zip(("d user_emb", "d item_emb"), got_r[:2], want_r[:2]):
+        top = float(b.abs().max())
+        require(bool(torch.isfinite(a).all()) and max_abs(a, b) <= BF16 * top,
+                f"batch rows, one step's {what}: max abs err {max_abs(a, b)} above {BF16} of {top}")
+    log(f"batch rows: one step's loss terms within TIGHT and gradients within {BF16} of the full "
+        f"propagation's (max abs err {max(max_abs(a, b) for a, b in zip(got_r, want_r)):.3e})")
+    del got_r, want_r
+
+    # K12 and K13 at the step's shapes: the batch's rows (with repeats), the
+    # first application's activations and the batch cotangents
+    rows_sets = ((adj_rows.m, idx_u), (adj_rows.m_t, idx_i))
+    zs = (adj_rows.right_i[:, None] * emb0[nu:], adj_rows.right_u[:, None] * emb0[:nu])
+    gs = (vals_u, vals_i)
+    k12 = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for tag, fn, plain, vs in (("K12", gathermm.gather_rows_matmul,
+                                    gathermm.gather_rows_matmul_plain, zs),
+                                   ("K13", gathermm.gather_rows_matmul_t,
+                                    gathermm.gather_rows_matmul_t_plain, gs)):
+            cases = [(m_, r_, v_.to(dt).contiguous()) for (m_, r_), v_ in zip(rows_sets, vs)]
+            for m_, r_, v_ in cases:
+                got = fn(m_, r_, v_)
+                require(torch.equal(got, fn(m_, r_, v_)), f"{tag} {dt}: two launches differ")
+                # atol scales with the largest entry: K13's cotangents are
+                # those of a mean over the batch, far below unit scale
+                want = plain(m_, r_, v_)
+                assert_close(got, want, f"{tag} {dt}", rtol=TIGHT["rtol"],
+                             atol=TIGHT["atol"] * float(want.abs().max()))
+                errs[tag] = max(errs.get(tag, 0.0), max_abs(got, want))
+            ms = cuda_ms(lambda: [fn(*c_) for c_ in cases], 20)
+            plain_ms = cuda_ms(lambda: [plain(*c_) for c_ in cases], 3, 1)
+            if tag == "K12":
+                lib_fn = lambda: [m_[r_, : v_.shape[0]].to(dt) @ v_  # noqa: E731
+                                  for m_, r_, v_ in cases]
+                out_bytes = sum(4.0 * r_.numel() * d for _, r_, _ in cases)
+            else:
+                lib_fn = lambda: [m_[r_].to(dt).T @ v_ for m_, r_, v_ in cases]  # noqa: E731
+                out_bytes = sum(4.0 * m_.shape[1] * d for m_, _, _ in cases)
+            lib_ms = cuda_ms(lib_fn, 10)
+            # each distinct row read once, z (or g) read once, the output written once
+            distinct = [int(torch.unique(r_).numel()) for _, r_, _ in cases]
+            nbytes = (sum(n_ * m_.shape[1] for n_, (m_, _, _) in zip(distinct, cases))
+                      + sum(v_.numel() * v_.element_size() for _, _, v_ in cases) + out_bytes)
+            ops = sum(2.0 * n_ * m_.shape[1] * d for n_, (m_, _, _) in zip(distinct, cases))
+            bnd = bound(nbytes, ops, bf16_ops if dt == torch.bfloat16 else F32_OPS)
+            k12[(tag, dt)] = (ms, plain_ms, bnd, lib_ms)
+            log(f"{tag} {str(dt)[6:]}: {ms:.4f} ms per step (2 launches: {idx_u.numel()} user "
+                f"rows, {idx_i.numel()} item rows; bound {bnd[0]:.4f} ms by {bnd[1]}, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms)")
+    log(f"K12 and K13 match their plain versions within TIGHT (max abs err {errs['K12']:.3e}, "
+        f"{errs['K13']:.3e}); two launches bit-equal")
+
+    # 2 x 12 steps each, rows and full in turns on the same batches
+    half = OTHER_STEPS // 2
+    rows_terms, rows_ms, full_ms = [], [], []
+    reset_counts()
+    for run in range(2):
+        part = [t_[run * half * BATCH: (run + 1) * half * BATCH] for t_ in triple_b]
+        for m_, out_ms, out_terms in ((model_rows, rows_ms, rows_terms),
+                                      (model_full, full_ms, [])):
+            runner_ = EpochRunner(m_, lr, BATCH, half * BATCH)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_terms.append(runner_.run_epoch(*part, generator=gen, epoch=run).cpu().numpy())
+            out_ms.append((time.perf_counter() - t0) * 1e3 / half)
+    rows_launches = read_counts()
+    log(f"batch-rows path launches: {rows_launches}")
+    require(rows_launches["gather_rows_matmul"] == 2 * OTHER_STEPS
+            and rows_launches["gather_rows_matmul_t"] == 2 * OTHER_STEPS
+            and all(n == 0 for name_, n in rows_launches.items()
+                    if name_ not in ("gather_rows_matmul", "gather_rows_matmul_t")),
+            f"batch rows: expected {2 * OTHER_STEPS} launches each of K12 and K13 and nothing else")
+    require(all(bool(np.isfinite(t_).all()) for t_ in rows_terms)
+            and rows_terms[1][0] < rows_terms[0][0], f"batch rows: BPR sums {rows_terms}")
+    log(f"batch rows: BPR sums {rows_terms[0][0]:.4f} then {rows_terms[1][0]:.4f}; "
+        f"{float(np.mean(rows_ms)):.3f} ms per step ({', '.join(f'{t:.3f}' for t in rows_ms)}) "
+        f"beside {float(np.mean(full_ms)):.3f} ms ({', '.join(f'{t:.3f}' for t in full_ms)}) "
+        f"without batch rows, dense bfloat16, in turns over {half} steps each")
+    del model_rows, model_full, adj_rows, runner_, triple_b
+    torch.cuda.empty_cache()
+
     n_steps = EPOCHS * steps
 
     by_path = {"serving": launches, "training": train_launches,
@@ -1554,7 +1852,9 @@ def main() -> int:
                "egcf_serving": egcf_serve_launches, "egcf_training": egcf_train_launches,
                "egcf_int4": egcf_int4_launches, "egcf_bf16_fused": egcf_bf_launches,
                "egcf_run_harness": egcf_harness_launches,
-               "egcf_command_line": egcf_cli_launches}
+               "egcf_command_line": egcf_cli_launches,
+               "bitpack_bf16": bit_runs["bfloat16"][0], "bitpack_f32": bit_runs["float32"][0],
+               "egcf_bitpack": egcf_bp_launches, "batch_rows": rows_launches}
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit):
@@ -1570,6 +1870,10 @@ def main() -> int:
             per_step = counts["wide_d128"] / WIDE_STEPS
         elif fn in egcf_tanh:
             per_step = counts["egcf_training"] / n_steps
+        elif fn is bitmm.bit_matmul:
+            per_step = (counts["bitpack_bf16"] - 4 * LAYERS) / (2 * BIT_STEPS)
+        elif fn in row_counters:
+            per_step = counts["batch_rows"] / OTHER_STEPS
         else:
             per_step = counts["training"] / n_steps
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -1618,6 +1922,21 @@ def main() -> int:
               "idgrec_tpu/ops/chainmm.py:391", chainmm.chain_sweep_tanh_inject, errs["K10"],
               k10_ms, k10_plain, k10_bound, None,
               "one backward sweep of the tanh chain: 2 launches (the seed sweep 1)"),
+        entry("bit_matmul", "idgrec_torch/csrc/bit_matmul.cu", "idgrec_tpu/ops/bitmm.py:94",
+              bitmm.bit_matmul, errs["K11"], sum(k11_ms), k11_plain, k11_bound, k11_lib,
+              "one application at d = 64: 2 launches (users, items), the bfloat16 cast and pad "
+              "inside; library: torch.matmul x2 on bfloat16 unpacked copies, the copies not "
+              "counted"),
+        entry("gather_rows_matmul", "idgrec_torch/csrc/gather_rows_matmul.cu",
+              "idgrec_tpu/ops/gathermm.py:113", gathermm.gather_rows_matmul, errs["K12"],
+              *k12[("K12", torch.bfloat16)],
+              f"one step, bfloat16 z: 2 launches ({BATCH} user rows, {2 * BATCH} item rows), the "
+              "share sum and z's pad inside; library: M[rows].to(bfloat16) @ z x2"),
+        entry("gather_rows_matmul_t", "idgrec_torch/csrc/gather_rows_matmul.cu",
+              "idgrec_tpu/ops/gathermm.py:148", gathermm.gather_rows_matmul_t, errs["K13"],
+              *k12[("K13", torch.bfloat16)],
+              f"one step, bfloat16 g: 2 launches ({BATCH} user rows, {2 * BATCH} item rows); "
+              "library: M[rows].to(bfloat16).T @ g x2"),
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
@@ -1629,7 +1948,9 @@ def main() -> int:
             f"{k['launches_egcf_serving']} serving, {k['launches_egcf_training']} training, "
             f"{k['launches_egcf_int4']} int4, {k['launches_egcf_bf16_fused']} bfloat16-fused, "
             f"{k['launches_egcf_run_harness']} run harness, {k['launches_egcf_command_line']} "
-            f"command line ({k['launches_per_step']:.2f} per step)")
+            f"command line; bitpack {k['launches_bitpack_bf16']} bfloat16, "
+            f"{k['launches_bitpack_f32']} float32, {k['launches_egcf_bitpack']} EGCF; "
+            f"{k['launches_batch_rows']} batch rows ({k['launches_per_step']:.2f} per step)")
     log(f"EGCF: eval embeddings {egcf_embed_ms:.3f} ms (int4 {egcf4_embed_ms:.3f}, bfloat16-fused "
         f"{egcf_bf_embed_ms:.3f}), {egcf_step_ms:.3f} ms per step, {float(np.mean(e_epoch_ms)):.1f} "
         f"ms per epoch (int8); int4 {e_runs['int4'][1]:.3f} and int8 {e_runs['int8'][1]:.3f} ms per "
@@ -1637,7 +1958,10 @@ def main() -> int:
         f"int8 {step_ms:.3f}")
     log(f"exact modes, ms per training step: fused bfloat16 {bf_step_ms:.3f}, "
         + ", ".join(f"{label} {v[0]:.3f}" for label, v in other_ms.items())
-        + f"; beside int8 {step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")
+        + f"; bitpack bfloat16 {bit_runs['bfloat16'][1]:.3f}, float32 "
+        f"{bit_runs['float32'][1]:.3f}; dense bfloat16 with batch rows "
+        f"{float(np.mean(rows_ms)):.3f} beside {float(np.mean(full_ms)):.3f} without; beside int8 "
+        f"{step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,6 +45,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_common.cuh"
 #include <math.h>
 
 namespace {
@@ -75,31 +77,6 @@ struct Geo {
   // 16-byte pieces (8 bf16) of a zu chunk per thread
   static constexpr int ZU_ITEMS = CHUNK * (DF / 8) / THREADS;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D += A . B for A [16 features, 16 k] and B [16 k, 8 columns], bf16 in, f32
-// accumulation. a0/a2 belong to feature row g, a1/a3 to row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);

@@ -42,6 +42,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
@@ -69,39 +71,6 @@ struct Geo {
   static constexpr int YU_BYTES = WARPS * DF * YU_PITCH * 4;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + QI_BYTES + YU_BYTES;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices from shared memory: for int8 data, exactly the
-// A fragment of mma m16n8k32 when lane l points at row (l & 7) + 8 * ((l >> 3) & 1)
-// of the 16-row tile, byte offset 16 * (l >> 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const int8_t* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);

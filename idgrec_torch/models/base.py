@@ -148,6 +148,42 @@ def lightgcn_propagate(graph, emb0: torch.Tensor, num_layers: int,
     return true_divide(total, float(terms)) if reduce == "mean" else total
 
 
+def lightgcn_propagate_rows(graph, emb0: torch.Tensor, num_layers: int, rows_u: torch.Tensor,
+                            rows_i: torch.Tensor, num_users: int, include_layer0: bool = True,
+                            reduce: str = "mean") -> tuple[torch.Tensor, torch.Tensor]:
+    """`lightgcn_propagate` restricted to selected output rows: K - 1
+    full ``graph.matmul`` layers, then the last layer as the batch-row
+    partial product ``graph.matmul_rows`` (so one full forward
+    application, and through autograd one full backward application, per
+    step become O(B·N·d) partials). Returns (user rows, item rows) of the
+    final embeddings, equal to the full path's rows up to the order of
+    the partial's float32 additions. Needs ``graph.supports_rows``."""
+    if reduce not in ("mean", "sum"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    if num_layers == 0:
+        full = lightgcn_propagate(graph, emb0, 0, include_layer0, reduce)
+        return full[rows_u], full[num_users + rows_i]
+    from idgrec_torch.ops.propagate import true_divide
+
+    h = emb0
+    items = num_users + rows_i
+    tot_u, tot_i, terms = (emb0[rows_u], emb0[items], 1) if include_layer0 else (None, None, 0)
+
+    def add(total, part):
+        return part if total is None else total + part
+
+    for _ in range(num_layers - 1):
+        h = graph.matmul(h)
+        tot_u, tot_i = add(tot_u, h[rows_u]), add(tot_i, h[items])
+        terms += 1
+    yu, yi = graph.matmul_rows(h, rows_u, rows_i)
+    tot_u, tot_i = add(tot_u, yu), add(tot_i, yi)
+    terms += 1
+    if reduce == "sum":
+        return tot_u, tot_i
+    return true_divide(tot_u, float(terms)), true_divide(tot_i, float(terms))
+
+
 def lightgcn_layer_outputs(graph, emb0: torch.Tensor, num_layers: int) -> list[torch.Tensor]:
     """[emb0, Â·emb0, Â²·emb0, ...]: the per-layer list some
     self-supervised models contrast across."""

@@ -12,6 +12,7 @@ from idgrec_torch.models.base import (
     batch_final_embeddings,
     concat_user_item,
     lightgcn_propagate,
+    lightgcn_propagate_rows,
     split_user_item,
 )
 from idgrec_torch.models.registry import register
@@ -27,11 +28,9 @@ class LightGCN(RecModel):
         super().__init__(config, data, device=device, generator=generator)
         self.reg_lambda = config.float("reg_lambda")
         self.num_layers = config.int("GCN_layer")
+        # batch-row partial propagation of the last layer (ops/gathermm.py),
+        # opt-in as in the JAX package
         self.batch_rows = config.int("batch_rows_propagation", 0) == 1
-        if self.batch_rows:
-            raise NotImplementedError(
-                "batch_rows_propagation = 1: the batch-row partial product is "
-                "ROADMAP B.B9")
         self.graph = build_adjacency(
             data, "sym", self.backend, compute_dtype=self.compute_dtype,
             with_transpose=self.batch_rows, emb_size=self.embedding_size,
@@ -44,8 +43,18 @@ class LightGCN(RecModel):
         return split_user_item(final, self.num_users)
 
     def _batch_final(self, batch):
-        """Final embeddings of exactly the batch rows, from one full
-        propagation."""
+        """Final embeddings of exactly the batch rows. With batch-row
+        propagation on a graph that supports it, the last layer (and,
+        through autograd, the first backward application) is the partial
+        product over the batch rows; otherwise one full propagation, as
+        in the JAX package."""
+        if self.batch_rows and getattr(self.graph, "supports_rows", False):
+            emb0 = concat_user_item(self.user_emb, self.item_emb)
+            rows_i = torch.cat([batch["pos"], batch["neg"]])
+            u_final, i_final = lightgcn_propagate_rows(
+                self.graph, emb0, self.num_layers, batch["user"], rows_i, self.num_users)
+            pos_e, neg_e = i_final.chunk(2)
+            return u_final, pos_e, neg_e
         user_all, item_all = self.propagate()
         return batch_final_embeddings(user_all, item_all, batch, self.compute_dtype)
 

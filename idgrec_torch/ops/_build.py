@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries go to
-``idgrec_torch/_build/`` under a name that carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is built at import: `library` builds on first
-use, and `build_all` builds every kernel at once, one ``nvcc`` process
-per source, all started together.
+``idgrec_torch/_build/`` under a name that carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. Nothing is
+built at import: `library` builds on first use, and `build_all` builds
+every kernel at once, one ``nvcc`` process per source, all started
+together.
 
 No ``--use_fast_math``: the quantization needs IEEE division and
 round-half-even. ``-fmad=false`` keeps nvcc from contracting the
@@ -27,7 +28,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNEL_SOURCES = ("dual_int8_t", "dual_int4_t", "dual_bf16", "dual_int8_n", "dual_int4_n",
-                  "chain_sweep_epilogue", "chain_sweep_tanh", "quantize_rows", "scatter_add_rows")
+                  "chain_sweep_epilogue", "chain_sweep_tanh", "quantize_rows", "scatter_add_rows",
+                  "bit_matmul", "gather_rows_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,8 +56,10 @@ def source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in (source_path(name), *(os.path.join(CSRC_DIR, f) for f in headers)):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

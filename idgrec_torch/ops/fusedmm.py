@@ -73,6 +73,12 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: must be a contiguous 16-byte-aligned tensor on {device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when contiguous and 16-byte aligned, else a copy."""
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def pad_matrix(m: torch.Tensor, item_multiple: int = TI,
                row_multiple: int = TU) -> torch.Tensor:
     """Zero-pad an int8 [U, I] matrix to tile multiples, on its device."""

@@ -3,7 +3,7 @@ idgrec_tpu/ops/propagate.py).
 
 Every normalization factors as Â = diag(L) · [[0, M], [Mᵀ, 0]] · diag(R)
 (plus a self-loop diagonal for the `self` variant) with M the integer
-interaction-count matrix. Three backends apply it behind one facade
+interaction-count matrix. Four backends apply it behind one facade
 (``matmul(x, gate=None)``):
 
 * **fused** (`FusedSquareAdj`): M as dense int8 [U_pad, I_pad] on the
@@ -20,13 +20,17 @@ interaction-count matrix. Three backends apply it behind one facade
 * **dense** (`DenseSquareAdj`): the same int8 M, two plain matrix
   products per application, which the JAX package leaves to XLA and the
   port to `torch.matmul`: exact in bfloat16 or float32, or int8-quantized.
+  With ``with_transpose`` it also stores Mᵀ, and `matmul_rows` gives
+  the rows of one application that a batch needs as partial products
+  over those rows alone (kernels K12 and K13, ops/gathermm.py).
+* **bitpack** (`BitSquareAdj`): binary M stored bit-packed, M and Mᵀ
+  apart (ops/bitmm.py), one kernel K11 launch per direction on bfloat16
+  activations with float32 sums, whatever the compute dtype.
 * **gather** (`GatherSquareAdj`): row-sorted COO gather and sorted
   segment sum (ops/spmm.py), for graphs whose dense matrix does not fit.
 
 This module also holds kernel K3 (`quantize_rows`,
 csrc/quantize_rows.cu) beside its plain version, and `build_adjacency`.
-The bitpack backend and the batch-row partial product raise
-`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch.nn.functional as F
 from idgrec_torch.data import graph as graph_lib
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
-from idgrec_torch.ops import _build, fusedmm
+from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm
 from idgrec_torch.ops.spmm import spmm
 
 # Dense-backend memory budget: the int8 count matrix (and its copies)
@@ -316,8 +320,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class DenseSquareAdj:
     """Square normalized adjacency diag(L)·[[0,M],[Mᵀ,0]]·diag(R)
     (+ diag) over the int8 count matrix, two plain products per
-    application. The batch-row partial product (``matmul_rows``) is
-    ROADMAP B.B9."""
+    application. With the transposed copy ``m_t`` stored, `matmul_rows`
+    computes selected rows of one application."""
 
     m: torch.Tensor        # int8 [pad(U), pad(I)]
     left_u: torch.Tensor   # f32 [U]
@@ -333,6 +337,10 @@ class DenseSquareAdj:
     # "int8": both directions quantize the activations per feature and
     # run as int8 products; "none": exact bfloat16 or float32 operands
     quant: str = "none"
+    # Mᵀ as its own int8 [pad(I), pad(U)] copy, the operand of the item
+    # rows of `matmul_rows`; built with build_adjacency(...,
+    # with_transpose=True)
+    m_t: torch.Tensor | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -345,10 +353,29 @@ class DenseSquareAdj:
 
     @property
     def supports_rows(self) -> bool:
-        return False
+        return self.m_t is not None
 
-    def matmul_rows(self, x, rows_u, rows_i):
-        raise NotImplementedError("the batch-row partial product is ROADMAP B.B9")
+    def matmul_rows(self, x: torch.Tensor, rows_u: torch.Tensor,
+                    rows_i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Selected rows of Â @ x: (yu[rows_u], yi[rows_i]), each the
+        row-gathered partial product over the rows alone (kernels K12
+        forward, K13 backward), O(B·N·d) instead of O(U·I·d). Used for the
+        last layer of the batch-row losses. The right-scaled activations
+        are rounded to the compute dtype's name (bfloat16 in the int8
+        mode, which quantizes nothing here, as in the JAX package)."""
+        if self.m_t is None:
+            raise ValueError("matmul_rows needs the adjacency built with with_transpose=True")
+        nu = self.num_users
+        cdt = _DTYPES[self.compute_dtype_name]
+        xu, xi = x[:nu], x[nu:]
+        zi = (self.right_i[:, None] * xi.to(torch.float32)).to(cdt)
+        zu = (self.right_u[:, None] * xu.to(torch.float32)).to(cdt)
+        yu = self.left_u[rows_u, None] * gathermm.gather_matmul(self.m, rows_u, zi)
+        yi = self.left_i[rows_i, None] * gathermm.gather_matmul(self.m_t, rows_i, zu)
+        if self.has_diag:
+            yu = yu + self.diag_u[rows_u, None] * xu[rows_u].to(torch.float32)
+            yi = yi + self.diag_i[rows_i, None] * xi[rows_i].to(torch.float32)
+        return yu.to(x.dtype), yi.to(x.dtype)
 
     def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
         """Â @ x for x [U+I, d]; optional per-node multiplicative gate
@@ -444,6 +471,46 @@ class FusedSquareAdj:
 
 
 _N_DUALS = {"int8": quant_fused_dual, "int4": quant_fused_dual4}
+
+
+@dataclass(frozen=True)
+class BitSquareAdj:
+    """Square normalized adjacency diag(L)·[[0,M],[Mᵀ,0]]·diag(R)
+    (+ diag) with binary M stored bit-packed, M and Mᵀ apart; each
+    direction is one K11 launch on bfloat16 activations (float32 sums),
+    and the backward runs the same launches on the swapped cotangents
+    (ops/bitmm.py)."""
+
+    packed: torch.Tensor    # int8 [U_pad / 8, I_pad] = bitmm.pack_rows(M)
+    packed_t: torch.Tensor  # int8 [I_pad' / 8, U_pad'] = bitmm.pack_rows(Mᵀ)
+    left_u: torch.Tensor    # f32 [U]
+    left_i: torch.Tensor    # f32 [I]
+    right_u: torch.Tensor   # f32 [U]
+    right_i: torch.Tensor   # f32 [I]
+    diag_u: torch.Tensor    # f32 [U] (zeros when no self loop)
+    diag_i: torch.Tensor    # f32 [I]
+    num_users: int
+    num_items: int
+    has_diag: bool = False
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        n = self.num_users + self.num_items
+        return (n, n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        """Â @ x for x [U+I, d]; optional per-node multiplicative gate
+        applied on both sides. K11 takes d % 8 == 0 on the card."""
+        nu = self.num_users
+        right_u, right_i, left_u, left_i = _gated(self, gate)
+        zu = right_u[:, None] * x[:nu].to(torch.float32)
+        zi = right_i[:, None] * x[nu:].to(torch.float32)
+        yu, yi = bitmm.bit_adj_matmul(self.packed, self.packed_t, zu, zi)
+        return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
 def supports_chain_t(graph, d: int | None = None) -> bool:
@@ -593,11 +660,13 @@ def build_adjacency(
     """Normalized square adjacency on ``device`` (default the card).
 
     variant: 'sym', 'self' (A + I) or 'gen' with (alpha, beta).
-    backend: 'auto', 'dense', 'fused' or 'gather'; 'bitpack' is ROADMAP
-    A.8. compute_dtype: 'bfloat16' (default) or 'float32', exact on
-    every backend; 'int8' on dense or fused, 'int4' on fused.
-    with_transpose (the stored row-gather copies of the dense backend's
-    batch-row partial product) is ROADMAP B.B9.
+    backend: 'auto', 'dense', 'fused', 'gather' or 'bitpack' (binary
+    counts only). compute_dtype: 'bfloat16' (default) or 'float32', exact
+    on dense, fused and gather (bitpack rounds the activations to
+    bfloat16 in both); 'int8' on dense or fused, 'int4' on fused.
+    with_transpose: on dense, also store Mᵀ so that `matmul_rows` (the
+    batch-row partial product) is available, one more int8 copy of the
+    matrix.
 
     The fused matrix is padded to (TU, TI) multiples whatever
     ``emb_size``: the JAX package's wider PANEL padding exists only for
@@ -614,8 +683,6 @@ def build_adjacency(
                          f"{sorted(_DTYPES)} or int8, int4")
     backend = resolve_backend(data, backend, copies=3 if with_transpose else 1,
                               compute_dtype=compute_dtype, device=dev)
-    if backend == "bitpack":
-        raise NotImplementedError("the bitpack backend is ROADMAP A.8")
     if quant != "none":
         if backend not in ("dense", "fused"):
             raise ValueError(f"compute_dtype = {quant} requires the dense or fused backend")
@@ -623,9 +690,6 @@ def build_adjacency(
             logging.getLogger("idgrec_torch").warning(
                 "with_transpose (batch-rows partial propagation) is not available "
                 "on the quantized fused backend; full-width products will be used")
-    if backend == "dense" and with_transpose:
-        raise NotImplementedError(
-            "with_transpose (the dense backend's batch-row partial product) is ROADMAP B.B9")
     if variant not in ("sym", "self", "gen"):
         raise ValueError(f"unknown variant {variant!r}")
     if variant == "gen" and (alpha is None or beta is None):
@@ -656,9 +720,16 @@ def build_adjacency(
         lu, li = _inv_pow_vec(du, alpha, dev), _inv_pow_vec(di, alpha, dev)
         ru, ri = _inv_pow_vec(du, beta, dev), _inv_pow_vec(di, beta, dev)
 
+    if backend == "bitpack":
+        if not bool(np.all(data.csr_vals == 1)):
+            raise ValueError("bitpack backend requires binary interaction counts")
+        p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
+        return BitSquareAdj(p, pt, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag)
     if backend == "dense":
-        return DenseSquareAdj(_count_matrix_int8(data, dev), lu, li, ru, ri, diag_u, diag_i,
-                              nu, ni, dtype_name, has_diag, quant)
+        m = _count_matrix_int8(data, dev)
+        m_t = m.T.contiguous() if with_transpose else None
+        return DenseSquareAdj(m, lu, li, ru, ri, diag_u, diag_i, nu, ni, dtype_name, has_diag,
+                              quant, m_t)
     item_mult = fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI
     m8 = fusedmm.pad_matrix(_count_matrix_int8(data, dev), item_mult,
                             row_multiple=fusedmm.TU)

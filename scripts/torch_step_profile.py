@@ -3,10 +3,12 @@
 GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF] [--steps 40]
-        [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather]
+        [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather|bitpack]
+        [--batch_rows]
 
 Builds the yelp2018-scale model of chip_smoke.py (its config file's
-loss weights, d = 64, 3 layers, batch 2,048), warms up, then
+loss weights, d = 64, 3 layers, batch 2,048; ``--batch_rows`` sets
+LightGCN's ``batch_rows_propagation = 1``), warms up, then
 
 * times the step's phases on the host clock, each ending in a
   synchronize (forward to the loss, backward, Adam), and the whole step
@@ -53,7 +55,9 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=40)
     parser.add_argument("--compute_dtype", default="int8",
                         choices=["int8", "int4", "bfloat16", "float32"])
-    parser.add_argument("--backend", default="auto", choices=["auto", "dense", "fused", "gather"])
+    parser.add_argument("--backend", default="auto",
+                        choices=["auto", "dense", "fused", "gather", "bitpack"])
+    parser.add_argument("--batch_rows", action="store_true")
     args = parser.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -69,6 +73,7 @@ def main() -> int:
     cfg = load_model_config(args.model).updated(embedding_size=64, GCN_layer=3,
                                                  compute_dtype=args.compute_dtype,
                                                  propagation_backend=args.backend,
+                                                 batch_rows_propagation=int(args.batch_rows),
                                                  batch_size=BATCH)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -130,7 +135,7 @@ def main() -> int:
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
     device_ms = sum(by_kernel.values())
     result = {"card": card, "model": args.model, "compute_dtype": args.compute_dtype,
-              "backend": args.backend, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+              "backend": args.backend, "batch_rows": args.batch_rows, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)

@@ -25,7 +25,12 @@ bfloat16 going in, autograd rounds the gradient coming out). K9 and K10
 are bit-equal to their plain versions (the CUDA math library's tanhf is
 PyTorch's tanh on the card; no FMA contraction), and so are the tanh
 chain with and without the seed sweep, forward and backward, and one
-EGCF training step; the forward also equals `fused_chain_t`'s."""
+EGCF training step; the forward also equals `fused_chain_t`'s. K11 (the
+bit-packed product), K12 and K13 (the batch-row partial product and its
+backward) agree with their plain versions within rtol 3e-5 / atol 3e-6
+of the largest sum (the same exact products, float32 sums in another
+order) and give the same bits on every launch; K11 agrees with K6 on the
+same binary matrix within the same bar."""
 
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import torch
 from idgrec_torch.data.dataset import make_synthetic_dataset
 from idgrec_torch.config import Config
 from idgrec_torch.models import get_model
-from idgrec_torch.ops import chainmm, fusedmm, propagate, scatter
+from idgrec_torch.ops import bitmm, chainmm, fusedmm, gathermm, propagate, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -605,3 +610,170 @@ def test_egcf_step_equals_plain_path(cuda, monkeypatch):
     want = step()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _close(got, want):
+    """Within rtol 3e-5 and 3e-6 of the largest entry of ``want``."""
+    top = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-6 * max(top, 1e-30))
+
+
+@pytest.mark.parametrize("r,c,density,d", [
+    (3000, 2000, 0.02, 64),     # several row blocks and column chunks
+    (1000, 500, 1.0, 32),       # all ones: the longest sums
+    (200, 700, 0.3, 16),
+    (100, 100, 0.1, 8),         # one row block, the narrowest width
+    (2048, 1024, 0.0, 64),      # all zero
+    (1000, 1000, 0.05, 136),    # 17 feature groups of 8
+])
+def test_k11_equals_plain_and_repeats_bit_equal(cuda, r, c, density, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(0)
+    m = torch.from_numpy((rng.random((r, c)) < density).astype(np.int8)).to(cuda)
+    packed = bitmm.pack_rows(m)
+    assert torch.equal(bitmm.unpack_rows(packed)[:r, :c], m.to(torch.uint8))
+    x = torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)).to(cuda)
+    before = bitmm.bit_matmul.launches
+    got = bitmm.bit_matmul(packed, x, r)
+    assert bitmm.bit_matmul.launches == before + 1
+    assert got.shape == (r, d) and got.dtype == torch.float32
+    assert torch.equal(got, bitmm.bit_matmul(packed, x, r))
+    _close(got, bitmm.bit_matmul_plain(packed, x, r))
+
+
+def test_k11_matches_k6_on_a_binary_matrix(cuda):
+    rng = np.random.default_rng(1)
+    m = torch.from_numpy((rng.random((3000, 2000)) < 0.02).astype(np.int8)).to(cuda)
+    xu = torch.from_numpy(rng.normal(size=(3000, 64)).astype(np.float32)).to(cuda)
+    xi = torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32)).to(cuda)
+    packed, packed_t = bitmm.pack_pair(m)
+    got = bitmm.bit_adj_matmul(packed, packed_t, xu, xi)
+    want = fusedmm.fused_adj_matmul(fusedmm.pad_matrix(m), xu, xi)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_bit_adj_backward_is_the_swapped_product(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(2)
+    m = torch.from_numpy((rng.random((2000, 1000)) < 0.03).astype(np.int8)).to(cuda)
+    packed, packed_t = bitmm.pack_pair(m)
+    xu, xi, g_yu, g_yi = (torch.from_numpy(rng.normal(size=s_).astype(np.float32)).to(cuda)
+                          for s_ in ((2000, 64), (1000, 64), (2000, 64), (1000, 64)))
+    a, b = xu.clone().requires_grad_(True), xi.clone().requires_grad_(True)
+    torch.autograd.backward(list(bitmm.bit_adj_matmul(packed, packed_t, a, b)), [g_yu, g_yi])
+    swapped = bitmm.bit_adj_matmul(packed, packed_t, g_yu, g_yi)
+    pa, pb = xu.clone().requires_grad_(True), xi.clone().requires_grad_(True)
+    torch.autograd.backward([bitmm.bit_matmul_plain(packed, pb, 2000),
+                             bitmm.bit_matmul_plain(packed_t, pa, 1000)], [g_yu, g_yi])
+    for got, same, ref in zip((a.grad, b.grad), swapped, (pa.grad, pb.grad)):
+        assert torch.equal(got, same)
+        # the kernel rounds the cotangent to bfloat16 going in, autograd
+        # through the plain version rounds the gradient coming out
+        assert float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", ["width", "dtype", "rows"])
+def test_k11_rejects_what_it_does_not_take(cuda, case):
+    packed = torch.zeros((128, 512), dtype=torch.int8, device=cuda)
+    x = torch.zeros((512, 64), device=cuda)
+    if case == "width":
+        x = torch.zeros((512, 12), device=cuda)
+    elif case == "dtype":
+        packed = packed.to(torch.uint8)
+    else:
+        packed = torch.zeros((4, 512), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        bitmm.bit_matmul(packed, x, 8 * packed.shape[0])
+
+
+def _rows_case(rng, r, c, b, density=0.02, top=1):
+    m = _counts(rng, r, c, density, top)
+    # repeats, as the sampler draws them: half the batch from 40 rows
+    rows = np.concatenate([rng.integers(0, r, b - b // 2), rng.integers(0, min(r, 40), b // 2)])
+    return m, torch.from_numpy(rng.permutation(rows).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,c,b,d,top", [
+    (3000, 2048, 2048, 64, 1),    # the step's shape, smaller matrix
+    (500, 384, 100, 32, 127),     # a ragged batch, the largest counts
+    (300, 128, 1, 8, 3),          # one row
+    (1000, 1280, 300, 24, 2),     # three feature groups of 8
+])
+def test_k12_k13_equal_plain_and_repeat(cuda, dtype, r, c, b, d, top):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(3)
+    m, rows = _rows_case(rng, r, c, b, 0.05, top)
+    m, rows = m.to(cuda), rows.to(cuda)
+    z = torch.from_numpy(rng.normal(size=(c - 5, d)).astype(np.float32)).to(cuda).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(cuda).to(dtype)
+    before = gathermm.gather_rows_matmul.launches, gathermm.gather_rows_matmul_t.launches
+    out = gathermm.gather_rows_matmul(m, rows, z)
+    dz = gathermm.gather_rows_matmul_t(m, rows, g)
+    assert (gathermm.gather_rows_matmul.launches - before[0],
+            gathermm.gather_rows_matmul_t.launches - before[1]) == (1, 1)
+    assert out.shape == (b, d) and dz.shape == (c, d)
+    assert torch.equal(out, gathermm.gather_rows_matmul(m, rows, z))
+    assert torch.equal(dz, gathermm.gather_rows_matmul_t(m, rows, g))
+    _close(out, gathermm.gather_rows_matmul_plain(m, rows, z))
+    _close(dz, gathermm.gather_rows_matmul_t_plain(m, rows, g))
+
+
+def test_k12_row_out_of_range_gives_nan(cuda):
+    m = torch.ones((256, 128), dtype=torch.int8, device=cuda)
+    z = torch.ones((128, 64), device=cuda)
+    rows = torch.tensor([0, 256, 5, -1], device=cuda)
+    out = gathermm.gather_rows_matmul(m, rows, z)
+    assert bool(torch.isnan(out[1]).all() and torch.isnan(out[3]).all())
+    assert bool((out[[0, 2]] == 128.0).all())
+    dz = gathermm.gather_rows_matmul_t(m, rows, torch.ones((4, 64), device=cuda))
+    assert bool((dz == 2.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_matmul_backward_rounds_as_jax(cuda, dtype):
+    """dz = (M[rows]ᵀ @ g rounded to z's type) in float32, returned in
+    z's type: within one ulp of that type of the plain version's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(4)
+    m, rows = _rows_case(rng, 2000, 1024, 700)
+    m, rows = m.to(cuda), rows.to(cuda)
+    z = torch.from_numpy(rng.normal(size=(1000, 64)).astype(np.float32)).to(cuda).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(700, 64)).astype(np.float32)).to(cuda)
+    zz = z.clone().requires_grad_(True)
+    gathermm.gather_matmul(m, rows, zz).backward(g)
+    want = gathermm.gather_rows_matmul_t_plain(m, rows, g.to(dtype))[:1000]
+    assert zz.grad.dtype == dtype
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    torch.testing.assert_close(zz.grad.float(), want, rtol=ulp, atol=3e-6 * float(want.abs().max()))
+
+
+def test_bitpack_and_batch_rows_train_through_their_kernels(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n = 4 * 1024
+    pick = torch.randint(0, data.num_train, (n,), generator=g).numpy()
+    triple = (torch.from_numpy(data.train_user[pick]).to(cuda),
+              torch.from_numpy(data.train_item[pick]).to(cuda),
+              torch.randint(0, data.num_items, (n,), generator=g).to(cuda))
+    counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
+    for extra, want in (({"propagation_backend": "bitpack"}, (4 * 12, 0, 0)),
+                        ({"propagation_backend": "dense", "batch_rows_propagation": "1"},
+                         (0, 4 * 2, 4 * 2))):
+        cfg = Config({"dataset": "t", "embedding_size": "64", "reg_lambda": "0.0001",
+                      "GCN_layer": "3", "compute_dtype": "bfloat16", **extra})
+        model = get_model("LightGCN")(cfg, data, device=cuda,
+                                      generator=torch.Generator().manual_seed(0))
+        before = [f.launches for f in counters]
+        terms = EpochRunner(model, 0.001, 1024, n).run_epoch(*triple).cpu().numpy()
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == want
+        assert terms.shape == (2,) and np.isfinite(terms).all()

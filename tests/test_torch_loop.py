@@ -246,7 +246,8 @@ def test_loss_string_matches_jax(sums, n):
 
 
 @pytest.mark.parametrize("backend,dtype", [("dense", "bfloat16"), ("gather", "bfloat16"),
-                                           ("gather", "float32"), ("fused", "bfloat16")])
+                                           ("gather", "float32"), ("fused", "bfloat16"),
+                                           ("bitpack", "bfloat16"), ("bitpack", "float32")])
 def test_train_model_runs_in_the_exact_modes(tmp_path, backend, dtype):
     from idgrec_torch.ops import propagate as t_prop
 
@@ -255,7 +256,7 @@ def test_train_model_runs_in_the_exact_modes(tmp_path, backend, dtype):
     totals = _totals(res)
     assert len(totals) == 4 and totals[-1] < totals[0] < np.log(2.0) + 1e-3
     want = {"dense": t_prop.DenseSquareAdj, "gather": t_prop.GatherSquareAdj,
-            "fused": t_prop.FusedSquareAdj}[backend]
+            "fused": t_prop.FusedSquareAdj, "bitpack": t_prop.BitSquareAdj}[backend]
     model = t_get_model("LightGCN")(TConfig({**_CFG, "compute_dtype": dtype,
                                              "propagation_backend": backend}), _tdata(),
                                     device="cpu")
@@ -288,3 +289,19 @@ def test_int8_at_width_32_through_the_loop_equals_the_chain(tmp_path, monkeypatc
         assert torch.equal(loop.params[k], chain.params[k])
     for name in ("recall", "ndcg"):
         np.testing.assert_array_equal(loop.last_result[name], chain.last_result[name])
+
+
+def test_train_model_with_batch_rows_resumes_like_a_straight_run(tmp_path):
+    """batch_rows_propagation = 1 on dense: the rows path trains, logs,
+    checkpoints and resumes bit for bit, and its losses stay within
+    float32 round-off of the full propagation's."""
+    over = {"compute_dtype": "bfloat16", "propagation_backend": "dense"}
+    full = _train(tmp_path / "full", over, log_dir=None)
+    rows_over = {**over, "batch_rows_propagation": "1"}
+    res = _train(tmp_path, rows_over, checkpoint_dir=str(tmp_path / "ck"))
+    assert len(res.history) == 4
+    np.testing.assert_allclose(_totals(res), _totals(full), rtol=1e-3)
+    again = _train(tmp_path, rows_over, checkpoint_dir=str(tmp_path / "ck"))
+    assert [h["epoch"] for h in again.history] == [4]
+    for k in ("user_emb", "item_emb"):
+        assert torch.equal(again.params[k], res.params[k])

@@ -169,10 +169,23 @@ def test_resolve_backend_matches_jax():
     dict(compute_dtype="bfloat16", backend="dense", with_transpose=True),
 ])
 def test_unported_paths_raise(kw):
-    tdata, _ = _pair((40, 60, 500, 100), 2)
-    item = "B.B9" if kw.get("with_transpose") else "A.8"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        t_prop.build_adjacency(tdata, device="cpu", **kw)
+    """The paths that raised before their kernels were ported: bitpack
+    builds in the exact modes and refuses the quantized ones as the JAX
+    package does; dense with the transpose supports the row product."""
+    tdata, jdata = _pair((40, 60, 500, 100), 2)
+    if kw["backend"] == "bitpack" and kw["compute_dtype"] in ("int8", "int4"):
+        with pytest.raises(ValueError, match="dense or fused"):
+            t_prop.build_adjacency(tdata, device="cpu", **kw)
+        with pytest.raises(ValueError, match="dense or fused"):
+            j_prop.build_adjacency(jdata, **kw)
+        return
+    adj = t_prop.build_adjacency(tdata, device="cpu", **kw)
+    assert type(adj).__name__ == type(j_prop.build_adjacency(jdata, **kw)).__name__
+    if kw["backend"] == "bitpack":
+        assert isinstance(adj, t_prop.BitSquareAdj)
+    else:
+        assert isinstance(adj, t_prop.DenseSquareAdj) and adj.supports_rows
+        assert adj.quant == ("int8" if kw["compute_dtype"] == "int8" else "none")
 
 
 def test_build_adjacency_needs_a_device_without_cuda():

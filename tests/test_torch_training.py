@@ -259,9 +259,16 @@ def test_unported_options_raise():
         TEvaluator(tmodel, tdata, TConfig(_CFG), mesh=object())
     with pytest.raises(NotImplementedError, match="approx_max_k"):
         TEvaluator(tmodel, tdata, TConfig({**_CFG, "eval_topk": "approx"}))
-    with pytest.raises(NotImplementedError, match="B.B9"):
-        t_get_model("LightGCN")(TConfig({**_CFG, "batch_rows_propagation": "1"}), tdata,
-                                device="cpu")
+    # batch-row propagation is ported; in int8 `auto` resolves to fused,
+    # which has no row product, so the model keeps the full propagation
+    # (with the JAX package's warning)
+    rows_model = t_get_model("LightGCN")(TConfig({**_CFG, "batch_rows_propagation": "1"}),
+                                         tdata, device="cpu")
+    assert rows_model.batch_rows and not getattr(rows_model.graph, "supports_rows", False)
+    dense_rows = t_get_model("LightGCN")(
+        TConfig({**_CFG, "batch_rows_propagation": "1", "propagation_backend": "dense"}),
+        tdata, device="cpu")
+    assert dense_rows.graph.supports_rows
 
 
 def test_optimizer_is_the_named_adam():
