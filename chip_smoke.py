@@ -16,8 +16,14 @@ in [N, d] layout) are held to K1 and K5 on the transposed activations,
 and three `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
 K6 (the bfloat16 dual) to its plain version within a stated tolerance,
 bit-equal across two launches, and its backward to autograd through the
-plain version. Then it drives the paths, each with the launch counts set
-to 0 just before and read just after:
+plain version. K4 is held to its plain version bit for bit through the
+training step's entry (one launch per table, no range check) and the
+public one, on 4,096 copies of one row, and across two launches; the
+gathers' backward runs under ``torch.cuda.set_sync_debug_mode("error")``.
+K7 is held across two launches at d = 64 and d = 128, where its launcher
+reports one read of M (`fusedmm.k7_passes` states the same rule). Then
+it drives the paths, each with the
+launch counts set to 0 just before and read just after:
 
 * serving, int8: `serving.Recommender` answers four requests, checked
   against the plain path;
@@ -245,12 +251,15 @@ class PlainChainModel:
 def plain_kernels(chainmm, scatter):
     """Route the chain and the batch scatter through the kernels' plain
     versions: the reference a training step is held to."""
-    saved = chainmm.KERNELS, scatter.scatter_add_rows
-    chainmm.KERNELS, scatter.scatter_add_rows = chainmm.PLAIN, scatter.scatter_add_rows_plain
+    saved = chainmm.KERNELS, scatter.scatter_add_rows, scatter.scatter_add_rows_unchecked
+    chainmm.KERNELS = chainmm.PLAIN
+    scatter.scatter_add_rows = scatter.scatter_add_rows_plain
+    scatter.scatter_add_rows_unchecked = scatter.scatter_add_rows_plain
     try:
         yield
     finally:
-        chainmm.KERNELS, scatter.scatter_add_rows = saved
+        (chainmm.KERNELS, scatter.scatter_add_rows,
+         scatter.scatter_add_rows_unchecked) = saved
 
 
 def write_dataset(directory: str, data) -> None:
@@ -337,6 +346,7 @@ def main() -> int:
         from idgrec_torch.engine import sampler as sampler_lib
         from idgrec_torch.engine.evaluator import BestResults, Evaluator
         from idgrec_torch.engine.trainer import EpochRunner
+        from idgrec_torch.models import base as base_lib
         from idgrec_torch.models import get_model
         from idgrec_torch.models.base import concat_user_item
         from idgrec_torch.ops import (_build, bitmm, chainmm, fusedmm, gathermm, losses,
@@ -517,18 +527,57 @@ def main() -> int:
     vals_u = rows[0].grad.contiguous()
     vals_i = torch.cat([rows[1].grad, rows[2].grad]).contiguous()
     k4_cases = ((idx_u, vals_u, nu), (idx_i, vals_i, ni))
-    cot_parts = []
-    for idx, vals, n_rows in k4_cases:
-        got = scatter.scatter_add_rows(idx, vals, n_rows)
+    vals_p, vals_n = rows[1].grad, rows[2].grad
+
+    def k4_step():
+        """K4 as the gathers' backward calls it: the step's entry (no range
+        check, nothing read back), one launch per table, the item table's
+        positives and negatives concatenated."""
+        return (scatter.scatter_add_rows_unchecked(batch["user"], vals_u, nu),
+                scatter.scatter_add_rows_unchecked(torch.cat([batch["pos"], batch["neg"]]),
+                                                   torch.cat([vals_p, vals_n]), ni))
+
+    cot_parts = k4_step()
+    again = k4_step()
+    for (idx, vals, n_rows), got, got2 in zip(k4_cases, cot_parts, again):
         want = scatter.scatter_add_rows_plain(idx, vals, n_rows)
-        require(torch.equal(got, want), f"K4 into [{n_rows}, {DIM}] differs from its plain "
-                                        f"version: max abs err {max_abs(got, want)}")
-        errs["K4"] = max(errs.get("K4", 0.0), max_abs(got, want))
-        cot_parts.append(got)
-    log(f"K4 equals its plain version exactly ({dup_u} duplicate user rows, {dup_i} duplicate "
-        f"item rows in the batch)")
+        public = scatter.scatter_add_rows(idx, vals, n_rows)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(public.view(torch.int32), want.view(torch.int32)),
+                f"K4 into [{n_rows}, {DIM}] differs from its plain version: max abs err "
+                f"{max(max_abs(got, want), max_abs(public, want))}")
+        require(torch.equal(got.view(torch.int32), got2.view(torch.int32)),
+                f"K4 into [{n_rows}, {DIM}]: two launches differ")
+        errs["K4"] = max(errs.get("K4", 0.0), max_abs(got, want), max_abs(public, want))
+    # a batch of 4,096 copies of one row: the hot-row path of the kernel
+    one_row = torch.full((2 * BATCH,), int(idx_i[0]), dtype=torch.int64, device=dev)
+    got = scatter.scatter_add_rows(one_row, vals_i, ni)
+    want = scatter.scatter_add_rows_plain(one_row, vals_i, ni)
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            f"K4 on {2 * BATCH} copies of one row differs from its plain version: max abs err "
+            f"{max_abs(got, want)}")
+    errs["K4"] = max(errs["K4"], max_abs(got, want))
+    # the gathers' backward on the step's path issues no synchronisation
+    ua, ia = (t_.detach().clone().requires_grad_(True) for t_ in (final[:nu], final[nu:]))
+    gathered = base_lib.batch_final_embeddings(ua, ia, batch, "int8")
+    gather_loss = losses.bpr_loss(*gathered)
+    k4_before = scatter.scatter_add_rows.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gather_loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(scatter.scatter_add_rows.launches == k4_before + 2,
+            "the gathers' backward did not take one K4 launch per table")
+    require(torch.equal(ua.grad, cot_parts[0]) and torch.equal(ia.grad, cot_parts[1]),
+            "the gathers' backward differs from K4 on the batch cotangents")
+    log(f"K4 equals its plain version exactly, the step's entry (one launch per table) and "
+        f"the public one, two launches bit-equal, {2 * BATCH} copies of one row too "
+        f"({dup_u} duplicate user rows, {dup_i} duplicate item rows in the batch); the gathers' "
+        f"backward ran under sync debug mode 'error' without a synchronisation")
     cot = torch.cat(cot_parts)  # [N, d]: the combine's cotangent of this batch
-    del final, rows
+    del final, rows, again, ua, ia, gathered
 
     gT = propagate.true_divide(cot.T.contiguous(), float(LAYERS + 1))
     gu = propagate._pad_cols(gT[:, :nu], u_pad).contiguous()
@@ -716,12 +765,22 @@ def main() -> int:
     k4_bound = bound(sum(8.0 * idx.numel() + 4.0 * vals.numel() + 4.0 * n_rows * d
                          for idx, vals, n_rows in k4_cases),
                      sum(float(vals.numel()) for _, vals, _ in k4_cases))
-    k4_ms = cuda_ms(lambda: k4_pair(scatter.scatter_add_rows), 50)
+    # the step's entry (one call per table, no range check) on the inputs
+    # index_add_ takes, the item batch concatenated; beside it the gathers'
+    # backward path (the concatenation included) and the public entry (range
+    # check, one flag read back), two calls each
+    k4_ms = cuda_ms(lambda: k4_pair(scatter.scatter_add_rows_unchecked), 50)
+    k4_path_ms = cuda_ms(k4_step, 50)
+    k4_checked_ms = cuda_ms(lambda: k4_pair(scatter.scatter_add_rows), 50)
     k4_plain = cuda_ms(lambda: k4_pair(scatter.scatter_add_rows_plain), 10)
     k4_lib = cuda_ms(lambda: k4_pair(index_add), 50)
     for idx, vals, n_rows in k4_cases:
         assert_close(index_add(idx, vals, n_rows), scatter.scatter_add_rows(idx, vals, n_rows),
                      "index_add_ against K4", rtol=1e-5, atol=1e-9)
+    log(f"K4 per step: the step's entry {k4_ms:.4f} ms (two calls, no range check; the "
+        f"backward's path, pos and neg concatenated in it, {k4_path_ms:.4f} ms), the public "
+        f"entry {k4_checked_ms:.4f} ms (two calls, each checking the range), index_add_ x2 "
+        f"{k4_lib:.4f} ms, bound {k4_bound[0]:.4f} ms by {k4_bound[1]}")
 
     embed_ms = host_ms(model.eval_embeddings, 5)
     reset_counts()
@@ -964,6 +1023,11 @@ def main() -> int:
             f"K7 differs from its plain version: max abs err {errs['K7']}")
     require(torch.equal(yu7, yu.T) and torch.equal(yi7, yi.T),
             "K7 differs from K1 on the transposed activations")
+    yu7b, yi7b = fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN)
+    require(torch.equal(yu7.view(torch.int32), yu7b.view(torch.int32))
+            and torch.equal(yi7.view(torch.int32), yi7b.view(torch.int32)),
+            f"K7 at d = {DIM}: two launches differ")
+    del yu7b, yi7b
     yu8, yi8 = fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)
     yu8_p, yi8_p = fusedmm.fused_adj_matmul_int4_plain(adj4.m8, quN, qi4N)
     errs["K8"] = max(max_abs(yu8, yu8_p), max_abs(yi8, yi8_p))
@@ -976,11 +1040,15 @@ def main() -> int:
     log(f"K7 and K8 equal their plain versions, K1 and K5 transposed, and each other exactly "
         f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums)")
     k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN), 20)
+    k7_64_passes = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
+    require(k7_64_passes == fusedmm.k7_passes(DIM) == 1,
+            f"K7 at d = {DIM}: {k7_64_passes} reads of M launched, {fusedmm.k7_passes(DIM)} "
+            "stated")
     k8_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N), 20)
     k1_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
     k5_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
-    log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms beside K1 {k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms "
-        f"beside K5 {k5_now:.4f} ms, per application")
+    log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms ({k7_64_passes} pass over M, as launched) beside K1 "
+        f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms beside K5 {k5_now:.4f} ms, per application")
     del yu7_p, yi7_p, yu8_p, yi8_p, yu7, yi7, yu8, yi8
 
     # three `FusedSquareAdj.matmul` calls against the chain's layers
@@ -1205,7 +1273,7 @@ def main() -> int:
         f"weights")
 
     # K7 and K8 at the shapes this path gives them: the first application's
-    # quantized activations of the d = 128 model
+    # quantized activations of the d = 128 model; K7 reads M once for all 128
     m128, m128_4 = wide["int8"][2], wide["int4"][2]
     a128, a128_4 = m128.graph, m128_4.graph
     qu128, _ = propagate._quantize_cols(torch.nn.functional.pad(
@@ -1221,22 +1289,36 @@ def main() -> int:
             ("K8", fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain, a128_4.m8,
              qi128, i_pad4)):
         got = fn(m_store, qu128, qi_)
+        if tag == "K7":
+            launched = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
+            require(launched == fusedmm.k7_passes(dw) == 1,
+                    f"K7 at d = {dw}: {launched} reads of M launched, {fusedmm.k7_passes(dw)} "
+                    "stated; one expected")
         want = plain(m_store, qu128, qi_)
         err = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                 f"{tag} at d = {dw} differs from its plain version: max abs err {err}")
+        again = fn(m_store, qu128, qi_)
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, again)), f"{tag} at d = {dw}: two launches differ")
+        del again
         errs[tag] = max(errs[tag], err)
         m_bytes = m_store.numel()
-        bnd = bound(m_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols),
-                    4.0 * u_pad * cols * dw)
+        # K7 multiplies the non-zero entries only (2 directions x 2 ops each),
+        # K8 every entry of its non-zero tiles, counted as all of M
+        ops = (4.0 * int(torch.count_nonzero(m_store)) * dw if tag == "K7"
+               else 4.0 * u_pad * cols * dw)
+        bnd = bound(m_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols), ops)
         ms = cuda_ms(lambda: fn(m_store, qu128, qi_), 20)
         plain_ms = cuda_ms(lambda: plain(m_store, qu128, qi_), 3, 1)
         m_dense = fusedmm.unpack_nibbles(m_store) if tag == "K8" else m_store
         lib = int_mm_ms(m_dense, qu128.T.contiguous(), qi_.T.contiguous(),
                         got[0].T.contiguous(), got[1].T.contiguous())
         wide_kernels[tag] = (ms, plain_ms, bnd, lib)
-        log(f"{tag} at d = {dw}: {ms:.4f} ms per application (bound {bnd[0]:.4f} ms by {bnd[1]}, "
-            f"plain {plain_ms:.4f} ms, torch._int_mm x2 on transposed operands {lib})")
+        passes = (f", {launched} pass over M, as launched" if tag == "K7" else
+                  f", {dw // 64} passes over M")
+        log(f"{tag} at d = {dw}: {ms:.4f} ms per application{passes} (bound {bnd[0]:.4f} ms by "
+            f"{bnd[1]}, plain {plain_ms:.4f} ms, torch._int_mm x2 on transposed operands {lib})")
         del got, want, m_dense
     del wide, m128, m128_4
 
@@ -1902,14 +1984,17 @@ def main() -> int:
         entry("scatter_add_rows", "idgrec_torch/csrc/scatter_add_rows.cu",
               "idgrec_tpu/ops/scatter.py:40", scatter.scatter_add_rows, errs["K4"], k4_ms,
               k4_plain, k4_bound, k4_lib,
-              "one step: 2 launches (2,048 rows into the user table, 4,096 into the item table)"),
+              "one step on the step's entry: 2 calls (2,048 rows into the user table, "
+              "4,096 into the item table, pos and neg concatenated; two kernels each); "
+              "library: index_add_ x2 into zeroed tables"),
         entry("dual_bf16", "idgrec_torch/csrc/dual_bf16.cu", "idgrec_tpu/ops/fusedmm.py:98",
               fusedmm.fused_adj_matmul, errs["K6"], k6_ms, k6_plain, k6_bound, k6_lib,
               "one application at d = 64: 1 launch, its pad, cast, amax and scratch fill inside; "
               "library: torch.matmul x2 on a bfloat16 copy of M, the copy not counted"),
         entry("dual_int8_n", "idgrec_torch/csrc/dual_int8_n.cu", "idgrec_tpu/ops/fusedmm.py:211",
               fusedmm.fused_adj_matmul_int8, errs["K7"], *wide_kernels["K7"],
-              f"one application at d = {WIDE_DIM}: 1 launch, two feature groups"),
+              f"one application at d = {WIDE_DIM}: 1 launch, one 128-feature group (one read of "
+              "M)"),
         entry("dual_int4_n", "idgrec_torch/csrc/dual_int4_n.cu", "idgrec_tpu/ops/fusedmm.py:442",
               fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
               f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, two "
@@ -1938,6 +2023,12 @@ def main() -> int:
               f"one step, bfloat16 g: 2 launches ({BATCH} user rows, {2 * BATCH} item rows); "
               "library: M[rows].to(bfloat16).T @ g x2"),
     ]
+    for k in kernels:
+        if k["name"] == "scatter_add_rows":
+            k["public_entry_ms"] = k4_checked_ms  # two calls, each checking the range
+            k["backward_path_ms"] = k4_path_ms  # the step's entry, the concatenation included
+        elif k["name"] == "dual_int8_n":
+            k["ms_d64"] = k7_64_ms
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']}), "

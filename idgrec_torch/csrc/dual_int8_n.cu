@@ -1,5 +1,5 @@
 // K7 dual_int8_n: both directions of the int8 adjacency product from one
-// read of each M tile, activations in the [N, d] layout of the
+// read of M per feature group, activations in the [N, d] layout of the
 // per-application product.
 //
 //   yu[u, f] = sum_i M[u, i] * qi[i, f]      (M  @ qi, [U_pad, d])
@@ -9,290 +9,188 @@
 // launched by _fused_small_call l.250) and _fused_kernel_int8 (l.283,
 // launched at l.345); entry fused_adj_matmul_int8 (l.320). The TPU needed a
 // single-panel and a panelized body because its yi or yu accumulator had to
-// fit VMEM; here one kernel covers both. Its raw sums equal K1's
-// (dual_int8_t.cu) on the transposed activations bit for bit: the same
-// integer products, and integer addition is associative.
+// fit VMEM; here one kernel covers both. Its sums equal K1's (dual_int8_t.cu)
+// on the transposed activations bit for bit: the same integer products, and
+// integer addition is associative.
 //
-// Bound on the H100: bytes. One sweep at d <= 64 reads M once (U_pad * I_pad
-// bytes) against 4 * U_pad * I_pad * d int8 operations.
+// Bound on the H100: bytes. M (U_pad * I_pad int8, 1.22 GB at yelp2018
+// scale) is read once per feature group; the operations on it are 4 *
+// U_pad * I_pad * d int8 multiply-adds if every entry is multiplied, and
+// 4 * nnz * d if only the non-zero ones are.
 //
-// Design: K1's, with the layout change done on the way through shared memory.
-// * Block (x, y, z) owns column strip x (256 columns), the y-th even share of
-//   the 64-row chunks and feature group z: 64 features when d % 64 == 0, else
-//   32 (d % 32 == 0). A wider d reads M once per feature group.
-// * Inside the block the products run in K1's orientation (features are the
-//   mma's m dimension), so qi's strip and each chunk of qu are transposed
-//   while they are written to shared memory: a thread reads 16 bytes of one
-//   activation row and stores them as 16 bytes of one shared column. The qu
-//   chunk of a later stage is fetched into registers before the current
-//   chunk's products and stored after them, so its latency is hidden.
-// * M streams through shared memory (cp.async, STAGES deep); both products
-//   run as mma.sync m16n8k32 s8*s8->s32; all-zero tiles of M are skipped
-//   (warp-uniform votes), as in K1.
-// * Cross-block sums are int32 atomicAdd into the zeroed int32 outputs the
-//   wrapper allocates (order-free, exact). The staged yu tile is sent with
-//   the features contiguous: one atomic instruction covers 32 features of one
-//   row (4 sectors).
+// Design. K1's tiles (mma.sync on 64 x 256 stages of M in shared memory,
+// zero-tile votes, byte gathers for the M^T fragments) are limited by work
+// inside the SM, not by the stream of M: their ablation on an H100
+// (scripts/torch_k7_ablation.py, PERF.md) gave the stream alone 0.435 ms
+// of 0.79 at d = 64 and the tile machinery the rest, and a block of 128
+// features sharing each stage between two halves took as long as two
+// passes. An interaction matrix is sparse (yelp2018: 0.1 % of M's entries
+// are non-zero, about 16 in a 64 x 256 tile), so the tiles spend that work
+// proving zeros. This kernel spends it on the non-zero entries only:
+// * The scan: every thread streams M in 16-byte pieces (four a round, the
+//   next round's loaded before this round's entries are taken, with the
+//   streaming cache hint so that M does not push the activations out of
+//   L2) and tests each piece for a non-zero byte.
+//   The scan is the kernel's bytes bound: one read of M a feature group.
+// * Each non-zero entry M[u, i] = v is taken by the whole warp (ballot,
+//   then the piece broadcast by shuffles): lane l handles features l,
+//   l + 32, ... of the group, reads qi[i, f] and qu[u, f] (rows of the
+//   activations that stay in L2) and adds v * qi[i, f] to yu[u, f] and
+//   v * qu[u, f] to yi[i, f] with int32 atomicAdd (red.global: exact and
+//   order-free, so every launch gives the same bits). A warp's 32 adds of
+//   one instruction cover 32 consecutive features, 128 bytes. The entries
+//   a warp finds in a round are taken a few at a time, their activation
+//   rows loaded together, and the next round's pieces of M are already in
+//   flight: an entry taken alone, its loads queued behind the stream's, is
+//   a chain of latencies (1.33 ms at d = 64 on an H100, against 0.44 ms
+//   for the scan alone).
+// * No shared memory, no tensor cores, no barriers: nothing holds a warp
+//   but its own loads, and the other warps of the SM (two blocks of eight
+//   at the kernel's 100-120 registers) cover them. The work per feature
+//   group is the scan plus 2 * nnz * group atomic adds (3.2e8 at
+//   d = 128).
+// * Feature groups: 128 features when d % 128 == 0, else 64 (d % 64 == 0),
+//   else 32 (fusedmm.k7_feature_group states the same rule); each group is
+//   one scan of M, so d = 128 reads M once and d = 2,048 sixteen times. The
+//   launcher reports the scans it launched (the grid's y dimension).
+// * Not used, and why: TMA and wgmma. The scan needs no shared memory or
+//   staging for a bulk copy to feed, and the products are 0.1 % of the
+//   dense ones the tensor cores would make.
 // * A second kernel converts the int32 sums to float32 in place, once: exact
 //   while every sum stays below 2^24 (degree * 127 * count; the wrapper's
-//   docstring states it).
+//   docstring states it). The launcher reads the SM count once per process
+//   and device, not once per call.
+// A dense M makes the warp-per-entry work scale with its non-zeros: the
+// kernel stays exact there (the card tests take matrices up to fully dense)
+// but is built for interaction matrices.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "mma_common.cuh"
-
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int STRIP = WARPS * 32;      // columns of M per block
-constexpr int CHUNK = 64;              // rows of M per stage (two mma k-steps)
-constexpr int STAGES = 3;
-constexpr int M_STRIDE = STRIP + 16;   // smem row pitch (bytes), skews banks
-constexpr int Q_STRIDE = CHUNK + 16;   // smem row pitch of the transposed qu chunk
-constexpr int M_STAGE_BYTES = CHUNK * M_STRIDE;
-constexpr int YU_PITCH = 8 + 1;        // words per feature row of a warp's yu tile
-
-// MT feature m-tiles of 16 per block
-template <int MT>
-struct Geo {
-  static constexpr int DF = 16 * MT;
-  static constexpr int Q_STAGE_BYTES = DF * Q_STRIDE;
-  static constexpr int STAGE_BYTES = M_STAGE_BYTES + Q_STAGE_BYTES;
-  static constexpr int QI_BYTES = DF * M_STRIDE;   // transposed qi of one strip
-  static constexpr int YU_BYTES = WARPS * DF * YU_PITCH * 4;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + QI_BYTES + YU_BYTES;
-};
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four bytes of one column from four consecutive smem rows, packed low
-// byte first: the k-major B fragment of the M^T product.
-__device__ __forceinline__ uint32_t column4(const int8_t* p) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(p[0])) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[M_STRIDE])) << 8) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[2 * M_STRIDE])) << 16) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[3 * M_STRIDE])) << 24);
-}
+constexpr int THREADS = 256;
+constexpr int UNROLL = 4;  // 16-byte pieces of M a thread has in flight
+constexpr int BLOCKS_PER_SM = 8;
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void add_nonzero(int* dst, int v) {
   if (v != 0) atomicAdd(dst, v);
 }
 
-// The 16 bytes of v become 16 consecutive rows (pitch bytes apart) of one
-// shared-memory column: the transpose of a 16-byte piece of an activation row.
-__device__ __forceinline__ void store_column16(int8_t* col, int pitch, const uint4& v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// The n <= 32 non-zero entries of M a warp found, lane e < n holding entry
+// e's row u, column i and count v, BATCH at a time: the warp reads the
+// activation rows of BATCH entries first (lane l: features f0 + l + 32 k),
+// then adds v * qi[i, f] to yu[u, f] and v * qu[u, f] to yi[i, f]. Not
+// inlined: a round of the scan calls it once or not at all.
+template <int FPL>
+__device__ __noinline__ void take_entries(int n, int eu, int ei, int ev,
+                                          const int8_t* __restrict__ qu,
+                                          const int8_t* __restrict__ qi, int* __restrict__ yu,
+                                          int* __restrict__ yi, int d, int f0, int lane) {
+  // entries whose activation rows load together (16 / FPL: 0.7955 ms against
+  // 0.6965 at d = 64 on an H100)
+  constexpr int BATCH = 8 / FPL;
+  for (int e0 = 0; e0 < n; e0 += BATCH) {
+    int a[BATCH][FPL], b[BATCH][FPL];
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
-    col[j * pitch] = static_cast<int8_t>((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
+    for (int e = 0; e < BATCH; ++e) {
+      const int u = __shfl_sync(FULL, eu, (e0 + e) & 31), i = __shfl_sync(FULL, ei, (e0 + e) & 31);
+#pragma unroll
+      for (int k = 0; k < FPL; ++k) {
+        a[e][k] = e0 + e < n ? __ldg(qi + static_cast<size_t>(i) * d + f0 + lane + 32 * k) : 0;
+        b[e][k] = e0 + e < n ? __ldg(qu + static_cast<size_t>(u) * d + f0 + lane + 32 * k) : 0;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e) {
+      const int u = __shfl_sync(FULL, eu, (e0 + e) & 31), i = __shfl_sync(FULL, ei, (e0 + e) & 31);
+      const int v = __shfl_sync(FULL, ev, (e0 + e) & 31);
+      if (e0 + e < n) {
+        int* yu_row = yu + static_cast<size_t>(u) * d + f0 + lane;
+        int* yi_row = yi + static_cast<size_t>(i) * d + f0 + lane;
+#pragma unroll
+        for (int k = 0; k < FPL; ++k) {
+          add_nonzero(yu_row + 32 * k, v * a[e][k]);
+          add_nonzero(yi_row + 32 * k, v * b[e][k]);
+        }
+      }
+    }
+  }
 }
 
-template <int MT>
-__global__ void __launch_bounds__(THREADS, 2)
+// One bit per non-zero byte of w.
+__device__ __forceinline__ unsigned nonzero_bytes(uint32_t w) {
+  const uint32_t m = __vcmpne4(w, 0u);  // 0xff in each non-zero byte
+  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u);
+}
+
+// FPL features a lane: group = 32 * FPL. blockIdx.y is the feature group;
+// the blocks of one group scan all of M, pieces in a grid-stride loop. The
+// next round's pieces are loaded before this round's entries are taken, so
+// the stream of M does not wait on the activation rows.
+template <int FPL>
+__global__ void __launch_bounds__(THREADS)
 dual_int8_n_kernel(const int8_t* __restrict__ m, const int8_t* __restrict__ qu,
                    const int8_t* __restrict__ qi, int* __restrict__ yu,
                    int* __restrict__ yi, int u_pad, int i_pad, int d) {
-  using G = Geo<MT>;
-  constexpr int DF = G::DF;
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* qis = smem + STAGES * G::STAGE_BYTES;  // transposed qi of the block's strip
-  // this warp's [DF features, 8 rows] yu tile, staged so that each atomic
-  // instruction covers 32 contiguous features of one row
-  int* yus = reinterpret_cast<int*>(qis + G::QI_BYTES) + (threadIdx.x >> 5) * DF * YU_PITCH;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // mma groupID
-  const int t = lane & 3;    // mma threadID_in_group
-  const int col0 = blockIdx.x * STRIP;
-  const int f0 = blockIdx.z * DF;
-  const int chunks = u_pad / CHUNK;
-  const int c_begin = static_cast<int>(static_cast<long long>(blockIdx.y) * chunks / gridDim.y);
-  const int n_chunks =
-      static_cast<int>(static_cast<long long>(blockIdx.y + 1) * chunks / gridDim.y) - c_begin;
-
-  // the qu chunk of a stage: CHUNK rows x DF / 16 pieces of 16 bytes, at most
-  // one per thread; thread -> (row, piece) with the rows fastest
-  const bool q_active = tid < CHUNK * (DF / 16);
-  const int q_row = tid % CHUNK;
-  const int q_piece = tid / CHUNK;
-
-  int acc_i[MT][4][4];
+  const int lane = threadIdx.x & 31;
+  const int f0 = blockIdx.y * 32 * FPL;
+  const int pieces_per_row = i_pad / 16;
+  const long long pieces = static_cast<long long>(u_pad) * pieces_per_row;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS * UNROLL;
+  const uint4* src = reinterpret_cast<const uint4*>(m);
+  // the loop runs on the warp's first piece, so whole warps leave together
+  long long w0 = static_cast<long long>(blockIdx.x) * THREADS * UNROLL + (threadIdx.x & ~31);
+  uint4 cur[UNROLL];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc_i[mt][nt][r] = 0;
-
-  auto load_m = [&](int stage, int chunk) {
-    int8_t* ms = smem + stage * G::STAGE_BYTES;
-    const int r0 = chunk * CHUNK;
-#pragma unroll
-    for (int k = 0; k < CHUNK * STRIP / 16 / THREADS; ++k) {
-      const int p = tid + k * THREADS;
-      const int r = p / (STRIP / 16);
-      const int c = (p % (STRIP / 16)) * 16;
-      cp_async16(ms + r * M_STRIDE + c, m + static_cast<size_t>(r0 + r) * i_pad + col0 + c);
-    }
-  };
-  auto fetch_q = [&](int chunk) {
-    return __ldg(reinterpret_cast<const uint4*>(
-        qu + static_cast<size_t>(chunk * CHUNK + q_row) * d + f0 + 16 * q_piece));
-  };
-  auto store_q = [&](int stage, const uint4& v) {
-    int8_t* qs = smem + stage * G::STAGE_BYTES + M_STAGE_BYTES;
-    store_column16(qs + (16 * q_piece) * Q_STRIDE + q_row, Q_STRIDE, v);
-  };
-
-  // qi [STRIP, DF] of the strip into shared memory as [DF, STRIP]: thread c
-  // owns column col0 + c. The first barrier of the loop publishes it.
-  {
-    const int8_t* src = qi + static_cast<size_t>(col0 + tid) * d + f0;
-#pragma unroll
-    for (int p = 0; p < DF / 16; ++p) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + 16 * p));
-      store_column16(qis + (16 * p) * M_STRIDE + tid, M_STRIDE, v);
-    }
+  for (int k = 0; k < UNROLL; ++k) {
+    const long long p = w0 + lane + k * static_cast<long long>(THREADS);
+    cur[k] = p < pieces ? __ldcs(src + p) : make_uint4(0u, 0u, 0u, 0u);
   }
+  for (; w0 < pieces; w0 += step) {
+    uint4 nxt[UNROLL];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_chunks) {
-      load_m(s, c_begin + s);
-      if (q_active) store_q(s, fetch_q(c_begin + s));
+    for (int k = 0; k < UNROLL; ++k) {
+      const long long p = w0 + step + lane + k * static_cast<long long>(THREADS);
+      nxt[k] = p < pieces ? __ldcs(src + p) : make_uint4(0u, 0u, 0u, 0u);
     }
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < n_chunks; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // this stage landed; every warp is done with the last
-    const int next = it + STAGES - 1;
-    const bool have_next = next < n_chunks;
-    uint4 q_next = make_uint4(0u, 0u, 0u, 0u);
-    if (have_next) {
-      load_m(next % STAGES, c_begin + next);
-      if (q_active) q_next = fetch_q(c_begin + next);
-    }
-    cp_async_commit();
-
-    const int8_t* ms = smem + (it % STAGES) * G::STAGE_BYTES;
-    const int8_t* qs = ms + M_STAGE_BYTES;
-    const int r0 = (c_begin + it) * CHUNK;
-
-    // ---- yu for this warp's 8 chunk rows and all feature m-tiles: k runs
-    // over the strip's columns.
-    {
-      int acc_u[MT][4];
+    int n = 0, eu = 0, ei = 0, ev = 0;  // lane e < n: entry e
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc_u[mt][r] = 0;
-      // which 32-column groups of the warp's rows hold a non-zero (bit ks):
-      // lane l reads row warp * 8 + l / 4, columns 64 * (l % 4) .. + 63
-      unsigned tiles = 0;
-      {
-        const int q = lane & 3;
-        const uint4* row = reinterpret_cast<const uint4*>(
-            ms + (warp * 8 + (lane >> 2)) * M_STRIDE + q * 64);
-        const uint4 v0 = row[0], v1 = row[1], v2 = row[2], v3 = row[3];
-        const unsigned lo = __ballot_sync(
-            0xffffffffu, (v0.x | v0.y | v0.z | v0.w | v1.x | v1.y | v1.z | v1.w) != 0);
-        const unsigned hi = __ballot_sync(
-            0xffffffffu, (v2.x | v2.y | v2.z | v2.w | v3.x | v3.y | v3.z | v3.w) != 0);
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          if (lo & (0x11111111u << qq)) tiles |= 1u << (2 * qq);
-          if (hi & (0x11111111u << qq)) tiles |= 1u << (2 * qq + 1);
+    for (int k = 0; k < UNROLL; ++k) {
+      const uint4 v = cur[k];
+      unsigned todo = __ballot_sync(FULL, (v.x | v.y | v.z | v.w) != 0u);
+      while (todo) {
+        const int src_lane = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const uint32_t w0x = __shfl_sync(FULL, v.x, src_lane), w1 = __shfl_sync(FULL, v.y, src_lane);
+        const uint32_t w2 = __shfl_sync(FULL, v.z, src_lane), w3 = __shfl_sync(FULL, v.w, src_lane);
+        // the place of lane src_lane's piece
+        const long long p = w0 + src_lane + k * static_cast<long long>(THREADS);
+        const int u = static_cast<int>(p / pieces_per_row);
+        const int i0 = static_cast<int>(p - static_cast<long long>(u) * pieces_per_row) * 16;
+        unsigned bytes = nonzero_bytes(w0x) | (nonzero_bytes(w1) << 4) |
+                         (nonzero_bytes(w2) << 8) | (nonzero_bytes(w3) << 12);
+        while (bytes) {
+          const int j = __ffs(bytes) - 1;
+          bytes &= bytes - 1;
+          const uint32_t wj = j < 8 ? (j < 4 ? w0x : w1) : (j < 12 ? w2 : w3);
+          if (lane == n) {
+            eu = u;
+            ei = i0 + j;
+            ev = static_cast<int8_t>((wj >> (8 * (j & 3))) & 0xffu);
+          }
+          if (++n == 32) {
+            take_entries<FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane);
+            n = 0;
+          }
         }
       }
-      const int8_t* mrow = ms + (warp * 8 + g) * M_STRIDE + t * 4;
-      const int8_t* arow = qis + ((lane & 7) + ((lane >> 3) & 1) * 8) * M_STRIDE +
-                           (lane >> 4) * 16;
-#pragma unroll
-      for (int ks = 0; ks < STRIP / 32; ++ks) {
-        if (!((tiles >> ks) & 1u)) continue;  // an all-zero tile adds nothing
-        const uint32_t b0 = ld32(mrow + ks * 32), b1 = ld32(mrow + ks * 32 + 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a1[4];
-          ldmatrix_x4(a1, arow + mt * 16 * M_STRIDE + ks * 32);
-          mma_s8(acc_u[mt], a1, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        int* row = yus + (mt * 16 + g) * YU_PITCH + 2 * t;
-        row[0] = acc_u[mt][0];
-        row[1] = acc_u[mt][1];
-        row[8 * YU_PITCH] = acc_u[mt][2];
-        row[8 * YU_PITCH + 1] = acc_u[mt][3];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int uu = 0; uu < 8; ++uu) {
-        int* dst = yu + static_cast<size_t>(r0 + warp * 8 + uu) * d + f0;
-#pragma unroll
-        for (int k = 0; k < DF / 32; ++k) {
-          const int f = lane + 32 * k;
-          add_nonzero(dst + f, yus[f * YU_PITCH + uu]);
-        }
-      }
-      __syncwarp();
     }
-
-    // ---- yi += qu[chunk rows]^T . M[chunk rows, strip], two k-steps.
+    if (n > 0) take_entries<FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane);
 #pragma unroll
-    for (int kk = 0; kk < CHUNK / 32; ++kk) {
-      // which of the warp's four 32x8 tiles of M hold a non-zero: lane l
-      // reads row kk * 32 + l of the warp's 32 columns
-      const uint4* row = reinterpret_cast<const uint4*>(
-          ms + (kk * 32 + lane) * M_STRIDE + warp * 32);
-      const uint4 x0 = row[0], x1 = row[1];
-      const unsigned nz = (__any_sync(0xffffffffu, (x0.x | x0.y) != 0) ? 1u : 0u) |
-                          (__any_sync(0xffffffffu, (x0.z | x0.w) != 0) ? 2u : 0u) |
-                          (__any_sync(0xffffffffu, (x1.x | x1.y) != 0) ? 4u : 0u) |
-                          (__any_sync(0xffffffffu, (x1.z | x1.w) != 0) ? 8u : 0u);
-      if (nz == 0) continue;
-      uint32_t a2[MT][4];
-      const int8_t* qrow = qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * Q_STRIDE + kk * 32 +
-                           (lane >> 4) * 16;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a2[mt], qrow + mt * 16 * Q_STRIDE);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (!((nz >> nt) & 1u)) continue;  // all-zero tile: nothing to add
-        const int8_t* mcol = ms + (kk * 32 + t * 4) * M_STRIDE + warp * 32 + nt * 8 + g;
-        const uint32_t b0 = column4(mcol);
-        const uint32_t b1 = column4(mcol + 16 * M_STRIDE);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_s8(acc_i[mt][nt], a2[mt], b0, b1);
-      }
-    }
-
-    // the next stage's qu chunk, transposed into its buffer: every warp left
-    // that buffer before this iteration's barrier
-    if (have_next && q_active) store_q(next % STAGES, q_next);
-  }
-  cp_async_wait<0>();
-
-  // acc_i[mt][nt]: features mt * 16 + g (+ 8), columns nt * 8 + 2 t (+ 1)
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int i = col0 + warp * 32 + nt * 8 + 2 * t;
-      int* dst = yi + static_cast<size_t>(i) * d + f0 + mt * 16 + g;
-      add_nonzero(dst, acc_i[mt][nt][0]);
-      add_nonzero(dst + d, acc_i[mt][nt][1]);
-      add_nonzero(dst + 8, acc_i[mt][nt][2]);
-      add_nonzero(dst + d + 8, acc_i[mt][nt][3]);
-    }
+    for (int k = 0; k < UNROLL; ++k) cur[k] = nxt[k];
   }
 }
 
@@ -304,34 +202,30 @@ __global__ void int32_to_float_inplace(int* __restrict__ x, long long n) {
   }
 }
 
-template <int MT>
+// the SM count of each device, read once per process (0: not read yet)
+int g_sms[MAX_DEVICES];
+
+template <int FPL>
 cudaError_t launch(const int8_t* m, const int8_t* qu, const int8_t* qi, int* yu, int* yi,
-                   int u_pad, int i_pad, int d, cudaStream_t s) {
-  using G = Geo<MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dual_int8_n_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
+                   int u_pad, int i_pad, int d, int* passes, cudaStream_t s) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (g_sms[device] == 0 &&
+      (err = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, dual_int8_n_kernel<MT>, THREADS, G::SMEM_BYTES)) != cudaSuccess)
-    return err;
-  // Row splits: each split adds one flush of yi per strip (atomics), so take
-  // the fewest in 4..16 whose grid best fills its last wave.
-  const int groups = d / G::DF;
-  const int strips = i_pad / STRIP, chunks = u_pad / CHUNK;
-  const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  int splits = 1;
-  double best = -1.0;
-  for (int r = 4; r <= 16 && r <= chunks; ++r) {
-    const long long blocks = static_cast<long long>(strips) * r * groups;
-    const double fill = static_cast<double>(blocks) / (((blocks + slots - 1) / slots) * slots);
-    if (fill > best + 1e-9) { best = fill; splits = r; }
-  }
-  dim3 grid(strips, splits, groups);
-  dual_int8_n_kernel<MT><<<grid, THREADS, G::SMEM_BYTES, s>>>(m, qu, qi, yu, yi, u_pad, i_pad, d);
+  // enough blocks to fill the card once; a group's blocks share the scan
+  const long long pieces = static_cast<long long>(u_pad) * (i_pad / 16);
+  const long long per_block = static_cast<long long>(THREADS) * UNROLL;
+  const long long want = (pieces + per_block - 1) / per_block;
+  const int groups = d / (32 * FPL);
+  const long long fill = static_cast<long long>(g_sms[device]) * BLOCKS_PER_SM;
+  const int blocks = static_cast<int>(want < fill ? want : fill);
+  dim3 grid(blocks > 0 ? blocks : 1, groups);
+  *passes = static_cast<int>(grid.y);
+  dual_int8_n_kernel<FPL><<<grid, THREADS, 0, s>>>(m, qu, qi, yu, yi, u_pad, i_pad, d);
   return cudaGetLastError();
 }
 
@@ -341,18 +235,22 @@ extern "C" {
 
 // m int8 [u_pad, i_pad]; qu int8 [u_pad, d]; qi int8 [i_pad, d]. yu [u_pad, d]
 // and yi [i_pad, d] must be zeroed int32 buffers; on return they hold the
-// float32 sums (bit-cast in place). The wrapper checks d % 32 == 0,
-// i_pad % 256 == 0 and u_pad % 64 == 0. Returns cudaGetLastError().
+// float32 sums (bit-cast in place). d % 32 == 0; the wrapper also checks
+// i_pad % 256 == 0 and u_pad % 64 == 0. *passes: the scans of M launched.
+// Returns cudaGetLastError().
 int dual_int8_n(const void* m, const void* qu, const void* qi, void* yu, void* yi,
-                int u_pad, int i_pad, int d, void* stream) {
+                int u_pad, int i_pad, int d, int* passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* mp = static_cast<const int8_t*>(m);
   const int8_t* qup = static_cast<const int8_t*>(qu);
   const int8_t* qip = static_cast<const int8_t*>(qi);
   int* yup = static_cast<int*>(yu);
   int* yip = static_cast<int*>(yi);
-  cudaError_t err = (d % 64 == 0) ? launch<4>(mp, qup, qip, yup, yip, u_pad, i_pad, d, s)
-                                  : launch<2>(mp, qup, qip, yup, yip, u_pad, i_pad, d, s);
+  if (d <= 0 || d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      d % 128 == 0 ? launch<4>(mp, qup, qip, yup, yip, u_pad, i_pad, d, passes, s)
+      : d % 64 == 0 ? launch<2>(mp, qup, qip, yup, yip, u_pad, i_pad, d, passes, s)
+                    : launch<1>(mp, qup, qip, yup, yip, u_pad, i_pad, d, passes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nu = static_cast<long long>(d) * u_pad;
   const long long ni = static_cast<long long>(d) * i_pad;

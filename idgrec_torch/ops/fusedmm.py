@@ -240,7 +240,8 @@ fused_adj_matmul_int4_t.launches = 0
 
 _K6 = "dual_bf16"
 _N_KERNELS = {"int8": "dual_int8_n", "int4": "dual_int4_n"}
-# K6-K8 split d into feature groups of 64 (d % 64 == 0) or 32
+# K6-K8 split d into feature groups of 64 (d % 64 == 0) or 32; K7 also
+# into groups of 128 (d % 128 == 0)
 _FEATURE_GROUP = 32
 # the kernels index rows and columns with int32 and bound a row's sum by 2**30
 _MAX_SIDE = 2 ** 23
@@ -248,11 +249,25 @@ _MAX_SIDE = 2 ** 23
 _F32_ROWS = 4096
 
 
+def k7_feature_group(d: int) -> int:
+    """Features one of K7's scans of M covers: 128 where d % 128 == 0,
+    else 64 where d % 64 == 0, else 32, the rule of the kernel's
+    launcher, which reports the scans it launched
+    (``fused_adj_matmul_int8.passes``)."""
+    return 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
+
+
+def k7_passes(d: int) -> int:
+    """Reads of M that one K7 launch makes at width d (d % 32 == 0)."""
+    return d // k7_feature_group(d)
+
+
 def kernel_accepts_n(u_pad: int, i_pad: int, d: int, mode: str = "bf16") -> bool:
     """Whether K6 (``mode`` 'bf16'), K7 ('int8') or K8 ('int4') takes
-    these logical shapes: d a multiple of 32 (a d above 64 reads the
-    matrix once per group of 64, or of 32 when d % 64 != 0), U_pad a
-    multiple of 64, I_pad a multiple of 256 (of `PACK_TILE` for int4)."""
+    these logical shapes: d a multiple of 32 (K6 and K8 read the matrix
+    once per group of 64 features, or of 32 when d % 64 != 0; K7 once per
+    `k7_feature_group`), U_pad a multiple of 64, I_pad a multiple of 256
+    (of `PACK_TILE` for int4)."""
     col_multiple = PACK_TILE if mode == "int4" else _STRIP
     return (d > 0 and d % _FEATURE_GROUP == 0 and 0 < u_pad <= _MAX_SIDE
             and 0 < i_pad <= _MAX_SIDE and u_pad % _CHUNK == 0 and i_pad % col_multiple == 0)
@@ -407,7 +422,9 @@ def fused_adj_matmul_int4_plain(m4: torch.Tensor, qu: torch.Tensor,
 def _lib_n(kernel: str) -> ctypes.CDLL:
     lib = _build.library(kernel)
     fn = getattr(lib, kernel)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    # K7 also reports the scans of M it launched
+    passes = [ctypes.POINTER(ctypes.c_int)] if kernel == _N_KERNELS["int8"] else []
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + passes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -416,7 +433,8 @@ def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
                    qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Check the operands of K7 (``quant`` 'int8') or K8 ('int4') and
     launch it on CUDA tensors. ``m`` is the stored matrix: the packed
-    one holds two logical columns a byte."""
+    one holds two logical columns a byte. K7's launcher reports its
+    scans of M into ``fused_adj_matmul_int8.passes``."""
     kernel = _N_KERNELS[quant]
     u_pad, m_cols = m.shape
     i_pad = 2 * m_cols if quant == "int4" else m_cols
@@ -428,10 +446,14 @@ def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
     yu = torch.zeros((u_pad, d), dtype=torch.int32, device=m.device)
     yi = torch.zeros((i_pad, d), dtype=torch.int32, device=m.device)
     lib = _lib_n(kernel)
+    passes = ctypes.c_int(0)
+    reported = (ctypes.byref(passes),) if quant == "int8" else ()
     code = getattr(lib, kernel)(m.data_ptr(), qu.data_ptr(), qi.data_ptr(), yu.data_ptr(),
-                                yi.data_ptr(), u_pad, i_pad, d,
+                                yi.data_ptr(), u_pad, i_pad, d, *reported,
                                 torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(lib, kernel, code)
+    if reported:
+        fused_adj_matmul_int8.passes = passes.value
     return yu.view(torch.float32), yi.view(torch.float32)
 
 
@@ -449,7 +471,10 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
     of a binary matrix at the worst).
 
     CPU tensors take the plain version; CUDA tensors launch K7 or
-    raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0."""
+    raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0, and
+    reads M `k7_passes` (d) times: once at d = 64 and d = 128. The last
+    launch's reads of M, as its launcher reports them, are in
+    ``fused_adj_matmul_int8.passes``."""
     if m8.device.type == "cpu":
         return fused_adj_matmul_int8_plain(m8, qu, qi)
     if m8.device.type != "cuda":
@@ -460,6 +485,7 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
 
 
 fused_adj_matmul_int8.launches = 0
+fused_adj_matmul_int8.passes = 0
 
 
 def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor,

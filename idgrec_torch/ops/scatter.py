@@ -7,11 +7,22 @@ is the gradient of the batch-embedding gathers in every BPR loss head:
 the cotangent rows of a training batch are summed into a zero table.
 Duplicates of a row are added in batch order, the order of `np.add.at`
 and of the TPU kernel's sequential loop, so a training run repeats bit
-for bit. `scatter_add_rows` is the wrapper of ``csrc/scatter_add_rows.cu``
-(no atomics: the first occurrence of a row owns it and adds its later
-duplicates in order); `scatter_add_rows_plain` defines the same order on
-any device (a stable sort, then one collision-free ``index_add_`` per
-occurrence rank), where CUDA's ``index_add_`` alone would not.
+for bit. K4 is ``csrc/scatter_add_rows.cu`` (no float atomics: each
+row's entries are bucketed with integer atomics, put in batch order and
+added in that order; every row written once). It has two entries:
+
+* `scatter_add_rows`, the public one, checks that every index lies in
+  ``[0, n_rows)`` and raises `IndexError` otherwise. On the card that
+  check reads one flag back from the device, a synchronisation.
+* `scatter_add_rows_unchecked`, the training step's, reads nothing
+  back. Its callers, the gathers' backward, indexed the tables with the
+  same ids in their forward, where an id out of range faults on the
+  device; the kernel itself skips such an entry and never writes
+  outside the table.
+
+`scatter_add_rows_plain` defines the same order on any device (a stable
+sort, then one collision-free ``index_add_`` per occurrence rank), where
+CUDA's ``index_add_`` alone would not.
 
 `gather_batch_embeddings` and `gather_user_pos` are plain indexing
 forward; their backward is one K4 launch per destination table (the
@@ -30,16 +41,21 @@ from idgrec_torch.ops import _build
 _K4 = "scatter_add_rows"
 
 
-def _check_args(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> None:
+def _check_shapes(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> None:
+    """The checks that read no tensor data: types, shapes, devices."""
     if idx.dtype != torch.int64 or idx.ndim != 1:
         raise ValueError(f"idx: expected int64 [B], got {idx.dtype} {tuple(idx.shape)}")
     if vals.dtype != torch.float32 or vals.ndim != 2 or vals.shape[0] != idx.shape[0]:
         raise ValueError(f"vals: expected float32 [{idx.shape[0]}, d], got {vals.dtype} "
                          f"{tuple(vals.shape)}")
-    if vals.device != idx.device:
+    if vals.get_device() != idx.get_device():
         raise ValueError(f"idx on {idx.device} but vals on {vals.device}")
     if n_rows < 0:
         raise ValueError(f"n_rows must be >= 0, got {n_rows}")
+
+
+def _check_args(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> None:
+    _check_shapes(idx, vals, n_rows)
     if idx.numel() and bool(((idx < 0) | (idx >= n_rows)).any()):
         raise IndexError(f"idx out of range [0, {n_rows})")
 
@@ -69,37 +85,75 @@ def scatter_add_rows_plain(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -
 @functools.cache
 def _k4_lib() -> ctypes.CDLL:
     lib = _build.library(_K4)
-    lib.scatter_add_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.scatter_add_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.scatter_add_rows.restype = ctypes.c_int
     return lib
 
 
-def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """K4 wrapper (see `scatter_add_rows_plain`): idx int64 [B], vals
-    float32 [B, d] -> float32 [n_rows, d]. CPU tensors take the plain
-    version; CUDA tensors launch csrc/scatter_add_rows.cu or raise. The
-    range check reads one flag back from the device: a raw kernel given
-    an index out of range would write outside the table."""
-    if vals.device.type == "cpu":
-        return scatter_add_rows_plain(idx, vals, n_rows)
-    if vals.device.type != "cuda":
-        raise ValueError(f"unsupported device {vals.device}")
-    _check_args(idx, vals, n_rows)
+def scratch_size(n_rows: int, batch: int) -> int:
+    """int32 words of K4's scratch (cap: ``batch`` rounded up to even): a
+    4-word record per row with two entries or more (at most cap / 2),
+    their number (padded to 4 words), a count and an index or bucket
+    start per row, a slot and a bucket place per entry."""
+    cap = batch + batch % 2
+    return 4 * cap + 4 + 2 * n_rows
+
+
+def _launch(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Launch K4 on CUDA tensors whose shapes `_check_shapes` passed;
+    nothing is read back. The launcher zeroes the scratch's counts."""
+    b, d = vals.shape
+    if n_rows == 0 or d == 0:
+        return torch.zeros((n_rows, d), dtype=torch.float32, device=vals.device)
     if not idx.is_contiguous() or not vals.is_contiguous():
         raise ValueError("idx and vals must be contiguous")
-    b, d = vals.shape
-    if n_rows * d >= 2**31 or b >= 2**31:
+    if n_rows * d >= 2**31 or n_rows + b >= 2**30:
         raise ValueError(f"table [{n_rows}, {d}] or batch {b} exceeds the kernel's int32 sizes")
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=vals.device)
+    dev = vals.device
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_size(n_rows, b), dtype=torch.int32, device=dev)
     lib = _k4_lib()
-    code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), b, d, n_rows,
-                                torch.cuda.current_stream(vals.device).cuda_stream)
+    code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), b, d, n_rows,
+                                torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(lib, _K4, code)
     scatter_add_rows.launches += 1
     return out
 
 
+def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K4 wrapper (see `scatter_add_rows_plain`): idx int64 [B], vals
+    float32 [B, d] -> float32 [n_rows, d]. CPU tensors take the plain
+    version; CUDA tensors launch csrc/scatter_add_rows.cu or raise. An
+    index out of range raises `IndexError`: on the card the check reads
+    one flag back from the device (`scatter_add_rows_unchecked` does
+    not)."""
+    if vals.device.type == "cpu":
+        return scatter_add_rows_plain(idx, vals, n_rows)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    _check_args(idx, vals, n_rows)
+    return _launch(idx, vals, n_rows)
+
+
+# K4's launch count; both entries add to it
 scatter_add_rows.launches = 0
+
+
+def scatter_add_rows_unchecked(idx: torch.Tensor, vals: torch.Tensor,
+                               n_rows: int) -> torch.Tensor:
+    """`scatter_add_rows` without the range check: nothing is read back.
+    For callers whose forward already indexed the table with the same ids
+    (the gathers' backward), where an id out of range faults on the
+    device; the kernel skips such an entry and never writes outside the
+    table. CPU tensors take the plain version (which checks); CUDA
+    tensors launch K4 or raise."""
+    if vals.device.type == "cpu":
+        return scatter_add_rows_plain(idx, vals, n_rows)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    _check_shapes(idx, vals, n_rows)
+    return _launch(idx, vals, n_rows)
 
 
 def supports_fast_scatter(n_rows: int, d: int, compute_dtype: str = "int8") -> bool:
@@ -108,6 +162,10 @@ def supports_fast_scatter(n_rows: int, d: int, compute_dtype: str = "int8") -> b
     f32 in every mode, so the gate keys on the model's compute_dtype).
     The TPU's VMEM budget and mesh test have no counterpart here."""
     return str(compute_dtype).startswith("int")
+
+
+def _f32(g: torch.Tensor) -> torch.Tensor:
+    return g.to(torch.float32).contiguous()
 
 
 class _GatherBatch(torch.autograd.Function):
@@ -121,16 +179,16 @@ class _GatherBatch(torch.autograd.Function):
     def backward(ctx, gu, gp, gn):
         u, p, n = ctx.saved_tensors
         nu, ni, udtype, idtype = ctx.shapes
-        du = scatter_add_rows(u, gu.to(torch.float32).contiguous(), nu).to(udtype)
-        di = scatter_add_rows(torch.cat([p, n]),
-                              torch.cat([gp, gn]).to(torch.float32).contiguous(), ni).to(idtype)
-        return du, di, None, None, None
+        du = scatter_add_rows_unchecked(u, _f32(gu), nu)
+        di = scatter_add_rows_unchecked(torch.cat([p, n]), _f32(torch.cat([gp, gn])), ni)
+        return du.to(udtype), di.to(idtype), None, None, None
 
 
 def gather_batch_embeddings(user_all: torch.Tensor, item_all: torch.Tensor, u: torch.Tensor,
                             p: torch.Tensor, n: torch.Tensor):
     """(user_all[u], item_all[p], item_all[n]) with the backward's row
-    scatters on K4, one launch per destination table."""
+    scatters on K4: one launch per table (the item table takes pos and
+    neg concatenated), no data read back."""
     return _GatherBatch.apply(user_all, item_all, u, p, n)
 
 
@@ -145,13 +203,14 @@ class _GatherUserPos(torch.autograd.Function):
     def backward(ctx, gu, gp):
         u, p = ctx.saved_tensors
         nu, ni, udtype, idtype = ctx.shapes
-        du = scatter_add_rows(u, gu.to(torch.float32).contiguous(), nu).to(udtype)
-        di = scatter_add_rows(p, gp.to(torch.float32).contiguous(), ni).to(idtype)
-        return du, di, None, None
+        du = scatter_add_rows_unchecked(u, _f32(gu), nu)
+        di = scatter_add_rows_unchecked(p, _f32(gp), ni)
+        return du.to(udtype), di.to(idtype), None, None
 
 
 def gather_user_pos(user_all: torch.Tensor, item_all: torch.Tensor, u: torch.Tensor,
                     p: torch.Tensor):
     """(user_all[u], item_all[p]): the two-gather variant (the
-    align/uniform models' pattern) with K4 backwards."""
+    align/uniform models' pattern) with K4 backwards, one launch per
+    table."""
     return _GatherUserPos.apply(user_all, item_all, u, p)

@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Where kernel K7 (idgrec_torch/csrc/dual_int8_n.cu) spends its time,
+and where kernel K4's time goes (idgrec_torch/csrc/scatter_add_rows.cu),
+on one NVIDIA GPU.
+
+    python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k4]
+
+``--root`` names the tree whose ``idgrec_torch`` is measured (default:
+this one), so a checkout of an earlier commit can be measured with the
+same script.
+
+K7: each variant is the kernel source with one text patch applied, built
+with the port's nvcc flags into idgrec_torch/_build/ablation/ (all nvcc
+processes started together); the variants follow the kernel found: the
+tile kernel (mma.sync on 64 x 256 stages of M) of commit d8c1be8 and
+earlier, measured with ``--root`` pointed at such a checkout, or the
+scan kernel that replaced it. Only the full variant computes the right
+sums; the others exist to be timed. All run on the yelp2018-scale int8
+matrix of chip_smoke.py with random int8 activations, at d = 64 and
+d = 128, the outputs zeroed before every launch as the wrapper does.
+A patch whose anchor text is missing from the source fails the run.
+ptxas's registers, shared memory and spills of the full variant are
+printed.
+
+K4: the step's two tables (2,048 sampled user rows into [31,668, 64],
+4,096 item rows into [38,048, 64]) timed four ways under CUDA events:
+the library call alone on preallocated buffers, the same launches
+replayed from a CUDA graph (device time without the host), the wrapper
+the training step calls (no range check; the tree before it had none,
+and its public wrapper is timed with the check taken out) and the public
+wrapper (with the range check), beside ``index_add_`` into a zeroed
+table.
+
+Prints one line per measurement, the card's name and power limit, and a
+JSON object last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+YELP = (31_668, 38_048, 1_237_259, 324_147)
+BATCH = 2048
+WIDTHS = (64, 128)
+
+_NEVER = ("__device__ __forceinline__ void add_never(int* dst, int v) {\n"
+          "  if (v == 0x7ffffff1) atomicAdd(dst, v);\n}\n\n")
+
+# name -> list of (regex, replacement); every regex must match.
+# The tile kernel (mma.sync on 64 x 256 stages of M) of commit d8c1be8 and
+# earlier, measured with --root:
+TILE_VARIANTS = {
+    "full": [],
+    "no_yu_atomics": [(r"add_nonzero\((dst \+ f), ", r"add_never(\1, ")],
+    "no_yi_atomics": [(r"add_nonzero\((dst[^,]*), acc_i", r"add_never(\1, acc_i")],
+    "no_yu_mma": [(r"mma_s8\(acc_u\[mt\], a1, b0, b1\);", "acc_u[mt][0] ^= b0 ^ b1 ^ a1[0];")],
+    "no_yi_mma": [(r"mma_s8\(acc_i\[mt\]\[nt\], a2\[mt\], b0, b1\);",
+                   "acc_i[0][nt][0] ^= b0 ^ b1 ^ a2[mt][0];")],
+    # the byte gathers of the M^T fragments and the products that use them
+    "no_yi_gather_mma": [(r"const uint32_t b0 = column4\(mcol\);\s*"
+                          r"const uint32_t b1 = column4\(mcol \+ 16 \* M_STRIDE\);\s*"
+                          r"#pragma unroll\s*"
+                          r"for \(int mt = 0; mt < MT; \+\+mt\) "
+                          r"mma_s8\(acc_i\[mt\]\[nt\], a2\[mt\], b0, b1\);",
+                          "acc_i[0][nt][0] ^= a2[0][0] + nt;")],
+    # every tile's products, the votes gone (nothing reads them)
+    "no_votes": [(r"if \(!\(\(tiles >> ks\) & 1u\)\) continue;", ""),
+                 (r"if \(nz == 0\) continue;", ""),
+                 (r"if \(!\(\(nz >> nt\) & 1u\)\) continue;", "")],
+    "no_float_pass": [(r"int32_to_float_inplace<<<[^;]*;", "")],
+    # the M stream, the activation loads and the barriers alone
+    "stream_only": [(r"(const int r0 = \(c_begin \+ it\) \* CHUNK;)",
+                     r"\1\n    if (r0 >= 0) continue;")],
+}
+
+
+# The scan kernel (a warp per non-zero entry, int32 atomics):
+SCAN_VARIANTS = {
+    "full": [],
+    "no_yu_atomics": [(r"add_nonzero\(yu_row", "add_never(yu_row")],
+    "no_yi_atomics": [(r"add_nonzero\(yi_row", "add_never(yi_row")],
+    # the activation rows not read: constants in their place
+    "no_activation_loads": [(r"__ldg\(qi \+ static_cast<size_t>\(i\) \* d \+ f0 \+ lane \+ 32 \* k\)",
+                             "(i + k)"),
+                            (r"__ldg\(qu \+ static_cast<size_t>\(u\) \* d \+ f0 \+ lane \+ 32 \* k\)",
+                             "(u + k)")],
+    "no_float_pass": [(r"int32_to_float_inplace<<<[^;]*;", "")],
+    # the scan of M alone: no entry is taken
+    "scan_only": [(r"while \(bytes\) \{", "while (bytes && u < 0) {")],
+}
+# the full scan kernel at other settings: blocks an SM must hold (the
+# register budget), pieces a thread has in flight, entries whose activation
+# rows load together
+for _b in (3, 4):
+    SCAN_VARIANTS[f"min_blocks_{_b}"] = [(r"__launch_bounds__\(THREADS\)\n",
+                                          f"__launch_bounds__(THREADS, {_b})\n")]
+for _u in (2, 8):
+    SCAN_VARIANTS[f"unroll_{_u}"] = [(r"constexpr int UNROLL = \d+;", f"constexpr int UNROLL = {_u};")]
+SCAN_VARIANTS["batch_double"] = [(r"constexpr int BATCH = 8 / FPL;", "constexpr int BATCH = 16 / FPL;")]
+
+
+def variants_for(text: str) -> dict:
+    return TILE_VARIANTS if "column4(" in text else SCAN_VARIANTS
+
+
+def build_all(build_mod, source: str) -> dict:
+    """Every variant of ``source``, all nvcc processes at once; returns
+    name -> (library path or None, nvcc output)."""
+    text = open(source).read()
+    out_dir = os.path.join(build_mod.BUILD_DIR, "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, patches in variants_for(text).items():
+        src = text
+        for pattern, repl in patches:
+            src, n = re.subn(pattern, repl, src)
+            if n == 0:
+                raise RuntimeError(f"variant {name}: anchor {pattern!r} not in {source}")
+        src = src.replace("namespace {\n", "namespace {\n\n" + _NEVER, 1)
+        cu = os.path.join(out_dir, f"k7_{name}.cu")
+        so = os.path.join(out_dir, f"libk7_{name}.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        # the variant sits in another directory: point -I at the kernels' headers
+        cmd = [build_mod.nvcc_path(), *build_mod.NVCC_FLAGS, f"-I{build_mod.CSRC_DIR}", "-o",
+               so, cu]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    built = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        built[name] = (so if proc.returncode == 0 else None, log)
+    return built
+
+
+def timed(fn, iters=20):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def k7_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
+    m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
+    u_pad, i_pad = m8.shape
+    built = build_all(build_mod, build_mod.source_path("dual_int8_n"))
+    ptxas = [ln.strip() for ln in built["full"][1].splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    for ln in ptxas:
+        print(f"ptxas (full): {ln}", flush=True)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    acts = {d: (torch.randint(-127, 128, (u_pad, d), generator=g, dtype=torch.int8).to(dev),
+                torch.randint(-127, 128, (i_pad, d), generator=g, dtype=torch.int8).to(dev))
+            for d in WIDTHS}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the scan kernel's launcher reports its reads of M; the tile kernel's does not
+    scan = variants_for(open(build_mod.source_path("dual_int8_n")).read()) is SCAN_VARIANTS
+    passes = ctypes.c_int(0)
+    reported = (ctypes.byref(passes),) if scan else ()
+    results, launched = {}, {}
+    for name, (so, log) in built.items():
+        if so is None:
+            print(f"{name}: not measured, nvcc failed:\n{log}", flush=True)
+            results[name] = None
+            continue
+        lib = ctypes.CDLL(so)
+        lib.dual_int8_n.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                    + [ctypes.POINTER(ctypes.c_int)] * len(reported)
+                                    + [ctypes.c_void_p])
+        lib.dual_int8_n.restype = ctypes.c_int
+        row = {}
+        for d in WIDTHS:
+            qu, qi = acts[d]
+            yu = torch.zeros((u_pad, d), dtype=torch.int32, device=dev)
+            yi = torch.zeros((i_pad, d), dtype=torch.int32, device=dev)
+
+            def run():
+                yu.zero_()
+                yi.zero_()
+                code = lib.dual_int8_n(m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), yu.data_ptr(),
+                                       yi.data_ptr(), u_pad, i_pad, d, *reported, stream)
+                if code:
+                    raise RuntimeError(f"{name}: CUDA error {code}")
+
+            row[d] = timed(run)
+            if name == "full":
+                if scan:
+                    launched[d] = passes.value
+                want = fusedmm.fused_adj_matmul_int8_plain(m8, qu, qi)
+                run()
+                ok = (torch.equal(yu.view(torch.float32), want[0])
+                      and torch.equal(yi.view(torch.float32), want[1]))
+                if not ok:
+                    raise RuntimeError(f"the full variant differs from the plain version at d={d}")
+        results[name] = row
+        print(f"{name}: d=64 {row[64]:.4f} ms, d=128 {row[128]:.4f} ms", flush=True)
+    zero = {}
+    for d in WIDTHS:
+        yu = torch.zeros((u_pad, d), dtype=torch.int32, device=dev)
+        yi = torch.zeros((i_pad, d), dtype=torch.int32, device=dev)
+        zero[d] = timed(lambda: (yu.zero_(), yi.zero_()))
+    wrapper = {d: timed(lambda d=d: fusedmm.fused_adj_matmul_int8(m8, *acts[d])) for d in WIDTHS}
+    copy = torch.empty_like(m8)
+    copy_ms = timed(lambda: copy.copy_(m8))
+    print(f"zeroing the outputs: d=64 {zero[64]:.4f} ms, d=128 {zero[128]:.4f} ms; the wrapper "
+          f"(allocation, checks, launch): d=64 {wrapper[64]:.4f}, d=128 {wrapper[128]:.4f} ms; "
+          f"copy of M {copy_ms:.4f} ms", flush=True)
+    out = {"u_pad": u_pad, "i_pad": i_pad, "ms": results, "zero_outputs_ms": zero,
+           "wrapper_ms": wrapper, "copy_of_M_ms": copy_ms, "ptxas_full": ptxas}
+    if launched:
+        out["passes_over_M"] = launched  # as the full variant's launcher reported them
+    return out
+
+
+def k4_split(dev, data, scatter) -> dict:
+    from idgrec_torch.engine.sampler import NegativeSampler
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    users, pos, neg = NegativeSampler(data).sample_epoch(gen)
+    nu, ni, d = data.num_users, data.num_items, 64
+    g = torch.Generator(device="cpu").manual_seed(1)
+    u, p, n = (x[:BATCH].contiguous() for x in (users, pos, neg))
+    gu, gp, gn = (torch.randn(BATCH, d, generator=g).to(dev) for _ in range(3))
+    # the step's two tables: the user batch, and the item table's positives
+    # then negatives, concatenated as the gathers' backward does
+    step = {"u": u, "p": p, "n": n}
+
+    def step_cases():
+        return ((step["u"], gu, nu), (torch.cat([step["p"], step["n"]]), torch.cat([gp, gn]), ni))
+
+    cases = step_cases()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = scatter._k4_lib()
+    outs = [torch.empty((nr, d), dtype=torch.float32, device=dev) for _, _, nr in cases]
+    new = hasattr(scatter, "scatter_add_rows_unchecked")
+    if new:
+        scratch = [torch.empty(scatter.scratch_size(nr, idx.numel()), dtype=torch.int32,
+                               device=dev) for idx, _, nr in cases]
+
+        def kernel():
+            """The library call alone, one per table, on the concatenated item
+            batch (the concatenation not timed)."""
+            for (idx, vals, nr), out, buf in zip(cases, outs, scratch):
+                code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                                            buf.data_ptr(), idx.numel(), d, nr, stream)
+                if code:
+                    raise RuntimeError(f"K4: CUDA error {code}")
+
+        def unchecked():
+            """As the gathers' backward calls it: the concatenation included."""
+            scatter.scatter_add_rows_unchecked(step["u"], gu, nu)
+            scatter.scatter_add_rows_unchecked(torch.cat([step["p"], step["n"]]),
+                                               torch.cat([gp, gn]), ni)
+    else:  # the tree before the unchecked entry: same kernel, its wrapper's check skipped
+        def kernel():
+            for (idx, vals, nr), out in zip(cases, outs):
+                code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                                            idx.numel(), d, nr, stream)
+                if code:
+                    raise RuntimeError(f"K4: CUDA error {code}")
+
+        def unchecked():
+            saved = scatter._check_args
+            scatter._check_args = lambda *a: None
+            try:
+                for idx, vals, nr in step_cases():
+                    scatter.scatter_add_rows(idx.contiguous(), vals.contiguous(), nr)
+            finally:
+                scatter._check_args = saved
+
+    def checked():
+        for idx, vals, nr in cases:
+            scatter.scatter_add_rows(idx, vals, nr)
+
+    def index_add():
+        for idx, vals, nr in cases:
+            torch.zeros((nr, d), device=dev).index_add_(0, idx, vals)
+
+    kernel()
+    for (idx, vals, nr), out in zip(cases, outs):
+        if not torch.equal(out, scatter.scatter_add_rows_plain(idx, vals, nr)):
+            raise RuntimeError("K4 differs from its plain version")
+    res = {"kernel": timed(kernel, 50)}
+
+    def graph_ms():
+        """kernel()'s launches captured ten times in a CUDA graph, replayed:
+        device time without the host between launches."""
+        nonlocal stream
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            stream = side.cuda_stream
+            kernel()  # warm on the capture stream
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(10):
+                    kernel()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return timed(graph.replay, 10) / 10
+
+    res["kernel_graph"] = graph_ms()
+    # the same launches on batches of distinct rows: what duplicates cost
+    saved = dict(step), cases
+    step["u"] = torch.randperm(nu, device=dev)[:BATCH]
+    step["p"], step["n"] = torch.randperm(ni, device=dev)[:2 * BATCH].split(BATCH)
+    cases = step_cases()
+    res["kernel_graph_distinct"] = graph_ms()
+    (step, cases) = saved
+    # device time by kernel name, per step
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kernel()
+        torch.cuda.synchronize()
+    res["device_by_kernel"] = {
+        e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 / 20
+        for e in prof.key_averages()
+        if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) > 0}
+    print(f"K4 device time per step by kernel (profiler, ms): {res['device_by_kernel']}",
+          flush=True)
+    res["unchecked"] = timed(unchecked, 50)
+    res["checked"] = timed(checked, 50)
+    res["index_add"] = timed(index_add, 50)
+    dup_u = BATCH - int(torch.unique(cases[0][0]).numel())
+    dup_i = 2 * BATCH - int(torch.unique(cases[1][0]).numel())
+    print(f"K4 per step (2 tables; {dup_u} + {dup_i} duplicate rows): library call "
+          f"{res['kernel']:.4f} ms, graph replay {res['kernel_graph']:.4f} ms (distinct rows "
+          f"{res['kernel_graph_distinct']:.4f}), step's wrapper {res['unchecked']:.4f} ms, "
+          f"public wrapper {res['checked']:.4f} ms, index_add_ {res['index_add']:.4f} ms",
+          flush=True)
+    res["duplicates"] = [dup_u, dup_i]
+    return res
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--skip-k7", action="store_true")
+    parser.add_argument("--skip-k4", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.ops import _build, fusedmm, propagate, scatter
+
+    dev = torch.device("cuda")
+    data = make_synthetic_dataset(*YELP, seed=0)
+    result = {"root": os.path.abspath(args.root)}
+    if not args.skip_k7:
+        result["k7"] = k7_ablation(dev, data, _build, fusedmm, propagate)
+    if not args.skip_k4:
+        result["k4"] = k4_split(dev, data, scatter)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    result["card"] = card
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

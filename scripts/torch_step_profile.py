@@ -4,11 +4,13 @@ GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF] [--steps 40]
         [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather|bitpack]
-        [--batch_rows]
+        [--batch_rows] [--embedding_size 64] [--root DIR]
 
 Builds the yelp2018-scale model of chip_smoke.py (its config file's
-loss weights, d = 64, 3 layers, batch 2,048; ``--batch_rows`` sets
-LightGCN's ``batch_rows_propagation = 1``), warms up, then
+loss weights, d = 64 unless ``--embedding_size`` says otherwise (128 takes
+int8 and int4 to the per-application loop), 3 layers, batch 2,048;
+``--batch_rows`` sets LightGCN's ``batch_rows_propagation = 1``), warms up,
+then
 
 * times the step's phases on the host clock, each ending in a
   synchronize (forward to the loss, backward, Adam), and the whole step
@@ -19,8 +21,10 @@ LightGCN's ``batch_rows_propagation = 1``), warms up, then
   the profiler records no device time on this machine it says so and
   the phases above stand alone.
 
-Prints progress lines, the card's name and power limit, and one JSON
-object last.
+``--root`` names the tree whose ``idgrec_torch`` is profiled (default:
+this one), so an earlier commit's checkout can be profiled by the same
+script. Prints progress lines, the card's name and power limit, and one
+JSON object last.
 """
 
 from __future__ import annotations
@@ -36,14 +40,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-from idgrec_torch.config import load_model_config  # noqa: E402
-from idgrec_torch.data.dataset import make_synthetic_dataset  # noqa: E402
-from idgrec_torch.engine.sampler import NegativeSampler  # noqa: E402
-from idgrec_torch.engine.trainer import EpochRunner  # noqa: E402
-from idgrec_torch.models import get_model  # noqa: E402
-from idgrec_torch.ops import _build  # noqa: E402
 
 YELP = (31_668, 38_048, 1_237_259, 324_147)
 BATCH = 2048
@@ -58,7 +54,17 @@ def main() -> int:
     parser.add_argument("--backend", default="auto",
                         choices=["auto", "dense", "fused", "gather", "bitpack"])
     parser.add_argument("--batch_rows", action="store_true")
+    parser.add_argument("--embedding_size", type=int, default=64)
+    parser.add_argument("--root", default=ROOT)
     args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.engine.sampler import NegativeSampler
+    from idgrec_torch.engine.trainer import EpochRunner
+    from idgrec_torch.models import get_model
+    from idgrec_torch.ops import _build
+
     steps = args.steps
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -70,7 +76,7 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-scale")
-    cfg = load_model_config(args.model).updated(embedding_size=64, GCN_layer=3,
+    cfg = load_model_config(args.model).updated(embedding_size=args.embedding_size, GCN_layer=3,
                                                  compute_dtype=args.compute_dtype,
                                                  propagation_backend=args.backend,
                                                  batch_rows_propagation=int(args.batch_rows),
@@ -134,8 +140,10 @@ def main() -> int:
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
     device_ms = sum(by_kernel.values())
-    result = {"card": card, "model": args.model, "compute_dtype": args.compute_dtype,
-              "backend": args.backend, "batch_rows": args.batch_rows, "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+    result = {"card": card, "root": os.path.abspath(args.root), "model": args.model,
+              "compute_dtype": args.compute_dtype, "backend": args.backend,
+              "batch_rows": args.batch_rows, "embedding_size": args.embedding_size,
+              "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)

@@ -129,6 +129,8 @@ def test_k2_inject_equals_plain(cuda, inject, want_next):
     (2048, 31668, 64, 200),     # heavy duplicates
     (1000, 777, 48, 3),         # nearly every entry a duplicate, d not a power of two
     (1, 5, 64, 5),
+    (10000, 38048, 64, 3000),   # several rounds of the link kernel
+    (9000, 50, 16, 5),          # hot rows past one 4,096-position bitmap window
 ])
 def test_k4_equals_plain_and_add_at(cuda, batch, n_rows, d, span):
     rng = np.random.default_rng(4)
@@ -142,6 +144,93 @@ def test_k4_equals_plain_and_add_at(cuda, batch, n_rows, d, span):
     assert scatter.scatter_add_rows.launches == before + 1
     assert torch.equal(got, scatter.scatter_add_rows_plain(idx_t, vals_t, n_rows))
     np.testing.assert_array_equal(got.cpu().numpy(), want_np)
+
+
+@pytest.mark.parametrize("d", [1, 63, 64, 128])
+@pytest.mark.parametrize("case", ["one_row", "sampled", "hot_rows"])
+def test_k4_step_shapes_equal_plain(cuda, case, d):
+    """B = 4,096 into 38,048 rows: every entry one row (the hot-row
+    bitmap), a sampled batch (short buckets), and rows with 33-40 entries
+    beside single ones (both paths in one launch)."""
+    rng = np.random.default_rng(5)
+    n_rows, batch = 38048, 4096
+    if case == "one_row":
+        idx = np.full(batch, 12345)
+    elif case == "sampled":
+        idx = rng.integers(0, n_rows, batch)
+        idx[rng.integers(0, batch, 600)] = rng.integers(0, 50, 600)
+    else:
+        idx = rng.integers(0, n_rows, batch)
+        for r, c in ((7, 33), (n_rows - 1, 40), (2024, 32)):
+            idx[rng.choice(batch, c, replace=False)] = r
+    vals = rng.normal(size=(batch, d)).astype(np.float32)
+    idx_t, vals_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    got = scatter.scatter_add_rows(idx_t, vals_t, n_rows)
+    assert torch.equal(got, scatter.scatter_add_rows_plain(idx_t, vals_t, n_rows))
+    want_np = np.zeros((n_rows, d), np.float32)
+    np.add.at(want_np, idx, vals)
+    np.testing.assert_array_equal(got.cpu().numpy(), want_np)
+
+
+def test_k4_empty_batch_and_repeats_bit_for_bit(cuda):
+    empty = scatter.scatter_add_rows(torch.zeros(0, dtype=torch.int64, device=cuda),
+                                     torch.zeros((0, 64), device=cuda), 31668)
+    assert tuple(empty.shape) == (31668, 64) and not bool(empty.any())
+    rng = np.random.default_rng(6)
+    idx = torch.from_numpy(rng.integers(0, 300, 4096)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)).to(cuda)
+    first = scatter.scatter_add_rows(idx, vals, 38048)
+    again = scatter.scatter_add_rows_unchecked(idx, vals, 38048)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("nu,ni", [(31668, 38048), (5000, 5000)])
+def test_k4_step_tables_equal_plain(cuda, nu, ni):
+    """The step's entry as the gathers' backward calls it: the user table,
+    then the item table on the positives and negatives concatenated, one
+    launch each, equal to the plain version over two rounds."""
+    rng = np.random.default_rng(7)
+    u = torch.from_numpy(rng.integers(0, 300, 2048)).to(cuda)
+    p, n = (torch.from_numpy(rng.integers(0, 500, 2048)).to(cuda) for _ in range(2))
+    gu, gp, gn = (torch.from_numpy(rng.normal(size=(2048, 64)).astype(np.float32)).to(cuda)
+                  for _ in range(3))
+    for _ in range(2):
+        before = scatter.scatter_add_rows.launches
+        got_u = scatter.scatter_add_rows_unchecked(u, gu, nu)
+        got_i = scatter.scatter_add_rows_unchecked(torch.cat([p, n]), torch.cat([gp, gn]), ni)
+        assert scatter.scatter_add_rows.launches == before + 2
+        want_i = scatter.scatter_add_rows_plain(torch.cat([p, n]), torch.cat([gp, gn]), ni)
+        assert torch.equal(got_i.view(torch.int32), want_i.view(torch.int32))
+        want_u = scatter.scatter_add_rows_plain(u, gu, nu)
+        assert torch.equal(got_u.view(torch.int32), want_u.view(torch.int32))
+
+
+def test_gather_backward_reads_nothing_back(cuda):
+    """The training step's backward through the batch gathers issues no
+    synchronisation: the step's K4 entry does not check the range."""
+    rng = np.random.default_rng(8)
+    ua = torch.from_numpy(rng.normal(size=(31668, 64)).astype(np.float32)).to(cuda)
+    ia = torch.from_numpy(rng.normal(size=(38048, 64)).astype(np.float32)).to(cuda)
+    ua.requires_grad_(True)
+    ia.requires_grad_(True)
+    batch = {"user": torch.from_numpy(rng.integers(0, 31668, 2048)).to(cuda),
+             "pos": torch.from_numpy(rng.integers(0, 38048, 2048)).to(cuda),
+             "neg": torch.from_numpy(rng.integers(0, 38048, 2048)).to(cuda)}
+    from idgrec_torch.models import base
+
+    ue, pe, ne = base.batch_final_embeddings(ua, ia, batch, "int8")
+    loss = (ue * (pe - ne)).sum()
+    before = scatter.scatter_add_rows.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert scatter.scatter_add_rows.launches == before + 2
+    du = np.zeros((31668, 64), np.float32)
+    np.add.at(du, batch["user"].cpu().numpy(), (pe - ne).detach().cpu().numpy())
+    np.testing.assert_array_equal(ua.grad.cpu().numpy(), du)
 
 
 def test_k4_rejects_what_it_does_not_take(cuda):
@@ -199,6 +288,7 @@ def test_training_step_gradients_equal_plain_path(cuda, monkeypatch):
     got = grads()
     monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
     monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
+    monkeypatch.setattr(scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_plain)
     want = grads()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -307,6 +397,29 @@ def test_k7_equals_plain_and_k1(cuda, u_pad, i_pad, density, top, d):
     assert got[0].shape == (u_pad, d) and got[1].shape == (i_pad, d)
     for a, b in zip(got, fusedmm.fused_adj_matmul_int8_plain(m, qu, qi)):
         assert torch.equal(a, b)
+    if d == 64:
+        k1 = fusedmm.fused_adj_matmul_int8_t(m, qu.T.contiguous(), qi.T.contiguous())
+        for a, b in zip(got, k1):
+            assert torch.equal(a, b.T)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256])
+def test_k7_widths_equal_plain_and_repeat(cuda, d):
+    """Every feature group (32, 64, 128 and mixed counts of them): equal to
+    the plain version, the same bits on a second launch, one read of M at
+    d = 128, K1 transposed at d = 64."""
+    rng = np.random.default_rng(9)
+    u_pad, i_pad = 2048, 1536
+    m = _counts(rng, u_pad, i_pad, 0.04, 3).to(cuda)
+    qu, qi = _int8(rng, (u_pad, d)).to(cuda), _int8(rng, (i_pad, d)).to(cuda)
+    before = fusedmm.fused_adj_matmul_int8.launches
+    got = fusedmm.fused_adj_matmul_int8(m, qu, qi)
+    again = fusedmm.fused_adj_matmul_int8(m, qu, qi)
+    assert fusedmm.fused_adj_matmul_int8.launches == before + 2
+    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_int8_plain(m, qu, qi)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(a, c)
+    assert fusedmm.k7_passes(d) == {128: 1, 256: 2}.get(d, d // (64 if d % 64 == 0 else 32))
+    assert fusedmm.fused_adj_matmul_int8.passes == fusedmm.k7_passes(d)  # as launched
     if d == 64:
         k1 = fusedmm.fused_adj_matmul_int8_t(m, qu.T.contiguous(), qi.T.contiguous())
         for a, b in zip(got, k1):
@@ -607,6 +720,7 @@ def test_egcf_step_equals_plain_path(cuda, monkeypatch):
     assert chainmm.chain_sweep_tanh_inject.launches - before[1] == 2 + 2 * 3 + 1
     monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
     monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
+    monkeypatch.setattr(scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_plain)
     want = step()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -194,6 +194,17 @@ def test_kernel_accepts_n(mode, u_pad, i_pad, d, want):
             t_fused._require_n("kernel", mode, u_pad, i_pad, d)
 
 
+@pytest.mark.parametrize("d,group,passes", [
+    (64, 64, 1), (128, 128, 1), (2048, 128, 16), (96, 32, 3), (32, 32, 1), (192, 64, 3),
+    (256, 128, 2),
+])
+def test_k7_feature_passes(d, group, passes):
+    """K7 reads M once per 128 features where d % 128 == 0, else once per
+    64 or 32: the group its launcher takes from the wrapper."""
+    assert t_fused.k7_feature_group(d) == group
+    assert t_fused.k7_passes(d) == passes
+
+
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_quant_fused_dual_forward_and_backward_equal_jax(quant):
     rng = np.random.default_rng(6)

@@ -66,6 +66,34 @@ def test_scatter_add_rows_validates(idx, vals, exc):
         t_scatter.scatter_add_rows(idx, vals, 9)
 
 
+def test_step_route_equals_np_add_at_and_jax_kernel():
+    """The gathers' backward route (no range check on the card; on the
+    CPU the plain version) on a duplicate-heavy batch, positives then
+    negatives as the item table's backward concatenates them: equal to
+    np.add.at and to the JAX kernel, and to the public wrapper."""
+    rng = np.random.default_rng(3)
+    p, n = rng.integers(0, 40, 300), rng.integers(0, 40, 300)
+    gp, gn = (rng.normal(size=(300, 16)).astype(np.float32) for _ in range(2))
+    idx, vals = np.concatenate([p, n]), np.concatenate([gp, gn])
+    got = t_scatter.scatter_add_rows_unchecked(torch.from_numpy(idx), torch.from_numpy(vals), 50)
+    want = np.zeros((50, 16), np.float32)
+    np.add.at(want, idx, vals)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ref = np.asarray(j_scatter.scatter_add_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(vals),
+                                                50))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), t_scatter.scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(vals), 50))
+
+
+def test_public_wrapper_keeps_its_index_error():
+    vals = torch.zeros((3, 4))
+    with pytest.raises(IndexError):
+        t_scatter.scatter_add_rows(torch.tensor([0, 5, 2]), vals, 5)
+    assert t_scatter.scratch_size(38048, 4096) == 4 * 4096 + 4 + 2 * 38048
+    assert t_scatter.scratch_size(7, 3) == 4 * 4 + 4 + 2 * 7
+
+
 def _gather_inputs():
     rng = np.random.default_rng(2)
     ua = rng.normal(size=(40, 8)).astype(np.float32)
