@@ -9,20 +9,28 @@ LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode,
 the bitpack backend, the batch-row partial product) and EGCF (d=64, 3
 tanh layers after the seed sweep) over the yelp2018-scale synthetic
 dataset, random weights from a seed.
-K5 (the dual product on the nibble-packed matrix) is also held to K1 on
-the unpacked matrix, and the int4 chain, backward chain and one step's
-gradients to int8's, all exactly. K7 and K8 (the per-application duals
-in [N, d] layout) are held to K1 and K5 on the transposed activations,
-and three `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
+K1, K7 and K8 share one scan of the count matrix (csrc/dual_scan.cuh:
+its non-zero entries taken a warp each, int32 atomics); K1 turns the
+chain's [d, N] activations to [N, d] and its sums back around it, three
+launches a call, and is held to its plain version and across two
+launches; the device launches a call of K1, K7 and K8 are counted at the
+end (torch.profiler slows later launches). K5 (the dual product on the
+nibble-packed matrix) is also held to K1 on the unpacked matrix, and
+the int4 chain, backward chain and one step's gradients to int8's, all
+exactly; one int8 chain forward and backward runs under
+``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
+per-application duals in [N, d] layout) are held to K1 and K5 on the
+transposed activations, K8 to K7 on the unpacked matrix, and three
+`FusedSquareAdj.matmul` calls to the chain's layers, exactly;
 K6 (the bfloat16 dual) to its plain version within a stated tolerance,
 bit-equal across two launches, and its backward to autograd through the
 plain version. K4 is held to its plain version bit for bit through the
 training step's entry (one launch per table, no range check) and the
 public one, on 4,096 copies of one row, and across two launches; the
 gathers' backward runs under ``torch.cuda.set_sync_debug_mode("error")``.
-K7 is held across two launches at d = 64 and d = 128, where its launcher
-reports one read of M (`fusedmm.k7_passes` states the same rule). Then
-it drives the paths, each with the
+K7 and K8 are held across two launches at d = 64 and d = 128, where
+their launcher reports one read of the stored matrix (`fusedmm.scan_passes`
+states the same rule). Then it drives the paths, each with the
 launch counts set to 0 just before and read just after:
 
 * serving, int8: `serving.Recommender` answers four requests, checked
@@ -198,6 +206,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_launches(fn) -> int:
+    """Kernels and memsets that one call of ``fn`` puts on the device, as
+    torch.profiler records them (0 where it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -453,8 +474,13 @@ def main() -> int:
             f"K1 differs from its plain version: max abs err "
             f"{max(max_abs(yu, yu_p), max_abs(yi, yi_p))}")
     errs["K1"] = max(max_abs(yu, yu_p), max_abs(yi, yi_p))
+    yu_b, yi_b = fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi)
+    require(torch.equal(yu.view(torch.int32), yu_b.view(torch.int32))
+            and torch.equal(yi.view(torch.int32), yi_b.view(torch.int32)),
+            "K1: two launches differ")
+    del yu_b, yi_b, yu_p, yi_p
     log(f"K1 equals its plain version exactly ({int((yu != 0).sum())} + "
-        f"{int((yi != 0).sum())} non-zero sums)")
+        f"{int((yi != 0).sum())} non-zero sums), two launches bit-equal")
     both_epilogue(yu, si[:, 0], lu, ru, cu, chainmm.COMBINE_ADD, True)
     both_epilogue(yi, su[:, 0], li, ri, ci, chainmm.COMBINE_ADD, True)
     log(f"K2 matches its plain version, max abs err {errs['K2']}")
@@ -610,7 +636,22 @@ def main() -> int:
             f"3-layer int4 backward chain differs from the int8 backward chain: max abs err "
             f"{max_abs(grad_4, grads_chain[0])}")
     log("3-layer int4 backward chain equals the int8 backward chain")
-    del grads_chain, grad_4
+    # the int8 chain forward and backward (K3, K1, K2, K2-inject) issue no
+    # synchronisation with the host
+    x = emb0.clone().requires_grad_(True)
+    k1_before = fusedmm.fused_adj_matmul_int8_t.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chainmm.fused_chain_resident(adj, x, LAYERS).backward(cot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(fusedmm.fused_adj_matmul_int8_t.launches == k1_before + 2 * LAYERS,
+            "the synchronisation check's chain did not run through K1")
+    require(torch.equal(x.grad, grads_chain[0]), "the chain under sync debug mode differs")
+    log(f"the int8 chain forward and backward ({2 * LAYERS} K1 calls) ran under sync debug "
+        "mode 'error' without a synchronisation")
+    del grads_chain, grad_4, x
 
     def step_grads(m=model):
         m.zero_grad(set_to_none=True)
@@ -686,8 +727,11 @@ def main() -> int:
         tb, to = nbytes / bw * 1e3, ops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
+    # the function's work: 2 directions x 2 operations per non-zero entry
+    # and feature (the bytes decide at these shapes)
+    nnz = int(torch.count_nonzero(adj.m8))
     k1_bytes = u_pad * i_pad + d * (u_pad + i_pad) + 4 * d * (u_pad + i_pad)
-    k1_bound = bound(k1_bytes, 4.0 * u_pad * i_pad * d)
+    k1_bound = bound(k1_bytes, 4.0 * nnz * d)
     k1_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
     k1_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t_plain(adj.m8, qu, qi), 3, 1)
 
@@ -709,7 +753,7 @@ def main() -> int:
 
     # K5: the packed matrix read once, the activations in, the sums out
     k5_bytes = u_pad * i_pad4 // 2 + d * (u_pad + i_pad4) + 4 * d * (u_pad + i_pad4)
-    k5_bound = bound(k5_bytes, 4.0 * u_pad * i_pad4 * d)
+    k5_bound = bound(k5_bytes, 4.0 * nnz * d)
     k5_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
     k5_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t_plain(adj4.m8, qu, qi4), 3, 1)
     k5_lib = int_mm_ms(m_unpacked, qu, qi4, yu4, yi4)
@@ -1037,18 +1081,37 @@ def main() -> int:
             "K8 differs from K5 on the transposed activations")
     require(torch.equal(yu8, yu7) and torch.equal(yi8[:i_pad], yi7)
             and not bool(yi8[i_pad:].any()), "K8 differs from K7 on the unpacked matrix")
+    yu8b, yi8b = fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)
+    require(torch.equal(yu8.view(torch.int32), yu8b.view(torch.int32))
+            and torch.equal(yi8.view(torch.int32), yi8b.view(torch.int32)),
+            f"K8 at d = {DIM}: two launches differ")
+    del yu8b, yi8b
     log(f"K7 and K8 equal their plain versions, K1 and K5 transposed, and each other exactly "
-        f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums)")
+        f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums); two launches of "
+        "each bit-equal")
     k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN), 20)
     k7_64_passes = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
-    require(k7_64_passes == fusedmm.k7_passes(DIM) == 1,
-            f"K7 at d = {DIM}: {k7_64_passes} reads of M launched, {fusedmm.k7_passes(DIM)} "
+    require(k7_64_passes == fusedmm.scan_passes(DIM) == 1,
+            f"K7 at d = {DIM}: {k7_64_passes} reads of M launched, {fusedmm.scan_passes(DIM)} "
             "stated")
+    # K8 at d = 64 beside its bound, plain version and library call: m4 read
+    # once, the activations in, the sums out; 4 operations per non-zero
+    # entry and feature
     k8_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N), 20)
+    k8_64_passes = fusedmm.fused_adj_matmul_int4.passes  # as K8's launcher reports them
+    require(k8_64_passes == fusedmm.scan_passes(DIM) == 1,
+            f"K8 at d = {DIM}: {k8_64_passes} reads of m4 launched, {fusedmm.scan_passes(DIM)} "
+            "stated")
+    k8_64_bound = bound(adj4.m8.numel() + 5 * d * (u_pad + i_pad4), 4.0 * nnz * d)
+    k8_64_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_plain(adj4.m8, quN, qi4N), 3, 1)
+    k8_64_lib = k5_lib  # the same function on the same inputs, transposed
     k1_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
     k5_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
     log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms ({k7_64_passes} pass over M, as launched) beside K1 "
-        f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms beside K5 {k5_now:.4f} ms, per application")
+        f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms ({k8_64_passes} pass over m4, as launched; bound "
+        f"{k8_64_bound[0]:.4f} ms by {k8_64_bound[1]}, plain {k8_64_plain:.4f} ms, "
+        f"torch._int_mm x2 on the unpacked matrix {k8_64_lib}) beside K5 {k5_now:.4f} ms, per "
+        f"application")
     del yu7_p, yi7_p, yu8_p, yi8_p, yu7, yi7, yu8, yi8
 
     # three `FusedSquareAdj.matmul` calls against the chain's layers
@@ -1273,7 +1336,8 @@ def main() -> int:
         f"weights")
 
     # K7 and K8 at the shapes this path gives them: the first application's
-    # quantized activations of the d = 128 model; K7 reads M once for all 128
+    # quantized activations of the d = 128 model; each reads its stored
+    # matrix once for all 128 features, and K8 equals K7 on the unpacked one
     m128, m128_4 = wide["int8"][2], wide["int4"][2]
     a128, a128_4 = m128.graph, m128_4.graph
     qu128, _ = propagate._quantize_cols(torch.nn.functional.pad(
@@ -1282,18 +1346,17 @@ def main() -> int:
         a128.right_i[:, None] * m128.item_emb.detach(), (0, 0, 0, i_pad4 - ni)))
     qi128_8 = qi128[:i_pad].contiguous()
     dw = WIDE_DIM
-    wide_kernels = {}
+    wide_kernels, wide_out = {}, {}
     for tag, fn, plain, m_store, qi_, cols in (
             ("K7", fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain, a128.m8,
              qi128_8, i_pad),
             ("K8", fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain, a128_4.m8,
              qi128, i_pad4)):
         got = fn(m_store, qu128, qi_)
-        if tag == "K7":
-            launched = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
-            require(launched == fusedmm.k7_passes(dw) == 1,
-                    f"K7 at d = {dw}: {launched} reads of M launched, {fusedmm.k7_passes(dw)} "
-                    "stated; one expected")
+        launched = fn.passes  # as the launcher reports them
+        require(launched == fusedmm.scan_passes(dw) == 1,
+                f"{tag} at d = {dw}: {launched} reads of the stored matrix launched, "
+                f"{fusedmm.scan_passes(dw)} stated; one expected")
         want = plain(m_store, qu128, qi_)
         err = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -1303,11 +1366,11 @@ def main() -> int:
                     for a, b in zip(got, again)), f"{tag} at d = {dw}: two launches differ")
         del again
         errs[tag] = max(errs[tag], err)
+        wide_out[tag] = got
         m_bytes = m_store.numel()
-        # K7 multiplies the non-zero entries only (2 directions x 2 ops each),
-        # K8 every entry of its non-zero tiles, counted as all of M
-        ops = (4.0 * int(torch.count_nonzero(m_store)) * dw if tag == "K7"
-               else 4.0 * u_pad * cols * dw)
+        # the function's work: the non-zero entries only (2 directions x 2 ops
+        # each), the same entries packed or not
+        ops = 4.0 * nnz * dw
         bnd = bound(m_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols), ops)
         ms = cuda_ms(lambda: fn(m_store, qu128, qi_), 20)
         plain_ms = cuda_ms(lambda: plain(m_store, qu128, qi_), 3, 1)
@@ -1315,12 +1378,16 @@ def main() -> int:
         lib = int_mm_ms(m_dense, qu128.T.contiguous(), qi_.T.contiguous(),
                         got[0].T.contiguous(), got[1].T.contiguous())
         wide_kernels[tag] = (ms, plain_ms, bnd, lib)
-        passes = (f", {launched} pass over M, as launched" if tag == "K7" else
-                  f", {dw // 64} passes over M")
-        log(f"{tag} at d = {dw}: {ms:.4f} ms per application{passes} (bound {bnd[0]:.4f} ms by "
-            f"{bnd[1]}, plain {plain_ms:.4f} ms, torch._int_mm x2 on transposed operands {lib})")
+        log(f"{tag} at d = {dw}: {ms:.4f} ms per application, {launched} pass over the stored "
+            f"matrix, as launched (bound {bnd[0]:.4f} ms by {bnd[1]}, plain {plain_ms:.4f} ms, "
+            f"torch._int_mm x2 on transposed operands {lib})")
         del got, want, m_dense
-    del wide, m128, m128_4
+    (yu7w, yi7w), (yu8w, yi8w) = wide_out["K7"], wide_out["K8"]
+    require(torch.equal(yu8w, yu7w) and torch.equal(yi8w[:i_pad], yi7w)
+            and not bool(yi8w[i_pad:].any()), f"K8 at d = {dw} differs from K7 on the unpacked "
+                                              "matrix")
+    log(f"K8 at d = {dw} equals K7 on the unpacked matrix exactly")
+    del wide, m128, m128_4, wide_out, yu7w, yi7w, yu8w, yi8w
 
     # ==== EGCF (parallel mode): the tanh chain with the seed sweep, K9 and K10
     cfg_e = load_model_config("EGCF").updated(
@@ -1968,7 +2035,8 @@ def main() -> int:
     kernels = [
         entry("dual_int8_t", "idgrec_torch/csrc/dual_int8_t.cu", "idgrec_tpu/ops/fusedmm.py:674",
               fusedmm.fused_adj_matmul_int8_t, errs["K1"], k1_ms, k1_plain, k1_bound, k1_lib,
-              "one sweep: 1 launch"),
+              "one sweep: 1 launch (3 kernels: the turn to [N, d] with the sums zeroed, the "
+              "scan of M, the turn back)"),
         entry("dual_int4_t", "idgrec_torch/csrc/dual_int4_t.cu", "idgrec_tpu/ops/fusedmm.py:708",
               fusedmm.fused_adj_matmul_int4_t, errs["K5"], k5_ms, k5_plain, k5_bound, k5_lib,
               "one sweep on the nibble-packed matrix: 1 launch"),
@@ -1997,8 +2065,8 @@ def main() -> int:
               "M)"),
         entry("dual_int4_n", "idgrec_torch/csrc/dual_int4_n.cu", "idgrec_tpu/ops/fusedmm.py:442",
               fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
-              f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, two "
-              "feature groups"),
+              f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, one "
+              "128-feature group (one read of m4)"),
         entry("chain_sweep_tanh", "idgrec_torch/csrc/chain_sweep_tanh.cu",
               "idgrec_tpu/ops/chainmm.py:366", chainmm.chain_sweep_tanh, errs["K9"], k9_ms,
               k9_plain, k9_bound, None,
@@ -2029,6 +2097,9 @@ def main() -> int:
             k["backward_path_ms"] = k4_path_ms  # the step's entry, the concatenation included
         elif k["name"] == "dual_int8_n":
             k["ms_d64"] = k7_64_ms
+        elif k["name"] == "dual_int4_n":
+            k.update(ms_d64=k8_64_ms, plain_ms_d64=k8_64_plain, bound_ms_d64=k8_64_bound[0],
+                     library_ms_d64=k8_64_lib)
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']}), "
@@ -2053,6 +2124,17 @@ def main() -> int:
         f"{bit_runs['float32'][1]:.3f}; dense bfloat16 with batch rows "
         f"{float(np.mean(rows_ms)):.3f} beside {float(np.mean(full_ms)):.3f} without; beside int8 "
         f"{step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")
+    # the device launches of one call of each scan kernel, counted last: once
+    # used, the profiler slows the host's later launches
+    per_call = {"dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
+                "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN),
+                "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)}
+    for k in kernels:
+        if k["name"] in per_call:
+            k["device_launches_per_call"] = device_launches(per_call[k["name"]])
+    log("device launches a call (torch.profiler, kernels and memsets, the wrapper's fills "
+        "included): " + ", ".join(f"{k['name']} {k['device_launches_per_call']}"
+                                  for k in kernels if k["name"] in per_call))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

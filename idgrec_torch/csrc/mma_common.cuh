@@ -1,6 +1,6 @@
-// PTX wrappers shared by the kernels of this directory: cp.async staging,
-// ldmatrix fragment loads and the mma.sync products. Each kernel source
-// includes this header and compiles into its own library (ops/_build.py,
+// PTX wrappers shared by the tensor-core kernels of this directory: cp.async
+// staging, ldmatrix fragment loads and the mma.sync products. Each source
+// that includes this header compiles into its own library (ops/_build.py,
 // whose library hash covers this file too).
 
 #pragma once

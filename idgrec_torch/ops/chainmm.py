@@ -8,7 +8,9 @@ the H100, so the chain here is a short sequence of launches per sweep,
 each a hand-written kernel:
 
     K3 quantize_rows (ops/propagate.py)   z -> int8 q, per-feature scale
-    K1 dual_int8_t   (ops/fusedmm.py)     one read of M, both directions
+    K1 dual_int8_t   (ops/fusedmm.py)     one read of M, both directions:
+       q turned to [N, d], the scan of M's non-zero entries that K7 runs,
+       the int32 sums turned back to float32 [d, N] (three launches)
        (K5 dual_int4_t when the adjacency is nibble-packed: the chain's
        int4 mode, the same activations and the same integer products)
     K2 chain_sweep_epilogue (this module) dequantize, normalize, combine,

@@ -8,10 +8,12 @@ stored as [d, N] (the layout the whole quantized chain keeps):
     yiT [d, I_pad] = quT [d, U_pad] . M      (Mᵀ @ qu)
 
 `fused_adj_matmul_int8_t` is the wrapper of the hand-written Hopper
-kernel ``csrc/dual_int8_t.cu``, which reads each tile of M once and
-feeds both products from shared memory (counterpart of
-idgrec_tpu/ops/fusedmm.py `fused_adj_matmul_int8_t`). It returns the raw
-integer products as float32; the caller dequantizes.
+kernel ``csrc/dual_int8_t.cu`` (K1; counterpart of
+idgrec_tpu/ops/fusedmm.py `fused_adj_matmul_int8_t`): it turns the
+activations to [N, d], runs the scan of M that K7 runs (one read of M,
+its non-zero entries only, ``csrc/dual_scan.cuh``) and turns the sums
+back, three launches a call. It returns the raw integer products as
+float32; the caller dequantizes.
 `fused_adj_matmul_int8_t_plain` is its plain PyTorch version: the tests
 run it on the CPU, and chip_smoke.py holds the kernel to it on the card.
 
@@ -29,8 +31,10 @@ accumulation (kernel ``csrc/dual_bf16.cu``, K6; counterpart of the JAX
 `fused_adj_matmul`), differentiable by the swapped-cotangent identity.
 `fused_adj_matmul_int8` and `fused_adj_matmul_int4` are the quantized
 duals on pre-quantized int8 activations (kernels ``csrc/dual_int8_n.cu``,
-K7, and ``csrc/dual_int4_n.cu``, K8); their raw sums equal K1's and K5's
-on the transposed activations bit for bit. Each has its ``_plain`` twin.
+K7, and ``csrc/dual_int4_n.cu``, K8: the same scan on the int8 and on
+the nibble-packed matrix, one read of it per `scan_feature_group`
+features); their raw sums equal K1's and K5's on the transposed
+activations bit for bit. Each has its ``_plain`` twin.
 """
 
 from __future__ import annotations
@@ -52,9 +56,7 @@ TI = 512   # column padding multiple of the fused matrix
 NIBBLE_MAX = 7
 PACK_TILE = 2048
 
-_KERNELS = {"int8": "dual_int8_t", "int4": "dual_int4_t"}
-# the kernel's geometry (csrc/dual_int8_t.cu): feature rows, columns per
-# block, rows per pipeline stage
+# the geometry K1 and K5 take: feature rows, column and row multiples
 _FEATURES, _STRIP, _CHUNK = 64, 256, 64
 
 
@@ -159,21 +161,32 @@ def fused_adj_matmul_int4_t_plain(m4: torch.Tensor, quT: torch.Tensor,
     return fused_adj_matmul_int8_t_plain(unpack_nibbles(m4), quT, qiT)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C signature of each kernel of this module: pointers, ints, the stream
+_SIGNATURES = {
+    "dual_int8_t": [_P] * 7 + [_I] * 2 + [_P],
+    "dual_int4_t": [_P] * 5 + [_I] * 2 + [_P],
+    "dual_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    # K7 and K8 also report the scans of M they launched
+    "dual_int8_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
+    "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
+}
+
+
 @functools.cache
 def _lib(kernel: str) -> ctypes.CDLL:
     lib = _build.library(kernel)
     fn = getattr(lib, kernel)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = _SIGNATURES[kernel]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _launch_dual(quant: str, m: torch.Tensor, quT: torch.Tensor,
-                 qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check the operands of K1 (``quant`` 'int8') or K5 ('int4') and
-    launch it on CUDA tensors. ``m`` is the stored matrix: the packed
+def _check_t(kernel: str, quant: str, m: torch.Tensor, quT: torch.Tensor,
+             qiT: torch.Tensor) -> tuple[int, int, int]:
+    """Raise unless K1 (``quant`` 'int8') or K5 ('int4') takes these
+    operands; (U_pad, I_pad, d). ``m`` is the stored matrix: the packed
     one holds two logical columns a byte."""
-    kernel = _KERNELS[quant]
     u_pad, m_cols = m.shape
     i_pad = 2 * m_cols if quant == "int4" else m_cols
     d = quT.shape[0]
@@ -185,12 +198,41 @@ def _launch_dual(quant: str, m: torch.Tensor, quT: torch.Tensor,
             f"{kernel} takes d == {_FEATURES}, I_pad % "
             f"{PACK_TILE if quant == 'int4' else _STRIP} == 0 and "
             f"U_pad % {_CHUNK} == 0; got d={d}, U_pad={u_pad}, I_pad={i_pad}")
-    yu = torch.zeros((d, u_pad), dtype=torch.int32, device=m.device)
-    yi = torch.zeros((d, i_pad), dtype=torch.int32, device=m.device)
+    return u_pad, i_pad, d
+
+
+def _launch_k1(m8: torch.Tensor, quT: torch.Tensor,
+               qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check K1's operands and launch it: the turn to [N, d] with the
+    sums zeroed, the scan, the turn back with the float32 conversion."""
+    kernel = "dual_int8_t"
+    u_pad, i_pad, d = _check_t(kernel, "int8", m8, quT, qiT)
+    dev = m8.device
+    rows = (u_pad + i_pad) * d
+    # the int32 sums, then the turned activations: one allocation
+    scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
+    yu = torch.empty((d, u_pad), dtype=torch.float32, device=dev)
+    yi = torch.empty((d, i_pad), dtype=torch.float32, device=dev)
     lib = _lib(kernel)
-    stream = torch.cuda.current_stream(m.device).cuda_stream
-    code = getattr(lib, kernel)(m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
-                                yi.data_ptr(), u_pad, i_pad, stream)
+    code = lib.dual_int8_t(m8.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
+                           yi.data_ptr(), scratch.data_ptr() + 4 * rows, scratch.data_ptr(),
+                           u_pad, i_pad, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, kernel, code)
+    return yu, yi
+
+
+def _launch_k5(m4: torch.Tensor, quT: torch.Tensor,
+               qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check K5's operands and launch it into zeroed int32 outputs,
+    which it converts to float32 in place."""
+    kernel = "dual_int4_t"
+    u_pad, i_pad, d = _check_t(kernel, "int4", m4, quT, qiT)
+    yu = torch.zeros((d, u_pad), dtype=torch.int32, device=m4.device)
+    yi = torch.zeros((d, i_pad), dtype=torch.int32, device=m4.device)
+    lib = _lib(kernel)
+    stream = torch.cuda.current_stream(m4.device).cuda_stream
+    code = lib.dual_int4_t(m4.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
+                           yi.data_ptr(), u_pad, i_pad, stream)
     _build.check(lib, kernel, code)
     return yu.view(torch.float32), yi.view(torch.float32)
 
@@ -200,13 +242,19 @@ def fused_adj_matmul_int8_t(m8: torch.Tensor, quT: torch.Tensor,
     """(yuT [d, U_pad], yiT [d, I_pad]) float32 raw integer products of
     int8 m8 [U_pad, I_pad], quT [d, U_pad], qiT [d, I_pad].
 
+    The sums are exact int32 sums converted to float32 once (exact
+    while every sum stays below 2**24, as `fused_adj_matmul_int8`
+    states).
+
     CPU tensors take the plain version; CUDA tensors launch K1 or
-    raise."""
+    raise. K1 is three launches (the activations turned to [N, d] and
+    the sums zeroed, the scan of M, the sums turned back to [d, N] as
+    float32) and does not synchronise with the host."""
     if m8.device.type == "cpu":
         return fused_adj_matmul_int8_t_plain(m8, quT, qiT)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
-    out = _launch_dual("int8", m8, quT, qiT)
+    out = _launch_k1(m8, quT, qiT)
     fused_adj_matmul_int8_t.launches += 1
     return out
 
@@ -227,7 +275,7 @@ def fused_adj_matmul_int4_t(m4: torch.Tensor, quT: torch.Tensor,
         return fused_adj_matmul_int4_t_plain(m4, quT, qiT)
     if m4.device.type != "cuda":
         raise ValueError(f"unsupported device {m4.device}")
-    out = _launch_dual("int4", m4, quT, qiT)
+    out = _launch_k5(m4, quT, qiT)
     fused_adj_matmul_int4_t.launches += 1
     return out
 
@@ -240,8 +288,8 @@ fused_adj_matmul_int4_t.launches = 0
 
 _K6 = "dual_bf16"
 _N_KERNELS = {"int8": "dual_int8_n", "int4": "dual_int4_n"}
-# K6-K8 split d into feature groups of 64 (d % 64 == 0) or 32; K7 also
-# into groups of 128 (d % 128 == 0)
+# K6 splits d into feature groups of 64 (d % 64 == 0) or 32; K7 and K8
+# into `scan_feature_group`
 _FEATURE_GROUP = 32
 # the kernels index rows and columns with int32 and bound a row's sum by 2**30
 _MAX_SIDE = 2 ** 23
@@ -249,25 +297,27 @@ _MAX_SIDE = 2 ** 23
 _F32_ROWS = 4096
 
 
-def k7_feature_group(d: int) -> int:
-    """Features one of K7's scans of M covers: 128 where d % 128 == 0,
-    else 64 where d % 64 == 0, else 32, the rule of the kernel's
-    launcher, which reports the scans it launched
-    (``fused_adj_matmul_int8.passes``)."""
+def scan_feature_group(d: int) -> int:
+    """Features one scan of M covers in K7 and K8 (the scan of
+    ``csrc/dual_scan.cuh``): 128 where d % 128 == 0, else 64 where
+    d % 64 == 0, else 32, the rule of the kernels' launcher, which
+    reports the scans it launched (``fused_adj_matmul_int8.passes``,
+    ``fused_adj_matmul_int4.passes``)."""
     return 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
 
 
-def k7_passes(d: int) -> int:
-    """Reads of M that one K7 launch makes at width d (d % 32 == 0)."""
-    return d // k7_feature_group(d)
+def scan_passes(d: int) -> int:
+    """Reads of the stored matrix that one K7 or K8 launch makes at
+    width d (d % 32 == 0)."""
+    return d // scan_feature_group(d)
 
 
 def kernel_accepts_n(u_pad: int, i_pad: int, d: int, mode: str = "bf16") -> bool:
     """Whether K6 (``mode`` 'bf16'), K7 ('int8') or K8 ('int4') takes
-    these logical shapes: d a multiple of 32 (K6 and K8 read the matrix
-    once per group of 64 features, or of 32 when d % 64 != 0; K7 once per
-    `k7_feature_group`), U_pad a multiple of 64, I_pad a multiple of 256
-    (of `PACK_TILE` for int4)."""
+    these logical shapes: d a multiple of 32 (K6 reads the matrix once
+    per group of 64 features, or of 32 when d % 64 != 0; K7 and K8 once
+    per `scan_feature_group`), U_pad a multiple of 64, I_pad a multiple
+    of 256 (of `PACK_TILE` for int4)."""
     col_multiple = PACK_TILE if mode == "int4" else _STRIP
     return (d > 0 and d % _FEATURE_GROUP == 0 and 0 < u_pad <= _MAX_SIDE
             and 0 < i_pad <= _MAX_SIDE and u_pad % _CHUNK == 0 and i_pad % col_multiple == 0)
@@ -320,14 +370,6 @@ def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor,
     return yu[: zu.shape[0]], yi[: zi.shape[0]]
 
 
-@functools.cache
-def _k6_lib() -> ctypes.CDLL:
-    lib = _build.library(_K6)
-    lib.dual_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.dual_bf16.restype = ctypes.c_int
-    return lib
-
-
 def _launch_bf16(m8: torch.Tensor, zu_pad: torch.Tensor,
                  zi_pad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Check K6's operands and launch it: int8 m8 [U_pad, I_pad],
@@ -344,7 +386,7 @@ def _launch_bf16(m8: torch.Tensor, zu_pad: torch.Tensor,
     acc = torch.zeros((u_pad + i_pad, d), dtype=torch.int64, device=dev)
     yu = torch.empty((u_pad, d), dtype=torch.float32, device=dev)
     yi = torch.empty((i_pad, d), dtype=torch.float32, device=dev)
-    lib = _k6_lib()
+    lib = _lib(_K6)
     code = lib.dual_bf16(m8.data_ptr(), zu_pad.data_ptr(), zi_pad.data_ptr(), amax.data_ptr(),
                          acc[:u_pad].data_ptr(), acc[u_pad:].data_ptr(), yu.data_ptr(),
                          yi.data_ptr(), u_pad, i_pad, d,
@@ -418,23 +460,13 @@ def fused_adj_matmul_int4_plain(m4: torch.Tensor, qu: torch.Tensor,
     return fused_adj_matmul_int8_plain(unpack_nibbles(m4), qu, qi)
 
 
-@functools.cache
-def _lib_n(kernel: str) -> ctypes.CDLL:
-    lib = _build.library(kernel)
-    fn = getattr(lib, kernel)
-    # K7 also reports the scans of M it launched
-    passes = [ctypes.POINTER(ctypes.c_int)] if kernel == _N_KERNELS["int8"] else []
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + passes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
-                   qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                   qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Check the operands of K7 (``quant`` 'int8') or K8 ('int4') and
-    launch it on CUDA tensors. ``m`` is the stored matrix: the packed
-    one holds two logical columns a byte. K7's launcher reports its
-    scans of M into ``fused_adj_matmul_int8.passes``."""
+    launch it on CUDA tensors: (yu, yi, the scans of M its launcher
+    reports). ``m`` is the stored matrix: the packed one holds two
+    logical columns a byte. Three launches: one zero fill of both int32
+    sums, the scan, their conversion to float32 in place."""
     kernel = _N_KERNELS[quant]
     u_pad, m_cols = m.shape
     i_pad = 2 * m_cols if quant == "int4" else m_cols
@@ -443,18 +475,15 @@ def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
     _check_operand("qu", qu, torch.int8, (u_pad, d), m.device)
     _check_operand("qi", qi, torch.int8, (i_pad, d), m.device)
     _require_n(kernel, quant, u_pad, i_pad, d)
-    yu = torch.zeros((u_pad, d), dtype=torch.int32, device=m.device)
-    yi = torch.zeros((i_pad, d), dtype=torch.int32, device=m.device)
-    lib = _lib_n(kernel)
+    sums = torch.zeros((u_pad + i_pad, d), dtype=torch.int32, device=m.device)
+    yu, yi = sums[:u_pad], sums[u_pad:]
+    lib = _lib(kernel)
     passes = ctypes.c_int(0)
-    reported = (ctypes.byref(passes),) if quant == "int8" else ()
     code = getattr(lib, kernel)(m.data_ptr(), qu.data_ptr(), qi.data_ptr(), yu.data_ptr(),
-                                yi.data_ptr(), u_pad, i_pad, d, *reported,
+                                yi.data_ptr(), u_pad, i_pad, d, ctypes.byref(passes),
                                 torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(lib, kernel, code)
-    if reported:
-        fused_adj_matmul_int8.passes = passes.value
-    return yu.view(torch.float32), yi.view(torch.float32)
+    return yu.view(torch.float32), yi.view(torch.float32), passes.value
 
 
 def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
@@ -472,16 +501,16 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch K7 or
     raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0, and
-    reads M `k7_passes` (d) times: once at d = 64 and d = 128. The last
+    reads M `scan_passes` (d) times: once at d = 64 and d = 128. The last
     launch's reads of M, as its launcher reports them, are in
     ``fused_adj_matmul_int8.passes``."""
     if m8.device.type == "cpu":
         return fused_adj_matmul_int8_plain(m8, qu, qi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
-    out = _launch_dual_n("int8", m8, qu, qi)
+    yu, yi, fused_adj_matmul_int8.passes = _launch_dual_n("int8", m8, qu, qi)
     fused_adj_matmul_int8.launches += 1
-    return out
+    return yu, yi
 
 
 fused_adj_matmul_int8.launches = 0
@@ -496,14 +525,19 @@ def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor,
     K7's output on `unpack_nibbles(m4)`.
 
     CPU tensors take the plain version; CUDA tensors launch K8 or
-    raise. K8 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 2,048 == 0."""
+    raise. K8 is K7's scan on the packed bytes, each non-zero nibble an
+    entry: it takes d % 32 == 0, U_pad % 64 == 0, I_pad % 2,048 == 0,
+    and reads m4 `scan_passes` (d) times: once at d = 64 and d = 128.
+    The last launch's reads of m4, as its launcher reports them, are in
+    ``fused_adj_matmul_int4.passes``."""
     if m4.device.type == "cpu":
         return fused_adj_matmul_int4_plain(m4, qu, qi)
     if m4.device.type != "cuda":
         raise ValueError(f"unsupported device {m4.device}")
-    out = _launch_dual_n("int4", m4, qu, qi)
+    yu, yi, fused_adj_matmul_int4.passes = _launch_dual_n("int4", m4, qu, qi)
     fused_adj_matmul_int4.launches += 1
-    return out
+    return yu, yi
 
 
 fused_adj_matmul_int4.launches = 0
+fused_adj_matmul_int4.passes = 0

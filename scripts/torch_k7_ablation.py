@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where kernel K7 (idgrec_torch/csrc/dual_int8_n.cu) spends its time,
+"""Where kernels K7 (idgrec_torch/csrc/dual_int8_n.cu), K1
+(csrc/dual_int8_t.cu) and K8 (csrc/dual_int4_n.cu) spend their time,
 and where kernel K4's time goes (idgrec_torch/csrc/scatter_add_rows.cu),
 on one NVIDIA GPU.
 
-    python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k4]
+    python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k1]
+                                         [--skip-k8] [--skip-k4]
 
 ``--root`` names the tree whose ``idgrec_torch`` is measured (default:
 this one), so a checkout of an earlier commit can be measured with the
@@ -20,7 +22,20 @@ matrix of chip_smoke.py with random int8 activations, at d = 64 and
 d = 128, the outputs zeroed before every launch as the wrapper does.
 A patch whose anchor text is missing from the source fails the run.
 ptxas's registers, shared memory and spills of the full variant are
-printed.
+printed. The scan's body lives in ``csrc/dual_scan.cuh``, which K1, K7
+and K8 include: a variant's source has the header pasted in, so a patch
+reaches it.
+
+K1 (the scan with the layout turned at both edges, three launches), at
+d = 64 on the same matrix with random [d, N] activations: the full call,
+the entries' work taken out (the stream of M alone, turns kept), each
+turn taken out, the scan launch alone, the stream alone, and the two
+turns alone. K8 (the scan on the nibble-packed matrix) at d = 64 and
+d = 128: the full call and the stream alone. On a tree whose K1 or K8
+is the tile kernel (commit 2d94ae4 and earlier) those variants are
+skipped. For every tree: the wrappers of K1, K7 and K8 timed, and the
+device launches of one call of each counted with torch.profiler
+(kernels and memsets, the wrapper's allocations and fills included).
 
 K4: the step's two tables (2,048 sampled user rows into [31,668, 64],
 4,096 item rows into [38,048, 64]) timed four ways under CUDA events:
@@ -82,6 +97,10 @@ TILE_VARIANTS = {
 }
 
 
+# The scan's entries taken out: only the stream of M is left (the loop
+# over a piece's entries is `bytes` in commit 2d94ae4, `bits` since)
+_NO_ENTRIES = (r"while \((bytes|bits)\) \{", r"while (\1 && u < 0) {")
+
 # The scan kernel (a warp per non-zero entry, int32 atomics):
 SCAN_VARIANTS = {
     "full": [],
@@ -94,39 +113,65 @@ SCAN_VARIANTS = {
                              "(u + k)")],
     "no_float_pass": [(r"int32_to_float_inplace<<<[^;]*;", "")],
     # the scan of M alone: no entry is taken
-    "scan_only": [(r"while \(bytes\) \{", "while (bytes && u < 0) {")],
+    "scan_only": [_NO_ENTRIES],
 }
 # the full scan kernel at other settings: blocks an SM must hold (the
 # register budget), pieces a thread has in flight, entries whose activation
 # rows load together
 for _b in (3, 4):
-    SCAN_VARIANTS[f"min_blocks_{_b}"] = [(r"__launch_bounds__\(THREADS\)\n",
-                                          f"__launch_bounds__(THREADS, {_b})\n")]
+    SCAN_VARIANTS[f"min_blocks_{_b}"] = [(r"__launch_bounds__\(((?:SCAN_)?THREADS)(?:, \d)?\)\n",
+                                          rf"__launch_bounds__(\1, {_b})\n")]
 for _u in (2, 8):
     SCAN_VARIANTS[f"unroll_{_u}"] = [(r"constexpr int UNROLL = \d+;", f"constexpr int UNROLL = {_u};")]
 SCAN_VARIANTS["batch_double"] = [(r"constexpr int BATCH = 8 / FPL;", "constexpr int BATCH = 16 / FPL;")]
+
+# K1: the scan between the two layout turns (turn_in, then turn_out)
+_NO_TURN_IN = (r"turn_in<<<[^;]*;", "")
+_NO_TURN_OUT = (r"turn_out<<<[^;]*;", "")
+K1_VARIANTS = {
+    "full": [],
+    "no_entries": [_NO_ENTRIES],
+    "no_turn_in": [_NO_TURN_IN],
+    "no_turn_out": [_NO_TURN_OUT],
+    "scan_launch_alone": [_NO_TURN_IN, _NO_TURN_OUT],
+    "stream_alone": [_NO_TURN_IN, _NO_TURN_OUT, _NO_ENTRIES],
+    "turns_alone": [(r"err = launch_scan<false>\([^;]*;", "err = cudaSuccess;")],
+}
+# K8: the scan on the packed bytes
+K8_VARIANTS = {"full": [], "stream_alone": [_NO_ENTRIES]}
+
+_HEADER = '#include "dual_scan.cuh"\n'
 
 
 def variants_for(text: str) -> dict:
     return TILE_VARIANTS if "column4(" in text else SCAN_VARIANTS
 
 
-def build_all(build_mod, source: str) -> dict:
-    """Every variant of ``source``, all nvcc processes at once; returns
-    name -> (library path or None, nvcc output)."""
-    text = open(source).read()
+def with_header(text: str, csrc_dir: str) -> str:
+    """``text`` with the scan header pasted in place of its include."""
+    if _HEADER not in text:
+        return text
+    with open(os.path.join(csrc_dir, "dual_scan.cuh")) as f:
+        return text.replace(_HEADER, f.read(), 1)
+
+
+def build_all(build_mod, source: str, variants: dict | None = None, tag: str = "k7") -> dict:
+    """Every variant of ``source`` (default: K7's for the kernel found),
+    all nvcc processes at once; returns name -> (library path or None,
+    nvcc output)."""
+    text = with_header(open(source).read(), build_mod.CSRC_DIR)
     out_dir = os.path.join(build_mod.BUILD_DIR, "ablation")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, patches in variants_for(text).items():
+    for name, patches in (variants or variants_for(text)).items():
         src = text
         for pattern, repl in patches:
             src, n = re.subn(pattern, repl, src)
             if n == 0:
                 raise RuntimeError(f"variant {name}: anchor {pattern!r} not in {source}")
         src = src.replace("namespace {\n", "namespace {\n\n" + _NEVER, 1)
-        cu = os.path.join(out_dir, f"k7_{name}.cu")
-        so = os.path.join(out_dir, f"libk7_{name}.so")
+        cu = os.path.join(out_dir, f"{tag}_{name}.cu")
+        so = os.path.join(out_dir, f"lib{tag}_{name}.so")
         with open(cu, "w") as f:
             f.write(src)
         # the variant sits in another directory: point -I at the kernels' headers
@@ -154,12 +199,145 @@ def timed(fn, iters=20):
     return a.elapsed_time(b) / iters
 
 
+def device_launches(fn) -> int:
+    """Kernels and memsets that one call of ``fn`` puts on the device, as
+    torch.profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _ptxas(log: str) -> list:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def k1_ablation(dev, m8, build_mod, fusedmm) -> dict:
+    """K1 at d = 64: its wrapper and device launches, and on the scan
+    design its variants (the library call, no allocation)."""
+    u_pad, i_pad = m8.shape
+    d = 64
+    g = torch.Generator(device="cpu").manual_seed(2)
+    quT = torch.randint(-127, 128, (d, u_pad), generator=g, dtype=torch.int8).to(dev)
+    qiT = torch.randint(-127, 128, (d, i_pad), generator=g, dtype=torch.int8).to(dev)
+    call = lambda: fusedmm.fused_adj_matmul_int8_t(m8, quT, qiT)  # noqa: E731
+    out = {"wrapper_ms": timed(call), "device_launches_per_call": device_launches(call)}
+    print(f"K1 wrapper {out['wrapper_ms']:.4f} ms, {out['device_launches_per_call']} device "
+          "launches a call", flush=True)
+    source = build_mod.source_path("dual_int8_t")
+    if "turn_in<<<" not in open(source).read():
+        print("K1 is the tile kernel in this tree: no variants", flush=True)
+        return out
+    built = build_all(build_mod, source, K1_VARIANTS, "k1")
+    out["ptxas_full"] = _ptxas(built["full"][1])
+    for ln in out["ptxas_full"]:
+        print(f"ptxas (K1 full): {ln}", flush=True)
+    rows = (u_pad + i_pad) * d
+    scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
+    yu = torch.empty((d, u_pad), dtype=torch.float32, device=dev)
+    yi = torch.empty((d, i_pad), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    want = fusedmm.fused_adj_matmul_int8_t_plain(m8, quT, qiT)
+    ms = {}
+    for name, (so, log) in built.items():
+        if so is None:
+            print(f"K1 {name}: not measured, nvcc failed:\n{log}", flush=True)
+            ms[name] = None
+            continue
+        lib = ctypes.CDLL(so)
+        lib.dual_int8_t.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.dual_int8_t.restype = ctypes.c_int
+
+        def run():
+            code = lib.dual_int8_t(m8.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
+                                   yi.data_ptr(), scratch.data_ptr() + 4 * rows,
+                                   scratch.data_ptr(), u_pad, i_pad, stream)
+            if code:
+                raise RuntimeError(f"K1 {name}: CUDA error {code}")
+
+        ms[name] = timed(run)
+        if name == "full":
+            run()
+            if not (torch.equal(yu, want[0]) and torch.equal(yi, want[1])):
+                raise RuntimeError("the full K1 variant differs from the plain version")
+        print(f"K1 {name}: d=64 {ms[name]:.4f} ms", flush=True)
+    out["ms"] = ms
+    return out
+
+
+def k8_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
+    """K8 at d = 64 and 128 on the nibble-packed matrix: its wrapper and
+    device launches, and on the scan design the full call against the
+    stream alone."""
+    m4 = fusedmm.pack_nibbles(fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev),
+                                                 fusedmm.PACK_TILE, fusedmm.TU))
+    u_pad, i_pad = m4.shape[0], 2 * m4.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    acts = {d: (torch.randint(-127, 128, (u_pad, d), generator=g, dtype=torch.int8).to(dev),
+                torch.randint(-127, 128, (i_pad, d), generator=g, dtype=torch.int8).to(dev))
+            for d in WIDTHS}
+    out = {"wrapper_ms": {}, "device_launches_per_call": {}}
+    for d in WIDTHS:
+        call = lambda d=d: fusedmm.fused_adj_matmul_int4(m4, *acts[d])  # noqa: E731
+        out["wrapper_ms"][d] = timed(call)
+        out["device_launches_per_call"][d] = device_launches(call)
+    print(f"K8 wrapper d=64 {out['wrapper_ms'][64]:.4f} ms, d=128 {out['wrapper_ms'][128]:.4f} "
+          f"ms; device launches a call {out['device_launches_per_call']}", flush=True)
+    source = build_mod.source_path("dual_int4_n")
+    if _HEADER not in open(source).read():
+        print("K8 is the tile kernel in this tree: no variants", flush=True)
+        return out
+    built = build_all(build_mod, source, K8_VARIANTS, "k8")
+    out["ptxas_full"] = _ptxas(built["full"][1])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    passes = ctypes.c_int(0)
+    ms = {}
+    for name, (so, log) in built.items():
+        if so is None:
+            print(f"K8 {name}: not measured, nvcc failed:\n{log}", flush=True)
+            ms[name] = None
+            continue
+        lib = ctypes.CDLL(so)
+        lib.dual_int4_n.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        lib.dual_int4_n.restype = ctypes.c_int
+        row = {}
+        for d in WIDTHS:
+            qu, qi = acts[d]
+            sums = torch.zeros((u_pad + i_pad, d), dtype=torch.int32, device=dev)
+
+            def run():
+                sums.zero_()
+                code = lib.dual_int4_n(m4.data_ptr(), qu.data_ptr(), qi.data_ptr(),
+                                       sums.data_ptr(), sums[u_pad:].data_ptr(), u_pad, i_pad, d,
+                                       ctypes.byref(passes), stream)
+                if code:
+                    raise RuntimeError(f"K8 {name}: CUDA error {code}")
+
+            row[d] = timed(run)
+            if name == "full":
+                run()
+                want = fusedmm.fused_adj_matmul_int4_plain(m4, qu, qi)
+                got = sums.view(torch.float32)
+                if not (torch.equal(got[:u_pad], want[0]) and torch.equal(got[u_pad:], want[1])):
+                    raise RuntimeError(f"the full K8 variant differs from the plain version at "
+                                       f"d={d}")
+        ms[name] = row
+        print(f"K8 {name}: d=64 {row[64]:.4f} ms, d=128 {row[128]:.4f} ms", flush=True)
+    out["ms"] = ms
+    return out
+
+
 def k7_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
     m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
     u_pad, i_pad = m8.shape
     built = build_all(build_mod, build_mod.source_path("dual_int8_n"))
-    ptxas = [ln.strip() for ln in built["full"][1].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptxas = _ptxas(built["full"][1])
     for ln in ptxas:
         print(f"ptxas (full): {ln}", flush=True)
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -168,7 +346,8 @@ def k7_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
             for d in WIDTHS}
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the scan kernel's launcher reports its reads of M; the tile kernel's does not
-    scan = variants_for(open(build_mod.source_path("dual_int8_n")).read()) is SCAN_VARIANTS
+    scan = variants_for(with_header(open(build_mod.source_path("dual_int8_n")).read(),
+                                    build_mod.CSRC_DIR)) is SCAN_VARIANTS
     passes = ctypes.c_int(0)
     reported = (ctypes.byref(passes),) if scan else ()
     results, launched = {}, {}
@@ -214,13 +393,16 @@ def k7_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
         yi = torch.zeros((i_pad, d), dtype=torch.int32, device=dev)
         zero[d] = timed(lambda: (yu.zero_(), yi.zero_()))
     wrapper = {d: timed(lambda d=d: fusedmm.fused_adj_matmul_int8(m8, *acts[d])) for d in WIDTHS}
+    launches = {d: device_launches(lambda d=d: fusedmm.fused_adj_matmul_int8(m8, *acts[d]))
+                for d in WIDTHS}
     copy = torch.empty_like(m8)
     copy_ms = timed(lambda: copy.copy_(m8))
     print(f"zeroing the outputs: d=64 {zero[64]:.4f} ms, d=128 {zero[128]:.4f} ms; the wrapper "
           f"(allocation, checks, launch): d=64 {wrapper[64]:.4f}, d=128 {wrapper[128]:.4f} ms; "
-          f"copy of M {copy_ms:.4f} ms", flush=True)
+          f"copy of M {copy_ms:.4f} ms; device launches a call {launches}", flush=True)
     out = {"u_pad": u_pad, "i_pad": i_pad, "ms": results, "zero_outputs_ms": zero,
-           "wrapper_ms": wrapper, "copy_of_M_ms": copy_ms, "ptxas_full": ptxas}
+           "wrapper_ms": wrapper, "device_launches_per_call": launches, "copy_of_M_ms": copy_ms,
+           "ptxas_full": ptxas}
     if launched:
         out["passes_over_M"] = launched  # as the full variant's launcher reported them
     return out
@@ -352,6 +534,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--skip-k7", action="store_true")
+    parser.add_argument("--skip-k1", action="store_true")
+    parser.add_argument("--skip-k8", action="store_true")
     parser.add_argument("--skip-k4", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -366,6 +550,12 @@ def main() -> int:
     result = {"root": os.path.abspath(args.root)}
     if not args.skip_k7:
         result["k7"] = k7_ablation(dev, data, _build, fusedmm, propagate)
+    if not args.skip_k1:
+        m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
+        result["k1"] = k1_ablation(dev, m8, _build, fusedmm)
+        del m8
+    if not args.skip_k8:
+        result["k8"] = k8_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k4:
         result["k4"] = k4_split(dev, data, scatter)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

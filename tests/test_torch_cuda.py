@@ -1,11 +1,12 @@
-"""Kernels K1-K10 against their plain PyTorch versions on the card.
+"""Kernels K1-K13 against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU with nvcc (the kernels build at first use);
 without one they skip with a reason. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
 Tolerances: K1's and K5's raw integer products are equal to their plain
-versions', and K5's to K1's on the unpacked matrix; the int4 chain and
+versions', K1's to K7's on the transposed activations and across two
+launches, and K5's to K1's on the unpacked matrix; the int4 chain and
 its gradient are bit-equal to the int8 chain's; K3 and K2 are
 bit-equal (IEEE division, round-half-even, no FMA contraction, an
 order-free max), K2's inject mode too; K4 is bit-equal (no atomics:
@@ -14,9 +15,10 @@ straight-through backward chain are bit-equal to the plain chains built
 from the same operations; the gradients of one training step's loss
 are bit-equal between the kernel path and the plain path. K7's and
 K8's raw integer products are equal to their plain versions' and to
-K1's and K5's on the transposed activations; repeated
-`FusedSquareAdj.matmul` equals the chain's layers bit for bit. K6 agrees
-with its plain version within rtol 3e-5 / atol 3e-6 of the largest sum
+K1's and K5's on the transposed activations, K8's to K7's on the
+unpacked matrix at every feature group, each across two launches;
+repeated `FusedSquareAdj.matmul` equals the chain's layers bit for bit.
+K6 agrees with its plain version within rtol 3e-5 / atol 3e-6 of the largest sum
 (identical bfloat16 operands, exact products: only the order of the
 float32 additions differs) and gives the same bits on every launch; its
 backward against autograd through the plain version within 2**-7
@@ -58,20 +60,50 @@ def _int8(rng, shape, lo=-127, hi=128):
 
 
 @pytest.mark.parametrize("u_pad,i_pad,density,top", [
-    (3072, 2048, 0.02, 3),      # sparse counts, several strips and row shares
-    (1024, 512, 1.0, 5),        # dense: no tile is skipped
-    (64, 256, 0.3, 127),        # one chunk, one strip, the largest counts
+    (3072, 2048, 0.02, 3),      # sparse counts, several row blocks of the turns
+    (1024, 512, 1.0, 5),        # dense: every entry taken
+    (64, 256, 0.3, 127),        # one row block, the largest counts
     (2048, 1024, 0.0, 1),       # all zero
+    (1024, 512, 1.0, None),     # every entry 127: the longest sums
 ])
 def test_k1_equals_plain(cuda, u_pad, i_pad, density, top):
+    """K1 (the scan with the layout turned at both edges) equals its
+    plain version and K7 on the transposed activations, and a second
+    launch gives the same bits."""
     rng = np.random.default_rng(0)
-    mask = rng.random((u_pad, i_pad)) < density
-    m = torch.from_numpy(np.where(mask, rng.integers(1, top + 1, (u_pad, i_pad)), 0)
-                         .astype(np.int8)).to(cuda)
+    if top is None:
+        m = torch.full((u_pad, i_pad), 127, dtype=torch.int8, device=cuda)
+    else:
+        mask = rng.random((u_pad, i_pad)) < density
+        m = torch.from_numpy(np.where(mask, rng.integers(1, top + 1, (u_pad, i_pad)), 0)
+                             .astype(np.int8)).to(cuda)
     qu, qi = _int8(rng, (64, u_pad)).to(cuda), _int8(rng, (64, i_pad)).to(cuda)
+    before = fusedmm.fused_adj_matmul_int8_t.launches
     got = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
+    again = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
+    assert fusedmm.fused_adj_matmul_int8_t.launches == before + 2
     want = fusedmm.fused_adj_matmul_int8_t_plain(m, qu, qi)
-    for a, b in zip(got, want):
+    k7 = fusedmm.fused_adj_matmul_int8(m, qu.T.contiguous(), qi.T.contiguous())
+    for a, b, c, e in zip(got, again, want, k7):
+        assert a.shape == c.shape and a.dtype == torch.float32
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, c) and torch.equal(a, e.T)
+
+
+def test_k1_does_not_synchronise(cuda):
+    """A K1 call (allocations, checks, three launches) issues no
+    synchronisation with the host."""
+    rng = np.random.default_rng(3)
+    m = _counts(rng, 2048, 1024, 0.05, 3).to(cuda)
+    qu, qi = _int8(rng, (64, 2048)).to(cuda), _int8(rng, (64, 1024)).to(cuda)
+    fusedmm.fused_adj_matmul_int8_t(m, qu, qi)  # built and loaded outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fusedmm.fused_adj_matmul_int8_t(m, qu, qi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, fusedmm.fused_adj_matmul_int8_t_plain(m, qu, qi)):
         assert torch.equal(a, b)
 
 
@@ -418,8 +450,8 @@ def test_k7_widths_equal_plain_and_repeat(cuda, d):
     assert fusedmm.fused_adj_matmul_int8.launches == before + 2
     for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_int8_plain(m, qu, qi)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(a, c)
-    assert fusedmm.k7_passes(d) == {128: 1, 256: 2}.get(d, d // (64 if d % 64 == 0 else 32))
-    assert fusedmm.fused_adj_matmul_int8.passes == fusedmm.k7_passes(d)  # as launched
+    assert fusedmm.scan_passes(d) == {128: 1, 256: 2}.get(d, d // (64 if d % 64 == 0 else 32))
+    assert fusedmm.fused_adj_matmul_int8.passes == fusedmm.scan_passes(d)  # as launched
     if d == 64:
         k1 = fusedmm.fused_adj_matmul_int8_t(m, qu.T.contiguous(), qi.T.contiguous())
         for a, b in zip(got, k1):
@@ -449,6 +481,48 @@ def test_k8_equals_plain_k5_and_k7(cuda, u_pad, i_pad, density, top, d):
         k5 = fusedmm.fused_adj_matmul_int4_t(m4, qu.T.contiguous(), qi.T.contiguous())
         for a, b in zip(got, k5):
             assert torch.equal(a, b.T)
+
+
+def _pack15(m: torch.Tensor) -> torch.Tensor:
+    """`pack_nibbles` for counts up to 15 (it refuses counts above
+    `NIBBLE_MAX`; the kernel takes any nibble)."""
+    u, i = m.shape
+    t = m.view(torch.uint8).reshape(u, i // fusedmm.PACK_TILE, 2, fusedmm.PACK_TILE // 2)
+    return (t[:, :, 0, :] | (t[:, :, 1, :] << 4)).view(torch.int8).reshape(u, i // 2)
+
+
+@pytest.mark.parametrize("kind", ["random", "dense15", "high_only"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_k8_widths_equal_plain_k7_and_repeat(cuda, d, kind):
+    """K8 (K7's scan on the packed bytes) at every feature group: equal to
+    its plain version and to K7 on the unpacked matrix, the same bits on
+    a second launch, one scan of m4 per `scan_feature_group`. The
+    matrices: random counts 1..15, every entry 15 (a byte's two nibbles
+    fill the warp's entry buffer mid-byte), and counts 8..15 in the high
+    nibbles only (the byte's top bit set)."""
+    rng = np.random.default_rng(11)
+    u_pad, i_pad = 1024, 4096
+    if kind == "random":
+        m = _counts(rng, u_pad, i_pad, 0.05, 15)
+    elif kind == "dense15":
+        m = torch.full((u_pad, i_pad), 15, dtype=torch.int8)
+    else:
+        m = _counts(rng, u_pad, i_pad, 0.2, 8) + 7
+        m = m * (m > 7)
+        m.view(u_pad, 2, 2, fusedmm.PACK_TILE // 2)[:, :, 0, :] = 0
+    m = m.to(cuda)
+    m4 = _pack15(m)
+    assert torch.equal(fusedmm.unpack_nibbles(m4), m)
+    qu, qi = _int8(rng, (u_pad, d)).to(cuda), _int8(rng, (i_pad, d)).to(cuda)
+    before = fusedmm.fused_adj_matmul_int4.launches
+    got = fusedmm.fused_adj_matmul_int4(m4, qu, qi)
+    again = fusedmm.fused_adj_matmul_int4(m4, qu, qi)
+    assert fusedmm.fused_adj_matmul_int4.launches == before + 2
+    assert fusedmm.fused_adj_matmul_int4.passes == fusedmm.scan_passes(d)  # as launched
+    for a, b, c, e in zip(got, again, fusedmm.fused_adj_matmul_int4_plain(m4, qu, qi),
+                          fusedmm.fused_adj_matmul_int8(m, qu, qi)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, c) and torch.equal(a, e)
 
 
 def test_k8_unpacks_high_nibbles_above_seven(cuda):

@@ -194,15 +194,20 @@ def test_kernel_accepts_n(mode, u_pad, i_pad, d, want):
             t_fused._require_n("kernel", mode, u_pad, i_pad, d)
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4"])
 @pytest.mark.parametrize("d,group,passes", [
     (64, 64, 1), (128, 128, 1), (2048, 128, 16), (96, 32, 3), (32, 32, 1), (192, 64, 3),
     (256, 128, 2),
 ])
-def test_k7_feature_passes(d, group, passes):
-    """K7 reads M once per 128 features where d % 128 == 0, else once per
-    64 or 32: the group its launcher takes from the wrapper."""
-    assert t_fused.k7_feature_group(d) == group
-    assert t_fused.k7_passes(d) == passes
+def test_k7_feature_passes(d, group, passes, mode):
+    """K7 (int8) and K8 (int4) share one scan: it reads the stored matrix
+    once per 128 features where d % 128 == 0, else once per 64 or 32,
+    the group their launcher takes from the wrapper, at every width the
+    kernel takes."""
+    assert t_fused.scan_feature_group(d) == group
+    assert t_fused.scan_passes(d) == passes
+    assert group * passes == d
+    assert t_fused.kernel_accepts_n(1024, t_fused.PACK_TILE, d, mode)
 
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])
