@@ -9,24 +9,29 @@ LightGCN (d=64, 3 layers; int8 and int4 chains, the exact bfloat16 mode,
 the bitpack backend, the batch-row partial product) and EGCF (d=64, 3
 tanh layers after the seed sweep) over the yelp2018-scale synthetic
 dataset, random weights from a seed.
-K1, K7 and K8 share one scan of the count matrix (csrc/dual_scan.cuh:
-its non-zero entries taken a warp each, int32 atomics); K1 turns the
-chain's [d, N] activations to [N, d] and its sums back around it, three
-launches a call, and is held to its plain version and across two
-launches; the device launches a call of K1, K7 and K8 are counted at the
-end (torch.profiler slows later launches). K5 (the dual product on the
-nibble-packed matrix) is also held to K1 on the unpacked matrix, and
+K1, K7, K8 and K6 share one scan of the count matrix (csrc/dual_scan.cuh:
+its non-zero entries taken a warp each; int32 atomics, K6 64-bit
+fixed-point ones); K1 turns the chain's [d, N] activations to [N, d] and
+its sums back around it, three launches a call, and is held to its plain
+version and across two launches; K11 scans the packed row groups and
+adds only the set bits; the device launches a call of K1, K7, K8, K6 and
+K11 are counted at the end (torch.profiler slows later launches). K5
+(the dual product on the nibble-packed matrix) is also held to K1 on the
+unpacked matrix, and
 the int4 chain, backward chain and one step's gradients to int8's, all
 exactly; one int8 chain forward and backward runs under
 ``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
 per-application duals in [N, d] layout) are held to K1 and K5 on the
 transposed activations, K8 to K7 on the unpacked matrix, and three
 `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
-K6 (the bfloat16 dual) to its plain version within a stated tolerance,
-bit-equal across two launches, and its backward to autograd through the
-plain version. K4 is held to its plain version bit for bit through the
-training step's entry (one launch per table, no range check) and the
-public one, on 4,096 copies of one row, and across two launches; the
+K6 (the bfloat16 dual) to its plain version within a stated tolerance
+at d = 64 and 128, where its launcher reports one read of M,
+bit-equal across two launches, one call under
+``torch.cuda.set_sync_debug_mode("error")``, and its backward to
+autograd through the plain version. K4 is held to its plain version bit
+for bit through the training step's entry (one launch per table, no
+range check) and the public one, on 4,096 copies of one row, and across
+two launches; the
 gathers' backward runs under ``torch.cuda.set_sync_debug_mode("error")``.
 K7 and K8 are held across two launches at d = 64 and d = 128, where
 their launcher reports one read of the stored matrix (`fusedmm.scan_passes`
@@ -71,9 +76,10 @@ launch counts set to 0 just before and read just after:
   gather EGCF and trained 24 steps; `train_model` for one epoch with a
   checkpoint, both `Recommender` constructors, and
   `main.main(["--model=EGCF", ...])` on the command-line dataset;
-* the bitpack backend (K11, one launch per direction): K11 against its
+* the bitpack backend (K11, one call per direction): K11 against its
   plain version, itself and K6 on the same binary matrix, its backward
-  against autograd through the plain version; LightGCN in bfloat16 and
+  against autograd through the plain version, one call under sync debug
+  mode "error"; LightGCN in bfloat16 and
   float32 (both feed K11 bfloat16 activations): eval embeddings against
   bfloat16-fused, four requests against the float32 gather model, two
   runs of 64 steps with the BPR sum falling, one evaluation; EGCF
@@ -137,7 +143,8 @@ F32_OPS = 67e12
 # to K1's and K5's on the transposed activations and to each other;
 # three `FusedSquareAdj.matmul` calls equal the chain's layers. K6 is
 # within TIGHT of its plain version (identical bfloat16 operands, exact
-# products: only the order of the float32 additions differs) and equal
+# products each rounded once to 64-bit fixed point at 2**-31 of the
+# largest activation, integer sums) and equal
 # across two launches; its backward is within BF16 of the largest
 # gradient of autograd through the plain version (the kernel rounds the
 # cotangent to bfloat16 going in, autograd rounds the gradient coming
@@ -1148,8 +1155,36 @@ def main() -> int:
         require(torch.equal(a, b), f"K6 {what}: two launches differ, max abs err {max_abs(a, b)}")
         assert_close(a, c, f"K6 {what}", **TIGHT)
         errs["K6"] = max(errs["K6"], max_abs(a, c))
+    k6_passes = fusedmm.fused_adj_matmul.passes  # as K6's launcher reports them
+    require(k6_passes == fusedmm.scan_passes(DIM) == 1,
+            f"K6 at d = {DIM}: {k6_passes} reads of M launched, {fusedmm.scan_passes(DIM)} stated")
     log(f"K6 matches its plain version (max abs err {errs['K6']:.3e}, largest sum "
-        f"{float(max(y6_p[0].abs().max(), y6_p[1].abs().max())):.3e}); two launches bit-equal")
+        f"{float(max(y6_p[0].abs().max(), y6_p[1].abs().max())):.3e}); two launches bit-equal; "
+        f"{k6_passes} read of M, as launched")
+    # K6 at d = 128 (one read of M for 128 features): the first application's
+    # inputs beside a second copy scaled by 1/2
+    zu6w, zi6w = (torch.cat([z_, 0.5 * z_], 1) for z_ in (zu6, zi6))
+    y6w = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w)
+    k6_128_passes = fusedmm.fused_adj_matmul.passes
+    require(k6_128_passes == fusedmm.scan_passes(2 * DIM) == 1,
+            f"K6 at d = {2 * DIM}: {k6_128_passes} reads of M launched")
+    y6w_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w)
+    for what, a, b, c in zip(("yu", "yi"), y6w, y6w_again,
+                             fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6w, zi6w)):
+        require(torch.equal(a, b), f"K6 d = {2 * DIM} {what}: two launches differ")
+        assert_close(a, c, f"K6 d = {2 * DIM} {what}", **TIGHT)
+        errs["K6"] = max(errs["K6"], max_abs(a, c))
+    # one K6 call with no synchronisation of the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y6_nosync = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(all(torch.equal(a, b) for a, b in zip(y6_nosync, y6)), "K6 under sync debug differs")
+    log(f"K6 at d = {2 * DIM}: within TIGHT of its plain version, two launches bit-equal, "
+        f"{k6_128_passes} read of M; one K6 call ran under sync debug mode 'error'")
+    del y6w, y6w_again, y6_nosync
     # the backward: the swapped product of the batch cotangent, against
     # autograd through the plain version
     g6 = (cot[:nu].contiguous(), cot[nu:].contiguous())
@@ -1165,9 +1200,13 @@ def main() -> int:
     log(f"K6 backward (swapped cotangents) within {BF16} of autograd through the plain version")
     del grads6, y6_again
 
-    k6_bytes = u_pad * i_pad + 2 * d * (u_pad + i_pad) + 4 * d * (u_pad + i_pad)
-    k6_bound = bound(k6_bytes, 4.0 * u_pad * i_pad * d, bf16_ops)
+    # M read once, the float32 activations in, the float32 sums out; the
+    # function's work is 4 operations per non-zero entry and feature
+    k6_bytes = u_pad * i_pad + 4 * d * (nu + ni) + 4 * d * (nu + ni)
+    k6_bound = bound(k6_bytes, 4.0 * nnz * d, bf16_ops)
     k6_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6), 20)
+    k6_128_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w), 20)
+    k6_128_bound = bound(u_pad * i_pad + 16 * d * (nu + ni), 8.0 * nnz * d, bf16_ops)
     k6_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6, zi6), 3, 1)
     # library yardstick: two torch.matmul calls on a bfloat16 copy of M
     # (results rounded to bfloat16), the copy's time stated apart
@@ -1182,7 +1221,8 @@ def main() -> int:
     k6_lib = cuda_ms(lambda: (m_bf @ zi16, m_bf.T @ zu16), 10)
     log(f"K6 {k6_ms:.4f} ms per application (bound {k6_bound[0]:.4f} ms by {k6_bound[1]}, plain "
         f"{k6_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6_lib:.4f} ms, the copy "
-        f"{copy_ms:.4f} ms more)")
+        f"{copy_ms:.4f} ms more); at d = {2 * DIM} {k6_128_ms:.4f} ms (bound "
+        f"{k6_128_bound[0]:.4f} ms by {k6_128_bound[1]})")
     del m_bf, zu16, zi16, lib6, y6, y6_p
 
     # ---- the exact path at full width: bfloat16 on the fused backend
@@ -1741,10 +1781,14 @@ def main() -> int:
     # against itself, against K6 on the same binary matrix, its backward
     zu11 = (adj_bp.right_u[:, None] * emb0[:nu]).contiguous()
     zi11 = (adj_bp.right_i[:, None] * emb0[nu:]).contiguous()
-    k11_dirs = ((adj_bp.packed, zi11, nu), (adj_bp.packed_t, zu11, ni))
-    y11 = [bitmm.bit_matmul(p_, x_, n_) for p_, x_, n_ in k11_dirs]
-    y11_again = [bitmm.bit_matmul(p_, x_, n_) for p_, x_, n_ in k11_dirs]
-    y11_p = [bitmm.bit_matmul_plain(p_, x_, n_) for p_, x_, n_ in k11_dirs]
+    # each direction with the plan its adjacency keeps (K11's split of the
+    # packed bits among its warps)
+    require(adj_bp.plans is not None, "the bitpack adjacency on the card has no K11 plans")
+    k11_dirs = ((adj_bp.packed, zi11, nu, adj_bp.plans[0]),
+                (adj_bp.packed_t, zu11, ni, adj_bp.plans[1]))
+    y11 = [bitmm.bit_matmul(*a_) for a_ in k11_dirs]
+    y11_again = [bitmm.bit_matmul(*a_) for a_ in k11_dirs]
+    y11_p = [bitmm.bit_matmul_plain(*a_[:3]) for a_ in k11_dirs]
     y6 = fusedmm.fused_adj_matmul(adj_bf.m8, zu11, zi11)
     errs["K11"] = 0.0
     for what, a, b, c, k6 in zip(("yu", "yi"), y11, y11_again, y11_p, y6):
@@ -1757,7 +1801,8 @@ def main() -> int:
     log(f"K11 matches its plain version (max abs err {errs['K11']:.3e}) and K6 (max abs err "
         f"{max(max_abs(a, b) for a, b in zip(y11, y6)):.3e}); two launches bit-equal")
     grads11 = []
-    for fn in (lambda a, b: bitmm.bit_adj_matmul(adj_bp.packed, adj_bp.packed_t, a, b),
+    for fn in (lambda a, b: bitmm.bit_adj_matmul(adj_bp.packed, adj_bp.packed_t, a, b,
+                                                 adj_bp.plans),
                lambda a, b: (bitmm.bit_matmul_plain(adj_bp.packed, b, nu),
                              bitmm.bit_matmul_plain(adj_bp.packed_t, a, ni))):
         a, b = zu11.clone().requires_grad_(True), zi11.clone().requires_grad_(True)
@@ -1768,24 +1813,30 @@ def main() -> int:
         require(top > 0 and max_abs(got, ref) <= BF16 * top,
                 f"K11 backward {what}: max abs err {max_abs(got, ref)} above {BF16} of {top}")
     log(f"K11 backward (swapped cotangents) within {BF16} of autograd through the plain version")
-    del grads11, y11_again, y6
+    # one K11 call with no synchronisation of the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y11_nosync = bitmm.bit_matmul(*k11_dirs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(torch.equal(y11_nosync, y11[0]), "K11 under sync debug differs")
+    log("one K11 call ran under sync debug mode 'error'")
+    del grads11, y11_again, y6, y11_nosync
 
-    k11_ms = [cuda_ms(lambda p_=p_, x_=x_, n_=n_: bitmm.bit_matmul(p_, x_, n_), 20)
-              for p_, x_, n_ in k11_dirs]
-    k11_plain = sum(cuda_ms(lambda p_=p_, x_=x_, n_=n_: bitmm.bit_matmul_plain(p_, x_, n_), 3, 1)
-                    for p_, x_, n_ in k11_dirs)
+    k11_ms = [cuda_ms(lambda a_=a_: bitmm.bit_matmul(*a_), 20) for a_ in k11_dirs]
+    k11_plain = sum(cuda_ms(lambda a_=a_: bitmm.bit_matmul_plain(*a_[:3]), 3, 1)
+                    for a_ in k11_dirs)
     # the function needs one add per set bit and feature in each direction
-    # (the bits are 0/1); K11 itself multiplies every bit, zeros included,
-    # which is its design's work, not the bound
+    # (the bits are 0/1); its bytes: both packings, the float32 activations
+    # in, the float32 rows out
     k11_ops = 2 * 2.0 * nnz_bp * d
-    k11_work = sum(2.0 * 8 * p_.shape[0] * p_.shape[1] * d for p_, _, _ in k11_dirs)
-    k11_bytes = bp_bytes + sum(2.0 * p_.shape[1] * d + 4.0 * 8 * p_.shape[0] * d
-                               for p_, _, _ in k11_dirs)
+    k11_bytes = bp_bytes + sum(4.0 * a_[1].shape[0] * d + 4.0 * a_[2] * d for a_ in k11_dirs)
     k11_bound = bound(k11_bytes, k11_ops, bf16_ops)
     # library yardstick: torch.matmul x2 on bfloat16 unpacked copies (results
     # rounded to bfloat16), the copies not counted
     lib_ops = []
-    for p_, x_, n_ in k11_dirs:
+    for p_, x_, n_, _ in k11_dirs:
         m_bf16 = bitmm.unpack_rows(p_).to(torch.bfloat16)
         lib_ops.append((m_bf16, torch.nn.functional.pad(x_.to(torch.bfloat16),
                                                         (0, 0, 0, p_.shape[1] - x_.shape[0]))))
@@ -1799,9 +1850,8 @@ def main() -> int:
     log(f"K11 {k11_ms[0]:.4f} ms (users, [{8 * adj_bp.packed.shape[0]}, "
         f"{adj_bp.packed.shape[1]}]) + {k11_ms[1]:.4f} ms (items) = {sum(k11_ms):.4f} ms per "
         f"application (bound {k11_bound[0]:.4f} ms by {k11_bound[1]} for {nnz_bp} set bits a "
-        f"direction; K11 multiplies all {k11_work:.4e} bits x features, "
-        f"{k11_work / bf16_ops * 1e3:.4f} ms at the bfloat16 peak; plain {k11_plain:.4f} ms, "
-        f"torch.matmul x2 on bfloat16 unpacked copies {k11_lib:.4f} ms)")
+        f"direction; plain {k11_plain:.4f} ms, torch.matmul x2 on bfloat16 unpacked copies "
+        f"{k11_lib:.4f} ms)")
 
     # ---- the bitpack path, LightGCN bfloat16 and float32: eval embeddings
     # against bfloat16-fused, serving against the float32 gather model, two
@@ -2057,8 +2107,9 @@ def main() -> int:
               "library: index_add_ x2 into zeroed tables"),
         entry("dual_bf16", "idgrec_torch/csrc/dual_bf16.cu", "idgrec_tpu/ops/fusedmm.py:98",
               fusedmm.fused_adj_matmul, errs["K6"], k6_ms, k6_plain, k6_bound, k6_lib,
-              "one application at d = 64: 1 launch, its pad, cast, amax and scratch fill inside; "
-              "library: torch.matmul x2 on a bfloat16 copy of M, the copy not counted"),
+              "one application at d = 64: 1 launch (3 kernels: the bfloat16 copy with its "
+              "maxima and the sums zeroed, the scan of M, the conversion); library: "
+              "torch.matmul x2 on a bfloat16 copy of M, the copy not counted"),
         entry("dual_int8_n", "idgrec_torch/csrc/dual_int8_n.cu", "idgrec_tpu/ops/fusedmm.py:211",
               fusedmm.fused_adj_matmul_int8, errs["K7"], *wide_kernels["K7"],
               f"one application at d = {WIDE_DIM}: 1 launch, one 128-feature group (one read of "
@@ -2077,7 +2128,8 @@ def main() -> int:
               "one backward sweep of the tanh chain: 2 launches (the seed sweep 1)"),
         entry("bit_matmul", "idgrec_torch/csrc/bit_matmul.cu", "idgrec_tpu/ops/bitmm.py:94",
               bitmm.bit_matmul, errs["K11"], sum(k11_ms), k11_plain, k11_bound, k11_lib,
-              "one application at d = 64: 2 launches (users, items), the bfloat16 cast and pad "
+              "one application at d = 64: 2 calls (users, items), each 2 kernels (the scan "
+              "by the adjacency's plan, the shared row groups' sums), the bfloat16 rounding "
               "inside; library: torch.matmul x2 on bfloat16 unpacked copies, the copies not "
               "counted"),
         entry("gather_rows_matmul", "idgrec_torch/csrc/gather_rows_matmul.cu",
@@ -2097,6 +2149,11 @@ def main() -> int:
             k["backward_path_ms"] = k4_path_ms  # the step's entry, the concatenation included
         elif k["name"] == "dual_int8_n":
             k["ms_d64"] = k7_64_ms
+        elif k["name"] == "dual_bf16":
+            k.update(ms_d128=k6_128_ms, bound_ms_d128=k6_128_bound[0], passes_d64=k6_passes,
+                     passes_d128=k6_128_passes)
+        elif k["name"] == "bit_matmul":
+            k["ms_per_direction"] = k11_ms
         elif k["name"] == "dual_int4_n":
             k.update(ms_d64=k8_64_ms, plain_ms_d64=k8_64_plain, bound_ms_d64=k8_64_bound[0],
                      library_ms_d64=k8_64_lib)
@@ -2128,7 +2185,9 @@ def main() -> int:
     # used, the profiler slows the host's later launches
     per_call = {"dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
                 "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN),
-                "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)}
+                "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N),
+                "dual_bf16": lambda: fusedmm.fused_adj_matmul(adj.m8, zu6, zi6),
+                "bit_matmul": lambda: bitmm.bit_matmul(*k11_dirs[0])}
     for k in kernels:
         if k["name"] in per_call:
             k["device_launches_per_call"] = device_launches(per_call[k["name"]])

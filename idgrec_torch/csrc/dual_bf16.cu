@@ -1,6 +1,6 @@
 // K6 dual_bf16: both directions of the exact-mode adjacency product from one
-// read of each tile of the int8 count matrix, bf16 activations in [N, d]
-// layout, float32 accumulation.
+// read of the int8 count matrix per feature group, bf16 activations in the
+// [N, d] layout, float32 results.
 //
 //   yu[u, f] = sum_i M[u, i] * zi[i, f]      (M  @ zi, [U_pad, d])
 //   yi[i, f] = sum_u M[u, i] * zu[u, f]      (M^T @ zu, [I_pad, d])
@@ -9,98 +9,59 @@
 // _fused_call l.155); entry fused_adj_matmul (l.618), whose backward is this
 // same kernel on the swapped cotangents. The TPU body kept the whole
 // [I_pad, d] f32 yi accumulator in VMEM across a sequential grid; Hopper
-// blocks run in no order and hold 227 KB.
+// blocks run in no order.
 //
-// Bound on the H100: bytes. One sweep at d <= 64 reads M once (U_pad * I_pad
-// bytes) against 4 * U_pad * I_pad * d bf16 operations (128 ops per byte at
-// d = 64 against the card's ~295).
+// Bound on the H100: bytes. One application reads M once per feature group
+// (U_pad * I_pad bytes); the function's operations are 4 * nnz * d (the
+// non-zero entries only).
 //
-// Design: K1's block decomposition (dual_int8_t.cu), with two differences.
-// * Block (x, y, z) owns column strip x (256 columns), the y-th even share of
-//   the 64-row chunks and feature group z (64 features when d % 64 == 0, else
-//   32). M streams through shared memory (cp.async); each byte is converted
-//   to bf16 in registers (counts are exact in bf16) and feeds both products
-//   as the B operand of mma.sync m16n8k16 bf16 with f32 accumulators. The
-//   activations are transposed on their way into shared memory, so inside
-//   the block the features are the mma's m dimension, as in K1. The k slots
-//   of a fragment are permuted (a lane owns 4 consecutive k values), which
-//   turns every operand load into one 32-bit or 64-bit shared-memory access;
-//   a sum does not depend on the order of its k slots within one mma.
-// * The cross-block reduction must give the same bits on every launch:
-//   training promises that a resumed run equals a straight one. float
-//   atomicAdd is not associative, so the order in which blocks arrive would
-//   show. Each block's partial sum (f32, computed in a fixed order) is
-//   therefore converted to 64-bit fixed point and added with integer
-//   atomicAdd, which is order-free and exact. The scale is a power of two
-//   taken from the largest |activation| (amax, computed by the wrapper on the
-//   device): with amax < 2^e and row and column sums of M below 2^30, every
-//   sum times 2^(31 - e) stays below 2^61, and the fixed-point step is below
-//   amax * 2^-30, far under one f32 ulp of any sum that is not itself tiny
-//   against amax. A second kernel converts the sums to float32.
-// * All-zero tiles of M are skipped by warp-uniform votes on 16-byte loads,
-//   taken before any fragment is gathered: the matrix is sparse, and a zero
-//   count adds nothing. Non-finite activations are not multiplied by those
-//   zeros, so the second kernel writes NaN everywhere when amax is not finite.
+// Design: the scan of dual_scan.cuh (K7's; its note gives the design and the
+// measurements that chose it), in the arithmetic FixedSums below, three
+// launches a call:
+// * prep: the float32 activations ([nu, d] and [ni, d]) become one bf16
+//   copy [U_pad + I_pad, d], rounded to nearest even as .to(bfloat16)
+//   rounds and zero in the padding rows; the same pass zeroes the int64 sums
+//   and writes each block's largest |bf16| of either side.
+// * the scan: 128, 64 or 32 features a read of M (fusedmm.scan_feature_group;
+//   the launcher reports the reads). Each block first reduces the prep
+//   blocks' maxima to amax, a side's largest |activation|. An entry's product
+//   v * z is exact in float32 (|v| <= 128 has 8 significant bits, z 8); it
+//   is scaled by the power of two 2^(31 - e) of the side it sums (amax <
+//   2^e: fixed_shift) and rounded to int64 once. The yu partials of a row
+//   stay in int64 registers over the warp's run of the row (one 64-bit
+//   atomic add a row, warp and feature when the row changes); yi takes one
+//   64-bit atomic add an entry and feature. Every sum is thus an exact
+//   integer sum of per-entry rounded products: it does not depend on the
+//   order, the grid or the SM count, and two launches give the same bits
+//   (training promises that a resumed run equals a straight one).
+// * convert: the sums times 2^-shift as float32, NaN over a side whose amax
+//   is not finite (NaN or inf in the activations it sums; a zero count would
+//   have multiplied them on the TPU).
+// Precision: a product's rounding is at most 2^(e - 32) <= amax * 2^-31; with
+// row and column sums of |M| below 2^30 every sum stays below 2^61.
+// The tile kernel this replaces (mma.sync on 64 x 256 stages of M, zero-tile
+// votes, a fixed-point partial a block) read M once per 64 features and took
+// 1.23 ms at d = 64 on an H100 (PERF.md); its wrapper's pads, casts, maxima
+// and fills were about ten more launches.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "mma_common.cuh"
 #include <math.h>
+
+#include "dual_scan.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int STRIP = WARPS * 32;      // columns of M per block
-constexpr int CHUNK = 64;              // rows of M per stage (four mma k-steps)
-constexpr int STAGES = 2;             // two stages and 128 registers: two blocks share an SM
-constexpr int M_STRIDE = STRIP + 16;   // smem row pitch of M (bytes)
-// bf16 row pitches whose byte size is 32 mod 128: the 64-bit fragment loads
-// of a half warp (4 feature rows x 4 lanes) then fall into distinct banks
-constexpr int ZI_PITCH = STRIP + 16;   // elements: 544 bytes
-constexpr int ZU_PITCH = CHUNK + 16;   // elements: 160 bytes
-constexpr int M_STAGE_BYTES = CHUNK * M_STRIDE;
-constexpr int YU_PITCH = 8 + 1;        // words per feature row of a warp's yu tile
+constexpr int PREP_THREADS = 256;
+constexpr int MAX_PREP_BLOCKS = 1024;  // the wrapper's scratch holds their maxima
+constexpr int CONVERT_THREADS = 256;
+constexpr int BLOCKS_AN_SM = 4;        // prep and convert: grid-stride blocks an SM
 constexpr int MAX_SHIFT = 120;
+constexpr uint32_t BF16_ABS = 0x7fffu;
+constexpr uint32_t F32_INF = 0x7f800000u;
 
-// MT feature m-tiles of 16 per block
-template <int MT>
-struct Geo {
-  static constexpr int DF = 16 * MT;
-  static constexpr int ZU_STAGE_BYTES = DF * ZU_PITCH * 2;
-  static constexpr int STAGE_BYTES = M_STAGE_BYTES + ZU_STAGE_BYTES;
-  static constexpr int ZI_BYTES = DF * ZI_PITCH * 2;
-  static constexpr int YU_BYTES = WARPS * DF * YU_PITCH * 4;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + ZI_BYTES + YU_BYTES;
-  // 16-byte pieces (8 bf16) of a zu chunk per thread
-  static constexpr int ZU_ITEMS = CHUNK * (DF / 8) / THREADS;
-};
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four bytes of one column from four consecutive smem rows, low byte first.
-__device__ __forceinline__ uint32_t column4(const int8_t* p) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(p[0])) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[M_STRIDE])) << 8) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[2 * M_STRIDE])) << 16) |
-         (static_cast<uint32_t>(static_cast<uint8_t>(p[3 * M_STRIDE])) << 24);
-}
-
-// Two signed bytes of w (byte index lo, lo + 1) as a bf16 pair, the lower
-// byte in the lower half: exact, |count| <= 128 fits bf16's 8 bits.
-__device__ __forceinline__ uint32_t bf16_pair(uint32_t w, int lo) {
-  const float a = static_cast<float>(static_cast<int8_t>((w >> (8 * lo)) & 0xffu));
-  const float b = static_cast<float>(static_cast<int8_t>((w >> (8 * lo + 8)) & 0xffu));
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The power of two 2^shift that scales a sum of activations bounded by amax
-// into 64-bit fixed point: amax < 2^e gives shift = 31 - e.
+// The power of two 2^shift that scales products of activations bounded by
+// amax into 64-bit fixed point: amax < 2^e gives shift = 31 - e.
 __device__ __forceinline__ int fixed_shift(float amax) {
   if (!(amax > 0.0f) || !isfinite(amax)) return 0;
   int e;
@@ -109,317 +70,193 @@ __device__ __forceinline__ int fixed_shift(float amax) {
   return shift > MAX_SHIFT ? MAX_SHIFT : shift;
 }
 
-__device__ __forceinline__ void add_fixed(unsigned long long* dst, float v, float scale) {
-  if (v != 0.0f) atomicAdd(dst, static_cast<unsigned long long>(__float2ll_rn(v * scale)));
+// The block's largest (mu, mi) into am[0..1] (shared memory), by the whole
+// block. The values are the bits of non-negative floats: as unsigned
+// integers they order as the floats do, NaN above inf, so the integer max
+// keeps a NaN.
+__device__ __forceinline__ void block_max2(unsigned mu, unsigned mi, unsigned* am) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mu = max(mu, __shfl_xor_sync(FULL, mu, o));
+    mi = max(mi, __shfl_xor_sync(FULL, mi, o));
+  }
+  if (threadIdx.x == 0) am[0] = am[1] = 0u;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&am[0], mu);
+    atomicMax(&am[1], mi);
+  }
+  __syncthreads();
 }
 
-// The 8 bf16 of v become 8 consecutive rows (pitch elements apart) of one
-// shared-memory column: the transpose of a 16-byte piece of an activation row.
-__device__ __forceinline__ void store_column8(uint16_t* col, int pitch, const uint4& v) {
+// (max |zu|, max |zi|) over the n pairs of prep-block maxima, into am[0..1].
+__device__ __forceinline__ void block_amax(const unsigned* __restrict__ parts, int n,
+                                           unsigned* am) {
+  unsigned mu = 0u, mi = 0u;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    mu = max(mu, parts[2 * k]);
+    mi = max(mi, parts[2 * k + 1]);
+  }
+  block_max2(mu, mi, am);
+}
+
+__device__ __forceinline__ float bf16_float(uint32_t b) { return __uint_as_float(b << 16); }
+
+// The scan's arithmetic for bf16 activations: each entry's product scaled by
+// its side's power of two and rounded to int64 (round half to even), 64-bit
+// sums. aux: the prep blocks' maxima.
+struct FixedSums {
+  using Act = uint16_t;  // bf16 bits
+  using Val = float;     // the activation times its side's power of two (exact)
+  using Sum = long long;
+  struct Scales {
+    float u, i;  // yu sums zi, yi sums zu
+  };
+  __device__ static Scales scales(const unsigned* parts, int n) {
+    __shared__ unsigned am[2];
+    block_amax(parts, n, am);
+    return {ldexpf(1.0f, fixed_shift(__uint_as_float(am[1]))),
+            ldexpf(1.0f, fixed_shift(__uint_as_float(am[0])))};
+  }
+  __device__ static Val val(Act a, float scale) { return bf16_float(a) * scale; }
+  __device__ static Sum product(int v, Val a) { return __float2ll_rn(static_cast<float>(v) * a); }
+};
+
+// float32 to bf16 bits, round to nearest even (as PyTorch's .to(bfloat16)
+// rounds; a NaN stays a NaN)
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if (isnan(x)) return (u >> 16) | 0x40u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+// Eight consecutive activations of one row as bf16 bits, two to a word.
+__device__ __forceinline__ uint4 load8(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  return make_uint4(bf16_bits(a.x) | (bf16_bits(a.y) << 16),
+                    bf16_bits(a.z) | (bf16_bits(a.w) << 16),
+                    bf16_bits(b.x) | (bf16_bits(b.y) << 16),
+                    bf16_bits(b.z) | (bf16_bits(b.w) << 16));
+}
+
+__device__ __forceinline__ unsigned abs_max8(const uint4& v) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t m = 0u;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    col[(2 * j) * pitch] = static_cast<uint16_t>(w[j] & 0xffffu);
-    col[(2 * j + 1) * pitch] = static_cast<uint16_t>(w[j] >> 16);
+  for (int k = 0; k < 4; ++k) m = max(m, max(w[k] & BF16_ABS, (w[k] >> 16) & BF16_ABS));
+  return m << 16;
+}
+
+// The bf16 copy z [u_pad + i_pad, d] (users, then items; zero rows past nu
+// and ni), the int64 sums zeroed, and this block's (max |zu|, max |zi|) into
+// parts[2 b], parts[2 b + 1]. Eight features a thread a step, grid-stride.
+__global__ void __launch_bounds__(PREP_THREADS)
+prep_kernel(const float* __restrict__ zu, const float* __restrict__ zi, int nu, int ni, int u_pad,
+            int i_pad, int d, uint16_t* __restrict__ z, long long* __restrict__ sums,
+            unsigned* __restrict__ parts) {
+  const long long n8 = static_cast<long long>(u_pad + i_pad) * d / 8;
+  const long long stride = static_cast<long long>(gridDim.x) * PREP_THREADS;
+  unsigned mu = 0u, mi = 0u;
+  for (long long p = static_cast<long long>(blockIdx.x) * PREP_THREADS + threadIdx.x; p < n8;
+       p += stride) {
+    const long long e = 8 * p;
+    const int r = static_cast<int>(e / d), f = static_cast<int>(e - static_cast<long long>(r) * d);
+    const bool user = r < u_pad;
+    const int row = user ? r : r - u_pad;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < (user ? nu : ni)) {
+      v = load8((user ? zu : zi) + static_cast<size_t>(row) * d + f);
+      const unsigned m = abs_max8(v);
+      if (user) mu = max(mu, m);
+      else mi = max(mi, m);
+    }
+    *reinterpret_cast<uint4*>(z + e) = v;
+    uint4* s = reinterpret_cast<uint4*>(sums + e);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __shared__ unsigned am[2];
+  block_max2(mu, mi, am);
+  if (threadIdx.x == 0) {
+    parts[2 * blockIdx.x] = am[0];
+    parts[2 * blockIdx.x + 1] = am[1];
   }
 }
 
-template <int MT>
-__global__ void __launch_bounds__(THREADS, 2)
-dual_bf16_kernel(const int8_t* __restrict__ m, const uint16_t* __restrict__ zu,
-                 const uint16_t* __restrict__ zi, unsigned long long* __restrict__ yu,
-                 unsigned long long* __restrict__ yi, const float* __restrict__ amax,
-                 int u_pad, int i_pad, int d) {
-  using G = Geo<MT>;
-  constexpr int DF = G::DF;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // transposed zi of the block's strip, [DF][ZI_PITCH] bf16
-  uint16_t* zis = reinterpret_cast<uint16_t*>(smem + STAGES * G::STAGE_BYTES);
-  // this warp's [DF features, 8 rows] yu tile, staged so that each atomic
-  // instruction covers 32 contiguous features of one row
-  float* yus = reinterpret_cast<float*>(smem + STAGES * G::STAGE_BYTES + G::ZI_BYTES) +
-               (threadIdx.x >> 5) * DF * YU_PITCH;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // mma groupID
-  const int t = lane & 3;    // mma threadID_in_group
-  const int col0 = blockIdx.x * STRIP;
-  const int f0 = blockIdx.z * DF;
-  const int chunks = u_pad / CHUNK;
-  const int c_begin = static_cast<int>(static_cast<long long>(blockIdx.y) * chunks / gridDim.y);
-  const int n_chunks =
-      static_cast<int>(static_cast<long long>(blockIdx.y + 1) * chunks / gridDim.y) - c_begin;
-  // yu sums zi, yi sums zu: amax = (max |zu|, max |zi|)
-  const float scale_u = ldexpf(1.0f, fixed_shift(amax[1]));
-  const float scale_i = ldexpf(1.0f, fixed_shift(amax[0]));
-
-  float acc_i[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc_i[mt][nt][r] = 0.0f;
-
-  auto load_m = [&](int stage, int chunk) {
-    unsigned char* ms = smem + stage * G::STAGE_BYTES;
-    const int r0 = chunk * CHUNK;
-#pragma unroll
-    for (int k = 0; k < CHUNK * STRIP / 16 / THREADS; ++k) {
-      const int p = tid + k * THREADS;
-      const int r = p / (STRIP / 16);
-      const int c = (p % (STRIP / 16)) * 16;
-      cp_async16(ms + r * M_STRIDE + c, m + static_cast<size_t>(r0 + r) * i_pad + col0 + c);
-    }
-  };
-  // the zu chunk of a stage: CHUNK rows x DF / 8 pieces of 8 bf16; item
-  // tid + k * THREADS -> (row, piece) with the rows fastest
-  auto fetch_zu = [&](int chunk, uint4 (&v)[G::ZU_ITEMS]) {
-#pragma unroll
-    for (int k = 0; k < G::ZU_ITEMS; ++k) {
-      const int id = tid + k * THREADS;
-      v[k] = __ldg(reinterpret_cast<const uint4*>(
-          zu + static_cast<size_t>(chunk * CHUNK + id % CHUNK) * d + f0 + 8 * (id / CHUNK)));
-    }
-  };
-  auto store_zu = [&](int stage, const uint4 (&v)[G::ZU_ITEMS]) {
-    uint16_t* zs = reinterpret_cast<uint16_t*>(smem + stage * G::STAGE_BYTES + M_STAGE_BYTES);
-#pragma unroll
-    for (int k = 0; k < G::ZU_ITEMS; ++k) {
-      const int id = tid + k * THREADS;
-      store_column8(zs + (8 * (id / CHUNK)) * ZU_PITCH + id % CHUNK, ZU_PITCH, v[k]);
-    }
-  };
-
-  // zi [STRIP, DF] of the strip into shared memory as [DF, STRIP]: thread c
-  // owns column col0 + c. The first barrier of the loop publishes it.
-  {
-    const uint16_t* src = zi + static_cast<size_t>(col0 + tid) * d + f0;
-#pragma unroll
-    for (int p = 0; p < DF / 8; ++p) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + 8 * p));
-      store_column8(zis + (8 * p) * ZI_PITCH + tid, ZI_PITCH, v);
-    }
-  }
-  uint4 z_next[G::ZU_ITEMS];
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_chunks) {
-      load_m(s, c_begin + s);
-      fetch_zu(c_begin + s, z_next);
-      store_zu(s, z_next);
-    }
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < n_chunks; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // this stage landed; every warp is done with the last
-    const int next = it + STAGES - 1;
-    const bool have_next = next < n_chunks;
-    if (have_next) {
-      load_m(next % STAGES, c_begin + next);
-      fetch_zu(c_begin + next, z_next);
-    }
-    cp_async_commit();
-
-    const int8_t* ms = reinterpret_cast<const int8_t*>(smem + (it % STAGES) * G::STAGE_BYTES);
-    const uint16_t* zs = reinterpret_cast<const uint16_t*>(ms + M_STAGE_BYTES);
-    const int r0 = (c_begin + it) * CHUNK;
-
-    // ---- yu for this warp's 8 chunk rows (the mma's n) and all feature
-    // m-tiles; k runs over the strip's columns, 16 per step. Lane (g, t)
-    // holds row g's counts of columns 4 t .. 4 t + 3 of the step as B, and
-    // the same four columns of zi's feature rows g and g + 8 as A.
-    {
-      float acc_u[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc_u[mt][r] = 0.0f;
-      // which 16-column groups of the warp's rows hold a non-zero (bit ks):
-      // lane l reads row warp * 8 + l / 4, columns 64 * (l % 4) .. + 63
-      unsigned tiles = 0;
-      {
-        const uint4* row = reinterpret_cast<const uint4*>(
-            ms + (warp * 8 + (lane >> 2)) * M_STRIDE + (lane & 3) * 64);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint4 v = row[j];
-          const unsigned b = __ballot_sync(0xffffffffu, (v.x | v.y | v.z | v.w) != 0u);
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq)
-            if (b & (0x11111111u << qq)) tiles |= 1u << (4 * qq + j);
-        }
-      }
-      const int8_t* mrow = ms + (warp * 8 + g) * M_STRIDE + 4 * t;
-      const uint16_t* arow = zis + g * ZI_PITCH + 4 * t;
-#pragma unroll
-      for (int ks = 0; ks < STRIP / 16; ++ks) {
-        if (!((tiles >> ks) & 1u)) continue;  // an all-zero tile adds nothing
-        const uint32_t w = ld32(mrow + ks * 16);
-        const uint32_t b0 = bf16_pair(w, 0), b1 = bf16_pair(w, 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint2 lo = *reinterpret_cast<const uint2*>(arow + (mt * 16) * ZI_PITCH + ks * 16);
-          const uint2 hi =
-              *reinterpret_cast<const uint2*>(arow + (mt * 16 + 8) * ZI_PITCH + ks * 16);
-          mma_bf16(acc_u[mt], lo.x, hi.x, lo.y, hi.y, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float* row = yus + (mt * 16 + g) * YU_PITCH + 2 * t;
-        row[0] = acc_u[mt][0];
-        row[1] = acc_u[mt][1];
-        row[8 * YU_PITCH] = acc_u[mt][2];
-        row[8 * YU_PITCH + 1] = acc_u[mt][3];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int uu = 0; uu < 8; ++uu) {
-        unsigned long long* dst = yu + static_cast<size_t>(r0 + warp * 8 + uu) * d + f0;
-#pragma unroll
-        for (int k = 0; k < DF / 32; ++k) {
-          const int f = lane + 32 * k;
-          add_fixed(dst + f, yus[f * YU_PITCH + uu], scale_u);
-        }
-      }
-      __syncwarp();
-    }
-
-    // ---- yi += zu[chunk rows]^T . M[chunk rows, strip]: the warp owns 32
-    // columns (four n-tiles), k runs over the chunk's rows, 16 per step. Lane
-    // (g, t) gathers column g's counts of rows 4 t .. 4 t + 3 of the step, for
-    // the tiles that hold a non-zero.
-#pragma unroll
-    for (int kk = 0; kk < CHUNK / 16; ++kk) {
-      // which of the warp's four 16x8 tiles of M hold a non-zero: lane l reads
-      // row kk * 16 + l % 16, columns 16 * (l / 16) .. + 15 of the warp's 32
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          ms + (kk * 16 + (lane & 15)) * M_STRIDE + warp * 32 + (lane >> 4) * 16);
-      const unsigned b_lo = __ballot_sync(0xffffffffu, (v.x | v.y) != 0u);
-      const unsigned b_hi = __ballot_sync(0xffffffffu, (v.z | v.w) != 0u);
-      const unsigned nz = ((b_lo & 0xffffu) ? 1u : 0u) | ((b_hi & 0xffffu) ? 2u : 0u) |
-                          ((b_lo >> 16) ? 4u : 0u) | ((b_hi >> 16) ? 8u : 0u);
-      if (nz == 0) continue;
-      uint2 lo[MT], hi[MT];
-      const uint16_t* zrow = zs + g * ZU_PITCH + kk * 16 + 4 * t;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        lo[mt] = *reinterpret_cast<const uint2*>(zrow + (mt * 16) * ZU_PITCH);
-        hi[mt] = *reinterpret_cast<const uint2*>(zrow + (mt * 16 + 8) * ZU_PITCH);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (!((nz >> nt) & 1u)) continue;
-        const uint32_t w = column4(ms + (kk * 16 + 4 * t) * M_STRIDE + warp * 32 + nt * 8 + g);
-        const uint32_t b0 = bf16_pair(w, 0), b1 = bf16_pair(w, 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma_bf16(acc_i[mt][nt], lo[mt].x, hi[mt].x, lo[mt].y, hi[mt].y, b0, b1);
-      }
-    }
-
-    // the next stage's zu chunk, transposed into its buffer: every warp left
-    // that buffer before this iteration's barrier
-    if (have_next) store_zu(next % STAGES, z_next);
-  }
-  cp_async_wait<0>();
-
-  // acc_i[mt][nt]: features mt * 16 + g (+ 8), columns nt * 8 + 2 t (+ 1)
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int i = col0 + warp * 32 + nt * 8 + 2 * t;
-      unsigned long long* dst = yi + static_cast<size_t>(i) * d + f0 + mt * 16 + g;
-      add_fixed(dst, acc_i[mt][nt][0], scale_i);
-      add_fixed(dst + d, acc_i[mt][nt][1], scale_i);
-      add_fixed(dst + 8, acc_i[mt][nt][2], scale_i);
-      add_fixed(dst + d + 8, acc_i[mt][nt][3], scale_i);
-    }
+// y[k] = sums[k] * 2^-shift as float32 for the n_u user sums, then the item
+// sums; NaN over a side whose amax is not finite. Grid-stride.
+__global__ void __launch_bounds__(CONVERT_THREADS)
+convert_kernel(const long long* __restrict__ sums, float* __restrict__ y, long long n_u,
+               long long n, const unsigned* __restrict__ parts, int n_parts) {
+  __shared__ unsigned am[2];
+  block_amax(parts, n_parts, am);
+  // yu sums zi (am[1]), yi sums zu (am[0])
+  const bool ok_u = am[1] < F32_INF, ok_i = am[0] < F32_INF;
+  const int shift_u = fixed_shift(__uint_as_float(am[1]));
+  const int shift_i = fixed_shift(__uint_as_float(am[0]));
+  const long long stride = static_cast<long long>(gridDim.x) * CONVERT_THREADS;
+  for (long long k = static_cast<long long>(blockIdx.x) * CONVERT_THREADS + threadIdx.x; k < n;
+       k += stride) {
+    const bool user = k < n_u;
+    y[k] = (user ? ok_u : ok_i)
+               ? static_cast<float>(ldexp(static_cast<double>(sums[k]), -(user ? shift_u : shift_i)))
+               : nanf("");
   }
 }
 
-// out[i] = acc[i] * 2^-shift as float32; NaN when the activations were not
-// finite.
-__global__ void fixed_to_float(const long long* __restrict__ acc, float* __restrict__ out,
-                               long long n, const float* __restrict__ amax) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float a = *amax;
-  out[i] = isfinite(a) ? static_cast<float>(ldexp(static_cast<double>(acc[i]), -fixed_shift(a)))
-                       : nanf("");
-}
-
-template <int MT>
-cudaError_t launch(const int8_t* m, const uint16_t* zu, const uint16_t* zi,
-                   unsigned long long* yu, unsigned long long* yi, const float* amax,
-                   int u_pad, int i_pad, int d, cudaStream_t s) {
-  using G = Geo<MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dual_bf16_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, dual_bf16_kernel<MT>, THREADS, G::SMEM_BYTES)) != cudaSuccess)
-    return err;
-  // Row splits: each split adds one flush of yi per strip (atomics), so take
-  // the fewest in 4..16 whose grid best fills its last wave. The choice
-  // depends on the shapes and the card alone, so it is the same on every
-  // launch.
-  const int groups = d / G::DF;
-  const int strips = i_pad / STRIP, chunks = u_pad / CHUNK;
-  const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  int splits = 1;
-  double best = -1.0;
-  for (int r = 4; r <= 16 && r <= chunks; ++r) {
-    const long long blocks = static_cast<long long>(strips) * r * groups;
-    const double fill = static_cast<double>(blocks) / (((blocks + slots - 1) / slots) * slots);
-    if (fill > best + 1e-9) { best = fill; splits = r; }
-  }
-  dim3 grid(strips, splits, groups);
-  dual_bf16_kernel<MT><<<grid, THREADS, G::SMEM_BYTES, s>>>(m, zu, zi, yu, yi, amax, u_pad,
-                                                             i_pad, d);
-  return cudaGetLastError();
+int grid_for(long long items, int threads, int sms, int cap) {
+  const long long want = (items + threads - 1) / threads;
+  long long g = static_cast<long long>(sms) * BLOCKS_AN_SM;
+  if (g > cap) g = cap;
+  if (g > want) g = want;
+  return g > 0 ? static_cast<int>(g) : 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// m int8 [u_pad, i_pad]; zu bf16 [u_pad, d]; zi bf16 [i_pad, d]; amax float32
-// [2] = (max |zu|, max |zi|) on the device. acc_u [u_pad, d] and acc_i
-// [i_pad, d] are zeroed int64 scratch; yu [u_pad, d] and yi [i_pad, d]
-// receive the float32 sums. The wrapper checks d % 32 == 0, i_pad % 256 == 0,
-// u_pad % 64 == 0 and u_pad, i_pad <= 2^23. Returns cudaGetLastError().
-int dual_bf16(const void* m, const void* zu, const void* zi, const void* amax, void* acc_u,
-              void* acc_i, void* yu, void* yi, int u_pad, int i_pad, int d, void* stream) {
+// m int8 [u_pad, i_pad]; zu [nu, d] and zi [ni, d] float32, contiguous and
+// 16-byte aligned, nu <= u_pad, ni <= i_pad. scratch: dual_bf16_scratch_bytes(u_pad, i_pad, d) bytes,
+// 16-byte aligned, no zeroing needed. y float32 [u_pad + i_pad, d] receives
+// yu (rows 0 .. u_pad) and yi (rows u_pad ..). d % 32 == 0; the wrapper also
+// checks i_pad % 256 == 0, u_pad % 64 == 0 and u_pad, i_pad <= 2^23. *passes:
+// the reads of M launched. Three launches on the stream, no
+// synchronisation. Returns cudaGetLastError().
+int dual_bf16(const void* m, const void* zu, const void* zi, int nu, int ni, void* scratch,
+              void* y, int u_pad, int i_pad, int d, int* passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* mp = static_cast<const int8_t*>(m);
-  const uint16_t* zup = static_cast<const uint16_t*>(zu);
-  const uint16_t* zip = static_cast<const uint16_t*>(zi);
-  const float* ap = static_cast<const float*>(amax);
-  unsigned long long* au = static_cast<unsigned long long*>(acc_u);
-  unsigned long long* ai = static_cast<unsigned long long*>(acc_i);
-  cudaError_t err = (d % 64 == 0) ? launch<4>(mp, zup, zip, au, ai, ap, u_pad, i_pad, d, s)
-                                  : launch<2>(mp, zup, zip, au, ai, ap, u_pad, i_pad, d, s);
+  if (d <= 0 || d % 32 != 0 || u_pad <= 0 || i_pad <= 0 || nu < 0 || ni < 0 || nu > u_pad ||
+      ni > i_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long nu = static_cast<long long>(d) * u_pad;
-  const long long ni = static_cast<long long>(d) * i_pad;
-  fixed_to_float<<<static_cast<unsigned>((nu + 255) / 256), 256, 0, s>>>(
-      static_cast<const long long*>(acc_u), static_cast<float*>(yu), nu, ap + 1);
-  err = cudaGetLastError();
+  const long long n_u = static_cast<long long>(u_pad) * d;
+  const long long n = static_cast<long long>(u_pad + i_pad) * d;
+  long long* sums = static_cast<long long*>(scratch);
+  uint16_t* z = reinterpret_cast<uint16_t*>(sums + n);
+  unsigned* parts = reinterpret_cast<unsigned*>(z + n);
+  const int prep_blocks = grid_for(n / 8, PREP_THREADS, sms, MAX_PREP_BLOCKS);
+  prep_kernel<<<prep_blocks, PREP_THREADS, 0, s>>>(static_cast<const float*>(zu),
+                                                    static_cast<const float*>(zi), nu, ni, u_pad,
+                                                    i_pad, d, z, sums, parts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = launch_scan_of<FixedSums, false>(static_cast<const int8_t*>(m), z, z + n_u, sums,
+                                         sums + n_u, u_pad, i_pad, d, passes, parts, prep_blocks,
+                                         s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixed_to_float<<<static_cast<unsigned>((ni + 255) / 256), 256, 0, s>>>(
-      static_cast<const long long*>(acc_i), static_cast<float*>(yi), ni, ap);
+  convert_kernel<<<grid_for(n, CONVERT_THREADS, sms, 1 << 30), CONVERT_THREADS, 0, s>>>(
+      sums, static_cast<float*>(y), n_u, n, parts, prep_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of scratch dual_bf16 takes: the int64 sums, the bf16 copy, the prep
+// blocks' maxima.
+long long dual_bf16_scratch_bytes(int u_pad, int i_pad, int d) {
+  const long long n = static_cast<long long>(u_pad + i_pad) * d;
+  return 10 * n + 8LL * MAX_PREP_BLOCKS;
 }
 
 const char* dual_bf16_error_string(int code) {

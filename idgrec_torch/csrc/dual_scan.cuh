@@ -1,12 +1,18 @@
-// The scan of the count matrix that K1 (dual_int8_t.cu), K7 (dual_int8_n.cu)
-// and K8 (dual_int4_n.cu) share: both directions of the adjacency product
-// from one read of M per feature group, on int8 activations in the [N, d]
-// layout,
+// The scan of the count matrix that K1 (dual_int8_t.cu), K7 (dual_int8_n.cu),
+// K8 (dual_int4_n.cu) and K6 (dual_bf16.cu) share: both directions of the
+// adjacency product from one read of M per feature group, on activations in
+// the [N, d] layout,
 //
 //   yu[u, f] += sum_i M[u, i] * qi[i, f]      (M  @ qi, [U_pad, d])
 //   yi[i, f] += sum_u M[u, i] * qu[u, f]      (M^T @ qu, [I_pad, d])
 //
-// as exact int32 sums, then converted to float32 once.
+// as exact integer sums, then converted to float32 once. The arithmetic is
+// a template argument (struct IntSums below has the members it needs): K1,
+// K7 and K8 take int8 activations and exact int32 sums of the integer
+// products (IntSums); K6 takes bfloat16 activations and sums in 64-bit fixed
+// point, each entry's product rounded once to an integer (FixedSums in
+// dual_bf16.cu). Either way every sum is an integer sum, so it does not
+// depend on the order of the atomics, and two launches give the same bits.
 //
 // M is stored either as int8 [U_pad, I_pad] (K1, K7) or nibble-packed as
 // [U_pad, I_pad / 2] (K8): within each tile of 2,048 logical columns, byte p
@@ -50,11 +56,12 @@
 //   or 32-bit (packed: low nibbles, then high nibbles) mask, and the warp's
 //   32-entry buffer is flushed whenever it fills, also between the two
 //   nibbles of one byte.
-// * No shared memory, no tensor cores, no barriers: nothing holds a warp but
-//   its own loads, and the other warps of the SM (two blocks of eight, the
-//   register budget capped at 128 for that; 104-108 used) cover them. The
-//   work per feature group is the scan, nnz * group atomic adds into yi and
-//   about one row's flush per row and warp into yu.
+// * No shared memory, no tensor cores, no barriers in the loop: nothing holds
+//   a warp but its own loads, and the other warps of the SM (two blocks of
+//   eight, the register budget capped at 128 for that; 104-108 used) cover
+//   them. The work per feature group is the scan, nnz * group atomic adds
+//   into yi and about one row's flush per row and warp into yu. (K6's
+//   arithmetic reduces its scales once per block before the loop.)
 // * Feature groups: 128 features when d % 128 == 0, else 64 (d % 64 == 0),
 //   else 32 (fusedmm.scan_feature_group states the same rule); each group is
 //   one scan of M (the grid's y dimension, which the launcher reports).
@@ -63,8 +70,9 @@
 //   ones the tensor cores would make.
 // * The int32 sums become float32 once, in place or on their way to another
 //   layout: exact while every sum stays below 2^24 (degree * 127 * count; the
-//   wrappers' docstrings state it). The launcher reads the SM count once per
-//   process and device, not once per call.
+//   wrappers' docstrings state it); K6's 64-bit sums are scaled back by its
+//   own pass. The launcher reads the SM count once per process and device,
+//   not once per call.
 // A dense M makes the warp-per-entry work scale with its non-zeros: the scan
 // stays exact there (the card tests take matrices up to fully dense) but is
 // built for interaction matrices.
@@ -89,22 +97,47 @@ __device__ __forceinline__ void add_nonzero(int* dst, int v) {
   if (v != 0) atomicAdd(dst, v);
 }
 
+// two's complement: the 64-bit sums wrap as signed ones would
+__device__ __forceinline__ void add_nonzero(long long* dst, long long v) {
+  if (v != 0)
+    atomicAdd(reinterpret_cast<unsigned long long*>(dst), static_cast<unsigned long long>(v));
+}
+
+// The scan's arithmetic for int8 activations: exact int32 products and sums
+// (K1, K7, K8). A scan's arithmetic A names the stored activation (Act), an
+// activation as a lane holds it (Val), the sums (Sum), the per-side factors
+// the kernel computes once per block from the launcher's aux data (Scales,
+// scales), how a loaded activation becomes a Val (val) and an entry's
+// contribution (product).
+struct IntSums {
+  using Act = int8_t;
+  using Val = int;
+  using Sum = int;
+  struct Scales {
+    float u, i;
+  };
+  __device__ static Scales scales(const unsigned*, int) { return {1.0f, 1.0f}; }
+  __device__ static Val val(Act a, float) { return a; }
+  __device__ static Sum product(int v, Val a) { return v * a; }
+};
+
 // The row of M a warp is in: its partial sums of yu (lane l: features
 // f0 + l + 32 k) and its row of qu, loaded once per row.
-template <int FPL>
+template <class A, int FPL>
 struct RowState {
   int u;  // -1: no row yet
-  int acc[FPL];
-  int q[FPL];
+  typename A::Sum acc[FPL];
+  typename A::Val q[FPL];
 };
 
 // Adds the row's partial sums into yu (another warp may hold the same row:
 // atomics).
-template <int FPL>
-__device__ __forceinline__ void flush_row(const RowState<FPL>& s, int* __restrict__ yu, int d,
-                                          int f0, int lane) {
+template <class A, int FPL>
+__device__ __forceinline__ void flush_row(const RowState<A, FPL>& s,
+                                          typename A::Sum* __restrict__ yu, int d, int f0,
+                                          int lane) {
   if (s.u < 0) return;
-  int* yu_row = yu + static_cast<size_t>(s.u) * d + f0 + lane;
+  typename A::Sum* yu_row = yu + static_cast<size_t>(s.u) * d + f0 + lane;
 #pragma unroll
   for (int k = 0; k < FPL; ++k) add_nonzero(yu_row + 32 * k, s.acc[k]);
 }
@@ -113,24 +146,28 @@ __device__ __forceinline__ void flush_row(const RowState<FPL>& s, int* __restric
 // decrease), lane e < n holding entry e's row u, column i and count v, BATCH
 // at a time: the warp reads the qi rows of BATCH entries first, then adds
 // v * qi[i, f] to the row's partial sums (flushed into yu when the row
-// changes) and v * qu[u, f] to yi[i, f].
-template <int FPL>
+// changes) and v * qu[u, f] to yi[i, f], each as A::product forms it.
+template <class A, int FPL>
 __device__ __forceinline__ void take_entries(int n, int eu, int ei, int ev,
-                                             const int8_t* __restrict__ qu,
-                                             const int8_t* __restrict__ qi,
-                                             int* __restrict__ yu, int* __restrict__ yi, int d,
-                                             int f0, int lane, RowState<FPL>& s) {
+                                             const typename A::Act* __restrict__ qu,
+                                             const typename A::Act* __restrict__ qi,
+                                             typename A::Sum* __restrict__ yu,
+                                             typename A::Sum* __restrict__ yi, int d, int f0,
+                                             int lane, const typename A::Scales& sc,
+                                             RowState<A, FPL>& s) {
   // entries whose activation rows load together (16 / FPL: 0.7955 ms against
   // 0.6965 at d = 64 on an H100, before the rows were kept)
   constexpr int BATCH = 8 / FPL;
   for (int e0 = 0; e0 < n; e0 += BATCH) {
-    int a[BATCH][FPL];
+    typename A::Val a[BATCH][FPL];
 #pragma unroll
     for (int e = 0; e < BATCH; ++e) {
       const int i = __shfl_sync(FULL, ei, (e0 + e) & 31);
 #pragma unroll
       for (int k = 0; k < FPL; ++k)
-        a[e][k] = e0 + e < n ? __ldg(qi + static_cast<size_t>(i) * d + f0 + lane + 32 * k) : 0;
+        a[e][k] = e0 + e < n
+                      ? A::val(__ldg(qi + static_cast<size_t>(i) * d + f0 + lane + 32 * k), sc.u)
+                      : A::val(0, sc.u);
     }
 #pragma unroll
     for (int e = 0; e < BATCH; ++e) {
@@ -143,14 +180,14 @@ __device__ __forceinline__ void take_entries(int n, int eu, int ei, int ev,
 #pragma unroll
           for (int k = 0; k < FPL; ++k) {
             s.acc[k] = 0;
-            s.q[k] = __ldg(qu + static_cast<size_t>(u) * d + f0 + lane + 32 * k);
+            s.q[k] = A::val(__ldg(qu + static_cast<size_t>(u) * d + f0 + lane + 32 * k), sc.i);
           }
         }
-        int* yi_row = yi + static_cast<size_t>(i) * d + f0 + lane;
+        typename A::Sum* yi_row = yi + static_cast<size_t>(i) * d + f0 + lane;
 #pragma unroll
         for (int k = 0; k < FPL; ++k) {
-          s.acc[k] += v * a[e][k];
-          add_nonzero(yi_row + 32 * k, v * s.q[k]);
+          s.acc[k] += A::product(v, a[e][k]);
+          add_nonzero(yi_row + 32 * k, A::product(v, s.q[k]));
         }
       }
     }
@@ -192,12 +229,15 @@ __device__ __forceinline__ unsigned piece_entries(uint32_t w0, uint32_t w1, uint
 // lanes of a warp find their own pieces' entries at once; then the warp
 // takes the non-zero pieces one by one from their lanes. The entries come in
 // row order, so the warp keeps the row's yu sums and qu row in registers.
-template <int FPL, bool PACKED>
+// aux, n_aux: what A::scales reads (nothing for IntSums).
+template <class A, int FPL, bool PACKED>
 __global__ void __launch_bounds__(SCAN_THREADS, 2)
-dual_scan_kernel(const int8_t* __restrict__ m, const int8_t* __restrict__ qu,
-                 const int8_t* __restrict__ qi, int* __restrict__ yu, int* __restrict__ yi,
-                 int u_pad, int row_bytes, int d) {
+dual_scan_kernel(const int8_t* __restrict__ m, const typename A::Act* __restrict__ qu,
+                 const typename A::Act* __restrict__ qi, typename A::Sum* __restrict__ yu,
+                 typename A::Sum* __restrict__ yi, int u_pad, int row_bytes, int d,
+                 const unsigned* __restrict__ aux, int n_aux) {
   constexpr int ROUND = 32 * UNROLL;
+  const typename A::Scales sc = A::scales(aux, n_aux);
   const int lane = threadIdx.x & 31;
   const int f0 = blockIdx.y * 32 * FPL;
   const int pieces_per_row = row_bytes / 16;
@@ -219,10 +259,13 @@ dual_scan_kernel(const int8_t* __restrict__ m, const int8_t* __restrict__ qu,
     const long long p = begin + 32 * k + lane;
     cur[k] = p < end ? __ldcs(src + p) : make_uint4(0u, 0u, 0u, 0u);
   }
-  RowState<FPL> rs;
+  RowState<A, FPL> rs;
   rs.u = -1;
 #pragma unroll
-  for (int k = 0; k < FPL; ++k) rs.acc[k] = rs.q[k] = 0;
+  for (int k = 0; k < FPL; ++k) {
+    rs.acc[k] = 0;
+    rs.q[k] = 0;
+  }
   for (long long w0 = begin; w0 < end; w0 += ROUND) {
     uint4 nxt[UNROLL];
 #pragma unroll
@@ -272,13 +315,13 @@ dual_scan_kernel(const int8_t* __restrict__ m, const int8_t* __restrict__ qu,
             }
           }
           if (++n == 32) {
-            take_entries<FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane, rs);
+            take_entries<A, FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane, sc, rs);
             n = 0;
           }
         }
       } while (todo);
     }
-    if (n > 0) take_entries<FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane, rs);
+    if (n > 0) take_entries<A, FPL>(n, eu, ei, ev, qu, qi, yu, yi, d, f0, lane, sc, rs);
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) cur[k] = nxt[k];
     col += ROUND;
@@ -310,9 +353,8 @@ cudaError_t convert_sums(int* a, long long na, int* b, long long nb, cudaStream_
 // the SM count of each device, read once per process (0: not read yet)
 int g_sms[MAX_DEVICES];
 
-template <int FPL, bool PACKED>
-cudaError_t launch_group(const int8_t* m, const int8_t* qu, const int8_t* qi, int* yu, int* yi,
-                         int u_pad, int row_bytes, int d, int* passes, cudaStream_t s) {
+// *sms: the current device's SM count, read once per process and device.
+cudaError_t sm_count(int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -321,33 +363,55 @@ cudaError_t launch_group(const int8_t* m, const int8_t* qu, const int8_t* qi, in
       (err = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount, device)) !=
           cudaSuccess)
     return err;
+  *sms = g_sms[device];
+  return cudaSuccess;
+}
+
+template <class A, int FPL, bool PACKED>
+cudaError_t launch_group(const int8_t* m, const typename A::Act* qu, const typename A::Act* qi,
+                         typename A::Sum* yu, typename A::Sum* yi, int u_pad, int row_bytes,
+                         int d, int* passes, const unsigned* aux, int n_aux, cudaStream_t s) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   // enough blocks to fill the card once; a group's blocks share the scan
   const long long pieces = static_cast<long long>(u_pad) * (row_bytes / 16);
   const long long per_block = static_cast<long long>(SCAN_THREADS) * UNROLL;
   const long long want = (pieces + per_block - 1) / per_block;
   const int groups = d / (32 * FPL);
-  const long long fill = static_cast<long long>(g_sms[device]) * BLOCKS_PER_SM;
+  const long long fill = static_cast<long long>(sms) * BLOCKS_PER_SM;
   const int blocks = static_cast<int>(want < fill ? want : fill);
   dim3 grid(blocks > 0 ? blocks : 1, groups);
   *passes = static_cast<int>(grid.y);
-  dual_scan_kernel<FPL, PACKED><<<grid, SCAN_THREADS, 0, s>>>(m, qu, qi, yu, yi, u_pad,
-                                                              row_bytes, d);
+  dual_scan_kernel<A, FPL, PACKED><<<grid, SCAN_THREADS, 0, s>>>(m, qu, qi, yu, yi, u_pad,
+                                                                 row_bytes, d, aux, n_aux);
   return cudaGetLastError();
 }
 
 // One launch: the scans of the stored matrix (row_bytes bytes a row; PACKED:
 // nibble-packed) for every feature group of d (d % 32 == 0), adding into the
-// zeroed int32 yu [u_pad, d] and yi [rows of M's columns, d]. *passes: the
-// scans launched.
+// zeroed sums yu [u_pad, d] and yi [rows of M's columns, d] in A's
+// arithmetic. *passes: the scans launched.
+template <class A, bool PACKED>
+cudaError_t launch_scan_of(const int8_t* m, const typename A::Act* qu,
+                           const typename A::Act* qi, typename A::Sum* yu, typename A::Sum* yi,
+                           int u_pad, int row_bytes, int d, int* passes, const unsigned* aux,
+                           int n_aux, cudaStream_t s) {
+  if (d <= 0 || d % 32 != 0 || row_bytes % 16 != 0) return cudaErrorInvalidValue;
+  return d % 128 == 0 ? launch_group<A, 4, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d,
+                                                   passes, aux, n_aux, s)
+         : d % 64 == 0 ? launch_group<A, 2, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d,
+                                                    passes, aux, n_aux, s)
+                       : launch_group<A, 1, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d,
+                                                    passes, aux, n_aux, s);
+}
+
+// launch_scan_of in the int8 arithmetic: exact int32 sums (K1, K7, K8).
 template <bool PACKED>
 cudaError_t launch_scan(const int8_t* m, const int8_t* qu, const int8_t* qi, int* yu, int* yi,
                         int u_pad, int row_bytes, int d, int* passes, cudaStream_t s) {
-  if (d <= 0 || d % 32 != 0 || row_bytes % 16 != 0) return cudaErrorInvalidValue;
-  return d % 128 == 0
-             ? launch_group<4, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d, passes, s)
-         : d % 64 == 0
-             ? launch_group<2, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d, passes, s)
-             : launch_group<1, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d, passes, s);
+  return launch_scan_of<IntSums, PACKED>(m, qu, qi, yu, yi, u_pad, row_bytes, d, passes, nullptr,
+                                         0, s);
 }
 
 }  // namespace

@@ -27,8 +27,9 @@ K1's plain version.
 The per-application product (`FusedSquareAdj.matmul`) keeps the
 activations in [N, d] layout. `fused_adj_matmul` is the exact-mode dual,
 yu = M @ zi and yi = Mᵀ @ zu on bfloat16 activations with float32
-accumulation (kernel ``csrc/dual_bf16.cu``, K6; counterpart of the JAX
-`fused_adj_matmul`), differentiable by the swapped-cotangent identity.
+results (kernel ``csrc/dual_bf16.cu``, K6, the same scan of M in 64-bit
+fixed point; counterpart of the JAX `fused_adj_matmul`), differentiable
+by the swapped-cotangent identity.
 `fused_adj_matmul_int8` and `fused_adj_matmul_int4` are the quantized
 duals on pre-quantized int8 activations (kernels ``csrc/dual_int8_n.cu``,
 K7, and ``csrc/dual_int4_n.cu``, K8: the same scan on the int8 and on
@@ -73,6 +74,13 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
     if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be a contiguous 16-byte-aligned tensor on {device}")
+
+
+def _as_float32(z: torch.Tensor) -> torch.Tensor:
+    """``z`` as the float32 a bfloat16-rounding kernel (K6, K11) takes:
+    float32 as it is, other types rounded to bfloat16 first (exact in
+    float32, and unchanged by the kernel's rounding)."""
+    return z if z.dtype == torch.float32 else z.to(torch.bfloat16).float()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -161,13 +169,14 @@ def fused_adj_matmul_int4_t_plain(m4: torch.Tensor, quT: torch.Tensor,
     return fused_adj_matmul_int8_t_plain(unpack_nibbles(m4), quT, qiT)
 
 
+_K6 = "dual_bf16"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C signature of each kernel of this module: pointers, ints, the stream
 _SIGNATURES = {
     "dual_int8_t": [_P] * 7 + [_I] * 2 + [_P],
     "dual_int4_t": [_P] * 5 + [_I] * 2 + [_P],
-    "dual_bf16": [_P] * 8 + [_I] * 3 + [_P],
-    # K7 and K8 also report the scans of M they launched
+    # K6, K7 and K8 also report the scans of M they launched
+    "dual_bf16": [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [ctypes.POINTER(_I), _P],
     "dual_int8_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
@@ -179,6 +188,9 @@ def _lib(kernel: str) -> ctypes.CDLL:
     fn = getattr(lib, kernel)
     fn.argtypes = _SIGNATURES[kernel]
     fn.restype = ctypes.c_int
+    if kernel == _K6:
+        lib.dual_bf16_scratch_bytes.argtypes = [_I] * 3
+        lib.dual_bf16_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -286,10 +298,8 @@ fused_adj_matmul_int4_t.launches = 0
 # ---------------------------------------------------------------------------
 # [N, d] layout: the per-application duals (K6, K7, K8)
 
-_K6 = "dual_bf16"
 _N_KERNELS = {"int8": "dual_int8_n", "int4": "dual_int4_n"}
-# K6 splits d into feature groups of 64 (d % 64 == 0) or 32; K7 and K8
-# into `scan_feature_group`
+# K6, K7 and K8 split d into `scan_feature_group` features a read of M
 _FEATURE_GROUP = 32
 # the kernels index rows and columns with int32 and bound a row's sum by 2**30
 _MAX_SIDE = 2 ** 23
@@ -298,24 +308,23 @@ _F32_ROWS = 4096
 
 
 def scan_feature_group(d: int) -> int:
-    """Features one scan of M covers in K7 and K8 (the scan of
+    """Features one scan of M covers in K6, K7 and K8 (the scan of
     ``csrc/dual_scan.cuh``): 128 where d % 128 == 0, else 64 where
     d % 64 == 0, else 32, the rule of the kernels' launcher, which
-    reports the scans it launched (``fused_adj_matmul_int8.passes``,
-    ``fused_adj_matmul_int4.passes``)."""
+    reports the scans it launched (``fused_adj_matmul.passes``,
+    ``fused_adj_matmul_int8.passes``, ``fused_adj_matmul_int4.passes``)."""
     return 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
 
 
 def scan_passes(d: int) -> int:
-    """Reads of the stored matrix that one K7 or K8 launch makes at
+    """Reads of the stored matrix that one K6, K7 or K8 launch makes at
     width d (d % 32 == 0)."""
     return d // scan_feature_group(d)
 
 
 def kernel_accepts_n(u_pad: int, i_pad: int, d: int, mode: str = "bf16") -> bool:
     """Whether K6 (``mode`` 'bf16'), K7 ('int8') or K8 ('int4') takes
-    these logical shapes: d a multiple of 32 (K6 reads the matrix once
-    per group of 64 features, or of 32 when d % 64 != 0; K7 and K8 once
+    these logical shapes: d a multiple of 32 (each reads the matrix once
     per `scan_feature_group`), U_pad a multiple of 64, I_pad a multiple
     of 256 (of `PACK_TILE` for int4)."""
     col_multiple = PACK_TILE if mode == "int4" else _STRIP
@@ -370,29 +379,33 @@ def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor,
     return yu[: zu.shape[0]], yi[: zi.shape[0]]
 
 
-def _launch_bf16(m8: torch.Tensor, zu_pad: torch.Tensor,
-                 zi_pad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check K6's operands and launch it: int8 m8 [U_pad, I_pad],
-    bfloat16 zu_pad [U_pad, d] and zi_pad [I_pad, d] on the card."""
+def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor,
+                 zi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Check K6's operands and launch it on the card: int8 m8
+    [U_pad, I_pad], zu [U, d] and zi [I, d] (U <= U_pad, I <= I_pad).
+    float32 activations go in as they are (the kernel rounds and pads
+    them); others are rounded to bfloat16 here and go in as float32,
+    which the kernel's rounding leaves as they are. Returns (yu [U, d],
+    yi [I, d], the scans of M its launcher reports). Three device
+    launches, no read-back."""
     u_pad, i_pad = m8.shape
-    d = zu_pad.shape[1]
+    nu, ni, d = zu.shape[0], zi.shape[0], zu.shape[1]
     dev = m8.device
     _check_operand("m8", m8, torch.int8, (u_pad, i_pad), dev)
-    _check_operand("zu", zu_pad, torch.bfloat16, (u_pad, d), dev)
-    _check_operand("zi", zi_pad, torch.bfloat16, (i_pad, d), dev)
     _require_n(_K6, "bf16", u_pad, i_pad, d)
-    # the fixed-point scales of the cross-block sums: (max |zu|, max |zi|)
-    amax = torch.stack([zu_pad.abs().amax(), zi_pad.abs().amax()]).to(torch.float32)
-    acc = torch.zeros((u_pad + i_pad, d), dtype=torch.int64, device=dev)
-    yu = torch.empty((u_pad, d), dtype=torch.float32, device=dev)
-    yi = torch.empty((i_pad, d), dtype=torch.float32, device=dev)
+    zu, zi = (_aligned(_as_float32(z)) for z in (zu, zi))
+    _check_operand("zu", zu, torch.float32, (nu, d), dev)
+    _check_operand("zi", zi, torch.float32, (ni, d), dev)
     lib = _lib(_K6)
-    code = lib.dual_bf16(m8.data_ptr(), zu_pad.data_ptr(), zi_pad.data_ptr(), amax.data_ptr(),
-                         acc[:u_pad].data_ptr(), acc[u_pad:].data_ptr(), yu.data_ptr(),
-                         yi.data_ptr(), u_pad, i_pad, d,
+    scratch = torch.empty(lib.dual_bf16_scratch_bytes(u_pad, i_pad, d), dtype=torch.uint8,
+                          device=dev)
+    y = torch.empty((u_pad + i_pad, d), dtype=torch.float32, device=dev)
+    passes = ctypes.c_int(0)
+    code = lib.dual_bf16(m8.data_ptr(), zu.data_ptr(), zi.data_ptr(), nu, ni, scratch.data_ptr(),
+                         y.data_ptr(), u_pad, i_pad, d, ctypes.byref(passes),
                          torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, _K6, code)
-    return yu, yi
+    return y[:nu], y[u_pad : u_pad + ni], passes.value
 
 
 class _FusedAdjMatmul(torch.autograd.Function):
@@ -416,11 +429,9 @@ def _fused_fwd(m8, zu, zi):
         return fused_adj_matmul_plain(m8, zu, zi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
-    u_pad, i_pad = m8.shape
-    yu, yi = _launch_bf16(m8, _pad_cast(zu, u_pad, torch.bfloat16).contiguous(),
-                          _pad_cast(zi, i_pad, torch.bfloat16).contiguous())
+    yu, yi, fused_adj_matmul.passes = _launch_bf16(m8, zu, zi)
     fused_adj_matmul.launches += 1
-    return yu[: zu.shape[0]], yi[: zi.shape[0]]
+    return yu, yi
 
 
 def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor,
@@ -433,8 +444,13 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch K6 or raise.
     K6 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0
-    (`kernel_accepts_n`) and gives the same bits on every launch: its
-    cross-block sums are integer atomics on fixed-point partials."""
+    (`kernel_accepts_n`), reads M `scan_passes` (d) times (once at d = 64
+    and d = 128; the last launch's reads, as its launcher reports them,
+    are in ``fused_adj_matmul.passes``) and gives the same bits on every
+    launch: each entry's product is rounded once to 64-bit fixed point
+    (the scale a power of two from the largest activation) and the sums
+    are integer atomics. A non-finite activation on one side gives NaN
+    over the other side's results."""
     u_pad, i_pad = m8.shape
     if (zu.dim() != 2 or zi.dim() != 2 or zu.shape[1] != zi.shape[1]
             or zu.shape[0] > u_pad or zi.shape[0] > i_pad):
@@ -444,6 +460,7 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor,
 
 
 fused_adj_matmul.launches = 0
+fused_adj_matmul.passes = 0
 
 
 def fused_adj_matmul_int8_plain(m8: torch.Tensor, qu: torch.Tensor,

@@ -492,6 +492,9 @@ class BitSquareAdj:
     num_users: int
     num_items: int
     has_diag: bool = False
+    # K11's split of each packing among its warps (bitmm.plan_rows), made
+    # once on the card
+    plans: tuple | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -509,7 +512,7 @@ class BitSquareAdj:
         right_u, right_i, left_u, left_i = _gated(self, gate)
         zu = right_u[:, None] * x[:nu].to(torch.float32)
         zi = right_i[:, None] * x[nu:].to(torch.float32)
-        yu, yi = bitmm.bit_adj_matmul(self.packed, self.packed_t, zu, zi)
+        yu, yi = bitmm.bit_adj_matmul(self.packed, self.packed_t, zu, zi, self.plans)
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
@@ -724,7 +727,8 @@ def build_adjacency(
         if not bool(np.all(data.csr_vals == 1)):
             raise ValueError("bitpack backend requires binary interaction counts")
         p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
-        return BitSquareAdj(p, pt, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag)
+        plans = (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
+        return BitSquareAdj(p, pt, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, plans)
     if backend == "dense":
         m = _count_matrix_int8(data, dev)
         m_t = m.T.contiguous() if with_transpose else None

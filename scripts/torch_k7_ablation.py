@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where kernels K7 (idgrec_torch/csrc/dual_int8_n.cu), K1
-(csrc/dual_int8_t.cu) and K8 (csrc/dual_int4_n.cu) spend their time,
-and where kernel K4's time goes (idgrec_torch/csrc/scatter_add_rows.cu),
-on one NVIDIA GPU.
+(csrc/dual_int8_t.cu), K8 (csrc/dual_int4_n.cu), K6 (csrc/dual_bf16.cu)
+and K11 (csrc/bit_matmul.cu) spend their time, and where kernel K4's
+time goes (idgrec_torch/csrc/scatter_add_rows.cu), on one NVIDIA GPU.
 
     python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k1]
-                                         [--skip-k8] [--skip-k4]
+                                         [--skip-k8] [--skip-k4] [--skip-k6]
+                                         [--skip-k11]
 
 ``--root`` names the tree whose ``idgrec_torch`` is measured (default:
 this one), so a checkout of an earlier commit can be measured with the
@@ -37,6 +38,18 @@ skipped. For every tree: the wrappers of K1, K7 and K8 timed, and the
 device launches of one call of each counted with torch.profiler
 (kernels and memsets, the wrapper's allocations and fills included).
 
+K6 and K11: each variant's library is loaded in place of the tree's own
+and timed through the tree's wrapper (its allocations and launches
+included), on the yelp2018-scale matrix with random float32 activations
+(K6 at d = 64 and 128; K11 both directions at d = 64, per application).
+The variants follow the source found: K6's tile kernel (mma.sync on
+64 x 256 stages, zero-tile votes; commit f93bb61 and earlier) or its scan
+in 64-bit fixed point; K11's tile kernel (every bit multiplied on the
+tensor cores; commit f93bb61 and earlier) or its scan of the packed row
+groups. The full variant is held to the plain version within rtol 3e-5,
+atol 3e-6 of the largest sum. The device launches of one call of each
+wrapper are counted last, with the tree's own libraries.
+
 K4: the step's two tables (2,048 sampled user rows into [31,668, 64],
 4,096 item rows into [38,048, 64]) timed four ways under CUDA events:
 the library call alone on preallocated buffers, the same launches
@@ -67,7 +80,10 @@ BATCH = 2048
 WIDTHS = (64, 128)
 
 _NEVER = ("__device__ __forceinline__ void add_never(int* dst, int v) {\n"
-          "  if (v == 0x7ffffff1) atomicAdd(dst, v);\n}\n\n")
+          "  if (v == 0x7ffffff1) atomicAdd(dst, v);\n}\n"
+          "__device__ __forceinline__ void add_never(long long* dst, long long v) {\n"
+          "  if (v == 0x7ffffff1) atomicAdd(reinterpret_cast<unsigned long long*>(dst),\n"
+          "                                static_cast<unsigned long long>(v));\n}\n\n")
 
 # name -> list of (regex, replacement); every regex must match.
 # The tile kernel (mma.sync on 64 x 256 stages of M) of commit d8c1be8 and
@@ -141,6 +157,77 @@ K1_VARIANTS = {
 K8_VARIANTS = {"full": [], "stream_alone": [_NO_ENTRIES]}
 
 _HEADER = '#include "dual_scan.cuh"\n'
+
+# K6's tile kernel (commit f93bb61 and earlier), measured with --root
+K6_TILE_VARIANTS = {
+    "full": [],
+    # the M stream, the activation loads and the barriers alone
+    "stream_only": [(r"(const int r0 = \(c_begin \+ it\) \* CHUNK;)",
+                     r"\1\n    if (r0 >= 0) continue;")],
+    "no_votes": [(r"if \(!\(\(tiles >> ks\) & 1u\)\) continue;", ""),
+                 (r"if \(nz == 0\) continue;", ""),
+                 (r"if \(!\(\(nz >> nt\) & 1u\)\) continue;", "")],
+    "no_atomics": [(r"if \(v != 0\.0f\) atomicAdd", "if (v == 12345.0f) atomicAdd")],
+    "no_conversion": [(r"fixed_to_float<<<[^;]*;", "")],
+}
+# K6's scan in 64-bit fixed point: prep (the bf16 copy, maxima, zeroed
+# sums), the scan, the conversion
+_NO_PREP = (r"prep_kernel<<<[^;]*;", ";")
+_NO_CONVERSION = (r"convert_kernel<<<[^;]*;", "")
+K6_SCAN_VARIANTS = {
+    "full": [],
+    "entries_out": [_NO_ENTRIES],
+    "stream_alone": [_NO_ENTRIES, _NO_PREP, _NO_CONVERSION],
+    "no_yi_atomics": [(r"add_nonzero\(yi_row", "add_never(yi_row")],
+    "no_yu_atomics": [(r"add_nonzero\(yu_row", "add_never(yu_row")],
+    "no_conversion": [_NO_CONVERSION],
+    "no_prep": [_NO_PREP],
+}
+# K11's tile kernel (commit f93bb61 and earlier), measured with --root
+K11_TILE_VARIANTS = {
+    "full": [],
+    "no_mma": [(r"for \(int j = 0; j < NT; \+\+j\) mma_bf16\(acc\[mt\]\[j\], a0, a1, a2, a3, "
+                r"b\[j\]\[0\], b\[j\]\[1\]\);",
+                "acc[mt][0][0] += __uint_as_float(a0 ^ a1 ^ a2 ^ a3 ^ b[0][0]);")],
+    # the stages' copies and barriers alone
+    "stream_only": [(r"(const uint16_t\* xs = reinterpret_cast<const uint16_t\*>\(ps \+ P_BYTES\);)",
+                     r"\1\n    if (it >= 0) continue;")],
+}
+# K11's scan of the packed row groups
+K11_SCAN_VARIANTS = {
+    "full": [],
+    # the bits streamed, no piece taken
+    "stream_alone": [(r"unsigned todo = __ballot_sync\(FULL, \((\w+)\.x \| \1\.y \| \1\.z \| \1\.w\) != 0u\);",
+                      r"unsigned todo = __ballot_sync(FULL, (\1.x | \1.y | \1.z | \1.w) == 0x7ffffff1u);")],
+    # the non-zero pieces found, their entries not listed
+    "entries_out": [(r"while \(bytes\) \{", "while (bytes && c0 < 0) {"),
+                    (r"tail \+= __shfl_sync\(FULL, upto, 31\);", "")],
+    # the entries taken, x not copied (the stage's old contents added)
+    "no_x_loads": [(r"cp_async16\(stage \+ e \* DF \+ q \* CHUNK,[^;]*;", ";")],
+    # the entries listed, no row copied or added
+    "no_take": [(r"while \(tail - head >= L::BATCH\) flush\(\);", "head = tail;")],
+    # the entries' rows copied, not added
+    "no_adds": [(r"acc\[k / L::RS\]\[v\] \+= a\[v\];", "acc[k / L::RS][v] = a[v];")],
+    # the staged rows not waited for (their sums wrong)
+    "no_wait": [(r"cp_async_wait<1>\(\);", ";"), (r"cp_async_wait<0>\(\);", ";")],
+    # the staged rows not added (no ballots, no adds)
+    "no_add_pass": [(r"unsigned take = __ballot_sync\(FULL, \(bits >> k\) & 1\);",
+                     "unsigned take = 0u;")],
+    # the shared row groups' sums not added (the fixup launch out)
+    "no_fixup": [(r"bit_fixup_kernel<DF><<<[^;]*;", "")],
+}
+# the full scan at other settings: a stage's size, stripes a warp has in
+# flight, blocks an SM must hold (the register budget)
+for _kb, _e in ((1, 256), (4, 1024)):
+    K11_SCAN_VARIANTS[f"batch_{_kb}kb"] = [(r"512 / DF < 32 \? 512 / DF",
+                                            f"{_e} / DF < 32 ? {_e} / DF")]
+for _r in (1, 4):
+    K11_SCAN_VARIANTS[f"ring_{_r}"] = [(r"constexpr int RING = \d+;", f"constexpr int RING = {_r};")]
+for _b in (4, 8):
+    K11_SCAN_VARIANTS[f"min_blocks_{_b}"] = [(r"__launch_bounds__\(THREADS, \d\)\nbit_scan",
+                                              f"__launch_bounds__(THREADS, {_b})\nbit_scan")]
+# plans of other numbers of parts (warps a launch), timed with the tree's library
+K11_PLAN_PARTS = (4096, 8192)
 
 
 def variants_for(text: str) -> dict:
@@ -408,6 +495,133 @@ def k7_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
     return out
 
 
+def _close(got, want) -> bool:
+    top = float(want.abs().max()) if want.numel() else 0.0
+    return bool(torch.allclose(got, want, rtol=3e-5, atol=3e-6 * max(top, 1e-30)))
+
+
+def _swapped(build_mod, module, cache, kernel: str, so: str):
+    """Load ``so`` as ``kernel``'s library of ``module`` (the wrapper's
+    cached loader ``cache`` cleared), so that the wrapper launches it."""
+    build_mod._loaded[kernel] = ctypes.CDLL(so)
+    cache.cache_clear()
+
+
+def _restored(build_mod, cache, kernel: str):
+    build_mod._loaded.pop(kernel, None)
+    cache.cache_clear()
+
+
+def k6_ablation(dev, data, build_mod, fusedmm, propagate) -> dict:
+    """K6 through its wrapper with each variant's library, at d = 64 and
+    128 on the yelp2018-scale matrix, random float32 activations."""
+    m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
+    nu, ni = data.num_users, data.num_items
+    g = torch.Generator(device="cpu").manual_seed(4)
+    acts = {d: (torch.randn(nu, d, generator=g).to(dev), torch.randn(ni, d, generator=g).to(dev))
+            for d in WIDTHS}
+    source = build_mod.source_path("dual_bf16")
+    tile = "column4(" in open(source).read()
+    built = build_all(build_mod, source, K6_TILE_VARIANTS if tile else K6_SCAN_VARIANTS, "k6")
+    out = {"design": "tile" if tile else "scan", "ptxas_full": _ptxas(built["full"][1])}
+    for ln in out["ptxas_full"]:
+        print(f"ptxas (K6 full): {ln}", flush=True)
+    ms = {}
+    try:
+        for name, (so, log) in built.items():
+            if so is None:
+                print(f"K6 {name}: not measured, nvcc failed:\n{log}", flush=True)
+                ms[name] = None
+                continue
+            _swapped(build_mod, fusedmm, fusedmm._lib, "dual_bf16", so)
+            row = {}
+            for d in WIDTHS:
+                row[d] = timed(lambda d=d: fusedmm.fused_adj_matmul(m8, *acts[d]))
+                if name == "full":
+                    got = fusedmm.fused_adj_matmul(m8, *acts[d])
+                    want = fusedmm.fused_adj_matmul_plain(m8, *acts[d])
+                    if not all(_close(a, b) for a, b in zip(got, want)):
+                        raise RuntimeError(f"the full K6 variant differs from the plain version "
+                                           f"at d={d}")
+            ms[name] = row
+            print(f"K6 {name}: d=64 {row[64]:.4f} ms, d=128 {row[128]:.4f} ms", flush=True)
+    finally:
+        _restored(build_mod, fusedmm._lib, "dual_bf16")
+    out["ms"] = ms
+    out["wrapper_ms"] = {d: timed(lambda d=d: fusedmm.fused_adj_matmul(m8, *acts[d]))
+                         for d in WIDTHS}
+    print(f"K6 wrapper (the tree's library) d=64 {out['wrapper_ms'][64]:.4f} ms, d=128 "
+          f"{out['wrapper_ms'][128]:.4f} ms", flush=True)
+    out["launch_call"] = lambda: fusedmm.fused_adj_matmul(m8, *acts[64])
+    return out
+
+
+def k11_ablation(dev, data, build_mod, bitmm, propagate) -> dict:
+    """K11 through its wrapper with each variant's library: both
+    directions at d = 64 on the yelp2018-scale binary matrix, random
+    float32 activations."""
+    m = propagate._count_matrix_int8(data, dev)
+    packed, packed_t = bitmm.pack_rows(m), bitmm.pack_rows(m.T)
+    del m
+    nu, ni, d = data.num_users, data.num_items, 64
+    g = torch.Generator(device="cpu").manual_seed(5)
+    xu, xi = torch.randn(nu, d, generator=g).to(dev), torch.randn(ni, d, generator=g).to(dev)
+    dirs = {"users": (packed, xi, nu), "items": (packed_t, xu, ni)}
+    if hasattr(bitmm, "plan_rows"):  # the scan's split among its warps, made once
+        dirs = {k: (*a, bitmm.plan_rows(a[0])) for k, a in dirs.items()}
+    source = build_mod.source_path("bit_matmul")
+    tile = "mma_bf16(" in open(source).read()
+    built = build_all(build_mod, source, K11_TILE_VARIANTS if tile else K11_SCAN_VARIANTS, "k11")
+    out = {"design": "tile" if tile else "scan", "ptxas_full": _ptxas(built["full"][1])}
+    for ln in out["ptxas_full"]:
+        print(f"ptxas (K11 full): {ln}", flush=True)
+    ms = {}
+    try:
+        # two passes over the variants, in turns; each time is the smaller of two
+        for rnd in range(2):
+            for name, (so, log) in built.items():
+                if so is None:
+                    if rnd == 0:
+                        print(f"K11 {name}: not measured, nvcc failed:\n{log}", flush=True)
+                    ms[name] = None
+                    continue
+                _swapped(build_mod, bitmm, bitmm._k11_lib, "bit_matmul", so)
+                row = {k: timed(lambda a=a: bitmm.bit_matmul(*a)) for k, a in dirs.items()}
+                if name == "full" and rnd == 0:
+                    for k, a in dirs.items():
+                        if not _close(bitmm.bit_matmul(*a), bitmm.bit_matmul_plain(*a[:3])):
+                            raise RuntimeError(f"the full K11 variant differs from the plain "
+                                               f"version ({k})")
+                if rnd == 1:
+                    row = {k: min(v, ms[name][k]) for k, v in row.items()}
+                row["application"] = row["users"] + row["items"]
+                ms[name] = row
+                if rnd == 1:
+                    print(f"K11 {name}: users {row['users']:.4f} ms, items {row['items']:.4f} ms, "
+                          f"application {row['application']:.4f} ms", flush=True)
+    finally:
+        _restored(build_mod, bitmm._k11_lib, "bit_matmul")
+    out["ms"] = ms
+    if hasattr(bitmm, "plan_rows"):
+        saved = bitmm.PLAN_PARTS
+        try:
+            for parts in K11_PLAN_PARTS:
+                bitmm.PLAN_PARTS = parts
+                other = {k: (*a[:3], bitmm.plan_rows(a[0])) for k, a in dirs.items()}
+                row = {k: timed(lambda a=a: bitmm.bit_matmul(*a)) for k, a in other.items()}
+                row["application"] = row["users"] + row["items"]
+                ms[f"parts_{parts}"] = row
+                print(f"K11 parts_{parts}: users {row['users']:.4f} ms, items {row['items']:.4f} ms, "
+                      f"application {row['application']:.4f} ms", flush=True)
+        finally:
+            bitmm.PLAN_PARTS = saved
+    out["wrapper_ms"] = sum(timed(lambda a=a: bitmm.bit_matmul(*a)) for a in dirs.values())
+    print(f"K11 wrapper (the tree's library) per application {out['wrapper_ms']:.4f} ms",
+          flush=True)
+    out["launch_call"] = lambda: bitmm.bit_matmul(*dirs["users"])
+    return out
+
+
 def k4_split(dev, data, scatter) -> dict:
     from idgrec_torch.engine.sampler import NegativeSampler
 
@@ -537,13 +751,15 @@ def main() -> int:
     parser.add_argument("--skip-k1", action="store_true")
     parser.add_argument("--skip-k8", action="store_true")
     parser.add_argument("--skip-k4", action="store_true")
+    parser.add_argument("--skip-k6", action="store_true")
+    parser.add_argument("--skip-k11", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from idgrec_torch.data.dataset import make_synthetic_dataset
-    from idgrec_torch.ops import _build, fusedmm, propagate, scatter
+    from idgrec_torch.ops import _build, bitmm, fusedmm, propagate, scatter
 
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0)
@@ -558,6 +774,17 @@ def main() -> int:
         result["k8"] = k8_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k4:
         result["k4"] = k4_split(dev, data, scatter)
+    if not args.skip_k6:
+        result["k6"] = k6_ablation(dev, data, _build, fusedmm, propagate)
+    if not args.skip_k11:
+        result["k11"] = k11_ablation(dev, data, _build, bitmm, propagate)
+    # the device launches of one K6 and one K11 call, counted last: once
+    # used, the profiler slows the host's later launches
+    for key in ("k6", "k11"):
+        if key in result:
+            n = device_launches(result[key].pop("launch_call"))
+            result[key]["device_launches_per_call"] = n
+            print(f"{key.upper()} device launches a call: {n}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     result["card"] = card

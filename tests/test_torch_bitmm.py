@@ -98,6 +98,42 @@ def test_bit_adj_matmul_and_gradient_match_jax():
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TIGHT)
 
 
+@pytest.mark.parametrize("case", ["uniform", "skewed", "empty", "one_row"])
+def test_plan_rows_splits_the_stripes_by_cost(case):
+    """K11's plan: PLAN_PARTS + 1 non-decreasing stripe indices from 0 to
+    the number of stripes (32 pieces of 16 bytes of a packed row, the last
+    of a row cut short), each warp's cost (a piece 1, a non-zero byte
+    _ENTRY_COST more) within one stripe's cost of an even share; then each
+    row group's first and last warp."""
+    rng = np.random.default_rng(9)
+    r, c = (3000, 1500) if case != "one_row" else (8, 1100)
+    m = (rng.random((r, c)) < 0.01).astype(np.int8)
+    if case == "skewed":  # a popular row group, as the item side of an interaction matrix
+        m[16:24] = rng.random((8, c)) < 0.9
+    elif case == "empty":
+        m[:] = 0
+    packed = t_bitmm.pack_rows(torch.from_numpy(m))
+    plan = t_bitmm.plan_rows(packed)
+    g, cp = packed.shape
+    stripes = -(-cp // 512)
+    parts = t_bitmm.PLAN_PARTS
+    assert plan.dtype == torch.int32 and tuple(plan.shape) == (parts + 1 + 2 * g,)
+    plan, owners = plan[: parts + 1], plan[parts + 1:].view(g, 2).numpy()
+    assert int(plan[0]) == 0 and int(plan[-1]) == g * stripes
+    assert bool((plan[1:] >= plan[:-1]).all())
+    for row, first in enumerate(range(0, g * stripes, stripes)):
+        for w, s_ in zip(owners[row], (first, first + stripes - 1)):
+            assert plan[w] <= s_ < plan[w + 1]
+    nz = np.pad(packed.numpy() != 0, ((0, 0), (0, stripes * 512 - cp))).reshape(-1, 512).sum(1)
+    pieces = np.full(stripes, 32)
+    pieces[-1] = (cp - (stripes - 1) * 512) // 16
+    cost = nz * t_bitmm._ENTRY_COST + np.tile(pieces, g)
+    share = cost.sum() / t_bitmm.PLAN_PARTS
+    csum = np.concatenate([[0], np.cumsum(cost)])
+    per_warp = csum[plan[1:].numpy()] - csum[plan[:-1].numpy()]
+    assert per_warp.sum() == cost.sum() and per_warp.max() <= share + cost.max()
+
+
 def _build(datasets, variant, dtype):
     tdata, jdata = datasets
     kw = _GEN if variant == "gen" else {}

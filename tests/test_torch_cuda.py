@@ -19,8 +19,9 @@ K1's and K5's on the transposed activations, K8's to K7's on the
 unpacked matrix at every feature group, each across two launches;
 repeated `FusedSquareAdj.matmul` equals the chain's layers bit for bit.
 K6 agrees with its plain version within rtol 3e-5 / atol 3e-6 of the largest sum
-(identical bfloat16 operands, exact products: only the order of the
-float32 additions differs) and gives the same bits on every launch; its
+(identical bfloat16 operands, exact products each rounded once to 64-bit
+fixed point, integer sums: far below that bar) and gives the same bits
+on every launch; its
 backward against autograd through the plain version within 2**-7
 relative to the largest gradient (the kernel rounds the cotangent to
 bfloat16 going in, autograd rounds the gradient coming out). K9 and K10
@@ -569,6 +570,85 @@ def test_k6_non_finite_activations_give_nan(cuda):
     assert bool(torch.isnan(yu).all()) and bool(torch.isfinite(yi).all())
 
 
+@pytest.mark.parametrize("d,passes", [(128, 1), (96, 3), (64, 1), (32, 1)])
+def test_k6_reads_m_once_per_feature_group(cuda, d, passes):
+    """K6 takes the shared scan: its launcher reports `scan_passes` (d)
+    reads of M, and the result stays within the bar of the plain
+    version and repeats bit for bit."""
+    rng = np.random.default_rng(5)
+    m = _counts(rng, 2048, 1024, 0.05, 2).to(cuda)
+    zu = torch.from_numpy(rng.normal(size=(2040, d)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(1000, d)).astype(np.float32)).to(cuda)
+    got = fusedmm.fused_adj_matmul(m, zu, zi)
+    assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(d) == passes  # as launched
+    again = fusedmm.fused_adj_matmul(m, zu, zi)
+    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(m, zu, zi)):
+        assert torch.equal(a, b)
+        _close(a, c)
+
+
+@pytest.mark.parametrize("case", ["span", "long_rows"])
+def test_k6_scan_edges(cuda, case):
+    """Counts of both signs with activations from 2**-20 to 2**10 in one
+    call (the fixed-point shift taken from the largest); rows of M longer
+    than a warp's share of the scan, so that two warps or more flush the
+    same row's yu partials."""
+    rng = np.random.default_rng(6)
+    if case == "span":
+        u_pad, i_pad, d = 1024, 768, 64
+        mask = rng.random((u_pad, i_pad)) < 0.1
+        m = torch.from_numpy(np.where(mask, rng.integers(-127, 128, (u_pad, i_pad)), 0)
+                             .astype(np.int8)).to(cuda)
+
+        def acts(n):
+            mag = 2.0 ** rng.uniform(-20, 10, (n, d))
+            return torch.from_numpy(np.where(rng.random((n, d)) < 0.5, -mag, mag)
+                                    .astype(np.float32)).to(cuda)
+    else:
+        u_pad, i_pad, d = 64, 16384, 128
+        m = _counts(rng, u_pad, i_pad, 0.5, 3).to(cuda)
+
+        def acts(n):
+            return torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    zu, zi = acts(u_pad - 3), acts(i_pad - 7)
+    got = fusedmm.fused_adj_matmul(m, zu, zi)
+    again = fusedmm.fused_adj_matmul(m, zu, zi)
+    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(m, zu, zi)):
+        assert torch.equal(a, b)
+        _close(a, c)
+
+
+def test_k6_takes_bfloat16_activations(cuda):
+    """bfloat16 activations give the bits of their float32 values: the
+    kernel's rounding leaves bfloat16 values as they are."""
+    rng = np.random.default_rng(12)
+    m = _counts(rng, 2048, 1024, 0.05, 3).to(cuda)
+    zu = torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(1000, 64)).astype(np.float32)).to(cuda)
+    zu16, zi16 = zu.to(torch.bfloat16), zi.to(torch.bfloat16)
+    for a, b in zip(fusedmm.fused_adj_matmul(m, zu16, zi16),
+                    fusedmm.fused_adj_matmul(m, zu16.float(), zi16.float())):
+        assert torch.equal(a, b)
+
+
+def test_k6_does_not_synchronise(cuda):
+    """A K6 call (checks, allocations, three launches) issues no
+    synchronisation with the host."""
+    rng = np.random.default_rng(8)
+    m = _counts(rng, 2048, 1024, 0.05, 3).to(cuda)
+    zu = torch.from_numpy(rng.normal(size=(2048, 64)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(1024, 64)).astype(np.float32)).to(cuda)
+    want = fusedmm.fused_adj_matmul(m, zu, zi)  # built and loaded outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fusedmm.fused_adj_matmul(m, zu, zi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_k6_backward_is_the_swapped_product(cuda):
     rng = np.random.default_rng(2)
     m = _counts(rng, 2048, 1024, 0.03, 2).to(cuda)
@@ -861,6 +941,64 @@ def test_bit_adj_backward_is_the_swapped_product(cuda):
         # the kernel rounds the cotangent to bfloat16 going in, autograd
         # through the plain version rounds the gradient coming out
         assert float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("d", [8, 64, 136])
+@pytest.mark.parametrize("case", ["full_group", "last_column"])
+def test_k11_scan_edges(cuda, case, d):
+    """A row group whose every bit is set (each byte of its packed row
+    non-zero: every warp's run is its whole share), and set bits only in
+    the last real column before the padding; equal across two launches
+    and within the bar of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(9)
+    r, c = 1000, 2000 if case == "full_group" else 700
+    m = torch.zeros((r, c), dtype=torch.int8)
+    if case == "full_group":
+        m[8:16] = 1
+    else:
+        m[torch.from_numpy(rng.random(r) < 0.3), c - 1] = 1
+    packed = bitmm.pack_rows(m.to(cuda))
+    if case == "full_group":
+        assert bool((packed[1, :c] == -1).all()) and not bool(packed[1, c:].any())
+    x = torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)).to(cuda)
+    before = bitmm.bit_matmul.launches
+    got = bitmm.bit_matmul(packed, x, r)
+    assert bitmm.bit_matmul.launches == before + 1
+    assert torch.equal(got, bitmm.bit_matmul(packed, x, r))
+    _close(got, bitmm.bit_matmul_plain(packed, x, r))
+
+
+def test_k11_takes_bfloat16_and_short_x(cuda):
+    """bfloat16 activations go in as they are; rows of x past its end
+    count as zeros, as the plain version pads them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(10)
+    m = torch.from_numpy((rng.random((1000, 1500)) < 0.05).astype(np.int8)).to(cuda)
+    packed = bitmm.pack_rows(m)
+    x = torch.from_numpy(rng.normal(size=(1200, 64)).astype(np.float32)).to(cuda)
+    got = bitmm.bit_matmul(packed, x.to(torch.bfloat16), 1000)
+    assert torch.equal(got, bitmm.bit_matmul(packed, x, 1000))
+    _close(got, bitmm.bit_matmul_plain(packed, x, 1000))
+
+
+def test_k11_does_not_synchronise(cuda):
+    """A K11 call (checks, one allocation, one launch) issues no
+    synchronisation with the host."""
+    rng = np.random.default_rng(11)
+    m = torch.from_numpy((rng.random((3000, 2000)) < 0.02).astype(np.int8)).to(cuda)
+    packed = bitmm.pack_rows(m)
+    x = torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32)).to(cuda)
+    want = bitmm.bit_matmul(packed, x, 3000)  # built and loaded outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bitmm.bit_matmul(packed, x, 3000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["width", "dtype", "rows"])

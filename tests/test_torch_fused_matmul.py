@@ -21,6 +21,8 @@ Tolerances:
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,6 +128,68 @@ def test_fused_adj_matmul_rounds_operands_to_bfloat16_and_keeps_float32_sums():
     np.testing.assert_allclose(yi.numpy(), (m64.T @ zu16).numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _k6_fixed_point(m8: torch.Tensor, zu: torch.Tensor, zi: torch.Tensor) -> list:
+    """K6's arithmetic on the CPU, for the test below: each entry's
+    product v * bf16(z) (exact) scaled by 2**(31 - e), where amax < 2**e
+    is the largest |bf16(z)| of the side the sum runs over (the shift at
+    most 120, 0 when amax is 0), rounded half to even to int64; integer
+    sums; then float32. Per side: (the sums, their float64 values
+    without the rounding, the bound on the products' rounding)."""
+
+    def side(m, z, rows):
+        zb = torch.nn.functional.pad(z.to(torch.bfloat16).double(),
+                                     (0, 0, 0, m.shape[1] - z.shape[0]))
+        amax = float(zb.abs().max())
+        shift = 0 if amax == 0 else min(31 - math.frexp(amax)[1], 120)
+        prod = torch.round(m.double()[:, :, None] * zb[None] * 2.0 ** shift).to(torch.int64)
+        # half a step of the fixed point per non-zero entry of the row
+        bound = (m != 0).sum(1, keepdim=True).double() * 2.0 ** (-shift - 1)
+        return ((prod.sum(1).double() * 2.0 ** -shift).float()[:rows],
+                (m.double() @ zb)[:rows], bound[:rows])
+
+    return [side(m8, zi, zu.shape[0]), side(m8.T, zu, zi.shape[0])]
+
+
+@pytest.mark.parametrize("u_pad,i_pad,density,top,scale", [
+    (64, 256, 0.05, 3, 1.0),
+    (64, 128, 1.0, 5, 1.0),        # dense: the longest sums
+    (64, 256, 0.3, 127, 1e-6),     # the largest counts, cotangent-sized activations
+    (64, 128, 0.0, 1, 1.0),        # all zero
+    (64, 128, 0.05, 2, 1e3),
+    (64, 256, 0.3, -127, None),    # counts of both signs, |z| from 2**-20 to 2**10
+])
+def test_k6_fixed_point_sums_match_plain(u_pad, i_pad, density, top, scale):
+    """K6 rounds each entry's product once to 64-bit fixed point, the
+    scale a power of two from the largest activation of the side, and
+    sums integers: that stays within TIGHT (relative to the largest sum)
+    of the plain version's float32 sums of the same bfloat16 operands,
+    and within half a fixed-point step per entry (then one float32
+    rounding) of the exact sums."""
+    rng = np.random.default_rng(7)
+    if top > 0:
+        m = _counts(rng, (u_pad, i_pad), top=top, density=density)
+    else:
+        mask = rng.random((u_pad, i_pad)) < density
+        m = np.where(mask, rng.integers(top, -top + 1, (u_pad, i_pad)), 0).astype(np.int8)
+    u, i = u_pad - 5, i_pad - 9
+
+    def acts(n):
+        if scale is not None:
+            return rng.normal(size=(n, D)).astype(np.float32) * np.float32(scale)
+        mag = 2.0 ** rng.uniform(-20, 10, (n, D))
+        return (np.where(rng.random((n, D)) < 0.5, -mag, mag)).astype(np.float32)
+
+    zu, zi = torch.from_numpy(acts(u)), torch.from_numpy(acts(i))
+    mt = torch.from_numpy(m)
+    for (got, exact, bound), want in zip(_k6_fixed_point(mt, zu, zi),
+                                         t_fused.fused_adj_matmul_plain(mt, zu, zi)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        top_sum = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-6 * max(top_sum, 1e-30))
+        err = (got.double() - exact).abs()
+        assert bool((err <= bound + exact.abs() * 2.0 ** -24).all())
+
+
 def test_fused_adj_matmul_validates():
     m = torch.zeros((1024, 512), dtype=torch.int8)
     with pytest.raises(ValueError, match="do not fit"):
@@ -194,16 +258,16 @@ def test_kernel_accepts_n(mode, u_pad, i_pad, d, want):
             t_fused._require_n("kernel", mode, u_pad, i_pad, d)
 
 
-@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("d,group,passes", [
     (64, 64, 1), (128, 128, 1), (2048, 128, 16), (96, 32, 3), (32, 32, 1), (192, 64, 3),
     (256, 128, 2),
 ])
 def test_k7_feature_passes(d, group, passes, mode):
-    """K7 (int8) and K8 (int4) share one scan: it reads the stored matrix
-    once per 128 features where d % 128 == 0, else once per 64 or 32,
-    the group their launcher takes from the wrapper, at every width the
-    kernel takes."""
+    """K6 (bf16), K7 (int8) and K8 (int4) share one scan: it reads the
+    stored matrix once per 128 features where d % 128 == 0, else once per
+    64 or 32, the group their launcher takes from the wrapper, at every
+    width the kernel takes."""
     assert t_fused.scan_feature_group(d) == group
     assert t_fused.scan_passes(d) == passes
     assert group * passes == d
