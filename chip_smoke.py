@@ -14,13 +14,18 @@ its non-zero entries taken a warp each; int32 atomics, K6 64-bit
 fixed-point ones); K1 turns the chain's [d, N] activations to [N, d] and
 its sums back around it, three launches a call, and is held to its plain
 version and across two launches; K11 scans the packed row groups and
-adds only the set bits; the device launches a call of K1, K7, K8, K6 and
-K11 are counted at the end (torch.profiler slows later launches). K5
-(the dual product on the nibble-packed matrix) is also held to K1 on the
-unpacked matrix, and
+adds only the set bits; the device launches a call of K1, K5, K7, K8, K6,
+K11 and the chain's sweeps are counted at the end (torch.profiler slows
+later launches). K5 (the dual product on the nibble-packed matrix: K1's
+turns around K8's scan of the packed bytes) is also held to K1 on the
+unpacked matrix and across two launches, and
 the int4 chain, backward chain and one step's gradients to int8's, all
-exactly; one int8 chain forward and backward runs under
-``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
+exactly. The chain's sweeps run K2's epilogue (forward and inject) in
+K1's or K5's turn-out: each sweep, int8 and int4, forward and inject,
+with and without a next input, is held to the dual followed by two K2
+launches and to its plain version, bit for bit; K2 itself runs only in
+the chain's prologues. One int8 and one int4 chain forward and backward
+run under ``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
 per-application duals in [N, d] layout) are held to K1 and K5 on the
 transposed activations, K8 to K7 on the unpacked matrix, and three
 `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
@@ -516,8 +521,14 @@ def main() -> int:
             f"{max(max_abs(yu4, yu4_k1), max_abs(yi4, yi4_k1))}")
     require(torch.equal(yu4, yu) and torch.equal(yi4[:, :i_pad], yi),
             "K5 differs from K1 on the int8 adjacency")
+    yu4_b, yi4_b = fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4)
+    require(torch.equal(yu4.view(torch.int32), yu4_b.view(torch.int32))
+            and torch.equal(yi4.view(torch.int32), yi4_b.view(torch.int32)),
+            "K5: two launches differ")
+    del yu4_b, yi4_b
     log(f"K5 equals its plain version and K1 on the unpacked matrix exactly "
-        f"({int((yu4 != 0).sum())} + {int((yi4 != 0).sum())} non-zero sums)")
+        f"({int((yu4 != 0).sum())} + {int((yi4 != 0).sum())} non-zero sums), two launches "
+        "bit-equal")
     del yu4_p, yi4_p, yu4_k1, yi4_k1, xi4, zi4
 
     emb0 = concat_user_item(model.user_emb, model.item_emb).detach()
@@ -625,6 +636,59 @@ def main() -> int:
             errs["K2i"] = max(errs.get("K2i", 0.0), max_abs(ok, op))
     log("K2 inject mode equals its plain version exactly")
 
+    # ---- the chain's sweeps: K1 or K5 with K2's epilogue in the turn-out,
+    # on the first sweep's inputs, against the dual followed by two K2
+    # launches (the route they replaced) and their plain version, bit for bit
+    ci4 = propagate._pad_cols(ci, i_pad4).contiguous()
+    gi4 = propagate._pad_cols(gi, i_pad4).contiguous()
+    sweep_cases = {"int8": (adj.m8, qi, si, (lu, li), (ru, ri), (cu, ci), (gu, gi)),
+                   "int4": (adj4.m8, qi4, si4, (lu, li4), (ru, ri4), (cu, ci4), (gu, gi4))}
+    duals = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
+    sweep_fns = {(False, False): chainmm.dual_sweep, (False, True): chainmm.dual_sweep_plain,
+                 (True, False): chainmm.dual_sweep_inject,
+                 (True, True): chainmm.dual_sweep_inject_plain}
+
+    def separate_sweep(quant, inject, flag, want_next, ext):
+        """The dual kernel, then K2 (or its inject mode) on each side."""
+        m_, qi_, si_, post, pre = sweep_cases[quant][:5]
+        ys = duals[quant](m_, qu, qi_)
+        epi = chainmm.chain_sweep_inject if inject else chainmm.chain_sweep_epilogue
+        return (*epi(ys[0], si_[:, 0], post[0], pre[0], ext[0], flag, want_next),
+                *epi(ys[1], su[:, 0], post[1], pre[1], ext[1], flag, want_next))
+
+    def fused_sweep(quant, inject, flag, want_next, ext, plain=False):
+        m_, qi_, si_, post, pre = sweep_cases[quant][:5]
+        return sweep_fns[(inject, plain)](quant, m_, qu, su, qi_, si_, post, pre, ext, flag,
+                                          want_next)
+
+    errs["sweep"] = 0.0
+    for quant in ("int8", "int4"):
+        for inject, flag, want_next in ((False, chainmm.COMBINE_ADD, True),
+                                        (False, chainmm.COMBINE_ADD, False),
+                                        (True, True, True), (True, True, False)):
+            ext0 = sweep_cases[quant][6 if inject else 5]
+            exts = [[t_.clone() for t_ in ext0] for _ in range(3)]
+            got = fused_sweep(quant, inject, flag, want_next, exts[0])
+            sep = separate_sweep(quant, inject, flag, want_next, exts[1])
+            ref = fused_sweep(quant, inject, flag, want_next, exts[2], plain=True)
+            what = f"{quant} sweep inject={inject} want_next={want_next}"
+            for a, b, c in zip(list(got) + exts[0], list(sep) + exts[1], list(ref) + exts[2]):
+                if a is None:
+                    require(b is None and c is None, f"{what}: an output is missing")
+                    continue
+                require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                        f"{what} differs from the dual and two K2 launches: max abs err "
+                        f"{max_abs(a, b)}")
+                require(torch.equal(a, c), f"{what} differs from its plain version: max abs err "
+                                           f"{max_abs(a, c)}")
+                errs["sweep"] = max(errs["sweep"], max_abs(a, c))
+            require(not want_next or bool(got[1].gt(0).all() and got[3].gt(0).all()),
+                    f"{what}: an amax is not positive")
+    del exts, got, sep, ref
+    log("the chain's sweeps (K2's epilogue in the turn-out of K1 and of K5; forward with the "
+        "combine and inject, each with and without a next input) equal the dual followed by two "
+        "K2 launches and their plain version exactly")
+
     grads_chain = []
     for graph, fn in ((adj, chainmm.fused_chain_resident),
                       (adj, chainmm.fused_chain_resident_plain),
@@ -643,21 +707,27 @@ def main() -> int:
             f"3-layer int4 backward chain differs from the int8 backward chain: max abs err "
             f"{max_abs(grad_4, grads_chain[0])}")
     log("3-layer int4 backward chain equals the int8 backward chain")
-    # the int8 chain forward and backward (K3, K1, K2, K2-inject) issue no
-    # synchronisation with the host
-    x = emb0.clone().requires_grad_(True)
-    k1_before = fusedmm.fused_adj_matmul_int8_t.launches
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        chainmm.fused_chain_resident(adj, x, LAYERS).backward(cot)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    require(fusedmm.fused_adj_matmul_int8_t.launches == k1_before + 2 * LAYERS,
-            "the synchronisation check's chain did not run through K1")
-    require(torch.equal(x.grad, grads_chain[0]), "the chain under sync debug mode differs")
-    log(f"the int8 chain forward and backward ({2 * LAYERS} K1 calls) ran under sync debug "
-        "mode 'error' without a synchronisation")
+    # the int8 and int4 chains forward and backward (K3, the sweeps, K2 for
+    # the prologues) issue no synchronisation with the host
+    chain_counters = (chainmm.chain_sweep_epilogue, chainmm.chain_sweep_inject,
+                      chainmm.dual_sweep, chainmm.dual_sweep_inject)
+    for graph, dual in ((adj, fusedmm.fused_adj_matmul_int8_t),
+                        (adj4, fusedmm.fused_adj_matmul_int4_t)):
+        x = emb0.clone().requires_grad_(True)
+        before = [fn.launches for fn in (dual,) + chain_counters]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chainmm.fused_chain_resident(graph, x, LAYERS).backward(cot)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran = [fn.launches - b for fn, b in zip((dual,) + chain_counters, before)]
+        require(ran == [2 * LAYERS, 4, 0, LAYERS, LAYERS],
+                f"the synchronisation check's {graph.quant} chain ran {ran} launches of "
+                "(the dual, K2, K2-inject, the forward sweep, the inject sweep)")
+        require(torch.equal(x.grad, grads_chain[0]), "the chain under sync debug mode differs")
+    log(f"the int8 and int4 chains forward and backward ({2 * LAYERS} sweeps each, K2 only in "
+        "the 2 x 2 prologue calls) ran under sync debug mode 'error' without a synchronisation")
     del grads_chain, grad_4, x
 
     def step_grads(m=model):
@@ -686,16 +756,19 @@ def main() -> int:
     del got_step, want_step
 
     # ---- the main path: construct the server and answer requests
+    # the quantized chain's: K2 in the prologues, its epilogue and inject
+    # mode in the sweeps (the dual's turn-out); K2-inject runs standalone
+    # on no path
     int8_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                     chainmm.chain_sweep_inject, propagate.quantize_rows,
+                     chainmm.dual_sweep, chainmm.dual_sweep_inject, propagate.quantize_rows,
                      scatter.scatter_add_rows)
     int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
     n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                   fusedmm.fused_adj_matmul_int4)
     tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
     row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
-    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t,) + n_counters + tanh_counters
-                + row_counters)
+    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject)
+                + n_counters + tanh_counters + row_counters)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -707,7 +780,7 @@ def main() -> int:
         return {fn.__name__: fn.launches for fn in counters}
 
     serving_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                        propagate.quantize_rows)
+                        chainmm.dual_sweep, propagate.quantize_rows)
     reset_counts()
     t0 = time.perf_counter()
     rec = Recommender(model, data)
@@ -720,6 +793,9 @@ def main() -> int:
     log(f"serving path launches: {launches}")
     for fn in serving_counters:
         require(fn.launches > 0, f"{fn.__name__} was never launched on the serving path")
+    require((launches["chain_sweep_epilogue"], launches["dual_sweep"],
+             launches["fused_adj_matmul_int8_t"]) == (2, LAYERS, LAYERS),
+            "serving: expected one chain, K2 in its prologue only")
 
     ref_rec = Recommender(PlainChainModel(model), data)
     for users, (items, scores) in zip(requests, answers):
@@ -805,6 +881,33 @@ def main() -> int:
     k2i_ms = cuda_ms(lambda: k2i_pair(chainmm.chain_sweep_inject), 50)
     k2i_plain = cuda_ms(lambda: k2i_pair(chainmm.chain_sweep_inject_plain), 20)
 
+    # the chain's sweeps (a middle sweep: the combine added or the cotangent
+    # injected, a next input) beside the bare dual and the route they
+    # replaced, the dual and two K2 launches, in turns; their bound: the
+    # stored matrix and the int8 inputs read once, the scales and vectors,
+    # the combine read and written and z written (forward), the cotangent
+    # read and the next input written (inject); 4 operations per non-zero
+    # entry and feature
+    sweep_times = {}
+    for quant in ("int8", "int4"):
+        m_, qi_ = sweep_cases[quant][:2]
+        n_q = u_pad + qi_.shape[1]
+        bare = cuda_ms(lambda: duals[quant](m_, qu, qi_), 20)
+        for inject, flag in ((False, chainmm.COMBINE_ADD), (True, True)):
+            ext = [t_.clone() for t_ in sweep_cases[quant][6 if inject else 5]]
+            fused = cuda_ms(lambda: fused_sweep(quant, inject, flag, True, ext), 20)
+            separate = cuda_ms(lambda: separate_sweep(quant, inject, flag, True, ext), 20)
+            nbytes = (m_.numel() + d * n_q + 8.0 * d + 8.0 * n_q
+                      + (8.0 if inject else 12.0) * d * n_q)
+            bnd = bound(nbytes, 4.0 * nnz * d)
+            require(bnd[0] <= fused, f"{quant} sweep inject={inject}: {fused} ms below its bound "
+                                     f"{bnd[0]} ms")
+            sweep_times[(quant, inject)] = (fused, separate, bare, bnd)
+            log(f"{quant} {'inject' if inject else 'forward'} sweep: {fused:.4f} ms (bound "
+                f"{bnd[0]:.4f} by {bnd[1]}) beside the dual and two K2 launches "
+                f"{separate:.4f} ms and the bare dual {bare:.4f} ms")
+    del ext
+
     def k4_pair(fn):
         for idx, vals, n_rows in k4_cases:
             fn(idx, vals, n_rows)
@@ -852,8 +955,9 @@ def main() -> int:
                                                           chainmm.KERNELS), 5)
     bwd_chain4_ms = host_ms(lambda: chainmm._run_chain_bwd(
         adj4, gu, propagate._pad_cols(gi, i_pad4).contiguous(), LAYERS, True, chainmm.KERNELS), 5)
-    log(f"backward chain (3 sweeps, K3/K1/K2-inject): {bwd_chain_ms:.3f} ms; int4 "
-        f"(K3/K5/K2-inject, the item side's pad included): {bwd_chain4_ms:.3f} ms")
+    log(f"backward chain (3 sweeps of K3 and K1 with K2's inject mode in its turn-out): "
+        f"{bwd_chain_ms:.3f} ms; int4 (K5 in K1's place, the item side's pad included): "
+        f"{bwd_chain4_ms:.3f} ms")
 
     # ---- the training path: sample, two epochs, evaluate
     lr = cfg.float("learn_rate")
@@ -889,6 +993,14 @@ def main() -> int:
     for fn in int8_counters:
         require(fn.launches > 0, f"{fn.__name__} was never launched on the training path")
     require(train_launches["fused_adj_matmul_int4_t"] == 0, "K5 ran on the int8 training path")
+    # a step: the forward chain and the backward chain, K2 in their prologues
+    # (2 + 2), a sweep each a layer; the evaluation's chain one more forward
+    n_train = EPOCHS * steps
+    want_train = {"chain_sweep_epilogue": 4 * n_train + 2, "chain_sweep_inject": 0,
+                  "dual_sweep": LAYERS * (n_train + 1), "dual_sweep_inject": LAYERS * n_train,
+                  "fused_adj_matmul_int8_t": LAYERS * (2 * n_train + 1)}
+    require(all(train_launches[k_] == v for k_, v in want_train.items()),
+            f"training path: expected {want_train}")
 
     # one int4 epoch through the same runner code, for the int8-vs-int4 times
     runner4 = EpochRunner(model4, lr, BATCH, data.num_train)
@@ -2056,8 +2168,10 @@ def main() -> int:
                "egcf_bitpack": egcf_bp_launches, "batch_rows": rows_launches}
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
-    def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit):
-        counts = {path: c[fn.__name__] for path, c in by_path.items()}
+    def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=()):
+        # ``also``: the counters of the wrappers that run this kernel's code
+        # inside another launch (K2's epilogue in the chain's sweeps)
+        counts = {path: sum(c[f_.__name__] for f_ in (fn, *also)) for path, c in by_path.items()}
         # per training step of the path the kernel serves (the int8 count
         # with the eval sweep's chain; K6's without the chains of the
         # Recommender and of the evaluation; K9's and K10's on EGCF's)
@@ -2089,13 +2203,20 @@ def main() -> int:
               "scan of M, the turn back)"),
         entry("dual_int4_t", "idgrec_torch/csrc/dual_int4_t.cu", "idgrec_tpu/ops/fusedmm.py:708",
               fusedmm.fused_adj_matmul_int4_t, errs["K5"], k5_ms, k5_plain, k5_bound, k5_lib,
-              "one sweep on the nibble-packed matrix: 1 launch"),
+              "one sweep on the nibble-packed matrix: 1 launch (3 kernels: K1's turn to [N, d] "
+              "with the sums zeroed, K8's scan of the packed bytes, K1's turn back)"),
         entry("chain_sweep_epilogue", k2_src, "idgrec_tpu/ops/chainmm.py:322",
               chainmm.chain_sweep_epilogue, errs["K2"], k2_ms, k2_plain, k2_bound, None,
-              "one sweep: 2 launches (users, items)"),
+              "one sweep standalone: 2 launches (users, items); in the chain it runs in the "
+              "prologue standalone and in every sweep inside the turn-out of K1 or K5 "
+              "(csrc/dual_turns.cuh, chainmm.dual_sweep), counted in launches",
+              also=(chainmm.dual_sweep,)),
         entry("chain_sweep_inject", k2_src, "idgrec_tpu/ops/chainmm.py:341",
               chainmm.chain_sweep_inject, errs["K2i"], k2i_ms, k2i_plain, k2i_bound, None,
-              "one backward sweep: 2 launches (users, items)"),
+              "one backward sweep standalone: 2 launches (users, items); in the chain it runs "
+              "only inside the turn-out of K1 or K5 (csrc/dual_turns.cuh, "
+              "chainmm.dual_sweep_inject), counted in launches",
+              also=(chainmm.dual_sweep_inject,)),
         entry("quantize_rows", "idgrec_torch/csrc/quantize_rows.cu",
               "idgrec_tpu/ops/chainmm.py:236", propagate.quantize_rows, errs["K3"], k3_ms,
               k3_plain, k3_bound, k3_lib, "one sweep: 2 launches (users, items)"),
@@ -2157,6 +2278,16 @@ def main() -> int:
         elif k["name"] == "dual_int4_n":
             k.update(ms_d64=k8_64_ms, plain_ms_d64=k8_64_plain, bound_ms_d64=k8_64_bound[0],
                      library_ms_d64=k8_64_lib)
+        elif k["name"] in ("chain_sweep_epilogue", "chain_sweep_inject"):
+            inject = k["name"] == "chain_sweep_inject"
+            sweep_fn = chainmm.dual_sweep_inject if inject else chainmm.dual_sweep
+            k["runs_in"] = "idgrec_torch/csrc/dual_turns.cuh"
+            k["launches_standalone"] = sum(c[k["name"]] for c in by_path.values())
+            k["launches_in_sweep"] = sum(c[sweep_fn.__name__] for c in by_path.values())
+            for quant in ("int8", "int4"):
+                fused, separate, bare, bnd = sweep_times[(quant, inject)]
+                k.update({f"sweep_ms_{quant}": fused, f"dual_and_k2_ms_{quant}": separate,
+                          f"bare_dual_ms_{quant}": bare, f"sweep_bound_ms_{quant}": bnd[0]})
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']}), "
@@ -2184,6 +2315,7 @@ def main() -> int:
     # the device launches of one call of each scan kernel, counted last: once
     # used, the profiler slows the host's later launches
     per_call = {"dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
+                "dual_int4_t": lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4),
                 "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN),
                 "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N),
                 "dual_bf16": lambda: fusedmm.fused_adj_matmul(adj.m8, zu6, zi6),
@@ -2191,9 +2323,19 @@ def main() -> int:
     for k in kernels:
         if k["name"] in per_call:
             k["device_launches_per_call"] = device_launches(per_call[k["name"]])
+    sweep_calls = {}
+    for quant in ("int8", "int4"):
+        for inject, flag, name_ in ((False, chainmm.COMBINE_ADD, "chain_sweep_epilogue"),
+                                    (True, True, "chain_sweep_inject")):
+            ext = [t_.clone() for t_ in sweep_cases[quant][6 if inject else 5]]
+            n_ = device_launches(lambda: fused_sweep(quant, inject, flag, True, ext))
+            sweep_calls[f"{quant} {'inject' if inject else 'forward'}"] = n_
+            next(k for k in kernels if k["name"] == name_)[
+                f"device_launches_per_sweep_{quant}"] = n_
     log("device launches a call (torch.profiler, kernels and memsets, the wrapper's fills "
         "included): " + ", ".join(f"{k['name']} {k['device_launches_per_call']}"
-                                  for k in kernels if k["name"] in per_call))
+                                  for k in kernels if k["name"] in per_call)
+        + "; a chain sweep (both sides) " + ", ".join(f"{w} {n_}" for w, n_ in sweep_calls.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,388 @@
+// The duals of the quantized chain, K1 (dual_int8_t.cu, int8 M) and K5
+// (dual_int4_t.cu, nibble-packed M): the scan of dual_scan.cuh between two
+// layout turns, three launches a call,
+//
+//   yuT[f, u] = sum_i qiT[f, i] * M[u, i]      (M  @ qi, as [d, U_pad])
+//   yiT[f, i] = sum_u quT[f, u] * M[u, i]      (M^T @ qu, as [d, I_pad])
+//
+// with the chain's activations in the transposed [d, N] layout, d = 64:
+// * turn in: quT and qiT become one int8 [U_pad + I_pad, 64] scratch (users,
+//   then items), through a 64 x 64 shared-memory tile so that reads and
+//   writes both coalesce; the same blocks zero the int32 sums the scan adds
+//   into (and, for a chain sweep, the amax outputs and the NaN-tile counts
+//   below). A warp-per-entry scan reading a column of qiT straight from
+//   [d, N] would touch 64 separate 32-byte sectors per entry where the
+//   [N, d] row touches 2, and so would the atomics into [d, N] sums.
+// * the scan: one feature group of 64, one read of the stored matrix, int32
+//   atomics into [U_pad + I_pad, 64].
+// * turn out: a block holds the int32 sums of 64 nodes x 64 features in
+//   shared memory, converts each to float32 once (exact while every sum
+//   stays below 2^24) and writes it transposed into the [d, N] layout, both
+//   sides in one launch. The raw mode writes the sums (the public entries:
+//   fused_adj_matmul_int8_t / _int4_t). A chain sweep's mode writes, in the
+//   same pass, what K2 (chain_sweep_epilogue.cu) computed from those sums in
+//   two more launches:
+//     forward  nh = post[n] * (y * s_in[f]); c = nh or c + nh (the combine);
+//              z = pre[n] * nh and amax[f] = max |z| when a sweep follows
+//     inject   st = post[n] * (y * s_in[f]), g + st when injecting;
+//              out = pre[n] * st and its amax when a sweep follows, else st
+//   (K2's operation order, __fmul_rn / __fadd_rn, no FMA contraction), so
+//   the sweep equals K1 or K5 followed by two K2 launches bit for bit. This
+//   replaces the completion that the TPU kernel ran at each block's last
+//   reduction step (idgrec_tpu/ops/chainmm.py _chunk l.322-359, the amax
+//   update l.311-320, the inject branch l.341-352).
+//
+// The per-feature amax: each warp reduces its features over the tile's 64
+// nodes with fmaxf and adds its maxima with one atomicMax on the float's
+// bits (non-negative floats order as their bits), order-free and so exact,
+// into the maximum of the tile's K2 block (below); the last turn-out block
+// to finish takes the maximum over those into amax. A single amax target
+// would take 64 atomics from each of the 1,096 tiles at yelp2018 scale on
+// four cache lines, and cost the sweep 0.02 ms on an H100; the K2 blocks'
+// maxima spread them over 138 lines (scripts/torch_k7_ablation.py, its
+// sweep section, measures both; PERF.md). fmaxf drops a NaN beside a number, and K2 reduces over blocks of
+// 1,024 nodes before its atomicMax, so K2's amax is NaN only where some
+// block of 1,024 nodes holds nothing but NaN (its last block, partly
+// outside N, also reduces a 0 in). To give the same bits here, a tile
+// whose 64 values are all NaN is counted per feature and K2 block instead
+// of sent; the tile that completes a block's count of 16 sends its NaN. The
+// turn-in zeroes the counts, the maxima and the count of finished blocks.
+//
+// K1 replaces idgrec_tpu/ops/fusedmm.py _tkernel_int8 (l.674, launched by
+// _tdual_small_call l.758) and _tkernel_int8_panel (l.797, launched by
+// _tdual_panel_call l.881); K5 _tkernel_int4 (l.708) and _tkernel_int4_panel
+// (l.832), entry fused_adj_matmul_int4_t (l.944). The TPU needed two bodies
+// because its yi accumulator had to fit VMEM; here one scan covers both.
+// The launchers make no per-call attribute or occupancy query: the turns
+// use static shared memory, and the scan's launcher reads the SM count once
+// per process and device.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "dual_scan.cuh"
+
+namespace {
+
+constexpr int D = 64;       // feature rows of the activations
+constexpr int TILE = 64;    // nodes per block of the turns
+constexpr int TURN_THREADS = 256;
+constexpr int TURN_WARPS = TURN_THREADS / 32;
+constexpr int Q_PITCH = TILE + 4;  // bytes per feature row of the turn-in tile (skews banks)
+// nodes a block of K2 (chain_sweep_epilogue.cu: THREADS * PER_THREAD)
+// reduces before its atomicMax, and the turn-out tiles in it
+constexpr int K2_BLOCK = 1024;
+constexpr int K2_BLOCK_TILES = K2_BLOCK / TILE;
+
+// what the turn-out writes
+enum TurnMode { kRaw = 0, kForward = 1, kInject = 2 };
+// K2's combine modes (chainmm.COMBINE_*)
+enum Combine { kNone = 0, kSet = 1, kAdd = 2 };
+
+// One side (users or items) of a chain sweep's epilogue, [d, n] layout.
+struct SideSweep {
+  const float* s_in;  // [64] the other side's dequantization scale
+  const float* post;  // [n]
+  const float* pre;   // [n]
+  float* ext;         // forward: the combine c, read and written; inject: g, read only
+  float* out;         // raw: the sums; forward: z (when a sweep follows); inject: out
+  float* amax;        // [64], zeroed by the turn-in when a sweep follows
+  int n;
+};
+
+struct Sweep {
+  SideSweep side[2];   // users, items
+  // zeroed by the turn-in when a sweep follows:
+  int* nan_tiles;      // [K2 blocks of both sides, 64] all-NaN tiles
+  int* block_max;      // [K2 blocks of both sides, 64] the float bits of their maxima
+  int* done;           // turn-out blocks finished
+  int u_blocks;        // K2 blocks of the user side
+  int k2_blocks;       // K2 blocks of both sides
+  int flag;            // forward: the combine mode; inject: whether g is added
+  int want_next;
+};
+
+// Block b turns 64 nodes: b < u_pad / 64 the users of quT, else the items of
+// qiT. qT [64, n] -> q rows [row0, row0 + 64) of [U_pad + I_pad, 64], and the
+// same rows of the int32 sums zeroed; extra[0, n_extra) zeroed too.
+__global__ void __launch_bounds__(TURN_THREADS)
+turn_in(const int8_t* __restrict__ quT, const int8_t* __restrict__ qiT, int8_t* __restrict__ q,
+        int* __restrict__ acc, int u_pad, int i_pad, int* __restrict__ extra, int n_extra) {
+  __shared__ __align__(16) int8_t tile[D * Q_PITCH];
+  const int t = threadIdx.x;
+  const int user_blocks = u_pad / TILE;
+  const bool user = static_cast<int>(blockIdx.x) < user_blocks;
+  const int8_t* src = user ? quT : qiT;
+  const int n_stride = user ? u_pad : i_pad;
+  const int n0 = (user ? blockIdx.x : blockIdx.x - user_blocks) * TILE;
+  const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
+  for (int e = blockIdx.x * TURN_THREADS + t; e < n_extra; e += gridDim.x * TURN_THREADS)
+    extra[e] = 0;
+  // read: feature f, nodes c .. c + 15 (16 bytes a thread, 64 bytes a row)
+  {
+    const int f = t >> 2, c = (t & 3) * 16;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(f) * n_stride + n0 + c);
+    uint32_t* row = reinterpret_cast<uint32_t*>(tile + f * Q_PITCH + c);
+    row[0] = v.x;
+    row[1] = v.y;
+    row[2] = v.z;
+    row[3] = v.w;
+  }
+  // zero the int32 sums of these 64 rows: 16 KB, four 16-byte stores a thread
+  uint4* dst = reinterpret_cast<uint4*>(acc + row0 * D);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dst[t + k * TURN_THREADS] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  // write: node n, features f .. f + 15 gathered from the tile's column n
+  const int n = t >> 2, f = (t & 3) * 16;
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int8_t* col = tile + (f + 4 * k) * Q_PITCH + n;
+    w[k] = static_cast<uint32_t>(static_cast<uint8_t>(col[0])) |
+           (static_cast<uint32_t>(static_cast<uint8_t>(col[Q_PITCH])) << 8) |
+           (static_cast<uint32_t>(static_cast<uint8_t>(col[2 * Q_PITCH])) << 16) |
+           (static_cast<uint32_t>(static_cast<uint8_t>(col[3 * Q_PITCH])) << 24);
+  }
+  *reinterpret_cast<uint4*>(q + (row0 + n) * D + f) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A tile's maximum of feature f (m: fmaxf over its 64 values) into its K2
+// block's: a number by its bits; an all-NaN tile counted in the block,
+// whose 16th such tile sends the NaN.
+__device__ __forceinline__ void tile_max(float m, int* block_max, int* nan_count) {
+  if (isnan(m)) {
+    if (atomicAdd(nan_count, 1) == K2_BLOCK_TILES - 1) atomicMax(block_max, __float_as_int(m));
+  } else if (m > 0.0f) {
+    atomicMax(block_max, __float_as_int(m));
+  }
+}
+
+// The last turn-out block to finish: amax[f] of each side, the maximum of
+// its K2 blocks' (as float bits; at least 0). Two threads an output, each
+// over every other K2 block, their loads independent.
+__device__ __forceinline__ void finish_amax(const Sweep& sw) {
+  static_assert(TURN_THREADS == 4 * D, "two threads for each of the 2 x 64 outputs");
+  __shared__ int part[TURN_THREADS];
+  const int i = threadIdx.x % (2 * D), half = threadIdx.x / (2 * D);
+  const int f = i % D;
+  const bool items = i >= D;
+  const int b1 = items ? sw.k2_blocks : sw.u_blocks;
+  int v = 0;
+#pragma unroll 8
+  for (int b = (items ? sw.u_blocks : 0) + half; b < b1; b += 2)
+    v = max(v, __ldcg(sw.block_max + b * D + f));
+  part[threadIdx.x] = v;
+  __syncthreads();
+  if (half == 0)
+    (items ? sw.side[1].amax : sw.side[0].amax)[f] = __int_as_float(max(v, part[i + 2 * D]));
+}
+
+// Block b turns 64 rows of the int32 sums back: b < u_pad / 64 into the
+// user side [64, u_pad], else into the item side [64, i_pad], converted to
+// float32 on the way and, in a chain sweep's mode, completed by K2's
+// epilogue. Warp w writes features w, w + 8, ..., lane l nodes l and l + 32
+// of the tile: 32 consecutive floats a store. A thread issues all its reads
+// of the combine or cotangent, the scales and the vectors before the sums'
+// tile: 16 loads of its own in flight, not one at a time behind its stores.
+template <int MODE>
+__global__ void __launch_bounds__(TURN_THREADS)
+turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
+  constexpr int KF = D / TURN_WARPS;  // features a warp writes
+  __shared__ float tile[TILE][D + 1];
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int user_blocks = u_pad / TILE;
+  const bool user = static_cast<int>(blockIdx.x) < user_blocks;
+  const SideSweep sd = user ? sw.side[0] : sw.side[1];
+  const int n0 = (user ? blockIdx.x : blockIdx.x - user_blocks) * TILE;
+  const size_t at0 = static_cast<size_t>(warp) * sd.n + n0 + lane;  // feature warp, node lane
+  const size_t f_step = static_cast<size_t>(TURN_WARPS) * sd.n;
+  float post[2] = {}, pre[2] = {}, s_in[KF] = {}, ext[KF][2] = {};
+  if constexpr (MODE != kRaw) {
+    const bool reads_ext = MODE == kForward ? sw.flag == kAdd : sw.flag != 0;
+#pragma unroll
+    for (int k = 0; k < KF; ++k) {
+      s_in[k] = sd.s_in[warp + TURN_WARPS * k];
+      if (reads_ext) {
+        ext[k][0] = sd.ext[at0 + k * f_step];
+        ext[k][1] = sd.ext[at0 + k * f_step + 32];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      post[h] = sd.post[n0 + lane + 32 * h];
+      if (sw.want_next) pre[h] = sd.pre[n0 + lane + 32 * h];
+    }
+  }
+  const int4* src =
+      reinterpret_cast<const int4*>(acc + static_cast<long long>(blockIdx.x) * TILE * D);
+  // read: 64 rows of 64 sums, 16 bytes a thread a round
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int idx = t + k * TURN_THREADS;
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const int4 v = src[idx];
+    tile[r][c] = static_cast<float>(v.x);
+    tile[r][c + 1] = static_cast<float>(v.y);
+    tile[r][c + 2] = static_cast<float>(v.z);
+    tile[r][c + 3] = static_cast<float>(v.w);
+  }
+  __syncthreads();
+  const int k2_block = ((user ? 0 : sw.u_blocks) + n0 / K2_BLOCK) * D;
+#pragma unroll
+  for (int k = 0; k < KF; ++k) {
+    const int f = warp + TURN_WARPS * k;
+    const size_t at = at0 + k * f_step;
+    if constexpr (MODE == kRaw) {
+      sd.out[at] = tile[lane][f];
+      sd.out[at + 32] = tile[lane + 32][f];
+    } else {
+      float a[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t e = at + 32 * h;
+        const float nh = __fmul_rn(post[h], __fmul_rn(tile[lane + 32 * h][f], s_in[k]));
+        if constexpr (MODE == kForward) {
+          if (sw.flag == kSet) {
+            sd.ext[e] = nh;
+          } else if (sw.flag == kAdd) {
+            sd.ext[e] = __fadd_rn(ext[k][h], nh);
+          }
+          if (sw.want_next) {
+            const float z = __fmul_rn(pre[h], nh);
+            sd.out[e] = z;
+            a[h] = fabsf(z);
+          }
+        } else {
+          float st = sw.flag ? __fadd_rn(ext[k][h], nh) : nh;
+          if (sw.want_next) {
+            st = __fmul_rn(pre[h], st);
+            a[h] = fabsf(st);
+          }
+          sd.out[e] = st;
+        }
+      }
+      if (sw.want_next) {  // uniform across the grid
+        float m = fmaxf(a[0], a[1]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        if (lane == 0) tile_max(m, sw.block_max + k2_block + f, sw.nan_tiles + k2_block + f);
+      }
+    }
+  }
+  if constexpr (MODE != kRaw) {
+    if (sw.want_next) {
+      __shared__ bool last;
+      if (lane == 0) __threadfence();  // this warp's maxima before the block's count
+      __syncthreads();
+      if (t == 0) last = atomicAdd(sw.done, 1) == static_cast<int>(gridDim.x) - 1;
+      __syncthreads();
+      if (last) {
+        __threadfence();
+        finish_amax(sw);
+      }
+    }
+  }
+}
+
+// The three launches of one call on the stored matrix m (PACKED: nibble-
+// packed, [u_pad, i_pad / 2]). q_scratch: int8 [(u_pad + i_pad) * 64];
+// acc_scratch: int32 [(u_pad + i_pad) * 64]; both 16-byte aligned.
+// extra[0, n_extra) is zeroed by the turn-in.
+template <bool PACKED, int MODE>
+cudaError_t launch_turned(const void* m, const void* quT, const void* qiT, void* q_scratch,
+                          void* acc_scratch, int* extra, int n_extra, const Sweep& sw, int u_pad,
+                          int i_pad, cudaStream_t s) {
+  if (u_pad <= 0 || i_pad <= 0 || u_pad % TILE != 0 || i_pad % TILE != 0 ||
+      (PACKED && i_pad % (2 * HALF_TILE) != 0))
+    return cudaErrorInvalidValue;
+  int8_t* q = static_cast<int8_t*>(q_scratch);
+  int* acc = static_cast<int*>(acc_scratch);
+  const unsigned blocks = static_cast<unsigned>((u_pad + i_pad) / TILE);
+  turn_in<<<blocks, TURN_THREADS, 0, s>>>(static_cast<const int8_t*>(quT),
+                                          static_cast<const int8_t*>(qiT), q, acc, u_pad, i_pad,
+                                          extra, n_extra);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int passes = 0;
+  err = launch_scan<PACKED>(static_cast<const int8_t*>(m), q, q + static_cast<size_t>(u_pad) * D,
+                            acc, acc + static_cast<size_t>(u_pad) * D, u_pad,
+                            PACKED ? i_pad / 2 : i_pad, D, &passes, s);
+  if (err != cudaSuccess) return err;
+  turn_out<MODE><<<blocks, TURN_THREADS, 0, s>>>(acc, sw, u_pad);
+  return cudaGetLastError();
+}
+
+// The raw sums: yuT [64, u_pad], yiT [64, i_pad] float32 (no zeroing needed).
+template <bool PACKED>
+int dual_t(const void* m, const void* quT, const void* qiT, void* yuT, void* yiT,
+           void* q_scratch, void* acc_scratch, int u_pad, int i_pad, void* stream) {
+  Sweep sw = {};
+  sw.side[0].out = static_cast<float*>(yuT);
+  sw.side[0].n = u_pad;
+  sw.side[1].out = static_cast<float*>(yiT);
+  sw.side[1].n = i_pad;
+  return static_cast<int>(launch_turned<PACKED, kRaw>(m, quT, qiT, q_scratch, acc_scratch,
+                                                      nullptr, 0, sw, u_pad, i_pad,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// K2 blocks of a side of n nodes
+__host__ __device__ constexpr int k2_blocks(int n) { return (n + K2_BLOCK - 1) / K2_BLOCK; }
+
+// the words of a sweep's aux buffer
+__host__ __device__ constexpr int sweep_aux_words(int u_pad, int i_pad) {
+  return 2 * D + 2 * D * (k2_blocks(u_pad) + k2_blocks(i_pad)) + 4;
+}
+
+// One chain sweep, both sides (mode 1 forward, 2 inject; see the note at the
+// top). s_u / s_i: the dequantization scales of the user and the item sums
+// (the item and the user input's scales); post_*, pre_*: [n] of each side;
+// ext_*: the combine c (forward) or the cotangent g (inject), [64, n];
+// out_*: z (forward, when want_next) or out (inject), [64, n], not aliasing
+// ext_*. aux: float32 [sweep_aux_words(u_pad, i_pad)]: the two amax
+// vectors (users, items), then the NaN-tile counts, the K2 blocks' maxima
+// and the count of finished blocks; zeroed here when want_next. flag: the combine mode (forward) or whether g is added
+// (inject).
+template <bool PACKED>
+int dual_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratch,
+                 void* acc_scratch, void* aux, const void* s_u, const void* s_i,
+                 const void* post_u, const void* pre_u, const void* post_i, const void* pre_i,
+                 void* ext_u, void* ext_i, void* out_u, void* out_i, int u_pad, int i_pad,
+                 int mode, int flag, int want_next, void* stream) {
+  float* amax = static_cast<float*>(aux);
+  const int u_blocks = k2_blocks(u_pad);
+  Sweep sw;
+  sw.side[0] = {static_cast<const float*>(s_u), static_cast<const float*>(post_u),
+                static_cast<const float*>(pre_u), static_cast<float*>(ext_u),
+                static_cast<float*>(out_u), amax, u_pad};
+  sw.side[1] = {static_cast<const float*>(s_i), static_cast<const float*>(post_i),
+                static_cast<const float*>(pre_i), static_cast<float*>(ext_i),
+                static_cast<float*>(out_i), amax + D, i_pad};
+  sw.u_blocks = u_blocks;
+  sw.k2_blocks = u_blocks + k2_blocks(i_pad);
+  sw.nan_tiles = reinterpret_cast<int*>(amax + 2 * D);
+  sw.block_max = sw.nan_tiles + D * sw.k2_blocks;
+  sw.done = sw.block_max + D * sw.k2_blocks;
+  sw.flag = flag;
+  sw.want_next = want_next;
+  const int n_extra = want_next ? sweep_aux_words(u_pad, i_pad) : 0;
+  int* extra = reinterpret_cast<int*>(aux);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (mode == kForward && flag >= kNone && flag <= kAdd)
+    err = launch_turned<PACKED, kForward>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
+                                          u_pad, i_pad, s);
+  else if (mode == kInject)
+    err = launch_turned<PACKED, kInject>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
+                                         u_pad, i_pad, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+}  // namespace

@@ -16,14 +16,19 @@ each a hand-written kernel:
     K2 chain_sweep_epilogue (this module) dequantize, normalize, combine,
                                           next input and its amax
 
+K2's work runs inside the dual's turn-out (`dual_sweep`, K1's or K5's
+third launch): the turn-out holds every sum of its tile and completes
+it as K2 would, so a sweep is K3 twice and the dual's three launches.
+The standalone K2 forms the chain's prologue, where no dual precedes it.
+
 Forward layer: h_{k+1} = l ⊙ dequant(M̂_dual(quant(r ⊙ h_k))), c += h_{k+1}.
 The f32 work keeps the TPU kernel's operation order (post * (raw * s),
 running combine, mean by division), so the result agrees with the JAX
 per-sweep chain to ulps, and a rounding tie may move one quantized
 activation by 1 lsb (tests/test_torch_propagate.py holds both bars).
-`fused_chain_resident_plain` runs the same chain through the three
-kernels' plain versions: it is the reference the tests and
-chip_smoke.py hold the kernel chain to.
+`fused_chain_resident_plain` runs the same chain through the kernels'
+plain versions: it is the reference the tests and chip_smoke.py hold
+the kernel chain to.
 
 The backward is straight-through and fully quantized, as the TPU
 kernel's mode 'bwd': the cotangent g of the combine runs the same chain
@@ -31,14 +36,15 @@ with the normalization vectors swapped,
 
     G_k = g + r ⊙ dequant(M̂_dual(quant(l ⊙ G_{k+1}))),
 
-through K3, K1 and K2's inject mode (`chain_sweep_inject`), and needs
+through K3 and K1 with K2's inject mode in its turn-out
+(`dual_sweep_inject`; standalone, `chain_sweep_inject`), and needs
 nothing of the forward but the adjacency. Both chains are one
 `torch.autograd.Function`, so the plain chain's gradient is the
 reference of the kernel chain's.
 
 The tanh chain (EGCF's; the TPU kernel's ``activation='tanh'``, ROADMAP
-B.B4) runs the same three launches a sweep with K9 `chain_sweep_tanh`
-in K2's place: h = tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N]
+B.B4) runs K3 and the dual a sweep with K9 `chain_sweep_tanh` in K2's
+place: h = tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N]
 stream,
 the combine sums the counted layers (layer 0 is never one), and the
 next input is r ⊙ h. Its backward (K10 `chain_sweep_tanh_inject`) reads
@@ -175,6 +181,94 @@ def chain_sweep_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
 chain_sweep_inject.launches = 0
 
 
+_PLAIN_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t_plain,
+                "int4": fusedmm.fused_adj_matmul_int4_t_plain}
+_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
+
+
+def dual_sweep_plain(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+                     qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, c: tuple,
+                     combine: int, want_next: bool):
+    """Plain version of `dual_sweep`: the plain dual (K1's, or K5's on
+    the packed matrix when ``quant`` is 'int4'), then K2's plain version
+    on each side. yu = M @ qi dequantizes by the item input's scale
+    ``si``, yi by the user's ``su`` ([d, 1] each). post, pre, c: (user
+    side, item side). Returns (zu, amax_u, zi, amax_i), Nones without
+    ``want_next``."""
+    yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
+    zu, amax_u = chain_sweep_epilogue_plain(yu, si[:, 0], post[0], pre[0], c[0], combine,
+                                            want_next)
+    zi, amax_i = chain_sweep_epilogue_plain(yi, su[:, 0], post[1], pre[1], c[1], combine,
+                                            want_next)
+    return zu, amax_u, zi, amax_i
+
+
+def dual_sweep(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+               qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, c: tuple,
+               combine: int, want_next: bool):
+    """One forward sweep of the quantized chain, both sides: the dual
+    product of the quantized inputs and K2's epilogue on each side (see
+    `dual_sweep_plain`), equal to it bit for bit. CPU tensors take the
+    plain version; CUDA tensors launch K1 (``quant`` 'int8') or K5
+    ('int4') with the epilogue in its turn-out, three device launches
+    and no K2 launch, or raise. Counts one dual launch
+    (``fused_adj_matmul_int8_t.launches`` or ``_int4_t``) and one
+    ``dual_sweep.launches``."""
+    if m.device.type == "cpu":
+        return dual_sweep_plain(quant, m, qu, su, qi, si, post, pre, c, combine, want_next)
+    if m.device.type != "cuda":
+        raise ValueError(f"unsupported device {m.device}")
+    if combine not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD):
+        raise ValueError(f"unknown combine mode {combine}")
+    out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, c,
+                                 fusedmm.SWEEP_FORWARD, combine, want_next)
+    _DUALS[quant].launches += 1
+    dual_sweep.launches += 1
+    return out
+
+
+dual_sweep.launches = 0
+
+
+def dual_sweep_inject_plain(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+                            qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple,
+                            g: tuple, inject: bool, want_next: bool):
+    """Plain version of `dual_sweep_inject`: the plain dual, then K2's
+    inject mode's plain version on each side (g: (user side, item
+    side), read only). Returns (out_u, amax_u, out_i, amax_i): with
+    ``want_next`` the next inputs and their amax, else the stores and
+    None."""
+    yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
+    out_u, amax_u = chain_sweep_inject_plain(yu, si[:, 0], post[0], pre[0], g[0], inject,
+                                             want_next)
+    out_i, amax_i = chain_sweep_inject_plain(yi, su[:, 0], post[1], pre[1], g[1], inject,
+                                             want_next)
+    return out_u, amax_u, out_i, amax_i
+
+
+def dual_sweep_inject(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+                      qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, g: tuple,
+                      inject: bool, want_next: bool):
+    """One sweep of the straight-through backward chain, both sides
+    (see `dual_sweep_inject_plain`), equal to its plain version bit for
+    bit. CPU tensors take the plain version; CUDA tensors launch K1 or
+    K5 with K2's inject mode in its turn-out, or raise. Counts one dual
+    launch and one ``dual_sweep_inject.launches``."""
+    if m.device.type == "cpu":
+        return dual_sweep_inject_plain(quant, m, qu, su, qi, si, post, pre, g, inject,
+                                       want_next)
+    if m.device.type != "cuda":
+        raise ValueError(f"unsupported device {m.device}")
+    out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, g,
+                                 fusedmm.SWEEP_INJECT, bool(inject), want_next)
+    _DUALS[quant].launches += 1
+    dual_sweep_inject.launches += 1
+    return out
+
+
+dual_sweep_inject.launches = 0
+
+
 _K9 = "chain_sweep_tanh"
 
 
@@ -296,25 +390,23 @@ chain_sweep_tanh_inject.launches = 0
 
 
 class ChainOps(NamedTuple):
-    """The per-sweep operations of the chain; the dual by the
-    adjacency's ``quant``."""
+    """The per-sweep operations of the chain: the dual by the
+    adjacency's ``quant`` (the tanh chain's), the linear chain's sweeps
+    (the dual with K2's epilogue, forward and inject), the epilogues."""
 
     dual: Mapping[str, Callable]
     quantize: Callable
+    sweep: Callable
+    sweep_inject: Callable
     epilogue: Callable
-    inject: Callable
     tanh: Callable
     tanh_inject: Callable
 
 
-KERNELS = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t,
-                    "int4": fusedmm.fused_adj_matmul_int4_t},
-                   propagate.quantize_rows, chain_sweep_epilogue, chain_sweep_inject,
-                   chain_sweep_tanh, chain_sweep_tanh_inject)
-PLAIN = ChainOps({"int8": fusedmm.fused_adj_matmul_int8_t_plain,
-                  "int4": fusedmm.fused_adj_matmul_int4_t_plain},
-                 propagate.quantize_rows_plain, chain_sweep_epilogue_plain,
-                 chain_sweep_inject_plain, chain_sweep_tanh_plain,
+KERNELS = ChainOps(_DUALS, propagate.quantize_rows, dual_sweep, dual_sweep_inject,
+                   chain_sweep_epilogue, chain_sweep_tanh, chain_sweep_tanh_inject)
+PLAIN = ChainOps(_PLAIN_DUALS, propagate.quantize_rows_plain, dual_sweep_plain,
+                 dual_sweep_inject_plain, chain_sweep_epilogue_plain, chain_sweep_tanh_plain,
                  chain_sweep_tanh_inject_plain)
 
 
@@ -363,12 +455,10 @@ def _run_chain(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int,
     for k in range(num_layers):
         qu, su = ops.quantize(zu, amax_u)
         qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
         combine = COMBINE_ADD if (include_layer0 or k > 0) else COMBINE_SET
         more = k < num_layers - 1
-        # yu = M @ qi dequantizes by the item input's scale, yi by the user's
-        zu, amax_u = ops.epilogue(yu, si[:, 0], lu, ru, cu, combine, more)
-        zi, amax_i = ops.epilogue(yi, su[:, 0], li, ri, ci, combine, more)
+        zu, amax_u, zi, amax_i = ops.sweep(adj.quant, adj.m8, qu, su, qi, si, (lu, li),
+                                           (ru, ri), (cu, ci), combine, more)
     return cu, ci
 
 
@@ -392,11 +482,10 @@ def _run_chain_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, num_layers: int,
     for k in range(num_layers):
         qu, su = ops.quantize(zu, amax_u)
         qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
         more = k < num_layers - 1
-        inject = include_layer0 or more
-        zu, amax_u = ops.inject(yu, si[:, 0], ru, lu, gu, inject, more)
-        zi, amax_i = ops.inject(yi, su[:, 0], ri, li, gi, inject, more)
+        zu, amax_u, zi, amax_i = ops.sweep_inject(adj.quant, adj.m8, qu, su, qi, si, (ru, ri),
+                                                  (lu, li), (gu, gi), include_layer0 or more,
+                                                  more)
     return zu, zi
 
 
@@ -584,8 +673,9 @@ def _chain(adj, emb0: torch.Tensor, num_layers: int, include_layer0: bool,
 def fused_chain_resident(adj, emb0: torch.Tensor, num_layers: int,
                          include_layer0: bool = True, reduce: str = "mean", activation=None,
                          seed_users_from_items: bool = False) -> torch.Tensor:
-    """The K-layer chain's layer combine, [N, d], through kernels K1-K3
-    or K5 (drop-in for `propagate.fused_chain_t` in reduce modes).
+    """The K-layer chain's layer combine, [N, d], through kernels K1 or
+    K5 with K2 in their turn-out, K2 for the prologue and K3 (drop-in
+    for `propagate.fused_chain_t` in reduce modes).
     ``activation`` None or `torch.tanh` (K9 and K10 then take K2's
     place); ``seed_users_from_items`` is EGCF's parallel-mode seeding
     and needs tanh and ``include_layer0=False``. Differentiable in

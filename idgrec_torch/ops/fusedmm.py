@@ -12,17 +12,19 @@ kernel ``csrc/dual_int8_t.cu`` (K1; counterpart of
 idgrec_tpu/ops/fusedmm.py `fused_adj_matmul_int8_t`): it turns the
 activations to [N, d], runs the scan of M that K7 runs (one read of M,
 its non-zero entries only, ``csrc/dual_scan.cuh``) and turns the sums
-back, three launches a call. It returns the raw integer products as
-float32; the caller dequantizes.
+back (``csrc/dual_turns.cuh``), three launches a call. It returns the
+raw integer products as float32; the caller dequantizes.
 `fused_adj_matmul_int8_t_plain` is its plain PyTorch version: the tests
 run it on the CPU, and chip_smoke.py holds the kernel to it on the card.
 
 The int4 mode is a storage change only. Counts up to `NIBBLE_MAX` are
 packed two to a byte (`pack_nibbles`), the activations stay int8, and
-`fused_adj_matmul_int4_t` (kernel ``csrc/dual_int4_t.cu``, K5) returns
-the same integer products as K1 on the unpacked matrix, bit for bit,
-from half the bytes. `fused_adj_matmul_int4_t_plain` unpacks and runs
-K1's plain version.
+`fused_adj_matmul_int4_t` (kernel ``csrc/dual_int4_t.cu``, K5: K1's
+turns around K8's scan of the packed bytes) returns the same integer
+products as K1 on the unpacked matrix, bit for bit, from half the
+bytes. `fused_adj_matmul_int4_t_plain` unpacks and runs K1's plain
+version. `launch_sweep_t` runs K1 or K5 with the quantized chain's
+per-sweep epilogue in its turn-out (`chainmm.dual_sweep`).
 
 The per-application product (`FusedSquareAdj.matmul`) keeps the
 activations in [N, d] layout. `fused_adj_matmul` is the exact-mode dual,
@@ -170,16 +172,22 @@ def fused_adj_matmul_int4_t_plain(m4: torch.Tensor, quT: torch.Tensor,
 
 
 _K6 = "dual_bf16"
+_T_KERNELS = {"int8": "dual_int8_t", "int4": "dual_int4_t"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C signature of each kernel of this module: pointers, ints, the stream
+_T_SIGNATURE = [_P] * 7 + [_I] * 2 + [_P]
 _SIGNATURES = {
-    "dual_int8_t": [_P] * 7 + [_I] * 2 + [_P],
-    "dual_int4_t": [_P] * 5 + [_I] * 2 + [_P],
+    "dual_int8_t": _T_SIGNATURE,
+    "dual_int4_t": _T_SIGNATURE,
     # K6, K7 and K8 also report the scans of M they launched
     "dual_bf16": [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [ctypes.POINTER(_I), _P],
     "dual_int8_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
+# K1's and K5's chain sweep (``<kernel>_sweep``)
+_SWEEP_SIGNATURE = [_P] * 16 + [_I] * 5 + [_P]
+# the turn-out's modes of a chain sweep (``csrc/dual_turns.cuh``)
+SWEEP_FORWARD, SWEEP_INJECT = 1, 2
 
 
 @functools.cache
@@ -188,6 +196,13 @@ def _lib(kernel: str) -> ctypes.CDLL:
     fn = getattr(lib, kernel)
     fn.argtypes = _SIGNATURES[kernel]
     fn.restype = ctypes.c_int
+    if kernel in _T_KERNELS.values():
+        sweep = getattr(lib, f"{kernel}_sweep")
+        sweep.argtypes = _SWEEP_SIGNATURE
+        sweep.restype = ctypes.c_int
+        words = getattr(lib, f"{kernel}_sweep_aux_words")
+        words.argtypes = [_I] * 2
+        words.restype = ctypes.c_int
     if kernel == _K6:
         lib.dual_bf16_scratch_bytes.argtypes = [_I] * 3
         lib.dual_bf16_scratch_bytes.restype = ctypes.c_longlong
@@ -213,40 +228,73 @@ def _check_t(kernel: str, quant: str, m: torch.Tensor, quT: torch.Tensor,
     return u_pad, i_pad, d
 
 
-def _launch_k1(m8: torch.Tensor, quT: torch.Tensor,
-               qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check K1's operands and launch it: the turn to [N, d] with the
-    sums zeroed, the scan, the turn back with the float32 conversion."""
-    kernel = "dual_int8_t"
-    u_pad, i_pad, d = _check_t(kernel, "int8", m8, quT, qiT)
-    dev = m8.device
+def _t_scratch(u_pad: int, i_pad: int, d: int, dev: torch.device) -> tuple[torch.Tensor, int]:
+    """K1's and K5's scratch, one allocation: the int32 sums, then the
+    turned activations; (scratch, the activations' byte offset)."""
     rows = (u_pad + i_pad) * d
-    # the int32 sums, then the turned activations: one allocation
-    scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
+    return torch.empty(5 * rows, dtype=torch.int8, device=dev), 4 * rows
+
+
+def _launch_t(quant: str, m: torch.Tensor, quT: torch.Tensor,
+              qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check the operands of K1 (``quant`` 'int8') or K5 ('int4') and
+    launch it: the turn to [N, d] with the sums zeroed, the scan, the
+    turn back with the float32 conversion. One scratch allocation, no
+    fill."""
+    kernel = _T_KERNELS[quant]
+    u_pad, i_pad, d = _check_t(kernel, quant, m, quT, qiT)
+    dev = m.device
+    scratch, q_at = _t_scratch(u_pad, i_pad, d, dev)
     yu = torch.empty((d, u_pad), dtype=torch.float32, device=dev)
     yi = torch.empty((d, i_pad), dtype=torch.float32, device=dev)
     lib = _lib(kernel)
-    code = lib.dual_int8_t(m8.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
-                           yi.data_ptr(), scratch.data_ptr() + 4 * rows, scratch.data_ptr(),
-                           u_pad, i_pad, torch.cuda.current_stream(dev).cuda_stream)
+    code = getattr(lib, kernel)(m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
+                                yi.data_ptr(), scratch.data_ptr() + q_at, scratch.data_ptr(),
+                                u_pad, i_pad, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, kernel, code)
     return yu, yi
 
 
-def _launch_k5(m4: torch.Tensor, quT: torch.Tensor,
-               qiT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check K5's operands and launch it into zeroed int32 outputs,
-    which it converts to float32 in place."""
-    kernel = "dual_int4_t"
-    u_pad, i_pad, d = _check_t(kernel, "int4", m4, quT, qiT)
-    yu = torch.zeros((d, u_pad), dtype=torch.int32, device=m4.device)
-    yi = torch.zeros((d, i_pad), dtype=torch.int32, device=m4.device)
+def launch_sweep_t(quant: str, m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor,
+                   s_u: torch.Tensor, s_i: torch.Tensor, post: tuple, pre: tuple, ext: tuple,
+                   mode: int, flag: int, want_next: bool):
+    """One sweep of the quantized chain on CUDA tensors: K1 (``quant``
+    'int8') or K5 ('int4') with the chain's epilogue in its turn-out,
+    both sides, three device launches (`chainmm.dual_sweep` states the
+    arithmetic). s_u, s_i [d]: the scales of the user and the item sums;
+    post, pre, ext: (user side, item side) of [N] vectors and of the
+    combine (``mode`` SWEEP_FORWARD, updated in place) or the cotangent
+    (SWEEP_INJECT, read only). ``flag``: the combine mode, or whether
+    the cotangent is added. Returns (out_u, amax_u, out_i, amax_i): z
+    and its amax when ``want_next`` (forward; else None), the store and
+    its amax (inject; amax None unless ``want_next``)."""
+    kernel = _T_KERNELS[quant]
+    u_pad, i_pad, d = _check_t(kernel, quant, m, quT, qiT)
+    dev = m.device
+    for k, (side, n, s_) in enumerate((("u", u_pad, s_u), ("i", i_pad, s_i))):
+        for name, t, shape in ((f"s_{side}", s_, (d,)), (f"post_{side}", post[k], (n,)),
+                               (f"pre_{side}", pre[k], (n,)), (f"ext_{side}", ext[k], (d, n))):
+            _check_operand(name, t, torch.float32, shape, dev)
+    if mode not in (SWEEP_FORWARD, SWEEP_INJECT):
+        raise ValueError(f"unknown sweep mode {mode}")
+    scratch, q_at = _t_scratch(u_pad, i_pad, d, dev)
     lib = _lib(kernel)
-    stream = torch.cuda.current_stream(m4.device).cuda_stream
-    code = lib.dual_int4_t(m4.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
-                           yi.data_ptr(), u_pad, i_pad, stream)
+    # the two amax vectors, then the turn-out's per-block maxima and counts
+    aux = torch.empty(getattr(lib, f"{kernel}_sweep_aux_words")(u_pad, i_pad),
+                      dtype=torch.float32, device=dev)
+    writes = mode == SWEEP_INJECT or want_next
+    out_u = torch.empty((d, u_pad), dtype=torch.float32, device=dev) if writes else None
+    out_i = torch.empty((d, i_pad), dtype=torch.float32, device=dev) if writes else None
+    code = getattr(lib, f"{kernel}_sweep")(
+        m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), scratch.data_ptr() + q_at,
+        scratch.data_ptr(), aux.data_ptr(), s_u.data_ptr(), s_i.data_ptr(), post[0].data_ptr(),
+        pre[0].data_ptr(), post[1].data_ptr(), pre[1].data_ptr(), ext[0].data_ptr(),
+        ext[1].data_ptr(), out_u.data_ptr() if writes else None,
+        out_i.data_ptr() if writes else None, u_pad, i_pad, mode, int(flag), int(want_next),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, kernel, code)
-    return yu.view(torch.float32), yi.view(torch.float32)
+    amax_u, amax_i = (aux[:d], aux[d:2 * d]) if want_next else (None, None)
+    return out_u, amax_u, out_i, amax_i
 
 
 def fused_adj_matmul_int8_t(m8: torch.Tensor, quT: torch.Tensor,
@@ -266,7 +314,7 @@ def fused_adj_matmul_int8_t(m8: torch.Tensor, quT: torch.Tensor,
         return fused_adj_matmul_int8_t_plain(m8, quT, qiT)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
-    out = _launch_k1(m8, quT, qiT)
+    out = _launch_t("int8", m8, quT, qiT)
     fused_adj_matmul_int8_t.launches += 1
     return out
 
@@ -282,12 +330,13 @@ def fused_adj_matmul_int4_t(m4: torch.Tensor, quT: torch.Tensor,
     equal to K1's output on `unpack_nibbles(m4)`.
 
     CPU tensors take the plain version; CUDA tensors launch K5 or
-    raise."""
+    raise. K5 is K1's three launches with K8's scan of the packed
+    bytes, and does not synchronise with the host."""
     if m4.device.type == "cpu":
         return fused_adj_matmul_int4_t_plain(m4, quT, qiT)
     if m4.device.type != "cuda":
         raise ValueError(f"unsupported device {m4.device}")
-    out = _launch_k5(m4, quT, qiT)
+    out = _launch_t("int4", m4, quT, qiT)
     fused_adj_matmul_int4_t.launches += 1
     return out
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where kernels K7 (idgrec_torch/csrc/dual_int8_n.cu), K1
-(csrc/dual_int8_t.cu), K8 (csrc/dual_int4_n.cu), K6 (csrc/dual_bf16.cu)
-and K11 (csrc/bit_matmul.cu) spend their time, and where kernel K4's
-time goes (idgrec_torch/csrc/scatter_add_rows.cu), on one NVIDIA GPU.
+(csrc/dual_int8_t.cu), K5 (csrc/dual_int4_t.cu), K8 (csrc/dual_int4_n.cu),
+K6 (csrc/dual_bf16.cu) and K11 (csrc/bit_matmul.cu) spend their time,
+and where kernel K4's time goes (idgrec_torch/csrc/scatter_add_rows.cu),
+on one NVIDIA GPU.
 
     python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k1]
-                                         [--skip-k8] [--skip-k4] [--skip-k6]
-                                         [--skip-k11]
+                                         [--skip-k5] [--skip-k8] [--skip-k4]
+                                         [--skip-k6] [--skip-k11] [--skip-sweep]
 
 ``--root`` names the tree whose ``idgrec_torch`` is measured (default:
 this one), so a checkout of an earlier commit can be measured with the
@@ -23,20 +24,31 @@ matrix of chip_smoke.py with random int8 activations, at d = 64 and
 d = 128, the outputs zeroed before every launch as the wrapper does.
 A patch whose anchor text is missing from the source fails the run.
 ptxas's registers, shared memory and spills of the full variant are
-printed. The scan's body lives in ``csrc/dual_scan.cuh``, which K1, K7
-and K8 include: a variant's source has the header pasted in, so a patch
-reaches it.
+printed. The scan's body lives in ``csrc/dual_scan.cuh``, which K1, K5,
+K7 and K8 include, and K1's and K5's turns in ``csrc/dual_turns.cuh``: a
+variant's source has the headers pasted in, so a patch reaches them.
 
 K1 (the scan with the layout turned at both edges, three launches), at
 d = 64 on the same matrix with random [d, N] activations: the full call,
 the entries' work taken out (the stream of M alone, turns kept), each
 turn taken out, the scan launch alone, the stream alone, and the two
-turns alone. K8 (the scan on the nibble-packed matrix) at d = 64 and
-d = 128: the full call and the stream alone. On a tree whose K1 or K8
-is the tile kernel (commit 2d94ae4 and earlier) those variants are
-skipped. For every tree: the wrappers of K1, K7 and K8 timed, and the
-device launches of one call of each counted with torch.profiler
-(kernels and memsets, the wrapper's allocations and fills included).
+turns alone; K5 (the same turns around the scan of the nibble-packed
+matrix) the same variants on the packed matrix. K8 (the scan on the
+nibble-packed matrix) at d = 64 and d = 128: the full call and the
+stream alone. On a tree whose K1, K5 or K8 is the tile kernel (K1 and
+K8: commit 2d94ae4 and earlier; K5: commit 438eec0 and earlier) those
+variants are skipped. For every tree: the wrappers of K1, K5, K7 and K8
+timed, and the device launches of one call of each counted with
+torch.profiler (kernels and memsets, the wrapper's allocations and fills
+included).
+
+The chain's sweep (K1 with K2's epilogue in its turn-out,
+``dual_int8_t_sweep``; trees after commit 438eec0) at d = 64, forward
+with the combine added and a next input, through the library call: the
+full sweep and its raw dual (``dual_int8_t``) beside it, the per-tile
+maxima sent straight to the amax (no K2-block maxima, no last block),
+the maxima not sent, the last block's pass out, and the combine's reads
+out. The full variant is held to `chainmm.dual_sweep_plain` bit for bit.
 
 K6 and K11: each variant's library is loaded in place of the tree's own
 and timed through the tree's wrapper (its allocations and launches
@@ -141,9 +153,10 @@ for _u in (2, 8):
     SCAN_VARIANTS[f"unroll_{_u}"] = [(r"constexpr int UNROLL = \d+;", f"constexpr int UNROLL = {_u};")]
 SCAN_VARIANTS["batch_double"] = [(r"constexpr int BATCH = 8 / FPL;", "constexpr int BATCH = 16 / FPL;")]
 
-# K1: the scan between the two layout turns (turn_in, then turn_out)
+# K1 and K5: the scan between the two layout turns (turn_in, then
+# turn_out, a template on its mode since the turns moved to a header)
 _NO_TURN_IN = (r"turn_in<<<[^;]*;", "")
-_NO_TURN_OUT = (r"turn_out<<<[^;]*;", "")
+_NO_TURN_OUT = (r"turn_out(?:<\w+>)?<<<[^;]*;", "")
 K1_VARIANTS = {
     "full": [],
     "no_entries": [_NO_ENTRIES],
@@ -151,12 +164,23 @@ K1_VARIANTS = {
     "no_turn_out": [_NO_TURN_OUT],
     "scan_launch_alone": [_NO_TURN_IN, _NO_TURN_OUT],
     "stream_alone": [_NO_TURN_IN, _NO_TURN_OUT, _NO_ENTRIES],
-    "turns_alone": [(r"err = launch_scan<false>\([^;]*;", "err = cudaSuccess;")],
+    "turns_alone": [(r"err = launch_scan<\w+>\([^;]*;", "err = cudaSuccess;")],
+}
+# The chain's sweep: K1 with K2's epilogue in the turn-out
+_SEND = r"tile_max\(m, sw\.block_max \+ k2_block \+ f, "
+SWEEP_VARIANTS = {
+    "full": [],
+    "one_amax_target": [(_SEND, "tile_max(m, reinterpret_cast<int*>(sd.amax + f), "),
+                        (r"finish_amax\(sw\);", ";")],
+    "no_maxima": [(r"if \(lane == 0\) tile_max\([^;]*;", ";")],
+    "no_finish": [(r"finish_amax\(sw\);", ";")],
+    "no_combine_reads": [(r"ext\[k\]\[(\d)\] = sd\.ext\[[^;]*;", r"ext[k][\1] = 0.0f;")],
 }
 # K8: the scan on the packed bytes
 K8_VARIANTS = {"full": [], "stream_alone": [_NO_ENTRIES]}
 
 _HEADER = '#include "dual_scan.cuh"\n'
+_INCLUDE = re.compile(r'#include "(\w+\.cuh)"\n')
 
 # K6's tile kernel (commit f93bb61 and earlier), measured with --root
 K6_TILE_VARIANTS = {
@@ -235,11 +259,20 @@ def variants_for(text: str) -> dict:
 
 
 def with_header(text: str, csrc_dir: str) -> str:
-    """``text`` with the scan header pasted in place of its include."""
-    if _HEADER not in text:
-        return text
-    with open(os.path.join(csrc_dir, "dual_scan.cuh")) as f:
-        return text.replace(_HEADER, f.read(), 1)
+    """``text`` with the kernels' headers pasted in place of their
+    includes, the headers' own includes too, each header once."""
+    pasted = set()
+
+    def paste(match):
+        name = match.group(1)
+        if name in pasted:
+            return ""
+        pasted.add(name)
+        with open(os.path.join(csrc_dir, name)) as f:
+            body = f.read().replace("#pragma once\n", "")
+        return _INCLUDE.sub(paste, body)
+
+    return _INCLUDE.sub(paste, text)
 
 
 def build_all(build_mod, source: str, variants: dict | None = None, tag: str = "k7") -> dict:
@@ -304,55 +337,61 @@ def _ptxas(log: str) -> list:
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def k1_ablation(dev, m8, build_mod, fusedmm) -> dict:
-    """K1 at d = 64: its wrapper and device launches, and on the scan
-    design its variants (the library call, no allocation)."""
-    u_pad, i_pad = m8.shape
+def turned_ablation(dev, m, build_mod, fusedmm, kernel: str) -> dict:
+    """K1 (``kernel`` 'dual_int8_t', m the int8 matrix) or K5
+    ('dual_int4_t', m the nibble-packed one) at d = 64: its wrapper and
+    device launches, and on the scan design its variants (the library
+    call, no allocation)."""
+    tag = {"dual_int8_t": "K1", "dual_int4_t": "K5"}[kernel]
+    quant = "int4" if tag == "K5" else "int8"
+    wrapper = getattr(fusedmm, f"fused_adj_matmul_{quant}_t")
+    plain = getattr(fusedmm, f"fused_adj_matmul_{quant}_t_plain")
+    u_pad, i_pad = m.shape[0], m.shape[1] * (2 if tag == "K5" else 1)
     d = 64
     g = torch.Generator(device="cpu").manual_seed(2)
     quT = torch.randint(-127, 128, (d, u_pad), generator=g, dtype=torch.int8).to(dev)
     qiT = torch.randint(-127, 128, (d, i_pad), generator=g, dtype=torch.int8).to(dev)
-    call = lambda: fusedmm.fused_adj_matmul_int8_t(m8, quT, qiT)  # noqa: E731
+    call = lambda: wrapper(m, quT, qiT)  # noqa: E731
     out = {"wrapper_ms": timed(call), "device_launches_per_call": device_launches(call)}
-    print(f"K1 wrapper {out['wrapper_ms']:.4f} ms, {out['device_launches_per_call']} device "
+    print(f"{tag} wrapper {out['wrapper_ms']:.4f} ms, {out['device_launches_per_call']} device "
           "launches a call", flush=True)
-    source = build_mod.source_path("dual_int8_t")
-    if "turn_in<<<" not in open(source).read():
-        print("K1 is the tile kernel in this tree: no variants", flush=True)
+    source = build_mod.source_path(kernel)
+    if "turn_in<<<" not in with_header(open(source).read(), build_mod.CSRC_DIR):
+        print(f"{tag} is the tile kernel in this tree: no variants", flush=True)
         return out
-    built = build_all(build_mod, source, K1_VARIANTS, "k1")
+    built = build_all(build_mod, source, K1_VARIANTS, tag.lower())
     out["ptxas_full"] = _ptxas(built["full"][1])
     for ln in out["ptxas_full"]:
-        print(f"ptxas (K1 full): {ln}", flush=True)
+        print(f"ptxas ({tag} full): {ln}", flush=True)
     rows = (u_pad + i_pad) * d
     scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
     yu = torch.empty((d, u_pad), dtype=torch.float32, device=dev)
     yi = torch.empty((d, i_pad), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    want = fusedmm.fused_adj_matmul_int8_t_plain(m8, quT, qiT)
+    want = plain(m, quT, qiT)
     ms = {}
     for name, (so, log) in built.items():
         if so is None:
-            print(f"K1 {name}: not measured, nvcc failed:\n{log}", flush=True)
+            print(f"{tag} {name}: not measured, nvcc failed:\n{log}", flush=True)
             ms[name] = None
             continue
         lib = ctypes.CDLL(so)
-        lib.dual_int8_t.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.dual_int8_t.restype = ctypes.c_int
+        fn = getattr(lib, kernel)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
         def run():
-            code = lib.dual_int8_t(m8.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(),
-                                   yi.data_ptr(), scratch.data_ptr() + 4 * rows,
-                                   scratch.data_ptr(), u_pad, i_pad, stream)
+            code = fn(m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), yu.data_ptr(), yi.data_ptr(),
+                      scratch.data_ptr() + 4 * rows, scratch.data_ptr(), u_pad, i_pad, stream)
             if code:
-                raise RuntimeError(f"K1 {name}: CUDA error {code}")
+                raise RuntimeError(f"{tag} {name}: CUDA error {code}")
 
         ms[name] = timed(run)
         if name == "full":
             run()
             if not (torch.equal(yu, want[0]) and torch.equal(yi, want[1])):
-                raise RuntimeError("the full K1 variant differs from the plain version")
-        print(f"K1 {name}: d=64 {ms[name]:.4f} ms", flush=True)
+                raise RuntimeError(f"the full {tag} variant differs from the plain version")
+        print(f"{tag} {name}: d=64 {ms[name]:.4f} ms", flush=True)
     out["ms"] = ms
     return out
 
@@ -622,6 +661,77 @@ def k11_ablation(dev, data, build_mod, bitmm, propagate) -> dict:
     return out
 
 
+def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
+    """The int8 chain sweep at d = 64 (forward, the combine added, a next
+    input) through each variant's library call, beside the raw dual."""
+    source = build_mod.source_path("dual_int8_t")
+    if "dual_int8_t_sweep" not in open(source).read():
+        print("this tree has no chain sweep in K1: no variants", flush=True)
+        return {}
+    u_pad, i_pad = m8.shape
+    d = 64
+    g = torch.Generator(device="cpu").manual_seed(5)
+    qu, qi = (torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8).to(dev)
+              for n in (u_pad, i_pad))
+    su, si = ((torch.rand(d, 1, generator=g) * 1e-3 + 1e-4).to(dev) for _ in range(2))
+    post = tuple(torch.rand(n, generator=g).to(dev) for n in (u_pad, i_pad))
+    pre = tuple(torch.rand(n, generator=g).to(dev) for n in (u_pad, i_pad))
+    c0 = tuple(torch.randn(d, n, generator=g).to(dev) for n in (u_pad, i_pad))
+    c_want = [t.clone() for t in c0]
+    want = chainmm.dual_sweep_plain("int8", m8, qu, su, qi, si, post, pre, c_want,
+                                    chainmm.COMBINE_ADD, True)
+    built = build_all(build_mod, source, SWEEP_VARIANTS, "sweep")
+    rows = (u_pad + i_pad) * d
+    scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {"ms": {}}
+    for name, (so, log) in built.items():
+        if so is None:
+            print(f"sweep {name}: not measured, nvcc failed:\n{log}", flush=True)
+            out["ms"][name] = None
+            continue
+        lib = ctypes.CDLL(so)
+        lib.dual_int8_t_sweep.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.dual_int8_t_sweep.restype = ctypes.c_int
+        lib.dual_int8_t.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.dual_int8_t.restype = ctypes.c_int
+        lib.dual_int8_t_sweep_aux_words.argtypes = [ctypes.c_int] * 2
+        aux = torch.empty(lib.dual_int8_t_sweep_aux_words(u_pad, i_pad), device=dev)
+        c = [t.clone() for t in c0]
+        z = [torch.empty(d, n, device=dev) for n in (u_pad, i_pad)]
+
+        def run():
+            code = lib.dual_int8_t_sweep(
+                m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
+                scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr(),
+                post[0].data_ptr(), pre[0].data_ptr(), post[1].data_ptr(), pre[1].data_ptr(),
+                c[0].data_ptr(), c[1].data_ptr(), z[0].data_ptr(), z[1].data_ptr(), u_pad, i_pad,
+                fusedmm.SWEEP_FORWARD, chainmm.COMBINE_ADD, 1, stream)
+            if code:
+                raise RuntimeError(f"sweep {name}: CUDA error {code}")
+
+        if name == "full":
+            run()
+            got = (z[0], aux[:d], z[1], aux[d:2 * d], *c)
+            if not all(torch.equal(a, b) for a, b in zip(got, (*want, *c_want))):
+                raise RuntimeError("the full sweep variant differs from its plain version")
+
+            def raw():
+                code = lib.dual_int8_t(m8.data_ptr(), qu.data_ptr(), qi.data_ptr(),
+                                       z[0].data_ptr(), z[1].data_ptr(),
+                                       scratch.data_ptr() + 4 * rows, scratch.data_ptr(), u_pad,
+                                       i_pad, stream)
+                if code:
+                    raise RuntimeError(f"raw dual: CUDA error {code}")
+
+            out["ms"]["raw_dual"] = timed(raw)
+            print(f"sweep raw_dual: {out['ms']['raw_dual']:.4f} ms", flush=True)
+        out["ms"][name] = timed(run)
+        print(f"sweep {name}: {out['ms'][name]:.4f} ms", flush=True)
+    return out
+
+
 def k4_split(dev, data, scatter) -> dict:
     from idgrec_torch.engine.sampler import NegativeSampler
 
@@ -749,17 +859,19 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--skip-k7", action="store_true")
     parser.add_argument("--skip-k1", action="store_true")
+    parser.add_argument("--skip-k5", action="store_true")
     parser.add_argument("--skip-k8", action="store_true")
     parser.add_argument("--skip-k4", action="store_true")
     parser.add_argument("--skip-k6", action="store_true")
     parser.add_argument("--skip-k11", action="store_true")
+    parser.add_argument("--skip-sweep", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from idgrec_torch.data.dataset import make_synthetic_dataset
-    from idgrec_torch.ops import _build, bitmm, fusedmm, propagate, scatter
+    from idgrec_torch.ops import _build, bitmm, chainmm, fusedmm, propagate, scatter
 
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0)
@@ -768,8 +880,13 @@ def main() -> int:
         result["k7"] = k7_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k1:
         m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
-        result["k1"] = k1_ablation(dev, m8, _build, fusedmm)
+        result["k1"] = turned_ablation(dev, m8, _build, fusedmm, "dual_int8_t")
         del m8
+    if not args.skip_k5:
+        m4 = fusedmm.pack_nibbles(fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev),
+                                                     fusedmm.PACK_TILE, fusedmm.TU))
+        result["k5"] = turned_ablation(dev, m4, _build, fusedmm, "dual_int4_t")
+        del m4
     if not args.skip_k8:
         result["k8"] = k8_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k4:
@@ -778,6 +895,10 @@ def main() -> int:
         result["k6"] = k6_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k11:
         result["k11"] = k11_ablation(dev, data, _build, bitmm, propagate)
+    if not args.skip_sweep:
+        m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
+        result["sweep"] = sweep_ablation(dev, m8, _build, fusedmm, chainmm)
+        del m8
     # the device launches of one K6 and one K11 call, counted last: once
     # used, the profiler slows the host's later launches
     for key in ("k6", "k11"):

@@ -16,8 +16,9 @@ then
   synchronize (forward to the loss, backward, Adam), and the whole step
   unsynchronized, as the trainer runs it;
 * traces the same number of steps with `torch.profiler` and prints the
-  device time by kernel name and the device's busy share of the traced
-  window and of the untraced step (the profiler slows the host). If
+  device time by kernel name, the device launches per step (kernels,
+  memsets and copies) and the device's busy share of the traced window
+  and of the untraced step (the profiler slows the host). If
   the profiler records no device time on this machine it says so and
   the phases above stand alone.
 
@@ -131,11 +132,13 @@ def main() -> int:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
+    n_device = 0  # the kernels, memsets and copies the steps put on the device
     for ev in prof.events():
         # device-side events; the optimizer's annotation spans its kernels
         # and would count them twice
         on_device = ev.device_type == torch.autograd.DeviceType.CUDA
         if on_device and not ev.name.startswith("Optimizer."):
+            n_device += 1
             t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
@@ -144,7 +147,8 @@ def main() -> int:
               "compute_dtype": args.compute_dtype, "backend": args.backend,
               "batch_rows": args.batch_rows, "embedding_size": args.embedding_size,
               "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
-              "profiled_window_ms": window_ms, "device_ms_in_window": device_ms}
+              "profiled_window_ms": window_ms, "device_ms_in_window": device_ms,
+              "device_launches_per_step": n_device / steps}
     if device_ms <= 0:
         print("torch.profiler recorded no device time on this machine", flush=True)
         result["device_busy_share_traced"] = None
@@ -160,7 +164,8 @@ def main() -> int:
             print(f"  {v / steps:8.4f} ms/step  {k}", flush=True)
         print(f"device time {device_ms / steps:.3f} ms per step: {device_ms / window_ms:.3f} of "
               f"the traced window ({window_ms / steps:.3f} ms per step under the profiler), "
-              f"{device_ms / steps / step_ms:.3f} of the untraced step", flush=True)
+              f"{device_ms / steps / step_ms:.3f} of the untraced step; {n_device / steps:.1f} "
+              "device launches per step", flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -6,8 +6,11 @@ without one they skip with a reason. Run them on the card with
 
 Tolerances: K1's and K5's raw integer products are equal to their plain
 versions', K1's to K7's on the transposed activations and across two
-launches, and K5's to K1's on the unpacked matrix; the int4 chain and
-its gradient are bit-equal to the int8 chain's; K3 and K2 are
+launches, and K5's to K1's on the unpacked matrix and across two
+launches; the chain's sweeps (K1 or K5 with K2's epilogue in the
+turn-out, forward and inject) are bit-equal to the dual followed by two
+K2 launches and to their plain versions, non-finite inputs included;
+the int4 chain and its gradient are bit-equal to the int8 chain's; K3 and K2 are
 bit-equal (IEEE division, round-half-even, no FMA contraction, an
 order-free max), K2's inject mode too; K4 is bit-equal (no atomics:
 duplicates are added in batch order); the 3-sweep chain and its
@@ -405,6 +408,206 @@ def test_int4_chain_and_gradient_equal_int8(cuda):
         outs.append((out.detach(), xx.grad))
     for out, grad in outs[1:]:
         assert torch.equal(out, outs[0][0]) and torch.equal(grad, outs[0][1])
+
+
+@pytest.mark.parametrize("kind,u_pad,i_pad", [
+    ("dense15", 64, 2048),      # every nibble 15 (both of every byte), the smallest shape
+    ("zeros", 64, 2048),        # nothing to take
+    ("dense15", 1024, 4096),    # fully dense over several turn blocks and K2 blocks
+    ("high_only", 2048, 4096),  # counts 8..15 in the high nibbles only (the top bit set)
+    ("random", 3072, 6144),     # sparse counts 1..15
+])
+def test_k5_edges_repeat_and_equal_k1(cuda, kind, u_pad, i_pad):
+    """K5 (K1's turns around K8's scan of the packed bytes) on the
+    design's edges: equal to its plain version and to K1 on the
+    unpacked matrix, the same bits on a second launch."""
+    rng = np.random.default_rng(12)
+    if kind == "dense15":
+        m = torch.full((u_pad, i_pad), 15, dtype=torch.int8)
+    elif kind == "zeros":
+        m = torch.zeros((u_pad, i_pad), dtype=torch.int8)
+    elif kind == "high_only":
+        m = _counts(rng, u_pad, i_pad, 0.2, 8) + 7
+        m = m * (m > 7)
+        m.view(u_pad, -1, 2, fusedmm.PACK_TILE // 2)[:, :, 0, :] = 0
+    else:
+        m = _counts(rng, u_pad, i_pad, 0.01, 15)
+    m = m.to(cuda)
+    m4 = _pack15(m)
+    qu, qi = _int8(rng, (64, u_pad)).to(cuda), _int8(rng, (64, i_pad)).to(cuda)
+    got = fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)
+    again = fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)
+    for a, b, c, e in zip(got, again, fusedmm.fused_adj_matmul_int4_t_plain(m4, qu, qi),
+                          fusedmm.fused_adj_matmul_int8_t(m, qu, qi)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, c) and torch.equal(a, e)
+
+
+def test_k5_does_not_synchronise(cuda):
+    rng = np.random.default_rng(13)
+    m4 = fusedmm.pack_nibbles(_counts(rng, 2048, 2048, 0.05, 3).to(cuda))
+    qu, qi = _int8(rng, (64, 2048)).to(cuda), _int8(rng, (64, 2048)).to(cuda)
+    fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)  # built and loaded outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fusedmm.fused_adj_matmul_int4_t(m4, qu, qi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, fusedmm.fused_adj_matmul_int4_t_plain(m4, qu, qi)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the chain's sweep: K1 or K5 with K2's epilogue in the turn-out
+
+
+def _sweep_inputs(cuda, quant, seed, u_pad=3072, i_pad=4096):
+    """A sweep's operands: the stored matrix, K3's quantized inputs and
+    scales, (user, item) post and pre vectors (zero past the real nodes,
+    as the chain pads them) and [d, N] combines or cotangents."""
+    rng = np.random.default_rng(seed)
+    m = _counts(rng, u_pad, i_pad, 0.02, 3).to(cuda)
+    stored = fusedmm.pack_nibbles(m) if quant == "int4" else m
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = []
+    for n in (u_pad, i_pad):
+        z = (torch.randn(64, n, generator=g) * 0.3).to(cuda)
+        q.append(propagate.quantize_rows(z, z.abs().amax(dim=1)))
+    (qu, su), (qi, si) = q
+    post, pre, ext = [], [], []
+    for n, real in ((u_pad, u_pad - 100), (i_pad, i_pad - 1100)):
+        vec = torch.rand(2, n, generator=g)
+        vec[:, real:] = 0.0
+        post.append(vec[0].to(cuda))
+        pre.append(vec[1].to(cuda))
+        ext.append((torch.randn(64, n, generator=g) * 1e-2).to(cuda))
+    return stored, qu, su, qi, si, tuple(post), tuple(pre), tuple(ext)
+
+
+def _separate_sweep(quant, m, qu, su, qi, si, post, pre, ext, flag, want_next, inject):
+    """The route the fused sweep replaced: the dual kernel, then K2 (or
+    its inject mode) on each side."""
+    dual = fusedmm.fused_adj_matmul_int8_t if quant == "int8" else fusedmm.fused_adj_matmul_int4_t
+    ys = dual(m, qu, qi)
+    out = []
+    for y, s_, k in ((ys[0], si, 0), (ys[1], su, 1)):
+        if inject:
+            out += chainmm.chain_sweep_inject(y, s_[:, 0], post[k], pre[k], ext[k], flag,
+                                              want_next)
+        else:
+            out += chainmm.chain_sweep_epilogue(y, s_[:, 0], post[k], pre[k], ext[k], flag,
+                                                want_next)
+    return out
+
+
+def _same(a, b):
+    return (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("combine", [chainmm.COMBINE_NONE, chainmm.COMBINE_SET,
+                                     chainmm.COMBINE_ADD])
+@pytest.mark.parametrize("want_next", [True, False])
+def test_dual_sweep_equals_separate_route(cuda, quant, combine, want_next):
+    """The forward sweep with K2's epilogue in the dual's turn-out equals
+    the dual followed by two K2 launches and its plain version, bit for
+    bit (z, the combine, amax); it counts one dual launch and no K2."""
+    m, qu, su, qi, si, post, pre, c0 = _sweep_inputs(cuda, quant, 21)
+    dual = fusedmm.fused_adj_matmul_int8_t if quant == "int8" else fusedmm.fused_adj_matmul_int4_t
+    c_f, c_s, c_p = ([t.clone() for t in c0] for _ in range(3))
+    before = (dual.launches, chainmm.dual_sweep.launches, chainmm.chain_sweep_epilogue.launches)
+    got = chainmm.dual_sweep(quant, m, qu, su, qi, si, post, pre, c_f, combine, want_next)
+    assert (dual.launches, chainmm.dual_sweep.launches,
+            chainmm.chain_sweep_epilogue.launches) == (before[0] + 1, before[1] + 1, before[2])
+    sep = _separate_sweep(quant, m, qu, su, qi, si, post, pre, c_s, combine, want_next, False)
+    plain = chainmm.dual_sweep_plain(quant, m, qu, su, qi, si, post, pre, c_p, combine,
+                                     want_next)
+    for a, b, c in zip(got, sep, plain):
+        assert _same(a, b) and _same(a, c)
+    for a, b, c in zip(c_f, c_s, c_p):
+        assert _same(a, b) and _same(a, c)
+    if want_next:
+        assert bool(got[1].gt(0).all()) and bool(got[3].gt(0).all())
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("inject,want_next", [(True, True), (True, False), (False, False),
+                                              (False, True)])
+def test_dual_sweep_inject_equals_separate_route(cuda, quant, inject, want_next):
+    """The backward sweep with K2's inject mode in the turn-out equals
+    the dual followed by two inject launches and its plain version, bit
+    for bit; the cotangent is read only."""
+    m, qu, su, qi, si, post, pre, g0 = _sweep_inputs(cuda, quant, 22)
+    g = tuple(t.clone() for t in g0)
+    before = chainmm.chain_sweep_inject.launches
+    got = chainmm.dual_sweep_inject(quant, m, qu, su, qi, si, post, pre, g, inject, want_next)
+    assert chainmm.chain_sweep_inject.launches == before
+    sep = _separate_sweep(quant, m, qu, su, qi, si, post, pre, g, inject, want_next, True)
+    plain = chainmm.dual_sweep_inject_plain(quant, m, qu, su, qi, si, post, pre, g, inject,
+                                            want_next)
+    for a, b, c in zip(got, sep, plain):
+        assert _same(a, b) and _same(a, c)
+    assert all(torch.equal(a, b) for a, b in zip(g, g0))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["inf_scale", "nan_scale", "nan_block", "nan_tail"])
+@pytest.mark.parametrize("inject", [False, True])
+def test_dual_sweep_non_finite_equals_separate_route(cuda, quant, case, inject):
+    """A non-finite activation gives what the separate route gives, bit
+    for bit: an infinite scale (its feature's products inf, and NaN
+    where a sum is 0), a NaN scale, and NaN cotangents or combines over
+    one whole K2 block of 1,024 nodes or over the user side's last,
+    partial block. The amax is NaN only where K2's is."""
+    m, qu, su, qi, si, post, pre, e0 = _sweep_inputs(cuda, quant, 23, 2560, 6144)
+    su, si = su.clone(), si.clone()
+    e0 = tuple(t.clone() for t in e0)
+    if case == "inf_scale":
+        si[5] = float("inf")
+        su[9] = float("inf")
+    elif case == "nan_scale":
+        si[3] = float("nan")
+    elif case == "nan_block":
+        e0[0][7, 1024:2048] = float("nan")
+        e0[1][11, :1024] = float("nan")
+    else:
+        e0[0][13, 2048:] = float("nan")
+    fused = chainmm.dual_sweep_inject if inject else chainmm.dual_sweep
+    flag = True if inject else chainmm.COMBINE_ADD
+    e_f, e_s = [t.clone() for t in e0], [t.clone() for t in e0]
+    got = fused(quant, m, qu, su, qi, si, post, pre, e_f, flag, True)
+    sep = _separate_sweep(quant, m, qu, su, qi, si, post, pre, e_s, flag, True, inject)
+    for a, b in zip(list(got) + e_f, sep + e_s):
+        assert _same(a, b)
+    if case in ("inf_scale", "nan_scale") or (inject and case == "nan_block"):
+        assert not bool(torch.isfinite(torch.cat([got[1], got[3]])).all())
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_chain_forward_and_backward_do_not_synchronise(cuda, quant):
+    """One chain forward and backward (K3, the fused sweeps, K2 for the
+    prologues) issues no synchronisation with the host; K2 runs only in
+    the two prologues, its inject mode never standalone."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, compute_dtype=quant, emb_size=64, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = (torch.rand(data.num_nodes, 64, generator=g) - 0.5).to(cuda)
+    cot = (torch.randn(data.num_nodes, 64, generator=g) / 512).to(cuda)
+    xx = x.clone().requires_grad_(True)
+    chainmm.fused_chain_resident(adj, xx, 3).backward(cot)  # built and loaded outside the check
+    counters = (chainmm.chain_sweep_epilogue, chainmm.chain_sweep_inject, chainmm.dual_sweep,
+                chainmm.dual_sweep_inject)
+    before = [fn.launches for fn in counters]
+    xk = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chainmm.fused_chain_resident(adj, xk, 3).backward(cot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [4, 0, 3, 3]
+    assert torch.equal(xk.grad, xx.grad)
 
 
 # ---------------------------------------------------------------------------
