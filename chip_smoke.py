@@ -69,9 +69,17 @@ launch counts set to 0 just before and read just after:
   kernels decline: a few steps through the per-application loop, K7 and
   K8 in both directions;
 * EGCF (configure/EGCF.txt: ssl_lambda 0.1, temperature 0.1, parallel
-  mode) in int8 on the tanh chain (K3, K1, K9, K10; K2 for the item
-  prologue): K9 and K10 against their plain versions on the seed chain's
-  first sweeps, the 3-layer tanh + seed chain forward and backward
+  mode) in int8 on the tanh chain (K3, K1 with K9's and K10's epilogues
+  in its turn-out; K2 for the item prologue, K10 for the backward's):
+  K9 and K10 against their plain versions on the seed chain's first
+  sweeps; each tanh sweep, int8 and int4, forward (every combine) and
+  inject, with and without a next input, the seed sweeps' per-side
+  cases, infinite and NaN scales and NaN over a whole block, against
+  the dual followed by K9 or K10 on each side that runs, bit for bit
+  (and its plain version where finite; the fused h is torch.tanh); one
+  int8 and one int4 tanh + seed chain forward and backward under
+  ``torch.cuda.set_sync_debug_mode("error")``, no K9 launch; the
+  3-layer tanh + seed chain forward and backward
   against the plain chain and int4 against int8 (exact), its forward
   against `fused_chain_t` (exact; the gap of its autograd gradient is
   printed); serving four requests through `Recommender`, one step's
@@ -168,11 +176,13 @@ F32_OPS = 67e12
 # gather model's; one batch-rows step's loss terms within TIGHT and its
 # gradients within BF16 of the full propagation's (the partial rounds the
 # cotangent to bfloat16 where the dense product rounds elsewhere).
-# K9 and K10, the tanh + seed chain forward and backward, one
-# EGCF step and EGCF's int4 run are equal to the plain versions' and to
-# int8's; torch.tanh on the card is the CUDA math library's tanhf, which
-# K9 calls. Eval embeddings: dense float32
-# against gather within F32_SUM of the largest entry, bfloat16 dense
+# K9 and K10, the tanh chain's sweeps (K9's and K10's epilogues in the
+# dual's turn-out, equal to the dual and the separate K9 or K10 launches,
+# non-finite inputs included), the tanh + seed chain forward and
+# backward, one EGCF step and EGCF's int4 run are equal to the plain
+# versions' and to int8's; torch.tanh on the card is the CUDA math
+# library's tanhf, which K9 and the turn-out call. Eval embeddings: dense
+# float32 against gather within F32_SUM of the largest entry, bfloat16 dense
 # against bfloat16 fused within TIGHT, bfloat16 against float32 within
 # BF16 of the largest entry.
 TIGHT = dict(rtol=3e-5, atol=3e-6)
@@ -765,19 +775,27 @@ def main() -> int:
     int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
     n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                   fusedmm.fused_adj_matmul_int4)
-    tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
+    tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
+                     chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
     row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
     counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject)
                 + n_counters + tanh_counters + row_counters)
+
+    # a fused sweep also counts the sides it ran, each one standalone
+    # epilogue launch of the route it replaced
+    sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
 
     def reset_counts():
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
+        for fn in sweeps:
+            fn.sides_run = 0
 
     def read_counts() -> dict:
         torch.cuda.synchronize()
-        return {fn.__name__: fn.launches for fn in counters}
+        return {**{fn.__name__: fn.launches for fn in counters},
+                **{f"{fn.__name__}.sides_run": fn.sides_run for fn in sweeps}}
 
     serving_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
                         chainmm.dual_sweep, propagate.quantize_rows)
@@ -1615,6 +1633,123 @@ def main() -> int:
             errs["K10"] = max(errs.get("K10", 0.0), max_abs(ok, op))
     log("K10 equals its plain version exactly")
 
+    # ---- the tanh chain's sweeps: K1 or K5 with K9's or K10's epilogue in
+    # the turn-out, on the chain's middle sweep inputs, against the dual
+    # followed by K9 or K10 on each side that runs (the route they
+    # replaced) and their plain version, bit for bit; the seed sweeps' per-
+    # side cases; infinite and NaN scales, NaN cotangents and h over a
+    # whole block of 1,024 nodes
+    qi_e4 = propagate._pad_cols(qi_e, i_pad4).contiguous()
+    tanh_cases = {"int8": (adj.m8, qi_e, (lu, li), (ru, ri), (cu_e, ci_e), (gu, gi),
+                           (hs_u[1], hs_i[1])),
+                  "int4": (adj4.m8, qi_e4, (lu, li4), (ru, ri4),
+                           (cu_e, propagate._pad_cols(ci_e, i_pad4).contiguous()), (gu, gi4),
+                           (hs_u[1], propagate._pad_cols(hs_i[1], i_pad4).contiguous()))}
+    tanh_fns = {("fused", False): chainmm.dual_sweep_tanh,
+                ("fused", True): chainmm.dual_sweep_tanh_inject,
+                ("plain", False): chainmm.dual_sweep_tanh.plain,
+                ("plain", True): chainmm.dual_sweep_tanh_inject.plain}
+
+    def tanh_route(route, quant, inject, flag, want_next, ext, hs_, sides=(True, True),
+                   scales=(su_e, si_e)):
+        """One tanh sweep: "fused" (the dual with K9's or K10's epilogue in
+        its turn-out), "plain" (its plain version) or "separate" (the dual
+        kernel, then K9 or K10 on each side that runs)."""
+        m_, qi_, l_, r_ = tanh_cases[quant][:4]
+        post, pre = (r_, l_) if inject else (l_, r_)
+        su_, si_ = scales
+        if route != "separate":
+            return list(tanh_fns[(route, inject)](quant, m_, qu_e, su_, qi_, si_, post, pre, ext,
+                                                  flag, want_next, hs_, sides))
+        ys = duals[quant](m_, qu_e, qi_)
+        wants = want_next if isinstance(want_next, tuple) else (want_next,) * 2
+        epi = chainmm.chain_sweep_tanh_inject if inject else chainmm.chain_sweep_tanh
+        out = []
+        for k, (y, s_) in enumerate(((ys[0], si_), (ys[1], su_))):
+            out += (epi(y, s_[:, 0], post[k], pre[k], ext[k], hs_[k], flag, wants[k])
+                    if sides[k] else [None, None])
+        return out
+
+    def tanh_case(quant, inject, flag, want_next, sides=(True, True), h_=None, scales=None,
+                  nan_in=None, plain=True):
+        """The fused tanh sweep against the separate route (and its plain
+        version), bit for bit: every output, the combine, the h slices."""
+        ext0 = [t_.clone() for t_ in tanh_cases[quant][5 if inject else 4]]
+        h_in = list(h_ if h_ is not None else tanh_cases[quant][6])
+        if nan_in is not None:  # NaN over node block [1024, 2048) of one feature a side
+            ext0[0][7, 1024:2048] = float("nan")
+            h_in[1] = h_in[1].clone()
+            h_in[1][11, 1024:2048] = float("nan")
+        runs = {}
+        for route in ("fused", "separate") + (("plain",) if plain else ()):
+            ext = [t_.clone() for t_ in ext0]
+            hs_ = h_in if inject else [torch.full_like(t_, float("nan")) for t_ in ext0]
+            out = tanh_route(route, quant, inject, flag, want_next, ext, hs_, sides,
+                             scales or (su_e, si_e))
+            runs[route] = out + ext + ([] if inject else hs_)
+        what = (f"{quant} tanh sweep inject={inject} flag={flag} want_next={want_next} "
+                f"sides={sides}")
+        for k, a in enumerate(runs["fused"]):
+            for route, other in runs.items():
+                b = other[k]
+                if a is None or b is None:
+                    require(a is None and b is None, f"{what}: an output is missing ({route})")
+                    continue
+                require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                        f"{what} differs from the {route} route: max abs err {max_abs(a, b)}")
+                errs["tanh_sweep"] = max(errs["tanh_sweep"], max_abs(a, b))
+        return runs["fused"]
+
+    errs["tanh_sweep"] = 0.0
+    n_tanh_cases = 0
+    for quant in ("int8", "int4"):
+        for combine in (chainmm.COMBINE_NONE, chainmm.COMBINE_SET, chainmm.COMBINE_ADD):
+            for want_next in (True, False):
+                got = tanh_case(quant, False, combine, want_next)
+                n_tanh_cases += 1
+                if quant == "int8" and combine == chainmm.COMBINE_ADD and want_next:
+                    require(torch.equal(got[6], torch.tanh(lu[None, :] * (yu_e * si_e))),
+                            "the fused sweep's h is not torch.tanh on the card")
+                    require(bool(got[1].gt(0).all() and got[3].gt(0).all()),
+                            "a fused tanh sweep's amax is not positive")
+        for inject in (True, False):
+            for want_next in (True, False):
+                tanh_case(quant, True, inject, want_next)
+                n_tanh_cases += 1
+        # the seed sweeps: the forward's runs the users alone; the backward's
+        # sweep K - 1 wants the users' next input alone, its sweep K runs the
+        # items alone
+        got = tanh_case(quant, False, chainmm.COMBINE_NONE, True, (True, False))
+        require(got[2] is None and bool(got[7].isnan().all()), "the seed sweep wrote items")
+        h_seed = (tanh_cases[quant][6][0], None)
+        got = tanh_case(quant, True, False, (True, False), h_=h_seed)
+        require(got[1] is not None and got[3] is None, "sweep K - 1: the amax of a side")
+        got = tanh_case(quant, True, True, False, (False, True), h_=(None, None))
+        require(got[0] is None and got[2] is not None, "sweep K: the user side ran")
+        n_tanh_cases += 3
+        # non-finite scales and inputs, against the separate route (the plain
+        # version's amax takes any NaN where the kernels' take a whole block's)
+        su_inf, si_inf, si_nan = su_e.clone(), si_e.clone(), si_e.clone()
+        su_inf[9] = float("inf")
+        si_inf[5] = float("inf")
+        si_nan[3] = float("nan")
+        for inject in (False, True):
+            flag = True if inject else chainmm.COMBINE_ADD
+            got = tanh_case(quant, inject, flag, True, scales=(su_inf, si_inf), plain=False)
+            require(not inject or not bool(torch.isfinite(got[1]).all()),
+                    "an infinite scale left the inject sweep's amax finite")
+            got = tanh_case(quant, inject, flag, True, scales=(su_e, si_nan), plain=False)
+            require(bool(got[1][3].isnan()), "a NaN scale left the amax a number")
+            got = tanh_case(quant, inject, flag, True, nan_in=True, plain=False)
+            require(not inject or bool(got[1][7].isnan() and got[3][11].isnan()),
+                    "NaN over a whole block left the inject sweep's amax a number")
+            n_tanh_cases += 3
+    log(f"the tanh chain's sweeps ({n_tanh_cases} cases: K9's and K10's epilogues in the turn-out "
+        "of K1 and of K5; every combine and inject, with and without a next input; the seed "
+        "sweeps' per-side cases; infinite and NaN scales, NaN over a whole block) equal the dual "
+        "followed by K9 or K10 on each side that runs exactly, and their plain version where "
+        "finite; the fused h is torch.tanh")
+
     # one forward sweep (both sides, combine ADD, next input) and one backward sweep
     # (inject, next input), as the chain runs them in the middle of the chain
     def k9_pair(fn):
@@ -1635,7 +1770,67 @@ def main() -> int:
     k10_plain = cuda_ms(lambda: k10_pair(chainmm.chain_sweep_tanh_inject_plain), 20)
     log(f"K9 {k9_ms:.4f} ms per sweep (2 launches; bound {k9_bound[0]:.4f} by {k9_bound[1]}, plain "
         f"{k9_plain:.4f}); K10 {k10_ms:.4f} ms (bound {k10_bound[0]:.4f}, plain {k10_plain:.4f})")
-    del yu_seed, hs_u, hs_i, cu_e, ci_e, zu_e, xi_e, zi_e
+    # the tanh chain's sweeps (a middle sweep: the combine added or the
+    # cotangent injected, a next input) beside the bare dual and the route
+    # they replaced, the dual and two K9 or K10 launches; their bound: the
+    # stored matrix and the int8 inputs read once, the scales and vectors,
+    # the combine read and written, h and z written (forward: 16 bytes an
+    # element), the cotangent and h read and the next input written
+    # (inject: 12); 4 operations per non-zero entry and feature
+    tanh_times = {}
+    for quant in ("int8", "int4"):
+        m_, qi_ = tanh_cases[quant][:2]
+        n_q = u_pad + qi_.shape[1]
+        bare = cuda_ms(lambda: duals[quant](m_, qu_e, qi_), 20)
+        for inject, flag in ((False, chainmm.COMBINE_ADD), (True, True)):
+            ext = [t_.clone() for t_ in tanh_cases[quant][5 if inject else 4]]
+            hs_t = tanh_cases[quant][6] if inject else [torch.empty_like(t_) for t_ in ext]
+            fused = cuda_ms(lambda: tanh_route("fused", quant, inject, flag, True, ext, hs_t), 20)
+            separate = cuda_ms(lambda: tanh_route("separate", quant, inject, flag, True, ext,
+                                                  hs_t), 20)
+            nbytes = (m_.numel() + d * n_q + 8.0 * d + 8.0 * n_q
+                      + (12.0 if inject else 16.0) * d * n_q)
+            bnd = bound(nbytes, 4.0 * nnz * d)
+            require(bnd[0] <= fused, f"{quant} tanh sweep inject={inject}: {fused} ms below its "
+                                     f"bound {bnd[0]} ms")
+            tanh_times[(quant, inject)] = (fused, separate, bare, bnd)
+            log(f"{quant} tanh {'inject' if inject else 'forward'} sweep: {fused:.4f} ms (bound "
+                f"{bnd[0]:.4f} by {bnd[1]}) beside the dual and two "
+                f"{'K10' if inject else 'K9'} launches {separate:.4f} ms and the bare dual "
+                f"{bare:.4f} ms")
+    del ext, hs_t
+
+    # one int8 and one int4 tanh + seed chain forward and backward issue no
+    # synchronisation with the host; no K9 runs, K10 only in the backward's
+    # two prologue calls
+    x0_s = torch.cat([torch.zeros((nu, DIM), device=dev), egcf.item_emb.detach()])
+    for graph in (adj, adj4):
+        chainmm.fused_chain_resident(graph, x0_s.clone().requires_grad_(True), LAYERS, False,
+                                     "sum", torch.tanh, True).backward(cot)
+        x = x0_s.clone().requires_grad_(True)
+        before = [fn.launches for fn in tanh_counters]
+        sides_before = [fn.sides_run for fn in tanh_counters[2:]]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = chainmm.fused_chain_resident(graph, x, LAYERS, False, "sum", torch.tanh, True)
+            fwd_ran = [fn.launches - b for fn, b in zip(tanh_counters, before)]
+            out.backward(cot)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran = [fn.launches - b for fn, b in zip(tanh_counters, before)]
+        require(fwd_ran == [0, 0, LAYERS + 1, 0] and ran == [0, 2, LAYERS + 1, LAYERS + 1],
+                f"the synchronisation check's {graph.quant} tanh chain ran {fwd_ran} forward, "
+                f"{ran} in all, launches of (K9, K10, the tanh sweep, the tanh inject sweep)")
+        sides = [fn.sides_run - b for fn, b in zip(tanh_counters[2:], sides_before)]
+        require(sides == [2 * LAYERS + 1] * 2,
+                f"the {graph.quant} tanh chain's sweeps ran {sides} sides, forward and backward "
+                "(the separate route's K9 and K10 launches: the seed sweeps run one side)")
+        require(bool(torch.isfinite(x.grad).all()), "the tanh chain under sync debug mode")
+    log(f"the int8 and int4 tanh + seed chains forward and backward ({LAYERS + 1} fused sweeps "
+        "each way, no K9, K10 only in the 2 prologue calls) ran under sync debug mode 'error' "
+        "without a synchronisation")
+    del yu_seed, hs_u, hs_i, cu_e, ci_e, zu_e, xi_e, zi_e, tanh_cases, x0_s, x, out
 
     # ---- (b) the 3-layer tanh + seed chain, forward and backward: the kernels
     # against the plain chain, int4 against int8, and the per-sweep route
@@ -1677,13 +1872,17 @@ def main() -> int:
     answers_e = [rec_e.recommend(users, k=K) for users in requests]
     egcf_serve_launches = read_counts()
     log(f"EGCF serving path launches: {egcf_serve_launches}")
+    # the forward chain: K2 in the item prologue, K9's epilogue in every
+    # sweep's turn-out (the seed sweep's included), no K9 or K10 launch
     egcf_chain_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                           propagate.quantize_rows, chainmm.chain_sweep_tanh)
+                           propagate.quantize_rows, chainmm.dual_sweep_tanh)
     for fn in egcf_chain_counters:
         require(fn.launches > 0, f"{fn.__name__} was never launched on EGCF's serving path")
-    require(egcf_serve_launches["chain_sweep_tanh"] == 2 * LAYERS + 1
-            and egcf_serve_launches["fused_adj_matmul_int8_t"] == LAYERS + 1,
-            "EGCF serving: expected one chain of 4 sweeps")
+    require(egcf_serve_launches["dual_sweep_tanh"] == LAYERS + 1
+            and egcf_serve_launches["fused_adj_matmul_int8_t"] == LAYERS + 1
+            and egcf_serve_launches["chain_sweep_tanh"] == 0
+            and egcf_serve_launches["chain_sweep_tanh_inject"] == 0,
+            "EGCF serving: expected one chain of 4 fused sweeps and no K9 or K10 launch")
     ref_rec_e = Recommender(PlainChainModel(egcf), data)
     for users, (items, scores) in zip(requests, answers_e):
         check_answers(ref_rec_e, data, users, items, scores)
@@ -1733,14 +1932,19 @@ def main() -> int:
     e_eval_ms = (time.perf_counter() - t0) * 1e3
     egcf_train_launches = read_counts()
     log(f"EGCF training path launches: {egcf_train_launches}")
-    for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject, scatter.scatter_add_rows):
+    for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,
+                                     chainmm.dual_sweep_tanh_inject, scatter.scatter_add_rows):
         require(fn.launches > 0, f"{fn.__name__} was never launched on EGCF's training path")
-    # per step: forward 4 sweeps, backward 4 (the seed's included); the eval chain 4
-    want_dual = EPOCHS * steps * 2 * (LAYERS + 1) + LAYERS + 1
-    require(egcf_train_launches["fused_adj_matmul_int8_t"] == want_dual
-            and egcf_train_launches["chain_sweep_inject"] == 0
-            and egcf_train_launches["fused_adj_matmul_int4_t"] == 0,
-            f"EGCF training: expected {want_dual} K1 launches and no K2-inject or K5")
+    # per step: forward 4 sweeps, backward 4 (the seed's included), all
+    # fused, K10 standalone in the backward's prologue (2); the eval chain 4
+    n_e = EPOCHS * steps
+    want_dual = n_e * 2 * (LAYERS + 1) + LAYERS + 1
+    want_e = {"fused_adj_matmul_int8_t": want_dual, "chain_sweep_inject": 0,
+              "fused_adj_matmul_int4_t": 0, "chain_sweep_tanh": 0,
+              "chain_sweep_tanh_inject": 2 * n_e, "dual_sweep_tanh": (n_e + 1) * (LAYERS + 1),
+              "dual_sweep_tanh_inject": n_e * (LAYERS + 1)}
+    require(all(egcf_train_launches[k_] == v for k_, v in want_e.items()),
+            f"EGCF training: expected {want_e}")
     for epoch, terms in enumerate(e_terms):
         require(terms.shape == (3,) and bool(np.isfinite(terms).all()),
                 f"EGCF epoch {epoch}: loss terms {terms}")
@@ -1835,7 +2039,8 @@ def main() -> int:
         egcf_harness_s = time.perf_counter() - t0
         egcf_harness_launches = read_counts()
         log(f"EGCF run-harness launches: {egcf_harness_launches}")
-        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,):
+        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,
+                                         chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's train_model")
         require(ckpt_lib.latest_checkpoint(ck_e) == 1
                 and np.array_equal(items_ck, items_res) and np.array_equal(scores_ck, scores_res),
@@ -1864,7 +2069,8 @@ def main() -> int:
         egcf_cli_launches = read_counts()
         require(code_e == 0 and "Best epoch:" in out_e.getvalue()
                 and "compute_dtype : int8" in out_e.getvalue(), "EGCF's command line")
-        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,):
+        for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,
+                                         chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's command line")
         log(f"EGCF run harness: train_model one epoch with evaluation and a checkpoint, both "
             f"Recommender constructors, {egcf_harness_s:.2f} s; main.main(['--model=EGCF', ...]) "
@@ -2169,9 +2375,11 @@ def main() -> int:
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=()):
-        # ``also``: the counters of the wrappers that run this kernel's code
-        # inside another launch (K2's epilogue in the chain's sweeps)
-        counts = {path: sum(c[f_.__name__] for f_ in (fn, *also)) for path, c in by_path.items()}
+        # ``also``: the sweeps that run this kernel's code inside the dual's
+        # launch (K2's, K9's and K10's epilogues), counted by the sides they
+        # ran: one side is what one standalone launch does
+        counts = {path: c[fn.__name__] + sum(c[f"{f_.__name__}.sides_run"] for f_ in also)
+                  for path, c in by_path.items()}
         # per training step of the path the kernel serves (the int8 count
         # with the eval sweep's chain; K6's without the chains of the
         # Recommender and of the evaluation; K9's and K10's on EGCF's)
@@ -2196,6 +2404,8 @@ def main() -> int:
                 "launches_per_step": per_step}
 
     k2_src = "idgrec_torch/csrc/chain_sweep_epilogue.cu"
+    side_unit = ("; launches counts one side's epilogue: a standalone launch, or one "
+                 "side of a fused sweep")
     kernels = [
         entry("dual_int8_t", "idgrec_torch/csrc/dual_int8_t.cu", "idgrec_tpu/ops/fusedmm.py:674",
               fusedmm.fused_adj_matmul_int8_t, errs["K1"], k1_ms, k1_plain, k1_bound, k1_lib,
@@ -2209,13 +2419,13 @@ def main() -> int:
               chainmm.chain_sweep_epilogue, errs["K2"], k2_ms, k2_plain, k2_bound, None,
               "one sweep standalone: 2 launches (users, items); in the chain it runs in the "
               "prologue standalone and in every sweep inside the turn-out of K1 or K5 "
-              "(csrc/dual_turns.cuh, chainmm.dual_sweep), counted in launches",
+              "(csrc/dual_turns.cuh, chainmm.dual_sweep)" + side_unit,
               also=(chainmm.dual_sweep,)),
         entry("chain_sweep_inject", k2_src, "idgrec_tpu/ops/chainmm.py:341",
               chainmm.chain_sweep_inject, errs["K2i"], k2i_ms, k2i_plain, k2i_bound, None,
               "one backward sweep standalone: 2 launches (users, items); in the chain it runs "
               "only inside the turn-out of K1 or K5 (csrc/dual_turns.cuh, "
-              "chainmm.dual_sweep_inject), counted in launches",
+              "chainmm.dual_sweep_inject)" + side_unit,
               also=(chainmm.dual_sweep_inject,)),
         entry("quantize_rows", "idgrec_torch/csrc/quantize_rows.cu",
               "idgrec_tpu/ops/chainmm.py:236", propagate.quantize_rows, errs["K3"], k3_ms,
@@ -2242,11 +2452,17 @@ def main() -> int:
         entry("chain_sweep_tanh", "idgrec_torch/csrc/chain_sweep_tanh.cu",
               "idgrec_tpu/ops/chainmm.py:366", chainmm.chain_sweep_tanh, errs["K9"], k9_ms,
               k9_plain, k9_bound, None,
-              "one forward sweep of the tanh chain: 2 launches (users, items; the seed sweep 1)"),
+              "one forward sweep of the tanh chain standalone: 2 launches (users, items); in "
+              "the chain it runs only inside the turn-out of K1 or K5 (csrc/dual_turns.cuh, "
+              "chainmm.dual_sweep_tanh; the seed sweep the user side alone)" + side_unit,
+              also=(chainmm.dual_sweep_tanh,)),
         entry("chain_sweep_tanh_inject", "idgrec_torch/csrc/chain_sweep_tanh.cu",
               "idgrec_tpu/ops/chainmm.py:391", chainmm.chain_sweep_tanh_inject, errs["K10"],
               k10_ms, k10_plain, k10_bound, None,
-              "one backward sweep of the tanh chain: 2 launches (the seed sweep 1)"),
+              "one backward sweep of the tanh chain standalone: 2 launches; in the chain it "
+              "runs standalone in the backward's prologue and in every sweep inside the "
+              "turn-out of K1 or K5 (chainmm.dual_sweep_tanh_inject)" + side_unit,
+              also=(chainmm.dual_sweep_tanh_inject,)),
         entry("bit_matmul", "idgrec_torch/csrc/bit_matmul.cu", "idgrec_tpu/ops/bitmm.py:94",
               bitmm.bit_matmul, errs["K11"], sum(k11_ms), k11_plain, k11_bound, k11_lib,
               "one application at d = 64: 2 calls (users, items), each 2 kernels (the scan "
@@ -2283,10 +2499,22 @@ def main() -> int:
             sweep_fn = chainmm.dual_sweep_inject if inject else chainmm.dual_sweep
             k["runs_in"] = "idgrec_torch/csrc/dual_turns.cuh"
             k["launches_standalone"] = sum(c[k["name"]] for c in by_path.values())
-            k["launches_in_sweep"] = sum(c[sweep_fn.__name__] for c in by_path.values())
+            k["launches_in_sweep"] = sum(c[f"{sweep_fn.__name__}.sides_run"]
+                                         for c in by_path.values())
             for quant in ("int8", "int4"):
                 fused, separate, bare, bnd = sweep_times[(quant, inject)]
                 k.update({f"sweep_ms_{quant}": fused, f"dual_and_k2_ms_{quant}": separate,
+                          f"bare_dual_ms_{quant}": bare, f"sweep_bound_ms_{quant}": bnd[0]})
+        elif k["name"] in ("chain_sweep_tanh", "chain_sweep_tanh_inject"):
+            inject = k["name"] == "chain_sweep_tanh_inject"
+            sweep_fn = chainmm.dual_sweep_tanh_inject if inject else chainmm.dual_sweep_tanh
+            k["runs_in"] = "idgrec_torch/csrc/dual_turns.cuh"
+            k["launches_standalone"] = sum(c[k["name"]] for c in by_path.values())
+            k["launches_in_sweep"] = sum(c[f"{sweep_fn.__name__}.sides_run"]
+                                         for c in by_path.values())
+            for quant in ("int8", "int4"):
+                fused, separate, bare, bnd = tanh_times[(quant, inject)]
+                k.update({f"sweep_ms_{quant}": fused, f"dual_and_pair_ms_{quant}": separate,
                           f"bare_dual_ms_{quant}": bare, f"sweep_bound_ms_{quant}": bnd[0]})
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
@@ -2330,6 +2558,20 @@ def main() -> int:
             ext = [t_.clone() for t_ in sweep_cases[quant][6 if inject else 5]]
             n_ = device_launches(lambda: fused_sweep(quant, inject, flag, True, ext))
             sweep_calls[f"{quant} {'inject' if inject else 'forward'}"] = n_
+            next(k for k in kernels if k["name"] == name_)[
+                f"device_launches_per_sweep_{quant}"] = n_
+        # the tanh sweeps on the same inputs (a sweep's launches do not
+        # depend on its values), h slices of the sweep's shapes
+        m_, qi_, si_, l_, r_ = sweep_cases[quant][:5]
+        for inject, name_ in ((False, "chain_sweep_tanh"), (True, "chain_sweep_tanh_inject")):
+            ext = [t_.clone() for t_ in sweep_cases[quant][6 if inject else 5]]
+            h_ = [torch.zeros_like(t_) for t_ in ext]
+            post, pre = (r_, l_) if inject else (l_, r_)
+            fn_ = chainmm.dual_sweep_tanh_inject if inject else chainmm.dual_sweep_tanh
+            flag = True if inject else chainmm.COMBINE_ADD
+            n_ = device_launches(lambda: fn_(quant, m_, qu, su, qi_, si_, post, pre, ext, flag,
+                                             True, h_))
+            sweep_calls[f"{quant} tanh {'inject' if inject else 'forward'}"] = n_
             next(k for k in kernels if k["name"] == name_)[
                 f"device_launches_per_sweep_{quant}"] = n_
     log("device launches a call (torch.profiler, kernels and memsets, the wrapper's fills "

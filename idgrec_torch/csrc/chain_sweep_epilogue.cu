@@ -17,7 +17,9 @@
 // atomicMax per block. The maximum is order-free, so it is exact.
 //
 // Numerics: the TPU kernel's operation order, post * (raw * s), with
-// __fmul_rn/__fadd_rn so that no multiply-add is contracted into an FMA.
+// __fmul_rn/__fadd_rn so that no multiply-add is contracted into an FMA; the
+// arithmetic is chain_epilogue.cuh's, which the fused sweeps of
+// dual_turns.cuh share.
 //
 // chain_sweep_inject is the same pass for the straight-through backward
 // chain (mode 'bwd' of the same TPU kernel, the inject branch of _chunk
@@ -34,35 +36,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain_epilogue.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 4;
 constexpr int PER_BLOCK = THREADS * PER_THREAD;
-
-enum Combine { kNone = 0, kSet = 1, kAdd = 2 };
-
-__device__ __forceinline__ float max_abs4(const float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
-}
-
-// Block max of `local`, then one atomicMax on the float's bits: for
-// non-negative floats the integer order is the float order.
-__device__ __forceinline__ void block_atomic_max(float local, float* amax_f) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
-  __shared__ float warp_max[THREADS / 32];
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) warp_max[warp] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
-    atomicMax(reinterpret_cast<int*>(amax_f), __float_as_int(m));
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 chain_sweep_epilogue_kernel(const float* __restrict__ y, const float* __restrict__ s_in,
@@ -78,10 +58,10 @@ chain_sweep_epilogue_kernel(const float* __restrict__ y, const float* __restrict
     const float4 yv = *reinterpret_cast<const float4*>(y + row + n0);
     const float4 pv = *reinterpret_cast<const float4*>(post + n0);
     float4 nh;
-    nh.x = __fmul_rn(pv.x, __fmul_rn(yv.x, s));
-    nh.y = __fmul_rn(pv.y, __fmul_rn(yv.y, s));
-    nh.z = __fmul_rn(pv.z, __fmul_rn(yv.z, s));
-    nh.w = __fmul_rn(pv.w, __fmul_rn(yv.w, s));
+    nh.x = dequant(pv.x, yv.x, s);
+    nh.y = dequant(pv.y, yv.y, s);
+    nh.z = dequant(pv.z, yv.z, s);
+    nh.w = dequant(pv.w, yv.w, s);
     if (combine == kSet) {
       *reinterpret_cast<float4*>(c + row + n0) = nh;
     } else if (combine == kAdd) {
@@ -104,7 +84,7 @@ chain_sweep_epilogue_kernel(const float* __restrict__ y, const float* __restrict
     }
   }
   if (!want_next) return;  // uniform across the grid
-  block_atomic_max(local, amax + f);
+  block_atomic_max<THREADS>(local, amax + f);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -121,10 +101,10 @@ chain_sweep_inject_kernel(const float* __restrict__ y, const float* __restrict__
     const float4 yv = *reinterpret_cast<const float4*>(y + row + n0);
     const float4 pv = *reinterpret_cast<const float4*>(post + n0);
     float4 st;
-    st.x = __fmul_rn(pv.x, __fmul_rn(yv.x, s));
-    st.y = __fmul_rn(pv.y, __fmul_rn(yv.y, s));
-    st.z = __fmul_rn(pv.z, __fmul_rn(yv.z, s));
-    st.w = __fmul_rn(pv.w, __fmul_rn(yv.w, s));
+    st.x = dequant(pv.x, yv.x, s);
+    st.y = dequant(pv.y, yv.y, s);
+    st.z = dequant(pv.z, yv.z, s);
+    st.w = dequant(pv.w, yv.w, s);
     if (inject) {
       const float4 gv = *reinterpret_cast<const float4*>(g + row + n0);
       st.x = __fadd_rn(gv.x, st.x);
@@ -143,7 +123,7 @@ chain_sweep_inject_kernel(const float* __restrict__ y, const float* __restrict__
     *reinterpret_cast<float4*>(out + row + n0) = st;
   }
   if (!want_next) return;  // uniform across the grid
-  block_atomic_max(local, amax + f);
+  block_atomic_max<THREADS>(local, amax + f);
 }
 
 }  // namespace

@@ -37,51 +37,21 @@
 //
 // Numerics: the TPU kernel's operation order, with __fmul_rn/__fadd_rn/
 // __fsub_rn so that no multiply-add is contracted into an FMA (the source is
-// also built with -fmad=false, as K2). tanh is the CUDA math library's tanhf,
+// also built with -fmad=false, as K2), through chain_epilogue.cuh as the
+// fused sweeps of dual_turns.cuh. tanh is the CUDA math library's tanhf,
 // the function PyTorch's tanh calls on the card; chip_smoke.py holds K9 to
 // torch.tanh bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain_epilogue.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 4;
 constexpr int PER_BLOCK = THREADS * PER_THREAD;
-
-enum Combine { kNone = 0, kSet = 1, kAdd = 2 };
-
-__device__ __forceinline__ float max_abs4(const float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
-}
-
-// Block max of `local`, then one atomicMax on the float's bits: for
-// non-negative floats the integer order is the float order.
-__device__ __forceinline__ void block_atomic_max(float local, float* amax_f) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
-  __shared__ float warp_max[THREADS / 32];
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) warp_max[warp] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
-    atomicMax(reinterpret_cast<int*>(amax_f), __float_as_int(m));
-  }
-}
-
-__device__ __forceinline__ float dequant(float post, float y, float s) {
-  return __fmul_rn(post, __fmul_rn(y, s));
-}
-
-// (1 - h*h) * store, each operation rounded on its own
-__device__ __forceinline__ float tanh_grad(float h, float store) {
-  return __fmul_rn(__fsub_rn(1.0f, __fmul_rn(h, h)), store);
-}
 
 __global__ void __launch_bounds__(THREADS)
 chain_sweep_tanh_kernel(const float* __restrict__ y, const float* __restrict__ s_in,
@@ -124,7 +94,7 @@ chain_sweep_tanh_kernel(const float* __restrict__ y, const float* __restrict__ s
     }
   }
   if (!want_next) return;  // uniform across the grid
-  block_atomic_max(local, amax + f);
+  block_atomic_max<THREADS>(local, amax + f);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -165,7 +135,7 @@ chain_sweep_tanh_inject_kernel(const float* __restrict__ y, const float* __restr
     *reinterpret_cast<float4*>(out + row + n0) = st;
   }
   if (!want_next) return;  // uniform across the grid
-  block_atomic_max(local, amax + f);
+  block_atomic_max<THREADS>(local, amax + f);
 }
 
 }  // namespace

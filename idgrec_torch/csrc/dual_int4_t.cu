@@ -22,12 +22,12 @@
 // Design: K1's (dual_turns.cuh) with K8's scan of the packed bytes
 // (dual_scan.cuh, PACKED: only the non-zero bytes' nibbles become entries,
 // two from a byte whose nibbles are both set), three launches a call; the
-// chain's sweep runs K2's epilogue in the turn-out (dual_int4_t_sweep). The
-// tile kernel it replaced (mma.sync on 64-row chunks staged by cp.async,
-// zero-tile votes on both nibbles, nibble-unpacking mma fragments, int32
-// atomics into zeroed outputs and a conversion launch; four device launches
-// a call) spent its time in the SM proving zeros: 0.787 ms a sweep on an
-// H100, 1.37 times K1's (PERF.md).
+// chain's sweep runs K2's, K9's or K10's epilogue in the turn-out
+// (dual_int4_t_sweep). The tile kernel it replaced (mma.sync on 64-row
+// chunks staged by cp.async, zero-tile votes on both nibbles, nibble-
+// unpacking mma fragments, int32 atomics into zeroed outputs and a
+// conversion launch; four device launches a call) spent its time in the SM
+// proving zeros: 0.787 ms a sweep on an H100, 1.37 times K1's (PERF.md).
 
 #include "dual_turns.cuh"
 
@@ -44,16 +44,19 @@ int dual_int4_t(const void* m4, const void* quT, const void* qiT, void* yuT, voi
   return dual_t<true>(m4, quT, qiT, yuT, yiT, q_scratch, acc_scratch, u_pad, i_pad, stream);
 }
 
-// One sweep of the quantized chain on m4, K2's epilogue in the turn-out
-// (dual_turns.cuh dual_t_sweep gives the arguments). Three launches.
+// One sweep of the quantized chain on m4, the epilogue of K2 (linear
+// chain) or of K9 / K10 (tanh chain) in the turn-out, each side with its own
+// next input, or none of it (dual_turns.cuh dual_t_sweep gives the
+// arguments). Three launches.
 int dual_int4_t_sweep(const void* m4, const void* quT, const void* qiT, void* q_scratch,
                       void* acc_scratch, void* aux, const void* s_u, const void* s_i,
                       const void* post_u, const void* pre_u, const void* post_i,
                       const void* pre_i, void* ext_u, void* ext_i, void* out_u, void* out_i,
-                      int u_pad, int i_pad, int mode, int flag, int want_next, void* stream) {
-  return dual_t_sweep<true>(m4, quT, qiT, q_scratch, acc_scratch, aux, s_u, s_i, post_u, pre_u,
-                            post_i, pre_i, ext_u, ext_i, out_u, out_i, u_pad, i_pad, mode, flag,
-                            want_next, stream);
+                      void* hs_u, void* hs_i, int u_pad, int i_pad, int mode, int sides,
+                      int flag, int next_u, int next_i, void* stream) {
+  return dual_t_sweep<true>(m4, quT, qiT, q_scratch, acc_scratch, aux, s_u, s_i, post_u,
+                            pre_u, post_i, pre_i, ext_u, ext_i, out_u, out_i, hs_u, hs_i, u_pad,
+                            i_pad, mode, sides, flag, next_u, next_i, stream);
 }
 
 // The float32 words of the sweep's aux buffer.

@@ -14,8 +14,8 @@
 //
 // Design: the scan of dual_scan.cuh (K7's; its note gives the design and the
 // measurements that chose it) at d = 64 between the two layout turns of
-// dual_turns.cuh, three launches a call; the chain's sweep runs K2's
-// epilogue in the turn-out (dual_int8_t_sweep). The tile kernel this
+// dual_turns.cuh, three launches a call; the chain's sweep runs K2's, K9's
+// or K10's epilogue in the turn-out (dual_int8_t_sweep). The tile kernel this
 // replaced (mma.sync on 64 x 256 stages of M, zero-tile votes, byte gathers,
 // its outputs zeroed and converted by four more launches) took 0.916 ms per
 // sweep on an H100 where the scan takes 0.575, the turns 0.024 of it
@@ -36,16 +36,19 @@ int dual_int8_t(const void* m, const void* quT, const void* qiT, void* yuT, void
   return dual_t<false>(m, quT, qiT, yuT, yiT, q_scratch, acc_scratch, u_pad, i_pad, stream);
 }
 
-// One sweep of the quantized chain on M, K2's epilogue in the turn-out
-// (dual_turns.cuh dual_t_sweep gives the arguments). Three launches.
+// One sweep of the quantized chain on M, the epilogue of K2 (linear
+// chain) or of K9 / K10 (tanh chain) in the turn-out, each side with its own
+// next input, or none of it (dual_turns.cuh dual_t_sweep gives the
+// arguments). Three launches.
 int dual_int8_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratch,
                       void* acc_scratch, void* aux, const void* s_u, const void* s_i,
                       const void* post_u, const void* pre_u, const void* post_i,
                       const void* pre_i, void* ext_u, void* ext_i, void* out_u, void* out_i,
-                      int u_pad, int i_pad, int mode, int flag, int want_next, void* stream) {
-  return dual_t_sweep<false>(m, quT, qiT, q_scratch, acc_scratch, aux, s_u, s_i, post_u, pre_u,
-                             post_i, pre_i, ext_u, ext_i, out_u, out_i, u_pad, i_pad, mode, flag,
-                             want_next, stream);
+                      void* hs_u, void* hs_i, int u_pad, int i_pad, int mode, int sides,
+                      int flag, int next_u, int next_i, void* stream) {
+  return dual_t_sweep<false>(m, quT, qiT, q_scratch, acc_scratch, aux, s_u, s_i, post_u,
+                             pre_u, post_i, pre_i, ext_u, ext_i, out_u, out_i, hs_u, hs_i, u_pad,
+                             i_pad, mode, sides, flag, next_u, next_i, stream);
 }
 
 // The float32 words of the sweep's aux buffer.

@@ -9,10 +9,11 @@
 // * turn in: quT and qiT become one int8 [U_pad + I_pad, 64] scratch (users,
 //   then items), through a 64 x 64 shared-memory tile so that reads and
 //   writes both coalesce; the same blocks zero the int32 sums the scan adds
-//   into (and, for a chain sweep, the amax outputs and the NaN-tile counts
-//   below). A warp-per-entry scan reading a column of qiT straight from
-//   [d, N] would touch 64 separate 32-byte sectors per entry where the
-//   [N, d] row touches 2, and so would the atomics into [d, N] sums.
+//   into (and, for a chain sweep where a side wants a next input, the amax
+//   outputs and the NaN-tile counts below). A warp-per-entry scan reading a
+//   column of qiT straight from [d, N] would touch 64 separate 32-byte
+//   sectors per entry where the [N, d] row touches 2, and so would the
+//   atomics into [d, N] sums.
 // * the scan: one feature group of 64, one read of the stored matrix, int32
 //   atomics into [U_pad + I_pad, 64].
 // * turn out: a block holds the int32 sums of 64 nodes x 64 features in
@@ -20,17 +21,35 @@
 //   stays below 2^24) and writes it transposed into the [d, N] layout, both
 //   sides in one launch. The raw mode writes the sums (the public entries:
 //   fused_adj_matmul_int8_t / _int4_t). A chain sweep's mode writes, in the
-//   same pass, what K2 (chain_sweep_epilogue.cu) computed from those sums in
-//   two more launches:
-//     forward  nh = post[n] * (y * s_in[f]); c = nh or c + nh (the combine);
-//              z = pre[n] * nh and amax[f] = max |z| when a sweep follows
-//     inject   st = post[n] * (y * s_in[f]), g + st when injecting;
-//              out = pre[n] * st and its amax when a sweep follows, else st
-//   (K2's operation order, __fmul_rn / __fadd_rn, no FMA contraction), so
-//   the sweep equals K1 or K5 followed by two K2 launches bit for bit. This
-//   replaces the completion that the TPU kernel ran at each block's last
-//   reduction step (idgrec_tpu/ops/chainmm.py _chunk l.322-359, the amax
-//   update l.311-320, the inject branch l.341-352).
+//   same pass, what the separate epilogue kernels computed from those sums
+//   in two more launches, nh = post[n] * (y * s_in[f]) first:
+//     forward      (K2, chain_sweep_epilogue.cu) c = nh or c + nh (the
+//                  combine); z = pre[n] * nh and amax[f] = max |z| when a
+//                  sweep follows
+//     inject       (K2's inject mode) st = nh, g + st when injecting;
+//                  out = pre[n] * st and its amax when a sweep follows, else st
+//     tanh         (K9, chain_sweep_tanh.cu) h = tanhf(nh) into the side's h
+//                  slice; c = h or c + h; z = pre[n] * h and its amax when a
+//                  sweep follows
+//     tanh inject  (K10) st = nh, g + st when injecting; when a sweep follows
+//                  out = pre[n] * ((1 - h * h) * st) with h read from the
+//                  forward's slice, and its amax; else out = st
+//   (their operation order, through the functions of chain_epilogue.cuh
+//   that they use too, no FMA contraction, the CUDA math library's tanhf), so the sweep equals K1 or
+//   K5 followed by two K2, K9 or K10 launches bit for bit. This replaces
+//   the completion that the TPU kernel ran at each block's last reduction
+//   step (idgrec_tpu/ops/chainmm.py _chunk l.322-359, the amax update
+//   l.311-320, the inject branch l.341-352, the tanh chunks _chunk_fwd_act
+//   l.366 and _chunk_bwd_act l.391).
+//
+// Each side of a sweep has its own state (SideSweep): whether it wants a
+// next input, and whether it runs at all; the flag (the combine, or whether
+// g is added) is the sweep's. EGCF's seed sweeps need that (idgrec_tpu/ops/chainmm.py l.477-535): the forward's seed sweep runs
+// only the user side; the backward's sweep K - 1 wants a next input of the
+// users alone; its sweep K runs only the item side. The turn-out's grid
+// leaves a skipped side's tiles out (from the first tile of the item side
+// when the users are skipped); only a side that wants a next input counts
+// its blocks in `done`, and the last of them writes that side's amax alone.
 //
 // The per-feature amax: each warp reduces its features over the tile's 64
 // nodes with fmaxf and adds its maxima with one atomicMax on the float's
@@ -40,13 +59,14 @@
 // would take 64 atomics from each of the 1,096 tiles at yelp2018 scale on
 // four cache lines, and cost the sweep 0.02 ms on an H100; the K2 blocks'
 // maxima spread them over 138 lines (scripts/torch_k7_ablation.py, its
-// sweep section, measures both; PERF.md). fmaxf drops a NaN beside a number, and K2 reduces over blocks of
-// 1,024 nodes before its atomicMax, so K2's amax is NaN only where some
-// block of 1,024 nodes holds nothing but NaN (its last block, partly
-// outside N, also reduces a 0 in). To give the same bits here, a tile
-// whose 64 values are all NaN is counted per feature and K2 block instead
-// of sent; the tile that completes a block's count of 16 sends its NaN. The
-// turn-in zeroes the counts, the maxima and the count of finished blocks.
+// sweep section, measures both; PERF.md). fmaxf drops a NaN beside a
+// number, and K2, K9 and K10 reduce over blocks of 1,024 nodes before their
+// atomicMax, so their amax is NaN only where some block of 1,024 nodes holds
+// nothing but NaN (its last block, partly outside N, also reduces a 0 in).
+// To give the same bits here, a tile whose 64 values are all NaN is counted
+// per feature and K2 block instead of sent; the tile that completes a
+// block's count of 16 sends its NaN. The turn-in zeroes the counts, the
+// maxima and the count of finished blocks.
 //
 // K1 replaces idgrec_tpu/ops/fusedmm.py _tkernel_int8 (l.674, launched by
 // _tdual_small_call l.758) and _tkernel_int8_panel (l.797, launched by
@@ -62,6 +82,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain_epilogue.cuh"
 #include "dual_scan.cuh"
 
 namespace {
@@ -76,32 +97,36 @@ constexpr int Q_PITCH = TILE + 4;  // bytes per feature row of the turn-in tile 
 constexpr int K2_BLOCK = 1024;
 constexpr int K2_BLOCK_TILES = K2_BLOCK / TILE;
 
-// what the turn-out writes
-enum TurnMode { kRaw = 0, kForward = 1, kInject = 2 };
-// K2's combine modes (chainmm.COMBINE_*)
-enum Combine { kNone = 0, kSet = 1, kAdd = 2 };
+// what the turn-out writes (fusedmm.SWEEP_*)
+enum TurnMode { kRaw = 0, kForward = 1, kInject = 2, kTanh = 3, kTanhInject = 4 };
 
 // One side (users or items) of a chain sweep's epilogue, [d, n] layout.
 struct SideSweep {
   const float* s_in;  // [64] the other side's dequantization scale
   const float* post;  // [n]
-  const float* pre;   // [n]
-  float* ext;         // forward: the combine c, read and written; inject: g, read only
-  float* out;         // raw: the sums; forward: z (when a sweep follows); inject: out
-  float* amax;        // [64], zeroed by the turn-in when a sweep follows
+  const float* pre;   // [n], read when a sweep follows
+  float* ext;         // forward, tanh: the combine c, read and written; inject, tanh
+                      // inject: g, read only
+  float* out;         // raw: the sums; forward, tanh: z (when a sweep follows); inject,
+                      // tanh inject: out
+  float* hs;          // tanh: the h slice, written; tanh inject: h, read when a sweep follows
+  float* amax;        // [64], zeroed by the turn-in when this side wants a next input
   int n;
+  int want_next;
 };
 
 struct Sweep {
   SideSweep side[2];   // users, items
-  // zeroed by the turn-in when a sweep follows:
+  int flag;            // forward, tanh: the combine mode; inject, tanh inject: whether g is added
+  // zeroed by the turn-in when a side wants a next input:
   int* nan_tiles;      // [K2 blocks of both sides, 64] all-NaN tiles
   int* block_max;      // [K2 blocks of both sides, 64] the float bits of their maxima
-  int* done;           // turn-out blocks finished
+  int* done;           // turn-out blocks finished, of the sides that want a next input
   int u_blocks;        // K2 blocks of the user side
   int k2_blocks;       // K2 blocks of both sides
-  int flag;            // forward: the combine mode; inject: whether g is added
-  int want_next;
+  int first_tile;      // the turn-out's first tile: 0, or u_pad / 64 with the users skipped
+  int tiles;           // the turn-out's grid: the tiles of the sides that run
+  int counted;         // the tiles of the sides that want a next input
 };
 
 // Block b turns 64 nodes: b < u_pad / 64 the users of quT, else the items of
@@ -161,49 +186,58 @@ __device__ __forceinline__ void tile_max(float m, int* block_max, int* nan_count
   }
 }
 
-// The last turn-out block to finish: amax[f] of each side, the maximum of
-// its K2 blocks' (as float bits; at least 0). Two threads an output, each
-// over every other K2 block, their loads independent.
+// The last counted turn-out block to finish: amax[f] of each side that
+// wants a next input, the maximum of its K2 blocks' (as float bits; at
+// least 0). Two threads an output, each over every other K2 block, their
+// loads independent.
 __device__ __forceinline__ void finish_amax(const Sweep& sw) {
   static_assert(TURN_THREADS == 4 * D, "two threads for each of the 2 x 64 outputs");
   __shared__ int part[TURN_THREADS];
   const int i = threadIdx.x % (2 * D), half = threadIdx.x / (2 * D);
   const int f = i % D;
   const bool items = i >= D;
+  const bool wanted = sw.side[items ? 1 : 0].want_next;
   const int b1 = items ? sw.k2_blocks : sw.u_blocks;
   int v = 0;
+  if (wanted) {
 #pragma unroll 8
-  for (int b = (items ? sw.u_blocks : 0) + half; b < b1; b += 2)
-    v = max(v, __ldcg(sw.block_max + b * D + f));
+    for (int b = (items ? sw.u_blocks : 0) + half; b < b1; b += 2)
+      v = max(v, __ldcg(sw.block_max + b * D + f));
+  }
   part[threadIdx.x] = v;
   __syncthreads();
-  if (half == 0)
-    (items ? sw.side[1].amax : sw.side[0].amax)[f] = __int_as_float(max(v, part[i + 2 * D]));
+  if (half == 0 && wanted)
+    sw.side[items ? 1 : 0].amax[f] = __int_as_float(max(v, part[i + 2 * D]));
 }
 
-// Block b turns 64 rows of the int32 sums back: b < u_pad / 64 into the
-// user side [64, u_pad], else into the item side [64, i_pad], converted to
-// float32 on the way and, in a chain sweep's mode, completed by K2's
-// epilogue. Warp w writes features w, w + 8, ..., lane l nodes l and l + 32
-// of the tile: 32 consecutive floats a store. A thread issues all its reads
-// of the combine or cotangent, the scales and the vectors before the sums'
-// tile: 16 loads of its own in flight, not one at a time behind its stores.
+// Tile b = blockIdx.x + first_tile turns 64 rows of the int32 sums back:
+// b < u_pad / 64 into the user side [64, u_pad], else into the item side
+// [64, i_pad], converted to float32 on the way and, in a chain sweep's mode,
+// completed by its epilogue. Warp w writes features w, w + 8, ..., lane l
+// nodes l and l + 32 of the tile: 32 consecutive floats a store. A thread
+// issues all its reads of the combine or cotangent, of h, the scales and
+// the vectors before the sums' tile: its loads in flight together, not one
+// at a time behind its stores. The flag and a side's want_next are uniform
+// across its blocks.
 template <int MODE>
 __global__ void __launch_bounds__(TURN_THREADS)
 turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
   constexpr int KF = D / TURN_WARPS;  // features a warp writes
+  constexpr bool kCombines = MODE == kForward || MODE == kTanh;  // else g is injected
   __shared__ float tile[TILE][D + 1];
   const int t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
   const int user_blocks = u_pad / TILE;
-  const bool user = static_cast<int>(blockIdx.x) < user_blocks;
+  const int b = static_cast<int>(blockIdx.x) + sw.first_tile;
+  const bool user = b < user_blocks;
   const SideSweep sd = user ? sw.side[0] : sw.side[1];
-  const int n0 = (user ? blockIdx.x : blockIdx.x - user_blocks) * TILE;
+  const int n0 = (user ? b : b - user_blocks) * TILE;
   const size_t at0 = static_cast<size_t>(warp) * sd.n + n0 + lane;  // feature warp, node lane
   const size_t f_step = static_cast<size_t>(TURN_WARPS) * sd.n;
-  float post[2] = {}, pre[2] = {}, s_in[KF] = {}, ext[KF][2] = {};
+  float post[2] = {}, pre[2] = {}, s_in[KF] = {}, ext[KF][2] = {}, hv[KF][2] = {};
   if constexpr (MODE != kRaw) {
-    const bool reads_ext = MODE == kForward ? sw.flag == kAdd : sw.flag != 0;
+    const bool reads_ext = kCombines ? sw.flag == kAdd : sw.flag != 0;
+    const bool reads_h = MODE == kTanhInject && sd.want_next;
 #pragma unroll
     for (int k = 0; k < KF; ++k) {
       s_in[k] = sd.s_in[warp + TURN_WARPS * k];
@@ -211,15 +245,18 @@ turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
         ext[k][0] = sd.ext[at0 + k * f_step];
         ext[k][1] = sd.ext[at0 + k * f_step + 32];
       }
+      if (reads_h) {
+        hv[k][0] = sd.hs[at0 + k * f_step];
+        hv[k][1] = sd.hs[at0 + k * f_step + 32];
+      }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       post[h] = sd.post[n0 + lane + 32 * h];
-      if (sw.want_next) pre[h] = sd.pre[n0 + lane + 32 * h];
+      if (sd.want_next) pre[h] = sd.pre[n0 + lane + 32 * h];
     }
   }
-  const int4* src =
-      reinterpret_cast<const int4*>(acc + static_cast<long long>(blockIdx.x) * TILE * D);
+  const int4* src = reinterpret_cast<const int4*>(acc + static_cast<long long>(b) * TILE * D);
   // read: 64 rows of 64 sums, 16 bytes a thread a round
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -245,28 +282,33 @@ turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const size_t e = at + 32 * h;
-        const float nh = __fmul_rn(post[h], __fmul_rn(tile[lane + 32 * h][f], s_in[k]));
-        if constexpr (MODE == kForward) {
-          if (sw.flag == kSet) {
-            sd.ext[e] = nh;
-          } else if (sw.flag == kAdd) {
-            sd.ext[e] = __fadd_rn(ext[k][h], nh);
+        const float nh = dequant(post[h], tile[lane + 32 * h][f], s_in[k]);
+        if constexpr (kCombines) {
+          float v = nh;
+          if constexpr (MODE == kTanh) {
+            v = tanhf(nh);
+            sd.hs[e] = v;
           }
-          if (sw.want_next) {
-            const float z = __fmul_rn(pre[h], nh);
+          if (sw.flag == kSet) {
+            sd.ext[e] = v;
+          } else if (sw.flag == kAdd) {
+            sd.ext[e] = __fadd_rn(ext[k][h], v);
+          }
+          if (sd.want_next) {
+            const float z = __fmul_rn(pre[h], v);
             sd.out[e] = z;
             a[h] = fabsf(z);
           }
         } else {
           float st = sw.flag ? __fadd_rn(ext[k][h], nh) : nh;
-          if (sw.want_next) {
-            st = __fmul_rn(pre[h], st);
+          if (sd.want_next) {
+            st = __fmul_rn(pre[h], MODE == kTanhInject ? tanh_grad(hv[k][h], st) : st);
             a[h] = fabsf(st);
           }
           sd.out[e] = st;
         }
       }
-      if (sw.want_next) {  // uniform across the grid
+      if (sd.want_next) {  // uniform across the block
         float m = fmaxf(a[0], a[1]);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
@@ -275,11 +317,11 @@ turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
     }
   }
   if constexpr (MODE != kRaw) {
-    if (sw.want_next) {
+    if (sd.want_next) {  // uniform across the block
       __shared__ bool last;
       if (lane == 0) __threadfence();  // this warp's maxima before the block's count
       __syncthreads();
-      if (t == 0) last = atomicAdd(sw.done, 1) == static_cast<int>(gridDim.x) - 1;
+      if (t == 0) last = atomicAdd(sw.done, 1) == sw.counted - 1;
       __syncthreads();
       if (last) {
         __threadfence();
@@ -313,7 +355,7 @@ cudaError_t launch_turned(const void* m, const void* quT, const void* qiT, void*
                             acc, acc + static_cast<size_t>(u_pad) * D, u_pad,
                             PACKED ? i_pad / 2 : i_pad, D, &passes, s);
   if (err != cudaSuccess) return err;
-  turn_out<MODE><<<blocks, TURN_THREADS, 0, s>>>(acc, sw, u_pad);
+  turn_out<MODE><<<static_cast<unsigned>(sw.tiles), TURN_THREADS, 0, s>>>(acc, sw, u_pad);
   return cudaGetLastError();
 }
 
@@ -326,6 +368,7 @@ int dual_t(const void* m, const void* quT, const void* qiT, void* yuT, void* yiT
   sw.side[0].n = u_pad;
   sw.side[1].out = static_cast<float*>(yiT);
   sw.side[1].n = i_pad;
+  sw.tiles = (u_pad + i_pad) / TILE;
   return static_cast<int>(launch_turned<PACKED, kRaw>(m, quT, qiT, q_scratch, acc_scratch,
                                                       nullptr, 0, sw, u_pad, i_pad,
                                                       static_cast<cudaStream_t>(stream)));
@@ -339,49 +382,75 @@ __host__ __device__ constexpr int sweep_aux_words(int u_pad, int i_pad) {
   return 2 * D + 2 * D * (k2_blocks(u_pad) + k2_blocks(i_pad)) + 4;
 }
 
-// One chain sweep, both sides (mode 1 forward, 2 inject; see the note at the
-// top). s_u / s_i: the dequantization scales of the user and the item sums
-// (the item and the user input's scales); post_*, pre_*: [n] of each side;
-// ext_*: the combine c (forward) or the cotangent g (inject), [64, n];
-// out_*: z (forward, when want_next) or out (inject), [64, n], not aliasing
-// ext_*. aux: float32 [sweep_aux_words(u_pad, i_pad)]: the two amax
-// vectors (users, items), then the NaN-tile counts, the K2 blocks' maxima
-// and the count of finished blocks; zeroed here when want_next. flag: the combine mode (forward) or whether g is added
-// (inject).
+// One chain sweep (mode 1 forward, 2 inject, 3 tanh, 4 tanh inject; see the
+// note at the top). s_u / s_i: the dequantization scales of the user and the
+// item sums (the item and the user input's scales); post_*, pre_*: [n] of
+// each side; ext_*: the combine c (forward, tanh) or the cotangent g
+// (inject, tanh inject), [64, n]; out_*: z (forward, tanh: when a sweep
+// follows) or out (inject, tanh inject), [64, n], not aliasing ext_*;
+// hs_*: the side's h slice [64, n] (tanh: written; tanh inject: read when a
+// sweep follows; otherwise unused). aux: float32 [sweep_aux_words(u_pad,
+// i_pad)]: the two amax vectors (users, items), then the NaN-tile counts,
+// the K2 blocks' maxima and the count of finished blocks; zeroed here when a
+// side wants a next input. sides: 1 the users, 2 the items, 3 both; a side
+// left out reads and writes nothing and wants no next input. flag: the
+// combine mode (forward, tanh) or whether g is added (inject, tanh inject),
+// both sides alike; next_*: whether the side wants a next input and its
+// amax.
 template <bool PACKED>
 int dual_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratch,
                  void* acc_scratch, void* aux, const void* s_u, const void* s_i,
                  const void* post_u, const void* pre_u, const void* post_i, const void* pre_i,
-                 void* ext_u, void* ext_i, void* out_u, void* out_i, int u_pad, int i_pad,
-                 int mode, int flag, int want_next, void* stream) {
+                 void* ext_u, void* ext_i, void* out_u, void* out_i, void* hs_u, void* hs_i,
+                 int u_pad, int i_pad, int mode, int sides, int flag, int next_u, int next_i,
+                 void* stream) {
+  const bool combines = mode == kForward || mode == kTanh;
+  const bool runs[2] = {(sides & 1) != 0, (sides & 2) != 0};
+  if (sides < 1 || sides > 3 || mode < kForward || mode > kTanhInject ||
+      (combines && (flag < kNone || flag > kAdd)))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* amax = static_cast<float*>(aux);
   const int u_blocks = k2_blocks(u_pad);
+  const int u_tiles = u_pad / TILE, i_tiles = i_pad / TILE;
   Sweep sw;
   sw.side[0] = {static_cast<const float*>(s_u), static_cast<const float*>(post_u),
                 static_cast<const float*>(pre_u), static_cast<float*>(ext_u),
-                static_cast<float*>(out_u), amax, u_pad};
+                static_cast<float*>(out_u), static_cast<float*>(hs_u), amax, u_pad,
+                runs[0] && next_u != 0};
   sw.side[1] = {static_cast<const float*>(s_i), static_cast<const float*>(post_i),
                 static_cast<const float*>(pre_i), static_cast<float*>(ext_i),
-                static_cast<float*>(out_i), amax + D, i_pad};
+                static_cast<float*>(out_i), static_cast<float*>(hs_i), amax + D, i_pad,
+                runs[1] && next_i != 0};
+  sw.flag = flag;
   sw.u_blocks = u_blocks;
   sw.k2_blocks = u_blocks + k2_blocks(i_pad);
   sw.nan_tiles = reinterpret_cast<int*>(amax + 2 * D);
   sw.block_max = sw.nan_tiles + D * sw.k2_blocks;
   sw.done = sw.block_max + D * sw.k2_blocks;
-  sw.flag = flag;
-  sw.want_next = want_next;
-  const int n_extra = want_next ? sweep_aux_words(u_pad, i_pad) : 0;
+  sw.first_tile = runs[0] ? 0 : u_tiles;
+  sw.tiles = (runs[0] ? u_tiles : 0) + (runs[1] ? i_tiles : 0);
+  sw.counted = (sw.side[0].want_next ? u_tiles : 0) + (sw.side[1].want_next ? i_tiles : 0);
+  const int n_extra = sw.counted ? sweep_aux_words(u_pad, i_pad) : 0;
   int* extra = reinterpret_cast<int*>(aux);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (mode == kForward && flag >= kNone && flag <= kAdd)
-    err = launch_turned<PACKED, kForward>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
-                                          u_pad, i_pad, s);
-  else if (mode == kInject)
-    err = launch_turned<PACKED, kInject>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
+  switch (mode) {
+    case kForward:
+      err = launch_turned<PACKED, kForward>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra,
+                                            sw, u_pad, i_pad, s);
+      break;
+    case kInject:
+      err = launch_turned<PACKED, kInject>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra,
+                                           sw, u_pad, i_pad, s);
+      break;
+    case kTanh:
+      err = launch_turned<PACKED, kTanh>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
                                          u_pad, i_pad, s);
-  else
-    err = cudaErrorInvalidValue;
+      break;
+    default:
+      err = launch_turned<PACKED, kTanhInject>(m, quT, qiT, q_scratch, acc_scratch, extra,
+                                               n_extra, sw, u_pad, i_pad, s);
+  }
   return static_cast<int>(err);
 }
 

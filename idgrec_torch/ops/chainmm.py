@@ -20,6 +20,8 @@ K2's work runs inside the dual's turn-out (`dual_sweep`, K1's or K5's
 third launch): the turn-out holds every sum of its tile and completes
 it as K2 would, so a sweep is K3 twice and the dual's three launches.
 The standalone K2 forms the chain's prologue, where no dual precedes it.
+Each of the chains' four sweeps (K2's epilogue, its inject mode, K9's,
+K10's) is a `DualSweep`: one wrapper, one plain version.
 
 Forward layer: h_{k+1} = l ⊙ dequant(M̂_dual(quant(r ⊙ h_k))), c += h_{k+1}.
 The f32 work keeps the TPU kernel's operation order (post * (raw * s),
@@ -43,24 +45,28 @@ nothing of the forward but the adjacency. Both chains are one
 reference of the kernel chain's.
 
 The tanh chain (EGCF's; the TPU kernel's ``activation='tanh'``, ROADMAP
-B.B4) runs K3 and the dual a sweep with K9 `chain_sweep_tanh` in K2's
-place: h = tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N]
-stream,
-the combine sums the counted layers (layer 0 is never one), and the
-next input is r ⊙ h. Its backward (K10 `chain_sweep_tanh_inject`) reads
-that stream: G = [g +] r ⊙ dequant(...), next input l ⊙ ((1 − h²) ⊙ G).
-With ``seed_users_from_items`` a seed sweep comes first: it consumes a
-zero user input and the item embeddings, keeps only its user direction
-(hu = tanh(l_u ⊙ M(r_i ⊙ E_i))), and the first counted layer reuses its
-item quantization. The backward appends the matching sweep that maps
-the user side of G₀ back to the items through the seed application.
+B.B4) runs K9's epilogue (`chain_sweep_tanh`) where the linear chain
+runs K2's, also in the dual's turn-out (`dual_sweep_tanh`): h =
+tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N] stream, the
+combine sums the counted layers (layer 0 is never one), and the next
+input is r ⊙ h. Its backward (K10's epilogue, `chain_sweep_tanh_inject`,
+in the turn-out of `dual_sweep_tanh_inject`) reads that stream: G =
+[g +] r ⊙ dequant(...), next input l ⊙ ((1 − h²) ⊙ G). A sweep is K3
+twice and the dual's three launches; K10 standalone forms the
+backward's prologue, and K9 standalone runs on no path. With
+``seed_users_from_items`` a seed sweep comes first: it consumes a zero
+user input and the item embeddings, keeps only its user direction
+(hu = tanh(l_u ⊙ M(r_i ⊙ E_i)); the turn-out writes no item side), and
+the first counted layer reuses its item quantization. The backward
+appends the matching sweep that maps the user side of G₀ back to the
+items through the seed application (its turn-out writes no user side).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Mapping, NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -179,94 +185,6 @@ def chain_sweep_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Tensor,
 
 
 chain_sweep_inject.launches = 0
-
-
-_PLAIN_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t_plain,
-                "int4": fusedmm.fused_adj_matmul_int4_t_plain}
-_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
-
-
-def dual_sweep_plain(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-                     qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, c: tuple,
-                     combine: int, want_next: bool):
-    """Plain version of `dual_sweep`: the plain dual (K1's, or K5's on
-    the packed matrix when ``quant`` is 'int4'), then K2's plain version
-    on each side. yu = M @ qi dequantizes by the item input's scale
-    ``si``, yi by the user's ``su`` ([d, 1] each). post, pre, c: (user
-    side, item side). Returns (zu, amax_u, zi, amax_i), Nones without
-    ``want_next``."""
-    yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
-    zu, amax_u = chain_sweep_epilogue_plain(yu, si[:, 0], post[0], pre[0], c[0], combine,
-                                            want_next)
-    zi, amax_i = chain_sweep_epilogue_plain(yi, su[:, 0], post[1], pre[1], c[1], combine,
-                                            want_next)
-    return zu, amax_u, zi, amax_i
-
-
-def dual_sweep(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-               qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, c: tuple,
-               combine: int, want_next: bool):
-    """One forward sweep of the quantized chain, both sides: the dual
-    product of the quantized inputs and K2's epilogue on each side (see
-    `dual_sweep_plain`), equal to it bit for bit. CPU tensors take the
-    plain version; CUDA tensors launch K1 (``quant`` 'int8') or K5
-    ('int4') with the epilogue in its turn-out, three device launches
-    and no K2 launch, or raise. Counts one dual launch
-    (``fused_adj_matmul_int8_t.launches`` or ``_int4_t``) and one
-    ``dual_sweep.launches``."""
-    if m.device.type == "cpu":
-        return dual_sweep_plain(quant, m, qu, su, qi, si, post, pre, c, combine, want_next)
-    if m.device.type != "cuda":
-        raise ValueError(f"unsupported device {m.device}")
-    if combine not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD):
-        raise ValueError(f"unknown combine mode {combine}")
-    out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, c,
-                                 fusedmm.SWEEP_FORWARD, combine, want_next)
-    _DUALS[quant].launches += 1
-    dual_sweep.launches += 1
-    return out
-
-
-dual_sweep.launches = 0
-
-
-def dual_sweep_inject_plain(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-                            qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple,
-                            g: tuple, inject: bool, want_next: bool):
-    """Plain version of `dual_sweep_inject`: the plain dual, then K2's
-    inject mode's plain version on each side (g: (user side, item
-    side), read only). Returns (out_u, amax_u, out_i, amax_i): with
-    ``want_next`` the next inputs and their amax, else the stores and
-    None."""
-    yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
-    out_u, amax_u = chain_sweep_inject_plain(yu, si[:, 0], post[0], pre[0], g[0], inject,
-                                             want_next)
-    out_i, amax_i = chain_sweep_inject_plain(yi, su[:, 0], post[1], pre[1], g[1], inject,
-                                             want_next)
-    return out_u, amax_u, out_i, amax_i
-
-
-def dual_sweep_inject(quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-                      qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, g: tuple,
-                      inject: bool, want_next: bool):
-    """One sweep of the straight-through backward chain, both sides
-    (see `dual_sweep_inject_plain`), equal to its plain version bit for
-    bit. CPU tensors take the plain version; CUDA tensors launch K1 or
-    K5 with K2's inject mode in its turn-out, or raise. Counts one dual
-    launch and one ``dual_sweep_inject.launches``."""
-    if m.device.type == "cpu":
-        return dual_sweep_inject_plain(quant, m, qu, su, qi, si, post, pre, g, inject,
-                                       want_next)
-    if m.device.type != "cuda":
-        raise ValueError(f"unsupported device {m.device}")
-    out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, g,
-                                 fusedmm.SWEEP_INJECT, bool(inject), want_next)
-    _DUALS[quant].launches += 1
-    dual_sweep_inject.launches += 1
-    return out
-
-
-dual_sweep_inject.launches = 0
 
 
 _K9 = "chain_sweep_tanh"
@@ -389,24 +307,111 @@ def chain_sweep_tanh_inject(y: torch.Tensor, s_in: torch.Tensor, post: torch.Ten
 chain_sweep_tanh_inject.launches = 0
 
 
-class ChainOps(NamedTuple):
-    """The per-sweep operations of the chain: the dual by the
-    adjacency's ``quant`` (the tanh chain's), the linear chain's sweeps
-    (the dual with K2's epilogue, forward and inject), the epilogues."""
+_PLAIN_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t_plain,
+                "int4": fusedmm.fused_adj_matmul_int4_t_plain}
+_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
 
-    dual: Mapping[str, Callable]
+
+class DualSweep:
+    """One sweep of the quantized chain: the dual product of the
+    quantized inputs with one chain epilogue on each side that runs,
+    in the dual's turn-out (``csrc/dual_turns.cuh``), equal bit for bit
+    to `plain`: the plain dual (K1's, or K5's on the packed matrix when
+    ``quant`` is 'int4'), then the epilogue's plain version on each
+    side. One instance per epilogue: `dual_sweep` (K2's),
+    `dual_sweep_inject` (K2's inject mode), `dual_sweep_tanh` (K9's),
+    `dual_sweep_tanh_inject` (K10's).
+
+    Called with (quant, m, qu, su, qi, si, post, pre, ext, flag,
+    want_next, hs=(None, None), sides=(True, True)). yu = M @ qi
+    dequantizes by the item input's scale ``si``, yi by the user's
+    ``su`` ([d, 1] each). post, pre, ext and hs are (user side, item
+    side) pairs: ext the combine c (forward epilogues, updated in
+    place) or the cotangent g (inject epilogues, read only); hs the tanh
+    chain's h slices (K9: written; K10: read where a next input is
+    wanted). ``flag``: the combine mode or whether g is added, both
+    sides alike. ``want_next``: one bool, or a (user, item) pair (EGCF's
+    backward seed sweep K − 1 wants the users' next input alone).
+    ``sides``: the sides that run (EGCF's forward seed sweep runs the
+    users alone, the backward's sweep K the items). Returns (out_u,
+    amax_u, out_i, amax_i) as the epilogue returns them, Nones for a
+    side not run.
+
+    CPU tensors take `plain`; CUDA tensors launch K1 or K5 with the
+    epilogue in its turn-out, three device launches and no epilogue
+    launch, or raise. A launch adds one to the dual's count
+    (``fused_adj_matmul_int8_t.launches`` or ``_int4_t``) and to
+    ``launches``, and the number of sides it ran to ``sides_run``, the
+    count of the standalone epilogue's launches it stands for."""
+
+    def __init__(self, name: str, mode: int, side_plain: Callable):
+        self.__name__ = name
+        self.mode = mode
+        self.side_plain = side_plain
+        self.launches = 0
+        self.sides_run = 0
+
+    def plain(self, quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+              qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, ext: tuple, flag: int,
+              want_next, hs: tuple = (None, None), sides: tuple = (True, True)):
+        yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
+        nexts = want_next if isinstance(want_next, tuple) else (want_next, want_next)
+        tanh = self.mode in (fusedmm.SWEEP_TANH, fusedmm.SWEEP_TANH_INJECT)
+        out = ()
+        for k, (y, s_) in enumerate(((yu, si), (yi, su))):
+            h = (hs[k],) if tanh else ()
+            out += (self.side_plain(y, s_[:, 0], post[k], pre[k], ext[k], *h, flag, nexts[k])
+                    if sides[k] else (None, None))
+        return out
+
+    def __call__(self, quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
+                 qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, ext: tuple,
+                 flag: int, want_next, hs: tuple = (None, None), sides: tuple = (True, True)):
+        if m.device.type == "cpu":
+            return self.plain(quant, m, qu, su, qi, si, post, pre, ext, flag, want_next, hs,
+                              sides)
+        if m.device.type != "cuda":
+            raise ValueError(f"unsupported device {m.device}")
+        if (self.mode in (fusedmm.SWEEP_FORWARD, fusedmm.SWEEP_TANH)
+                and flag not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD)):
+            raise ValueError(f"unknown combine mode {flag}")
+        nexts = want_next if isinstance(want_next, tuple) else (want_next, want_next)
+        out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, ext,
+                                     self.mode, flag, nexts, hs, sides)
+        _DUALS[quant].launches += 1
+        self.launches += 1
+        self.sides_run += sum(map(bool, sides))
+        return out
+
+
+dual_sweep = DualSweep("dual_sweep", fusedmm.SWEEP_FORWARD, chain_sweep_epilogue_plain)
+dual_sweep_inject = DualSweep("dual_sweep_inject", fusedmm.SWEEP_INJECT, chain_sweep_inject_plain)
+dual_sweep_tanh = DualSweep("dual_sweep_tanh", fusedmm.SWEEP_TANH, chain_sweep_tanh_plain)
+dual_sweep_tanh_inject = DualSweep("dual_sweep_tanh_inject", fusedmm.SWEEP_TANH_INJECT,
+                                   chain_sweep_tanh_inject_plain)
+# the linear chain's plain sweeps under the names their callers use
+dual_sweep_plain, dual_sweep_inject_plain = dual_sweep.plain, dual_sweep_inject.plain
+
+
+class ChainOps(NamedTuple):
+    """The per-sweep operations of the chain: the quantization, the
+    sweeps (the dual with the epilogue of K2, forward and inject, or of
+    K9 / K10 for the tanh chain), and the standalone epilogues of the
+    prologues (K2's; K10's for the tanh chain's backward)."""
+
     quantize: Callable
     sweep: Callable
     sweep_inject: Callable
+    sweep_tanh: Callable
+    sweep_tanh_inject: Callable
     epilogue: Callable
-    tanh: Callable
     tanh_inject: Callable
 
 
-KERNELS = ChainOps(_DUALS, propagate.quantize_rows, dual_sweep, dual_sweep_inject,
-                   chain_sweep_epilogue, chain_sweep_tanh, chain_sweep_tanh_inject)
-PLAIN = ChainOps(_PLAIN_DUALS, propagate.quantize_rows_plain, dual_sweep_plain,
-                 dual_sweep_inject_plain, chain_sweep_epilogue_plain, chain_sweep_tanh_plain,
+KERNELS = ChainOps(propagate.quantize_rows, dual_sweep, dual_sweep_inject, dual_sweep_tanh,
+                   dual_sweep_tanh_inject, chain_sweep_epilogue, chain_sweep_tanh_inject)
+PLAIN = ChainOps(propagate.quantize_rows_plain, dual_sweep.plain, dual_sweep_inject.plain,
+                 dual_sweep_tanh.plain, dual_sweep_tanh_inject.plain, chain_sweep_epilogue_plain,
                  chain_sweep_tanh_inject_plain)
 
 
@@ -418,7 +423,7 @@ def supports_chain_resident(adj, d: int, num_layers: int, reduce: str | None,
     layer, and an activation of None or `torch.tanh`; a tanh chain (and
     the seed, which needs one) excludes layer 0 (the JAX rules). The
     TPU's VMEM budget and mesh checks have no counterpart here."""
-    if not isinstance(adj, propagate.FusedSquareAdj) or adj.quant not in KERNELS.dual:
+    if not isinstance(adj, propagate.FusedSquareAdj) or adj.quant not in _DUALS:
         return False
     if num_layers < 1 or reduce not in ("mean", "sum"):
         return False
@@ -558,13 +563,13 @@ def _run_chain_act(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int, see
             qu, su = ops.quantize(zu, amax_u)
         if not (seed and k == 1):
             qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
         combine = (COMBINE_NONE, COMBINE_SET, COMBINE_ADD)[(k >= first) + (k > first)]
         more = k < n_sweeps - 1
-        # yu = M @ qi dequantizes by the item input's scale, yi by the user's
-        zu, amax_u = ops.tanh(yu, si[:, 0], lu, ru, cu, hs_u[k], combine, more)
-        if not (seed and k == 0):
-            zi, amax_i = ops.tanh(yi, su[:, 0], li, ri, ci, hs_i[k], combine, more)
+        # the seed sweep keeps its user direction alone (its zi, None, is
+        # never quantized: sweep 1 reuses the item quantization)
+        zu, amax_u, zi, amax_i = ops.sweep_tanh(adj.quant, adj.m8, qu, su, qi, si, (lu, li),
+                                                (ru, ri), (cu, ci), combine, more,
+                                                (hs_u[k], hs_i[k]), (True, not (seed and k == 0)))
     return cu, ci, hs_u, hs_i
 
 
@@ -601,23 +606,19 @@ def _run_chain_act_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, hs_u: torch.Tens
             si = torch.ones((d, 1), dtype=torch.float32, device=dev)
         else:
             qi, si = ops.quantize(zi, amax_i)
-        yu, yi = ops.dual[adj.quant](adj.m8, qu, qi)
-        if not seed:
+        args = (adj.quant, adj.m8, qu, su, qi, si, (ru, ri), (lu, li))
+        if not seed or k < num_layers - 1:
             more = k < last
-            hidx = num_layers - 2 - k
-            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[hidx] if more else None,
-                                         more, more)
-            zi, amax_i = ops.tanh_inject(yi, su[:, 0], ri, li, gi, hs_i[hidx] if more else None,
-                                         more, more)
-        elif k < num_layers - 1:
-            hidx = num_layers - 1 - k
-            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[hidx], True, True)
-            zi, amax_i = ops.tanh_inject(yi, su[:, 0], ri, li, gi, hs_i[hidx], True, True)
+            hidx = num_layers - (1 if seed else 2) - k
+            h = (hs_u[hidx], hs_i[hidx]) if more else (None, None)
+            zu, amax_u, zi, amax_i = ops.sweep_tanh_inject(*args, (gu, gi), more, more, h)
         elif k == num_layers - 1:
-            zu, amax_u = ops.tanh_inject(yu, si[:, 0], ru, lu, gu, hs_u[0], False, True)
-            g0_i, _ = ops.tanh_inject(yi, su[:, 0], ri, li, gi, None, False, False)
+            # G₀: the users go on through hu_seed's derivative, the items' is parked
+            zu, amax_u, g0_i, _ = ops.sweep_tanh_inject(*args, (gu, gi), False, (True, False),
+                                                        (hs_u[0], None))
         else:
-            zi, _ = ops.tanh_inject(yi, su[:, 0], ri, li, g0_i, None, True, False)
+            _, _, zi, _ = ops.sweep_tanh_inject(*args, (None, g0_i), True, False, (None, None),
+                                                (False, True))
             zu = torch.zeros_like(gu)
     return zu, zi
 
@@ -676,8 +677,9 @@ def fused_chain_resident(adj, emb0: torch.Tensor, num_layers: int,
     """The K-layer chain's layer combine, [N, d], through kernels K1 or
     K5 with K2 in their turn-out, K2 for the prologue and K3 (drop-in
     for `propagate.fused_chain_t` in reduce modes).
-    ``activation`` None or `torch.tanh` (K9 and K10 then take K2's
-    place); ``seed_users_from_items`` is EGCF's parallel-mode seeding
+    ``activation`` None or `torch.tanh` (K9's and K10's epilogues then
+    take K2's place in the turn-out, K10 the backward's prologue);
+    ``seed_users_from_items`` is EGCF's parallel-mode seeding
     and needs tanh and ``include_layer0=False``. Differentiable in
     ``emb0``: the backward is the straight-through quantized chain
     through the same kernels."""

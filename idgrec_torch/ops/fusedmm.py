@@ -24,7 +24,9 @@ turns around K8's scan of the packed bytes) returns the same integer
 products as K1 on the unpacked matrix, bit for bit, from half the
 bytes. `fused_adj_matmul_int4_t_plain` unpacks and runs K1's plain
 version. `launch_sweep_t` runs K1 or K5 with the quantized chain's
-per-sweep epilogue in its turn-out (`chainmm.dual_sweep`).
+per-sweep epilogue in its turn-out: the linear chain's
+(`chainmm.dual_sweep`, `dual_sweep_inject`) or the tanh chain's
+(`chainmm.dual_sweep_tanh`, `dual_sweep_tanh_inject`).
 
 The per-application product (`FusedSquareAdj.matmul`) keeps the
 activations in [N, d] layout. `fused_adj_matmul` is the exact-mode dual,
@@ -185,9 +187,11 @@ _SIGNATURES = {
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
 # K1's and K5's chain sweep (``<kernel>_sweep``)
-_SWEEP_SIGNATURE = [_P] * 16 + [_I] * 5 + [_P]
-# the turn-out's modes of a chain sweep (``csrc/dual_turns.cuh``)
-SWEEP_FORWARD, SWEEP_INJECT = 1, 2
+_SWEEP_SIGNATURE = [_P] * 18 + [_I] * 7 + [_P]
+# the turn-out's modes of a chain sweep (``csrc/dual_turns.cuh``): the
+# linear chain's epilogue (K2's) and inject mode, the tanh chain's (K9's,
+# K10's)
+SWEEP_FORWARD, SWEEP_INJECT, SWEEP_TANH, SWEEP_TANH_INJECT = 1, 2, 3, 4
 
 
 @functools.cache
@@ -257,44 +261,67 @@ def _launch_t(quant: str, m: torch.Tensor, quT: torch.Tensor,
 
 def launch_sweep_t(quant: str, m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor,
                    s_u: torch.Tensor, s_i: torch.Tensor, post: tuple, pre: tuple, ext: tuple,
-                   mode: int, flag: int, want_next: bool):
+                   mode: int, flag: int, want_next: tuple, hs: tuple = (None, None),
+                   runs: tuple = (True, True)):
     """One sweep of the quantized chain on CUDA tensors: K1 (``quant``
     'int8') or K5 ('int4') with the chain's epilogue in its turn-out,
-    both sides, three device launches (`chainmm.dual_sweep` states the
-    arithmetic). s_u, s_i [d]: the scales of the user and the item sums;
-    post, pre, ext: (user side, item side) of [N] vectors and of the
-    combine (``mode`` SWEEP_FORWARD, updated in place) or the cotangent
-    (SWEEP_INJECT, read only). ``flag``: the combine mode, or whether
-    the cotangent is added. Returns (out_u, amax_u, out_i, amax_i): z
-    and its amax when ``want_next`` (forward; else None), the store and
-    its amax (inject; amax None unless ``want_next``)."""
+    three device launches (`chainmm.dual_sweep` and
+    `chainmm.dual_sweep_tanh` state the arithmetic). s_u, s_i [d]: the
+    scales of the user and the item sums. ``flag``: the combine mode
+    (``mode`` SWEEP_FORWARD or SWEEP_TANH) or whether the cotangent is
+    added (SWEEP_INJECT, SWEEP_TANH_INJECT), both sides alike. Each of
+    post, pre, ext, want_next, hs and runs is a pair (user side, item
+    side): [N] vectors; the combine (forward modes, updated in place) or
+    the cotangent (inject modes, read only); whether a next input and
+    its amax are wanted; the h slice [d, N]
+    (SWEEP_TANH: written; SWEEP_TANH_INJECT: read when a next input is
+    wanted; else unused); whether the side runs at all. A side that does
+    not run is neither read nor written, and its operands may be None.
+    Returns (out_u, amax_u, out_i, amax_i): z and its amax where a next
+    input is wanted (forward modes; else None), the store and its amax
+    (inject modes; amax None unless a next input is wanted), all None
+    for a side that does not run."""
     kernel = _T_KERNELS[quant]
     u_pad, i_pad, d = _check_t(kernel, quant, m, quT, qiT)
     dev = m.device
-    for k, (side, n, s_) in enumerate((("u", u_pad, s_u), ("i", i_pad, s_i))):
-        for name, t, shape in ((f"s_{side}", s_, (d,)), (f"post_{side}", post[k], (n,)),
-                               (f"pre_{side}", pre[k], (n,)), (f"ext_{side}", ext[k], (d, n))):
-            _check_operand(name, t, torch.float32, shape, dev)
-    if mode not in (SWEEP_FORWARD, SWEEP_INJECT):
+    if mode not in (SWEEP_FORWARD, SWEEP_INJECT, SWEEP_TANH, SWEEP_TANH_INJECT):
         raise ValueError(f"unknown sweep mode {mode}")
+    if not any(runs):
+        raise ValueError("a sweep runs at least one side")
+    forward = mode in (SWEEP_FORWARD, SWEEP_TANH)
+    nexts = tuple(bool(r and w) for r, w in zip(runs, want_next))
+    for k, (side, n, s_) in enumerate((("u", u_pad, s_u), ("i", i_pad, s_i))):
+        if not runs[k]:
+            continue
+        checks = [(f"s_{side}", s_, (d,)), (f"post_{side}", post[k], (n,)),
+                  (f"ext_{side}", ext[k], (d, n))]
+        if nexts[k]:
+            checks.append((f"pre_{side}", pre[k], (n,)))
+        if mode == SWEEP_TANH or (mode == SWEEP_TANH_INJECT and nexts[k]):
+            checks.append((f"hs_{side}", hs[k], (d, n)))
+        for name, t, shape in checks:
+            _check_operand(name, t, torch.float32, shape, dev)
     scratch, q_at = _t_scratch(u_pad, i_pad, d, dev)
     lib = _lib(kernel)
     # the two amax vectors, then the turn-out's per-block maxima and counts
     aux = torch.empty(getattr(lib, f"{kernel}_sweep_aux_words")(u_pad, i_pad),
                       dtype=torch.float32, device=dev)
-    writes = mode == SWEEP_INJECT or want_next
-    out_u = torch.empty((d, u_pad), dtype=torch.float32, device=dev) if writes else None
-    out_i = torch.empty((d, i_pad), dtype=torch.float32, device=dev) if writes else None
+    outs = [torch.empty((d, n), dtype=torch.float32, device=dev)
+            if r and (w or not forward) else None
+            for r, w, n in zip(runs, nexts, (u_pad, i_pad))]
+
+    def ptr(k, t):
+        return t.data_ptr() if runs[k] and t is not None else None
+
     code = getattr(lib, f"{kernel}_sweep")(
         m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), scratch.data_ptr() + q_at,
-        scratch.data_ptr(), aux.data_ptr(), s_u.data_ptr(), s_i.data_ptr(), post[0].data_ptr(),
-        pre[0].data_ptr(), post[1].data_ptr(), pre[1].data_ptr(), ext[0].data_ptr(),
-        ext[1].data_ptr(), out_u.data_ptr() if writes else None,
-        out_i.data_ptr() if writes else None, u_pad, i_pad, mode, int(flag), int(want_next),
+        scratch.data_ptr(), aux.data_ptr(), ptr(0, s_u), ptr(1, s_i), ptr(0, post[0]),
+        ptr(0, pre[0]), ptr(1, post[1]), ptr(1, pre[1]), ptr(0, ext[0]), ptr(1, ext[1]),
+        ptr(0, outs[0]), ptr(1, outs[1]), ptr(0, hs[0]), ptr(1, hs[1]), u_pad, i_pad, mode,
+        int(runs[0]) + 2 * int(runs[1]), int(flag), int(nexts[0]), int(nexts[1]),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, kernel, code)
-    amax_u, amax_i = (aux[:d], aux[d:2 * d]) if want_next else (None, None)
-    return out_u, amax_u, out_i, amax_i
+    return (outs[0], aux[:d] if nexts[0] else None, outs[1], aux[d:2 * d] if nexts[1] else None)
 
 
 def fused_adj_matmul_int8_t(m8: torch.Tensor, quT: torch.Tensor,

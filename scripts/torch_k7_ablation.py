@@ -49,6 +49,15 @@ full sweep and its raw dual (``dual_int8_t``) beside it, the per-tile
 maxima sent straight to the amax (no K2-block maxima, no last block),
 the maxima not sent, the last block's pass out, and the combine's reads
 out. The full variant is held to `chainmm.dual_sweep_plain` bit for bit.
+On a tree whose turn-out has the tanh chain's modes (K9's and K10's
+epilogues; the sweep's C call takes per-side next inputs, h slices and
+sides), each tanh variant is timed forward (the combine added,
+a next input) and inject (the cotangent injected, a next input): the
+full sweep beside its raw dual, tanhf taken out, the h slice's writes
+(forward) or reads (inject) taken out, the combine's or cotangent's
+reads taken out, and the maxima sent straight to the amax. The full
+variant is held to `chainmm.dual_sweep_tanh.plain` and
+`dual_sweep_tanh_inject.plain` bit for bit.
 
 K6 and K11: each variant's library is loaded in place of the tree's own
 and timed through the tree's wrapper (its allocations and launches
@@ -175,6 +184,16 @@ SWEEP_VARIANTS = {
     "no_maxima": [(r"if \(lane == 0\) tile_max\([^;]*;", ";")],
     "no_finish": [(r"finish_amax\(sw\);", ";")],
     "no_combine_reads": [(r"ext\[k\]\[(\d)\] = sd\.ext\[[^;]*;", r"ext[k][\1] = 0.0f;")],
+}
+# The tanh chain's sweep (K9's and K10's epilogues in the same turn-out),
+# each variant timed forward and inject
+TANH_SWEEP_VARIANTS = {
+    "full": [],
+    "no_tanh": [(r"v = tanhf\(nh\);", "v = nh;")],
+    "no_h_writes": [(r"sd\.hs\[e\] = v;", ";")],
+    "no_h_reads": [(r"hv\[k\]\[(\d)\] = sd\.hs\[[^;]*;", r"hv[k][\1] = 0.5f;")],
+    "no_ext_reads": SWEEP_VARIANTS["no_combine_reads"],
+    "one_amax_target": SWEEP_VARIANTS["one_amax_target"],
 }
 # K8: the scan on the packed bytes
 K8_VARIANTS = {"full": [], "stream_alone": [_NO_ENTRIES]}
@@ -662,12 +681,18 @@ def k11_ablation(dev, data, build_mod, bitmm, propagate) -> dict:
 
 
 def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
-    """The int8 chain sweep at d = 64 (forward, the combine added, a next
-    input) through each variant's library call, beside the raw dual."""
+    """The int8 chain sweep at d = 64 through each variant's library
+    call, beside the raw dual: the linear chain's (forward, the combine
+    added, a next input) and, on a tree whose turn-out has the tanh
+    modes, the tanh chain's forward (the combine added) and inject (the
+    cotangent injected), each with a next input."""
     source = build_mod.source_path("dual_int8_t")
-    if "dual_int8_t_sweep" not in open(source).read():
+    text = open(source).read()
+    if "dual_int8_t_sweep" not in text:
         print("this tree has no chain sweep in K1: no variants", flush=True)
         return {}
+    # per-side next inputs, h slices and sides (the tanh modes)
+    sides_api = "int sides" in text
     u_pad, i_pad = m8.shape
     d = 64
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -677,58 +702,112 @@ def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
     post = tuple(torch.rand(n, generator=g).to(dev) for n in (u_pad, i_pad))
     pre = tuple(torch.rand(n, generator=g).to(dev) for n in (u_pad, i_pad))
     c0 = tuple(torch.randn(d, n, generator=g).to(dev) for n in (u_pad, i_pad))
-    c_want = [t.clone() for t in c0]
-    want = chainmm.dual_sweep_plain("int8", m8, qu, su, qi, si, post, pre, c_want,
-                                    chainmm.COMBINE_ADD, True)
-    built = build_all(build_mod, source, SWEEP_VARIANTS, "sweep")
+    h0 = tuple(torch.tanh(torch.randn(d, n, generator=g)).to(dev) for n in (u_pad, i_pad))
     rows = (u_pad + i_pad) * d
     scratch = torch.empty(5 * rows, dtype=torch.int8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def load(so):
+        lib = ctypes.CDLL(so)
+        lib.dual_int8_t_sweep.argtypes = ([ctypes.c_void_p] * (18 if sides_api else 16)
+                                          + [ctypes.c_int] * (7 if sides_api else 5)
+                                          + [ctypes.c_void_p])
+        lib.dual_int8_t_sweep.restype = ctypes.c_int
+        lib.dual_int8_t.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p])
+        lib.dual_int8_t.restype = ctypes.c_int
+        lib.dual_int8_t_sweep_aux_words.argtypes = [ctypes.c_int] * 2
+        return lib
+
+    def sweep_call(lib, name, mode, flag, ext, out, hs=(None, None), vecs=(post, pre)):
+        aux = torch.empty(lib.dual_int8_t_sweep_aux_words(u_pad, i_pad), device=dev)
+        p_, r_ = vecs
+        head = [m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
+                scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr(),
+                p_[0].data_ptr(), r_[0].data_ptr(), p_[1].data_ptr(), r_[1].data_ptr(),
+                ext[0].data_ptr(), ext[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr()]
+        if sides_api:
+            args = head + [t.data_ptr() if t is not None else None for t in hs] + [
+                u_pad, i_pad, mode, 3, int(flag), 1, 1, stream]
+        else:
+            args = head + [u_pad, i_pad, mode, int(flag), 1, stream]
+
+        def run():
+            code = lib.dual_int8_t_sweep(*args)
+            if code:
+                raise RuntimeError(f"sweep {name}: CUDA error {code}")
+
+        return run, aux
+
+    def raw_ms(lib):
+        z = [torch.empty(d, n, device=dev) for n in (u_pad, i_pad)]
+
+        def raw():
+            code = lib.dual_int8_t(m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), z[0].data_ptr(),
+                                   z[1].data_ptr(), scratch.data_ptr() + 4 * rows,
+                                   scratch.data_ptr(), u_pad, i_pad, stream)
+            if code:
+                raise RuntimeError(f"raw dual: CUDA error {code}")
+
+        return timed(raw)
+
     out = {"ms": {}}
-    for name, (so, log) in built.items():
+    c_want = [t.clone() for t in c0]
+    want = chainmm.dual_sweep_plain("int8", m8, qu, su, qi, si, post, pre, c_want,
+                                    chainmm.COMBINE_ADD, True)
+    for name, (so, log) in build_all(build_mod, source, SWEEP_VARIANTS, "sweep").items():
         if so is None:
             print(f"sweep {name}: not measured, nvcc failed:\n{log}", flush=True)
             out["ms"][name] = None
             continue
-        lib = ctypes.CDLL(so)
-        lib.dual_int8_t_sweep.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        lib.dual_int8_t_sweep.restype = ctypes.c_int
-        lib.dual_int8_t.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.dual_int8_t.restype = ctypes.c_int
-        lib.dual_int8_t_sweep_aux_words.argtypes = [ctypes.c_int] * 2
-        aux = torch.empty(lib.dual_int8_t_sweep_aux_words(u_pad, i_pad), device=dev)
+        lib = load(so)
         c = [t.clone() for t in c0]
         z = [torch.empty(d, n, device=dev) for n in (u_pad, i_pad)]
-
-        def run():
-            code = lib.dual_int8_t_sweep(
-                m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
-                scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr(),
-                post[0].data_ptr(), pre[0].data_ptr(), post[1].data_ptr(), pre[1].data_ptr(),
-                c[0].data_ptr(), c[1].data_ptr(), z[0].data_ptr(), z[1].data_ptr(), u_pad, i_pad,
-                fusedmm.SWEEP_FORWARD, chainmm.COMBINE_ADD, 1, stream)
-            if code:
-                raise RuntimeError(f"sweep {name}: CUDA error {code}")
-
+        run, aux = sweep_call(lib, name, fusedmm.SWEEP_FORWARD, chainmm.COMBINE_ADD, c, z)
         if name == "full":
             run()
             got = (z[0], aux[:d], z[1], aux[d:2 * d], *c)
             if not all(torch.equal(a, b) for a, b in zip(got, (*want, *c_want))):
                 raise RuntimeError("the full sweep variant differs from its plain version")
-
-            def raw():
-                code = lib.dual_int8_t(m8.data_ptr(), qu.data_ptr(), qi.data_ptr(),
-                                       z[0].data_ptr(), z[1].data_ptr(),
-                                       scratch.data_ptr() + 4 * rows, scratch.data_ptr(), u_pad,
-                                       i_pad, stream)
-                if code:
-                    raise RuntimeError(f"raw dual: CUDA error {code}")
-
-            out["ms"]["raw_dual"] = timed(raw)
+            out["ms"]["raw_dual"] = raw_ms(lib)
             print(f"sweep raw_dual: {out['ms']['raw_dual']:.4f} ms", flush=True)
         out["ms"][name] = timed(run)
         print(f"sweep {name}: {out['ms'][name]:.4f} ms", flush=True)
+    if not sides_api:
+        return out
+    # the tanh sweeps: forward (h slices written) and inject (h read)
+    out["tanh_ms"] = {}
+    c_want, hs_want = [t.clone() for t in c0], [torch.empty_like(t) for t in c0]
+    want_f = (*chainmm.dual_sweep_tanh.plain("int8", m8, qu, su, qi, si, post, pre, c_want,
+                                             chainmm.COMBINE_ADD, True, hs_want),
+              *c_want, *hs_want)
+    want_i = chainmm.dual_sweep_tanh_inject.plain("int8", m8, qu, su, qi, si, pre, post, c0,
+                                                  True, True, h0)
+    for name, (so, log) in build_all(build_mod, source, TANH_SWEEP_VARIANTS, "tanh").items():
+        if so is None:
+            print(f"tanh sweep {name}: not measured, nvcc failed:\n{log}", flush=True)
+            out["tanh_ms"][name] = None
+            continue
+        lib = load(so)
+        c, hs = [t.clone() for t in c0], [torch.empty_like(t) for t in c0]
+        z, o = ([torch.empty(d, n, device=dev) for n in (u_pad, i_pad)] for _ in range(2))
+        fwd, aux_f = sweep_call(lib, name, fusedmm.SWEEP_TANH, chainmm.COMBINE_ADD, c, z, hs)
+        # the backward binds (post, pre) to (r, l): swapped here too
+        inj, aux_i = sweep_call(lib, name, fusedmm.SWEEP_TANH_INJECT, True, c0, o, h0,
+                                (pre, post))
+        if name == "full":
+            fwd()
+            inj()
+            got_f = (z[0], aux_f[:d], z[1], aux_f[d:2 * d], *c, *hs)
+            got_i = (o[0], aux_i[:d], o[1], aux_i[d:2 * d])
+            if not (all(torch.equal(a, b) for a, b in zip(got_f, want_f))
+                    and all(torch.equal(a, b) for a, b in zip(got_i, want_i))):
+                raise RuntimeError("the full tanh sweep variant differs from its plain version")
+            out["tanh_ms"]["raw_dual"] = raw_ms(lib)
+            print(f"tanh sweep raw_dual: {out['tanh_ms']['raw_dual']:.4f} ms", flush=True)
+        out["tanh_ms"][name] = {"forward": timed(fwd), "inject": timed(inj)}
+        print(f"tanh sweep {name}: forward {out['tanh_ms'][name]['forward']:.4f} ms, inject "
+              f"{out['tanh_ms'][name]['inject']:.4f} ms", flush=True)
     return out
 
 

@@ -611,6 +611,212 @@ def test_chain_forward_and_backward_do_not_synchronise(cuda, quant):
 
 
 # ---------------------------------------------------------------------------
+# the tanh chain's sweep: K1 or K5 with K9's or K10's epilogue in the
+# turn-out, each side with its own next input, or left out
+
+
+def _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, ext, hs, flag, want_next, inject,
+                         sides=(True, True)):
+    """The route the fused tanh sweep replaced: the dual kernel, then K9
+    (or K10) on each side that runs."""
+    dual = fusedmm.fused_adj_matmul_int8_t if quant == "int8" else fusedmm.fused_adj_matmul_int4_t
+    ys = dual(m, qu, qi)
+    want_next = want_next if isinstance(want_next, tuple) else (want_next,) * 2
+    out = []
+    for y, s_, k in ((ys[0], si, 0), (ys[1], su, 1)):
+        if not sides[k]:
+            out += [None, None]
+        elif inject:
+            out += chainmm.chain_sweep_tanh_inject(y, s_[:, 0], post[k], pre[k], ext[k], hs[k],
+                                                   flag, want_next[k])
+        else:
+            out += chainmm.chain_sweep_tanh(y, s_[:, 0], post[k], pre[k], ext[k], hs[k], flag,
+                                            want_next[k])
+    return out
+
+
+def _tanh_h(cuda, seed, u_pad, i_pad):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.tanh(torch.randn(64, n, generator=g)).to(cuda) for n in (u_pad, i_pad))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("combine", [chainmm.COMBINE_NONE, chainmm.COMBINE_SET,
+                                     chainmm.COMBINE_ADD])
+@pytest.mark.parametrize("want_next", [True, False])
+def test_dual_sweep_tanh_equals_separate_route(cuda, quant, combine, want_next):
+    """The forward tanh sweep with K9's epilogue in the dual's turn-out
+    equals the dual followed by two K9 launches and its plain version,
+    bit for bit (z, the combine, the h slices, amax); the h slice is
+    torch.tanh's; it counts one dual launch and no K9."""
+    m, qu, su, qi, si, post, pre, c0 = _sweep_inputs(cuda, quant, 31)
+    dual = fusedmm.fused_adj_matmul_int8_t if quant == "int8" else fusedmm.fused_adj_matmul_int4_t
+    c_f, c_s, c_p = ([t.clone() for t in c0] for _ in range(3))
+    h_f, h_s, h_p = ([torch.full_like(t, float("nan")) for t in c0] for _ in range(3))
+    before = (dual.launches, chainmm.dual_sweep_tanh.launches, chainmm.chain_sweep_tanh.launches)
+    got = chainmm.dual_sweep_tanh(quant, m, qu, su, qi, si, post, pre, c_f, combine, want_next,
+                                  h_f)
+    assert (dual.launches, chainmm.dual_sweep_tanh.launches,
+            chainmm.chain_sweep_tanh.launches) == (before[0] + 1, before[1] + 1, before[2])
+    sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, c_s, h_s, combine,
+                               want_next, False)
+    plain = chainmm.dual_sweep_tanh.plain(quant, m, qu, su, qi, si, post, pre, c_p, combine,
+                                          want_next, h_p)
+    for a, b, c in zip(list(got) + c_f + h_f, sep + c_s + h_s, list(plain) + c_p + h_p):
+        assert _same(a, b) and _same(a, c)
+    yu = (fusedmm.fused_adj_matmul_int8_t_plain if quant == "int8"
+          else fusedmm.fused_adj_matmul_int4_t_plain)(m, qu, qi)[0]
+    assert torch.equal(h_f[0], torch.tanh(post[0][None, :] * (yu * si)))
+    if want_next:
+        assert bool(got[1].gt(0).all()) and bool(got[3].gt(0).all())
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("inject,want_next", [(True, True), (True, False), (False, False),
+                                              (False, True)])
+def test_dual_sweep_tanh_inject_equals_separate_route(cuda, quant, inject, want_next):
+    """The backward tanh sweep with K10's epilogue in the turn-out equals
+    the dual followed by two K10 launches and its plain version, bit for
+    bit; the cotangent and h are read only."""
+    m, qu, su, qi, si, post, pre, g0 = _sweep_inputs(cuda, quant, 32)
+    h = _tanh_h(cuda, 32, *(t.shape[1] for t in g0))
+    h_arg = h if want_next else (None, None)
+    g = tuple(t.clone() for t in g0)
+    before = chainmm.chain_sweep_tanh_inject.launches
+    got = chainmm.dual_sweep_tanh_inject(quant, m, qu, su, qi, si, post, pre, g, inject,
+                                         want_next, h_arg)
+    assert chainmm.chain_sweep_tanh_inject.launches == before
+    sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, g, h_arg, inject, want_next,
+                               True)
+    plain = chainmm.dual_sweep_tanh_inject.plain(quant, m, qu, su, qi, si, post, pre, g, inject,
+                                                 want_next, h_arg)
+    for a, b, c in zip(got, sep, plain):
+        assert _same(a, b) and _same(a, c)
+    assert all(torch.equal(a, b) for a, b in zip(g, g0))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["forward_users_alone", "users_next_alone", "items_alone"])
+def test_tanh_seed_sweeps_per_side(cuda, quant, case):
+    """EGCF's seed sweeps: the forward's seed sweep runs the user side
+    alone; the backward's sweep K − 1 wants the users' next input alone;
+    its sweep K runs the item side alone. Each equals the separate route
+    bit for bit; a side left out writes nothing (the forward's item
+    combine and h slice keep their contents)."""
+    m, qu, su, qi, si, post, pre, e0 = _sweep_inputs(cuda, quant, 33, 2560, 6144)
+    h = _tanh_h(cuda, 33, 2560, 6144)
+    e_f, e_s = [t.clone() for t in e0], [t.clone() for t in e0]
+    if case == "forward_users_alone":
+        h_f, h_s = ([torch.full_like(t, float("nan")) for t in e0] for _ in range(2))
+        args = (chainmm.COMBINE_NONE, True, (True, False))
+        got = chainmm.dual_sweep_tanh(quant, m, qu, su, qi, si, post, pre, e_f, *args[:2], h_f,
+                                      args[2])
+        sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, e_s, h_s, *args[:2],
+                                   False, args[2])
+        assert bool(h_f[1].isnan().all()) and torch.equal(e_f[1], e0[1])
+        outs = list(got) + e_f + h_f[:1], sep + e_s + h_s[:1]
+    else:
+        if case == "users_next_alone":
+            args = ((h[0], None), False, (True, False), (True, True))
+        else:
+            args = ((None, None), True, False, (False, True))
+        got = chainmm.dual_sweep_tanh_inject(quant, m, qu, su, qi, si, post, pre, e_f, *args[1:3],
+                                             args[0], args[3])
+        sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, e_s, *args[:3], True,
+                                   args[3])
+        outs = list(got), sep
+    for a, b in zip(*outs):
+        assert _same(a, b)
+    users, items = case != "items_alone", case != "forward_users_alone"
+    assert (got[0] is not None, got[1] is not None, got[2] is not None, got[3]) == (
+        users, users, items, None)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["inf_scale", "nan_scale", "nan_block", "nan_tail"])
+@pytest.mark.parametrize("inject", [False, True])
+def test_dual_sweep_tanh_non_finite_equals_separate_route(cuda, quant, case, inject):
+    """A non-finite input gives what the separate route (the dual, then
+    K9 or K10 on each side) gives, bit for bit: an infinite scale, a NaN
+    scale, and NaN combines, cotangents or forward outputs h over one
+    whole block of 1,024 nodes or over the user side's last, partial
+    block. The amax is NaN only where K9's or K10's is."""
+    m, qu, su, qi, si, post, pre, e0 = _sweep_inputs(cuda, quant, 34, 2560, 6144)
+    h0 = _tanh_h(cuda, 34, 2560, 6144)
+    su, si = su.clone(), si.clone()
+    e0, h0 = tuple(t.clone() for t in e0), tuple(t.clone() for t in h0)
+    if case == "inf_scale":
+        si[5] = float("inf")
+        su[9] = float("inf")
+    elif case == "nan_scale":
+        si[3] = float("nan")
+    elif case == "nan_block":
+        e0[0][7, 1024:2048] = float("nan")
+        e0[1][11, :1024] = float("nan")
+        h0[1][17, 2048:3072] = float("nan")
+    else:
+        e0[0][13, 2048:] = float("nan")
+        h0[0][19, 2048:] = float("nan")
+    e_f, e_s = [t.clone() for t in e0], [t.clone() for t in e0]
+    if inject:
+        got = chainmm.dual_sweep_tanh_inject(quant, m, qu, su, qi, si, post, pre, e_f, True, True,
+                                             h0)
+        sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, e_s, h0, True, True, True)
+        outs = list(got) + e_f, sep + e_s
+    else:
+        h_f, h_s = ([torch.empty_like(t) for t in e0] for _ in range(2))
+        got = chainmm.dual_sweep_tanh(quant, m, qu, su, qi, si, post, pre, e_f,
+                                      chainmm.COMBINE_ADD, True, h_f)
+        sep = _separate_tanh_sweep(quant, m, qu, su, qi, si, post, pre, e_s, h_s,
+                                   chainmm.COMBINE_ADD, True, False)
+        outs = list(got) + e_f + h_f, sep + e_s + h_s
+    for a, b in zip(*outs):
+        assert _same(a, b)
+    # tanh bounds the forward's z; the backward's store is unbounded
+    if case == "nan_scale" or (inject and case in ("inf_scale", "nan_block")):
+        assert not bool(torch.isfinite(torch.cat([got[1], got[3]])).all())
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_tanh_chain_forward_and_backward_do_not_synchronise(cuda, quant):
+    """One tanh + seed chain forward and backward issues no
+    synchronisation with the host; no K9 runs, K10 only in the
+    backward's two prologue calls, every sweep fused. The sweeps' sides
+    are as many as the separate route's K9 and K10 launches: the seed
+    sweeps run one side."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, compute_dtype=quant, emb_size=64, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = (torch.rand(data.num_nodes, 64, generator=g) - 0.5)
+    x[: data.num_users] = 0.0
+    x = x.to(cuda)
+    cot = (torch.randn(data.num_nodes, 64, generator=g) / 512).to(cuda)
+
+    def run(xx):
+        return chainmm.fused_chain_resident(adj, xx, 3, False, "sum", torch.tanh, True)
+
+    xx = x.clone().requires_grad_(True)
+    run(xx).backward(cot)  # built and loaded outside the check
+    counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
+                chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
+    before = [fn.launches for fn in counters]
+    sides_before = [fn.sides_run for fn in counters[2:]]
+    xk = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(xk)
+        forward = [fn.launches - b for fn, b in zip(counters, before)]
+        out.backward(cot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert forward == [0, 0, 4, 0]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 2, 4, 4]
+    assert [fn.sides_run - b for fn, b in zip(counters[2:], sides_before)] == [7, 7]
+    assert torch.equal(xk.grad, xx.grad)
+
+
+# ---------------------------------------------------------------------------
 # K6, K7, K8: the per-application duals in [N, d] layout
 
 
@@ -1070,11 +1276,14 @@ def test_egcf_step_equals_plain_path(cuda, monkeypatch):
         sum(terms).backward()
         return (model.item_emb.grad.clone(), *(t.detach() for t in terms))
 
-    before = chainmm.chain_sweep_tanh.launches, chainmm.chain_sweep_tanh_inject.launches
+    counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
+                chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
+    before = [fn.launches for fn in counters]
     got = step()
-    assert chainmm.chain_sweep_tanh.launches - before[0] == 2 * 3 + 1  # the seed: users only
-    # the prologue, three sweeps of both sides, the seed sweep's item side
-    assert chainmm.chain_sweep_tanh_inject.launches - before[1] == 2 + 2 * 3 + 1
+    # the forward's 4 sweeps (the seed's included) and the backward's 4 run
+    # K9's and K10's epilogue in the dual's turn-out; K10 standalone only in
+    # the backward's prologue (users, items)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 2, 4, 4]
     monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
     monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
     monkeypatch.setattr(scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_plain)
