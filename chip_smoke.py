@@ -24,7 +24,14 @@ exactly. The chain's sweeps run K2's epilogue (forward and inject) in
 K1's or K5's turn-out: each sweep, int8 and int4, forward and inject,
 with and without a next input, is held to the dual followed by two K2
 launches and to its plain version, bit for bit; K2 itself runs only in
-the chain's prologues. One int8 and one int4 chain forward and backward
+the chain's prologues. The sweeps take the previous sweep's float32 z
+and its amax and round them in the turn-in as K3 does: each quantizing
+sweep (the linear and the tanh chain's, int8 and int4, every combine and
+inject, with and without a next input, the seed sweeps' sides, zero
+inputs, infinite and NaN amax, NaN over a whole block) is held to K3 on
+each input followed by the sweep on (q, s), and to its plain version
+where the rounding stays inside int8's range, bit for bit; K3 runs on no
+chain of a path. One int8 and one int4 chain forward and backward
 run under ``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
 per-application duals in [N, d] layout) are held to K1 and K5 on the
 transposed activations, K8 to K7 on the unpacked matrix, and three
@@ -69,8 +76,9 @@ launch counts set to 0 just before and read just after:
   kernels decline: a few steps through the per-application loop, K7 and
   K8 in both directions;
 * EGCF (configure/EGCF.txt: ssl_lambda 0.1, temperature 0.1, parallel
-  mode) in int8 on the tanh chain (K3, K1 with K9's and K10's epilogues
-  in its turn-out; K2 for the item prologue, K10 for the backward's):
+  mode) in int8 on the tanh chain (K1 with K3's rounding in its turn-in
+  and K9's and K10's epilogues in its turn-out; K2 for the item
+  prologue, K10 for the backward's):
   K9 and K10 against their plain versions on the seed chain's first
   sweeps; each tanh sweep, int8 and int4, forward (every combine) and
   inject, with and without a next input, the seed sweeps' per-side
@@ -539,7 +547,7 @@ def main() -> int:
     log(f"K5 equals its plain version and K1 on the unpacked matrix exactly "
         f"({int((yu4 != 0).sum())} + {int((yi4 != 0).sum())} non-zero sums), two launches "
         "bit-equal")
-    del yu4_p, yi4_p, yu4_k1, yi4_k1, xi4, zi4
+    del yu4_p, yi4_p, yu4_k1, yi4_k1, xi4
 
     emb0 = concat_user_item(model.user_emb, model.item_emb).detach()
     chain_k = chainmm.fused_chain_resident(adj, emb0, LAYERS)
@@ -699,6 +707,99 @@ def main() -> int:
         "combine and inject, each with and without a next input) equal the dual followed by two "
         "K2 launches and their plain version exactly")
 
+    # ---- the sweeps on the previous sweep's (z, amax): K3's rounding in
+    # the turn-in, held to K3 on each z input followed by the sweep on
+    # (q, s) (the route the fold replaced; int8 zeros with scale 1 for a
+    # zero input) and to the plain version where finite (PyTorch's
+    # float-to-int8 cast is not K3's outside int8's range, and the plain
+    # amax takes any NaN where the kernels' take a whole block's), bit for
+    # bit; the fused call launches no K3
+    quant_sweeps = {"forward": chainmm.dual_sweep, "inject": chainmm.dual_sweep_inject,
+                    "tanh": chainmm.dual_sweep_tanh,
+                    "tanh_inject": chainmm.dual_sweep_tanh_inject}
+    errs["quant_sweep"] = 0.0
+    n_quant_cases = {"linear": 0, "tanh": 0}
+
+    def quantizing_case(kind, quant, m_, inputs, post, pre, ext0, h0, flag, want_next,
+                        sides=(True, True), plain=True):
+        sweep = quant_sweeps[kind]
+        n_z = sum(x_ is not None for x_, _ in inputs)
+        runs = {}
+        for route in ("fused", "separate") + (("plain",) if plain else ()):
+            ext = [t_.clone() if t_ is not None else None for t_ in ext0]
+            hs_ = ([torch.full((DIM, p_.shape[0]), float("nan"), device=dev) for p_ in post]
+                   if kind == "tanh" else list(h0))
+            fn_ = {"fused": sweep, "separate": sweep.separate, "plain": sweep.plain}[route]
+            k3_before = propagate.quantize_rows.launches
+            out = list(fn_(quant, m_, *inputs[0], *inputs[1], post, pre, ext, flag, want_next,
+                           hs_, sides))
+            k3_ran = propagate.quantize_rows.launches - k3_before
+            require(k3_ran == (n_z if route == "separate" else 0),
+                    f"{kind} {quant} {route}: {k3_ran} K3 launches")
+            runs[route] = out + ext + (hs_ if kind == "tanh" else [])
+        what = (f"{quant} quantizing {kind} sweep flag={flag} want_next={want_next} "
+                f"sides={sides}")
+        for k_, a in enumerate(runs["fused"]):
+            for route, other in runs.items():
+                b = other[k_]
+                if a is None or b is None:
+                    require(a is None and b is None, f"{what}: an output is missing ({route})")
+                    continue
+                require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                        f"{what} differs from the {route} route: max abs err {max_abs(a, b)}")
+                both = torch.isfinite(a) & torch.isfinite(b)
+                if bool(both.any()):
+                    errs["quant_sweep"] = max(errs["quant_sweep"], max_abs(a[both], b[both]))
+        n_quant_cases["tanh" if kind.startswith("tanh") else "linear"] += 1
+        return runs["fused"]
+
+    def non_finite(inputs, case):
+        """(zu, au), (zi, ai) with an infinite amax on each side, a NaN
+        amax, or NaN z over a whole K2 block of one item feature."""
+        (zu_, au_), (zi_, ai_) = ((z_.clone(), a_.clone()) for z_, a_ in inputs)
+        if case == "inf_amax":
+            au_[9] = float("inf")
+            ai_[5] = float("inf")
+        elif case == "nan_amax":
+            ai_[3] = float("nan")
+        else:
+            zi_[11, 1024:2048] = float("nan")
+        return [(zu_, au_), (zi_, ai_)]
+
+    z_inputs = {"int8": [(zu, au), (zi, ai)], "int4": [(zu, au), (zi4, ai4)]}
+    for quant in ("int8", "int4"):
+        m_, _, _, l_, r_, c_, g_ = sweep_cases[quant]
+        for combine in (chainmm.COMBINE_NONE, chainmm.COMBINE_SET, chainmm.COMBINE_ADD):
+            for want_next in (True, False):
+                got = quantizing_case("forward", quant, m_, z_inputs[quant], l_, r_, c_,
+                                      (None, None), combine, want_next)
+                require(not want_next or bool(got[1].gt(0).all() and got[3].gt(0).all()),
+                        "a quantizing sweep's amax is not positive")
+        for inject in (True, False):
+            for want_next in (True, False):
+                quantizing_case("inject", quant, m_, z_inputs[quant], r_, l_, g_, (None, None),
+                                inject, want_next)
+        for zero in (0, 1):
+            inputs = list(z_inputs[quant])
+            inputs[zero] = (None, None)
+            got = quantizing_case("forward", quant, m_, inputs, l_, r_, c_, (None, None),
+                                  chainmm.COMBINE_ADD, True)
+            require(not bool(got[2 * (1 - zero)].any()), "a zero input gave non-zero sums")
+        for case in ("inf_amax", "nan_amax", "nan_z_block"):
+            # the plain amax takes any NaN, the kernels' a whole block's
+            plain_ok = case == "nan_amax"
+            quantizing_case("forward", quant, m_, non_finite(z_inputs[quant], case), l_, r_, c_,
+                            (None, None), chainmm.COMBINE_ADD, True, plain=plain_ok)
+            got = quantizing_case("inject", quant, m_, non_finite(z_inputs[quant], case), r_, l_,
+                                  g_, (None, None), True, True, plain=plain_ok)
+            require(case != "inf_amax" or not bool(torch.isfinite(got[1]).all()),
+                    "an infinite amax left the inject sweep's amax finite")
+    log(f"the linear chain's quantizing sweeps ({n_quant_cases['linear']} cases: int8 and int4, "
+        "every combine and inject, with and without a next input, a zero input on either side, "
+        "infinite and NaN amax, NaN z over a whole block) equal K3 on each input followed by the "
+        "sweep on (q, s) exactly, and their plain version where the rounding stays inside int8; "
+        "no K3 launch")
+
     grads_chain = []
     for graph, fn in ((adj, chainmm.fused_chain_resident),
                       (adj, chainmm.fused_chain_resident_plain),
@@ -767,22 +868,23 @@ def main() -> int:
 
     # ---- the main path: construct the server and answer requests
     # the quantized chain's: K2 in the prologues, its epilogue and inject
-    # mode in the sweeps (the dual's turn-out); K2-inject runs standalone
-    # on no path
+    # mode in the sweeps (the dual's turn-out), K3's rounding in their
+    # turn-in; K2-inject and K3 run standalone on no chain
     int8_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                     chainmm.dual_sweep, chainmm.dual_sweep_inject, propagate.quantize_rows,
-                     scatter.scatter_add_rows)
+                     chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows)
     int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
     n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                   fusedmm.fused_adj_matmul_int4)
     tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
                      chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
     row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
-    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject)
+    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject,
+                                 propagate.quantize_rows)
                 + n_counters + tanh_counters + row_counters)
 
     # a fused sweep also counts the sides it ran, each one standalone
-    # epilogue launch of the route it replaced
+    # epilogue launch of the route it replaced, and the (z, amax) inputs
+    # its turn-in rounded, each one K3 launch of that route
     sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
 
     def reset_counts():
@@ -790,15 +892,24 @@ def main() -> int:
         for fn in counters:
             fn.launches = 0
         for fn in sweeps:
-            fn.sides_run = 0
+            fn.sides_run = fn.quantized_in_sweep = 0
 
     def read_counts() -> dict:
         torch.cuda.synchronize()
         return {**{fn.__name__: fn.launches for fn in counters},
-                **{f"{fn.__name__}.sides_run": fn.sides_run for fn in sweeps}}
+                **{f"{fn.__name__}.sides_run": fn.sides_run for fn in sweeps},
+                **{f"{fn.__name__}.quantized_in_sweep": fn.quantized_in_sweep for fn in sweeps}}
+
+    def require_no_k3(counts: dict, path: str, rounded: int | None = None):
+        """No standalone K3 on ``path``'s chains: the sweeps round their
+        inputs in the turn-in (``rounded`` of them, where given)."""
+        in_sweep = sum(counts[f"{fn.__name__}.quantized_in_sweep"] for fn in sweeps)
+        require(counts["quantize_rows"] == 0, f"{path}: {counts['quantize_rows']} K3 launches")
+        require(in_sweep > 0 and rounded in (None, in_sweep),
+                f"{path}: the sweeps rounded {in_sweep} inputs, expected {rounded}")
 
     serving_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                        chainmm.dual_sweep, propagate.quantize_rows)
+                        chainmm.dual_sweep)
     reset_counts()
     t0 = time.perf_counter()
     rec = Recommender(model, data)
@@ -814,6 +925,7 @@ def main() -> int:
     require((launches["chain_sweep_epilogue"], launches["dual_sweep"],
              launches["fused_adj_matmul_int8_t"]) == (2, LAYERS, LAYERS),
             "serving: expected one chain, K2 in its prologue only")
+    require_no_k3(launches, "serving", 2 * LAYERS)
 
     ref_rec = Recommender(PlainChainModel(model), data)
     for users, (items, scores) in zip(requests, answers):
@@ -906,7 +1018,26 @@ def main() -> int:
     # the combine read and written and z written (forward), the cotangent
     # read and the next input written (inject); 4 operations per non-zero
     # entry and feature
-    sweep_times = {}
+    # The sweep on (z, amax) as the chain runs it (K3's rounding in the
+    # turn-in) beside K3 twice and the sweep on (q, s), and the bare sweep
+    # on (q, s); its bound reads z as float32 where the bare sweep reads q
+    sweep_times, quant_times = {}, {}
+
+    def time_quantizing(kind, quant, m_, inputs, post, pre, ext, flag, bare_sweep, nbytes,
+                        hs_=(None, None)):
+        sw_ = quant_sweeps[kind]
+        args = (*inputs[0], *inputs[1], post, pre, ext, flag, True, hs_)
+        quantizing = cuda_ms(lambda: sw_(quant, m_, *args), 20)
+        k3_then_sweep = cuda_ms(lambda: sw_.separate(quant, m_, *args), 20)
+        n_q = inputs[0][0].shape[1] + inputs[1][0].shape[1]
+        bnd = bound(nbytes + 3.0 * d * n_q, 4.0 * nnz * d)
+        require(bnd[0] <= quantizing, f"{quant} quantizing {kind} sweep: {quantizing} ms below "
+                                      f"its bound {bnd[0]} ms")
+        quant_times[(quant, kind)] = (quantizing, k3_then_sweep, bare_sweep, bnd)
+        log(f"{quant} quantizing {kind} sweep: {quantizing:.4f} ms (bound {bnd[0]:.4f} by "
+            f"{bnd[1]}) beside K3 x2 and the sweep on (q, s) {k3_then_sweep:.4f} ms and the bare "
+            f"sweep on (q, s) {bare_sweep:.4f} ms")
+
     for quant in ("int8", "int4"):
         m_, qi_ = sweep_cases[quant][:2]
         n_q = u_pad + qi_.shape[1]
@@ -924,6 +1055,8 @@ def main() -> int:
             log(f"{quant} {'inject' if inject else 'forward'} sweep: {fused:.4f} ms (bound "
                 f"{bnd[0]:.4f} by {bnd[1]}) beside the dual and two K2 launches "
                 f"{separate:.4f} ms and the bare dual {bare:.4f} ms")
+            time_quantizing("inject" if inject else "forward", quant, m_, z_inputs[quant],
+                            *sweep_cases[quant][3:5], ext, flag, fused, nbytes)
     del ext
 
     def k4_pair(fn):
@@ -1016,9 +1149,12 @@ def main() -> int:
     n_train = EPOCHS * steps
     want_train = {"chain_sweep_epilogue": 4 * n_train + 2, "chain_sweep_inject": 0,
                   "dual_sweep": LAYERS * (n_train + 1), "dual_sweep_inject": LAYERS * n_train,
-                  "fused_adj_matmul_int8_t": LAYERS * (2 * n_train + 1)}
+                  "fused_adj_matmul_int8_t": LAYERS * (2 * n_train + 1), "quantize_rows": 0,
+                  "dual_sweep.quantized_in_sweep": 2 * LAYERS * (n_train + 1),
+                  "dual_sweep_inject.quantized_in_sweep": 2 * LAYERS * n_train}
     require(all(train_launches[k_] == v for k_, v in want_train.items()),
             f"training path: expected {want_train}")
+    require_no_k3(train_launches, "training", 2 * LAYERS * (2 * n_train + 1))
 
     # one int4 epoch through the same runner code, for the int8-vs-int4 times
     runner4 = EpochRunner(model4, lr, BATCH, data.num_train)
@@ -1035,6 +1171,7 @@ def main() -> int:
     require(int4_epoch_launches["fused_adj_matmul_int4_t"] == 2 * LAYERS * steps
             and int4_epoch_launches["fused_adj_matmul_int8_t"] == 0,
             f"int4 epoch: K5 launches {int4_epoch_launches}")
+    require_no_k3(int4_epoch_launches, "int4 epoch", 4 * LAYERS * steps)
     require(bool(np.isfinite(terms4).all()) and terms4[0] < steps * np.log(2.0),
             f"int4 epoch loss terms {terms4}")
     del runner4, triple
@@ -1100,6 +1237,7 @@ def main() -> int:
         log(f"run harness launches: {harness_launches}")
         for fn in int4_counters:
             require(fn.launches > 0, f"{fn.__name__} was never launched on the run-harness path")
+        require_no_k3(harness_launches, "run harness")
         # per epoch 6 sweeps a step and one eval chain; one chain per Recommender
         want_k5 = EPOCHS * (2 * LAYERS * steps + LAYERS) + 2 * LAYERS
         require(harness_launches["fused_adj_matmul_int4_t"] == want_k5
@@ -1178,6 +1316,7 @@ def main() -> int:
         require(code_main == 0 and code_serve == 0, f"exit codes {code_main}, {code_serve}")
         for fn in int4_counters:
             require(fn.launches > 0, f"{fn.__name__} was never launched by the command lines")
+        require_no_k3(cli_launches, "command lines")
         require("compute_dtype : int4" in out_main.getvalue()
                 and "Best epoch:" in out_main.getvalue(), "main's output")
         rows = [json.loads(line) for line in out_serve.getvalue().strip().splitlines()]
@@ -1750,6 +1889,45 @@ def main() -> int:
         "followed by K9 or K10 on each side that runs exactly, and their plain version where "
         "finite; the fused h is torch.tanh")
 
+    # the tanh sweeps on (z, amax), against K3 and the sweep on (q, s): the
+    # users' input is the seed sweep's output, the items' the prologue's;
+    # the seed sweeps' zero inputs and sides
+    tanh_z = {"int8": [(zu_e, au_e), (zi_e, ai_e)],
+              "int4": [(zu_e, au_e), (propagate._pad_cols(zi_e, i_pad4).contiguous(), ai_e)]}
+    for quant in ("int8", "int4"):
+        m_, _, l_, r_, c_, g_, h_ = tanh_cases[quant]
+        for combine in (chainmm.COMBINE_NONE, chainmm.COMBINE_SET, chainmm.COMBINE_ADD):
+            for want_next in (True, False):
+                quantizing_case("tanh", quant, m_, tanh_z[quant], l_, r_, c_, (None, None),
+                                combine, want_next)
+        for inject in (True, False):
+            for want_next in (True, False):
+                quantizing_case("tanh_inject", quant, m_, tanh_z[quant], r_, l_, g_,
+                                h_ if want_next else (None, None), inject, want_next)
+        # the forward's seed sweep: a zero user input, the users alone
+        got = quantizing_case("tanh", quant, m_, [(None, None), tanh_z[quant][1]], l_, r_, c_,
+                              (None, None), chainmm.COMBINE_NONE, True, (True, False))
+        require(got[2] is None and bool(got[7].isnan().all()), "the seed sweep wrote items")
+        # the backward's sweep K - 1 (the users' next input alone) and sweep
+        # K (a zero item input, the items alone)
+        got = quantizing_case("tanh_inject", quant, m_, tanh_z[quant], r_, l_, g_, (h_[0], None),
+                              False, (True, False))
+        require(got[1] is not None and got[3] is None, "sweep K - 1: the amax of a side")
+        got = quantizing_case("tanh_inject", quant, m_, [tanh_z[quant][0], (None, None)], r_, l_,
+                              (None, g_[1]), (None, None), True, False, (False, True))
+        require(got[0] is None and got[2] is not None, "sweep K: the user side ran")
+        for case in ("inf_amax", "nan_amax", "nan_z_block"):
+            plain_ok = case == "nan_amax"
+            quantizing_case("tanh", quant, m_, non_finite(tanh_z[quant], case), l_, r_, c_,
+                            (None, None), chainmm.COMBINE_ADD, True, plain=plain_ok)
+            quantizing_case("tanh_inject", quant, m_, non_finite(tanh_z[quant], case), r_, l_,
+                            g_, h_, True, True, plain=plain_ok)
+    log(f"the tanh chain's quantizing sweeps ({n_quant_cases['tanh']} cases: int8 and int4, "
+        "every combine and inject, with and without a next input, the seed sweeps' zero inputs "
+        "and sides, infinite and NaN amax, NaN z over a whole block) equal K3 on each input "
+        "followed by the sweep on (q, s) exactly, and their plain version where finite; no K3 "
+        "launch")
+
     # one forward sweep (both sides, combine ADD, next input) and one backward sweep
     # (inject, next input), as the chain runs them in the middle of the chain
     def k9_pair(fn):
@@ -1798,6 +1976,9 @@ def main() -> int:
                 f"{bnd[0]:.4f} by {bnd[1]}) beside the dual and two "
                 f"{'K10' if inject else 'K9'} launches {separate:.4f} ms and the bare dual "
                 f"{bare:.4f} ms")
+            l_, r_ = tanh_cases[quant][2:4]
+            time_quantizing("tanh_inject" if inject else "tanh", quant, m_, tanh_z[quant],
+                            *((r_, l_) if inject else (l_, r_)), ext, flag, fused, nbytes, hs_t)
     del ext, hs_t
 
     # one int8 and one int4 tanh + seed chain forward and backward issue no
@@ -1830,7 +2011,7 @@ def main() -> int:
     log(f"the int8 and int4 tanh + seed chains forward and backward ({LAYERS + 1} fused sweeps "
         "each way, no K9, K10 only in the 2 prologue calls) ran under sync debug mode 'error' "
         "without a synchronisation")
-    del yu_seed, hs_u, hs_i, cu_e, ci_e, zu_e, xi_e, zi_e, tanh_cases, x0_s, x, out
+    del yu_seed, hs_u, hs_i, cu_e, ci_e, zu_e, xi_e, zi_e, tanh_cases, tanh_z, x0_s, x, out
 
     # ---- (b) the 3-layer tanh + seed chain, forward and backward: the kernels
     # against the plain chain, int4 against int8, and the per-sweep route
@@ -1875,7 +2056,7 @@ def main() -> int:
     # the forward chain: K2 in the item prologue, K9's epilogue in every
     # sweep's turn-out (the seed sweep's included), no K9 or K10 launch
     egcf_chain_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                           propagate.quantize_rows, chainmm.dual_sweep_tanh)
+                           chainmm.dual_sweep_tanh)
     for fn in egcf_chain_counters:
         require(fn.launches > 0, f"{fn.__name__} was never launched on EGCF's serving path")
     require(egcf_serve_launches["dual_sweep_tanh"] == LAYERS + 1
@@ -1883,6 +2064,9 @@ def main() -> int:
             and egcf_serve_launches["chain_sweep_tanh"] == 0
             and egcf_serve_launches["chain_sweep_tanh_inject"] == 0,
             "EGCF serving: expected one chain of 4 fused sweeps and no K9 or K10 launch")
+    # the seed sweep rounds the items alone, sweep 1 both (the seed's item
+    # input again), every later sweep both
+    require_no_k3(egcf_serve_launches, "EGCF serving", 2 * LAYERS + 1)
     ref_rec_e = Recommender(PlainChainModel(egcf), data)
     for users, (items, scores) in zip(requests, answers_e):
         check_answers(ref_rec_e, data, users, items, scores)
@@ -1945,6 +2129,8 @@ def main() -> int:
               "dual_sweep_tanh_inject": n_e * (LAYERS + 1)}
     require(all(egcf_train_launches[k_] == v for k_, v in want_e.items()),
             f"EGCF training: expected {want_e}")
+    # the backward's seed sweep rounds the users alone
+    require_no_k3(egcf_train_launches, "EGCF training", (2 * n_e + 1) * (2 * LAYERS + 1))
     for epoch, terms in enumerate(e_terms):
         require(terms.shape == (3,) and bool(np.isfinite(terms).all()),
                 f"EGCF epoch {epoch}: loss terms {terms}")
@@ -2042,6 +2228,7 @@ def main() -> int:
         for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,
                                          chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's train_model")
+        require_no_k3(egcf_harness_launches, "EGCF run harness")
         require(ckpt_lib.latest_checkpoint(ck_e) == 1
                 and np.array_equal(items_ck, items_res) and np.array_equal(scores_ck, scores_res),
                 "EGCF: no checkpoint, or from_checkpoint and from_train_result disagree")
@@ -2072,6 +2259,7 @@ def main() -> int:
         for fn in egcf_chain_counters + (chainmm.chain_sweep_tanh_inject,
                                          chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's command line")
+        require_no_k3(egcf_cli_launches, "EGCF command line")
         log(f"EGCF run harness: train_model one epoch with evaluation and a checkpoint, both "
             f"Recommender constructors, {egcf_harness_s:.2f} s; main.main(['--model=EGCF', ...]) "
             f"on {quick_e.num_users} x {quick_e.num_items} in {egcf_cli_s:.2f} s")
@@ -2374,11 +2562,13 @@ def main() -> int:
                "egcf_bitpack": egcf_bp_launches, "batch_rows": rows_launches}
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
-    def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=()):
+    def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=(),
+              per="sides_run"):
         # ``also``: the sweeps that run this kernel's code inside the dual's
-        # launch (K2's, K9's and K10's epilogues), counted by the sides they
-        # ran: one side is what one standalone launch does
-        counts = {path: c[fn.__name__] + sum(c[f"{f_.__name__}.sides_run"] for f_ in also)
+        # launch (K2's, K9's and K10's epilogues in the turn-out, counted by
+        # the sides they ran; K3's rounding in the turn-in, by the inputs it
+        # rounded): one side is what one standalone launch does
+        counts = {path: c[fn.__name__] + sum(c[f"{f_.__name__}.{per}"] for f_ in also)
                   for path, c in by_path.items()}
         # per training step of the path the kernel serves (the int8 count
         # with the eval sweep's chain; K6's without the chains of the
@@ -2429,7 +2619,12 @@ def main() -> int:
               also=(chainmm.dual_sweep_inject,)),
         entry("quantize_rows", "idgrec_torch/csrc/quantize_rows.cu",
               "idgrec_tpu/ops/chainmm.py:236", propagate.quantize_rows, errs["K3"], k3_ms,
-              k3_plain, k3_bound, k3_lib, "one sweep: 2 launches (users, items)"),
+              k3_plain, k3_bound, k3_lib,
+              "one sweep's inputs standalone: 2 launches (users, items); in the chain it runs "
+              "only inside the turn-in of K1 or K5 (csrc/dual_turns.cuh, every chainmm.DualSweep "
+              "on (z, amax)); launches counts one side quantized: a standalone launch, or one "
+              "(z, amax) input rounded in a sweep's turn-in",
+              also=tuple(quant_sweeps.values()), per="quantized_in_sweep"),
         entry("scatter_add_rows", "idgrec_torch/csrc/scatter_add_rows.cu",
               "idgrec_tpu/ops/scatter.py:40", scatter.scatter_add_rows, errs["K4"], k4_ms,
               k4_plain, k4_bound, k4_lib,
@@ -2505,6 +2700,18 @@ def main() -> int:
                 fused, separate, bare, bnd = sweep_times[(quant, inject)]
                 k.update({f"sweep_ms_{quant}": fused, f"dual_and_k2_ms_{quant}": separate,
                           f"bare_dual_ms_{quant}": bare, f"sweep_bound_ms_{quant}": bnd[0]})
+        elif k["name"] == "quantize_rows":
+            k["runs_in"] = "idgrec_torch/csrc/dual_turns.cuh"
+            k["launches_standalone"] = sum(c["quantize_rows"] for c in by_path.values())
+            k["launches_in_sweep"] = sum(c[f"{fn_.__name__}.quantized_in_sweep"]
+                                         for c in by_path.values()
+                                         for fn_ in quant_sweeps.values())
+            k["quantizing_sweep_err"] = errs["quant_sweep"]
+            for (quant, kind), (zq, sep, bare_, bnd) in quant_times.items():
+                k.update({f"quantizing_sweep_ms_{kind}_{quant}": zq,
+                          f"k3_and_sweep_ms_{kind}_{quant}": sep,
+                          f"bare_sweep_ms_{kind}_{quant}": bare_,
+                          f"quantizing_sweep_bound_ms_{kind}_{quant}": bnd[0]})
         elif k["name"] in ("chain_sweep_tanh", "chain_sweep_tanh_inject"):
             inject = k["name"] == "chain_sweep_tanh_inject"
             sweep_fn = chainmm.dual_sweep_tanh_inject if inject else chainmm.dual_sweep_tanh
@@ -2574,6 +2781,14 @@ def main() -> int:
             sweep_calls[f"{quant} tanh {'inject' if inject else 'forward'}"] = n_
             next(k for k in kernels if k["name"] == name_)[
                 f"device_launches_per_sweep_{quant}"] = n_
+        # a sweep on (z, amax), as the chain runs it
+        ext = [t_.clone() for t_ in sweep_cases[quant][5]]
+        n_ = device_launches(lambda: chainmm.dual_sweep(
+            quant, m_, *z_inputs[quant][0], *z_inputs[quant][1], l_, r_, ext,
+            chainmm.COMBINE_ADD, True))
+        sweep_calls[f"{quant} forward on (z, amax)"] = n_
+        next(k for k in kernels if k["name"] == "quantize_rows")[
+            f"device_launches_per_quantizing_sweep_{quant}"] = n_
     log("device launches a call (torch.profiler, kernels and memsets, the wrapper's fills "
         "included): " + ", ".join(f"{k['name']} {k['device_launches_per_call']}"
                                   for k in kernels if k["name"] in per_call)

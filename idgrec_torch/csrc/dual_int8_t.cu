@@ -36,19 +36,20 @@ int dual_int8_t(const void* m, const void* quT, const void* qiT, void* yuT, void
   return dual_t<false>(m, quT, qiT, yuT, yiT, q_scratch, acc_scratch, u_pad, i_pad, stream);
 }
 
-// One sweep of the quantized chain on M, the epilogue of K2 (linear
-// chain) or of K9 / K10 (tanh chain) in the turn-out, each side with its own
-// next input, or none of it (dual_turns.cuh dual_t_sweep gives the
-// arguments). Three launches.
-int dual_int8_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratch,
-                      void* acc_scratch, void* aux, const void* s_u, const void* s_i,
+// One sweep of the quantized chain on M: each side's input the previous
+// sweep's z and amax, rounded in the turn-in as K3 rounds it, a zero input,
+// or int8 q and its scale; the epilogue of K2 (linear chain) or of K9 / K10
+// (tanh chain) in the turn-out, each side with its own next input, or none
+// of it (dual_turns.cuh dual_t_sweep gives the arguments). Three launches.
+int dual_int8_t_sweep(const void* m, const void* x_u, const void* x_i, const void* a_u,
+                      const void* a_i, void* q_scratch, void* acc_scratch, void* aux,
                       const void* post_u, const void* pre_u, const void* post_i,
                       const void* pre_i, void* ext_u, void* ext_i, void* out_u, void* out_i,
-                      void* hs_u, void* hs_i, int u_pad, int i_pad, int mode, int sides,
-                      int flag, int next_u, int next_i, void* stream) {
-  return dual_t_sweep<false>(m, quT, qiT, q_scratch, acc_scratch, aux, s_u, s_i, post_u,
-                             pre_u, post_i, pre_i, ext_u, ext_i, out_u, out_i, hs_u, hs_i, u_pad,
-                             i_pad, mode, sides, flag, next_u, next_i, stream);
+                      void* hs_u, void* hs_i, int u_pad, int i_pad, int in_u, int in_i, int mode,
+                      int sides, int flag, int next_u, int next_i, void* stream) {
+  return dual_t_sweep<false>(m, x_u, x_i, a_u, a_i, q_scratch, acc_scratch, aux, post_u, pre_u,
+                             post_i, pre_i, ext_u, ext_i, out_u, out_i, hs_u, hs_i, u_pad, i_pad,
+                             in_u, in_i, mode, sides, flag, next_u, next_i, stream);
 }
 
 // The float32 words of the sweep's aux buffer.

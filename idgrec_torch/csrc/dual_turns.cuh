@@ -13,7 +13,21 @@
 //   outputs and the NaN-tile counts below). A warp-per-entry scan reading a
 //   column of qiT straight from [d, N] would touch 64 separate 32-byte
 //   sectors per entry where the [N, d] row touches 2, and so would the
-//   atomics into [d, N] sums.
+//   atomics into [d, N] sums. Each side's input has a mode (SideInput): the
+//   int8 q with its scale (the public entries, and a sweep on K3's output);
+//   for the chain's sweeps the previous sweep's float32 z with its amax,
+//   rounded on the way into the tile as K3 (quantize_rows.cu) rounds it,
+//   through the same functions of chain_epilogue.cuh (s = amax / 127, or 1;
+//   q = round-half-even(z / s)); or a zero input (q = 0, s = 1: EGCF's seed
+//   sweeps). A sweep on (z, amax) so equals K3 on each side followed by the
+//   sweep on (q, s), bit for bit, without K3's launches and its int8 copy of
+//   q; the TPU kernel likewise rounded the previous sweep's output at each
+//   block's first use (idgrec_tpu/ops/chainmm.py _consume_u / _consume_i,
+//   l.228-262). The turn-in's first block writes each input's scale (K3's
+//   s for z, the given scale for q, 1 for a zero input) into the sweep's
+//   aux, and the turn-out dequantizes each side's sums by the other side's,
+//   a plain load as before: a division there would cost the turn-out 0.005
+//   ms a sweep on an H100 (PERF.md).
 // * the scan: one feature group of 64, one read of the stored matrix, int32
 //   atomics into [U_pad + I_pad, 64].
 // * turn out: a block holds the int32 sums of 64 nodes x 64 features in
@@ -99,10 +113,25 @@ constexpr int K2_BLOCK_TILES = K2_BLOCK / TILE;
 
 // what the turn-out writes (fusedmm.SWEEP_*)
 enum TurnMode { kRaw = 0, kForward = 1, kInject = 2, kTanh = 3, kTanhInject = 4 };
+// what the turn-in reads of a side (fusedmm.INPUT_*)
+enum InputMode { kInQ = 0, kInZ = 1, kInZero = 2 };
+
+// One side's input of a call, [64, n] layout.
+struct SideInput {
+  const void* x;   // kInQ: int8 q; kInZ: float32 z; kInZero: unused
+  const float* a;  // [64] kInQ: q's scale; kInZ: z's per-feature amax; kInZero: unused
+  int mode;
+};
+
+// the scale of feature f of a side's input, the one K3 gives for (z, amax)
+__device__ __forceinline__ float input_scale(const SideInput& in, int f) {
+  if (in.mode == kInQ) return in.a[f];
+  return in.mode == kInZ ? scale_of(in.a[f]) : 1.0f;
+}
 
 // One side (users or items) of a chain sweep's epilogue, [d, n] layout.
 struct SideSweep {
-  const float* s_in;  // [64] the other side's dequantization scale
+  const float* s_in;  // [64] the other side's input scale, written by the turn-in
   const float* post;  // [n]
   const float* pre;   // [n], read when a sweep follows
   float* ext;         // forward, tanh: the combine c, read and written; inject, tanh
@@ -129,27 +158,44 @@ struct Sweep {
   int counted;         // the tiles of the sides that want a next input
 };
 
-// Block b turns 64 nodes: b < u_pad / 64 the users of quT, else the items of
-// qiT. qT [64, n] -> q rows [row0, row0 + 64) of [U_pad + I_pad, 64], and the
-// same rows of the int32 sums zeroed; extra[0, n_extra) zeroed too.
+// Block b turns 64 nodes: b < u_pad / 64 the users of in_u, else the items
+// of in_i. Its [64, n] input -> q rows [row0, row0 + 64) of [U_pad + I_pad,
+// 64] (z rounded by its scale on the way, a zero input written as zeros),
+// and the same rows of the int32 sums zeroed; extra[0, n_extra) zeroed too.
+// Block 0 writes the inputs' scales to scales[0, 128) (users', then
+// items'), where not null.
 __global__ void __launch_bounds__(TURN_THREADS)
-turn_in(const int8_t* __restrict__ quT, const int8_t* __restrict__ qiT, int8_t* __restrict__ q,
-        int* __restrict__ acc, int u_pad, int i_pad, int* __restrict__ extra, int n_extra) {
+turn_in(SideInput in_u, SideInput in_i, int8_t* __restrict__ q, int* __restrict__ acc, int u_pad,
+        int i_pad, int* __restrict__ extra, int n_extra, float* __restrict__ scales) {
+  static_assert(TURN_THREADS >= 2 * D, "one thread for each of the 2 x 64 scales");
   __shared__ __align__(16) int8_t tile[D * Q_PITCH];
   const int t = threadIdx.x;
   const int user_blocks = u_pad / TILE;
   const bool user = static_cast<int>(blockIdx.x) < user_blocks;
-  const int8_t* src = user ? quT : qiT;
+  const SideInput in = user ? in_u : in_i;  // its mode is uniform across the block
   const int n_stride = user ? u_pad : i_pad;
   const int n0 = (user ? blockIdx.x : blockIdx.x - user_blocks) * TILE;
   const long long row0 = static_cast<long long>(blockIdx.x) * TILE;
   for (int e = blockIdx.x * TURN_THREADS + t; e < n_extra; e += gridDim.x * TURN_THREADS)
     extra[e] = 0;
-  // read: feature f, nodes c .. c + 15 (16 bytes a thread, 64 bytes a row)
+  // each parameter struct read directly: picking one per thread would put
+  // both in local memory, and every thread's input reads behind them
+  if (scales != nullptr && blockIdx.x == 0 && t < 2 * D)
+    scales[t] = t < D ? input_scale(in_u, t) : input_scale(in_i, t - D);
+  // read: feature f, nodes c .. c + 15 (16 bytes a thread, 64 bytes a row of
+  // q; z: four float4 loads, all in flight before the rounding)
   {
     const int f = t >> 2, c = (t & 3) * 16;
-    const uint4 v =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(f) * n_stride + n0 + c);
+    const size_t at = static_cast<size_t>(f) * n_stride + n0 + c;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (in.mode == kInQ) {
+      v = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(in.x) + at);
+    } else if (in.mode == kInZ) {
+      const float4* z = reinterpret_cast<const float4*>(static_cast<const float*>(in.x) + at);
+      const float4 z0 = z[0], z1 = z[1], z2 = z[2], z3 = z[3];
+      const float s = scale_of(in.a[f]);
+      v = make_uint4(q8x4(z0, s), q8x4(z1, s), q8x4(z2, s), q8x4(z3, s));
+    }
     uint32_t* row = reinterpret_cast<uint32_t*>(tile + f * Q_PITCH + c);
     row[0] = v.x;
     row[1] = v.y;
@@ -332,22 +378,22 @@ turn_out(const int* __restrict__ acc, Sweep sw, int u_pad) {
 }
 
 // The three launches of one call on the stored matrix m (PACKED: nibble-
-// packed, [u_pad, i_pad / 2]). q_scratch: int8 [(u_pad + i_pad) * 64];
-// acc_scratch: int32 [(u_pad + i_pad) * 64]; both 16-byte aligned.
-// extra[0, n_extra) is zeroed by the turn-in.
+// packed, [u_pad, i_pad / 2]) and the inputs in_u [64, u_pad], in_i [64,
+// i_pad]. q_scratch: int8 [(u_pad + i_pad) * 64]; acc_scratch: int32
+// [(u_pad + i_pad) * 64]; both 16-byte aligned. extra[0, n_extra) is zeroed
+// by the turn-in, scales[0, 128) written (where not null).
 template <bool PACKED, int MODE>
-cudaError_t launch_turned(const void* m, const void* quT, const void* qiT, void* q_scratch,
-                          void* acc_scratch, int* extra, int n_extra, const Sweep& sw, int u_pad,
-                          int i_pad, cudaStream_t s) {
+cudaError_t launch_turned(const void* m, const SideInput& in_u, const SideInput& in_i,
+                          void* q_scratch, void* acc_scratch, int* extra, int n_extra,
+                          float* scales, const Sweep& sw, int u_pad, int i_pad, cudaStream_t s) {
   if (u_pad <= 0 || i_pad <= 0 || u_pad % TILE != 0 || i_pad % TILE != 0 ||
       (PACKED && i_pad % (2 * HALF_TILE) != 0))
     return cudaErrorInvalidValue;
   int8_t* q = static_cast<int8_t*>(q_scratch);
   int* acc = static_cast<int*>(acc_scratch);
   const unsigned blocks = static_cast<unsigned>((u_pad + i_pad) / TILE);
-  turn_in<<<blocks, TURN_THREADS, 0, s>>>(static_cast<const int8_t*>(quT),
-                                          static_cast<const int8_t*>(qiT), q, acc, u_pad, i_pad,
-                                          extra, n_extra);
+  turn_in<<<blocks, TURN_THREADS, 0, s>>>(in_u, in_i, q, acc, u_pad, i_pad, extra, n_extra,
+                                          scales);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int passes = 0;
@@ -369,55 +415,71 @@ int dual_t(const void* m, const void* quT, const void* qiT, void* yuT, void* yiT
   sw.side[1].out = static_cast<float*>(yiT);
   sw.side[1].n = i_pad;
   sw.tiles = (u_pad + i_pad) / TILE;
-  return static_cast<int>(launch_turned<PACKED, kRaw>(m, quT, qiT, q_scratch, acc_scratch,
-                                                      nullptr, 0, sw, u_pad, i_pad,
+  const SideInput in_u = {quT, nullptr, kInQ}, in_i = {qiT, nullptr, kInQ};
+  return static_cast<int>(launch_turned<PACKED, kRaw>(m, in_u, in_i, q_scratch, acc_scratch,
+                                                      nullptr, 0, nullptr, sw, u_pad, i_pad,
                                                       static_cast<cudaStream_t>(stream)));
 }
 
 // K2 blocks of a side of n nodes
 __host__ __device__ constexpr int k2_blocks(int n) { return (n + K2_BLOCK - 1) / K2_BLOCK; }
 
-// the words of a sweep's aux buffer
-__host__ __device__ constexpr int sweep_aux_words(int u_pad, int i_pad) {
+// the words of a sweep's aux buffer that the turn-in zeroes
+__host__ __device__ constexpr int sweep_zeroed_words(int u_pad, int i_pad) {
   return 2 * D + 2 * D * (k2_blocks(u_pad) + k2_blocks(i_pad)) + 4;
 }
 
+// the words of a sweep's aux buffer: those, then the inputs' scales
+__host__ __device__ constexpr int sweep_aux_words(int u_pad, int i_pad) {
+  return sweep_zeroed_words(u_pad, i_pad) + 2 * D;
+}
+
 // One chain sweep (mode 1 forward, 2 inject, 3 tanh, 4 tanh inject; see the
-// note at the top). s_u / s_i: the dequantization scales of the user and the
-// item sums (the item and the user input's scales); post_*, pre_*: [n] of
-// each side; ext_*: the combine c (forward, tanh) or the cotangent g
-// (inject, tanh inject), [64, n]; out_*: z (forward, tanh: when a sweep
-// follows) or out (inject, tanh inject), [64, n], not aliasing ext_*;
-// hs_*: the side's h slice [64, n] (tanh: written; tanh inject: read when a
-// sweep follows; otherwise unused). aux: float32 [sweep_aux_words(u_pad,
-// i_pad)]: the two amax vectors (users, items), then the NaN-tile counts,
-// the K2 blocks' maxima and the count of finished blocks; zeroed here when a
-// side wants a next input. sides: 1 the users, 2 the items, 3 both; a side
-// left out reads and writes nothing and wants no next input. flag: the
-// combine mode (forward, tanh) or whether g is added (inject, tanh inject),
-// both sides alike; next_*: whether the side wants a next input and its
-// amax.
+// note at the top). x_u, a_u / x_i, a_i: the user and the item input, by
+// in_u / in_i: kInQ int8 q [64, n] and its scale [64]; kInZ float32 z
+// [64, n] and its amax [64], rounded in the turn-in as K3 rounds it; kInZero
+// no pointer (q = 0, s = 1). The user sums dequantize by the item input's
+// scale, the item sums by the user input's. An amax may lie in the previous
+// sweep's aux: this sweep's turn-in and turn-out read it, so it must not be
+// this sweep's aux. post_*, pre_*: [n] of each side; ext_*: the combine c
+// (forward, tanh) or the cotangent g (inject, tanh inject), [64, n]; out_*:
+// z (forward, tanh: when a sweep follows) or out (inject, tanh inject),
+// [64, n], not aliasing ext_*; hs_*: the side's h slice [64, n] (tanh:
+// written; tanh inject: read when a sweep follows; otherwise unused). aux:
+// float32 [sweep_aux_words(u_pad, i_pad)]: the two amax vectors (users,
+// items), then the NaN-tile counts, the K2 blocks' maxima and the count of
+// finished blocks, zeroed here when a side wants a next input; then the
+// inputs' scales (users', items'), written by the turn-in. sides: 1 the
+// users, 2 the items, 3 both; a side left out writes nothing and wants no
+// next input (its input is still turned in: the other side's sums need it).
+// flag: the combine mode (forward, tanh) or whether g is added (inject, tanh
+// inject), both sides alike; next_*: whether the side wants a next input and
+// its amax.
 template <bool PACKED>
-int dual_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratch,
-                 void* acc_scratch, void* aux, const void* s_u, const void* s_i,
+int dual_t_sweep(const void* m, const void* x_u, const void* x_i, const void* a_u,
+                 const void* a_i, void* q_scratch, void* acc_scratch, void* aux,
                  const void* post_u, const void* pre_u, const void* post_i, const void* pre_i,
                  void* ext_u, void* ext_i, void* out_u, void* out_i, void* hs_u, void* hs_i,
-                 int u_pad, int i_pad, int mode, int sides, int flag, int next_u, int next_i,
-                 void* stream) {
+                 int u_pad, int i_pad, int in_u, int in_i, int mode, int sides, int flag,
+                 int next_u, int next_i, void* stream) {
   const bool combines = mode == kForward || mode == kTanh;
   const bool runs[2] = {(sides & 1) != 0, (sides & 2) != 0};
   if (sides < 1 || sides > 3 || mode < kForward || mode > kTanhInject ||
-      (combines && (flag < kNone || flag > kAdd)))
+      (combines && (flag < kNone || flag > kAdd)) || in_u < kInQ || in_u > kInZero ||
+      in_i < kInQ || in_i > kInZero)
     return static_cast<int>(cudaErrorInvalidValue);
+  const SideInput in[2] = {{x_u, static_cast<const float*>(a_u), in_u},
+                           {x_i, static_cast<const float*>(a_i), in_i}};
   float* amax = static_cast<float*>(aux);
   const int u_blocks = k2_blocks(u_pad);
   const int u_tiles = u_pad / TILE, i_tiles = i_pad / TILE;
+  float* scales = amax + sweep_zeroed_words(u_pad, i_pad);
   Sweep sw;
-  sw.side[0] = {static_cast<const float*>(s_u), static_cast<const float*>(post_u),
+  sw.side[0] = {scales + D, static_cast<const float*>(post_u),
                 static_cast<const float*>(pre_u), static_cast<float*>(ext_u),
                 static_cast<float*>(out_u), static_cast<float*>(hs_u), amax, u_pad,
                 runs[0] && next_u != 0};
-  sw.side[1] = {static_cast<const float*>(s_i), static_cast<const float*>(post_i),
+  sw.side[1] = {scales, static_cast<const float*>(post_i),
                 static_cast<const float*>(pre_i), static_cast<float*>(ext_i),
                 static_cast<float*>(out_i), static_cast<float*>(hs_i), amax + D, i_pad,
                 runs[1] && next_i != 0};
@@ -430,26 +492,26 @@ int dual_t_sweep(const void* m, const void* quT, const void* qiT, void* q_scratc
   sw.first_tile = runs[0] ? 0 : u_tiles;
   sw.tiles = (runs[0] ? u_tiles : 0) + (runs[1] ? i_tiles : 0);
   sw.counted = (sw.side[0].want_next ? u_tiles : 0) + (sw.side[1].want_next ? i_tiles : 0);
-  const int n_extra = sw.counted ? sweep_aux_words(u_pad, i_pad) : 0;
+  const int n_extra = sw.counted ? sweep_zeroed_words(u_pad, i_pad) : 0;
   int* extra = reinterpret_cast<int*>(aux);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (mode) {
     case kForward:
-      err = launch_turned<PACKED, kForward>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra,
-                                            sw, u_pad, i_pad, s);
+      err = launch_turned<PACKED, kForward>(m, in[0], in[1], q_scratch, acc_scratch, extra,
+                                            n_extra, scales, sw, u_pad, i_pad, s);
       break;
     case kInject:
-      err = launch_turned<PACKED, kInject>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra,
-                                           sw, u_pad, i_pad, s);
+      err = launch_turned<PACKED, kInject>(m, in[0], in[1], q_scratch, acc_scratch, extra,
+                                           n_extra, scales, sw, u_pad, i_pad, s);
       break;
     case kTanh:
-      err = launch_turned<PACKED, kTanh>(m, quT, qiT, q_scratch, acc_scratch, extra, n_extra, sw,
-                                         u_pad, i_pad, s);
+      err = launch_turned<PACKED, kTanh>(m, in[0], in[1], q_scratch, acc_scratch, extra, n_extra,
+                                         scales, sw, u_pad, i_pad, s);
       break;
     default:
-      err = launch_turned<PACKED, kTanhInject>(m, quT, qiT, q_scratch, acc_scratch, extra,
-                                               n_extra, sw, u_pad, i_pad, s);
+      err = launch_turned<PACKED, kTanhInject>(m, in[0], in[1], q_scratch, acc_scratch, extra,
+                                               n_extra, scales, sw, u_pad, i_pad, s);
   }
   return static_cast<int>(err);
 }

@@ -7,29 +7,24 @@
 // Replaces the quantization of idgrec_tpu/ops/propagate.py _quantize_rows
 // (l.236), run by the chain prologue (ops/chainmm.py _run_chain l.670-671)
 // and inside _make_chain_kernel for every sweep (the lazy round, l.236-260).
+// The chain's sweeps round in the turn-in of K1 and K5 (dual_turns.cuh)
+// through the same functions; this kernel serves the per-layer route
+// (ops/propagate.py quant_fused_dual_t) and is the reference the fold is
+// held to.
 //
 // Bound on the H100: bytes (4 bytes read and 1 written per element).
 //
 // Numerics: IEEE division (__fdiv_rn) and round-half-even (__float2int_rn),
-// as jnp.round(z / s) computes; no fast-math.
+// as jnp.round(z / s) computes; no fast-math (chain_epilogue.cuh scale_of,
+// q8).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "chain_epilogue.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 4;
 constexpr int PER_BLOCK = THREADS * PER_THREAD;
-
-__device__ __forceinline__ float scale_of(float a) {
-  return a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f;
-}
-
-__device__ __forceinline__ uint32_t q8(float v, float s) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(
-      static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, s)))));
-}
 
 __global__ void __launch_bounds__(THREADS)
 quantize_rows_kernel(const float* __restrict__ z, const float* __restrict__ amax,
@@ -41,9 +36,7 @@ quantize_rows_kernel(const float* __restrict__ z, const float* __restrict__ amax
   if (n0 >= n) return;
   const size_t row = static_cast<size_t>(f) * n;
   const float4 v = *reinterpret_cast<const float4*>(z + row + n0);
-  const uint32_t packed = q8(v.x, s) | (q8(v.y, s) << 8) | (q8(v.z, s) << 16) |
-                          (q8(v.w, s) << 24);
-  *reinterpret_cast<uint32_t*>(q + row + n0) = packed;
+  *reinterpret_cast<uint32_t*>(q + row + n0) = q8x4(v, s);
 }
 
 }  // namespace

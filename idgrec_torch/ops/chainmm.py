@@ -16,12 +16,15 @@ each a hand-written kernel:
     K2 chain_sweep_epilogue (this module) dequantize, normalize, combine,
                                           next input and its amax
 
-K2's work runs inside the dual's turn-out (`dual_sweep`, K1's or K5's
-third launch): the turn-out holds every sum of its tile and completes
-it as K2 would, so a sweep is K3 twice and the dual's three launches.
-The standalone K2 forms the chain's prologue, where no dual precedes it.
-Each of the chains' four sweeps (K2's epilogue, its inject mode, K9's,
-K10's) is a `DualSweep`: one wrapper, one plain version.
+K3's work runs inside the dual's turn-in and K2's inside its turn-out
+(`dual_sweep`, K1's or K5's first and third launches): the turn-in
+reads the previous sweep's float32 z and rounds it by its amax as K3
+would, the turn-out holds every sum of its tile and completes it as K2
+would, so a sweep is the dual's three launches alone. The standalone K2
+forms the chain's prologue, where no dual precedes it; K3 standalone
+runs on no chain (`propagate.quant_fused_dual_t` keeps it). Each of the
+chains' four sweeps (K2's epilogue, its inject mode, K9's, K10's) is a
+`DualSweep`: one wrapper, one plain version.
 
 Forward layer: h_{k+1} = l ⊙ dequant(M̂_dual(quant(r ⊙ h_k))), c += h_{k+1}.
 The f32 work keeps the TPU kernel's operation order (post * (raw * s),
@@ -38,7 +41,7 @@ with the normalization vectors swapped,
 
     G_k = g + r ⊙ dequant(M̂_dual(quant(l ⊙ G_{k+1}))),
 
-through K3 and K1 with K2's inject mode in its turn-out
+through K1 with K3 in its turn-in and K2's inject mode in its turn-out
 (`dual_sweep_inject`; standalone, `chain_sweep_inject`), and needs
 nothing of the forward but the adjacency. Both chains are one
 `torch.autograd.Function`, so the plain chain's gradient is the
@@ -51,15 +54,16 @@ tanh(l ⊙ dequant(...)) goes into an [n_sweeps, d, N] stream, the
 combine sums the counted layers (layer 0 is never one), and the next
 input is r ⊙ h. Its backward (K10's epilogue, `chain_sweep_tanh_inject`,
 in the turn-out of `dual_sweep_tanh_inject`) reads that stream: G =
-[g +] r ⊙ dequant(...), next input l ⊙ ((1 − h²) ⊙ G). A sweep is K3
-twice and the dual's three launches; K10 standalone forms the
-backward's prologue, and K9 standalone runs on no path. With
-``seed_users_from_items`` a seed sweep comes first: it consumes a zero
-user input and the item embeddings, keeps only its user direction
+[g +] r ⊙ dequant(...), next input l ⊙ ((1 − h²) ⊙ G). A sweep is the
+dual's three launches; K10 standalone forms the backward's prologue,
+and K9 standalone runs on no path. With ``seed_users_from_items`` a
+seed sweep comes first: it consumes a zero user input (the turn-in's
+zero mode) and the item embeddings, keeps only its user direction
 (hu = tanh(l_u ⊙ M(r_i ⊙ E_i)); the turn-out writes no item side), and
-the first counted layer reuses its item quantization. The backward
-appends the matching sweep that maps the user side of G₀ back to the
-items through the seed application (its turn-out writes no user side).
+the first counted layer reuses its item input, rounded again to the
+same integers. The backward appends the matching sweep that maps the
+user side of G₀ back to the items through the seed application (a zero
+item input; its turn-out writes no user side).
 """
 
 from __future__ import annotations
@@ -312,37 +316,63 @@ _PLAIN_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t_plain,
 _DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
 
 
+def _quantized(quantize: Callable, quant: str, m: torch.Tensor, xu, au, xi, ai) -> tuple:
+    """(qu, su, qi, si) of a sweep's inputs: (z, amax) through
+    ``quantize`` (K3 or its plain version), (q, s) as given, a zero input
+    (None) as int8 zeros with scale 1: what the chain computed between
+    sweeps before the turn-in rounded its inputs."""
+    if xu is None and xi is None:
+        raise ValueError("a sweep takes an input on at least one side")
+    d = (xu if xu is not None else xi).shape[0]
+    out = ()
+    for x, a, n in ((xu, au, m.shape[0]), (xi, ai, m.shape[1] * (2 if quant == "int4" else 1))):
+        if x is None:
+            out += (torch.zeros((d, n), dtype=torch.int8, device=m.device),
+                    torch.ones((d, 1), dtype=torch.float32, device=m.device))
+        elif fusedmm.sweep_input_mode(x) == fusedmm.INPUT_Q:
+            out += (x, a.reshape(d, 1))
+        else:
+            out += quantize(x, a)
+    return out
+
+
 class DualSweep:
     """One sweep of the quantized chain: the dual product of the
-    quantized inputs with one chain epilogue on each side that runs,
-    in the dual's turn-out (``csrc/dual_turns.cuh``), equal bit for bit
-    to `plain`: the plain dual (K1's, or K5's on the packed matrix when
-    ``quant`` is 'int4'), then the epilogue's plain version on each
-    side. One instance per epilogue: `dual_sweep` (K2's),
+    quantized inputs with one chain epilogue on each side that runs, in
+    the dual's turn-out (``csrc/dual_turns.cuh``), its inputs rounded in
+    the dual's turn-in, equal bit for bit to `plain`: K3's plain version
+    on each side's (z, amax), the plain dual (K1's, or K5's on the packed
+    matrix when ``quant`` is 'int4'), then the epilogue's plain version
+    on each side. One instance per epilogue: `dual_sweep` (K2's),
     `dual_sweep_inject` (K2's inject mode), `dual_sweep_tanh` (K9's),
     `dual_sweep_tanh_inject` (K10's).
 
-    Called with (quant, m, qu, su, qi, si, post, pre, ext, flag,
-    want_next, hs=(None, None), sides=(True, True)). yu = M @ qi
-    dequantizes by the item input's scale ``si``, yi by the user's
-    ``su`` ([d, 1] each). post, pre, ext and hs are (user side, item
-    side) pairs: ext the combine c (forward epilogues, updated in
-    place) or the cotangent g (inject epilogues, read only); hs the tanh
-    chain's h slices (K9: written; K10: read where a next input is
-    wanted). ``flag``: the combine mode or whether g is added, both
-    sides alike. ``want_next``: one bool, or a (user, item) pair (EGCF's
-    backward seed sweep K − 1 wants the users' next input alone).
-    ``sides``: the sides that run (EGCF's forward seed sweep runs the
-    users alone, the backward's sweep K the items). Returns (out_u,
-    amax_u, out_i, amax_i) as the epilogue returns them, Nones for a
-    side not run.
+    Called with (quant, m, xu, au, xi, ai, post, pre, ext, flag,
+    want_next, hs=(None, None), sides=(True, True)). Each side's input
+    (x, a) is the previous sweep's float32 z [d, N] with its amax [d]
+    (the chain's sweeps), int8 q with its scale [d, 1] (K3's output: the
+    route the fold replaced, `separate`), or (None, None), a zero input
+    (q = 0, scale 1; EGCF's seed sweeps). yu = M @ qi dequantizes by the
+    item input's scale, yi by the user input's. post, pre, ext and hs
+    are (user side, item side) pairs: ext the combine c (forward
+    epilogues, updated in place) or the cotangent g (inject epilogues,
+    read only); hs the tanh chain's h slices (K9: written; K10: read
+    where a next input is wanted). ``flag``: the combine mode or whether
+    g is added, both sides alike. ``want_next``: one bool, or a (user,
+    item) pair (EGCF's backward seed sweep K − 1 wants the users' next
+    input alone). ``sides``: the sides that run (EGCF's forward seed
+    sweep runs the users alone, the backward's sweep K the items); both
+    inputs are read all the same. Returns (out_u, amax_u, out_i, amax_i)
+    as the epilogue returns them, Nones for a side not run.
 
     CPU tensors take `plain`; CUDA tensors launch K1 or K5 with the
-    epilogue in its turn-out, three device launches and no epilogue
-    launch, or raise. A launch adds one to the dual's count
-    (``fused_adj_matmul_int8_t.launches`` or ``_int4_t``) and to
-    ``launches``, and the number of sides it ran to ``sides_run``, the
-    count of the standalone epilogue's launches it stands for."""
+    rounding in its turn-in and the epilogue in its turn-out, three
+    device launches and no K3 or epilogue launch, or raise. A launch
+    adds one to the dual's count (``fused_adj_matmul_int8_t.launches``
+    or ``_int4_t``) and to ``launches``, the number of sides it ran to
+    ``sides_run``, the count of the standalone epilogue's launches it
+    stands for, and the number of (z, amax) inputs it rounded to
+    ``quantized_in_sweep``, the count of K3 launches it stands for."""
 
     def __init__(self, name: str, mode: int, side_plain: Callable):
         self.__name__ = name
@@ -350,10 +380,12 @@ class DualSweep:
         self.side_plain = side_plain
         self.launches = 0
         self.sides_run = 0
+        self.quantized_in_sweep = 0
 
-    def plain(self, quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-              qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, ext: tuple, flag: int,
-              want_next, hs: tuple = (None, None), sides: tuple = (True, True)):
+    def plain(self, quant: str, m: torch.Tensor, xu, au, xi, ai, post: tuple, pre: tuple,
+              ext: tuple, flag: int, want_next, hs: tuple = (None, None),
+              sides: tuple = (True, True)):
+        qu, su, qi, si = _quantized(propagate.quantize_rows_plain, quant, m, xu, au, xi, ai)
         yu, yi = _PLAIN_DUALS[quant](m, qu, qi)
         nexts = want_next if isinstance(want_next, tuple) else (want_next, want_next)
         tanh = self.mode in (fusedmm.SWEEP_TANH, fusedmm.SWEEP_TANH_INJECT)
@@ -364,23 +396,35 @@ class DualSweep:
                     if sides[k] else (None, None))
         return out
 
-    def __call__(self, quant: str, m: torch.Tensor, qu: torch.Tensor, su: torch.Tensor,
-                 qi: torch.Tensor, si: torch.Tensor, post: tuple, pre: tuple, ext: tuple,
-                 flag: int, want_next, hs: tuple = (None, None), sides: tuple = (True, True)):
+    def separate(self, quant: str, m: torch.Tensor, xu, au, xi, ai, *args, **kwargs):
+        """The route the turn-in's rounding replaced: K3
+        (`propagate.quantize_rows`) on each (z, amax) input and int8
+        zeros with scale 1 for a zero input, then this sweep on (q, s).
+        The reference the fold is held to, bit for bit."""
+        return self(quant, m, *_quantized(propagate.quantize_rows, quant, m, xu, au, xi, ai),
+                    *args, **kwargs)
+
+    def __call__(self, quant: str, m: torch.Tensor, xu, au, xi, ai, post: tuple, pre: tuple,
+                 ext: tuple, flag: int, want_next, hs: tuple = (None, None),
+                 sides: tuple = (True, True)):
         if m.device.type == "cpu":
-            return self.plain(quant, m, qu, su, qi, si, post, pre, ext, flag, want_next, hs,
+            return self.plain(quant, m, xu, au, xi, ai, post, pre, ext, flag, want_next, hs,
                               sides)
         if m.device.type != "cuda":
             raise ValueError(f"unsupported device {m.device}")
         if (self.mode in (fusedmm.SWEEP_FORWARD, fusedmm.SWEEP_TANH)
                 and flag not in (COMBINE_NONE, COMBINE_SET, COMBINE_ADD)):
             raise ValueError(f"unknown combine mode {flag}")
+        if xu is None and xi is None:
+            raise ValueError("a sweep takes an input on at least one side")
         nexts = want_next if isinstance(want_next, tuple) else (want_next, want_next)
-        out = fusedmm.launch_sweep_t(quant, m, qu, qi, si[:, 0], su[:, 0], post, pre, ext,
-                                     self.mode, flag, nexts, hs, sides)
+        out = fusedmm.launch_sweep_t(quant, m, (xu, au), (xi, ai), post, pre, ext, self.mode,
+                                     flag, nexts, hs, sides)
         _DUALS[quant].launches += 1
         self.launches += 1
         self.sides_run += sum(map(bool, sides))
+        self.quantized_in_sweep += sum(fusedmm.sweep_input_mode(x) == fusedmm.INPUT_Z
+                                       for x in (xu, xi))
         return out
 
 
@@ -394,12 +438,12 @@ dual_sweep_plain, dual_sweep_inject_plain = dual_sweep.plain, dual_sweep_inject.
 
 
 class ChainOps(NamedTuple):
-    """The per-sweep operations of the chain: the quantization, the
-    sweeps (the dual with the epilogue of K2, forward and inject, or of
-    K9 / K10 for the tanh chain), and the standalone epilogues of the
-    prologues (K2's; K10's for the tanh chain's backward)."""
+    """The per-sweep operations of the chain: the sweeps (the dual with
+    its inputs rounded in the turn-in and the epilogue of K2, forward and
+    inject, or of K9 / K10 for the tanh chain, in the turn-out), and the
+    standalone epilogues of the prologues (K2's; K10's for the tanh
+    chain's backward)."""
 
-    quantize: Callable
     sweep: Callable
     sweep_inject: Callable
     sweep_tanh: Callable
@@ -408,10 +452,10 @@ class ChainOps(NamedTuple):
     tanh_inject: Callable
 
 
-KERNELS = ChainOps(propagate.quantize_rows, dual_sweep, dual_sweep_inject, dual_sweep_tanh,
-                   dual_sweep_tanh_inject, chain_sweep_epilogue, chain_sweep_tanh_inject)
-PLAIN = ChainOps(propagate.quantize_rows_plain, dual_sweep.plain, dual_sweep_inject.plain,
-                 dual_sweep_tanh.plain, dual_sweep_tanh_inject.plain, chain_sweep_epilogue_plain,
+KERNELS = ChainOps(dual_sweep, dual_sweep_inject, dual_sweep_tanh, dual_sweep_tanh_inject,
+                   chain_sweep_epilogue, chain_sweep_tanh_inject)
+PLAIN = ChainOps(dual_sweep.plain, dual_sweep_inject.plain, dual_sweep_tanh.plain,
+                 dual_sweep_tanh_inject.plain, chain_sweep_epilogue_plain,
                  chain_sweep_tanh_inject_plain)
 
 
@@ -458,11 +502,9 @@ def _run_chain(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int,
     zu, amax_u = ops.epilogue(xu, ones_d, torch.ones(u_pad, device=dev), ru, cu, first, True)
     zi, amax_i = ops.epilogue(xi, ones_d, torch.ones(i_pad, device=dev), ri, ci, first, True)
     for k in range(num_layers):
-        qu, su = ops.quantize(zu, amax_u)
-        qi, si = ops.quantize(zi, amax_i)
         combine = COMBINE_ADD if (include_layer0 or k > 0) else COMBINE_SET
         more = k < num_layers - 1
-        zu, amax_u, zi, amax_i = ops.sweep(adj.quant, adj.m8, qu, su, qi, si, (lu, li),
+        zu, amax_u, zi, amax_i = ops.sweep(adj.quant, adj.m8, zu, amax_u, zi, amax_i, (lu, li),
                                            (ru, ri), (cu, ci), combine, more)
     return cu, ci
 
@@ -485,12 +527,10 @@ def _run_chain_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, num_layers: int,
     zi, amax_i = ops.epilogue(gi, ones_d, torch.ones(i_pad, device=dev), li, gi,
                               COMBINE_NONE, True)
     for k in range(num_layers):
-        qu, su = ops.quantize(zu, amax_u)
-        qi, si = ops.quantize(zi, amax_i)
         more = k < num_layers - 1
-        zu, amax_u, zi, amax_i = ops.sweep_inject(adj.quant, adj.m8, qu, su, qi, si, (ru, ri),
-                                                  (lu, li), (gu, gi), include_layer0 or more,
-                                                  more)
+        zu, amax_u, zi, amax_i = ops.sweep_inject(adj.quant, adj.m8, zu, amax_u, zi, amax_i,
+                                                  (ru, ri), (lu, li), (gu, gi),
+                                                  include_layer0 or more, more)
     return zu, zi
 
 
@@ -538,7 +578,8 @@ def _run_chain_act(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int, see
 
     With ``seed``, sweep 0 consumes a zero user input (q = 0, scale 1)
     and discards its item direction (hs_i[0] is never written), and
-    sweep 1 reuses its item quantization without rounding again."""
+    sweep 1 reuses its item input: the same (z, amax) rounds to the same
+    integers."""
     u_pad, i_pad = adj.padded_shape
     d = xu.shape[0]
     ru, ri, lu, li = _vectors(adj, u_pad, i_pad)
@@ -553,23 +594,21 @@ def _run_chain_act(adj, xu: torch.Tensor, xi: torch.Tensor, num_layers: int, see
     zi, amax_i = ops.epilogue(xi, ones_d, torch.ones(i_pad, device=dev), ri, ci,
                               COMBINE_NONE, True)
     if seed:
-        qu = torch.zeros((d, u_pad), dtype=torch.int8, device=dev)
-        su = torch.ones((d, 1), dtype=torch.float32, device=dev)
+        zu = amax_u = None  # a zero input
     else:
         zu, amax_u = ops.epilogue(xu, ones_d, torch.ones(u_pad, device=dev), ru, cu,
                                   COMBINE_NONE, True)
     for k in range(n_sweeps):
-        if not (seed and k == 0):
-            qu, su = ops.quantize(zu, amax_u)
-        if not (seed and k == 1):
-            qi, si = ops.quantize(zi, amax_i)
         combine = (COMBINE_NONE, COMBINE_SET, COMBINE_ADD)[(k >= first) + (k > first)]
         more = k < n_sweeps - 1
-        # the seed sweep keeps its user direction alone (its zi, None, is
-        # never quantized: sweep 1 reuses the item quantization)
-        zu, amax_u, zi, amax_i = ops.sweep_tanh(adj.quant, adj.m8, qu, su, qi, si, (lu, li),
-                                                (ru, ri), (cu, ci), combine, more,
-                                                (hs_u[k], hs_i[k]), (True, not (seed and k == 0)))
+        seed_sweep = seed and k == 0
+        zu, amax_u, zi_k, amax_i_k = ops.sweep_tanh(adj.quant, adj.m8, zu, amax_u, zi, amax_i,
+                                                    (lu, li), (ru, ri), (cu, ci), combine, more,
+                                                    (hs_u[k], hs_i[k]), (True, not seed_sweep))
+        if not seed_sweep:
+            # the seed sweep keeps its user direction alone: sweep 1 takes
+            # the seed's item input again
+            zi, amax_i = zi_k, amax_i_k
     return cu, ci, hs_u, hs_i
 
 
@@ -599,14 +638,10 @@ def _run_chain_act_bwd(adj, gu: torch.Tensor, gi: torch.Tensor, hs_u: torch.Tens
     zi, amax_i = ops.tanh_inject(gi, ones_d, torch.ones(i_pad, device=dev), li, gi,
                                  hs_i[last], False, True)
     for k in range(n_sweeps):
-        qu, su = ops.quantize(zu, amax_u)
         if seed and k == last:
-            # the seed sweep's user direction is discarded: any item input will do
-            qi = torch.zeros((d, i_pad), dtype=torch.int8, device=dev)
-            si = torch.ones((d, 1), dtype=torch.float32, device=dev)
-        else:
-            qi, si = ops.quantize(zi, amax_i)
-        args = (adj.quant, adj.m8, qu, su, qi, si, (ru, ri), (lu, li))
+            # the seed sweep's user direction is discarded: a zero item input
+            zi = amax_i = None
+        args = (adj.quant, adj.m8, zu, amax_u, zi, amax_i, (ru, ri), (lu, li))
         if not seed or k < num_layers - 1:
             more = k < last
             hidx = num_layers - (1 if seed else 2) - k
@@ -675,8 +710,9 @@ def fused_chain_resident(adj, emb0: torch.Tensor, num_layers: int,
                          include_layer0: bool = True, reduce: str = "mean", activation=None,
                          seed_users_from_items: bool = False) -> torch.Tensor:
     """The K-layer chain's layer combine, [N, d], through kernels K1 or
-    K5 with K2 in their turn-out, K2 for the prologue and K3 (drop-in
-    for `propagate.fused_chain_t` in reduce modes).
+    K5 with K3's rounding in their turn-in and K2 in their turn-out, and
+    K2 for the prologue (drop-in for `propagate.fused_chain_t` in reduce
+    modes).
     ``activation`` None or `torch.tanh` (K9's and K10's epilogues then
     take K2's place in the turn-out, K10 the backward's prologue);
     ``seed_users_from_items`` is EGCF's parallel-mode seeding

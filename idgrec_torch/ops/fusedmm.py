@@ -23,9 +23,10 @@ packed two to a byte (`pack_nibbles`), the activations stay int8, and
 turns around K8's scan of the packed bytes) returns the same integer
 products as K1 on the unpacked matrix, bit for bit, from half the
 bytes. `fused_adj_matmul_int4_t_plain` unpacks and runs K1's plain
-version. `launch_sweep_t` runs K1 or K5 with the quantized chain's
-per-sweep epilogue in its turn-out: the linear chain's
-(`chainmm.dual_sweep`, `dual_sweep_inject`) or the tanh chain's
+version. `launch_sweep_t` runs K1 or K5 as one sweep of the quantized
+chain: the previous sweep's float32 output rounded in its turn-in as K3
+rounds it, and the per-sweep epilogue in its turn-out: the linear
+chain's (`chainmm.dual_sweep`, `dual_sweep_inject`) or the tanh chain's
 (`chainmm.dual_sweep_tanh`, `dual_sweep_tanh_inject`).
 
 The per-application product (`FusedSquareAdj.matmul`) keeps the
@@ -187,11 +188,14 @@ _SIGNATURES = {
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
 # K1's and K5's chain sweep (``<kernel>_sweep``)
-_SWEEP_SIGNATURE = [_P] * 18 + [_I] * 7 + [_P]
+_SWEEP_SIGNATURE = [_P] * 18 + [_I] * 9 + [_P]
 # the turn-out's modes of a chain sweep (``csrc/dual_turns.cuh``): the
 # linear chain's epilogue (K2's) and inject mode, the tanh chain's (K9's,
 # K10's)
 SWEEP_FORWARD, SWEEP_INJECT, SWEEP_TANH, SWEEP_TANH_INJECT = 1, 2, 3, 4
+# the turn-in's reads of a side's input: int8 q and its scale; float32 z and
+# its amax, rounded as K3 rounds it; a zero input (q = 0, scale 1)
+INPUT_Q, INPUT_Z, INPUT_ZERO = 0, 1, 2
 
 
 @functools.cache
@@ -259,42 +263,75 @@ def _launch_t(quant: str, m: torch.Tensor, quT: torch.Tensor,
     return yu, yi
 
 
-def launch_sweep_t(quant: str, m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor,
-                   s_u: torch.Tensor, s_i: torch.Tensor, post: tuple, pre: tuple, ext: tuple,
-                   mode: int, flag: int, want_next: tuple, hs: tuple = (None, None),
-                   runs: tuple = (True, True)):
+def sweep_input_mode(x: torch.Tensor | None) -> int:
+    """The turn-in's mode for a sweep input ``x``: INPUT_ZERO for None,
+    INPUT_Q for int8 q (given with its scale), INPUT_Z for float32 z
+    (given with its per-feature amax)."""
+    if x is None:
+        return INPUT_ZERO
+    if x.dtype == torch.int8:
+        return INPUT_Q
+    if x.dtype == torch.float32:
+        return INPUT_Z
+    raise ValueError(f"a sweep input is int8 q or float32 z, got {x.dtype}")
+
+
+def launch_sweep_t(quant: str, m: torch.Tensor, in_u: tuple, in_i: tuple, post: tuple,
+                   pre: tuple, ext: tuple, mode: int, flag: int, want_next: tuple,
+                   hs: tuple = (None, None), runs: tuple = (True, True)):
     """One sweep of the quantized chain on CUDA tensors: K1 (``quant``
     'int8') or K5 ('int4') with the chain's epilogue in its turn-out,
     three device launches (`chainmm.dual_sweep` and
-    `chainmm.dual_sweep_tanh` state the arithmetic). s_u, s_i [d]: the
-    scales of the user and the item sums. ``flag``: the combine mode
-    (``mode`` SWEEP_FORWARD or SWEEP_TANH) or whether the cotangent is
-    added (SWEEP_INJECT, SWEEP_TANH_INJECT), both sides alike. Each of
-    post, pre, ext, want_next, hs and runs is a pair (user side, item
-    side): [N] vectors; the combine (forward modes, updated in place) or
-    the cotangent (inject modes, read only); whether a next input and
-    its amax are wanted; the h slice [d, N]
-    (SWEEP_TANH: written; SWEEP_TANH_INJECT: read when a next input is
-    wanted; else unused); whether the side runs at all. A side that does
-    not run is neither read nor written, and its operands may be None.
+    `chainmm.dual_sweep_tanh` state the arithmetic). in_u, in_i: the
+    user and the item input as (x, a), [d, N] and [d] (a scale may come
+    as [d, 1]), by `sweep_input_mode`: (z, amax), rounded in the turn-in
+    as K3 rounds it; (q, s); or (None, None), a zero input. The user sums
+    dequantize by the item input's scale, the item sums by the user
+    input's. ``flag``: the combine mode (``mode`` SWEEP_FORWARD or
+    SWEEP_TANH) or whether the cotangent is added (SWEEP_INJECT,
+    SWEEP_TANH_INJECT), both sides alike. Each of post, pre, ext,
+    want_next, hs and runs is a pair (user side, item side): [N]
+    vectors; the combine (forward modes, updated in place) or the
+    cotangent (inject modes, read only); whether a next input and its
+    amax are wanted; the h slice [d, N] (SWEEP_TANH: written;
+    SWEEP_TANH_INJECT: read when a next input is wanted; else unused);
+    whether the side runs at all. A side that does not run is neither
+    read nor written but its input, and its operands may be None.
     Returns (out_u, amax_u, out_i, amax_i): z and its amax where a next
     input is wanted (forward modes; else None), the store and its amax
     (inject modes; amax None unless a next input is wanted), all None
-    for a side that does not run."""
+    for a side that does not run. The amaxes are views of this sweep's
+    aux buffer; an input's amax may be a view of the previous sweep's,
+    which the caller's reference keeps from being handed out as this
+    one's until the launch is enqueued."""
     kernel = _T_KERNELS[quant]
-    u_pad, i_pad, d = _check_t(kernel, quant, m, quT, qiT)
+    u_pad, m_cols = m.shape
+    i_pad = 2 * m_cols if quant == "int4" else m_cols
+    d = _FEATURES
     dev = m.device
+    _check_operand("m", m, torch.int8, (u_pad, m_cols), dev)
+    if not kernel_accepts(u_pad, i_pad, d, quant):
+        raise ValueError(f"{kernel} takes I_pad % {PACK_TILE if quant == 'int4' else _STRIP} "
+                         f"== 0 and U_pad % {_CHUNK} == 0; got U_pad={u_pad}, I_pad={i_pad}")
     if mode not in (SWEEP_FORWARD, SWEEP_INJECT, SWEEP_TANH, SWEEP_TANH_INJECT):
         raise ValueError(f"unknown sweep mode {mode}")
     if not any(runs):
         raise ValueError("a sweep runs at least one side")
     forward = mode in (SWEEP_FORWARD, SWEEP_TANH)
     nexts = tuple(bool(r and w) for r, w in zip(runs, want_next))
-    for k, (side, n, s_) in enumerate((("u", u_pad, s_u), ("i", i_pad, s_i))):
+    inputs = []
+    for side, n, (x, a) in (("u", u_pad, in_u), ("i", i_pad, in_i)):
+        in_mode = sweep_input_mode(x)
+        if in_mode != INPUT_ZERO:
+            _check_operand(f"x_{side}", x, x.dtype, (d, n), dev)
+            if a is None:
+                raise ValueError(f"a_{side}: the input's scale or amax is missing")
+            _check_operand(f"a_{side}", a.reshape(-1), torch.float32, (d,), dev)
+        inputs.append((x, a, in_mode))
+    for k, (side, n) in enumerate((("u", u_pad), ("i", i_pad))):
         if not runs[k]:
             continue
-        checks = [(f"s_{side}", s_, (d,)), (f"post_{side}", post[k], (n,)),
-                  (f"ext_{side}", ext[k], (d, n))]
+        checks = [(f"post_{side}", post[k], (n,)), (f"ext_{side}", ext[k], (d, n))]
         if nexts[k]:
             checks.append((f"pre_{side}", pre[k], (n,)))
         if mode == SWEEP_TANH or (mode == SWEEP_TANH_INJECT and nexts[k]):
@@ -313,11 +350,15 @@ def launch_sweep_t(quant: str, m: torch.Tensor, quT: torch.Tensor, qiT: torch.Te
     def ptr(k, t):
         return t.data_ptr() if runs[k] and t is not None else None
 
+    def in_ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    (xu, au, mu), (xi, ai, mi) = inputs
     code = getattr(lib, f"{kernel}_sweep")(
-        m.data_ptr(), quT.data_ptr(), qiT.data_ptr(), scratch.data_ptr() + q_at,
-        scratch.data_ptr(), aux.data_ptr(), ptr(0, s_u), ptr(1, s_i), ptr(0, post[0]),
-        ptr(0, pre[0]), ptr(1, post[1]), ptr(1, pre[1]), ptr(0, ext[0]), ptr(1, ext[1]),
-        ptr(0, outs[0]), ptr(1, outs[1]), ptr(0, hs[0]), ptr(1, hs[1]), u_pad, i_pad, mode,
+        m.data_ptr(), in_ptr(xu), in_ptr(xi), in_ptr(au), in_ptr(ai), scratch.data_ptr() + q_at,
+        scratch.data_ptr(), aux.data_ptr(), ptr(0, post[0]), ptr(0, pre[0]), ptr(1, post[1]),
+        ptr(1, pre[1]), ptr(0, ext[0]), ptr(1, ext[1]), ptr(0, outs[0]), ptr(1, outs[1]),
+        ptr(0, hs[0]), ptr(1, hs[1]), u_pad, i_pad, mu, mi, mode,
         int(runs[0]) + 2 * int(runs[1]), int(flag), int(nexts[0]), int(nexts[1]),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, kernel, code)

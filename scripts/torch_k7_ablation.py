@@ -57,7 +57,15 @@ full sweep beside its raw dual, tanhf taken out, the h slice's writes
 (forward) or reads (inject) taken out, the combine's or cotangent's
 reads taken out, and the maxima sent straight to the amax. The full
 variant is held to `chainmm.dual_sweep_tanh.plain` and
-`dual_sweep_tanh_inject.plain` bit for bit.
+`dual_sweep_tanh_inject.plain` bit for bit. On a tree whose turn-in
+rounds the previous sweep's float32 z (the sweep's C call takes each
+side's input mode), the linear forward sweep on (z, amax) is timed
+beside the same library's sweep on (q, s) (the bare sweep) and K3 twice
+followed by it, with the whole turn-in taken out (its q left in the
+scratch by the full variant) or the rounding's division made a product
+with the reciprocal. No variant changes q's values: the scan's time
+depends on them (q = -1 everywhere took 0.05 ms off a sweep on an H100). The full variant is held to
+`chainmm.dual_sweep.plain` on (z, amax) bit for bit.
 
 K6 and K11: each variant's library is loaded in place of the tree's own
 and timed through the tree's wrapper (its allocations and launches
@@ -194,6 +202,19 @@ TANH_SWEEP_VARIANTS = {
     "no_h_reads": [(r"hv\[k\]\[(\d)\] = sd\.hs\[[^;]*;", r"hv[k][\1] = 0.5f;")],
     "no_ext_reads": SWEEP_VARIANTS["no_combine_reads"],
     "one_amax_target": SWEEP_VARIANTS["one_amax_target"],
+}
+# The sweep's turn-in rounding the previous sweep's z (K3's work), timed on
+# (z, amax) inputs
+# (z, amax) inputs. Only variants that leave q's values as they are: the
+# scan's time depends on them. "no_turn_in" runs right after "full" and
+# reads the q it left in the shared scratch.
+QUANT_SWEEP_VARIANTS = {
+    "full": [],
+    "no_turn_in": [_NO_TURN_IN],
+    # the division by s as a product with its reciprocal: the same integers
+    # but where a quotient lies within an ulp of a rounding tie
+    "reciprocal": [(r"__float2int_rn\(__fdiv_rn\(v, s\)\)",
+                    "__float2int_rn(__fmul_rn(v, __frcp_rn(s)))")],
 }
 # K8: the scan on the packed bytes
 K8_VARIANTS = {"full": [], "stream_alone": [_NO_ENTRIES]}
@@ -680,12 +701,13 @@ def k11_ablation(dev, data, build_mod, bitmm, propagate) -> dict:
     return out
 
 
-def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
+def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm, propagate) -> dict:
     """The int8 chain sweep at d = 64 through each variant's library
     call, beside the raw dual: the linear chain's (forward, the combine
     added, a next input) and, on a tree whose turn-out has the tanh
     modes, the tanh chain's forward (the combine added) and inject (the
-    cotangent injected), each with a next input."""
+    cotangent injected), each with a next input; on a tree whose turn-in
+    rounds z, the linear forward sweep on (z, amax)."""
     source = build_mod.source_path("dual_int8_t")
     text = open(source).read()
     if "dual_int8_t_sweep" not in text:
@@ -693,6 +715,8 @@ def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
         return {}
     # per-side next inputs, h slices and sides (the tanh modes)
     sides_api = "int sides" in text
+    # each side's input mode: the turn-in rounds z (K3's work)
+    in_api = "int in_u" in text
     u_pad, i_pad = m8.shape
     d = 64
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -710,7 +734,8 @@ def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
     def load(so):
         lib = ctypes.CDLL(so)
         lib.dual_int8_t_sweep.argtypes = ([ctypes.c_void_p] * (18 if sides_api else 16)
-                                          + [ctypes.c_int] * (7 if sides_api else 5)
+                                          + [ctypes.c_int] * (9 if in_api else
+                                                              7 if sides_api else 5)
                                           + [ctypes.c_void_p])
         lib.dual_int8_t_sweep.restype = ctypes.c_int
         lib.dual_int8_t.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
@@ -719,17 +744,28 @@ def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
         lib.dual_int8_t_sweep_aux_words.argtypes = [ctypes.c_int] * 2
         return lib
 
-    def sweep_call(lib, name, mode, flag, ext, out, hs=(None, None), vecs=(post, pre)):
+    def sweep_call(lib, name, mode, flag, ext, out, hs=(None, None), vecs=(post, pre),
+                   inputs=None):
+        """``inputs``: each side's (x, a, input mode), on a tree whose
+        turn-in takes them; default K3's (q, s)."""
         aux = torch.empty(lib.dual_int8_t_sweep_aux_words(u_pad, i_pad), device=dev)
         p_, r_ = vecs
-        head = [m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
-                scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr(),
-                p_[0].data_ptr(), r_[0].data_ptr(), p_[1].data_ptr(), r_[1].data_ptr(),
+        tail = [p_[0].data_ptr(), r_[0].data_ptr(), p_[1].data_ptr(), r_[1].data_ptr(),
                 ext[0].data_ptr(), ext[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr()]
-        if sides_api:
+        if in_api:
+            (xu, au, mu), (xi, ai, mi) = inputs or ((qu, su, 0), (qi, si, 0))
+            head = [m8.data_ptr(), xu.data_ptr(), xi.data_ptr(), au.data_ptr(), ai.data_ptr(),
+                    scratch.data_ptr() + 4 * rows, scratch.data_ptr(), aux.data_ptr()] + tail
+            args = head + [t.data_ptr() if t is not None else None for t in hs] + [
+                u_pad, i_pad, mu, mi, mode, 3, int(flag), 1, 1, stream]
+        elif sides_api:
+            head = [m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
+                    scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr()] + tail
             args = head + [t.data_ptr() if t is not None else None for t in hs] + [
                 u_pad, i_pad, mode, 3, int(flag), 1, 1, stream]
         else:
+            head = [m8.data_ptr(), qu.data_ptr(), qi.data_ptr(), scratch.data_ptr() + 4 * rows,
+                    scratch.data_ptr(), aux.data_ptr(), si.data_ptr(), su.data_ptr()] + tail
             args = head + [u_pad, i_pad, mode, int(flag), 1, stream]
 
         def run():
@@ -808,6 +844,48 @@ def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm) -> dict:
         out["tanh_ms"][name] = {"forward": timed(fwd), "inject": timed(inj)}
         print(f"tanh sweep {name}: forward {out['tanh_ms'][name]['forward']:.4f} ms, inject "
               f"{out['tanh_ms'][name]['inject']:.4f} ms", flush=True)
+    if not in_api:
+        return out
+    # the sweep on (z, amax): the turn-in rounds as K3 does
+    out["quant_ms"] = {}
+    zu, zi = ((torch.randn(d, n, generator=g) * 0.3).to(dev) for n in (u_pad, i_pad))
+    au, ai = zu.abs().amax(dim=1), zi.abs().amax(dim=1)
+    z_in = ((zu, au, fusedmm.INPUT_Z), (zi, ai, fusedmm.INPUT_Z))
+    c_want = [t.clone() for t in c0]
+    want = chainmm.dual_sweep.plain("int8", m8, zu, au, zi, ai, post, pre, c_want,
+                                    chainmm.COMBINE_ADD, True)
+    for name, (so, log) in build_all(build_mod, source, QUANT_SWEEP_VARIANTS, "quant").items():
+        if so is None:
+            print(f"quantizing sweep {name}: not measured, nvcc failed:\n{log}", flush=True)
+            out["quant_ms"][name] = None
+            continue
+        lib = load(so)
+        c = [t.clone() for t in c0]
+        z = [torch.empty(d, n, device=dev) for n in (u_pad, i_pad)]
+        run, aux = sweep_call(lib, name, fusedmm.SWEEP_FORWARD, chainmm.COMBINE_ADD, c, z,
+                              inputs=z_in)
+        if name == "full":
+            run()
+            got = (z[0], aux[:d], z[1], aux[d:2 * d], *c)
+            if not all(torch.equal(a, b) for a, b in zip(got, (*want, *c_want))):
+                raise RuntimeError("the full quantizing sweep variant differs from its plain "
+                                   "version")
+            q_in = tuple((*propagate.quantize_rows(x, a), fusedmm.INPUT_Q) for x, a, _ in z_in)
+            bare, _ = sweep_call(lib, "bare", fusedmm.SWEEP_FORWARD, chainmm.COMBINE_ADD, c, z,
+                                 inputs=q_in)
+
+            def k3_then_bare():
+                for x, a, _ in z_in:
+                    propagate.quantize_rows(x, a)
+                bare()
+
+            out["quant_ms"]["bare_sweep"] = timed(bare)
+            out["quant_ms"]["k3_and_bare_sweep"] = timed(k3_then_bare)
+            print(f"quantizing sweep: the bare sweep on (q, s) {out['quant_ms']['bare_sweep']:.4f}"
+                  f" ms, K3 x2 and the bare sweep {out['quant_ms']['k3_and_bare_sweep']:.4f} ms",
+                  flush=True)
+        out["quant_ms"][name] = timed(run)
+        print(f"quantizing sweep {name}: {out['quant_ms'][name]:.4f} ms", flush=True)
     return out
 
 
@@ -976,7 +1054,7 @@ def main() -> int:
         result["k11"] = k11_ablation(dev, data, _build, bitmm, propagate)
     if not args.skip_sweep:
         m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
-        result["sweep"] = sweep_ablation(dev, m8, _build, fusedmm, chainmm)
+        result["sweep"] = sweep_ablation(dev, m8, _build, fusedmm, chainmm, propagate)
         del m8
     # the device launches of one K6 and one K11 call, counted last: once
     # used, the profiler slows the host's later launches

@@ -16,9 +16,10 @@ then
   synchronize (forward to the loss, backward, Adam), and the whole step
   unsynchronized, as the trainer runs it;
 * traces the same number of steps with `torch.profiler` and prints the
-  device time by kernel name, the device launches per step (kernels,
-  memsets and copies) and the device's busy share of the traced window
-  and of the untraced step (the profiler slows the host). If
+  device time by kernel name (the JSON holds every kernel's time and
+  launches a step), the device launches per step (kernels, memsets and
+  copies) and the device's busy share of the traced window and of the
+  untraced step (the profiler slows the host). If
   the profiler records no device time on this machine it says so and
   the phases above stand alone.
 
@@ -131,7 +132,7 @@ def main() -> int:
             step(i)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     n_device = 0  # the kernels, memsets and copies the steps put on the device
     for ev in prof.events():
         # device-side events; the optimizer's annotation spans its kernels
@@ -142,6 +143,7 @@ def main() -> int:
             t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
             name = ev.name[:90]
             by_kernel[name] = by_kernel.get(name, 0.0) + t / 1e3
+            calls[name] = calls.get(name, 0) + 1
     device_ms = sum(by_kernel.values())
     result = {"card": card, "root": os.path.abspath(args.root), "model": args.model,
               "compute_dtype": args.compute_dtype, "backend": args.backend,
@@ -158,9 +160,10 @@ def main() -> int:
         result["device_busy_share_traced"] = device_ms / window_ms
         result["device_ms_per_step"] = device_ms / steps
         result["device_share_of_untraced_step"] = device_ms / steps / step_ms
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
-        result["device_ms_per_step_by_kernel"] = {k: v / steps for k, v in top}
-        for k, v in top:
+        ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+        result["device_ms_per_step_by_kernel"] = {k: v / steps for k, v in ranked}
+        result["launches_per_step_by_kernel"] = {k: calls[k] / steps for k, _ in ranked}
+        for k, v in ranked[:15]:
             print(f"  {v / steps:8.4f} ms/step  {k}", flush=True)
         print(f"device time {device_ms / steps:.3f} ms per step: {device_ms / window_ms:.3f} of "
               f"the traced window ({window_ms / steps:.3f} ms per step under the profiler), "

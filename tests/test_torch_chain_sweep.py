@@ -10,7 +10,8 @@ Bars:
   input, injecting or not: exact equality (z or the store, the
   combine, amax); int4 against int8 on the same counts: exact;
 * the linear chain through the new `ChainOps` against a chain whose
-  sweeps are the separate calls: exact, forward and backward;
+  sweeps are the separate calls (K3, the dual, two K2 calls): exact,
+  forward and backward;
 * the chain against the JAX chain (Pallas kernels interpreted on the
   CPU), forward and backward, int8 and int4: TIGHT at one sweep, NOISE
   at three plus a relative L2 error below 1e-2, the bars of
@@ -125,12 +126,18 @@ def test_sweep_inject_equals_separate_plain_calls(quant, inject, want_next):
 
 def _separate_ops():
     """`PLAIN` with the linear chain's sweeps made of the separate calls,
-    as the chain ran them before the epilogue moved into the dual."""
-    def sweep(quant, m, qu, su, qi, si, post, pre, c, combine, want_next):
-        return _separate(quant, m, qu, su, qi, si, post, pre, c, combine, want_next, False)
+    as the chain ran them before the quantization moved into the dual's
+    turn-in and the epilogue into its turn-out: K3 on each side, the
+    dual, then two K2 calls."""
+    quantize = t_prop.quantize_rows_plain
 
-    def sweep_inject(quant, m, qu, su, qi, si, post, pre, g, inject, want_next):
-        return _separate(quant, m, qu, su, qi, si, post, pre, g, inject, want_next, True)
+    def sweep(quant, m, zu, au, zi, ai, post, pre, c, combine, want_next):
+        return _separate(quant, m, *quantize(zu, au), *quantize(zi, ai), post, pre, c, combine,
+                         want_next, False)
+
+    def sweep_inject(quant, m, zu, au, zi, ai, post, pre, g, inject, want_next):
+        return _separate(quant, m, *quantize(zu, au), *quantize(zi, ai), post, pre, g, inject,
+                         want_next, True)
 
     return t_chainmm.PLAIN._replace(sweep=sweep, sweep_inject=sweep_inject)
 
@@ -168,6 +175,7 @@ def test_chain_equals_the_separate_sweeps(adjs, quant, include_layer0):
 @pytest.mark.parametrize("quant,layers,include_layer0,reduce", [
     ("int8", 1, True, "mean"), ("int8", 3, False, "sum"),
     ("int4", 1, False, "sum"), ("int4", 3, True, "mean"),
+    ("int8", 1, False, "sum"), ("int4", 1, True, "mean"), ("int8", 3, True, "mean"),
 ])
 def test_chain_and_gradient_meet_jax(adjs, quant, layers, include_layer0, reduce):
     t, j = adjs[quant]

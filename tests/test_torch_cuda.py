@@ -10,6 +10,10 @@ launches, and K5's to K1's on the unpacked matrix and across two
 launches; the chain's sweeps (K1 or K5 with K2's epilogue in the
 turn-out, forward and inject) are bit-equal to the dual followed by two
 K2 launches and to their plain versions, non-finite inputs included;
+all four sweeps on the previous sweep's (z, amax), rounded in the
+turn-in, are bit-equal to K3 on each input followed by the sweep on
+(q, s), zero inputs and non-finite amax included, and to their plain
+versions where all stays finite; no chain of a path launches K3;
 the int4 chain and its gradient are bit-equal to the int8 chain's; K3 and K2 are
 bit-equal (IEEE division, round-half-even, no FMA contraction, an
 order-free max), K2's inject mode too; K4 is bit-equal (no atomics:
@@ -321,7 +325,10 @@ def test_training_step_gradients_equal_plain_path(cuda, monkeypatch):
         (bpr + reg).backward()
         return model.user_emb.grad.clone(), model.item_emb.grad.clone(), bpr.detach(), reg.detach()
 
+    k3_before = propagate.quantize_rows.launches
     got = grads()
+    # the chain's sweeps round their inputs in the turn-in: no K3 launch a step
+    assert propagate.quantize_rows.launches == k3_before
     monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
     monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
     monkeypatch.setattr(scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_plain)
@@ -586,9 +593,10 @@ def test_dual_sweep_non_finite_equals_separate_route(cuda, quant, case, inject):
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_chain_forward_and_backward_do_not_synchronise(cuda, quant):
-    """One chain forward and backward (K3, the fused sweeps, K2 for the
+    """One chain forward and backward (the fused sweeps, K2 for the
     prologues) issues no synchronisation with the host; K2 runs only in
-    the two prologues, its inject mode never standalone."""
+    the two prologues, its inject mode never standalone, and K3 never
+    standalone: every sweep rounds its two inputs in the turn-in."""
     data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
     adj = propagate.build_adjacency(data, compute_dtype=quant, emb_size=64, device=cuda)
     g = torch.Generator(device="cpu").manual_seed(4)
@@ -597,8 +605,9 @@ def test_chain_forward_and_backward_do_not_synchronise(cuda, quant):
     xx = x.clone().requires_grad_(True)
     chainmm.fused_chain_resident(adj, xx, 3).backward(cot)  # built and loaded outside the check
     counters = (chainmm.chain_sweep_epilogue, chainmm.chain_sweep_inject, chainmm.dual_sweep,
-                chainmm.dual_sweep_inject)
+                chainmm.dual_sweep_inject, propagate.quantize_rows)
     before = [fn.launches for fn in counters]
+    rounded = [fn.quantized_in_sweep for fn in counters[2:4]]
     xk = x.clone().requires_grad_(True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -606,7 +615,8 @@ def test_chain_forward_and_backward_do_not_synchronise(cuda, quant):
         chainmm.fused_chain_resident(adj, xk, 3).backward(cot)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [4, 0, 3, 3]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [4, 0, 3, 3, 0]
+    assert [fn.quantized_in_sweep - b for fn, b in zip(counters[2:4], rounded)] == [6, 6]
     assert torch.equal(xk.grad, xx.grad)
 
 
@@ -781,9 +791,11 @@ def test_dual_sweep_tanh_non_finite_equals_separate_route(cuda, quant, case, inj
 def test_tanh_chain_forward_and_backward_do_not_synchronise(cuda, quant):
     """One tanh + seed chain forward and backward issues no
     synchronisation with the host; no K9 runs, K10 only in the
-    backward's two prologue calls, every sweep fused. The sweeps' sides
-    are as many as the separate route's K9 and K10 launches: the seed
-    sweeps run one side."""
+    backward's two prologue calls, no K3, every sweep fused. The sweeps'
+    sides are as many as the separate route's K9 and K10 launches: the
+    seed sweeps run one side. The turn-ins round 7 inputs each way: the
+    seed sweeps take a zero input, and the forward's sweep 1 rounds the
+    seed's item input again."""
     data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
     adj = propagate.build_adjacency(data, compute_dtype=quant, emb_size=64, device=cuda)
     g = torch.Generator(device="cpu").manual_seed(4)
@@ -801,6 +813,8 @@ def test_tanh_chain_forward_and_backward_do_not_synchronise(cuda, quant):
                 chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
     before = [fn.launches for fn in counters]
     sides_before = [fn.sides_run for fn in counters[2:]]
+    rounded = [fn.quantized_in_sweep for fn in counters[2:]]
+    k3_before = propagate.quantize_rows.launches
     xk = x.clone().requires_grad_(True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -813,7 +827,155 @@ def test_tanh_chain_forward_and_backward_do_not_synchronise(cuda, quant):
     assert forward == [0, 0, 4, 0]
     assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 2, 4, 4]
     assert [fn.sides_run - b for fn, b in zip(counters[2:], sides_before)] == [7, 7]
+    assert [fn.quantized_in_sweep - b for fn, b in zip(counters[2:], rounded)] == [7, 7]
+    assert propagate.quantize_rows.launches == k3_before
     assert torch.equal(xk.grad, xx.grad)
+
+
+# ---------------------------------------------------------------------------
+# the sweeps on the previous sweep's (z, amax): K3's rounding in the turn-in
+
+_KINDS = {"forward": (chainmm.dual_sweep, (chainmm.COMBINE_NONE, chainmm.COMBINE_SET,
+                                           chainmm.COMBINE_ADD)),
+          "inject": (chainmm.dual_sweep_inject, (False, True)),
+          "tanh": (chainmm.dual_sweep_tanh, (chainmm.COMBINE_NONE, chainmm.COMBINE_SET,
+                                             chainmm.COMBINE_ADD)),
+          "tanh_inject": (chainmm.dual_sweep_tanh_inject, (False, True))}
+
+
+def _z_inputs(cuda, quant, seed, u_pad=3072, i_pad=4096):
+    """A sweep's operands with float32 inputs: the stored matrix, each
+    side's z [64, n] (zero past the real nodes, as the chain pads it)
+    with its amax, (user, item) post and pre vectors, [64, n] combines or
+    cotangents, and tanh outputs for the backward's h."""
+    rng = np.random.default_rng(seed)
+    m = _counts(rng, u_pad, i_pad, 0.02, 3).to(cuda)
+    stored = fusedmm.pack_nibbles(m) if quant == "int4" else m
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    zs, post, pre, ext = [], [], [], []
+    for n, real in ((u_pad, u_pad - 100), (i_pad, i_pad - 1100)):
+        z = torch.randn(64, n, generator=g) * 0.3
+        z[:, real:] = 0.0
+        zs.append((z.to(cuda), z.abs().amax(dim=1).to(cuda)))
+        vec = torch.rand(2, n, generator=g)
+        vec[:, real:] = 0.0
+        post.append(vec[0].to(cuda))
+        pre.append(vec[1].to(cuda))
+        ext.append((torch.randn(64, n, generator=g) * 1e-2).to(cuda))
+    return stored, zs, tuple(post), tuple(pre), tuple(ext), _tanh_h(cuda, seed, u_pad, i_pad)
+
+
+def _quantizing_routes(kind, quant, m, inputs, post, pre, ext0, h0, flag, want_next,
+                       sides=(True, True), plain=True):
+    """One sweep on (z, amax) inputs (None for a zero input) three ways,
+    bit for bit: fused (the rounding in the dual's turn-in), separate
+    (K3 on each z input, then the sweep on (q, s)) and, where ``plain``,
+    its plain version. The fused call launches no K3 and counts its z
+    inputs in ``quantized_in_sweep``; the separate route launches K3 once
+    per z input. Returns the fused outputs, then the combines or
+    cotangents, then (tanh) the h slices."""
+    sweep = _KINDS[kind][0]
+    n_z = sum(x is not None for x, _ in inputs)
+    runs = {}
+    for route in ("fused", "separate") + (("plain",) if plain else ()):
+        ext = [t.clone() if t is not None else None for t in ext0]
+        hs = ([torch.full((64, p.shape[0]), float("nan"), device=p.device) for p in post]
+              if kind == "tanh" else list(h0))
+        fn = {"fused": sweep, "separate": sweep.separate, "plain": sweep.plain}[route]
+        before = (propagate.quantize_rows.launches, sweep.quantized_in_sweep, sweep.launches)
+        out = list(fn(quant, m, *inputs[0], *inputs[1], post, pre, ext, flag, want_next, hs,
+                      sides))
+        after = (propagate.quantize_rows.launches, sweep.quantized_in_sweep, sweep.launches)
+        want = {"fused": (0, n_z, 1), "separate": (n_z, 0, 1), "plain": (0, 0, 0)}[route]
+        assert tuple(a - b for a, b in zip(after, before)) == want, route
+        runs[route] = out + ext + (hs if kind == "tanh" else [])
+    for route, got in runs.items():
+        for a, b in zip(runs["fused"], got):
+            assert _same(a, b), route
+    return runs["fused"]
+
+
+@pytest.mark.parametrize("kind,flag", [(k, f) for k, (_, flags) in _KINDS.items() for f in flags])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("want_next", [True, False])
+def test_quantizing_sweep_equals_separate_route(cuda, kind, flag, quant, want_next):
+    """Each of the four sweeps on (z, amax) equals K3 twice followed by
+    the sweep on (q, s), and its plain version, bit for bit."""
+    m, zs, post, pre, ext, h = _z_inputs(cuda, quant, 41)
+    if kind in ("inject", "tanh_inject"):
+        post, pre = pre, post  # the backward binds (post, pre) to (r, l)
+    h0 = h if (kind == "tanh_inject" and want_next) else (None, None)
+    got = _quantizing_routes(kind, quant, m, zs, post, pre, ext, h0, flag, want_next)
+    if want_next:
+        assert bool(got[1].gt(0).all()) and bool(got[3].gt(0).all())
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["forward_seed", "forward_reuse", "backward_users_next",
+                                  "backward_seed", "zero_users", "zero_items"])
+def test_quantizing_sweep_side_cases_equal_separate_route(cuda, quant, case):
+    """EGCF's seed sweeps on the turn-in's inputs: the forward's seed
+    sweep (a zero user input, the users alone), sweep 1 rounding the
+    seed's item input again, the backward's sweep K − 1 (the users' next
+    input alone) and sweep K (a zero item input, the items alone); a zero
+    input on either side of a linear sweep. Each equals the separate
+    route (K3 on the z inputs, int8 zeros with scale 1 for a zero input,
+    then the sweep on (q, s)) and its plain version, bit for bit."""
+    m, zs, post, pre, ext, h = _z_inputs(cuda, quant, 42, 2560, 6144)
+    none = (None, None)
+    if case == "forward_seed":
+        got = _quantizing_routes("tanh", quant, m, [none, zs[1]], post, pre, ext, none,
+                                 chainmm.COMBINE_NONE, True, (True, False))
+        assert got[2] is None and bool(got[7].isnan().all())
+    elif case == "forward_reuse":
+        _quantizing_routes("tanh", quant, m, zs, post, pre, ext, none, chainmm.COMBINE_SET, True)
+    elif case == "backward_users_next":
+        got = _quantizing_routes("tanh_inject", quant, m, zs, pre, post, ext, (h[0], None),
+                                 False, (True, False))
+        assert got[1] is not None and got[3] is None
+    elif case == "backward_seed":
+        got = _quantizing_routes("tanh_inject", quant, m, [zs[0], none], pre, post,
+                                 (None, ext[1]), none, True, False, (False, True))
+        assert got[0] is None and got[2] is not None
+    else:
+        inputs = [none, zs[1]] if case == "zero_users" else [zs[0], none]
+        got = _quantizing_routes("forward", quant, m, inputs, post, pre, ext, none,
+                                 chainmm.COMBINE_ADD, True)
+        assert not bool(got[2 if case == "zero_users" else 0].any())
+
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["inf_amax", "nan_amax", "nan_z_block", "nan_ext_block"])
+def test_quantizing_sweep_non_finite_equals_separate_route(cuda, kind, quant, case):
+    """Non-finite inputs give the separate route's bits: an infinite
+    amax (scale inf: the feature rounds to 0, its products turn NaN), a
+    NaN amax (scale 1, as K3 takes it), NaN z over a whole K2 block of
+    1,024 nodes of one feature (K3's __float2int_rn of NaN), and NaN
+    combines or cotangents over a whole K2 block. The plain version is
+    held where all stays finite (the NaN amax): PyTorch's float-to-int8
+    cast is not K3's outside int8's range, and the plain amax takes any
+    NaN where the kernels' take a whole block's."""
+    m, zs, post, pre, ext, h = _z_inputs(cuda, quant, 43, 2560, 6144)
+    (zu, au), (zi, ai) = ((z.clone(), a.clone()) for z, a in zs)
+    ext = tuple(t.clone() for t in ext)
+    if case == "inf_amax":
+        au[9] = float("inf")
+        ai[5] = float("inf")
+    elif case == "nan_amax":
+        ai[3] = float("nan")
+    elif case == "nan_z_block":
+        zi[11, 1024:2048] = float("nan")
+    else:
+        ext[0][7, 1024:2048] = float("nan")
+        ext[1][11, :1024] = float("nan")
+    if kind in ("inject", "tanh_inject"):
+        post, pre = pre, post
+    h0 = h if kind == "tanh_inject" else (None, None)
+    got = _quantizing_routes(kind, quant, m, [(zu, au), (zi, ai)], post, pre, ext, h0,
+                             _KINDS[kind][1][-1], True, plain=case == "nan_amax")
+    if case == "inf_amax" and kind in ("inject", "tanh_inject"):
+        assert not bool(torch.isfinite(torch.cat([got[1], got[3]])).all())
 
 
 # ---------------------------------------------------------------------------
@@ -1277,13 +1439,14 @@ def test_egcf_step_equals_plain_path(cuda, monkeypatch):
         return (model.item_emb.grad.clone(), *(t.detach() for t in terms))
 
     counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
-                chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
+                chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject, propagate.quantize_rows)
     before = [fn.launches for fn in counters]
     got = step()
     # the forward's 4 sweeps (the seed's included) and the backward's 4 run
-    # K9's and K10's epilogue in the dual's turn-out; K10 standalone only in
-    # the backward's prologue (users, items)
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 2, 4, 4]
+    # K9's and K10's epilogue in the dual's turn-out and round their inputs
+    # in its turn-in; K10 standalone only in the backward's prologue (users,
+    # items); no K3
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 2, 4, 4, 0]
     monkeypatch.setattr(chainmm, "KERNELS", chainmm.PLAIN)
     monkeypatch.setattr(scatter, "scatter_add_rows", scatter.scatter_add_rows_plain)
     monkeypatch.setattr(scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_plain)

@@ -315,7 +315,8 @@ def _noise(got, ref):
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-2
 
 
-@pytest.mark.parametrize("quant,seed,layers", [("int8", True, 1), ("int4", True, 3)])
+@pytest.mark.parametrize("quant,seed,layers", [("int8", True, 1), ("int4", True, 3),
+                                               ("int8", True, 3)])
 def test_tanh_chain_and_gradient_meet_jax(adjs, quant, seed, layers):
     t, j = adjs[quant]
     rng = np.random.default_rng(7 + layers)
