@@ -107,7 +107,8 @@ launch counts set to 0 just before and read just after:
   bfloat16 served against the float32 gather EGCF and trained 24 steps;
 * the batch-row partial product (K12 forward, K13 backward): both
   against their plain versions in bfloat16 and float32 at the step's
-  rows, one LightGCN bfloat16 step on `dense` with
+  rows, across two launches, one call each under sync debug mode
+  "error", one LightGCN bfloat16 step on `dense` with
   `batch_rows_propagation = 1` against the full propagation's, then
   2 x 12 steps with and without batch rows in turns.
 
@@ -2516,8 +2517,18 @@ def main() -> int:
             log(f"{tag} {str(dt)[6:]}: {ms:.4f} ms per step (2 launches: {idx_u.numel()} user "
                 f"rows, {idx_i.numel()} item rows; bound {bnd[0]:.4f} ms by {bnd[1]}, plain "
                 f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms)")
+    # one call of each on the step's rows issues no synchronisation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (m_, r_), z_, g_ in zip(rows_sets, zs, gs):
+            gathermm.gather_rows_matmul(m_, r_, z_.to(torch.bfloat16))
+            gathermm.gather_rows_matmul_t(m_, r_, g_.to(torch.bfloat16))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     log(f"K12 and K13 match their plain versions within TIGHT (max abs err {errs['K12']:.3e}, "
-        f"{errs['K13']:.3e}); two launches bit-equal")
+        f"{errs['K13']:.3e}); two launches bit-equal; no synchronisation under sync debug mode "
+        "\"error\"")
 
     # 2 x 12 steps each, rows and full in turns on the same batches
     half = OTHER_STEPS // 2
@@ -2667,8 +2678,8 @@ def main() -> int:
         entry("gather_rows_matmul", "idgrec_torch/csrc/gather_rows_matmul.cu",
               "idgrec_tpu/ops/gathermm.py:113", gathermm.gather_rows_matmul, errs["K12"],
               *k12[("K12", torch.bfloat16)],
-              f"one step, bfloat16 z: 2 launches ({BATCH} user rows, {2 * BATCH} item rows), the "
-              "share sum and z's pad inside; library: M[rows].to(bfloat16) @ z x2"),
+              f"one step, bfloat16 z: 2 calls ({BATCH} user rows, {2 * BATCH} item rows), each the "
+              "kernel and the column shares' sum; library: M[rows].to(bfloat16) @ z x2"),
         entry("gather_rows_matmul_t", "idgrec_torch/csrc/gather_rows_matmul.cu",
               "idgrec_tpu/ops/gathermm.py:148", gathermm.gather_rows_matmul_t, errs["K13"],
               *k12[("K13", torch.bfloat16)],

@@ -14,14 +14,21 @@ there only for the TPU's tiling) has no counterpart.
 `gather_rows_matmul` (K12, ``csrc/gather_rows_matmul.cu``) and
 `gather_rows_matmul_t` (K13, the same source) are the kernel wrappers,
 each beside its plain version; z and g are bfloat16 (tensor cores) or
-float32 (full float32 arithmetic, no TF32), the sums float32.
-`gather_matmul` is the differentiable product: its backward rounds the
-cotangent to z's type first, sums in float32 and returns dz in z's type,
-as the JAX VJP does.
+float32 (full float32 arithmetic, no TF32), the sums float32. K12 splits
+M's columns among S blocks of 256 batch rows and adds their partial sums
+in share order; K13 splits the batch among the S blocks of a 256-column
+tile, a thread-block cluster that adds their sums in rank order.
+`plan_rows_matmul` chooses S from the shapes and the card alone, so
+every launch adds in the same order. `gather_matmul` is the
+differentiable product: its backward rounds the cotangent to z's type
+first, sums in float32 and returns dz in z's type, as the JAX VJP does.
 
 Row ids must lie in [0, R). The plain versions raise on the CPU (tensor
 indexing); the kernels read no flag back to check: an id out of range
-reads nothing, its forward row is NaN and it adds nothing backward.
+reads nothing, its forward row is NaN and it adds nothing backward. K13
+skips tiles of zero counts on the bf16 route and both kernels skip each
+zero count on the float32 route, so there a non-finite z or g value need
+not reach every sum, as it does in the plain versions' dense product.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from idgrec_torch.device import check_exact_matmul
 from idgrec_torch.ops import _build
@@ -38,8 +44,14 @@ from idgrec_torch.ops.fusedmm import _aligned, _check_operand
 
 _K12, _K13 = "gather_rows_matmul", "gather_rows_matmul_t"
 _DTYPES = (torch.bfloat16, torch.float32)
-# the kernels' geometry: M's columns in multiples of 128; K12's row block
-_COL_TILE, _ROW_BLOCK = 128, 64
+# M's columns in multiples of 128
+_COL_TILE = 128
+# the kernels' geometry (csrc/gather_rows_matmul.cu): K12's batch rows a
+# block and columns a bf16 stage (float32: 64); K13's columns a block and
+# batch rows a stage; features a block; K13's batch shares (a thread-block
+# cluster)
+K12_ROWS, K12_COLS, K13_COLS, K13_ROWS, FEATURES = 256, 128, 256, 32, 64
+K13_SHARES = (1, 2, 4, 8)
 
 
 def _check_args(m: torch.Tensor, rows: torch.Tensor, v: torch.Tensor, what: str) -> None:
@@ -86,9 +98,11 @@ def gather_rows_matmul_t_plain(m: torch.Tensor, rows: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_K12)  # K13 shares the source
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gather_rows_matmul.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-    lib.gather_rows_matmul_t.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.gather_rows_matmul.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.gather_rows_matmul_t.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.gather_rows_blocks_per_sm.argtypes = [i32] * 2 + [ptr]
     lib.gather_rows_matmul.restype = lib.gather_rows_matmul_t.restype = i32
+    lib.gather_rows_blocks_per_sm.restype = i32
     return lib
 
 
@@ -102,24 +116,61 @@ def _check_cuda(kernel: str, m: torch.Tensor, v: torch.Tensor) -> None:
     _check_operand("z" if kernel == _K12 else "g", v, v.dtype, tuple(v.shape), m.device)
 
 
-def _shares(m: torch.Tensor, batch: int, dtype: torch.dtype) -> int:
-    """K12's column split: enough blocks for two waves over the card's
-    SMs, at most one per column chunk. Depends on the shapes and the card
-    alone, so every launch sums in the same order."""
-    sms = torch.cuda.get_device_properties(m.device).multi_processor_count
-    chunks = m.shape[1] // (128 if dtype == torch.bfloat16 else 64)
-    row_blocks = -(-batch // _ROW_BLOCK)
-    return max(1, min(chunks, -(-2 * sms // row_blocks)))
+def plan_rows_matmul(batch: int, c: int, d: int, sms: int, per_sm: int,
+                     backward: bool = False) -> int:
+    """The kernels' split S for ``batch`` rows of a [R, c] matrix and
+    width d, on a card of ``sms`` SMs that each hold ``per_sm`` of the
+    kernel's blocks. K12 (``backward`` False): a block per 256 batch rows,
+    64 features and one of S column shares, S the most whose blocks fit
+    in one wave, each share at least one 128-column stage. K13: a block per
+    256 columns, 64 features and one of S batch shares (1, 2, 4 or 8, a
+    cluster), S the most whose blocks fit in two waves (a second block on
+    an SM hides the first's waits: measured, PERF.md), each share at least
+    one 32-row stage. S = 1 where even that does not fit. A function of
+    its arguments alone, so every launch on the same shapes and card adds
+    in the same order."""
+    slots = sms * per_sm
+    groups = -(-d // FEATURES)
+    if backward:
+        tiles = -(-c // K13_COLS) * groups
+        fits = [s for s in K13_SHARES if tiles * s <= 2 * slots and batch // s >= K13_ROWS]
+    else:
+        row_blocks = -(-batch // K12_ROWS) * groups
+        fits = [min(c // K12_COLS, slots // row_blocks)]
+    return max([1, *fits])
+
+
+@functools.cache
+def _blocks_per_sm(device: int, backward: bool, bf16: bool) -> int:
+    lib = _lib()
+    out = ctypes.c_int(0)
+    _build.check(lib, _K13 if backward else _K12,
+                 lib.gather_rows_blocks_per_sm(int(backward), int(bf16), ctypes.byref(out)))
+    if out.value < 1:
+        raise RuntimeError(f"{_K13 if backward else _K12}: no block fits an SM")
+    return out.value
+
+
+@functools.cache
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan(m: torch.Tensor, batch: int, v: torch.Tensor, backward: bool) -> int:
+    dev = m.device.index if m.device.index is not None else torch.cuda.current_device()
+    sms = _sms(dev)
+    per_sm = _blocks_per_sm(dev, backward, v.dtype == torch.bfloat16)
+    return plan_rows_matmul(batch, m.shape[1], v.shape[1], sms, per_sm, backward)
 
 
 def gather_rows_matmul(m: torch.Tensor, rows: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """M[rows] @ z -> float32 [B, d] for int8 m [R, C], int64 rows [B]
-    and z [Z, d] (Z <= C, zero-padded to C rows here), bfloat16 or
-    float32. Not differentiable (`gather_matmul` is).
+    and z [Z, d] (Z <= C, standing for z zero-padded to C rows),
+    bfloat16 or float32. Not differentiable (`gather_matmul` is).
 
     CPU tensors take the plain version; CUDA tensors launch K12 or raise.
-    K12 takes d % 8 == 0 and C % 128 == 0 and gives the same bits on
-    every launch."""
+    K12 takes d % 8 == 0 and C % 128 == 0, reads z's rows as they are
+    (no pad) and gives the same bits on every launch."""
     if m.device.type == "cpu":
         return gather_rows_matmul_plain(m, rows, z)
     if m.device.type != "cuda":
@@ -129,15 +180,15 @@ def gather_rows_matmul(m: torch.Tensor, rows: torch.Tensor, z: torch.Tensor) -> 
     batch, d = rows.shape[0], z.shape[1]
     if batch == 0:
         return torch.zeros((0, d), dtype=torch.float32, device=m.device)
-    z = _aligned(F.pad(z, (0, 0, 0, c - z.shape[0])))
-    rows = rows.contiguous()
+    z, rows = _aligned(z), rows.contiguous()
     _check_cuda(_K12, m, z)
-    shares = _shares(m, batch, z.dtype)
-    part = torch.empty((shares, batch, d), dtype=torch.float32, device=m.device)
+    shares = _plan(m, batch, z, backward=False)
     out = torch.empty((batch, d), dtype=torch.float32, device=m.device)
+    part = out if shares == 1 else torch.empty((shares, batch, d), dtype=torch.float32,
+                                               device=m.device)
     lib = _lib()
     code = lib.gather_rows_matmul(m.data_ptr(), rows.data_ptr(), z.data_ptr(), part.data_ptr(),
-                                  out.data_ptr(), r, c, batch, d, shares,
+                                  out.data_ptr(), r, c, z.shape[0], batch, d, shares,
                                   int(z.dtype == torch.bfloat16),
                                   torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(lib, _K12, code)
@@ -154,7 +205,8 @@ def gather_rows_matmul_t(m: torch.Tensor, rows: torch.Tensor, g: torch.Tensor) -
 
     CPU tensors take the plain version; CUDA tensors launch K13 or raise.
     K13 takes d % 8 == 0 and C % 128 == 0; it sums each column in batch
-    order, with no atomics, so every launch gives the same bits."""
+    order within a share and the shares in order, with no atomics, so
+    every launch gives the same bits."""
     if m.device.type == "cpu":
         return gather_rows_matmul_t_plain(m, rows, g)
     if m.device.type != "cuda":
@@ -166,10 +218,11 @@ def gather_rows_matmul_t(m: torch.Tensor, rows: torch.Tensor, g: torch.Tensor) -
         return torch.zeros((c, d), dtype=torch.float32, device=m.device)
     g, rows = _aligned(g), rows.contiguous()
     _check_cuda(_K13, m, g)
+    shares = _plan(m, batch, g, backward=True)
     dz = torch.empty((c, d), dtype=torch.float32, device=m.device)
     lib = _lib()
     code = lib.gather_rows_matmul_t(m.data_ptr(), rows.data_ptr(), g.data_ptr(), dz.data_ptr(),
-                                    r, c, batch, d, int(g.dtype == torch.bfloat16),
+                                    r, c, batch, d, shares, int(g.dtype == torch.bfloat16),
                                     torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(lib, _K13, code)
     gather_rows_matmul_t.launches += 1

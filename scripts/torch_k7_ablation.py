@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where kernels K7 (idgrec_torch/csrc/dual_int8_n.cu), K1
 (csrc/dual_int8_t.cu), K5 (csrc/dual_int4_t.cu), K8 (csrc/dual_int4_n.cu),
-K6 (csrc/dual_bf16.cu) and K11 (csrc/bit_matmul.cu) spend their time,
-and where kernel K4's time goes (idgrec_torch/csrc/scatter_add_rows.cu),
-on one NVIDIA GPU.
+K6 (csrc/dual_bf16.cu), K11 (csrc/bit_matmul.cu) and K12/K13
+(csrc/gather_rows_matmul.cu) spend their time, and where kernel K4's time
+goes (idgrec_torch/csrc/scatter_add_rows.cu), on one NVIDIA GPU.
 
     python3 scripts/torch_k7_ablation.py [--root DIR] [--skip-k7] [--skip-k1]
                                          [--skip-k5] [--skip-k8] [--skip-k4]
                                          [--skip-k6] [--skip-k11] [--skip-sweep]
+                                         [--skip-k12] [--k12-quick]
 
 ``--root`` names the tree whose ``idgrec_torch`` is measured (default:
 this one), so a checkout of an earlier commit can be measured with the
@@ -78,6 +79,27 @@ tensor cores; commit f93bb61 and earlier) or its scan of the packed row
 groups. The full variant is held to the plain version within rtol 3e-5,
 atol 3e-6 of the largest sum. The device launches of one call of each
 wrapper are counted last, with the tree's own libraries.
+
+K12 and K13: each variant's library loaded in place of the tree's and
+timed through the wrappers, at chip_smoke.py's step rows (one sampled
+batch: 2,048 user rows of M, 4,096 item rows of Mᵀ, repeats kept),
+random z and g at d = 64, bf16 and float32, each time one step's two
+calls under CUDA events and as a CUDA graph's replay, the smaller of two
+passes in turns. The variants follow the source found: the tile kernel of
+commit 327ceb4 and earlier (measured with ``--root``; its products, the
+counts' conversion, z / g or M loads, the share sum taken out, other
+rings and row blocks, other column splits) or the design that replaced
+it (its products, votes, conversion, z / g or M loads, all compute, the
+share sums, the partials or K13's epilogue taken out, other rings,
+geometries and numbers of K12's producer warps, half and twice the plan's
+split). The full variant is held
+to the plain version within rtol 3e-5, atol 3e-6 of the largest sum and
+to itself bit for bit. Beside them: the tree's kernels on the rows
+sorted and on the first B rows, a stream probe (plain 16-byte loads of
+the same rows by run length, in the stages' order), ``index_select`` of
+the rows, the device launches of a call and the device time by kernel
+(profiled last). ``--k12-quick`` keeps the tree's kernels and the
+yardsticks.
 
 K4: the step's two tables (2,048 sampled user rows into [31,668, 64],
 4,096 item rows into [38,048, 64]) timed four ways under CUDA events:
@@ -293,6 +315,148 @@ for _b in (4, 8):
 # plans of other numbers of parts (warps a launch), timed with the tree's library
 K11_PLAN_PARTS = (4096, 8192)
 
+# K12 and K13's tile kernel (mma.sync on staged 64-row blocks of M for K12,
+# 128-column blocks walking the whole batch for K13; commit 327ceb4 and
+# earlier). Each variant: its patches and the kernels it is timed on.
+_K12_MMA = (r"for \(int j = 0; j < NT; \+\+j\) mma_bf16\(acc16\[j\], a0, a1, a2, a3, "
+            r"b\[j\]\[0\], b\[j\]\[1\]\);",
+            "acc16[0][0] += __uint_as_float(a0 ^ a1 ^ a2 ^ a3 ^ b[0][0] ^ b[NT - 1][1]);")
+_K13_MMA = (r"for \(int j = 0; j < NT; \+\+j\) mma_bf16\(acc16\[mt\]\[j\], a0, a1, a2, a3, "
+            r"b\[j\]\[0\], b\[j\]\[1\]\);",
+            "acc16[mt][0][0] += __uint_as_float(a0 ^ a1 ^ a2 ^ a3 ^ b[0][0] ^ b[NT - 1][1]);")
+K12_TILE_VARIANTS = {
+    "full": ([], ("K12", "K13")),
+    # the bf16 products out (the counts' conversion and z's fragments kept)
+    "no_mma": ([_K12_MMA, _K13_MMA], ("K12", "K13")),
+    # the counts' conversion to bf16 out too (the raw bytes multiplied)
+    "no_convert": ([(r"const __nv_bfloat162 v =\s*__floats2bfloat162_rn\([^;]*;\s*"
+                     r"return \*reinterpret_cast<const uint32_t\*>\(&v\);", "return w;")],
+                   ("K12", "K13")),
+    # z's (K12) and g's (K13) rows not copied into the stages
+    "no_zg_loads": ([(r"cp_async16\(zs \+ r \* Z_PITCH \* ESZ \+ pc,[^;]*;", ";"),
+                     (r"cp_async16_zfill\(gs \+ r \* G::G_PITCH \* G::ESZ \+ pc,[^;]*;", ";")],
+                    ("K12", "K13")),
+    # M's rows not read: the stages zero-filled
+    "no_m_loads": ([(r"(cp_async16_zfill\(ms \+ r \* M_PITCH \+ cc, [^;]*), id >= 0\);",
+                     r"\1, false);"),
+                    (r"(cp_async16_zfill\(ms \+ r \* G::M_PITCH \+ cc, [^;]*), ok\);",
+                     r"\1, false);")],
+                   ("K12", "K13")),
+    # K12's second launch (the S partials' sum) out
+    "no_share_sum": ([(r"sum_shares<<<[^;]*;", "")], ("K12",)),
+    # a ring of six stages (K12's bf16 block then fits once an SM)
+    "stages_6": ([(r"constexpr int STAGES = 3;", "constexpr int STAGES = 6;")], ("K12", "K13")),
+    # 128 batch rows a K12 block, 8 warps (K13 is not timed: its blocks
+    # would then span 256 columns)
+    "rows_128": ([(r"constexpr int THREADS = 128;", "constexpr int THREADS = 256;"),
+                  (r"constexpr int RB = 64;", "constexpr int RB = 128;")], ("K12",)),
+}
+# K12 and K13 with the features as the mma's m (after commit 327ceb4): K12's
+# bf16 route a ring fed by producer warps, its float32 route and K13 a
+# block-synchronous ring, zero tiles (K13) or counts (float32) skipped by
+# warp votes
+_NO_VOTE_SKIPS = [(r"if \(!\(\(live >> \(4 \* ks\)\) & 0xfu\)\) continue;", ";"),
+                  (r"if \(!\(\(live >> \(4 \* ks \+ i\)\) & 1u\)\) continue;", ";"),
+                  (r"if \(!__any_sync\(FULL, \(piece\.x \| piece\.y \| piece\.z \| piece\.w\) "
+                   r"!= 0u\)\) continue;", ";"),
+                  (r"if \(!__any_sync\(FULL, cnt != 0\)\) continue;", ";")]
+_WS = r"constexpr int WS_{} = \d+;"
+K12_VOTE_VARIANTS = {
+    "full": ([], ("K12", "K13")),
+    # the bf16 products out (the counts' conversion and the fragments kept)
+    "no_mma": ([(r"mma_bf16\(acc\[mt\]\[([ij])\], a\[mt\]\[0\], a\[mt\]\[1\], a\[mt\]\[2\], "
+                 r"a\[mt\]\[3\], lo, hi\);",
+                 r"acc[mt][\1][0] += __uint_as_float(lo ^ hi ^ a[mt][0] ^ a[mt][3]);")],
+               ("K12", "K13")),
+    # K13 and the float32 routes: every tile or count multiplied, zero or not
+    "no_skips": (_NO_VOTE_SKIPS, ("K12 f32", "K13")),
+    # the counts converted as if some were negative (the general route)
+    "signed_route": ([(r"const bool negative = __reduce_or_sync\([^;]*;",
+                       "const bool negative = true;")], ("K12", "K13")),
+    # z's (K12) and g's (K13) rows not staged
+    "no_zg_loads": ([(r"stage_rows<[^>]*>\([^;]*;", ";")], ("K12", "K13")),
+    # M's rows not read: the stages zero-filled
+    "no_m_loads": ([(r"(cp_async16_zfill\(ms \+ r \* (?:M1[23]_PITCH|Ws::M_PITCH) \+ 16 \* q, "
+                     r"[^;]*),\s*(?:id >= 0|ok)\);", r"\1, false);")], ("K12", "K13")),
+    # M's rows read, nothing multiplied: K12 bf16's consumers only wait and
+    # release, no tile found live elsewhere
+    "no_compute": ([(r"for \(int half = 0; half < 2; \+\+half\) \{",
+                     "for (int half = 0; half < 0; ++half) {"),
+                    (r"live = __reduce_or_sync\(FULL, live\);", "live = 0u;"),
+                    (r"if \(!__any_sync\(FULL, \(piece\.x \| piece\.y \| piece\.z \| piece\.w\) "
+                     r"!= 0u\)\) continue;", "continue;"),
+                    (r"if \(!__any_sync\(FULL, cnt != 0\)\) continue;", "continue;")],
+                   ("K12", "K13")),
+    # K12's second launch (the partials' sum) and K13's sum over the
+    # cluster's ranks out
+    "no_share_sum": ([(r"sum_shares<<<[^;]*;", ""), (r"if \(k < shares\) \{", "if (k < 1) {")],
+                     ("K12", "K13")),
+    # K12's partials not written (the sum adds what the scratch holds)
+    "no_partials": ([(r"if \(f < dg\) o\[f\] = srow\[r\] >= 0 \? acc\[mt\]\[j\]\[2 \* h \+ e\] : "
+                      r"nanf\(\"\"\);", "if (f < dg && acc[mt][j][2 * h + e] == 12345.0f) o[f] = 0.0f;"),
+                     (r"if \(4 \* f4 < dg\) \{", "if (4 * f4 < dg && acc[0][0][0] == 12345.0f) {")],
+                    ("K12",)),
+    # K13's sums not parked, summed or written
+    "no_epilogue": ([(r"cg::cluster_group cluster = cg::this_cluster\(\);",
+                      "if (acc[0][0][0] != 12345.0f) return;\n  cg::cluster_group cluster = "
+                      "cg::this_cluster();")], ("K13",)),
+    # shallower rings: K12 bf16 three stages, float32 two; K13 four (bf16)
+    # and three (float32)
+    "stages_less": ([(_WS.format("STAGES"), "constexpr int WS_STAGES = 3;"),
+                     (r"static constexpr int STAGES = 3;", "static constexpr int STAGES = 2;"),
+                     (r"static constexpr int STAGES = BF16 \? 6 : 4;",
+                      "static constexpr int STAGES = BF16 ? 4 : 3;")], ("K12", "K13")),
+    # deeper rings: K12 float32 four stages (one block an SM), K13 eight and
+    # five
+    "stages_more": ([(r"static constexpr int STAGES = 3;", "static constexpr int STAGES = 4;"),
+                     (r"static constexpr int STAGES = BF16 \? 6 : 4;",
+                      "static constexpr int STAGES = BF16 ? 8 : 5;")], ("K12 f32", "K13")),
+    # K12 bf16: one, two or eight producer warps (four in the tree); 64
+    # columns a stage, seven stages
+    "ws_producers_1": ([(_WS.format("PRODUCERS"), "constexpr int WS_PRODUCERS = 1;")],
+                       ("K12 bf16",)),
+    "ws_producers_2": ([(_WS.format("PRODUCERS"), "constexpr int WS_PRODUCERS = 2;")],
+                       ("K12 bf16",)),
+    "ws_producers_8": ([(_WS.format("PRODUCERS"), "constexpr int WS_PRODUCERS = 8;")],
+                       ("K12 bf16",)),
+    "ws_cols_64_stages_7": ([(_WS.format("KC"), "constexpr int WS_KC = 64;"),
+                             (_WS.format("STAGES"), "constexpr int WS_STAGES = 7;")],
+                            ("K12 bf16",)),
+    # K12 bf16: a k16 step skipped when its four tiles hold no count
+    "ws_k16_skips": ([(r"uint32_t w\[KS\]\[4\];\n      unsigned sign = 0;",
+                       "uint32_t w[KS][4];\n      unsigned sign = 0, live = 0;"),
+                      (r"          sign \|= w\[k\]\[j\];",
+                       "          sign |= w[k][j];\n          live |= static_cast<unsigned>(w[k][j] != 0u) << k;"),
+                      (r"(      const bool negative = __reduce_or_sync\(FULL, sign & 0x80808080u\) != 0u;\n"
+                       r"#pragma unroll\n      for \(int k = 0; k < KS; \+\+k\) \{\n)"
+                       r"(        const int ks = KS \* half \+ k;)",
+                       "      live = __reduce_or_sync(FULL, live);\n\\1        if (!((live >> k) & 1u)) continue;\n\\2")],
+                     ("K12 bf16",)),
+    # K12 float32: 128 columns a stage (one block an SM)
+    "k12_cols_128": ([(r"constexpr int KC = 64;", "constexpr int KC = 128;")], ("K12 f32",)),
+    # K13: 128 columns (4 warps) a block; the plan told so
+    "k13_cols_128": ([(r"constexpr int CT = 256;", "constexpr int CT = 128;")], ("K13",),
+                     {"K13_COLS": 128}),
+    # K13: 64 batch rows a stage (one block an SM)
+    "k13_rows_64": ([(r"constexpr int KB = 32;", "constexpr int KB = 64;")], ("K13",)),
+}
+# the split, other plans with the tree's library: half and twice the
+# tree's S (K13: one share, and twice the tree's)
+K12_VOTE_PLANS = {
+    "half": lambda plan: lambda batch, c, d, sms, per_sm, backward=False: (
+        1 if backward else max(1, plan(batch, c, d, sms, per_sm, backward) // 2)),
+    "double": lambda plan: lambda batch, c, d, sms, per_sm, backward=False: (
+        min(8, 2 * plan(batch, c, d, sms, per_sm, backward)) if backward
+        else min(c // 64, 2 * plan(batch, c, d, sms, per_sm, backward))),
+}
+# K12's column split of the tile kernel, timed with the tree's library:
+# the tree's (two waves if a block filled an SM), whole waves of the two
+# blocks an SM holds, and twice that
+K12_TILE_SHARES = {
+    "whole_waves": lambda sms, row_blocks, chunks: max(1, min(chunks, 2 * sms // row_blocks)),
+    "waves_x2": lambda sms, row_blocks, chunks: max(1, min(chunks, 4 * sms // row_blocks)),
+}
+
 
 def variants_for(text: str) -> dict:
     return TILE_VARIANTS if "column4(" in text else SCAN_VARIANTS
@@ -370,6 +534,25 @@ def device_launches(fn) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """The device time of one call of ``fn`` by kernel name (its first 40
+    characters), the mean over ``reps`` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            by[ev.name[:40]] = by.get(ev.name[:40], 0.0) + t / 1e3 / reps
+    return by
 
 
 def _ptxas(log: str) -> list:
@@ -701,6 +884,238 @@ def k11_ablation(dev, data, build_mod, bitmm, propagate) -> dict:
     return out
 
 
+# A yardstick for K12's and K13's stream: the batch's rows of M read in runs
+# of `run` bytes, every row's first run, then every row's second, ... (the
+# order K12's and K13's stages visit them), by plain 16-byte loads, each
+# lane UNROLL of them in flight; nothing kept but an XOR.
+STREAM_PROBE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int UNROLL = 8;
+__global__ void __launch_bounds__(256) probe(const int8_t* m, const long long* rows, int batch,
+                                             int c, int cols, int run, unsigned* out) {
+  const int pieces_a_run = run / 16, runs = cols / run;
+  const long long total = static_cast<long long>(batch) * runs * pieces_a_run;
+  const long long first = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned acc = 0;
+  for (long long p0 = first; p0 < total; p0 += stride * UNROLL) {
+    uint4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long p = p0 + u * stride;
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (p < total) {
+        const long long unit = p / pieces_a_run;
+        const int piece = static_cast<int>(p % pieces_a_run);
+        const int seg = static_cast<int>(unit / batch), b = static_cast<int>(unit % batch);
+        v[u] = __ldcs(reinterpret_cast<const uint4*>(m + rows[b] * c +
+                                                     static_cast<long long>(seg) * run) + piece);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  }
+  if (acc == 0x9e3779b9u) out[0] = acc;
+}
+}  // namespace
+extern "C" int stream_probe(const void* m, const void* rows, int batch, int c, int cols, int run,
+                            int blocks, void* out, void* stream) {
+  probe<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(m), static_cast<const long long*>(rows), batch, c, cols, run,
+      static_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+PROBE_RUNS = (64, 128, 256, 512, 1024, 4096)
+
+
+def stream_probe(dev, build_mod, sides) -> dict:
+    """The probe on each side's rows: GB/s of M read by run length."""
+    out_dir = os.path.join(build_mod.BUILD_DIR, "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    cu, so = os.path.join(out_dir, "stream_probe.cu"), os.path.join(out_dir, "libstream_probe.so")
+    with open(cu, "w") as f:
+        f.write(STREAM_PROBE_SRC)
+    subprocess.run([build_mod.nvcc_path(), *build_mod.NVCC_FLAGS, "-o", so, cu], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.stream_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {}
+    for (m_, r_), side in zip(sides, ("users", "items")):
+        for run in PROBE_RUNS:
+            c_ = m_.shape[1] // run * run
+            t_ = timed(lambda: lib.stream_probe(m_.data_ptr(), r_.data_ptr(), r_.numel(),
+                                                m_.shape[1], c_, run, blocks, sink.data_ptr(),
+                                                stream))
+            gbs = r_.numel() * c_ / t_ / 1e6
+            res[f"{side} {run}"] = [t_, gbs]
+            print(f"K12/K13 stream probe, {side}: runs of {run} B, {t_:.4f} ms, {gbs:.0f} GB/s",
+                  flush=True)
+    return res
+
+
+def k12_ablation(dev, data, build_mod, gathermm, propagate, quick: bool = False) -> dict:
+    """K12 and K13 through their wrappers with each variant's library, at
+    chip_smoke.py's shapes: one sampled batch's 2,048 user rows of M and
+    4,096 item rows of Mᵀ (repeats kept), random z and g at d = 64, bf16
+    and float32; each time is one step's two calls, the smaller of two
+    passes in turns."""
+    from idgrec_torch.engine.sampler import NegativeSampler
+
+    m = propagate._count_matrix_int8(data, dev)
+    m_t = m.T.contiguous()
+    users, pos, neg = NegativeSampler(data).sample_epoch(torch.Generator(device=dev).manual_seed(0))
+    idx_u, idx_i = users[:BATCH].contiguous(), torch.cat([pos[:BATCH], neg[:BATCH]])
+    nu, ni, d = data.num_users, data.num_items, 64
+    g = torch.Generator(device="cpu").manual_seed(6)
+    zs = (torch.randn(ni, d, generator=g).to(dev), torch.randn(nu, d, generator=g).to(dev))
+    gs = (torch.randn(BATCH, d, generator=g).to(dev), torch.randn(2 * BATCH, d, generator=g).to(dev))
+    sides = ((m, idx_u), (m_t, idx_i))
+    fns = {"K12": (gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_plain, zs),
+           "K13": (gathermm.gather_rows_matmul_t, gathermm.gather_rows_matmul_t_plain, gs)}
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = {(tag, dn): [(m_, r_, v.to(dt).contiguous()) for (m_, r_), v in zip(sides, vs)]
+             for tag, (_, _, vs) in fns.items() for dn, dt in dts.items()}
+    out = {"rows": [BATCH, 2 * BATCH], "shapes": [list(m.shape), list(m_t.shape)],
+           "distinct_rows": [int(torch.unique(r_).numel()) for _, r_ in sides],
+           "nonzeros": [int((m_[r_] != 0).sum()) for m_, r_ in sides]}
+    print(f"K12/K13: rows {out['rows']} of {out['shapes']}, distinct {out['distinct_rows']}, "
+          f"non-zero counts in the gathered rows {out['nonzeros']}", flush=True)
+    source = build_mod.source_path("gather_rows_matmul")
+    tile = "__reduce_or_sync(" not in open(source).read()
+    variants = K12_TILE_VARIANTS if tile else K12_VOTE_VARIANTS
+    if quick:  # the tree's kernels and the yardsticks alone
+        variants = {"full": variants["full"]}
+    built = build_all(build_mod, source, {k: v[0] for k, v in variants.items()}, "k12")
+    out.update(design="tile" if tile else "vote", ptxas_full=_ptxas(built["full"][1]))
+    for ln in out["ptxas_full"]:
+        print(f"ptxas (K12/K13 full): {ln}", flush=True)
+
+    def step_ms(tag, dn):
+        """One step's two calls under CUDA events, and captured ten times
+        in a CUDA graph and replayed: the device's time without the host's
+        between launches."""
+        fn = fns[tag][0]
+        call = lambda: [fn(*c) for c in cases[(tag, dn)]]  # noqa: E731
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(10):
+                call()
+        replay = timed(graph.replay, 5) / 10
+        del graph
+        return timed(call), replay
+
+    ms = {}
+    try:
+        for rnd in range(2):
+            for name, (so, log) in built.items():
+                if so is None:
+                    if rnd == 0:
+                        print(f"K12/K13 {name}: not measured, nvcc failed:\n{log}", flush=True)
+                    ms[name] = None
+                    continue
+                _swapped(build_mod, gathermm, gathermm._lib, "gather_rows_matmul", so)
+                if not tile:  # the variant's blocks an SM, for its plan
+                    gathermm._blocks_per_sm.cache_clear()
+                if name == "full" and rnd == 0:
+                    for (tag, dn), cs in cases.items():
+                        fn, plain, _ = fns[tag]
+                        for c in cs:
+                            got = fn(*c)
+                            if not (torch.equal(got, fn(*c)) and _close(got, plain(*c))):
+                                raise RuntimeError(f"the full {tag} variant differs from the "
+                                                   f"plain version or from itself ({dn})")
+                # a variant's kernels, each "K12" or "K13" (both types) or with one
+                # type, and the wrapper's settings it needs
+                patch = variants[name][2] if len(variants[name]) > 2 else {}
+                saved_attrs = {k: getattr(gathermm, k) for k in patch}
+                for k, v in patch.items():
+                    setattr(gathermm, k, v)
+                try:
+                    row = {f"{tag.split()[0]} {dn}": step_ms(tag.split()[0], dn)
+                           for tag in variants[name][1] for dn in dts
+                           if tag.split()[1:] in ([], [dn])}
+                finally:
+                    for k, v in saved_attrs.items():
+                        setattr(gathermm, k, v)
+                if rnd == 1:
+                    row = {k: [min(a, b) for a, b in zip(v, ms[name][k])] for k, v in row.items()}
+                    print(f"K12/K13 {name}: " + ", ".join(
+                        f"{k} {v[0]:.4f} ms (graph {v[1]:.4f})" for k, v in row.items()), flush=True)
+                ms[name] = row
+    finally:
+        _restored(build_mod, gathermm._lib, "gather_rows_matmul")
+        if not tile:
+            gathermm._blocks_per_sm.cache_clear()
+    # the split of the work, other plans with the tree's library (K12 only on
+    # the tile kernel, whose K13 has no split)
+    plans = {} if quick else K12_TILE_SHARES if tile else K12_VOTE_PLANS
+    attr = "_shares" if tile else "plan_rows_matmul"
+    saved = getattr(gathermm, attr)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    try:
+        for name, plan in plans.items():
+            if tile:
+                setattr(gathermm, attr, lambda m_, batch, dtype, plan=plan: plan(
+                    sms, -(-batch // 64), m_.shape[1] // (128 if dtype == torch.bfloat16 else 64)))
+                timed_tags = ("K12",)
+            else:
+                setattr(gathermm, attr, plan(saved))
+                timed_tags = ("K12", "K13")
+            row = {f"{tag} {dn}": [min(a, b) for a, b in zip(step_ms(tag, dn), step_ms(tag, dn))]
+                   for tag in timed_tags for dn in dts}
+            ms[f"plan_{name}"] = row
+            print(f"K12/K13 plan_{name}: " + ", ".join(
+                f"{k} {v[0]:.4f} ms (graph {v[1]:.4f})" for k, v in row.items()), flush=True)
+    finally:
+        setattr(gathermm, attr, saved)
+    out["ms"] = ms
+    # the same calls on other rows of M: the batch's rows sorted by id (its
+    # repeats then adjacent) and the first B rows in order (one contiguous
+    # run of B * C bytes): what the rows' scatter over M costs
+    for how in ("sorted", "contiguous"):
+        saved_cases = dict(cases)
+        for (tag, dn), cs in saved_cases.items():
+            cases[(tag, dn)] = [(m_, torch.sort(r_).values if how == "sorted"
+                                 else torch.arange(r_.numel(), device=dev), v)
+                                for m_, r_, v in cs]
+        row = {f"{tag} {dn}": step_ms(tag, dn) for tag in fns for dn in dts}
+        cases.update(saved_cases)
+        ms[f"rows_{how}"] = row
+        print(f"K12/K13 rows_{how} (the tree's library): " + ", ".join(
+            f"{k} {v[0]:.4f} ms (graph {v[1]:.4f})" for k, v in row.items()), flush=True)
+    out["stream_probe"] = stream_probe(dev, build_mod, sides)
+    # yardsticks for the stream: the batch's whole rows copied out
+    # (index_select: each row one run of C bytes, read and written once)
+    for (m_, r_), side in zip(sides, ("users", "items")):
+        t_ = timed(lambda m_=m_, r_=r_: m_.index_select(0, r_))
+        out[f"index_select_{side}_ms"] = t_
+        print(f"K12/K13 yardstick: index_select of the {side}' rows {t_:.4f} ms "
+              f"({2 * r_.numel() * m_.shape[1] / t_ / 1e6:.0f} GB/s read + written)", flush=True)
+    out["wrapper_ms"] = {f"{tag} {dn}": step_ms(tag, dn) for tag in fns for dn in dts}
+    print("K12/K13 wrappers (the tree's library): " + ", ".join(
+        f"{k} {v[0]:.4f} ms (graph {v[1]:.4f})" for k, v in out["wrapper_ms"].items()), flush=True)
+    out["launch_calls"] = {tag: (lambda fn=fns[tag][0], c=cases[(tag, "bf16")][0]: fn(*c))
+                           for tag in fns}
+    # device time by kernel, each side and type alone (profiled last, with the
+    # launch counts)
+    out["profile_calls"] = {f"{tag} {dn} {side}": (lambda fn=fns[tag][0], c=c: fn(*c))
+                            for (tag, dn), cs in cases.items()
+                            for side, c in zip(("users", "items"), cs)}
+    return out
+
+
 def sweep_ablation(dev, m8, build_mod, fusedmm, chainmm, propagate) -> dict:
     """The int8 chain sweep at d = 64 through each variant's library
     call, beside the raw dual: the linear chain's (forward, the combine
@@ -1022,13 +1437,16 @@ def main() -> int:
     parser.add_argument("--skip-k6", action="store_true")
     parser.add_argument("--skip-k11", action="store_true")
     parser.add_argument("--skip-sweep", action="store_true")
+    parser.add_argument("--skip-k12", action="store_true")
+    parser.add_argument("--k12-quick", action="store_true",
+                        help="K12/K13: the full variant and the yardsticks only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from idgrec_torch.data.dataset import make_synthetic_dataset
-    from idgrec_torch.ops import _build, bitmm, chainmm, fusedmm, propagate, scatter
+    from idgrec_torch.ops import _build, bitmm, chainmm, fusedmm, gathermm, propagate, scatter
 
     dev = torch.device("cuda")
     data = make_synthetic_dataset(*YELP, seed=0)
@@ -1056,6 +1474,8 @@ def main() -> int:
         m8 = fusedmm.pad_matrix(propagate._count_matrix_int8(data, dev), fusedmm.TI, fusedmm.TU)
         result["sweep"] = sweep_ablation(dev, m8, _build, fusedmm, chainmm, propagate)
         del m8
+    if not args.skip_k12:
+        result["k12"] = k12_ablation(dev, data, _build, gathermm, propagate, args.k12_quick)
     # the device launches of one K6 and one K11 call, counted last: once
     # used, the profiler slows the host's later launches
     for key in ("k6", "k11"):
@@ -1063,6 +1483,17 @@ def main() -> int:
             n = device_launches(result[key].pop("launch_call"))
             result[key]["device_launches_per_call"] = n
             print(f"{key.upper()} device launches a call: {n}", flush=True)
+    if "k12" in result:
+        calls = result["k12"].pop("launch_calls")
+        result["k12"]["device_launches_per_call"] = {tag: device_launches(fn)
+                                                     for tag, fn in calls.items()}
+        print(f"K12/K13 device launches a call (bf16, user side): "
+              f"{result['k12']['device_launches_per_call']}", flush=True)
+        result["k12"]["device_ms_by_kernel"] = {
+            name: device_ms_by_kernel(fn) for name, fn in result["k12"].pop("profile_calls").items()}
+        for name, by in result["k12"]["device_ms_by_kernel"].items():
+            print(f"K12/K13 {name}: device ms a call by kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in by.items()), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     result["card"] = card

@@ -1598,17 +1598,30 @@ def _rows_case(rng, r, c, b, density=0.02, top=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("r,c,b,d,top", [
-    (3000, 2048, 2048, 64, 1),    # the step's shape, smaller matrix
-    (500, 384, 100, 32, 127),     # a ragged batch, the largest counts
-    (300, 128, 1, 8, 3),          # one row
-    (1000, 1280, 300, 24, 2),     # three feature groups of 8
+@pytest.mark.parametrize("r,c,b,d,top,kind", [
+    (3000, 2048, 2048, 64, 1, "sampled"),    # the step's shape, smaller matrix
+    (500, 384, 100, 32, 127, "sampled"),     # a ragged batch, the largest counts
+    (300, 128, 1, 8, 3, "sampled"),          # one row
+    (1000, 1280, 300, 24, 2, "sampled"),     # three feature groups of 8
+    (900, 1024, 200, 64, 2, "sampled"),      # fewer rows than one K12 block
+    (1000, 1280, 257, 64, 3, "sampled"),     # one row past a K12 block and a K13 share
+    (700, 1536, 513, 64, 4, "one_row"),      # every row the same row
+    (300, 128, 2048, 64, 1, "sampled"),      # C = 128: fewer column chunks than shares
+    (2000, 2048, 600, 8, 5, "sampled"),      # d = 8
+    (600, 896, 513, 24, 4, "sampled"),       # d = 24
+    (1000, 1024, 700, 96, 3, "sampled"),     # two feature groups, the second half full
+    (3800, 3200, 4096, 64, 1, "sampled"),    # the item side's ratio: R > C, twice the rows
+    (800, 1024, 333, 64, 127, "signed"),     # counts of either sign, -128 included
 ])
-def test_k12_k13_equal_plain_and_repeat(cuda, dtype, r, c, b, d, top):
+def test_k12_k13_equal_plain_and_repeat(cuda, dtype, r, c, b, d, top, kind):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     rng = np.random.default_rng(3)
     m, rows = _rows_case(rng, r, c, b, 0.05, top)
+    if kind == "one_row":
+        rows = torch.full_like(rows, int(rows[0]))
+    elif kind == "signed":
+        m = torch.where(m != 0, _int8(rng, (r, c), -128, 128), m)
     m, rows = m.to(cuda), rows.to(cuda)
     z = torch.from_numpy(rng.normal(size=(c - 5, d)).astype(np.float32)).to(cuda).to(dtype)
     g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(cuda).to(dtype)
@@ -1622,6 +1635,34 @@ def test_k12_k13_equal_plain_and_repeat(cuda, dtype, r, c, b, d, top):
     assert torch.equal(dz, gathermm.gather_rows_matmul_t(m, rows, g))
     _close(out, gathermm.gather_rows_matmul_plain(m, rows, z))
     _close(dz, gathermm.gather_rows_matmul_t_plain(m, rows, g))
+
+
+def test_k12_k13_do_not_synchronise(cuda):
+    """K12, K13 and one `gather_matmul` backward (plans, allocations,
+    checks, launches) issue no synchronisation with the host."""
+    rng = np.random.default_rng(5)
+    m, rows = _rows_case(rng, 2000, 1024, 700)
+    m, rows = m.to(cuda), rows.to(cuda)
+    z = torch.from_numpy(rng.normal(size=(1000, 64)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(700, 64)).astype(np.float32)).to(cuda)
+    zb, gb = z.to(torch.bfloat16), g.to(torch.bfloat16)
+    zz = zb.clone().requires_grad_(True)
+    for v in (z, zb):  # built and loaded, the plans' card queries made, outside the check
+        gathermm.gather_rows_matmul(m, rows, v)
+        gathermm.gather_rows_matmul_t(m, rows, g.to(v.dtype))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [gathermm.gather_rows_matmul(m, rows, v) for v in (z, zb)]
+        got += [gathermm.gather_rows_matmul_t(m, rows, v) for v in (g, gb)]
+        gathermm.gather_matmul(m, rows, zz).backward(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [gathermm.gather_rows_matmul_plain(m, rows, v) for v in (z, zb)]
+    want += [gathermm.gather_rows_matmul_t_plain(m, rows, v) for v in (g, gb)]
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert torch.equal(zz.grad, gathermm.gather_rows_matmul_t(m, rows, gb)[:1000].to(torch.bfloat16))
 
 
 def test_k12_row_out_of_range_gives_nan(cuda):

@@ -174,3 +174,32 @@ def test_zero_layers_rows_are_layer0(datasets):
     got_u, got_i = t_base.lightgcn_propagate_rows(t, x, 0, torch.from_numpy(ru),
                                                   torch.from_numpy(ri), t.num_users)
     assert torch.equal(got_u, x[ru]) and torch.equal(got_i, x[t.num_users + ri])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("batch,c,d", [(2048, 38144, 64), (4096, 31744, 64), (1, 128, 8),
+                                       (300, 1280, 24), (2048, 128, 64), (70_000, 38144, 64),
+                                       (700, 1024, 96), (4096, 31744, 256)])
+@pytest.mark.parametrize("per_sm", [1, 2])
+def test_plan_rows_matmul_fills_the_card(batch, c, d, per_sm, backward):
+    """The split's blocks fit one wave of 132 SMs (K13: two; unless one
+    share already takes more), each share holds at least one stage, and
+    the plan is a function of its arguments alone."""
+    sms = 132
+    s = t_gathermm.plan_rows_matmul(batch, c, d, sms, per_sm, backward)
+    assert s == t_gathermm.plan_rows_matmul(batch, c, d, sms, per_sm, backward)
+    groups = -(-d // t_gathermm.FEATURES)
+    if backward:
+        assert s in t_gathermm.K13_SHARES
+        blocks = -(-c // t_gathermm.K13_COLS) * groups
+        assert s == 1 or batch // s >= t_gathermm.K13_ROWS
+    else:
+        blocks = -(-batch // t_gathermm.K12_ROWS) * groups
+        assert 1 <= s <= c // t_gathermm.K12_COLS
+    waves = 2 if backward else 1
+    assert s == 1 or blocks * s <= waves * sms * per_sm
+    # the most that fits: one more share would not
+    if backward and s < 8 and batch // (2 * s) >= t_gathermm.K13_ROWS:
+        assert blocks * 2 * s > waves * sms * per_sm
+    if not backward and s < c // t_gathermm.K12_COLS:
+        assert blocks * (s + 1) > sms * per_sm
