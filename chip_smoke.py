@@ -110,7 +110,30 @@ launch counts set to 0 just before and read just after:
   rows, across two launches, one call each under sync debug mode
   "error", one LightGCN bfloat16 step on `dense` with
   `batch_rows_propagation = 1` against the full propagation's, then
-  2 x 12 steps with and without batch rows in turns.
+  2 x 12 steps with and without batch rows in turns;
+* the rectangular adjacency R̃ (`build_rect_adjacency`, one direction a
+  call) on every backend against dense float32 (gather within F32_SUM,
+  dense bfloat16 within BF16 of the largest entry, bitpack within TIGHT
+  of dense bfloat16), the int8 product's raw int32 sums (`torch._int_mm`,
+  Mᵀ stored for the transposed direction) equal to its plain version and
+  its products to their plain route, K11's single direction
+  (`bitmm.bit_rect_matmul`) and its backward bit-equal to K11 on each
+  packing, across two launches and within TIGHT of its plain version,
+  every op once under sync debug mode "error", each direction timed
+  beside its bound and a library call;
+* EGCF, ``mode = alternating`` (the user/item ping-pong over R̃): int8 on
+  dense serves four requests checked against the plain route, one step
+  against it at tests/test_torch_egcf.py's bars, two full epochs with
+  the summed loss falling (K4 in the backward; its BPR sum rises over
+  these epochs, in the JAX package too) and an evaluation, its step
+  time beside the parallel mode's; bfloat16 on bitpack (K11) serves
+  against the float32 gather EGCF, one step against the plain route and
+  24 steps;
+* learnability: LightGCN int8 and int4 through `train_model` on
+  `make_latent_synthetic_dataset` (learnable low-rank data) for
+  LEARN_EPOCHS epochs, recall@20 after the last at least LEARN_FACTOR
+  times the first evaluation's (the popularity level), int4's metrics
+  and loss sums equal to int8's.
 
 It times each kernel beside its bound, its plain version and a library
 call, and the paths end to end.
@@ -203,6 +226,11 @@ F32_SUM = 1e-5
 BF16_STEPS, OTHER_STEPS, WIDE_STEPS, WIDE_DIM = 128, 24, 12, 128
 # the bitpack path: two runs of BIT_STEPS steps per compute dtype
 BIT_STEPS = 64
+# the learnability check: LightGCN int8 and int4 on the latent set at
+# LEARN_SCALE of yelp2018 scale for LEARN_EPOCHS epochs (learn_rate 0.005,
+# the convergence script's config), evaluated after the first and the
+# last; the last recall@20 at least LEARN_FACTOR times the first
+LEARN_SCALE, LEARN_EPOCHS, LEARN_FACTOR = 0.5, 12, 2.0
 
 
 def log(msg: str) -> None:
@@ -314,6 +342,24 @@ def plain_kernels(chainmm, scatter):
          scatter.scatter_add_rows_unchecked) = saved
 
 
+@contextlib.contextmanager
+def plain_rect(propagate, bitmm, chainmm, scatter):
+    """Route the rectangular adjacency's products through their plain
+    versions (the int8 product's float64 sums, K11's plain version) and
+    the batch scatter through K4's: the reference an alternating EGCF is
+    held to."""
+    saved = propagate.int8_matmul, bitmm.bit_matmul
+    propagate.int8_matmul = lambda m, m_t, q, transpose=False: propagate.int8_matmul_plain(
+        m, q, transpose)
+    bitmm.bit_matmul = lambda packed, x, n_rows, plan=None: bitmm.bit_matmul_plain(
+        packed, x, n_rows)
+    try:
+        with plain_kernels(chainmm, scatter):
+            yield
+    finally:
+        propagate.int8_matmul, bitmm.bit_matmul = saved
+
+
 def write_dataset(directory: str, data) -> None:
     """Write ``data`` in the reference format, one line per user:
     ``uid iid iid ...`` in train.txt and test.txt."""
@@ -392,7 +438,8 @@ def main() -> int:
         from idgrec_torch import main as cli_main
         from idgrec_torch import serve as cli_serve
         from idgrec_torch.config import default_configure_dir, load_model_config
-        from idgrec_torch.data.dataset import make_synthetic_dataset
+        from idgrec_torch.data.dataset import (make_latent_synthetic_dataset,
+                                               make_synthetic_dataset)
         from idgrec_torch.engine import checkpoint as ckpt_lib
         from idgrec_torch.engine import loop as loop_lib
         from idgrec_torch.engine import sampler as sampler_lib
@@ -2559,6 +2606,308 @@ def main() -> int:
     del model_rows, model_full, adj_rows, runner_, triple_b
     torch.cuda.empty_cache()
 
+
+    # ==== the rectangular adjacency R̃ = Du^-1/2 · R · Di^-1/2 at yelp2018
+    # scale, one direction a call (EGCF's alternating mode): every backend
+    # against dense float32 on the first application's tables; the int8
+    # product's raw int32 sums against its plain version exactly; K11's
+    # single direction, forward and backward, bit-equal to the K11 wrapper
+    # on each packing and within TIGHT of its plain version; each op once
+    # under sync debug mode "error"; each direction timed beside its bound
+    xu_r, xi_r = emb0[:nu].contiguous(), emb0[nu:].contiguous()
+    t0 = time.perf_counter()
+    rect_adjs = {label: propagate.build_rect_adjacency(data, backend_, dtype_, device=dev)
+                 for label, backend_, dtype_ in (("dense float32", "dense", "float32"),
+                                                 ("dense bfloat16", "dense", "bfloat16"),
+                                                 ("dense int8", "dense", "int8"),
+                                                 ("gather float32", "gather", "float32"),
+                                                 ("bitpack bfloat16", "bitpack", "bfloat16"))}
+    torch.cuda.synchronize()
+    log(f"rectangular adjacencies (dense float32, bfloat16, int8 with Mᵀ; gather; bitpack) on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    r8 = rect_adjs["dense int8"]
+    r4 = propagate.build_rect_adjacency(data, "auto", "int4", device=dev)
+    require(isinstance(r4, propagate.DenseRectAdj) and r4.quant == "int8"
+            and torch.equal(r4.m, r8.m) and torch.equal(r8.m_t, r8.m.T)
+            and torch.equal(r8.m, adj.m8[: r8.m.shape[0], : r8.m.shape[1]])
+            and isinstance(rect_adjs["bitpack bfloat16"], propagate.BitRectAdj)
+            and rect_adjs["bitpack bfloat16"].plans is not None,
+            "rectangular builders: int4 and auto do not build the int8 dense adjacency, or the "
+            "stored matrices differ")
+    del r4
+    rect_out = {label: (a_.matmul(xi_r), a_.t_matmul(xu_r)) for label, a_ in rect_adjs.items()}
+    ref_r = rect_out["dense float32"]
+    for label, pair in rect_out.items():
+        for what, got, want in zip(("R̃ x_i", "R̃ᵀ x_u"), pair, ref_r):
+            require(got.dtype == torch.float32 and got.shape == want.shape
+                    and bool(torch.isfinite(got).all()), f"{label} {what}: type, shape, finite")
+            top = float(want.abs().max())
+            if label == "gather float32":
+                require(max_abs(got, want) <= F32_SUM * top, f"{label} {what}: max abs err "
+                                                             f"{max_abs(got, want)}")
+            elif label in ("dense bfloat16", "bitpack bfloat16"):
+                require(max_abs(got, want) <= BF16 * top, f"{label} {what}: max abs err "
+                                                          f"{max_abs(got, want)}")
+    for what, got, want in zip(("R̃ x_i", "R̃ᵀ x_u"), rect_out["bitpack bfloat16"],
+                               rect_out["dense bfloat16"]):
+        assert_close(got, want, f"bitpack against dense bfloat16, {what}", **TIGHT)
+    # int8: the raw sums exact, the products equal their plain route's
+    zs_r = (r8.right[:, None] * xi_r, r8.left[:, None] * xu_r)
+    q_r = [propagate._quantize_cols(propagate._pad_rows(z_, n_))
+           for z_, n_ in zip(zs_r, (r8.m.shape[1], r8.m.shape[0]))]
+    raw_r = [propagate.int8_matmul(r8.m, r8.m_t, q_, t_) for (q_, _), t_ in zip(q_r, (False, True))]
+    for (q_, _), t_, got in zip(q_r, (False, True), raw_r):
+        require(got.dtype == torch.int32 and torch.equal(got, propagate.int8_matmul_plain(
+            r8.m, q_, t_)), f"int8 rectangular product (transpose={t_}): raw sums differ from "
+                            "the plain version")
+    with plain_rect(propagate, bitmm, chainmm, scatter):
+        plain8 = (r8.matmul(xi_r), r8.t_matmul(xu_r))
+    require(all(torch.equal(a_, b_) for a_, b_ in zip(rect_out["dense int8"], plain8)),
+            "int8 rectangular products differ from their plain route")
+    int8_gap = max(max_abs(a_, b_) / float(b_.abs().max())
+                   for a_, b_ in zip(rect_out["dense int8"], ref_r))
+    # K11 one direction a call, forward and backward
+    rb = rect_adjs["bitpack bfloat16"]
+    k11_rect = ((rb.packed, rb.packed_t, rb.right[:, None] * xi_r, nu, rb.plans),
+                (rb.packed_t, rb.packed, rb.left[:, None] * xu_r, ni, rb.plans[::-1]))
+    for (p_, pt_, z_, n_, plans_), g_ in zip(k11_rect, (cot[:nu], cot[nu:])):
+        x_ = z_.clone().requires_grad_(True)
+        y_ = bitmm.bit_rect_matmul(p_, pt_, x_, n_, plans_)
+        y_.backward(g_.contiguous())
+        require(torch.equal(y_, bitmm.bit_matmul(p_, z_, n_, plans_[0]))
+                and torch.equal(y_, bitmm.bit_rect_matmul(p_, pt_, z_, n_, plans_)),
+                "K11 single direction: differs from the wrapper or across two launches")
+        require(torch.equal(x_.grad, bitmm.bit_matmul(pt_, g_.contiguous(), z_.shape[0],
+                                                      plans_[1])),
+                "K11 single direction's backward differs from K11 on the other packing")
+        assert_close(y_.detach(), bitmm.bit_matmul_plain(p_, z_, n_), "K11 single direction",
+                     **TIGHT)
+        assert_close(x_.grad, bitmm.bit_matmul_plain(pt_, g_.contiguous(), z_.shape[0]),
+                     "K11 single direction's backward", **TIGHT)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a_ in rect_adjs.values():
+            a_.matmul(xi_r)
+            a_.t_matmul(xu_r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"rectangular products: gather within {F32_SUM}, dense bfloat16 within {BF16} of the "
+        f"largest entry of dense float32's, bitpack within TIGHT of dense bfloat16's; int8 raw "
+        f"sums equal the plain version's, its products its plain route's (relative gap to "
+        f"float32 {int8_gap:.3e}); K11's single direction and its backward bit-equal to K11 on "
+        f"each packing and within TIGHT of the plain version; every op once under sync debug "
+        f"mode \"error\"")
+    # times, each direction beside its bound: the stored matrix read once,
+    # the float32 activations in and the float32 rows out, or 2 operations
+    # per non-zero entry and feature at the type's peak; library: one call
+    # on a copy where none computes the same thing from the stored matrix
+    nnz_r = data.nnz
+    rect_times = {}
+    for label, a_ in rect_adjs.items():
+        # the matrix one direction reads: M (or the int8 mode's Mᵀ), one
+        # packing, or one ordering of the gather graph's arrays
+        if isinstance(a_, propagate.DenseRectAdj):
+            stored = a_.m.numel()
+        elif isinstance(a_, propagate.BitRectAdj):
+            stored = a_.packed.numel()
+        else:
+            stored = sum(t_.numel() * t_.element_size() for t_ in (
+                a_.graph.rows, a_.graph.cols, a_.graph.vals, a_.graph.row_counts))
+        peak = (F32_OPS if label in ("dense float32", "gather float32")
+                else int8_ops if label == "dense int8" else bf16_ops)
+        bnd_r = bound(stored + 4.0 * (nu + ni) * d, 2.0 * nnz_r * d, peak)
+        fwd = cuda_ms(lambda a_=a_: a_.matmul(xi_r), 10)
+        trn = cuda_ms(lambda a_=a_: a_.t_matmul(xu_r), 10)
+        rect_times[label] = (fwd, trn, bnd_r, stored)
+    # library yardsticks, one direction each
+    q_cols = [q_.T.contiguous().T for q_, _ in q_r]
+    lib_r = {"dense int8": cuda_ms(lambda: (torch._int_mm(r8.m, q_cols[0]),
+                                            torch._int_mm(r8.m_t, q_cols[1])), 10) / 2}
+    csr = torch.sparse_csr_tensor(*(t_.to(dev) for t_ in (
+        torch.from_numpy(data.row_ptr.astype(np.int64)),
+        torch.from_numpy(data.col_idx.astype(np.int64)))),
+        rect_adjs["gather float32"].graph.vals[: nnz_r].contiguous(), size=(nu, ni))
+    require(max_abs(torch.sparse.mm(csr, xi_r), ref_r[0]) <= F32_SUM * float(ref_r[0].abs().max()),
+            "torch.sparse.mm on R̃ disagrees with dense float32")
+    lib_r["gather float32"] = cuda_ms(lambda: torch.sparse.mm(csr, xi_r), 10)
+    del csr
+    zf = torch.nn.functional.pad(zs_r[0], (0, 0, 0, r8.m.shape[1] - ni))
+    for label, dt_ in (("dense float32", torch.float32), ("dense bfloat16", torch.bfloat16)):
+        m_copy, z_copy = r8.m.to(dt_), zf.to(dt_)
+        lib_r[label] = cuda_ms(lambda: m_copy @ z_copy, 10)
+        del m_copy, z_copy
+    m_copy = bitmm.unpack_rows(rb.packed).to(torch.bfloat16)
+    z_copy = torch.nn.functional.pad(zs_r[0], (0, 0, 0, rb.packed.shape[1] - ni)).to(torch.bfloat16)
+    lib_r["bitpack bfloat16"] = cuda_ms(lambda: m_copy @ z_copy, 10)
+    del m_copy, z_copy, zf, q_cols
+    for label, (fwd, trn, bnd_r, stored) in rect_times.items():
+        log(f"rectangular {label}: R̃ x_i {fwd:.4f} ms, R̃ᵀ x_u {trn:.4f} ms (bound "
+            f"{bnd_r[0]:.4f} ms a direction by {bnd_r[1]}, {stored / 1e6:.1f} MB of stored "
+            f"matrix; library {lib_r[label]:.4f} ms a direction)")
+    del rect_adjs, rect_out, ref_r, plain8, raw_r, q_r, zs_r, r8, rb, k11_rect
+    torch.cuda.empty_cache()
+
+    # ==== EGCF, mode = alternating: int8 on dense (the int8 products and K4 in
+    # the backward) and bfloat16 on bitpack (K11 one direction a call)
+    cfg_alt = cfg_e.updated(mode="alternating")
+    alt8 = fresh_egcf(cfg_alt)
+    require(not hasattr(alt8, "graph") and isinstance(alt8.user_graph, propagate.DenseRectAdj)
+            and alt8.user_graph.quant == "int8" and alt8.user_graph.m_t is not None,
+            "EGCF alternating int8: the rectangular int8 dense adjacency")
+    reset_counts()
+    rec_alt = Recommender(alt8, data)
+    answers_alt = [rec_alt.recommend(users, k=K) for users in requests]
+    alt_serve_launches = read_counts()
+    require(all(n == 0 for n in alt_serve_launches.values()),
+            f"EGCF alternating int8 serving runs no kernel of the port: {alt_serve_launches}")
+    with plain_rect(propagate, bitmm, chainmm, scatter):
+        ref_rec_alt = Recommender(alt8, data)
+    for users, (items, scores) in zip(requests, answers_alt):
+        check_answers(ref_rec_alt, data, users, items, scores)
+    alt_embed_ms = host_ms(alt8.eval_embeddings, 5)
+    del ref_rec_alt
+
+    def step_against_plain(m, label):
+        """One step against the plain route at tests/test_torch_egcf.py's
+        bars: loss terms within rtol 1e-5, the gradient within NOISE of its
+        largest entry and a relative L2 error below 1e-2."""
+        got_s = egcf_step(m)
+        with plain_rect(propagate, bitmm, chainmm, scatter):
+            want_s = egcf_step(m)
+        for what, a, b in zip(("bpr", "reg", "ssl"), got_s[1:], want_s[1:]):
+            assert_close(a, b, f"{label} step, {what}", rtol=1e-5, atol=0.0)
+        top = float(want_s[0].abs().max())
+        assert_close(got_s[0] / top, want_s[0] / top, f"{label} step, d item_emb", rtol=2e-2,
+                     atol=1e-2)
+        rel = float((got_s[0] - want_s[0]).norm() / want_s[0].norm())
+        require(rel < 1e-2, f"{label} step, d item_emb: relative L2 error {rel}")
+        return all(torch.equal(a, b) for a, b in zip(got_s, want_s)), got_s
+
+    same_a, got_a = step_against_plain(alt8, "EGCF alternating int8")
+    log(f"EGCF alternating int8: {len(requests)} requests checked against the plain path; one "
+        f"step's loss terms and item gradient against the plain route (bit-equal: {same_a}; bpr "
+        f"{float(got_a[1]):.6f}, ssl {float(got_a[3]):.6f}); eval embeddings {alt_embed_ms:.3f} "
+        "ms")
+    runner_a = EpochRunner(alt8, lr_e, BATCH, data.num_train)
+    reset_counts()
+    a_epoch_ms, a_terms = [], []
+    for epoch in range(EPOCHS):
+        triple_a = neg_sampler.sample_epoch(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_terms.append(runner_a.run_epoch(*triple_a, generator=gen, epoch=epoch).cpu().numpy())
+        a_epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    result_a = Evaluator(alt8, data, cfg_alt).evaluate()
+    alt_train_launches = read_counts()
+    log(f"EGCF alternating int8 training path launches: {alt_train_launches}")
+    require(alt_train_launches["scatter_add_rows"] == 2 * n_e
+            and all(n == 0 for name_, n in alt_train_launches.items()
+                    if name_ != "scatter_add_rows"),
+            f"EGCF alternating int8: expected {2 * n_e} K4 launches and nothing else")
+    # at EGCF's published learn_rate and SSL weights, on this data the BPR
+    # sum of the alternating mode rises over the first epochs while the
+    # summed loss falls, in the JAX package as in the port
+    # (tests/test_torch_rect.py::test_alternating_bpr_rises_while_the_loss_
+    # falls_in_both_packages): the objective is held to falling
+    require(all(t_.shape == (3,) and bool(np.isfinite(t_).all()) for t_ in a_terms)
+            and a_terms[0][0] < steps * np.log(2.0) and a_terms[1].sum() < a_terms[0].sum(),
+            f"EGCF alternating int8: the summed loss did not fall: {a_terms}")
+    require(bool(np.isfinite(result_a["recall"]).all()), f"EGCF alternating recall {result_a}")
+    alt_step_ms = float(np.mean(a_epoch_ms)) / steps
+    log(f"EGCF alternating int8: loss sums {a_terms[0].sum():.4f} then {a_terms[1].sum():.4f} "
+        f"(BPR {a_terms[0][0]:.4f} then {a_terms[1][0]:.4f}, ssl {a_terms[0][2]:.4f} then "
+        f"{a_terms[1][2]:.4f}); "
+        f"{alt_step_ms:.3f} ms per step beside the parallel mode's {egcf_step_ms:.3f} (this run); "
+        f"recall@{cfg_e.int_list('top_K')} {np.round(result_a['recall'], 5).tolist()}")
+    del rec_alt, runner_a, triple_a, alt8
+    torch.cuda.empty_cache()
+
+    cfg_alt_bp = cfg_alt.updated(compute_dtype="bfloat16", propagation_backend="bitpack")
+    alt_bp = fresh_egcf(cfg_alt_bp)
+    require(isinstance(alt_bp.user_graph, propagate.BitRectAdj), "EGCF alternating bitpack")
+    ref_gather_a = Recommender(fresh_egcf(cfg_alt.updated(compute_dtype="float32",
+                                                          propagation_backend="gather")), data)
+    reset_counts()
+    rec_a_bp = Recommender(alt_bp, data)
+    answers_a_bp = [rec_a_bp.recommend(users, k=K) for users in requests]
+    runner_ = EpochRunner(alt_bp, lr_e, BATCH, OTHER_STEPS * BATCH)
+    part = [t_[: OTHER_STEPS * BATCH] for t_ in triple]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp_a_terms = runner_.run_epoch(*part, generator=gen, epoch=0).cpu().numpy()
+    alt_bp_step_ms = (time.perf_counter() - t0) * 1e3 / OTHER_STEPS
+    alt_bp_launches = read_counts()
+    # the serving chain 2 a layer, a step 4 a layer (each direction's
+    # backward one launch on the other packing)
+    want_k11_a = 2 * LAYERS * (1 + 2 * OTHER_STEPS)
+    require(alt_bp_launches["bit_matmul"] == want_k11_a
+            and all(n == 0 for name_, n in alt_bp_launches.items() if name_ != "bit_matmul"),
+            f"EGCF alternating bitpack: expected {want_k11_a} K11 launches and nothing else: "
+            f"{alt_bp_launches}")
+    ref_u, ref_i = ref_gather_a._repr
+    top_logit_a = max(float((ref_u[torch.from_numpy(u_).to(dev)] @ ref_i.T).abs().max())
+                      for u_ in requests)
+    alt_bp_tol = BF16 * top_logit_a / 4.0
+    for users, (items, scores) in zip(requests, answers_a_bp):
+        check_answers_close(ref_gather_a, data, users, items, scores, alt_bp_tol)
+    require(bool(np.isfinite(bp_a_terms).all()) and bp_a_terms[0] < OTHER_STEPS * np.log(2.0),
+            f"EGCF alternating bitpack loss terms {bp_a_terms}")
+    same_bp, _ = step_against_plain(alt_bp, "EGCF alternating bitpack")
+    log(f"EGCF alternating bitpack bfloat16: served {len(requests)} requests within "
+        f"{alt_bp_tol:.3e} of the float32 gather EGCF; one step against the plain route "
+        f"(bit-equal: {same_bp}); {alt_bp_step_ms:.3f} ms per step over {OTHER_STEPS} steps")
+    del alt_bp, ref_gather_a, rec_a_bp, runner_
+    torch.cuda.empty_cache()
+
+    # ==== learnability: LightGCN int8 and int4 on learnable data, recall@20
+    # after the last epoch at least LEARN_FACTOR times after the first (the
+    # popularity level), int4's metrics and loss sums equal int8's
+    t0 = time.perf_counter()
+    latent = make_latent_synthetic_dataset(*(int(n_ * LEARN_SCALE) for n_ in YELP), seed=0,
+                                           name="latent-yelp-scale")
+    log(f"latent dataset {latent.num_users} users x {latent.num_items} items, "
+        f"{latent.num_train} train, {latent.num_test} test, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg_l = load_model_config("LightGCN").updated(
+        dataset=latent.name, embedding_size=DIM, GCN_layer=LAYERS, batch_size=BATCH,
+        test_batch_size=2048, top_K=[20], learn_rate=0.005, reg_lambda=0.0001,
+        training_epochs=LEARN_EPOCHS, interval=LEARN_EPOCHS - 1, early_stopping=100,
+        propagation_backend="fused")
+    learn = {}
+    reset_counts()
+    for mode in ("int8", "int4"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as tmp_l:
+            t0 = time.perf_counter()
+            res_l = loop_lib.train_model("LightGCN", latent, config=cfg_l.updated(
+                compute_dtype=mode), seed=2024, log_dir=tmp_l, echo=False)
+            wall_l = time.perf_counter() - t0
+            with open(os.path.join(tmp_l, "LightGCN", f"{latent.name}.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+        evals = [(ev["epoch"], ev["recall"][0], ev["ndcg"][0]) for ev in events
+                 if ev["kind"] == "eval"]
+        losses_l = [ev["loss_terms"] for ev in events if ev["kind"] == "train_epoch"]
+        learn[mode] = (evals, losses_l, wall_l)
+        log(f"learnability {mode}: recall@20 {[round(e_[1], 5) for e_ in evals]} at epochs "
+            f"{[e_[0] for e_ in evals]}, {wall_l:.1f} s")
+    learn_launches = read_counts()
+    evals8 = learn["int8"][0]
+    require(len(evals8) == 2 and evals8[0][0] == 1 and evals8[-1][0] == LEARN_EPOCHS,
+            f"learnability: evaluations at {evals8}")
+    require(evals8[-1][1] >= LEARN_FACTOR * evals8[0][1],
+            f"learnability: recall@20 {evals8[-1][1]} after epoch {LEARN_EPOCHS} is below "
+            f"{LEARN_FACTOR} x {evals8[0][1]} after the first")
+    require(learn["int4"][:2] == learn["int8"][:2],
+            "learnability: int4's metrics or loss sums differ from int8's")
+    for fn in (fusedmm.fused_adj_matmul_int8_t, fusedmm.fused_adj_matmul_int4_t,
+               chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows):
+        require(fn.launches > 0, f"{fn.__name__} was never launched on the learnability path")
+    log(f"learnability: recall@20 {evals8[0][1]:.5f} after epoch 1, {evals8[-1][1]:.5f} after "
+        f"epoch {LEARN_EPOCHS} ({evals8[-1][1] / evals8[0][1]:.2f} x, at least {LEARN_FACTOR}); "
+        f"int4's metrics and loss sums equal int8's; {learn['int8'][2]:.1f} s int8, "
+        f"{learn['int4'][2]:.1f} s int4")
+    del latent
+
     n_steps = EPOCHS * steps
 
     by_path = {"serving": launches, "training": train_launches,
@@ -2570,7 +2919,10 @@ def main() -> int:
                "egcf_run_harness": egcf_harness_launches,
                "egcf_command_line": egcf_cli_launches,
                "bitpack_bf16": bit_runs["bfloat16"][0], "bitpack_f32": bit_runs["float32"][0],
-               "egcf_bitpack": egcf_bp_launches, "batch_rows": rows_launches}
+               "egcf_bitpack": egcf_bp_launches, "batch_rows": rows_launches,
+               "egcf_alternating_serving": alt_serve_launches,
+               "egcf_alternating_training": alt_train_launches,
+               "egcf_alternating_bitpack": alt_bp_launches, "learnability": learn_launches}
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=(),
@@ -2697,6 +3049,10 @@ def main() -> int:
                      passes_d128=k6_128_passes)
         elif k["name"] == "bit_matmul":
             k["ms_per_direction"] = k11_ms
+            # the rectangular adjacency's directions (BitRectAdj.matmul,
+            # .t_matmul: one K11 call each, the scaling included)
+            fwd, trn, bnd_r, _ = rect_times["bitpack bfloat16"]
+            k.update(rect_ms_per_direction=[fwd, trn], rect_bound_ms_per_direction=bnd_r[0])
         elif k["name"] == "dual_int4_n":
             k.update(ms_d64=k8_64_ms, plain_ms_d64=k8_64_plain, bound_ms_d64=k8_64_bound[0],
                      library_ms_d64=k8_64_lib)
@@ -2746,7 +3102,11 @@ def main() -> int:
             f"{k['launches_egcf_run_harness']} run harness, {k['launches_egcf_command_line']} "
             f"command line; bitpack {k['launches_bitpack_bf16']} bfloat16, "
             f"{k['launches_bitpack_f32']} float32, {k['launches_egcf_bitpack']} EGCF; "
-            f"{k['launches_batch_rows']} batch rows ({k['launches_per_step']:.2f} per step)")
+            f"{k['launches_batch_rows']} batch rows; EGCF alternating "
+            f"{k['launches_egcf_alternating_serving']} serving, "
+            f"{k['launches_egcf_alternating_training']} int8 training, "
+            f"{k['launches_egcf_alternating_bitpack']} bitpack; {k['launches_learnability']} "
+            f"learnability ({k['launches_per_step']:.2f} per step)")
     log(f"EGCF: eval embeddings {egcf_embed_ms:.3f} ms (int4 {egcf4_embed_ms:.3f}, bfloat16-fused "
         f"{egcf_bf_embed_ms:.3f}), {egcf_step_ms:.3f} ms per step, {float(np.mean(e_epoch_ms)):.1f} "
         f"ms per epoch (int8); int4 {e_runs['int4'][1]:.3f} and int8 {e_runs['int8'][1]:.3f} ms per "

@@ -11,7 +11,8 @@ arrays. Semantics held equal to the JAX package bit for bit
   files, counted over interacting pairs only;
 * duplicate (user, item) pairs are kept in ``num_train`` and summed
   into ``csr_vals``; ``col_idx`` is sorted within each row;
-* `make_synthetic_dataset` draws the same pairs from the same seed.
+* `make_synthetic_dataset` draws the same pairs from the same seed;
+* so does `make_latent_synthetic_dataset`, the learnable set.
 
 The JAX package's native mmap scanner (data/native.py) is not ported:
 the numpy parser gives the same arrays.
@@ -286,5 +287,75 @@ def make_synthetic_dataset(
     test_user, test_item = unique_pairs(num_test)
     return Dataset.from_pairs(
         train_user, train_item, test_user, test_item,
+        num_users=num_users, num_items=num_items, name=name,
+    )
+
+
+def make_latent_synthetic_dataset(
+    num_users: int,
+    num_items: int,
+    num_train: int,
+    num_test: int,
+    rank: int = 16,
+    seed: int = 0,
+    name: str = "latent-synthetic",
+    temperature: float = 0.25,
+) -> Dataset:
+    """A synthetic dataset with learnable low-rank structure.
+
+    `make_synthetic_dataset` draws train and test independently, so a
+    model can learn nothing beyond item popularity. Here every user's
+    interactions, train and test, come from one latent preference model
+    p(i|u) ∝ softmax(x_u·y_i/τ)·pop_i through a per-user Gumbel top-k,
+    the top slice split between train and test: recovering the latent
+    factors raises Recall/NDCG over training
+    (scripts/torch_quant_parity.py, chip_smoke.py's learnability check).
+    The random stream is the JAX package's draw for draw (the chunking,
+    float32 uniforms, the per-row permutation and their order), so the
+    same seed gives the same pairs."""
+    rng = np.random.default_rng(seed)
+    xu = rng.normal(size=(num_users, rank)).astype(np.float32) / np.sqrt(rank)
+    yi = rng.normal(size=(num_items, rank)).astype(np.float32)
+    pop = np.log((1.0 / np.arange(1, num_items + 1)) ** 0.8).astype(np.float32)
+
+    # per-user interaction counts: multinomial over a mild user skew
+    user_w = rng.lognormal(0.0, 0.5, num_users)
+    user_w /= user_w.sum()
+    k_train = rng.multinomial(num_train, user_w)
+    k_test = rng.multinomial(num_test, user_w)
+    k_total = np.minimum(k_train + k_test, num_items)
+    k_train = np.minimum(k_train, k_total)
+
+    tr_u, tr_i, te_u, te_i = [], [], [], []
+    chunk = max(1, int(2e8 // (num_items * 4)))  # ~200 MB of logits at a time
+    for s in range(0, num_users, chunk):
+        e = min(s + chunk, num_users)
+        logits = (xu[s:e] @ yi.T) / temperature + pop[None, :]
+        u01 = rng.random((e - s, num_items), dtype=np.float32)
+        gumbel = -np.log(-np.log(u01 + 1e-12) + 1e-12)
+        keys = logits + gumbel
+        kmax = int(k_total[s:e].max(initial=0))
+        if kmax == 0:
+            continue
+        top = np.argpartition(-keys, kmax - 1, axis=1)[:, :kmax]
+        # order the top slice by key, so that the train/test split is
+        # itself an exchangeable draw from the same distribution
+        order = np.argsort(-np.take_along_axis(keys, top, axis=1), axis=1)
+        top = np.take_along_axis(top, order, axis=1)
+        for r in range(e - s):
+            kt, ka = int(k_train[s + r]), int(k_total[s + r])
+            sel = top[r, :ka]
+            perm = rng.permutation(ka)  # decorrelate the split from the key rank
+            tr_sel, te_sel = sel[perm[:kt]], sel[perm[kt:]]
+            tr_u.append(np.full(tr_sel.size, s + r, np.int64))
+            tr_i.append(tr_sel)
+            te_u.append(np.full(te_sel.size, s + r, np.int64))
+            te_i.append(te_sel)
+
+    def cat(xs):
+        return np.concatenate(xs) if xs else np.empty(0, np.int64)
+
+    return Dataset.from_pairs(
+        cat(tr_u), cat(tr_i), cat(te_u), cat(te_i),
         num_users=num_users, num_items=num_items, name=name,
     )

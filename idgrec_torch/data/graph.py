@@ -6,14 +6,14 @@ ordering carried alongside, so that the backward of the sparse product
 (ops/spmm.py) is a forward product over pre-sorted arrays. The functions
 below give the reference's normalizations of the bipartite adjacency: `sym`
 (`normalized_adjacency`), `self` (`normalized_adjacency_with_self`) and
-the generalized D^-alpha A D^-beta (`generalized_normalized_adjacency`).
-The arrays are built with numpy and live on the graph's device, the
+the generalized D^-alpha A D^-beta (`generalized_normalized_adjacency`),
+and the rectangular user-item matrix R̃ = Du^-1/2 · R · Di^-1/2
+(`normalized_rectangular`). The arrays are built with numpy and live on the graph's device, the
 indices as int64 (what `index_select` takes).
 
 Not copied: the ``.npz`` cache beside the dataset (a graph is rebuilt
 from the CSR at every construction; at yelp2018 scale that is a sort of
-2.5 million edges), the rectangular normalization and the edge-dropout
-graph (ROADMAP A.8, A.7 SGL).
+2.5 million edges) and the edge-dropout graph (ROADMAP A.7, SGL).
 """
 
 from __future__ import annotations
@@ -190,3 +190,13 @@ def generalized_normalized_adjacency(data: Dataset, alpha: float, beta: float,
     vals = np.concatenate([w_ui, w_iu]).astype(np.float32)
     return SparseGraph.from_coo(rows, cols, vals, (data.num_nodes, data.num_nodes),
                                 symmetric=(alpha == beta), device=device)
+
+
+def normalized_rectangular(data: Dataset, device="cpu") -> SparseGraph:
+    """Rectangular normalization R̃ = Du^-1/2 · R · Di^-1/2 of shape
+    [U, I] (not symmetric): the weights v · du^-1/2[u] · di^-1/2[i] in
+    float32."""
+    u, i, v = _interaction_edges(data)
+    du, di = _degrees(data)
+    w = (v * _inv_pow(du, 0.5)[u] * _inv_pow(di, 0.5)[i]).astype(np.float32)
+    return SparseGraph.from_coo(u, i, w, (data.num_users, data.num_items), device=device)

@@ -1,18 +1,22 @@
 """EGCF (Zhang et al., TOIS'24): embedding-less graph collaborative
-filtering (counterpart of idgrec_tpu/models/egcf.py, parallel mode).
+filtering (counterpart of idgrec_tpu/models/egcf.py).
 
 Only an item table exists; the user embeddings are seeded as
-tanh(R̃·E_item). The parallel mode seeds the users through the square
-adjacency (Â·[0; E_i] = [R̃·E_i; 0]), then runs K tanh layers over Â and
-sums the layer outputs. Loss: BPR + reg(items) +
-λ·(InfoNCE(u, u) + InfoNCE(i, i) + InfoNCE(u, i)).
+tanh(R̃·E_item). Two modes, both summing the layer outputs:
 
-Routes, in the JAX package's order: the resident tanh chain with the
-seed sweep (ops/chainmm.py, kernels K3, K1 or K5, K9, K10), then the
-per-sweep chain `fused_chain_t`, then one ``tanh(graph.matmul(·))`` per
-layer (bfloat16 and float32 on every backend, and widths the chain's
-kernels decline: K6, K7 or K8, dense, gather). The alternating mode is
-ROADMAP A.8: it needs the rectangular adjacency.
+* ``parallel`` seeds the users through the square adjacency
+  (Â·[0; E_i] = [R̃·E_i; 0]), then runs K tanh layers over Â. Routes, in
+  the JAX package's order: the resident tanh chain with the seed sweep
+  (ops/chainmm.py, kernels K1 or K5 with K9's and K10's epilogues), then
+  the per-sweep chain `fused_chain_t`, then one ``tanh(graph.matmul(·))``
+  per layer (bfloat16 and float32 on every backend, and widths the
+  chain's kernels decline: K6, K7 or K8, dense, gather).
+* ``alternating`` ping-pongs over the rectangular R̃
+  (`build_rect_adjacency`): users tanh(R̃·h_i), then items tanh(R̃ᵀ·h_u),
+  K times (dense: float32 sums or the int8 product; gather; bitpack: one
+  K11 launch a direction).
+
+Loss: BPR + reg(items) + λ·(InfoNCE(u, u) + InfoNCE(i, i) + InfoNCE(u, i)).
 """
 
 from __future__ import annotations
@@ -41,19 +45,21 @@ class EGCF(RecModel):
         self.temperature = config.float("temperature")
         self.mode = config.str("mode")
         self.num_layers = config.int("GCN_layer")
-        if self.mode != "parallel":
-            raise NotImplementedError(
-                f"EGCF mode = {self.mode}: the alternating mode needs the rectangular "
-                "adjacency (build_rect_adjacency), ROADMAP A.8")
-        # the user seed goes through the same square Â as the layer chain
-        self.graph = prop.build_adjacency(
-            data, "sym", self.backend, compute_dtype=self.compute_dtype,
-            emb_size=self.embedding_size, device=self.device)
+        if self.mode == "parallel":
+            # the user seed goes through the same square Â as the layer chain
+            self.graph = prop.build_adjacency(
+                data, "sym", self.backend, compute_dtype=self.compute_dtype,
+                emb_size=self.embedding_size, device=self.device)
+        else:
+            self.user_graph = prop.build_rect_adjacency(
+                data, self.backend, compute_dtype=self.compute_dtype, device=self.device)
 
     def init_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         return {"item_emb": xavier_uniform(generator, (self.num_items, self.embedding_size))}
 
     def propagate(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.mode != "parallel":
+            return self._propagate_alternating()
         item_emb = self.item_emb
         d = item_emb.shape[1]
         x0 = torch.cat([torch.zeros((self.num_users, d), dtype=item_emb.dtype,
@@ -76,6 +82,18 @@ class EGCF(RecModel):
             h = torch.tanh(self.graph.matmul(h))
             acc = acc + h
         return split_user_item(acc, self.num_users)
+
+    def _propagate_alternating(self) -> tuple[torch.Tensor, torch.Tensor]:
+        item_h = self.item_emb
+        user_acc = torch.zeros((self.num_users, item_h.shape[1]), dtype=item_h.dtype,
+                               device=item_h.device)
+        item_acc = torch.zeros_like(item_h)
+        for _ in range(self.num_layers):
+            user_h = torch.tanh(self.user_graph.matmul(item_h))
+            item_h = torch.tanh(self.user_graph.t_matmul(user_h))
+            user_acc = user_acc + user_h
+            item_acc = item_acc + item_h
+        return user_acc, item_acc
 
     def loss_terms(self, batch, generator=None, epoch=0):
         user_all, item_all = self.propagate()

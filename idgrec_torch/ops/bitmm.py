@@ -21,7 +21,9 @@ layout is a TPU sublane convenience and has no counterpart here).
 `bit_adj_matmul` applies both directions and is differentiable in the
 activations: its backward is the same function on the swapped
 cotangents, (dxu, dxi) = (M @ g_yi, Mᵀ @ g_yu), so both packings stay
-resident. The activations enter as bfloat16 whatever their type, and so
+resident. `bit_rect_matmul` is one direction (the rectangular
+adjacency's products), its backward one K11 launch on the other
+packing. The activations enter as bfloat16 whatever their type, and so
 do the cotangents on the way back.
 """
 
@@ -219,3 +221,28 @@ def bit_adj_matmul(packed: torch.Tensor, packed_t: torch.Tensor, xu: torch.Tenso
     call when not given). Differentiable in xu and xi: the backward is the
     same two products on the swapped cotangents."""
     return _BitAdjMatmul.apply(packed, packed_t, plans or (None, None), xu, xi)
+
+
+class _BitRectMatmul(torch.autograd.Function):
+    """One `bit_matmul` forward, one on the other packing backward. Saves
+    only the packings and their plans."""
+
+    @staticmethod
+    def forward(ctx, packed, packed_t, plans, x, n_rows):
+        ctx.packed_t, ctx.plan_t, ctx.n_cols = packed_t, plans[1], x.shape[0]
+        return bit_matmul(packed, x, n_rows, plans[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, bit_matmul(ctx.packed_t, g, ctx.n_cols, ctx.plan_t), None
+
+
+def bit_rect_matmul(packed: torch.Tensor, packed_t: torch.Tensor, x: torch.Tensor,
+                    n_rows: int, plans: tuple | None = None) -> torch.Tensor:
+    """bits(packed) @ x -> float32 [n_rows, d], differentiable in x: the
+    backward is dx = bits(packed)ᵀ @ g = bits(packed_t) @ g, one K11 call
+    on the other packing (x and g fed to the products as bfloat16).
+    packed = pack_rows(M) and packed_t = pack_rows(Mᵀ) for the forward
+    M @ x, or the two swapped for Mᵀ @ x; ``plans`` are their
+    `plan_rows` in the same order, made per call when not given."""
+    return _BitRectMatmul.apply(packed, packed_t, plans or (None, None), x, n_rows)

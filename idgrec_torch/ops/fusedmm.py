@@ -457,26 +457,30 @@ def _require_n(kernel: str, mode: str, u_pad: int, i_pad: int, d: int) -> None:
             f"d={d}, U_pad={u_pad}, I_pad={i_pad}")
 
 
-def dual_matmul_f32(m8: torch.Tensor, zu: torch.Tensor,
-                    zi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def dual_matmul_f32(m8: torch.Tensor, zu: torch.Tensor | None,
+                    zi: torch.Tensor | None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """(M @ zi, Mᵀ @ zu) as float32 products with float32 accumulation:
     int8 m8 [U_pad, I_pad], zu [U_pad, d], zi [I_pad, d] of any type
     whose values float32 holds exactly. M is converted in row blocks,
     each block feeding both products, to bound the float32 working set
-    at full scale. On the card TF32 must be off. This is the plain
-    product of the dense backend and of K6's plain version; with
-    integer-valued operands it is exact while every sum stays below
-    2**24."""
+    at full scale. A side given as None is not computed and comes back
+    None (one direction: the rectangular adjacency's products). On the
+    card TF32 must be off. This is the plain product of the dense
+    backend and of K6's plain version; with integer-valued operands it
+    is exact while every sum stays below 2**24."""
     check_exact_matmul(m8.device)
     u_pad = m8.shape[0]
-    zu32, zi32 = zu.to(torch.float32), zi.to(torch.float32)
+    zu32 = None if zu is None else zu.to(torch.float32)
+    zi32 = None if zi is None else zi.to(torch.float32)
     yu_parts, yi = [], None
     for r in range(0, u_pad, _F32_ROWS):
         blk = m8[r : r + _F32_ROWS].to(torch.float32)
-        yu_parts.append(blk @ zi32)
-        part = blk.T @ zu32[r : r + _F32_ROWS]
-        yi = part if yi is None else yi + part
-    return torch.cat(yu_parts), yi
+        if zi32 is not None:
+            yu_parts.append(blk @ zi32)
+        if zu32 is not None:
+            part = blk.T @ zu32[r : r + _F32_ROWS]
+            yi = part if yi is None else yi + part
+    return (torch.cat(yu_parts) if zi32 is not None else None), yi
 
 
 def _pad_cast(z: torch.Tensor, rows: int, dtype: torch.dtype) -> torch.Tensor:

@@ -29,6 +29,13 @@ interaction-count matrix. Four backends apply it behind one facade
 * **gather** (`GatherSquareAdj`): row-sorted COO gather and sorted
   segment sum (ops/spmm.py), for graphs whose dense matrix does not fit.
 
+The rectangular R̃ = diag(left) · M · diag(right) [U, I] (EGCF's
+alternating mode) has `matmul` (R̃ @ xi) and `t_matmul` (R̃ᵀ @ xu), one
+direction a call, on three backends (`build_rect_adjacency`): dense
+(`DenseRectAdj`: exact float32 accumulation, or `quant_matmul`'s int8
+product with int32 sums), gather (`GatherRectAdj`) and bitpack
+(`BitRectAdj`: one K11 launch a direction).
+
 This module also holds kernel K3 (`quantize_rows`,
 csrc/quantize_rows.cu) beside its plain version, and `build_adjacency`.
 """
@@ -49,7 +56,7 @@ from idgrec_torch.data import graph as graph_lib
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
 from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm
-from idgrec_torch.ops.spmm import spmm
+from idgrec_torch.ops.spmm import spmm, spmm_transpose
 
 # Dense-backend memory budget: the int8 count matrix (and its copies)
 # may use at most this fraction of the device's memory.
@@ -516,6 +523,199 @@ class BitSquareAdj:
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
+# ---------------------------------------------------------------------------
+# the rectangular adjacency: one direction a product
+
+# rows of M converted to float64 at a time by `int8_matmul_plain`
+_F64_ROWS = 4096
+
+
+def int8_matmul_plain(m: torch.Tensor, q: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Plain version of `int8_matmul`: the int32 sums of (Mᵀ if
+    ``transpose`` else M) @ q, computed in float64 over row blocks of M
+    (every product and partial sum an integer below 2**53, so exact);
+    runs on every device."""
+    q64 = q.to(torch.float64)
+    parts, y = [], None
+    for r in range(0, m.shape[0], _F64_ROWS):
+        blk = m[r : r + _F64_ROWS].to(torch.float64)
+        if transpose:
+            part = blk.T @ q64[r : r + _F64_ROWS]
+            y = part if y is None else y + part
+        else:
+            parts.append(blk @ q64)
+    return (y if transpose else torch.cat(parts)).to(torch.int32)
+
+
+def int8_matmul(m: torch.Tensor, m_t: torch.Tensor | None, q: torch.Tensor,
+                transpose: bool = False) -> torch.Tensor:
+    """int32 sums of (Mᵀ if ``transpose`` else M) @ q for int8 m [R, C],
+    q int8 [C, d] (or [R, d] transposed): the raw product of
+    `quant_matmul`, which the JAX package leaves to XLA.
+
+    CPU tensors take the plain version. On the card one `torch._int_mm`
+    (cuBLASLt's int8 product, int32 sums) with the matrix row-major as
+    its first operand and q column-major as its second, the layout the
+    library multiplies without a copy: the transposed product takes
+    ``m_t``, Mᵀ stored contiguously. A shape `_int_mm` refuses (d % 8)
+    raises."""
+    if m.device.type == "cpu":
+        return int8_matmul_plain(m, q, transpose)
+    a = m_t if transpose else m
+    if a is None:
+        raise ValueError("the transposed int8 product on the card needs Mᵀ stored (m_t)")
+    return torch._int_mm(a, q.T.contiguous().T)
+
+
+class _RectProduct(torch.autograd.Function):
+    """``impl(z, transpose)``, one direction of a fixed linear map, with
+    its backward: the opposite direction on the cotangent (straight
+    through for the quantized impl). Keeps no activation."""
+
+    @staticmethod
+    def forward(ctx, impl, z, transpose):
+        ctx.impl, ctx.transpose = impl, transpose
+        return impl(z, transpose)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.impl(g, not ctx.transpose), None
+
+
+def _quant_rect_impl(m: torch.Tensor, m_t: torch.Tensor | None, z: torch.Tensor,
+                     transpose: bool) -> torch.Tensor:
+    q, s = _quantize_cols(z)
+    return int8_matmul(m, m_t, q, transpose).to(torch.float32) * s
+
+
+def _exact_rect_impl(m: torch.Tensor, dtype: torch.dtype, z: torch.Tensor,
+                     transpose: bool) -> torch.Tensor:
+    z = z.to(dtype)
+    yu, yi = fusedmm.dual_matmul_f32(m, z if transpose else None, None if transpose else z)
+    return yi if transpose else yu
+
+
+def quant_matmul(transpose: bool, m: torch.Tensor, z: torch.Tensor,
+                 m_t: torch.Tensor | None = None) -> torch.Tensor:
+    """(Mᵀ if ``transpose`` else M) @ q8(z), float32: z quantized per
+    feature (`_quantize_cols`), the int8 product's int32 sums
+    (`int8_matmul`; ``m_t`` is Mᵀ stored, the card's operand of the
+    transposed product), dequantized by z's scales. Straight-through
+    backward: the opposite direction on the cotangent, also quantized."""
+    return _RectProduct.apply(functools.partial(_quant_rect_impl, m, m_t), z, transpose)
+
+
+def exact_matmul(transpose: bool, m: torch.Tensor, z: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(Mᵀ if ``transpose`` else M) @ z with z rounded to ``dtype``
+    (bfloat16 or float32) and the float32 accumulator kept, as the JAX
+    product's ``preferred_element_type`` keeps it: one direction of
+    `fusedmm.dual_matmul_f32`. The backward is the opposite direction on
+    the cotangent, rounded to ``dtype`` like any operand."""
+    return _RectProduct.apply(functools.partial(_exact_rect_impl, m, dtype), z, transpose)
+
+
+@dataclass(frozen=True)
+class DenseRectAdj:
+    """Rectangular R̃ = diag(left)·M·diag(right) [U, I] over the int8
+    count matrix, one plain product a direction: exact (bfloat16 or
+    float32 operands, float32 sums) or int8-quantized (``quant`` 'int8')."""
+
+    m: torch.Tensor      # int8 [pad(U), pad(I)]
+    left: torch.Tensor   # f32 [U]
+    right: torch.Tensor  # f32 [I]
+    num_users: int
+    num_items: int
+    compute_dtype_name: str = "bfloat16"
+    quant: str = "none"
+    # Mᵀ as its own int8 [pad(I), pad(U)] copy in the int8 mode: the
+    # operand of the transposed product on the card (`int8_matmul`)
+    m_t: torch.Tensor | None = None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.num_users, self.num_items)
+
+    @property
+    def device(self) -> torch.device:
+        return self.m.device
+
+    def _product(self, z: torch.Tensor, transpose: bool) -> torch.Tensor:
+        if self.quant == "int8":
+            return quant_matmul(transpose, self.m, z, self.m_t)
+        return exact_matmul(transpose, self.m, z, _DTYPES[self.compute_dtype_name])
+
+    def matmul(self, xi: torch.Tensor) -> torch.Tensor:
+        """R̃ @ xi for xi [I, d] -> [U, d] in xi's type."""
+        z = _pad_rows(self.right[:, None] * xi.to(torch.float32), self.m.shape[1])
+        y = self._product(z, False)
+        return (self.left[:, None] * y[: self.num_users]).to(xi.dtype)
+
+    def t_matmul(self, xu: torch.Tensor) -> torch.Tensor:
+        """R̃ᵀ @ xu for xu [U, d] -> [I, d] in xu's type."""
+        z = _pad_rows(self.left[:, None] * xu.to(torch.float32), self.m.shape[0])
+        y = self._product(z, True)
+        return (self.right[:, None] * y[: self.num_items]).to(xu.dtype)
+
+
+@dataclass(frozen=True)
+class GatherRectAdj:
+    """Rectangular R̃ as a sparse graph [U, I] (ops/spmm.py)."""
+
+    graph: graph_lib.SparseGraph
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.graph.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.device
+
+    def matmul(self, xi: torch.Tensor) -> torch.Tensor:
+        return spmm(self.graph, xi)
+
+    def t_matmul(self, xu: torch.Tensor) -> torch.Tensor:
+        return spmm_transpose(self.graph, xu)
+
+
+@dataclass(frozen=True)
+class BitRectAdj:
+    """Rectangular R̃ = diag(left)·M·diag(right) [U, I] with binary M
+    bit-packed, M and Mᵀ apart: each direction one K11 launch on
+    bfloat16 activations (float32 sums), its backward one launch on the
+    other packing (`bitmm.bit_rect_matmul`)."""
+
+    packed: torch.Tensor    # int8 [U_pad / 8, I_pad] = bitmm.pack_rows(M)
+    packed_t: torch.Tensor  # int8 [I_pad' / 8, U_pad'] = bitmm.pack_rows(Mᵀ)
+    left: torch.Tensor      # f32 [U]
+    right: torch.Tensor     # f32 [I]
+    num_users: int
+    num_items: int
+    # K11's split of each packing among its warps (bitmm.plan_rows), made
+    # once on the card
+    plans: tuple | None = None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.num_users, self.num_items)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def matmul(self, xi: torch.Tensor) -> torch.Tensor:
+        z = self.right[:, None] * xi.to(torch.float32)
+        y = bitmm.bit_rect_matmul(self.packed, self.packed_t, z, self.num_users, self.plans)
+        return (self.left[:, None] * y).to(xi.dtype)
+
+    def t_matmul(self, xu: torch.Tensor) -> torch.Tensor:
+        z = self.left[:, None] * xu.to(torch.float32)
+        plans = self.plans[::-1] if self.plans else None
+        y = bitmm.bit_rect_matmul(self.packed_t, self.packed, z, self.num_items, plans)
+        return (self.right[:, None] * y).to(xu.dtype)
+
+
 def supports_chain_t(graph, d: int | None = None) -> bool:
     """True when `fused_chain_t` applies: the quantized fused backend
     with a matrix and width the geometry of K1 (int8) or K5 (int4)
@@ -745,3 +945,46 @@ def build_adjacency(
                 f"<= {fusedmm.NIBBLE_MAX} (got {top}); use int8")
         m8 = fusedmm.pack_nibbles(m8)
     return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant)
+
+
+def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: str = "bfloat16",
+                         device=None):
+    """Rectangular R̃ = Du^-1/2 · R · Di^-1/2 on ``device`` (default the
+    card): `DenseRectAdj`, `GatherRectAdj` or `BitRectAdj`.
+
+    backend: 'auto' (dense when the matrix fits the budget, else gather;
+    never fused), 'dense', 'gather' or 'bitpack' (binary counts). 'fused'
+    raises: no single-sweep kernel exists for the rectangular shape.
+    compute_dtype: 'bfloat16' or 'float32' (exact on dense and gather;
+    bitpack rounds to bfloat16 in both), or 'int8' on dense; 'int4' runs
+    the int8 path (nibble packing is a storage change, and this
+    adjacency has no packed kernel). The int8 mode also stores Mᵀ, the
+    card's operand of the transposed product."""
+    dev = resolve_device(device)
+    dtype_name, quant = _split_quant(compute_dtype)
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}: expected one of "
+                         f"{sorted(_DTYPES)} or int8, int4")
+    quant = "int8" if quant == "int4" else quant
+    if backend == "fused":
+        raise ValueError(
+            "backend 'fused' applies to the square adjacency only; "
+            "rectangular R̃ supports auto|dense|gather|bitpack"
+        )
+    backend = _select_backend(data, backend, dev, copies=2 if quant != "none" else 1)
+    if quant != "none" and backend != "dense":
+        raise ValueError("compute_dtype = int8 requires the dense backend")
+    if backend == "gather":
+        return GatherRectAdj(graph_lib.normalized_rectangular(data, device=dev))
+    du, di = graph_lib._degrees(data)
+    left, right = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
+    nu, ni = data.num_users, data.num_items
+    if backend == "bitpack":
+        if not bool(np.all(data.csr_vals == 1)):
+            raise ValueError("bitpack backend requires binary interaction counts")
+        p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
+        plans = (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
+        return BitRectAdj(p, pt, left, right, nu, ni, plans)
+    m = _count_matrix_int8(data, dev)
+    m_t = m.T.contiguous() if quant == "int8" else None
+    return DenseRectAdj(m, left, right, nu, ni, dtype_name, quant, m_t)

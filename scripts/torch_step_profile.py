@@ -4,12 +4,14 @@ GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF] [--steps 40]
         [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather|bitpack]
-        [--batch_rows] [--embedding_size 64] [--root DIR]
+        [--batch_rows] [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
 
 Builds the yelp2018-scale model of chip_smoke.py (its config file's
 loss weights, d = 64 unless ``--embedding_size`` says otherwise (128 takes
 int8 and int4 to the per-application loop), 3 layers, batch 2,048;
-``--batch_rows`` sets LightGCN's ``batch_rows_propagation = 1``), warms up,
+``--batch_rows`` sets LightGCN's ``batch_rows_propagation = 1``,
+``--mode alternating`` EGCF's ping-pong over the rectangular adjacency),
+warms up,
 then
 
 * times the step's phases on the host clock, each ending in a
@@ -56,6 +58,8 @@ def main() -> int:
     parser.add_argument("--backend", default="auto",
                         choices=["auto", "dense", "fused", "gather", "bitpack"])
     parser.add_argument("--batch_rows", action="store_true")
+    parser.add_argument("--mode", default="parallel", choices=["parallel", "alternating"],
+                        help="EGCF's propagation mode")
     parser.add_argument("--embedding_size", type=int, default=64)
     parser.add_argument("--root", default=ROOT)
     args = parser.parse_args()
@@ -83,6 +87,8 @@ def main() -> int:
                                                  propagation_backend=args.backend,
                                                  batch_rows_propagation=int(args.batch_rows),
                                                  batch_size=BATCH)
+    if args.model == "EGCF":
+        cfg = cfg.updated(mode=args.mode)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     model = get_model(args.model)(cfg, data, device=dev,
@@ -148,6 +154,7 @@ def main() -> int:
     result = {"card": card, "root": os.path.abspath(args.root), "model": args.model,
               "compute_dtype": args.compute_dtype, "backend": args.backend,
               "batch_rows": args.batch_rows, "embedding_size": args.embedding_size,
+              "mode": args.mode if args.model == "EGCF" else None,
               "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms,
               "device_launches_per_step": n_device / steps}

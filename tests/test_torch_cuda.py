@@ -40,7 +40,12 @@ bit-packed product), K12 and K13 (the batch-row partial product and its
 backward) agree with their plain versions within rtol 3e-5 / atol 3e-6
 of the largest sum (the same exact products, float32 sums in another
 order) and give the same bits on every launch; K11 agrees with K6 on the
-same binary matrix within the same bar."""
+same binary matrix within the same bar. K11 one direction a call
+(`bitmm.bit_rect_matmul`, forward and backward) is bit-equal to the K11
+wrapper on each packing; the int8 product on `torch._int_mm` (the
+rectangular adjacency's) equals the exact int32 sums in both directions;
+the rectangular adjacency on the card matches its CPU twin: int8 bit for
+bit, the other backends within the bar above."""
 
 from __future__ import annotations
 
@@ -1719,3 +1724,126 @@ def test_bitpack_and_batch_rows_train_through_their_kernels(cuda):
         terms = EpochRunner(model, 0.001, 1024, n).run_epoch(*triple).cpu().numpy()
         assert tuple(f.launches - b for f, b in zip(counters, before)) == want
         assert terms.shape == (2,) and np.isfinite(terms).all()
+
+
+# ---------------------------------------------------------------------------
+# the rectangular adjacency: K11 one direction a call, the int8 product
+
+
+@pytest.mark.parametrize("r,c,density,d", [
+    (3000, 2000, 0.02, 64),
+    (200, 700, 0.3, 16),
+])
+def test_bit_rect_matmul_is_k11_both_ways_and_repeats(cuda, r, c, density, d):
+    """K11's differentiable single direction: the forward is one K11 call
+    on the packing, the backward one on the other packing, each bit-equal
+    to the wrapper, across two launches, and within TIGHT of the plain
+    version."""
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy((rng.random((r, c)) < density).astype(np.int8)).to(cuda)
+    packed, packed_t = bitmm.pack_pair(m)
+    plans = (bitmm.plan_rows(packed), bitmm.plan_rows(packed_t))
+    x = torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(r, d)).astype(np.float32)).to(cuda)
+    grads = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_(True)
+        before = bitmm.bit_matmul.launches
+        y = bitmm.bit_rect_matmul(packed, packed_t, xx, r, plans)
+        y.backward(g)
+        assert bitmm.bit_matmul.launches == before + 2
+        assert torch.equal(y, bitmm.bit_matmul(packed, x, r, plans[0]))
+        assert torch.equal(xx.grad, bitmm.bit_matmul(packed_t, g, c, plans[1]))
+        _close(y, bitmm.bit_matmul_plain(packed, x, r))
+        _close(xx.grad, bitmm.bit_matmul_plain(packed_t, g, c))
+        grads.append((y.detach(), xx.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("r,c,d,top", [
+    (200, 296, 64, 1),      # no side a multiple of 128
+    (1000, 1032, 16, 127),  # the largest counts
+    (136, 24, 8, 3),
+])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_int8_matmul_equals_the_int32_product(cuda, r, c, d, top, transpose):
+    """`torch._int_mm` (M row-major, q column-major; Mᵀ stored for the
+    transposed direction) gives the exact int32 sums of its plain
+    version in both directions."""
+    rng = np.random.default_rng(4)
+    m_np = (rng.integers(0, top + 1, (r, c)) * (rng.random((r, c)) < 0.3)).astype(np.int8)
+    q_np = rng.integers(-127, 128, (r if transpose else c, d)).astype(np.int8)
+    m, q = torch.from_numpy(m_np).to(cuda), torch.from_numpy(q_np).to(cuda)
+    got = propagate.int8_matmul(m, m.T.contiguous(), q, transpose)
+    want = (m_np.T if transpose else m_np).astype(np.int64) @ q_np.astype(np.int64)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, propagate.int8_matmul_plain(m, q, transpose))
+
+
+@pytest.mark.parametrize("backend,dtype", [
+    ("dense", "float32"), ("dense", "bfloat16"), ("dense", "int8"), ("gather", "float32"),
+    ("bitpack", "bfloat16"),
+])
+def test_rect_adjacency_on_the_card_matches_the_cpu(cuda, backend, dtype):
+    """Both directions and their gradients on the card against the same
+    adjacency on the CPU (the plain versions): int8 bit-equal (exact
+    int32 sums, the same float32 operations), the others within TIGHT of
+    the largest entry (float32 sums in another order); one call of each
+    direction issues no synchronisation."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    data = make_synthetic_dataset(300, 500, 6000, 500, seed=2)
+    rng = np.random.default_rng(5)
+    xi, xu = (torch.from_numpy(rng.normal(size=s_).astype(np.float32))
+              for s_ in ((500, 64), (300, 64)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        adj = propagate.build_rect_adjacency(data, backend, dtype, device=dev)
+        a, b = xi.to(dev).requires_grad_(True), xu.to(dev).requires_grad_(True)
+        ya, yb = adj.matmul(a), adj.t_matmul(b)
+        (ya.sum() + (yb * yb).sum()).backward()
+        outs.append([t.detach().cpu() for t in (ya, yb, a.grad, b.grad)])
+        if dev.type == "cuda":
+            xi_d, xu_d = xi.to(dev), xu.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                adj.matmul(xi_d)
+                adj.t_matmul(xu_d)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    for got, want in zip(*outs):
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            _close(got, want)
+
+
+def test_egcf_alternating_trains_through_its_kernels(cuda):
+    """EGCF mode = alternating: int8 on dense runs K4 in the backward (two
+    calls a step), bitpack one K11 call a direction forward and backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    n = 4 * 1024
+    pick = torch.randint(0, data.num_train, (n,), generator=g).numpy()
+    triple = (torch.from_numpy(data.train_user[pick]).to(cuda),
+              torch.from_numpy(data.train_item[pick]).to(cuda),
+              torch.randint(0, data.num_items, (n,), generator=g).to(cuda))
+    counters = (scatter.scatter_add_rows, bitmm.bit_matmul)
+    for dtype, backend, want in (("int8", "dense", (4 * 2, 0)),
+                                 ("bfloat16", "bitpack", (0, 4 * 12))):
+        cfg = Config({"dataset": "t", "embedding_size": "64", "reg_lambda": "0.0001",
+                      "GCN_layer": "3", "ssl_lambda": "0.1", "temperature": "0.1",
+                      "mode": "alternating", "compute_dtype": dtype,
+                      "propagation_backend": backend})
+        model = get_model("EGCF")(cfg, data, device=cuda,
+                                  generator=torch.Generator().manual_seed(0))
+        before = [f.launches for f in counters]
+        terms = EpochRunner(model, 0.001, 1024, n).run_epoch(*triple).cpu().numpy()
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == want
+        assert terms.shape == (3,) and np.isfinite(terms).all()

@@ -381,11 +381,6 @@ def test_exact_modes_match_jax(datasets, backend, dtype):
         assert np.abs(got - ref).max() <= BF16 * np.abs(ref).max()
 
 
-def test_alternating_mode_raises_naming_its_item(datasets):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        t_get_model("EGCF")(TConfig({**_CFG, "mode": "alternating"}), datasets[0], device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # checkpoints: a JAX EGCF checkpoint in the port, resume in the port
 
