@@ -5,10 +5,17 @@ with their models, ROADMAP A.7).
 The literal epsilons of the reference (``10e-8`` = 1e-7 in the BPR loss,
 ``10e-6`` = 1e-5 in InfoNCE) are kept so training-loss traces stay
 comparable. The JAX package computes these outside any Pallas kernel,
-so they are stock PyTorch.
+so they are stock PyTorch, in the JAX functions' operation order; every
+matrix product runs in full float32 on the card (the JAX package pins
+them to ``Precision.HIGHEST``), and a division by a Python number is a
+true division (`propagate.true_divide`). Nothing here reads a value
+back to the host: the L2 terms' backward counts rows by `index_add_`,
+not `torch.bincount` (which reads the largest index on the card).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,6 +46,94 @@ def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(norm, min=eps)
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` with its gradient: max, then min, against
+    float32 bounds, so a value exactly on a bound passes half the
+    cotangent, as JAX's max and min split a tie (`torch.clamp` passes
+    all of it)."""
+    lo_t, hi_t = (torch.full((), v, dtype=x.dtype, device=x.device) for v in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def align_loss(emb_1: torch.Tensor, emb_2: torch.Tensor) -> torch.Tensor:
+    """DirectAU alignment: the mean squared distance of the normalized
+    pairs."""
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    return torch.mean(torch.sum((emb_1 - emb_2) ** 2, dim=1))
+
+
+def uniform_loss(embedding: torch.Tensor) -> torch.Tensor:
+    """DirectAU uniformity: log of the mean of exp(-2‖e_i − e_j‖²) over
+    the pairs i < j, as the JAX package sums it: (Σ_all − n) / 2, the
+    diagonal's n terms exp(0) = 1 taken out of the full [n, n] sum."""
+    check_exact_matmul(embedding.device)
+    e = _normalize(_f32(embedding))
+    sq = torch.sum(e * e, dim=1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * torch.matmul(e, e.T)
+    n = e.shape[0]
+    total = (torch.sum(torch.exp(-2.0 * d2)) - n) / 2.0
+    return torch.log(true_divide(total, n * (n - 1) / 2.0))
+
+
+def neighbor_aggregate_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
+                            tau: float) -> torch.Tensor:
+    """LightCCF's neighborhood-aggregation loss: the positive u·i⁺
+    against a denominator over the sum of the two similarity matrices
+    u·I_batchᵀ + u·U_batchᵀ."""
+    check_exact_matmul(emb_1.device)
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), tau))
+    total = torch.matmul(emb_1, emb_2.T) + torch.matmul(emb_1, emb_1.T)
+    ttl_score = torch.sum(torch.exp(true_divide(total, tau)), dim=1)
+    return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
+
+
+def lightcscf_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float,
+                   margin: float) -> torch.Tensor:
+    """LightCSCF's dual-filter contrastive loss: each score is
+    exp(s/τ) + exp(relu(s − margin)/τ), over the sum of the two
+    similarity matrices as in `neighbor_aggregate_loss`."""
+    check_exact_matmul(emb_1.device)
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    sim = torch.sum(emb_1 * emb_2, dim=-1)
+    pos_score = (torch.exp(true_divide(sim, temperature))
+                 + torch.exp(true_divide(torch.relu(sim - margin), temperature)))
+    total = torch.matmul(emb_1, emb_2.T) + torch.matmul(emb_1, emb_1.T)
+    total_score = (torch.exp(true_divide(total, temperature))
+                   + torch.exp(true_divide(torch.relu(total - margin), temperature)))
+    ttl = torch.sum(total_score, dim=1)
+    return torch.mean(-torch.log(pos_score / ttl + _INFONCE_EPS))
+
+
+def margin_alignment_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
+                          margin: torch.Tensor) -> torch.Tensor:
+    """MAWU's margin-aware alignment, with the reference's broadcast:
+    the angle is [B] and the margin [B, 1], so angle + (1 − σ(margin))
+    is [B, B] and the mean runs over all B² entries. Both clips are
+    `_clip` (JAX's gradient on a bound); 1 − 1e-7 is 0.99999988 in
+    float32 in both packages."""
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    cos = torch.sum(emb_1 * emb_2, dim=-1)
+    angle = torch.arccos(_clip(cos, -1 + 1e-7, 1 - 1e-7))
+    angle = _clip(angle + (1.0 - torch.sigmoid(_f32(margin))), 0.0, math.pi)
+    return -torch.mean(torch.cos(angle))
+
+
+def dot_uniformity_loss(embeddings: torch.Tensor, t: float = 2.0) -> torch.Tensor:
+    """MAWU's weighted dot-uniformity, with the reference's quirk: the
+    entries that ``tril(·, -1)`` masks become 0 and still contribute
+    exp(-2·t) after the 2 − 2·cos shift."""
+    check_exact_matmul(embeddings.device)
+    e = _normalize(_f32(embeddings))
+    cos = torch.tril(torch.matmul(e, e.T), diagonal=-1)
+    cos = 2.0 - 2.0 * cos
+    return torch.log(torch.mean(torch.exp(-t * cos)))
+
+
 def infonce_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float) -> torch.Tensor:
     """In-batch InfoNCE with both views L2-normalized; the denominator
     runs over emb_2's batch (emb_1 @ emb_2ᵀ, in full float32 on the
@@ -61,6 +156,15 @@ def reg_loss(*embeddings: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 [n]: how often each row occurs in ``idx``, the values of
+    ``torch.bincount(idx, minlength=n)``. Summed by `index_add_` (exact:
+    every partial sum is an integer below 2**24), so the card reads
+    nothing back."""
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    return torch.zeros(n, dtype=torch.float32, device=idx.device).index_add_(0, idx, ones)
+
+
 class _RegLossIndexed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, user_table, item_table, u, p, n):
@@ -71,9 +175,9 @@ class _RegLossIndexed(torch.autograd.Function):
     def backward(ctx, g):
         user_table, item_table, u, p, n = ctx.saved_tensors
         # integer counts are order-free, so the result repeats run to run
-        cu = torch.bincount(u, minlength=user_table.shape[0]).to(torch.float32)
-        ci = (torch.bincount(p, minlength=item_table.shape[0]).to(torch.float32) / p.shape[0]
-              + torch.bincount(n, minlength=item_table.shape[0]).to(torch.float32) / n.shape[0])
+        cu = _counts(u, user_table.shape[0])
+        ci = (_counts(p, item_table.shape[0]) / p.shape[0]
+              + _counts(n, item_table.shape[0]) / n.shape[0])
         du = (g * cu / u.shape[0])[:, None] * _f32(user_table)
         di = (g * ci)[:, None] * _f32(item_table)
         return du.to(user_table.dtype), di.to(item_table.dtype), None, None, None
@@ -105,8 +209,7 @@ class _RegLossCounted(torch.autograd.Function):
         table, *idxs = ctx.saved_tensors
         c = torch.zeros(table.shape[0], dtype=torch.float32, device=table.device)
         for i in idxs:
-            c = c + true_divide(torch.bincount(i, minlength=table.shape[0]).to(torch.float32),
-                                float(i.shape[0]))
+            c = c + true_divide(_counts(i, table.shape[0]), float(i.shape[0]))
         d = (g * c)[:, None] * _f32(table)
         return (d.to(table.dtype),) + (None,) * len(idxs)
 

@@ -17,12 +17,16 @@ interaction-count matrix. Four backends apply it behind one facade
   the transposed [d, N] layout that the whole chain keeps
   (`fused_chain_t`, ops/chainmm.py). int4 changes the storage only: its
   results equal int8's bit for bit.
-* **dense** (`DenseSquareAdj`): the same int8 M, two plain matrix
-  products per application, which the JAX package leaves to XLA and the
-  port to `torch.matmul`: exact in bfloat16 or float32, or int8-quantized.
-  With ``with_transpose`` it also stores Mᵀ, and `matmul_rows` gives
-  the rows of one application that a batch needs as partial products
-  over those rows alone (kernels K12 and K13, ops/gathermm.py).
+* **dense** (`DenseSquareAdj`): the same int8 M with its columns padded
+  to 256, both products of an application, which the JAX package leaves
+  to XLA. On bfloat16 and int8 activations the port runs them as the
+  fused backend does, through kernel K6 (bfloat16) or K7 (int8) where the
+  width allows (`DenseSquareAdj.runs_kernel`: d % 32 == 0); float32, and
+  a width the kernels do not take, multiply in float32 by
+  `fusedmm.dual_matmul_f32`. With ``with_transpose`` it also stores Mᵀ,
+  and `matmul_rows` gives the rows of one application that a batch
+  needs as partial products over those rows alone (kernels K12 and K13,
+  ops/gathermm.py).
 * **bitpack** (`BitSquareAdj`): binary M stored bit-packed, M and Mᵀ
   apart (ops/bitmm.py), one kernel K11 launch per direction on bfloat16
   activations with float32 sums, whatever the compute dtype.
@@ -77,10 +81,13 @@ def dense_budget(device: torch.device) -> int:
     return int(device_memory_bytes(device) * DENSE_BUDGET_FRACTION)
 
 
-def _dense_fits(data: Dataset, device: torch.device, copies: int = 1) -> bool:
-    """Would `copies` padded int8 count matrices fit in the budget?"""
+def _dense_fits(data: Dataset, device: torch.device, copies: int = 1,
+                col_multiple: int | None = None) -> bool:
+    """Would `copies` padded int8 count matrices fit in the budget? The
+    columns pad to ``col_multiple`` (default `_PAD`), as the matrix that
+    would be built does."""
     budget = dense_budget(device)
-    need = _pad_up(data.num_users) * _pad_up(data.num_items) * copies
+    need = _pad_up(data.num_users) * _pad_up(data.num_items, col_multiple or _PAD) * copies
     if need > budget:
         _logger.info("dense adjacency (%d bytes x%d copies) exceeds budget %d; "
                      "auto backend selects gather", need // copies, copies, budget)
@@ -90,17 +97,22 @@ def _dense_fits(data: Dataset, device: torch.device, copies: int = 1) -> bool:
 
 # dense matrices are zero-padded to this row/col multiple
 _PAD = 128
+# the square dense matrix pads its columns further, to the column strip of
+# kernels K6 and K7 (`fusedmm.kernel_accepts_n`), so that its products run
+# them at every width d % 32 == 0 (`DenseSquareAdj.runs_kernel`)
+DENSE_COL_PAD = 256
 
 
 def _pad_up(x: int, m: int = _PAD) -> int:
     return -(-x // m) * m
 
 
-def _count_matrix_int8(data: Dataset, device: torch.device) -> torch.Tensor:
+def _count_matrix_int8(data: Dataset, device: torch.device,
+                       col_multiple: int = _PAD) -> torch.Tensor:
     """Int8 interaction-count matrix [pad(U), pad(I)], built on the
-    device from the CSR, zero-padded to 128-multiples; counts saturate
-    at 127."""
-    up, ip = _pad_up(data.num_users), _pad_up(data.num_items)
+    device from the CSR, zero-padded to 128-multiples (the columns to
+    ``col_multiple``); counts saturate at 127."""
+    up, ip = _pad_up(data.num_users), _pad_up(data.num_items, col_multiple)
     m = torch.zeros((up, ip), dtype=torch.int8, device=device)
     users = np.repeat(np.arange(data.num_users, dtype=np.int64), np.diff(data.row_ptr))
     vals = np.minimum(data.csr_vals, 127).astype(np.int8)
@@ -326,11 +338,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclass(frozen=True)
 class DenseSquareAdj:
     """Square normalized adjacency diag(L)·[[0,M],[Mᵀ,0]]·diag(R)
-    (+ diag) over the int8 count matrix, two plain products per
-    application. With the transposed copy ``m_t`` stored, `matmul_rows`
-    computes selected rows of one application."""
+    (+ diag) over the int8 count matrix, both products of an application
+    through kernel K6 (bfloat16) or K7 (int8) where `runs_kernel` says
+    so, else through `fusedmm.dual_matmul_f32`. With the transposed copy
+    ``m_t`` stored, `matmul_rows` computes selected rows of one
+    application."""
 
-    m: torch.Tensor        # int8 [pad(U), pad(I)]
+    m: torch.Tensor        # int8 [pad(U), pad(I, DENSE_COL_PAD)]
     left_u: torch.Tensor   # f32 [U]
     left_i: torch.Tensor   # f32 [I]
     right_u: torch.Tensor  # f32 [U]
@@ -344,7 +358,7 @@ class DenseSquareAdj:
     # "int8": both directions quantize the activations per feature and
     # run as int8 products; "none": exact bfloat16 or float32 operands
     quant: str = "none"
-    # Mᵀ as its own int8 [pad(I), pad(U)] copy, the operand of the item
+    # Mᵀ as its own int8 [pad(I, DENSE_COL_PAD), pad(U)] copy, the operand of the item
     # rows of `matmul_rows`; built with build_adjacency(...,
     # with_transpose=True)
     m_t: torch.Tensor | None = None
@@ -384,19 +398,44 @@ class DenseSquareAdj:
             yi = yi + self.diag_i[rows_i, None] * xi[rows_i].to(torch.float32)
         return yu.to(x.dtype), yi.to(x.dtype)
 
+    def runs_kernel(self, d: int) -> bool:
+        """Whether `matmul` at width ``d`` runs a kernel of the port: K6
+        (`fusedmm.fused_adj_matmul`) on bfloat16 activations, K7 (through
+        `quant_fused_dual`) in the int8 mode, where
+        `fusedmm.kernel_accepts_n` takes M's padded shape at ``d``. The
+        padding (rows to 128, columns to `DENSE_COL_PAD`) meets the
+        kernels' geometry, so within their sides' limit the rule is
+        d % 32 == 0. float32 runs none: K6 rounds its operands to
+        bfloat16. Where this is False, `fusedmm.dual_matmul_f32` runs
+        (`exact_dual_matmul`, `quant_dual_matmul`); where it is True a
+        CUDA tensor launches the kernel or raises."""
+        if self.quant == "none" and self.compute_dtype_name != "bfloat16":
+            return False
+        u_pad, i_pad = self.m.shape
+        return fusedmm.kernel_accepts_n(u_pad, i_pad, d, "int8" if self.quant == "int8" else "bf16")
+
     def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
         """Â @ x for x [U+I, d]; optional per-node multiplicative gate
-        applied on both sides."""
+        applied on both sides. On the CPU each route runs its kernel's
+        plain version, which computes what `exact_dual_matmul` and
+        `quant_dual_matmul` compute, bit for bit."""
         nu, ni = self.num_users, self.num_items
         right_u, right_i, left_u, left_i = _gated(self, gate)
         u_pad, i_pad = self.m.shape
-        zi = _pad_rows(right_i[:, None] * x[nu:].to(torch.float32), i_pad)
-        zu = _pad_rows(right_u[:, None] * x[:nu].to(torch.float32), u_pad)
-        if self.quant == "int8":
-            yu, yi = quant_dual_matmul(self.m, zi, zu)
+        zi = right_i[:, None] * x[nu:].to(torch.float32)
+        zu = right_u[:, None] * x[:nu].to(torch.float32)
+        kernel = self.runs_kernel(x.shape[1])
+        if kernel and self.quant == "none":
+            yu, yi = fusedmm.fused_adj_matmul(self.m, zu, zi)
         else:
-            yu, yi = exact_dual_matmul(self.m, zi, zu, _DTYPES[self.compute_dtype_name])
-        return _finish(self, x, left_u[:, None] * yu[:nu], left_i[:, None] * yi[:ni])
+            zi, zu = _pad_rows(zi, i_pad), _pad_rows(zu, u_pad)
+            if self.quant == "int8":
+                dual = quant_fused_dual if kernel else quant_dual_matmul
+                yu, yi = dual(self.m, zi, zu)
+            else:
+                yu, yi = exact_dual_matmul(self.m, zi, zu, _DTYPES[self.compute_dtype_name])
+            yu, yi = yu[:nu], yi[:ni]
+        return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
 @dataclass(frozen=True)
@@ -826,11 +865,14 @@ def _split_quant(compute_dtype: str) -> tuple[str, str]:
     return compute_dtype, "none"
 
 
-def _select_backend(data: Dataset, backend: str, device: torch.device, copies: int = 1) -> str:
-    """'auto' picks dense when `copies` int8 count matrices fit in the
-    device-memory-derived budget, else gather."""
+def _select_backend(data: Dataset, backend: str, device: torch.device, copies: int = 1,
+                    col_multiple: int | None = None) -> str:
+    """'auto' picks dense when `copies` int8 count matrices (columns
+    padded to ``col_multiple``) fit in the device-memory-derived budget,
+    else gather."""
     if backend == "auto":
-        return "dense" if _dense_fits(data, device, copies=copies) else "gather"
+        return ("dense" if _dense_fits(data, device, copies=copies, col_multiple=col_multiple)
+                else "gather")
     if backend not in ("bitpack", "dense", "fused", "gather"):
         raise ValueError(f"unknown propagation backend {backend!r}")
     return backend
@@ -838,10 +880,13 @@ def _select_backend(data: Dataset, backend: str, device: torch.device, copies: i
 
 def resolve_backend(data: Dataset, backend: str, copies: int = 1,
                     compute_dtype: str | None = None, device=None) -> str:
-    """Public 'auto' resolution: auto-selected dense upgrades to the
-    fused backend in any quantized mode, and int4 always does."""
+    """Public 'auto' resolution of the square adjacency (the budget counts
+    its dense matrix's padding, `DENSE_COL_PAD`): auto-selected dense
+    upgrades to the fused backend in any quantized mode, and int4 always
+    does."""
     requested = backend
-    backend = _select_backend(data, backend, resolve_device(device), copies=copies)
+    backend = _select_backend(data, backend, resolve_device(device), copies=copies,
+                              col_multiple=DENSE_COL_PAD)
     if compute_dtype is not None:
         _, quant = _split_quant(compute_dtype)
         if quant != "none" and backend == "dense" and (requested == "auto" or quant == "int4"):
@@ -871,6 +916,9 @@ def build_adjacency(
     batch-row partial product) is available, one more int8 copy of the
     matrix.
 
+    The dense matrix pads its rows to 128 and its columns to
+    `DENSE_COL_PAD` (the JAX package pads both to 128): the column strip
+    of kernels K6 and K7, which its products run.
     The fused matrix is padded to (TU, TI) multiples whatever
     ``emb_size``: the JAX package's wider PANEL padding exists only for
     its TPU panelized kernel. int4 pads the columns to
@@ -930,7 +978,7 @@ def build_adjacency(
         plans = (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
         return BitSquareAdj(p, pt, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, plans)
     if backend == "dense":
-        m = _count_matrix_int8(data, dev)
+        m = _count_matrix_int8(data, dev, DENSE_COL_PAD)
         m_t = m.T.contiguous() if with_transpose else None
         return DenseSquareAdj(m, lu, li, ru, ri, diag_u, diag_i, nu, ni, dtype_name, has_diag,
                               quant, m_t)

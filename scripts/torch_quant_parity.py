@@ -18,9 +18,10 @@ train seed 2024; EGCF adds ssl_lambda 0.2, temperature 0.2, mode
 parallel) on ``--backend``, and reports each mode's best recall@20 and
 NDCG@20, its best epoch, its evaluation curve, its loss curve and its
 wall time, with each quantized mode's recall relative to bfloat16's.
-On the card, pass ``--backend fused``: bfloat16 then runs kernel K6, the
-quantized modes the resident chain (K1 or K5); under ``auto`` bfloat16
-resolves to ``dense`` and its float32 block products.
+On the card bfloat16 runs kernel K6 and the quantized modes the resident
+chain (K1 or K5) under ``auto`` as under ``fused``: ``auto`` resolves
+bfloat16 to ``dense``, whose products run K6 and equal the fused
+backend's bit for bit, and the quantized modes to ``fused``.
 
 Progress goes to stderr. Stdout carries the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``) and, as the last line, the
@@ -96,7 +97,7 @@ def main(argv=None) -> int:
     ap.add_argument("--modes", default="bfloat16,int8,int4")
     ap.add_argument("--model", default="LightGCN", choices=["LightGCN", "EGCF"])
     ap.add_argument("--backend", default="auto", choices=["auto", "dense", "fused", "gather"],
-                    help="propagation backend; fused on the card (see the module docstring)")
+                    help="propagation backend (see the module docstring)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="also write the JSON to this path")
     args = ap.parse_args(argv)

@@ -2,17 +2,20 @@
 """Where one training step of the port spends its time, on one NVIDIA
 GPU, for a ported model in any compute mode.
 
-    python3 scripts/torch_step_profile.py [--model LightGCN|EGCF] [--steps 40]
-        [--compute_dtype int8|int4|bfloat16|float32] [--backend auto|dense|fused|gather|bitpack]
-        [--batch_rows] [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
+    python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
+        LightCCF|LightCSCF] [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
+        [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
+        [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
 
-Builds the yelp2018-scale model of chip_smoke.py (its config file's
-loss weights, d = 64 unless ``--embedding_size`` says otherwise (128 takes
-int8 and int4 to the per-application loop), 3 layers, batch 2,048;
-``--batch_rows`` sets LightGCN's ``batch_rows_propagation = 1``,
-``--mode alternating`` EGCF's ping-pong over the rectangular adjacency),
-warms up,
-then
+Builds the model of chip_smoke.py (its config file's loss weights, d = 64
+unless ``--embedding_size`` says otherwise (128 takes int8 and int4 to
+the per-application loop), 3 layers) on the synthetic set at the scale
+of the dataset its config names: yelp2018 (LightGCN, EGCF, MFBPR,
+DirectAU, MAWU, SCCF) or amazon-book (LightCCF, LightCSCF). LightGCN and
+EGCF run int8 and batch 2,048 unless told otherwise, the zoo its config's
+compute dtype (bfloat16) and batch size. ``--batch_rows`` sets
+LightGCN's ``batch_rows_propagation = 1``, ``--mode alternating`` EGCF's
+ping-pong over the rectangular adjacency. It warms up, then
 
 * times the step's phases on the host clock, each ending in a
   synchronize (forward to the loss, backward, Adam), and the whole step
@@ -45,15 +48,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-YELP = (31_668, 38_048, 1_237_259, 324_147)
-BATCH = 2048
+# users, items, train and test pairs at the scale of each dataset a config
+# names (bench.py)
+SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
+          "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
+MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", default="LightGCN", choices=["LightGCN", "EGCF"])
+    parser.add_argument("--model", default="LightGCN", choices=MODELS)
     parser.add_argument("--steps", type=int, default=40)
-    parser.add_argument("--compute_dtype", default="int8",
+    parser.add_argument("--compute_dtype", default=None,
                         choices=["int8", "int4", "bfloat16", "float32"])
     parser.add_argument("--backend", default="auto",
                         choices=["auto", "dense", "fused", "gather", "bitpack"])
@@ -81,12 +87,15 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     dev = torch.device("cuda")
-    data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-scale")
-    cfg = load_model_config(args.model).updated(embedding_size=args.embedding_size, GCN_layer=3,
-                                                 compute_dtype=args.compute_dtype,
-                                                 propagation_backend=args.backend,
-                                                 batch_rows_propagation=int(args.batch_rows),
-                                                 batch_size=BATCH)
+    cfg = load_model_config(args.model)
+    ours = args.model in ("LightGCN", "EGCF")
+    dtype = args.compute_dtype or ("int8" if ours else cfg.str("compute_dtype"))
+    batch_size = 2048 if ours else cfg.int("batch_size")
+    scale = cfg.str("dataset")
+    data = make_synthetic_dataset(*SCALES[scale], seed=0, name=f"{scale}-scale")
+    cfg = cfg.updated(embedding_size=args.embedding_size, GCN_layer=3, compute_dtype=dtype,
+                      propagation_backend=args.backend,
+                      batch_rows_propagation=int(args.batch_rows), batch_size=batch_size)
     if args.model == "EGCF":
         cfg = cfg.updated(mode=args.mode)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,8 +104,8 @@ def main() -> int:
                                   generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(0)
     users, pos, neg = NegativeSampler(data).sample_epoch(gen)
-    n = (2 * steps + 10) * BATCH
-    runner = EpochRunner(model, cfg.float("learn_rate"), BATCH, n)
+    n = (2 * steps + 10) * batch_size
+    runner = EpochRunner(model, cfg.float("learn_rate"), batch_size, n)
     batches = runner._prepare(users[:n], pos[:n], neg[:n])
 
     def batch(i):
@@ -152,7 +161,8 @@ def main() -> int:
             calls[name] = calls.get(name, 0) + 1
     device_ms = sum(by_kernel.values())
     result = {"card": card, "root": os.path.abspath(args.root), "model": args.model,
-              "compute_dtype": args.compute_dtype, "backend": args.backend,
+              "dataset": data.name, "batch_size": batch_size,
+              "compute_dtype": dtype, "backend": args.backend,
               "batch_rows": args.batch_rows, "embedding_size": args.embedding_size,
               "mode": args.mode if args.model == "EGCF" else None,
               "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,

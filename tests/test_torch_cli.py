@@ -104,7 +104,8 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin.isatty", lambda: False, raising=False)
     assert t_main.main([]) == 2
     out = capsys.readouterr().out
-    assert "Available models:" in out and "\t 1. EGCF" in out and "\t 2. LightGCN" in out
+    assert "Available models:" in out and "\t 1. DirectAU" in out and "\t 2. EGCF" in out
+    assert "\t 5. LightGCN" in out and "\t 8. SCCF" in out
     assert "error: pass --model=<NAME> (no interactive terminal)" in out
 
 
@@ -156,7 +157,8 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     ("bad_users", "error: --users must be comma-separated integers"),
     ("missing_checkpoint", "error: no checkpoints under"),
     # the id keeps the name this case had while LightGCN was the only model
-    pytest.param("unknown_model", "error: unknown model 'Nope'; available: EGCF, LightGCN",
+    pytest.param("unknown_model", "error: unknown model 'Nope'; available: DirectAU, EGCF, "
+                 "LightCCF, LightCSCF, LightGCN, MAWU, MFBPR, SCCF",
                  id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),

@@ -45,7 +45,10 @@ same binary matrix within the same bar. K11 one direction a call
 wrapper on each packing; the int8 product on `torch._int_mm` (the
 rectangular adjacency's) equals the exact int32 sums in both directions;
 the rectangular adjacency on the card matches its CPU twin: int8 bit for
-bit, the other backends within the bar above."""
+bit, the other backends within the bar above. The dense backend's
+bfloat16 products (K6) equal the fused backend's bit for bit, forward and
+backward, and its int8 products (K7) equal the exact route they replaced;
+each zoo model's training step runs with no synchronisation."""
 
 from __future__ import annotations
 
@@ -1847,3 +1850,118 @@ def test_egcf_alternating_trains_through_its_kernels(cuda):
         terms = EpochRunner(model, 0.001, 1024, n).run_epoch(*triple).cpu().numpy()
         assert tuple(f.launches - b for f, b in zip(counters, before)) == want
         assert terms.shape == (3,) and np.isfinite(terms).all()
+
+
+# ---------------------------------------------------------------------------
+# the dense backend on K6 (bfloat16) and K7 (int8); the zoo's steps
+
+
+def _dense_inputs(adj, cuda, seed, d=64):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(adj.shape[0], d, generator=g).to(cuda),
+            torch.randn(adj.shape[0], d, generator=g).to(cuda))
+
+
+def _value_and_grad(adj, x, w):
+    xt = x.clone().requires_grad_(True)
+    y = adj.matmul(xt)
+    (y * w).sum().backward()
+    return y.detach(), xt.grad
+
+
+@pytest.mark.parametrize("variant", ["sym", "self"])
+def test_dense_bf16_equals_fused_bf16(cuda, variant):
+    """Dense bfloat16 runs K6 on its own padding (columns to 256), one
+    launch forward and one backward; both backends sum the same integers
+    at the same scale, so they agree bit for bit."""
+    # 4,700 items: 4,864 columns on dense, 5,120 on fused
+    data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
+    dense, fused = (propagate.build_adjacency(data, variant, backend, compute_dtype="bfloat16",
+                                              device=cuda) for backend in ("dense", "fused"))
+    assert dense.runs_kernel(64) and dense.m.shape[1] == 4864 and fused.m8.shape[1] == 5120
+    x, w = _dense_inputs(dense, cuda, 4)
+    outs = []
+    for adj in (dense, fused):
+        before = fusedmm.fused_adj_matmul.launches
+        outs.append(_value_and_grad(adj, x, w))
+        assert fusedmm.fused_adj_matmul.launches == before + 2
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_dense_int8_equals_its_plain_raw_sums(cuda):
+    """Dense int8 runs K7, one launch forward and one backward: its raw
+    sums equal K7's plain version's, and the product and its gradient
+    equal the route it replaced (`quant_dual_matmul`, exact integer sums
+    in float32)."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="int8", device=cuda)
+    assert adj.quant == "int8" and adj.runs_kernel(64)
+    x, w = _dense_inputs(adj, cuda, 5)
+    before = fusedmm.fused_adj_matmul_int8.launches
+    got = _value_and_grad(adj, x, w)
+    assert fusedmm.fused_adj_matmul_int8.launches == before + 2
+    nu = adj.num_users
+    u_pad, i_pad = adj.m.shape
+    zi = propagate._pad_rows(adj.right_i[:, None] * x[nu:], i_pad)
+    zu = propagate._pad_rows(adj.right_u[:, None] * x[:nu], u_pad)
+    (qi, _), (qu, _) = propagate._quantize_cols(zi), propagate._quantize_cols(zu)
+    for a, b in zip(fusedmm.fused_adj_matmul_int8(adj.m, qu, qi),
+                    fusedmm.fused_adj_matmul_int8_plain(adj.m, qu, qi)):
+        assert torch.equal(a, b)
+    old = propagate.quant_fused_dual
+    try:
+        propagate.quant_fused_dual = propagate.quant_dual_matmul
+        want = _value_and_grad(adj, x, w)
+    finally:
+        propagate.quant_fused_dual = old
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dense_float32_and_other_widths_run_no_kernel(cuda):
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8)
+    for dtype, d in (("float32", 64), ("bfloat16", 48), ("int8", 40)):
+        adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype=dtype, device=cuda)
+        assert not adj.runs_kernel(d)
+        x, w = _dense_inputs(adj, cuda, 6, d)
+        before = [f.launches for f in counters]
+        y, grad = _value_and_grad(adj, x, w)
+        assert [f.launches for f in counters] == before
+        assert torch.isfinite(y).all() and torch.isfinite(grad).all()
+
+
+_ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
+
+
+@pytest.mark.parametrize("name", _ZOO)
+def test_zoo_step_does_not_synchronise(cuda, name):
+    """One training step of each zoo model at d = 64 (the LightGCN encoder
+    where the model has one: dense bfloat16, K6 a layer each way) under
+    sync debug mode "error", after a first step has made Adam's state."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = load_model_config(name).updated(dataset="t", embedding_size=64, batch_size=1024)
+    if name != "MFBPR":
+        cfg = cfg.updated(encoder="LightGCN", GCN_layer=3)
+    model = get_model(name)(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pick = torch.randint(0, data.num_train, (1024,), generator=g).numpy()
+    triple = (torch.from_numpy(data.train_user[pick]).to(cuda),
+              torch.from_numpy(data.train_item[pick]).to(cuda),
+              torch.randint(0, data.num_items, (1024,), generator=g).to(cuda))
+    runner = EpochRunner(model, 0.001, 1024, 1024)
+    runner.run_epoch(*triple)
+    before = fusedmm.fused_adj_matmul.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms = runner.run_epoch(*triple)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fusedmm.fused_adj_matmul.launches - before == (0 if name == "MFBPR" else 6)
+    terms = terms.cpu().numpy()
+    assert terms.shape == (len(model.loss_names),) and np.isfinite(terms).all()
