@@ -133,16 +133,23 @@ launch counts set to 0 just before and read just after:
   time beside the parallel mode's; bfloat16 on bitpack (K11) serves
   against the float32 gather EGCF, one step against the plain route and
   24 steps;
-* the zoo: MFBPR, DirectAU, MAWU and SCCF at their published configs on
-  the yelp2018-scale set, LightCCF and LightCSCF on an amazon-book-scale
-  one (52,643 x 91,599, M 4.83 GB int8), each model's batch size,
-  bfloat16 on `auto` (dense: K6 a layer each way under the LightGCN
-  encoder): one step against the plain route (K6's plain version), one
-  step under sync debug mode "error", a request of 256 users against
-  the plain route's server, ZOO_STEPS steps with finite loss terms, the
+* the zoo: MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp and
+  BIGCF at their published configs on the yelp2018-scale set, LightCCF,
+  LightCSCF and MixRec on an amazon-book-scale one (52,643 x 91,599, M
+  4.83 GB int8), each model's batch size, bfloat16 on `auto` (dense: K6
+  a layer each way under the LightGCN encoder and in every propagation
+  of the last five; SimGCL's three chains in one at d = 192,
+  LightGCN_pp's on the `gen` scaling): one step against the plain route
+  (K6's plain version), the step's noise from a fresh CUDA generator
+  seeded alike for both, one step under sync debug mode "error", a
+  request of 256 users against the plain route's server (the eval
+  generator seeded 0 in both), ZOO_STEPS steps with finite loss terms
+  and gradients (LightGCN_pp's with an item that has no train edge), the
   K6 launches, ms per step and eval embeddings beside K6's bound, a
   step's memory beyond the model's (no float copy of M); K6 on
-  amazon-book's M timed beside its bound; MAWU through
+  amazon-book's M timed beside its bound; K6 at d = 192 on SimGCL's M
+  (three reads of M a launch) held to its plain version and timed beside
+  three d = 64 applications and its bound; MAWU through
   `main.main(["--model=MAWU", ...])` from files;
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
@@ -254,12 +261,18 @@ BIT_STEPS = 64
 # the convergence script's config), evaluated after the first and the
 # last; the last recall@20 at least LEARN_FACTOR times the first
 LEARN_SCALE, LEARN_EPOCHS, LEARN_FACTOR = 0.5, 12, 2.0
-# the zoo: MFBPR and the encoder-switch family at their published configs
-# (configure/<model>.txt: d = 64, 3 layers, each model's batch size,
-# bfloat16 on `auto`, which is dense: K6 under the LightGCN encoder), each on
-# the dataset its config names at that dataset's scale (amazon-book's from
-# bench.py --scale amazon-book), ZOO_STEPS steps each
-ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
+# the zoo: MFBPR, the encoder-switch family, LightGCN_pp and the models that
+# draw noise in their steps at their published configs (configure/<model>.txt:
+# d = 64, 3 layers, each model's batch size, bfloat16 on `auto`, which is
+# dense: K6 under the LightGCN encoder and in every propagation of the last
+# five; SimGCL's three chains at d = 192), each on the dataset its config
+# names at that dataset's scale (amazon-book's from bench.py --scale
+# amazon-book), ZOO_STEPS steps each
+NOISE_ZOO = ("SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
+ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + NOISE_ZOO
+# the seed of the CUDA generator a zoo step draws its noise from: the kernel
+# step and the plain one each get their own, seeded alike
+ZOO_NOISE_SEED = 17
 AMAZON = (52_643, 91_599, 2_380_730, 603_378)
 ZOO_STEPS, ZOO_REQUEST = 24, 256
 
@@ -348,11 +361,11 @@ class PlainChainModel:
         self.device = model.device
 
     @torch.no_grad()
-    def eval_embeddings(self):
+    def eval_embeddings(self, generator=None):
         from idgrec_torch.ops import chainmm, scatter
 
         with plain_kernels(chainmm, scatter):
-            return self.model.eval_embeddings()
+            return self.model.eval_embeddings(generator)
 
     def score_batch(self, repr_, users):
         return self.model.score_batch(repr_, users)
@@ -2965,14 +2978,16 @@ def main() -> int:
     del alt_bp, ref_gather_a, rec_a_bp, runner_
     torch.cuda.empty_cache()
 
-    # ==== the zoo: MFBPR and the encoder-switch family at their published
-    # configs on the datasets they name (LightCCF and LightCSCF on an
-    # amazon-book-scale set); under the LightGCN encoder every product is
-    # K6 on the dense matrix, one launch a layer each way. Each model: one
-    # step held to the same step on K6's plain version (loss terms within
-    # TIGHT, gradients within BF16 of the largest entry: K6's rules), one
-    # step under sync debug mode "error", a server answering ZOO_REQUEST
-    # users held to the plain route's, ZOO_STEPS steps
+    # ==== the zoo: MFBPR, the encoder-switch family and NOISE_ZOO at their
+    # published configs on the datasets they name (LightCCF, LightCSCF and
+    # MixRec on an amazon-book-scale set); under the LightGCN encoder and in
+    # NOISE_ZOO every product is K6 on the dense matrix, one launch a layer
+    # each way (LightGCN_pp's on the `gen` scaling, SimGCL's in training at
+    # d = 192). Each model: one step held to the same step on K6's plain
+    # version with the same noise (loss terms within TIGHT, gradients within
+    # BF16 of the largest entry: K6's rules), one step under sync debug mode
+    # "error", a server answering ZOO_REQUEST users held to the plain
+    # route's (the same eval generator: seeded 0), ZOO_STEPS steps
     t0 = time.perf_counter()
     amazon = make_synthetic_dataset(*AMAZON, seed=0, name="amazon-book-scale")
     log(f"amazon-book-scale dataset {amazon.num_users} users x {amazon.num_items} items, "
@@ -2986,7 +3001,7 @@ def main() -> int:
         cfg_z = load_model_config(name_z)
         data_z, sampler_z = zoo_sets[cfg_z.str("dataset")]
         cfg_z = cfg_z.updated(dataset=data_z.name)
-        lgcn = cfg_z.str("encoder", "MF") == "LightGCN"
+        lgcn = cfg_z.str("encoder", "MF") == "LightGCN" or name_z in NOISE_ZOO
         require(cfg_z.int("embedding_size") == DIM and cfg_z.str("compute_dtype") == "bfloat16"
                 and cfg_z.str("propagation_backend") == "auto"
                 and (not lgcn or cfg_z.int("GCN_layer") == LAYERS),
@@ -3001,19 +3016,32 @@ def main() -> int:
         if lgcn:
             g_z = m_z.graph
             require(isinstance(g_z, propagate.DenseSquareAdj) and g_z.quant == "none"
-                    and g_z.compute_dtype_name == "bfloat16" and g_z.runs_kernel(DIM),
-                    f"{name_z}: the LightGCN encoder's adjacency is not dense bfloat16 on K6")
+                    and g_z.compute_dtype_name == "bfloat16" and g_z.runs_kernel(DIM)
+                    and g_z.runs_kernel(3 * DIM),
+                    f"{name_z}: the model's adjacency is not dense bfloat16 on K6")
             nnz_z = int(data_z.nnz)  # M's non-zero entries: the distinct train pairs
             nu_z, ni_z = data_z.num_users, data_z.num_items
             # M read once, the float32 activations in and the sums out once
             k6_bound_z = bound(g_z.m.numel() + 8 * DIM * (nu_z + ni_z), 4.0 * nnz_z * DIM,
                                bf16_ops)
+            # a step's applications: SimGCL's three chains run at 3d
+            d_step = 3 * DIM if name_z == "SimGCL" else DIM
+            k6_step_bound_z = bound(g_z.m.numel() + 8 * d_step * (nu_z + ni_z),
+                                    4.0 * nnz_z * d_step, bf16_ops)
+        if name_z == "LightGCN_pp":
+            # a node with no train edge is a zero row after layer 1, where the
+            # JAX package's norm has a NaN gradient: the port's must be finite
+            no_edge_z = data_z.num_items - len(np.unique(data_z.col_idx))
+            require(no_edge_z > 0, "LightGCN_pp: the set has no item without a train edge")
         triple_z = sampler_z.sample_epoch(gen)
         batch_z = dict(zip(("user", "pos", "neg"), (t_[:bs] for t_ in triple_z)))
 
         def zoo_step(m_, b_=batch_z):
+            # a fresh generator a call: the kernel step and the plain one draw
+            # the same noise
+            gen_ = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
             m_.zero_grad(set_to_none=True)
-            terms_ = m_.loss_terms(b_)
+            terms_ = m_.loss_terms(b_, gen_)
             total_ = terms_[0]
             for t_ in terms_[1:]:
                 total_ = total_ + t_
@@ -3051,11 +3079,12 @@ def main() -> int:
         runner_z = EpochRunner(m_z, lr_z, bs, ZOO_STEPS * bs)
         one_z = EpochRunner(m_z, lr_z, bs, bs, optimizer=runner_z.opt)
         part_one = [t_[bs: 2 * bs] for t_ in triple_z]
-        one_z.run_epoch(*part_one)
+        gen_one = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
+        one_z.run_epoch(*part_one, generator=gen_one)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            nosync_z = one_z.run_epoch(*part_one)
+            nosync_z = one_z.run_epoch(*part_one, generator=gen_one)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         require(bool(torch.isfinite(nosync_z).all()), f"{name_z}: the sync-debug step {nosync_z}")
@@ -3085,17 +3114,31 @@ def main() -> int:
         require(got_l == want_l, f"{name_z}: launches {got_l}, expected {want_l}")
         require(terms_z.shape == (len(m_z.loss_names),) and bool(np.isfinite(terms_z).all()),
                 f"{name_z}: loss terms {terms_z}")
-        embed_ms_z = host_ms(m_z.eval_embeddings, 5)
-        zoo_calls[name_z] = lambda r_=one_z, p_=part_one: r_.run_epoch(*p_)
+        # the last step's gradients (the runner sets them to None before a step)
+        # and the tables it left
+        require(all(bool(torch.isfinite(p_.grad).all()) and bool(torch.isfinite(p_).all())
+                    for p_ in m_z.parameters() if p_.grad is not None)
+                and all(p_.grad is not None for p_ in m_z.parameters()),
+                f"{name_z}: a gradient or a table of the last step is not finite")
+        gen_eval = torch.Generator(device=dev).manual_seed(0)
+        embed_ms_z = host_ms(lambda: m_z.eval_embeddings(gen_eval), 5)
+        zoo_calls[name_z] = lambda r_=one_z, p_=part_one, g_=gen_one: r_.run_epoch(*p_,
+                                                                                generator=g_)
         zoo_models[name_z] = m_z
-        zoo_res[name_z] = dict(step_ms=step_ms_z, embed_ms=embed_ms_z, k6_bound=k6_bound_z)
-        log(f"{name_z} ({cfg_z.str('encoder', 'MF')} encoder, batch {bs}, on {data_z.name}): one "
+        zoo_res[name_z] = dict(step_ms=step_ms_z, embed_ms=embed_ms_z, k6_bound=k6_bound_z,
+                               step_mem_mb=step_mem / 1e6)
+        enc_z = (f"{cfg_z.str('encoder', 'MF')} encoder" if name_z not in NOISE_ZOO
+                 else "dense K6 propagation")
+        log(f"{name_z} ({enc_z}, batch {bs}, on {data_z.name}): one "
             f"step against the plain route (bit-equal: {same_z}), one under sync debug mode "
             f"'error', {ZOO_REQUEST} users served against the plain route; {step_ms_z:.3f} ms "
             f"per step over {ZOO_STEPS} steps, eval embeddings {embed_ms_z:.3f} ms (first "
             f"{embed_first_ms:.3f}), K6 launches {got_l.get('fused_adj_matmul', 0)}"
-            + (f", K6's bound {k6_bound_z[0]:.4f} ms an application by {k6_bound_z[1]} (6 a step)"
-               if lgcn else ", no propagation")
+            + (f", K6's bound {k6_bound_z[0]:.4f} ms an application by {k6_bound_z[1]} (6 a step"
+               + (f", at d = {d_step}: {k6_step_bound_z[0]:.4f} ms" if d_step != DIM else "")
+               + ")" if lgcn else ", no propagation")
+            + (f"; {no_edge_z} item(s) without a train edge, the gradients finite"
+               if name_z == "LightGCN_pp" else "")
             + f"; a step's memory beyond the model's {step_mem / 1e6:.1f} MB; loss sums "
             f"{dict(zip(m_z.loss_names, np.round(terms_z, 5).tolist()))}; built in {build_s:.1f} s")
         del runner_z, triple_z, batch_z
@@ -3129,6 +3172,45 @@ def main() -> int:
         f"entries): {k6a_ms:.4f} ms an application (bound {k6a_bound[0]:.4f} ms by "
         f"{k6a_bound[1]}, plain {k6a_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy "
         f"{k6a_lib:.4f} ms); two launches bit-equal, within TIGHT of its plain version")
+    # K6 at d = 192, SimGCL's three chains side by side, on its yelp2018-scale
+    # dense M: three reads of M a launch (64 features a read), held to its
+    # plain version, timed beside three d = 64 applications and its bound
+    g_s = zoo_models["SimGCL"].graph
+    nu_s, ni_s = data.num_users, data.num_items
+    emb_s = concat_user_item(zoo_models["SimGCL"].user_emb,
+                             zoo_models["SimGCL"].item_emb).detach()
+    emb_s3 = torch.cat([emb_s, 0.5 * emb_s, -0.25 * emb_s], dim=1)
+    zu_s = (g_s.right_u[:, None] * emb_s3[:nu_s]).contiguous()
+    zi_s = (g_s.right_i[:, None] * emb_s3[nu_s:]).contiguous()
+    y_s = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s)
+    k6s_passes = fusedmm.fused_adj_matmul.passes  # as K6's launcher reports them
+    require(k6s_passes == fusedmm.scan_passes(3 * DIM) == 3,
+            f"K6 at d = {3 * DIM}: {k6s_passes} reads of M launched, 3 expected")
+    y_s_again = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s)
+    for what, a, b, c in zip(("yu", "yi"), y_s, y_s_again,
+                             fusedmm.fused_adj_matmul_plain(g_s.m, zu_s, zi_s)):
+        require(torch.equal(a, b), f"K6 d = {3 * DIM} {what}: two launches differ")
+        assert_close(a, c, f"K6 d = {3 * DIM} {what}", **TIGHT)
+        errs["K6"] = max(errs["K6"], max_abs(a, c))
+    nnz_s = int(data.nnz)
+    k6s_bound = bound(g_s.m.numel() + 8 * 3 * DIM * (nu_s + ni_s), 4.0 * nnz_s * 3 * DIM,
+                      bf16_ops)
+    k6s_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s), 20)
+    thirds = [(zu_s[:, j * DIM:(j + 1) * DIM].contiguous(),
+               zi_s[:, j * DIM:(j + 1) * DIM].contiguous()) for j in range(3)]
+    k6s_3x64_ms = cuda_ms(lambda: [fusedmm.fused_adj_matmul(g_s.m, *z_) for z_ in thirds], 20)
+    k6s_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(g_s.m, zu_s, zi_s), 2, 1)
+    m_bf_s = g_s.m.to(torch.bfloat16)
+    zu16_s = torch.nn.functional.pad(zu_s.to(torch.bfloat16), (0, 0, 0, g_s.m.shape[0] - nu_s))
+    zi16_s = torch.nn.functional.pad(zi_s.to(torch.bfloat16), (0, 0, 0, g_s.m.shape[1] - ni_s))
+    k6s_lib = cuda_ms(lambda: (m_bf_s @ zi16_s, m_bf_s.T @ zu16_s), 10)
+    del m_bf_s, zu16_s, zi16_s, y_s, y_s_again, emb_s, emb_s3, zu_s, zi_s, thirds
+    torch.cuda.empty_cache()
+    log(f"K6 at d = {3 * DIM} on SimGCL's M {list(g_s.m.shape)}: {k6s_passes} reads of M, as "
+        f"launched; {k6s_ms:.4f} ms an application against {k6s_3x64_ms:.4f} ms for three "
+        f"d = {DIM} applications (bound {k6s_bound[0]:.4f} ms by {k6s_bound[1]}, plain "
+        f"{k6s_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6s_lib:.4f} ms); two "
+        f"launches bit-equal, within TIGHT of its plain version")
 
     # MAWU through its command line, from files
     tmp_z = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
@@ -3403,7 +3485,9 @@ def main() -> int:
             k.update(ms_d64=k7_64_ms, launches_dense=by_path["dense_int8"]["fused_adj_matmul_int8"])
         elif k["name"] == "dual_bf16":
             k.update(ms_d128=k6_128_ms, bound_ms_d128=k6_128_bound[0], passes_d64=k6_passes,
-                     passes_d128=k6_128_passes, ms_amazon=k6a_ms, bound_ms_amazon=k6a_bound[0],
+                     passes_d128=k6_128_passes, ms_d192=k6s_ms, bound_ms_d192=k6s_bound[0],
+                     plain_ms_d192=k6s_plain, library_ms_d192=k6s_lib, passes_d192=k6s_passes,
+                     ms_three_d64=k6s_3x64_ms, ms_amazon=k6a_ms, bound_ms_amazon=k6a_bound[0],
                      plain_ms_amazon=k6a_plain, library_ms_amazon=k6a_lib,
                      launches_dense=sum(c["fused_adj_matmul"] for path, c in by_path.items()
                                         if path.startswith(("dense", "zoo", "batch_rows",
@@ -3481,6 +3565,7 @@ def main() -> int:
     log("zoo, published configs: " + "; ".join(
         f"{n_} {r_['step_ms']:.3f} ms per step, eval embeddings {r_['embed_ms']:.3f} ms"
         + (f", K6 bound {r_['k6_bound'][0]:.4f} ms an application" if r_["k6_bound"] else "")
+        + f", a step's memory {r_['step_mem_mb']:.1f} MB"
         for n_, r_ in zoo_res.items()))
     log(f"exact modes, ms per training step: fused bfloat16 {bf_step_ms:.3f}, "
         + ", ".join(f"{label} {v[0]:.3f}" for label, v in other_ms.items())

@@ -130,11 +130,13 @@ class Evaluator:
                                     device=model.device)
 
     @torch.no_grad()
-    def compute_repr(self):
+    def compute_repr(self, generator: torch.Generator | None = None):
         """The model representation used for scoring, computed once per
-        sweep; shareable across Evaluators of the same model."""
+        sweep; shareable across Evaluators of the same model.
+        ``generator`` draws whatever the representation draws (the JAX
+        evaluator's key)."""
         self.model.eval()
-        return self.model.eval_embeddings()
+        return self.model.eval_embeddings(generator)
 
     def _sweep(self, eval_repr) -> dict[str, torch.Tensor]:
         p = self.plan
@@ -153,12 +155,14 @@ class Evaluator:
         return sums
 
     @torch.no_grad()
-    def evaluate(self, eval_repr=None) -> dict[str, np.ndarray]:
+    def evaluate(self, eval_repr=None,
+                 generator: torch.Generator | None = None) -> dict[str, np.ndarray]:
         """Full-catalog metrics. Pass ``eval_repr`` (from
         `compute_repr`) to reuse one representation across several
-        evaluators instead of propagating again."""
+        evaluators instead of propagating again; otherwise it is
+        computed here with ``generator``."""
         if eval_repr is None:
-            eval_repr = self.compute_repr()
+            eval_repr = self.compute_repr(generator)
         sums = self._sweep(eval_repr)
         n = float(self.plan.num_test_users)
         return {k: sums[k].cpu().numpy() / n for k in ("recall", "precision", "ndcg")}

@@ -8,8 +8,9 @@ logged losses, the same checkpoint cadence, and resume equal to a
 straight run.
 
 Random state is explicit: a host `torch.Generator` (the initial tables)
-and one on the run's device (sampling, and whatever a model's loss
-draws), both seeded from ``seed``, plus a numpy generator handed to
+and one on the run's device (sampling, whatever a model's loss draws,
+and whatever its evaluation draws: the JAX loop's ``eval_key``), both
+seeded from ``seed``, plus a numpy generator handed to
 `RecModel.epoch_context`. The global generators are never used. The
 streams are PyTorch's, so the two packages draw different triples from
 the same seed: runs are compared by behaviour, not by value.
@@ -179,14 +180,14 @@ def train_model(
             if sparsity_mode:
                 # log every quartile level, track the best on level 1;
                 # one propagation shared by the quartile evaluators
-                rep = evaluators[0].compute_repr()
+                rep = evaluators[0].compute_repr(dev_gen)
                 results = [ev.evaluate(eval_repr=rep) for ev in evaluators]
                 for level, res in enumerate(results, start=1):
                     logger.info("\t level_%d: recall: %s ,ndcg: %s"
                                 % (level, res["recall"], res["ndcg"]))
                 result = last_result = results[0]
             else:
-                result = last_result = evaluator.evaluate()
+                result = last_result = evaluator.evaluate(generator=dev_gen)
             best.update(result, epoch)
             logger.info("Epoch: %4d | Test recall: %s | Test NDCG: %s"
                         % (epoch + 1, result["recall"], result["ndcg"]))
@@ -211,7 +212,7 @@ def train_model(
     if not model.respects_early_stop:
         # a final evaluation after the last epoch for models that never stop early
         model.epoch_context(epochs, np_rng)
-        result = last_result = evaluator.evaluate()
+        result = last_result = evaluator.evaluate(generator=dev_gen)
         best.update(result, epochs - 1)
 
     logger.info("Model training process completed.")

@@ -1,19 +1,26 @@
 """Model zoo of the port. Importing this package registers every ported
-model: LightGCN, EGCF, MFBPR and the encoder-switch family (DirectAU,
-MAWU, SCCF, LightCCF, LightCSCF); ROADMAP A.7 lists the rest."""
+model: LightGCN, EGCF, MFBPR, the encoder-switch family (DirectAU, MAWU,
+SCCF, LightCCF, LightCSCF), LightGCN_pp and the models that draw noise
+in their steps (SimGCL, XSimGCL, BIGCF, MixRec); ROADMAP A.7 lists the
+rest."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
 
 from idgrec_torch.models import (  # noqa: F401
+    bigcf,
     directau,
     egcf,
     lightccf,
     lightcscf,
     lightgcn,
+    lightgcn_pp,
     mawu,
     mfbpr,
+    mixrec,
     sccf,
+    simgcl,
+    xsimgcl,
 )
 
 __all__ = ["registry", "available_models", "get_model"]

@@ -9,6 +9,11 @@ needs `loss_terms`, the per-term losses of a sampled (user, pos, neg)
 batch; serving and evaluation need `eval_embeddings`, the
 representation computed once per sweep, and `score_batch`, the
 full-catalog scores of a user batch against it.
+
+A model whose step draws random numbers (ops/noise.py) draws them from
+the `torch.Generator` that `loss_terms` is given, on the model's device,
+and raises `ValueError` without one; a model whose representation draws
+(BIGCF) takes one in `eval_embeddings` too. The others ignore it.
 """
 
 from __future__ import annotations
@@ -80,7 +85,8 @@ class RecModel(nn.Module):
         """The per-term scalar losses of one batch, in the order of
         ``loss_names``; their sum is what the trainer differentiates.
         ``batch`` holds int64 [B] tensors "user", "pos", "neg" on the
-        model's device. Fixed arity."""
+        model's device; ``generator`` (on that device) draws whatever
+        the step draws. Fixed arity."""
         raise NotImplementedError
 
     def epoch_context(self, epoch: int, np_rng: np.random.Generator) -> Any:
@@ -88,9 +94,11 @@ class RecModel(nn.Module):
         for a model with a fixed graph)."""
         return ()
 
-    def eval_embeddings(self) -> Any:
+    def eval_embeddings(self, generator: torch.Generator | None = None) -> Any:
         """Representation used for full-catalog scoring, computed once
-        per sweep. Default contract: (user_emb, item_emb)."""
+        per sweep. Default contract: (user_emb, item_emb). ``generator``
+        (on the model's device) draws whatever the representation draws;
+        a model that draws nothing ignores it."""
         raise NotImplementedError
 
     def score_batch(self, eval_repr: Any, users: torch.Tensor) -> torch.Tensor:

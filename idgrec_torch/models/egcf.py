@@ -108,5 +108,5 @@ class EGCF(RecModel):
         return bpr, reg, ssl
 
     @torch.no_grad()
-    def eval_embeddings(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def eval_embeddings(self, generator=None) -> tuple[torch.Tensor, torch.Tensor]:
         return self.propagate()

@@ -41,7 +41,7 @@ class EncoderSwitchMixin:
         return split_user_item(final, self.num_users)
 
     @torch.no_grad()
-    def eval_embeddings(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def eval_embeddings(self, generator=None) -> tuple[torch.Tensor, torch.Tensor]:
         """`encode` without the graph of the backward; under MF copies of
         the tables, so that what a server holds does not move with later
         training steps."""

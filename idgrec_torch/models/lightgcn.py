@@ -68,5 +68,5 @@ class LightGCN(RecModel):
         return bpr, reg
 
     @torch.no_grad()
-    def eval_embeddings(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def eval_embeddings(self, generator=None) -> tuple[torch.Tensor, torch.Tensor]:
         return self.propagate()

@@ -29,5 +29,5 @@ class MFBPR(RecModel):
         return bpr, reg
 
     @torch.no_grad()
-    def eval_embeddings(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def eval_embeddings(self, generator=None) -> tuple[torch.Tensor, torch.Tensor]:
         return self.user_emb.detach().clone(), self.item_emb.detach().clone()

@@ -2,13 +2,14 @@
 (counterpart of idgrec_tpu/ops/losses.py; the other loss heads come
 with their models, ROADMAP A.7).
 
-The literal epsilons of the reference (``10e-8`` = 1e-7 in the BPR loss,
-``10e-6`` = 1e-5 in InfoNCE) are kept so training-loss traces stay
-comparable. The JAX package computes these outside any Pallas kernel,
-so they are stock PyTorch, in the JAX functions' operation order; every
-matrix product runs in full float32 on the card (the JAX package pins
-them to ``Precision.HIGHEST``), and a division by a Python number is a
-true division (`propagate.true_divide`). Nothing here reads a value
+The literal epsilons of the reference (``10e-8`` = 1e-7 in the BPR loss
+and in InfoNCE against an explicit pool, ``10e-6`` = 1e-5 in InfoNCE)
+are kept so training-loss traces stay comparable. The JAX package
+computes these outside any Pallas kernel, so they are stock PyTorch, in
+the JAX functions' operation order; every matrix product runs in full
+float32 on the card (the JAX package pins them to
+``Precision.HIGHEST``), and a division by a Python number is a true
+division (`propagate.true_divide`). Nothing here reads a value
 back to the host: the L2 terms' backward counts rows by `index_add_`,
 not `torch.bincount` (which reads the largest index on the card).
 """
@@ -24,6 +25,7 @@ from idgrec_torch.ops.propagate import true_divide
 
 _BPR_EPS = 10e-8  # sic (== 1e-7)
 _INFONCE_EPS = 10e-6  # sic (== 1e-5)
+_INFONCE_ALL_EPS = 10e-8  # sic (== 1e-7), InfoNCE against an explicit pool
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +147,21 @@ def infonce_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float) -
     ttl_score = torch.sum(torch.exp(true_divide(torch.matmul(emb_1, emb_2.T), temperature)),
                           dim=1)
     return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
+
+
+def infonce_loss_all(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_2_all: torch.Tensor,
+                     temperature: float) -> torch.Tensor:
+    """`infonce_loss` against an explicit pool of negatives: the
+    denominator runs over ``emb_2_all`` (emb_1 @ emb_2_allᵀ), with its
+    own epsilon."""
+    check_exact_matmul(emb_1.device)
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    emb_2_all = _normalize(_f32(emb_2_all))
+    pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
+    ttl_score = torch.sum(
+        torch.exp(true_divide(torch.matmul(emb_1, emb_2_all.T), temperature)), dim=1)
+    return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
 
 
 def reg_loss(*embeddings: torch.Tensor) -> torch.Tensor:

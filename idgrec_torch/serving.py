@@ -3,8 +3,10 @@
 A `Recommender` wraps a model and answers top-K requests:
 
 * the model representation (`eval_embeddings`) is computed once at
-  construction and kept on the model's device; a request pays a [B, d]
-  gather, a [B, num_items] float32 product and a top-k;
+  construction and kept on the model's device, drawing whatever it
+  draws from ``generator`` (default: seeded 0 on the model's device);
+  a request pays a [B, d] gather, a [B, num_items] float32 product and
+  a top-k;
 * seen-item filtering uses padded per-user exclusion lists kept on the
   host (train positives are never recommended);
 * ranking is exact (`torch.topk`); its order among tied scores may
@@ -39,7 +41,7 @@ class Recommender:
     """Device-resident top-K recommendation server for one model."""
 
     def __init__(self, model, data: Dataset, filter_seen: bool = True,
-                 topk_mode: str = "exact"):
+                 topk_mode: str = "exact", generator: torch.Generator | None = None):
         if topk_mode != "exact":
             raise NotImplementedError(
                 f"topk_mode={topk_mode!r}: approximate top-k is the TPU's "
@@ -51,7 +53,10 @@ class Recommender:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
-        self._repr = model.eval_embeddings()
+        if generator is None:
+            # the JAX server's default key, PRNGKey(0)
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self._repr = model.eval_embeddings(generator)
         # Padded per-user positives (int32 [U, P], pad column num_items,
         # which the mask drops). Kept on the host: a request moves only
         # its [B, P] rows to the device.

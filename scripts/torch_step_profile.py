@@ -3,7 +3,7 @@
 GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
-        LightCCF|LightCSCF] [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
+        LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec] [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
         [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
         [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
 
@@ -11,9 +11,11 @@ Builds the model of chip_smoke.py (its config file's loss weights, d = 64
 unless ``--embedding_size`` says otherwise (128 takes int8 and int4 to
 the per-application loop), 3 layers) on the synthetic set at the scale
 of the dataset its config names: yelp2018 (LightGCN, EGCF, MFBPR,
-DirectAU, MAWU, SCCF) or amazon-book (LightCCF, LightCSCF). LightGCN and
-EGCF run int8 and batch 2,048 unless told otherwise, the zoo its config's
-compute dtype (bfloat16) and batch size. ``--batch_rows`` sets
+DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp, BIGCF) or
+amazon-book (LightCCF, LightCSCF, MixRec). LightGCN and EGCF run int8
+and batch 2,048 unless told otherwise, the zoo its config's compute
+dtype (bfloat16) and batch size. A step's noise comes from a CUDA
+generator seeded 0. ``--batch_rows`` sets
 LightGCN's ``batch_rows_propagation = 1``, ``--mode alternating`` EGCF's
 ping-pong over the rectangular adjacency. It warms up, then
 
@@ -52,7 +54,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # names (bench.py)
 SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
           "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
-MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
+MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF",
+          "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
 
 
 def main() -> int:
@@ -120,7 +123,7 @@ def main() -> int:
 
     def step(i):
         runner.opt.zero_grad(set_to_none=True)
-        sum(model.loss_terms(batch(i))).backward()
+        sum(model.loss_terms(batch(i), gen)).backward()
         runner.opt.step()
 
     for i in range(10):
@@ -128,7 +131,7 @@ def main() -> int:
     phases = {"forward": [], "backward": [], "adam": []}
     for i in range(10, 10 + steps):
         runner.opt.zero_grad(set_to_none=True)
-        terms, ms = sync_ms(lambda: model.loss_terms(batch(i)))
+        terms, ms = sync_ms(lambda: model.loss_terms(batch(i), gen))
         phases["forward"].append(ms)
         phases["backward"].append(sync_ms(lambda: sum(terms).backward())[1])
         phases["adam"].append(sync_ms(runner.opt.step)[1])

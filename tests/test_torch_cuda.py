@@ -48,7 +48,9 @@ the rectangular adjacency on the card matches its CPU twin: int8 bit for
 bit, the other backends within the bar above. The dense backend's
 bfloat16 products (K6) equal the fused backend's bit for bit, forward and
 backward, and its int8 products (K7) equal the exact route they replaced;
-each zoo model's training step runs with no synchronisation."""
+K6 at d = 192 reads M three times and stays within its bar; each zoo
+model's training step, and the steps' draws on a CUDA generator, run
+with no synchronisation."""
 
 from __future__ import annotations
 
@@ -1930,14 +1932,17 @@ def test_dense_float32_and_other_widths_run_no_kernel(cuda):
         assert torch.isfinite(y).all() and torch.isfinite(grad).all()
 
 
-_ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
+_ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF", "SimGCL", "XSimGCL",
+        "LightGCN_pp", "BIGCF", "MixRec")
 
 
 @pytest.mark.parametrize("name", _ZOO)
 def test_zoo_step_does_not_synchronise(cuda, name):
     """One training step of each zoo model at d = 64 (the LightGCN encoder
-    where the model has one: dense bfloat16, K6 a layer each way) under
-    sync debug mode "error", after a first step has made Adam's state."""
+    where the model has one, and every propagation of the last five:
+    dense bfloat16, K6 a layer each way; SimGCL's chains at d = 192) under
+    sync debug mode "error", after a first step has made Adam's state;
+    the noise drawn from a CUDA generator."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     from idgrec_torch.config import load_model_config
@@ -1954,14 +1959,69 @@ def test_zoo_step_does_not_synchronise(cuda, name):
               torch.from_numpy(data.train_item[pick]).to(cuda),
               torch.randint(0, data.num_items, (1024,), generator=g).to(cuda))
     runner = EpochRunner(model, 0.001, 1024, 1024)
-    runner.run_epoch(*triple)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    runner.run_epoch(*triple, generator=gen)
     before = fusedmm.fused_adj_matmul.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        terms = runner.run_epoch(*triple)
+        terms = runner.run_epoch(*triple, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert fusedmm.fused_adj_matmul.launches - before == (0 if name == "MFBPR" else 6)
+    if name == "SimGCL":
+        assert fusedmm.fused_adj_matmul.passes == 3  # the chains at d = 192
     terms = terms.cpu().numpy()
     assert terms.shape == (len(model.loss_names),) and np.isfinite(terms).all()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def test_noise_draws_on_a_cuda_generator_do_not_synchronise(cuda):
+    """MixRec's draws (two Beta(0.1, 0.1), a Dirichlet over a batch of
+    2,048, two permutations) and SimGCL's and BIGCF's on a CUDA generator:
+    no synchronisation, no NaN, on the generator's device, the same seed
+    the same draws."""
+    from idgrec_torch.ops import noise
+
+    def draws(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return (noise.beta(0.1, 0.1, g), noise.beta(0.1, 0.1, g),
+                noise.dirichlet(torch.full((2048,), 0.1, device=cuda), g),
+                noise.permutation(2048, g), noise.permutation(2048, g),
+                noise.uniform((1000, 64), g), noise.normal((1000, 64), g),
+                noise.beta(0.1, 0.1, g, shape=(1_000_000,)))
+
+    draws(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = draws(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(t.device.type == "cuda" for t in got)
+    ub, ib, w, up, ip, _, _, many = got
+    assert 0.0 <= float(ub) <= 1.0 and 0.0 <= float(ib) <= 1.0
+    assert not bool(torch.isnan(many).any()) and abs(float(many.mean()) - 0.5) < 5e-3
+    assert not bool(torch.isnan(w).any()) and abs(float(w.sum()) - 1.0) < 1e-5
+    for p in (up, ip):
+        assert torch.equal(torch.sort(p).values, torch.arange(2048, device=cuda))
+    for a, b in zip(got, draws(1)):
+        assert torch.equal(a, b)
+
+
+def test_k6_at_d192_equals_its_plain_version(cuda):
+    """SimGCL's width: three reads of M a launch (64 features each), the
+    sums within K6's bar of the plain version, two launches bit-equal."""
+    data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=cuda)
+    assert adj.runs_kernel(192)
+    rng = np.random.default_rng(9)
+    nu, ni = data.num_users, data.num_items
+    zu = torch.from_numpy(rng.normal(size=(nu, 192)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(ni, 192)).astype(np.float32)).to(cuda)
+    got = fusedmm.fused_adj_matmul(adj.m, zu, zi)
+    assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(192) == 3
+    again = fusedmm.fused_adj_matmul(adj.m, zu, zi)
+    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
+        assert torch.equal(a, b)
+        _close(a, c)
