@@ -133,20 +133,29 @@ launch counts set to 0 just before and read just after:
   time beside the parallel mode's; bfloat16 on bitpack (K11) serves
   against the float32 gather EGCF, one step against the plain route and
   24 steps;
-* the zoo: MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp and
-  BIGCF at their published configs on the yelp2018-scale set, LightCCF,
-  LightCSCF and MixRec on an amazon-book-scale one (52,643 x 91,599, M
-  4.83 GB int8), each model's batch size, bfloat16 on `auto` (dense: K6
-  a layer each way under the LightGCN encoder and in every propagation
-  of the last five; SimGCL's three chains in one at d = 192,
-  LightGCN_pp's on the `gen` scaling): one step against the plain route
+* the zoo: MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp,
+  BIGCF, CGCL, NCL, HCCF and IMPGCN at their published configs on the
+  yelp2018-scale set, LightCCF, LightCSCF and MixRec on an
+  amazon-book-scale one (52,643 x 91,599, M 4.83 GB int8), each model's
+  batch size, bfloat16 on `auto` (dense: K6 a layer each way under the
+  LightGCN encoder and in every propagation of the others; SimGCL's three
+  chains in one at d = 192, LightGCN_pp's on the `gen` scaling, IMPGCN's
+  six layers with its three groups in one at d = 192 and its Â·E, which
+  feeds only its gates, forward alone): one step against the plain route
   (K6's plain version), the step's noise from a fresh CUDA generator
   seeded alike for both, one step under sync debug mode "error", a
   request of 256 users against the plain route's server (the eval
   generator seeded 0 in both), ZOO_STEPS steps with finite loss terms
-  and gradients (LightGCN_pp's with an item that has no train edge), the
-  K6 launches, ms per step and eval embeddings beside K6's bound, a
-  step's memory beyond the model's (no float copy of M); K6 on
+  and gradients (LightGCN_pp's with an item that has no train edge;
+  IMPGCN's grouping tables with none, and unmoved), each model's own K6
+  launches a step and a representation, ms per step and eval embeddings
+  beside K6's bound, a step's memory beyond the model's (no float copy
+  of M: below M's bytes, for CGCL and NCL plus the float32 score
+  matrices their contrasts against a full table keep for the backward);
+  NCL past its warm-up: its k-means at k = 2,000 on both tables (the
+  sums on K4) under sync debug mode "error", equal bit for bit to the
+  same clustering on K4's plain version, timed, its steps with a
+  non-zero prototype term and the 24 steps' path clustering first; K6 on
   amazon-book's M timed beside its bound; K6 at d = 192 on SimGCL's M
   (three reads of M a launch) held to its plain version and timed beside
   three d = 64 applications and its bound; MAWU through
@@ -269,7 +278,16 @@ LEARN_SCALE, LEARN_EPOCHS, LEARN_FACTOR = 0.5, 12, 2.0
 # names at that dataset's scale (amazon-book's from bench.py --scale
 # amazon-book), ZOO_STEPS steps each
 NOISE_ZOO = ("SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
-ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + NOISE_ZOO
+# the full-pool contrasts (CGCL, NCL with its k-means), HCCF and IMPGCN (6
+# layers, its three groups at d = 192)
+CONTRAST_ZOO = ("CGCL", "NCL", "HCCF", "IMPGCN")
+ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + NOISE_ZOO + CONTRAST_ZOO
+# the layers each zoo model's published config names (the others: LAYERS)
+ZOO_LAYERS = {"IMPGCN": 6}
+# IMPGCN's grouping tables: no gradient (the gates are a top-1 mask)
+NO_GRAD = {"IMPGCN": ("fc_b", "fc_group_b", "fc_group_w", "fc_w")}
+# NCL's k-means: Lloyd iterations a table, one K4 launch each
+KMEANS_ITERS = 20
 # the seed of the CUDA generator a zoo step draws its noise from: the kernel
 # step and the plain one each get their own, seeded alike
 ZOO_NOISE_SEED = 17
@@ -428,6 +446,27 @@ def plain_duals(fusedmm, propagate):
         yield
     finally:
         fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8 = saved
+
+
+def zoo_k6_launches(name: str, propagates: bool, layers: int) -> tuple[int, int]:
+    """(K6 launches of one training step, of one representation) of a zoo
+    model: none under MF; a layer each way in a step and one a layer in a
+    representation elsewhere; IMPGCN's Â·E feeds only its gates (no
+    backward), its groups' layers 1 .. L - 1 run each way."""
+    if not propagates:
+        return 0, 0
+    if name == "IMPGCN":
+        return 1 + 2 * (layers - 1), layers
+    return 2 * layers, layers
+
+
+def kept_score_bytes(name: str, batch: int, num_users: int, num_items: int) -> int:
+    """Bytes of the float32 [batch, rows] score matrices a step keeps for
+    its backward (the ``exp`` of each contrast against a full table,
+    `losses.infonce_loss_sum`): CGCL's three heads each contrast with the
+    full user and the full item table, NCL's structural term once."""
+    heads = {"CGCL": 3, "NCL": 1}.get(name, 0)
+    return 4 * batch * (num_users + num_items) * heads
 
 
 def write_dataset(directory: str, data) -> None:
@@ -2978,16 +3017,23 @@ def main() -> int:
     del alt_bp, ref_gather_a, rec_a_bp, runner_
     torch.cuda.empty_cache()
 
-    # ==== the zoo: MFBPR, the encoder-switch family and NOISE_ZOO at their
-    # published configs on the datasets they name (LightCCF, LightCSCF and
-    # MixRec on an amazon-book-scale set); under the LightGCN encoder and in
-    # NOISE_ZOO every product is K6 on the dense matrix, one launch a layer
-    # each way (LightGCN_pp's on the `gen` scaling, SimGCL's in training at
-    # d = 192). Each model: one step held to the same step on K6's plain
-    # version with the same noise (loss terms within TIGHT, gradients within
-    # BF16 of the largest entry: K6's rules), one step under sync debug mode
-    # "error", a server answering ZOO_REQUEST users held to the plain
-    # route's (the same eval generator: seeded 0), ZOO_STEPS steps
+    # ==== the zoo: MFBPR, the encoder-switch family, NOISE_ZOO and
+    # CONTRAST_ZOO at their published configs on the datasets they name
+    # (LightCCF, LightCSCF and MixRec on an amazon-book-scale set); under the
+    # LightGCN encoder and in NOISE_ZOO and CONTRAST_ZOO every product is K6
+    # on the dense matrix, one launch a layer each way (LightGCN_pp's on the
+    # `gen` scaling, SimGCL's in training and IMPGCN's groups at d = 192;
+    # IMPGCN's Â·E, which feeds only its gates, forward alone). Each model:
+    # one step held to the same step on K6's plain version with the same
+    # noise (loss terms within TIGHT, gradients within BF16 of the largest
+    # entry: K6's rules), one step under sync debug mode "error", a server
+    # answering ZOO_REQUEST users held to the plain route's (the same eval
+    # generator: seeded 0), ZOO_STEPS steps. NCL runs past its warm-up: its
+    # k-means (KMEANS_ITERS iterations a table, the sums on K4) under sync
+    # debug mode "error", held to the same clustering with K4's plain version
+    # bit for bit and timed, then its steps at epoch = warmup_epochs with the
+    # prototype term; the 24 steps' path runs the epoch's clustering first,
+    # as the training loop does.
     t0 = time.perf_counter()
     amazon = make_synthetic_dataset(*AMAZON, seed=0, name="amazon-book-scale")
     log(f"amazon-book-scale dataset {amazon.num_users} users x {amazon.num_items} items, "
@@ -3001,17 +3047,24 @@ def main() -> int:
         cfg_z = load_model_config(name_z)
         data_z, sampler_z = zoo_sets[cfg_z.str("dataset")]
         cfg_z = cfg_z.updated(dataset=data_z.name)
-        lgcn = cfg_z.str("encoder", "MF") == "LightGCN" or name_z in NOISE_ZOO
+        lgcn = (cfg_z.str("encoder", "MF") == "LightGCN"
+                or name_z in NOISE_ZOO + CONTRAST_ZOO)
+        layers_z = ZOO_LAYERS.get(name_z, LAYERS)
         require(cfg_z.int("embedding_size") == DIM and cfg_z.str("compute_dtype") == "bfloat16"
                 and cfg_z.str("propagation_backend") == "auto"
-                and (not lgcn or cfg_z.int("GCN_layer") == LAYERS),
+                and (not lgcn or cfg_z.int("GCN_layer") == layers_z),
                 f"{name_z}: not the published config the phase expects")
+        step_k6_z, repr_k6_z = zoo_k6_launches(name_z, lgcn, layers_z)
+        no_grad_z = NO_GRAD.get(name_z, ())
+        # NCL past its warm-up: the epoch its steps take
+        epoch_z = cfg_z.int("warmup_epochs") if name_z == "NCL" else 0
         bs, lr_z = cfg_z.int("batch_size"), cfg_z.float("learn_rate")
         t0 = time.perf_counter()
         m_z = get_model(name_z)(cfg_z, data_z, device=dev,
                                 generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        start_z = {k_: getattr(m_z, k_).detach().clone() for k_ in no_grad_z}
         k6_bound_z = None
         if lgcn:
             g_z = m_z.graph
@@ -3024,8 +3077,9 @@ def main() -> int:
             # M read once, the float32 activations in and the sums out once
             k6_bound_z = bound(g_z.m.numel() + 8 * DIM * (nu_z + ni_z), 4.0 * nnz_z * DIM,
                                bf16_ops)
-            # a step's applications: SimGCL's three chains run at 3d
-            d_step = 3 * DIM if name_z == "SimGCL" else DIM
+            # a step's applications: SimGCL's three chains and IMPGCN's three
+            # groups run at 3d
+            d_step = 3 * DIM if name_z in ("SimGCL", "IMPGCN") else DIM
             k6_step_bound_z = bound(g_z.m.numel() + 8 * d_step * (nu_z + ni_z),
                                     4.0 * nnz_z * d_step, bf16_ops)
         if name_z == "LightGCN_pp":
@@ -3035,18 +3089,48 @@ def main() -> int:
             require(no_edge_z > 0, "LightGCN_pp: the set has no item without a train edge")
         triple_z = sampler_z.sample_epoch(gen)
         batch_z = dict(zip(("user", "pos", "neg"), (t_[:bs] for t_ in triple_z)))
+        kmeans_ms_z = None
+        if name_z == "NCL":
+            # the epoch's clustering past the warm-up, on K4, under sync debug
+            # mode "error"; then the same from the same seed on K4's plain
+            # version, bit for bit; then timed
+            k4_before = scatter.scatter_add_rows.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m_z.epoch_context(epoch_z, np.random.default_rng(ZOO_NOISE_SEED))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            clusters_z = (m_z.user_centroids, m_z.user_2cluster, m_z.item_centroids,
+                          m_z.item_2cluster)
+            require(scatter.scatter_add_rows.launches - k4_before == 2 * KMEANS_ITERS,
+                    f"NCL's k-means: {scatter.scatter_add_rows.launches - k4_before} K4 "
+                    f"launches, {2 * KMEANS_ITERS} expected")
+            with plain_kernels(chainmm, scatter):
+                m_z.epoch_context(epoch_z, np.random.default_rng(ZOO_NOISE_SEED))
+            plain_clusters_z = (m_z.user_centroids, m_z.user_2cluster, m_z.item_centroids,
+                                m_z.item_2cluster)
+            for what, a, b in zip(("user centroids", "user assignment", "item centroids",
+                                   "item assignment"), clusters_z, plain_clusters_z):
+                require(torch.equal(a, b), f"NCL's k-means on K4, {what}: differs from K4's "
+                                           "plain version")
+            used_z = [int(torch.unique(a_).numel()) for a_ in clusters_z[1::2]]
+            require(min(used_z) > m_z.k // 2, f"NCL's k-means: clusters used {used_z}")
+            kmeans_ms_z = host_ms(
+                lambda: m_z.epoch_context(epoch_z, np.random.default_rng(ZOO_NOISE_SEED)), 3)
 
         def zoo_step(m_, b_=batch_z):
             # a fresh generator a call: the kernel step and the plain one draw
             # the same noise
             gen_ = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
             m_.zero_grad(set_to_none=True)
-            terms_ = m_.loss_terms(b_, gen_)
+            terms_ = m_.loss_terms(b_, gen_, epoch_z)
             total_ = terms_[0]
             for t_ in terms_[1:]:
                 total_ = total_ + t_
             total_.backward()
-            grads_ = [getattr(m_, k_).grad.clone() for k_ in convert.table_names(m_)]
+            grads_ = [None if getattr(m_, k_).grad is None else getattr(m_, k_).grad.clone()
+                      for k_ in convert.table_names(m_)]
             m_.zero_grad(set_to_none=True)
             return [t_.detach() for t_ in terms_], grads_
 
@@ -3062,17 +3146,27 @@ def main() -> int:
             require(bool(torch.isfinite(a)), f"{name_z} step, {what}: not finite")
             assert_close(a, b, f"{name_z} step, {what}", **TIGHT)
         for what, a, b in zip(convert.table_names(m_z), got_z[1], want_z[1]):
+            if what in no_grad_z:
+                require(a is None and b is None, f"{name_z} step, d {what}: a gradient")
+                continue
             top = float(b.abs().max())
             require(bool(torch.isfinite(a).all()) and max_abs(a, b) <= BF16 * top,
                     f"{name_z} step, d {what}: max abs err {max_abs(a, b)} above {BF16} of {top}")
-        same_z = all(torch.equal(a, b) for a, b in zip(got_z[0] + got_z[1],
-                                                       want_z[0] + want_z[1]))
+        if name_z == "NCL":
+            require(float(got_z[0][3]) > 0, f"NCL step past the warm-up: proto {got_z[0][3]}")
+        same_z = all(a is b or torch.equal(a, b) for a, b in zip(got_z[0] + got_z[1],
+                                                                 want_z[0] + want_z[1]))
         require(lgcn or same_z, f"{name_z} under MF: the plain route is the same route")
+        mem_bar_z = None
         if lgcn:
             # no float32 (or bfloat16) copy of M: the step's extra memory stays
-            # below M's own int8 bytes
-            require(step_mem < g_z.m.numel(), f"{name_z}: a step took {step_mem} bytes beyond "
-                                              f"the model's, M is {g_z.m.numel()}")
+            # below M's own int8 bytes, plus, for the contrasts against a full
+            # table, the score matrices the step keeps for its backward
+            kept_z = kept_score_bytes(name_z, bs, data_z.num_users, data_z.num_items)
+            mem_bar_z = g_z.m.numel() + kept_z
+            require(step_mem < mem_bar_z,
+                    f"{name_z}: a step took {step_mem} bytes beyond the model's, above M's "
+                    f"{g_z.m.numel()} and the {kept_z} bytes of kept score matrices")
         del got_z, want_z
         # one step under sync debug mode "error" (the optimizer's state is made
         # by the step before it)
@@ -3080,11 +3174,11 @@ def main() -> int:
         one_z = EpochRunner(m_z, lr_z, bs, bs, optimizer=runner_z.opt)
         part_one = [t_[bs: 2 * bs] for t_ in triple_z]
         gen_one = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
-        one_z.run_epoch(*part_one, generator=gen_one)
+        one_z.run_epoch(*part_one, generator=gen_one, epoch=epoch_z)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            nosync_z = one_z.run_epoch(*part_one, generator=gen_one)
+            nosync_z = one_z.run_epoch(*part_one, generator=gen_one, epoch=epoch_z)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         require(bool(torch.isfinite(nosync_z).all()), f"{name_z}: the sync-debug step {nosync_z}")
@@ -3104,42 +3198,65 @@ def main() -> int:
             check_answers(ref_z, data_z, users_z, items_z, scores_z)
         del rec_z, ref_z
         part_z = [t_[2 * bs: (2 + ZOO_STEPS) * bs] for t_ in triple_z]
+        if name_z == "NCL":
+            # the epoch's clustering before its steps, as the training loop runs it
+            m_z.epoch_context(epoch_z, np.random.default_rng(ZOO_NOISE_SEED + 1))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        terms_z = runner_z.run_epoch(*part_z, generator=gen, epoch=0).cpu().numpy()
+        terms_z = runner_z.run_epoch(*part_z, generator=gen, epoch=epoch_z).cpu().numpy()
         step_ms_z = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
         zoo_launches[name_z] = read_counts()
-        want_l = {"fused_adj_matmul": LAYERS + ZOO_STEPS * 2 * LAYERS} if lgcn else {}
+        want_l = ({"fused_adj_matmul": repr_k6_z + ZOO_STEPS * step_k6_z} if lgcn else {})
+        if name_z == "NCL":
+            want_l["scatter_add_rows"] = 2 * KMEANS_ITERS
         got_l = {k_: n for k_, n in zoo_launches[name_z].items() if n}
         require(got_l == want_l, f"{name_z}: launches {got_l}, expected {want_l}")
         require(terms_z.shape == (len(m_z.loss_names),) and bool(np.isfinite(terms_z).all()),
                 f"{name_z}: loss terms {terms_z}")
+        require(name_z != "NCL" or terms_z[-1] > 0, f"{name_z}'s 24 steps: proto sum "
+                                                     f"{terms_z[-1]}")
         # the last step's gradients (the runner sets them to None before a step)
-        # and the tables it left
+        # and the tables it left; the tables that take no gradient never moved
         require(all(bool(torch.isfinite(p_.grad).all()) and bool(torch.isfinite(p_).all())
                     for p_ in m_z.parameters() if p_.grad is not None)
-                and all(p_.grad is not None for p_ in m_z.parameters()),
-                f"{name_z}: a gradient or a table of the last step is not finite")
+                and all((p_.grad is None) == (k_ in no_grad_z)
+                        for k_, p_ in m_z.named_parameters()),
+                f"{name_z}: a gradient or a table of the last step is not finite, or a "
+                "gradient is missing or present where it should not be")
+        require(all(torch.equal(getattr(m_z, k_), v_) for k_, v_ in start_z.items()),
+                f"{name_z}: a table without a gradient moved")
         gen_eval = torch.Generator(device=dev).manual_seed(0)
         embed_ms_z = host_ms(lambda: m_z.eval_embeddings(gen_eval), 5)
-        zoo_calls[name_z] = lambda r_=one_z, p_=part_one, g_=gen_one: r_.run_epoch(*p_,
-                                                                                generator=g_)
+        zoo_calls[name_z] = lambda r_=one_z, p_=part_one, g_=gen_one, e_=epoch_z: r_.run_epoch(
+            *p_, generator=g_, epoch=e_)
         zoo_models[name_z] = m_z
         zoo_res[name_z] = dict(step_ms=step_ms_z, embed_ms=embed_ms_z, k6_bound=k6_bound_z,
-                               step_mem_mb=step_mem / 1e6)
-        enc_z = (f"{cfg_z.str('encoder', 'MF')} encoder" if name_z not in NOISE_ZOO
-                 else "dense K6 propagation")
+                               step_mem_mb=step_mem / 1e6,
+                               mem_bar_mb=None if mem_bar_z is None else mem_bar_z / 1e6,
+                               kmeans_ms=kmeans_ms_z)
+        enc_z = (f"{cfg_z.str('encoder', 'MF')} encoder"
+                 if name_z not in NOISE_ZOO + CONTRAST_ZOO else "dense K6 propagation")
         log(f"{name_z} ({enc_z}, batch {bs}, on {data_z.name}): one "
             f"step against the plain route (bit-equal: {same_z}), one under sync debug mode "
             f"'error', {ZOO_REQUEST} users served against the plain route; {step_ms_z:.3f} ms "
             f"per step over {ZOO_STEPS} steps, eval embeddings {embed_ms_z:.3f} ms (first "
             f"{embed_first_ms:.3f}), K6 launches {got_l.get('fused_adj_matmul', 0)}"
-            + (f", K6's bound {k6_bound_z[0]:.4f} ms an application by {k6_bound_z[1]} (6 a step"
+            + (f", K6's bound {k6_bound_z[0]:.4f} ms an application by {k6_bound_z[1]} "
+               f"({step_k6_z} a step, {repr_k6_z} a representation"
                + (f", at d = {d_step}: {k6_step_bound_z[0]:.4f} ms" if d_step != DIM else "")
                + ")" if lgcn else ", no propagation")
             + (f"; {no_edge_z} item(s) without a train edge, the gradients finite"
                if name_z == "LightGCN_pp" else "")
-            + f"; a step's memory beyond the model's {step_mem / 1e6:.1f} MB; loss sums "
+            + (f"; k-means past the warm-up (k = {m_z.k}, {KMEANS_ITERS} iterations a table, "
+               f"K4 x {2 * KMEANS_ITERS}, equal to K4's plain version, no sync) "
+               f"{kmeans_ms_z:.3f} ms an epoch; steps at epoch {epoch_z}"
+               if name_z == "NCL" else "")
+            + (f"; {', '.join(no_grad_z)} without a gradient, unmoved" if no_grad_z else "")
+            + f"; a step's memory beyond the model's {step_mem / 1e6:.1f} MB"
+            + (f" (bar {mem_bar_z / 1e6:.1f} MB: M's bytes"
+               + (" and the kept score matrices" if mem_bar_z > g_z.m.numel() else "") + ")"
+               if mem_bar_z is not None else "")
+            + "; loss sums "
             f"{dict(zip(m_z.loss_names, np.round(terms_z, 5).tolist()))}; built in {build_s:.1f} s")
         del runner_z, triple_z, batch_z
         torch.cuda.empty_cache()
@@ -3566,6 +3683,8 @@ def main() -> int:
         f"{n_} {r_['step_ms']:.3f} ms per step, eval embeddings {r_['embed_ms']:.3f} ms"
         + (f", K6 bound {r_['k6_bound'][0]:.4f} ms an application" if r_["k6_bound"] else "")
         + f", a step's memory {r_['step_mem_mb']:.1f} MB"
+        + (f" (bar {r_['mem_bar_mb']:.1f})" if r_["mem_bar_mb"] else "")
+        + (f", k-means {r_['kmeans_ms']:.3f} ms an epoch" if r_["kmeans_ms"] else "")
         for n_, r_ in zoo_res.items()))
     log(f"exact modes, ms per training step: fused bfloat16 {bf_step_ms:.3f}, "
         + ", ".join(f"{label} {v[0]:.3f}" for label, v in other_ms.items())

@@ -75,8 +75,8 @@ def adam_state_to_numpy(optimizer: torch.optim.Adam, model: torch.nn.Module) -> 
         zeros = np.zeros(tuple(p.shape), np.float32)
         out["mu"][k] = st["exp_avg"].detach().cpu().numpy().copy() if st else zeros
         out["nu"][k] = st["exp_avg_sq"].detach().cpu().numpy().copy() if st else zeros.copy()
-        if st:
-            out["count"] = int(st["step"])
+        if st:  # a table with no gradient (IMPGCN's grouping) takes no step
+            out["count"] = max(out["count"], int(st["step"]))
     return out
 
 

@@ -1,16 +1,20 @@
 """Model zoo of the port. Importing this package registers every ported
 model: LightGCN, EGCF, MFBPR, the encoder-switch family (DirectAU, MAWU,
-SCCF, LightCCF, LightCSCF), LightGCN_pp and the models that draw noise
-in their steps (SimGCL, XSimGCL, BIGCF, MixRec); ROADMAP A.7 lists the
-rest."""
+SCCF, LightCCF, LightCSCF), LightGCN_pp, the models that draw noise
+in their steps (SimGCL, XSimGCL, BIGCF, MixRec), the full-pool
+contrasts CGCL and NCL (NCL with on-device k-means), HCCF and IMPGCN;
+ROADMAP A.7 lists the rest."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
 
 from idgrec_torch.models import (  # noqa: F401
     bigcf,
+    cgcl,
     directau,
     egcf,
+    hccf,
+    impgcn,
     lightccf,
     lightcscf,
     lightgcn,
@@ -18,6 +22,7 @@ from idgrec_torch.models import (  # noqa: F401
     mawu,
     mfbpr,
     mixrec,
+    ncl,
     sccf,
     simgcl,
     xsimgcl,

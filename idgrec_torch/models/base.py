@@ -27,6 +27,7 @@ from torch import nn
 from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import check_exact_matmul, resolve_device
+from idgrec_torch.ops import noise
 
 
 def xavier_uniform(generator: torch.Generator, shape: tuple[int, ...],
@@ -37,6 +38,39 @@ def xavier_uniform(generator: torch.Generator, shape: tuple[int, ...],
     limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
     out = torch.empty(shape, dtype=dtype, device=generator.device)
     return out.uniform_(-limit, limit, generator=generator)
+
+
+def torch_linear_init(generator: torch.Generator, fan_in: int,
+                      fan_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`torch.nn.Linear`'s default initialisation for y = x @ W + b: W
+    [fan_in, fan_out], then b [fan_out], each drawn from U(-k, k) with
+    k = 1/sqrt(fan_in), on the generator's device."""
+    k = float(1.0 / np.sqrt(fan_in))
+    w = torch.empty((fan_in, fan_out), dtype=torch.float32, device=generator.device)
+    w.uniform_(-k, k, generator=generator)
+    b = torch.empty((fan_out,), dtype=torch.float32, device=generator.device)
+    return w, b.uniform_(-k, k, generator=generator)
+
+
+def keep_dropout(x: torch.Tensor, keep_prob: float,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout by keep probability: each entry kept with
+    probability ``keep_prob`` (`noise.bernoulli`) and divided by it, the
+    others 0. At ``keep_prob >= 1`` nothing is drawn and x returned."""
+    from idgrec_torch.ops.propagate import true_divide
+
+    if keep_prob >= 1.0:
+        return x
+    mask = noise.bernoulli(keep_prob, x.shape, generator)
+    return torch.where(mask, true_divide(x, keep_prob), 0.0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout by rate (torch's): `keep_dropout` at keep = 1 -
+    ``rate``, in x's dtype. A rate of 0 draws nothing and returns x."""
+    if rate <= 0.0:
+        return x
+    return keep_dropout(x, 1.0 - rate, generator).to(x.dtype)
 
 
 class RecModel(nn.Module):
@@ -190,6 +224,17 @@ def lightgcn_propagate_rows(graph, emb0: torch.Tensor, num_layers: int, rows_u: 
     if reduce == "sum":
         return tot_u, tot_i
     return true_divide(tot_u, float(terms)), true_divide(tot_i, float(terms))
+
+
+def layer_mean(layers: list[torch.Tensor]) -> torch.Tensor:
+    """The mean of a per-layer list (`lightgcn_layer_outputs`), summed in
+    layer order and divided, not multiplied by the reciprocal."""
+    from idgrec_torch.ops.propagate import true_divide
+
+    total = layers[0]
+    for h in layers[1:]:
+        total = total + h
+    return true_divide(total, float(len(layers)))
 
 
 def lightgcn_layer_outputs(graph, emb0: torch.Tensor, num_layers: int) -> list[torch.Tensor]:

@@ -164,6 +164,22 @@ def infonce_loss_all(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_2_all: torch.
     return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
 
 
+def infonce_loss_sum(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_all: torch.Tensor,
+                     temperature: float) -> torch.Tensor:
+    """`infonce_loss_all` reduced by sum, not mean: the contrast against a
+    full table (NCL's structural term, CGCL's three heads). The step
+    keeps one float32 [B, rows(emb_all)] score matrix for the backward
+    (the output of ``exp``)."""
+    check_exact_matmul(emb_1.device)
+    emb_1 = _normalize(_f32(emb_1))
+    emb_2 = _normalize(_f32(emb_2))
+    emb_all = _normalize(_f32(emb_all))
+    pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
+    ttl_score = torch.sum(
+        torch.exp(true_divide(torch.matmul(emb_1, emb_all.T), temperature)), dim=1)
+    return torch.sum(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
+
+
 def reg_loss(*embeddings: torch.Tensor) -> torch.Tensor:
     """L2 regularization: sum over args of ½‖E‖²_F / rows(E)."""
     total = torch.zeros((), dtype=torch.float32, device=embeddings[0].device)

@@ -1,7 +1,8 @@
 """The random draws inside a model's step (counterpart of the
 ``jax.random`` calls in the JAX models: ``uniform`` in SimGCL and
 XSimGCL, ``normal`` in BIGCF, ``beta``, ``dirichlet`` and
-``permutation`` in MixRec).
+``permutation`` in MixRec, ``bernoulli`` in HCCF's and IMPGCN's
+dropout, ``choice`` in NCL's k-means).
 
 * Every draw takes an explicit `torch.Generator` and lands on that
   generator's device. The global generators are never used, so
@@ -87,3 +88,20 @@ def permutation(n: int, generator: torch.Generator) -> torch.Tensor:
     (``jax.random.permutation`` of an integer)."""
     generator = require_generator(generator, "noise.permutation")
     return torch.randperm(int(n), generator=generator, device=generator.device)
+
+
+def bernoulli(p: float, shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """A bool mask of ``shape``, each entry True with probability ``p``
+    (``jax.random.bernoulli``: U[0, 1) < p)."""
+    generator = require_generator(generator, "noise.bernoulli")
+    return torch.rand(tuple(shape), generator=generator, device=generator.device) < p
+
+
+def choice(n: int, k: int, generator: torch.Generator) -> torch.Tensor:
+    """``k`` distinct indices of range(n), int64, uniformly at random
+    (``jax.random.choice(key, n, (k,), replace=False)``): the first k of a
+    random permutation."""
+    generator = require_generator(generator, "noise.choice")
+    if not 0 <= k <= n:
+        raise ValueError(f"cannot choose {k} distinct indices of range({n})")
+    return torch.randperm(int(n), generator=generator, device=generator.device)[:k]

@@ -3,19 +3,23 @@
 GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
-        LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec] [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
+        LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec|CGCL|NCL|HCCF|IMPGCN]
+        [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
         [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
         [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
 
 Builds the model of chip_smoke.py (its config file's loss weights, d = 64
 unless ``--embedding_size`` says otherwise (128 takes int8 and int4 to
-the per-application loop), 3 layers) on the synthetic set at the scale
-of the dataset its config names: yelp2018 (LightGCN, EGCF, MFBPR,
-DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp, BIGCF) or
+the per-application loop); LightGCN and EGCF 3 layers, the zoo its
+config's, IMPGCN 6) on the synthetic set at the scale of the dataset
+its config names: yelp2018 (LightGCN, EGCF, MFBPR, DirectAU, MAWU, SCCF,
+SimGCL, XSimGCL, LightGCN_pp, BIGCF, CGCL, NCL, HCCF, IMPGCN) or
 amazon-book (LightCCF, LightCSCF, MixRec). LightGCN and EGCF run int8
 and batch 2,048 unless told otherwise, the zoo its config's compute
 dtype (bfloat16) and batch size. A step's noise comes from a CUDA
-generator seeded 0. ``--batch_rows`` sets
+generator seeded 0. NCL steps past its warm-up: its k-means runs first
+(timed on the host clock, ending in a synchronize) and its steps take
+the prototype term. ``--batch_rows`` sets
 LightGCN's ``batch_rows_propagation = 1``, ``--mode alternating`` EGCF's
 ping-pong over the rectangular adjacency. It warms up, then
 
@@ -55,7 +59,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
           "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
 MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF",
-          "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
+          "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec", "CGCL", "NCL", "HCCF",
+          "IMPGCN")
 
 
 def main() -> int:
@@ -96,7 +101,8 @@ def main() -> int:
     batch_size = 2048 if ours else cfg.int("batch_size")
     scale = cfg.str("dataset")
     data = make_synthetic_dataset(*SCALES[scale], seed=0, name=f"{scale}-scale")
-    cfg = cfg.updated(embedding_size=args.embedding_size, GCN_layer=3, compute_dtype=dtype,
+    cfg = cfg.updated(embedding_size=args.embedding_size,
+                      GCN_layer=3 if ours else cfg.int("GCN_layer", 3), compute_dtype=dtype,
                       propagation_backend=args.backend,
                       batch_rows_propagation=int(args.batch_rows), batch_size=batch_size)
     if args.model == "EGCF":
@@ -106,6 +112,14 @@ def main() -> int:
     model = get_model(args.model)(cfg, data, device=dev,
                                   generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(0)
+    # NCL past its warm-up: the epoch's clustering, then steps with the
+    # prototype term
+    epoch = cfg.int("warmup_epochs") if args.model == "NCL" else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.epoch_context(epoch, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    context_ms = (time.perf_counter() - t0) * 1e3
     users, pos, neg = NegativeSampler(data).sample_epoch(gen)
     n = (2 * steps + 10) * batch_size
     runner = EpochRunner(model, cfg.float("learn_rate"), batch_size, n)
@@ -123,7 +137,7 @@ def main() -> int:
 
     def step(i):
         runner.opt.zero_grad(set_to_none=True)
-        sum(model.loss_terms(batch(i), gen)).backward()
+        sum(model.loss_terms(batch(i), gen, epoch)).backward()
         runner.opt.step()
 
     for i in range(10):
@@ -131,7 +145,7 @@ def main() -> int:
     phases = {"forward": [], "backward": [], "adam": []}
     for i in range(10, 10 + steps):
         runner.opt.zero_grad(set_to_none=True)
-        terms, ms = sync_ms(lambda: model.loss_terms(batch(i), gen))
+        terms, ms = sync_ms(lambda: model.loss_terms(batch(i), gen, epoch))
         phases["forward"].append(ms)
         phases["backward"].append(sync_ms(lambda: sum(terms).backward())[1])
         phases["adam"].append(sync_ms(runner.opt.step)[1])
@@ -168,7 +182,8 @@ def main() -> int:
               "compute_dtype": dtype, "backend": args.backend,
               "batch_rows": args.batch_rows, "embedding_size": args.embedding_size,
               "mode": args.mode if args.model == "EGCF" else None,
-              "steps": steps, "phase_ms": phase_ms, "step_ms": step_ms,
+              "steps": steps, "epoch": epoch, "epoch_context_ms": context_ms,
+              "phase_ms": phase_ms, "step_ms": step_ms,
               "profiled_window_ms": window_ms, "device_ms_in_window": device_ms,
               "device_launches_per_step": n_device / steps}
     if device_ms <= 0:

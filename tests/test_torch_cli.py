@@ -104,9 +104,10 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin.isatty", lambda: False, raising=False)
     assert t_main.main([]) == 2
     out = capsys.readouterr().out
-    assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 3. EGCF" in out
-    assert "\t 6. LightGCN" in out and "\t 7. LightGCN_pp" in out and "\t 11. SCCF" in out
-    assert "\t 13. XSimGCL" in out
+    assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 4. EGCF" in out
+    assert "\t 2. CGCL" in out and "\t 5. HCCF" in out and "\t 6. IMPGCN" in out
+    assert "\t 9. LightGCN" in out and "\t 10. LightGCN_pp" in out and "\t 14. NCL" in out
+    assert "\t 15. SCCF" in out and "\t 17. XSimGCL" in out
     assert "error: pass --model=<NAME> (no interactive terminal)" in out
 
 
@@ -158,9 +159,9 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     ("bad_users", "error: --users must be comma-separated integers"),
     ("missing_checkpoint", "error: no checkpoints under"),
     # the id keeps the name this case had while LightGCN was the only model
-    pytest.param("unknown_model", "error: unknown model 'Nope'; available: BIGCF, DirectAU, "
-                 "EGCF, LightCCF, LightCSCF, LightGCN, LightGCN_pp, MAWU, MFBPR, MixRec, SCCF, "
-                 "SimGCL, XSimGCL",
+    pytest.param("unknown_model", "error: unknown model 'Nope'; available: BIGCF, CGCL, "
+                 "DirectAU, EGCF, HCCF, IMPGCN, LightCCF, LightCSCF, LightGCN, LightGCN_pp, "
+                 "MAWU, MFBPR, MixRec, NCL, SCCF, SimGCL, XSimGCL",
                  id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),

@@ -50,7 +50,9 @@ bfloat16 products (K6) equal the fused backend's bit for bit, forward and
 backward, and its int8 products (K7) equal the exact route they replaced;
 K6 at d = 192 reads M three times and stays within its bar; each zoo
 model's training step, and the steps' draws on a CUDA generator, run
-with no synchronisation."""
+with no synchronisation; NCL's k-means with its sums on K4 equals the
+same clustering with K4's plain version bit for bit, without a
+synchronisation."""
 
 from __future__ import annotations
 
@@ -1933,16 +1935,27 @@ def test_dense_float32_and_other_widths_run_no_kernel(cuda):
 
 
 _ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF", "SimGCL", "XSimGCL",
-        "LightGCN_pp", "BIGCF", "MixRec")
+        "LightGCN_pp", "BIGCF", "MixRec", "CGCL", "NCL", "HCCF", "IMPGCN")
+_GROUPING = ("fc_w", "fc_b", "fc_group_w", "fc_group_b")
+
+
+def _zoo_k6_launches(name, layers=3):
+    """K6 launches of one zoo step: none under MF, a layer each way
+    elsewhere; IMPGCN's Â·E feeds only its gates (no backward), its
+    groups' layers 1 .. L - 1 run each way."""
+    if name == "MFBPR":
+        return 0
+    return 1 + 2 * (layers - 1) if name == "IMPGCN" else 2 * layers
 
 
 @pytest.mark.parametrize("name", _ZOO)
 def test_zoo_step_does_not_synchronise(cuda, name):
     """One training step of each zoo model at d = 64 (the LightGCN encoder
-    where the model has one, and every propagation of the last five:
-    dense bfloat16, K6 a layer each way; SimGCL's chains at d = 192) under
-    sync debug mode "error", after a first step has made Adam's state;
-    the noise drawn from a CUDA generator."""
+    where the model has one, and every propagation of the others: dense
+    bfloat16, K6 a layer each way; SimGCL's chains and IMPGCN's groups at
+    d = 192) under sync debug mode "error", after a first step has made
+    Adam's state; the noise drawn from a CUDA generator. NCL steps past
+    its warm-up, after its k-means (on K4) has run under the same mode."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     from idgrec_torch.config import load_model_config
@@ -1960,20 +1973,31 @@ def test_zoo_step_does_not_synchronise(cuda, name):
               torch.randint(0, data.num_items, (1024,), generator=g).to(cuda))
     runner = EpochRunner(model, 0.001, 1024, 1024)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    runner.run_epoch(*triple, generator=gen)
+    epoch = cfg.int("warmup_epochs") if name == "NCL" else 0
+    runner.run_epoch(*triple, generator=gen, epoch=epoch)
     before = fusedmm.fused_adj_matmul.launches
+    k4_before = scatter.scatter_add_rows.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        terms = runner.run_epoch(*triple, generator=gen)
+        model.epoch_context(epoch, np.random.default_rng(4))
+        terms = runner.run_epoch(*triple, generator=gen, epoch=epoch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert fusedmm.fused_adj_matmul.launches - before == (0 if name == "MFBPR" else 6)
-    if name == "SimGCL":
-        assert fusedmm.fused_adj_matmul.passes == 3  # the chains at d = 192
+    assert fusedmm.fused_adj_matmul.launches - before == _zoo_k6_launches(name)
+    # NCL's k-means: 20 iterations a table, one K4 launch each
+    assert scatter.scatter_add_rows.launches - k4_before == (40 if name == "NCL" else 0)
+    if name in ("SimGCL", "IMPGCN"):
+        assert fusedmm.fused_adj_matmul.passes == 3  # the chains or groups at d = 192
     terms = terms.cpu().numpy()
     assert terms.shape == (len(model.loss_names),) and np.isfinite(terms).all()
-    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    if name == "NCL":
+        assert terms[3] > 0  # the prototype term, past the warm-up
+    for k, p in model.named_parameters():
+        if name == "IMPGCN" and k in _GROUPING:
+            assert p.grad is None  # the gates take no gradient
+        else:
+            assert bool(torch.isfinite(p.grad).all()), k
 
 
 def test_noise_draws_on_a_cuda_generator_do_not_synchronise(cuda):
@@ -2007,6 +2031,70 @@ def test_noise_draws_on_a_cuda_generator_do_not_synchronise(cuda):
         assert torch.equal(torch.sort(p).values, torch.arange(2048, device=cuda))
     for a, b in zip(got, draws(1)):
         assert torch.equal(a, b)
+
+
+def test_bernoulli_and_choice_on_a_cuda_generator_do_not_synchronise(cuda):
+    """HCCF's and IMPGCN's masks and NCL's initial rows (k = 2,000 of
+    yelp2018's 38,048 items) on a CUDA generator: no synchronisation, on
+    the generator's device, the same seed the same draws."""
+    from idgrec_torch.ops import noise
+
+    def draws(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return (noise.bernoulli(0.6, (69_716, 64), g), noise.choice(38_048, 2000, g),
+                noise.choice(31_668, 2000, g))
+
+    draws(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = draws(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mask, items, users = got
+    assert all(t.device.type == "cuda" for t in got)
+    assert mask.dtype == torch.bool and abs(float(mask.float().mean()) - 0.6) < 1e-3
+    for rows, n in ((items, 38_048), (users, 31_668)):
+        assert rows.dtype == torch.int64 and len(torch.unique(rows)) == 2000
+        assert 0 <= int(rows.min()) and int(rows.max()) < n
+    for a, b in zip(got, draws(1)):
+        assert torch.equal(a, b)
+
+
+def test_kmeans_on_k4_equals_its_plain_route_without_a_sync(cuda):
+    """NCL's clustering at yelp2018's shapes (38,048 rows of 64 into k =
+    2,000, 20 iterations): the centroid sums on K4 (one launch an
+    iteration, nothing read back, under sync debug mode "error") against
+    the same clustering with K4's plain version, assignments and
+    centroids bit for bit; the same seed the same clustering."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch.ops import kmeans
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy((rng.normal(size=(38_048, 64)) * 0.1).astype(np.float32)).to(cuda)
+
+    def cluster():
+        return kmeans.kmeans(x, 2000, torch.Generator(device=cuda).manual_seed(5))
+
+    cluster()
+    before = scatter.scatter_add_rows.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cluster()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert scatter.scatter_add_rows.launches - before == 20
+    old = scatter.scatter_add_rows_unchecked
+    try:
+        scatter.scatter_add_rows_unchecked = scatter.scatter_add_rows_plain
+        want = cluster()
+    finally:
+        scatter.scatter_add_rows_unchecked = old
+    for a, b, c in zip(got, want, cluster()):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert got[1].dtype == torch.int64 and len(torch.unique(got[1])) > 1000
 
 
 def test_k6_at_d192_equals_its_plain_version(cuda):

@@ -1,5 +1,6 @@
 """The draws of a step (idgrec_torch/ops/noise.py) held to their
-distributions, on a seeded CPU generator with many draws.
+distributions, on a seeded CPU generator with many draws, and the two
+model helpers that draw (`base.torch_linear_init`, `base.dropout`).
 
 Bounds, with their reasons: 10**6 draws put the standard error of a mean
 at sqrt(var / 10**6), at most 1e-3 here, and of a variance below 3e-4;
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from idgrec_torch.models import base
 from idgrec_torch.ops import noise
 
 torch.set_num_threads(1)
@@ -101,12 +103,71 @@ def test_permutations_are_uniform():
     assert np.abs(first / 24_000 - 0.25).max() < 0.015
 
 
+@pytest.mark.parametrize("p", [0.5, 0.6, 0.95])
+def test_bernoulli_mean(p):
+    x = noise.bernoulli(p, (1000, 1000), _gen(12))
+    assert x.dtype == torch.bool and x.shape == (1000, 1000)
+    assert abs(float(x.float().mean()) - p) < MEAN_TOL
+
+
+@pytest.mark.parametrize("n,k", [(38_048, 2000), (300, 16), (5, 5), (7, 0)])
+def test_choice_gives_k_distinct_indices(n, k):
+    x = noise.choice(n, k, _gen(13))
+    assert x.dtype == torch.int64 and x.shape == (k,)
+    assert len(set(x.tolist())) == k and all(0 <= i < n for i in x.tolist())
+
+
+def test_choice_is_uniform_and_refuses_too_many():
+    """Which of 6 indices a draw of 2 takes, over 30,000 draws: 1/3 each."""
+    g = _gen(14)
+    hits = np.zeros(6)
+    for _ in range(30_000):
+        hits[noise.choice(6, 2, g).numpy()] += 1
+    assert np.abs(hits / 30_000 - 1 / 3).max() < 0.015
+    with pytest.raises(ValueError, match="cannot choose 7 distinct indices of range"):
+        noise.choice(6, 7, g)
+
+
+def test_torch_linear_init_bounds_and_order():
+    """W [in, out] then b [out], each U(-k, k) with k = 1/sqrt(fan_in),
+    W drawn first from the generator."""
+    w, b = base.torch_linear_init(_gen(15), 64, 3)
+    k = 1.0 / np.sqrt(64)
+    assert tuple(w.shape) == (64, 3) and tuple(b.shape) == (3,)
+    assert w.dtype == b.dtype == torch.float32
+    w2, _ = base.torch_linear_init(_gen(15), 400, 500)
+    assert float(w2.abs().max()) <= 1 / 20 and float(w2.abs().max()) > 0.99 / 20
+    assert abs(float(w2.mean())) < MEAN_TOL / 20
+    g = _gen(15)
+    first = torch.empty((64, 3)).uniform_(-k, k, generator=g)
+    then = torch.empty((3,)).uniform_(-k, k, generator=g)
+    assert torch.equal(w, first) and torch.equal(b, then)
+
+
+def test_dropout_scales_the_kept_entries_and_is_the_identity_at_rate_0():
+    x = torch.from_numpy(np.random.default_rng(16).normal(size=(1000, 1000)).astype(np.float32))
+    g = _gen(17)
+    state = g.get_state()
+    assert base.dropout(x, 0.0, g) is x and torch.equal(g.get_state(), state)
+    y = base.dropout(x, 0.4, g)
+    kept = y != 0
+    assert y.dtype == x.dtype and abs(float(kept.float().mean()) - 0.6) < MEAN_TOL
+    # kept values are x / 0.6, correctly rounded
+    want = x / torch.full((), 0.6, dtype=torch.float32)
+    assert torch.equal(y[kept], want[kept])
+    mask = noise.bernoulli(0.6, x.shape, _gen(17))
+    assert torch.equal(kept, mask & (x != 0))
+    assert base.dropout(x.to(torch.bfloat16), 0.4, g).dtype == torch.bfloat16
+
+
 _CALLS = {
     "uniform": lambda g: noise.uniform((64, 32), g),
     "normal": lambda g: noise.normal((64, 32), g),
     "beta": lambda g: noise.beta(0.1, 0.1, g, shape=(64,)),
     "dirichlet": lambda g: noise.dirichlet(torch.full((4, 64), 0.1), g),
     "permutation": lambda g: noise.permutation(64, g),
+    "bernoulli": lambda g: noise.bernoulli(0.5, (64, 32), g),
+    "choice": lambda g: noise.choice(64, 16, g),
 }
 
 

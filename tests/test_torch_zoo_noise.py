@@ -85,7 +85,7 @@ _SHAPE = (200, 300, 3000, 400)
 NOISY = ("SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
 DRAWING = ("SimGCL", "XSimGCL", "BIGCF", "MixRec")
 EARLIER = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF")
-_DRAWS = ("uniform", "normal", "beta", "dirichlet", "permutation")
+_DRAWS = ("uniform", "normal", "beta", "dirichlet", "permutation", "bernoulli")
 _OVERRIDES = {"dataset": "tiny", "embedding_size": str(D), "GCN_layer": "2",
               "learn_rate": str(LR), "batch_size": str(B), "test_batch_size": "64",
               "top_K": "[5, 10]", "interval": "1", "training_epochs": "2"}
@@ -159,11 +159,13 @@ class Tape:
 
 
 class Replay:
-    """Swaps ops/noise.py's draws for a tape's arrays, in call order."""
+    """Swaps ops/noise.py's draws for a tape's arrays, in call order.
+    ``choice`` (k-means's initial rows) is replayed too: JAX draws it
+    under jit, so a test derives its values and loads them itself."""
 
     def __init__(self, monkeypatch):
         self.queue: list[tuple[str, np.ndarray]] = []
-        for kind in _DRAWS:
+        for kind in _DRAWS + ("choice",):
             monkeypatch.setattr(t_noise, kind, self._player(kind))
 
     def load(self, draws):
@@ -185,6 +187,12 @@ class Replay:
                 assert tuple(args[0].shape) == arr.shape
             if kind == "permutation":
                 assert arr.shape == (args[0],)
+                return torch.from_numpy(arr.astype(np.int64))
+            if kind == "bernoulli":
+                assert tuple(args[1]) == arr.shape, (kind, tuple(args[1]), arr.shape)
+                return torch.from_numpy(arr.astype(bool))
+            if kind == "choice":
+                assert arr.shape == (args[1],) and 0 <= arr.min() and arr.max() < args[0]
                 return torch.from_numpy(arr.astype(np.int64))
             return torch.from_numpy(np.array(arr, np.float32))
         return draw
