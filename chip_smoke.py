@@ -134,16 +134,19 @@ launch counts set to 0 just before and read just after:
   against the float32 gather EGCF, one step against the plain route and
   24 steps;
 * the zoo: MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp,
-  BIGCF, CGCL, NCL, HCCF and IMPGCN at their published configs on the
-  yelp2018-scale set, LightCCF, LightCSCF and MixRec on an
+  BIGCF, CGCL, NCL, HCCF, IMPGCN, NGCF, GCMC, GCCF, LightGODE and RecDCL
+  at their published configs on the yelp2018-scale set, LightCCF, LightCSCF and MixRec on an
   amazon-book-scale one (52,643 x 91,599, M 4.83 GB int8), each model's
   batch size, bfloat16 on `auto` (dense: K6 a layer each way under the
   LightGCN encoder and in every propagation of the others; SimGCL's three
   chains in one at d = 192, LightGCN_pp's on the `gen` scaling, IMPGCN's
   six layers with its three groups in one at d = 192 and its Â·E, which
-  feeds only its gates, forward alone): one step against the plain route
-  (K6's plain version), the step's noise from a fresh CUDA generator
-  seeded alike for both, one step under sync debug mode "error", a
+  feeds only its gates, forward alone; NGCF's and GCCF's three layers on
+  the `self` adjacency, GCMC's one; LightGODE's one Euler step under its
+  MF_init; RecDCL's two layers at d = 2,048, sixteen reads of M a
+  launch): one step against the plain route (K6's plain version), the
+  step's noise from a fresh CUDA generator seeded alike for both (RecDCL
+  from the same histories, which both steps rewrite alike), one step under sync debug mode "error", a
   request of 256 users against the plain route's server (the eval
   generator seeded 0 in both), ZOO_STEPS steps with finite loss terms
   and gradients (LightGCN_pp's with an item that has no train edge;
@@ -151,14 +154,21 @@ launch counts set to 0 just before and read just after:
   launches a step and a representation, ms per step and eval embeddings
   beside K6's bound, a step's memory beyond the model's (no float copy
   of M: below M's bytes, for CGCL and NCL plus the float32 score
-  matrices their contrasts against a full table keep for the backward);
+  matrices their contrasts against a full table keep for the backward,
+  for RecDCL plus a K6 launch's scratch and output at d = 2,048 and the
+  float32 [N, d] tensors its step keeps, and then one RecDCL step at
+  d = 64 below M's bytes alone);
   NCL past its warm-up: its k-means at k = 2,000 on both tables (the
   sums on K4) under sync debug mode "error", equal bit for bit to the
   same clustering on K4's plain version, timed, its steps with a
   non-zero prototype term and the 24 steps' path clustering first; K6 on
   amazon-book's M timed beside its bound; K6 at d = 192 on SimGCL's M
   (three reads of M a launch) held to its plain version and timed beside
-  three d = 64 applications and its bound; MAWU through
+  three d = 64 applications and its bound; K6 at d = 2,048 on RecDCL's
+  M (sixteen reads of M a launch) held to its plain version and timed
+  beside its bound and a library call; one NGCF step with node dropout
+  (the gather backend, the dropped edge values' transpose through the
+  graph's permutation) under sync debug mode "error"; MAWU through
   `main.main(["--model=MAWU", ...])` from files;
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
@@ -281,9 +291,22 @@ NOISE_ZOO = ("SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec")
 # the full-pool contrasts (CGCL, NCL with its k-means), HCCF and IMPGCN (6
 # layers, its three groups at d = 192)
 CONTRAST_ZOO = ("CGCL", "NCL", "HCCF", "IMPGCN")
-ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + NOISE_ZOO + CONTRAST_ZOO
-# the layers each zoo model's published config names (the others: LAYERS)
+# per-layer weight tables and message dropout: NGCF (batch 1,024) and GCCF
+# on the `self` adjacency, 3 layers, GCMC on `sym`, 1 layer
+WEIGHTED_ZOO = ("NGCF", "GCMC", "GCCF")
+# LightGODE's graph ODE (MF_init: one application in training too) and RecDCL
+# (d = 2,048, 2 layers; its target histories are model state)
+STATE_ZOO = ("LightGODE", "RecDCL")
+# the zoo models whose every embedding goes through the adjacency (the
+# encoder-switch family does under its LightGCN encoder)
+PROPAGATING = NOISE_ZOO + CONTRAST_ZOO + WEIGHTED_ZOO + STATE_ZOO
+ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + PROPAGATING
+# the layers each earlier zoo model's published config names (the others:
+# LAYERS); the models of WEIGHTED_ZOO and RecDCL run their config's
+# GCN_layer, LightGODE one application (its one Euler step)
 ZOO_LAYERS = {"IMPGCN": 6}
+# the width each zoo model's published config names (the others: DIM)
+ZOO_DIMS = {"RecDCL": 2048}
 # IMPGCN's grouping tables: no gradient (the gates are a top-1 mask)
 NO_GRAD = {"IMPGCN": ("fc_b", "fc_group_b", "fc_group_w", "fc_w")}
 # NCL's k-means: Lloyd iterations a table, one K4 launch each
@@ -450,9 +473,11 @@ def plain_duals(fusedmm, propagate):
 
 def zoo_k6_launches(name: str, propagates: bool, layers: int) -> tuple[int, int]:
     """(K6 launches of one training step, of one representation) of a zoo
-    model: none under MF; a layer each way in a step and one a layer in a
-    representation elsewhere; IMPGCN's Â·E feeds only its gates (no
-    backward), its groups' layers 1 .. L - 1 run each way."""
+    model: none under MF; a layer (LightGODE: its one application) each
+    way in a step and one a layer in a representation elsewhere (the
+    first layer's input is the tables, which take a gradient); IMPGCN's
+    Â·E feeds only its gates (no backward), its groups' layers 1 .. L - 1
+    run each way."""
     if not propagates:
         return 0, 0
     if name == "IMPGCN":
@@ -467,6 +492,23 @@ def kept_score_bytes(name: str, batch: int, num_users: int, num_items: int) -> i
     full user and the full item table, NCL's structural term once."""
     heads = {"CGCL": 3, "NCL": 1}.get(name, 0)
     return 4 * batch * (num_users + num_items) * heads
+
+
+def wide_step_bytes(adj, layers: int, d: int) -> dict[str, int]:
+    """The device bytes beyond M's that a step of a LightGCN-mean model at a
+    wide d (RecDCL's 2,048) holds at its peak, from the shapes: one K6
+    launch's scratch (the library's ``dual_bf16_scratch_bytes``, 10 bytes
+    a padded row and feature), its float32 output over the padded rows,
+    and the float32 [N, d] tensors the step keeps (the tables'
+    concatenation, each layer's output, the running sum, the mean, the
+    tables' gradient: layers + 4)."""
+    from idgrec_torch.ops import fusedmm
+
+    n = adj.num_users + adj.num_items
+    u_pad, i_pad = adj.m.shape
+    lib = fusedmm._lib(fusedmm._K6)
+    return {"k6_scratch": int(lib.dual_bf16_scratch_bytes(u_pad, i_pad, d)),
+            "k6_output": 4 * (u_pad + i_pad) * d, "kept_f32": (layers + 4) * 4 * n * d}
 
 
 def write_dataset(directory: str, data) -> None:
@@ -3048,12 +3090,25 @@ def main() -> int:
         data_z, sampler_z = zoo_sets[cfg_z.str("dataset")]
         cfg_z = cfg_z.updated(dataset=data_z.name)
         lgcn = (cfg_z.str("encoder", "MF") == "LightGCN"
-                or name_z in NOISE_ZOO + CONTRAST_ZOO)
-        layers_z = ZOO_LAYERS.get(name_z, LAYERS)
-        require(cfg_z.int("embedding_size") == DIM and cfg_z.str("compute_dtype") == "bfloat16"
-                and cfg_z.str("propagation_backend") == "auto"
-                and (not lgcn or cfg_z.int("GCN_layer") == layers_z),
-                f"{name_z}: not the published config the phase expects")
+                or (name_z in PROPAGATING and cfg_z.str("train_strategy", "") != "MF"))
+        dim_z = ZOO_DIMS.get(name_z, DIM)
+        if name_z == "LightGODE":
+            layers_z = 1  # one Euler step: one application
+        elif name_z in WEIGHTED_ZOO + STATE_ZOO:
+            layers_z = cfg_z.int("GCN_layer")
+        else:
+            layers_z = ZOO_LAYERS.get(name_z, LAYERS)
+        published_z = (cfg_z.int("embedding_size") == dim_z
+                       and cfg_z.str("compute_dtype") == "bfloat16"
+                       and cfg_z.str("propagation_backend") == "auto")
+        if name_z == "LightGODE":
+            published_z = published_z and cfg_z.str("train_strategy") == "MF_init"
+        elif lgcn:
+            published_z = published_z and cfg_z.int("GCN_layer") == layers_z
+        if name_z in WEIGHTED_ZOO:
+            published_z = (published_z and not cfg_z.bool("node_dropout", False)
+                           and cfg_z.int_list("layer_size")[:layers_z] == [dim_z] * layers_z)
+        require(published_z, f"{name_z}: not the published config the phase expects")
         step_k6_z, repr_k6_z = zoo_k6_launches(name_z, lgcn, layers_z)
         no_grad_z = NO_GRAD.get(name_z, ())
         # NCL past its warm-up: the epoch its steps take
@@ -3068,18 +3123,18 @@ def main() -> int:
         k6_bound_z = None
         if lgcn:
             g_z = m_z.graph
+            # a step's applications: SimGCL's three chains and IMPGCN's three
+            # groups run at 3d
+            d_step = 3 * dim_z if name_z in ("SimGCL", "IMPGCN") else dim_z
             require(isinstance(g_z, propagate.DenseSquareAdj) and g_z.quant == "none"
-                    and g_z.compute_dtype_name == "bfloat16" and g_z.runs_kernel(DIM)
-                    and g_z.runs_kernel(3 * DIM),
+                    and g_z.compute_dtype_name == "bfloat16" and g_z.runs_kernel(dim_z)
+                    and g_z.runs_kernel(d_step),
                     f"{name_z}: the model's adjacency is not dense bfloat16 on K6")
             nnz_z = int(data_z.nnz)  # M's non-zero entries: the distinct train pairs
             nu_z, ni_z = data_z.num_users, data_z.num_items
             # M read once, the float32 activations in and the sums out once
-            k6_bound_z = bound(g_z.m.numel() + 8 * DIM * (nu_z + ni_z), 4.0 * nnz_z * DIM,
+            k6_bound_z = bound(g_z.m.numel() + 8 * dim_z * (nu_z + ni_z), 4.0 * nnz_z * dim_z,
                                bf16_ops)
-            # a step's applications: SimGCL's three chains and IMPGCN's three
-            # groups run at 3d
-            d_step = 3 * DIM if name_z in ("SimGCL", "IMPGCN") else DIM
             k6_step_bound_z = bound(g_z.m.numel() + 8 * d_step * (nu_z + ni_z),
                                     4.0 * nnz_z * d_step, bf16_ops)
         if name_z == "LightGCN_pp":
@@ -3119,10 +3174,14 @@ def main() -> int:
             kmeans_ms_z = host_ms(
                 lambda: m_z.epoch_context(epoch_z, np.random.default_rng(ZOO_NOISE_SEED)), 3)
 
+        # RecDCL's histories: each route's step starts from the same ones
+        state0_z = {k_: v_.clone() for k_, v_ in m_z.model_state().items()}
+
         def zoo_step(m_, b_=batch_z):
             # a fresh generator a call: the kernel step and the plain one draw
             # the same noise
             gen_ = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
+            m_.load_model_state(state0_z)
             m_.zero_grad(set_to_none=True)
             terms_ = m_.loss_terms(b_, gen_, epoch_z)
             total_ = terms_[0]
@@ -3140,11 +3199,19 @@ def main() -> int:
         got_z = zoo_step(m_z)
         torch.cuda.synchronize()
         step_mem = torch.cuda.max_memory_allocated() - mem0
+        hist_z = [v_.clone() for v_ in m_z.model_state().values()]
         with plain_duals(fusedmm, propagate):
             want_z = zoo_step(m_z)
         for what, a, b in zip(m_z.loss_names, got_z[0], want_z[0]):
             require(bool(torch.isfinite(a)), f"{name_z} step, {what}: not finite")
             assert_close(a, b, f"{name_z} step, {what}", **TIGHT)
+        for what, a, b in zip(m_z.state_names, hist_z, m_z.model_state().values()):
+            # the batch's final embeddings written into the histories
+            require(bool(torch.isfinite(a).all()), f"{name_z} step, {what}: not finite")
+            assert_close(a, b, f"{name_z} step, {what}", **TIGHT)
+        require(m_z.state_names == () or not all(torch.equal(a, b) for a, b in zip(
+            hist_z, state0_z.values())), f"{name_z}: the step left its state as it was")
+        del hist_z, state0_z
         for what, a, b in zip(convert.table_names(m_z), got_z[1], want_z[1]):
             if what in no_grad_z:
                 require(a is None and b is None, f"{name_z} step, d {what}: a gradient")
@@ -3157,16 +3224,38 @@ def main() -> int:
         same_z = all(a is b or torch.equal(a, b) for a, b in zip(got_z[0] + got_z[1],
                                                                  want_z[0] + want_z[1]))
         require(lgcn or same_z, f"{name_z} under MF: the plain route is the same route")
-        mem_bar_z = None
+        mem_bar_z, wide_z, narrow_mem_z = None, {}, None
         if lgcn:
             # no float32 (or bfloat16) copy of M: the step's extra memory stays
             # below M's own int8 bytes, plus, for the contrasts against a full
-            # table, the score matrices the step keeps for its backward
+            # table, the score matrices the step keeps for its backward, and at
+            # RecDCL's width the K6 launch's scratch and output and the float32
+            # [N, d] tensors the step keeps
             kept_z = kept_score_bytes(name_z, bs, data_z.num_users, data_z.num_items)
-            mem_bar_z = g_z.m.numel() + kept_z
+            if name_z == "RecDCL":
+                wide_z = wide_step_bytes(g_z, layers_z, dim_z)
+            mem_bar_z = g_z.m.numel() + kept_z + sum(wide_z.values())
             require(step_mem < mem_bar_z,
                     f"{name_z}: a step took {step_mem} bytes beyond the model's, above M's "
-                    f"{g_z.m.numel()} and the {kept_z} bytes of kept score matrices")
+                    f"{g_z.m.numel()}, the {kept_z} bytes of kept score matrices and the "
+                    f"wide step's {wide_z}")
+        if wide_z and mem_bar_z >= 2 * g_z.m.numel():
+            # the wide bar cannot rule out a bfloat16 copy of M (2 bytes an
+            # entry): one step of the same model at d = DIM under M's bytes
+            narrow = get_model(name_z)(cfg_z.updated(embedding_size=DIM), data_z, device=dev,
+                                       generator=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            terms_n = narrow.loss_terms(batch_z, None, epoch_z)
+            sum(terms_n).backward()
+            torch.cuda.synchronize()
+            narrow_mem_z = torch.cuda.max_memory_allocated() - mem0
+            require(all(bool(torch.isfinite(t_.detach())) for t_ in terms_n)
+                    and narrow_mem_z < narrow.graph.m.numel(),
+                    f"{name_z} at d = {DIM}: a step took {narrow_mem_z} bytes beyond the "
+                    f"model's, above M's {narrow.graph.m.numel()} (terms {terms_n})")
+            del narrow, terms_n
         del got_z, want_z
         # one step under sync debug mode "error" (the optimizer's state is made
         # by the step before it)
@@ -3233,9 +3322,11 @@ def main() -> int:
         zoo_res[name_z] = dict(step_ms=step_ms_z, embed_ms=embed_ms_z, k6_bound=k6_bound_z,
                                step_mem_mb=step_mem / 1e6,
                                mem_bar_mb=None if mem_bar_z is None else mem_bar_z / 1e6,
-                               kmeans_ms=kmeans_ms_z)
-        enc_z = (f"{cfg_z.str('encoder', 'MF')} encoder"
-                 if name_z not in NOISE_ZOO + CONTRAST_ZOO else "dense K6 propagation")
+                               kmeans_ms=kmeans_ms_z,
+                               narrow_mem_mb=None if narrow_mem_z is None else narrow_mem_z / 1e6)
+        enc_z = (f"{cfg_z.str('encoder', 'MF')} encoder" if name_z not in PROPAGATING
+                 else f"dense K6 propagation at d = {dim_z}, {layers_z} "
+                      f"application{'s' if layers_z > 1 else ''} a pass")
         log(f"{name_z} ({enc_z}, batch {bs}, on {data_z.name}): one "
             f"step against the plain route (bit-equal: {same_z}), one under sync debug mode "
             f"'error', {ZOO_REQUEST} users served against the plain route; {step_ms_z:.3f} ms "
@@ -3243,7 +3334,7 @@ def main() -> int:
             f"{embed_first_ms:.3f}), K6 launches {got_l.get('fused_adj_matmul', 0)}"
             + (f", K6's bound {k6_bound_z[0]:.4f} ms an application by {k6_bound_z[1]} "
                f"({step_k6_z} a step, {repr_k6_z} a representation"
-               + (f", at d = {d_step}: {k6_step_bound_z[0]:.4f} ms" if d_step != DIM else "")
+               + (f", at d = {d_step}: {k6_step_bound_z[0]:.4f} ms" if d_step != dim_z else "")
                + ")" if lgcn else ", no propagation")
             + (f"; {no_edge_z} item(s) without a train edge, the gradients finite"
                if name_z == "LightGCN_pp" else "")
@@ -3254,8 +3345,11 @@ def main() -> int:
             + (f"; {', '.join(no_grad_z)} without a gradient, unmoved" if no_grad_z else "")
             + f"; a step's memory beyond the model's {step_mem / 1e6:.1f} MB"
             + (f" (bar {mem_bar_z / 1e6:.1f} MB: M's bytes"
-               + (" and the kept score matrices" if mem_bar_z > g_z.m.numel() else "") + ")"
+               + (" and the kept score matrices" if kept_z else "")
+               + "".join(f", {k_} {v_ / 1e6:.1f} MB" for k_, v_ in wide_z.items()) + ")"
                if mem_bar_z is not None else "")
+            + (f"; at d = {DIM} a step's memory {narrow_mem_z / 1e6:.1f} MB, below M's bytes"
+               if narrow_mem_z is not None else "")
             + "; loss sums "
             f"{dict(zip(m_z.loss_names, np.round(terms_z, 5).tolist()))}; built in {build_s:.1f} s")
         del runner_z, triple_z, batch_z
@@ -3328,6 +3422,80 @@ def main() -> int:
         f"d = {DIM} applications (bound {k6s_bound[0]:.4f} ms by {k6s_bound[1]}, plain "
         f"{k6s_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6s_lib:.4f} ms); two "
         f"launches bit-equal, within TIGHT of its plain version")
+
+    # K6 at d = 2,048, RecDCL's width, on its yelp2018-scale dense M: sixteen
+    # reads of M a launch (128 features a read), held to its plain version,
+    # timed beside its bound and two torch.matmul calls on a bfloat16 copy of
+    # M (the copy not counted)
+    g_w = zoo_models["RecDCL"].graph
+    dim_w = ZOO_DIMS["RecDCL"]
+    nu_w, ni_w = data.num_users, data.num_items
+    with torch.no_grad():
+        emb_w = concat_user_item(zoo_models["RecDCL"].user_emb, zoo_models["RecDCL"].item_emb)
+        zu_w = (g_w.right_u[:, None] * emb_w[:nu_w]).contiguous()
+        zi_w = (g_w.right_i[:, None] * emb_w[nu_w:]).contiguous()
+    del emb_w
+    y_w = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w)
+    k6w_passes = fusedmm.fused_adj_matmul.passes
+    require(k6w_passes == fusedmm.scan_passes(dim_w) == 16,
+            f"K6 at d = {dim_w}: {k6w_passes} reads of M launched, 16 expected")
+    y_w_again = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w)
+    for what, a, b, c in zip(("yu", "yi"), y_w, y_w_again,
+                             fusedmm.fused_adj_matmul_plain(g_w.m, zu_w, zi_w)):
+        require(torch.equal(a, b), f"K6 d = {dim_w} {what}: two launches differ")
+        assert_close(a, c, f"K6 d = {dim_w} {what}", **TIGHT)
+        errs["K6"] = max(errs["K6"], max_abs(a, c))
+    del y_w, y_w_again
+    k6w_bound = bound(g_w.m.numel() + 8 * dim_w * (nu_w + ni_w), 4.0 * int(data.nnz) * dim_w,
+                      bf16_ops)
+    k6w_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w), 10)
+    k6w_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(g_w.m, zu_w, zi_w), 2, 1)
+    m_bf_w = g_w.m.to(torch.bfloat16)
+    zu16_w = torch.nn.functional.pad(zu_w.to(torch.bfloat16), (0, 0, 0, g_w.m.shape[0] - nu_w))
+    zi16_w = torch.nn.functional.pad(zi_w.to(torch.bfloat16), (0, 0, 0, g_w.m.shape[1] - ni_w))
+    k6w_lib = cuda_ms(lambda: (m_bf_w @ zi16_w, m_bf_w.T @ zu16_w), 5)
+    del m_bf_w, zu16_w, zi16_w, zu_w, zi_w
+    torch.cuda.empty_cache()
+    log(f"K6 at d = {dim_w} on RecDCL's M {list(g_w.m.shape)}: {k6w_passes} reads of M, as "
+        f"launched; {k6w_ms:.4f} ms an application (bound {k6w_bound[0]:.4f} ms by "
+        f"{k6w_bound[1]}, plain {k6w_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy "
+        f"{k6w_lib:.4f} ms); two launches bit-equal, within TIGHT of its plain version")
+    # NGCF with node dropout (off in its published config), which forces the
+    # gather backend: the edge mask, the dropped values and their transpose
+    # through the graph's permutation, the sparse products; one step under
+    # sync debug mode "error" after one that makes Adam's state
+    cfg_nd = load_model_config("NGCF").updated(dataset=data.name, node_dropout=True)
+    t0 = time.perf_counter()
+    m_nd = get_model("NGCF")(cfg_nd, data, device=dev, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    nd_build_s = time.perf_counter() - t0
+    require(isinstance(m_nd.graph, propagate.GatherSquareAdj)
+            and m_nd.graph.t_perm is not None, "NGCF node dropout: not on the gather backend")
+    bs_nd = cfg_nd.int("batch_size")
+    triple_nd = [t_[:2 * bs_nd] for t_ in neg_sampler.sample_epoch(gen)]
+    runner_nd = EpochRunner(m_nd, cfg_nd.float("learn_rate"), bs_nd, bs_nd)
+    gen_nd = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
+    runner_nd.run_epoch(*[t_[:bs_nd] for t_ in triple_nd], generator=gen_nd)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms_nd = runner_nd.run_epoch(*[t_[bs_nd:] for t_ in triple_nd], generator=gen_nd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    nd_step_ms = (time.perf_counter() - t0) * 1e3
+    require(not any(read_counts().values()), "NGCF node dropout: a kernel launched on gather")
+    terms_nd = terms_nd.cpu().numpy()
+    require(bool(np.isfinite(terms_nd).all())
+            and all(bool(torch.isfinite(p_.grad).all()) for p_ in m_nd.parameters()),
+            f"NGCF node dropout: loss terms {terms_nd} or a gradient not finite")
+    log(f"NGCF with node dropout on gather (built in {nd_build_s:.1f} s, the transpose "
+        f"permutation included): one step under sync debug mode 'error', {nd_step_ms:.1f} ms, "
+        f"loss terms {terms_nd.tolist()}, gradients finite")
+    del m_nd, runner_nd, triple_nd
+    torch.cuda.empty_cache()
 
     # MAWU through its command line, from files
     tmp_z = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
@@ -3606,6 +3774,8 @@ def main() -> int:
                      plain_ms_d192=k6s_plain, library_ms_d192=k6s_lib, passes_d192=k6s_passes,
                      ms_three_d64=k6s_3x64_ms, ms_amazon=k6a_ms, bound_ms_amazon=k6a_bound[0],
                      plain_ms_amazon=k6a_plain, library_ms_amazon=k6a_lib,
+                     ms_d2048=k6w_ms, bound_ms_d2048=k6w_bound[0], plain_ms_d2048=k6w_plain,
+                     library_ms_d2048=k6w_lib, passes_d2048=k6w_passes,
                      launches_dense=sum(c["fused_adj_matmul"] for path, c in by_path.items()
                                         if path.startswith(("dense", "zoo", "batch_rows",
                                                             "learnability_directau"))))

@@ -15,6 +15,10 @@ parameters); `torch.optim.Adam` holds ``step``, ``exp_avg`` and
 `load_adam_state` map one onto the other, so both packages can take the
 same step from the same state.
 
+A model's state (RecDCL's target histories; `RecModel.init_state`)
+crosses as numpy too, by name: `state_to_numpy` and the model's
+`load_model_state`. It is neither a parameter nor an Adam moment.
+
 `load_jax_checkpoint` reads a checkpoint written by the JAX package's
 ``train_model(checkpoint_dir=...)`` into the port's model and Adam: the
 way trained weights cross, train in one package and serve from the
@@ -64,6 +68,12 @@ def jax_params_from_model(model: torch.nn.Module) -> dict[str, np.ndarray]:
     return {k: getattr(model, k).detach().cpu().numpy().copy() for k in table_names(model)}
 
 
+def state_to_numpy(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The model's state as the JAX state pytree of numpy arrays (empty
+    for a model without state)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.model_state().items()}
+
+
 def adam_state_to_numpy(optimizer: torch.optim.Adam, model: torch.nn.Module) -> dict:
     """{"count": int, "mu": {name: array}, "nu": {name: array}} of the
     optimizer's state for the model's tables (zeros before any step):
@@ -101,19 +111,21 @@ def load_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module, count: 
 
 
 # A JAX checkpoint's tree is {"opt_state", "params", "rng", "state"},
-# flattened in sorted key order. For a model with n tables and an empty
-# state, under optax.adam, the leaves are
+# flattened in sorted key order. For a model with n tables and s state
+# tensors, under optax.adam, the leaves are
 #   0                 opt_state: ScaleByAdamState.count
 #   1 .. n            opt_state: mu {tables, sorted}
 #   n+1 .. 2n         opt_state: nu {tables, sorted}
 #   2n+1 .. 3n        params {tables, sorted}
 #   3n+1              rng: the JAX key
-# LightGCN (item_emb, user_emb) has 8 leaves, EGCF (item_emb) 5.
+#   3n+2 .. 3n+s+1    state {state tensors, sorted}
+# LightGCN (item_emb, user_emb) has 8 leaves, EGCF (item_emb) 5, RecDCL
+# (11 tables; i_target_his, u_target_his) 37.
 
 
 def jax_num_leaves(model: torch.nn.Module) -> int:
     """The leaf count of a JAX checkpoint of ``model`` in the layout above."""
-    return 3 * len(table_names(model)) + 2
+    return 3 * len(table_names(model)) + 2 + len(model.state_names)
 
 
 def split_adam_and_params(leaves, names: tuple[str, ...]) -> tuple[int, dict, dict, dict]:
@@ -131,10 +143,11 @@ def split_adam_and_params(leaves, names: tuple[str, ...]) -> tuple[int, dict, di
 def load_jax_checkpoint(model: torch.nn.Module, optimizer: torch.optim.Adam | None,
                         directory: str, epoch: int | None = None) -> dict:
     """Load a checkpoint written by the JAX package's ``train_model``
-    into ``model`` and, when given, ``optimizer`` (Adam's step and
-    moments). ``epoch`` defaults to the latest. Reads numpy only; the
-    JAX key in the checkpoint has no counterpart and is left behind.
-    Returns the sidecar (``epoch``, ``best``, ...)."""
+    into ``model`` (its tables and its state) and, when given,
+    ``optimizer`` (Adam's step and moments). ``epoch`` defaults to the
+    latest. Reads numpy only; the JAX key in the checkpoint has no
+    counterpart and is left behind. Returns the sidecar (``epoch``,
+    ``best``, ...)."""
     epoch = ckpt.resolve_epoch(directory, epoch)
     leaves, meta = ckpt.read_checkpoint(directory, epoch)
     names = table_names(model)
@@ -145,6 +158,7 @@ def load_jax_checkpoint(model: torch.nn.Module, optimizer: torch.optim.Adam | No
             f"{', '.join(names)} under Adam has {want}")
     count, mu, nu, params = split_adam_and_params(leaves, names)
     load_jax_params(model, params)
+    model.load_model_state(dict(zip(model.state_names, leaves[3 * len(names) + 2:])))
     if optimizer is not None:
         load_adam_state(optimizer, model, count, mu, nu)
     return meta

@@ -14,6 +14,8 @@ indices as int64 (what `index_select` takes).
 Not copied: the ``.npz`` cache beside the dataset (a graph is rebuilt
 from the CSR at every construction; at yelp2018 scale that is a sort of
 2.5 million edges) and the edge-dropout graph (ROADMAP A.7, SGL).
+`SparseGraph.transpose_permutation` serves the dropout of a graph's
+edge values (NGCF's node dropout, ops/propagate.py).
 """
 
 from __future__ import annotations
@@ -102,6 +104,25 @@ class SparseGraph:
             rows=self.t_rows, cols=self.t_cols, vals=self.t_vals, row_counts=self.t_row_counts,
             t_rows=self.rows, t_cols=self.cols, t_vals=self.vals, t_row_counts=self.row_counts,
             n_rows=self.n_cols, n_cols=self.n_rows, nnz=self.nnz, symmetric=self.symmetric)
+
+    def transpose_permutation(self) -> torch.Tensor:
+        """int64 [nnz_padded] on the graph's device: entry k of the
+        transpose arrays is the transpose of entry ``t_perm[k]`` of the
+        forward arrays, so ``vals[t_perm]`` are the transpose values of
+        any ``vals`` on this pattern. A symmetric graph's self loops and
+        the padding entries map to themselves. Built on the host from the
+        index arrays (one read of them); raises `ValueError` when the
+        pattern lacks an entry's transpose."""
+        n = self.nnz
+        rows, cols = self.rows[:n].cpu().numpy(), self.cols[:n].cpu().numpy()
+        t_rows, t_cols = self.t_rows[:n].cpu().numpy(), self.t_cols[:n].cpu().numpy()
+        keys = rows * self.n_cols + cols  # ascending: rows sorted, then columns
+        want = t_cols * self.n_cols + t_rows
+        perm = np.minimum(np.searchsorted(keys, want), max(n - 1, 0))
+        if n and not np.array_equal(keys[perm], want):
+            raise ValueError("the graph's pattern lacks the transpose of an entry")
+        pad = np.arange(n, self.rows.numel(), dtype=np.int64)
+        return torch.from_numpy(np.concatenate([perm.astype(np.int64), pad])).to(self.device)
 
     def with_values(self, vals: torch.Tensor, t_vals: torch.Tensor) -> "SparseGraph":
         """The same sparsity pattern with other edge values."""

@@ -15,14 +15,17 @@ order `jax.tree.leaves` gives a dict). The run harness writes
     opt_state: count, mu{tables}, nu{tables}
     params:    tables
     rng:       device, host
+    state:     the model's state tensors (none for most models)
 
 where the tables are the model's own, sorted by name (LightGCN
 item_emb, user_emb; EGCF item_emb), ``count``/``mu``/``nu`` are Adam's
-``step``/``exp_avg``/``exp_avg_sq`` (`convert.adam_state_to_numpy`) and
+``step``/``exp_avg``/``exp_avg_sq`` (`convert.adam_state_to_numpy`),
 ``rng`` holds the byte states of the run's explicit
-`torch.Generator`s. The first 3n + 1 leaves of n tables are those of a
-checkpoint written by the JAX package's ``train_model`` for the same
-model (`convert.load_jax_checkpoint`).
+`torch.Generator`s and ``state`` the model's state by name (RecDCL
+i_target_his, u_target_his; `convert.state_to_numpy`). The first 3n + 1
+leaves of n tables are those of a checkpoint written by the JAX
+package's ``train_model`` for the same model, whose state leaves follow
+its one key leaf (`convert.load_jax_checkpoint`).
 """
 
 from __future__ import annotations

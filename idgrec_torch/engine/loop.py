@@ -7,10 +7,14 @@ config echo, log lines and JSONL events, the same normalization of the
 logged losses, the same checkpoint cadence, and resume equal to a
 straight run.
 
-Random state is explicit: a host `torch.Generator` (the initial tables)
-and one on the run's device (sampling, whatever a model's loss draws,
-and whatever its evaluation draws: the JAX loop's ``eval_key``), both
-seeded from ``seed``, plus a numpy generator handed to
+A model's state (`RecModel.init_state`, drawn after the tables) lives
+in the model, changes with its steps, goes into every checkpoint and is
+restored on resume, and comes back in `TrainResult.state`.
+
+Random state is explicit: a host `torch.Generator` (the initial tables
+and state) and one on the run's device (sampling, whatever a model's
+loss draws, and whatever its evaluation draws: the JAX loop's
+``eval_key``), both seeded from ``seed``, plus a numpy generator handed to
 `RecModel.epoch_context`. The global generators are never used. The
 streams are PyTorch's, so the two packages draw different triples from
 the same seed: runs are compared by behaviour, not by value.
@@ -20,7 +24,6 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any
 
 import numpy as np
 import torch
@@ -47,7 +50,7 @@ from idgrec_torch.models.base import RecModel
 @dataclass
 class TrainResult:
     params: dict[str, torch.Tensor]  # the model's trained tables by name, on the run's device
-    state: Any
+    state: dict[str, torch.Tensor]   # the model's state by name (RecDCL's histories), or {}
     best: BestResults
     history: list[dict] = field(default_factory=list)
     last_result: dict | None = None
@@ -64,6 +67,7 @@ def training_state_tree(model: RecModel, optimizer: torch.optim.Adam,
         "params": convert.jax_params_from_model(model),
         "rng": {"device": dev_gen.get_state().numpy().copy(),
                 "host": host_gen.get_state().numpy().copy()},
+        "state": convert.state_to_numpy(model),
     }
 
 
@@ -147,6 +151,7 @@ def train_model(
             convert.load_jax_params(model, tree["params"])
             adam = tree["opt_state"]
             convert.load_adam_state(runner.opt, model, int(adam["count"]), adam["mu"], adam["nu"])
+            model.load_model_state(tree["state"])
             host_gen.set_state(torch.from_numpy(tree["rng"]["host"]))
             dev_gen.set_state(torch.from_numpy(tree["rng"]["device"]))
             if "np_rng_state" in meta:
@@ -221,5 +226,5 @@ def train_model(
     logger.event(kind="best", epoch=best.epoch, recall=best.recall, ndcg=best.ndcg)
     logger.close()
     params = {k: getattr(model, k).detach() for k in convert.table_names(model)}
-    return TrainResult(params=params, state={}, best=best, history=history,
+    return TrainResult(params=params, state=model.model_state(), best=best, history=history,
                        last_result=last_result)

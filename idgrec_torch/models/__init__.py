@@ -2,8 +2,9 @@
 model: LightGCN, EGCF, MFBPR, the encoder-switch family (DirectAU, MAWU,
 SCCF, LightCCF, LightCSCF), LightGCN_pp, the models that draw noise
 in their steps (SimGCL, XSimGCL, BIGCF, MixRec), the full-pool
-contrasts CGCL and NCL (NCL with on-device k-means), HCCF and IMPGCN;
-ROADMAP A.7 lists the rest."""
+contrasts CGCL and NCL (NCL with on-device k-means), HCCF and IMPGCN,
+the weighted graph convolutions NGCF, GCMC and GCCF, LightGODE's graph
+ODE and RecDCL, the first model with state; ROADMAP A.7 lists the rest."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
@@ -19,10 +20,13 @@ from idgrec_torch.models import (  # noqa: F401
     lightcscf,
     lightgcn,
     lightgcn_pp,
+    lightgode,
     mawu,
     mfbpr,
     mixrec,
     ncl,
+    ngcf,
+    recdcl,
     sccf,
     simgcl,
     xsimgcl,

@@ -10,6 +10,11 @@ batch; serving and evaluation need `eval_embeddings`, the
 representation computed once per sweep, and `score_batch`, the
 full-catalog scores of a user batch against it.
 
+A model may carry state from step to step (RecDCL's target histories):
+`RecModel.init_state` draws it after the tables, the tensors are
+buffers outside the parameters and the state dict, and `loss_terms`
+rewrites them in place.
+
 A model whose step draws random numbers (ops/noise.py) draws them from
 the `torch.Generator` that `loss_terms` is given, on the model's device,
 and raises `ValueError` without one; a model whose representation draws
@@ -73,13 +78,31 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return keep_dropout(x, 1.0 - rate, generator).to(x.dtype)
 
 
+def batch_norm(x: torch.Tensor, gamma: torch.Tensor | None = None,
+               beta: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
+    """Batch normalization over dim 0 with the batch's statistics, in
+    float32 (torch's BatchNorm1d in training mode): the population
+    variance (``correction=0``, as ``jnp.var``), then ``gamma`` and
+    ``beta`` [d] when given."""
+    x = x.to(torch.float32)
+    mean = torch.mean(x, dim=0, keepdim=True)
+    var = torch.var(x, dim=0, keepdim=True, correction=0)
+    y = (x - mean) / torch.sqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma[None, :] + beta[None, :]
+    return y
+
+
 class RecModel(nn.Module):
     """Base class: embedding-table recommender over a fixed graph.
 
     ``device`` defaults to the card; ``generator`` (a CPU
-    `torch.Generator`) draws the initial tables (`init_params`), seeded
-    from the config's ``seed`` when not given. Each table becomes an
-    `nn.Parameter` of the model under its name."""
+    `torch.Generator`) draws the initial tables (`init_params`), then the
+    initial state (`init_state`), seeded from the config's ``seed`` when
+    not given. Each table becomes an `nn.Parameter` of the model under
+    its name. Each state tensor becomes a buffer under its name, on the
+    model's device and outside the state dict: no gradient, no Adam
+    state, and `load_state_dict` of the tables alone stays strict."""
 
     model_name: str = "RecModel"
     loss_names: Sequence[str] = ("loss",)
@@ -105,6 +128,10 @@ class RecModel(nn.Module):
             generator = torch.Generator().manual_seed(config.int("seed"))
         for name, table in self.init_params(generator).items():
             setattr(self, name, nn.Parameter(table.to(self.device)))
+        state = self.init_state(generator)
+        self.state_names = tuple(sorted(state))
+        for name in self.state_names:
+            self.register_buffer(name, state[name].to(self.device), persistent=False)
 
     def init_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """The model's initial tables by name, drawn from ``generator``
@@ -113,6 +140,32 @@ class RecModel(nn.Module):
         return {"user_emb": xavier_uniform(generator, (self.num_users, d)),
                 "item_emb": xavier_uniform(generator, (self.num_items, d))}
 
+    def init_state(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The model's initial state by name (the JAX ``init_state``),
+        drawn from ``generator`` after the tables: tensors a step reads
+        and rewrites that are not parameters. Empty here."""
+        return {}
+
+    def model_state(self) -> dict[str, torch.Tensor]:
+        """The state tensors by name (the model's own, not copies)."""
+        return {name: getattr(self, name) for name in self.state_names}
+
+    @torch.no_grad()
+    def load_model_state(self, state) -> None:
+        """Copy ``state`` (name -> array or tensor, every state name, the
+        same shapes) into the model's state tensors."""
+        missing = [k for k in self.state_names if k not in state]
+        if missing:
+            raise KeyError(f"state lacks {missing}")
+        for name in self.state_names:
+            have = getattr(self, name)
+            value = state[name]
+            value = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+            if tuple(value.shape) != tuple(have.shape):
+                raise ValueError(f"state {name}: shape {tuple(value.shape)} != "
+                                 f"{tuple(have.shape)}")
+            have.copy_(value.to(have.device, have.dtype))
+
     def loss_terms(self, batch: dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,
                    epoch: int = 0) -> tuple[torch.Tensor, ...]:
@@ -120,7 +173,9 @@ class RecModel(nn.Module):
         ``loss_names``; their sum is what the trainer differentiates.
         ``batch`` holds int64 [B] tensors "user", "pos", "neg" on the
         model's device; ``generator`` (on that device) draws whatever
-        the step draws. Fixed arity."""
+        the step draws. Fixed arity. A model with state rewrites it in
+        place under ``no_grad``, as the last thing the step does to it
+        (the JAX ``loss_terms`` returns the new state)."""
         raise NotImplementedError
 
     def epoch_context(self, epoch: int, np_rng: np.random.Generator) -> Any:

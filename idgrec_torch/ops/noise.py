@@ -1,7 +1,7 @@
 """The random draws inside a model's step (counterpart of the
 ``jax.random`` calls in the JAX models: ``uniform`` in SimGCL and
 XSimGCL, ``normal`` in BIGCF, ``beta``, ``dirichlet`` and
-``permutation`` in MixRec, ``bernoulli`` in HCCF's and IMPGCN's
+``permutation`` in MixRec, ``bernoulli`` in HCCF's, IMPGCN's and NGCF's
 dropout, ``choice`` in NCL's k-means).
 
 * Every draw takes an explicit `torch.Generator` and lands on that

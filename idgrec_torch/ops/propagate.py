@@ -31,7 +31,10 @@ interaction-count matrix. Four backends apply it behind one facade
   apart (ops/bitmm.py), one kernel K11 launch per direction on bfloat16
   activations with float32 sums, whatever the compute dtype.
 * **gather** (`GatherSquareAdj`): row-sorted COO gather and sorted
-  segment sum (ops/spmm.py), for graphs whose dense matrix does not fit.
+  segment sum (ops/spmm.py), for graphs whose dense matrix does not fit,
+  and for NGCF's node dropout (`edge_dropout_matmul`: the stored edge
+  values dropped out, the transpose's values taken through the graph's
+  transpose permutation).
 
 The rectangular R̃ = diag(left) · M · diag(right) [U, I] (EGCF's
 alternating mode) has `matmul` (R̃ @ xi) and `t_matmul` (R̃ᵀ @ xu), one
@@ -59,7 +62,7 @@ import torch.nn.functional as F
 from idgrec_torch.data import graph as graph_lib
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
-from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm
+from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm, noise
 from idgrec_torch.ops.spmm import spmm, spmm_transpose
 
 # Dense-backend memory budget: the int8 count matrix (and its copies)
@@ -440,9 +443,36 @@ class DenseSquareAdj:
 
 @dataclass(frozen=True)
 class GatherSquareAdj:
-    """Square normalized adjacency as a sparse graph (ops/spmm.py)."""
+    """Square normalized adjacency as a sparse graph (ops/spmm.py). With
+    ``t_perm`` (`with_edge_dropout`) it also takes `edge_dropout_matmul`,
+    the product with the edge values dropped out."""
 
     graph: graph_lib.SparseGraph
+    # `SparseGraph.transpose_permutation` of ``graph``, on its device
+    t_perm: torch.Tensor | None = None
+
+    def with_edge_dropout(self) -> "GatherSquareAdj":
+        """This adjacency with its transpose permutation built (once, on
+        the host), so that `edge_dropout_matmul` runs."""
+        return GatherSquareAdj(self.graph, self.graph.transpose_permutation())
+
+    def edge_dropout_matmul(self, x: torch.Tensor, keep: float,
+                            generator: torch.Generator) -> torch.Tensor:
+        """Â_drop @ x: each stored edge value (padding included, as the
+        JAX package draws) kept with probability ``keep``
+        (`noise.bernoulli`) and divided by it, the others 0. The backward
+        multiplies by Â_dropᵀ, whose values are the dropped values taken
+        through ``t_perm``: the JAX package reuses the forward values for
+        the transpose of a symmetric graph, where entries (u, i) and
+        (i, u) are dropped independently, so its gradient is that of
+        another matrix. Nothing is read back to the host."""
+        if self.t_perm is None:
+            raise ValueError("edge_dropout_matmul needs the adjacency's transpose "
+                             "permutation: GatherSquareAdj.with_edge_dropout()")
+        g = self.graph
+        mask = noise.bernoulli(keep, g.vals.shape, generator)
+        vals = torch.where(mask, true_divide(g.vals, keep), 0.0)
+        return spmm(g.with_values(vals, vals[self.t_perm]), x)
 
     @property
     def shape(self) -> tuple[int, int]:

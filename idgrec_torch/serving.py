@@ -85,8 +85,10 @@ class Recommender:
         """Serve from a training checkpoint written by
         ``train_model(checkpoint_dir=...)`` of this package or of the
         JAX package: both keep Adam's state and the model's tables in
-        the same first leaves (`convert.split_adam_and_params`). Loads
-        the latest checkpoint unless ``epoch`` picks one."""
+        the same first leaves (`convert.split_adam_and_params`). A
+        model's state (RecDCL's histories) is not read: evaluation does
+        not use it, as in the JAX package. Loads the latest checkpoint
+        unless ``epoch`` picks one."""
         epoch = ckpt.resolve_epoch(checkpoint_dir, epoch)
         model = get_model(model_name)(config, data, device=device)
         leaves, _meta = ckpt.read_checkpoint(checkpoint_dir, epoch)

@@ -3,18 +3,21 @@
 GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
-        LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec|CGCL|NCL|HCCF|IMPGCN]
+        LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec|CGCL|NCL|HCCF|IMPGCN|
+        NGCF|GCMC|GCCF|LightGODE|RecDCL]
         [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
         [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
-        [--mode parallel|alternating] [--embedding_size 64] [--root DIR]
+        [--mode parallel|alternating] [--embedding_size D] [--root DIR]
 
-Builds the model of chip_smoke.py (its config file's loss weights, d = 64
-unless ``--embedding_size`` says otherwise (128 takes int8 and int4 to
-the per-application loop); LightGCN and EGCF 3 layers, the zoo its
-config's, IMPGCN 6) on the synthetic set at the scale of the dataset
-its config names: yelp2018 (LightGCN, EGCF, MFBPR, DirectAU, MAWU, SCCF,
-SimGCL, XSimGCL, LightGCN_pp, BIGCF, CGCL, NCL, HCCF, IMPGCN) or
-amazon-book (LightCCF, LightCSCF, MixRec). LightGCN and EGCF run int8
+Builds the model of chip_smoke.py (its config file's loss weights and
+width, d = 64, RecDCL 2,048, unless ``--embedding_size`` says otherwise
+(LightGCN and EGCF 64; 128 takes int8 and int4 to the per-application
+loop); LightGCN and EGCF 3 layers, the zoo its config's: IMPGCN 6, GCMC
+1, RecDCL 2, LightGODE one application under its MF_init) on the
+synthetic set at the scale of the dataset its config names: yelp2018
+(LightGCN, EGCF, MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL,
+LightGCN_pp, BIGCF, CGCL, NCL, HCCF, IMPGCN, NGCF, GCMC, GCCF,
+LightGODE, RecDCL) or amazon-book (LightCCF, LightCSCF, MixRec). LightGCN and EGCF run int8
 and batch 2,048 unless told otherwise, the zoo its config's compute
 dtype (bfloat16) and batch size. A step's noise comes from a CUDA
 generator seeded 0. NCL steps past its warm-up: its k-means runs first
@@ -60,7 +63,7 @@ SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
           "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
 MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF",
           "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec", "CGCL", "NCL", "HCCF",
-          "IMPGCN")
+          "IMPGCN", "NGCF", "GCMC", "GCCF", "LightGODE", "RecDCL")
 
 
 def main() -> int:
@@ -74,7 +77,8 @@ def main() -> int:
     parser.add_argument("--batch_rows", action="store_true")
     parser.add_argument("--mode", default="parallel", choices=["parallel", "alternating"],
                         help="EGCF's propagation mode")
-    parser.add_argument("--embedding_size", type=int, default=64)
+    parser.add_argument("--embedding_size", type=int, default=None,
+                        help="default: 64 for LightGCN and EGCF, the config's for the zoo")
     parser.add_argument("--root", default=ROOT)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -101,6 +105,8 @@ def main() -> int:
     batch_size = 2048 if ours else cfg.int("batch_size")
     scale = cfg.str("dataset")
     data = make_synthetic_dataset(*SCALES[scale], seed=0, name=f"{scale}-scale")
+    if args.embedding_size is None:
+        args.embedding_size = 64 if ours else cfg.int("embedding_size")
     cfg = cfg.updated(embedding_size=args.embedding_size,
                       GCN_layer=3 if ours else cfg.int("GCN_layer", 3), compute_dtype=dtype,
                       propagation_backend=args.backend,

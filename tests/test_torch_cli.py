@@ -105,9 +105,11 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     assert t_main.main([]) == 2
     out = capsys.readouterr().out
     assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 4. EGCF" in out
-    assert "\t 2. CGCL" in out and "\t 5. HCCF" in out and "\t 6. IMPGCN" in out
-    assert "\t 9. LightGCN" in out and "\t 10. LightGCN_pp" in out and "\t 14. NCL" in out
-    assert "\t 15. SCCF" in out and "\t 17. XSimGCL" in out
+    assert "\t 2. CGCL" in out and "\t 7. HCCF" in out and "\t 8. IMPGCN" in out
+    assert "\t 11. LightGCN" in out and "\t 12. LightGCN_pp" in out and "\t 17. NCL" in out
+    assert "\t 20. SCCF" in out and "\t 22. XSimGCL" in out
+    assert "\t 5. GCCF" in out and "\t 6. GCMC" in out and "\t 13. LightGODE" in out
+    assert "\t 18. NGCF" in out and "\t 19. RecDCL" in out
     assert "error: pass --model=<NAME> (no interactive terminal)" in out
 
 
@@ -160,8 +162,9 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     ("missing_checkpoint", "error: no checkpoints under"),
     # the id keeps the name this case had while LightGCN was the only model
     pytest.param("unknown_model", "error: unknown model 'Nope'; available: BIGCF, CGCL, "
-                 "DirectAU, EGCF, HCCF, IMPGCN, LightCCF, LightCSCF, LightGCN, LightGCN_pp, "
-                 "MAWU, MFBPR, MixRec, NCL, SCCF, SimGCL, XSimGCL",
+                 "DirectAU, EGCF, GCCF, GCMC, HCCF, IMPGCN, LightCCF, LightCSCF, LightGCN, "
+                 "LightGCN_pp, LightGODE, MAWU, MFBPR, MixRec, NCL, NGCF, RecDCL, SCCF, "
+                 "SimGCL, XSimGCL",
                  id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),
@@ -264,3 +267,31 @@ def test_bench_script_times_an_exact_mode(capsys, backend, dtype):
     assert last["metric"] == "lightgcn_yelp2018scale_train_pairs_per_sec" and last["value"] > 0
     assert f"mode {dtype}: warmup epoch" in captured.err and "trial epoch" not in captured.err
     assert captured.err.count("eval sweep") == 2
+
+
+@pytest.mark.parametrize("name", ["NGCF", "RecDCL"])
+def test_main_trains_and_serve_serves_a_model_of_this_round(workdir, capsys, name):
+    """NGCF (per-layer weight tables, message dropout drawn from the run's
+    generator) and RecDCL (target histories carried by its steps and
+    checkpoints) through both command lines, from their config files at
+    d = 16."""
+    from idgrec_torch.config import load_model_config
+
+    tmp = workdir["tmp"]
+    conf = tmp / f"conf_{name}"
+    conf.mkdir()
+    cfg = {**load_model_config(name).as_dict(), "dataset_path": str(tmp / "data"),
+           "dataset": "tiny", "top_K": "[5, 10]", "training_epochs": "2", "interval": "1",
+           "embedding_size": "16", "layer_size": "[16, 16, 16]", "GCN_layer": "2",
+           "batch_size": "256", "test_batch_size": "64"}
+    (conf / f"{name}.txt").write_text("".join(f"{k} = {v}\n" for k, v in cfg.items()))
+    ck = tmp / f"ck_{name}"
+    code = t_main.main(["--model", name, "--configure_dir", str(conf), "--device", "cpu",
+                        "--log_dir", str(tmp / f"log_{name}"), "--checkpoint_dir", str(ck)])
+    out = capsys.readouterr().out
+    assert code == 0 and f"Run with {name} on tiny" in out and "Best epoch:" in out
+    assert out.count("training loss") == 2
+    assert t_serve.main(["--model", name, "--configure_dir", str(conf), "--device", "cpu",
+                         "--checkpoint_dir", str(ck), "--users", "1,17,42", "-k", "5"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["user"] for r in rows] == [1, 17, 42] and all(len(r["items"]) == 5 for r in rows)

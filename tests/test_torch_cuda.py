@@ -52,7 +52,11 @@ K6 at d = 192 reads M three times and stays within its bar; each zoo
 model's training step, and the steps' draws on a CUDA generator, run
 with no synchronisation; NCL's k-means with its sums on K4 equals the
 same clustering with K4's plain version bit for bit, without a
-synchronisation."""
+synchronisation. NGCF, GCMC, GCCF, LightGODE and RecDCL (its histories
+too) take a step on K6 within K6's bars of the same step on K6's plain
+version, and another under sync debug mode "error", as NGCF's node
+dropout on the gather backend does; K6 at d = 2,048 (RecDCL's width)
+reads M sixteen times and stays within its bar."""
 
 from __future__ import annotations
 
@@ -2109,6 +2113,154 @@ def test_k6_at_d192_equals_its_plain_version(cuda):
     zi = torch.from_numpy(rng.normal(size=(ni, 192)).astype(np.float32)).to(cuda)
     got = fusedmm.fused_adj_matmul(adj.m, zu, zi)
     assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(192) == 3
+    again = fusedmm.fused_adj_matmul(adj.m, zu, zi)
+    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
+        assert torch.equal(a, b)
+        _close(a, c)
+
+
+# the models of this round: their K6 launches a step at 3 layers (GCMC and
+# LightGODE's one application: 1, RecDCL 2 layers at d = 2,048)
+_ROUND = {"NGCF": 6, "GCMC": 2, "GCCF": 6, "LightGODE": 2, "RecDCL": 4}
+
+
+def _plain_k6(m8, zu, zi):
+    """K6's plain version with K6's backward rule (chip_smoke.py's
+    `plain_duals`)."""
+    nu, ni = zu.shape[0], zi.shape[0]
+    yu, yi = propagate.exact_dual_matmul(m8, propagate._pad_rows(zi, m8.shape[1]),
+                                         propagate._pad_rows(zu, m8.shape[0]), torch.bfloat16)
+    return yu[:nu], yi[:ni]
+
+
+@pytest.mark.parametrize("name", list(_ROUND))
+def test_zoo_step_of_this_round_on_k6(cuda, name):
+    """One step at the published config's depth (d = 64, RecDCL 2,048) on
+    K6 against the same step on K6's plain version from the same tables,
+    state and generator seed: loss terms within rtol 3e-5 / atol 3e-6,
+    gradients within 2**-7 of the largest entry, RecDCL's histories
+    after the step within the same rtol; then a step under sync debug
+    mode "error" with its K6 launches counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch import convert
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = load_model_config(name).updated(dataset="t", batch_size=1024)
+    model = get_model(name)(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    assert isinstance(model.graph, propagate.DenseSquareAdj)
+    assert model.graph.runs_kernel(model.embedding_size)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pick = torch.randint(0, data.num_train, (1024,), generator=g).numpy()
+    batch = {"user": torch.from_numpy(data.train_user[pick]).to(cuda),
+             "pos": torch.from_numpy(data.train_item[pick]).to(cuda),
+             "neg": torch.randint(0, data.num_items, (1024,), generator=g).to(cuda)}
+    start = {k: v.clone() for k, v in model.model_state().items()}
+
+    def step():
+        model.load_model_state(start)
+        model.zero_grad(set_to_none=True)
+        terms = model.loss_terms(batch, torch.Generator(device=cuda).manual_seed(5))
+        sum(terms).backward()
+        grads = [getattr(model, k).grad.clone() for k in convert.table_names(model)]
+        return ([t.detach() for t in terms], grads,
+                [v.clone() for v in model.model_state().values()])
+
+    before = fusedmm.fused_adj_matmul.launches
+    got = step()
+    assert fusedmm.fused_adj_matmul.launches - before == _ROUND[name]
+    if name == "RecDCL":
+        assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(2048) == 16
+    old = fusedmm.fused_adj_matmul
+    try:
+        fusedmm.fused_adj_matmul = _plain_k6
+        want = step()
+    finally:
+        fusedmm.fused_adj_matmul = old
+    for a, b in zip(got[0], want[0]):
+        assert bool(torch.isfinite(a))
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6)
+    for a, b in zip(got[1], want[1]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2.0 ** -7 * float(b.abs().max())
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6)
+    runner = EpochRunner(model, cfg.float("learn_rate"), 1024, 1024)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    runner.run_epoch(batch["user"], batch["pos"], batch["neg"], generator=gen)
+    before = fusedmm.fused_adj_matmul.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms = runner.run_epoch(batch["user"], batch["pos"], batch["neg"], generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fusedmm.fused_adj_matmul.launches - before == _ROUND[name]
+    assert np.isfinite(terms.cpu().numpy()).all()
+
+
+def test_node_dropout_step_does_not_synchronise(cuda):
+    """NGCF with node dropout, which forces the gather backend: the edge
+    mask on a CUDA generator, the dropped values and their transpose
+    through the graph's permutation, the sparse products forward and
+    backward, all under sync debug mode "error"; the product equals the
+    dense matrix of the same dropped values, its backward the transpose."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = load_model_config("NGCF").updated(dataset="t", batch_size=1024, node_dropout=True)
+    model = get_model("NGCF")(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    adj = model.graph
+    assert isinstance(adj, propagate.GatherSquareAdj) and adj.t_perm.device.type == "cuda"
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pick = torch.randint(0, data.num_train, (1024,), generator=g).numpy()
+    triple = (torch.from_numpy(data.train_user[pick]).to(cuda),
+              torch.from_numpy(data.train_item[pick]).to(cuda),
+              torch.randint(0, data.num_items, (1024,), generator=g).to(cuda))
+    runner = EpochRunner(model, 0.001, 1024, 1024)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    runner.run_epoch(*triple, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms = runner.run_epoch(*triple, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(terms.cpu().numpy()).all()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    x = torch.randn(adj.graph.n_cols, 64, device=cuda, requires_grad=True)
+    cot = torch.randn(adj.graph.n_rows, 64, device=cuda)
+    state = gen.get_state()
+    y = adj.edge_dropout_matmul(x, 0.9, gen)
+    (y * cot).sum().backward()
+    gen.set_state(state)
+    gr = adj.graph
+    vals = torch.where(torch.rand(gr.vals.shape, generator=gen, device=cuda) < 0.9,
+                       gr.vals / torch.tensor(0.9, device=cuda), 0.0)
+    dense = torch.zeros(gr.n_rows, gr.n_cols, device=cuda).index_put_(
+        (gr.rows, gr.cols), vals, accumulate=True)
+    _close(y, dense @ x.detach())
+    _close(x.grad, dense.T @ cot)
+
+
+def test_k6_at_d2048_equals_its_plain_version(cuda):
+    """RecDCL's width: sixteen reads of M a launch (128 features each),
+    the sums within K6's bar of the plain version, two launches
+    bit-equal."""
+    data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=cuda)
+    assert adj.runs_kernel(2048)
+    rng = np.random.default_rng(9)
+    nu, ni = data.num_users, data.num_items
+    zu = torch.from_numpy(rng.normal(size=(nu, 2048)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(ni, 2048)).astype(np.float32)).to(cuda)
+    got = fusedmm.fused_adj_matmul(adj.m, zu, zi)
+    assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(2048) == 16
     again = fusedmm.fused_adj_matmul(adj.m, zu, zi)
     for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
         assert torch.equal(a, b)
