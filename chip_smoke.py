@@ -124,7 +124,16 @@ launch counts set to 0 just before and read just after:
   (`bitmm.bit_rect_matmul`) and its backward bit-equal to K11 on each
   packing, across two launches and within TIGHT of its plain version,
   every op once under sync debug mode "error", each direction timed
-  beside its bound and a library call;
+  beside its bound and a library call; then the bfloat16 dense route on
+  K6 (M's columns padded to 256; one K6 launch a direction with the
+  other side left out, `DenseRectAdj.matmul_both` one launch for both)
+  at d = 64 and 128: each one-sided launch within TIGHT of its plain
+  version, bit-equal to the same side of the two-sided launch and across
+  two launches, its backward bit-equal to the one-sided launch on the
+  cotangent, the two-direction call bit-equal to the two one-direction
+  calls, each under sync debug mode "error", timed beside its bound, its
+  plain version (the route it replaced) and torch.matmul on a bfloat16
+  copy of M;
 * EGCF, ``mode = alternating`` (the user/item ping-pong over R̃): int8 on
   dense serves four requests checked against the plain route, one step
   against it at tests/test_torch_egcf.py's bars, two full epochs with
@@ -132,7 +141,9 @@ launch counts set to 0 just before and read just after:
   these epochs, in the JAX package too) and an evaluation, its step
   time beside the parallel mode's; bfloat16 on bitpack (K11) serves
   against the float32 gather EGCF, one step against the plain route and
-  24 steps;
+  24 steps; bfloat16 on dense (K6, one launch a direction, 12 a step)
+  one step against the plain route at K6's rules and one under sync
+  debug mode "error";
 * the zoo: MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL, LightGCN_pp,
   BIGCF, CGCL, NCL, HCCF, IMPGCN, NGCF, GCMC, GCCF, LightGODE and RecDCL
   at their published configs on the yelp2018-scale set, LightCCF, LightCSCF and MixRec on an
@@ -170,6 +181,18 @@ launch counts set to 0 just before and read just after:
   (the gather backend, the dropped edge values' transpose through the
   graph's permutation) under sync debug mode "error"; MAWU through
   `main.main(["--model=MAWU", ...])` from files;
+* the rectangular models at their published configs on the
+  yelp2018-scale set: LightGCL (2 layers, both directions of a layer one
+  K6 launch; its SVD branch from the host's factorisation, timed) and
+  CVGA (its encoder R̃ @ q_w one K6 launch at d = 128; user-row
+  batches): one step against the plain route with the same noise, one
+  under sync debug mode "error", a step's memory under a bar from the
+  shapes (M's bytes and LightGCL's kept contrast scores, CVGA's [B, I]
+  rows), K6 launches a step and a representation (LightGCL 4 and 2, CVGA
+  2 and 1), ZOO_STEPS steps, eval embeddings timed, a request of
+  ZOO_REQUEST users against the plain route's server (CVGA's dict
+  representation); CVGA through `train_model` for one epoch of user rows,
+  served from its result;
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
   LEARN_EPOCHS epochs, recall@20 after the last at least LEARN_FACTOR
@@ -301,6 +324,10 @@ STATE_ZOO = ("LightGODE", "RecDCL")
 # encoder-switch family does under its LightGCN encoder)
 PROPAGATING = NOISE_ZOO + CONTRAST_ZOO + WEIGHTED_ZOO + STATE_ZOO
 ZOO = ("MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF") + PROPAGATING
+# the models on the rectangular adjacency, at their published configs:
+# LightGCL (RECT_LAYERS layers, its SVD branch) and CVGA (user-row batches)
+RECT_ZOO = ("LightGCL", "CVGA")
+RECT_LAYERS = 2
 # the layers each earlier zoo model's published config names (the others:
 # LAYERS); the models of WEIGHTED_ZOO and RecDCL run their config's
 # GCN_layer, LightGODE one application (its one Euler step)
@@ -454,8 +481,17 @@ def plain_duals(fusedmm, propagate):
     cotangents rounded to bfloat16 going in (`propagate.exact_dual_matmul`,
     which saves M alone: autograd through `fused_adj_matmul_plain` would
     keep every float32 block of M for the backward, 19 GB an application
-    at amazon-book scale)."""
+    at amazon-book scale). A one-sided call (the rectangular adjacency's)
+    runs `propagate.exact_matmul`, the route K6 replaced there."""
     def k6_plain(m8, zu, zi):
+        if zu is None or zi is None:
+            # one direction (the rectangular adjacency): `propagate.exact_matmul`,
+            # the route K6 replaced there, with the same backward rule
+            transpose = zi is None
+            z = zu if transpose else zi
+            y = propagate.exact_matmul(transpose, m8, propagate._pad_rows(
+                z, m8.shape[0] if transpose else m8.shape[1]), torch.bfloat16)
+            return (None, y) if transpose else (y, None)
         nu, ni = zu.shape[0], zi.shape[0]
         yu, yi = propagate.exact_dual_matmul(m8, propagate._pad_rows(zi, m8.shape[1]),
                                              propagate._pad_rows(zu, m8.shape[0]),
@@ -599,7 +635,7 @@ def main() -> int:
         from idgrec_torch.models import base as base_lib
         from idgrec_torch.models import get_model
         from idgrec_torch.models.base import concat_user_item
-        from idgrec_torch.ops import (_build, bitmm, chainmm, fusedmm, gathermm, losses,
+        from idgrec_torch.ops import (_build, bitmm, chainmm, fusedmm, gathermm, losses, noise,
                                       propagate, scatter)
         from idgrec_torch.serving import Recommender
     except ImportError as e:
@@ -2897,11 +2933,110 @@ def main() -> int:
         f"float32 {int8_gap:.3e}); K11's single direction and its backward bit-equal to K11 on "
         f"each packing and within TIGHT of the plain version; every op once under sync debug "
         f"mode \"error\"")
+    # ---- the rectangular route on K6 (bfloat16 on dense): each direction
+    # one K6 launch with the other side left out, `matmul_both` one launch
+    # for both. At d = DIM and 2 DIM (LightGCL's and CVGA's widths): each
+    # one-sided launch within TIGHT of its plain version (K6's bar),
+    # bit-equal to the same side of the two-sided launch and across two
+    # launches; a one-sided call's backward bit-equal to the one-sided
+    # launch on the cotangent; the adjacency's two-direction call bit-equal
+    # to its two one-direction calls; one of each under sync debug mode
+    # "error"; timed (CUDA events) beside the bound, the plain version (the
+    # route it replaced, M converted to float32 in row blocks) and
+    # torch.matmul on a bfloat16 copy of M, one direction (the copy not
+    # counted)
+    rb16 = rect_adjs["dense bfloat16"]
+    m_r = rb16.m
+    nnz_r = data.nnz
+    require(m_r.shape[1] % propagate.DENSE_COL_PAD == 0 and rb16.runs_kernel(DIM)
+            and rb16.runs_kernel(2 * DIM) and not rect_adjs["dense float32"].runs_kernel(DIM)
+            and not r8.runs_kernel(DIM),
+            "the rectangular dense route: K6 in bfloat16 only, M's columns padded to "
+            "DENSE_COL_PAD")
+    gen_r = torch.Generator(device=dev).manual_seed(3)
+    rect_k6 = {}
+    for d_r in (DIM, 2 * DIM):
+        zi_r = torch.randn((ni, d_r), generator=gen_r, device=dev) * rb16.right[:, None]
+        zu_r = torch.randn((nu, d_r), generator=gen_r, device=dev) * rb16.left[:, None]
+        one_u = fusedmm.fused_adj_matmul(m_r, None, zi_r)
+        one_i = fusedmm.fused_adj_matmul(m_r, zu_r, None)
+        passes_r = fusedmm.fused_adj_matmul.passes
+        require(one_u[1] is None and one_i[0] is None
+                and tuple(one_u[0].shape) == (m_r.shape[0], d_r)
+                and tuple(one_i[1].shape) == (m_r.shape[1], d_r),
+                f"K6 one-sided at d = {d_r}: the absent side's result or the shapes")
+        dual_r = fusedmm.fused_adj_matmul(m_r, zu_r, zi_r)
+        require(torch.equal(dual_r[0], one_u[0][:nu]) and torch.equal(dual_r[1], one_i[1][:ni]),
+                f"K6 at d = {d_r}: a one-sided launch differs from the same side of the "
+                "two-sided launch")
+        require(torch.equal(fusedmm.fused_adj_matmul(m_r, None, zi_r)[0], one_u[0])
+                and torch.equal(fusedmm.fused_adj_matmul(m_r, zu_r, None)[1], one_i[1]),
+                f"K6 one-sided at d = {d_r}: two launches differ")
+        plain_r = (fusedmm.fused_adj_matmul_plain(m_r, None, zi_r)[0],
+                   fusedmm.fused_adj_matmul_plain(m_r, zu_r, None)[1])
+        for what, got, want in zip(("M @ zi", "Mᵀ @ zu"), (one_u[0], one_i[1]), plain_r):
+            assert_close(got, want, f"K6 one-sided at d = {d_r}, {what}", **TIGHT)
+        err_r = max(max_abs(one_u[0], plain_r[0]), max_abs(one_i[1], plain_r[1]))
+        x_ = zi_r.clone().requires_grad_(True)
+        y_ = fusedmm.fused_adj_matmul(m_r, None, x_)[0]
+        g_ = torch.randn(tuple(y_.shape), generator=gen_r, device=dev)
+        y_.backward(g_)
+        require(x_.grad is not None and tuple(x_.grad.shape) == (ni, d_r)
+                and torch.equal(x_.grad, fusedmm.fused_adj_matmul(m_r, g_, None)[1][:ni]),
+                f"K6 one-sided at d = {d_r}: the backward differs from the one-sided launch on "
+                "the cotangent")
+        xi_d = torch.randn((ni, d_r), generator=gen_r, device=dev)
+        xu_d = torch.randn((nu, d_r), generator=gen_r, device=dev)
+        both_r = rb16.matmul_both(xi_d, xu_d)
+        require(torch.equal(both_r[0], rb16.matmul(xi_d))
+                and torch.equal(both_r[1], rb16.t_matmul(xu_d)),
+                f"DenseRectAdj.matmul_both at d = {d_r} differs from matmul and t_matmul")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rb16.matmul(xi_d)
+            rb16.t_matmul(xu_d)
+            rb16.matmul_both(xi_d, xu_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        del x_, y_, g_, both_r, plain_r, dual_r, one_u, one_i
+        times_r = {
+            "users": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, None, zi_r), 20),
+            "items": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, None), 20),
+            "dual": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, zi_r), 20),
+            "plain_users": cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(m_r, None, zi_r), 3, 1),
+            "plain_items": cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(m_r, zu_r, None), 3, 1),
+        }
+        m_copy = m_r.to(torch.bfloat16)
+        z_copy = torch.nn.functional.pad(zi_r, (0, 0, 0, m_r.shape[1] - ni)).to(torch.bfloat16)
+        ref_lib = fusedmm.fused_adj_matmul(m_r, None, zi_r)[0][:nu]
+        require(max_abs((m_copy @ z_copy)[:nu].float(), ref_lib)
+                <= BF16 * float(ref_lib.abs().max()),
+                "torch.matmul on the bfloat16 copy of M disagrees with K6")
+        del ref_lib
+        times_r["library"] = cuda_ms(lambda: m_copy @ z_copy, 10)
+        del m_copy, z_copy
+        # one direction: M once, its input rows in and its output rows out
+        # (float32), 2 operations a non-zero entry and feature; the dual both
+        bnd_u = bound(m_r.numel() + 4.0 * d_r * (ni + nu), 2.0 * nnz_r * d_r, bf16_ops)
+        bnd_dual = bound(m_r.numel() + 8.0 * d_r * (ni + nu), 4.0 * nnz_r * d_r, bf16_ops)
+        rect_k6[d_r] = dict(times=times_r, bound=bnd_u, bound_dual=bnd_dual, err=err_r,
+                            passes=passes_r)
+        log(f"rectangular K6 at d = {d_r} on M {list(m_r.shape)} ({passes_r} read(s) of M a "
+            f"launch): R̃ x_i {times_r['users']:.4f} ms, R̃ᵀ x_u {times_r['items']:.4f} ms a "
+            f"direction (bound {bnd_u[0]:.4f} by {bnd_u[1]}; plain {times_r['plain_users']:.4f} "
+            f"and {times_r['plain_items']:.4f}; torch.matmul on a bfloat16 copy "
+            f"{times_r['library']:.4f}), both in one launch {times_r['dual']:.4f} ms (bound "
+            f"{bnd_dual[0]:.4f}); one-sided launches within TIGHT of the plain version (max abs "
+            f"err {err_r:.3e}), bit-equal to the two-sided launch's sides and across two "
+            f"launches, the backward and matmul_both bit-equal, no sync")
+        del zi_r, zu_r, xi_d, xu_d
+    torch.cuda.empty_cache()
+
     # times, each direction beside its bound: the stored matrix read once,
     # the float32 activations in and the float32 rows out, or 2 operations
     # per non-zero entry and feature at the type's peak; library: one call
     # on a copy where none computes the same thing from the stored matrix
-    nnz_r = data.nnz
     rect_times = {}
     for label, a_ in rect_adjs.items():
         # the matrix one direction reads: M (or the int8 mode's Mᵀ), one
@@ -3057,6 +3192,45 @@ def main() -> int:
         f"{alt_bp_tol:.3e} of the float32 gather EGCF; one step against the plain route "
         f"(bit-equal: {same_bp}); {alt_bp_step_ms:.3f} ms per step over {OTHER_STEPS} steps")
     del alt_bp, ref_gather_a, rec_a_bp, runner_
+    torch.cuda.empty_cache()
+
+    # EGCF alternating in bfloat16 on dense: each direction of each layer one
+    # K6 launch with the other side left out, forward and backward; one step
+    # against the same step on K6's plain version (the route it replaced) at
+    # K6's rules, one step under sync debug mode "error"
+    alt_bf = fresh_egcf(cfg_alt.updated(compute_dtype="bfloat16", propagation_backend="dense"))
+    require(isinstance(alt_bf.user_graph, propagate.DenseRectAdj)
+            and alt_bf.user_graph.runs_kernel(DIM), "EGCF alternating bfloat16: dense on K6")
+    reset_counts()
+    got_ab = egcf_step(alt_bf)
+    alt_bf_launches = read_counts()
+    want_k6_ab = 4 * LAYERS  # a layer's two directions, forward and backward
+    require(alt_bf_launches["fused_adj_matmul"] == want_k6_ab
+            and all(n == 0 for name_, n in alt_bf_launches.items() if name_ != "fused_adj_matmul"),
+            f"EGCF alternating bfloat16: expected {want_k6_ab} K6 launches and nothing else: "
+            f"{alt_bf_launches}")
+    with plain_duals(fusedmm, propagate):
+        want_ab = egcf_step(alt_bf)
+    for what, a, b in zip(("bpr", "reg", "ssl"), got_ab[1:], want_ab[1:]):
+        require(bool(torch.isfinite(a)), f"EGCF alternating bfloat16 step, {what}: not finite")
+        assert_close(a, b, f"EGCF alternating bfloat16 step, {what}", **TIGHT)
+    top = float(want_ab[0].abs().max())
+    require(bool(torch.isfinite(got_ab[0]).all()) and max_abs(got_ab[0], want_ab[0]) <= BF16 * top,
+            f"EGCF alternating bfloat16 step, d item_emb: max abs err "
+            f"{max_abs(got_ab[0], want_ab[0])} above {BF16} of {top}")
+    ab_err = max_abs(got_ab[0], want_ab[0]) / top
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        egcf_step(alt_bf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    alt_bf_step_ms = host_ms(lambda: egcf_step(alt_bf), 5)
+    log(f"EGCF alternating bfloat16 on dense: {want_k6_ab} K6 launches a step (one a direction, "
+        f"forward and backward); one step against the plain route (loss terms within TIGHT, "
+        f"item gradient within {ab_err:.3e} of its largest entry), one under sync debug mode "
+        f"\"error\"; {alt_bf_step_ms:.3f} ms a step (host clock, the gradient's copy included)")
+    del alt_bf, got_ab, want_ab
     torch.cuda.empty_cache()
 
     # ==== the zoo: MFBPR, the encoder-switch family, NOISE_ZOO and
@@ -3354,6 +3528,180 @@ def main() -> int:
             f"{dict(zip(m_z.loss_names, np.round(terms_z, 5).tolist()))}; built in {build_s:.1f} s")
         del runner_z, triple_z, batch_z
         torch.cuda.empty_cache()
+    # ==== the rectangular models at their published configs on the
+    # yelp2018-scale set: LightGCL (2 layers, its SVD branch taken on the
+    # host when the model is built; both directions of a layer one K6
+    # launch, `DenseRectAdj.matmul_both`) and CVGA (user-row batches, its
+    # encoder R̃ @ q_w one K6 launch at 2 DIM with the user side left out).
+    # Each: one step against the same step on K6's plain version with the
+    # same noise (K6's rules), one step under sync debug mode "error", the
+    # step's memory under a bar built from the shapes (no float copy of M),
+    # its own K6 launches a step and a representation, ZOO_STEPS steps, eval
+    # embeddings timed, a request of ZOO_REQUEST users held to the plain
+    # route's server (CVGA's representation the dict of z and its decoder);
+    # then CVGA trains one epoch through `train_model` (the user-row path,
+    # a permutation of the users from the run's generator) and serves from
+    # its result
+    rect_paths = {}
+    for name_z in RECT_ZOO:
+        cfg_z = load_model_config(name_z).updated(dataset=data.name)
+        dim_z = cfg_z.int("embedding_size")
+        require(dim_z == DIM and cfg_z.str("compute_dtype") == "bfloat16"
+                and cfg_z.str("propagation_backend") == "auto"
+                and (name_z != "LightGCL" or cfg_z.int("GCN_layer") == RECT_LAYERS),
+                f"{name_z}: not the published config the phase expects")
+        bs, lr_z = cfg_z.int("batch_size"), cfg_z.float("learn_rate")
+        t0 = time.perf_counter()
+        m_z = get_model(name_z)(cfg_z, data, device=dev, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        g_z = m_z.graph
+        d_k6 = 2 * dim_z if name_z == "CVGA" else dim_z  # CVGA's encoder: [μ, log σ²]
+        require(isinstance(g_z, propagate.DenseRectAdj) and g_z.quant == "none"
+                and g_z.compute_dtype_name == "bfloat16" and g_z.runs_kernel(d_k6)
+                and g_z.m.shape[1] % propagate.DENSE_COL_PAD == 0,
+                f"{name_z}: the model's adjacency is not the rectangular dense route on K6")
+        # a step: LightGCL one launch a layer each way, CVGA its encoder each
+        # way; a representation: the forward alone
+        step_k6_z, repr_k6_z = (2 * RECT_LAYERS, RECT_LAYERS) if name_z == "LightGCL" else (2, 1)
+        if name_z == "CVGA":
+            perm_z = noise.permutation(nu, gen)
+            triple_z = (perm_z, perm_z, perm_z)
+        else:
+            triple_z = neg_sampler.sample_epoch(gen)
+        batch_z = dict(zip(("user", "pos", "neg"), (t_[:bs] for t_ in triple_z)))
+
+        def rect_step(m_, b_=batch_z):
+            gen_ = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
+            m_.zero_grad(set_to_none=True)
+            terms_ = m_.loss_terms(b_, gen_, 0)
+            sum(terms_).backward()
+            grads_ = [getattr(m_, k_).grad.clone() for k_ in convert.table_names(m_)]
+            m_.zero_grad(set_to_none=True)
+            return [t_.detach() for t_ in terms_], grads_
+
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        got_z = rect_step(m_z)
+        one_step_launches = read_counts()
+        step_mem = torch.cuda.max_memory_allocated() - mem0
+        require(one_step_launches["fused_adj_matmul"] == step_k6_z,
+                f"{name_z}: {one_step_launches['fused_adj_matmul']} K6 launches a step, "
+                f"{step_k6_z} expected")
+        with plain_duals(fusedmm, propagate):
+            want_z = rect_step(m_z)
+        for what, a, b in zip(m_z.loss_names, got_z[0], want_z[0]):
+            require(bool(torch.isfinite(a)), f"{name_z} step, {what}: not finite")
+            assert_close(a, b, f"{name_z} step, {what}", **TIGHT)
+        grad_err_z = 0.0
+        for what, a, b in zip(convert.table_names(m_z), got_z[1], want_z[1]):
+            top = float(b.abs().max())
+            require(bool(torch.isfinite(a).all()) and max_abs(a, b) <= BF16 * top,
+                    f"{name_z} step, d {what}: max abs err {max_abs(a, b)} above {BF16} of {top}")
+            grad_err_z = max(grad_err_z, max_abs(a, b) / top)
+        del got_z, want_z
+        # no float copy of M: M's own bytes, plus what the step keeps from its
+        # shapes: LightGCL the float32 [B, U] and [B, I] scores of its
+        # contrast against the full tables, CVGA six float32 [B, I] rows
+        # (the decoder's output, its log-softmax, the targets, their
+        # product and two gradients)
+        kept_z = (4 * bs * (nu + ni) if name_z == "LightGCL" else 6 * 4 * bs * ni)
+        mem_bar_z = g_z.m.numel() + kept_z
+        require(step_mem < mem_bar_z and mem_bar_z < 2 * g_z.m.numel(),
+                f"{name_z}: a step took {step_mem} bytes beyond the model's, above the bar "
+                f"{mem_bar_z} (M's {g_z.m.numel()} and {kept_z} kept), or the bar does not rule "
+                "out a bfloat16 copy of M")
+        runner_z = EpochRunner(m_z, lr_z, bs, ZOO_STEPS * bs)
+        one_z = EpochRunner(m_z, lr_z, bs, bs, optimizer=runner_z.opt)
+        part_one = [t_[bs: 2 * bs] for t_ in triple_z]
+        gen_one = torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED)
+        one_z.run_epoch(*part_one, generator=gen_one)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            nosync_z = one_z.run_epoch(*part_one, generator=gen_one)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(bool(torch.isfinite(nosync_z).all()), f"{name_z}: the sync-debug step {nosync_z}")
+        users_z = zoo_rng.choice(nu, size=ZOO_REQUEST, replace=False)
+        reset_counts()
+        t0 = time.perf_counter()
+        rec_z = Recommender(m_z, data)
+        torch.cuda.synchronize()
+        embed_first_ms = (time.perf_counter() - t0) * 1e3
+        items_z, scores_z = rec_z.recommend(users_z, k=K)
+        with plain_duals(fusedmm, propagate):
+            ref_z = Recommender(m_z, data)
+        check_answers_close(ref_z, data, users_z, items_z, scores_z, TIE)
+        require(isinstance(rec_z._repr, dict) == (name_z == "CVGA"),
+                f"{name_z}: the representation's form")
+        del rec_z, ref_z
+        part_z = [t_[2 * bs: (2 + ZOO_STEPS) * bs] for t_ in triple_z]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms_z = runner_z.run_epoch(*part_z, generator=gen).cpu().numpy()
+        step_ms_z = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+        zoo_launches[name_z] = read_counts()
+        want_l = {"fused_adj_matmul": repr_k6_z + ZOO_STEPS * step_k6_z}
+        got_l = {k_: n for k_, n in zoo_launches[name_z].items() if n}
+        require(got_l == want_l, f"{name_z}: launches {got_l}, expected {want_l}")
+        require(terms_z.shape == (len(m_z.loss_names),) and bool(np.isfinite(terms_z).all())
+                and all(bool(torch.isfinite(p_.grad).all()) and bool(torch.isfinite(p_).all())
+                        for p_ in m_z.parameters()),
+                f"{name_z}: loss terms {terms_z}, or a gradient or table not finite")
+        gen_eval = torch.Generator(device=dev).manual_seed(0)
+        embed_ms_z = host_ms(lambda: m_z.eval_embeddings(gen_eval), 5)
+        zoo_calls[name_z] = lambda r_=one_z, p_=part_one, g_=gen_one: r_.run_epoch(
+            *p_, generator=g_)
+        k6_bound_z = bound(g_z.m.numel() + 4.0 * d_k6 * (nu + ni), 2.0 * nnz * d_k6, bf16_ops)
+        extra_z = ""
+        if name_z == "LightGCL":
+            extra_z = f"; SVD (q = {m_z.svd_q}) {m_z.svd_seconds:.2f} s on the host"
+        else:
+            # the user-row path end to end: train_model one epoch (ceil(U / B)
+            # steps from a permutation of the users), its evaluation, a server
+            # from its result
+            reset_counts()
+            t0 = time.perf_counter()
+            res_c = loop_lib.train_model("CVGA", data, config=cfg_z, seed=0, log_dir=None,
+                                         echo=False, max_epochs=1, device=dev)
+            cvga_epoch_s = time.perf_counter() - t0
+            rec_c = Recommender.from_train_result("CVGA", data, cfg_z, res_c, device=dev)
+            items_c, scores_c = rec_c.recommend(users_z, k=K)
+            cvga_train_launches = rect_paths["zoo_cvga_train_model"] = read_counts()
+            steps_c = -(-nu // bs)
+            want_c = 2 * steps_c + 2  # the epoch's steps, its evaluation, the server
+            require(cvga_train_launches["fused_adj_matmul"] == want_c
+                    and bool(np.isfinite(res_c.last_result["recall"]).all())
+                    and np.isfinite(scores_c).all(),
+                    f"CVGA through train_model: K6 launches "
+                    f"{cvga_train_launches['fused_adj_matmul']}, {want_c} expected, recall "
+                    f"{res_c.last_result['recall']}")
+            extra_z = (f"; train_model one epoch of user rows ({steps_c} steps, an evaluation) "
+                       f"in {cvga_epoch_s:.1f} s, recall@{cfg_z.int_list('top_K')} "
+                       f"{np.round(res_c.last_result['recall'], 5).tolist()}, served from its "
+                       "result")
+            del res_c, rec_c
+        zoo_res[name_z] = dict(step_ms=step_ms_z, embed_ms=embed_ms_z, k6_bound=k6_bound_z,
+                               step_mem_mb=step_mem / 1e6, mem_bar_mb=mem_bar_z / 1e6,
+                               kmeans_ms=None, narrow_mem_mb=None)
+        log(f"{name_z} (rectangular K6 at d = {d_k6}, batch {bs}): one step against the plain "
+            f"route (loss terms within TIGHT, gradients within {grad_err_z:.3e} of their largest "
+            f"entries), one under sync debug mode 'error', {ZOO_REQUEST} users served against "
+            f"the plain route; {step_ms_z:.3f} ms per step over {ZOO_STEPS} steps, eval "
+            f"embeddings {embed_ms_z:.3f} ms (first {embed_first_ms:.3f}), K6 launches "
+            f"{got_l['fused_adj_matmul']} ({step_k6_z} a step, {repr_k6_z} a representation), "
+            f"K6's bound {k6_bound_z[0]:.4f} ms a direction; a step's memory beyond the "
+            f"model's {step_mem / 1e6:.1f} MB (bar {mem_bar_z / 1e6:.1f} MB: M's bytes and "
+            f"{kept_z / 1e6:.1f} MB kept); loss sums "
+            f"{dict(zip(m_z.loss_names, np.round(terms_z, 5).tolist()))}; built in "
+            f"{build_s:.1f} s" + extra_z)
+        zoo_models[name_z] = m_z
+        del runner_z, triple_z, batch_z
+        torch.cuda.empty_cache()
+
     # K6 on amazon-book's matrix, the largest it has run, beside its bound,
     # its plain version and two torch.matmul calls on a bfloat16 copy
     g_a = zoo_models["LightCCF"].graph
@@ -3646,7 +3994,8 @@ def main() -> int:
                "egcf_alternating_bitpack": alt_bp_launches, "learnability": learn_launches,
                **{f"zoo_{name_z}": c for name_z, c in zoo_launches.items()},
                "zoo_mawu_command_line": mawu_cli_launches,
-               "learnability_directau": learn_dl_launches}
+               "learnability_directau": learn_dl_launches,
+               "dense_egcf_alternating_bf16": alt_bf_launches, **rect_paths}
     egcf_tanh = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject)
 
     def entry(name_, source, replaces, fn, err, ms, plain, bnd, lib, unit, also=(),
@@ -3776,6 +4125,20 @@ def main() -> int:
                      plain_ms_amazon=k6a_plain, library_ms_amazon=k6a_lib,
                      ms_d2048=k6w_ms, bound_ms_d2048=k6w_bound[0], plain_ms_d2048=k6w_plain,
                      library_ms_d2048=k6w_lib, passes_d2048=k6w_passes,
+                     **{f"rect_{key}_d{d_r}": val for d_r, r_ in rect_k6.items()
+                        for key, val in (("ms_users", r_["times"]["users"]),
+                                         ("ms_items", r_["times"]["items"]),
+                                         ("ms_both", r_["times"]["dual"]),
+                                         ("bound_ms", r_["bound"][0]),
+                                         ("bound_ms_both", r_["bound_dual"][0]),
+                                         ("plain_ms_users", r_["times"]["plain_users"]),
+                                         ("plain_ms_items", r_["times"]["plain_items"]),
+                                         ("library_ms", r_["times"]["library"]),
+                                         ("max_abs_err", r_["err"]), ("passes", r_["passes"]))},
+                     launches_rect=sum(c["fused_adj_matmul"] for path, c in by_path.items()
+                                       if path in ("zoo_LightGCL", "zoo_CVGA",
+                                                   "zoo_cvga_train_model",
+                                                   "dense_egcf_alternating_bf16")),
                      launches_dense=sum(c["fused_adj_matmul"] for path, c in by_path.items()
                                         if path.startswith(("dense", "zoo", "batch_rows",
                                                             "learnability_directau"))))
@@ -3840,7 +4203,9 @@ def main() -> int:
             f"{k['launches_egcf_alternating_bitpack']} bitpack; {k['launches_learnability']} "
             f"learnability; dense {k['launches_dense_bf16']} bfloat16, "
             f"{k['launches_dense_int8']} int8; zoo "
-            + ", ".join(f"{k[f'launches_zoo_{n_}']} {n_}" for n_ in ZOO)
+            + ", ".join(f"{k[f'launches_zoo_{n_}']} {n_}" for n_ in ZOO + RECT_ZOO)
+            + f", {k['launches_zoo_cvga_train_model']} CVGA train_model, "
+            f"{k['launches_dense_egcf_alternating_bf16']} EGCF alternating bfloat16 dense"
             + f", {k['launches_zoo_mawu_command_line']} MAWU command line, "
             f"{k['launches_learnability_directau']} DirectAU learnability "
             f"({k['launches_per_step']:.2f} per step)")

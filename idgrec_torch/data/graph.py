@@ -15,7 +15,8 @@ Not copied: the ``.npz`` cache beside the dataset (a graph is rebuilt
 from the CSR at every construction; at yelp2018 scale that is a sort of
 2.5 million edges) and the edge-dropout graph (ROADMAP A.7, SGL).
 `SparseGraph.transpose_permutation` serves the dropout of a graph's
-edge values (NGCF's node dropout, ops/propagate.py).
+edge values (NGCF's node dropout, ops/propagate.py); `SparseGraph.to_scipy`
+gives LightGCL's SVD its matrix (ops/svd.py).
 """
 
 from __future__ import annotations
@@ -123,6 +124,18 @@ class SparseGraph:
             raise ValueError("the graph's pattern lacks the transpose of an entry")
         pad = np.arange(n, self.rows.numel(), dtype=np.int64)
         return torch.from_numpy(np.concatenate([perm.astype(np.int64), pad])).to(self.device)
+
+    def to_scipy(self):
+        """The matrix as a scipy CSR on the host (its true entries,
+        float32), as the JAX package's ``to_scipy`` gives it: the
+        operand of LightGCL's low-rank SVD (ops/svd.py)."""
+        import scipy.sparse as sp
+
+        n = self.nnz
+        return sp.coo_matrix(
+            (self.vals[:n].cpu().numpy(), (self.rows[:n].cpu().numpy(),
+                                            self.cols[:n].cpu().numpy())),
+            shape=self.shape).tocsr()
 
     def with_values(self, vals: torch.Tensor, t_vals: torch.Tensor) -> "SparseGraph":
         """The same sparsity pattern with other edge values."""

@@ -11,13 +11,19 @@ A model's state (`RecModel.init_state`, drawn after the tables) lives
 in the model, changes with its steps, goes into every checkpoint and is
 restored on resume, and comes back in `TrainResult.state`.
 
+An epoch is the negative sampler's (user, pos, neg) triples, or, for a
+model whose ``batching`` is ``"user_rows"`` (CVGA), a shuffled
+permutation of the user ids fed as all three (`noise.permutation`), with
+no sampler.
+
 Random state is explicit: a host `torch.Generator` (the initial tables
-and state) and one on the run's device (sampling, whatever a model's
-loss draws, and whatever its evaluation draws: the JAX loop's
-``eval_key``), both seeded from ``seed``, plus a numpy generator handed to
-`RecModel.epoch_context`. The global generators are never used. The
-streams are PyTorch's, so the two packages draw different triples from
-the same seed: runs are compared by behaviour, not by value.
+and state) and one on the run's device (sampling or the user
+permutation, whatever a model's loss draws, and whatever its evaluation
+draws: the JAX loop's ``eval_key``), both seeded from ``seed``, plus a
+numpy generator handed to `RecModel.epoch_context`. The global
+generators are never used. The streams are PyTorch's, so the two
+packages draw different triples from the same seed: runs are compared
+by behaviour, not by value.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from idgrec_torch.engine.sampler import NegativeSampler
 from idgrec_torch.engine.trainer import EpochRunner
 from idgrec_torch.models import get_model
 from idgrec_torch.models.base import RecModel
+from idgrec_torch.ops import noise
 
 
 @dataclass
@@ -97,9 +104,7 @@ def train_model(
     dev_gen = torch.Generator(device=dev).manual_seed(seed)
     np_rng = np.random.default_rng(seed)
     model: RecModel = get_model(model_name)(config, data, device=dev, generator=host_gen)
-    if model.batching != "bpr_triples":
-        raise NotImplementedError(
-            f"batching {model.batching!r}: user-row batches come with CVGA, ROADMAP A.7")
+    user_rows = model.batching == "user_rows"
 
     logger = RunLogger(model_name, data.name, log_dir, echo=echo)
     logger.info(f"Run with {model_name} on {data.name}")
@@ -108,8 +113,9 @@ def train_model(
         logger.info(f"{key} : {value}")
 
     runner = EpochRunner(model, learn_rate=config.float("learn_rate"),
-                         batch_size=config.int("batch_size"), num_train=data.num_train)
-    sampler = NegativeSampler(data, device=dev)
+                         batch_size=config.int("batch_size"),
+                         num_train=data.num_users if user_rows else data.num_train)
+    sampler = None if user_rows else NegativeSampler(data, device=dev)
     sparsity_mode = config.int("sparsity_test") == 1
     if sparsity_mode:
         split_uids, split_state = data.create_sparsity_split()
@@ -168,7 +174,10 @@ def train_model(
         start = time.time()
         model.epoch_context(epoch, np_rng)
         with maybe_trace(profile_dir if epoch == start_epoch + 1 else None):
-            users, pos, neg = sampler.sample_epoch(dev_gen)
+            if user_rows:  # shuffled user ids; the model builds their rows itself
+                users = pos = neg = noise.permutation(data.num_users, dev_gen)
+            else:
+                users, pos, neg = sampler.sample_epoch(dev_gen)
             term_sums = runner.run_epoch(users, pos, neg, generator=dev_gen, epoch=epoch)
             term_sums = term_sums.cpu().numpy()  # the epoch's one transfer; waits for the device
         elapsed = time.time() - start

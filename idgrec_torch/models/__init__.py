@@ -4,7 +4,9 @@ SCCF, LightCCF, LightCSCF), LightGCN_pp, the models that draw noise
 in their steps (SimGCL, XSimGCL, BIGCF, MixRec), the full-pool
 contrasts CGCL and NCL (NCL with on-device k-means), HCCF and IMPGCN,
 the weighted graph convolutions NGCF, GCMC and GCCF, LightGODE's graph
-ODE and RecDCL, the first model with state; ROADMAP A.7 lists the rest."""
+ODE and RecDCL, the first model with state, and the two models on the
+rectangular adjacency, LightGCL (with its low-rank SVD branch) and CVGA
+(user-row batches); ROADMAP A.7 lists the rest."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
@@ -12,12 +14,14 @@ from idgrec_torch.models.registry import available_models, get_model
 from idgrec_torch.models import (  # noqa: F401
     bigcf,
     cgcl,
+    cvga,
     directau,
     egcf,
     hccf,
     impgcn,
     lightccf,
     lightcscf,
+    lightgcl,
     lightgcn,
     lightgcn_pp,
     lightgode,

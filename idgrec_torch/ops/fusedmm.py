@@ -487,62 +487,85 @@ def _pad_cast(z: torch.Tensor, rows: int, dtype: torch.dtype) -> torch.Tensor:
     return F.pad(z.to(dtype), (0, 0, 0, rows - z.shape[0]))
 
 
-def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor,
-                           zi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _out_rows(z: torch.Tensor | None, padded: int) -> int:
+    """Rows of the result on ``z``'s side: ``z``'s own, or M's padded
+    count on a side given as None."""
+    return padded if z is None else z.shape[0]
+
+
+def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor | None,
+                           zi: torch.Tensor | None
+                           ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Plain version of `fused_adj_matmul` (K6): the activations rounded
     to bfloat16 and zero-padded to M's shape, multiplied in float32 by
     the counts (both exact in float32), float32 accumulation. Differs
-    from K6 in the order of the float32 additions only. Differentiable
-    by autograd."""
+    from K6 in the order of the float32 additions only. A side given as
+    None is not computed (`fused_adj_matmul` states the shapes).
+    Differentiable by autograd."""
     u_pad, i_pad = m8.shape
-    yu, yi = dual_matmul_f32(m8, _pad_cast(zu, u_pad, torch.bfloat16),
-                             _pad_cast(zi, i_pad, torch.bfloat16))
-    return yu[: zu.shape[0]], yi[: zi.shape[0]]
+    yu, yi = dual_matmul_f32(m8, None if zu is None else _pad_cast(zu, u_pad, torch.bfloat16),
+                             None if zi is None else _pad_cast(zi, i_pad, torch.bfloat16))
+    return (None if yu is None else yu[: _out_rows(zu, u_pad)],
+            None if yi is None else yi[: _out_rows(zi, i_pad)])
 
 
-def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor,
-                 zi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor | None, zi: torch.Tensor | None
+                 ) -> tuple[torch.Tensor | None, torch.Tensor | None, int]:
     """Check K6's operands and launch it on the card: int8 m8
-    [U_pad, I_pad], zu [U, d] and zi [I, d] (U <= U_pad, I <= I_pad).
-    float32 activations go in as they are (the kernel rounds and pads
-    them); others are rounded to bfloat16 here and go in as float32,
-    which the kernel's rounding leaves as they are. Returns (yu [U, d],
-    yi [I, d], the scans of M its launcher reports). Three device
+    [U_pad, I_pad], zu [U, d] and zi [I, d] (U <= U_pad, I <= I_pad),
+    either of them None (one direction: the kernel takes that side as
+    zero rows and never reads its pointer). float32 activations go in as
+    they are (the kernel rounds and pads them); others are rounded to
+    bfloat16 here and go in as float32, which the kernel's rounding
+    leaves as they are. Returns (yu, yi, the scans of M its launcher
+    reports), shaped as `fused_adj_matmul` states. Three device
     launches, no read-back."""
     u_pad, i_pad = m8.shape
-    nu, ni, d = zu.shape[0], zi.shape[0], zu.shape[1]
-    dev = m8.device
+    given = zu if zu is not None else zi
+    d, dev = given.shape[1], m8.device
     _check_operand("m8", m8, torch.int8, (u_pad, i_pad), dev)
     _require_n(_K6, "bf16", u_pad, i_pad, d)
-    zu, zi = (_aligned(_as_float32(z)) for z in (zu, zi))
-    _check_operand("zu", zu, torch.float32, (nu, d), dev)
-    _check_operand("zi", zi, torch.float32, (ni, d), dev)
+    sides = []
+    for name, z in (("zu", zu), ("zi", zi)):
+        if z is None:
+            sides.append((None, 0, 0))  # zero rows: the pointer is not read
+            continue
+        z = _aligned(_as_float32(z))
+        _check_operand(name, z, torch.float32, (z.shape[0], d), dev)
+        sides.append((z, z.shape[0], z.data_ptr()))
+    (zu, nu, pu), (zi, ni, pi) = sides
     lib = _lib(_K6)
     scratch = torch.empty(lib.dual_bf16_scratch_bytes(u_pad, i_pad, d), dtype=torch.uint8,
                           device=dev)
     y = torch.empty((u_pad + i_pad, d), dtype=torch.float32, device=dev)
     passes = ctypes.c_int(0)
-    code = lib.dual_bf16(m8.data_ptr(), zu.data_ptr(), zi.data_ptr(), nu, ni, scratch.data_ptr(),
-                         y.data_ptr(), u_pad, i_pad, d, ctypes.byref(passes),
+    code = lib.dual_bf16(m8.data_ptr(), pu, pi, nu, ni, scratch.data_ptr(), y.data_ptr(), u_pad,
+                         i_pad, d, ctypes.byref(passes),
                          torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, _K6, code)
-    return y[:nu], y[u_pad : u_pad + ni], passes.value
+    yu = None if zi is None else y[: _out_rows(zu, u_pad)]
+    yi = None if zu is None else y[u_pad : u_pad + _out_rows(zi, i_pad)]
+    return yu, yi, passes.value
 
 
 class _FusedAdjMatmul(torch.autograd.Function):
     """K6 with the swapped-cotangent backward: [[0, M], [Mᵀ, 0]] is
     symmetric, so (dzu, dzi) = (M @ g_yi, Mᵀ @ g_yu) is the same
-    function of the cotangents. Saves only M."""
+    function of the cotangents. A side given as None in the forward has
+    no result and no gradient; the gradient of the given side comes back
+    at its own rows. Saves only M."""
 
     @staticmethod
     def forward(ctx, m8, zu, zi):
         ctx.m8 = m8
+        ctx.rows = (None if zu is None else zu.shape[0], None if zi is None else zi.shape[0])
         return _fused_fwd(m8, zu, zi)
 
     @staticmethod
     def backward(ctx, g_yu, g_yi):
         dzu, dzi = _fused_fwd(ctx.m8, g_yu, g_yi)
-        return None, dzu, dzi
+        nu, ni = ctx.rows
+        return (None, None if nu is None else dzu[:nu], None if ni is None else dzi[:ni])
 
 
 def _fused_fwd(m8, zu, zi):
@@ -555,13 +578,21 @@ def _fused_fwd(m8, zu, zi):
     return yu, yi
 
 
-def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor,
-                     zi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor | None,
+                     zi: torch.Tensor | None
+                     ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """(M @ zi, Mᵀ @ zu) for int8 m8 [U_pad, I_pad] padded with
     `pad_matrix`; zu [U, d], zi [I, d] floats, rounded to bfloat16 and
     zero-padded here; returns float32 (yu [U, d], yi [I, d]).
     Differentiable in zu and zi: the backward is the same product on the
     swapped cotangents (rounded to bfloat16 like any operand).
+
+    One direction: a side given as None is taken as zero and its result
+    comes back None; the other result then has M's padded rows on the
+    absent side (``fused_adj_matmul(m8, None, zi)`` gives M @ zi as
+    [U_pad, d], the rectangular adjacency's product). Each side's sums
+    are scaled by that side's own largest activation, so a one-sided
+    launch gives the bits of the same side of a two-sided one.
 
     CPU tensors take the plain version; CUDA tensors launch K6 or raise.
     K6 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0
@@ -573,10 +604,14 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor,
     are integer atomics. A non-finite activation on one side gives NaN
     over the other side's results."""
     u_pad, i_pad = m8.shape
-    if (zu.dim() != 2 or zi.dim() != 2 or zu.shape[1] != zi.shape[1]
-            or zu.shape[0] > u_pad or zi.shape[0] > i_pad):
-        raise ValueError(f"fused_adj_matmul: zu {tuple(zu.shape)} and zi {tuple(zi.shape)} do "
-                         f"not fit m8 {tuple(m8.shape)}")
+    sides = [z for z in (zu, zi) if z is not None]
+    if (not sides or any(z.dim() != 2 for z in sides)
+            or len({z.shape[1] for z in sides}) != 1
+            or (zu is not None and zu.shape[0] > u_pad)
+            or (zi is not None and zi.shape[0] > i_pad)):
+        shapes = [None if z is None else tuple(z.shape) for z in (zu, zi)]
+        raise ValueError(f"fused_adj_matmul: zu {shapes[0]} and zi {shapes[1]} do not fit m8 "
+                         f"{tuple(m8.shape)}")
     return _FusedAdjMatmul.apply(m8, zu, zi)
 
 

@@ -26,6 +26,7 @@ from idgrec_torch.ops.propagate import true_divide
 _BPR_EPS = 10e-8  # sic (== 1e-7)
 _INFONCE_EPS = 10e-6  # sic (== 1e-5)
 _INFONCE_ALL_EPS = 10e-8  # sic (== 1e-7), InfoNCE against an explicit pool
+_LIGHTGCL_EPS = 1e-8  # inside the log of LightGCL's full-table contrast
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -178,6 +179,47 @@ def infonce_loss_sum(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_all: torch.Te
     ttl_score = torch.sum(
         torch.exp(true_divide(torch.matmul(emb_1, emb_all.T), temperature)), dim=1)
     return torch.sum(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
+
+
+def _log_total(emb_b: torch.Tensor, table: torch.Tensor, temperature: float) -> torch.Tensor:
+    """mean over the batch of log(Σ_rows exp(emb_b · tableᵀ / t) + 1e-8):
+    the contrast against a full table, keeping one float32
+    [B, rows(table)] score matrix for the backward."""
+    scores = torch.exp(true_divide(torch.matmul(emb_b, _f32(table).T), temperature))
+    return torch.mean(torch.log(torch.sum(scores, dim=1) + _LIGHTGCL_EPS))
+
+
+def lightgcl_ssl_loss(user_e: torch.Tensor, pos_e: torch.Tensor, g_user_b: torch.Tensor,
+                      g_item_b: torch.Tensor, user_all: torch.Tensor, item_all: torch.Tensor,
+                      temperature: float) -> torch.Tensor:
+    """LightGCL's contrast between its SVD branch and its main branch,
+    unnormalized (the JAX model's operation order, lightgcl.py:77-92):
+    each side's batch rows of the SVD branch (``g_user_b``, ``g_item_b``)
+    against the main branch's full table (log of the summed exp, + 1e-8
+    inside the log), less the positive pairs' scores with the main
+    branch's batch rows clipped to [-5, 5] (`_clip`, JAX's gradient on a
+    bound). Returns −pos + neg; the model weighs it by ``ssl_lambda``."""
+    check_exact_matmul(user_e.device)
+    gu, gi = _f32(g_user_b), _f32(g_item_b)
+    neg = _log_total(gu, user_all, temperature) + _log_total(gi, item_all, temperature)
+    pos = torch.mean(_clip(true_divide(torch.sum(_f32(user_e) * gu, dim=1), temperature),
+                           -5.0, 5.0))
+    pos = pos + torch.mean(_clip(true_divide(torch.sum(_f32(pos_e) * gi, dim=1), temperature),
+                                 -5.0, 5.0))
+    return -pos + neg
+
+
+def elbo_loss(recon_x: torch.Tensor, x: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
+              anneal: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VAE's ELBO terms (CVGA): the softmax cross-entropy of the
+    decoder's rows ``recon_x`` [B, I] against the target rows ``x``, and
+    the KL term times ``anneal``, with the reference's double
+    normalisation (both / B and a mean over the batch)."""
+    recon_x, x, mu, logvar = _f32(recon_x), _f32(x), _f32(mu), _f32(logvar)
+    bce = -torch.mean(torch.sum(torch.log_softmax(recon_x, dim=1) * x, dim=-1))
+    kld = (-0.5 / recon_x.shape[0]) * torch.mean(
+        torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar), dim=1))
+    return bce, anneal * kld
 
 
 def reg_loss(*embeddings: torch.Tensor) -> torch.Tensor:

@@ -37,11 +37,14 @@ interaction-count matrix. Four backends apply it behind one facade
   transpose permutation).
 
 The rectangular R̃ = diag(left) · M · diag(right) [U, I] (EGCF's
-alternating mode) has `matmul` (R̃ @ xi) and `t_matmul` (R̃ᵀ @ xu), one
-direction a call, on three backends (`build_rect_adjacency`): dense
-(`DenseRectAdj`: exact float32 accumulation, or `quant_matmul`'s int8
-product with int32 sums), gather (`GatherRectAdj`) and bitpack
-(`BitRectAdj`: one K11 launch a direction).
+alternating mode, LightGCL, CVGA) has `matmul` (R̃ @ xi) and `t_matmul`
+(R̃ᵀ @ xu), one direction a call, on three backends
+(`build_rect_adjacency`): dense (`DenseRectAdj`, M's columns padded to
+256: bfloat16 through K6 with the other side left out, and `matmul_both`,
+both directions in one K6 launch; float32 accumulation of float32
+operands; or `quant_matmul`'s int8 product with int32 sums), gather
+(`GatherRectAdj`) and bitpack (`BitRectAdj`: one K11 launch a
+direction).
 
 This module also holds kernel K3 (`quantize_rows`,
 csrc/quantize_rows.cu) beside its plain version, and `build_adjacency`.
@@ -687,18 +690,23 @@ def exact_matmul(transpose: bool, m: torch.Tensor, z: torch.Tensor,
 @dataclass(frozen=True)
 class DenseRectAdj:
     """Rectangular R̃ = diag(left)·M·diag(right) [U, I] over the int8
-    count matrix, one plain product a direction: exact (bfloat16 or
-    float32 operands, float32 sums) or int8-quantized (``quant`` 'int8')."""
+    count matrix, its columns padded to `DENSE_COL_PAD` as the square
+    matrix's are. Where `runs_kernel` says so (bfloat16 operands) each
+    direction is one K6 launch with the other side left out
+    (`fusedmm.fused_adj_matmul`), and `matmul_both` runs both directions
+    in one; float32 runs `exact_matmul` (one side of
+    `fusedmm.dual_matmul_f32`) and int8 `quant_matmul`
+    (``torch._int_mm`` on the card)."""
 
-    m: torch.Tensor      # int8 [pad(U), pad(I)]
+    m: torch.Tensor      # int8 [pad(U), pad(I, DENSE_COL_PAD)]
     left: torch.Tensor   # f32 [U]
     right: torch.Tensor  # f32 [I]
     num_users: int
     num_items: int
     compute_dtype_name: str = "bfloat16"
     quant: str = "none"
-    # Mᵀ as its own int8 [pad(I), pad(U)] copy in the int8 mode: the
-    # operand of the transposed product on the card (`int8_matmul`)
+    # Mᵀ as its own int8 [pad(I, DENSE_COL_PAD), pad(U)] copy in the int8
+    # mode: the operand of the transposed product on the card (`int8_matmul`)
     m_t: torch.Tensor | None = None
 
     @property
@@ -709,22 +717,53 @@ class DenseRectAdj:
     def device(self) -> torch.device:
         return self.m.device
 
+    def runs_kernel(self, d: int) -> bool:
+        """Whether the products at width ``d`` run K6: bfloat16 operands
+        (not float32, which K6 would round, and not the int8 mode) where
+        `fusedmm.kernel_accepts_n` takes M's padded shape, so d % 32 == 0
+        within the kernel's sides' limit. Where it is True a CUDA tensor
+        launches K6 or raises; on the CPU K6's plain version computes
+        what `exact_matmul` computes, bit for bit."""
+        if self.quant != "none" or self.compute_dtype_name != "bfloat16":
+            return False
+        u_pad, i_pad = self.m.shape
+        return fusedmm.kernel_accepts_n(u_pad, i_pad, d, "bf16")
+
     def _product(self, z: torch.Tensor, transpose: bool) -> torch.Tensor:
+        """One direction on the right- or left-scaled z, rows up to M's
+        padded side: (Mᵀ if ``transpose`` else M) @ z with M's padded rows
+        on the output side."""
+        if self.runs_kernel(z.shape[1]):
+            yu, yi = fusedmm.fused_adj_matmul(self.m, z if transpose else None,
+                                              None if transpose else z)
+            return yi if transpose else yu
+        z = _pad_rows(z, self.m.shape[0] if transpose else self.m.shape[1])
         if self.quant == "int8":
             return quant_matmul(transpose, self.m, z, self.m_t)
         return exact_matmul(transpose, self.m, z, _DTYPES[self.compute_dtype_name])
 
     def matmul(self, xi: torch.Tensor) -> torch.Tensor:
         """R̃ @ xi for xi [I, d] -> [U, d] in xi's type."""
-        z = _pad_rows(self.right[:, None] * xi.to(torch.float32), self.m.shape[1])
-        y = self._product(z, False)
+        y = self._product(self.right[:, None] * xi.to(torch.float32), False)
         return (self.left[:, None] * y[: self.num_users]).to(xi.dtype)
 
     def t_matmul(self, xu: torch.Tensor) -> torch.Tensor:
         """R̃ᵀ @ xu for xu [U, d] -> [I, d] in xu's type."""
-        z = _pad_rows(self.left[:, None] * xu.to(torch.float32), self.m.shape[0])
-        y = self._product(z, True)
+        y = self._product(self.left[:, None] * xu.to(torch.float32), True)
         return (self.right[:, None] * y[: self.num_items]).to(xu.dtype)
+
+    def matmul_both(self, xi: torch.Tensor, xu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(R̃ @ xi, R̃ᵀ @ xu) of one width: one K6 launch for both
+        directions where `runs_kernel` says so (each side's sums scaled by
+        its own input's largest activation, so the bits of `matmul` and
+        `t_matmul`), else those two calls."""
+        d = xi.shape[1]
+        if xu.shape[1] != d or not self.runs_kernel(d):
+            return self.matmul(xi), self.t_matmul(xu)
+        zi = self.right[:, None] * xi.to(torch.float32)
+        zu = self.left[:, None] * xu.to(torch.float32)
+        yu, yi = fusedmm.fused_adj_matmul(self.m, zu, zi)
+        return (self.left[:, None] * yu).to(xi.dtype), (self.right[:, None] * yi).to(xu.dtype)
 
 
 @dataclass(frozen=True)
@@ -1049,7 +1088,8 @@ def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: st
             "backend 'fused' applies to the square adjacency only; "
             "rectangular R̃ supports auto|dense|gather|bitpack"
         )
-    backend = _select_backend(data, backend, dev, copies=2 if quant != "none" else 1)
+    backend = _select_backend(data, backend, dev, copies=2 if quant != "none" else 1,
+                              col_multiple=DENSE_COL_PAD)
     if quant != "none" and backend != "dense":
         raise ValueError("compute_dtype = int8 requires the dense backend")
     if backend == "gather":
@@ -1063,6 +1103,6 @@ def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: st
         p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
         plans = (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
         return BitRectAdj(p, pt, left, right, nu, ni, plans)
-    m = _count_matrix_int8(data, dev)
+    m = _count_matrix_int8(data, dev, DENSE_COL_PAD)
     m_t = m.T.contiguous() if quant == "int8" else None
     return DenseRectAdj(m, left, right, nu, ni, dtype_name, quant, m_t)

@@ -4,7 +4,7 @@ GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
         LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec|CGCL|NCL|HCCF|IMPGCN|
-        NGCF|GCMC|GCCF|LightGODE|RecDCL]
+        NGCF|GCMC|GCCF|LightGODE|RecDCL|LightGCL|CVGA]
         [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
         [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
         [--mode parallel|alternating] [--embedding_size D] [--root DIR]
@@ -13,11 +13,15 @@ Builds the model of chip_smoke.py (its config file's loss weights and
 width, d = 64, RecDCL 2,048, unless ``--embedding_size`` says otherwise
 (LightGCN and EGCF 64; 128 takes int8 and int4 to the per-application
 loop); LightGCN and EGCF 3 layers, the zoo its config's: IMPGCN 6, GCMC
-1, RecDCL 2, LightGODE one application under its MF_init) on the
-synthetic set at the scale of the dataset its config names: yelp2018
+1, RecDCL 2, LightGODE one application under its MF_init, LightGCL 2
+on the rectangular adjacency, CVGA its one encoder product at 2d) on
+the synthetic set at the scale of the dataset its config names: yelp2018
 (LightGCN, EGCF, MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL,
 LightGCN_pp, BIGCF, CGCL, NCL, HCCF, IMPGCN, NGCF, GCMC, GCCF,
-LightGODE, RecDCL) or amazon-book (LightCCF, LightCSCF, MixRec). LightGCN and EGCF run int8
+LightGODE, RecDCL, LightGCL, CVGA) or amazon-book (LightCCF, LightCSCF,
+MixRec). CVGA's batches are user rows (a permutation of the user ids,
+as the training loop feeds it) and LightGCL's SVD is taken when the
+model is built (its host seconds are printed). LightGCN and EGCF run int8
 and batch 2,048 unless told otherwise, the zoo its config's compute
 dtype (bfloat16) and batch size. A step's noise comes from a CUDA
 generator seeded 0. NCL steps past its warm-up: its k-means runs first
@@ -63,7 +67,7 @@ SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
           "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
 MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF",
           "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec", "CGCL", "NCL", "HCCF",
-          "IMPGCN", "NGCF", "GCMC", "GCCF", "LightGODE", "RecDCL")
+          "IMPGCN", "NGCF", "GCMC", "GCCF", "LightGODE", "RecDCL", "LightGCL", "CVGA")
 
 
 def main() -> int:
@@ -126,7 +130,14 @@ def main() -> int:
     model.epoch_context(epoch, np.random.default_rng(0))
     torch.cuda.synchronize()
     context_ms = (time.perf_counter() - t0) * 1e3
-    users, pos, neg = NegativeSampler(data).sample_epoch(gen)
+    if model.batching == "user_rows":
+        from idgrec_torch.ops import noise
+
+        users = pos = neg = noise.permutation(data.num_users, gen)
+    else:
+        users, pos, neg = NegativeSampler(data).sample_epoch(gen)
+    if hasattr(model, "svd_seconds"):
+        print(f"LightGCL's SVD: {model.svd_seconds:.2f} s on the host", flush=True)
     n = (2 * steps + 10) * batch_size
     runner = EpochRunner(model, cfg.float("learn_rate"), batch_size, n)
     batches = runner._prepare(users[:n], pos[:n], neg[:n])

@@ -104,12 +104,13 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin.isatty", lambda: False, raising=False)
     assert t_main.main([]) == 2
     out = capsys.readouterr().out
-    assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 4. EGCF" in out
-    assert "\t 2. CGCL" in out and "\t 7. HCCF" in out and "\t 8. IMPGCN" in out
-    assert "\t 11. LightGCN" in out and "\t 12. LightGCN_pp" in out and "\t 17. NCL" in out
-    assert "\t 20. SCCF" in out and "\t 22. XSimGCL" in out
-    assert "\t 5. GCCF" in out and "\t 6. GCMC" in out and "\t 13. LightGODE" in out
-    assert "\t 18. NGCF" in out and "\t 19. RecDCL" in out
+    assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 5. EGCF" in out
+    assert "\t 2. CGCL" in out and "\t 8. HCCF" in out and "\t 9. IMPGCN" in out
+    assert "\t 13. LightGCN" in out and "\t 14. LightGCN_pp" in out and "\t 19. NCL" in out
+    assert "\t 22. SCCF" in out and "\t 24. XSimGCL" in out
+    assert "\t 6. GCCF" in out and "\t 7. GCMC" in out and "\t 15. LightGODE" in out
+    assert "\t 20. NGCF" in out and "\t 21. RecDCL" in out
+    assert "\t 3. CVGA" in out and "\t 12. LightGCL" in out
     assert "error: pass --model=<NAME> (no interactive terminal)" in out
 
 
@@ -162,9 +163,9 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     ("missing_checkpoint", "error: no checkpoints under"),
     # the id keeps the name this case had while LightGCN was the only model
     pytest.param("unknown_model", "error: unknown model 'Nope'; available: BIGCF, CGCL, "
-                 "DirectAU, EGCF, GCCF, GCMC, HCCF, IMPGCN, LightCCF, LightCSCF, LightGCN, "
-                 "LightGCN_pp, LightGODE, MAWU, MFBPR, MixRec, NCL, NGCF, RecDCL, SCCF, "
-                 "SimGCL, XSimGCL",
+                 "CVGA, DirectAU, EGCF, GCCF, GCMC, HCCF, IMPGCN, LightCCF, LightCSCF, "
+                 "LightGCL, LightGCN, LightGCN_pp, LightGODE, MAWU, MFBPR, MixRec, NCL, NGCF, "
+                 "RecDCL, SCCF, SimGCL, XSimGCL",
                  id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),
@@ -269,12 +270,13 @@ def test_bench_script_times_an_exact_mode(capsys, backend, dtype):
     assert captured.err.count("eval sweep") == 2
 
 
-@pytest.mark.parametrize("name", ["NGCF", "RecDCL"])
+@pytest.mark.parametrize("name", ["NGCF", "RecDCL", "LightGCL", "CVGA"])
 def test_main_trains_and_serve_serves_a_model_of_this_round(workdir, capsys, name):
     """NGCF (per-layer weight tables, message dropout drawn from the run's
-    generator) and RecDCL (target histories carried by its steps and
-    checkpoints) through both command lines, from their config files at
-    d = 16."""
+    generator), RecDCL (target histories carried by its steps and
+    checkpoints), LightGCL (its SVD taken when the model is built) and
+    CVGA (user-row epochs, its dict representation served) through both
+    command lines, from their config files at d = 16."""
     from idgrec_torch.config import load_model_config
 
     tmp = workdir["tmp"]

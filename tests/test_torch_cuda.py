@@ -56,7 +56,12 @@ synchronisation. NGCF, GCMC, GCCF, LightGODE and RecDCL (its histories
 too) take a step on K6 within K6's bars of the same step on K6's plain
 version, and another under sync debug mode "error", as NGCF's node
 dropout on the gather backend does; K6 at d = 2,048 (RecDCL's width)
-reads M sixteen times and stays within its bar."""
+reads M sixteen times and stays within its bar. K6 with one side left out
+(the rectangular adjacency's direction) stays within its bar of the plain
+version and gives the bits of the same side of the two-sided launch;
+`DenseRectAdj.matmul_both` gives the bits of its two one-direction calls
+in one launch; LightGCL's and CVGA's steps on K6 stay within K6's bars of
+the same steps on the plain version, without a synchronisation."""
 
 from __future__ import annotations
 
@@ -2126,7 +2131,14 @@ _ROUND = {"NGCF": 6, "GCMC": 2, "GCCF": 6, "LightGODE": 2, "RecDCL": 4}
 
 def _plain_k6(m8, zu, zi):
     """K6's plain version with K6's backward rule (chip_smoke.py's
-    `plain_duals`)."""
+    `plain_duals`); a one-sided call through `propagate.exact_matmul`, the
+    route K6 replaced on the rectangular adjacency."""
+    if zu is None or zi is None:
+        transpose = zi is None
+        z = zu if transpose else zi
+        y = propagate.exact_matmul(transpose, m8, propagate._pad_rows(
+            z, m8.shape[0] if transpose else m8.shape[1]), torch.bfloat16)
+        return (None, y) if transpose else (y, None)
     nu, ni = zu.shape[0], zi.shape[0]
     yu, yi = propagate.exact_dual_matmul(m8, propagate._pad_rows(zi, m8.shape[1]),
                                          propagate._pad_rows(zu, m8.shape[0]), torch.bfloat16)
@@ -2265,3 +2277,146 @@ def test_k6_at_d2048_equals_its_plain_version(cuda):
     for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
         assert torch.equal(a, b)
         _close(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the rectangular dense route on K6 (LightGCL, CVGA, EGCF alternating in
+# bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", [(3000, 5000), (300, 500)])
+def test_k6_one_sided_equals_plain_and_the_dual(cuda, shape, d):
+    """K6 with one side left out (the rectangular adjacency's direction):
+    within K6's bar of its plain version, bit-equal to the same side of
+    the two-sided launch (each side scaled by its own input's largest
+    activation) and across two launches; the backward of a one-sided call
+    bit-equal to the one-sided launch on the cotangent, the absent side
+    without a gradient; no synchronisation."""
+    nu, ni = shape
+    data = make_synthetic_dataset(nu, ni, 20 * nu, 100, seed=4)
+    adj = propagate.build_rect_adjacency(data, "dense", "bfloat16", device=cuda)
+    assert adj.runs_kernel(d) and adj.m.shape[1] % propagate.DENSE_COL_PAD == 0
+    m = adj.m
+    rng = np.random.default_rng(d)
+    zu = torch.from_numpy(rng.normal(size=(nu, d)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(ni, d)).astype(np.float32)).to(cuda)
+    before = fusedmm.fused_adj_matmul.launches
+    yu, none_i = fusedmm.fused_adj_matmul(m, None, zi)
+    none_u, yi = fusedmm.fused_adj_matmul(m, zu, None)
+    assert fusedmm.fused_adj_matmul.launches - before == 2
+    assert none_i is None and none_u is None
+    assert yu.shape == (m.shape[0], d) and yi.shape == (m.shape[1], d)
+    both = fusedmm.fused_adj_matmul(m, zu, zi)
+    assert torch.equal(both[0], yu[:nu]) and torch.equal(both[1], yi[:ni])
+    assert torch.equal(fusedmm.fused_adj_matmul(m, None, zi)[0], yu)
+    assert torch.equal(fusedmm.fused_adj_matmul(m, zu, None)[1], yi)
+    _close(yu, fusedmm.fused_adj_matmul_plain(m, None, zi)[0])
+    _close(yi, fusedmm.fused_adj_matmul_plain(m, zu, None)[1])
+    x = zi.clone().requires_grad_(True)
+    y = fusedmm.fused_adj_matmul(m, None, x)[0]
+    g = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(np.float32)).to(cuda)
+    y.backward(g)
+    assert torch.equal(x.grad, fusedmm.fused_adj_matmul(m, g, None)[1][:ni])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fusedmm.fused_adj_matmul(m, None, zi)
+        fusedmm.fused_adj_matmul(m, zu, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_rect_matmul_both_is_one_launch_of_two_one_sided_ones(cuda):
+    """`DenseRectAdj.matmul_both` runs one K6 launch and gives the bits of
+    `matmul` and `t_matmul` (one launch each), forward and backward; a
+    non-finite input on one side leaves the other side's result finite."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_rect_adjacency(data, "dense", "bfloat16", device=cuda)
+    rng = np.random.default_rng(3)
+    xi = torch.from_numpy(rng.normal(size=(5000, 64)).astype(np.float32)).to(cuda)
+    xu = torch.from_numpy(rng.normal(size=(3000, 64)).astype(np.float32)).to(cuda)
+    wu, wi = torch.randn(3000, 64, device=cuda), torch.randn(5000, 64, device=cuda)
+    outs = []
+    for both in (True, False):
+        a, b = xi.clone().requires_grad_(True), xu.clone().requires_grad_(True)
+        before = fusedmm.fused_adj_matmul.launches
+        ya, yb = adj.matmul_both(a, b) if both else (adj.matmul(a), adj.t_matmul(b))
+        ((ya * wu).sum() + (yb * wi).sum()).backward()
+        assert fusedmm.fused_adj_matmul.launches - before == (2 if both else 4)
+        outs.append((ya.detach(), yb.detach(), a.grad, b.grad))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    bad = xu.clone()
+    bad[7, 3] = float("nan")
+    ya, yb = adj.matmul_both(xi, bad)
+    assert torch.equal(ya, outs[1][0]) and bool(torch.isnan(yb).all())
+
+
+@pytest.mark.parametrize("name", ["LightGCL", "CVGA"])
+def test_rect_model_step_on_k6(cuda, name):
+    """LightGCL and CVGA at their published configs (d = 64; CVGA's
+    encoder at 128) on the rectangular K6 route: one step against the
+    same step on K6's plain version (`_plain_k6`, one-sided calls through
+    `propagate.exact_matmul`) from the same tables and generator seed,
+    loss terms within rtol 3e-5 / atol 3e-6 and gradients within 2**-7 of
+    the largest entry; then a step under sync debug mode "error", its K6
+    launches counted (LightGCL 4: two layers, one launch each way; CVGA
+    2), and the evaluation representation (2 and 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch import convert
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = load_model_config(name).updated(dataset="t", batch_size=1024)
+    model = get_model(name)(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    assert isinstance(model.graph, propagate.DenseRectAdj)
+    want_step, want_repr = {"LightGCL": (4, 2), "CVGA": (2, 1)}[name]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    if name == "CVGA":
+        users = torch.randperm(data.num_users, generator=g)[:1024].to(cuda)
+        batch = {"user": users, "pos": users, "neg": users}
+    else:
+        pick = torch.randint(0, data.num_train, (1024,), generator=g).numpy()
+        batch = {"user": torch.from_numpy(data.train_user[pick]).to(cuda),
+                 "pos": torch.from_numpy(data.train_item[pick]).to(cuda),
+                 "neg": torch.randint(0, data.num_items, (1024,), generator=g).to(cuda)}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        terms = model.loss_terms(batch, torch.Generator(device=cuda).manual_seed(5))
+        sum(terms).backward()
+        return ([t.detach() for t in terms],
+                [getattr(model, k).grad.clone() for k in convert.table_names(model)])
+
+    before = fusedmm.fused_adj_matmul.launches
+    got = step()
+    assert fusedmm.fused_adj_matmul.launches - before == want_step
+    old = fusedmm.fused_adj_matmul
+    try:
+        fusedmm.fused_adj_matmul = _plain_k6
+        want = step()
+    finally:
+        fusedmm.fused_adj_matmul = old
+    for a, b in zip(got[0], want[0]):
+        assert bool(torch.isfinite(a))
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6)
+    for a, b in zip(got[1], want[1]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2.0 ** -7 * float(b.abs().max())
+    runner = EpochRunner(model, cfg.float("learn_rate"), 1024, 1024)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    runner.run_epoch(batch["user"], batch["pos"], batch["neg"], generator=gen)
+    before = fusedmm.fused_adj_matmul.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms = runner.run_epoch(batch["user"], batch["pos"], batch["neg"], generator=gen)
+        rep = model.eval_embeddings(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fusedmm.fused_adj_matmul.launches - before == want_step + want_repr
+    assert np.isfinite(terms.cpu().numpy()).all()
+    assert isinstance(rep, dict) == (name == "CVGA")

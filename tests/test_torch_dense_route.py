@@ -157,9 +157,12 @@ def test_dense_budget_counts_the_padded_columns(data, monkeypatch):
     assert isinstance(t_prop.build_adjacency(data, device="cpu"), t_prop.DenseSquareAdj)
     monkeypatch.setattr(t_prop, "dense_budget", lambda device: m.numel() - 1)
     assert isinstance(t_prop.build_adjacency(data, device="cpu"), t_prop.GatherSquareAdj)
-    # the rectangular adjacency keeps the 128 padding and its own count
+    # the rectangular adjacency pads its columns alike (K6's strip), and
+    # its budget counts them
     rect = t_prop.build_rect_adjacency(data, "dense", device="cpu")
-    assert rect.m.shape == t_prop._count_matrix_int8(data, torch.device("cpu")).shape
+    assert rect.m.shape == m.shape
+    assert isinstance(t_prop.build_rect_adjacency(data, device="cpu"), t_prop.GatherRectAdj)
+    monkeypatch.setattr(t_prop, "dense_budget", lambda device: m.numel())
     assert isinstance(t_prop.build_rect_adjacency(data, device="cpu"), t_prop.DenseRectAdj)
 
 

@@ -170,7 +170,10 @@ def test_rect_builder_picks_the_jax_class(rect_adjs, mode):
     assert type(t).__name__ == type(j).__name__ and t.shape == j.shape == (NU, NI)
     if mode[0] == "dense":
         assert t.quant == j.quant == ("int8" if mode[1] in ("int8", "int4") else "none")
-        np.testing.assert_array_equal(t.m.numpy(), np.asarray(j.m))
+        # JAX's M, its columns padded further to the square matrix's
+        # multiple (K6's column strip)
+        assert t.m.shape[1] % t_prop.DENSE_COL_PAD == 0 and t.m.shape[0] == j.m.shape[0]
+        np.testing.assert_array_equal(t.m.numpy(), _padded_like(np.asarray(j.m), t.m))
         # the int8 mode keeps Mᵀ for the card's transposed product
         assert (t.m_t is not None) == (t.quant == "int8")
         if t.m_t is not None:
@@ -184,6 +187,13 @@ def test_rect_builder_picks_the_jax_class(rect_adjs, mode):
         np.testing.assert_array_equal(t.right.numpy(), np.asarray(j.right))
 
 
+def _padded_like(a, m):
+    """``a`` (JAX's [pad(U), pad(I)] matrix) zero-padded to ``m``'s shape."""
+    out = np.zeros(tuple(m.shape), a.dtype)
+    out[: a.shape[0], : a.shape[1]] = a
+    return out
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_int8_raw_sums_equal_jax(rect_adjs, transpose):
     t, j = rect_adjs[("dense", "int8")]
@@ -194,7 +204,8 @@ def test_int8_raw_sums_equal_jax(rect_adjs, transpose):
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     got = t_prop.int8_matmul(t.m, t.m_t, q, transpose)
-    mm = j.m.T if transpose else j.m
+    jm = jnp.asarray(_padded_like(np.asarray(j.m), t.m))
+    mm = jm.T if transpose else jm
     want = np.asarray(jnp.matmul(mm, jq, preferred_element_type=jnp.int32))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
@@ -204,7 +215,7 @@ def test_int8_raw_sums_equal_jax(rect_adjs, transpose):
     out = t_prop.quant_matmul(transpose, t.m, zt, t.m_t)
     g = rng.normal(size=tuple(out.shape)).astype(np.float32)
     (out * torch.from_numpy(g)).sum().backward()
-    ref, vjp = jax.vjp(lambda e: j_prop.quant_matmul(transpose, j.m, e), jnp.asarray(z))
+    ref, vjp = jax.vjp(lambda e: j_prop.quant_matmul(transpose, jm, e), jnp.asarray(z))
     _within_ulps(out.detach().numpy(), np.asarray(ref))
     _within_ulps(zt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]))
 
@@ -437,3 +448,114 @@ def test_jax_alternating_checkpoint_loads_into_the_port(datasets, tmp_path):
     rec = TRecommender.from_checkpoint("EGCF", datasets[0], TConfig(cfg), str(tmp_path),
                                        device="cpu")
     assert torch.equal(rec.model.item_emb, model.item_emb)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 dense route on K6 (its plain version on the CPU)
+
+
+def _old_rect(adj, x, transpose):
+    """`DenseRectAdj.matmul` / `.t_matmul` as the bfloat16 dense route ran
+    before K6: `exact_matmul` (one side of `fusedmm.dual_matmul_f32`) on
+    the scaled activations padded to M's side."""
+    scale_in, scale_out = (adj.left, adj.right) if transpose else (adj.right, adj.left)
+    n_in, n_out = (adj.m.shape[0], adj.num_items) if transpose else (adj.m.shape[1],
+                                                                      adj.num_users)
+    z = t_prop._pad_rows(scale_in[:, None] * x.to(torch.float32), n_in)
+    y = t_prop.exact_matmul(transpose, adj.m, z, torch.bfloat16)
+    return (scale_out[:, None] * y[:n_out]).to(x.dtype)
+
+
+# K6 takes d % 32 == 0: the route's width in these cases
+D_K6 = 32
+
+
+def _inputs_k6(seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(n, D_K6)).astype(np.float32) for n in (NI, NU, NU, NI))
+
+
+def _value_and_grad(fn, x, w):
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = fn(xt)
+    (y * torch.from_numpy(w)).sum().backward()
+    return y.detach(), xt.grad
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bf16_dense_route_equals_the_old_route_bit_for_bit(rect_adjs, transpose):
+    """K6's plain version with one side left out computes what
+    `exact_matmul` computed, bit for bit, forward and backward, on M
+    padded to DENSE_COL_PAD."""
+    t = rect_adjs[("dense", "bfloat16")][0]
+    assert t.runs_kernel(D_K6) and not t.runs_kernel(D)
+    assert t.m.shape[1] % t_prop.DENSE_COL_PAD == 0
+    xi, xu, w_u, w_i = _inputs_k6(11)
+    x, w = (xu, w_i) if transpose else (xi, w_u)
+    got = _value_and_grad(t.t_matmul if transpose else t.matmul, x, w)
+    want = _value_and_grad(lambda v: _old_rect(t, v, transpose), x, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_matmul_both_equals_the_two_directions_bit_for_bit(rect_adjs):
+    """One two-sided call gives the bits of the two one-sided ones, values
+    and gradients (each side scaled by its own input's largest activation
+    on the card; the same row blocks of M here)."""
+    t = rect_adjs[("dense", "bfloat16")][0]
+    assert t.runs_kernel(D_K6)
+    xi, xu, w_u, w_i = _inputs_k6(12)
+    outs = []
+    for both in (True, False):
+        a, b = torch.from_numpy(xi).requires_grad_(True), torch.from_numpy(xu).requires_grad_(True)
+        ya, yb = t.matmul_both(a, b) if both else (t.matmul(a), t.t_matmul(b))
+        ((ya * torch.from_numpy(w_u)).sum() + (yb * torch.from_numpy(w_i)).sum()).backward()
+        outs.append((ya.detach(), yb.detach(), a.grad, b.grad))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_one_sided_k6_is_one_side_of_the_dual():
+    """`fused_adj_matmul` with a side given as None: the other side's
+    result over M's padded rows, the same bits as the two-sided call's,
+    no result and no gradient for the absent side."""
+    rng = np.random.default_rng(13)
+    m = torch.from_numpy((rng.random((128, 512)) < 0.05).astype(np.int8))
+    zu = torch.from_numpy(rng.normal(size=(100, D_K6)).astype(np.float32))
+    zi = torch.from_numpy(rng.normal(size=(300, D_K6)).astype(np.float32)).requires_grad_(True)
+    yu, none_i = t_prop.fusedmm.fused_adj_matmul(m, None, zi)
+    assert none_i is None and yu.shape == (128, D_K6)
+    dual_u, dual_i = t_prop.fusedmm.fused_adj_matmul(m, zu, zi.detach())
+    assert torch.equal(yu[:100], dual_u)
+    none_u, yi = t_prop.fusedmm.fused_adj_matmul(m, zu, None)
+    assert none_u is None and yi.shape == (512, D_K6) and torch.equal(yi[:300], dual_i)
+    g = torch.from_numpy(rng.normal(size=(128, D_K6)).astype(np.float32))
+    (yu * g).sum().backward()
+    assert zi.grad.shape == (300, D_K6)
+    assert torch.equal(zi.grad, t_prop.fusedmm.fused_adj_matmul(m, g, None)[1][:300])
+    with pytest.raises(ValueError, match="do not fit"):
+        t_prop.fusedmm.fused_adj_matmul(m, None, None)
+
+
+def test_the_route_calls_k6_in_bfloat16_only(datasets, monkeypatch):
+    """bfloat16 at d % 32 == 0 goes through K6's wrapper, one side left out
+    a direction and none in `matmul_both`; float32, int8 and other widths
+    never call it."""
+    calls = []
+    real = t_prop.fusedmm.fused_adj_matmul
+
+    def spy(m, zu, zi):
+        calls.append((zu is not None, zi is not None))
+        return real(m, zu, zi)
+
+    monkeypatch.setattr(t_prop.fusedmm, "fused_adj_matmul", spy)
+    tdata = datasets[0]
+    for dtype, d, want in (("bfloat16", 32, [(False, True), (True, False), (True, True)]),
+                           ("bfloat16", 24, []), ("float32", 32, []), ("int8", 32, [])):
+        calls.clear()
+        adj = t_prop.build_rect_adjacency(tdata, "dense", dtype, device="cpu")
+        assert adj.runs_kernel(d) == bool(want)
+        xi, xu = torch.ones(NI, d), torch.ones(NU, d)
+        adj.matmul(xi)
+        adj.t_matmul(xu)
+        adj.matmul_both(xi, xu)
+        assert calls == want, (dtype, d)
