@@ -193,6 +193,27 @@ launch counts set to 0 just before and read just after:
   ZOO_REQUEST users against the plain route's server (CVGA's dict
   representation); CVGA through `train_model` for one epoch of user rows,
   served from its result;
+* SGL at its published config on the yelp2018-scale set (bfloat16 on
+  `auto`, dense: its clean chain and two edge-dropout views side by side
+  at d = 192, one K6 launch a layer each way over the model's own binary
+  matrix, each view's dropped edges subtracted on K4; `sgl_phase`): the
+  model's resident bytes (one int8 copy of M), `epoch_context` timed, one
+  step against the same step on K6's and K4's plain versions (K6's
+  rules), K6 6 and K4 24 a step, K6 3 a representation, a step's memory
+  under M's bytes, one step under sync debug mode "error" (the views
+  drawn outside it), ZOO_STEPS steps, eval embeddings timed, a request
+  of ZOO_REQUEST users against the plain route's server, `topk_mode =
+  "approx"` serving exact's ids, `train_model` for one epoch with the
+  final evaluation SGL runs after its last epoch, served from its
+  result; `aug_type = rw` for ZOO_STEPS steps; the quantized views on
+  `fused` (int8 and int4 on `auto`: the three chains at 192, K7 / K8 on
+  the transposed integers, held bit for bit to three K1 / K5 launches on
+  the 64-row blocks and to their plain versions, timed beside their
+  bounds, their plain versions and `torch._int_mm`; one step against the
+  plain route; int4's ZOO_STEPS steps equal to int8's); bitpack (K11)
+  one step against its plain route; K4 on one view's drop list (about a
+  tenth of the edges) equal to its plain version and across two
+  launches, timed beside its bound, its plain version and `index_add_`;
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
   LEARN_EPOCHS epochs, recall@20 after the last at least LEARN_FACTOR
@@ -224,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -473,6 +495,26 @@ def plain_rect(propagate, bitmm, chainmm, scatter):
 
 
 @contextlib.contextmanager
+def plain_views(propagate, fusedmm, chainmm, scatter):
+    """Route SGL's quantized views (K3's rounding, the transposed dual's
+    raw sums on K1 / K5 or K7 / K8) and K4 through their plain versions:
+    the reference a quantized SGL step is held to."""
+    names = ("fused_adj_matmul_int8", "fused_adj_matmul_int4", "fused_adj_matmul_int8_t",
+             "fused_adj_matmul_int4_t")
+    saved = {n: getattr(fusedmm, n) for n in names}, propagate.quantize_rows
+    for n in names:
+        setattr(fusedmm, n, getattr(fusedmm, f"{n}_plain"))
+    propagate.quantize_rows = propagate.quantize_rows_plain
+    try:
+        with plain_kernels(chainmm, scatter):
+            yield
+    finally:
+        for n, fn in saved[0].items():
+            setattr(fusedmm, n, fn)
+        propagate.quantize_rows = saved[1]
+
+
+@contextlib.contextmanager
 def plain_duals(fusedmm, propagate):
     """Route kernels K6 and K7, the dense and fused backends' products,
     through their plain versions: the reference a zoo model's step and
@@ -613,6 +655,404 @@ def check_answers_close(ref_rec, data, users: np.ndarray, items, scores, tol: fl
     require(((items == ref_items) | near).all(),
             f"{int((~((items == ref_items) | near)).sum())} served ids differ from the "
             f"reference model's outside scores within {tol}")
+
+
+def sgl_phase(h) -> dict:
+    """SGL at its published config on the yelp2018-scale set (dense
+    bfloat16 on `auto`): the clean chain and the two edge-dropout views side
+    by side at 3 DIM, one K6 launch a layer each way over the model's own
+    binary matrix (no second copy of M), each view's dropped edges subtracted
+    on K4 (2 views x 2 sides a layer, forward and backward). One step against
+    the same step on K6's and K4's plain versions with the same views (K6's
+    rules), one under sync debug mode "error" (the views drawn outside it),
+    its launches, the model's resident bytes and the step's memory under M's
+    bytes, ZOO_STEPS steps, eval embeddings and `epoch_context` timed, a
+    request of ZOO_REQUEST users against the plain route's server and against
+    `topk_mode="approx"`, `train_model` for one epoch with its final
+    evaluation, served from its result. Then `aug_type = rw` (a view a layer),
+    the quantized views on `fused` (int8 on K7, int4 on K8 at 3 DIM; K7 held
+    to three K1 launches on its 64-row blocks, K8 to K5; one step against the
+    plain route; int4's steps equal to int8's), bitpack (K11) against its
+    plain route, and K4 on one view's drop list against its plain version,
+    timed."""
+    from idgrec_torch import convert
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine import loop as loop_lib
+    from idgrec_torch.engine.trainer import EpochRunner
+    from idgrec_torch.models import get_model
+    from idgrec_torch.models.base import concat_user_item
+    from idgrec_torch.ops import bitmm, chainmm, fusedmm, propagate, scatter
+    from idgrec_torch.serving import Recommender
+
+    data, dev, gen, neg_sampler, zoo_rng = h.data, h.dev, h.gen, h.neg_sampler, h.zoo_rng
+    bound, reset_counts, read_counts = h.bound, h.reset_counts, h.read_counts
+    int_mm_ms, bf16_ops = h.int_mm_ms, h.bf16_ops
+    nu, ni = data.num_users, data.num_items
+    cfg_s = load_model_config("SGL").updated(dataset=data.name)
+    require(cfg_s.int("embedding_size") == DIM and cfg_s.int("GCN_layer") == LAYERS
+            and cfg_s.str("aug_type") == "ed" and cfg_s.float("ssl_ratio") == 0.1
+            and cfg_s.str("compute_dtype") == "bfloat16"
+            and cfg_s.str("propagation_backend") == "auto", "SGL: not the published config")
+    bs_s, lr_s = cfg_s.int("batch_size"), cfg_s.float("learn_rate")
+    # a step: three layers, each one K6 launch at 3 DIM forward and one
+    # backward; 2 views x 2 sides of K4 a layer, forward and backward; a
+    # representation: the clean chain, one K6 launch a layer at DIM
+    step_k6_s, repr_k6_s, step_k4_s = 2 * LAYERS, LAYERS, 2 * 2 * 2 * LAYERS
+
+    def sgl_model(cfg_):
+        torch.cuda.synchronize()
+        mem_ = torch.cuda.memory_allocated()
+        t0_ = time.perf_counter()
+        m_ = get_model("SGL")(cfg_, data, device=dev, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        return m_, torch.cuda.memory_allocated() - mem_, time.perf_counter() - t0_
+
+    def sgl_step(m_, b_):
+        m_.zero_grad(set_to_none=True)
+        terms_ = m_.loss_terms(b_, None, 0)
+        sum(terms_).backward()
+        grads_ = [getattr(m_, k_).grad.clone() for k_ in convert.table_names(m_)]
+        m_.zero_grad(set_to_none=True)
+        return [t_.detach() for t_ in terms_], grads_
+
+    def hold_step(got_, want_, label, rtol, atol, grad_bar):
+        """Loss terms within (rtol, atol), gradients within ``grad_bar`` of
+        their largest entry; returns (the largest gradient error relative
+        to it, whether all is bit-equal)."""
+        for what, a, b in zip(("bpr", "reg", "ssl"), got_[0], want_[0]):
+            require(bool(torch.isfinite(a)), f"{label} step, {what}: not finite")
+            assert_close(a, b, f"{label} step, {what}", rtol=rtol, atol=atol)
+        worst = 0.0
+        for what, a, b in zip(("item_emb", "user_emb"), got_[1], want_[1]):
+            top = float(b.abs().max())
+            require(bool(torch.isfinite(a).all()) and max_abs(a, b) <= grad_bar * top,
+                    f"{label} step, d {what}: max abs err {max_abs(a, b)} above {grad_bar} of "
+                    f"{top}")
+            worst = max(worst, max_abs(a, b) / top)
+        same = all(torch.equal(a, b) for a, b in zip(got_[0] + got_[1], want_[0] + want_[1]))
+        return worst, same
+
+    m_s, resident_s, build_s = sgl_model(cfg_s)
+    g_s = m_s.graph
+    m_bytes_s = g_s.m.numel()
+    table_bytes_s = 4 * (nu + ni) * DIM
+    require(isinstance(g_s, propagate.DenseSquareAdj) and g_s.quant == "none"
+            and g_s.compute_dtype_name == "bfloat16" and g_s.runs_kernel(DIM)
+            and g_s.runs_kernel(3 * DIM) and m_s._batched and m_s._shared is g_s.m,
+            "SGL: not the shared chain on K6 over the model's own binary matrix")
+    # one int8 copy of M: M's bytes and the tables, the scales and the
+    # allocator's rounding, far below a second copy
+    require(m_bytes_s <= resident_s < m_bytes_s + 2 * table_bytes_s,
+            f"SGL: the model holds {resident_s} bytes on the card, M is {m_bytes_s}")
+    ctx_ms_s = host_ms(lambda: m_s.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED)), 3)
+    view_s = m_s.views[0][0]
+    n_drop_s = int(view_s.du_rows.numel())
+    require(n_drop_s == data.nnz - int(round(0.9 * data.nnz)) and view_s.m_bin is g_s.m,
+            f"SGL's view: {n_drop_s} dropped edges, or its own matrix")
+    triple_s = neg_sampler.sample_epoch(gen)
+    batch_s = dict(zip(("user", "pos", "neg"), (t_[:bs_s] for t_ in triple_s)))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got_s = sgl_step(m_s, batch_s)
+    one_s = read_counts()
+    step_mem_s = torch.cuda.max_memory_allocated() - mem0
+    got_l = {k_: n for k_, n in one_s.items() if n}
+    want_l = {"fused_adj_matmul": step_k6_s, "scatter_add_rows": step_k4_s}
+    require(got_l == want_l, f"SGL: a step's launches {got_l}, expected {want_l}")
+    require(fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(3 * DIM) == 3,
+            f"SGL: K6 read M {fusedmm.fused_adj_matmul.passes} times at d = {3 * DIM}")
+    require(step_mem_s < m_bytes_s,
+            f"SGL: a step took {step_mem_s} bytes beyond the model's, above M's {m_bytes_s}")
+    with plain_duals(fusedmm, propagate), plain_kernels(chainmm, scatter):
+        want_s = sgl_step(m_s, batch_s)
+    err_s, same_s = hold_step(got_s, want_s, "SGL", TIGHT["rtol"], TIGHT["atol"], BF16)
+    del got_s, want_s
+    runner_s = EpochRunner(m_s, lr_s, bs_s, ZOO_STEPS * bs_s)
+    one_run_s = EpochRunner(m_s, lr_s, bs_s, bs_s, optimizer=runner_s.opt)
+    part_one_s = [t_[bs_s: 2 * bs_s] for t_ in triple_s]
+    one_run_s.run_epoch(*part_one_s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nosync_s = one_run_s.run_epoch(*part_one_s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(bool(torch.isfinite(nosync_s).all()), f"SGL: the sync-debug step {nosync_s}")
+    users_s = zoo_rng.choice(nu, size=ZOO_REQUEST, replace=False)
+    reset_counts()
+    rec_s = Recommender(m_s, data)
+    items_s, scores_s = rec_s.recommend(users_s, k=K)
+    with plain_duals(fusedmm, propagate):
+        ref_s = Recommender(m_s, data)
+    check_answers_close(ref_s, data, users_s, items_s, scores_s, TIE)
+    del rec_s, ref_s
+    part_s = [t_[2 * bs_s: (2 + ZOO_STEPS) * bs_s] for t_ in triple_s]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terms_s = runner_s.run_epoch(*part_s).cpu().numpy()
+    step_ms_s = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+    launches_s = read_counts()
+    got_l = {k_: n for k_, n in launches_s.items() if n}
+    want_l = {"fused_adj_matmul": repr_k6_s + ZOO_STEPS * step_k6_s,
+              "scatter_add_rows": ZOO_STEPS * step_k4_s}
+    require(got_l == want_l, f"SGL: launches {got_l}, expected {want_l}")
+    require(terms_s.shape == (3,) and bool(np.isfinite(terms_s).all())
+            and all(bool(torch.isfinite(p_.grad).all()) and bool(torch.isfinite(p_).all())
+                    for p_ in m_s.parameters()),
+            f"SGL: loss terms {terms_s}, or a gradient or table not finite")
+    # `approx` ranks exactly: the same ids and scores as `exact` from the
+    # stepped tables
+    exact_answer = Recommender(m_s, data).recommend(users_s, k=K)
+    approx_answer = Recommender(m_s, data, topk_mode="approx").recommend(users_s, k=K)
+    require(all(np.array_equal(a, b) for a, b in zip(approx_answer, exact_answer)),
+            "SGL: topk_mode='approx' serves other ids or scores than exact")
+    embed_ms_s = host_ms(m_s.eval_embeddings, 5)
+    call_s = lambda r_=one_run_s, p_=part_one_s: r_.run_epoch(*p_)  # noqa: E731
+    nnz_s = int(data.nnz)
+    k6_bound_s = bound(m_bytes_s + 8 * DIM * (nu + ni), 4.0 * nnz_s * DIM, bf16_ops)
+    k6_step_bound_s = bound(m_bytes_s + 8 * 3 * DIM * (nu + ni), 4.0 * nnz_s * 3 * DIM, bf16_ops)
+    res_s_ = dict(step_ms=step_ms_s, embed_ms=embed_ms_s, k6_bound=k6_bound_s,
+                  step_mem_mb=step_mem_s / 1e6, mem_bar_mb=m_bytes_s / 1e6, kmeans_ms=None,
+                  narrow_mem_mb=None)
+
+    # K4 on one view's drop list at the step's shapes: the item side's
+    # correction (its dropped edges' item rows summed into their users),
+    # against its plain version bit for bit and across two launches, timed
+    # beside its bound, its plain version and index_add_; its backward (the
+    # user cotangents' rows into the items, on the item-sorted twin list)
+    # held to K4's plain version on that list bit for bit
+    by_user, by_item = (view_s.du_rows, view_s.du_cols), (view_s.di_rows, view_s.di_cols)
+    with torch.no_grad():
+        emb_k4 = concat_user_item(m_s.user_emb, m_s.item_emb)
+        zi_k4 = (view_s.right_i[:, None] * emb_k4[nu:]).contiguous()
+    g_k4 = torch.randn((nu, DIM), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    zi_k4.requires_grad_(True)
+    corr = scatter.correction(zi_k4, by_user, by_item, nu)
+    corr.backward(g_k4)
+    grad_k4, zi_k4, corr = zi_k4.grad, zi_k4.detach(), corr.detach()
+    corr_again = scatter.correction(zi_k4, by_user, by_item, nu)
+    corr_plain = scatter.scatter_add_rows_plain(view_s.du_rows, zi_k4[view_s.du_cols], nu)
+    require(torch.equal(corr, corr_again) and torch.equal(corr, corr_plain),
+            "K4 on SGL's drop list: two launches differ, or it differs from its plain version")
+    grad_plain = scatter.scatter_add_rows_plain(view_s.di_rows, g_k4[view_s.di_cols], ni)
+    require(torch.equal(grad_k4, grad_plain),
+            "K4 on SGL's drop list: the backward differs from K4's plain version on the "
+            "item-sorted list")
+    k4c_ms = cuda_ms(lambda: scatter.correction(zi_k4, by_user, by_item, nu), 20)
+    k4c_plain = cuda_ms(lambda: scatter.scatter_add_rows_plain(
+        view_s.du_rows, zi_k4[view_s.du_cols], nu), 5)
+    k4c_lib = cuda_ms(lambda: torch.zeros((nu, DIM), device=dev).index_add_(
+        0, view_s.du_rows, zi_k4[view_s.du_cols]), 20)
+    # the backward's K4 call as the step makes it (sorted, into the items),
+    # and the same sums on the unsorted lists, into the items and into the
+    # users: whether the order or the side sets the time
+    back_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
+        view_s.di_rows, g_k4[view_s.di_cols], ni), 20)
+    back_unsorted_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
+        view_s.du_cols, g_k4[view_s.du_rows], ni), 20)
+    users_unsorted_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
+        view_s.di_cols, zi_k4[view_s.di_rows], nu), 20)
+    # the gathered rows read once, the two index lists, the sums written once
+    k4c_bound = bound(4 * n_drop_s * DIM + 16 * n_drop_s + 4 * nu * DIM, n_drop_s * DIM,
+                      bf16_ops)
+    sgl_k4 = dict(ms=k4c_ms, plain_ms=k4c_plain, library_ms=k4c_lib, bound=k4c_bound,
+                  rows=n_drop_s, backward_ms=back_ms, backward_unsorted_ms=back_unsorted_ms,
+                  users_unsorted_ms=users_unsorted_ms)
+    del emb_k4, zi_k4, corr, corr_again, corr_plain, g_k4, grad_k4, grad_plain
+
+    # the run harness: train_model one epoch (its epoch_context, 605 steps,
+    # an evaluation), the final epoch_context and evaluation SGL runs after
+    # its last epoch, a server from its result
+    steps_t = -(-data.num_train // bs_s)
+    reset_counts()
+    t0 = time.perf_counter()
+    res_s = loop_lib.train_model("SGL", data, config=cfg_s, seed=0, log_dir=None, echo=False,
+                                 max_epochs=1, device=dev)
+    sgl_epoch_s = time.perf_counter() - t0
+    rec_t = Recommender.from_train_result("SGL", data, cfg_s, res_s, device=dev)
+    items_t, scores_t = rec_t.recommend(users_s, k=K)
+    sgl_paths = {"sgl_train_model": read_counts()}
+    want_k6_t = steps_t * step_k6_s + 3 * repr_k6_s  # steps, two evaluations, the server
+    got_l = {k_: n for k_, n in sgl_paths["sgl_train_model"].items() if n}
+    want_l = {"fused_adj_matmul": want_k6_t, "scatter_add_rows": steps_t * step_k4_s}
+    require(got_l == want_l and bool(np.isfinite(res_s.last_result["recall"]).all())
+            and np.isfinite(scores_t).all() and len(res_s.history) == 1,
+            f"SGL through train_model: launches {got_l}, expected {want_l}; recall "
+            f"{res_s.last_result['recall']}")
+    log(f"SGL (published config: shared chain on K6 at d = {3 * DIM}, {LAYERS} layers, batch "
+        f"{bs_s}, ssl_ratio 0.1, {n_drop_s} dropped edges a view): built in {build_s:.1f} s, "
+        f"{resident_s / 1e6:.1f} MB on the card (M {m_bytes_s / 1e6:.1f} MB, one copy); "
+        f"epoch_context {ctx_ms_s:.1f} ms (two views); one step against the plain route "
+        f"(bit-equal: {same_s}; loss terms within TIGHT, gradients within {err_s:.3e} of their "
+        f"largest entries), K6 x {step_k6_s} (3 reads of M each) and K4 x {step_k4_s} a step, "
+        f"one step under sync debug mode 'error'; a step's memory beyond the model's "
+        f"{step_mem_s / 1e6:.1f} MB (bar: M's bytes); {step_ms_s:.3f} ms per step over "
+        f"{ZOO_STEPS} steps, eval embeddings {embed_ms_s:.3f} ms ({repr_k6_s} K6 at d = {DIM}); "
+        f"K6's bound {k6_step_bound_s[0]:.4f} ms an application at d = {3 * DIM}; "
+        f"{ZOO_REQUEST} users served against the plain route, topk_mode 'approx' equal to "
+        f"exact; loss sums {np.round(terms_s, 5).tolist()}; train_model one epoch ({steps_t} "
+        f"steps, an evaluation, the final epoch_context and evaluation) {sgl_epoch_s:.1f} s, "
+        f"recall@{cfg_s.int_list('top_K')} {np.round(res_s.last_result['recall'], 5).tolist()}, "
+        f"served from its result; K4 on a drop list of {n_drop_s} rows x {DIM}: {k4c_ms:.4f} ms "
+        f"(bound {k4c_bound[0]:.4f} by {k4c_bound[1]}, plain {k4c_plain:.4f}, index_add_ "
+        f"{k4c_lib:.4f}), equal to its plain version and across two launches; its backward "
+        f"into the items on the item-sorted list {back_ms:.4f} ms, equal to its plain version; "
+        f"the same sums on unsorted lists: into the items {back_unsorted_ms:.4f} ms, into the "
+        f"users {users_unsorted_ms:.4f} ms")
+    del res_s, rec_t, runner_s, one_run_s, triple_s, batch_s, m_s, g_s, view_s
+    torch.cuda.empty_cache()
+
+    # aug_type = rw: a view graph a layer a view, ZOO_STEPS steps
+    m_rw, _, _ = sgl_model(cfg_s.updated(aug_type="rw"))
+    m_rw.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED))
+    require(all(len(v_) == LAYERS for v_ in m_rw.views) and m_rw._batched,
+            "SGL rw: a view a layer on the shared chain")
+    triple_rw = [t_[:ZOO_STEPS * bs_s] for t_ in neg_sampler.sample_epoch(gen)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terms_rw = EpochRunner(m_rw, lr_s, bs_s, ZOO_STEPS * bs_s).run_epoch(*triple_rw).cpu().numpy()
+    rw_step_ms = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+    sgl_paths["sgl_rw"] = read_counts()
+    got_l = {k_: n for k_, n in sgl_paths["sgl_rw"].items() if n}
+    want_l = {"fused_adj_matmul": ZOO_STEPS * step_k6_s, "scatter_add_rows": ZOO_STEPS * step_k4_s}
+    require(got_l == want_l and bool(np.isfinite(terms_rw).all()),
+            f"SGL rw: launches {got_l}, expected {want_l}; loss sums {terms_rw}")
+    log(f"SGL aug_type rw: {ZOO_STEPS} steps, {rw_step_ms:.3f} ms per step, launches {got_l}, "
+        f"loss sums {np.round(terms_rw, 5).tolist()}")
+    del m_rw, triple_rw
+    torch.cuda.empty_cache()
+
+    # the quantized views on `fused` (auto upgrades int8 and int4): one
+    # quantized dual a layer at 3 DIM, K7 (int8) or K8 (int4) on the
+    # transposed integers, K3 quantizing each side, K4 for the corrections
+    # and the batch gathers' backward
+    quant_s, views_k = {}, {}
+    for quant in ("int8", "int4"):
+        m_q, resident_q, _ = sgl_model(cfg_s.updated(compute_dtype=quant))
+        g_q = m_q.graph
+        require(isinstance(g_q, propagate.FusedSquareAdj) and g_q.quant == quant
+                and m_q._batched_quant and m_q._shared is None
+                and propagate.supports_chain_views_t(g_q, 3, DIM)
+                and propagate.dual_t_route(g_q.m8, 3 * DIM, quant) == "n",
+                f"SGL {quant}: not the quantized views route on K7/K8")
+        m_q.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED))
+        # the first layer's views product: K7 / K8 at 3 DIM against three
+        # K1 / K5 launches on its 64-row blocks, bit for bit
+        u_q, i_q = g_q.padded_shape
+        with torch.no_grad():
+            xT = concat_user_item(m_q.user_emb, m_q.item_emb).T
+            chains_q = [g_q, m_q.views[0][0], m_q.views[1][0]]
+            zuT = torch.cat([propagate._pad_cols(c_.right_u, u_q)[None, :]
+                             * propagate._pad_cols(xT[:, :nu], u_q) for c_ in chains_q])
+            ziT = torch.cat([propagate._pad_cols(c_.right_i, i_q)[None, :]
+                             * propagate._pad_cols(xT[:, nu:], i_q) for c_ in chains_q])
+            q_u, _ = propagate._quantize_rows(zuT)
+            q_i, _ = propagate._quantize_rows(ziT)
+        n_fn = fusedmm.fused_adj_matmul_int8 if quant == "int8" else fusedmm.fused_adj_matmul_int4
+        t_fn = (fusedmm.fused_adj_matmul_int8_t if quant == "int8"
+                else fusedmm.fused_adj_matmul_int4_t)
+        before = n_fn.launches
+        raw_u, raw_i = propagate._raw_dual_t(g_q.m8, q_u, q_i, quant)
+        require(n_fn.launches == before + 1 and n_fn.passes == fusedmm.scan_passes(3 * DIM),
+                f"SGL {quant}: the views product did not run {n_fn.__name__} once")
+        blocks = [t_fn(g_q.m8, q_u[j: j + DIM].contiguous(), q_i[j: j + DIM].contiguous())
+                  for j in range(0, 3 * DIM, DIM)]
+        require(torch.equal(raw_u, torch.cat([b_[0] for b_ in blocks]))
+                and torch.equal(raw_i, torch.cat([b_[1] for b_ in blocks])),
+                f"SGL {quant}: the views product at {3 * DIM} differs from three "
+                f"{t_fn.__name__} launches on its {DIM}-row blocks")
+        q_uN, q_iN = q_u.T.contiguous(), q_i.T.contiguous()
+        plain_fn = getattr(fusedmm, n_fn.__name__ + "_plain")
+        plain_raw = plain_fn(g_q.m8, q_uN, q_iN)
+        require(torch.equal(raw_u.T, plain_raw[0]) and torch.equal(raw_i.T, plain_raw[1]),
+                f"SGL {quant}: {n_fn.__name__} at {3 * DIM} differs from its plain version")
+        n_ms = cuda_ms(lambda: n_fn(g_q.m8, q_uN, q_iN), 20)
+        n_plain = cuda_ms(lambda: plain_fn(g_q.m8, q_uN, q_iN), 2, 1)
+        m_unpacked = g_q.m8 if quant == "int8" else fusedmm.unpack_nibbles(g_q.m8)
+        n_lib = int_mm_ms(m_unpacked, q_u, q_i, raw_u, raw_i)
+        del m_unpacked
+        stored = g_q.m8.numel()
+        n_bound = bound(stored + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
+        views_k[quant] = dict(ms=n_ms, plain_ms=n_plain, library_ms=n_lib, bound=n_bound,
+                              passes=n_fn.passes)
+        del blocks, plain_raw, q_u, q_i, q_uN, q_iN, raw_u, raw_i, zuT, ziT, xT
+        # one step against the plain route (K3, K7 / K8, K4 plain)
+        # the same batches for int8 and int4
+        triple_q = [t_[:(1 + ZOO_STEPS) * bs_s] for t_ in neg_sampler.sample_epoch(
+            torch.Generator(device=dev).manual_seed(ZOO_NOISE_SEED))]
+        batch_q = dict(zip(("user", "pos", "neg"), (t_[:bs_s] for t_ in triple_q)))
+        reset_counts()
+        got_q = sgl_step(m_q, batch_q)
+        one_q = {k_: n for k_, n in read_counts().items() if n}
+        # a step: three quantized duals forward and three backward, K3 on
+        # both sides of each, K4 for the corrections and the two gathers
+        want_q = {n_fn.__name__: 2 * LAYERS, "quantize_rows": 4 * LAYERS,
+                  "scatter_add_rows": step_k4_s + 2}
+        require(one_q == want_q, f"SGL {quant}: a step's launches {one_q}, expected {want_q}")
+        with plain_views(propagate, fusedmm, chainmm, scatter):
+            want_qs = sgl_step(m_q, batch_q)
+        err_q, same_q = hold_step(got_q, want_qs, f"SGL {quant}", TIGHT["rtol"], TIGHT["atol"],
+                                  BF16)
+        del got_q, want_qs
+        runner_q = EpochRunner(m_q, lr_s, bs_s, ZOO_STEPS * bs_s)
+        part_q = [t_[bs_s:] for t_ in triple_q]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms_q = runner_q.run_epoch(*part_q).cpu().numpy()
+        q_step_ms = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+        require(bool(np.isfinite(terms_q).all()), f"SGL {quant}: loss sums {terms_q}")
+        quant_s[quant] = dict(terms=terms_q, step_ms=q_step_ms, err=err_q, same=same_q,
+                              resident=resident_q,
+                              tables={k_: getattr(m_q, k_).detach().clone()
+                                      for k_ in convert.table_names(m_q)})
+        sgl_paths[f"sgl_{quant}"] = read_counts()
+        log(f"SGL {quant} on fused (the quantized views at {3 * DIM}): {n_fn.__name__} "
+            f"{n_ms:.4f} ms an application ({n_fn.passes} reads of the stored matrix; bound "
+            f"{n_bound[0]:.4f} by {n_bound[1]}, plain {n_plain:.4f}, library {n_lib}), equal to "
+            f"three {t_fn.__name__} launches on its {DIM}-row blocks and to its plain version; "
+            f"one step against the plain route (bit-equal: {same_q}, gradients within "
+            f"{err_q:.3e}), launches {one_q}; {q_step_ms:.3f} ms per step over {ZOO_STEPS} "
+            f"steps; {resident_q / 1e6:.1f} MB on the card")
+        del m_q, g_q, runner_q, triple_q, batch_q
+        torch.cuda.empty_cache()
+    require(np.array_equal(quant_s["int8"]["terms"], quant_s["int4"]["terms"])
+            and all(torch.equal(quant_s["int8"]["tables"][k_], quant_s["int4"]["tables"][k_])
+                    for k_ in quant_s["int8"]["tables"]),
+            f"SGL: int4's steps differ from int8's ({quant_s['int8']['terms']} against "
+            f"{quant_s['int4']['terms']})")
+    log(f"SGL: {ZOO_STEPS} int4 steps equal to int8's (loss sums and tables)")
+
+    # bitpack: the clean chain and each view one K11 call a direction on the
+    # model's packed pair, the corrections on K4; one step against the plain
+    # route (K11's and K4's plain versions)
+    m_b, _, _ = sgl_model(cfg_s.updated(propagation_backend="bitpack"))
+    require(isinstance(m_b.graph, propagate.BitSquareAdj) and m_b._shared[0] is m_b.graph.packed,
+            "SGL bitpack: the views on the model's packed pair")
+    m_b.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED))
+    batch_b = dict(zip(("user", "pos", "neg"),
+                       (t_[:bs_s] for t_ in neg_sampler.sample_epoch(gen))))
+    reset_counts()
+    got_b = sgl_step(m_b, batch_b)
+    sgl_paths["sgl_bitpack"] = read_counts()
+    one_b = {k_: n for k_, n in sgl_paths["sgl_bitpack"].items() if n}
+    # three chains x LAYERS applications, two K11 calls each, forward and backward
+    want_b = {"bit_matmul": 2 * 2 * 3 * LAYERS, "scatter_add_rows": step_k4_s}
+    require(one_b == want_b, f"SGL bitpack: a step's launches {one_b}, expected {want_b}")
+    with plain_rect(propagate, bitmm, chainmm, scatter):
+        want_bs = sgl_step(m_b, batch_b)
+    err_b, same_b = hold_step(got_b, want_bs, "SGL bitpack", TIGHT["rtol"], TIGHT["atol"], BF16)
+    bp_step_ms = host_ms(lambda: sgl_step(m_b, batch_b), 5)
+    log(f"SGL bitpack: one step against the plain route (bit-equal: {same_b}, gradients within "
+        f"{err_b:.3e}), launches {one_b}, {bp_step_ms:.3f} ms a step (host clock, forward and "
+        "backward)")
+    del m_b, got_b, want_bs, batch_b
+    torch.cuda.empty_cache()
+
+    return dict(launches=launches_s, res=res_s_, call=call_s, paths=sgl_paths, k4=sgl_k4,
+                views=views_k)
 
 
 def main() -> int:
@@ -3702,6 +4142,12 @@ def main() -> int:
         del runner_z, triple_z, batch_z
         torch.cuda.empty_cache()
 
+    sgl = sgl_phase(SimpleNamespace(
+        data=data, dev=dev, gen=gen, neg_sampler=neg_sampler, zoo_rng=zoo_rng, bf16_ops=bf16_ops,
+        bound=bound, reset_counts=reset_counts, read_counts=read_counts, int_mm_ms=int_mm_ms))
+    zoo_launches["SGL"], zoo_res["SGL"], zoo_calls["SGL"] = sgl["launches"], sgl["res"], sgl["call"]
+    rect_paths.update(sgl["paths"])
+
     # K6 on amazon-book's matrix, the largest it has run, beside its bound,
     # its plain version and two torch.matmul calls on a bfloat16 copy
     g_a = zoo_models["LightCCF"].graph
@@ -4027,7 +4473,11 @@ def main() -> int:
                 "launches": sum(counts.values()), "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib, "unit": unit,
                 **{f"launches_{path}": n for path, n in counts.items()},
-                "launches_per_step": per_step}
+                "launches_per_step": per_step,
+                # SGL's paths: the shared chain (K6, K4), the quantized views
+                # (K7 / K8, K3, K4), bitpack (K11, K4)
+                "launches_sgl": sum(n for path, n in counts.items()
+                                    if path == "zoo_SGL" or path.startswith("sgl_"))}
 
     k2_src = "idgrec_torch/csrc/chain_sweep_epilogue.cu"
     side_unit = ("; launches counts one side's epilogue: a standalone launch, or one "
@@ -4112,9 +4562,23 @@ def main() -> int:
               "library: M[rows].to(bfloat16).T @ g x2"),
     ]
     for k in kernels:
+        # SGL's quantized views: the three chains side by side at 3 DIM
+        if k["name"] in ("dual_int8_n", "dual_int4_n"):
+            v_ = sgl["views"]["int8" if k["name"] == "dual_int8_n" else "int4"]
+            k.update(ms_d192=v_["ms"], bound_ms_d192=v_["bound"][0], plain_ms_d192=v_["plain_ms"],
+                     library_ms_d192=v_["library_ms"], passes_d192=v_["passes"])
         if k["name"] == "scatter_add_rows":
             k["public_entry_ms"] = k4_checked_ms  # two calls, each checking the range
             k["backward_path_ms"] = k4_path_ms  # the step's entry, the concatenation included
+            # one SGL view's item-side drop correction at the step's shapes
+            k4_s = sgl["k4"]
+            k.update(sgl_correction_ms=k4_s["ms"], sgl_correction_plain_ms=k4_s["plain_ms"],
+                     sgl_correction_library_ms=k4_s["library_ms"],
+                     sgl_correction_bound_ms=k4_s["bound"][0],
+                     sgl_correction_bound_by=k4_s["bound"][1], sgl_correction_rows=k4_s["rows"],
+                     sgl_correction_backward_ms=k4_s["backward_ms"],
+                     sgl_correction_backward_unsorted_ms=k4_s["backward_unsorted_ms"],
+                     sgl_correction_users_unsorted_ms=k4_s["users_unsorted_ms"])
         elif k["name"] == "dual_int8_n":
             k.update(ms_d64=k7_64_ms, launches_dense=by_path["dense_int8"]["fused_adj_matmul_int8"])
         elif k["name"] == "dual_bf16":
@@ -4203,7 +4667,10 @@ def main() -> int:
             f"{k['launches_egcf_alternating_bitpack']} bitpack; {k['launches_learnability']} "
             f"learnability; dense {k['launches_dense_bf16']} bfloat16, "
             f"{k['launches_dense_int8']} int8; zoo "
-            + ", ".join(f"{k[f'launches_zoo_{n_}']} {n_}" for n_ in ZOO + RECT_ZOO)
+            + ", ".join(f"{k[f'launches_zoo_{n_}']} {n_}" for n_ in ZOO + RECT_ZOO + ("SGL",))
+            + ", " + ", ".join(f"{k[f'launches_{p_}']} {p_}" for p_ in
+                               ("sgl_train_model", "sgl_rw", "sgl_int8", "sgl_int4",
+                                "sgl_bitpack"))
             + f", {k['launches_zoo_cvga_train_model']} CVGA train_model, "
             f"{k['launches_dense_egcf_alternating_bf16']} EGCF alternating bfloat16 dense"
             + f", {k['launches_zoo_mawu_command_line']} MAWU command line, "

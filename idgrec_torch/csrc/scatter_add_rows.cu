@@ -49,10 +49,14 @@
 //    starting from 0 as np.add.at does on a zeroed table. Up to 32 entries
 //    are ranked across the lanes (the indices are distinct); a longer
 //    bucket (a hot row) is marked in a bitmap of batch positions in shared
-//    memory and read back in order, 4,096 positions a window. Values are
-//    loaded eight at a time before they are added.
+//    memory and read back in order, 4,096 positions a window, over the
+//    windows from the row's first batch position to its last: one or two
+//    where the index is sorted (SGL's drop lists), up to every window of
+//    the batch where a hot row's entries are spread. Values are loaded
+//    eight at a time before they are added.
 // Work: O(B) atomics and bucket entries, the table's bytes, and for a hot
-// row O(entries + B / 32) words of its bitmap.
+// row O(entries x windows + span / 32) words of its bitmap, span being
+// the distance from its first batch position to its last.
 //
 // Rows outside [0, n_rows) are never counted and never written: the wrapper
 // that does not check the range relies on the caller's forward indexing to
@@ -225,9 +229,19 @@ __device__ __forceinline__ void write_row(const Table& tb, const int* __restrict
     add_in_order(tb, ordered, c, dst, d, false, lane);
     return;
   }
-  // a hot row: its batch positions marked in a bitmap, read back in order
+  // a hot row: its batch positions marked in a bitmap, read back in order,
+  // a window at a time from its first position to its last (one or two
+  // windows where the index is sorted and the row's entries are adjacent)
+  int lo = 0x7fffffff, hi = -1;
+  for (int k = lane; k < c; k += 32) {
+    const int p = list[k];
+    lo = min(lo, p);
+    hi = max(hi, p);
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
   bool resume = false;
-  for (int w0 = 0; w0 < tb.size; w0 += 32 * WINDOW_WORDS) {
+  for (int w0 = lo; w0 <= hi; w0 += 32 * WINDOW_WORDS) {
     for (int i = lane; i < WINDOW_WORDS; i += 32) bits[i] = 0u;
     __syncwarp();
     for (int k = lane; k < c; k += 32) {

@@ -11,10 +11,12 @@ and the rectangular user-item matrix R̃ = Du^-1/2 · R · Di^-1/2
 (`normalized_rectangular`). The arrays are built with numpy and live on the graph's device, the
 indices as int64 (what `index_select` takes).
 
+`edge_dropout_adjacency` is SGL's per-epoch view for the gather
+backend: a random subset of the interaction edges, renormalized.
+
 Not copied: the ``.npz`` cache beside the dataset (a graph is rebuilt
 from the CSR at every construction; at yelp2018 scale that is a sort of
-2.5 million edges) and the edge-dropout graph (ROADMAP A.7, SGL).
-`SparseGraph.transpose_permutation` serves the dropout of a graph's
+2.5 million edges). `SparseGraph.transpose_permutation` serves the dropout of a graph's
 edge values (NGCF's node dropout, ops/propagate.py); `SparseGraph.to_scipy`
 gives LightGCL's SVD its matrix (ops/svd.py).
 """
@@ -234,3 +236,28 @@ def normalized_rectangular(data: Dataset, device="cpu") -> SparseGraph:
     du, di = _degrees(data)
     w = (v * _inv_pow(du, 0.5)[u] * _inv_pow(di, 0.5)[i]).astype(np.float32)
     return SparseGraph.from_coo(u, i, w, (data.num_users, data.num_items), device=device)
+
+
+def edge_dropout_adjacency(data: Dataset, drop_ratio: float, rng: np.random.Generator,
+                           device="cpu") -> SparseGraph:
+    """SGL's edge-dropout view: ``int(round((1 - drop_ratio) · E))`` of the
+    E interaction edges kept, the first entries of ``rng.permutation(E)``,
+    with binary values and the degrees recounted on the kept edges, then
+    normalized symmetrically. ``rng`` draws exactly what the dense and
+    bitpack views draw (ops/propagate.py `build_dropout_adjacency`), so
+    one generator state selects the same edges on every backend. Padded
+    to the full graph's padded size, whatever the number kept."""
+    u_all, i_all, _ = _interaction_edges(data)
+    nnz = u_all.size
+    keep = rng.permutation(nnz)[: int(round((1.0 - drop_ratio) * nnz))]
+    u, i = u_all[keep], i_all[keep]
+    du = np.bincount(u, minlength=data.num_users).astype(np.float64)
+    di = np.bincount(i, minlength=data.num_items).astype(np.float64)
+    w = (_inv_pow(du, 0.5)[u] * _inv_pow(di, 0.5)[i]).astype(np.float32)
+    nu = data.num_users
+    rows = np.concatenate([u, i + nu])
+    cols = np.concatenate([i + nu, u])
+    vals = np.concatenate([w, w])
+    full_padded = _pad_to(max(2 * nnz, 1), _PAD_MULTIPLE)
+    return SparseGraph.from_coo(rows, cols, vals, (data.num_nodes, data.num_nodes),
+                                symmetric=True, pad_multiple=full_padded, device=device)

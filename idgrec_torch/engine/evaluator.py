@@ -29,6 +29,11 @@ from idgrec_torch.device import resolve_device
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.ops.metrics import topk_metric_sums
 
+# the ranking modes `eval_topk` and `Recommender(topk_mode=...)` take: the
+# JAX package's 'approx' is the TPU's approx_max_k; the port ranks both
+# with the same exact `torch.topk`
+TOPK_MODES = ("exact", "approx")
+
 _MASK_VALUE = -1e9
 
 
@@ -117,11 +122,10 @@ class Evaluator:
         self.data = data
         self.top_ks = tuple(config.int_list("top_K"))
         self.max_k = max(self.top_ks)
+        # exact top-k meets any recall target approx_max_k promises
         self.topk_mode = config.str("eval_topk", "exact")
-        if self.topk_mode != "exact":
-            raise NotImplementedError(
-                f"eval_topk = {self.topk_mode}: approximate top-k is the TPU's "
-                "approx_max_k; the port ranks exactly")
+        if self.topk_mode not in TOPK_MODES:
+            raise ValueError(f"eval_topk = {self.topk_mode}: expected one of {TOPK_MODES}")
         if model.device.type == "cuda":
             # full float32 scoring, as the JAX Precision.HIGHEST
             torch.backends.cuda.matmul.allow_tf32 = False

@@ -4,9 +4,10 @@ SCCF, LightCCF, LightCSCF), LightGCN_pp, the models that draw noise
 in their steps (SimGCL, XSimGCL, BIGCF, MixRec), the full-pool
 contrasts CGCL and NCL (NCL with on-device k-means), HCCF and IMPGCN,
 the weighted graph convolutions NGCF, GCMC and GCCF, LightGODE's graph
-ODE and RecDCL, the first model with state, and the two models on the
+ODE and RecDCL, the first model with state, the two models on the
 rectangular adjacency, LightGCL (with its low-rank SVD branch) and CVGA
-(user-row batches); ROADMAP A.7 lists the rest."""
+(user-row batches), and SGL with its per-epoch edge-dropout views: the
+JAX package's twenty-five."""
 
 from idgrec_torch.models import registry
 from idgrec_torch.models.registry import available_models, get_model
@@ -32,6 +33,7 @@ from idgrec_torch.models import (  # noqa: F401
     ngcf,
     recdcl,
     sccf,
+    sgl,
     simgcl,
     xsimgcl,
 )

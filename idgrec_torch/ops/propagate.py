@@ -46,6 +46,15 @@ operands; or `quant_matmul`'s int8 product with int32 sums), gather
 (`GatherRectAdj`) and bitpack (`BitRectAdj`: one K11 launch a
 direction).
 
+SGL's per-epoch edge-dropout views (`build_dropout_adjacency`) share
+the model's binary matrix, or packed pair, made once
+(`build_dropout_shared`): a view is the full product less its dropped
+edges' share, summed on kernel K4 (`scatter.correction`) in
+`DenseDropSquareAdj` (K6), `BitDropSquareAdj` (K11),
+`shared_chain_matmul` (the clean chain and the views side by side, one
+K6 launch at k·d) and `fused_chain_views_t` (the quantized chains at
+k·d, K7 / K8 through `dual_t_route`).
+
 This module also holds kernel K3 (`quantize_rows`,
 csrc/quantize_rows.cu) beside its plain version, and `build_adjacency`.
 """
@@ -65,7 +74,7 @@ import torch.nn.functional as F
 from idgrec_torch.data import graph as graph_lib
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
-from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm, noise
+from idgrec_torch.ops import _build, bitmm, fusedmm, gathermm, noise, scatter
 from idgrec_torch.ops.spmm import spmm, spmm_transpose
 
 # Dense-backend memory budget: the int8 count matrix (and its copies)
@@ -201,13 +210,49 @@ def _quantize_rows(zT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return quantize_rows(zT, zT.abs().amax(dim=1))
 
 
-_DUALS = {"int8": fusedmm.fused_adj_matmul_int8_t, "int4": fusedmm.fused_adj_matmul_int4_t}
+# the raw sums of the transposed dual by quant mode: K1 / K5 in the [d, N]
+# layout at the width they take, K7 / K8 on the transposed integers at the
+# others (looked up at call time)
+_DUALS = {"int8": ("fused_adj_matmul_int8_t", "fused_adj_matmul_int8"),
+          "int4": ("fused_adj_matmul_int4_t", "fused_adj_matmul_int4")}
+
+
+def dual_t_route(m: torch.Tensor, d: int, quant: str) -> str | None:
+    """Which kernel gives the raw sums of `quant_fused_dual_t` at width
+    ``d`` on the stored matrix ``m``: 't' (K1 or K5, which take d = 64),
+    'n' (K7 or K8 on the transposed integers, d % 32 == 0), or None where
+    neither takes the shapes (ROADMAP B.B1: the JAX T-kernel takes any d
+    whose accumulators fit). The CPU runs the plain versions, which take
+    any width: 't' at d = 64, else 'n'."""
+    u_pad, cols = m.shape
+    i_pad = 2 * cols if quant == "int4" else cols
+    if fusedmm.kernel_accepts(u_pad, i_pad, d, quant):
+        return "t"
+    if m.device.type == "cpu" or fusedmm.kernel_accepts_n(u_pad, i_pad, d, quant):
+        return "n"
+    return None
+
+
+def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: str):
+    """(qiT · Mᵀ, quT · M) as float32 raw integer sums, [d, N] layout, on
+    the kernel `dual_t_route` names; a width no kernel takes raises."""
+    d = quT.shape[0]
+    route = dual_t_route(m, d, quant)
+    t_name, n_name = _DUALS[quant]
+    if route == "t":
+        return getattr(fusedmm, t_name)(m, quT, qiT)
+    if route is None:
+        raise ValueError(
+            f"the quantized dual in [d, N] layout at d = {d}: K1/K5 take d = 64 and K7/K8 "
+            "d % 32 == 0 on this matrix; no kernel of the port takes it (ROADMAP B.B1)")
+    yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous())
+    return yu.T, yi.T
 
 
 def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor, quant: str):
     qi, si = _quantize_rows(ziT.contiguous())
     qu, su = _quantize_rows(zuT.contiguous())
-    yuT, yiT = _DUALS[quant](m, qu, qi)
+    yuT, yiT = _raw_dual_t(m, qu, qi, quant)
     return yuT * si, yiT * su
 
 
@@ -231,7 +276,13 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
     """(M @ q8(zi), Mᵀ @ q8(zu)) in transposed layout: ziT [d, I_pad],
     zuT [d, U_pad] -> (yuT [d, U_pad], yiT [d, I_pad]) f32, with the
     straight-through quantized backward. ``quant`` 'int4' takes the
-    nibble-packed matrix [U_pad, I_pad // 2] and gives the same values."""
+    nibble-packed matrix [U_pad, I_pad // 2] and gives the same values.
+    Each row (feature) is quantized on its own (K3), so rows stacked side
+    by side (SGL's chains at k·d, `fused_chain_views_t`) give each block
+    the bits it gets alone. The raw sums come from K1 / K5 at d = 64 and
+    from K7 / K8 on the transposed integers at other multiples of 32
+    (`dual_t_route`; the same integers in either layout); on the card
+    any other width raises."""
     if quant not in _DUALS:
         raise ValueError(f"unknown quant mode {quant!r}")
     return _QuantFusedDualT.apply(m, ziT, zuT, quant)
@@ -341,6 +392,20 @@ def _finish(adj, x: torch.Tensor, yu: torch.Tensor, yi: torch.Tensor) -> torch.T
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _dense_dual(m: torch.Tensor, zu: torch.Tensor, zi: torch.Tensor,
+                dtype_name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M @ zi [U, d], Mᵀ @ zu [I, d]) float32 for the exact modes of the
+    dense products, by `DenseSquareAdj.runs_kernel`'s rule from the
+    shapes: one K6 launch on bfloat16 operands where the kernel takes the
+    width (d % 32 == 0), else `exact_dual_matmul` (float32, or bfloat16
+    off the kernel's widths)."""
+    u_pad, i_pad = m.shape
+    if dtype_name == "bfloat16" and fusedmm.kernel_accepts_n(u_pad, i_pad, zu.shape[1], "bf16"):
+        return fusedmm.fused_adj_matmul(m, zu, zi)
+    yu, yi = exact_dual_matmul(m, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad), _DTYPES[dtype_name])
+    return yu[: zu.shape[0]], yi[: zi.shape[0]]
+
+
 @dataclass(frozen=True)
 class DenseSquareAdj:
     """Square normalized adjacency diag(L)·[[0,M],[Mᵀ,0]]·diag(R)
@@ -427,20 +492,15 @@ class DenseSquareAdj:
         `quant_dual_matmul` compute, bit for bit."""
         nu, ni = self.num_users, self.num_items
         right_u, right_i, left_u, left_i = _gated(self, gate)
-        u_pad, i_pad = self.m.shape
         zi = right_i[:, None] * x[nu:].to(torch.float32)
         zu = right_u[:, None] * x[:nu].to(torch.float32)
-        kernel = self.runs_kernel(x.shape[1])
-        if kernel and self.quant == "none":
-            yu, yi = fusedmm.fused_adj_matmul(self.m, zu, zi)
-        else:
-            zi, zu = _pad_rows(zi, i_pad), _pad_rows(zu, u_pad)
-            if self.quant == "int8":
-                dual = quant_fused_dual if kernel else quant_dual_matmul
-                yu, yi = dual(self.m, zi, zu)
-            else:
-                yu, yi = exact_dual_matmul(self.m, zi, zu, _DTYPES[self.compute_dtype_name])
+        if self.quant == "int8":
+            u_pad, i_pad = self.m.shape
+            dual = quant_fused_dual if self.runs_kernel(x.shape[1]) else quant_dual_matmul
+            yu, yi = dual(self.m, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
             yu, yi = yu[:nu], yi[:ni]
+        else:
+            yu, yi = _dense_dual(self.m, zu, zi, self.compute_dtype_name)
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
@@ -593,6 +653,126 @@ class BitSquareAdj:
         zi = right_i[:, None] * x[nu:].to(torch.float32)
         yu, yi = bitmm.bit_adj_matmul(self.packed, self.packed_t, zu, zi, self.plans)
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
+
+
+# ---------------------------------------------------------------------------
+# SGL's edge-dropout views over the shared binary matrix
+
+
+def _drop_corrections(view, zu: torch.Tensor, zi: torch.Tensor):
+    """(drop_u [U, d], drop_i [I, d]): the view's dropped edges' share of
+    M @ zi and Mᵀ @ zu, summed on K4 (`scatter.correction`) from the
+    unrounded float32 right-scaled activations, as the JAX package sums
+    them. zu [≥ U, d] and zi [≥ I, d] may be views of any strides. Each
+    sum's backward runs on the other side's list, the same edges sorted
+    the other way."""
+    by_user, by_item = (view.du_rows, view.du_cols), (view.di_rows, view.di_cols)
+    return (scatter.correction(zi, by_user, by_item, view.num_users),
+            scatter.correction(zu, by_item, by_user, view.num_items))
+
+
+def _view_matmul(view, x: torch.Tensor, gate, full_product) -> torch.Tensor:
+    """Â' @ x for an edge-dropout view: ``full_product(zu, zi)`` over the
+    full binary matrix on the view's right-scaled activations, the dropped
+    edges' share subtracted, the view's left scales."""
+    if gate is not None:
+        raise ValueError("gates are not supported on a dropout adjacency")
+    nu = view.num_users
+    zu = view.right_u[:, None] * x[:nu].to(torch.float32)
+    zi = view.right_i[:, None] * x[nu:].to(torch.float32)
+    yu, yi = full_product(zu, zi)
+    drop_u, drop_i = _drop_corrections(view, zu, zi)
+    return torch.cat([view.left_u[:, None] * (yu - drop_u),
+                      view.left_i[:, None] * (yi - drop_i)], dim=0).to(x.dtype)
+
+
+@dataclass(frozen=True)
+class DropLists:
+    """An SGL edge-dropout view apart from any matrix: its scales and its
+    dropped edges D (about ``ssl_ratio`` of the edges), Â' = L'·(M − D)·R'
+    over the shared binary M. The quantized views route
+    (`fused_chain_views_t`) reads this alone; `DenseDropSquareAdj` and
+    `BitDropSquareAdj` add the matrix their product runs on."""
+
+    left_u: torch.Tensor   # f32 [U] (the view's degrees ** -1/2, = right_u)
+    left_i: torch.Tensor   # f32 [I]
+    right_u: torch.Tensor  # f32 [U]
+    right_i: torch.Tensor  # f32 [I]
+    du_rows: torch.Tensor  # int64 [Dn] the dropped edges' users, sorted (stably)
+    du_cols: torch.Tensor  # int64 [Dn] their items
+    di_rows: torch.Tensor  # int64 [Dn] the dropped edges' items, sorted (stably)
+    di_cols: torch.Tensor  # int64 [Dn] their users
+    num_users: int
+    num_items: int
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        n = self.num_users + self.num_items
+        return (n, n)
+
+
+@dataclass(frozen=True)
+class DenseDropSquareAdj(DropLists):
+    """SGL's edge-dropout view on the dense backends without a matrix of
+    its own: the full product over M_bin, the shared binary matrix (the
+    model's own where its counts are binary, `build_dropout_shared`),
+    then the dropped edges' share subtracted (`_drop_corrections`, on
+    K4). The product runs K6 where `DenseSquareAdj.runs_kernel`'s rule
+    says so (`_dense_dual`), else `exact_dual_matmul`."""
+
+    m_bin: torch.Tensor  # int8 [U_pad, I_pad] binary, shared across epochs
+    compute_dtype_name: str = "bfloat16"
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        """Â' @ x for x [U+I, d]: the full product over M_bin, the dropped
+        edges' share subtracted, the view's left scales."""
+        return _view_matmul(self, x, gate, lambda zu, zi: _dense_dual(
+            self.m_bin, zu, zi, self.compute_dtype_name))
+
+
+@dataclass(frozen=True)
+class BitDropSquareAdj(DropLists):
+    """SGL's edge-dropout view over the shared bit-packed binary matrix:
+    the full product one K11 call a direction on the packed pair (the
+    model's own, `BitSquareAdj`'s, with its plans), then the dropped
+    edges' share subtracted on K4 (`_drop_corrections`)."""
+
+    packed: torch.Tensor
+    packed_t: torch.Tensor
+    plans: tuple | None = None
+
+    def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+        return _view_matmul(self, x, gate, lambda zu, zi: bitmm.bit_adj_matmul(
+            self.packed, self.packed_t, zu, zi, self.plans))
+
+
+def shared_chain_matmul(m_bin: torch.Tensor, chains, xs, compute_dtype: str = "bfloat16"):
+    """One application of k chains whose operators all factor over the
+    same binary matrix (SGL's clean graph and its edge-dropout views,
+    Â_k = diag(L_k)·(M − D_k)·diag(R_k)): the chains' right-scaled inputs
+    side by side at k·d, one product over ``m_bin`` (`_dense_dual`: on
+    the card one K6 launch at k·d, `fusedmm.scan_passes` reads of M),
+    then each view's dropped edges subtracted (on K4) and each chain's
+    left scales. chains: a `DenseSquareAdj` without a self-loop diag
+    whose matrix is ``m_bin``, or `DenseDropSquareAdj` views over it; xs
+    their [U+I, d] inputs. Returns [c.matmul(x) for c, x in ...] under
+    the dtype rules. Differentiable: the backward is the same launch on
+    the swapped cotangents and the corrections' K4 the other way."""
+    nu = chains[0].num_users
+    d = xs[0].shape[1]
+    zu_blocks = [c.right_u[:, None] * x[:nu].to(torch.float32) for c, x in zip(chains, xs)]
+    zi_blocks = [c.right_i[:, None] * x[nu:].to(torch.float32) for c, x in zip(chains, xs)]
+    yu_all, yi_all = _dense_dual(m_bin, torch.cat(zu_blocks, dim=1), torch.cat(zi_blocks, dim=1),
+                                 compute_dtype)
+    outs = []
+    for k, (c, x) in enumerate(zip(chains, xs)):
+        yu = yu_all[:, k * d: (k + 1) * d]
+        yi = yi_all[:, k * d: (k + 1) * d]
+        if isinstance(c, DropLists):
+            drop_u, drop_i = _drop_corrections(c, zu_blocks[k], zi_blocks[k])
+            yu, yi = yu - drop_u, yi - drop_i
+        outs.append(torch.cat([c.left_u[:, None] * yu, c.left_i[:, None] * yi], dim=0).to(x.dtype))
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -922,6 +1102,78 @@ def fused_chain_t(
     return _back((cu, ci)).to(emb0.dtype)
 
 
+def supports_chain_views_t(graph, n_chains: int, d: int) -> bool:
+    """True when `fused_chain_views_t` applies: `supports_chain_t`'s
+    conditions, no self-loop diag, and a kernel that takes the chains
+    side by side at ``n_chains · d`` (`dual_t_route`; the CPU's plain
+    versions take any width). The JAX package's VMEM test (its
+    ``yi_budget``) has no counterpart."""
+    if not supports_chain_t(graph) or graph.has_diag:
+        return False
+    return dual_t_route(graph.m8, n_chains * d, graph.quant) is not None
+
+
+def fused_chain_views_t(adj: FusedSquareAdj, view_lists, emb0: torch.Tensor, num_layers: int):
+    """SGL's quantized chains (counterpart of the JAX fused_chain_views_t):
+    the clean chain and one chain per edge-dropout view, each layer one
+    `quant_fused_dual_t` of ``adj.m8`` with the k chains side by side as
+    [k·d, N] activations (on the card K7 or K8 at k·d = 192 for SGL's
+    three chains at d = 64), then each view's dropped edges subtracted
+    (on K4, from the unquantized float32 right-scaled activations: the
+    gathered rows turned to [Dn, d], summed, turned back) and every
+    chain's left scales; each chain's output is the mean of its layers,
+    layer 0 included. ``adj.m8`` must be the binary matrix the views
+    factor over (binary counts) and ``adj`` has no self-loop diag.
+
+    view_lists: one tuple a view chain of its adjacency a layer (SGL's
+    'ed': one shared across layers; 'rw': one a layer), each carrying its
+    scales and drop lists (`DropLists`).
+    Returns [clean, view_1, ...] in [N, d] layout; the clean output is
+    `fused_chain_t`'s bit for bit. Differentiable in ``emb0``: the
+    straight-through backward of `quant_fused_dual_t` at k·d and the
+    corrections' K4 the other way."""
+    if adj.has_diag:
+        raise ValueError("the views route assumes no self-loop diag")
+    nu, ni = adj.num_users, adj.num_items
+    u_pad, i_pad = adj.padded_shape
+    d = emb0.shape[1]
+    k = 1 + len(view_lists)
+    xT = emb0.to(torch.float32).T
+    hus = [_pad_cols(xT[:, :nu], u_pad)] * k
+    his = [_pad_cols(xT[:, nu:], i_pad)] * k
+    layers = [[(hu, hi)] for hu, hi in zip(hus, his)]
+    for layer in range(num_layers):
+        chains = [adj] + [vl[layer % len(vl)] for vl in view_lists]
+        zu = [_pad_cols(c.right_u, u_pad)[None, :] * hu for c, hu in zip(chains, hus)]
+        zi = [_pad_cols(c.right_i, i_pad)[None, :] * hi for c, hi in zip(chains, his)]
+        yuT, yiT = quant_fused_dual_t(adj.m8, torch.cat(zi, dim=0), torch.cat(zu, dim=0),
+                                      adj.quant)
+        hus, his = [], []
+        for c, chain in enumerate(chains):
+            yu = yuT[c * d: (c + 1) * d]
+            yi = yiT[c * d: (c + 1) * d]
+            if c > 0:
+                drop_u, drop_i = _drop_corrections(chain, zu[c].T, zi[c].T)
+                yu = yu - _pad_cols(drop_u.T, u_pad)
+                yi = yi - _pad_cols(drop_i.T, i_pad)
+            hus.append(_pad_cols(chain.left_u, u_pad)[None, :] * yu)
+            his.append(_pad_cols(chain.left_i, i_pad)[None, :] * yi)
+        for c in range(k):
+            layers[c].append((hus[c], his[c]))
+    outs = []
+    for chain_layers in layers:
+        # the sum in layer order and the division of `fused_chain_t`, so the
+        # clean chain keeps its bits
+        cu, ci = chain_layers[0]
+        for pu, pi in chain_layers[1:]:
+            cu = cu + pu
+            ci = ci + pi
+        n = float(len(chain_layers))
+        cu, ci = true_divide(cu, n), true_divide(ci, n)
+        outs.append(torch.cat([cu[:, :nu], ci[:, :ni]], dim=1).T.contiguous().to(emb0.dtype))
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # backend selection and build_adjacency
 
@@ -1106,3 +1358,98 @@ def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: st
     m = _count_matrix_int8(data, dev, DENSE_COL_PAD)
     m_t = m.T.contiguous() if quant == "int8" else None
     return DenseRectAdj(m, left, right, nu, ni, dtype_name, quant, m_t)
+
+
+# ---------------------------------------------------------------------------
+# SGL's per-epoch views: the shared state and the views
+
+
+def _is_binary(data: Dataset) -> bool:
+    return bool(np.all(data.csr_vals == 1))
+
+
+def build_binary_count_matrix(data: Dataset, device=None) -> torch.Tensor:
+    """The binary int8 matrix min(M, 1) [pad(U), pad(I, DENSE_COL_PAD)]
+    on ``device``: the shared matrix of the dropout views where the
+    model's own matrix is not binary (the reference's augmentation is
+    binary)."""
+    return _count_matrix_int8(data, resolve_device(device), DENSE_COL_PAD).clamp_(max=1)
+
+
+def build_dropout_shared(data: Dataset, backend: str = "auto", device=None, graph=None):
+    """The state every epoch's views share, made once: for 'dense' and
+    'fused' the binary matrix, which is ``graph``'s own where the counts
+    are binary and it has the padding K6 takes (`DenseSquareAdj.m`, the
+    unpacked `FusedSquareAdj.m8`), so no second copy of M is made, and a
+    `build_binary_count_matrix` otherwise; for 'bitpack' (packed,
+    packed_t, plans), ``graph``'s own pair and K11 plans where it is a
+    `BitSquareAdj`; None for 'gather'. 'auto' resolves with two copies of
+    M counted, as the JAX package does, so that the model's adjacency and
+    its views never resolve to two backends."""
+    dev = resolve_device(device)
+    backend = _select_backend(data, backend, dev, copies=2, col_multiple=DENSE_COL_PAD)
+    if backend == "bitpack":
+        if isinstance(graph, BitSquareAdj):
+            return graph.packed, graph.packed_t, graph.plans
+        p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
+        return p, pt, (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
+    if backend in ("dense", "fused"):
+        own = None
+        if isinstance(graph, DenseSquareAdj):
+            own = graph.m
+        elif isinstance(graph, FusedSquareAdj) and graph.quant != "int4":
+            own = graph.m8
+        if own is not None and _is_binary(data):
+            return own
+        return build_binary_count_matrix(data, dev)
+    return None
+
+
+def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.Generator,
+                            backend: str = "auto", compute_dtype: str = "bfloat16",
+                            shared=None, device=None):
+    """SGL's per-epoch edge-dropout view (reference tools.py:67-92): keep
+    ``int(round((1 − drop_ratio) · E))`` of the E edges, renormalized
+    symmetrically on the kept degrees. Drawn from the host's ``np_rng``
+    in the JAX package's order (one permutation; its tail is dropped),
+    so one generator state gives the same view on every backend and in
+    both packages.
+
+    'gather' gives a `GatherSquareAdj` of the kept edges
+    (`graph.edge_dropout_adjacency`). Elsewhere only the dropped edges
+    (sorted stably by user and by item) and the view's scales
+    (degree − dropped) ** -1/2 are made and moved to the device, about
+    ``drop_ratio`` of the edges, with ``shared`` from
+    `build_dropout_shared`: a `BitDropSquareAdj` on its packed pair
+    ('bitpack'), or a `DenseDropSquareAdj` on its binary matrix ('dense',
+    'fused'; ``shared`` None gives the bare `DropLists`, all the quantized
+    views route reads). The views' products run in bfloat16
+    in the quantized modes, as the JAX package builds them."""
+    dev = resolve_device(device)
+    dtype_name, _ = _split_quant(compute_dtype)
+    backend = _select_backend(data, backend, dev, copies=2, col_multiple=DENSE_COL_PAD)
+    if backend == "gather":
+        return GatherSquareAdj(graph_lib.edge_dropout_adjacency(data, drop_ratio, np_rng,
+                                                                device=dev))
+    users = np.repeat(np.arange(data.num_users, dtype=np.int64), np.diff(data.row_ptr))
+    items = data.col_idx.astype(np.int64)
+    nnz = users.size
+    dropped = np_rng.permutation(nnz)[int(round((1.0 - drop_ratio) * nnz)):]
+    d_users, d_items = users[dropped], items[dropped]
+    du = np.diff(data.row_ptr).astype(np.float64) - np.bincount(d_users,
+                                                                minlength=data.num_users)
+    di = (np.bincount(items, minlength=data.num_items).astype(np.float64)
+          - np.bincount(d_items, minlength=data.num_items))
+
+    def by(rows, cols):
+        order = np.argsort(rows, kind="stable")
+        return (torch.from_numpy(rows[order]).to(dev), torch.from_numpy(cols[order]).to(dev))
+
+    scale_u, scale_i = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
+    fields = (scale_u, scale_i, scale_u, scale_i, *by(d_users, d_items), *by(d_items, d_users),
+              data.num_users, data.num_items)
+    if backend == "bitpack":
+        return BitDropSquareAdj(*fields, *shared)
+    if shared is None:
+        return DropLists(*fields)
+    return DenseDropSquareAdj(*fields, shared, dtype_name)

@@ -26,7 +26,8 @@ CUDA's ``index_add_`` alone would not.
 
 `gather_batch_embeddings` and `gather_user_pos` are plain indexing
 forward; their backward is one K4 launch per destination table (the
-item table takes pos and neg concatenated).
+item table takes pos and neg concatenated). `correction` is SGL's sum
+over an edge-dropout view's dropped edges, K4 both ways.
 """
 
 from __future__ import annotations
@@ -214,3 +215,36 @@ def gather_user_pos(user_all: torch.Tensor, item_all: torch.Tensor, u: torch.Ten
     align/uniform models' pattern) with K4 backwards, one launch per
     table."""
     return _GatherUserPos.apply(user_all, item_all, u, p)
+
+
+class _Correction(torch.autograd.Function):
+    """out[r] = Σ_e z[c_e] over the edges (r, c_e), on K4; the backward is
+    the same sum the other way, on the edges sorted by column."""
+
+    @staticmethod
+    def forward(ctx, z, by_row, by_col, n_rows):
+        rows, cols = by_row
+        ctx.save_for_backward(*by_col)
+        ctx.z_rows = z.shape[0]
+        return scatter_add_rows_unchecked(rows, z[cols].contiguous(), n_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        t_rows, t_cols = ctx.saved_tensors
+        return scatter_add_rows_unchecked(t_rows, _f32(g[t_cols]), ctx.z_rows), None, None, None
+
+
+def correction(z: torch.Tensor, by_row: tuple[torch.Tensor, torch.Tensor],
+               by_col: tuple[torch.Tensor, torch.Tensor], n_rows: int) -> torch.Tensor:
+    """The edge list's sum Σ_e onehot(rows[e]) · z[cols[e]], float32
+    [n_rows, d], for float32 z [N, d] (a view of any strides): the dropped
+    edges of an SGL view, subtracted from the full matrix's product
+    (ops/propagate.py `_drop_corrections`). ``by_row`` is (rows, cols),
+    int64, sorted by row; ``by_col`` the same edges sorted by column, as
+    (cols, rows). The JAX package computes the sum with XLA's sorted
+    segment sum; here the forward is one K4 launch on (rows, z[cols]) and
+    the backward one on by_col's (cols, g[rows]) into len(z) rows, so both
+    launches read a sorted index. K4 adds in list order, so both repeat bit
+    for bit; nothing is read back to the host. CPU tensors run K4's plain
+    version."""
+    return _Correction.apply(z, by_row, by_col, n_rows)

@@ -9,8 +9,9 @@ A `Recommender` wraps a model and answers top-K requests:
   a top-k;
 * seen-item filtering uses padded per-user exclusion lists kept on the
   host (train positives are never recommended);
-* ranking is exact (`torch.topk`); its order among tied scores may
-  differ from `jax.lax.top_k`'s.
+* ranking is exact (`torch.topk`), in ``topk_mode`` 'approx' too (the
+  JAX package's `approx_max_k` is a TPU op); its order among tied scores
+  may differ from `jax.lax.top_k`'s.
 
 Example:
 
@@ -32,6 +33,7 @@ from idgrec_torch import convert
 from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.engine import checkpoint as ckpt
+from idgrec_torch.engine.evaluator import TOPK_MODES
 from idgrec_torch.models import get_model
 
 _MASK_VALUE = -1e9
@@ -42,10 +44,8 @@ class Recommender:
 
     def __init__(self, model, data: Dataset, filter_seen: bool = True,
                  topk_mode: str = "exact", generator: torch.Generator | None = None):
-        if topk_mode != "exact":
-            raise NotImplementedError(
-                f"topk_mode={topk_mode!r}: approximate top-k is the TPU's "
-                "approx_max_k; the port ranks exactly")
+        if topk_mode not in TOPK_MODES:
+            raise ValueError(f"topk_mode={topk_mode!r}: expected one of {TOPK_MODES}")
         self.model = model
         self.data = data
         self.filter_seen = filter_seen

@@ -108,7 +108,10 @@ replayed from a CUDA graph (device time without the host), the wrapper
 the training step calls (no range check; the tree before it had none,
 and its public wrapper is timed with the check taken out) and the public
 wrapper (with the range check), beside ``index_add_`` into a zeroed
-table.
+table. Then K4 at SGL's drop-list lengths (`k4_sgl_lists`): one view's
+dropped edges into the users and into the items, each on the list
+sorted by its index and on the one sorted the other way, timed and
+profiled by kernel name.
 
 Prints one line per measurement, the card's name and power limit, and a
 JSON object last.
@@ -124,6 +127,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 YELP = (31_668, 38_048, 1_237_259, 324_147)
@@ -1426,6 +1430,57 @@ def k4_split(dev, data, scatter) -> dict:
     return res
 
 
+def k4_sgl_lists(dev, data, scatter) -> dict:
+    """K4 at SGL's drop-list lengths: one edge-dropout view of the
+    yelp2018-scale set at ``ssl_ratio`` 0.1, its dropped edges drawn as
+    `propagate.build_dropout_adjacency` draws them (a permutation from a
+    numpy generator seeded 0, the tail dropped, the lists sorted stably by
+    user and by item), d = 64, random values. Four library calls: into
+    the users and into the items, each on the list sorted by its index
+    (what the drop corrections launch, forward and backward) and on the
+    list sorted the other way (the index unsorted). Each is held to K4's
+    plain version and timed under CUDA events; then each is profiled by
+    kernel name."""
+    nnz = int(data.nnz)
+    users = np.repeat(np.arange(data.num_users, dtype=np.int64), np.diff(data.row_ptr))
+    items = data.col_idx.astype(np.int64)
+    dropped = np.random.default_rng(0).permutation(nnz)[int(round(0.9 * nnz)):]
+    d_users, d_items = users[dropped], items[dropped]
+    by_user, by_item = np.argsort(d_users, kind="stable"), np.argsort(d_items, kind="stable")
+    nu, ni, d = data.num_users, data.num_items, 64
+    cases = {"users_sorted": (d_users[by_user], nu), "items_sorted": (d_items[by_item], ni),
+             "items_unsorted": (d_items[by_user], ni), "users_unsorted": (d_users[by_item], nu)}
+    vals = torch.randn(dropped.size, d, generator=torch.Generator().manual_seed(2)).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = scatter._k4_lib()
+    res, kernels = {"rows": int(dropped.size)}, {}
+    for name, (idx_np, nr) in cases.items():
+        idx = torch.from_numpy(idx_np).to(dev)
+        out = torch.empty((nr, d), dtype=torch.float32, device=dev)
+        buf = torch.empty(scatter.scratch_size(nr, idx.numel()), dtype=torch.int32, device=dev)
+
+        def kernel(idx=idx, nr=nr, out=out, buf=buf):
+            code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                                        buf.data_ptr(), idx.numel(), d, nr, stream)
+            if code:
+                raise RuntimeError(f"K4: CUDA error {code}")
+
+        kernel()
+        if not torch.equal(out, scatter.scatter_add_rows_plain(idx, vals, nr)):
+            raise RuntimeError(f"K4 differs from its plain version on SGL's list ({name})")
+        res[name] = {"ms": timed(kernel, 20),
+                     "hot_rows": int((np.bincount(idx_np, minlength=nr) > 32).sum())}
+        kernels[name] = kernel
+    # profiled after every timing: the profiler slows the later launches
+    for name, kernel in kernels.items():
+        res[name]["device_ms_by_kernel"] = device_ms_by_kernel(kernel)
+        print(f"K4 on SGL's drop list ({res['rows']} rows of {d}) {name}: {res[name]['ms']:.4f} "
+              f"ms ({res[name]['hot_rows']} rows with more than 32 entries); device ms by "
+              "kernel " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     res[name]["device_ms_by_kernel"].items()), flush=True)
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -1466,6 +1521,7 @@ def main() -> int:
         result["k8"] = k8_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k4:
         result["k4"] = k4_split(dev, data, scatter)
+        result["k4_sgl"] = k4_sgl_lists(dev, data, scatter)
     if not args.skip_k6:
         result["k6"] = k6_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k11:

@@ -4,7 +4,7 @@ GPU, for a ported model in any compute mode.
 
     python3 scripts/torch_step_profile.py [--model LightGCN|EGCF|MFBPR|DirectAU|MAWU|SCCF|
         LightCCF|LightCSCF|SimGCL|XSimGCL|LightGCN_pp|BIGCF|MixRec|CGCL|NCL|HCCF|IMPGCN|
-        NGCF|GCMC|GCCF|LightGODE|RecDCL|LightGCL|CVGA]
+        NGCF|GCMC|GCCF|LightGODE|RecDCL|LightGCL|CVGA|SGL]
         [--steps 40] [--compute_dtype int8|int4|bfloat16|float32]
         [--backend auto|dense|fused|gather|bitpack] [--batch_rows]
         [--mode parallel|alternating] [--embedding_size D] [--root DIR]
@@ -18,15 +18,18 @@ on the rectangular adjacency, CVGA its one encoder product at 2d) on
 the synthetic set at the scale of the dataset its config names: yelp2018
 (LightGCN, EGCF, MFBPR, DirectAU, MAWU, SCCF, SimGCL, XSimGCL,
 LightGCN_pp, BIGCF, CGCL, NCL, HCCF, IMPGCN, NGCF, GCMC, GCCF,
-LightGODE, RecDCL, LightGCL, CVGA) or amazon-book (LightCCF, LightCSCF,
-MixRec). CVGA's batches are user rows (a permutation of the user ids,
+LightGODE, RecDCL, LightGCL, CVGA, SGL) or amazon-book (LightCCF,
+LightCSCF, MixRec). CVGA's batches are user rows (a permutation of the user ids,
 as the training loop feeds it) and LightGCL's SVD is taken when the
 model is built (its host seconds are printed). LightGCN and EGCF run int8
 and batch 2,048 unless told otherwise, the zoo its config's compute
 dtype (bfloat16) and batch size. A step's noise comes from a CUDA
 generator seeded 0. NCL steps past its warm-up: its k-means runs first
 (timed on the host clock, ending in a synchronize) and its steps take
-the prototype term. ``--batch_rows`` sets
+the prototype term. SGL draws its epoch's edge-dropout views first
+(`epoch_context`, timed the same way): its steps run the shared chain
+at 3d on `dense`, or with ``--compute_dtype int8`` / ``int4`` (`auto`
+then resolves to `fused`) the quantized views at 3d. ``--batch_rows`` sets
 LightGCN's ``batch_rows_propagation = 1``, ``--mode alternating`` EGCF's
 ping-pong over the rectangular adjacency. It warms up, then
 
@@ -67,7 +70,7 @@ SCALES = {"yelp2018": (31_668, 38_048, 1_237_259, 324_147),
           "amazon-book": (52_643, 91_599, 2_380_730, 603_378)}
 MODELS = ("LightGCN", "EGCF", "MFBPR", "DirectAU", "MAWU", "SCCF", "LightCCF", "LightCSCF",
           "SimGCL", "XSimGCL", "LightGCN_pp", "BIGCF", "MixRec", "CGCL", "NCL", "HCCF",
-          "IMPGCN", "NGCF", "GCMC", "GCCF", "LightGODE", "RecDCL", "LightGCL", "CVGA")
+          "IMPGCN", "NGCF", "GCMC", "GCCF", "LightGODE", "RecDCL", "LightGCL", "CVGA", "SGL")
 
 
 def main() -> int:

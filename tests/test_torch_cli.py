@@ -107,7 +107,7 @@ def test_model_menu_without_a_terminal_exits_2(monkeypatch, capsys):
     assert "Available models:" in out and "\t 1. BIGCF" in out and "\t 5. EGCF" in out
     assert "\t 2. CGCL" in out and "\t 8. HCCF" in out and "\t 9. IMPGCN" in out
     assert "\t 13. LightGCN" in out and "\t 14. LightGCN_pp" in out and "\t 19. NCL" in out
-    assert "\t 22. SCCF" in out and "\t 24. XSimGCL" in out
+    assert "\t 22. SCCF" in out and "\t 23. SGL" in out and "\t 25. XSimGCL" in out
     assert "\t 6. GCCF" in out and "\t 7. GCMC" in out and "\t 15. LightGODE" in out
     assert "\t 20. NGCF" in out and "\t 21. RecDCL" in out
     assert "\t 3. CVGA" in out and "\t 12. LightGCL" in out
@@ -165,11 +165,13 @@ def test_serve_prints_one_json_line_per_user(workdir, capsys):
     pytest.param("unknown_model", "error: unknown model 'Nope'; available: BIGCF, CGCL, "
                  "CVGA, DirectAU, EGCF, GCCF, GCMC, HCCF, IMPGCN, LightCCF, LightCSCF, "
                  "LightGCL, LightGCN, LightGCN_pp, LightGODE, MAWU, MFBPR, MixRec, NCL, NGCF, "
-                 "RecDCL, SCCF, SimGCL, XSimGCL",
+                 "RecDCL, SCCF, SGL, SimGCL, XSimGCL",
                  id="unknown_model-error: unknown model 'Nope'; available: LightGCN"),
     ("user_out_of_range", "error: user id out of range"),
     ("k_too_large", "error: k must be in [1, num_items=300]"),
-    ("approx", "error: topk_mode='approx'"),
+    # the id keeps the name this case had while the port refused `approx`,
+    # which it now serves with exact's ids (exit code 0, nothing on stderr)
+    pytest.param("approx", None, id="approx-error: topk_mode='approx'"),
 ])
 def test_serve_error_exits(workdir, capsys, case, message):
     tmp = workdir["tmp"]
@@ -188,7 +190,13 @@ def test_serve_error_exits(workdir, capsys, case, message):
     elif case == "k_too_large":
         code = _serve(workdir, "-k", "301")
     else:
-        code = _serve(workdir, "--topk_mode", "approx")
+        assert _serve(workdir, "-k", "5") == 0
+        exact = capsys.readouterr().out
+        code = _serve(workdir, "-k", "5", "--topk_mode", "approx")
+        captured = capsys.readouterr()
+        assert code == 0 and captured.err == "" and captured.out == exact
+        assert len(exact.strip().splitlines()) == 3
+        return
     captured = capsys.readouterr()
     assert code == 2 and captured.out == ""
     assert message in captured.err

@@ -207,6 +207,27 @@ def test_k4_equals_plain_and_add_at(cuda, batch, n_rows, d, span):
     np.testing.assert_array_equal(got.cpu().numpy(), want_np)
 
 
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("spread", [300, 3000])
+def test_k4_hot_rows_of_a_sorted_index_equal_plain(cuda, order, spread):
+    """SGL's drop lists: a sorted index whose hot rows (33, 4,096 and 5,000
+    entries) start anywhere and span one to three 4,096-position bitmap
+    windows, and the same entries shuffled, against the plain version and
+    np.add.at."""
+    rng = np.random.default_rng(6)
+    n_rows, d = 400, 64
+    idx = np.concatenate([np.full(33, 3), np.full(5000, 10), np.full(4096, 11),
+                          rng.integers(0, n_rows, spread)])
+    idx = np.sort(idx) if order == "sorted" else rng.permutation(idx)
+    vals = rng.normal(size=(idx.size, d)).astype(np.float32)
+    idx_t, vals_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    got = scatter.scatter_add_rows_unchecked(idx_t, vals_t, n_rows)
+    assert torch.equal(got, scatter.scatter_add_rows_plain(idx_t, vals_t, n_rows))
+    want_np = np.zeros((n_rows, d), np.float32)
+    np.add.at(want_np, idx, vals)
+    np.testing.assert_array_equal(got.cpu().numpy(), want_np)
+
+
 @pytest.mark.parametrize("d", [1, 63, 64, 128])
 @pytest.mark.parametrize("case", ["one_row", "sampled", "hot_rows"])
 def test_k4_step_shapes_equal_plain(cuda, case, d):
@@ -2420,3 +2441,92 @@ def test_rect_model_step_on_k6(cuda, name):
     assert fusedmm.fused_adj_matmul.launches - before == want_step + want_repr
     assert np.isfinite(terms.cpu().numpy()).all()
     assert isinstance(rep, dict) == (name == "CVGA")
+
+
+# SGL's routes on the card: (backend, compute_dtype) -> (the swaps that run
+# the route on its kernels' plain versions, the launches a step)
+_SGL_ROUTES = {
+    ("auto", "bfloat16"): ((("fused_adj_matmul", _plain_k6),),
+                           {"fused_adj_matmul": 6, "scatter_add_rows": 24}),
+    ("auto", "int8"): ((("fused_adj_matmul_int8", fusedmm.fused_adj_matmul_int8_plain),),
+                       {"fused_adj_matmul_int8": 6, "quantize_rows": 12, "scatter_add_rows": 26}),
+    ("auto", "int4"): ((("fused_adj_matmul_int4", fusedmm.fused_adj_matmul_int4_plain),),
+                       {"fused_adj_matmul_int4": 6, "quantize_rows": 12, "scatter_add_rows": 26}),
+    ("bitpack", "bfloat16"): ((), {"bit_matmul": 36, "scatter_add_rows": 24}),
+}
+
+
+@pytest.mark.parametrize("backend,dtype", list(_SGL_ROUTES))
+def test_sgl_step_on_its_kernels(cuda, backend, dtype):
+    """SGL at its published config (d = 64, 3 layers, 'ed') on each route:
+    the shared chain on K6 at d = 192 (bfloat16 on `auto`, dense), the
+    quantized views on K7 / K8 at 192 with K3 (int8 / int4, `fused`),
+    bitpack on K11; every drop correction on K4. One step against the
+    same step on the kernels' plain versions from the same views (loss
+    terms within rtol 3e-5 / atol 3e-6, gradients within 2**-7 of the
+    largest entry), its launches counted, then a step under sync debug
+    mode "error" with the epoch's views drawn outside it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from idgrec_torch import convert
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = load_model_config("SGL").updated(dataset="t", batch_size=1024,
+                                           propagation_backend=backend, compute_dtype=dtype)
+    model = get_model("SGL")(cfg, data, device=cuda, generator=torch.Generator().manual_seed(0))
+    model.epoch_context(0, np.random.default_rng(2))
+    swaps, want_launches = _SGL_ROUTES[(backend, dtype)]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pick = torch.randint(0, data.num_train, (1024,), generator=g).numpy()
+    batch = {"user": torch.from_numpy(data.train_user[pick]).to(cuda),
+             "pos": torch.from_numpy(data.train_item[pick]).to(cuda),
+             "neg": torch.randint(0, data.num_items, (1024,), generator=g).to(cuda)}
+    counted = {f.__name__: f for f in (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
+                                       fusedmm.fused_adj_matmul_int4, propagate.quantize_rows,
+                                       scatter.scatter_add_rows, bitmm.bit_matmul)}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        terms = model.loss_terms(batch)
+        sum(terms).backward()
+        return ([t.detach() for t in terms],
+                [getattr(model, k).grad.clone() for k in convert.table_names(model)])
+
+    before = {k: f.launches for k, f in counted.items()}
+    got = step()
+    torch.cuda.synchronize()
+    launches = {k: f.launches - before[k] for k, f in counted.items() if f.launches > before[k]}
+    assert launches == want_launches
+    saved = ([(fusedmm, n, getattr(fusedmm, n)) for n, _ in swaps]
+             + [(propagate, "quantize_rows", propagate.quantize_rows),
+                (scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_unchecked),
+                (bitmm, "bit_matmul", bitmm.bit_matmul)])
+    try:
+        for n, fn in swaps:
+            setattr(fusedmm, n, fn)
+        propagate.quantize_rows = propagate.quantize_rows_plain
+        scatter.scatter_add_rows_unchecked = scatter.scatter_add_rows_plain
+        bitmm.bit_matmul = lambda packed, x, n_rows, plan=None: bitmm.bit_matmul_plain(
+            packed, x, n_rows)
+        want = step()
+    finally:
+        for module, n, fn in saved:
+            setattr(module, n, fn)
+    for a, b in zip(got[0], want[0]):
+        assert bool(torch.isfinite(a))
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6)
+    for a, b in zip(got[1], want[1]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2.0 ** -7 * float(b.abs().max())
+    runner = EpochRunner(model, cfg.float("learn_rate"), 1024, 1024)
+    runner.run_epoch(batch["user"], batch["pos"], batch["neg"])
+    model.epoch_context(1, np.random.default_rng(3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        terms = runner.run_epoch(batch["user"], batch["pos"], batch["neg"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(terms.cpu().numpy()).all()

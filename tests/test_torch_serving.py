@@ -116,8 +116,15 @@ def test_recommend_validates(served):
         trec.recommend([0], k=0)
     with pytest.raises(ValueError):
         trec.recommend([0], k=tdata.num_items + 1)
-    with pytest.raises(NotImplementedError):
-        TRecommender(tmodel, tdata, topk_mode="approx")
+    with pytest.raises(ValueError):
+        TRecommender(tmodel, tdata, topk_mode="nearest")
+    # `approx` (the JAX package's TPU approx_max_k) ranks exactly in the port
+    approx = TRecommender(tmodel, tdata, topk_mode="approx")
+    for users in ([0, 5, 9], list(range(tdata.num_users))):
+        a_items, a_scores = approx.recommend(users, k=7)
+        e_items, e_scores = trec.recommend(users, k=7)
+        np.testing.assert_array_equal(a_items, e_items)
+        np.testing.assert_array_equal(a_scores, e_scores)
 
 
 def test_entry_points_need_a_device_without_cuda(served):

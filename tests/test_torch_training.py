@@ -257,8 +257,14 @@ def test_unported_options_raise():
         TRunner(tmodel, LR, B, B, mesh=object())
     with pytest.raises(NotImplementedError, match="A.9"):
         TEvaluator(tmodel, tdata, TConfig(_CFG), mesh=object())
-    with pytest.raises(NotImplementedError, match="approx_max_k"):
-        TEvaluator(tmodel, tdata, TConfig({**_CFG, "eval_topk": "approx"}))
+    # `approx` (the JAX package's TPU approx_max_k) is taken and ranks
+    # exactly: the metrics equal exact's; another mode raises
+    with pytest.raises(ValueError, match="eval_topk"):
+        TEvaluator(tmodel, tdata, TConfig({**_CFG, "eval_topk": "nearest"}))
+    approx = TEvaluator(tmodel, tdata, TConfig({**_CFG, "eval_topk": "approx"})).evaluate()
+    exact = TEvaluator(tmodel, tdata, TConfig(_CFG)).evaluate()
+    for k in ("recall", "precision", "ndcg"):
+        np.testing.assert_array_equal(approx[k], exact[k])
     # batch-row propagation is ported; in int8 `auto` resolves to fused,
     # which has no row product, so the model keeps the full propagation
     # (with the JAX package's warning)

@@ -238,7 +238,7 @@ def _repr_arrays(rep):
 
 def test_rect_models_are_registered():
     assert set(RECT) <= set(t_available())
-    assert len(t_available()) == 24
+    assert len(t_available()) == 25  # the JAX package's zoo, SGL the last
     for name in RECT:
         assert t_get_model(name).model_name == name
 

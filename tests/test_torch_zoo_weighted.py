@@ -180,7 +180,7 @@ def _bernoullis(masks):
 
 def test_weighted_models_are_registered():
     assert set(WEIGHTED) <= set(t_available())
-    assert len(t_available()) == 24
+    assert len(t_available()) == 25  # the JAX package's zoo, SGL the last
     for name in WEIGHTED:
         assert t_get_model(name).model_name == name
 
