@@ -214,6 +214,17 @@ launch counts set to 0 just before and read just after:
   one step against its plain route; K4 on one view's drop list (about a
   tenth of the edges) equal to its plain version and across two
   launches, timed beside its bound, its plain version and `index_add_`;
+* the mesh (`mesh_phase`, ROADMAP A.9): the per-shard products of the
+  sharded dual (`spmm_shard.shard_dual`) on every row shard of the
+  yelp2018-scale M at model widths 2 and 4, K6, K7 and K8 on the fused
+  M and K6 and K7 on the dense M (its shards cut as `build_adjacency`
+  cuts them, their route `shard_route`'s), forward and on the swapped
+  cotangents, each held to its plain version and the assembled products
+  to the single launch, shard 0 timed beside its bound; an NCCL group of
+  world size 1 training LightGCN bfloat16 on `dense` on a 1x1 mesh, held
+  bit for bit to the run without one; where several
+  cards are visible, one NCCL rank a card on (1, n) and (2, n/2) meshes
+  held to one card (with one card a line says it did not take place);
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
   LEARN_EPOCHS epochs, recall@20 after the last at least LEARN_FACTOR
@@ -237,6 +248,7 @@ fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -457,8 +469,8 @@ class PlainChainModel:
         with plain_kernels(chainmm, scatter):
             return self.model.eval_embeddings(generator)
 
-    def score_batch(self, repr_, users):
-        return self.model.score_batch(repr_, users)
+    def score_batch(self, repr_, users, items=slice(None)):
+        return self.model.score_batch(repr_, users, items)
 
 
 @contextlib.contextmanager
@@ -1053,6 +1065,281 @@ def sgl_phase(h) -> dict:
 
     return dict(launches=launches_s, res=res_s_, call=call_s, paths=sgl_paths, k4=sgl_k4,
                 views=views_k)
+
+
+def _mesh_rank(rank: int, world: int, port: int, out_dir: str, device_type: str,
+               runs: dict) -> None:
+    """One rank of the multi-card run (`mesh_phase`): joins a group of
+    ``world`` ranks, trains each run of ``runs`` on its meshes, serves, and
+    (rank 0) writes the results to ``out_dir``."""
+    import pickle
+
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.engine import loop as loop_lib
+    from idgrec_torch.parallel import distributed
+    from idgrec_torch.parallel.mesh import make_mesh
+    from idgrec_torch.serving import Recommender
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    distributed.initialize(f"localhost:{port}", world, rank, device=device_type)
+    data = make_synthetic_dataset(*QUICK, seed=0, name="quick-mesh")
+    users = np.arange(0, data.num_users, 97)
+    out = {}
+    for data_parallel in (1, 2) if world >= 4 else (1,):
+        mesh = make_mesh(data_parallel=data_parallel, device=None if device_type == "cuda"
+                         else device_type)
+        for key, cfg in runs.items():
+            res = loop_lib.train_model("LightGCN", data, config=cfg, seed=2024, log_dir=None,
+                                       echo=False, mesh=mesh)
+            items, _ = Recommender.from_train_result("LightGCN", data, cfg, res, mesh=mesh,
+                                                     device=mesh.device).recommend(users, k=K)
+            out[key, data_parallel] = ([h["loss"] for h in res.history],
+                                       {k_: v.cpu().numpy() for k_, v in res.params.items()},
+                                       res.best.recall, items)
+    if rank == 0:
+        with open(os.path.join(out_dir, "mesh_runs.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    distributed.shutdown()
+
+
+def mesh_phase(h) -> dict:
+    """The sharded path on one card (ROADMAP A.9). First the per-shard
+    products at model widths 2 and 4 of the yelp2018-scale M, through
+    `spmm_shard.shard_dual` (the function `sharded_square_matmul` runs
+    between its collectives): on the fused M [31,744, 38,400], K6
+    (bfloat16), K7 (int8) and K8 (int4, the nibble-packed shard); on the
+    dense M [31,744, 38,144], the zoo's bfloat16 route, K6 and K7 on its
+    shards as `build_adjacency` cuts them (`propagate._row_shard`), their
+    routes `shard_route`'s; forward and backward (the swapped cotangents),
+    each shard held to the kernel's plain version (quantized: bit for bit;
+    K6 within its bar, rtol 3e-5 and atol 3e-6 of the largest sum) and
+    the assembled result (yu concatenated, yi's partials summed in rank
+    order) to the single-card launch (quantized: the raw integer sums
+    exactly; K6 within the same bar), each shard launch timed
+    beside its bound at the shard's bytes. Then an NCCL process group of
+    world size 1 in process: LightGCN bfloat16 on ``dense`` through
+    `train_model` on a 1x1 `make_mesh()` for one epoch of a 2,000 x 3,000
+    set and its evaluation, held to the same run without a mesh bit for
+    bit (a 1x1 mesh shards nothing: the loss terms, the tables and
+    recall@20 equal). Then, where two or
+    more cards are visible, one NCCL rank a card (at most 4) trains
+    LightGCN bfloat16 on ``dense`` and int8 on ``fused`` on a (1, n) mesh
+    and, at n >= 4, a (2, n/2) mesh, held to the single-card runs, and
+    serves through `Recommender(mesh=...)`; with one card it says so."""
+    import pickle
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.engine import loop as loop_lib
+    from idgrec_torch.ops import fusedmm, propagate
+    from idgrec_torch.parallel import distributed, spmm_shard
+    from idgrec_torch.parallel.mesh import make_mesh
+    from idgrec_torch.serving import Recommender
+
+    adj, adj4, dev, bound, bf16_ops = h.adj, h.adj4, h.dev, h.bound, h.bf16_ops
+    reset_counts, read_counts = h.reset_counts, h.read_counts
+    d = DIM
+    u_pad, i_pad = adj.padded_shape
+    i_pad4 = adj4.padded_shape[1]
+    # the dense route's M [pad(U, 128), pad(I, 256)], the zoo's bfloat16
+    # default, and its shards as `build_adjacency` cuts them under a mesh
+    adj_d = propagate.build_adjacency(h.data, "sym", "dense", compute_dtype="bfloat16", device=dev)
+    i_pad_d = adj_d.m.shape[1]
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(rows):
+        return torch.randn((rows, d), generator=g, device=dev)
+
+    zu, zi, zi4, zi_d, gyu, gyi, gyi4, gyi_d = (randn(n_) for n_ in (
+        u_pad, i_pad, i_pad4, i_pad_d, u_pad, i_pad, i_pad4, i_pad_d))
+    quant = {name_: propagate._quantize_cols(t_)[0]
+             for name_, t_ in (("zu", zu), ("zi", zi), ("zi4", zi4), ("zi_d", zi_d), ("gyu", gyu),
+                               ("gyi", gyi), ("gyi4", gyi4), ("gyi_d", gyi_d))}
+    # case -> (route, the whole matrix, the forward's and the backward's inputs)
+    cases = {"k6": ("k6", adj.m8, (zu, zi), (gyu, gyi)),
+             "k7": ("k7", adj.m8, (quant["zu"], quant["zi"]), (quant["gyu"], quant["gyi"])),
+             "k8": ("k8", adj4.m8, (quant["zu"], quant["zi4"]), (quant["gyu"], quant["gyi4"])),
+             "k6_dense": ("k6", adj_d.m, (zu, zi_d), (gyu, gyi_d)),
+             "k7_dense": ("k7", adj_d.m, (quant["zu"], quant["zi_d"]),
+                          (quant["gyu"], quant["gyi_d"]))}
+    plain = {"k6": fusedmm.fused_adj_matmul_plain, "k7": fusedmm.fused_adj_matmul_int8_plain,
+             "k8": fusedmm.fused_adj_matmul_int4_plain}
+    single = {"k6": fusedmm.fused_adj_matmul, "k7": fusedmm.fused_adj_matmul_int8,
+              "k8": fusedmm.fused_adj_matmul_int4}
+    names = {"k6": "dual_bf16", "k7": "dual_int8_n", "k8": "dual_int4_n"}
+
+    def shard_of(case, width, k_):
+        """Model rank k_'s rows of the case's matrix at ``width``: the fused
+        matrix's rows are padded to a multiple of every width already; the
+        dense one's by `propagate._row_shard`, as `build_adjacency` does."""
+        m = cases[case][1]
+        if case.endswith("_dense"):
+            return propagate._row_shard(m, spmm_shard.row_multiple(width, propagate._PAD),
+                                        SimpleNamespace(model=width, model_index=k_), dev)
+        r = m.shape[0] // width
+        return m[k_ * r:(k_ + 1) * r]
+
+    # the dense shards take K6 and K7 by the route's own rule
+    for width in (2, 4):
+        m_0 = shard_of("k6_dense", width, 0)
+        for quant_, want_ in (("none", "k6"), ("int8", "k7")):
+            got_ = spmm_shard.shard_route(dataclasses.replace(adj_d, m=m_0, quant=quant_), d)
+            require(got_ == want_, f"mesh width {width}: the dense shard {list(m_0.shape)} "
+                                   f"({quant_}) takes {got_}, not {want_}")
+        del m_0
+
+    # the per-shard products, every shard of widths 2 and 4 on this card
+    errs, times = {}, {}
+    shard_counts = {}
+    for width in (2, 4):
+        for case, (route, m, fwd_in, bwd_in) in cases.items():
+            reset_counts()
+            ms_k = [shard_of(case, width, k_) for k_ in range(width)]
+            r = ms_k[0].shape[0]
+            parts = [tuple(spmm_shard.shard_dual(route, m_k, side[0][k_ * r:(k_ + 1) * r],
+                                                 side[1])
+                           for side in (fwd_in, bwd_in))
+                     for k_, m_k in enumerate(ms_k)]
+            for name_, n_ in read_counts().items():
+                shard_counts[name_] = shard_counts.get(name_, 0) + n_
+            for side, inputs in zip(range(2), (fwd_in, bwd_in)):
+                for k_, pair in enumerate(parts):
+                    rows = slice(k_ * r, (k_ + 1) * r)
+                    want = plain[route](ms_k[k_], inputs[0][rows], inputs[1])
+                    for what, a, b in zip(("yu_k", "yi_k"), pair[side], want):
+                        label = f"mesh width {width} shard {k_} {case} {what} ({side})"
+                        if route == "k6":  # K6's bar: atol relative to the largest sum
+                            assert_close(a, b, label, rtol=3e-5,
+                                         atol=3e-6 * float(b.abs().max()))
+                        else:
+                            require(torch.equal(a, b),
+                                    f"{label}: not bit-equal to the plain version")
+                        errs[case] = max(errs.get(case, 0.0), max_abs(a, b))
+                yu = torch.cat([pair[side][0] for pair in parts])[:m.shape[0]]
+                yi = parts[0][side][1]
+                for pair in parts[1:]:
+                    yi = yi + pair[side][1]
+                want = single[route](m, inputs[0][:m.shape[0]], inputs[1])
+                for what, a, b in zip(("yu", "yi"), (yu, yi), want):
+                    label = f"mesh width {width} assembled {case} {what} ({side})"
+                    if route == "k6":
+                        assert_close(a, b, label, rtol=3e-5, atol=3e-6 * float(b.abs().max()))
+                    else:
+                        require(torch.equal(a, b), f"{label}: not the single launch's raw sums")
+            m_0 = ms_k[0]
+            # K8's shard is nibble-packed: its counts are the int8 shard's
+            nnz_0 = int(torch.count_nonzero(adj.m8[:r] if route == "k8" else m_0))
+            act = 4 if route == "k6" else 1  # float32 or int8 activations in
+            cols_in = fwd_in[1].shape[0]
+            shard_bytes = m_0.numel() + act * d * (r + cols_in) + 4 * d * (r + cols_in)
+            bnd = bound(shard_bytes, 4.0 * nnz_0 * d, bf16_ops) if route == "k6" else bound(
+                shard_bytes, 4.0 * nnz_0 * d)
+            ms = cuda_ms(lambda: spmm_shard.shard_dual(route, m_0, fwd_in[0][:r], fwd_in[1]),
+                         10)
+            times[width, case] = (ms, bnd)
+            del parts, ms_k, m_0
+    for route, fn in single.items():
+        n_cases = sum(1 for r_, *_ in cases.values() if r_ == route)
+        require(shard_counts.get(fn.__name__, 0) == 2 * (2 + 4) * n_cases,
+                f"mesh shards: {shard_counts.get(fn.__name__, 0)} launches of {fn.__name__}")
+    for (width, case), (ms, bnd) in times.items():
+        m = cases[case][1]
+        log(f"mesh width {width}: {names[cases[case][0]]} on shard 0 of the "
+            f"{'dense' if case.endswith('_dense') else 'fused'} M [{m.shape[0] // width}, "
+            f"{m.shape[1]}] {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]})")
+    log("mesh shards: every shard's product equal to its plain version (K7, K8 bit for bit, "
+        "K6 within its bar), forward and backward, the assembled products the single launch's, "
+        "on the fused and the dense M; launches "
+        f"{', '.join(f'{names[r_]} {shard_counts.get(f_.__name__, 0)}' for r_, f_ in single.items())}")
+    del quant, zu, zi, zi4, zi_d, gyu, gyi, gyi4, gyi_d, adj_d, cases
+    torch.cuda.empty_cache()
+
+    # an NCCL group of world size 1, train_model on a 1x1 mesh against no mesh
+    quick = make_synthetic_dataset(*QUICK, seed=0, name="quick-mesh")
+    cfg = load_model_config("LightGCN").updated(
+        dataset=quick.name, embedding_size=DIM, GCN_layer=LAYERS, compute_dtype="bfloat16",
+        propagation_backend="dense", batch_size=BATCH, test_batch_size=2048, top_K=[K],
+        training_epochs=1, interval=1)
+    port = distributed.free_port()
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{port}", 1, 0)
+    try:
+        mesh = make_mesh()
+        require(dist.get_backend() == "nccl" and (mesh.data, mesh.model) == (1, 1)
+                and mesh.device.type == "cuda", "mesh: not a 1x1 NCCL mesh on the card")
+        reset_counts()
+        r_mesh = loop_lib.train_model("LightGCN", quick, config=cfg, seed=2024, log_dir=None,
+                                      echo=False, mesh=mesh)
+        nccl_counts = read_counts()
+    finally:
+        distributed.shutdown()
+    nccl_s = time.perf_counter() - t0
+    r_one = loop_lib.train_model("LightGCN", quick, config=cfg, seed=2024, log_dir=None,
+                                 echo=False, device=dev)
+    require(nccl_counts["fused_adj_matmul"] > 0, "mesh: the NCCL run launched no K6")
+    # a 1x1 mesh shards nothing: the same launches, so the same bits
+    l_mesh = [h_["loss"] for h_ in r_mesh.history]
+    l_one = [h_["loss"] for h_ in r_one.history]
+    require(l_mesh == l_one, f"mesh: loss terms {l_mesh} != {l_one}")
+    for k_, v in r_one.params.items():
+        require(torch.equal(r_mesh.params[k_], v),
+                f"mesh: table {k_} off by {float((r_mesh.params[k_] - v).abs().max())}")
+    require(np.array_equal(r_mesh.best.recall, r_one.best.recall),
+            f"mesh: recall@{K} {r_mesh.best.recall} != {r_one.best.recall}")
+    lr_q = cfg.float("learn_rate")
+    log(f"mesh: NCCL world size 1, train_model on a 1x1 mesh (LightGCN bfloat16 dense, one "
+        f"epoch of {quick.num_train} triples, one evaluation) bit-equal to the run without a "
+        f"mesh: loss terms {l_mesh}, recall@{K} {r_mesh.best.recall}; K6 launches "
+        f"{nccl_counts['fused_adj_matmul']}; {nccl_s:.1f} s")
+
+    # several cards: one NCCL rank a card
+    count = torch.cuda.device_count()
+    multi = None
+    if count < 2:
+        log(f"mesh: the multi-card run did not take place: {count} visible card (NCCL takes one "
+            "rank a card)")
+    else:
+        world = 4 if count >= 4 else 2
+        runs = {"dense_bf16": cfg, "fused_int8": cfg.updated(propagation_backend="fused",
+                                                             compute_dtype="int8")}
+        port = distributed.free_port()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out_dir:
+            t0 = time.perf_counter()
+            mp.spawn(_mesh_rank, args=(world, port, out_dir, "cuda", runs), nprocs=world,
+                     join=True)
+            multi_s = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "mesh_runs.pkl"), "rb") as f:
+                got = pickle.load(f)
+        users = np.arange(0, quick.num_users, 97)
+        for key, run_cfg in runs.items():
+            ref = loop_lib.train_model("LightGCN", quick, config=run_cfg, seed=2024,
+                                       log_dir=None, echo=False, device=dev)
+            ref_items, _ = Recommender.from_train_result("LightGCN", quick, run_cfg, ref,
+                                                         device=dev).recommend(users, k=K)
+            l_ref = [float(h_["loss"].split(" = ")[0]) for h_ in ref.history]
+            for (key_, dp), (losses, params, recall, items) in got.items():
+                if key_ != key:
+                    continue
+                l_got = [float(x_.split(" = ")[0]) for x_ in losses]
+                require(np.allclose(l_got, l_ref, rtol=2e-3, atol=1e-4),
+                        f"mesh {dp}x{world // dp} {key}: losses {l_got} != {l_ref}")
+                for k_, v in ref.params.items():
+                    diff = np.abs(params[k_] - v.cpu().numpy()) / lr_q
+                    require(float(diff.max()) <= 0.25 and float(diff.mean()) <= 1e-3,
+                            f"mesh {dp}x{world // dp} {key}: {k_} off by {float(diff.max())} "
+                            "learn_rate")
+                require(np.allclose(recall, ref.best.recall, atol=1e-6)
+                        and np.array_equal(items, ref_items),
+                        f"mesh {dp}x{world // dp} {key}: recall or served ids differ")
+        multi = {"world": world, "seconds": multi_s}
+        log(f"mesh: {world} NCCL ranks, LightGCN dense bfloat16 and fused int8 on the "
+            f"{'(1, n) and (2, n/2)' if world >= 4 else '(1, n)'} meshes equal to one card; "
+            f"{multi_s:.1f} s")
+    return {"paths": {"mesh_shards": shard_counts, "mesh_nccl_world1": nccl_counts},
+            "times": times, "errs": errs, "multi": multi, "nccl_s": nccl_s}
 
 
 def main() -> int:
@@ -2965,7 +3252,7 @@ def main() -> int:
             text_e = f.read()
         with open(os.path.join(conf_e, "EGCF.txt"), "w") as f:
             f.write(text_e + f"\ndataset_path = {os.path.join(tmp, 'data')}\n"
-                    "dataset = quick\ntraining_epochs = 1\n")
+                    "dataset = quick\ntraining_epochs = 1\ncompute_dtype = int8\n")
         out_e = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()
@@ -4147,6 +4434,10 @@ def main() -> int:
         bound=bound, reset_counts=reset_counts, read_counts=read_counts, int_mm_ms=int_mm_ms))
     zoo_launches["SGL"], zoo_res["SGL"], zoo_calls["SGL"] = sgl["launches"], sgl["res"], sgl["call"]
     rect_paths.update(sgl["paths"])
+    mesh_res = mesh_phase(SimpleNamespace(
+        data=data, adj=adj, adj4=adj4, dev=dev, bound=bound, bf16_ops=bf16_ops, reset_counts=reset_counts,
+        read_counts=read_counts))
+    rect_paths.update(mesh_res["paths"])
 
     # K6 on amazon-book's matrix, the largest it has run, beside its bound,
     # its plain version and two torch.matmul calls on a bfloat16 copy
@@ -4562,6 +4853,18 @@ def main() -> int:
               "library: M[rows].to(bfloat16).T @ g x2"),
     ]
     for k in kernels:
+        # the mesh's per-shard products at model widths 2 and 4
+        route_m = {"dual_bf16": "k6", "dual_int8_n": "k7", "dual_int4_n": "k8"}.get(k["name"])
+        if route_m:
+            # the fused M's shards, and (K6, K7) the dense M's as `mesh_shard_dense_*`
+            for case, tag in ((route_m, "mesh_shard"), (route_m + "_dense", "mesh_shard_dense")):
+                if case not in mesh_res["errs"]:
+                    continue
+                for width in (2, 4):
+                    ms_m, bnd_m = mesh_res["times"][width, case]
+                    k.update({f"{tag}_ms_w{width}": ms_m, f"{tag}_bound_ms_w{width}": bnd_m[0],
+                              f"{tag}_bound_by_w{width}": bnd_m[1]})
+                k[f"{tag}_max_abs_err"] = mesh_res["errs"][case]
         # SGL's quantized views: the three chains side by side at 3 DIM
         if k["name"] in ("dual_int8_n", "dual_int4_n"):
             v_ = sgl["views"]["int8" if k["name"] == "dual_int8_n" else "int4"]

@@ -13,6 +13,12 @@ number of test users:
 
 Early stopping (`BestResults`): best Recall@topK[0], patience
 ``early_stopping`` evaluations.
+
+On a mesh (``mesh=``) every rank evaluates alike: the representation
+runs under the mesh (its products sharded over the model axis), and
+where the items are sharded each model rank scores and ranks only its
+column slice of the catalog and the candidates merge
+(`parallel.topk.sharded_topk`), so every rank gets the same metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.ops.metrics import topk_metric_sums
+from idgrec_torch.parallel.mesh import use_mesh
+from idgrec_torch.parallel.topk import item_slice, items_sharded, local_columns, sharded_topk
 
 # the ranking modes `eval_topk` and `Recommender(topk_mode=...)` take: the
 # JAX package's 'approx' is the TPU's approx_max_k; the port ranks both
@@ -116,9 +124,9 @@ class Evaluator:
 
     def __init__(self, model: RecModel, data: Dataset, config: Config,
                  users: list[int] | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("sharded evaluation over a mesh is ROADMAP A.9")
         self.model = model
+        self.mesh = mesh
+        self._items_sharded = items_sharded(mesh)
         self.data = data
         self.top_ks = tuple(config.int_list("top_K"))
         self.max_k = max(self.top_ks)
@@ -140,20 +148,32 @@ class Evaluator:
         ``generator`` draws whatever the representation draws (the JAX
         evaluator's key)."""
         self.model.eval()
-        return self.model.eval_embeddings(generator)
+        with use_mesh(self.mesh):
+            return self.model.eval_embeddings(generator)
 
     def _sweep(self, eval_repr) -> dict[str, torch.Tensor]:
         p = self.plan
         num_items = self.data.num_items
         sums = None
+        # on a model axis a rank scores its slice of the items only
+        items, width = slice(None), num_items
+        if self._items_sharded:
+            items, width = item_slice(num_items, self.mesh)
         for b in range(p.users.shape[0]):
-            ratings = self.model.score_batch(eval_repr, p.users[b]).to(torch.float32)
+            ratings = self.model.score_batch(eval_repr, p.users[b], items).to(torch.float32)
             # mask train positives below any reachable score; one spare
-            # column takes the pad index num_items, then goes
+            # column takes the pad index num_items (sharded: every id
+            # outside the slice), then goes
+            cols = p.excl_cols[b]
+            if self._items_sharded:
+                cols = local_columns(cols, items)
             ratings = F.pad(ratings, (0, 1))
-            ratings[p.excl_rows[b], p.excl_cols[b]] = _MASK_VALUE
-            ratings = ratings[:, :num_items]
-            topk_idx = torch.topk(ratings, self.max_k, dim=1).indices
+            ratings[p.excl_rows[b], cols] = _MASK_VALUE
+            ratings = ratings[:, :-1] if self._items_sharded else ratings[:, :num_items]
+            if self._items_sharded:
+                topk_idx = sharded_topk(ratings, items, width, self.mesh, self.max_k)[1]
+            else:
+                topk_idx = torch.topk(ratings, self.max_k, dim=1).indices
             m = topk_metric_sums(topk_idx, p.truth[b], self.top_ks, valid=p.valid[b])
             sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
         return sums

@@ -24,6 +24,16 @@ numpy generator handed to `RecModel.epoch_context`. The global
 generators are never used. The streams are PyTorch's, so the two
 packages draw different triples from the same seed: runs are compared
 by behaviour, not by value.
+
+On a mesh (``mesh=``, parallel/mesh.py; one process a card, every rank
+calling `train_model` alike) the model is built under the mesh, so its
+square adjacency holds this rank's rows of M; the runner stores the
+tables row-sharded (`trainer.ShardedTables`); every rank draws the same
+triples and views, takes the same early-stopping decision from the same
+metrics, and joins the gathers of each checkpoint, which the primary
+rank alone writes, as it alone writes the logs. A checkpoint holds the
+tables at their true shapes, so one written on a mesh loads on one card
+and the reverse.
 """
 
 from __future__ import annotations
@@ -52,6 +62,8 @@ from idgrec_torch.engine.trainer import EpochRunner
 from idgrec_torch.models import get_model
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.ops import noise
+from idgrec_torch.parallel import distributed
+from idgrec_torch.parallel.mesh import barrier, use_mesh
 
 
 @dataclass
@@ -61,17 +73,28 @@ class TrainResult:
     best: BestResults
     history: list[dict] = field(default_factory=list)
     last_result: dict | None = None
+    # mesh runs only: the as-trained storage, this rank's padded rows of
+    # each sharded table (trainer.ShardedTables); ``params`` above are
+    # the tables at their true shapes
+    sharded_params: dict[str, torch.Tensor] | None = None
 
 
 def training_state_tree(model: RecModel, optimizer: torch.optim.Adam,
-                        host_gen: torch.Generator, dev_gen: torch.Generator) -> dict:
+                        host_gen: torch.Generator, dev_gen: torch.Generator,
+                        tables=None) -> dict:
     """The checkpoint tree of a run (layout in engine/checkpoint.py), as
-    numpy arrays on the host."""
-    adam = convert.adam_state_to_numpy(optimizer, model)
+    numpy arrays on the host. With ``tables`` (a mesh run's
+    `trainer.ShardedTables`) the sharded leaves are gathered: a
+    collective every rank joins."""
+    if tables is None:
+        adam, params = convert.adam_state_to_numpy(optimizer, model), \
+            convert.jax_params_from_model(model)
+    else:
+        adam, params = tables.adam_numpy(optimizer), tables.params_numpy()
     return {
         "opt_state": {"count": np.asarray(adam["count"], np.int32),
                       "mu": adam["mu"], "nu": adam["nu"]},
-        "params": convert.jax_params_from_model(model),
+        "params": params,
         "rng": {"device": dev_gen.get_state().numpy().copy(),
                 "host": host_gen.get_state().numpy().copy()},
         "state": convert.state_to_numpy(model),
@@ -92,21 +115,24 @@ def train_model(
     profile_dir: str | None = None,
     device=None,
 ) -> TrainResult:
-    """Train ``model_name`` on ``data`` on ``device`` (default the card)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training over a mesh is ROADMAP A.9")
+    """Train ``model_name`` on ``data`` on ``device`` (default the card),
+    or on every rank of ``mesh`` (`parallel.mesh.make_mesh`; ``device``
+    is then the rank's own)."""
     config = config or load_model_config(model_name)
     seed = seed if seed is not None else config.int("seed")
     debug_options(config)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if device is None and mesh is not None else device)
 
     host_gen = torch.Generator().manual_seed(seed)
     dev_gen = torch.Generator(device=dev).manual_seed(seed)
     np_rng = np.random.default_rng(seed)
-    model: RecModel = get_model(model_name)(config, data, device=dev, generator=host_gen)
+    with use_mesh(mesh):
+        model: RecModel = get_model(model_name)(config, data, device=dev, generator=host_gen)
     user_rows = model.batching == "user_rows"
 
-    logger = RunLogger(model_name, data.name, log_dir, echo=echo)
+    primary = distributed.is_primary()
+    logger = RunLogger(model_name, data.name, log_dir if primary else None,
+                       echo=echo and primary)
     logger.info(f"Run with {model_name} on {data.name}")
     logger.info(data.get_statistics())
     for key, value in config.items():
@@ -114,17 +140,20 @@ def train_model(
 
     runner = EpochRunner(model, learn_rate=config.float("learn_rate"),
                          batch_size=config.int("batch_size"),
-                         num_train=data.num_users if user_rows else data.num_train)
+                         num_train=data.num_users if user_rows else data.num_train,
+                         mesh=mesh)
+    tables = runner.tables
     sampler = None if user_rows else NegativeSampler(data, device=dev)
     sparsity_mode = config.int("sparsity_test") == 1
     if sparsity_mode:
         split_uids, split_state = data.create_sparsity_split()
         for line in split_state:
             logger.info(line)
-        evaluators = [Evaluator(model, data, config, users=grp) for grp in split_uids if grp]
+        evaluators = [Evaluator(model, data, config, users=grp, mesh=mesh)
+                      for grp in split_uids if grp]
         evaluator = evaluators[0]
     else:
-        evaluator = Evaluator(model, data, config)
+        evaluator = Evaluator(model, data, config, mesh=mesh)
     best = BestResults(patience=config.int("early_stopping"))
 
     epochs = max_epochs if max_epochs is not None else config.int("training_epochs")
@@ -152,11 +181,16 @@ def train_model(
     if checkpoint_dir:
         latest = ckpt.latest_checkpoint(checkpoint_dir)
         if latest is not None:
-            template = training_state_tree(model, runner.opt, host_gen, dev_gen)
+            template = training_state_tree(model, runner.opt, host_gen, dev_gen, tables)
             tree, meta = ckpt.load_checkpoint(checkpoint_dir, latest, template)
-            convert.load_jax_params(model, tree["params"])
             adam = tree["opt_state"]
-            convert.load_adam_state(runner.opt, model, int(adam["count"]), adam["mu"], adam["nu"])
+            if tables is None:
+                convert.load_jax_params(model, tree["params"])
+                convert.load_adam_state(runner.opt, model, int(adam["count"]), adam["mu"],
+                                        adam["nu"])
+            else:
+                tables.load(tree["params"], runner.opt, int(adam["count"]), adam["mu"],
+                            adam["nu"])
             model.load_model_state(tree["state"])
             host_gen.set_state(torch.from_numpy(tree["rng"]["host"]))
             dev_gen.set_state(torch.from_numpy(tree["rng"]["device"]))
@@ -172,7 +206,8 @@ def train_model(
 
     for epoch in range(start_epoch, epochs):
         start = time.time()
-        model.epoch_context(epoch, np_rng)
+        with use_mesh(mesh):
+            model.epoch_context(epoch, np_rng)
         with maybe_trace(profile_dir if epoch == start_epoch + 1 else None):
             if user_rows:  # shuffled user ids; the model builds their rows itself
                 users = pos = neg = noise.permutation(data.num_users, dev_gen)
@@ -215,17 +250,20 @@ def train_model(
             (checkpoint_every is None and epoch % interval == 0)
             or (checkpoint_every is not None and (epoch + 1) % checkpoint_every == 0)
         ):
-            ckpt.save_checkpoint(
-                checkpoint_dir, epoch + 1,
-                training_state_tree(model, runner.opt, host_gen, dev_gen),
-                np_rng_state=np_rng.bit_generator.state, best=best_fields())
+            tree = training_state_tree(model, runner.opt, host_gen, dev_gen, tables)
+            if primary:
+                ckpt.save_checkpoint(checkpoint_dir, epoch + 1, tree,
+                                     np_rng_state=np_rng.bit_generator.state,
+                                     best=best_fields())
+            barrier(mesh)  # every rank returns with the checkpoint on disk
         if best.stop and model.respects_early_stop:
             logger.info("Early stop......")
             break
 
     if not model.respects_early_stop:
         # a final evaluation after the last epoch for models that never stop early
-        model.epoch_context(epochs, np_rng)
+        with use_mesh(mesh):
+            model.epoch_context(epochs, np_rng)
         result = last_result = evaluator.evaluate(generator=dev_gen)
         best.update(result, epochs - 1)
 
@@ -234,6 +272,8 @@ def train_model(
                 % (best.epoch, best.recall, best.ndcg))
     logger.event(kind="best", epoch=best.epoch, recall=best.recall, ndcg=best.ndcg)
     logger.close()
-    params = {k: getattr(model, k).detach() for k in convert.table_names(model)}
+    names = convert.table_names(model) if tables is None else tables.names
+    params = {k: getattr(model, k).detach() for k in names}
     return TrainResult(params=params, state=model.model_state(), best=best, history=history,
-                       last_result=last_result)
+                       last_result=last_result,
+                       sharded_params=None if tables is None else dict(tables.shards))

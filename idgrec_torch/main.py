@@ -9,6 +9,14 @@ listing and exit code 2 instead of a blocking prompt), per-model config
 files in the same ``key = value`` format, the same log layout. One flag
 more: ``--device`` (default the card; ``cpu`` runs the kernels' plain
 versions).
+
+``--mesh auto`` trains on every visible card: under a launcher that
+sets ``RANK`` and ``WORLD_SIZE`` (``torchrun --nproc-per-node N -m
+idgrec_torch.main ...``) the process joins the group; with more than one
+visible card and no launcher, `main` starts one process a card itself.
+The ranks lay out as a ("data", "model") mesh (``--data_parallel`` the
+data axis; parallel/mesh.py). ``--mesh off``, or one card, trains on one
+device.
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of one epoch here")
     parser.add_argument("--mesh", type=str, default="auto", choices=["auto", "off"],
-                        help="auto: shard over all visible cards when >1 "
-                             "(not ported: raises); off: single-device")
+                        help="auto: shard over all visible cards when >1 (or the "
+                             "launcher's ranks); off: single-device")
     parser.add_argument("--data_parallel", type=int, default=None,
                         help="data-axis width of the mesh")
     parser.add_argument("--device", type=str, default=None,
@@ -46,8 +54,35 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _rank_main(rank: int, argv, world: int, port: int) -> None:
+    """One spawned rank: the launcher's environment, then `main`."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    code = main(argv)
+    if code:
+        raise SystemExit(code)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.mesh == "auto" and not launched and args.device in (None, "cuda"):
+        import torch
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count > 1:
+            import torch.multiprocessing as mp
+
+            from idgrec_torch.parallel.distributed import free_port
+            from idgrec_torch.parallel.mesh import mesh_shape
+
+            data, model = mesh_shape(count, args.data_parallel)
+            print(f"--mesh auto: {count} visible cards, one process each on a "
+                  f"{data}x{model} mesh")
+            mp.spawn(_rank_main, args=(argv if argv is not None else sys.argv[1:],
+                                       data * model, free_port()),
+                     nprocs=data * model, join=True)
+            return 0
 
     print("ID-GRec-Torch: the PyTorch/CUDA port of the framework for ID-based graph "
           "recommendation")
@@ -98,10 +133,17 @@ def main(argv=None) -> int:
     print(data.get_statistics())
 
     device = resolve_device(args.device)
-    if args.mesh == "auto" and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mesh auto with {torch.cuda.device_count()} visible cards: sharded training "
-            "is ROADMAP A.9; pass --mesh off to train on one card")
+    mesh = None
+    if args.mesh == "auto" and launched:
+        from idgrec_torch.parallel import distributed
+        from idgrec_torch.parallel.mesh import make_mesh
+
+        distributed.initialize(device=device)
+        mesh = make_mesh(data_parallel=args.data_parallel, device=(
+            torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda"
+            else device))
+        device = mesh.device
+        print(f"mesh {mesh.data}x{mesh.model} (data x model), rank {mesh.rank}")
 
     seed = args.seed if args.seed_flag else None
     result = train_model(
@@ -112,10 +154,14 @@ def main(argv=None) -> int:
         log_dir=args.log_dir,
         checkpoint_dir=args.checkpoint_dir,
         profile_dir=args.profile_dir,
+        mesh=mesh,
         device=device,
     )
-    print("Best epoch:", result.best.epoch,
-          "Best recall:", result.best.recall, "Best NDCG:", result.best.ndcg)
+    if mesh is None or mesh.rank == 0:
+        print("Best epoch:", result.best.epoch,
+              "Best recall:", result.best.recall, "Best NDCG:", result.best.ndcg)
+    if mesh is not None:
+        distributed.shutdown()
     return 0
 
 

@@ -190,12 +190,14 @@ class RecModel(nn.Module):
         a model that draws nothing ignores it."""
         raise NotImplementedError
 
-    def score_batch(self, eval_repr: Any, users: torch.Tensor) -> torch.Tensor:
+    def score_batch(self, eval_repr: Any, users: torch.Tensor,
+                    items: slice = slice(None)) -> torch.Tensor:
         """[B, num_items] scores sigmoid(U[users] @ Iᵀ) in full float32
-        (sigmoid is monotonic: kept for score-value parity)."""
+        (sigmoid is monotonic: kept for score-value parity); with
+        ``items``, only those columns (a rank's slice of the catalog)."""
         user_emb, item_emb = eval_repr
         check_exact_matmul(user_emb.device)
-        return torch.sigmoid(torch.matmul(user_emb[users], item_emb.T))
+        return torch.sigmoid(torch.matmul(user_emb[users], item_emb[items].T))
 
 
 # ---------------------------------------------------------------------------
@@ -312,22 +314,35 @@ def batch_final_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
                            batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
     """(user_all[u], item_all[pos], item_all[neg]) with the backward's
     batch-cotangent row scatters on kernel K4 in the quantized compute
-    modes (ops/scatter.py); plain indexing otherwise."""
+    modes (ops/scatter.py); plain indexing otherwise. Under an active
+    mesh with a data axis each rank gathers the rows of its slice of the
+    batch and the slices are all-gathered (`parallel.mesh.split_rows_fn`):
+    every rank gets the whole batch's rows, and the tables' row
+    cotangents are summed over the data group."""
     from idgrec_torch.ops import scatter as _scatter
+    from idgrec_torch.parallel.mesh import get_active_mesh, split_rows_fn
 
+    idxs = (batch["user"], batch["pos"], batch["neg"])
     if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
                                       user_all.shape[1], compute_dtype):
-        return _scatter.gather_batch_embeddings(user_all, item_all, batch["user"],
-                                                batch["pos"], batch["neg"])
-    return user_all[batch["user"]], item_all[batch["pos"]], item_all[batch["neg"]]
+        fn = _scatter.gather_batch_embeddings
+    else:
+        def fn(ua, ia, u, p, n):
+            return ua[u], ia[p], ia[n]
+    return split_rows_fn(fn, (user_all, item_all), idxs, get_active_mesh())
 
 
 def batch_user_pos_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
                               batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
     """Two-gather twin of `batch_final_embeddings` (align/uniform models)."""
     from idgrec_torch.ops import scatter as _scatter
+    from idgrec_torch.parallel.mesh import get_active_mesh, split_rows_fn
 
+    idxs = (batch["user"], batch["pos"])
     if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
                                       user_all.shape[1], compute_dtype):
-        return _scatter.gather_user_pos(user_all, item_all, batch["user"], batch["pos"])
-    return user_all[batch["user"]], item_all[batch["pos"]]
+        fn = _scatter.gather_user_pos
+    else:
+        def fn(ua, ia, u, p):
+            return ua[u], ia[p]
+    return split_rows_fn(fn, (user_all, item_all), idxs, get_active_mesh())

@@ -108,6 +108,9 @@ class CVGA(RecModel):
         return {"z": self.reparameterize(generator, mu, logvar), "p_w": self.p_w.detach(),
                 "p_b": self.p_b.detach()}
 
-    def score_batch(self, eval_repr, users: torch.Tensor) -> torch.Tensor:
-        """The decoder's raw scores [B, I] of the users' z rows."""
-        return self.decode(eval_repr["p_w"], eval_repr["p_b"], eval_repr["z"][users])
+    def score_batch(self, eval_repr, users: torch.Tensor,
+                    items: slice = slice(None)) -> torch.Tensor:
+        """The decoder's raw scores [B, I] of the users' z rows (with
+        ``items``, only those columns)."""
+        return self.decode(eval_repr["p_w"][:, items], eval_repr["p_b"][items],
+                           eval_repr["z"][users])

@@ -24,11 +24,12 @@ routes, as in the JAX package:
   the chains side by side at 3d over the model's own binary matrix (on
   the card one K6 launch at d = 192 each way), each view's dropped edges
   subtracted on K4;
-* fused int8 / int4, binary counts: `fused_chain_views_t`, one quantized
+* fused int8 / int4, binary counts, where the JAX package's rule takes
+  them (`propagate.ref_views_fit`): `fused_chain_views_t`, one quantized
   dual a layer at 3d (K7 / K8 on the card);
 * otherwise (fused bfloat16, dense int8, bitpack, gather, non-binary
-  counts) three passes: the clean chain through the model's adjacency,
-  each view through its own (`DenseDropSquareAdj` on K6 in bfloat16,
+  counts, a quantized catalog above that rule) three passes: the clean
+  chain through the model's adjacency, each view through its own (`DenseDropSquareAdj` on K6 in bfloat16,
   `BitDropSquareAdj` on K11, a `GatherSquareAdj`).
 """
 
@@ -82,10 +83,14 @@ class SGL(RecModel):
                          and g.quant == "none" and binary)
         self._batched_quant = (isinstance(g, prop.FusedSquareAdj) and g.quant in ("int8", "int4")
                                and not g.has_diag and binary)
+        # the quantized views route where the JAX package's rule takes it
+        # and no model axis shards M, else three passes
+        self._views_route = (self._batched_quant and prop.supports_chain_t(g)
+                             and prop.ref_views_fit(g, 3, self.embedding_size))
         # the views' shared matrix: the model's own where it is the binary
         # matrix, none on the quantized views route, which reads only the
         # views' scales and dropped edges
-        self._shared = (None if self._batched_quant else
+        self._shared = (None if self._views_route else
                         prop.build_dropout_shared(data, self.backend, self.device, g))
         self.views = None
 
@@ -116,7 +121,9 @@ class SGL(RecModel):
         if self.views is None:
             raise RuntimeError("SGL draws its views in epoch_context: call it before a step")
         graphs_1, graphs_2 = self.views
-        if self._batched_quant:
+        if self._views_route:
+            # the JAX package runs the views route here; no kernel of the
+            # port takes every width it does
             if not prop.supports_chain_views_t(self.graph, 3, emb0.shape[1]):
                 raise ValueError(
                     f"SGL's quantized views at 3d = {3 * emb0.shape[1]}: no kernel of the port "

@@ -393,12 +393,18 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _dense_dual(m: torch.Tensor, zu: torch.Tensor, zi: torch.Tensor,
-                dtype_name: str) -> tuple[torch.Tensor, torch.Tensor]:
+                dtype_name: str, shard=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ zi [U, d], Mᵀ @ zu [I, d]) float32 for the exact modes of the
     dense products, by `DenseSquareAdj.runs_kernel`'s rule from the
     shapes: one K6 launch on bfloat16 operands where the kernel takes the
     width (d % 32 == 0), else `exact_dual_matmul` (float32, or bfloat16
-    off the kernel's widths)."""
+    off the kernel's widths). With ``shard`` (a mesh), ``m`` is this
+    rank's row shard and the product runs sharded over the mesh's model
+    axis (`spmm_shard.sharded_dense_dual`)."""
+    if shard is not None:
+        from idgrec_torch.parallel import spmm_shard
+
+        return spmm_shard.sharded_dense_dual(shard, m, zu, zi, dtype_name)
     u_pad, i_pad = m.shape
     if dtype_name == "bfloat16" and fusedmm.kernel_accepts_n(u_pad, i_pad, zu.shape[1], "bf16"):
         return fusedmm.fused_adj_matmul(m, zu, zi)
@@ -433,11 +439,20 @@ class DenseSquareAdj:
     # rows of `matmul_rows`; built with build_adjacency(...,
     # with_transpose=True)
     m_t: torch.Tensor | None = None
+    # the mesh whose model axis ``m`` is row-sharded over (``m`` then holds
+    # this rank's rows only; parallel/spmm_shard.py), or None
+    shard: object = None
 
     @property
     def shape(self) -> tuple[int, int]:
         n = self.num_users + self.num_items
         return (n, n)
+
+    @property
+    def padded_shape(self) -> tuple[int, int]:
+        """M's padded [U_pad, I_pad], all shards together."""
+        rows, cols = self.m.shape
+        return (rows * (1 if self.shard is None else self.shard.model), cols)
 
     @property
     def device(self) -> torch.device:
@@ -489,7 +504,12 @@ class DenseSquareAdj:
         """Â @ x for x [U+I, d]; optional per-node multiplicative gate
         applied on both sides. On the CPU each route runs its kernel's
         plain version, which computes what `exact_dual_matmul` and
-        `quant_dual_matmul` compute, bit for bit."""
+        `quant_dual_matmul` compute, bit for bit. With ``shard`` set, the
+        sharded product over the mesh (`spmm_shard.sharded_square_matmul`)."""
+        if self.shard is not None:
+            from idgrec_torch.parallel import spmm_shard
+
+            return spmm_shard.sharded_square_matmul(self, x, gate)
         nu, ni = self.num_users, self.num_items
         right_u, right_i, left_u, left_i = _gated(self, gate)
         zi = right_i[:, None] * x[nu:].to(torch.float32)
@@ -572,6 +592,9 @@ class FusedSquareAdj:
     num_items: int
     has_diag: bool = False
     quant: str = "none"
+    # the mesh whose model axis ``m8`` is row-sharded over (``m8`` then
+    # holds this rank's rows only; parallel/spmm_shard.py), or None
+    shard: object = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -580,9 +603,10 @@ class FusedSquareAdj:
 
     @property
     def padded_shape(self) -> tuple[int, int]:
-        """Logical padded [U_pad, I_pad]: the int4 matrix is stored at
-        half the column width."""
+        """Logical padded [U_pad, I_pad], all shards together: the int4
+        matrix is stored at half the column width."""
         u_pad, cols = self.m8.shape
+        u_pad *= 1 if self.shard is None else self.shard.model
         return (u_pad, 2 * cols if self.quant == "int4" else cols)
 
     @property
@@ -595,7 +619,13 @@ class FusedSquareAdj:
         the quantized modes the result equals one layer of the
         transposed chain bit for bit. A width or shape the kernel does
         not take raises ValueError (the TPU's VMEM-driven choice between
-        kernel bodies and library products has no counterpart here)."""
+        kernel bodies and library products has no counterpart here). With
+        ``shard`` set, the sharded product over the mesh
+        (`spmm_shard.sharded_square_matmul`)."""
+        if self.shard is not None:
+            from idgrec_torch.parallel import spmm_shard
+
+            return spmm_shard.sharded_square_matmul(self, x, gate)
         nu, ni = self.num_users, self.num_items
         right_u, right_i, left_u, left_i = _gated(self, gate)
         zu = right_u[:, None] * x[:nu].to(torch.float32)
@@ -722,12 +752,15 @@ class DenseDropSquareAdj(DropLists):
 
     m_bin: torch.Tensor  # int8 [U_pad, I_pad] binary, shared across epochs
     compute_dtype_name: str = "bfloat16"
+    # the mesh whose model axis ``m_bin`` is row-sharded over (``m_bin``
+    # then holds this rank's rows only), or None
+    shard: object = None
 
     def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
         """Â' @ x for x [U+I, d]: the full product over M_bin, the dropped
         edges' share subtracted, the view's left scales."""
         return _view_matmul(self, x, gate, lambda zu, zi: _dense_dual(
-            self.m_bin, zu, zi, self.compute_dtype_name))
+            self.m_bin, zu, zi, self.compute_dtype_name, self.shard))
 
 
 @dataclass(frozen=True)
@@ -757,13 +790,15 @@ def shared_chain_matmul(m_bin: torch.Tensor, chains, xs, compute_dtype: str = "b
     whose matrix is ``m_bin``, or `DenseDropSquareAdj` views over it; xs
     their [U+I, d] inputs. Returns [c.matmul(x) for c, x in ...] under
     the dtype rules. Differentiable: the backward is the same launch on
-    the swapped cotangents and the corrections' K4 the other way."""
+    the swapped cotangents and the corrections' K4 the other way. Where
+    the chains' matrix is a row shard (their ``shard``), the product runs
+    sharded over its mesh's model axis."""
     nu = chains[0].num_users
     d = xs[0].shape[1]
     zu_blocks = [c.right_u[:, None] * x[:nu].to(torch.float32) for c, x in zip(chains, xs)]
     zi_blocks = [c.right_i[:, None] * x[nu:].to(torch.float32) for c, x in zip(chains, xs)]
     yu_all, yi_all = _dense_dual(m_bin, torch.cat(zu_blocks, dim=1), torch.cat(zi_blocks, dim=1),
-                                 compute_dtype)
+                                 compute_dtype, chains[0].shard)
     outs = []
     for k, (c, x) in enumerate(zip(chains, xs)):
         yu = yu_all[:, k * d: (k + 1) * d]
@@ -1007,8 +1042,14 @@ class BitRectAdj:
 def supports_chain_t(graph, d: int | None = None) -> bool:
     """True when `fused_chain_t` applies: the quantized fused backend
     with a matrix and width the geometry of K1 (int8) or K5 (int4)
-    covers."""
+    covers, and no model axis wider than 1 (a sharded matrix, or an
+    active mesh: the sharded duals run one application at a time, as in
+    the JAX package)."""
     if not isinstance(graph, FusedSquareAdj) or graph.quant not in _DUALS:
+        return False
+    from idgrec_torch.parallel.mesh import get_active_mesh, model_width
+
+    if graph.shard is not None or model_width(get_active_mesh()) > 1:
         return False
     u_pad, i_pad = graph.padded_shape
     col_mult = fusedmm.PACK_TILE if graph.quant == "int4" else fusedmm.TI
@@ -1102,13 +1143,43 @@ def fused_chain_t(
     return _back((cu, ci)).to(emb0.dtype)
 
 
+# The JAX package's allowance for the [n·d, I_pad] accumulator of its
+# feature-batched quantized chains (its ``fusedmm.yi_budget``: 11 MiB up
+# to a width of 64, 39 MiB above), and its padding of the fused matrix's
+# columns (``fusedmm.TI`` or ``PACK_TILE``, ``PANEL`` where the
+# single-panel accumulator of ``emb_size`` does not fit 11 MiB). They are
+# the reference's rule, kept so that SGL takes its quantized views route
+# where the JAX package takes it and three passes where it declines; the
+# card has no such limit.
+REF_YI_BUDGET = 11 * 1024 * 1024
+REF_YI_BUDGET_WIDE = 39 * 1024 * 1024
+_REF_PANEL = 4096
+
+
+def ref_item_pad(num_items: int, emb_size: int, quant: str) -> int:
+    """The padded item count of the JAX package's fused matrix
+    (``graph.padded_shape[1]``) for ``num_items`` at ``emb_size``."""
+    fine = _pad_up(num_items, fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI)
+    if quant == "none" or fine * emb_size * 4 <= REF_YI_BUDGET:
+        return fine
+    return _pad_up(num_items, _REF_PANEL)
+
+
+def ref_views_fit(graph, n_chains: int, d: int) -> bool:
+    """The JAX package's test for its quantized views route at ``n_chains``
+    chains of width ``d`` (its ``supports_chain_views_t``):
+    I_pad · n_chains · d · 4 <= budget(n_chains · d)."""
+    wd = n_chains * d
+    budget = REF_YI_BUDGET if wd <= 64 else REF_YI_BUDGET_WIDE
+    return ref_item_pad(graph.num_items, d, graph.quant) * wd * 4 <= budget
+
+
 def supports_chain_views_t(graph, n_chains: int, d: int) -> bool:
     """True when `fused_chain_views_t` applies: `supports_chain_t`'s
-    conditions, no self-loop diag, and a kernel that takes the chains
-    side by side at ``n_chains · d`` (`dual_t_route`; the CPU's plain
-    versions take any width). The JAX package's VMEM test (its
-    ``yi_budget``) has no counterpart."""
-    if not supports_chain_t(graph) or graph.has_diag:
+    conditions, no self-loop diag, the JAX package's rule (`ref_views_fit`)
+    and a kernel that takes the chains side by side at ``n_chains · d``
+    (`dual_t_route`; the CPU's plain versions take any width)."""
+    if not supports_chain_t(graph) or graph.has_diag or not ref_views_fit(graph, n_chains, d):
         return False
     return dual_t_route(graph.m8, n_chains * d, graph.quant) is not None
 
@@ -1298,14 +1369,25 @@ def build_adjacency(
         p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
         plans = (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
         return BitSquareAdj(p, pt, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, plans)
+    # under an active mesh with a model axis, M is built on the host and
+    # only this rank's rows go to the card (parallel/spmm_shard.py); the
+    # batch-row product (with_transpose) keeps the whole matrix
+    from idgrec_torch.parallel import spmm_shard
+    from idgrec_torch.parallel.mesh import get_active_mesh, model_width
+
+    mesh = get_active_mesh()
+    width = 1 if with_transpose else model_width(mesh)
+    host = dev if width == 1 else torch.device("cpu")
     if backend == "dense":
-        m = _count_matrix_int8(data, dev, DENSE_COL_PAD)
+        m = _count_matrix_int8(data, host, DENSE_COL_PAD)
         m_t = m.T.contiguous() if with_transpose else None
+        if width > 1:
+            m = _row_shard(m, spmm_shard.row_multiple(width, _PAD), mesh, dev)
         return DenseSquareAdj(m, lu, li, ru, ri, diag_u, diag_i, nu, ni, dtype_name, has_diag,
-                              quant, m_t)
+                              quant, m_t, mesh if width > 1 else None)
     item_mult = fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI
-    m8 = fusedmm.pad_matrix(_count_matrix_int8(data, dev), item_mult,
-                            row_multiple=fusedmm.TU)
+    m8 = fusedmm.pad_matrix(_count_matrix_int8(data, host), item_mult,
+                            row_multiple=spmm_shard.row_multiple(width, fusedmm.TU))
     if quant == "int4":
         top = int(m8.max()) if m8.numel() else 0
         if top > fusedmm.NIBBLE_MAX:
@@ -1313,7 +1395,20 @@ def build_adjacency(
                 "compute_dtype = int4 requires interaction counts "
                 f"<= {fusedmm.NIBBLE_MAX} (got {top}); use int8")
         m8 = fusedmm.pack_nibbles(m8)
-    return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant)
+    if width > 1:
+        m8 = _row_shard(m8, 1, mesh, dev)
+    return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant,
+                          mesh if width > 1 else None)
+
+
+def _row_shard(m: torch.Tensor, row_multiple: int, mesh, dev: torch.device) -> torch.Tensor:
+    """The mesh rank's rows of the host matrix ``m``, its rows first
+    zero-padded to ``row_multiple``, on ``dev``."""
+    rows = _pad_up(m.shape[0], row_multiple)
+    r = rows // mesh.model
+    lo = mesh.model_index * r
+    part = m[lo: min(lo + r, m.shape[0])]
+    return F.pad(part, (0, 0, 0, r - part.shape[0])).to(dev)
 
 
 def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: str = "bfloat16",
@@ -1385,7 +1480,11 @@ def build_dropout_shared(data: Dataset, backend: str = "auto", device=None, grap
     packed_t, plans), ``graph``'s own pair and K11 plans where it is a
     `BitSquareAdj`; None for 'gather'. 'auto' resolves with two copies of
     M counted, as the JAX package does, so that the model's adjacency and
-    its views never resolve to two backends."""
+    its views never resolve to two backends. Under an active mesh with a
+    model axis the binary matrix is this rank's row shard, as the model's
+    (``graph``'s own shard where the counts are binary; else built on the
+    host and only the rank's rows uploaded), and `build_dropout_adjacency`
+    under the same mesh gives views that run sharded over it."""
     dev = resolve_device(device)
     backend = _select_backend(data, backend, dev, copies=2, col_multiple=DENSE_COL_PAD)
     if backend == "bitpack":
@@ -1394,15 +1493,31 @@ def build_dropout_shared(data: Dataset, backend: str = "auto", device=None, grap
         p, pt = bitmm.pack_pair(_count_matrix_int8(data, dev))
         return p, pt, (bitmm.plan_rows(p), bitmm.plan_rows(pt)) if p.is_cuda else None
     if backend in ("dense", "fused"):
+        mesh = _shard_mesh()
         own = None
-        if isinstance(graph, DenseSquareAdj):
+        if getattr(graph, "shard", None) is not mesh:
+            pass  # sharded otherwise than the views
+        elif isinstance(graph, DenseSquareAdj):
             own = graph.m
         elif isinstance(graph, FusedSquareAdj) and graph.quant != "int4":
             own = graph.m8
         if own is not None and _is_binary(data):
             return own
+        if mesh is not None:
+            from idgrec_torch.parallel import spmm_shard
+
+            return _row_shard(build_binary_count_matrix(data, torch.device("cpu")),
+                              spmm_shard.row_multiple(mesh.model, _PAD), mesh, dev)
         return build_binary_count_matrix(data, dev)
     return None
+
+
+def _shard_mesh():
+    """The active mesh where its model axis is wider than 1, else None."""
+    from idgrec_torch.parallel.mesh import get_active_mesh, model_width
+
+    mesh = get_active_mesh()
+    return mesh if model_width(mesh) > 1 else None
 
 
 def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.Generator,
@@ -1452,4 +1567,5 @@ def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.
         return BitDropSquareAdj(*fields, *shared)
     if shared is None:
         return DropLists(*fields)
-    return DenseDropSquareAdj(*fields, shared, dtype_name)
+    # `build_dropout_shared` under the same mesh made ``shared`` its row shard
+    return DenseDropSquareAdj(*fields, shared, dtype_name, _shard_mesh())

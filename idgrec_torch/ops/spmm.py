@@ -52,12 +52,16 @@ class _Spmm(torch.autograd.Function):
 def spmm(graph: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """``graph @ x``: graph of logical shape [n_rows, n_cols], x
     [n_cols, dim] on the graph's device; returns [n_rows, dim] in
-    x.dtype. Differentiable in ``x``."""
+    x.dtype. Differentiable in ``x``. Under an active mesh with a model
+    axis the edges split over it (`parallel.spmm_shard.maybe_sharded_spmm`)."""
     if x.shape[0] != graph.n_cols:
         raise ValueError(f"spmm shape mismatch: graph {graph.shape} @ x {tuple(x.shape)}")
     if x.device != graph.device:
         raise ValueError(f"spmm: x on {x.device}, graph on {graph.device}")
-    return _Spmm.apply(x, graph)
+    from idgrec_torch.parallel.spmm_shard import maybe_sharded_spmm
+
+    y = maybe_sharded_spmm(graph, x)
+    return _Spmm.apply(x, graph) if y is None else y
 
 
 def spmm_transpose(graph: SparseGraph, x: torch.Tensor) -> torch.Tensor:

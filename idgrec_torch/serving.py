@@ -21,6 +21,12 @@ Example:
 `Recommender.from_checkpoint` serves from a directory of training
 checkpoints, the deploy path: train in one process, recommend from the
 saved weights in another.
+
+On a mesh (``mesh=``; every rank of it serving the same requests, the
+model built under the mesh) the representation's products run sharded
+over the model axis and, where the items are sharded, each model rank
+scores and ranks only its column slice of the catalog
+(`parallel.topk.sharded_topk`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.engine import checkpoint as ckpt
 from idgrec_torch.engine.evaluator import TOPK_MODES
 from idgrec_torch.models import get_model
+from idgrec_torch.parallel.mesh import use_mesh
+from idgrec_torch.parallel.topk import item_slice, items_sharded, local_columns, sharded_topk
 
 _MASK_VALUE = -1e9
 
@@ -43,12 +51,14 @@ class Recommender:
     """Device-resident top-K recommendation server for one model."""
 
     def __init__(self, model, data: Dataset, filter_seen: bool = True,
-                 topk_mode: str = "exact", generator: torch.Generator | None = None):
+                 topk_mode: str = "exact", generator: torch.Generator | None = None,
+                 mesh=None):
         if topk_mode not in TOPK_MODES:
             raise ValueError(f"topk_mode={topk_mode!r}: expected one of {TOPK_MODES}")
         self.model = model
         self.data = data
         self.filter_seen = filter_seen
+        self.mesh = mesh
         self.device = model.device
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,7 +66,8 @@ class Recommender:
         if generator is None:
             # the JAX server's default key, PRNGKey(0)
             generator = torch.Generator(device=self.device).manual_seed(0)
-        self._repr = model.eval_embeddings(generator)
+        with use_mesh(mesh):
+            self._repr = model.eval_embeddings(generator)
         # Padded per-user positives (int32 [U, P], pad column num_items,
         # which the mask drops). Kept on the host: a request moves only
         # its [B, P] rows to the device.
@@ -74,7 +85,8 @@ class Recommender:
                           device=None, **kw) -> "Recommender":
         """Serve the tables of a `train_model` result from a new model
         on ``device`` (default the card)."""
-        model = get_model(model_name)(config, data, device=device)
+        with use_mesh(kw.get("mesh")):
+            model = get_model(model_name)(config, data, device=device)
         model.load_state_dict({k: v.detach().to(model.device) for k, v in result.params.items()})
         return cls(model, data, **kw)
 
@@ -90,7 +102,8 @@ class Recommender:
         not use it, as in the JAX package. Loads the latest checkpoint
         unless ``epoch`` picks one."""
         epoch = ckpt.resolve_epoch(checkpoint_dir, epoch)
-        model = get_model(model_name)(config, data, device=device)
+        with use_mesh(kw.get("mesh")):
+            model = get_model(model_name)(config, data, device=device)
         leaves, _meta = ckpt.read_checkpoint(checkpoint_dir, epoch)
         convert.load_jax_params(
             model, convert.split_adam_and_params(leaves, convert.table_names(model))[3])
@@ -99,6 +112,15 @@ class Recommender:
     def _score_impl(self, repr_, users: torch.Tensor, excl_rows: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(scores [B, k], items [B, k]) of one request."""
+        if items_sharded(self.mesh):
+            # the rank's slice of the catalog; ids outside it go to the spare
+            items, width = item_slice(self.data.num_items, self.mesh)
+            ratings = self.model.score_batch(repr_, users, items).to(torch.float32)
+            if self.filter_seen:
+                ratings = F.pad(ratings, (0, 1))
+                ratings.scatter_(1, local_columns(excl_rows, items), _MASK_VALUE)
+                ratings = ratings[:, :-1]
+            return sharded_topk(ratings, items, width, self.mesh, k)
         ratings = self.model.score_batch(repr_, users).to(torch.float32)
         if self.filter_seen:
             # one spare column takes the pad index num_items, then goes

@@ -127,12 +127,22 @@ def test_flags_are_the_jax_clis_plus_device():
 def test_main_unknown_model_and_many_cards(workdir, monkeypatch):
     with pytest.raises(FileNotFoundError, match="NoSuchModel.txt"):
         t_main.main(["--model", "NoSuchModel", "--device", "cpu"])
-    # --mesh auto with several visible cards is the sharded path: not ported
+    # --mesh auto with several visible cards and no launcher: one process a
+    # card on the JAX package's mesh shape (here 2x2), started by main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    spawned = []
+    monkeypatch.setattr(torch.multiprocessing, "spawn",
+                        lambda fn, args, nprocs, join: spawned.append((fn, args, nprocs, join)))
     argv = ["--model", "LightGCN", "--configure_dir", str(workdir["tmp"] / "conf_int8")]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        t_main.main(argv)
+    assert t_main.main(argv) == 0
+    [(fn, args, nprocs, join)] = spawned
+    assert fn is t_main._rank_main and nprocs == 4 and join and args[:2] == (argv, 4)
+    # a data axis that does not divide the cards raises as the JAX mesh does
+    with pytest.raises(ValueError, match="data_parallel=3"):
+        t_main.main(argv + ["--data_parallel", "3"])
 
 
 def _serve(workdir, *extra, users="1,17,42"):

@@ -2530,3 +2530,71 @@ def test_sgl_step_on_its_kernels(cuda, backend, dtype):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(terms.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("route", ["k6", "k7", "k8", "k6_dense", "k7_dense"])
+def test_mesh_shard_products_equal_plain_and_assemble(cuda, width, route):
+    """The per-shard products of the sharded dual (`spmm_shard.shard_dual`,
+    what `sharded_square_matmul` runs between its collectives) on each row
+    shard of M at model widths 2 and 4, the fused M's and (``_dense``) the
+    dense M's, cut as `build_adjacency` cuts it under a mesh and routed
+    by `shard_route`: each shard equals its kernel's plain version (K7, K8
+    bit for bit; K6 within its bar), forward and on the swapped
+    cotangents, and the shards assembled (yu concatenated, yi's partials
+    summed in rank order) equal the single launch (quantized: the raw
+    integer sums exactly)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from idgrec_torch.parallel import spmm_shard
+
+    data = make_synthetic_dataset(900, 1300, 20_000, 2_000, seed=3)
+    dense = route.endswith("_dense")
+    route = route.removesuffix("_dense")
+    quant = {"k6": "int8", "k7": "int8", "k8": "int4"}[route]
+    if dense:
+        adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16",
+                                        device=cuda)
+        m = adj.m
+        shards = [propagate._row_shard(m, spmm_shard.row_multiple(width, propagate._PAD),
+                                       SimpleNamespace(model=width, model_index=k), cuda)
+                  for k in range(width)]
+        for m_k in shards:
+            adj_k = dataclasses.replace(adj, m=m_k, quant="int8" if route == "k7" else "none")
+            assert spmm_shard.shard_route(adj_k, 64) == route
+    else:
+        adj = propagate.build_adjacency(data, "sym", "fused", compute_dtype=quant, device=cuda)
+        m = adj.m8
+        shards = [m[k * (m.shape[0] // width):(k + 1) * (m.shape[0] // width)]
+                  for k in range(width)]
+    u_pad, i_pad = shards[0].shape[0] * width, adj.padded_shape[1]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sides = [torch.randn((n, 64), generator=g, device=cuda) for n in (u_pad, i_pad) * 2]
+    if route != "k6":
+        sides = [propagate._quantize_cols(t)[0] for t in sides]
+    plain = {"k6": fusedmm.fused_adj_matmul_plain, "k7": fusedmm.fused_adj_matmul_int8_plain,
+             "k8": fusedmm.fused_adj_matmul_int4_plain}[route]
+    single = {"k6": fusedmm.fused_adj_matmul, "k7": fusedmm.fused_adj_matmul_int8,
+              "k8": fusedmm.fused_adj_matmul_int4}[route]
+    r = shards[0].shape[0]
+    for a_u, a_i in (sides[:2], sides[2:]):
+        parts = []
+        for k, m_k in enumerate(shards):
+            got = spmm_shard.shard_dual(route, m_k, a_u[k * r:(k + 1) * r], a_i)
+            want = plain(m_k, a_u[k * r:(k + 1) * r], a_i)
+            for a, b in zip(got, want):
+                if route == "k6":
+                    torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6 * float(b.abs().max()))
+                else:
+                    assert torch.equal(a, b)
+            parts.append(got)
+        yu = torch.cat([p[0] for p in parts])[:m.shape[0]]
+        yi = parts[0][1]
+        for p in parts[1:]:
+            yi = yi + p[1]
+        for a, b in zip((yu, yi), single(m, a_u[:m.shape[0]], a_i)):
+            if route == "k6":
+                torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6 * float(b.abs().max()))
+            else:
+                assert torch.equal(a, b)

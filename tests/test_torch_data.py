@@ -4,6 +4,8 @@ package's: the same inputs give the same arrays, bit for bit
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -83,11 +85,15 @@ def test_config_parsing_matches(tmp_path):
         t.int("missing_key")
 
 
-def test_port_lightgcn_config_is_int8():
-    t = t_config.load_model_config("LightGCN")
-    j = j_config.load_model_config("LightGCN")
-    assert t.str("compute_dtype") == "int8"
-    assert j.str("compute_dtype") == "bfloat16"  # JAX default: no kernel runs
-    # every other key is the JAX package's
-    assert {k: v for k, v in t.as_dict().items() if k != "compute_dtype"} == \
-        {k: v for k, v in j.as_dict().items() if k != "compute_dtype"}
+@pytest.mark.parametrize("name", ["LightGCN", "EGCF"])
+def test_port_config_copy_is_the_jax_file_byte_for_byte(name):
+    """The port's default for LightGCN and EGCF is the JAX package's:
+    bfloat16 on ``auto``; a run that means int8 sets it itself."""
+    root = Path(__file__).resolve().parent.parent
+    assert (root / "idgrec_torch" / "configure" / f"{name}.txt").read_bytes() == \
+        (root / "idgrec_tpu" / "configure" / f"{name}.txt").read_bytes()
+    t = t_config.load_model_config(name)
+    assert t.as_dict() == j_config.load_model_config(name).as_dict()
+    assert t.str("compute_dtype", "bfloat16") == "bfloat16"
+
+

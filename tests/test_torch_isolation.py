@@ -96,7 +96,7 @@ def test_roadmap_items_are_found():
     items = _roadmap_items()
     assert {"A.4", "A.7", "A.9", "B.B4", "B.B9"} <= items and "A.99" not in items
     refs = _roadmap_refs()
-    assert len(refs) >= 8 and ("idgrec_torch/engine/loop.py", "A.9") in refs
+    assert len(refs) >= 8 and ("idgrec_torch/parallel/spmm_shard.py", "A.9") in refs
 
 
 @pytest.mark.parametrize("path,ref", _roadmap_refs(), ids=lambda v: str(v))

@@ -197,8 +197,16 @@ def test_the_global_generator_is_not_used(tmp_path):
 @pytest.mark.parametrize("case", ["mesh", "user_rows"])
 def test_unported_options_name_their_roadmap_item(tmp_path, monkeypatch, case):
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-            _train(tmp_path, log_dir=None, mesh=object())
+        # the mesh is ported: a one-rank mesh (no process group) trains the
+        # tables as one process does, bit for bit
+        from idgrec_torch.parallel.mesh import Mesh
+
+        res = _train(tmp_path / "mesh", log_dir=None, max_epochs=2, mesh=Mesh(1, 1))
+        ref = _train(tmp_path / "one", log_dir=None, max_epochs=2)
+        assert [h["loss"] for h in res.history] == [h["loss"] for h in ref.history]
+        for k, v in ref.params.items():
+            assert torch.equal(res.params[k], v)
+        assert res.sharded_params == {} and ref.sharded_params is None  # nothing to shard
     else:
         # user-row batches are ported (CVGA's): the run builds no sampler
         # and names no ROADMAP item; its epochs are user-id permutations

@@ -253,10 +253,16 @@ def test_best_results_matches_jax():
 def test_unported_options_raise():
     tdata = t_make(*_SHAPE, seed=4)
     tmodel = t_get_model("LightGCN")(TConfig(_CFG), tdata, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TRunner(tmodel, LR, B, B, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TEvaluator(tmodel, tdata, TConfig(_CFG), mesh=object())
+    # the mesh is ported: a batch that does not divide its data axis raises
+    # as the JAX runner does; a one-rank mesh evaluates as one process
+    from idgrec_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="data axis"):
+        TRunner(tmodel, LR, B + 1, B, mesh=Mesh(2, 1))
+    on_mesh = TEvaluator(tmodel, tdata, TConfig(_CFG), mesh=Mesh(1, 1)).evaluate()
+    alone = TEvaluator(tmodel, tdata, TConfig(_CFG)).evaluate()
+    for k in ("recall", "precision", "ndcg"):
+        np.testing.assert_array_equal(on_mesh[k], alone[k])
     # `approx` (the JAX package's TPU approx_max_k) is taken and ranks
     # exactly: the metrics equal exact's; another mode raises
     with pytest.raises(ValueError, match="eval_topk"):

@@ -169,6 +169,66 @@ def test_routes_and_the_copies_of_m_they_hold(datasets, route):
         assert shared is None
 
 
+def _jax_item_pad(num_items, d, quant):
+    """The JAX package's padded item count of its fused matrix at
+    ``emb_size`` d (its build_adjacency: the fine multiple where the
+    single-panel accumulator fits, else PANEL)."""
+    fine = j_fusedmm.PACK_TILE if quant == "int4" else j_fusedmm.TI
+    mult = fine if j_fusedmm.fused_fits(num_items, d, fine) else j_fusedmm.PANEL
+    return -(-num_items // mult) * mult
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("num_items", [300, 20_000, 38_048, 45_056, 53_248, 60_000, 91_599])
+def test_views_rule_decides_as_jax(quant, d, num_items):
+    """The port's copy of the JAX package's views rule (`ref_views_fit`)
+    against JAX's `supports_chain_views_t` on the padded shape JAX's build
+    gives: the same decision at every catalog size and width."""
+    i_pad = _jax_item_pad(num_items, d, quant)
+    assert t_prop.ref_item_pad(num_items, d, quant) == i_pad
+    cols = i_pad // 2 if quant == "int4" else i_pad
+    jg = j_prop.FusedSquareAdj(jax.ShapeDtypeStruct((1024, cols), jnp.int8), *([None] * 6),
+                               num_users=1000, num_items=num_items, has_diag=False, quant=quant)
+    tg = t_prop.FusedSquareAdj(torch.empty((1024, cols), dtype=torch.int8, device="meta"),
+                               *([None] * 6), num_users=1000, num_items=num_items,
+                               has_diag=False, quant=quant)
+    assert t_prop.ref_views_fit(tg, 3, d) == j_prop.supports_chain_views_t(jg, 3, d)
+
+
+def _declined(monkeypatch):
+    """Both packages' wide view allowance set below the test graph's
+    [3d, I_pad] accumulator, so that SGL's quantized views decline."""
+    monkeypatch.setattr(j_fusedmm, "MAX_YI_VMEM_BYTES_WIDE", 4096)
+    monkeypatch.setattr(t_prop, "REF_YI_BUDGET_WIDE", 4096)
+
+
+@pytest.mark.parametrize("route", VIEWS_ROUTES)
+def test_declined_views_take_three_passes_in_both_packages(datasets, monkeypatch, route):
+    """Above the JAX package's allowance its SGL runs three passes: the
+    clean chain quantized and each view a bfloat16 drop adjacency over the
+    shared binary matrix. The port takes the same route and builds that
+    matrix (the int8 model's own), and its step matches JAX's at the
+    quantized bars."""
+    _declined(monkeypatch)
+    ref = _reference(datasets, route, "ed")
+    jmodel = j_get_model("SGL")(JConfig(_sgl_cfg(route)), datasets[1])
+    assert jmodel._batched_quant and not j_prop.supports_chain_views_t(jmodel.graph, 3, 32)
+    tmodel = _tmodel(datasets, route, ref)
+    assert tmodel._batched_quant and not tmodel._views_route
+    assert not t_prop.supports_chain_views_t(tmodel.graph, 3, 32)
+    g = tmodel.graph
+    assert tmodel._shared is not None and (tmodel._shared is g.m8) == (g.quant == "int8")
+    assert all(isinstance(v, t_prop.DenseDropSquareAdj) for view in tmodel.views for v in view)
+    first = ref["steps"][0]
+    terms = tmodel.loss_terms(_tbatch(*first["batch"]))
+    np.testing.assert_allclose([float(t.detach()) for t in terms], first["terms"],
+                               rtol=QUANT_LOSS_RTOL)
+    sum(terms).backward()
+    for k in ("item_emb", "user_emb"):
+        _grad_close(getattr(tmodel, k).grad.numpy(), first["grads"][k], NOISE_GRAD)
+
+
 def test_non_binary_counts_build_the_binary_matrix_apart(datasets):
     counts = datasets[0].csr_vals.copy()
     counts[::7] = 3
