@@ -225,6 +225,22 @@ launch counts set to 0 just before and read just after:
   bit for bit to the run without one; where several
   cards are visible, one NCCL rank a card on (1, n) and (2, n/2) meshes
   held to one card (with one card a line says it did not take place);
+* widths off 32 (`widths_phase`, ROADMAP B.B1): K7, K8 and K6 at d = 16
+  and 48 on the yelp2018-scale M through their wrappers, which zero-pad
+  the features to the next multiple of 32 and slice (K7, K8 bit-equal to
+  their plain versions, K6 within its bar; each timed beside the launch
+  at the padded width), `FusedSquareAdj.matmul` in int8, int4 and
+  bfloat16 and `quant_fused_dual_t` forward and backward against the
+  plain route, SGL int8 and int4 at d = 16 (the views at 3d = 48) one
+  step against the plain route;
+* the data axis (`data_axis_phase`, ROADMAP A.12): two processes in a
+  gloo group on the one card (NCCL takes one rank a card), a (2, 1)
+  mesh with CUDA tensors, each data rank on its 1,024 rows of a
+  2,048-triple batch: one step of LightGCN int8 (the chain's sweeps, K4
+  on the whole batch's all-gathered cotangent) held to one process on
+  the card bit for bit (gradients and tables), one of CGCL (K6, its
+  full-pool contrasts on the rank's rows) within K6's bars; each rank's
+  batch rows and a step's peak memory printed beside one process's;
 * learnability: LightGCN int8 and int4 through `train_model` on
   `make_latent_synthetic_dataset` (learnable low-rank data) for
   LEARN_EPOCHS epochs, recall@20 after the last at least LEARN_FACTOR
@@ -249,6 +265,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -377,6 +394,49 @@ KMEANS_ITERS = 20
 ZOO_NOISE_SEED = 17
 AMAZON = (52_643, 91_599, 2_380_730, 603_378)
 ZOO_STEPS, ZOO_REQUEST = 24, 256
+
+
+def launch_counters():
+    """The wrappers whose launches the script counts, grouped: (int8
+    chain's, int4 chain's, the [N, d] duals', the tanh chain's, the
+    bitpack and batch-row kernels', all of them, the fused sweeps among
+    them). A fused sweep also counts the sides it ran, each one standalone
+    epilogue launch of the route it replaced, and the (z, amax) inputs its
+    turn-in rounded, each one K3 launch of that route."""
+    from idgrec_torch.ops import bitmm, chainmm, fusedmm, gathermm, propagate, scatter
+
+    int8_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
+                     chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows)
+    int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
+    n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
+                  fusedmm.fused_adj_matmul_int4)
+    tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
+                     chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
+    row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
+    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject,
+                                 propagate.quantize_rows)
+                + n_counters + tanh_counters + row_counters)
+    sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
+    return int8_counters, int4_counters, n_counters, tanh_counters, row_counters, counters, sweeps
+
+
+def reset_launches(counters) -> None:
+    """Set every count of ``counters`` (`launch_counters`) to 0."""
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "sides_run"):
+            fn.sides_run = fn.quantized_in_sweep = 0
+
+
+def read_launches(counters) -> dict:
+    """Every count of ``counters``: launches by wrapper name, and each
+    fused sweep's sides run and inputs rounded."""
+    torch.cuda.synchronize()
+    sweeps = [fn for fn in counters if hasattr(fn, "sides_run")]
+    return {**{fn.__name__: fn.launches for fn in counters},
+            **{f"{fn.__name__}.sides_run": fn.sides_run for fn in sweeps},
+            **{f"{fn.__name__}.quantized_in_sweep": fn.quantized_in_sweep for fn in sweeps}}
 
 
 def log(msg: str) -> None:
@@ -1342,6 +1402,310 @@ def mesh_phase(h) -> dict:
             "times": times, "errs": errs, "multi": multi, "nccl_s": nccl_s}
 
 
+# widths off 32 (ROADMAP B.B1): K6, K7 and K8 on zero-padded features
+OFF_WIDTHS = (16, 48)
+
+
+def widths_phase(h) -> dict:
+    """Widths off 32 on the card (ROADMAP B.B1): at d = 16 and 48 on the
+    yelp2018-scale M, K7 (int8), K8 (int4) and K6 (bfloat16) through their
+    wrappers, which zero-pad the features to `fusedmm.feature_pad` (d),
+    launch once and slice: K7 and K8 equal to their plain versions bit for
+    bit, K6 within its bar, each timed beside the launch at the padded
+    width; `FusedSquareAdj.matmul` in int8, int4 and bfloat16 and
+    `quant_fused_dual_t` (the [d, N] route of SGL's views) forward and
+    backward against the same calls on the plain versions (quantized bit
+    for bit, K6 within its bars); then SGL int8 and int4 at d = 16 (the
+    three chains at 3d = 48) on a 2,000 x 3,000 set, one step against the
+    plain route. The path's launches are counted from 0."""
+    from idgrec_torch.config import load_model_config
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.models import get_model
+    from idgrec_torch.ops import chainmm, fusedmm, propagate, scatter
+
+    adj, adj4, dev = h.adj, h.adj4, h.dev
+    reset_counts, read_counts = h.reset_counts, h.read_counts
+    g = torch.Generator(device=dev).manual_seed(41)
+    u_pad, i_pad = adj.padded_shape
+    i_pad4 = adj4.padded_shape[1]
+    nu, ni = adj.num_users, adj.num_items
+    reset_counts()
+    times, errs = {}, {}
+    for d in OFF_WIDTHS:
+        wide = fusedmm.feature_pad(d)
+        zu = torch.randn((nu, d), generator=g, device=dev)
+        zi = torch.randn((ni, d), generator=g, device=dev)
+        qu, _ = propagate._quantize_cols(propagate._pad_rows(zu, u_pad))
+        qi, _ = propagate._quantize_cols(propagate._pad_rows(zi, i_pad))
+        qi4, _ = propagate._quantize_cols(propagate._pad_rows(zi, i_pad4))
+        cases = {"k7": (fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain,
+                        adj.m8, qu, qi),
+                 "k8": (fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain,
+                        adj4.m8, qu, qi4),
+                 "k6": (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_plain,
+                        adj.m8, zu, zi)}
+        for name_, (fn, plain, m, a, b) in cases.items():
+            before = fn.launches
+            got = fn(m, a, b)
+            again = fn(m, a, b)
+            require(fn.launches == before + 2, f"width {d}: {fn.__name__} launches")
+            want = plain(m, a, b)
+            for what, x_, y_, z_ in zip(("yu", "yi"), got, again, want):
+                require(tuple(x_.shape) == tuple(z_.shape) and torch.equal(x_, y_),
+                        f"width {d} {name_} {what}: shape or second launch differs")
+                if name_ == "k6":
+                    assert_close(x_, z_, f"width {d} k6 {what}", rtol=TIGHT["rtol"],
+                                 atol=TIGHT["atol"] * float(z_.abs().max()))
+                else:
+                    require(torch.equal(x_, z_), f"width {d} {name_} {what}: not bit-equal "
+                                                 "to the plain version")
+                errs[name_, d] = max(errs.get((name_, d), 0.0), max_abs(x_, z_))
+            pad = (lambda t: torch.nn.functional.pad(t, (0, wide - d)))
+            a_w, b_w = pad(a).contiguous(), pad(b).contiguous()
+            times[name_, d] = (cuda_ms(lambda: fn(m, a, b), 10),
+                               cuda_ms(lambda: fn(m, a_w, b_w), 10))
+            del got, again, want, a_w, b_w
+        del zu, zi, qu, qi, qi4
+    # the adjacency's product and the [d, N] dual, forward and backward,
+    # against the same calls on the plain versions
+    adj_bf = dataclasses.replace(adj, quant="none")
+    n = nu + ni
+
+    def dual_t(a_, x_):
+        u_p, i_p = a_.padded_shape
+        yu_t, yi_t = propagate.quant_fused_dual_t(
+            a_.m8, propagate._pad_cols(x_[nu:].T, i_p), propagate._pad_cols(x_[:nu].T, u_p),
+            a_.quant)
+        return torch.cat([yu_t[:, :nu], yi_t[:, :ni]], dim=1).T
+
+    def run(a_, route):
+        out_ = []
+        for d in OFF_WIDTHS:
+            x0 = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(d),
+                             device=dev)
+            ct = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(d + 1),
+                             device=dev)
+            xt = x0.clone().requires_grad_(True)
+            y = dual_t(a_, xt) if route == "dual_t" else a_.matmul(xt)
+            (y * ct).sum().backward()
+            out_.append((y.detach(), xt.grad))
+        return out_
+
+    routes = {"matmul int8": (adj, "matmul"), "matmul int4": (adj4, "matmul"),
+              "matmul bf16": (adj_bf, "matmul"), "dual_t int8": (adj, "dual_t"),
+              "dual_t int4": (adj4, "dual_t")}
+    got_r = {k_: run(*v) for k_, v in routes.items()}
+    with plain_views(propagate, fusedmm, chainmm, scatter), plain_duals(fusedmm, propagate):
+        want_r = {k_: run(*v) for k_, v in routes.items()}
+    for k_, pairs in got_r.items():
+        for d, (y, gx), (wy, wg) in zip(OFF_WIDTHS, pairs, want_r[k_]):
+            if k_.endswith("bf16"):
+                assert_close(y, wy, f"width {d} {k_}", rtol=TIGHT["rtol"],
+                             atol=TIGHT["atol"] * float(wy.abs().max()))
+                require(max_abs(gx, wg) <= BF16 * float(wg.abs().max()),
+                        f"width {d} {k_} backward: {max_abs(gx, wg)}")
+            else:
+                require(torch.equal(y, wy) and torch.equal(gx, wg),
+                        f"width {d} {k_}: not bit-equal to the plain route")
+    del got_r, want_r, adj_bf
+    # SGL's quantized views at d = 16: the three chains at 48
+    quick = make_synthetic_dataset(*QUICK, seed=0, name="quick-widths")
+    for quant in ("int8", "int4"):
+        cfg = load_model_config("SGL").updated(
+            dataset=quick.name, embedding_size=OFF_WIDTHS[0], compute_dtype=quant,
+            propagation_backend="fused")
+        m_ = get_model("SGL")(cfg, quick, device=dev, generator=torch.Generator().manual_seed(0))
+        require(m_._views_route and propagate.dual_t_route(m_.graph.m8, 3 * OFF_WIDTHS[0], quant)
+                == "n", f"SGL {quant} at d = {OFF_WIDTHS[0]}: not the quantized views route")
+        m_.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED))
+        rng_ = np.random.default_rng(5)
+        pick = rng_.integers(0, quick.num_train, cfg.int("batch_size"))
+        batch_ = {k_: torch.from_numpy(np.asarray(v_, np.int64)).to(dev) for k_, v_ in (
+            ("user", quick.train_user[pick]), ("pos", quick.train_item[pick]),
+            ("neg", rng_.integers(0, quick.num_items, pick.shape[0])))}
+
+        def step():
+            m_.zero_grad(set_to_none=True)
+            terms_ = m_.loss_terms(batch_, None, 0)
+            sum(terms_).backward()
+            return [t_.detach() for t_ in terms_] + [getattr(m_, k_).grad.clone()
+                                                      for k_ in ("user_emb", "item_emb")]
+
+        got_s = step()
+        with plain_views(propagate, fusedmm, chainmm, scatter):
+            want_s = step()
+        for what, a_, b_ in zip(("bpr", "reg", "ssl", "d user_emb", "d item_emb"), got_s,
+                                want_s):
+            require(bool(torch.isfinite(a_).all()), f"SGL {quant} d = 16 {what}: not finite")
+            require(torch.equal(a_, b_), f"SGL {quant} d = 16 {what}: not bit-equal to the "
+                    f"plain route, max abs err {max_abs(a_, b_)}")
+        del m_
+    counts = read_counts()
+    for fn in (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
+               fusedmm.fused_adj_matmul_int4):
+        require(counts[fn.__name__] > 0, f"widths off 32: no {fn.__name__} launch")
+    for (name_, d), (ms, ms_wide) in times.items():
+        log(f"width {d}: {name_} {ms:.4f} ms on features padded to "
+            f"{fusedmm.feature_pad(d)} (the launch at {fusedmm.feature_pad(d)} itself "
+            f"{ms_wide:.4f}), max abs err {errs[name_, d]:.3e}")
+    log("widths off 32: K7 and K8 equal their plain versions bit for bit, K6 within its bar; "
+        "FusedSquareAdj.matmul (int8, int4, bfloat16) and quant_fused_dual_t at 16 and 48 "
+        "equal the plain route (quantized bit for bit); SGL int8 and int4 at d = 16 (3d = 48) "
+        "one step bit-equal to the plain route; launches "
+        + ", ".join(f"{k_} {v_}" for k_, v_ in counts.items() if v_ and "." not in k_))
+    torch.cuda.empty_cache()
+    return {"paths": {"widths_off_32": counts}, "times": times, "errs": errs}
+
+
+def data_axis_cases():
+    """(model, config) of the data-axis phase: LightGCN int8 (the resident
+    chain's sweeps, K4's gathers) and CGCL (K6, its full-pool contrasts) at
+    their published batch of 2,048 on the yelp2018-scale set."""
+    from idgrec_torch.config import load_model_config
+
+    return {"LightGCN int8": ("LightGCN", load_model_config("LightGCN").updated(
+                embedding_size=DIM, GCN_layer=LAYERS, compute_dtype="int8",
+                propagation_backend="fused", batch_size=BATCH)),
+            "CGCL": ("CGCL", load_model_config("CGCL"))}
+
+
+def data_axis_step(key, data, dev, triple, mesh=None) -> dict:
+    """One step of a `data_axis_cases` model through `EpochRunner` (on
+    ``mesh`` where given), from the tables seeded 0: its loss terms, the
+    tables after it and their gradients (numpy), the rows its loss saw, a
+    step's memory beyond the model's, and its launches."""
+    from idgrec_torch import convert
+    from idgrec_torch.engine.trainer import EpochRunner
+    from idgrec_torch.models import get_model
+    from idgrec_torch.parallel.mesh import use_mesh
+
+    name, cfg = data_axis_cases()[key]
+    with use_mesh(mesh):
+        model = get_model(name)(cfg, data, device=dev, generator=torch.Generator().manual_seed(0))
+    bs = cfg.int("batch_size")
+    runner = EpochRunner(model, cfg.float("learn_rate"), bs, bs, mesh=mesh)
+    rows, loss_terms = [], model.loss_terms
+
+    def recorded(batch, *a, **k):
+        rows.append(int(batch["user"].shape[0]))
+        return loss_terms(batch, *a, **k)
+
+    model.loss_terms = recorded
+    counters = launch_counters()[5]
+    u, p, n = (torch.from_numpy(np.asarray(t_, np.int64)).to(dev) for t_ in triple)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches(counters)
+    terms = runner.run_epoch(u, p, n)
+    counts = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated() - base
+    names = convert.table_names(model)
+    return dict(terms=terms.cpu().numpy(), rows=rows, peak=peak, counts=counts,
+                tables={k_: getattr(model, k_).detach().cpu().numpy() for k_ in names},
+                grads={k_: getattr(model, k_).grad.cpu().numpy() for k_ in names})
+
+
+def _data_axis_rank(rank: int, world: int, port: int, out_dir: str, triples: dict) -> None:
+    """One rank of the data-axis phase: joins a gloo group of ``world``
+    ranks on this one card, takes each `data_axis_cases` step on a
+    (world, 1) mesh with CUDA tensors, and writes its results to
+    ``out_dir``."""
+    import pickle
+
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.parallel import distributed
+    from idgrec_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(f"localhost:{port}", world, rank, device="cpu")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    data = make_synthetic_dataset(*YELP, seed=0, name="yelp2018-data-axis")
+    mesh = make_mesh(data_parallel=world, device="cpu")
+    out = {"index": mesh.data_index}
+    for key, triple in triples.items():
+        out[key] = data_axis_step(key, data, dev, triple, mesh)
+    with open(os.path.join(out_dir, f"data_axis_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    distributed.shutdown()
+
+
+def data_axis_phase(h) -> dict:
+    """The data axis on one card (ROADMAP A.12): two processes joined in a
+    gloo group (NCCL takes one rank a card) on a (2, 1) mesh with CUDA
+    tensors, each taking its 1,024 rows of a 2,048-triple batch: one step
+    of LightGCN int8 (the chain's sweeps on K1, its gathers' backward on
+    K4 over the whole batch's all-gathered cotangent) and of CGCL (K6, its
+    six full-pool contrasts on the rank's rows). Held to one process on
+    the card: LightGCN's gradients and tables after the step bit for bit,
+    its loss terms (the ranks' shares summed) within TIGHT; CGCL's loss
+    terms within TIGHT and gradients within BF16 of the largest entry.
+    Each rank's batch rows, launches and a step's peak memory beyond the
+    model's are printed beside one process's."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from idgrec_torch.engine import sampler as sampler_lib
+    from idgrec_torch.parallel import distributed
+
+    data, dev = h.data, h.dev
+    world = 2
+    neg = sampler_lib.NegativeSampler(data, device=dev)
+    triples = {}
+    for j_, key in enumerate(data_axis_cases()):
+        t_ = neg.sample_epoch(torch.Generator(device=dev).manual_seed(70 + j_))
+        triples[key] = tuple(x_[:BATCH].cpu().numpy() for x_ in t_)
+    ones = {key: data_axis_step(key, data, dev, triple) for key, triple in triples.items()}
+    torch.cuda.empty_cache()
+    port = distributed.free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_axis_") as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(_data_axis_rank, args=(world, port, out_dir, triples), nprocs=world, join=True)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"data_axis_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for key, one in ones.items():
+        for r, got in enumerate(ranks):
+            g_ = got[key]
+            label = f"data axis rank {r} {key}"
+            require(g_["rows"] == [BATCH // world] and one["rows"] == [BATCH],
+                    f"{label}: the loss saw {g_['rows']} rows, one process {one['rows']}")
+            require(np.allclose(g_["terms"], one["terms"], **TIGHT),
+                    f"{label}: loss terms {g_['terms']} != {one['terms']}")
+            for k_, want in one["grads"].items():
+                if key.startswith("LightGCN"):
+                    require(np.array_equal(g_["grads"][k_], want)
+                            and np.array_equal(g_["tables"][k_], one["tables"][k_]),
+                            f"{label} {k_}: not one process's gradient and table bit for bit")
+                else:
+                    err = float(np.abs(g_["grads"][k_] - want).max())
+                    require(err <= BF16 * float(np.abs(want).max()),
+                            f"{label} d {k_}: max abs err {err}")
+            used = {k_: v_ for k_, v_ in g_["counts"].items() if v_ and "." not in k_}
+            want_used = {k_: v_ for k_, v_ in one["counts"].items() if v_ and "." not in k_}
+            require(used and used == want_used,
+                    f"{label}: launches {used}, one process {want_used}")
+    for key, one in ones.items():
+        log(f"data axis {key}: rows a rank {[g_[key]['rows'] for g_ in ranks]} (one process "
+            f"{one['rows']}); a step's peak memory beyond the model's "
+            + ", ".join(f"rank {r} {g_[key]['peak'] / 1e6:.1f} MB" for r, g_ in enumerate(ranks))
+            + f", one process {one['peak'] / 1e6:.1f} MB; launches rank 0 "
+            + str({k_: v_ for k_, v_ in ranks[0][key]["counts"].items() if v_ and "." not in k_})
+            + ", one process "
+            + str({k_: v_ for k_, v_ in one["counts"].items() if v_ and "." not in k_}))
+    log(f"data axis: 2 gloo ranks on one card, (2, 1) mesh, LightGCN int8's gradients and "
+        f"tables bit-equal to one process, CGCL within its bars; {seconds:.1f} s")
+    # the path's launches: both ranks' (the one-process references' are not counted)
+    paths = {f"data_axis {key}": {k_: sum(r_[key]["counts"][k_] for r_ in ranks)
+                                  for k_ in ranks[0][key]["counts"]} for key in ones}
+    return {"paths": paths, "seconds": seconds,
+            "peaks": {key: ([r_[key]["peak"] for r_ in ranks], one["peak"])
+                      for key, one in ones.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1832,35 +2196,11 @@ def main() -> int:
     # the quantized chain's: K2 in the prologues, its epilogue and inject
     # mode in the sweeps (the dual's turn-out), K3's rounding in their
     # turn-in; K2-inject and K3 run standalone on no chain
-    int8_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
-                     chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows)
-    int4_counters = (fusedmm.fused_adj_matmul_int4_t,) + int8_counters[1:]
-    n_counters = (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
-                  fusedmm.fused_adj_matmul_int4)
-    tanh_counters = (chainmm.chain_sweep_tanh, chainmm.chain_sweep_tanh_inject,
-                     chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
-    row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
-    counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject,
-                                 propagate.quantize_rows)
-                + n_counters + tanh_counters + row_counters)
+    int8_counters, int4_counters, n_counters, tanh_counters, row_counters, counters, sweeps = (
+        launch_counters())
 
-    # a fused sweep also counts the sides it ran, each one standalone
-    # epilogue launch of the route it replaced, and the (z, amax) inputs
-    # its turn-in rounded, each one K3 launch of that route
-    sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
-
-    def reset_counts():
-        torch.cuda.synchronize()
-        for fn in counters:
-            fn.launches = 0
-        for fn in sweeps:
-            fn.sides_run = fn.quantized_in_sweep = 0
-
-    def read_counts() -> dict:
-        torch.cuda.synchronize()
-        return {**{fn.__name__: fn.launches for fn in counters},
-                **{f"{fn.__name__}.sides_run": fn.sides_run for fn in sweeps},
-                **{f"{fn.__name__}.quantized_in_sweep": fn.quantized_in_sweep for fn in sweeps}}
+    reset_counts = functools.partial(reset_launches, counters)
+    read_counts = functools.partial(read_launches, counters)
 
     def require_no_k3(counts: dict, path: str, rounded: int | None = None):
         """No standalone K3 on ``path``'s chains: the sweeps round their
@@ -4438,6 +4778,10 @@ def main() -> int:
         data=data, adj=adj, adj4=adj4, dev=dev, bound=bound, bf16_ops=bf16_ops, reset_counts=reset_counts,
         read_counts=read_counts))
     rect_paths.update(mesh_res["paths"])
+    widths_res = widths_phase(SimpleNamespace(adj=adj, adj4=adj4, dev=dev,
+                                              reset_counts=reset_counts, read_counts=read_counts))
+    rect_paths.update(widths_res["paths"])
+    rect_paths.update(data_axis_phase(SimpleNamespace(data=data, dev=dev))["paths"])
 
     # K6 on amazon-book's matrix, the largest it has run, beside its bound,
     # its plain version and two torch.matmul calls on a bfloat16 copy

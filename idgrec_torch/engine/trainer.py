@@ -30,12 +30,16 @@ use): every 2-D table of at least 2·width rows is zero-padded to a
 it and Adam's moments of those rows, 1/width of each. A step gathers
 the tables whole over the model axis (the backward keeps the rank's own
 rows of the cotangent), runs the model's ``loss_terms`` under the
-active mesh (the adjacency's products sharded over the model axis, the
-batch's row lookups split over the data axis) and steps Adam on the
-shards. Every rank computes the same loss and the same whole gradient,
-so the step equals the single-process step up to the order of float32
-additions. Every rank is given the same triples (the run's generators
-are seeded alike on every rank).
+active mesh (the adjacency's products sharded over the model axis) on
+the rank's rows of the batch (`mesh.split_batch`: data rank r takes rows
+[r·B/D, (r+1)·B/D), and its loss is its share of the batch's) and steps
+Adam on the shards. The data-sum boundaries of parallel/mesh.py give
+every data rank the same whole gradient, so the step equals the
+single-process step up to the order of float32 additions, and there is
+no gradient all-reduce after ``backward()``. Every rank is given the
+same triples (the run's generators are seeded alike on every rank, so a
+step's noise is drawn as in one process); the reported terms are summed
+over the data axis.
 """
 
 from __future__ import annotations
@@ -188,8 +192,9 @@ class EpochRunner:
         """Run one epoch over the sampled triples. Returns the per-term
         loss sums, float32 [len(model.loss_names)] on the model's
         device: the one value that crosses to the host per epoch. On a
-        mesh every rank is given the same triples and returns the same
-        sums; the model's tables are left gathered (no gradient) for
+        mesh every rank is given the same triples, each data rank runs
+        its rows of every batch, and every rank returns the sums over the
+        data axis; the model's tables are left gathered (no gradient) for
         evaluation."""
         model = self.model
         model.train()
@@ -197,18 +202,22 @@ class EpochRunner:
         term_total = None
         with mesh_lib.use_mesh(self.mesh):
             for step in range(self.num_batches):
-                batch = {k: v[step] for k, v in batches.items()}
                 self.opt.zero_grad(set_to_none=True)
                 if self.tables is not None:
                     self.tables.gather(requires_grad=True)
-                terms = model.loss_terms(batch, generator, epoch)
-                total = terms[0]
-                for t in terms[1:]:
-                    total = total + t
-                total.backward()
+                with mesh_lib.split_batch(self.mesh, {k: v[step] for k, v in
+                                                      batches.items()}) as batch:
+                    terms = model.loss_terms(batch, generator, epoch)
+                    total = terms[0]
+                    for t in terms[1:]:
+                        total = total + t
+                    total.backward()
                 self.opt.step()
                 stacked = torch.stack([t.detach().to(torch.float32) for t in terms])
                 term_total = stacked if term_total is None else term_total + stacked
         if self.tables is not None:
             self.tables.gather(requires_grad=False)
+        if self.mesh is not None:
+            term_total = mesh_lib.all_reduce_sum(term_total, self.mesh.data_group,
+                                                 self.mesh.data)
         return term_total

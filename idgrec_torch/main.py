@@ -15,8 +15,10 @@ sets ``RANK`` and ``WORLD_SIZE`` (``torchrun --nproc-per-node N -m
 idgrec_torch.main ...``) the process joins the group; with more than one
 visible card and no launcher, `main` starts one process a card itself.
 The ranks lay out as a ("data", "model") mesh (``--data_parallel`` the
-data axis; parallel/mesh.py). ``--mesh off``, or one card, trains on one
-device.
+data axis; parallel/mesh.py): the model axis shards the tables and M,
+and the data axis splits each step's batch, every data rank computing
+the loss and backward of its rows alone. ``--mesh off``, or one card,
+trains on one device.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def parse_args(argv=None):
                         help="auto: shard over all visible cards when >1 (or the "
                              "launcher's ranks); off: single-device")
     parser.add_argument("--data_parallel", type=int, default=None,
-                        help="data-axis width of the mesh")
+                        help="data-axis width of the mesh: each data rank trains on "
+                             "its 1/data_parallel of every batch")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)

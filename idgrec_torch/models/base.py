@@ -33,6 +33,7 @@ from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import check_exact_matmul, resolve_device
 from idgrec_torch.ops import noise
+from idgrec_torch.parallel import mesh as mesh_lib
 
 
 def xavier_uniform(generator: torch.Generator, shape: tuple[int, ...],
@@ -83,10 +84,15 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor | None = None,
     """Batch normalization over dim 0 with the batch's statistics, in
     float32 (torch's BatchNorm1d in training mode): the population
     variance (``correction=0``, as ``jnp.var``), then ``gamma`` and
-    ``beta`` [d] when given."""
+    ``beta`` [d] when given. Under a data split ``x`` is the rank's rows
+    and the statistics are the whole batch's: the sums all-reduced over
+    the data axis."""
+    from idgrec_torch.ops.propagate import true_divide
+
     x = x.to(torch.float32)
-    mean = torch.mean(x, dim=0, keepdim=True)
-    var = torch.var(x, dim=0, keepdim=True, correction=0)
+    n = float(mesh_lib.batch_rows(x.shape[0]))
+    mean = true_divide(mesh_lib.all_reduce(torch.sum(x, dim=0, keepdim=True)), n)
+    var = true_divide(mesh_lib.all_reduce(torch.sum((x - mean) ** 2, dim=0, keepdim=True)), n)
     y = (x - mean) / torch.sqrt(var + eps)
     if gamma is not None:
         y = y * gamma[None, :] + beta[None, :]
@@ -266,16 +272,19 @@ def lightgcn_propagate_rows(graph, emb0: torch.Tensor, num_layers: int, rows_u: 
 
     h = emb0
     items = num_users + rows_i
-    tot_u, tot_i, terms = (emb0[rows_u], emb0[items], 1) if include_layer0 else (None, None, 0)
+    tot_u, tot_i, terms = ((mesh_lib.lookup(emb0, rows_u), mesh_lib.lookup(emb0, items), 1)
+                           if include_layer0 else (None, None, 0))
 
     def add(total, part):
         return part if total is None else total + part
 
     for _ in range(num_layers - 1):
         h = graph.matmul(h)
-        tot_u, tot_i = add(tot_u, h[rows_u]), add(tot_i, h[items])
+        tot_u, tot_i = add(tot_u, mesh_lib.lookup(h, rows_u)), add(tot_i, mesh_lib.lookup(h, items))
         terms += 1
-    yu, yi = graph.matmul_rows(h, rows_u, rows_i)
+    # under a data split the partial product reads the rank's rows: its
+    # input's cotangent is summed over the data axis
+    yu, yi = graph.matmul_rows(mesh_lib.data_sum(h), rows_u, rows_i)
     tot_u, tot_i = add(tot_u, yu), add(tot_i, yi)
     terms += 1
     if reduce == "sum":
@@ -314,35 +323,25 @@ def batch_final_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
                            batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
     """(user_all[u], item_all[pos], item_all[neg]) with the backward's
     batch-cotangent row scatters on kernel K4 in the quantized compute
-    modes (ops/scatter.py); plain indexing otherwise. Under an active
-    mesh with a data axis each rank gathers the rows of its slice of the
-    batch and the slices are all-gathered (`parallel.mesh.split_rows_fn`):
-    every rank gets the whole batch's rows, and the tables' row
-    cotangents are summed over the data group."""
+    modes (ops/scatter.py); plain indexing otherwise. Under a data split
+    the batch is the rank's rows and the backward scatters the whole
+    batch's cotangent, all-gathered over the data axis (`mesh.lookup`)."""
     from idgrec_torch.ops import scatter as _scatter
-    from idgrec_torch.parallel.mesh import get_active_mesh, split_rows_fn
 
-    idxs = (batch["user"], batch["pos"], batch["neg"])
+    u, p, n = batch["user"], batch["pos"], batch["neg"]
     if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
                                       user_all.shape[1], compute_dtype):
-        fn = _scatter.gather_batch_embeddings
-    else:
-        def fn(ua, ia, u, p, n):
-            return ua[u], ia[p], ia[n]
-    return split_rows_fn(fn, (user_all, item_all), idxs, get_active_mesh())
+        return _scatter.gather_batch_embeddings(user_all, item_all, u, p, n)
+    return mesh_lib.lookup(user_all, u), mesh_lib.lookup(item_all, p), mesh_lib.lookup(item_all, n)
 
 
 def batch_user_pos_embeddings(user_all: torch.Tensor, item_all: torch.Tensor,
                               batch: dict[str, torch.Tensor], compute_dtype: str = "bfloat16"):
     """Two-gather twin of `batch_final_embeddings` (align/uniform models)."""
     from idgrec_torch.ops import scatter as _scatter
-    from idgrec_torch.parallel.mesh import get_active_mesh, split_rows_fn
 
-    idxs = (batch["user"], batch["pos"])
+    u, p = batch["user"], batch["pos"]
     if _scatter.supports_fast_scatter(user_all.shape[0] + item_all.shape[0],
                                       user_all.shape[1], compute_dtype):
-        fn = _scatter.gather_user_pos
-    else:
-        def fn(ua, ia, u, p):
-            return ua[u], ia[p]
-    return split_rows_fn(fn, (user_all, item_all), idxs, get_active_mesh())
+        return _scatter.gather_user_pos(user_all, item_all, u, p)
+    return mesh_lib.lookup(user_all, u), mesh_lib.lookup(item_all, p)

@@ -27,6 +27,8 @@ from idgrec_torch.models.base import (
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses, noise
 from idgrec_torch.ops.propagate import build_adjacency
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("BIGCF")
@@ -78,9 +80,10 @@ class BIGCF(RecModel):
         reg = self.reg_lambda * (
             losses.reg_loss_indexed(self.user_emb, self.item_emb, batch["user"], batch["pos"],
                                     batch["neg"])
-            + losses.reg_loss(self.user_intent, self.item_intent))
+            + mesh_lib.share(losses.reg_loss(mesh_lib.data_sum(self.user_intent),
+                                             mesh_lib.data_sum(self.item_intent))))
         t = self.ssl_temperature
-        iu, ip = intent_u[batch["user"]], intent_i[batch["pos"]]
+        iu, ip = lookup(intent_u, batch["user"]), lookup(intent_i, batch["pos"])
         ssl = (losses.infonce_loss(user_e, user_e, t)
                + losses.infonce_loss(pos_e, pos_e, t)
                + losses.infonce_loss(user_e, pos_e, t)

@@ -34,6 +34,7 @@ from idgrec_torch.models.base import (
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
 from idgrec_torch.ops.propagate import build_adjacency
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("CGCL")
@@ -65,8 +66,10 @@ class CGCL(RecModel):
         and pre the full [U+I, d] outputs of two layers."""
         cur_u, cur_i = split_user_item(cur_emb, self.num_users)
         pre_u, pre_i = split_user_item(pre_emb, self.num_users)
-        user_loss = losses.infonce_loss_sum(cur_i[items], pre_u[users], pre_u, self.temperature)
-        item_loss = losses.infonce_loss_sum(cur_u[users], pre_i[items], pre_i, self.temperature)
+        user_loss = losses.infonce_loss_sum(lookup(cur_i, items), lookup(pre_u, users),
+                                            pre_u, self.temperature)
+        item_loss = losses.infonce_loss_sum(lookup(cur_u, users), lookup(pre_i, items),
+                                            pre_i, self.temperature)
         return lam * (blend * user_loss + (1.0 - blend) * item_loss)
 
     def loss_terms(self, batch, generator=None, epoch=0):

@@ -30,6 +30,8 @@ from idgrec_torch.models.base import RecModel, dropout, torch_linear_init
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses, noise
 from idgrec_torch.ops.propagate import build_rect_adjacency
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("CVGA")
@@ -98,8 +100,11 @@ class CVGA(RecModel):
         x = self._dense_rows(users)
         mu, logvar = self.encode(generator, training=True)
         z = self.reparameterize(generator, mu, logvar)
-        recon = self.decode(self.p_w, self.p_b, z[users])
-        return losses.elbo_loss(recon, x, mu[users], logvar[users], 1.0)
+        # under a data split the rank's user rows; the decoder's weights
+        # enter through the data-sum boundary
+        recon = self.decode(mesh_lib.data_sum(self.p_w), mesh_lib.data_sum(self.p_b),
+                            lookup(z, users))
+        return losses.elbo_loss(recon, x, lookup(mu, users), lookup(logvar, users), 1.0)
 
     @torch.no_grad()
     def eval_embeddings(self, generator=None) -> dict[str, torch.Tensor]:

@@ -32,6 +32,8 @@ from idgrec_torch.models.base import (
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses, noise
 from idgrec_torch.ops.propagate import build_adjacency
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("HCCF")
@@ -100,14 +102,17 @@ class HCCF(RecModel):
         reg = self.reg_lambda * (
             losses.reg_loss_indexed(self.user_emb, self.item_emb, batch["user"], batch["pos"],
                                     batch["neg"])
-            + losses.reg_loss(self.user_hyper, self.item_hyper))
+            + mesh_lib.share(losses.reg_loss(mesh_lib.data_sum(self.user_hyper),
+                                             mesh_lib.data_sum(self.item_hyper))))
         users, pos = batch["user"], batch["pos"]
         ssl = torch.zeros((), dtype=torch.float32, device=bpr.device)
         for gnn, hyper in zip(gnn_layers, hyper_layers):
             g_u, g_i = split_user_item(gnn.detach(), self.num_users)
             h_u, h_i = split_user_item(hyper, self.num_users)
-            ssl = ssl + losses.infonce_loss(g_u[users], h_u[users], self.temperature)
-            ssl = ssl + losses.infonce_loss(g_i[pos], h_i[pos], self.temperature)
+            ssl = ssl + losses.infonce_loss(lookup(g_u, users), lookup(h_u, users),
+                                            self.temperature)
+            ssl = ssl + losses.infonce_loss(lookup(g_i, pos), lookup(h_i, pos),
+                                            self.temperature)
         return bpr, reg, self.ssl_lambda * ssl
 
     @torch.no_grad()

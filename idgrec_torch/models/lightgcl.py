@@ -34,6 +34,7 @@ from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
 from idgrec_torch.ops.propagate import build_rect_adjacency
 from idgrec_torch.ops.svd import lowrank_svd
+from idgrec_torch.parallel.mesh import lookup
 
 
 def _layer_sum(layers: list[torch.Tensor]) -> torch.Tensor:
@@ -101,8 +102,8 @@ class LightGCL(RecModel):
         reg = self.reg_lambda * losses.reg_loss_indexed(
             self.user_emb, self.item_emb, batch["user"], batch["pos"], batch["neg"])
         ssl = self.ssl_lambda * losses.lightgcl_ssl_loss(
-            user_e, pos_e, g_user[batch["user"]], g_item[batch["pos"]], user_all, item_all,
-            self.temperature)
+            user_e, pos_e, lookup(g_user, batch["user"]), lookup(g_item, batch["pos"]),
+            user_all, item_all, self.temperature)
         return bpr, reg, ssl
 
     @torch.no_grad()

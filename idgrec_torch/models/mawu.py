@@ -8,10 +8,15 @@ from __future__ import annotations
 
 import torch
 
-from idgrec_torch.models.base import RecModel, batch_user_pos_embeddings, xavier_uniform
+from idgrec_torch.models.base import (
+    RecModel,
+    batch_user_pos_embeddings,
+    xavier_uniform,
+)
 from idgrec_torch.models.encoders import EncoderSwitchMixin
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("MAWU")
@@ -40,7 +45,8 @@ class MAWU(EncoderSwitchMixin, RecModel):
     def loss_terms(self, batch, generator=None, epoch=0):
         user_all, item_all = self.encode()
         user_e, item_e = batch_user_pos_embeddings(user_all, item_all, batch, self.compute_dtype)
-        margin = self.user_margin[batch["user"]] + self.item_margin[batch["pos"]]
+        margin = (lookup(self.user_margin, batch["user"])
+                  + lookup(self.item_margin, batch["pos"]))
         align = losses.margin_alignment_loss(user_e, item_e, margin)
         uniform = (self.gamma_user * losses.dot_uniformity_loss(user_e)
                    + self.gamma_item * losses.dot_uniformity_loss(item_e))

@@ -9,6 +9,7 @@ import torch
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("MFBPR")
@@ -20,9 +21,9 @@ class MFBPR(RecModel):
         self.reg_lambda = config.float("reg_lambda")
 
     def loss_terms(self, batch, generator=None, epoch=0):
-        user_e = self.user_emb[batch["user"]]
-        pos_e = self.item_emb[batch["pos"]]
-        neg_e = self.item_emb[batch["neg"]]
+        user_e = lookup(self.user_emb, batch["user"])
+        pos_e = lookup(self.item_emb, batch["pos"])
+        neg_e = lookup(self.item_emb, batch["neg"])
         bpr = losses.bpr_loss(user_e, pos_e, neg_e)
         reg = self.reg_lambda * losses.reg_loss_indexed(
             self.user_emb, self.item_emb, batch["user"], batch["pos"], batch["neg"])

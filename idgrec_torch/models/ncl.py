@@ -37,6 +37,7 @@ from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
 from idgrec_torch.ops.kmeans import kmeans
 from idgrec_torch.ops.propagate import build_adjacency
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("NCL")
@@ -103,17 +104,19 @@ class NCL(RecModel):
         users, pos = batch["user"], batch["pos"]
         init_u, init_i = split_user_item(layers[0], self.num_users)
         layer_u, layer_i = split_user_item(layers[self.cl_layer * 2], self.num_users)
-        user_ssl = losses.infonce_loss_sum(layer_u[users], init_u[users], init_u,
+        init_ub, init_ib = lookup(init_u, users), lookup(init_i, pos)
+        user_ssl = losses.infonce_loss_sum(lookup(layer_u, users), init_ub, init_u,
                                            self.temperature)
-        item_ssl = losses.infonce_loss_sum(layer_i[pos], init_i[pos], init_i, self.temperature)
+        item_ssl = losses.infonce_loss_sum(lookup(layer_i, pos), init_ib, init_i,
+                                           self.temperature)
         ssl = self.ssl_lambda * (user_ssl + self.alpha * item_ssl)
         if epoch < self.warmup_epochs:
             proto = torch.zeros((), dtype=torch.float32, device=bpr.device)
         else:
             user_proto = losses.infonce_loss(
-                init_u[users], self.user_centroids[self.user_2cluster[users]], self.temperature)
+                init_ub, self.user_centroids[self.user_2cluster[users]], self.temperature)
             item_proto = losses.infonce_loss(
-                init_i[pos], self.item_centroids[self.item_2cluster[pos]], self.temperature)
+                init_ib, self.item_centroids[self.item_2cluster[pos]], self.temperature)
             proto = self.proto_lambda * (user_proto + item_proto) * self.batch_size
         return bpr, reg, ssl, proto
 

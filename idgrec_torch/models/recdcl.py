@@ -20,6 +20,12 @@ of idgrec_tpu/models/recdcl.py).
 * Loss terms (bt, poly, mom) times their coefficients; a coefficient of
   0 gives exactly 0.
 
+Under a data split (parallel/mesh.py) each rank takes its rows of the
+batch: the batch norms' statistics and the [d, d] cross-correlation and
+polynomial products are sums over the batch, all-reduced over the data
+axis; the projector's and the predictor's weights enter through the
+data-sum boundary; the histories stay replicated and take the whole
+batch's writes, as in one process.
 Batch norms use the batch's statistics with the population variance
 (`base.batch_norm`); the cross-correlation and polynomial products are
 full float32 (`check_exact_matmul`: TF32 off on the card), as the JAX
@@ -41,8 +47,10 @@ from idgrec_torch.models.base import (
     xavier_uniform,
 )
 from idgrec_torch.models.registry import register
-from idgrec_torch.ops.losses import _f32, _normalize
+from idgrec_torch.ops.losses import _f32, _normalize, batch_mean
 from idgrec_torch.ops.propagate import build_adjacency, true_divide
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("RecDCL")
@@ -89,26 +97,27 @@ class RecDCL(RecModel):
         return {"u_target_his": torch.randn((self.num_users, d), generator=generator),
                 "i_target_his": torch.randn((self.num_items, d), generator=generator)}
 
-    def _projector(self, x: torch.Tensor) -> torch.Tensor:
-        h = _f32(x) @ self.proj_w1
-        h = torch.relu(batch_norm(h, self.proj_bn1_gamma, self.proj_bn1_beta))
-        h = h @ self.proj_w2
-        h = torch.relu(batch_norm(h, self.proj_bn2_gamma, self.proj_bn2_beta))
-        return h @ self.proj_w3
+    def _projector(self, w: dict, x: torch.Tensor) -> torch.Tensor:
+        h = _f32(x) @ w["proj_w1"]
+        h = torch.relu(batch_norm(h, w["proj_bn1_gamma"], w["proj_bn1_beta"]))
+        h = h @ w["proj_w2"]
+        h = torch.relu(batch_norm(h, w["proj_bn2_gamma"], w["proj_bn2_beta"]))
+        return h @ w["proj_w3"]
 
-    def _bt(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _bt(self, w: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         d = float(self.embedding_size)
-        c = true_divide(batch_norm(self._projector(x)).T @ batch_norm(self._projector(y)),
-                        float(x.shape[0]))
+        c = mesh_lib.all_reduce(batch_norm(self._projector(w, x)).T
+                                @ batch_norm(self._projector(w, y)))
+        c = true_divide(c, float(mesh_lib.batch_rows(x.shape[0])))
         diag = torch.diagonal(c)
         on_diag = true_divide(torch.sum((diag - 1.0) ** 2), d)
         off_diag = true_divide(torch.sum(c ** 2) - torch.sum(diag ** 2), d)
-        return on_diag + self.bt_coeff * off_diag
+        return mesh_lib.share(on_diag + self.bt_coeff * off_diag)
 
-    def _poly_feature(self, x: torch.Tensor) -> torch.Tensor:
-        bn = batch_norm(self._projector(x))
-        poly = torch.pow(self.a * (bn.T @ bn) + self.polyc, self.degree)
-        return torch.log(torch.mean(poly))
+    def _poly_feature(self, w: dict, x: torch.Tensor) -> torch.Tensor:
+        bn = batch_norm(self._projector(w, x))
+        poly = torch.pow(self.a * mesh_lib.all_reduce(bn.T @ bn) + self.polyc, self.degree)
+        return mesh_lib.share(torch.log(torch.mean(poly)))
 
     def _final(self) -> tuple[torch.Tensor, torch.Tensor]:
         emb0 = concat_user_item(self.user_emb, self.item_emb)
@@ -119,26 +128,32 @@ class RecDCL(RecModel):
         check_exact_matmul(self.device)
         users, pos = batch["user"], batch["pos"]
         user_all, item_all = self._final()
-        user_g, pos_g = _f32(user_all[users]), _f32(item_all[pos])
+        w = {name: mesh_lib.data_sum(getattr(self, name)) for name in (
+            "proj_w1", "proj_w2", "proj_w3", "proj_bn1_gamma", "proj_bn1_beta",
+            "proj_bn2_gamma", "proj_bn2_beta", "pred_w", "pred_b")}
+        user_g, pos_g = _f32(lookup(user_all, users)), _f32(lookup(item_all, pos))
         m = self.momentum
         u_target = self.u_target_his[users] * m + user_g.detach() * (1.0 - m)
         i_target = self.i_target_his[pos] * m + pos_g.detach() * (1.0 - m)
         user_n, pos_n = _normalize(user_g), _normalize(pos_g)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        bt = self._bt(user_n, pos_n) if self.all_bt_coeff != 0 else zero
-        poly = (self._poly_feature(user_n) / 2 + self._poly_feature(pos_n) / 2
+        bt = self._bt(w, user_n, pos_n) if self.all_bt_coeff != 0 else zero
+        poly = (self._poly_feature(w, user_n) / 2 + self._poly_feature(w, pos_n) / 2
                 if self.poly_coeff != 0 else zero)
         if self.mom_coeff != 0:
-            user_p = user_g @ self.pred_w + self.pred_b
-            pos_p = pos_g @ self.pred_w + self.pred_b
+            user_p = user_g @ w["pred_w"] + w["pred_b"]
+            pos_p = pos_g @ w["pred_w"] + w["pred_b"]
             cos_u = torch.sum(_normalize(user_p) * _normalize(i_target), dim=-1)
             cos_i = torch.sum(_normalize(pos_p) * _normalize(u_target), dim=-1)
-            mom = -torch.mean(cos_u) / 2 - torch.mean(cos_i) / 2
+            mom = -batch_mean(cos_u) / 2 - batch_mean(cos_i) / 2
         else:
             mom = zero
         with torch.no_grad():
-            self.u_target_his.index_copy_(0, users, user_g.detach())
-            self.i_target_his.index_copy_(0, pos, pos_g.detach())
+            # the whole batch's rows, as one process writes them
+            self.u_target_his.index_copy_(0, mesh_lib.whole_index(users),
+                                          mesh_lib.gather_batch(user_g.detach()))
+            self.i_target_his.index_copy_(0, mesh_lib.whole_index(pos),
+                                          mesh_lib.gather_batch(pos_g.detach()))
         return self.all_bt_coeff * bt, self.poly_coeff * poly, self.mom_coeff * mom
 
     @torch.no_grad()

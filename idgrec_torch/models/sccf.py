@@ -15,7 +15,9 @@ from idgrec_torch.device import check_exact_matmul
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.models.encoders import EncoderSwitchMixin
 from idgrec_torch.models.registry import register
-from idgrec_torch.ops.losses import _f32, _normalize
+from idgrec_torch.ops.losses import _f32, _normalize, batch_mean
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 from idgrec_torch.ops.propagate import true_divide
 
 
@@ -41,14 +43,16 @@ class SCCF(EncoderSwitchMixin, RecModel):
         user_all, item_all = self.encode()
         tau = self.temperature
         check_exact_matmul(user_all.device)
-        user_e = _normalize(_f32(user_all[batch["user"]]))
-        pos_e = _normalize(_f32(item_all[batch["pos"]]))
+        user_e = _normalize(_f32(lookup(user_all, batch["user"])))
+        pos_e = _normalize(_f32(lookup(item_all, batch["pos"])))
         ip = torch.sum(user_e * pos_e, dim=1)
-        up = torch.mean(torch.log(torch.exp(true_divide(ip, tau))
+        up = batch_mean(torch.log(torch.exp(true_divide(ip, tau))
                                   + torch.exp(true_divide(ip ** 2, tau))))
-        sim = torch.matmul(user_e, pos_e.T)
+        # under a data split the rank's users against the whole batch's
+        # positives, the sum over all pairs all-reduced
+        sim = torch.matmul(user_e, mesh_lib.gather_batch(pos_e).T)
         score = torch.exp(true_divide(sim, tau)) + torch.exp(true_divide(sim ** 2, tau))
-        n_uu = _count_unique(batch["user"]).to(torch.float32)
-        n_ui = _count_unique(batch["pos"]).to(torch.float32)
-        down = torch.log(torch.sum(score) / (n_uu * n_ui))
-        return -up, down
+        n_uu = _count_unique(mesh_lib.whole_index(batch["user"])).to(torch.float32)
+        n_ui = _count_unique(mesh_lib.whole_index(batch["pos"])).to(torch.float32)
+        down = torch.log(mesh_lib.all_reduce(torch.sum(score)) / (n_uu * n_ui))
+        return -up, mesh_lib.share(down)

@@ -49,6 +49,7 @@ from idgrec_torch.models.base import (
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses
 from idgrec_torch.ops import propagate as prop
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("SGL")
@@ -122,12 +123,6 @@ class SGL(RecModel):
             raise RuntimeError("SGL draws its views in epoch_context: call it before a step")
         graphs_1, graphs_2 = self.views
         if self._views_route:
-            # the JAX package runs the views route here; no kernel of the
-            # port takes every width it does
-            if not prop.supports_chain_views_t(self.graph, 3, emb0.shape[1]):
-                raise ValueError(
-                    f"SGL's quantized views at 3d = {3 * emb0.shape[1]}: no kernel of the port "
-                    "takes the width (ROADMAP B.B1)")
             return prop.fused_chain_views_t(self.graph, (graphs_1, graphs_2), emb0,
                                             self.num_layers)
         if not self._batched:
@@ -154,8 +149,9 @@ class SGL(RecModel):
         reg = self.reg_lambda * losses.reg_loss_indexed(
             self.user_emb, self.item_emb, batch["user"], batch["pos"], batch["neg"])
         users, pos = batch["user"], batch["pos"]
-        user_ssl = losses.infonce_loss(u1[users], u2[users], self.temperature)
-        item_ssl = losses.infonce_loss(i1[pos], i2[pos], self.temperature)
+        user_ssl = losses.infonce_loss(lookup(u1, users), lookup(u2, users),
+                                       self.temperature)
+        item_ssl = losses.infonce_loss(lookup(i1, pos), lookup(i2, pos), self.temperature)
         return bpr, reg, self.ssl_lambda * (user_ssl + item_ssl)
 
     @torch.no_grad()

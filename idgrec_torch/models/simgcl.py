@@ -30,6 +30,8 @@ from idgrec_torch.models.base import (
 from idgrec_torch.models.registry import register
 from idgrec_torch.ops import losses, noise
 from idgrec_torch.ops.losses import _INFONCE_EPS, _f32, _normalize
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 from idgrec_torch.ops.propagate import build_adjacency, true_divide
 
 
@@ -46,16 +48,21 @@ def masked_infonce_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, mask: torch.Te
                         temperature: float) -> torch.Tensor:
     """InfoNCE over the masked rows: the denominator runs over the masked
     rows of emb_2 and the mean over the masked rows, which equals
-    ``infonce_loss(emb_1[mask], emb_2[mask], temperature)``."""
+    ``infonce_loss(emb_1[mask], emb_2[mask], temperature)``. ``mask`` is
+    the whole batch's; under a data split the embeddings are the rank's
+    rows, the denominator runs over the gathered emb_2, and the loss is
+    the rank's share of the mean."""
     check_exact_matmul(emb_1.device)
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
-    m = mask.to(torch.float32)
+    m_all = mask.to(torch.float32)
+    m = mesh_lib.own_rows(m_all)
     pos = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
-    sims = torch.exp(true_divide(torch.matmul(emb_1, emb_2.T), temperature))
-    ttl = torch.sum(sims * m[None, :], dim=1)
+    sims = torch.exp(true_divide(torch.matmul(emb_1, mesh_lib.gather_batch(emb_2).T),
+                                 temperature))
+    ttl = torch.sum(sims * m_all[None, :], dim=1)
     per_row = -torch.log(pos / ttl + _INFONCE_EPS)
-    return torch.sum(per_row * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(per_row * m) / torch.clamp(torch.sum(m_all), min=1.0)
 
 
 def perturb(h: torch.Tensor, epsilon: float, generator: torch.Generator) -> torch.Tensor:
@@ -119,9 +126,11 @@ class SimGCL(RecModel):
         reg = self.reg_lambda * losses.reg_loss_indexed(
             self.user_emb, self.item_emb, batch["user"], batch["pos"], batch["neg"])
         users, pos = batch["user"], batch["pos"]
-        user_ssl = masked_infonce_loss(u1[users], u2[users], first_occurrence_mask(users),
+        user_mask = first_occurrence_mask(mesh_lib.whole_index(users))
+        item_mask = first_occurrence_mask(mesh_lib.whole_index(pos))
+        user_ssl = masked_infonce_loss(lookup(u1, users), lookup(u2, users), user_mask,
                                        self.temperature)
-        item_ssl = masked_infonce_loss(i1[pos], i2[pos], first_occurrence_mask(pos),
+        item_ssl = masked_infonce_loss(lookup(i1, pos), lookup(i2, pos), item_mask,
                                        self.temperature)
         return bpr, reg, self.ssl_lambda * (user_ssl + item_ssl)
 

@@ -21,6 +21,8 @@ from idgrec_torch.models.registry import register
 from idgrec_torch.models.simgcl import first_occurrence_mask, masked_infonce_loss, perturb
 from idgrec_torch.ops import losses, noise
 from idgrec_torch.ops.propagate import build_adjacency, true_divide
+from idgrec_torch.parallel import mesh as mesh_lib
+from idgrec_torch.parallel.mesh import lookup
 
 
 @register("XSimGCL")
@@ -65,9 +67,11 @@ class XSimGCL(RecModel):
         reg = self.reg_lambda * losses.reg_loss_indexed(
             self.user_emb, self.item_emb, batch["user"], batch["pos"], batch["neg"])
         users, pos = batch["user"], batch["pos"]
-        user_ssl = masked_infonce_loss(user_cl[users], user_e, first_occurrence_mask(users),
+        user_ssl = masked_infonce_loss(lookup(user_cl, users), user_e,
+                                       first_occurrence_mask(mesh_lib.whole_index(users)),
                                        self.temperature)
-        item_ssl = masked_infonce_loss(item_cl[pos], pos_e, first_occurrence_mask(pos),
+        item_ssl = masked_infonce_loss(lookup(item_cl, pos), pos_e,
+                                       first_occurrence_mask(mesh_lib.whole_index(pos)),
                                        self.temperature)
         return bpr, reg, self.ssl_lambda * (user_ssl + item_ssl)
 

@@ -457,6 +457,32 @@ def _require_n(kernel: str, mode: str, u_pad: int, i_pad: int, d: int) -> None:
             f"d={d}, U_pad={u_pad}, I_pad={i_pad}")
 
 
+def feature_pad(d: int) -> int:
+    """The width K6, K7 and K8 run a call of width ``d`` at: d rounded up
+    to a multiple of 32 (`padded_features`)."""
+    return _round_up(d, _FEATURE_GROUP)
+
+
+def padded_features(dual, m: torch.Tensor, za: torch.Tensor | None, zb: torch.Tensor | None):
+    """``dual(m, za, zb)`` with the features of both [rows, d] operands
+    (either may be None) zero-padded to `feature_pad` (d) and the results
+    sliced back to d: how K6, K7 and K8 run a width off 32. A feature's
+    sums do not depend on the others: K7 and K8 add integers, K6 rounds
+    each product to the fixed point of its side's largest activation,
+    which zero features leave as it is. So the kept features are the bits
+    the kernel's plain version gives at width d."""
+    d = (za if za is not None else zb).shape[1]
+    wide = feature_pad(d)
+    if wide == d:
+        return dual(m, za, zb)
+
+    def pad(z):
+        return None if z is None else F.pad(z, (0, wide - d))
+
+    ya, yb = dual(m, pad(za), pad(zb))
+    return tuple(None if y is None else y[:, :d].contiguous() for y in (ya, yb))
+
+
 def dual_matmul_f32(m8: torch.Tensor, zu: torch.Tensor | None,
                     zi: torch.Tensor | None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """(M @ zi, Mᵀ @ zu) as float32 products with float32 accumulation:
@@ -573,6 +599,8 @@ def _fused_fwd(m8, zu, zi):
         return fused_adj_matmul_plain(m8, zu, zi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
+    if (zu if zu is not None else zi).shape[1] % _FEATURE_GROUP:
+        return padded_features(_fused_fwd, m8, zu, zi)
     yu, yi, fused_adj_matmul.passes = _launch_bf16(m8, zu, zi)
     fused_adj_matmul.launches += 1
     return yu, yi
@@ -596,7 +624,8 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor | None,
 
     CPU tensors take the plain version; CUDA tensors launch K6 or raise.
     K6 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0
-    (`kernel_accepts_n`), reads M `scan_passes` (d) times (once at d = 64
+    (`kernel_accepts_n`; another d runs on features zero-padded to the
+    next multiple of 32, `padded_features`), reads M `scan_passes` (d) times (once at d = 64
     and d = 128; the last launch's reads, as its launcher reports them,
     are in ``fused_adj_matmul.passes``) and gives the same bits on every
     launch: each entry's product is rounded once to 64-bit fixed point
@@ -673,14 +702,17 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
     of a binary matrix at the worst).
 
     CPU tensors take the plain version; CUDA tensors launch K7 or
-    raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0, and
-    reads M `scan_passes` (d) times: once at d = 64 and d = 128. The last
+    raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0 (another
+    d runs on features zero-padded to the next multiple of 32,
+    `padded_features`), and reads M `scan_passes` (d) times: once at d = 64 and d = 128. The last
     launch's reads of M, as its launcher reports them, are in
     ``fused_adj_matmul_int8.passes``."""
     if m8.device.type == "cpu":
         return fused_adj_matmul_int8_plain(m8, qu, qi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
+    if qu.shape[1] % _FEATURE_GROUP:
+        return padded_features(fused_adj_matmul_int8, m8, qu, qi)
     yu, yi, fused_adj_matmul_int8.passes = _launch_dual_n("int8", m8, qu, qi)
     fused_adj_matmul_int8.launches += 1
     return yu, yi
@@ -699,14 +731,16 @@ def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch K8 or
     raise. K8 is K7's scan on the packed bytes, each non-zero nibble an
-    entry: it takes d % 32 == 0, U_pad % 64 == 0, I_pad % 2,048 == 0,
-    and reads m4 `scan_passes` (d) times: once at d = 64 and d = 128.
+    entry: it takes d % 32 == 0 (another d zero-padded as K7's), U_pad %
+    64 == 0, I_pad % 2,048 == 0, and reads m4 `scan_passes` (d) times: once at d = 64 and d = 128.
     The last launch's reads of m4, as its launcher reports them, are in
     ``fused_adj_matmul_int4.passes``."""
     if m4.device.type == "cpu":
         return fused_adj_matmul_int4_plain(m4, qu, qi)
     if m4.device.type != "cuda":
         raise ValueError(f"unsupported device {m4.device}")
+    if qu.shape[1] % _FEATURE_GROUP:
+        return padded_features(fused_adj_matmul_int4, m4, qu, qi)
     yu, yi, fused_adj_matmul_int4.passes = _launch_dual_n("int4", m4, qu, qi)
     fused_adj_matmul_int4.launches += 1
     return yu, yi

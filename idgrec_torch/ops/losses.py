@@ -12,6 +12,17 @@ float32 on the card (the JAX package pins them to
 division (`propagate.true_divide`). Nothing here reads a value
 back to the host: the L2 terms' backward counts rows by `index_add_`,
 not `torch.bincount` (which reads the largest index on the card).
+
+Under a data split (parallel/mesh.py `split_batch`) a batch tensor given
+here is the rank's rows of the batch, and each function returns the
+rank's share of the batch's loss: a mean over the batch divides by the
+whole batch's rows (`batch_mean`); an in-batch denominator takes the
+rank's rows against the all-gathered batch (`mesh.gather_batch`); a log
+of a mean over all of the batch's pairs all-reduces the pair sum, takes
+the log and keeps 1/D of it (`mesh.all_reduce`, `mesh.share`); a full
+table enters through the data-sum boundary (`mesh.data_sum`). Without a
+split those collectives are identities, so the same body computes one
+process's loss in the JAX functions' operations.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 
 from idgrec_torch.device import check_exact_matmul
 from idgrec_torch.ops.propagate import true_divide
+from idgrec_torch.parallel import mesh as mesh_lib
 
 _BPR_EPS = 10e-8  # sic (== 1e-7)
 _INFONCE_EPS = 10e-6  # sic (== 1e-5)
@@ -33,13 +45,23 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the whole batch's entries: ``torch.mean``;
+    under a data split, where ``x`` holds the rank's rows, their sum over
+    the whole batch's count (the rank's share of the mean)."""
+    split = mesh_lib.active_split()
+    if split is None:
+        return torch.mean(x)
+    return true_divide(torch.sum(x), float(x.numel() * split.parts))
+
+
 def bpr_loss(user_e: torch.Tensor, pos_e: torch.Tensor, neg_e: torch.Tensor) -> torch.Tensor:
     """Bayesian personalized ranking loss."""
     user_e, pos_e, neg_e = _f32(user_e), _f32(pos_e), _f32(neg_e)
     pos_score = torch.sum(user_e * pos_e, dim=1)
     neg_score = torch.sum(user_e * neg_e, dim=1)
     loss = -torch.log(torch.sigmoid(pos_score - neg_score) + _BPR_EPS)
-    return torch.mean(loss)
+    return batch_mean(loss)
 
 
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -63,7 +85,7 @@ def align_loss(emb_1: torch.Tensor, emb_2: torch.Tensor) -> torch.Tensor:
     pairs."""
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
-    return torch.mean(torch.sum((emb_1 - emb_2) ** 2, dim=1))
+    return batch_mean(torch.sum((emb_1 - emb_2) ** 2, dim=1))
 
 
 def uniform_loss(embedding: torch.Tensor) -> torch.Tensor:
@@ -72,11 +94,13 @@ def uniform_loss(embedding: torch.Tensor) -> torch.Tensor:
     diagonal's n terms exp(0) = 1 taken out of the full [n, n] sum."""
     check_exact_matmul(embedding.device)
     e = _normalize(_f32(embedding))
-    sq = torch.sum(e * e, dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * torch.matmul(e, e.T)
-    n = e.shape[0]
-    total = (torch.sum(torch.exp(-2.0 * d2)) - n) / 2.0
-    return torch.log(true_divide(total, n * (n - 1) / 2.0))
+    # the rank's rows against the whole batch; the pair sum all-reduced
+    e_all = mesh_lib.gather_batch(e)
+    d2 = (torch.sum(e * e, dim=1)[:, None] + torch.sum(e_all * e_all, dim=1)[None, :]
+          - 2.0 * torch.matmul(e, e_all.T))
+    n = e_all.shape[0]
+    total = (mesh_lib.all_reduce(torch.sum(torch.exp(-2.0 * d2))) - n) / 2.0
+    return mesh_lib.share(torch.log(true_divide(total, n * (n - 1) / 2.0)))
 
 
 def neighbor_aggregate_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
@@ -88,9 +112,10 @@ def neighbor_aggregate_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
     pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), tau))
-    total = torch.matmul(emb_1, emb_2.T) + torch.matmul(emb_1, emb_1.T)
+    total = (torch.matmul(emb_1, mesh_lib.gather_batch(emb_2).T)
+             + torch.matmul(emb_1, mesh_lib.gather_batch(emb_1).T))
     ttl_score = torch.sum(torch.exp(true_divide(total, tau)), dim=1)
-    return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
+    return batch_mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
 
 
 def lightcscf_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float,
@@ -104,11 +129,12 @@ def lightcscf_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float,
     sim = torch.sum(emb_1 * emb_2, dim=-1)
     pos_score = (torch.exp(true_divide(sim, temperature))
                  + torch.exp(true_divide(torch.relu(sim - margin), temperature)))
-    total = torch.matmul(emb_1, emb_2.T) + torch.matmul(emb_1, emb_1.T)
+    total = (torch.matmul(emb_1, mesh_lib.gather_batch(emb_2).T)
+             + torch.matmul(emb_1, mesh_lib.gather_batch(emb_1).T))
     total_score = (torch.exp(true_divide(total, temperature))
                    + torch.exp(true_divide(torch.relu(total - margin), temperature)))
     ttl = torch.sum(total_score, dim=1)
-    return torch.mean(-torch.log(pos_score / ttl + _INFONCE_EPS))
+    return batch_mean(-torch.log(pos_score / ttl + _INFONCE_EPS))
 
 
 def margin_alignment_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
@@ -117,13 +143,14 @@ def margin_alignment_loss(emb_1: torch.Tensor, emb_2: torch.Tensor,
     the angle is [B] and the margin [B, 1], so angle + (1 − σ(margin))
     is [B, B] and the mean runs over all B² entries. Both clips are
     `_clip` (JAX's gradient on a bound); 1 − 1e-7 is 0.99999988 in
-    float32 in both packages."""
+    float32 in both packages. Under a data split the rank's margin rows
+    take the whole batch's angles."""
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
     cos = torch.sum(emb_1 * emb_2, dim=-1)
-    angle = torch.arccos(_clip(cos, -1 + 1e-7, 1 - 1e-7))
+    angle = mesh_lib.gather_batch(torch.arccos(_clip(cos, -1 + 1e-7, 1 - 1e-7)))
     angle = _clip(angle + (1.0 - torch.sigmoid(_f32(margin))), 0.0, math.pi)
-    return -torch.mean(torch.cos(angle))
+    return -batch_mean(torch.cos(angle))
 
 
 def dot_uniformity_loss(embeddings: torch.Tensor, t: float = 2.0) -> torch.Tensor:
@@ -132,9 +159,13 @@ def dot_uniformity_loss(embeddings: torch.Tensor, t: float = 2.0) -> torch.Tenso
     exp(-2·t) after the 2 − 2·cos shift."""
     check_exact_matmul(embeddings.device)
     e = _normalize(_f32(embeddings))
-    cos = torch.tril(torch.matmul(e, e.T), diagonal=-1)
+    # the rank's rows (from row lo of the batch) against the whole batch;
+    # the rank's share of the mean all-reduced
+    split = mesh_lib.active_split()
+    lo = 0 if split is None else split.lo
+    cos = torch.tril(torch.matmul(e, mesh_lib.gather_batch(e).T), diagonal=lo - 1)
     cos = 2.0 - 2.0 * cos
-    return torch.log(torch.mean(torch.exp(-t * cos)))
+    return mesh_lib.share(torch.log(mesh_lib.all_reduce(batch_mean(torch.exp(-t * cos)))))
 
 
 def infonce_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float) -> torch.Tensor:
@@ -145,16 +176,19 @@ def infonce_loss(emb_1: torch.Tensor, emb_2: torch.Tensor, temperature: float) -
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
     pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
-    ttl_score = torch.sum(torch.exp(true_divide(torch.matmul(emb_1, emb_2.T), temperature)),
+    pool = mesh_lib.gather_batch(emb_2)
+    ttl_score = torch.sum(torch.exp(true_divide(torch.matmul(emb_1, pool.T), temperature)),
                           dim=1)
-    return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
+    return batch_mean(-torch.log(pos_score / ttl_score + _INFONCE_EPS))
 
 
 def infonce_loss_all(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_2_all: torch.Tensor,
                      temperature: float) -> torch.Tensor:
     """`infonce_loss` against an explicit pool of negatives: the
     denominator runs over ``emb_2_all`` (emb_1 @ emb_2_allᵀ), with its
-    own epsilon."""
+    own epsilon. Under a data split ``emb_2_all`` is whole on every rank
+    and built from gathered rows (MixRec's pools), so its backward sums
+    over the data axis already."""
     check_exact_matmul(emb_1.device)
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
@@ -162,19 +196,20 @@ def infonce_loss_all(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_2_all: torch.
     pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
     ttl_score = torch.sum(
         torch.exp(true_divide(torch.matmul(emb_1, emb_2_all.T), temperature)), dim=1)
-    return torch.mean(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
+    return batch_mean(-torch.log(pos_score / ttl_score + _INFONCE_ALL_EPS))
 
 
 def infonce_loss_sum(emb_1: torch.Tensor, emb_2: torch.Tensor, emb_all: torch.Tensor,
                      temperature: float) -> torch.Tensor:
     """`infonce_loss_all` reduced by sum, not mean: the contrast against a
-    full table (NCL's structural term, CGCL's three heads). The step
-    keeps one float32 [B, rows(emb_all)] score matrix for the backward
-    (the output of ``exp``)."""
+    full table (NCL's structural term, CGCL's three heads), which enters
+    through the data-sum boundary. The step keeps one float32
+    [B, rows(emb_all)] score matrix for the backward (the output of
+    ``exp``); under a data split [B/D, rows(emb_all)]."""
     check_exact_matmul(emb_1.device)
     emb_1 = _normalize(_f32(emb_1))
     emb_2 = _normalize(_f32(emb_2))
-    emb_all = _normalize(_f32(emb_all))
+    emb_all = _normalize(_f32(mesh_lib.data_sum(emb_all)))
     pos_score = torch.exp(true_divide(torch.sum(emb_1 * emb_2, dim=-1), temperature))
     ttl_score = torch.sum(
         torch.exp(true_divide(torch.matmul(emb_1, emb_all.T), temperature)), dim=1)
@@ -185,8 +220,9 @@ def _log_total(emb_b: torch.Tensor, table: torch.Tensor, temperature: float) -> 
     """mean over the batch of log(Σ_rows exp(emb_b · tableᵀ / t) + 1e-8):
     the contrast against a full table, keeping one float32
     [B, rows(table)] score matrix for the backward."""
-    scores = torch.exp(true_divide(torch.matmul(emb_b, _f32(table).T), temperature))
-    return torch.mean(torch.log(torch.sum(scores, dim=1) + _LIGHTGCL_EPS))
+    scores = torch.exp(true_divide(torch.matmul(emb_b, _f32(mesh_lib.data_sum(table)).T),
+                                   temperature))
+    return batch_mean(torch.log(torch.sum(scores, dim=1) + _LIGHTGCL_EPS))
 
 
 def lightgcl_ssl_loss(user_e: torch.Tensor, pos_e: torch.Tensor, g_user_b: torch.Tensor,
@@ -202,9 +238,9 @@ def lightgcl_ssl_loss(user_e: torch.Tensor, pos_e: torch.Tensor, g_user_b: torch
     check_exact_matmul(user_e.device)
     gu, gi = _f32(g_user_b), _f32(g_item_b)
     neg = _log_total(gu, user_all, temperature) + _log_total(gi, item_all, temperature)
-    pos = torch.mean(_clip(true_divide(torch.sum(_f32(user_e) * gu, dim=1), temperature),
+    pos = batch_mean(_clip(true_divide(torch.sum(_f32(user_e) * gu, dim=1), temperature),
                            -5.0, 5.0))
-    pos = pos + torch.mean(_clip(true_divide(torch.sum(_f32(pos_e) * gi, dim=1), temperature),
+    pos = pos + batch_mean(_clip(true_divide(torch.sum(_f32(pos_e) * gi, dim=1), temperature),
                                  -5.0, 5.0))
     return -pos + neg
 
@@ -216,18 +252,24 @@ def elbo_loss(recon_x: torch.Tensor, x: torch.Tensor, mu: torch.Tensor, logvar: 
     the KL term times ``anneal``, with the reference's double
     normalisation (both / B and a mean over the batch)."""
     recon_x, x, mu, logvar = _f32(recon_x), _f32(x), _f32(mu), _f32(logvar)
-    bce = -torch.mean(torch.sum(torch.log_softmax(recon_x, dim=1) * x, dim=-1))
-    kld = (-0.5 / recon_x.shape[0]) * torch.mean(
+    bce = -batch_mean(torch.sum(torch.log_softmax(recon_x, dim=1) * x, dim=-1))
+    kld = (-0.5 / mesh_lib.batch_rows(recon_x.shape[0])) * batch_mean(
         torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar), dim=1))
     return bce, anneal * kld
 
 
 def reg_loss(*embeddings: torch.Tensor) -> torch.Tensor:
-    """L2 regularization: sum over args of ½‖E‖²_F / rows(E)."""
+    """L2 regularization: sum over args of ½‖E‖²_F / rows(E), each E
+    whole (a table, or one process's batch rows)."""
+    return _reg_rows(embeddings, [e.shape[0] for e in embeddings])
+
+
+def _reg_rows(embeddings, rows) -> torch.Tensor:
+    """Σ ½‖E‖²_F / rows for each E and its row count."""
     total = torch.zeros((), dtype=torch.float32, device=embeddings[0].device)
-    for e in embeddings:
+    for e, n in zip(embeddings, rows):
         e = _f32(e)
-        total = total + 0.5 * torch.sum(e * e) / e.shape[0]
+        total = total + 0.5 * torch.sum(e * e) / n
     return total
 
 
@@ -240,11 +282,22 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.float32, device=idx.device).index_add_(0, idx, ones)
 
 
+def _whole_indices(*idxs):
+    """The whole batch's indices (`mesh.whole_index`) and the rank's rows'
+    L2 over the whole batch's row counts: the L2 terms' forward is the
+    rank's share and their backward the whole batch's gradient, on every
+    data rank alike (the counts are the whole batch's), so the tables
+    they read enter the step without a data sum."""
+    whole = tuple(mesh_lib.whole_index(i) for i in idxs)
+    return whole, [w.shape[0] for w in whole]
+
+
 class _RegLossIndexed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, user_table, item_table, u, p, n):
-        ctx.save_for_backward(user_table, item_table, u, p, n)
-        return reg_loss(user_table[u], item_table[p], item_table[n])
+        (wu, wp, wn), rows = _whole_indices(u, p, n)
+        ctx.save_for_backward(user_table, item_table, wu, wp, wn)
+        return _reg_rows((user_table[u], item_table[p], item_table[n]), rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -269,15 +322,18 @@ def reg_loss_indexed(user_table: torch.Tensor, item_table: torch.Tensor, u: torc
     d(table) = g · (count/B) ⊙ table. Values equal reg_loss(...) (same
     forward operations); the backward differs from autograd's sequential
     duplicate adds by f32 ulps, and from the JAX backward (which adds
-    1/B per occurrence) only when B is not a power of two."""
+    1/B per occurrence) only when B is not a power of two. Under a data
+    split the value is the rank's rows' share and the backward the whole
+    batch's gradient (`_whole_indices`)."""
     return _RegLossIndexed.apply(user_table, item_table, u, p, n)
 
 
 class _RegLossCounted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, *idxs):
-        ctx.save_for_backward(table, *idxs)
-        return reg_loss(*(table[i] for i in idxs))
+        whole, rows = _whole_indices(*idxs)
+        ctx.save_for_backward(table, *whole)
+        return _reg_rows([table[i] for i in idxs], rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -294,5 +350,6 @@ def reg_loss_counted(table: torch.Tensor, *idxs: torch.Tensor) -> torch.Tensor:
     scatter-free backward of `reg_loss_indexed`: d(table) =
     g · (Σ_i count_i / len(i)) ⊙ table. Values equal reg_loss(...); the
     backward equals the JAX one (which adds 1/len(i) per occurrence)
-    when every len(i) is a power of two."""
+    when every len(i) is a power of two. Under a data split as
+    `reg_loss_indexed`."""
     return _RegLossCounted.apply(table, *idxs)

@@ -220,31 +220,31 @@ _DUALS = {"int8": ("fused_adj_matmul_int8_t", "fused_adj_matmul_int8"),
 def dual_t_route(m: torch.Tensor, d: int, quant: str) -> str | None:
     """Which kernel gives the raw sums of `quant_fused_dual_t` at width
     ``d`` on the stored matrix ``m``: 't' (K1 or K5, which take d = 64),
-    'n' (K7 or K8 on the transposed integers, d % 32 == 0), or None where
-    neither takes the shapes (ROADMAP B.B1: the JAX T-kernel takes any d
-    whose accumulators fit). The CPU runs the plain versions, which take
-    any width: 't' at d = 64, else 'n'."""
+    'n' (K7 or K8 on the transposed integers, at any d: a width off 32
+    runs on zero-padded features, `fusedmm.padded_features`), or None
+    where M's padded shape fits neither. The CPU runs the plain versions,
+    which take any width: 't' at d = 64, else 'n'."""
     u_pad, cols = m.shape
     i_pad = 2 * cols if quant == "int4" else cols
     if fusedmm.kernel_accepts(u_pad, i_pad, d, quant):
         return "t"
-    if m.device.type == "cpu" or fusedmm.kernel_accepts_n(u_pad, i_pad, d, quant):
+    if m.device.type == "cpu" or fusedmm.kernel_accepts_n(u_pad, i_pad,
+                                                          fusedmm.feature_pad(d), quant):
         return "n"
     return None
 
 
 def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: str):
     """(qiT · Mᵀ, quT · M) as float32 raw integer sums, [d, N] layout, on
-    the kernel `dual_t_route` names; a width no kernel takes raises."""
+    the kernel `dual_t_route` names; a matrix neither takes raises."""
     d = quT.shape[0]
     route = dual_t_route(m, d, quant)
     t_name, n_name = _DUALS[quant]
     if route == "t":
         return getattr(fusedmm, t_name)(m, quT, qiT)
     if route is None:
-        raise ValueError(
-            f"the quantized dual in [d, N] layout at d = {d}: K1/K5 take d = 64 and K7/K8 "
-            "d % 32 == 0 on this matrix; no kernel of the port takes it (ROADMAP B.B1)")
+        raise ValueError(f"the quantized dual in [d, N] layout: no kernel of the port takes "
+                         f"M's padded shape {tuple(m.shape)}")
     yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous())
     return yu.T, yi.T
 
@@ -280,9 +280,9 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
     Each row (feature) is quantized on its own (K3), so rows stacked side
     by side (SGL's chains at k·d, `fused_chain_views_t`) give each block
     the bits it gets alone. The raw sums come from K1 / K5 at d = 64 and
-    from K7 / K8 on the transposed integers at other multiples of 32
-    (`dual_t_route`; the same integers in either layout); on the card
-    any other width raises."""
+    from K7 / K8 on the transposed integers at every other width
+    (`dual_t_route`; the same integers in either layout; off 32 on
+    zero-padded features)."""
     if quant not in _DUALS:
         raise ValueError(f"unknown quant mode {quant!r}")
     return _QuantFusedDualT.apply(m, ziT, zuT, quant)
@@ -1177,8 +1177,8 @@ def ref_views_fit(graph, n_chains: int, d: int) -> bool:
 def supports_chain_views_t(graph, n_chains: int, d: int) -> bool:
     """True when `fused_chain_views_t` applies: `supports_chain_t`'s
     conditions, no self-loop diag, the JAX package's rule (`ref_views_fit`)
-    and a kernel that takes the chains side by side at ``n_chains · d``
-    (`dual_t_route`; the CPU's plain versions take any width)."""
+    and a kernel that takes M's padded shape (`dual_t_route`: every width
+    of the chains side by side, ``n_chains · d``)."""
     if not supports_chain_t(graph) or graph.has_diag or not ref_views_fit(graph, n_chains, d):
         return False
     return dual_t_route(graph.m8, n_chains * d, graph.quant) is not None

@@ -26,8 +26,13 @@ CUDA's ``index_add_`` alone would not.
 
 `gather_batch_embeddings` and `gather_user_pos` are plain indexing
 forward; their backward is one K4 launch per destination table (the
-item table takes pos and neg concatenated). `correction` is SGL's sum
-over an edge-dropout view's dropped edges, K4 both ways.
+item table takes pos and neg concatenated). Under a data split
+(`parallel.mesh.split_batch`) the indices are the rank's slice of the
+batch: the backward all-gathers the rows' cotangents over the data axis
+(`parallel.mesh.WholeBatch`) and K4 scatters the whole batch's in batch
+order, so every data rank gets one process's table cotangent, bit for
+bit. `correction` is SGL's sum over an edge-dropout view's dropped
+edges, K4 both ways.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import functools
 import torch
 
 from idgrec_torch.ops import _build
+from idgrec_torch.parallel import mesh as mesh_lib
 
 _K4 = "scatter_add_rows"
 
@@ -172,13 +178,13 @@ def _f32(g: torch.Tensor) -> torch.Tensor:
 class _GatherBatch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, user_all, item_all, u, p, n):
-        ctx.save_for_backward(u, p, n)
+        ctx.batch = mesh_lib.WholeBatch(u, p, n)
         ctx.shapes = (user_all.shape[0], item_all.shape[0], user_all.dtype, item_all.dtype)
         return user_all[u], item_all[p], item_all[n]
 
     @staticmethod
     def backward(ctx, gu, gp, gn):
-        u, p, n = ctx.saved_tensors
+        (u, p, n), (gu, gp, gn) = ctx.batch.indices, ctx.batch.cotangents(gu, gp, gn)
         nu, ni, udtype, idtype = ctx.shapes
         du = scatter_add_rows_unchecked(u, _f32(gu), nu)
         di = scatter_add_rows_unchecked(torch.cat([p, n]), _f32(torch.cat([gp, gn])), ni)
@@ -196,13 +202,13 @@ def gather_batch_embeddings(user_all: torch.Tensor, item_all: torch.Tensor, u: t
 class _GatherUserPos(torch.autograd.Function):
     @staticmethod
     def forward(ctx, user_all, item_all, u, p):
-        ctx.save_for_backward(u, p)
+        ctx.batch = mesh_lib.WholeBatch(u, p)
         ctx.shapes = (user_all.shape[0], item_all.shape[0], user_all.dtype, item_all.dtype)
         return user_all[u], item_all[p]
 
     @staticmethod
     def backward(ctx, gu, gp):
-        u, p = ctx.saved_tensors
+        (u, p), (gu, gp) = ctx.batch.indices, ctx.batch.cotangents(gu, gp)
         nu, ni, udtype, idtype = ctx.shapes
         du = scatter_add_rows_unchecked(u, _f32(gu), nu)
         di = scatter_add_rows_unchecked(p, _f32(gp), ni)

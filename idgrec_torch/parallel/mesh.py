@@ -9,20 +9,33 @@ One process a card, joined in one `torch.distributed` process group
   count matrix M are row-sharded over it (`EpochRunner`,
   `parallel.spmm_shard`); each rank scores and ranks its slice of the
   items (`parallel.topk`);
-* ``data``: each rank of a model group looks up the rows of its slice of
-  every batch (`models.base.batch_final_embeddings`), the slices are
-  all-gathered and the tables' row cotangents summed over the data
-  group. That is all it splits: every rank then computes the whole
-  batch's loss and every product but M's, so a (2, n/2) mesh does the
-  work of a (1, n) mesh twice and holds twice the rows of M a rank. The
-  default shape is the JAX package's rule (2x2 on 4 cards), kept for
-  parity, not for speed; no run on several cards has compared the two
-  layouts (ROADMAP A.12).
+* ``data``: each step's batch is split over it as the JAX package shards
+  its batches (``P(None, "data")``): data rank r takes rows
+  [r·B/D, (r+1)·B/D) of the batch (`split_batch`, entered by
+  `EpochRunner.run_epoch`) and computes only those rows' loss and their
+  backward. Its loss is a share: the D shares sum to the whole batch's
+  loss. What the rows couple is gathered: in-batch contrasts take the
+  rank's rows against the all-gathered batch (`gather_batch`), a log of
+  a mean over the batch's pairs all-reduces the pair sum
+  (`all_reduce`), batch norm its statistics; a collective's backward
+  is its adjoint under that sum, as JAX transposes it (all-gather ↔
+  sum of the cotangent and the rank's own block; all-reduce ↔
+  all-reduce).
 
 Activations stay replicated within the model group: every rank holds
 the whole [N, d] input of an application and gets its whole output
-(`parallel.spmm_shard`), so the model code runs unchanged on every rank
-and computes the same loss.
+(`parallel.spmm_shard`), so the propagation runs whole on every rank of
+a model group. Every tensor that is the same on every data rank enters
+the split part of a step through a data sum: the batch's row lookups
+(`lookup`, and K4's gathers in ops/scatter.py, both through
+`WholeBatch`) all-gather the rows' cotangents and scatter the whole
+batch, every other read sums its
+cotangent over "data" (`data_sum`). So the propagation's backward runs
+once per model group on the summed cotangent, as the JAX package runs
+its custom VJP on the cotangent its shard_map sums over "data": the
+quantized chains round their cotangent by its amax, so summing their
+partial gradients after the backward would not be JAX's result, and
+there is no gradient all-reduce after ``backward()``.
 
 The shape rules are the JAX package's: power-of-two axes, by default a
 data axis of the largest power of two <= sqrt(n), ``data_parallel``
@@ -52,8 +65,8 @@ def get_active_mesh() -> "Mesh | None":
 @contextmanager
 def use_mesh(mesh: "Mesh | None"):
     """Bind ``mesh`` as the active mesh for the duration (None binds none):
-    the adjacency builders shard M over it, the chains decline under its
-    model axis and the batch lookups split over its data axis."""
+    the adjacency builders shard M over it and the chains decline under
+    its model axis."""
     global _ACTIVE_MESH
     prev = _ACTIVE_MESH
     _ACTIVE_MESH = mesh
@@ -211,37 +224,213 @@ class _GatherOwnGrad(torch.autograd.Function):
         return g[ctx.index * ctx.rows: (ctx.index + 1) * ctx.rows], None, None, None
 
 
-class _SumGrad(torch.autograd.Function):
-    """Identity; the backward sums the cotangent over the axis."""
-
-    @staticmethod
-    def forward(ctx, x, group, width):
-        ctx.group, ctx.width = group, width
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_sum(g, ctx.group, ctx.width), None, None
-
-
 def gather_model_rows(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A row-sharded table gathered whole over the model axis;
     differentiable, the gradient of the rank's own rows."""
     return _GatherOwnGrad.apply(shard, mesh.model_group, mesh.model, mesh.model_index)
 
 
-def split_rows_fn(fn, tables, idxs, mesh: Mesh | None):
-    """``fn(*tables, *idxs)``, a lookup returning one row block an index,
-    with the rows split over the data axis: the rank looks up the rows of
-    its slice of the indices and the slices are all-gathered, so every
-    rank holds the whole batch's rows; the backward keeps the rank's rows
-    of the cotangent and sums the tables' cotangents over the data group.
-    The index length divides the data axis."""
+# ---------------------------------------------------------------------------
+# the data axis: a step's batch split over it
+
+
+_ACTIVE_SPLIT: "DataSplit | None" = None
+
+
+@dataclass(eq=False)
+class DataSplit:
+    """The split of one step's batch of ``batch`` rows over ``mesh``'s data
+    axis: this rank takes rows [lo, lo + rows). ``indices`` pairs each of
+    the rank's index slices with the whole batch's index tensor."""
+
+    mesh: Mesh
+    batch: int
+    indices: tuple = ()
+
+    @property
+    def parts(self) -> int:
+        return self.mesh.data
+
+    @property
+    def rows(self) -> int:
+        return self.batch // self.mesh.data
+
+    @property
+    def lo(self) -> int:
+        return self.mesh.data_index * self.rows
+
+    def whole_index(self, idx: torch.Tensor) -> torch.Tensor:
+        """The whole batch's indices of which ``idx`` is this rank's slice:
+        the batch's own tensor for a slice `split_batch` made, else the
+        slices all-gathered."""
+        for part, whole in self.indices:
+            if idx is part:
+                return whole
+        return all_gather_rows(idx, self.mesh.data_group, self.parts)
+
+
+def active_split() -> "DataSplit | None":
+    """The data split of the step being run, or None (no mesh, a data
+    axis of 1, or outside `EpochRunner.run_epoch`)."""
+    return _ACTIVE_SPLIT
+
+
+@contextmanager
+def split_batch(mesh: "Mesh | None", batch: dict[str, torch.Tensor]):
+    """Split ``batch`` (int64 [B] index tensors) over the mesh's data axis
+    for the duration and yield this rank's rows of it; with no mesh or a
+    data axis of 1 the batch itself, and no split. B divides the axis."""
+    global _ACTIVE_SPLIT
     if mesh is None or mesh.data == 1:
-        return fn(*tables, *idxs)
-    b = idxs[0].shape[0] // mesh.data
-    lo = mesh.data_index * b
-    ts = [_SumGrad.apply(t, mesh.data_group, mesh.data) for t in tables]
-    outs = fn(*ts, *(i[lo: lo + b] for i in idxs))
-    return tuple(_GatherOwnGrad.apply(o, mesh.data_group, mesh.data, mesh.data_index)
-                 for o in outs)
+        yield batch
+        return
+    b = next(iter(batch.values())).shape[0]
+    split = DataSplit(mesh, b)
+    own = {k: v[split.lo: split.lo + split.rows] for k, v in batch.items()}
+    split.indices = tuple((own[k], batch[k]) for k in batch)
+    prev = _ACTIVE_SPLIT
+    _ACTIVE_SPLIT = split
+    try:
+        yield own
+    finally:
+        _ACTIVE_SPLIT = prev
+
+
+def batch_rows(n: int) -> int:
+    """The whole batch's row count for a rank's block of ``n`` rows: n
+    times the data axis under a split, else n."""
+    split = _ACTIVE_SPLIT
+    return n if split is None else n * split.parts
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a tensor over the whole batch (dim 0 of B
+    rows); ``x`` itself without a split."""
+    split = _ACTIVE_SPLIT
+    return x if split is None else x[split.lo: split.lo + split.rows]
+
+
+def whole_index(idx: torch.Tensor) -> torch.Tensor:
+    """The whole batch's indices of which ``idx`` is this rank's slice
+    (`DataSplit.whole_index`); ``idx`` itself without a split."""
+    split = _ACTIVE_SPLIT
+    return idx if split is None else split.whole_index(idx)
+
+
+def share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a term every rank computes whole from tensors
+    that entered through `data_sum`, `gather_batch` or `all_reduce`:
+    x / D, so that the D shares sum to the term."""
+    split = _ACTIVE_SPLIT
+    return x if split is None else x / float(split.parts)
+
+
+class _DataSum(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over the data axis."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.split
+        return all_reduce_sum(g, sp.mesh.data_group, sp.parts), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the data axis; its adjoint is the same sum."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return all_reduce_sum(x, split.mesh.data_group, split.parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.split
+        return all_reduce_sum(g, sp.mesh.data_group, sp.parts), None
+
+
+class _GatherBatch(torch.autograd.Function):
+    """The ranks' row blocks all-gathered in rank order; the backward sums
+    the cotangent over the data axis and keeps the rank's own block."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return all_gather_rows(x, split.mesh.data_group, split.parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.split
+        g = all_reduce_sum(g, sp.mesh.data_group, sp.parts)
+        return g[sp.lo: sp.lo + sp.rows], None
+
+
+class WholeBatch:
+    """What the backward of a gather of batch rows scatters: made in the
+    forward from the rank's index slices, it keeps the whole batch's
+    indices (`indices`) and all-gathers the rows' cotangents over the data
+    axis (`cotangents`), so the scatter runs over the whole batch as in
+    one process and every data rank gets the data sum of the table's
+    cotangent. Without a split both are the rank's own."""
+
+    def __init__(self, *idxs: torch.Tensor):
+        self.split = _ACTIVE_SPLIT
+        self.indices = idxs if self.split is None else tuple(
+            self.split.whole_index(i) for i in idxs)
+
+    def cotangents(self, *grads: torch.Tensor) -> tuple:
+        sp = self.split
+        if sp is None:
+            return grads
+        return tuple(all_gather_rows(g.contiguous(), sp.mesh.data_group, sp.parts)
+                     for g in grads)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[idx]`` for this rank's slice ``idx`` of the batch; the
+    backward scatters the whole batch's cotangent (`WholeBatch`), as one
+    process's indexing backward does."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.batch, ctx.shape = WholeBatch(idx), table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (whole,), (g_all,) = ctx.batch.indices, ctx.batch.cotangents(g)
+        return g.new_zeros(ctx.shape).index_put_((whole,), g_all, accumulate=True), None
+
+
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    """The data-sum boundary: ``x``, a tensor that is the same on every
+    data rank, read by the rank's part of the step; the backward sums its
+    cotangent over the data axis. Identity without a split."""
+    split = _ACTIVE_SPLIT
+    return x if split is None else _DataSum.apply(x, split)
+
+
+def all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data axis (differentiable, the backward
+    the same sum). Identity without a split."""
+    split = _ACTIVE_SPLIT
+    return x if split is None else _AllReduce.apply(x, split)
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """The whole batch's rows of a tensor of which ``x`` is this rank's
+    block (differentiable: the cotangent summed over the data axis, the
+    rank's block kept). ``x`` itself without a split."""
+    split = _ACTIVE_SPLIT
+    return x if split is None else _GatherBatch.apply(x, split)
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``, ``table`` the same on every data rank and ``idx``
+    this rank's slice of the batch: the backward scatters the whole
+    batch's cotangent (`_Lookup`). Plain indexing without a split."""
+    return table[idx] if _ACTIVE_SPLIT is None else _Lookup.apply(table, idx)

@@ -260,6 +260,160 @@ def suite_mesh_training(rank: int, inputs: dict) -> dict:
                       log_dir=None, echo=False, mesh=mesh, device="cpu",
                       checkpoint_dir=inputs["ck_single"])
     out["ck_resume"] = _run_summary(res)
+
+    # from carried JAX weights, steps of models whose loss couples the
+    # batch's rows
+    for name, (cfg, start) in inputs["jax_parity"].items():
+        with use_mesh(mesh):
+            model = get_model(name)(Config(cfg), data, device="cpu")
+        convert.load_jax_params(model, start)
+        runner = EpochRunner(model, float(cfg["learn_rate"]), int(cfg["batch_size"]),
+                             int(cfg["batch_size"]), mesh=mesh)
+        out["jax_parity", name] = [
+            (runner.run_epoch(*_t64(u, p, n), epoch=i).numpy().copy(),
+             runner.tables.params_numpy()) for i, (u, p, n) in enumerate(inputs["triples"])]
+
+    # one step of every zoo model, and the rows each loss function receives
+    rows = []
+    record_loss_rows(rows)
+    for name, cfg in inputs["zoo_steps"].items():
+        with use_mesh(mesh):
+            model = get_model(name)(Config(cfg), data, device="cpu")
+        runner = EpochRunner(model, float(cfg["learn_rate"]), int(cfg["batch_size"]),
+                             int(cfg["batch_size"]), mesh=mesh)
+        (u, p, n), epoch, gen = step_inputs(name, model, inputs["triples"][0])
+        del rows[:]
+        terms = runner.run_epoch(u, p, n, generator=gen, epoch=epoch)
+        out["zoo_step", name] = dict(terms=terms.numpy().copy(), grads=_whole_grads(runner),
+                                     rows=list(rows))
+    return out
+
+
+def _whole_grads(runner) -> dict:
+    """The step's gradient of every table at its true shape (a collective
+    over the model axis), None for a table without one."""
+    tables, out = runner.tables, {}
+    for k, p in zip(tables.names, tables.parameters()):
+        if p.grad is None:
+            out[k] = None
+        elif k in tables.shards:
+            out[k] = tables._whole(k, p.grad)
+        else:
+            out[k] = p.grad.detach().numpy().copy()
+    return out
+
+
+# the loss functions whose first argument holds a batch's rows, by module
+LOSS_FUNCTIONS = {
+    "idgrec_torch.ops.losses": (
+        "bpr_loss", "align_loss", "uniform_loss", "neighbor_aggregate_loss", "lightcscf_loss",
+        "margin_alignment_loss", "dot_uniformity_loss", "infonce_loss", "infonce_loss_all",
+        "infonce_loss_sum", "lightgcl_ssl_loss", "elbo_loss", "batch_mean"),
+    "idgrec_torch.models.simgcl": ("masked_infonce_loss",),
+    "idgrec_torch.models.xsimgcl": ("masked_infonce_loss",),
+    "idgrec_torch.models.sccf": ("batch_mean",),
+    "idgrec_torch.models.recdcl": ("batch_mean", "batch_norm"),
+}
+# the L2 terms, by the position of their first index argument
+REG_FUNCTIONS = {"reg_loss_indexed": 2, "reg_loss_counted": 1}
+
+
+def record_loss_rows(log: list) -> None:
+    """Wrap every loss function of `LOSS_FUNCTIONS` and `REG_FUNCTIONS`
+    where the models look it up, so that each call appends (name, the
+    rows of its batch argument) to ``log``."""
+    import importlib
+
+    def wrap(fn, name, arg):
+        def recorded(*a, **k):
+            log.append((name, int(a[arg].shape[0])))
+            return fn(*a, **k)
+        return recorded
+
+    for module, names in LOSS_FUNCTIONS.items():
+        mod = importlib.import_module(module)
+        for name in names:
+            setattr(mod, name, wrap(getattr(mod, name), name, 0))
+    losses = importlib.import_module("idgrec_torch.ops.losses")
+    for name, arg in REG_FUNCTIONS.items():
+        setattr(losses, name, wrap(getattr(losses, name), name, arg))
+
+
+def saved_shapes(fn):
+    """``fn()``'s result and the shapes of the float tensors autograd
+    saved for the backward while it ran."""
+    import torch
+
+    shapes = []
+
+    def pack(t):
+        if t.is_floating_point():
+            shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, shapes
+
+
+def propagation_cotangents(model) -> dict:
+    """Hook LightGCN's ``propagate``: the returned dict receives the
+    cotangents of the propagated user and item tables in the backward."""
+    cot, prop = {}, model.propagate
+
+    def hooked():
+        ua, ia = prop()
+        ua.register_hook(lambda g: cot.__setitem__("user_emb", g.detach().clone()))
+        ia.register_hook(lambda g: cot.__setitem__("item_emb", g.detach().clone()))
+        return ua, ia
+
+    model.propagate = hooked
+    return cot
+
+
+def step_inputs(name: str, model, triple, epoch_seed: int = 3):
+    """One step's inputs for a zoo model: the epoch context it needs (NCL
+    past its warm-up, SGL's views), the triple as int64 tensors, the
+    epoch and the step's generator."""
+    import numpy as np
+    import torch
+
+    epoch = model.warmup_epochs if name == "NCL" else 0
+    model.epoch_context(epoch, np.random.default_rng(epoch_seed))
+    return _t64(*triple), epoch, torch.Generator().manual_seed(11)
+
+
+def suite_data_axis(rank: int, inputs: dict) -> dict:
+    """A (2, 1) mesh: LightGCN's step in int8, int4 and dense bfloat16, the
+    cotangent entering its propagation, the rows each loss function
+    receives, and CGCL's kept scores."""
+    import torch
+
+    from idgrec_torch.config import Config
+    from idgrec_torch.data.dataset import make_synthetic_dataset
+    from idgrec_torch.engine.trainer import EpochRunner
+    from idgrec_torch.models import get_model
+    from idgrec_torch.parallel.mesh import make_mesh, use_mesh
+
+    data = make_synthetic_dataset(*inputs["shape"], seed=inputs["seed"], name="tiny")
+    mesh = make_mesh(data_parallel=2, device="cpu")
+    assert (mesh.data, mesh.model) == (2, 1)
+    rows = []
+    record_loss_rows(rows)
+    out = {"index": mesh.data_index}
+    for key, (name, cfg) in inputs["cases"].items():
+        with use_mesh(mesh):
+            model = get_model(name)(Config(cfg), data, device="cpu")
+        cot = propagation_cotangents(model) if name == "LightGCN" else {}
+        runner = EpochRunner(model, float(cfg["learn_rate"]), int(cfg["batch_size"]),
+                             int(cfg["batch_size"]), mesh=mesh)
+        (u, p, n), epoch, gen = step_inputs(name, model, inputs["triple"])
+        del rows[:]
+        terms, shapes = saved_shapes(lambda: runner.run_epoch(u, p, n, generator=gen,
+                                                              epoch=epoch))
+        out[key] = dict(terms=terms.numpy().copy(), grads=_whole_grads(runner),
+                        params=runner.tables.params_numpy(), rows=list(rows), saved=shapes,
+                        cot={k: v.numpy() for k, v in cot.items()})
     return out
 
 

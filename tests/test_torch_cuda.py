@@ -61,7 +61,12 @@ reads M sixteen times and stays within its bar. K6 with one side left out
 version and gives the bits of the same side of the two-sided launch;
 `DenseRectAdj.matmul_both` gives the bits of its two one-direction calls
 in one launch; LightGCL's and CVGA's steps on K6 stay within K6's bars of
-the same steps on the plain version, without a synchronisation."""
+the same steps on the plain version, without a synchronisation. At
+widths off 32 (d = 16 and 48) K6, K7 and K8 run on features zero-padded
+to the next multiple of 32: K7 and K8 equal their plain versions bit for
+bit, K6 stays within its bar, and so do `FusedSquareAdj.matmul`,
+`quant_fused_dual_t` and SGL's quantized views on them against the same
+calls on the plain versions."""
 
 from __future__ import annotations
 
@@ -1300,8 +1305,8 @@ def test_n_layout_kernels_reject_what_they_do_not_take(cuda, kernel, case):
             m = z((1024 * cols + 1,))[1:].view(1024, cols)
         else:
             au = z((1024 * 64 + 1,))[1:].view(1024, 64)
-    elif case == "width":
-        au, ai = z((1024, 48), act), z((cols, 48), act)
+    elif case == "width":  # no feature: every other width runs (off 32 on padded features)
+        au, ai = z((1024, 0), act), z((cols, 0), act)
     elif case == "columns":
         bad = 1024 if kernel == "k8" else 384
         m, ai = z((1024, bad // 2 if kernel == "k8" else bad)), z((bad, 64), act)
@@ -2598,3 +2603,88 @@ def test_mesh_shard_products_equal_plain_and_assemble(cuda, width, route):
                 torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-6 * float(b.abs().max()))
             else:
                 assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# widths off 32: K6, K7 and K8 on zero-padded features
+
+
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("kernel", ["k6", "k7", "k8"])
+def test_off_32_widths_equal_plain(cuda, kernel, d):
+    """The wrapper pads the features to `fusedmm.feature_pad` (d), launches
+    once and slices: K7 and K8 equal their plain versions at d bit for
+    bit, K6 within its bar, each across two launches."""
+    rng = np.random.default_rng(d)
+    m = _counts(rng, 2048, 2048, 0.04, 3).to(cuda)
+    fn, plain = {"k6": (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_plain),
+                 "k7": (fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain),
+                 "k8": (fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain)}[kernel]
+    if kernel == "k6":
+        au = torch.from_numpy(rng.normal(size=(2000, d)).astype(np.float32)).to(cuda)
+        ai = torch.from_numpy(rng.normal(size=(1900, d)).astype(np.float32)).to(cuda)
+    else:
+        au, ai = _int8(rng, (2048, d)).to(cuda), _int8(rng, (2048, d)).to(cuda)
+    if kernel == "k8":
+        m = fusedmm.pack_nibbles(m)
+    before = fn.launches
+    got, again, want = fn(m, au, ai), fn(m, au, ai), plain(m, au, ai)
+    assert fn.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.shape == c.shape and torch.equal(a, b)
+        if kernel == "k6":
+            assert bool(((a - c).abs() <= 3e-5 * c.abs() + 3e-6 * c.abs().max()).all())
+        else:
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("dtype", ["int8", "int4", "bfloat16"])
+def test_fused_matmul_and_dual_t_at_off_32_widths(cuda, monkeypatch, dtype, d):
+    """`FusedSquareAdj.matmul` (K7, K8, K6) and, quantized,
+    `quant_fused_dual_t` (SGL's views route, K7 / K8 on the transposed
+    integers) at d = 16 and 48, forward and backward, against the same
+    calls with the plain versions swapped in: quantized bit for bit, K6
+    within its bars."""
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, "sym", "fused", compute_dtype=dtype, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(d)
+    n = data.num_users + data.num_items
+    x = torch.randn((n, d), generator=g).to(cuda)
+    ct = torch.randn((n, d), generator=g).to(cuda)
+    quant = dtype != "bfloat16"
+
+    def dual_t(z):
+        nu, (u_pad, i_pad) = data.num_users, adj.padded_shape
+        yu_t, yi_t = propagate.quant_fused_dual_t(
+            adj.m8, propagate._pad_cols(z[nu:].T, i_pad), propagate._pad_cols(z[:nu].T, u_pad),
+            dtype)
+        return torch.cat([yu_t[:, :nu], yi_t[:, :data.num_items]], dim=1).T
+
+    def run():
+        outs = []
+        for fn in [adj.matmul] + ([dual_t] if quant else []):
+            xt = x.clone().requires_grad_(True)
+            y = fn(xt)
+            (y * ct).sum().backward()
+            outs.append((y.detach(), xt.grad))
+        return outs
+
+    if quant:
+        assert propagate.dual_t_route(adj.m8, d, dtype) == "n"
+    launches = {k: getattr(fusedmm, k).launches for k in (
+        "fused_adj_matmul", "fused_adj_matmul_int8", "fused_adj_matmul_int4")}
+    got = run()
+    assert any(getattr(fusedmm, k).launches > v for k, v in launches.items())
+    for name in ("fused_adj_matmul_int8", "fused_adj_matmul_int4"):
+        monkeypatch.setattr(fusedmm, name, getattr(fusedmm, f"{name}_plain"))
+    monkeypatch.setattr(propagate, "quantize_rows", propagate.quantize_rows_plain)
+    monkeypatch.setattr(fusedmm, "_fused_fwd", lambda m8, zu, zi: fusedmm.fused_adj_matmul_plain(
+        m8, zu, zi))
+    want = run()
+    for (y, gx), (wy, wg) in zip(got, want):
+        if quant:
+            assert torch.equal(y, wy) and torch.equal(gx, wg)
+        else:
+            assert bool(((y - wy).abs() <= 3e-5 * wy.abs() + 3e-6 * wy.abs().max()).all())
+            assert float((gx - wg).abs().max()) <= 2.0 ** -7 * float(wg.abs().max())

@@ -386,3 +386,69 @@ def test_self_loop_variant_takes_the_loop(datasets):
     got = t_base.lightgcn_propagate(t, torch.from_numpy(x), 1, True, "mean")
     h1 = np.asarray(j.matmul(jnp.asarray(x)))
     np.testing.assert_allclose(got.numpy(), (x + h1) / 2.0, **TIGHT)
+
+
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("mode", ["int8", "int4", "bf16"])
+def test_padded_features_give_the_unpadded_plain_version(mode, d):
+    """How K6, K7 and K8 run a width off 32 on the card: the features
+    zero-padded to `feature_pad` (d), the results sliced back. Through
+    the plain versions: K7's and K8's integer sums equal the unpadded call
+    bit for bit; K6's plain version (a float32 product whose order of
+    additions may follow the width) within TIGHT, and the padded features
+    of every result are the kernels' (no extra column survives)."""
+    rng = np.random.default_rng(d)
+    m = torch.from_numpy(_counts(rng, (128, 2048), top=7))
+    wide = t_fused.feature_pad(d)
+    assert wide % 32 == 0 and wide - d < 32
+    assert t_fused.kernel_accepts_n(128, 2048, wide, mode)
+    assert not t_fused.kernel_accepts_n(128, 2048, d, mode)
+    if mode == "bf16":
+        zu, zi = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in ((100, d), (2000, d)))
+        fn, args = t_fused.fused_adj_matmul_plain, (m, zu, zi)
+    else:
+        qu, qi = (torch.from_numpy(_acts(rng, s)) for s in ((128, d), (2048, d)))
+        fn = (t_fused.fused_adj_matmul_int8_plain if mode == "int8"
+              else t_fused.fused_adj_matmul_int4_plain)
+        args = (m if mode == "int8" else t_fused.pack_nibbles(m), qu, qi)
+    got = t_fused.padded_features(fn, *args)
+    want = fn(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        if mode == "bf16":
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **TIGHT)
+        else:
+            assert torch.equal(g, w)
+    if mode == "bf16":  # one side left out, as the rectangular adjacency runs it
+        yu, yi = t_fused.padded_features(fn, m, None, zi)
+        assert yi is None and yu.shape == (128, d)
+        np.testing.assert_allclose(yu.numpy(), fn(m, None, zi)[0].numpy(), **TIGHT)
+
+
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_duals_at_an_off_32_width_are_the_padded_route(quant, d):
+    """`quant_fused_dual_t` (the [d, N] route SGL's views take at 3d) and
+    `FusedSquareAdj.matmul` at d = 16 and 48: equal bit for bit to the
+    same functions run on features zero-padded to `feature_pad` (d), the
+    card's route; the forward and the straight-through backward."""
+    data = t_dataset.make_synthetic_dataset(150, 300, 2000, 100, seed=3, name="w")
+    adj = t_prop.build_adjacency(data, "sym", "fused", compute_dtype=quant, device="cpu")
+    assert t_prop.dual_t_route(adj.m8, d, quant) == "n"
+    rng = np.random.default_rng(d + 1)
+    n = data.num_users + data.num_items
+    x, ct = (rng.normal(size=(n, d)).astype(np.float32) for _ in range(2))
+    wide = t_fused.feature_pad(d)
+    xw = np.pad(x, ((0, 0), (0, wide - d)))
+    ctw = np.pad(ct, ((0, 0), (0, wide - d)))
+    for fn in (adj.matmul,
+               lambda z: t_prop.fused_chain_t(adj, z, 1, include_layer0=False, reduce="sum")):
+        outs = []
+        for a, c in ((x, ct), (xw, ctw)):
+            xt = torch.from_numpy(a).requires_grad_(True)
+            y = fn(xt)
+            (y * torch.from_numpy(c)).sum().backward()
+            outs.append((y.detach(), xt.grad))
+        (y, g), (yw, gw) = outs
+        assert torch.equal(y, yw[:, :d]) and torch.equal(g, gw[:, :d])

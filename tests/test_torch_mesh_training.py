@@ -1,7 +1,8 @@
 """Training, evaluation, serving and checkpoints of the port on a 2x2
 mesh (data 2 x model 2) of one gloo group of 4 CPU ranks, against the
 JAX package on its own 2x2 mesh (4 of the session's 8 CPU devices) and
-against the port on one process.
+against the port on one process. Each data rank computes its half of
+every batch's loss and backward (ROADMAP A.12).
 
 The group runs every case once (tests/_torch_mesh_worker.py
 ``suite_mesh_training``) while the parent computes the references; the
@@ -13,7 +14,14 @@ Bars:
   against JAX's mesh: the loss terms within rtol 1e-5, the tables after
   each step within tests/test_torch_training.py's bars (0.25 learn_rate
   an entry, 1e-3 learn_rate on average: Adam turns a round-off
-  difference of a near-zero gradient into up to one learn_rate);
+  difference of a near-zero gradient into up to one learn_rate); the
+  same for DirectAU and EGCF (uniformity and in-batch InfoNCE, whose
+  rows the data split couples), their loss terms within rtol 3e-5 /
+  atol 3e-6;
+* one step of every zoo model against the port on one process: the
+  loss terms within rtol 3e-5 / atol 3e-6, the gradients within 2**-7
+  of the largest entry (the port's bars on the card, PERF.md §2); every
+  loss function a rank calls receives half the batch's rows;
 * whole runs against the port on one process: LightGCN's per-epoch loss
   within rtol 2e-3 / atol 1e-4 and its best recall within 1e-6
   (tests/test_parallel.py:76-94); SGL, RecDCL, NCL and CVGA with the
@@ -36,11 +44,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_mesh_worker import Group
+from _torch_mesh_worker import Group, step_inputs
 from idgrec_torch.config import Config as TConfig
 from idgrec_torch.config import load_model_config as t_load_config
 from idgrec_torch.data.dataset import make_synthetic_dataset as t_make
 from idgrec_torch.engine.evaluator import Evaluator as TEvaluator
+from idgrec_torch.engine.trainer import EpochRunner as TRunner
 from idgrec_torch.engine.loop import train_model as t_train
 from idgrec_torch.models import available_models as t_available
 from idgrec_torch.models import get_model as t_get_model
@@ -134,8 +143,52 @@ def start(data):
     return jax.device_get(jmodel.init_params(jax.random.PRNGKey(7)))
 
 
+# models whose loss couples the batch's rows, against JAX's 2x2 mesh
+JAX_PARITY = ("DirectAU", "EGCF")
+TERMS = dict(rtol=3e-5, atol=3e-6)
+GRAD = 2.0 ** -7
+
+
+def _jax_parity_cfg(name):
+    cfg = _zoo_cfg(name)
+    cfg["GCN_layer"] = "2"
+    return cfg
+
+
 @pytest.fixture(scope="module")
-def run(tmp_path_factory, data, start):
+def parity_start(data):
+    """(config, JAX's initial tables) of each `JAX_PARITY` model."""
+    out = {}
+    for name in JAX_PARITY:
+        cfg = _jax_parity_cfg(name)
+        jmodel = j_get_model(name)(JConfig({**cfg, "propagation_backend": "fused"}), data[1])
+        out[name] = (cfg, jax.device_get(jmodel.init_params(jax.random.PRNGKey(7))))
+    return out
+
+
+def _zoo_step_cfgs():
+    """Every model's config for its one-step comparison."""
+    cfgs = {name: _zoo_cfg(name) for name in ZOO}
+    cfgs["LightGCN"] = _cfg()
+    cfgs.update({name: _cfg(**extra) for name, (extra, _) in HARD.items()})
+    return cfgs
+
+
+def _zoo_step_ref(tdata, name, cfg, triple):
+    """One step of ``name`` on one process, as the worker's
+    ``zoo_steps`` runs it on the mesh."""
+    model = t_get_model(name)(TConfig(cfg), tdata, device="cpu")
+    runner = TRunner(model, float(cfg["learn_rate"]), int(cfg["batch_size"]),
+                     int(cfg["batch_size"]))
+    (u, p, n), epoch, gen = step_inputs(name, model, triple)
+    terms = runner.run_epoch(u, p, n, generator=gen, epoch=epoch)
+    return dict(terms=terms.numpy(), grads={
+        k: None if p_.grad is None else p_.grad.numpy().copy()
+        for k, p_ in model.named_parameters()})
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory, data, start, parity_start):
     """The group's results (rank by rank) and the parent's references."""
     tdata = data[0]
     tmp = tmp_path_factory.mktemp("mesh_training")
@@ -148,7 +201,8 @@ def run(tmp_path_factory, data, start):
               "step_cfgs": {mode: _cfg(**cfg) for mode, (cfg, _) in MODES.items()},
               "sgl_cfgs": {mode: _sgl_cfg(mode) for mode in MODES},
               "runs": _runs(), "ratings": _ratings(), "k": K, "eval_cfg": eval_cfg,
-              "users": USERS, "dir": str(tmp), "ck_single": str(tmp / "ck_single_for_mesh")}
+              "users": USERS, "dir": str(tmp), "ck_single": str(tmp / "ck_single_for_mesh"),
+              "jax_parity": parity_start, "zoo_steps": _zoo_step_cfgs()}
     group = Group("mesh_training", tmp / "group", 4, inputs)
     refs = {key: _summary(t_train(name, tdata, config=TConfig(cfg), seed=seed, log_dir=None,
                                   echo=False, device="cpu"))
@@ -156,6 +210,8 @@ def run(tmp_path_factory, data, start):
     refs["resume"] = _summary(t_train("LightGCN", tdata, config=TConfig(eval_cfg).updated(
         training_epochs=3), seed=3, log_dir=None, echo=False, device="cpu",
         checkpoint_dir=str(ck_single)))
+    refs["zoo_steps"] = {name: _zoo_step_ref(tdata, name, cfg, inputs["triples"][0])
+                         for name, cfg in inputs["zoo_steps"].items()}
     return group.join(), refs, inputs
 
 
@@ -208,6 +264,65 @@ def test_steps_on_the_mesh_match_jax_mesh(run, jax_steps, mode, step):
         for k in ("user_emb", "item_emb"):
             diff = np.abs(tparams[k] - np.asarray(jparams[k])) / LR
             assert diff.max() <= 0.25 and diff.mean() <= 1e-3, (k, diff.max(), diff.mean())
+
+
+@pytest.fixture(scope="module")
+def jax_parity_steps(data, parity_start, run):
+    """Three steps of each `JAX_PARITY` model on JAX's 2x2 mesh from the
+    carried tables and the same triples: (terms, tables) after each."""
+    jmesh = j_make_mesh(4, data_parallel=2)
+    out = {}
+    for name, (cfg, start_) in parity_start.items():
+        jmodel = j_get_model(name)(JConfig({**cfg, "propagation_backend": "fused"}), data[1])
+        jmodel.device_put()
+        jrun = JRunner(jmodel, float(cfg["learn_rate"]), B, B, mesh=jmesh)
+        params = jax.tree.map(np.array, start_)
+        opt_state = jrun.init_opt_state(params)
+        params, opt_state, state = jrun.shard(params, opt_state, {})
+        steps = []
+        for i, (u, p, n) in enumerate(run[2]["triples"]):
+            args = [np.asarray(a, np.int32) for a in (u, p, n)]
+            params, opt_state, state, terms = jrun.run_epoch(
+                params, opt_state, state, (), *args, jax.random.PRNGKey(1), i)
+            steps.append((np.asarray(terms), jax.device_get(jrun.unpad(params, state)[0])))
+        out[name] = steps
+    return out
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+@pytest.mark.parametrize("name", JAX_PARITY)
+def test_batch_coupled_steps_on_the_mesh_match_jax_mesh(run, jax_parity_steps, name, step):
+    """DirectAU's uniformity and EGCF's in-batch InfoNCE take each data
+    rank's rows against the gathered batch: the steps match JAX's, whose
+    batch is sharded over its "data" axis."""
+    jterms, jparams = jax_parity_steps[name][step]
+    lr = float(run[2]["jax_parity"][name][0]["learn_rate"])
+    for rank_out in run[0]:
+        tterms, tparams = rank_out["jax_parity", name][step]
+        np.testing.assert_allclose(tterms, jterms, **TERMS)
+        for k, v in jparams.items():
+            diff = np.abs(tparams[k] - np.asarray(v)) / lr
+            assert diff.max() <= 0.25 and diff.mean() <= 1e-3, (k, diff.max(), diff.mean())
+
+
+@pytest.mark.parametrize("name", sorted(_zoo_step_cfgs()))
+def test_zoo_step_on_the_mesh_matches_one_process(run, name):
+    """One step of every model on the 2x2 mesh, each data rank on its half
+    of the batch, against one process: the loss terms (the ranks' shares
+    summed) and the gradients; every loss function a rank called got B/2
+    rows."""
+    want = run[1]["zoo_steps"][name]
+    for rank_out in run[0]:
+        got = rank_out["zoo_step", name]
+        np.testing.assert_allclose(got["terms"], want["terms"], **TERMS)
+        for k, a in want["grads"].items():
+            if a is None:
+                assert got["grads"][k] is None, k
+                continue
+            err = float(np.abs(got["grads"][k] - a).max())
+            assert err <= GRAD * float(np.abs(a).max()), (name, k, err)
+        rows = got["rows"]
+        assert rows and {n for _, n in rows} == {B // 2}, sorted(set(rows))
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -303,9 +418,10 @@ def test_hard_models_match_one_process(run, name):
 
 @pytest.mark.parametrize("name", ZOO)
 def test_zoo_epoch_matches_one_process(run, name):
-    """One epoch of every other model: the batch-coupled terms (in-batch
-    InfoNCE, uniformity, batch norm), the noise draws and the full-table
-    contrasts see the whole batch on every rank."""
+    """One epoch of every other model: each data rank computes the loss of
+    its half of every batch, the batch-coupled terms (in-batch InfoNCE,
+    uniformity, batch norm) against the gathered batch, the full-table
+    contrasts on its rows; the noise is drawn as on one process."""
     got, ref = run[0][0]["run", (name, "zoo")], run[1][(name, "zoo")]
     np.testing.assert_allclose(_losses(got), _losses(ref), rtol=2e-3, atol=1e-4)
     for k, a in ref["params"].items():

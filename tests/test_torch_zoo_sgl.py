@@ -532,6 +532,36 @@ def test_one_step_matches_jax(datasets, reference, route, aug):
         _grad_close(getattr(tmodel, k).grad.numpy(), first["grads"][k], grad_bar)
 
 
+@pytest.mark.parametrize("route", VIEWS_ROUTES)
+def test_quantized_views_at_an_off_32_width_match_jax(datasets, route):
+    """At d = 16 the three chains run side by side at 3d = 48, a width off
+    32 (on the card K7 / K8 on features zero-padded to 64): one step from
+    carried JAX weights against JAX's, at the quantized routes' bars."""
+    tdata, jdata = datasets
+    cfg = _sgl_cfg(route, embedding_size="16")
+    jmodel = j_get_model("SGL")(JConfig(cfg), jdata)
+    jmodel.device_put()
+    params = jmodel.init_params(jax.random.PRNGKey(SEED))
+    ctx = jmodel.epoch_context(params, {}, 0, np.random.default_rng(VIEW_SEED))
+    batch = _batch(tdata, np.random.default_rng(0))
+
+    def loss(p):
+        terms, _ = jmodel.loss_terms(p, {}, ctx, _jbatch(*batch), jax.random.PRNGKey(0), 0)
+        return sum(terms), terms
+
+    (_, jterms), jgrads = jax.value_and_grad(loss, has_aux=True)(params)
+    tmodel = t_get_model("SGL")(TConfig(cfg), tdata, device="cpu")
+    convert.load_jax_params(tmodel, jax.device_get(params))
+    tmodel.epoch_context(0, np.random.default_rng(VIEW_SEED))
+    assert tmodel._views_route and tmodel.embedding_size == 16
+    terms = tmodel.loss_terms(_tbatch(*batch))
+    np.testing.assert_allclose([float(t.detach()) for t in terms], np.asarray(jterms),
+                               rtol=QUANT_LOSS_RTOL)
+    sum(terms).backward()
+    for k in ("item_emb", "user_emb"):
+        _grad_close(getattr(tmodel, k).grad.numpy(), np.asarray(jgrads[k]), NOISE_GRAD)
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_three_adam_steps_match_jax(datasets, reference, route):
     ref = reference(route)
