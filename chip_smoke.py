@@ -36,18 +36,20 @@ run under ``torch.cuda.set_sync_debug_mode("error")``. K7 and K8 (the
 per-application duals in [N, d] layout) are held to K1 and K5 on the
 transposed activations, K8 to K7 on the unpacked matrix, and three
 `FusedSquareAdj.matmul` calls to the chain's layers, exactly;
-K6 (the bfloat16 dual) to its plain version within a stated tolerance
-at d = 64 and 128, where its launcher reports one read of M,
-bit-equal across two launches, one call under
+K6 (the bfloat16 dual) on the adjacency's plan of M (no read of M) and
+K6's scan to its fixed-point plain version bit for bit and to the
+float32 one within a stated tolerance at d = 64 and 128, bit-equal
+across two launches, one call under
 ``torch.cuda.set_sync_debug_mode("error")``, and its backward to
 autograd through the plain version. K4 is held to its plain version bit
 for bit through the training step's entry (one launch per table, no
 range check) and the public one, on 4,096 copies of one row, and across
 two launches; the
 gathers' backward runs under ``torch.cuda.set_sync_debug_mode("error")``.
-K7 and K8 are held across two launches at d = 64 and d = 128, where
-their launcher reports one read of the stored matrix (`fusedmm.scan_passes`
-states the same rule). Then it drives the paths, each with the
+K7 and K8 are held across two launches at d = 64 and d = 128, K7 on
+the plan (no read of M) and on its scan, K8 on its scan (one read of
+the stored matrix; `fusedmm.dual_path` and `fusedmm.scan_passes` state
+the rule). Then it drives the paths, each with the
 launch counts set to 0 just before and read just after:
 
 * serving, int8: `serving.Recommender` answers four requests, checked
@@ -154,8 +156,8 @@ launch counts set to 0 just before and read just after:
   six layers with its three groups in one at d = 192 and its Â·E, which
   feeds only its gates, forward alone; NGCF's and GCCF's three layers on
   the `self` adjacency, GCMC's one; LightGODE's one Euler step under its
-  MF_init; RecDCL's two layers at d = 2,048, sixteen reads of M a
-  launch): one step against the plain route (K6's plain version), the
+  MF_init; RecDCL's two layers at d = 2,048; every K6 launch on the
+  adjacency's plan, no read of M): one step against the plain route (K6's plain version), the
   step's noise from a fresh CUDA generator seeded alike for both (RecDCL
   from the same histories, which both steps rewrite alike), one step under sync debug mode "error", a
   request of 256 users against the plain route's server (the eval
@@ -173,11 +175,11 @@ launch counts set to 0 just before and read just after:
   sums on K4) under sync debug mode "error", equal bit for bit to the
   same clustering on K4's plain version, timed, its steps with a
   non-zero prototype term and the 24 steps' path clustering first; K6 on
-  amazon-book's M timed beside its bound; K6 at d = 192 on SimGCL's M
-  (three reads of M a launch) held to its plain version and timed beside
+  amazon-book's M timed beside its bound; K6 at d = 192 on SimGCL's M's
+  plan held to its fixed-point plain version bit for bit and timed beside
   three d = 64 applications and its bound; K6 at d = 2,048 on RecDCL's
-  M (sixteen reads of M a launch) held to its plain version and timed
-  beside its bound and a library call; one NGCF step with node dropout
+  M's plan held to it likewise and timed beside its bound and a library
+  call; one NGCF step with node dropout
   (the gather backend, the dropped edge values' transpose through the
   graph's permutation) under sync debug mode "error"; MAWU through
   `main.main(["--model=MAWU", ...])` from files;
@@ -225,6 +227,15 @@ launch counts set to 0 just before and read just after:
   bit for bit to the run without one; where several
   cards are visible, one NCCL rank a card on (1, n) and (2, n/2) meshes
   held to one card (with one card a line says it did not take place);
+* the plan of M (`plan_phase`): K6 and K7 walking the plan of the
+  yelp2018-scale dense M (its build timed, its bytes printed) against
+  their scan, bit for bit to the plain versions on both paths, at d = 64,
+  128 (and K6 one-sided both ways, the rectangular directions), 192 and
+  K6 at 2,048, each timed (CUDA events) beside `torch.matmul` x2 on a
+  bfloat16 copy of M or `torch._int_mm` x2 and two bounds (one read of
+  M; the plan in its place), with the card's name and power limit; the
+  walk no slower than the library at the widths the scan lost to it and
+  than the scan by 5 % anywhere;
 * widths off 32 (`widths_phase`, ROADMAP B.B1): K7, K8 and K6 at d = 16
   and 48 on the yelp2018-scale M through their wrappers, which zero-pad
   the features to the next multiple of 32 and slice (K7, K8 bit-equal to
@@ -305,9 +316,10 @@ F32_OPS = 67e12
 # and scores.
 # K7's and K8's raw integer products are equal to their plain versions',
 # to K1's and K5's on the transposed activations and to each other;
-# three `FusedSquareAdj.matmul` calls equal the chain's layers. K6 is
-# within TIGHT of its plain version (identical bfloat16 operands, exact
-# products each rounded once to 64-bit fixed point at 2**-31 of the
+# three `FusedSquareAdj.matmul` calls equal the chain's layers. K6, on
+# the plan and on the scan, equals `fused_adj_matmul_fixed_plain` and is
+# within TIGHT of its float32 plain version (identical bfloat16 operands,
+# exact products each rounded once to 64-bit fixed point at 2**-31 of the
 # largest activation, integer sums) and equal
 # across two launches; its backward is within BF16 of the largest
 # gradient of autograd through the plain version (the kernel rounds the
@@ -597,7 +609,7 @@ def plain_duals(fusedmm, propagate):
     keep every float32 block of M for the backward, 19 GB an application
     at amazon-book scale). A one-sided call (the rectangular adjacency's)
     runs `propagate.exact_matmul`, the route K6 replaced there."""
-    def k6_plain(m8, zu, zi):
+    def k6_plain(m8, zu, zi, plan=None):
         if zu is None or zi is None:
             # one direction (the rectangular adjacency): `propagate.exact_matmul`,
             # the route K6 replaced there, with the same backward rule
@@ -810,17 +822,21 @@ def sgl_phase(h) -> dict:
     table_bytes_s = 4 * (nu + ni) * DIM
     require(isinstance(g_s, propagate.DenseSquareAdj) and g_s.quant == "none"
             and g_s.compute_dtype_name == "bfloat16" and g_s.runs_kernel(DIM)
-            and g_s.runs_kernel(3 * DIM) and m_s._batched and m_s._shared is g_s.m,
-            "SGL: not the shared chain on K6 over the model's own binary matrix")
-    # one int8 copy of M: M's bytes and the tables, the scales and the
-    # allocator's rounding, far below a second copy
-    require(m_bytes_s <= resident_s < m_bytes_s + 2 * table_bytes_s,
-            f"SGL: the model holds {resident_s} bytes on the card, M is {m_bytes_s}")
+            and g_s.runs_kernel(3 * DIM) and m_s._batched and m_s._shared is g_s.m
+            and m_s._shared_plan is g_s.plan is not None,
+            "SGL: not the shared chain on K6 over the model's own binary matrix and its plan")
+    # one int8 copy of M and its plan: M's bytes, the plan's and the tables,
+    # the scales and the allocator's rounding, far below a second copy
+    plan_bytes_s = g_s.plan.nbytes
+    require(m_bytes_s + plan_bytes_s <= resident_s < m_bytes_s + plan_bytes_s + 2 * table_bytes_s,
+            f"SGL: the model holds {resident_s} bytes on the card, M is {m_bytes_s}, its plan "
+            f"{plan_bytes_s}")
     ctx_ms_s = host_ms(lambda: m_s.epoch_context(0, np.random.default_rng(ZOO_NOISE_SEED)), 3)
     view_s = m_s.views[0][0]
     n_drop_s = int(view_s.du_rows.numel())
-    require(n_drop_s == data.nnz - int(round(0.9 * data.nnz)) and view_s.m_bin is g_s.m,
-            f"SGL's view: {n_drop_s} dropped edges, or its own matrix")
+    require(n_drop_s == data.nnz - int(round(0.9 * data.nnz)) and view_s.m_bin is g_s.m
+            and view_s.plan is g_s.plan, f"SGL's view: {n_drop_s} dropped edges, or its own "
+                                         "matrix or plan")
     triple_s = neg_sampler.sample_epoch(gen)
     batch_s = dict(zip(("user", "pos", "neg"), (t_[:bs_s] for t_ in triple_s)))
     torch.cuda.synchronize()
@@ -833,8 +849,10 @@ def sgl_phase(h) -> dict:
     got_l = {k_: n for k_, n in one_s.items() if n}
     want_l = {"fused_adj_matmul": step_k6_s, "scatter_add_rows": step_k4_s}
     require(got_l == want_l, f"SGL: a step's launches {got_l}, expected {want_l}")
-    require(fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(3 * DIM) == 3,
-            f"SGL: K6 read M {fusedmm.fused_adj_matmul.passes} times at d = {3 * DIM}")
+    require((fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes)
+            == fusedmm.dual_path(3 * DIM, g_s.plan) == ("plan", 0),
+            f"SGL: K6 at d = {3 * DIM} took path {fusedmm.fused_adj_matmul.path}, read M "
+            f"{fusedmm.fused_adj_matmul.passes} times")
     require(step_mem_s < m_bytes_s,
             f"SGL: a step took {step_mem_s} bytes beyond the model's, above M's {m_bytes_s}")
     with plain_duals(fusedmm, propagate), plain_kernels(chainmm, scatter):
@@ -884,7 +902,8 @@ def sgl_phase(h) -> dict:
     call_s = lambda r_=one_run_s, p_=part_one_s: r_.run_epoch(*p_)  # noqa: E731
     nnz_s = int(data.nnz)
     k6_bound_s = bound(m_bytes_s + 8 * DIM * (nu + ni), 4.0 * nnz_s * DIM, bf16_ops)
-    k6_step_bound_s = bound(m_bytes_s + 8 * 3 * DIM * (nu + ni), 4.0 * nnz_s * 3 * DIM, bf16_ops)
+    k6_step_bound_s = bound(plan_bytes_s + 8 * 3 * DIM * (nu + ni), 4.0 * nnz_s * 3 * DIM,
+                            bf16_ops)
     res_s_ = dict(step_ms=step_ms_s, embed_ms=embed_ms_s, k6_bound=k6_bound_s,
                   step_mem_mb=step_mem_s / 1e6, mem_bar_mb=m_bytes_s / 1e6, kmeans_ms=None,
                   narrow_mem_mb=None)
@@ -955,10 +974,13 @@ def sgl_phase(h) -> dict:
             f"{res_s.last_result['recall']}")
     log(f"SGL (published config: shared chain on K6 at d = {3 * DIM}, {LAYERS} layers, batch "
         f"{bs_s}, ssl_ratio 0.1, {n_drop_s} dropped edges a view): built in {build_s:.1f} s, "
-        f"{resident_s / 1e6:.1f} MB on the card (M {m_bytes_s / 1e6:.1f} MB, one copy); "
+        f"{resident_s / 1e6:.1f} MB on the card (M {m_bytes_s / 1e6:.1f} MB, one copy, and its "
+        f"plan {plan_bytes_s / 1e6:.1f} MB; bar M's bytes, the plan's and twice the tables "
+        f"{(m_bytes_s + plan_bytes_s + 2 * table_bytes_s) / 1e6:.1f} MB); "
         f"epoch_context {ctx_ms_s:.1f} ms (two views); one step against the plain route "
         f"(bit-equal: {same_s}; loss terms within TIGHT, gradients within {err_s:.3e} of their "
-        f"largest entries), K6 x {step_k6_s} (3 reads of M each) and K4 x {step_k4_s} a step, "
+        f"largest entries), K6 x {step_k6_s} (on M's plan, no read of M) and K4 x {step_k4_s} "
+        f"a step, "
         f"one step under sync debug mode 'error'; a step's memory beyond the model's "
         f"{step_mem_s / 1e6:.1f} MB (bar: M's bytes); {step_ms_s:.3f} ms per step over "
         f"{ZOO_STEPS} steps, eval embeddings {embed_ms_s:.3f} ms ({repr_k6_s} K6 at d = {DIM}); "
@@ -1027,9 +1049,15 @@ def sgl_phase(h) -> dict:
         t_fn = (fusedmm.fused_adj_matmul_int8_t if quant == "int8"
                 else fusedmm.fused_adj_matmul_int4_t)
         before = n_fn.launches
-        raw_u, raw_i = propagate._raw_dual_t(g_q.m8, q_u, q_i, quant)
-        require(n_fn.launches == before + 1 and n_fn.passes == fusedmm.scan_passes(3 * DIM),
-                f"SGL {quant}: the views product did not run {n_fn.__name__} once")
+        raw_u, raw_i = propagate._raw_dual_t(g_q.m8, q_u, q_i, quant, g_q.plan)
+        # K7 walks the adjacency's plan; K8 scans the packed matrix
+        want_reads = (fusedmm.dual_path(3 * DIM, g_q.plan)[1] if quant == "int8"
+                      else fusedmm.scan_passes(3 * DIM))
+        require(n_fn.launches == before + 1 and n_fn.passes == want_reads
+                and (quant == "int4" or (g_q.plan is not None and n_fn.path == "plan")),
+                f"SGL {quant}: the views product did not run {n_fn.__name__} once "
+                f"({n_fn.passes} reads of M)")
+        plan_args_q = (g_q.plan,) if quant == "int8" else ()
         blocks = [t_fn(g_q.m8, q_u[j: j + DIM].contiguous(), q_i[j: j + DIM].contiguous())
                   for j in range(0, 3 * DIM, DIM)]
         require(torch.equal(raw_u, torch.cat([b_[0] for b_ in blocks]))
@@ -1041,13 +1069,14 @@ def sgl_phase(h) -> dict:
         plain_raw = plain_fn(g_q.m8, q_uN, q_iN)
         require(torch.equal(raw_u.T, plain_raw[0]) and torch.equal(raw_i.T, plain_raw[1]),
                 f"SGL {quant}: {n_fn.__name__} at {3 * DIM} differs from its plain version")
-        n_ms = cuda_ms(lambda: n_fn(g_q.m8, q_uN, q_iN), 20)
+        n_ms = cuda_ms(lambda: n_fn(g_q.m8, q_uN, q_iN, *plan_args_q), 20)
         n_plain = cuda_ms(lambda: plain_fn(g_q.m8, q_uN, q_iN), 2, 1)
         m_unpacked = g_q.m8 if quant == "int8" else fusedmm.unpack_nibbles(g_q.m8)
         n_lib = int_mm_ms(m_unpacked, q_u, q_i, raw_u, raw_i)
         del m_unpacked
         stored = g_q.m8.numel()
-        n_bound = bound(stored + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
+        n_bound = bound((g_q.plan.nbytes if plan_args_q else stored)
+                        + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
         views_k[quant] = dict(ms=n_ms, plain_ms=n_plain, library_ms=n_lib, bound=n_bound,
                               passes=n_fn.passes)
         del blocks, plain_raw, q_u, q_i, q_uN, q_iN, raw_u, raw_i, zuT, ziT, xT
@@ -1087,7 +1116,8 @@ def sgl_phase(h) -> dict:
             f"three {t_fn.__name__} launches on its {DIM}-row blocks and to its plain version; "
             f"one step against the plain route (bit-equal: {same_q}, gradients within "
             f"{err_q:.3e}), launches {one_q}; {q_step_ms:.3f} ms per step over {ZOO_STEPS} "
-            f"steps; {resident_q / 1e6:.1f} MB on the card")
+            f"steps; {resident_q / 1e6:.1f} MB on the card (M's plan "
+            f"{(g_q.plan.nbytes if g_q.plan is not None else 0) / 1e6:.1f} MB of it)")
         del m_q, g_q, runner_q, triple_q, batch_q
         torch.cuda.empty_cache()
     require(np.array_equal(quant_s["int8"]["terms"], quant_s["int4"]["terms"])
@@ -1256,24 +1286,35 @@ def mesh_phase(h) -> dict:
     shard_counts = {}
     for width in (2, 4):
         for case, (route, m, fwd_in, bwd_in) in cases.items():
-            reset_counts()
             ms_k = [shard_of(case, width, k_) for k_ in range(width)]
+            # one plan a shard, as `build_adjacency` makes it beside the shard
+            # (K6 and K7 walk it; K8 scans its packed shard)
+            plans_k = [fusedmm.dual_plan(m_k) if route != "k8" else None for m_k in ms_k]
             r = ms_k[0].shape[0]
+            reset_counts()
             parts = [tuple(spmm_shard.shard_dual(route, m_k, side[0][k_ * r:(k_ + 1) * r],
-                                                 side[1])
+                                                 side[1], plan=plans_k[k_])
                            for side in (fwd_in, bwd_in))
                      for k_, m_k in enumerate(ms_k)]
+            require(route == "k8" or single[route].path == "plan",
+                    f"mesh width {width} {case}: the shard's launch took "
+                    f"{getattr(single[route], 'path', 'scan')}")
             for name_, n_ in read_counts().items():
                 shard_counts[name_] = shard_counts.get(name_, 0) + n_
             for side, inputs in zip(range(2), (fwd_in, bwd_in)):
                 for k_, pair in enumerate(parts):
                     rows = slice(k_ * r, (k_ + 1) * r)
                     want = plain[route](ms_k[k_], inputs[0][rows], inputs[1])
-                    for what, a, b in zip(("yu_k", "yi_k"), pair[side], want):
+                    fixed = (fusedmm.fused_adj_matmul_fixed_plain(ms_k[k_], inputs[0][rows],
+                                                                  inputs[1], plans_k[k_])
+                             if route == "k6" else want)
+                    for what, a, b, fx in zip(("yu_k", "yi_k"), pair[side], want, fixed):
                         label = f"mesh width {width} shard {k_} {case} {what} ({side})"
                         if route == "k6":  # K6's bar: atol relative to the largest sum
                             assert_close(a, b, label, rtol=3e-5,
                                          atol=3e-6 * float(b.abs().max()))
+                            require(torch.equal(a, fx), f"{label}: not bit-equal to the "
+                                                        "fixed-point plain version")
                         else:
                             require(torch.equal(a, b),
                                     f"{label}: not bit-equal to the plain version")
@@ -1282,7 +1323,10 @@ def mesh_phase(h) -> dict:
                 yi = parts[0][side][1]
                 for pair in parts[1:]:
                     yi = yi + pair[side][1]
-                want = single[route](m, inputs[0][:m.shape[0]], inputs[1])
+                whole_plan = (None if route == "k8"
+                              else adj_d.plan if case.endswith("_dense") else adj.plan)
+                want = single[route](m, inputs[0][:m.shape[0]], inputs[1],
+                                     *(() if route == "k8" else (whole_plan,)))
                 for what, a, b in zip(("yu", "yi"), (yu, yi), want):
                     label = f"mesh width {width} assembled {case} {what} ({side})"
                     if route == "k6":
@@ -1294,13 +1338,17 @@ def mesh_phase(h) -> dict:
             nnz_0 = int(torch.count_nonzero(adj.m8[:r] if route == "k8" else m_0))
             act = 4 if route == "k6" else 1  # float32 or int8 activations in
             cols_in = fwd_in[1].shape[0]
-            shard_bytes = m_0.numel() + act * d * (r + cols_in) + 4 * d * (r + cols_in)
+            # the shard's input in place of M: its plan (K6, K7) or the
+            # packed shard (K8)
+            in_bytes = m_0.numel() if route == "k8" else plans_k[0].nbytes
+            shard_bytes = in_bytes + act * d * (r + cols_in) + 4 * d * (r + cols_in)
             bnd = bound(shard_bytes, 4.0 * nnz_0 * d, bf16_ops) if route == "k6" else bound(
                 shard_bytes, 4.0 * nnz_0 * d)
-            ms = cuda_ms(lambda: spmm_shard.shard_dual(route, m_0, fwd_in[0][:r], fwd_in[1]),
-                         10)
+            plan_0 = plans_k[0]
+            ms = cuda_ms(lambda: spmm_shard.shard_dual(route, m_0, fwd_in[0][:r], fwd_in[1],
+                                                       plan=plan_0), 10)
             times[width, case] = (ms, bnd)
-            del parts, ms_k, m_0
+            del parts, ms_k, m_0, plans_k, plan_0
     for route, fn in single.items():
         n_cases = sum(1 for r_, *_ in cases.values() if r_ == route)
         require(shard_counts.get(fn.__name__, 0) == 2 * (2 + 4) * n_cases,
@@ -1309,7 +1357,8 @@ def mesh_phase(h) -> dict:
         m = cases[case][1]
         log(f"mesh width {width}: {names[cases[case][0]]} on shard 0 of the "
             f"{'dense' if case.endswith('_dense') else 'fused'} M [{m.shape[0] // width}, "
-            f"{m.shape[1]}] {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]})")
+            f"{m.shape[1]}] {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"{'the packed shard' if cases[case][0] == 'k8' else 'its plan'} in)")
     log("mesh shards: every shard's product equal to its plain version (K7, K8 bit for bit, "
         "K6 within its bar), forward and backward, the assembled products the single launch's, "
         "on the fused and the dense M; launches "
@@ -1400,6 +1449,164 @@ def mesh_phase(h) -> dict:
             f"{multi_s:.1f} s")
     return {"paths": {"mesh_shards": shard_counts, "mesh_nccl_world1": nccl_counts},
             "times": times, "errs": errs, "multi": multi, "nccl_s": nccl_s}
+
+
+# the plan phase: K6 at these widths (64 and 128 also one-sided, the
+# rectangular adjacency's directions), K7 at those up to 192
+PLAN_WIDTHS = (64, 128, 192, 2048)
+PLAN_K7_WIDTHS = (64, 128, 192)
+PLAN_ITERS = 10
+
+
+def plan_phase(h) -> dict:
+    """K6 and K7 on the plan of the yelp2018-scale dense M (the zoo's
+    bfloat16 route; `fusedmm.dual_plan`, its build timed and its bytes
+    printed) against their scan and a library call, bit for bit: at each
+    of PLAN_WIDTHS, K6 on the plan and K6's scan both equal to
+    `fusedmm.fused_adj_matmul_fixed_plain`, each path as `fusedmm.dual_path`
+    states it; at 128 the one-sided launches (R̃ x_i, R̃ᵀ x_u) too; at each
+    of PLAN_K7_WIDTHS, K7 on the plan and K7's scan equal to
+    `fused_adj_matmul_int8_plain`. Times (CUDA events, mean of
+    PLAN_ITERS): the walk, the scan, `torch.matmul` x2 on a bfloat16 copy
+    of M (one call a direction one-sided) and `torch._int_mm` x2 (the
+    copies not counted), each beside two bounds: one read of M with the
+    activations in and the sums out, and the plan in place of M."""
+    from idgrec_torch.ops import fusedmm, propagate
+
+    data, dev, bound, bf16_ops = h.data, h.dev, h.bound, h.bf16_ops
+    adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=dev)
+    m = adj.m
+    require(adj.plan is not None, "the dense bfloat16 adjacency holds no plan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = fusedmm.dual_plan(m)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    require(all(torch.equal(a, b) for a, b in zip(plan.tensors(), adj.plan.tensors())),
+            "the adjacency's plan differs from the plan of its matrix")
+    list_bytes = {"users": sum(t.numel() * t.element_size() for t in plan.tensors()[:4]),
+                  "items": sum(t.numel() * t.element_size() for t in plan.tensors()[4:])}
+    u_pad, i_pad = m.shape
+    nu, ni = data.num_users, data.num_items
+    nnz = plan.nnz
+    m_bf = m.to(torch.bfloat16)
+    m_t = m.T.contiguous()
+    g = torch.Generator(device=dev).manual_seed(23)
+    k6, k7, rect = {}, {}, {}
+
+    def equal_all(got, want):
+        return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+
+    def paths(fn, d, given):
+        want = fusedmm.dual_path(d, given)
+        require((fn.path, fn.passes) == want, f"{fn.__name__} at d = {d}: path {fn.path}, "
+                                              f"{fn.passes} reads of M, {want} stated")
+        return want
+
+    for d in PLAN_WIDTHS:
+        zu = torch.randn((nu, d), generator=g, device=dev) * adj.right_u[:, None]
+        zi = torch.randn((ni, d), generator=g, device=dev) * adj.right_i[:, None]
+        want = fusedmm.fused_adj_matmul_fixed_plain(m, zu, zi, plan)
+        walk = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+        paths(fusedmm.fused_adj_matmul, d, plan)
+        again = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+        scan = fusedmm.fused_adj_matmul(m, zu, zi)
+        reads = paths(fusedmm.fused_adj_matmul, d, None)[1]
+        require(equal_all(walk, want) and equal_all(again, walk) and equal_all(scan, want),
+                f"K6 at d = {d}: the walk, a second walk or the scan differs from the "
+                "fixed-point plain version")
+        del walk, again, scan, want
+        zub = torch.nn.functional.pad(zu.to(torch.bfloat16), (0, 0, 0, u_pad - nu))
+        zib = torch.nn.functional.pad(zi.to(torch.bfloat16), (0, 0, 0, i_pad - ni))
+        io = 8 * d * (nu + ni)  # float32 activations in, float32 sums out
+        k6[d] = dict(
+            ms=cuda_ms(lambda: fusedmm.fused_adj_matmul(m, zu, zi, plan), PLAN_ITERS),
+            scan_ms=cuda_ms(lambda: fusedmm.fused_adj_matmul(m, zu, zi), PLAN_ITERS),
+            library_ms=cuda_ms(lambda: (m_bf @ zib, m_bf.T @ zub), PLAN_ITERS),
+            bound=bound(plan.nbytes + io, 4.0 * nnz * d, bf16_ops),
+            m_bound=bound(m.numel() + io, 4.0 * nnz * d, bf16_ops), scan_reads=reads,
+            path=fusedmm.dual_path(d, plan)[0], walk_features=fusedmm.walk_features(d))
+        if d == 128:
+            for side, a_, b_, rows_in, rows_out, lib in (
+                    ("users", None, zi, ni, u_pad, lambda: m_bf @ zib),
+                    ("items", zu, None, nu, i_pad, lambda: m_bf.T @ zub)):
+                want1 = fusedmm.fused_adj_matmul_fixed_plain(m, a_, b_, plan)
+                walk1 = fusedmm.fused_adj_matmul(m, a_, b_, plan)
+                paths(fusedmm.fused_adj_matmul, d, plan)
+                scan1 = fusedmm.fused_adj_matmul(m, a_, b_)
+                require(equal_all(walk1, want1) and equal_all(scan1, want1),
+                        f"K6 one-sided ({side}) at d = {d}: the walk or the scan differs from "
+                        "the fixed-point plain version")
+                del want1, walk1, scan1
+                io1 = 4 * d * (rows_in + rows_out)
+                rect[side] = dict(
+                    ms=cuda_ms(lambda: fusedmm.fused_adj_matmul(m, a_, b_, plan), PLAN_ITERS),
+                    scan_ms=cuda_ms(lambda: fusedmm.fused_adj_matmul(m, a_, b_), PLAN_ITERS),
+                    library_ms=cuda_ms(lib, PLAN_ITERS),
+                    bound=bound(list_bytes[side] + io1, 2.0 * nnz * d, bf16_ops),
+                    m_bound=bound(m.numel() + io1, 2.0 * nnz * d, bf16_ops))
+        del zu, zi, zub, zib
+        if d in PLAN_K7_WIDTHS:
+            qu = torch.randint(-127, 128, (u_pad, d), generator=g, device=dev, dtype=torch.int8)
+            qi = torch.randint(-127, 128, (i_pad, d), generator=g, device=dev, dtype=torch.int8)
+            want8 = fusedmm.fused_adj_matmul_int8_plain(m, qu, qi)
+            walk8 = fusedmm.fused_adj_matmul_int8(m, qu, qi, plan)
+            paths(fusedmm.fused_adj_matmul_int8, d, plan)
+            scan8 = fusedmm.fused_adj_matmul_int8(m, qu, qi)
+            reads8 = paths(fusedmm.fused_adj_matmul_int8, d, None)[1]
+            require(equal_all(walk8, want8) and equal_all(scan8, want8),
+                    f"K7 at d = {d}: the walk or the scan differs from its plain version")
+            del want8, walk8, scan8
+            qi_c, qu_c = qi.T.contiguous().T, qu.T.contiguous().T
+            io8 = 5 * d * (u_pad + i_pad)  # int8 activations in, float32 sums out
+            k7[d] = dict(
+                ms=cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(m, qu, qi, plan), PLAN_ITERS),
+                scan_ms=cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(m, qu, qi), PLAN_ITERS),
+                library_ms=cuda_ms(lambda: (torch._int_mm(m, qi_c), torch._int_mm(m_t, qu_c)),
+                                   PLAN_ITERS),
+                bound=bound(plan.nbytes + io8, 4.0 * nnz * d),
+                m_bound=bound(m.numel() + io8, 4.0 * nnz * d), scan_reads=reads8,
+                path=fusedmm.dual_path(d, plan)[0])
+            del qu, qi, qi_c, qu_c
+        torch.cuda.empty_cache()
+    del m_bf, m_t
+    card = card_line()
+    log(f"the plan of M {list(m.shape)} ({m.numel()} bytes, {nnz} entries): {plan.nbytes} bytes "
+        f"(the user list {list_bytes['users']}, the item list {list_bytes['items']}), built in "
+        f"{build_ms:.2f} ms; card {card}")
+    for tag, rows in (("K6", k6), ("K7", k7)):
+        lib_name = "torch.matmul x2 on a bfloat16 copy" if tag == "K6" else "torch._int_mm x2"
+        for d, r_ in rows.items():
+            log(f"{tag} at d = {d}: {r_['ms']:.4f} ms on the plan (path {r_['path']}, 0 reads of "
+                f"M) against its scan {r_['scan_ms']:.4f} ms ({r_['scan_reads']} reads of M) and "
+                f"{lib_name} {r_['library_ms']:.4f} ms; bounds {r_['bound'][0]:.4f} ms (the "
+                f"plan, by {r_['bound'][1]}) and {r_['m_bound'][0]:.4f} ms (one read of M, by "
+                f"{r_['m_bound'][1]}); bit-equal to the plain version on both paths; card {card}")
+    for side, r_ in rect.items():
+        what = "R̃ x_i (M @ zi)" if side == "users" else "R̃ᵀ x_u (Mᵀ @ zu)"
+        log(f"K6 one-sided at d = 128, {what}: {r_['ms']:.4f} ms on the plan against its scan "
+            f"{r_['scan_ms']:.4f} ms and torch.matmul on a bfloat16 copy {r_['library_ms']:.4f} "
+            f"ms; bounds {r_['bound'][0]:.4f} ms (one list of the plan) and "
+            f"{r_['m_bound'][0]:.4f} ms (one read of M); bit-equal to the plain version on both "
+            f"paths")
+    # the claims of the redesign: the walk no slower than the library at the
+    # widths the scan lost, and no slower than the scan by 5 % anywhere
+    for tag, rows, widths in (("K6", k6, (192, 2048)), ("K7", k7, (192,))):
+        for d in widths:
+            require(rows[d]["ms"] <= rows[d]["library_ms"],
+                    f"{tag} at d = {d}: the walk {rows[d]['ms']:.4f} ms is slower than the "
+                    f"library's {rows[d]['library_ms']:.4f} ms")
+    require(rect["items"]["ms"] <= rect["items"]["library_ms"],
+            f"K6 R̃ᵀ x_u at d = 128: {rect['items']['ms']:.4f} ms against the library's "
+            f"{rect['items']['library_ms']:.4f}")
+    for tag, rows in (("K6", k6), ("K7", k7)):
+        for d, r_ in rows.items():
+            require(r_["ms"] <= 1.05 * r_["scan_ms"], f"{tag} at d = {d}: the walk "
+                    f"{r_['ms']:.4f} ms against the scan's {r_['scan_ms']:.4f} ms")
+    del adj, m, plan
+    torch.cuda.empty_cache()
+    return {"k6": k6, "k7": k7, "rect": rect, "plan_bytes": list_bytes,
+            "plan_build_ms": build_ms, "nnz": nnz}
 
 
 # widths off 32 (ROADMAP B.B1): K6, K7 and K8 on zero-padded features
@@ -2649,6 +2856,13 @@ def main() -> int:
     require(torch.equal(yu7.view(torch.int32), yu7b.view(torch.int32))
             and torch.equal(yi7.view(torch.int32), yi7b.view(torch.int32)),
             f"K7 at d = {DIM}: two launches differ")
+    # the walk of the adjacency's plan: the scan's integers
+    yu7b, yi7b = fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN, adj.plan)
+    require((fusedmm.fused_adj_matmul_int8.path, fusedmm.fused_adj_matmul_int8.passes)
+            == fusedmm.dual_path(DIM, adj.plan) == ("plan", 0),
+            f"K7 at d = {DIM} on the plan: path {fusedmm.fused_adj_matmul_int8.path}")
+    require(torch.equal(yu7b, yu7) and torch.equal(yi7b, yi7),
+            f"K7 at d = {DIM}: the walk of the plan differs from the scan")
     del yu7b, yi7b
     yu8, yi8 = fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N)
     yu8_p, yi8_p = fusedmm.fused_adj_matmul_int4_plain(adj4.m8, quN, qi4N)
@@ -2667,11 +2881,13 @@ def main() -> int:
     log(f"K7 and K8 equal their plain versions, K1 and K5 transposed, and each other exactly "
         f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums); two launches of "
         "each bit-equal")
-    k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN), 20)
-    k7_64_passes = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
-    require(k7_64_passes == fusedmm.scan_passes(DIM) == 1,
-            f"K7 at d = {DIM}: {k7_64_passes} reads of M launched, {fusedmm.scan_passes(DIM)} "
-            "stated")
+    k7_64_scan_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN), 20)
+    k7_64_scan_passes = fusedmm.fused_adj_matmul_int8.passes  # as K7's launcher reports them
+    require(k7_64_scan_passes == fusedmm.scan_passes(DIM) == 1,
+            f"K7's scan at d = {DIM}: {k7_64_scan_passes} reads of M launched, "
+            f"{fusedmm.scan_passes(DIM)} stated")
+    k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN, adj.plan), 20)
+    k7_64_passes = fusedmm.fused_adj_matmul_int8.passes  # 0: the walk reads no M
     # K8 at d = 64 beside its bound, plain version and library call: m4 read
     # once, the activations in, the sums out; 4 operations per non-zero
     # entry and feature
@@ -2685,7 +2901,8 @@ def main() -> int:
     k8_64_lib = k5_lib  # the same function on the same inputs, transposed
     k1_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
     k5_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
-    log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms ({k7_64_passes} pass over M, as launched) beside K1 "
+    log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms on the plan (its scan {k7_64_scan_ms:.4f} ms, "
+        f"{k7_64_scan_passes} pass over M, as launched) beside K1 "
         f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms ({k8_64_passes} pass over m4, as launched; bound "
         f"{k8_64_bound[0]:.4f} ms by {k8_64_bound[1]}, plain {k8_64_plain:.4f} ms, "
         f"torch._int_mm x2 on the unpacked matrix {k8_64_lib}) beside K5 {k5_now:.4f} ms, per "
@@ -2716,45 +2933,57 @@ def main() -> int:
             "the exact model's tables differ from the int8 model's initial tables")
     zu6 = (adj_bf.right_u[:, None] * emb0[:nu]).contiguous()
     zi6 = (adj_bf.right_i[:, None] * emb0[nu:]).contiguous()
-    y6 = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
-    y6_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+    plan6 = adj_bf.plan
+    y6 = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6, plan6)
+    k6_passes = fusedmm.fused_adj_matmul.passes  # 0: the walk reads no M
+    require((fusedmm.fused_adj_matmul.path, k6_passes) == fusedmm.dual_path(DIM, plan6)
+            == ("plan", 0), f"K6 at d = {DIM}: path {fusedmm.fused_adj_matmul.path}")
+    y6_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6, plan6)
+    y6_scan = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+    require(fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(DIM) == 1,
+            f"K6's scan at d = {DIM}: {fusedmm.fused_adj_matmul.passes} reads of M launched")
+    y6_fixed = fusedmm.fused_adj_matmul_fixed_plain(adj_bf.m8, zu6, zi6, plan6)
     y6_p = fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6, zi6)
     errs["K6"] = 0.0
-    for what, a, b, c in zip(("yu", "yi"), y6, y6_again, y6_p):
+    for what, a, b, sc, fx, c in zip(("yu", "yi"), y6, y6_again, y6_scan, y6_fixed, y6_p):
         require(tuple(a.shape) == tuple(c.shape) and a.dtype == torch.float32
                 and bool(torch.isfinite(a).all()), f"K6 {what}: shape, type or non-finite")
         require(torch.equal(a, b), f"K6 {what}: two launches differ, max abs err {max_abs(a, b)}")
+        require(torch.equal(a, fx) and torch.equal(sc, fx),
+                f"K6 {what}: the walk or the scan differs from the fixed-point plain version, "
+                f"max abs err {max_abs(a, fx)}, {max_abs(sc, fx)}")
         assert_close(a, c, f"K6 {what}", **TIGHT)
-        errs["K6"] = max(errs["K6"], max_abs(a, c))
-    k6_passes = fusedmm.fused_adj_matmul.passes  # as K6's launcher reports them
-    require(k6_passes == fusedmm.scan_passes(DIM) == 1,
-            f"K6 at d = {DIM}: {k6_passes} reads of M launched, {fusedmm.scan_passes(DIM)} stated")
-    log(f"K6 matches its plain version (max abs err {errs['K6']:.3e}, largest sum "
+        errs["K6"] = max(errs["K6"], max_abs(a, fx))
+    log(f"K6 on the plan and K6's scan equal the fixed-point plain version bit for bit, within "
+        f"TIGHT of the float32 one (largest sum "
         f"{float(max(y6_p[0].abs().max(), y6_p[1].abs().max())):.3e}); two launches bit-equal; "
-        f"{k6_passes} read of M, as launched")
-    # K6 at d = 128 (one read of M for 128 features): the first application's
-    # inputs beside a second copy scaled by 1/2
+        f"the walk read M {k6_passes} times")
+    del y6_scan, y6_fixed
+    # K6 at d = 128: the first application's inputs beside a second copy
+    # scaled by 1/2
     zu6w, zi6w = (torch.cat([z_, 0.5 * z_], 1) for z_ in (zu6, zi6))
-    y6w = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w)
+    y6w = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w, plan6)
     k6_128_passes = fusedmm.fused_adj_matmul.passes
-    require(k6_128_passes == fusedmm.scan_passes(2 * DIM) == 1,
-            f"K6 at d = {2 * DIM}: {k6_128_passes} reads of M launched")
-    y6w_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w)
-    for what, a, b, c in zip(("yu", "yi"), y6w, y6w_again,
-                             fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6w, zi6w)):
+    require((fusedmm.fused_adj_matmul.path, k6_128_passes) == fusedmm.dual_path(2 * DIM, plan6)
+            == ("plan", 0), f"K6 at d = {2 * DIM}: path {fusedmm.fused_adj_matmul.path}")
+    y6w_again = fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w, plan6)
+    for what, a, b, fx, c in zip(("yu", "yi"), y6w, y6w_again,
+                                 fusedmm.fused_adj_matmul_fixed_plain(adj_bf.m8, zu6w, zi6w),
+                                 fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6w, zi6w)):
         require(torch.equal(a, b), f"K6 d = {2 * DIM} {what}: two launches differ")
+        require(torch.equal(a, fx), f"K6 d = {2 * DIM} {what}: differs from the fixed-point "
+                                    f"plain version, max abs err {max_abs(a, fx)}")
         assert_close(a, c, f"K6 d = {2 * DIM} {what}", **TIGHT)
-        errs["K6"] = max(errs["K6"], max_abs(a, c))
     # one K6 call with no synchronisation of the host
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        y6_nosync = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6)
+        y6_nosync = fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6, plan6)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     require(all(torch.equal(a, b) for a, b in zip(y6_nosync, y6)), "K6 under sync debug differs")
-    log(f"K6 at d = {2 * DIM}: within TIGHT of its plain version, two launches bit-equal, "
-        f"{k6_128_passes} read of M; one K6 call ran under sync debug mode 'error'")
+    log(f"K6 at d = {2 * DIM} on the plan: equal to the fixed-point plain version, two launches "
+        f"bit-equal, {k6_128_passes} reads of M; one K6 call ran under sync debug mode 'error'")
     del y6w, y6w_again, y6_nosync
     # the backward: the swapped product of the batch cotangent, against
     # autograd through the plain version
@@ -2762,7 +2991,7 @@ def main() -> int:
     grads6 = []
     for fn in (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_plain):
         a, b = zu6.clone().requires_grad_(True), zi6.clone().requires_grad_(True)
-        torch.autograd.backward(list(fn(adj_bf.m8, a, b)), list(g6))
+        torch.autograd.backward(list(fn(adj_bf.m8, a, b, plan6)), list(g6))
         grads6.append((a.grad, b.grad))
     for what, got, ref in zip(("d zu", "d zi"), *grads6):
         top = float(ref.abs().max())
@@ -2771,14 +3000,16 @@ def main() -> int:
     log(f"K6 backward (swapped cotangents) within {BF16} of autograd through the plain version")
     del grads6, y6_again
 
-    # M read once, the float32 activations in, the float32 sums out; the
-    # function's work is 4 operations per non-zero entry and feature
-    k6_bytes = u_pad * i_pad + 4 * d * (nu + ni) + 4 * d * (nu + ni)
+    # the plan (the main path's input in place of M), the float32
+    # activations in, the float32 sums out; the function's work is 4
+    # operations per non-zero entry and feature
+    k6_bytes = plan6.nbytes + 4 * d * (nu + ni) + 4 * d * (nu + ni)
     k6_bound = bound(k6_bytes, 4.0 * nnz * d, bf16_ops)
-    k6_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6), 20)
-    k6_128_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w), 20)
-    k6_128_bound = bound(u_pad * i_pad + 16 * d * (nu + ni), 8.0 * nnz * d, bf16_ops)
-    k6_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(adj_bf.m8, zu6, zi6), 3, 1)
+    k6_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6, zi6, plan6), 20)
+    k6_128_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(adj_bf.m8, zu6w, zi6w, plan6), 20)
+    k6_128_bound = bound(plan6.nbytes + 16 * d * (nu + ni), 8.0 * nnz * d, bf16_ops)
+    k6_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_fixed_plain(adj_bf.m8, zu6, zi6, plan6),
+                       3, 1)
     # library yardstick: two torch.matmul calls on a bfloat16 copy of M
     # (results rounded to bfloat16), the copy's time stated apart
     copy_ms = cuda_ms(lambda: adj_bf.m8.to(torch.bfloat16), 3, 1)
@@ -2790,7 +3021,8 @@ def main() -> int:
         require(max_abs(a[: c.shape[0]].float(), c) <= BF16 * float(c.abs().max()),
                 f"torch.matmul on the bfloat16 copy disagrees with K6's plain version ({what})")
     k6_lib = cuda_ms(lambda: (m_bf @ zi16, m_bf.T @ zu16), 10)
-    log(f"K6 {k6_ms:.4f} ms per application (bound {k6_bound[0]:.4f} ms by {k6_bound[1]}, plain "
+    log(f"K6 {k6_ms:.4f} ms per application on the plan (bound {k6_bound[0]:.4f} ms by "
+        f"{k6_bound[1]} at the plan's bytes, fixed-point plain "
         f"{k6_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6_lib:.4f} ms, the copy "
         f"{copy_ms:.4f} ms more); at d = {2 * DIM} {k6_128_ms:.4f} ms (bound "
         f"{k6_128_bound[0]:.4f} ms by {k6_128_bound[1]})")
@@ -3004,21 +3236,26 @@ def main() -> int:
     qi128_8 = qi128[:i_pad].contiguous()
     dw = WIDE_DIM
     wide_kernels, wide_out = {}, {}
-    for tag, fn, plain, m_store, qi_, cols in (
+    for tag, fn, plain, m_store, qi_, cols, plan_args in (
             ("K7", fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain, a128.m8,
-             qi128_8, i_pad),
+             qi128_8, i_pad, (a128.plan,)),
             ("K8", fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain, a128_4.m8,
-             qi128, i_pad4)):
-        got = fn(m_store, qu128, qi_)
+             qi128, i_pad4, ())):
+        got = fn(m_store, qu128, qi_, *plan_args)
         launched = fn.passes  # as the launcher reports them
-        require(launched == fusedmm.scan_passes(dw) == 1,
-                f"{tag} at d = {dw}: {launched} reads of the stored matrix launched, "
-                f"{fusedmm.scan_passes(dw)} stated; one expected")
+        # K7 walks the adjacency's plan (no read of M); K8 scans m4 once
+        if plan_args:
+            require((fn.path, launched) == fusedmm.dual_path(dw, a128.plan) == ("plan", 0),
+                    f"{tag} at d = {dw}: path {fn.path}, {launched} reads of M")
+        else:
+            require(launched == fusedmm.scan_passes(dw) == 1,
+                    f"{tag} at d = {dw}: {launched} reads of the stored matrix launched, "
+                    f"{fusedmm.scan_passes(dw)} stated; one expected")
         want = plain(m_store, qu128, qi_)
         err = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                 f"{tag} at d = {dw} differs from its plain version: max abs err {err}")
-        again = fn(m_store, qu128, qi_)
+        again = fn(m_store, qu128, qi_, *plan_args)
         require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(got, again)), f"{tag} at d = {dw}: two launches differ")
         del again
@@ -3028,14 +3265,16 @@ def main() -> int:
         # the function's work: the non-zero entries only (2 directions x 2 ops
         # each), the same entries packed or not
         ops = 4.0 * nnz * dw
-        bnd = bound(m_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols), ops)
-        ms = cuda_ms(lambda: fn(m_store, qu128, qi_), 20)
+        # K7: the plan in place of M
+        in_bytes = a128.plan.nbytes if plan_args else m_bytes
+        bnd = bound(in_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols), ops)
+        ms = cuda_ms(lambda: fn(m_store, qu128, qi_, *plan_args), 20)
         plain_ms = cuda_ms(lambda: plain(m_store, qu128, qi_), 3, 1)
         m_dense = fusedmm.unpack_nibbles(m_store) if tag == "K8" else m_store
         lib = int_mm_ms(m_dense, qu128.T.contiguous(), qi_.T.contiguous(),
                         got[0].T.contiguous(), got[1].T.contiguous())
         wide_kernels[tag] = (ms, plain_ms, bnd, lib)
-        log(f"{tag} at d = {dw}: {ms:.4f} ms per application, {launched} pass over the stored "
+        log(f"{tag} at d = {dw}: {ms:.4f} ms per application, {launched} passes over the stored "
             f"matrix, as launched (bound {bnd[0]:.4f} ms by {bnd[1]}, plain {plain_ms:.4f} ms, "
             f"torch._int_mm x2 on transposed operands {lib})")
         del got, want, m_dense
@@ -4022,22 +4261,26 @@ def main() -> int:
             "DENSE_COL_PAD")
     gen_r = torch.Generator(device=dev).manual_seed(3)
     rect_k6 = {}
+    plan_r = rb16.plan  # the adjacency's plan of M, which its products walk
     for d_r in (DIM, 2 * DIM):
         zi_r = torch.randn((ni, d_r), generator=gen_r, device=dev) * rb16.right[:, None]
         zu_r = torch.randn((nu, d_r), generator=gen_r, device=dev) * rb16.left[:, None]
-        one_u = fusedmm.fused_adj_matmul(m_r, None, zi_r)
-        one_i = fusedmm.fused_adj_matmul(m_r, zu_r, None)
+        one_u = fusedmm.fused_adj_matmul(m_r, None, zi_r, plan_r)
+        one_i = fusedmm.fused_adj_matmul(m_r, zu_r, None, plan_r)
         passes_r = fusedmm.fused_adj_matmul.passes
+        require((fusedmm.fused_adj_matmul.path, passes_r) == fusedmm.dual_path(d_r, plan_r)
+                == ("plan", 0), f"rectangular K6 at d = {d_r}: path "
+                                f"{fusedmm.fused_adj_matmul.path}")
         require(one_u[1] is None and one_i[0] is None
                 and tuple(one_u[0].shape) == (m_r.shape[0], d_r)
                 and tuple(one_i[1].shape) == (m_r.shape[1], d_r),
                 f"K6 one-sided at d = {d_r}: the absent side's result or the shapes")
-        dual_r = fusedmm.fused_adj_matmul(m_r, zu_r, zi_r)
+        dual_r = fusedmm.fused_adj_matmul(m_r, zu_r, zi_r, plan_r)
         require(torch.equal(dual_r[0], one_u[0][:nu]) and torch.equal(dual_r[1], one_i[1][:ni]),
                 f"K6 at d = {d_r}: a one-sided launch differs from the same side of the "
                 "two-sided launch")
-        require(torch.equal(fusedmm.fused_adj_matmul(m_r, None, zi_r)[0], one_u[0])
-                and torch.equal(fusedmm.fused_adj_matmul(m_r, zu_r, None)[1], one_i[1]),
+        require(torch.equal(fusedmm.fused_adj_matmul(m_r, None, zi_r, plan_r)[0], one_u[0])
+                and torch.equal(fusedmm.fused_adj_matmul(m_r, zu_r, None, plan_r)[1], one_i[1]),
                 f"K6 one-sided at d = {d_r}: two launches differ")
         plain_r = (fusedmm.fused_adj_matmul_plain(m_r, None, zi_r)[0],
                    fusedmm.fused_adj_matmul_plain(m_r, zu_r, None)[1])
@@ -4045,11 +4288,11 @@ def main() -> int:
             assert_close(got, want, f"K6 one-sided at d = {d_r}, {what}", **TIGHT)
         err_r = max(max_abs(one_u[0], plain_r[0]), max_abs(one_i[1], plain_r[1]))
         x_ = zi_r.clone().requires_grad_(True)
-        y_ = fusedmm.fused_adj_matmul(m_r, None, x_)[0]
+        y_ = fusedmm.fused_adj_matmul(m_r, None, x_, plan_r)[0]
         g_ = torch.randn(tuple(y_.shape), generator=gen_r, device=dev)
         y_.backward(g_)
         require(x_.grad is not None and tuple(x_.grad.shape) == (ni, d_r)
-                and torch.equal(x_.grad, fusedmm.fused_adj_matmul(m_r, g_, None)[1][:ni]),
+                and torch.equal(x_.grad, fusedmm.fused_adj_matmul(m_r, g_, None, plan_r)[1][:ni]),
                 f"K6 one-sided at d = {d_r}: the backward differs from the one-sided launch on "
                 "the cotangent")
         xi_d = torch.randn((ni, d_r), generator=gen_r, device=dev)
@@ -4068,30 +4311,35 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         del x_, y_, g_, both_r, plain_r, dual_r, one_u, one_i
         times_r = {
-            "users": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, None, zi_r), 20),
-            "items": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, None), 20),
-            "dual": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, zi_r), 20),
+            "users": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, None, zi_r, plan_r), 20),
+            "items": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, None, plan_r), 20),
+            "dual": cuda_ms(lambda: fusedmm.fused_adj_matmul(m_r, zu_r, zi_r, plan_r), 20),
             "plain_users": cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(m_r, None, zi_r), 3, 1),
             "plain_items": cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(m_r, zu_r, None), 3, 1),
         }
         m_copy = m_r.to(torch.bfloat16)
         z_copy = torch.nn.functional.pad(zi_r, (0, 0, 0, m_r.shape[1] - ni)).to(torch.bfloat16)
-        ref_lib = fusedmm.fused_adj_matmul(m_r, None, zi_r)[0][:nu]
+        ref_lib = fusedmm.fused_adj_matmul(m_r, None, zi_r, plan_r)[0][:nu]
         require(max_abs((m_copy @ z_copy)[:nu].float(), ref_lib)
                 <= BF16 * float(ref_lib.abs().max()),
                 "torch.matmul on the bfloat16 copy of M disagrees with K6")
         del ref_lib
         times_r["library"] = cuda_ms(lambda: m_copy @ z_copy, 10)
         del m_copy, z_copy
-        # one direction: M once, its input rows in and its output rows out
-        # (float32), 2 operations a non-zero entry and feature; the dual both
-        bnd_u = bound(m_r.numel() + 4.0 * d_r * (ni + nu), 2.0 * nnz_r * d_r, bf16_ops)
-        bnd_dual = bound(m_r.numel() + 8.0 * d_r * (ni + nu), 4.0 * nnz_r * d_r, bf16_ops)
-        rect_k6[d_r] = dict(times=times_r, bound=bnd_u, bound_dual=bnd_dual, err=err_r,
-                            passes=passes_r)
+        # one direction: its list of the plan (the larger of the two) or M
+        # once, its input rows in and its output rows out (float32), 2
+        # operations a non-zero entry and feature; the dual both
+        list_r = max(sum(t_.numel() * t_.element_size() for t_ in half)
+                     for half in (plan_r.tensors()[:4], plan_r.tensors()[4:]))
+        bnd_u = bound(list_r + 4.0 * d_r * (ni + nu), 2.0 * nnz_r * d_r, bf16_ops)
+        bnd_dual = bound(plan_r.nbytes + 8.0 * d_r * (ni + nu), 4.0 * nnz_r * d_r, bf16_ops)
+        m_bnd_u = bound(m_r.numel() + 4.0 * d_r * (ni + nu), 2.0 * nnz_r * d_r, bf16_ops)
+        rect_k6[d_r] = dict(times=times_r, bound=bnd_u, bound_dual=bnd_dual, m_bound=m_bnd_u,
+                            err=err_r, passes=passes_r)
         log(f"rectangular K6 at d = {d_r} on M {list(m_r.shape)} ({passes_r} read(s) of M a "
             f"launch): R̃ x_i {times_r['users']:.4f} ms, R̃ᵀ x_u {times_r['items']:.4f} ms a "
-            f"direction (bound {bnd_u[0]:.4f} by {bnd_u[1]}; plain {times_r['plain_users']:.4f} "
+            f"direction (bound {bnd_u[0]:.4f} by {bnd_u[1]} at one list of the plan, "
+            f"{m_bnd_u[0]:.4f} at one read of M; plain {times_r['plain_users']:.4f} "
             f"and {times_r['plain_items']:.4f}; torch.matmul on a bfloat16 copy "
             f"{times_r['library']:.4f}), both in one launch {times_r['dual']:.4f} ms (bound "
             f"{bnd_dual[0]:.4f}); one-sided launches within TIGHT of the plain version (max abs "
@@ -4781,6 +5029,7 @@ def main() -> int:
     widths_res = widths_phase(SimpleNamespace(adj=adj, adj4=adj4, dev=dev,
                                               reset_counts=reset_counts, read_counts=read_counts))
     rect_paths.update(widths_res["paths"])
+    plan_res = plan_phase(SimpleNamespace(data=data, dev=dev, bound=bound, bf16_ops=bf16_ops))
     rect_paths.update(data_axis_phase(SimpleNamespace(data=data, dev=dev))["paths"])
 
     # K6 on amazon-book's matrix, the largest it has run, beside its bound,
@@ -4791,16 +5040,16 @@ def main() -> int:
                              zoo_models["LightCCF"].item_emb).detach()
     zu_a = g_a.right_u[:, None] * emb_a[:nu_a]
     zi_a = g_a.right_i[:, None] * emb_a[nu_a:]
-    y_a = fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a)
-    y_a_again = fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a)
+    y_a = fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a, g_a.plan)
+    y_a_again = fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a, g_a.plan)
     y_a_plain = fusedmm.fused_adj_matmul_plain(g_a.m, zu_a, zi_a)
     for what, a, b, c in zip(("yu", "yi"), y_a, y_a_again, y_a_plain):
         require(torch.equal(a, b), f"K6 on amazon-book's M, {what}: two launches differ")
         assert_close(a, c, f"K6 on amazon-book's M, {what}", **TIGHT)
         errs["K6"] = max(errs["K6"], max_abs(a, c))
     nnz_a = int(amazon.nnz)
-    k6a_bound = bound(g_a.m.numel() + 8 * DIM * (nu_a + ni_a), 4.0 * nnz_a * DIM, bf16_ops)
-    k6a_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a), 20)
+    k6a_bound = bound(g_a.plan.nbytes + 8 * DIM * (nu_a + ni_a), 4.0 * nnz_a * DIM, bf16_ops)
+    k6a_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_a.m, zu_a, zi_a, g_a.plan), 20)
     k6a_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(g_a.m, zu_a, zi_a), 2, 1)
     m_bf_a = g_a.m.to(torch.bfloat16)
     zu16_a = torch.nn.functional.pad(zu_a.to(torch.bfloat16), (0, 0, 0, g_a.m.shape[0] - nu_a))
@@ -4810,11 +5059,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"K6 on amazon-book's M {list(g_a.m.shape)} ({g_a.m.numel() / 1e9:.3f} GB, {nnz_a} "
         f"entries): {k6a_ms:.4f} ms an application (bound {k6a_bound[0]:.4f} ms by "
-        f"{k6a_bound[1]}, plain {k6a_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy "
-        f"{k6a_lib:.4f} ms); two launches bit-equal, within TIGHT of its plain version")
+        f"{k6a_bound[1]} at its plan's {g_a.plan.nbytes} bytes, plain {k6a_plain:.4f} ms, "
+        f"torch.matmul x2 on a bfloat16 copy {k6a_lib:.4f} ms); on the plan, two launches "
+        f"bit-equal, within TIGHT of its plain version")
     # K6 at d = 192, SimGCL's three chains side by side, on its yelp2018-scale
-    # dense M: three reads of M a launch (64 features a read), held to its
-    # plain version, timed beside three d = 64 applications and its bound
+    # dense M's plan (no read of M), held to its plain version bit for bit,
+    # timed beside three d = 64 applications and its bound
     g_s = zoo_models["SimGCL"].graph
     nu_s, ni_s = data.num_users, data.num_items
     emb_s = concat_user_item(zoo_models["SimGCL"].user_emb,
@@ -4822,40 +5072,45 @@ def main() -> int:
     emb_s3 = torch.cat([emb_s, 0.5 * emb_s, -0.25 * emb_s], dim=1)
     zu_s = (g_s.right_u[:, None] * emb_s3[:nu_s]).contiguous()
     zi_s = (g_s.right_i[:, None] * emb_s3[nu_s:]).contiguous()
-    y_s = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s)
-    k6s_passes = fusedmm.fused_adj_matmul.passes  # as K6's launcher reports them
-    require(k6s_passes == fusedmm.scan_passes(3 * DIM) == 3,
-            f"K6 at d = {3 * DIM}: {k6s_passes} reads of M launched, 3 expected")
-    y_s_again = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s)
-    for what, a, b, c in zip(("yu", "yi"), y_s, y_s_again,
-                             fusedmm.fused_adj_matmul_plain(g_s.m, zu_s, zi_s)):
+    plan_s = g_s.plan
+    y_s = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s, plan_s)
+    k6s_passes = fusedmm.fused_adj_matmul.passes  # 0: the walk reads no M
+    require((fusedmm.fused_adj_matmul.path, k6s_passes) == fusedmm.dual_path(3 * DIM, plan_s)
+            == ("plan", 0), f"K6 at d = {3 * DIM}: path {fusedmm.fused_adj_matmul.path}")
+    y_s_again = fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s, plan_s)
+    for what, a, b, fx, c in zip(("yu", "yi"), y_s, y_s_again,
+                                 fusedmm.fused_adj_matmul_fixed_plain(g_s.m, zu_s, zi_s, plan_s),
+                                 fusedmm.fused_adj_matmul_plain(g_s.m, zu_s, zi_s)):
         require(torch.equal(a, b), f"K6 d = {3 * DIM} {what}: two launches differ")
+        require(torch.equal(a, fx), f"K6 d = {3 * DIM} {what}: differs from the fixed-point "
+                                    f"plain version, max abs err {max_abs(a, fx)}")
         assert_close(a, c, f"K6 d = {3 * DIM} {what}", **TIGHT)
-        errs["K6"] = max(errs["K6"], max_abs(a, c))
     nnz_s = int(data.nnz)
-    k6s_bound = bound(g_s.m.numel() + 8 * 3 * DIM * (nu_s + ni_s), 4.0 * nnz_s * 3 * DIM,
+    k6s_bound = bound(plan_s.nbytes + 8 * 3 * DIM * (nu_s + ni_s), 4.0 * nnz_s * 3 * DIM,
                       bf16_ops)
-    k6s_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s), 20)
+    k6s_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_s.m, zu_s, zi_s, plan_s), 20)
     thirds = [(zu_s[:, j * DIM:(j + 1) * DIM].contiguous(),
                zi_s[:, j * DIM:(j + 1) * DIM].contiguous()) for j in range(3)]
-    k6s_3x64_ms = cuda_ms(lambda: [fusedmm.fused_adj_matmul(g_s.m, *z_) for z_ in thirds], 20)
-    k6s_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(g_s.m, zu_s, zi_s), 2, 1)
+    k6s_3x64_ms = cuda_ms(lambda: [fusedmm.fused_adj_matmul(g_s.m, *z_, plan_s)
+                                   for z_ in thirds], 20)
+    k6s_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_fixed_plain(g_s.m, zu_s, zi_s, plan_s),
+                        2, 1)
     m_bf_s = g_s.m.to(torch.bfloat16)
     zu16_s = torch.nn.functional.pad(zu_s.to(torch.bfloat16), (0, 0, 0, g_s.m.shape[0] - nu_s))
     zi16_s = torch.nn.functional.pad(zi_s.to(torch.bfloat16), (0, 0, 0, g_s.m.shape[1] - ni_s))
     k6s_lib = cuda_ms(lambda: (m_bf_s @ zi16_s, m_bf_s.T @ zu16_s), 10)
     del m_bf_s, zu16_s, zi16_s, y_s, y_s_again, emb_s, emb_s3, zu_s, zi_s, thirds
     torch.cuda.empty_cache()
-    log(f"K6 at d = {3 * DIM} on SimGCL's M {list(g_s.m.shape)}: {k6s_passes} reads of M, as "
-        f"launched; {k6s_ms:.4f} ms an application against {k6s_3x64_ms:.4f} ms for three "
-        f"d = {DIM} applications (bound {k6s_bound[0]:.4f} ms by {k6s_bound[1]}, plain "
-        f"{k6s_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6s_lib:.4f} ms); two "
-        f"launches bit-equal, within TIGHT of its plain version")
+    log(f"K6 at d = {3 * DIM} on SimGCL's M {list(g_s.m.shape)}, on its plan ({k6s_passes} "
+        f"reads of M): {k6s_ms:.4f} ms an application against {k6s_3x64_ms:.4f} ms for three "
+        f"d = {DIM} applications (bound {k6s_bound[0]:.4f} ms by {k6s_bound[1]}, fixed-point "
+        f"plain {k6s_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy {k6s_lib:.4f} ms); two "
+        f"launches bit-equal and equal to the fixed-point plain version")
 
-    # K6 at d = 2,048, RecDCL's width, on its yelp2018-scale dense M: sixteen
-    # reads of M a launch (128 features a read), held to its plain version,
-    # timed beside its bound and two torch.matmul calls on a bfloat16 copy of
-    # M (the copy not counted)
+    # K6 at d = 2,048, RecDCL's width, on its yelp2018-scale dense M's plan
+    # (no read of M), held to its plain version bit for bit, timed beside its
+    # bound and two torch.matmul calls on a bfloat16 copy of M (the copy not
+    # counted)
     g_w = zoo_models["RecDCL"].graph
     dim_w = ZOO_DIMS["RecDCL"]
     nu_w, ni_w = data.num_users, data.num_items
@@ -4864,31 +5119,34 @@ def main() -> int:
         zu_w = (g_w.right_u[:, None] * emb_w[:nu_w]).contiguous()
         zi_w = (g_w.right_i[:, None] * emb_w[nu_w:]).contiguous()
     del emb_w
-    y_w = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w)
+    plan_w = g_w.plan
+    y_w = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w, plan_w)
     k6w_passes = fusedmm.fused_adj_matmul.passes
-    require(k6w_passes == fusedmm.scan_passes(dim_w) == 16,
-            f"K6 at d = {dim_w}: {k6w_passes} reads of M launched, 16 expected")
-    y_w_again = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w)
-    for what, a, b, c in zip(("yu", "yi"), y_w, y_w_again,
-                             fusedmm.fused_adj_matmul_plain(g_w.m, zu_w, zi_w)):
+    require((fusedmm.fused_adj_matmul.path, k6w_passes) == fusedmm.dual_path(dim_w, plan_w)
+            == ("plan", 0), f"K6 at d = {dim_w}: path {fusedmm.fused_adj_matmul.path}")
+    y_w_again = fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w, plan_w)
+    for what, a, b, fx in zip(("yu", "yi"), y_w, y_w_again,
+                              fusedmm.fused_adj_matmul_fixed_plain(g_w.m, zu_w, zi_w, plan_w)):
         require(torch.equal(a, b), f"K6 d = {dim_w} {what}: two launches differ")
-        assert_close(a, c, f"K6 d = {dim_w} {what}", **TIGHT)
-        errs["K6"] = max(errs["K6"], max_abs(a, c))
+        require(torch.equal(a, fx), f"K6 d = {dim_w} {what}: differs from the fixed-point "
+                                    f"plain version, max abs err {max_abs(a, fx)}")
     del y_w, y_w_again
-    k6w_bound = bound(g_w.m.numel() + 8 * dim_w * (nu_w + ni_w), 4.0 * int(data.nnz) * dim_w,
+    k6w_bound = bound(plan_w.nbytes + 8 * dim_w * (nu_w + ni_w), 4.0 * int(data.nnz) * dim_w,
                       bf16_ops)
-    k6w_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w), 10)
-    k6w_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_plain(g_w.m, zu_w, zi_w), 2, 1)
+    k6w_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul(g_w.m, zu_w, zi_w, plan_w), 10)
+    k6w_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_fixed_plain(g_w.m, zu_w, zi_w, plan_w),
+                        2, 1)
     m_bf_w = g_w.m.to(torch.bfloat16)
     zu16_w = torch.nn.functional.pad(zu_w.to(torch.bfloat16), (0, 0, 0, g_w.m.shape[0] - nu_w))
     zi16_w = torch.nn.functional.pad(zi_w.to(torch.bfloat16), (0, 0, 0, g_w.m.shape[1] - ni_w))
     k6w_lib = cuda_ms(lambda: (m_bf_w @ zi16_w, m_bf_w.T @ zu16_w), 5)
     del m_bf_w, zu16_w, zi16_w, zu_w, zi_w
     torch.cuda.empty_cache()
-    log(f"K6 at d = {dim_w} on RecDCL's M {list(g_w.m.shape)}: {k6w_passes} reads of M, as "
-        f"launched; {k6w_ms:.4f} ms an application (bound {k6w_bound[0]:.4f} ms by "
-        f"{k6w_bound[1]}, plain {k6w_plain:.4f} ms, torch.matmul x2 on a bfloat16 copy "
-        f"{k6w_lib:.4f} ms); two launches bit-equal, within TIGHT of its plain version")
+    log(f"K6 at d = {dim_w} on RecDCL's M {list(g_w.m.shape)}, on its plan ({k6w_passes} "
+        f"reads of M): {k6w_ms:.4f} ms an application (bound {k6w_bound[0]:.4f} ms by "
+        f"{k6w_bound[1]}, fixed-point plain {k6w_plain:.4f} ms, torch.matmul x2 on a bfloat16 "
+        f"copy {k6w_lib:.4f} ms); two launches bit-equal and equal to the fixed-point plain "
+        f"version")
     # NGCF with node dropout (off in its published config), which forces the
     # gather backend: the edge mask, the dropped values and their transpose
     # through the graph's permutation, the sparse products; one step under
@@ -5154,13 +5412,16 @@ def main() -> int:
               "library: index_add_ x2 into zeroed tables"),
         entry("dual_bf16", "idgrec_torch/csrc/dual_bf16.cu", "idgrec_tpu/ops/fusedmm.py:98",
               fusedmm.fused_adj_matmul, errs["K6"], k6_ms, k6_plain, k6_bound, k6_lib,
-              "one application at d = 64: 1 launch (3 kernels: the bfloat16 copy with its "
-              "maxima and the sums zeroed, the scan of M, the conversion); library: "
-              "torch.matmul x2 on a bfloat16 copy of M, the copy not counted"),
+              "one application at d = 64 on the adjacency's plan: 1 launch (3 kernels: the "
+              "bfloat16 copy with its maxima and the sums zeroed, the walk of M's plan, the "
+              "conversion); bound at the plan's bytes; library: torch.matmul x2 on a bfloat16 "
+              "copy of M, the copy not counted; plan_*: the plan phase's walk, scan and library "
+              "call on the dense M"),
         entry("dual_int8_n", "idgrec_torch/csrc/dual_int8_n.cu", "idgrec_tpu/ops/fusedmm.py:211",
               fusedmm.fused_adj_matmul_int8, errs["K7"], *wide_kernels["K7"],
-              f"one application at d = {WIDE_DIM}: 1 launch, one 128-feature group (one read of "
-              "M)"),
+              f"one application at d = {WIDE_DIM} on the adjacency's plan: 1 launch (the walk, "
+              "no read of M); plan_*: the plan phase's walk, scan and library call on the dense "
+              "M"),
         entry("dual_int4_n", "idgrec_torch/csrc/dual_int4_n.cu", "idgrec_tpu/ops/fusedmm.py:442",
               fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
               f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, one "
@@ -5226,8 +5487,28 @@ def main() -> int:
                      sgl_correction_backward_ms=k4_s["backward_ms"],
                      sgl_correction_backward_unsorted_ms=k4_s["backward_unsorted_ms"],
                      sgl_correction_users_unsorted_ms=k4_s["users_unsorted_ms"])
-        elif k["name"] == "dual_int8_n":
-            k.update(ms_d64=k7_64_ms, launches_dense=by_path["dense_int8"]["fused_adj_matmul_int8"])
+        if k["name"] in ("dual_bf16", "dual_int8_n"):
+            # the plan phase: the walk, the scan and the library call at the
+            # yelp2018-scale dense M's widths, each beside both bounds
+            rows_p = plan_res["k6" if k["name"] == "dual_bf16" else "k7"]
+            k.update(plan_bytes=sum(plan_res["plan_bytes"].values()),
+                     plan_build_ms=plan_res["plan_build_ms"],
+                     **{f"plan_{key}_d{d_p}": val for d_p, r_ in rows_p.items()
+                        for key, val in (("ms", r_["ms"]), ("scan_ms", r_["scan_ms"]),
+                                         ("library_ms", r_["library_ms"]),
+                                         ("bound_ms", r_["bound"][0]),
+                                         ("m_bound_ms", r_["m_bound"][0]),
+                                         ("scan_reads", r_["scan_reads"]))})
+            if k["name"] == "dual_bf16":
+                k.update({f"plan_rect_{key}_{side}_d128": val
+                          for side, r_ in plan_res["rect"].items()
+                          for key, val in (("ms", r_["ms"]), ("scan_ms", r_["scan_ms"]),
+                                           ("library_ms", r_["library_ms"]),
+                                           ("bound_ms", r_["bound"][0]),
+                                           ("m_bound_ms", r_["m_bound"][0]))})
+        if k["name"] == "dual_int8_n":
+            k.update(ms_d64=k7_64_ms, scan_ms_d64=k7_64_scan_ms,
+                     launches_dense=by_path["dense_int8"]["fused_adj_matmul_int8"])
         elif k["name"] == "dual_bf16":
             k.update(ms_d128=k6_128_ms, bound_ms_d128=k6_128_bound[0], passes_d64=k6_passes,
                      passes_d128=k6_128_passes, ms_d192=k6s_ms, bound_ms_d192=k6s_bound[0],
@@ -5241,6 +5522,7 @@ def main() -> int:
                                          ("ms_items", r_["times"]["items"]),
                                          ("ms_both", r_["times"]["dual"]),
                                          ("bound_ms", r_["bound"][0]),
+                                         ("m_bound_ms", r_["m_bound"][0]),
                                          ("bound_ms_both", r_["bound_dual"][0]),
                                          ("plain_ms_users", r_["times"]["plain_users"]),
                                          ("plain_ms_items", r_["times"]["plain_items"]),
@@ -5345,9 +5627,9 @@ def main() -> int:
     # used, the profiler slows the host's later launches
     per_call = {"dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
                 "dual_int4_t": lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4),
-                "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN),
+                "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN, adj.plan),
                 "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N),
-                "dual_bf16": lambda: fusedmm.fused_adj_matmul(adj.m8, zu6, zi6),
+                "dual_bf16": lambda: fusedmm.fused_adj_matmul(adj.m8, zu6, zi6, adj.plan),
                 "bit_matmul": lambda: bitmm.bit_matmul(*k11_dirs[0])}
     for k in kernels:
         if k["name"] in per_call:

@@ -1,9 +1,11 @@
-// K6 dual_bf16: both directions of the exact-mode adjacency product from one
-// read of the int8 count matrix per feature group, bf16 activations in the
-// [N, d] layout, float32 results.
+// K6 dual_bf16: both directions of the exact-mode adjacency product on
+// bf16 activations in the [N, d] layout, float32 results,
 //
 //   yu[u, f] = sum_i M[u, i] * zi[i, f]      (M  @ zi, [U_pad, d])
 //   yi[i, f] = sum_u M[u, i] * zu[u, f]      (M^T @ zu, [I_pad, d])
+//
+// from a walk of M's plan (dual_bf16_plan) or, where the caller holds no
+// plan, one read of the int8 count matrix per feature group (dual_bf16).
 //
 // Replaces idgrec_tpu/ops/fusedmm.py _fused_kernel (l.98, launched by
 // _fused_call l.155); entry fused_adj_matmul (l.618), whose backward is this
@@ -11,44 +13,48 @@
 // [I_pad, d] f32 yi accumulator in VMEM across a sequential grid; Hopper
 // blocks run in no order.
 //
-// Bound on the H100: bytes. One application reads M once per feature group
-// (U_pad * I_pad bytes); the function's operations are 4 * nnz * d (the
-// non-zero entries only).
+// Bound on the H100: bytes. The walk moves the plan (about 10 bytes a
+// non-zero entry), the activations once and the sums once; the scan reads
+// M once per feature group (U_pad * I_pad bytes). The function's operations
+// are 4 * nnz * d (the non-zero entries only).
 //
-// Design: the scan of dual_scan.cuh (K7's; its note gives the design and the
-// measurements that chose it), in the arithmetic FixedSums below, three
-// launches a call:
+// Design: three launches a call, in the arithmetic FixedSums below:
 // * prep: the float32 activations ([nu, d] and [ni, d]) become one bf16
 //   copy [U_pad + I_pad, d], rounded to nearest even as .to(bfloat16)
 //   rounds and zero in the padding rows; the same pass zeroes the int64 sums
 //   and writes each block's largest |bf16| of either side.
-// * the scan: 128, 64 or 32 features a read of M (fusedmm.scan_feature_group;
-//   the launcher reports the reads). Each block first reduces the prep
-//   blocks' maxima to amax, a side's largest |activation|. An entry's product
-//   v * z is exact in float32 (|v| <= 128 has 8 significant bits, z 8); it
-//   is scaled by the power of two 2^(31 - e) of the side it sums (amax <
-//   2^e: fixed_shift) and rounded to int64 once. The yu partials of a row
-//   stay in int64 registers over the warp's run of the row (one 64-bit
-//   atomic add a row, warp and feature when the row changes); yi takes one
-//   64-bit atomic add an entry and feature. Every sum is thus an exact
-//   integer sum of per-entry rounded products: it does not depend on the
-//   order, the grid or the SM count, and two launches give the same bits
-//   (training promises that a resumed run equals a straight one).
+// * the products: the walk of dual_walk.cuh (its note gives the
+//   design) or the scan of dual_scan.cuh (K7's; 128, 64 or 32 features a
+//   read of M, fusedmm.scan_feature_group; the launcher reports the reads).
+//   Each block first reduces the prep blocks' maxima to amax, a side's
+//   largest |activation|. An entry's product v * z is exact in float32
+//   (|v| <= 128 has 8 significant bits, z 8); it is scaled by the power of
+//   two 2^(31 - e) of the side it sums (amax < 2^e: fixed_shift) and
+//   rounded to int64 once. The walk keeps a run's sums in int64 registers
+//   and stores them once (one 64-bit atomic add a feature where a run is
+//   split between warps); the scan keeps yu's over a warp's run of the row
+//   and adds one 64-bit atomic an entry and feature into yi. Every sum is
+//   thus an exact integer sum of per-entry rounded products: it does not
+//   depend on the order, the path, the grid or the SM count, and two
+//   launches give the same bits (training promises that a resumed run
+//   equals a straight one).
 // * convert: the sums times 2^-shift as float32, NaN over a side whose amax
 //   is not finite (NaN or inf in the activations it sums; a zero count would
 //   have multiplied them on the TPU).
 // Precision: a product's rounding is at most 2^(e - 32) <= amax * 2^-31; with
 // row and column sums of |M| below 2^30 every sum stays below 2^61.
-// The tile kernel this replaces (mma.sync on 64 x 256 stages of M, zero-tile
-// votes, a fixed-point partial a block) read M once per 64 features and took
-// 1.23 ms at d = 64 on an H100 (PERF.md); its wrapper's pads, casts, maxima
-// and fills were about ten more launches.
+// fusedmm.fused_adj_matmul_fixed_plain repeats this arithmetic in PyTorch.
+// The tile kernel the scan replaced (mma.sync on 64 x 256 stages of M,
+// zero-tile votes, a fixed-point partial a block) read M once per 64
+// features and took 1.23 ms at d = 64 on an H100 (PERF.md); its wrapper's
+// pads, casts, maxima and fills were about ten more launches.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dual_scan.cuh"
+#include "dual_walk.cuh"
 
 namespace {
 
@@ -213,6 +219,33 @@ int grid_for(long long items, int threads, int sms, int cap) {
   return g > 0 ? static_cast<int>(g) : 1;
 }
 
+// The three launches of a K6 call around ``products(z, sums, parts,
+// prep_blocks)``, which launches the scan or the walk. Checks the shapes
+// both entry points take.
+template <class Products>
+int run_dual_bf16(const void* zu, const void* zi, int nu, int ni, void* scratch, void* y,
+                  int u_pad, int i_pad, int d, cudaStream_t s, Products products) {
+  if (d <= 0 || d % 32 != 0 || u_pad <= 0 || i_pad <= 0 || nu < 0 || ni < 0 || nu > u_pad ||
+      ni > i_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(u_pad + i_pad) * d;
+  long long* sums = static_cast<long long*>(scratch);
+  uint16_t* z = reinterpret_cast<uint16_t*>(sums + n);
+  unsigned* parts = reinterpret_cast<unsigned*>(z + n);
+  const int prep_blocks = grid_for(n / 8, PREP_THREADS, sms, MAX_PREP_BLOCKS);
+  prep_kernel<<<prep_blocks, PREP_THREADS, 0, s>>>(static_cast<const float*>(zu),
+                                                    static_cast<const float*>(zi), nu, ni, u_pad,
+                                                    i_pad, d, z, sums, parts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = products(z, sums, parts, prep_blocks)) != cudaSuccess) return static_cast<int>(err);
+  convert_kernel<<<grid_for(n, CONVERT_THREADS, sms, 1 << 30), CONVERT_THREADS, 0, s>>>(
+      sums, static_cast<float*>(y), static_cast<long long>(u_pad) * d, n, parts, prep_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,33 +260,38 @@ extern "C" {
 int dual_bf16(const void* m, const void* zu, const void* zi, int nu, int ni, void* scratch,
               void* y, int u_pad, int i_pad, int d, int* passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 32 != 0 || u_pad <= 0 || i_pad <= 0 || nu < 0 || ni < 0 || nu > u_pad ||
-      ni > i_pad)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_u = static_cast<long long>(u_pad) * d;
-  const long long n = static_cast<long long>(u_pad + i_pad) * d;
-  long long* sums = static_cast<long long*>(scratch);
-  uint16_t* z = reinterpret_cast<uint16_t*>(sums + n);
-  unsigned* parts = reinterpret_cast<unsigned*>(z + n);
-  const int prep_blocks = grid_for(n / 8, PREP_THREADS, sms, MAX_PREP_BLOCKS);
-  prep_kernel<<<prep_blocks, PREP_THREADS, 0, s>>>(static_cast<const float*>(zu),
-                                                    static_cast<const float*>(zi), nu, ni, u_pad,
-                                                    i_pad, d, z, sums, parts);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = launch_scan_of<FixedSums, false>(static_cast<const int8_t*>(m), z, z + n_u, sums,
-                                         sums + n_u, u_pad, i_pad, d, passes, parts, prep_blocks,
-                                         s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  convert_kernel<<<grid_for(n, CONVERT_THREADS, sms, 1 << 30), CONVERT_THREADS, 0, s>>>(
-      sums, static_cast<float*>(y), n_u, n, parts, prep_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return run_dual_bf16(zu, zi, nu, ni, scratch, y, u_pad, i_pad, d, s,
+                       [&](uint16_t* z, long long* sums, unsigned* parts, int prep_blocks) {
+                         return launch_scan_of<FixedSums, false>(
+                             static_cast<const int8_t*>(m), z, z + n_u, sums, sums + n_u, u_pad,
+                             i_pad, d, passes, parts, prep_blocks, s);
+                       });
 }
 
-// Bytes of scratch dual_bf16 takes: the int64 sums, the bf16 copy, the prep
-// blocks' maxima.
+// dual_bf16 from the plan of M [u_pad, i_pad] instead of M: lists the eight
+// device pointers of the plan (fusedmm.DualPlan: the row list's offsets,
+// columns, counts and table of runs, then the column list's), nnz its
+// entries; walk_u: compute yu (zi given), walk_i: compute yi (zu given);
+// the rows of a side not computed are zero. fpl features a lane (1, 2, 3, 4,
+// 6 or 8; d % (32 fpl) == 0), chunk entries a warp (a multiple of 32).
+// Three launches, no synchronisation; M is not read.
+int dual_bf16_plan(const void* const* lists, long long nnz, const void* zu, const void* zi,
+                   int nu, int ni, int walk_u, int walk_i, void* scratch, void* y, int u_pad,
+                   int i_pad, int d, int fpl, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_u = static_cast<long long>(u_pad) * d;
+  return run_dual_bf16(zu, zi, nu, ni, scratch, y, u_pad, i_pad, d, s,
+                       [&](uint16_t* z, long long* sums, unsigned* parts, int prep_blocks) {
+                         return launch_walk<FixedSums>(lists, nnz, u_pad, i_pad, walk_u != 0,
+                                                       walk_i != 0, z, z + n_u, sums,
+                                                       sums + n_u, d, fpl, chunk, parts,
+                                                       prep_blocks, s);
+                       });
+}
+
+// Bytes of scratch dual_bf16 and dual_bf16_plan take: the int64 sums, the
+// bf16 copy, the prep blocks' maxima.
 long long dual_bf16_scratch_bytes(int u_pad, int i_pad, int d) {
   const long long n = static_cast<long long>(u_pad + i_pad) * d;
   return 10 * n + 8LL * MAX_PREP_BLOCKS;

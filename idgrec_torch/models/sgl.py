@@ -93,6 +93,9 @@ class SGL(RecModel):
         # views' scales and dropped edges
         self._shared = (None if self._views_route else
                         prop.build_dropout_shared(data, self.backend, self.device, g))
+        # the shared matrix's plan, which K6 walks: the model's own where it
+        # shares the model's matrix
+        self._shared_plan = prop.shared_plan(self._shared, g, self.compute_dtype)
         self.views = None
 
     def epoch_context(self, epoch: int, np_rng: np.random.Generator):
@@ -101,7 +104,8 @@ class SGL(RecModel):
         def make():
             return prop.build_dropout_adjacency(
                 self.data, self.ssl_ratio, np_rng, self.backend,
-                compute_dtype=self.compute_dtype, shared=self._shared, device=self.device)
+                compute_dtype=self.compute_dtype, shared=self._shared, device=self.device,
+                plan=self._shared_plan)
 
         count = 1 if self.aug_type == "ed" else self.num_layers
         view_1 = tuple(make() for _ in range(count))
@@ -133,7 +137,8 @@ class SGL(RecModel):
             g1 = graphs_1[layer % len(graphs_1)]
             g2 = graphs_2[layer % len(graphs_2)]
             hs = prop.shared_chain_matmul(self._shared, [self.graph, g1, g2], list(hs),
-                                          compute_dtype=self.graph.compute_dtype_name)
+                                          compute_dtype=self.graph.compute_dtype_name,
+                                          plan=self._shared_plan)
             accs = tuple(a + h for a, h in zip(accs, hs))
         return tuple(prop.true_divide(a, float(self.num_layers + 1)) for a in accs)
 

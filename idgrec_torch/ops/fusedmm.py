@@ -32,21 +32,30 @@ chain's (`chainmm.dual_sweep`, `dual_sweep_inject`) or the tanh chain's
 The per-application product (`FusedSquareAdj.matmul`) keeps the
 activations in [N, d] layout. `fused_adj_matmul` is the exact-mode dual,
 yu = M @ zi and yi = Mᵀ @ zu on bfloat16 activations with float32
-results (kernel ``csrc/dual_bf16.cu``, K6, the same scan of M in 64-bit
-fixed point; counterpart of the JAX `fused_adj_matmul`), differentiable
-by the swapped-cotangent identity.
+results (kernel ``csrc/dual_bf16.cu``, K6, in 64-bit fixed point;
+counterpart of the JAX `fused_adj_matmul`), differentiable by the
+swapped-cotangent identity. `fused_adj_matmul_fixed_plain` repeats its
+arithmetic bit for bit.
 `fused_adj_matmul_int8` and `fused_adj_matmul_int4` are the quantized
 duals on pre-quantized int8 activations (kernels ``csrc/dual_int8_n.cu``,
-K7, and ``csrc/dual_int4_n.cu``, K8: the same scan on the int8 and on
-the nibble-packed matrix, one read of it per `scan_feature_group`
-features); their raw sums equal K1's and K5's on the transposed
-activations bit for bit. Each has its ``_plain`` twin.
+K7, and ``csrc/dual_int4_n.cu``, K8, on the int8 and on the
+nibble-packed matrix); their raw sums equal K1's and K5's on the
+transposed activations bit for bit. Each has its ``_plain`` twin.
+
+K6 and K7 take a `DualPlan` of M (`dual_plan`, made once per stored
+matrix by the adjacency that holds M): its non-zero entries in row and
+in column order. With one, a launch walks the plan
+(``csrc/dual_walk.cuh``) and does not read M; without one it scans M
+once per `scan_feature_group` features (``csrc/dual_scan.cuh``), as K8
+always does. `dual_path` states which a launch takes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -187,6 +196,12 @@ _SIGNATURES = {
     "dual_int8_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
+_LL = ctypes.c_longlong
+# K6's and K7's walks of a plan (``<kernel>_plan``)
+_PLAN_SIGNATURES = {
+    "dual_bf16": [_P, _LL, _P, _P] + [_I] * 4 + [_P, _P] + [_I] * 5 + [_P],
+    "dual_int8_n": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
+}
 # K1's and K5's chain sweep (``<kernel>_sweep``)
 _SWEEP_SIGNATURE = [_P] * 18 + [_I] * 9 + [_P]
 # the turn-out's modes of a chain sweep (``csrc/dual_turns.cuh``): the
@@ -211,6 +226,10 @@ def _lib(kernel: str) -> ctypes.CDLL:
         words = getattr(lib, f"{kernel}_sweep_aux_words")
         words.argtypes = [_I] * 2
         words.restype = ctypes.c_int
+    if kernel in _PLAN_SIGNATURES:
+        walk = getattr(lib, f"{kernel}_plan")
+        walk.argtypes = _PLAN_SIGNATURES[kernel]
+        walk.restype = ctypes.c_int
     if kernel == _K6:
         lib.dual_bf16_scratch_bytes.argtypes = [_I] * 3
         lib.dual_bf16_scratch_bytes.restype = ctypes.c_longlong
@@ -413,37 +432,156 @@ fused_adj_matmul_int4_t.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the plan of M's non-zero entries that K6 and K7 walk
+
+# the plan's table holds the run of every PLAN_STEP-th entry of a list
+# (``csrc/dual_walk.cuh`` PLAN_STEP)
+PLAN_STEP = 32
+# entries of one list a warp of the walk takes (a multiple of PLAN_STEP;
+# 256 measured within 5 % of the best of 64, 128 and 256 at every width
+# timed, scripts/torch_dual_plan.py)
+WALK_CHUNK = 256
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DualPlan:
+    """M's non-zero entries in row order (the runs are M's rows; yu's
+    walk) and in column order (the runs are its columns; yi's walk), each
+    list as its runs' offsets, the other index and the count, and the run
+    of every `PLAN_STEP`-th entry. Made by `dual_plan` on M's device; K6
+    and K7 walk it instead of reading M (`dual_path`)."""
+
+    shape: tuple[int, int]  # M's [U_pad, I_pad]
+    row_ptr: torch.Tensor   # int64 [U_pad + 1]
+    row_idx: torch.Tensor   # int32 [nnz] the entries' columns
+    row_val: torch.Tensor   # int8 [nnz]
+    row_first: torch.Tensor  # int32 [ceil(nnz / PLAN_STEP)]
+    col_ptr: torch.Tensor   # int64 [I_pad + 1]
+    col_idx: torch.Tensor   # int32 [nnz] the entries' rows
+    col_val: torch.Tensor   # int8 [nnz]
+    col_first: torch.Tensor  # int32 [ceil(nnz / PLAN_STEP)]
+
+    @property
+    def nnz(self) -> int:
+        return self.row_idx.numel()
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the plan holds on its device."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.row_ptr, self.row_idx, self.row_val, self.row_first,
+                self.col_ptr, self.col_idx, self.col_val, self.col_first)
+
+    @functools.cached_property
+    def pointers(self) -> ctypes.Array:
+        """The eight device pointers as the kernels take them (row list,
+        then column list: offsets, other index, counts, table of runs),
+        made once: a launch passes their address."""
+        return (ctypes.c_void_p * 8)(*(t.data_ptr() for t in self.tensors()))
+
+
+def _plan_list(runs: int, run_of: torch.Tensor, other: torch.Tensor, vals: torch.Tensor):
+    """One list of a plan from its entries in run order: (offsets, the
+    other index, counts, the run of every PLAN_STEP-th entry)."""
+    counts = torch.bincount(run_of, minlength=runs)
+    ptr = F.pad(torch.cumsum(counts, 0), (1, 0))
+    steps = torch.arange(0, run_of.numel(), PLAN_STEP, device=run_of.device)
+    first = torch.searchsorted(ptr, steps, right=True) - 1
+    return ptr, other.to(torch.int32), vals, first.to(torch.int32)
+
+
+def dual_plan(m8: torch.Tensor) -> DualPlan:
+    """The plan of the int8 matrix ``m8`` [U_pad, I_pad] on its device:
+    `torch.nonzero` gives the entries in row order, a stable sort by
+    column the column order (rows ascending within a column). Build-time
+    code: it reads M once and synchronises; no step calls it."""
+    if m8.dtype != torch.int8 or m8.dim() != 2:
+        raise ValueError(f"dual_plan takes an int8 [U, I] matrix, got {m8.dtype} "
+                         f"{tuple(m8.shape)}")
+    u_pad, i_pad = m8.shape
+    rows, cols = m8.nonzero(as_tuple=True)
+    vals = m8[rows, cols]
+    order = torch.sort(cols, stable=True).indices
+    return DualPlan((u_pad, i_pad), *_plan_list(u_pad, rows, cols, vals),
+                    *_plan_list(i_pad, cols[order], rows[order], vals[order]))
+
+
+def walk_features(d: int) -> int:
+    """Features a lane of the walk holds at width d (d % 32 == 0): the
+    most of 8, 6, 4, 3, 2, 1 that divides d / 32, so one feature slice of
+    32 times that many. The widest slice measured fastest at every width
+    timed (scripts/torch_dual_plan.py, PERF.md §6: at d = 2,048 slices of
+    256 features took 4.60 ms against 5.35 for 128)."""
+    lanes = d // _FEATURE_GROUP
+    return max(f for f in _WALK_FPL if lanes % f == 0)
+
+
+def dual_path(d: int, plan: DualPlan | None) -> tuple[str, int]:
+    """The path one K6 or K7 launch at width d (d % 32 == 0) takes and
+    the reads of M it makes: ('plan', 0) where the caller holds M's plan,
+    ('scan', `scan_passes` (d)) otherwise. The walk measured faster than
+    the scan at every width timed (PERF.md §6: K6 and K7 at d = 64, 128,
+    192, K6 at 2,048), so a plan is always taken. The launchers report the path and the reads of their
+    last launch (``fused_adj_matmul.path``, ``.passes``, and
+    ``fused_adj_matmul_int8``'s)."""
+    if plan is not None:
+        return "plan", 0
+    return "scan", scan_passes(d)
+
+
+def _check_plan(plan: DualPlan, m: torch.Tensor) -> None:
+    if tuple(plan.shape) != tuple(m.shape) or plan.device != m.device:
+        raise ValueError(f"the plan of M {tuple(plan.shape)} on {plan.device} does not fit M "
+                         f"{tuple(m.shape)} on {m.device}")
+
+
+# ---------------------------------------------------------------------------
 # [N, d] layout: the per-application duals (K6, K7, K8)
 
 _N_KERNELS = {"int8": "dual_int8_n", "int4": "dual_int4_n"}
-# K6, K7 and K8 split d into `scan_feature_group` features a read of M
+# the scan of K6, K7 and K8 splits d into `scan_feature_group` features a
+# read of M
 _FEATURE_GROUP = 32
 # the kernels index rows and columns with int32 and bound a row's sum by 2**30
 _MAX_SIDE = 2 ** 23
 # rows of M converted to float32 at a time by `dual_matmul_f32`
 _F32_ROWS = 4096
+# features a lane of the walk can hold (``csrc/dual_walk.cuh`` launch_walk)
+_WALK_FPL = (1, 2, 3, 4, 6, 8)
+# features at a time of `fused_adj_matmul_fixed_plain`
+_FIXED_FEATURES = 32
+# K6's largest power-of-two scale (``csrc/dual_bf16.cu`` MAX_SHIFT)
+_MAX_SHIFT = 120
 
 
 def scan_feature_group(d: int) -> int:
-    """Features one scan of M covers in K6, K7 and K8 (the scan of
-    ``csrc/dual_scan.cuh``): 128 where d % 128 == 0, else 64 where
-    d % 64 == 0, else 32, the rule of the kernels' launcher, which
-    reports the scans it launched (``fused_adj_matmul.passes``,
-    ``fused_adj_matmul_int8.passes``, ``fused_adj_matmul_int4.passes``)."""
+    """Features one scan of M covers in K8, and in K6 and K7 where they
+    scan (no plan, `dual_path`; the scan of ``csrc/dual_scan.cuh``): 128
+    where d % 128 == 0, else 64 where d % 64 == 0, else 32, the rule of
+    the kernels' launcher, which reports the scans it launched
+    (``fused_adj_matmul.passes``, ``fused_adj_matmul_int8.passes``,
+    ``fused_adj_matmul_int4.passes``)."""
     return 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
 
 
 def scan_passes(d: int) -> int:
-    """Reads of the stored matrix that one K6, K7 or K8 launch makes at
+    """Reads of the stored matrix that one scan of K6, K7 or K8 makes at
     width d (d % 32 == 0)."""
     return d // scan_feature_group(d)
 
 
 def kernel_accepts_n(u_pad: int, i_pad: int, d: int, mode: str = "bf16") -> bool:
     """Whether K6 (``mode`` 'bf16'), K7 ('int8') or K8 ('int4') takes
-    these logical shapes: d a multiple of 32 (each reads the matrix once
-    per `scan_feature_group`), U_pad a multiple of 64, I_pad a multiple
-    of 256 (of `PACK_TILE` for int4)."""
+    these logical shapes: d a multiple of 32 (the scan reads the matrix
+    once per `scan_feature_group`, the walk's feature slices divide d),
+    U_pad a multiple of 64, I_pad a multiple of 256 (of `PACK_TILE` for
+    int4)."""
     col_multiple = PACK_TILE if mode == "int4" else _STRIP
     return (d > 0 and d % _FEATURE_GROUP == 0 and 0 < u_pad <= _MAX_SIDE
             and 0 < i_pad <= _MAX_SIDE and u_pad % _CHUNK == 0 and i_pad % col_multiple == 0)
@@ -520,14 +658,17 @@ def _out_rows(z: torch.Tensor | None, padded: int) -> int:
 
 
 def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor | None,
-                           zi: torch.Tensor | None
+                           zi: torch.Tensor | None, plan: DualPlan | None = None
                            ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Plain version of `fused_adj_matmul` (K6): the activations rounded
     to bfloat16 and zero-padded to M's shape, multiplied in float32 by
     the counts (both exact in float32), float32 accumulation. Differs
-    from K6 in the order of the float32 additions only. A side given as
-    None is not computed (`fused_adj_matmul` states the shapes).
-    Differentiable by autograd."""
+    from K6 in the order of the float32 additions and in K6's fixed-point
+    rounding of each product (`fused_adj_matmul_fixed_plain` has the
+    kernel's bits). A side given as None is not computed
+    (`fused_adj_matmul` states the shapes). ``plan`` is taken, as the
+    kernel's wrapper takes it, and not needed. Differentiable by
+    autograd."""
     u_pad, i_pad = m8.shape
     yu, yi = dual_matmul_f32(m8, None if zu is None else _pad_cast(zu, u_pad, torch.bfloat16),
                              None if zi is None else _pad_cast(zi, i_pad, torch.bfloat16))
@@ -535,17 +676,90 @@ def fused_adj_matmul_plain(m8: torch.Tensor, zu: torch.Tensor | None,
             None if yi is None else yi[: _out_rows(zi, i_pad)])
 
 
-def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor | None, zi: torch.Tensor | None
-                 ) -> tuple[torch.Tensor | None, torch.Tensor | None, int]:
+def _fixed_shift(amax: float) -> int:
+    """K6's power of two for a side whose largest |activation| is amax
+    (``csrc/dual_bf16.cu`` fixed_shift): amax < 2**e gives 31 - e, at
+    most `_MAX_SHIFT`; 0 for a zero or non-finite amax."""
+    if not amax > 0.0 or not math.isfinite(amax):
+        return 0
+    return min(31 - math.frexp(amax)[1], _MAX_SHIFT)
+
+
+def _fixed_sums(z: torch.Tensor, shift: int, gather: torch.Tensor, into: torch.Tensor,
+                vals: torch.Tensor, rows: int) -> torch.Tensor:
+    """float32 [rows, d]: the sums over the entries e of
+    round(vals[e] · (z[gather[e]] · 2**shift)) into row into[e], each
+    product rounded half to even to an integer, summed in int64 and
+    scaled back by 2**-shift through float64, `_FIXED_FEATURES` features
+    at a time."""
+    scale, back = 2.0 ** shift, 2.0 ** -shift
+    v = vals.to(torch.float32)[:, None]
+    out = torch.empty((rows, z.shape[1]), dtype=torch.float32, device=z.device)
+    for f0 in range(0, z.shape[1], _FIXED_FEATURES):
+        prod = v * (z[:, f0 : f0 + _FIXED_FEATURES] * scale)[gather]
+        part = torch.zeros((rows, prod.shape[1]), dtype=torch.int64, device=z.device)
+        part.index_add_(0, into, torch.round(prod).to(torch.int64))
+        out[:, f0 : f0 + _FIXED_FEATURES] = (part.to(torch.float64) * back).to(torch.float32)
+    return out
+
+
+def fused_adj_matmul_fixed_plain(m8: torch.Tensor, zu: torch.Tensor | None,
+                                 zi: torch.Tensor | None, plan: DualPlan | None = None
+                                 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Plain version of K6 in its own arithmetic, equal to the kernel bit
+    for bit on either path: the activations rounded to bfloat16 and
+    zero-padded to M's shape, each side's largest |activation| amax, each
+    non-zero entry's product v · z scaled by the power of two of the side
+    it reads (`_fixed_shift`) and rounded half to even to an integer,
+    int64 sums (`index_add_`: exact, so in any order), each sum times
+    2**-shift through float64 to float32; NaN over the results that sum a
+    side whose amax is not finite. The entries come from ``plan`` where
+    given, else from `torch.nonzero` of M. Shapes and sides as
+    `fused_adj_matmul` states. Not differentiable; the tests and
+    chip_smoke.py hold the kernel to it."""
+    u_pad, i_pad = m8.shape
+    if plan is None:
+        rows, cols = m8.nonzero(as_tuple=True)
+        vals = m8[rows, cols]
+    else:
+        _check_plan(plan, m8)
+        rows = torch.repeat_interleave(torch.arange(u_pad, device=m8.device),
+                                       plan.row_ptr.diff())
+        cols, vals = plan.row_idx.long(), plan.row_val
+    sides = []
+    for z, rows_pad in ((zu, u_pad), (zi, i_pad)):
+        if z is None:
+            sides.append((None, 0.0))
+            continue
+        zb = _pad_cast(_as_float32(z), rows_pad, torch.bfloat16).to(torch.float32)
+        sides.append((zb, float(zb.abs().max()) if zb.numel() else 0.0))
+    (zub, amax_u), (zib, amax_i) = sides
+    yu = yi = None
+    if zib is not None:
+        yu = _fixed_sums(zib, _fixed_shift(amax_i), cols, rows, vals, u_pad)
+        if not math.isfinite(amax_i):
+            yu.fill_(math.nan)
+        yu = yu[: _out_rows(zu, u_pad)]
+    if zub is not None:
+        yi = _fixed_sums(zub, _fixed_shift(amax_u), rows, cols, vals, i_pad)
+        if not math.isfinite(amax_u):
+            yi.fill_(math.nan)
+        yi = yi[: _out_rows(zi, i_pad)]
+    return yu, yi
+
+
+def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor | None, zi: torch.Tensor | None,
+                 plan: DualPlan | None = None
+                 ) -> tuple[torch.Tensor | None, torch.Tensor | None, str, int]:
     """Check K6's operands and launch it on the card: int8 m8
     [U_pad, I_pad], zu [U, d] and zi [I, d] (U <= U_pad, I <= I_pad),
     either of them None (one direction: the kernel takes that side as
     zero rows and never reads its pointer). float32 activations go in as
     they are (the kernel rounds and pads them); others are rounded to
     bfloat16 here and go in as float32, which the kernel's rounding
-    leaves as they are. Returns (yu, yi, the scans of M its launcher
-    reports), shaped as `fused_adj_matmul` states. Three device
-    launches, no read-back."""
+    leaves as they are. Walks ``plan`` or scans M by `dual_path`.
+    Returns (yu, yi, the path, the reads of M), shaped as
+    `fused_adj_matmul` states. Three device launches, no read-back."""
     u_pad, i_pad = m8.shape
     given = zu if zu is not None else zi
     d, dev = given.shape[1], m8.device
@@ -564,14 +778,23 @@ def _launch_bf16(m8: torch.Tensor, zu: torch.Tensor | None, zi: torch.Tensor | N
     scratch = torch.empty(lib.dual_bf16_scratch_bytes(u_pad, i_pad, d), dtype=torch.uint8,
                           device=dev)
     y = torch.empty((u_pad + i_pad, d), dtype=torch.float32, device=dev)
-    passes = ctypes.c_int(0)
-    code = lib.dual_bf16(m8.data_ptr(), pu, pi, nu, ni, scratch.data_ptr(), y.data_ptr(), u_pad,
-                         i_pad, d, ctypes.byref(passes),
-                         torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    path, reads = dual_path(d, plan)
+    if path == "plan":
+        _check_plan(plan, m8)
+        code = lib.dual_bf16_plan(ctypes.addressof(plan.pointers), plan.nnz, pu, pi, nu,
+                                  ni, int(zi is not None), int(zu is not None),
+                                  scratch.data_ptr(), y.data_ptr(), u_pad, i_pad, d,
+                                  walk_features(d), WALK_CHUNK, stream)
+    else:
+        passes = ctypes.c_int(0)
+        code = lib.dual_bf16(m8.data_ptr(), pu, pi, nu, ni, scratch.data_ptr(), y.data_ptr(),
+                             u_pad, i_pad, d, ctypes.byref(passes), stream)
+        reads = passes.value
     _build.check(lib, _K6, code)
     yu = None if zi is None else y[: _out_rows(zu, u_pad)]
     yi = None if zu is None else y[u_pad : u_pad + _out_rows(zi, i_pad)]
-    return yu, yi, passes.value
+    return yu, yi, path, reads
 
 
 class _FusedAdjMatmul(torch.autograd.Function):
@@ -579,41 +802,42 @@ class _FusedAdjMatmul(torch.autograd.Function):
     symmetric, so (dzu, dzi) = (M @ g_yi, Mᵀ @ g_yu) is the same
     function of the cotangents. A side given as None in the forward has
     no result and no gradient; the gradient of the given side comes back
-    at its own rows. Saves only M."""
+    at its own rows. Saves M and its plan."""
 
     @staticmethod
-    def forward(ctx, m8, zu, zi):
-        ctx.m8 = m8
+    def forward(ctx, m8, zu, zi, plan):
+        ctx.m8, ctx.plan = m8, plan
         ctx.rows = (None if zu is None else zu.shape[0], None if zi is None else zi.shape[0])
-        return _fused_fwd(m8, zu, zi)
+        return _fused_fwd(m8, zu, zi, plan)
 
     @staticmethod
     def backward(ctx, g_yu, g_yi):
-        dzu, dzi = _fused_fwd(ctx.m8, g_yu, g_yi)
+        dzu, dzi = _fused_fwd(ctx.m8, g_yu, g_yi, ctx.plan)
         nu, ni = ctx.rows
-        return (None, None if nu is None else dzu[:nu], None if ni is None else dzi[:ni])
+        return (None, None if nu is None else dzu[:nu], None if ni is None else dzi[:ni], None)
 
 
-def _fused_fwd(m8, zu, zi):
+def _fused_fwd(m8, zu, zi, plan=None):
     if m8.device.type == "cpu":
         return fused_adj_matmul_plain(m8, zu, zi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
     if (zu if zu is not None else zi).shape[1] % _FEATURE_GROUP:
-        return padded_features(_fused_fwd, m8, zu, zi)
-    yu, yi, fused_adj_matmul.passes = _launch_bf16(m8, zu, zi)
+        return padded_features(functools.partial(_fused_fwd, plan=plan), m8, zu, zi)
+    yu, yi, fused_adj_matmul.path, fused_adj_matmul.passes = _launch_bf16(m8, zu, zi, plan)
     fused_adj_matmul.launches += 1
     return yu, yi
 
 
 def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor | None,
-                     zi: torch.Tensor | None
+                     zi: torch.Tensor | None, plan: DualPlan | None = None
                      ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """(M @ zi, Mᵀ @ zu) for int8 m8 [U_pad, I_pad] padded with
     `pad_matrix`; zu [U, d], zi [I, d] floats, rounded to bfloat16 and
     zero-padded here; returns float32 (yu [U, d], yi [I, d]).
     Differentiable in zu and zi: the backward is the same product on the
-    swapped cotangents (rounded to bfloat16 like any operand).
+    swapped cotangents (rounded to bfloat16 like any operand), on the
+    same plan.
 
     One direction: a side given as None is taken as zero and its result
     comes back None; the other result then has M's padded rows on the
@@ -625,13 +849,15 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor | None,
     CPU tensors take the plain version; CUDA tensors launch K6 or raise.
     K6 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0
     (`kernel_accepts_n`; another d runs on features zero-padded to the
-    next multiple of 32, `padded_features`), reads M `scan_passes` (d) times (once at d = 64
-    and d = 128; the last launch's reads, as its launcher reports them,
-    are in ``fused_adj_matmul.passes``) and gives the same bits on every
-    launch: each entry's product is rounded once to 64-bit fixed point
-    (the scale a power of two from the largest activation) and the sums
-    are integer atomics. A non-finite activation on one side gives NaN
-    over the other side's results."""
+    next multiple of 32, `padded_features`). With ``plan`` (`dual_plan`
+    of m8, on its device) it walks M's non-zero entries and does not read
+    M; without, it reads M `scan_passes` (d) times (`dual_path`; the last
+    launch's path and reads are in ``fused_adj_matmul.path`` and
+    ``.passes``). Both paths give the bits of
+    `fused_adj_matmul_fixed_plain` on every launch: each entry's product
+    is rounded once to 64-bit fixed point (the scale a power of two from
+    the largest activation) and the sums are integer sums. A non-finite
+    activation on one side gives NaN over the other side's results."""
     u_pad, i_pad = m8.shape
     sides = [z for z in (zu, zi) if z is not None]
     if (not sides or any(z.dim() != 2 for z in sides)
@@ -641,17 +867,21 @@ def fused_adj_matmul(m8: torch.Tensor, zu: torch.Tensor | None,
         shapes = [None if z is None else tuple(z.shape) for z in (zu, zi)]
         raise ValueError(f"fused_adj_matmul: zu {shapes[0]} and zi {shapes[1]} do not fit m8 "
                          f"{tuple(m8.shape)}")
-    return _FusedAdjMatmul.apply(m8, zu, zi)
+    return _FusedAdjMatmul.apply(m8, zu, zi, plan)
 
 
 fused_adj_matmul.launches = 0
 fused_adj_matmul.passes = 0
+fused_adj_matmul.path = "scan"
 
 
-def fused_adj_matmul_int8_plain(m8: torch.Tensor, qu: torch.Tensor,
-                                qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_adj_matmul_int8_plain(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                                plan: DualPlan | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K7: K1's plain version on the transposed
-    activations (the integer products do not depend on the layout)."""
+    activations (the integer products do not depend on the layout).
+    ``plan`` is taken, as the kernel's wrapper takes it, and not
+    needed."""
     yuT, yiT = fused_adj_matmul_int8_t_plain(m8, qu.T, qi.T)
     return yuT.T.contiguous(), yiT.T.contiguous()
 
@@ -688,8 +918,31 @@ def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
     return yu.view(torch.float32), yi.view(torch.float32), passes.value
 
 
-def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
-                          qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_int8_plan(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                      plan: DualPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's walk of ``plan`` on CUDA tensors, operands as `_launch_dual_n`
+    checks them: one zero fill of both int32 sums, the walk, their
+    conversion to float32 in place. M is not read."""
+    u_pad, i_pad = m8.shape
+    d = qu.shape[1]
+    _check_operand("m", m8, torch.int8, (u_pad, i_pad), m8.device)
+    _check_operand("qu", qu, torch.int8, (u_pad, d), m8.device)
+    _check_operand("qi", qi, torch.int8, (i_pad, d), m8.device)
+    _require_n(_N_KERNELS["int8"], "int8", u_pad, i_pad, d)
+    _check_plan(plan, m8)
+    sums = torch.zeros((u_pad + i_pad, d), dtype=torch.int32, device=m8.device)
+    yu, yi = sums[:u_pad], sums[u_pad:]
+    lib = _lib("dual_int8_n")
+    code = lib.dual_int8_n_plan(ctypes.addressof(plan.pointers), plan.nnz, qu.data_ptr(),
+                                qi.data_ptr(), yu.data_ptr(), yi.data_ptr(), u_pad, i_pad, d,
+                                walk_features(d), WALK_CHUNK,
+                                torch.cuda.current_stream(m8.device).cuda_stream)
+    _build.check(lib, "dual_int8_n", code)
+    return yu.view(torch.float32), yi.view(torch.float32)
+
+
+def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                          plan: DualPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ qi, Mᵀ @ qu) for int8 m8 [U_pad, I_pad] and pre-quantized
     int8 activations qu [U_pad, d], qi [I_pad, d]: float32 (yu
     [U_pad, d], yi [I_pad, d]) of the raw integer products; the caller
@@ -704,22 +957,30 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch K7 or
     raise. K7 takes d % 32 == 0, U_pad % 64 == 0, I_pad % 256 == 0 (another
     d runs on features zero-padded to the next multiple of 32,
-    `padded_features`), and reads M `scan_passes` (d) times: once at d = 64 and d = 128. The last
-    launch's reads of M, as its launcher reports them, are in
-    ``fused_adj_matmul_int8.passes``."""
+    `padded_features`). With ``plan`` (`dual_plan` of m8) it walks M's
+    non-zero entries and does not read M; without, it reads M
+    `scan_passes` (d) times (`dual_path`). The sums are the same
+    integers either way. The last launch's path and reads of M are in
+    ``fused_adj_matmul_int8.path`` and ``.passes``."""
     if m8.device.type == "cpu":
         return fused_adj_matmul_int8_plain(m8, qu, qi)
     if m8.device.type != "cuda":
         raise ValueError(f"unsupported device {m8.device}")
     if qu.shape[1] % _FEATURE_GROUP:
-        return padded_features(fused_adj_matmul_int8, m8, qu, qi)
-    yu, yi, fused_adj_matmul_int8.passes = _launch_dual_n("int8", m8, qu, qi)
+        return padded_features(functools.partial(fused_adj_matmul_int8, plan=plan), m8, qu, qi)
+    path, reads = dual_path(qu.shape[1], plan)
+    if path == "plan":
+        yu, yi = _launch_int8_plan(m8, qu, qi, plan)
+    else:
+        yu, yi, reads = _launch_dual_n("int8", m8, qu, qi)
+    fused_adj_matmul_int8.path, fused_adj_matmul_int8.passes = path, reads
     fused_adj_matmul_int8.launches += 1
     return yu, yi
 
 
 fused_adj_matmul_int8.launches = 0
 fused_adj_matmul_int8.passes = 0
+fused_adj_matmul_int8.path = "scan"
 
 
 def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor,

@@ -234,9 +234,11 @@ def dual_t_route(m: torch.Tensor, d: int, quant: str) -> str | None:
     return None
 
 
-def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: str):
+def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: str,
+                plan: fusedmm.DualPlan | None = None):
     """(qiT · Mᵀ, quT · M) as float32 raw integer sums, [d, N] layout, on
-    the kernel `dual_t_route` names; a matrix neither takes raises."""
+    the kernel `dual_t_route` names (K7 walking ``plan``, M's, where
+    given); a matrix neither takes raises."""
     d = quT.shape[0]
     route = dual_t_route(m, d, quant)
     t_name, n_name = _DUALS[quant]
@@ -245,14 +247,15 @@ def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: st
     if route is None:
         raise ValueError(f"the quantized dual in [d, N] layout: no kernel of the port takes "
                          f"M's padded shape {tuple(m.shape)}")
-    yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous())
+    plan_arg = (plan,) if quant == "int8" else ()
+    yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous(), *plan_arg)
     return yu.T, yi.T
 
 
-def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor, quant: str):
+def _qfdt_impl(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor, quant: str, plan=None):
     qi, si = _quantize_rows(ziT.contiguous())
     qu, su = _quantize_rows(zuT.contiguous())
-    yuT, yiT = _raw_dual_t(m, qu, qi, quant)
+    yuT, yiT = _raw_dual_t(m, qu, qi, quant, plan)
     return yuT * si, yiT * su
 
 
@@ -261,18 +264,19 @@ class _QuantFusedDualT(torch.autograd.Function):
     the same function on the swapped cotangents."""
 
     @staticmethod
-    def forward(ctx, m, ziT, zuT, quant):
-        ctx.m, ctx.quant = m, quant
-        return _qfdt_impl(m, ziT, zuT, quant)
+    def forward(ctx, m, ziT, zuT, quant, plan):
+        ctx.m, ctx.quant, ctx.plan = m, quant, plan
+        return _qfdt_impl(m, ziT, zuT, quant, plan)
 
     @staticmethod
     def backward(ctx, g_yuT, g_yiT):
-        dzuT, dziT = _qfdt_impl(ctx.m, g_yiT, g_yuT, ctx.quant)
-        return None, dziT, dzuT, None
+        dzuT, dziT = _qfdt_impl(ctx.m, g_yiT, g_yuT, ctx.quant, ctx.plan)
+        return None, dziT, dzuT, None, None
 
 
 def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
-                       quant: str = "int8") -> tuple[torch.Tensor, torch.Tensor]:
+                       quant: str = "int8", plan: fusedmm.DualPlan | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ q8(zi), Mᵀ @ q8(zu)) in transposed layout: ziT [d, I_pad],
     zuT [d, U_pad] -> (yuT [d, U_pad], yiT [d, I_pad]) f32, with the
     straight-through quantized backward. ``quant`` 'int4' takes the
@@ -282,10 +286,11 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
     the bits it gets alone. The raw sums come from K1 / K5 at d = 64 and
     from K7 / K8 on the transposed integers at every other width
     (`dual_t_route`; the same integers in either layout; off 32 on
-    zero-padded features)."""
+    zero-padded features). ``plan``: M's `fusedmm.DualPlan`, which K7
+    walks (int8)."""
     if quant not in _DUALS:
         raise ValueError(f"unknown quant mode {quant!r}")
-    return _QuantFusedDualT.apply(m, ziT, zuT, quant)
+    return _QuantFusedDualT.apply(m, ziT, zuT, quant, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -337,20 +342,28 @@ class _SwappedDual(torch.autograd.Function):
         return None, None, dzi, dzu
 
 
-def quant_dual_matmul(m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+def quant_dual_matmul(m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor,
+                      plan: fusedmm.DualPlan | None = None):
     """(M @ q8(zi), Mᵀ @ q8(zu)) as two plain int8 products, f32 out
     (the dense backend's quantized mode). m int8 [U_pad, I_pad]; zi
     [I_pad, d]; zu [U_pad, d] f32. Differentiable in zi and zu,
-    straight-through with a quantized backward."""
+    straight-through with a quantized backward. ``plan`` is taken, as
+    `quant_fused_dual` takes it, and not needed."""
     # integer operands in float32: exact while every sum stays below 2**24
     return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.dual_matmul_f32), m, zi, zu)
 
 
-def quant_fused_dual(m8: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
-    """`quant_dual_matmul` through kernel K7: one read of M feeds both
-    int8 products."""
-    return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.fused_adj_matmul_int8),
+def quant_fused_dual(m8: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor,
+                     plan: fusedmm.DualPlan | None = None):
+    """`quant_dual_matmul` through kernel K7: one launch gives both int8
+    products, walking ``plan`` (M's `fusedmm.DualPlan`) where given."""
+    return _SwappedDual.apply(functools.partial(_quant_impl, functools.partial(_k7, plan)),
                               m8, zi, zu)
+
+
+def _k7(plan, m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor):
+    """K7 on ``plan`` (looked up at call time)."""
+    return fusedmm.fused_adj_matmul_int8(m8, qu, qi, plan)
 
 
 def quant_fused_dual4(m4: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
@@ -393,21 +406,23 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _dense_dual(m: torch.Tensor, zu: torch.Tensor, zi: torch.Tensor,
-                dtype_name: str, shard=None) -> tuple[torch.Tensor, torch.Tensor]:
+                dtype_name: str, shard=None, plan: fusedmm.DualPlan | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(M @ zi [U, d], Mᵀ @ zu [I, d]) float32 for the exact modes of the
     dense products, by `DenseSquareAdj.runs_kernel`'s rule from the
     shapes: one K6 launch on bfloat16 operands where the kernel takes the
-    width (d % 32 == 0), else `exact_dual_matmul` (float32, or bfloat16
-    off the kernel's widths). With ``shard`` (a mesh), ``m`` is this
-    rank's row shard and the product runs sharded over the mesh's model
-    axis (`spmm_shard.sharded_dense_dual`)."""
+    width (d % 32 == 0), walking ``plan`` (``m``'s) where given, else
+    `exact_dual_matmul` (float32, or bfloat16 off the kernel's widths).
+    With ``shard`` (a mesh), ``m`` is this rank's row shard, ``plan`` its
+    plan, and the product runs sharded over the mesh's model axis
+    (`spmm_shard.sharded_dense_dual`)."""
     if shard is not None:
         from idgrec_torch.parallel import spmm_shard
 
-        return spmm_shard.sharded_dense_dual(shard, m, zu, zi, dtype_name)
+        return spmm_shard.sharded_dense_dual(shard, m, zu, zi, dtype_name, plan)
     u_pad, i_pad = m.shape
     if dtype_name == "bfloat16" and fusedmm.kernel_accepts_n(u_pad, i_pad, zu.shape[1], "bf16"):
-        return fusedmm.fused_adj_matmul(m, zu, zi)
+        return fusedmm.fused_adj_matmul(m, zu, zi, plan)
     yu, yi = exact_dual_matmul(m, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad), _DTYPES[dtype_name])
     return yu[: zu.shape[0]], yi[: zi.shape[0]]
 
@@ -442,6 +457,9 @@ class DenseSquareAdj:
     # the mesh whose model axis ``m`` is row-sharded over (``m`` then holds
     # this rank's rows only; parallel/spmm_shard.py), or None
     shard: object = None
+    # ``m``'s plan (`fusedmm.dual_plan`), which K6 and K7 walk, where the
+    # products run them (bfloat16 or int8)
+    plan: fusedmm.DualPlan | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -517,10 +535,10 @@ class DenseSquareAdj:
         if self.quant == "int8":
             u_pad, i_pad = self.m.shape
             dual = quant_fused_dual if self.runs_kernel(x.shape[1]) else quant_dual_matmul
-            yu, yi = dual(self.m, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
+            yu, yi = dual(self.m, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad), self.plan)
             yu, yi = yu[:nu], yi[:ni]
         else:
-            yu, yi = _dense_dual(self.m, zu, zi, self.compute_dtype_name)
+            yu, yi = _dense_dual(self.m, zu, zi, self.compute_dtype_name, plan=self.plan)
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
 
@@ -595,6 +613,9 @@ class FusedSquareAdj:
     # the mesh whose model axis ``m8`` is row-sharded over (``m8`` then
     # holds this rank's rows only; parallel/spmm_shard.py), or None
     shard: object = None
+    # ``m8``'s plan (`fusedmm.dual_plan`), which K6 and K7 walk (quant
+    # 'none' and 'int8'; K8 scans the packed matrix)
+    plan: fusedmm.DualPlan | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -630,16 +651,19 @@ class FusedSquareAdj:
         right_u, right_i, left_u, left_i = _gated(self, gate)
         zu = right_u[:, None] * x[:nu].to(torch.float32)
         zi = right_i[:, None] * x[nu:].to(torch.float32)
-        if self.quant in _N_DUALS:
+        if self.quant == "int8":
             u_pad, i_pad = self.padded_shape
-            yu, yi = _N_DUALS[self.quant](self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
+            yu, yi = quant_fused_dual(self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad),
+                                      self.plan)
+            yu, yi = yu[:nu], yi[:ni]
+        elif self.quant == "int4":
+            u_pad, i_pad = self.padded_shape
+            yu, yi = quant_fused_dual4(self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
             yu, yi = yu[:nu], yi[:ni]
         else:
-            yu, yi = fusedmm.fused_adj_matmul(self.m8, zu, zi)
+            yu, yi = fusedmm.fused_adj_matmul(self.m8, zu, zi, self.plan)
         return _finish(self, x, left_u[:, None] * yu, left_i[:, None] * yi)
 
-
-_N_DUALS = {"int8": quant_fused_dual, "int4": quant_fused_dual4}
 
 
 @dataclass(frozen=True)
@@ -755,12 +779,15 @@ class DenseDropSquareAdj(DropLists):
     # the mesh whose model axis ``m_bin`` is row-sharded over (``m_bin``
     # then holds this rank's rows only), or None
     shard: object = None
+    # ``m_bin``'s plan, shared with the model's adjacency and the other
+    # views (`shared_plan`), which K6 walks
+    plan: fusedmm.DualPlan | None = None
 
     def matmul(self, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
         """Â' @ x for x [U+I, d]: the full product over M_bin, the dropped
         edges' share subtracted, the view's left scales."""
         return _view_matmul(self, x, gate, lambda zu, zi: _dense_dual(
-            self.m_bin, zu, zi, self.compute_dtype_name, self.shard))
+            self.m_bin, zu, zi, self.compute_dtype_name, self.shard, self.plan))
 
 
 @dataclass(frozen=True)
@@ -779,12 +806,13 @@ class BitDropSquareAdj(DropLists):
             self.packed, self.packed_t, zu, zi, self.plans))
 
 
-def shared_chain_matmul(m_bin: torch.Tensor, chains, xs, compute_dtype: str = "bfloat16"):
+def shared_chain_matmul(m_bin: torch.Tensor, chains, xs, compute_dtype: str = "bfloat16",
+                        plan: fusedmm.DualPlan | None = None):
     """One application of k chains whose operators all factor over the
     same binary matrix (SGL's clean graph and its edge-dropout views,
     Â_k = diag(L_k)·(M − D_k)·diag(R_k)): the chains' right-scaled inputs
     side by side at k·d, one product over ``m_bin`` (`_dense_dual`: on
-    the card one K6 launch at k·d, `fusedmm.scan_passes` reads of M),
+    the card one K6 launch at k·d walking ``plan``, ``m_bin``'s),
     then each view's dropped edges subtracted (on K4) and each chain's
     left scales. chains: a `DenseSquareAdj` without a self-loop diag
     whose matrix is ``m_bin``, or `DenseDropSquareAdj` views over it; xs
@@ -798,7 +826,7 @@ def shared_chain_matmul(m_bin: torch.Tensor, chains, xs, compute_dtype: str = "b
     zu_blocks = [c.right_u[:, None] * x[:nu].to(torch.float32) for c, x in zip(chains, xs)]
     zi_blocks = [c.right_i[:, None] * x[nu:].to(torch.float32) for c, x in zip(chains, xs)]
     yu_all, yi_all = _dense_dual(m_bin, torch.cat(zu_blocks, dim=1), torch.cat(zi_blocks, dim=1),
-                                 compute_dtype, chains[0].shard)
+                                 compute_dtype, chains[0].shard, plan)
     outs = []
     for k, (c, x) in enumerate(zip(chains, xs)):
         yu = yu_all[:, k * d: (k + 1) * d]
@@ -923,6 +951,8 @@ class DenseRectAdj:
     # Mᵀ as its own int8 [pad(I, DENSE_COL_PAD), pad(U)] copy in the int8
     # mode: the operand of the transposed product on the card (`int8_matmul`)
     m_t: torch.Tensor | None = None
+    # ``m``'s plan (`fusedmm.dual_plan`), which K6 walks (bfloat16)
+    plan: fusedmm.DualPlan | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -950,7 +980,7 @@ class DenseRectAdj:
         on the output side."""
         if self.runs_kernel(z.shape[1]):
             yu, yi = fusedmm.fused_adj_matmul(self.m, z if transpose else None,
-                                              None if transpose else z)
+                                              None if transpose else z, self.plan)
             return yi if transpose else yu
         z = _pad_rows(z, self.m.shape[0] if transpose else self.m.shape[1])
         if self.quant == "int8":
@@ -977,7 +1007,7 @@ class DenseRectAdj:
             return self.matmul(xi), self.t_matmul(xu)
         zi = self.right[:, None] * xi.to(torch.float32)
         zu = self.left[:, None] * xu.to(torch.float32)
-        yu, yi = fusedmm.fused_adj_matmul(self.m, zu, zi)
+        yu, yi = fusedmm.fused_adj_matmul(self.m, zu, zi, self.plan)
         return (self.left[:, None] * yu).to(xi.dtype), (self.right[:, None] * yi).to(xu.dtype)
 
 
@@ -1106,12 +1136,12 @@ def fused_chain_t(
             raise ValueError("the user seeding needs an activation and no self-loop diag")
         # the user input is zero: it quantizes to zeros (scale 1), and the
         # item direction of this application is dropped
-        yuT, _ = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant)
+        yuT, _ = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant, adj.plan)
         hu = activation(lu * yuT)
 
     layers = [(hu, hi)] if (include_layer0 or reduce is None) else []
     for _ in range(num_layers):
-        yuT, yiT = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant)
+        yuT, yiT = quant_fused_dual_t(adj.m8, ri * hi, ru * hu, adj.quant, adj.plan)
         # left * (raw * s): the JAX chain's operation order
         nhu, nhi = lu * yuT, li * yiT
         if adj.has_diag:
@@ -1218,7 +1248,7 @@ def fused_chain_views_t(adj: FusedSquareAdj, view_lists, emb0: torch.Tensor, num
         zu = [_pad_cols(c.right_u, u_pad)[None, :] * hu for c, hu in zip(chains, hus)]
         zi = [_pad_cols(c.right_i, i_pad)[None, :] * hi for c, hi in zip(chains, his)]
         yuT, yiT = quant_fused_dual_t(adj.m8, torch.cat(zi, dim=0), torch.cat(zu, dim=0),
-                                      adj.quant)
+                                      adj.quant, adj.plan)
         hus, his = [], []
         for c, chain in enumerate(chains):
             yu = yuT[c * d: (c + 1) * d]
@@ -1383,8 +1413,10 @@ def build_adjacency(
         m_t = m.T.contiguous() if with_transpose else None
         if width > 1:
             m = _row_shard(m, spmm_shard.row_multiple(width, _PAD), mesh, dev)
+        # the plan K6 and K7 walk, where the products run them
+        plan = (fusedmm.dual_plan(m) if quant == "int8" or dtype_name == "bfloat16" else None)
         return DenseSquareAdj(m, lu, li, ru, ri, diag_u, diag_i, nu, ni, dtype_name, has_diag,
-                              quant, m_t, mesh if width > 1 else None)
+                              quant, m_t, mesh if width > 1 else None, plan)
     item_mult = fusedmm.PACK_TILE if quant == "int4" else fusedmm.TI
     m8 = fusedmm.pad_matrix(_count_matrix_int8(data, host), item_mult,
                             row_multiple=spmm_shard.row_multiple(width, fusedmm.TU))
@@ -1397,8 +1429,9 @@ def build_adjacency(
         m8 = fusedmm.pack_nibbles(m8)
     if width > 1:
         m8 = _row_shard(m8, 1, mesh, dev)
+    plan = fusedmm.dual_plan(m8) if quant != "int4" else None
     return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant,
-                          mesh if width > 1 else None)
+                          mesh if width > 1 else None, plan)
 
 
 def _row_shard(m: torch.Tensor, row_multiple: int, mesh, dev: torch.device) -> torch.Tensor:
@@ -1452,7 +1485,8 @@ def build_rect_adjacency(data: Dataset, backend: str = "auto", compute_dtype: st
         return BitRectAdj(p, pt, left, right, nu, ni, plans)
     m = _count_matrix_int8(data, dev, DENSE_COL_PAD)
     m_t = m.T.contiguous() if quant == "int8" else None
-    return DenseRectAdj(m, left, right, nu, ni, dtype_name, quant, m_t)
+    plan = fusedmm.dual_plan(m) if quant == "none" and dtype_name == "bfloat16" else None
+    return DenseRectAdj(m, left, right, nu, ni, dtype_name, quant, m_t, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -1512,6 +1546,21 @@ def build_dropout_shared(data: Dataset, backend: str = "auto", device=None, grap
     return None
 
 
+def shared_plan(shared, graph=None, compute_dtype: str = "bfloat16"):
+    """The plan of SGL's shared binary matrix ``shared`` (a
+    `build_dropout_shared` matrix), which K6 walks where the views'
+    products run in bfloat16 (``compute_dtype`` bfloat16, int8 or int4):
+    ``graph``'s own where ``shared`` is its matrix, else made here
+    (`fusedmm.dual_plan`), once per model; None where ``shared`` is no
+    matrix (bitpack's, or none) or the products run in float32."""
+    if not isinstance(shared, torch.Tensor) or _split_quant(compute_dtype)[0] != "bfloat16":
+        return None
+    if graph is not None and getattr(graph, "plan", None) is not None and (
+            shared is getattr(graph, "m", None) or shared is getattr(graph, "m8", None)):
+        return graph.plan
+    return fusedmm.dual_plan(shared)
+
+
 def _shard_mesh():
     """The active mesh where its model axis is wider than 1, else None."""
     from idgrec_torch.parallel.mesh import get_active_mesh, model_width
@@ -1522,7 +1571,7 @@ def _shard_mesh():
 
 def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.Generator,
                             backend: str = "auto", compute_dtype: str = "bfloat16",
-                            shared=None, device=None):
+                            shared=None, device=None, plan: fusedmm.DualPlan | None = None):
     """SGL's per-epoch edge-dropout view (reference tools.py:67-92): keep
     ``int(round((1 − drop_ratio) · E))`` of the E edges, renormalized
     symmetrically on the kept degrees. Drawn from the host's ``np_rng``
@@ -1538,7 +1587,8 @@ def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.
     `build_dropout_shared`: a `BitDropSquareAdj` on its packed pair
     ('bitpack'), or a `DenseDropSquareAdj` on its binary matrix ('dense',
     'fused'; ``shared`` None gives the bare `DropLists`, all the quantized
-    views route reads). The views' products run in bfloat16
+    views route reads) with ``plan``, the shared matrix's (`shared_plan`).
+    The views' products run in bfloat16
     in the quantized modes, as the JAX package builds them."""
     dev = resolve_device(device)
     dtype_name, _ = _split_quant(compute_dtype)
@@ -1568,4 +1618,4 @@ def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.
     if shared is None:
         return DropLists(*fields)
     # `build_dropout_shared` under the same mesh made ``shared`` its row shard
-    return DenseDropSquareAdj(*fields, shared, dtype_name, _shard_mesh())
+    return DenseDropSquareAdj(*fields, shared, dtype_name, _shard_mesh(), plan)

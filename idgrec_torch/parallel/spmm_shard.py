@@ -7,7 +7,8 @@ rank k holds M_k = M[k·U_pad/n : (k+1)·U_pad/n] on its card and nothing
 else of M (`propagate.build_adjacency` builds M on the host and uploads
 the rank's rows), so each rank reads 1/n of M an application. Between
 the collectives each rank runs the kernel the single-card route runs,
-on its shard (`shard_dual`):
+on its shard (`shard_dual`), K6 and K7 walking the shard's own plan
+(`fusedmm.dual_plan` of M_k, made at build beside it):
 
 * bfloat16 on ``fused``, and on ``dense`` where K6 takes the width: K6
   (`fusedmm.fused_adj_matmul`);
@@ -94,16 +95,17 @@ def _dense_route(rows: int, cols: int, d: int, dtype_name: str) -> str:
 
 
 def shard_dual(route: str, m_k: torch.Tensor, zu_k: torch.Tensor, zi: torch.Tensor,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, plan: fusedmm.DualPlan | None = None):
     """(M_k @ zi, M_kᵀ @ zu_k): the rank's [U_pad/n, d] rows of yu and its
     [I_pad, d] partial of yi, float32, by ``route`` (`shard_route`).
     zu_k [U_pad/n, d] and zi [I_pad, d] are float activations ('k6',
     'exact' rounds them to ``dtype``) or int8 ('k7', 'k8', 'int8_f32',
-    whose results are the raw integer sums). Not differentiable."""
+    whose results are the raw integer sums). K6 and K7 walk ``plan``,
+    M_k's, where given. Not differentiable."""
     if route == "k6":
-        return fusedmm.fused_adj_matmul(m_k, zu_k, zi)
+        return fusedmm.fused_adj_matmul(m_k, zu_k, zi, plan)
     if route == "k7":
-        return fusedmm.fused_adj_matmul_int8(m_k, zu_k, zi)
+        return fusedmm.fused_adj_matmul_int8(m_k, zu_k, zi, plan)
     if route == "k8":
         return fusedmm.fused_adj_matmul_int4(m_k, zu_k, zi)
     if route == "int8_f32":
@@ -114,13 +116,14 @@ def shard_dual(route: str, m_k: torch.Tensor, zu_k: torch.Tensor, zi: torch.Tens
 
 
 def _sharded(route: str, dtype: torch.dtype, mesh: Mesh, m_k: torch.Tensor,
-             a_users: torch.Tensor, a_items: torch.Tensor):
+             a_users: torch.Tensor, a_items: torch.Tensor,
+             plan: fusedmm.DualPlan | None = None):
     """(M @ a_items, Mᵀ @ a_users), whole on every rank of the model
-    group: the rank's shard product between one all-gather (yu) and one
-    all-reduce (yi)."""
+    group: the rank's shard product (on M_k's ``plan``) between one
+    all-gather (yu) and one all-reduce (yi)."""
     r = m_k.shape[0]
     lo = mesh.model_index * r
-    yu_k, yi_part = shard_dual(route, m_k, a_users[lo: lo + r], a_items, dtype)
+    yu_k, yi_part = shard_dual(route, m_k, a_users[lo: lo + r], a_items, dtype, plan)
     return (all_gather_rows(yu_k, mesh.model_group, mesh.model),
             all_reduce_sum(yi_part, mesh.model_group, mesh.model))
 
@@ -143,7 +146,7 @@ def sharded_square_matmul(adj, x: torch.Tensor, gate: torch.Tensor | None = None
     m_k = adj.m8 if isinstance(adj, prop.FusedSquareAdj) else adj.m
     route = shard_route(adj, x.shape[1])
     dtype = prop._DTYPES.get(getattr(adj, "compute_dtype_name", "bfloat16"), torch.bfloat16)
-    sharded = functools.partial(_sharded, route, dtype, mesh)
+    sharded = functools.partial(_sharded, route, dtype, mesh, plan=adj.plan)
     if route in ("k7", "k8", "int8_f32"):
         impl = functools.partial(prop._quant_impl, sharded)
     else:
@@ -153,15 +156,15 @@ def sharded_square_matmul(adj, x: torch.Tensor, gate: torch.Tensor | None = None
 
 
 def sharded_dense_dual(mesh: Mesh, m_k: torch.Tensor, zu: torch.Tensor, zi: torch.Tensor,
-                       dtype_name: str):
+                       dtype_name: str, plan: fusedmm.DualPlan | None = None):
     """`propagate._dense_dual` with ``m_k`` this rank's row shard of the
-    matrix: (M @ zi [U, d], Mᵀ @ zu [I, d]) float32, whole on every rank
-    of the model group, differentiable in zu and zi. SGL's shared chain
-    and its edge-dropout views run it over the shard of their binary
-    matrix."""
+    matrix (``plan`` its plan): (M @ zi [U, d], Mᵀ @ zu [I, d]) float32,
+    whole on every rank of the model group, differentiable in zu and zi.
+    SGL's shared chain and its edge-dropout views run it over the shard
+    of their binary matrix."""
     rows, cols = m_k.shape
     route = _dense_route(rows, cols, zu.shape[1], dtype_name)
-    sharded = functools.partial(_sharded, route, prop._DTYPES[dtype_name], mesh)
+    sharded = functools.partial(_sharded, route, prop._DTYPES[dtype_name], mesh, plan=plan)
     yu, yi = prop._SwappedDual.apply(functools.partial(_exact, sharded), m_k,
                                      prop._pad_rows(zi, cols), prop._pad_rows(zu, rows * mesh.model))
     return yu[: zu.shape[0]], yi[: zi.shape[0]]

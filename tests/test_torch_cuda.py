@@ -1188,21 +1188,115 @@ def test_k6_non_finite_activations_give_nan(cuda):
     assert bool(torch.isnan(yu).all()) and bool(torch.isfinite(yi).all())
 
 
+@pytest.mark.parametrize("with_plan", [False, True])
 @pytest.mark.parametrize("d,passes", [(128, 1), (96, 3), (64, 1), (32, 1)])
-def test_k6_reads_m_once_per_feature_group(cuda, d, passes):
-    """K6 takes the shared scan: its launcher reports `scan_passes` (d)
-    reads of M, and the result stays within the bar of the plain
-    version and repeats bit for bit."""
+def test_k6_reads_m_once_per_feature_group(cuda, d, passes, with_plan):
+    """Without a plan K6 takes the shared scan: its launcher reports
+    `scan_passes` (d) reads of M; with M's plan it walks the plan and
+    reads M no time (`dual_path`). Either way the result equals the
+    fixed-point plain version, stays within the bar of the float32 one
+    and repeats bit for bit."""
     rng = np.random.default_rng(5)
     m = _counts(rng, 2048, 1024, 0.05, 2).to(cuda)
+    plan = fusedmm.dual_plan(m) if with_plan else None
     zu = torch.from_numpy(rng.normal(size=(2040, d)).astype(np.float32)).to(cuda)
     zi = torch.from_numpy(rng.normal(size=(1000, d)).astype(np.float32)).to(cuda)
-    got = fusedmm.fused_adj_matmul(m, zu, zi)
-    assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(d) == passes  # as launched
-    again = fusedmm.fused_adj_matmul(m, zu, zi)
-    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(m, zu, zi)):
-        assert torch.equal(a, b)
+    got = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+    want = ("plan", 0) if with_plan else ("scan", passes)
+    assert (fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes) == want
+    assert fusedmm.dual_path(d, plan) == want and fusedmm.scan_passes(d) == passes
+    again = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+    for a, b, f, c in zip(got, again, fusedmm.fused_adj_matmul_fixed_plain(m, zu, zi),
+                          fusedmm.fused_adj_matmul_plain(m, zu, zi)):
+        assert torch.equal(a, b) and torch.equal(a, f)
         _close(a, c)
+
+
+def _plan_case(rng, cuda, d):
+    """A count matrix with padding, empty rows and a hot column of 1,500
+    entries, and activations from 2**-20 to 2**10."""
+    m = _counts(rng, 2048, 1536, 0.03, 5)
+    m[100:160] = 0
+    m[:1500, 17] = 3
+    zu = rng.normal(size=(2000, d)) * 2.0 ** rng.integers(-20, 11, size=(2000, 1))
+    zi = rng.normal(size=(1500, d)) * 2.0 ** rng.integers(-20, 11, size=(1500, 1))
+    return (m.to(cuda), torch.from_numpy(zu.astype(np.float32)).to(cuda),
+            torch.from_numpy(zi.astype(np.float32)).to(cuda))
+
+
+@pytest.mark.parametrize("sides", ["both", "users", "items"])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 1024])
+def test_k6_plan_equals_fixed_plain_and_scan(cuda, d, sides):
+    """K6 walking M's plan gives the bits of `fused_adj_matmul_fixed_plain`
+    and of K6's scan, one-sided both ways too, on two launches."""
+    m, zu, zi = _plan_case(np.random.default_rng(d), cuda, d)
+    zu = None if sides == "items" else zu
+    zi = None if sides == "users" else zi
+    plan = fusedmm.dual_plan(m)
+    before = fusedmm.fused_adj_matmul.launches
+    got = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+    assert fusedmm.fused_adj_matmul.path == "plan" and fusedmm.fused_adj_matmul.passes == 0
+    again = fusedmm.fused_adj_matmul(m, zu, zi, plan)
+    scan = fusedmm.fused_adj_matmul(m, zu, zi)
+    assert fusedmm.fused_adj_matmul.path == "scan"
+    assert fusedmm.fused_adj_matmul.launches == before + 3
+    want = fusedmm.fused_adj_matmul_fixed_plain(m, zu, zi, plan)
+    for a, b, c, w in zip(got, again, scan, want):
+        assert (a is None) == (w is None)
+        if w is not None:
+            assert bool(torch.isfinite(a).all())
+            assert torch.equal(a, w) and torch.equal(b, w) and torch.equal(c, w)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_k6_plan_nan_over_the_other_side(cuda, bad):
+    m, zu, zi = _plan_case(np.random.default_rng(3), cuda, 64)
+    zu[7, 9] = bad
+    plan = fusedmm.dual_plan(m)
+    for p in (plan, None):
+        yu, yi = fusedmm.fused_adj_matmul(m, zu, zi, p)
+        assert bool(torch.isnan(yi).all()) and bool(torch.isfinite(yu).all())
+        assert torch.equal(yu, fusedmm.fused_adj_matmul_fixed_plain(m, zu, zi, plan)[0])
+
+
+@pytest.mark.parametrize("d", [64, 128, 192])
+def test_k7_plan_equals_plain_and_scan(cuda, d):
+    """K7 walking M's plan gives the integers of its plain version and of
+    its scan, the same bits on a second launch."""
+    rng = np.random.default_rng(d)
+    m = _counts(rng, 2048, 1536, 0.03, 127)
+    m[:1500, 17] = 1
+    m = m.to(cuda)
+    qu, qi = _int8(rng, (2048, d)).to(cuda), _int8(rng, (1536, d)).to(cuda)
+    plan = fusedmm.dual_plan(m)
+    got = fusedmm.fused_adj_matmul_int8(m, qu, qi, plan)
+    assert (fusedmm.fused_adj_matmul_int8.path, fusedmm.fused_adj_matmul_int8.passes) == (
+        "plan", 0)
+    again = fusedmm.fused_adj_matmul_int8(m, qu, qi, plan)
+    scan = fusedmm.fused_adj_matmul_int8(m, qu, qi)
+    assert fusedmm.fused_adj_matmul_int8.passes == fusedmm.scan_passes(d)
+    for a, b, c, w in zip(got, again, scan, fusedmm.fused_adj_matmul_int8_plain(m, qu, qi)):
+        assert torch.equal(a, w) and torch.equal(c, w)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_plan_launches_do_not_synchronise(cuda):
+    """K6 and K7 on a plan, and their backward through the adjacency, under
+    sync debug mode "error"."""
+    m, zu, zi = _plan_case(np.random.default_rng(1), cuda, 64)
+    plan = fusedmm.dual_plan(m)
+    rng = np.random.default_rng(2)
+    qu, qi = _int8(rng, (2048, 64)).to(cuda), _int8(rng, (1536, 64)).to(cuda)
+    zu_g = zu.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yu, yi = fusedmm.fused_adj_matmul(m, zu_g, zi, plan)
+        (yu.sum() + yi.sum()).backward()
+        fusedmm.fused_adj_matmul_int8(m, qu, qi, plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert zu_g.grad is not None and bool(torch.isfinite(zu_g.grad).all())
 
 
 @pytest.mark.parametrize("case", ["span", "long_rows"])
@@ -2023,7 +2117,8 @@ def test_zoo_step_does_not_synchronise(cuda, name):
     # NCL's k-means: 20 iterations a table, one K4 launch each
     assert scatter.scatter_add_rows.launches - k4_before == (40 if name == "NCL" else 0)
     if name in ("SimGCL", "IMPGCN"):
-        assert fusedmm.fused_adj_matmul.passes == 3  # the chains or groups at d = 192
+        # the chains or groups at d = 192 walk the adjacency's plan
+        assert (fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes) == ("plan", 0)
     terms = terms.cpu().numpy()
     assert terms.shape == (len(model.loss_names),) and np.isfinite(terms).all()
     if name == "NCL":
@@ -2133,8 +2228,10 @@ def test_kmeans_on_k4_equals_its_plain_route_without_a_sync(cuda):
 
 
 def test_k6_at_d192_equals_its_plain_version(cuda):
-    """SimGCL's width: three reads of M a launch (64 features each), the
-    sums within K6's bar of the plain version, two launches bit-equal."""
+    """SimGCL's width: on the scan three reads of M a launch (64 features
+    each), on the adjacency's plan none; both the bits of the fixed-point
+    plain version, within K6's bar of the float32 one, two launches
+    bit-equal."""
     data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
     adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=cuda)
     assert adj.runs_kernel(192)
@@ -2145,8 +2242,11 @@ def test_k6_at_d192_equals_its_plain_version(cuda):
     got = fusedmm.fused_adj_matmul(adj.m, zu, zi)
     assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(192) == 3
     again = fusedmm.fused_adj_matmul(adj.m, zu, zi)
-    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
-        assert torch.equal(a, b)
+    walk = fusedmm.fused_adj_matmul(adj.m, zu, zi, adj.plan)
+    assert (fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes) == ("plan", 0)
+    for a, b, w, f, c in zip(got, again, walk, fusedmm.fused_adj_matmul_fixed_plain(adj.m, zu, zi),
+                             fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
+        assert torch.equal(a, b) and torch.equal(a, f) and torch.equal(w, f)
         _close(a, c)
 
 
@@ -2155,7 +2255,7 @@ def test_k6_at_d192_equals_its_plain_version(cuda):
 _ROUND = {"NGCF": 6, "GCMC": 2, "GCCF": 6, "LightGODE": 2, "RecDCL": 4}
 
 
-def _plain_k6(m8, zu, zi):
+def _plain_k6(m8, zu, zi, plan=None):
     """K6's plain version with K6's backward rule (chip_smoke.py's
     `plain_duals`); a one-sided call through `propagate.exact_matmul`, the
     route K6 replaced on the rectangular adjacency."""
@@ -2209,8 +2309,8 @@ def test_zoo_step_of_this_round_on_k6(cuda, name):
     before = fusedmm.fused_adj_matmul.launches
     got = step()
     assert fusedmm.fused_adj_matmul.launches - before == _ROUND[name]
-    if name == "RecDCL":
-        assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(2048) == 16
+    if name == "RecDCL":  # d = 2,048 on the adjacency's plan
+        assert (fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes) == ("plan", 0)
     old = fusedmm.fused_adj_matmul
     try:
         fusedmm.fused_adj_matmul = _plain_k6
@@ -2287,9 +2387,10 @@ def test_node_dropout_step_does_not_synchronise(cuda):
 
 
 def test_k6_at_d2048_equals_its_plain_version(cuda):
-    """RecDCL's width: sixteen reads of M a launch (128 features each),
-    the sums within K6's bar of the plain version, two launches
-    bit-equal."""
+    """RecDCL's width: on the scan sixteen reads of M a launch (128
+    features each), on the adjacency's plan none; both the bits of the
+    fixed-point plain version, within K6's bar of the float32 one, two
+    launches bit-equal."""
     data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
     adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=cuda)
     assert adj.runs_kernel(2048)
@@ -2300,8 +2401,11 @@ def test_k6_at_d2048_equals_its_plain_version(cuda):
     got = fusedmm.fused_adj_matmul(adj.m, zu, zi)
     assert fusedmm.fused_adj_matmul.passes == fusedmm.scan_passes(2048) == 16
     again = fusedmm.fused_adj_matmul(adj.m, zu, zi)
-    for a, b, c in zip(got, again, fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
-        assert torch.equal(a, b)
+    walk = fusedmm.fused_adj_matmul(adj.m, zu, zi, adj.plan)
+    assert (fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes) == ("plan", 0)
+    for a, b, w, f, c in zip(got, again, walk, fusedmm.fused_adj_matmul_fixed_plain(adj.m, zu, zi),
+                             fusedmm.fused_adj_matmul_plain(adj.m, zu, zi)):
+        assert torch.equal(a, b) and torch.equal(a, f) and torch.equal(w, f)
         _close(a, c)
 
 
@@ -2679,8 +2783,8 @@ def test_fused_matmul_and_dual_t_at_off_32_widths(cuda, monkeypatch, dtype, d):
     for name in ("fused_adj_matmul_int8", "fused_adj_matmul_int4"):
         monkeypatch.setattr(fusedmm, name, getattr(fusedmm, f"{name}_plain"))
     monkeypatch.setattr(propagate, "quantize_rows", propagate.quantize_rows_plain)
-    monkeypatch.setattr(fusedmm, "_fused_fwd", lambda m8, zu, zi: fusedmm.fused_adj_matmul_plain(
-        m8, zu, zi))
+    monkeypatch.setattr(fusedmm, "_fused_fwd",
+                        lambda m8, zu, zi, plan=None: fusedmm.fused_adj_matmul_plain(m8, zu, zi))
     want = run()
     for (y, gx), (wy, wg) in zip(got, want):
         if quant:

@@ -543,9 +543,9 @@ def test_the_route_calls_k6_in_bfloat16_only(datasets, monkeypatch):
     calls = []
     real = t_prop.fusedmm.fused_adj_matmul
 
-    def spy(m, zu, zi):
+    def spy(m, zu, zi, *plan):
         calls.append((zu is not None, zi is not None))
-        return real(m, zu, zi)
+        return real(m, zu, zi, *plan)
 
     monkeypatch.setattr(t_prop.fusedmm, "fused_adj_matmul", spy)
     tdata = datasets[0]
