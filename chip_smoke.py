@@ -46,10 +46,10 @@ for bit through the training step's entry (one launch per table, no
 range check) and the public one, on 4,096 copies of one row, and across
 two launches; the
 gathers' backward runs under ``torch.cuda.set_sync_debug_mode("error")``.
-K7 and K8 are held across two launches at d = 64 and d = 128, K7 on
-the plan (no read of M) and on its scan, K8 on its scan (one read of
-the stored matrix; `fusedmm.dual_path` and `fusedmm.scan_passes` state
-the rule). Then it drives the paths, each with the
+K7 and K8 are held across two launches at d = 64 and d = 128, each on
+the adjacency's plan (no read of the stored matrix; K8's plan is the
+unpacked matrix's) and on its scan (`fusedmm.dual_path` and
+`fusedmm.scan_passes` state the rule). Then it drives the paths, each with the
 launch counts set to 0 just before and read just after:
 
 * serving, int8: `serving.Recommender` answers four requests, checked
@@ -198,28 +198,35 @@ launch counts set to 0 just before and read just after:
 * SGL at its published config on the yelp2018-scale set (bfloat16 on
   `auto`, dense: its clean chain and two edge-dropout views side by side
   at d = 192, one K6 launch a layer each way over the model's own binary
-  matrix, each view's dropped edges subtracted on K4; `sgl_phase`): the
+  matrix, each view's dropped edges subtracted on K4's sorted-segment
+  entry, the gather inside, one launch a call; `sgl_phase`): the
   model's resident bytes (one int8 copy of M), `epoch_context` timed, one
   step against the same step on K6's and K4's plain versions (K6's
-  rules), K6 6 and K4 24 a step, K6 3 a representation, a step's memory
+  rules), K6 6 and K4's sorted-segment entry 24 a step (its own count),
+  K6 3 a representation, a step's memory
   under M's bytes, one step under sync debug mode "error" (the views
   drawn outside it), ZOO_STEPS steps, eval embeddings timed, a request
   of ZOO_REQUEST users against the plain route's server, `topk_mode =
   "approx"` serving exact's ids, `train_model` for one epoch with the
   final evaluation SGL runs after its last epoch, served from its
   result; `aug_type = rw` for ZOO_STEPS steps; the quantized views on
-  `fused` (int8 and int4 on `auto`: the three chains at 192, K7 / K8 on
-  the transposed integers, held bit for bit to three K1 / K5 launches on
-  the 64-row blocks and to their plain versions, timed beside their
-  bounds, their plain versions and `torch._int_mm`; one step against the
-  plain route; int4's ZOO_STEPS steps equal to int8's); bitpack (K11)
-  one step against its plain route; K4 on one view's drop list (about a
-  tenth of the edges) equal to its plain version and across two
-  launches, timed beside its bound, its plain version and `index_add_`;
+  `fused` (int8 and int4 on `auto`: the three chains at 192, K7 / K8
+  walking the adjacency's plan (int4's: of the unpacked matrix) on the
+  transposed integers, held bit for bit to three K1 / K5 launches on the
+  64-row blocks and to their plain versions, timed beside their bounds,
+  their scan, their plain versions and `torch._int_mm`; one step against
+  the plain route; int4's ZOO_STEPS steps, timed beside int8's, equal to
+  them); bitpack (K11) one step against its plain route; K4's
+  sorted-segment entry on one view's drop lists (about a tenth of the
+  edges) both ways, into the users and into the items (its hot rows),
+  equal to its plain version, across two launches and on a transposed
+  z, timed beside its bound, the generic K4 entry and `index_add_` of
+  the gathered rows, no slower than `index_add_` on either side;
 * the mesh (`mesh_phase`, ROADMAP A.9): the per-shard products of the
   sharded dual (`spmm_shard.shard_dual`) on every row shard of the
   yelp2018-scale M at model widths 2 and 4, K6, K7 and K8 on the fused
-  M and K6 and K7 on the dense M (its shards cut as `build_adjacency`
+  M (each on its shard's plan; K8's of the shard unpacked) and K6 and
+  K7 on the dense M (its shards cut as `build_adjacency`
   cuts them, their route `shard_route`'s), forward and on the swapped
   cotangents, each held to its plain version and the assembled products
   to the single launch, shard 0 timed beside its bound; an NCCL group of
@@ -231,14 +238,18 @@ launch counts set to 0 just before and read just after:
   yelp2018-scale dense M (its build timed, its bytes printed) against
   their scan, bit for bit to the plain versions on both paths, at d = 64,
   128 (and K6 one-sided both ways, the rectangular directions), 192 and
-  K6 at 2,048, each timed (CUDA events) beside `torch.matmul` x2 on a
-  bfloat16 copy of M or `torch._int_mm` x2 and two bounds (one read of
-  M; the plan in its place), with the card's name and power limit; the
-  walk no slower than the library at the widths the scan lost to it and
-  than the scan by 5 % anywhere;
+  K6 at 2,048, and K8 walking the plan of M padded to 2,048 columns
+  (made before packing) against its scan of the packed matrix at 64,
+  128 and 192, each timed (CUDA events) beside `torch.matmul` x2 on a
+  bfloat16 copy of M or `torch._int_mm` x2 (K8: on the unpacked matrix)
+  and two bounds (one read of the stored matrix; the plan in its place),
+  with the card's name and power limit; the walk no slower than the
+  library at the widths the scan lost to it and than the scan by 5 %
+  anywhere;
 * widths off 32 (`widths_phase`, ROADMAP B.B1): K7, K8 and K6 at d = 16
   and 48 on the yelp2018-scale M through their wrappers, which zero-pad
-  the features to the next multiple of 32 and slice (K7, K8 bit-equal to
+  the features to the next multiple of 32 and slice (K8 on the int4
+  adjacency's plan; K7, K8 bit-equal to
   their plain versions, K6 within its bar; each timed beside the launch
   at the padded width), `FusedSquareAdj.matmul` in int8, int4 and
   bfloat16 and `quant_fused_dual_t` forward and backward against the
@@ -426,7 +437,7 @@ def launch_counters():
                      chainmm.dual_sweep_tanh, chainmm.dual_sweep_tanh_inject)
     row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
     counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject,
-                                 propagate.quantize_rows)
+                                 propagate.quantize_rows, scatter.segment_sum_rows)
                 + n_counters + tanh_counters + row_counters)
     sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
     return int8_counters, int4_counters, n_counters, tanh_counters, row_counters, counters, sweeps
@@ -547,17 +558,20 @@ class PlainChainModel:
 
 @contextlib.contextmanager
 def plain_kernels(chainmm, scatter):
-    """Route the chain and the batch scatter through the kernels' plain
-    versions: the reference a training step is held to."""
-    saved = chainmm.KERNELS, scatter.scatter_add_rows, scatter.scatter_add_rows_unchecked
+    """Route the chain and K4 (the batch scatter, SGL's drop corrections)
+    through the kernels' plain versions: the reference a training step is
+    held to."""
+    saved = (chainmm.KERNELS, scatter.scatter_add_rows, scatter.scatter_add_rows_unchecked,
+             scatter.segment_sum_rows)
     chainmm.KERNELS = chainmm.PLAIN
     scatter.scatter_add_rows = scatter.scatter_add_rows_plain
     scatter.scatter_add_rows_unchecked = scatter.scatter_add_rows_plain
+    scatter.segment_sum_rows = scatter.segment_sum_rows_plain
     try:
         yield
     finally:
-        (chainmm.KERNELS, scatter.scatter_add_rows,
-         scatter.scatter_add_rows_unchecked) = saved
+        (chainmm.KERNELS, scatter.scatter_add_rows, scatter.scatter_add_rows_unchecked,
+         scatter.segment_sum_rows) = saved
 
 
 @contextlib.contextmanager
@@ -779,8 +793,9 @@ def sgl_phase(h) -> dict:
             and cfg_s.str("propagation_backend") == "auto", "SGL: not the published config")
     bs_s, lr_s = cfg_s.int("batch_size"), cfg_s.float("learn_rate")
     # a step: three layers, each one K6 launch at 3 DIM forward and one
-    # backward; 2 views x 2 sides of K4 a layer, forward and backward; a
-    # representation: the clean chain, one K6 launch a layer at DIM
+    # backward; 2 views x 2 sides of K4's sorted-segment entry a layer,
+    # forward and backward; a representation: the clean chain, one K6 launch
+    # a layer at DIM
     step_k6_s, repr_k6_s, step_k4_s = 2 * LAYERS, LAYERS, 2 * 2 * 2 * LAYERS
 
     def sgl_model(cfg_):
@@ -847,7 +862,7 @@ def sgl_phase(h) -> dict:
     one_s = read_counts()
     step_mem_s = torch.cuda.max_memory_allocated() - mem0
     got_l = {k_: n for k_, n in one_s.items() if n}
-    want_l = {"fused_adj_matmul": step_k6_s, "scatter_add_rows": step_k4_s}
+    want_l = {"fused_adj_matmul": step_k6_s, "segment_sum_rows": step_k4_s}
     require(got_l == want_l, f"SGL: a step's launches {got_l}, expected {want_l}")
     require((fusedmm.fused_adj_matmul.path, fusedmm.fused_adj_matmul.passes)
             == fusedmm.dual_path(3 * DIM, g_s.plan) == ("plan", 0),
@@ -886,7 +901,7 @@ def sgl_phase(h) -> dict:
     launches_s = read_counts()
     got_l = {k_: n for k_, n in launches_s.items() if n}
     want_l = {"fused_adj_matmul": repr_k6_s + ZOO_STEPS * step_k6_s,
-              "scatter_add_rows": ZOO_STEPS * step_k4_s}
+              "segment_sum_rows": ZOO_STEPS * step_k4_s}
     require(got_l == want_l, f"SGL: launches {got_l}, expected {want_l}")
     require(terms_s.shape == (3,) and bool(np.isfinite(terms_s).all())
             and all(bool(torch.isfinite(p_.grad).all()) and bool(torch.isfinite(p_).all())
@@ -908,13 +923,18 @@ def sgl_phase(h) -> dict:
                   step_mem_mb=step_mem_s / 1e6, mem_bar_mb=m_bytes_s / 1e6, kmeans_ms=None,
                   narrow_mem_mb=None)
 
-    # K4 on one view's drop list at the step's shapes: the item side's
-    # correction (its dropped edges' item rows summed into their users),
-    # against its plain version bit for bit and across two launches, timed
-    # beside its bound, its plain version and index_add_; its backward (the
-    # user cotangents' rows into the items, on the item-sorted twin list)
-    # held to K4's plain version on that list bit for bit
-    by_user, by_item = (view_s.du_rows, view_s.du_cols), (view_s.di_rows, view_s.di_cols)
+    # K4's sorted-segment entry on one view's drop lists at the step's
+    # shapes, both directions of a correction: the forward into the users
+    # (the item side's rows gathered, the user-sorted list) and the backward
+    # into the items (the user cotangents' rows, the item-sorted list). Each
+    # against its plain version (K4's on the gathered rows) bit for bit and
+    # across two launches, and timed beside its bound, the generic K4 entry
+    # on the same list (with the gather it needs, and alone on the gathered
+    # rows) and index_add_ of the gathered rows; it may not be slower than
+    # index_add_ on either side. Also z as the [N, d] view of a [d, N]
+    # tensor (the quantized views route's), which the wrapper copies first.
+    by_user = (view_s.du_rows, view_s.du_cols, view_s.du_ptr)
+    by_item = (view_s.di_rows, view_s.di_cols, view_s.di_ptr)
     with torch.no_grad():
         emb_k4 = concat_user_item(m_s.user_emb, m_s.item_emb)
         zi_k4 = (view_s.right_i[:, None] * emb_k4[nu:]).contiguous()
@@ -923,35 +943,58 @@ def sgl_phase(h) -> dict:
     corr = scatter.correction(zi_k4, by_user, by_item, nu)
     corr.backward(g_k4)
     grad_k4, zi_k4, corr = zi_k4.grad, zi_k4.detach(), corr.detach()
-    corr_again = scatter.correction(zi_k4, by_user, by_item, nu)
-    corr_plain = scatter.scatter_add_rows_plain(view_s.du_rows, zi_k4[view_s.du_cols], nu)
-    require(torch.equal(corr, corr_again) and torch.equal(corr, corr_plain),
-            "K4 on SGL's drop list: two launches differ, or it differs from its plain version")
-    grad_plain = scatter.scatter_add_rows_plain(view_s.di_rows, g_k4[view_s.di_cols], ni)
-    require(torch.equal(grad_k4, grad_plain),
-            "K4 on SGL's drop list: the backward differs from K4's plain version on the "
-            "item-sorted list")
-    k4c_ms = cuda_ms(lambda: scatter.correction(zi_k4, by_user, by_item, nu), 20)
-    k4c_plain = cuda_ms(lambda: scatter.scatter_add_rows_plain(
-        view_s.du_rows, zi_k4[view_s.du_cols], nu), 5)
-    k4c_lib = cuda_ms(lambda: torch.zeros((nu, DIM), device=dev).index_add_(
-        0, view_s.du_rows, zi_k4[view_s.du_cols]), 20)
-    # the backward's K4 call as the step makes it (sorted, into the items),
-    # and the same sums on the unsorted lists, into the items and into the
-    # users: whether the order or the side sets the time
-    back_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
-        view_s.di_rows, g_k4[view_s.di_cols], ni), 20)
-    back_unsorted_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
-        view_s.du_cols, g_k4[view_s.du_rows], ni), 20)
-    users_unsorted_ms = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(
-        view_s.di_cols, zi_k4[view_s.di_rows], nu), 20)
-    # the gathered rows read once, the two index lists, the sums written once
-    k4c_bound = bound(4 * n_drop_s * DIM + 16 * n_drop_s + 4 * nu * DIM, n_drop_s * DIM,
-                      bf16_ops)
-    sgl_k4 = dict(ms=k4c_ms, plain_ms=k4c_plain, library_ms=k4c_lib, bound=k4c_bound,
-                  rows=n_drop_s, backward_ms=back_ms, backward_unsorted_ms=back_unsorted_ms,
-                  users_unsorted_ms=users_unsorted_ms)
-    del emb_k4, zi_k4, corr, corr_again, corr_plain, g_k4, grad_k4, grad_plain
+    require(torch.equal(corr, scatter.scatter_add_rows_plain(view_s.du_rows,
+                                                             zi_k4[view_s.du_cols], nu))
+            and torch.equal(grad_k4, scatter.scatter_add_rows_plain(view_s.di_rows,
+                                                                    g_k4[view_s.di_cols], ni)),
+            "SGL's correction differs from K4's plain version on the gathered rows, forward "
+            "(users) or backward (items)")
+    sgl_k4 = dict(rows=n_drop_s)
+    for side, (ptr_, cols_, rows_, z_, n_) in (
+            ("users", (view_s.du_ptr, view_s.du_cols, view_s.du_rows, zi_k4, nu)),
+            ("items", (view_s.di_ptr, view_s.di_cols, view_s.di_rows, g_k4, ni))):
+        z_t = z_.T.contiguous().T  # the same values, strides (1, N)
+        before = scatter.segment_sum_rows.launches
+        got_ = scatter.segment_sum_rows(ptr_, cols_, z_)
+        again_ = scatter.segment_sum_rows(ptr_, cols_, z_)
+        strided_ = scatter.segment_sum_rows(ptr_, cols_, z_t)
+        require(scatter.segment_sum_rows.launches == before + 3,
+                f"K4's sorted-segment entry into the {side}: not one launch a call")
+        plain_ = scatter.segment_sum_rows_plain(ptr_, cols_, z_)
+        err_ = max_abs(got_, plain_)
+        require(torch.equal(got_, plain_) and torch.equal(got_.view(torch.int32),
+                                                          again_.view(torch.int32))
+                and torch.equal(strided_, got_),
+                f"K4's sorted-segment entry into the {side}: differs from its plain version "
+                f"(max abs err {err_}), across two launches, or on a strided z")
+        ms_ = cuda_ms(lambda: scatter.segment_sum_rows(ptr_, cols_, z_), 50)
+        vals_ = z_[cols_].contiguous()
+        generic_ = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(rows_, z_[cols_], n_), 20)
+        generic_alone_ = cuda_ms(lambda: scatter.scatter_add_rows_unchecked(rows_, vals_, n_), 20)
+        lib_ = cuda_ms(lambda: torch.zeros((n_, DIM), device=dev).index_add_(0, rows_, z_[cols_]),
+                       50)
+        plain_ms_ = cuda_ms(lambda: scatter.segment_sum_rows_plain(ptr_, cols_, z_), 3, 1)
+        # the wrapper on the transposed view: its copy, then the kernel
+        strided_ms_ = cuda_ms(lambda: scatter.segment_sum_rows(ptr_, cols_, z_t), 50)
+        # z's rows that the list touches read once (the gather runs inside, so
+        # a row named twice comes from L2), the columns and offsets, the sums
+        # written once
+        touched_ = int(torch.unique(cols_).numel())
+        bnd_ = bound(4 * touched_ * DIM + 8 * n_drop_s + 8 * (n_ + 1) + 4 * n_ * DIM,
+                     n_drop_s * DIM, bf16_ops)
+        require(ms_ <= lib_, f"K4's sorted-segment entry into the {side}: {ms_:.4f} ms, slower "
+                             f"than index_add_ of the gathered rows ({lib_:.4f} ms)")
+        sgl_k4[side] = dict(ms=ms_, plain_ms=plain_ms_, library_ms=lib_, bound=bnd_, err=err_,
+                            generic_ms=generic_, generic_alone_ms=generic_alone_,
+                            strided_ms=strided_ms_, touched_rows=touched_,
+                            hot_rows=int((ptr_.diff() > 32).sum()),
+                            longest=int(ptr_.diff().max()))
+        del got_, again_, strided_, plain_, vals_, z_t
+    # one call's device launches, counted at the end of the run (the profiler
+    # slows the host's later launches)
+    sgl_k4["call"] = functools.partial(scatter.segment_sum_rows, view_s.du_ptr, view_s.du_cols,
+                                       zi_k4)
+    del emb_k4, zi_k4, corr, g_k4, grad_k4
 
     # the run harness: train_model one epoch (its epoch_context, 605 steps,
     # an evaluation), the final epoch_context and evaluation SGL runs after
@@ -967,7 +1010,7 @@ def sgl_phase(h) -> dict:
     sgl_paths = {"sgl_train_model": read_counts()}
     want_k6_t = steps_t * step_k6_s + 3 * repr_k6_s  # steps, two evaluations, the server
     got_l = {k_: n for k_, n in sgl_paths["sgl_train_model"].items() if n}
-    want_l = {"fused_adj_matmul": want_k6_t, "scatter_add_rows": steps_t * step_k4_s}
+    want_l = {"fused_adj_matmul": want_k6_t, "segment_sum_rows": steps_t * step_k4_s}
     require(got_l == want_l and bool(np.isfinite(res_s.last_result["recall"]).all())
             and np.isfinite(scores_t).all() and len(res_s.history) == 1,
             f"SGL through train_model: launches {got_l}, expected {want_l}; recall "
@@ -989,12 +1032,16 @@ def sgl_phase(h) -> dict:
         f"exact; loss sums {np.round(terms_s, 5).tolist()}; train_model one epoch ({steps_t} "
         f"steps, an evaluation, the final epoch_context and evaluation) {sgl_epoch_s:.1f} s, "
         f"recall@{cfg_s.int_list('top_K')} {np.round(res_s.last_result['recall'], 5).tolist()}, "
-        f"served from its result; K4 on a drop list of {n_drop_s} rows x {DIM}: {k4c_ms:.4f} ms "
-        f"(bound {k4c_bound[0]:.4f} by {k4c_bound[1]}, plain {k4c_plain:.4f}, index_add_ "
-        f"{k4c_lib:.4f}), equal to its plain version and across two launches; its backward "
-        f"into the items on the item-sorted list {back_ms:.4f} ms, equal to its plain version; "
-        f"the same sums on unsorted lists: into the items {back_unsorted_ms:.4f} ms, into the "
-        f"users {users_unsorted_ms:.4f} ms")
+        f"served from its result; K4's sorted-segment entry on a drop list of {n_drop_s} rows "
+        f"x {DIM}, equal to its plain version, across two launches and on a strided z, "
+        "one launch a call: "
+        + "; ".join(
+            f"into the {side} {r_['ms']:.4f} ms (bound {r_['bound'][0]:.4f} by "
+            f"{r_['bound'][1]} at {r_['touched_rows']} rows of z touched, index_add_ {r_['library_ms']:.4f}, the generic K4 entry "
+            f"{r_['generic_ms']:.4f} with the gather, {r_['generic_alone_ms']:.4f} without, "
+            f"plain {r_['plain_ms']:.4f}; z a transposed view {r_['strided_ms']:.4f}, its copy "
+            f"included; {r_['hot_rows']} rows above 32 entries, the longest "
+            f"{r_['longest']})" for side, r_ in sgl_k4.items() if isinstance(r_, dict)))
     del res_s, rec_t, runner_s, one_run_s, triple_s, batch_s, m_s, g_s, view_s
     torch.cuda.empty_cache()
 
@@ -1011,7 +1058,7 @@ def sgl_phase(h) -> dict:
     rw_step_ms = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
     sgl_paths["sgl_rw"] = read_counts()
     got_l = {k_: n for k_, n in sgl_paths["sgl_rw"].items() if n}
-    want_l = {"fused_adj_matmul": ZOO_STEPS * step_k6_s, "scatter_add_rows": ZOO_STEPS * step_k4_s}
+    want_l = {"fused_adj_matmul": ZOO_STEPS * step_k6_s, "segment_sum_rows": ZOO_STEPS * step_k4_s}
     require(got_l == want_l and bool(np.isfinite(terms_rw).all()),
             f"SGL rw: launches {got_l}, expected {want_l}; loss sums {terms_rw}")
     log(f"SGL aug_type rw: {ZOO_STEPS} steps, {rw_step_ms:.3f} ms per step, launches {got_l}, "
@@ -1050,14 +1097,13 @@ def sgl_phase(h) -> dict:
                 else fusedmm.fused_adj_matmul_int4_t)
         before = n_fn.launches
         raw_u, raw_i = propagate._raw_dual_t(g_q.m8, q_u, q_i, quant, g_q.plan)
-        # K7 walks the adjacency's plan; K8 scans the packed matrix
-        want_reads = (fusedmm.dual_path(3 * DIM, g_q.plan)[1] if quant == "int8"
-                      else fusedmm.scan_passes(3 * DIM))
-        require(n_fn.launches == before + 1 and n_fn.passes == want_reads
-                and (quant == "int4" or (g_q.plan is not None and n_fn.path == "plan")),
-                f"SGL {quant}: the views product did not run {n_fn.__name__} once "
-                f"({n_fn.passes} reads of M)")
-        plan_args_q = (g_q.plan,) if quant == "int8" else ()
+        # K7 and K8 walk the adjacency's plan (int4's: of the unpacked matrix)
+        require(n_fn.launches == before + 1 and g_q.plan is not None
+                and (n_fn.path, n_fn.passes) == fusedmm.dual_path(3 * DIM, g_q.plan)
+                == ("plan", 0),
+                f"SGL {quant}: the views product did not walk its plan in one {n_fn.__name__} "
+                f"launch (path {n_fn.path}, {n_fn.passes} reads of M)")
+        plan_args_q = (g_q.plan,)
         blocks = [t_fn(g_q.m8, q_u[j: j + DIM].contiguous(), q_i[j: j + DIM].contiguous())
                   for j in range(0, 3 * DIM, DIM)]
         require(torch.equal(raw_u, torch.cat([b_[0] for b_ in blocks]))
@@ -1070,15 +1116,17 @@ def sgl_phase(h) -> dict:
         require(torch.equal(raw_u.T, plain_raw[0]) and torch.equal(raw_i.T, plain_raw[1]),
                 f"SGL {quant}: {n_fn.__name__} at {3 * DIM} differs from its plain version")
         n_ms = cuda_ms(lambda: n_fn(g_q.m8, q_uN, q_iN, *plan_args_q), 20)
+        # the scan it replaced (int4: three reads of m4 at 3 DIM)
+        n_scan_ms = cuda_ms(lambda: n_fn(g_q.m8, q_uN, q_iN), 20)
         n_plain = cuda_ms(lambda: plain_fn(g_q.m8, q_uN, q_iN), 2, 1)
         m_unpacked = g_q.m8 if quant == "int8" else fusedmm.unpack_nibbles(g_q.m8)
         n_lib = int_mm_ms(m_unpacked, q_u, q_i, raw_u, raw_i)
         del m_unpacked
         stored = g_q.m8.numel()
-        n_bound = bound((g_q.plan.nbytes if plan_args_q else stored)
-                        + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
+        n_bound = bound(g_q.plan.nbytes + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
+        n_m_bound = bound(stored + 5 * 3 * DIM * (u_q + i_q), 4.0 * nnz_s * 3 * DIM)
         views_k[quant] = dict(ms=n_ms, plain_ms=n_plain, library_ms=n_lib, bound=n_bound,
-                              passes=n_fn.passes)
+                              passes=0, scan_ms=n_scan_ms, m_bound=n_m_bound)
         del blocks, plain_raw, q_u, q_i, q_uN, q_iN, raw_u, raw_i, zuT, ziT, xT
         # one step against the plain route (K3, K7 / K8, K4 plain)
         # the same batches for int8 and int4
@@ -1091,7 +1139,7 @@ def sgl_phase(h) -> dict:
         # a step: three quantized duals forward and three backward, K3 on
         # both sides of each, K4 for the corrections and the two gathers
         want_q = {n_fn.__name__: 2 * LAYERS, "quantize_rows": 4 * LAYERS,
-                  "scatter_add_rows": step_k4_s + 2}
+                  "segment_sum_rows": step_k4_s, "scatter_add_rows": 2}
         require(one_q == want_q, f"SGL {quant}: a step's launches {one_q}, expected {want_q}")
         with plain_views(propagate, fusedmm, chainmm, scatter):
             want_qs = sgl_step(m_q, batch_q)
@@ -1111,8 +1159,10 @@ def sgl_phase(h) -> dict:
                                       for k_ in convert.table_names(m_q)})
         sgl_paths[f"sgl_{quant}"] = read_counts()
         log(f"SGL {quant} on fused (the quantized views at {3 * DIM}): {n_fn.__name__} "
-            f"{n_ms:.4f} ms an application ({n_fn.passes} reads of the stored matrix; bound "
-            f"{n_bound[0]:.4f} by {n_bound[1]}, plain {n_plain:.4f}, library {n_lib}), equal to "
+            f"{n_ms:.4f} ms an application on the plan (no read of the stored matrix; bound "
+            f"{n_bound[0]:.4f} by {n_bound[1]}; its scan {n_scan_ms:.4f}, "
+            f"{fusedmm.scan_passes(3 * DIM)} reads, bound {n_m_bound[0]:.4f}; plain "
+            f"{n_plain:.4f}, library {n_lib}), equal to "
             f"three {t_fn.__name__} launches on its {DIM}-row blocks and to its plain version; "
             f"one step against the plain route (bit-equal: {same_q}, gradients within "
             f"{err_q:.3e}), launches {one_q}; {q_step_ms:.3f} ms per step over {ZOO_STEPS} "
@@ -1141,7 +1191,7 @@ def sgl_phase(h) -> dict:
     sgl_paths["sgl_bitpack"] = read_counts()
     one_b = {k_: n for k_, n in sgl_paths["sgl_bitpack"].items() if n}
     # three chains x LAYERS applications, two K11 calls each, forward and backward
-    want_b = {"bit_matmul": 2 * 2 * 3 * LAYERS, "scatter_add_rows": step_k4_s}
+    want_b = {"bit_matmul": 2 * 2 * 3 * LAYERS, "segment_sum_rows": step_k4_s}
     require(one_b == want_b, f"SGL bitpack: a step's launches {one_b}, expected {want_b}")
     with plain_rect(propagate, bitmm, chainmm, scatter):
         want_bs = sgl_step(m_b, batch_b)
@@ -1197,7 +1247,8 @@ def mesh_phase(h) -> dict:
     products at model widths 2 and 4 of the yelp2018-scale M, through
     `spmm_shard.shard_dual` (the function `sharded_square_matmul` runs
     between its collectives): on the fused M [31,744, 38,400], K6
-    (bfloat16), K7 (int8) and K8 (int4, the nibble-packed shard); on the
+    (bfloat16), K7 (int8) and K8 (int4, the nibble-packed shard), each on
+    its shard's plan (K8's of the shard unpacked); on the
     dense M [31,744, 38,144], the zoo's bfloat16 route, K6 and K7 on its
     shards as `build_adjacency` cuts them (`propagate._row_shard`), their
     routes `shard_route`'s; forward and backward (the swapped cotangents),
@@ -1288,17 +1339,17 @@ def mesh_phase(h) -> dict:
         for case, (route, m, fwd_in, bwd_in) in cases.items():
             ms_k = [shard_of(case, width, k_) for k_ in range(width)]
             # one plan a shard, as `build_adjacency` makes it beside the shard
-            # (K6 and K7 walk it; K8 scans its packed shard)
-            plans_k = [fusedmm.dual_plan(m_k) if route != "k8" else None for m_k in ms_k]
+            # (K6, K7 and K8 walk it; K8's of its shard unpacked)
+            plans_k = [fusedmm.dual_plan(fusedmm.unpack_nibbles(m_k) if route == "k8" else m_k)
+                       for m_k in ms_k]
             r = ms_k[0].shape[0]
             reset_counts()
             parts = [tuple(spmm_shard.shard_dual(route, m_k, side[0][k_ * r:(k_ + 1) * r],
                                                  side[1], plan=plans_k[k_])
                            for side in (fwd_in, bwd_in))
                      for k_, m_k in enumerate(ms_k)]
-            require(route == "k8" or single[route].path == "plan",
-                    f"mesh width {width} {case}: the shard's launch took "
-                    f"{getattr(single[route], 'path', 'scan')}")
+            require(single[route].path == "plan",
+                    f"mesh width {width} {case}: the shard's launch took {single[route].path}")
             for name_, n_ in read_counts().items():
                 shard_counts[name_] = shard_counts.get(name_, 0) + n_
             for side, inputs in zip(range(2), (fwd_in, bwd_in)):
@@ -1323,10 +1374,9 @@ def mesh_phase(h) -> dict:
                 yi = parts[0][side][1]
                 for pair in parts[1:]:
                     yi = yi + pair[side][1]
-                whole_plan = (None if route == "k8"
+                whole_plan = (adj4.plan if route == "k8"
                               else adj_d.plan if case.endswith("_dense") else adj.plan)
-                want = single[route](m, inputs[0][:m.shape[0]], inputs[1],
-                                     *(() if route == "k8" else (whole_plan,)))
+                want = single[route](m, inputs[0][:m.shape[0]], inputs[1], whole_plan)
                 for what, a, b in zip(("yu", "yi"), (yu, yi), want):
                     label = f"mesh width {width} assembled {case} {what} ({side})"
                     if route == "k6":
@@ -1338,9 +1388,8 @@ def mesh_phase(h) -> dict:
             nnz_0 = int(torch.count_nonzero(adj.m8[:r] if route == "k8" else m_0))
             act = 4 if route == "k6" else 1  # float32 or int8 activations in
             cols_in = fwd_in[1].shape[0]
-            # the shard's input in place of M: its plan (K6, K7) or the
-            # packed shard (K8)
-            in_bytes = m_0.numel() if route == "k8" else plans_k[0].nbytes
+            # the shard's input in place of M: its plan
+            in_bytes = plans_k[0].nbytes
             shard_bytes = in_bytes + act * d * (r + cols_in) + 4 * d * (r + cols_in)
             bnd = bound(shard_bytes, 4.0 * nnz_0 * d, bf16_ops) if route == "k6" else bound(
                 shard_bytes, 4.0 * nnz_0 * d)
@@ -1358,7 +1407,7 @@ def mesh_phase(h) -> dict:
         log(f"mesh width {width}: {names[cases[case][0]]} on shard 0 of the "
             f"{'dense' if case.endswith('_dense') else 'fused'} M [{m.shape[0] // width}, "
             f"{m.shape[1]}] {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, "
-            f"{'the packed shard' if cases[case][0] == 'k8' else 'its plan'} in)")
+            "its plan in)")
     log("mesh shards: every shard's product equal to its plain version (K7, K8 bit for bit, "
         "K6 within its bar), forward and backward, the assembled products the single launch's, "
         "on the fused and the dense M; launches "
@@ -1452,7 +1501,7 @@ def mesh_phase(h) -> dict:
 
 
 # the plan phase: K6 at these widths (64 and 128 also one-sided, the
-# rectangular adjacency's directions), K7 at those up to 192
+# rectangular adjacency's directions), K7 and K8 at those up to 192
 PLAN_WIDTHS = (64, 128, 192, 2048)
 PLAN_K7_WIDTHS = (64, 128, 192)
 PLAN_ITERS = 10
@@ -1466,11 +1515,15 @@ def plan_phase(h) -> dict:
     `fusedmm.fused_adj_matmul_fixed_plain`, each path as `fusedmm.dual_path`
     states it; at 128 the one-sided launches (R̃ x_i, R̃ᵀ x_u) too; at each
     of PLAN_K7_WIDTHS, K7 on the plan and K7's scan equal to
-    `fused_adj_matmul_int8_plain`. Times (CUDA events, mean of
+    `fused_adj_matmul_int8_plain`; at the same widths K8 on the plan of M
+    padded to `fusedmm.PACK_TILE` columns (the int4 adjacency's: made
+    before packing) and K8's scan of the packed matrix, equal to
+    `fused_adj_matmul_int4_plain`. Times (CUDA events, mean of
     PLAN_ITERS): the walk, the scan, `torch.matmul` x2 on a bfloat16 copy
-    of M (one call a direction one-sided) and `torch._int_mm` x2 (the
-    copies not counted), each beside two bounds: one read of M with the
-    activations in and the sums out, and the plan in place of M."""
+    of M (one call a direction one-sided) and `torch._int_mm` x2 (K8: on
+    the unpacked matrix; the copies not counted), each beside two bounds:
+    one read of the stored matrix with the activations in and the sums
+    out, and the plan in place of it."""
     from idgrec_torch.ops import fusedmm, propagate
 
     data, dev, bound, bf16_ops = h.data, h.dev, h.bound, h.bf16_ops
@@ -1570,12 +1623,50 @@ def plan_phase(h) -> dict:
             del qu, qi, qi_c, qu_c
         torch.cuda.empty_cache()
     del m_bf, m_t
+    # K8: the int4 adjacency's matrix (columns padded to PACK_TILE), its plan
+    # made before packing, and the packed copy
+    m_u = torch.nn.functional.pad(m, (0, -(-i_pad // fusedmm.PACK_TILE) * fusedmm.PACK_TILE
+                                      - i_pad))
+    plan4 = fusedmm.dual_plan(m_u)
+    m4 = fusedmm.pack_nibbles(m_u)
+    m_ut = m_u.T.contiguous()
+    i_pad4 = m_u.shape[1]
+    k8 = {}
+    for d in PLAN_K7_WIDTHS:
+        qu = torch.randint(-127, 128, (u_pad, d), generator=g, device=dev, dtype=torch.int8)
+        qi = torch.randint(-127, 128, (i_pad4, d), generator=g, device=dev, dtype=torch.int8)
+        want4 = fusedmm.fused_adj_matmul_int4_plain(m4, qu, qi, plan4)
+        walk4 = fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan4)
+        paths(fusedmm.fused_adj_matmul_int4, d, plan4)
+        again4 = fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan4)
+        scan4 = fusedmm.fused_adj_matmul_int4(m4, qu, qi)
+        reads4 = paths(fusedmm.fused_adj_matmul_int4, d, None)[1]
+        require(equal_all(walk4, want4) and equal_all(again4, walk4) and equal_all(scan4, want4),
+                f"K8 at d = {d}: the walk, a second walk or the scan differs from its plain "
+                "version")
+        del want4, walk4, again4, scan4
+        qi_c, qu_c = qi.T.contiguous().T, qu.T.contiguous().T
+        io4 = 5 * d * (u_pad + i_pad4)  # int8 activations in, float32 sums out
+        k8[d] = dict(
+            ms=cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan4), PLAN_ITERS),
+            scan_ms=cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(m4, qu, qi), PLAN_ITERS),
+            library_ms=cuda_ms(lambda: (torch._int_mm(m_u, qi_c), torch._int_mm(m_ut, qu_c)),
+                               PLAN_ITERS),
+            bound=bound(plan4.nbytes + io4, 4.0 * nnz * d),
+            m_bound=bound(m4.numel() + io4, 4.0 * nnz * d), scan_reads=reads4,
+            path=fusedmm.dual_path(d, plan4)[0])
+        del qu, qi, qi_c, qu_c
+    plan4_bytes = plan4.nbytes
+    del m_u, m_ut, m4, plan4
+    torch.cuda.empty_cache()
     card = card_line()
     log(f"the plan of M {list(m.shape)} ({m.numel()} bytes, {nnz} entries): {plan.nbytes} bytes "
         f"(the user list {list_bytes['users']}, the item list {list_bytes['items']}), built in "
         f"{build_ms:.2f} ms; card {card}")
-    for tag, rows in (("K6", k6), ("K7", k7)):
-        lib_name = "torch.matmul x2 on a bfloat16 copy" if tag == "K6" else "torch._int_mm x2"
+    log(f"K8's plan (of M padded to {i_pad4} columns, made before packing): {plan4_bytes} bytes")
+    for tag, rows in (("K6", k6), ("K7", k7), ("K8", k8)):
+        lib_name = {"K6": "torch.matmul x2 on a bfloat16 copy", "K7": "torch._int_mm x2",
+                    "K8": "torch._int_mm x2 on the unpacked matrix"}[tag]
         for d, r_ in rows.items():
             log(f"{tag} at d = {d}: {r_['ms']:.4f} ms on the plan (path {r_['path']}, 0 reads of "
                 f"M) against its scan {r_['scan_ms']:.4f} ms ({r_['scan_reads']} reads of M) and "
@@ -1591,7 +1682,7 @@ def plan_phase(h) -> dict:
             f"paths")
     # the claims of the redesign: the walk no slower than the library at the
     # widths the scan lost, and no slower than the scan by 5 % anywhere
-    for tag, rows, widths in (("K6", k6, (192, 2048)), ("K7", k7, (192,))):
+    for tag, rows, widths in (("K6", k6, (192, 2048)), ("K7", k7, (192,)), ("K8", k8, (192,))):
         for d in widths:
             require(rows[d]["ms"] <= rows[d]["library_ms"],
                     f"{tag} at d = {d}: the walk {rows[d]['ms']:.4f} ms is slower than the "
@@ -1599,14 +1690,14 @@ def plan_phase(h) -> dict:
     require(rect["items"]["ms"] <= rect["items"]["library_ms"],
             f"K6 R̃ᵀ x_u at d = 128: {rect['items']['ms']:.4f} ms against the library's "
             f"{rect['items']['library_ms']:.4f}")
-    for tag, rows in (("K6", k6), ("K7", k7)):
+    for tag, rows in (("K6", k6), ("K7", k7), ("K8", k8)):
         for d, r_ in rows.items():
             require(r_["ms"] <= 1.05 * r_["scan_ms"], f"{tag} at d = {d}: the walk "
                     f"{r_['ms']:.4f} ms against the scan's {r_['scan_ms']:.4f} ms")
     del adj, m, plan
     torch.cuda.empty_cache()
-    return {"k6": k6, "k7": k7, "rect": rect, "plan_bytes": list_bytes,
-            "plan_build_ms": build_ms, "nnz": nnz}
+    return {"k6": k6, "k7": k7, "k8": k8, "rect": rect, "plan_bytes": list_bytes,
+            "plan_build_ms": build_ms, "nnz": nnz, "k8_plan_bytes": plan4_bytes}
 
 
 # widths off 32 (ROADMAP B.B1): K6, K7 and K8 on zero-padded features
@@ -1645,17 +1736,21 @@ def widths_phase(h) -> dict:
         qu, _ = propagate._quantize_cols(propagate._pad_rows(zu, u_pad))
         qi, _ = propagate._quantize_cols(propagate._pad_rows(zi, i_pad))
         qi4, _ = propagate._quantize_cols(propagate._pad_rows(zi, i_pad4))
+        # K8 on the adjacency's plan, as the int4 path runs it; K6 and K7 on
+        # their scan
         cases = {"k7": (fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain,
-                        adj.m8, qu, qi),
+                        adj.m8, qu, qi, ()),
                  "k8": (fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain,
-                        adj4.m8, qu, qi4),
+                        adj4.m8, qu, qi4, (adj4.plan,)),
                  "k6": (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_plain,
-                        adj.m8, zu, zi)}
-        for name_, (fn, plain, m, a, b) in cases.items():
+                        adj.m8, zu, zi, ())}
+        for name_, (fn, plain, m, a, b, plan_args) in cases.items():
             before = fn.launches
-            got = fn(m, a, b)
-            again = fn(m, a, b)
+            got = fn(m, a, b, *plan_args)
+            again = fn(m, a, b, *plan_args)
             require(fn.launches == before + 2, f"width {d}: {fn.__name__} launches")
+            require(not plan_args or fn.path == "plan", f"width {d}: {fn.__name__} took "
+                                                        f"{fn.path}, not its plan")
             want = plain(m, a, b)
             for what, x_, y_, z_ in zip(("yu", "yi"), got, again, want):
                 require(tuple(x_.shape) == tuple(z_.shape) and torch.equal(x_, y_),
@@ -1669,8 +1764,8 @@ def widths_phase(h) -> dict:
                 errs[name_, d] = max(errs.get((name_, d), 0.0), max_abs(x_, z_))
             pad = (lambda t: torch.nn.functional.pad(t, (0, wide - d)))
             a_w, b_w = pad(a).contiguous(), pad(b).contiguous()
-            times[name_, d] = (cuda_ms(lambda: fn(m, a, b), 10),
-                               cuda_ms(lambda: fn(m, a_w, b_w), 10))
+            times[name_, d] = (cuda_ms(lambda: fn(m, a, b, *plan_args), 10),
+                               cuda_ms(lambda: fn(m, a_w, b_w, *plan_args), 10))
             del got, again, want, a_w, b_w
         del zu, zi, qu, qi, qi4
     # the adjacency's product and the [d, N] dual, forward and backward,
@@ -1682,7 +1777,7 @@ def widths_phase(h) -> dict:
         u_p, i_p = a_.padded_shape
         yu_t, yi_t = propagate.quant_fused_dual_t(
             a_.m8, propagate._pad_cols(x_[nu:].T, i_p), propagate._pad_cols(x_[:nu].T, u_p),
-            a_.quant)
+            a_.quant, a_.plan)
         return torch.cat([yu_t[:, :nu], yi_t[:, :ni]], dim=1).T
 
     def run(a_, route):
@@ -2877,6 +2972,14 @@ def main() -> int:
     require(torch.equal(yu8.view(torch.int32), yu8b.view(torch.int32))
             and torch.equal(yi8.view(torch.int32), yi8b.view(torch.int32)),
             f"K8 at d = {DIM}: two launches differ")
+    # the walk of the adjacency's plan (the unpacked matrix's): the scan's integers
+    yu8b, yi8b = fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N, adj4.plan)
+    require(adj4.plan is not None and adj4.plan.shape == adj4.padded_shape
+            and (fusedmm.fused_adj_matmul_int4.path, fusedmm.fused_adj_matmul_int4.passes)
+            == fusedmm.dual_path(DIM, adj4.plan) == ("plan", 0),
+            f"K8 at d = {DIM} on the plan: path {fusedmm.fused_adj_matmul_int4.path}")
+    require(torch.equal(yu8b, yu8) and torch.equal(yi8b, yi8),
+            f"K8 at d = {DIM}: the walk of the plan differs from the scan")
     del yu8b, yi8b
     log(f"K7 and K8 equal their plain versions, K1 and K5 transposed, and each other exactly "
         f"({int((yu7 != 0).sum())} + {int((yi7 != 0).sum())} non-zero sums); two launches of "
@@ -2888,22 +2991,24 @@ def main() -> int:
             f"{fusedmm.scan_passes(DIM)} stated")
     k7_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN, adj.plan), 20)
     k7_64_passes = fusedmm.fused_adj_matmul_int8.passes  # 0: the walk reads no M
-    # K8 at d = 64 beside its bound, plain version and library call: m4 read
-    # once, the activations in, the sums out; 4 operations per non-zero
-    # entry and feature
-    k8_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N), 20)
+    # K8 at d = 64 on the plan beside its bound (the plan, the activations
+    # in, the sums out; 4 operations per non-zero entry and feature), its
+    # scan (m4 read once), plain version and library call
+    k8_64_scan_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N), 20)
     k8_64_passes = fusedmm.fused_adj_matmul_int4.passes  # as K8's launcher reports them
     require(k8_64_passes == fusedmm.scan_passes(DIM) == 1,
-            f"K8 at d = {DIM}: {k8_64_passes} reads of m4 launched, {fusedmm.scan_passes(DIM)} "
-            "stated")
-    k8_64_bound = bound(adj4.m8.numel() + 5 * d * (u_pad + i_pad4), 4.0 * nnz * d)
+            f"K8's scan at d = {DIM}: {k8_64_passes} reads of m4 launched, "
+            f"{fusedmm.scan_passes(DIM)} stated")
+    k8_64_ms = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N, adj4.plan), 20)
+    k8_64_bound = bound(adj4.plan.nbytes + 5 * d * (u_pad + i_pad4), 4.0 * nnz * d)
     k8_64_plain = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_plain(adj4.m8, quN, qi4N), 3, 1)
     k8_64_lib = k5_lib  # the same function on the same inputs, transposed
     k1_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi), 20)
     k5_now = cuda_ms(lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4), 20)
     log(f"at d = {DIM}: K7 {k7_64_ms:.4f} ms on the plan (its scan {k7_64_scan_ms:.4f} ms, "
         f"{k7_64_scan_passes} pass over M, as launched) beside K1 "
-        f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms ({k8_64_passes} pass over m4, as launched; bound "
+        f"{k1_now:.4f} ms, K8 {k8_64_ms:.4f} ms on the plan (its scan {k8_64_scan_ms:.4f} ms, "
+        f"{k8_64_passes} pass over m4, as launched; bound "
         f"{k8_64_bound[0]:.4f} ms by {k8_64_bound[1]}, plain {k8_64_plain:.4f} ms, "
         f"torch._int_mm x2 on the unpacked matrix {k8_64_lib}) beside K5 {k5_now:.4f} ms, per "
         f"application")
@@ -3240,17 +3345,12 @@ def main() -> int:
             ("K7", fusedmm.fused_adj_matmul_int8, fusedmm.fused_adj_matmul_int8_plain, a128.m8,
              qi128_8, i_pad, (a128.plan,)),
             ("K8", fusedmm.fused_adj_matmul_int4, fusedmm.fused_adj_matmul_int4_plain, a128_4.m8,
-             qi128, i_pad4, ())):
+             qi128, i_pad4, (a128_4.plan,))):
         got = fn(m_store, qu128, qi_, *plan_args)
         launched = fn.passes  # as the launcher reports them
-        # K7 walks the adjacency's plan (no read of M); K8 scans m4 once
-        if plan_args:
-            require((fn.path, launched) == fusedmm.dual_path(dw, a128.plan) == ("plan", 0),
-                    f"{tag} at d = {dw}: path {fn.path}, {launched} reads of M")
-        else:
-            require(launched == fusedmm.scan_passes(dw) == 1,
-                    f"{tag} at d = {dw}: {launched} reads of the stored matrix launched, "
-                    f"{fusedmm.scan_passes(dw)} stated; one expected")
+        # K7 and K8 walk the adjacency's plan (no read of the stored matrix)
+        require((fn.path, launched) == fusedmm.dual_path(dw, plan_args[0]) == ("plan", 0),
+                f"{tag} at d = {dw}: path {fn.path}, {launched} reads of M")
         want = plain(m_store, qu128, qi_)
         err = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -3261,12 +3361,11 @@ def main() -> int:
         del again
         errs[tag] = max(errs[tag], err)
         wide_out[tag] = got
-        m_bytes = m_store.numel()
         # the function's work: the non-zero entries only (2 directions x 2 ops
         # each), the same entries packed or not
         ops = 4.0 * nnz * dw
-        # K7: the plan in place of M
-        in_bytes = a128.plan.nbytes if plan_args else m_bytes
+        # the plan in place of the stored matrix
+        in_bytes = plan_args[0].nbytes
         bnd = bound(in_bytes + dw * (u_pad + cols) + 4 * dw * (u_pad + cols), ops)
         ms = cuda_ms(lambda: fn(m_store, qu128, qi_, *plan_args), 20)
         plain_ms = cuda_ms(lambda: plain(m_store, qu128, qi_), 3, 1)
@@ -5022,6 +5121,7 @@ def main() -> int:
         bound=bound, reset_counts=reset_counts, read_counts=read_counts, int_mm_ms=int_mm_ms))
     zoo_launches["SGL"], zoo_res["SGL"], zoo_calls["SGL"] = sgl["launches"], sgl["res"], sgl["call"]
     rect_paths.update(sgl["paths"])
+    sgl_k4 = sgl["k4"]
     mesh_res = mesh_phase(SimpleNamespace(
         data=data, adj=adj, adj4=adj4, dev=dev, bound=bound, bf16_ops=bf16_ops, reset_counts=reset_counts,
         read_counts=read_counts))
@@ -5360,6 +5460,8 @@ def main() -> int:
             per_step = (counts["bitpack_bf16"] - 4 * LAYERS) / (2 * BIT_STEPS)
         elif fn in row_counters:
             per_step = counts["batch_rows"] / OTHER_STEPS
+        elif fn is scatter.segment_sum_rows:
+            per_step = counts["zoo_SGL"] / ZOO_STEPS
         else:
             per_step = counts["training"] / n_steps
         return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -5410,6 +5512,14 @@ def main() -> int:
               "one step on the step's entry: 2 calls (2,048 rows into the user table, "
               "4,096 into the item table, pos and neg concatenated; two kernels each); "
               "library: index_add_ x2 into zeroed tables"),
+        entry("segment_sum_rows", "idgrec_torch/csrc/scatter_add_rows.cu",
+              "idgrec_tpu/ops/scatter.py:40", scatter.segment_sum_rows, sgl_k4["users"]["err"],
+              sgl_k4["users"]["ms"], sgl_k4["users"]["plain_ms"], sgl_k4["users"]["bound"],
+              sgl_k4["users"]["library_ms"],
+              f"one SGL drop correction's forward (K4's sorted-segment entry: {sgl_k4['rows']} "
+              f"entries of the user-sorted list, d = {DIM}, into the users): 1 launch, the "
+              "gather inside; library: index_add_ of the gathered rows into zeros; *_items: the "
+              "backward's call into the items on the item-sorted list"),
         entry("dual_bf16", "idgrec_torch/csrc/dual_bf16.cu", "idgrec_tpu/ops/fusedmm.py:98",
               fusedmm.fused_adj_matmul, errs["K6"], k6_ms, k6_plain, k6_bound, k6_lib,
               "one application at d = 64 on the adjacency's plan: 1 launch (3 kernels: the "
@@ -5424,8 +5534,9 @@ def main() -> int:
               "M"),
         entry("dual_int4_n", "idgrec_torch/csrc/dual_int4_n.cu", "idgrec_tpu/ops/fusedmm.py:442",
               fusedmm.fused_adj_matmul_int4, errs["K8"], *wide_kernels["K8"],
-              f"one application at d = {WIDE_DIM} on the nibble-packed matrix: 1 launch, one "
-              "128-feature group (one read of m4)"),
+              f"one application at d = {WIDE_DIM} on the adjacency's plan (of the unpacked "
+              "matrix): 1 launch (the walk, no read of m4); plan_*: the plan phase's walk, scan "
+              "and library call on the packed M"),
         entry("chain_sweep_tanh", "idgrec_torch/csrc/chain_sweep_tanh.cu",
               "idgrec_tpu/ops/chainmm.py:366", chainmm.chain_sweep_tanh, errs["K9"], k9_ms,
               k9_plain, k9_bound, None,
@@ -5474,24 +5585,30 @@ def main() -> int:
         if k["name"] in ("dual_int8_n", "dual_int4_n"):
             v_ = sgl["views"]["int8" if k["name"] == "dual_int8_n" else "int4"]
             k.update(ms_d192=v_["ms"], bound_ms_d192=v_["bound"][0], plain_ms_d192=v_["plain_ms"],
-                     library_ms_d192=v_["library_ms"], passes_d192=v_["passes"])
+                     library_ms_d192=v_["library_ms"], passes_d192=v_["passes"],
+                     scan_ms_d192=v_["scan_ms"], m_bound_ms_d192=v_["m_bound"][0])
         if k["name"] == "scatter_add_rows":
             k["public_entry_ms"] = k4_checked_ms  # two calls, each checking the range
             k["backward_path_ms"] = k4_path_ms  # the step's entry, the concatenation included
-            # one SGL view's item-side drop correction at the step's shapes
-            k4_s = sgl["k4"]
-            k.update(sgl_correction_ms=k4_s["ms"], sgl_correction_plain_ms=k4_s["plain_ms"],
-                     sgl_correction_library_ms=k4_s["library_ms"],
-                     sgl_correction_bound_ms=k4_s["bound"][0],
-                     sgl_correction_bound_by=k4_s["bound"][1], sgl_correction_rows=k4_s["rows"],
-                     sgl_correction_backward_ms=k4_s["backward_ms"],
-                     sgl_correction_backward_unsorted_ms=k4_s["backward_unsorted_ms"],
-                     sgl_correction_users_unsorted_ms=k4_s["users_unsorted_ms"])
-        if k["name"] in ("dual_bf16", "dual_int8_n"):
+            # this entry on SGL's drop lists, with the gather it needs and alone
+            k.update({f"sgl_list_{key}_{side}": sgl_k4[side][key] for side in ("users", "items")
+                      for key in ("generic_ms", "generic_alone_ms")})
+        if k["name"] == "segment_sum_rows":
+            r_ = sgl_k4["items"]
+            k.update(ms_items=r_["ms"], plain_ms_items=r_["plain_ms"],
+                     library_ms_items=r_["library_ms"], bound_ms_items=r_["bound"][0],
+                     max_abs_err_items=r_["err"],
+                     rows=sgl_k4["rows"], launches_sgl_per_step=k["launches_per_step"],
+                     **{f"{key}_{side}": sgl_k4[side][key] for side in ("users", "items")
+                        for key in ("generic_ms", "generic_alone_ms", "strided_ms",
+                                    "touched_rows", "hot_rows", "longest")})
+        if k["name"] in ("dual_bf16", "dual_int8_n", "dual_int4_n"):
             # the plan phase: the walk, the scan and the library call at the
             # yelp2018-scale dense M's widths, each beside both bounds
-            rows_p = plan_res["k6" if k["name"] == "dual_bf16" else "k7"]
-            k.update(plan_bytes=sum(plan_res["plan_bytes"].values()),
+            rows_p = plan_res[{"dual_bf16": "k6", "dual_int8_n": "k7",
+                               "dual_int4_n": "k8"}[k["name"]]]
+            k.update(plan_bytes=(plan_res["k8_plan_bytes"] if k["name"] == "dual_int4_n"
+                                 else sum(plan_res["plan_bytes"].values())),
                      plan_build_ms=plan_res["plan_build_ms"],
                      **{f"plan_{key}_d{d_p}": val for d_p, r_ in rows_p.items()
                         for key, val in (("ms", r_["ms"]), ("scan_ms", r_["scan_ms"]),
@@ -5542,8 +5659,8 @@ def main() -> int:
             fwd, trn, bnd_r, _ = rect_times["bitpack bfloat16"]
             k.update(rect_ms_per_direction=[fwd, trn], rect_bound_ms_per_direction=bnd_r[0])
         elif k["name"] == "dual_int4_n":
-            k.update(ms_d64=k8_64_ms, plain_ms_d64=k8_64_plain, bound_ms_d64=k8_64_bound[0],
-                     library_ms_d64=k8_64_lib)
+            k.update(ms_d64=k8_64_ms, scan_ms_d64=k8_64_scan_ms, plain_ms_d64=k8_64_plain,
+                     bound_ms_d64=k8_64_bound[0], library_ms_d64=k8_64_lib)
         elif k["name"] in ("chain_sweep_epilogue", "chain_sweep_inject"):
             inject = k["name"] == "chain_sweep_inject"
             sweep_fn = chainmm.dual_sweep_inject if inject else chainmm.dual_sweep
@@ -5625,10 +5742,12 @@ def main() -> int:
         f"{step_ms:.3f} and int4 {epoch4_ms / steps:.3f} in this run")
     # the device launches of one call of each scan kernel, counted last: once
     # used, the profiler slows the host's later launches
-    per_call = {"dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
+    per_call = {"segment_sum_rows": sgl_k4.pop("call"),
+                "dual_int8_t": lambda: fusedmm.fused_adj_matmul_int8_t(adj.m8, qu, qi),
                 "dual_int4_t": lambda: fusedmm.fused_adj_matmul_int4_t(adj4.m8, qu, qi4),
                 "dual_int8_n": lambda: fusedmm.fused_adj_matmul_int8(adj.m8, quN, qiN, adj.plan),
-                "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N),
+                "dual_int4_n": lambda: fusedmm.fused_adj_matmul_int4(adj4.m8, quN, qi4N,
+                                                                     adj4.plan),
                 "dual_bf16": lambda: fusedmm.fused_adj_matmul(adj.m8, zu6, zi6, adj.plan),
                 "bit_matmul": lambda: bitmm.bit_matmul(*k11_dirs[0])}
     for k in kernels:

@@ -1,6 +1,7 @@
-// K8 dual_int4_n: both directions of the adjacency product from one read of
-// the nibble-packed count matrix per feature group, activations int8 in the
-// [N, d] layout of the per-application product.
+// K8 dual_int4_n: both directions of the adjacency product from a walk of
+// M's plan (dual_int4_n_plan) or, where the caller holds no plan, one read of
+// the nibble-packed count matrix per feature group (dual_int4_n),
+// activations int8 in the [N, d] layout of the per-application product.
 //
 //   yu[u, f] = sum_c M[u, c] * qi[c, f]      (M  @ qi, [U_pad, d])
 //   yi[c, f] = sum_u M[u, c] * qu[u, f]      (M^T @ qu, [I_pad, d])
@@ -16,11 +17,19 @@
 // K7's (dual_int8_n.cu) on the unpacked matrix and K5's (dual_int4_t.cu) on
 // the transposed activations, bit for bit.
 //
-// Bound on the H100: bytes. m4 (U_pad * I_pad / 2 bytes, 0.62 GB at yelp2018
-// scale) is read once per feature group; the operations are 4 * nnz * d int8
-// multiply-adds (the non-zero nibbles only).
+// Bound on the H100: bytes. The walk moves the plan (about 10 bytes a
+// non-zero entry, 13.2 MB at yelp2018 scale), the activations once and the
+// sums once; the scan reads m4 (U_pad * I_pad / 2 bytes, 0.62 GB there) once
+// per feature group. The operations are 4 * nnz * d int8 multiply-adds (the
+// non-zero nibbles only).
 //
-// Design: K7's scan (dual_scan.cuh) on the packed bytes. The tile design it
+// Design, with a plan: K7's walk (dual_walk.cuh, IntSums) of the plan of the
+// unpacked matrix (ops/fusedmm.py dual_plan, made at build before packing):
+// the same entries as K7's on the unpacked matrix, so the same integer sums,
+// and m4 is not read. At d = 192 the scan read m4 three times (1.2859 ms
+// against K7's walk 0.4253, PERF.md).
+//
+// Design, without a plan: K7's scan (dual_scan.cuh) on the packed bytes. The tile design it
 // replaces (K5's mma.sync on 64-feature blocks, zero-tile votes, nibble
 // unpacking into mma operands, shared-memory transposes of every activation
 // chunk) read m4 once per 64 features and spent its time in the SM proving
@@ -34,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "dual_scan.cuh"
+#include "dual_walk.cuh"
 
 extern "C" {
 
@@ -52,6 +62,25 @@ int dual_int4_n(const void* m4, const void* qu, const void* qi, void* yu, void* 
                                       static_cast<const int8_t*>(qu),
                                       static_cast<const int8_t*>(qi), yup, yip, u_pad, i_pad / 2,
                                       d, passes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(convert_sums(yup, static_cast<long long>(d) * u_pad, yip,
+                                       static_cast<long long>(d) * i_pad, s));
+}
+
+// dual_int4_n from the plan of the unpacked M [u_pad, i_pad] instead of m4:
+// the arguments of dual_int8_n_plan. Two launches, no synchronisation; m4 is
+// not read.
+int dual_int4_n_plan(const void* const* lists, long long nnz, const void* qu, const void* qi,
+                     void* yu, void* yi, int u_pad, int i_pad, int d, int fpl, int chunk,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* yup = static_cast<int*>(yu);
+  int* yip = static_cast<int*>(yi);
+  if (i_pad % (2 * HALF_TILE) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_walk<IntSums>(lists, nnz, u_pad, i_pad, true, true,
+                                         static_cast<const int8_t*>(qu),
+                                         static_cast<const int8_t*>(qi), yup, yip, d, fpl, chunk,
+                                         nullptr, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(convert_sums(yup, static_cast<long long>(d) * u_pad, yip,
                                        static_cast<long long>(d) * i_pad, s));

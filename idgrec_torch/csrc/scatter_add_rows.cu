@@ -61,7 +61,43 @@
 // Rows outside [0, n_rows) are never counted and never written: the wrapper
 // that does not check the range relies on the caller's forward indexing to
 // have faulted on them.
-
+//
+// The sorted-segment entry (segment_sum_rows), SGL's drop corrections: the
+// list is sorted by its index and comes with its row offsets ptr, and the
+// values are gathered rows of a table z,
+//
+//   out[r, f] = ((0 + z[c_e0, f]) + z[c_e1, f]) + ...   e in [ptr[r], ptr[r + 1])
+//
+// in list order with __fadd_rn: the bits of the entry above on (ptr's rows,
+// z[cols]). The offsets are made on the host with the view
+// (ops/propagate.py build_dropout_adjacency), so the link pass, the memset
+// and the bucket ranking have nothing left to do, and the gather z[cols]
+// (31.7 MB a call at SGL's 123,726 entries and d = 64) moves into the
+// kernel: one launch, no scratch.
+// * Work split without a plan: a row costs its entries and one store, so
+//   row r starts at cost ptr[r] + r, and warp w takes the rows that start in
+//   [64 w, 64 (w + 1)) for one feature slice of 32 (the slices of a window
+//   side by side). The warp finds its first and last row by a 32-way
+//   search of ptr (three or four probes), so light rows come ~12 to a warp
+//   and a hot row (up to 2,120 entries into one item) is one warp's task
+//   for each of its slices, on its own.
+// * The loads: lane j copies entry j of a batch of 32 (its 128-byte slice of
+//   z's row, 16-byte cp.async; 4-byte copies at widths off 4 or an
+//   unaligned z, and where the ablation script reads a transposed z in
+//   place: the wrapper copies a strided z first) into a ring of 4 batches in shared memory a warp, its column
+//   copied the same way a ring ahead, so 128 gathered row slices are in
+//   flight while the warp adds. Lane f then adds feature f down the batch
+//   strictly in list order: a batch inside one row as 32 adds of values read
+//   ahead, else four values at a time with each entry's row ends closed
+//   before its add. A row ends where ptr says (a window of 32 row ends in the
+//   lanes, a shuffle a row) and is stored once, a row without an entry as 0.
+// * What the measurements chose (scripts/torch_k7_ablation.py on an H100,
+//   PERF.md §6): a lane a feature, each warp loading its 32 entries one
+//   after another, left one warp's serial work an entry (shuffles, address,
+//   load, add) at 120-140 ns, 0.25-0.29 ms into the items (a 2,120-entry
+//   row); 4-byte copies a lane and feature into a ring did not hide it
+//   (0.25 ms at any depth). A lane an entry with 16-byte copies: one row of
+//   2,000 entries 0.030 ms, into the items 0.037, into the users 0.035.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -331,6 +367,189 @@ write_kernel(const Table tb, int d) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the sorted-segment entry
+
+constexpr int SEG_THREADS = 64;
+constexpr int SEG_WARPS = SEG_THREADS / 32;
+constexpr int SEG_STAGES = 4;                  // batches of 32 entries in flight a warp
+constexpr int SEG_COL_SLOTS = 2 * SEG_STAGES;  // the columns run a ring ahead
+constexpr int SEG_PITCH = 36;  // floats a staged entry: 16-byte rows, quarter-warp stores spread
+constexpr int SEG_WINDOW = 64;                 // a warp's cost: entries and rows
+
+// A warp's ring: lane j copies entry j of a batch (its slice of 32 features)
+// into vals[stage][j] and its column into cols[slot][j]; lane f adds
+// feature f down the entries.
+struct SegRing {
+  float vals[SEG_STAGES][32][SEG_PITCH];
+  long long cols[SEG_COL_SLOTS][32];
+};
+constexpr int SEG_SMEM = SEG_WARPS * static_cast<int>(sizeof(SegRing));
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The offsets of a list of `total` entries in n_rows rows, as out_rows >= n_rows
+// rows (the rows past n_rows are empty).
+struct Segments {
+  const long long* ptr;  // [n_rows + 1]
+  int n_rows;
+  int out_rows;
+  long long total;
+
+  __device__ __forceinline__ long long at(int r) const { return r <= n_rows ? ptr[r] : total; }
+  // a row's cost offset: its entries and the rows before it
+  __device__ __forceinline__ long long cost(int r) const { return at(r) + r; }
+};
+
+// The first row r in [a, b] whose cost offset is at least `target`; b
+// qualifies by definition (b = out_rows: the end). Warp-uniform: 32 probes a
+// round, each round cutting [a, b] 32-fold.
+__device__ __forceinline__ int first_row_at(const Segments& sg, int a, int b, long long target,
+                                            int lane) {
+  while (b - a >= 32) {
+    const int step = (b - a) / 32;
+    const int p = a + lane * step;  // < b
+    const unsigned ge = __ballot_sync(FULL, sg.cost(p) >= target);
+    if (ge & 1u) return a;
+    if (ge == 0u) {
+      a += 31 * step + 1;
+    } else {
+      const int k = __ffs(ge) - 1;
+      b = a + k * step;
+      a += (k - 1) * step + 1;
+    }
+  }
+  const int p = a + lane;
+  const unsigned ge = __ballot_sync(FULL, p >= b || sg.cost(p) >= target);
+  return a + __ffs(ge) - 1;
+}
+
+// V: floats a copy (4: z's rows contiguous and 16-byte aligned; 1: any strides,
+// widths off 4)
+template <int V>
+__global__ void __launch_bounds__(SEG_THREADS)
+segment_kernel(const Segments sg, const long long* __restrict__ cols,
+               const float* __restrict__ z, long long z_row, long long z_feat,
+               float* __restrict__ out, int d, int slices, long long tasks) {
+  extern __shared__ __align__(16) unsigned char seg_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long task = static_cast<long long>(blockIdx.x) * SEG_WARPS + warp;
+  if (task >= tasks) return;  // warp-uniform
+  SegRing& ring = reinterpret_cast<SegRing*>(seg_smem)[warp];
+  const long long lo = (task / slices) * SEG_WINDOW;
+  const int f0 = static_cast<int>(task % slices) * 32;
+  const int width = min(32, d - f0);  // the slice's features
+  const bool feat = lane < width;
+  // the window's rows [rb, re): a row's cost is at least 1, so re <= rb + SEG_WINDOW
+  const int rb = first_row_at(sg, 0, sg.out_rows, lo, lane);
+  const int re = first_row_at(sg, rb, min(rb + SEG_WINDOW, sg.out_rows), lo + SEG_WINDOW, lane);
+  if (rb >= re) return;
+  const long long e0 = sg.at(rb);
+  const int n = static_cast<int>(sg.at(re) - e0);  // entries counted from e0 below
+  const int batches = (n + 31) / 32;
+  const float* zs = z + static_cast<long long>(f0) * z_feat;
+
+  // the column of this lane's entry of batch k, into its slot; no commit
+  const auto copy_cols = [&](int k) {
+    const int j = 32 * k + lane;
+    if (j < n) cp_async<8>(&ring.cols[k % SEG_COL_SLOTS][lane], cols + e0 + j);
+  };
+  // this lane's entry of batch k: its slice of z's row, from its column in
+  // the ring (copied by this lane); commits the group
+  const auto copy_vals = [&](int k) {
+    if (32 * k + lane < n) {
+      const float* src = zs + ring.cols[k % SEG_COL_SLOTS][lane] * z_row;
+      float* dst = ring.vals[k % SEG_STAGES][lane];
+      if constexpr (V == 4) {
+        for (int q = 0; q < width; q += 4) cp_async<16>(dst + q, src + q);
+      } else {
+        for (int q = 0; q < width; ++q) cp_async<4>(dst + q, src + q * z_feat);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int k = 0; k < SEG_COL_SLOTS; ++k) copy_cols(k);
+  cp_async_commit();
+  cp_async_wait<0>();
+  for (int k = 0; k < SEG_STAGES; ++k) copy_vals(k);
+
+  // lane l holds the end of row rbase + l, counted from e0
+  int r = rb, rbase = rb;
+  int ends = static_cast<int>(sg.at(min(rb + 1 + lane, sg.out_rows)) - e0);
+  int end = __shfl_sync(FULL, ends, 0);
+  float acc = 0.0f;
+  const auto close_row = [&]() {
+    if (feat) out[static_cast<long long>(r) * d + f0 + lane] = acc;
+    acc = 0.0f;
+    if (++r - rbase == 32) {
+      rbase = r;
+      ends = static_cast<int>(sg.at(min(r + 1 + lane, sg.out_rows)) - e0);
+    }
+    end = __shfl_sync(FULL, ends, r - rbase);
+  };
+  // Group accounting: the prologue's S groups hold the values of batches
+  // 0..S-1; iteration k's group the columns of batch k + 2S and the values
+  // of batch k + S. Waiting for all but the newest S - 1 groups at iteration
+  // k completes this lane's copies of batch k's values and of batch k + S's
+  // column; the barrier then shows every lane's.
+  for (int k = 0; k < batches; ++k) {
+    cp_async_wait<SEG_STAGES - 1>();
+    __syncwarp();
+    const float* v = &ring.vals[k % SEG_STAGES][0][lane];  // entry j at v[SEG_PITCH * j]
+    const int m = min(32, n - 32 * k);
+    const int ek = 32 * k;
+    if (m == 32 && end >= ek + 32) {
+      // the batch lies in one row: its 32 values read, then the adds alone
+      float x[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) x[j] = v[SEG_PITCH * j];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc = __fadd_rn(acc, x[j]);
+    } else {
+      // rows end in the batch: four values read at a time, each entry's
+      // rows closed before its add
+#pragma unroll 1
+      for (int j0 = 0; j0 < m; j0 += 4) {
+        float x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = v[SEG_PITCH * (j0 + u)];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j0 + u < m) {
+            while (end <= ek + j0 + u) close_row();
+            acc = __fadd_rn(acc, x[u]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the stage read is refilled next
+    copy_cols(k + SEG_COL_SLOTS);
+    copy_vals(k + SEG_STAGES);
+  }
+  cp_async_wait<0>();
+  while (r < re) close_row();
+}
+
 }  // namespace
 
 extern "C" {
@@ -358,6 +577,41 @@ int scatter_add_rows(const void* idx, const void* vals, void* out, void* scratch
   if (err != cudaSuccess) return static_cast<int>(err);
   // a row with records has two entries or more: at most half the batch
   write_kernel<<<row_blocks + (batch / 2 + WARPS - 1) / WARPS, THREADS, 0, s>>>(tb, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sorted-segment entry. ptr: int64 [n_rows + 1], the offsets of a list
+// of `entries` entries sorted by row (ptr[n_rows] == entries); cols: int64
+// [entries], each in [0, rows of z); z: f32, z[c, f] at z + c * z_row + f *
+// z_feat; out: f32 [out_rows, d] contiguous, out_rows >= n_rows, overwritten
+// (rows past n_rows are 0). One launch, no scratch. Returns the first CUDA
+// error.
+int segment_sum_rows(const void* ptr, const void* cols, const void* z, long long z_row,
+                     long long z_feat, void* out, int n_rows, int out_rows, int d,
+                     long long entries, void* stream) {
+  if (n_rows < 0 || out_rows < n_rows || out_rows <= 0 || d <= 0 || entries < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slices = (d + 31) / 32;
+  const long long tasks = (entries + out_rows + SEG_WINDOW - 1) / SEG_WINDOW * slices;
+  const long long blocks = (tasks + SEG_WARPS - 1) / SEG_WARPS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies where every slice's rows are contiguous and aligned
+  const bool vec = z_feat == 1 && z_row % 4 == 0 && d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  const auto kernel = vec ? segment_kernel<4> : segment_kernel<1>;
+  // The rings (40,960 bytes a block) fit the default 48 KB of dynamic shared
+  // memory; only a larger ring (more stages or warps, as the ablation script
+  // builds them) has to raise the kernel's limit first.
+  if constexpr (SEG_SMEM > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEG_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const Segments sg{static_cast<const long long*>(ptr), n_rows, out_rows, entries};
+  kernel<<<static_cast<unsigned>(blocks), SEG_THREADS, SEG_SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
+      sg, static_cast<const long long*>(cols), static_cast<const float*>(z), z_row, z_feat,
+      static_cast<float*>(out), d, slices, tasks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,12 +42,13 @@ K7, and ``csrc/dual_int4_n.cu``, K8, on the int8 and on the
 nibble-packed matrix); their raw sums equal K1's and K5's on the
 transposed activations bit for bit. Each has its ``_plain`` twin.
 
-K6 and K7 take a `DualPlan` of M (`dual_plan`, made once per stored
-matrix by the adjacency that holds M): its non-zero entries in row and
-in column order. With one, a launch walks the plan
-(``csrc/dual_walk.cuh``) and does not read M; without one it scans M
-once per `scan_feature_group` features (``csrc/dual_scan.cuh``), as K8
-always does. `dual_path` states which a launch takes.
+K6, K7 and K8 take a `DualPlan` of M (`dual_plan`, made once per
+stored matrix by the adjacency that holds M; K8's of the unpacked
+matrix, made before packing): its non-zero entries in row and in column
+order. With one, a launch walks the plan (``csrc/dual_walk.cuh``) and
+does not read M; without one it scans M (K8: the packed bytes) once per
+`scan_feature_group` features (``csrc/dual_scan.cuh``). `dual_path`
+states which a launch takes.
 """
 
 from __future__ import annotations
@@ -197,10 +198,11 @@ _SIGNATURES = {
     "dual_int4_n": [_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _P],
 }
 _LL = ctypes.c_longlong
-# K6's and K7's walks of a plan (``<kernel>_plan``)
+# K6's, K7's and K8's walks of a plan (``<kernel>_plan``)
 _PLAN_SIGNATURES = {
     "dual_bf16": [_P, _LL, _P, _P] + [_I] * 4 + [_P, _P] + [_I] * 5 + [_P],
     "dual_int8_n": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
+    "dual_int4_n": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
 }
 # K1's and K5's chain sweep (``<kernel>_sweep``)
 _SWEEP_SIGNATURE = [_P] * 18 + [_I] * 9 + [_P]
@@ -449,7 +451,8 @@ class DualPlan:
     walk) and in column order (the runs are its columns; yi's walk), each
     list as its runs' offsets, the other index and the count, and the run
     of every `PLAN_STEP`-th entry. Made by `dual_plan` on M's device; K6
-    and K7 walk it instead of reading M (`dual_path`)."""
+    and K7 walk it instead of reading M, and K8 instead of reading the
+    packed matrix (`dual_path`)."""
 
     shape: tuple[int, int]  # M's [U_pad, I_pad]
     row_ptr: torch.Tensor   # int64 [U_pad + 1]
@@ -523,22 +526,27 @@ def walk_features(d: int) -> int:
 
 
 def dual_path(d: int, plan: DualPlan | None) -> tuple[str, int]:
-    """The path one K6 or K7 launch at width d (d % 32 == 0) takes and
-    the reads of M it makes: ('plan', 0) where the caller holds M's plan,
-    ('scan', `scan_passes` (d)) otherwise. The walk measured faster than
-    the scan at every width timed (PERF.md §6: K6 and K7 at d = 64, 128,
-    192, K6 at 2,048), so a plan is always taken. The launchers report the path and the reads of their
-    last launch (``fused_adj_matmul.path``, ``.passes``, and
-    ``fused_adj_matmul_int8``'s)."""
+    """The path one K6, K7 or K8 launch at width d (d % 32 == 0) takes
+    and the reads of M it makes: ('plan', 0) where the caller holds M's
+    plan, ('scan', `scan_passes` (d)) otherwise. The walk measured faster
+    than the scan at every width timed (PERF.md §6: K6 and K7 at d = 64,
+    128, 192, K6 at 2,048), so a plan is always taken. The launchers
+    report the path and the reads of their last launch
+    (``fused_adj_matmul.path``, ``.passes``, and
+    ``fused_adj_matmul_int8``'s and ``fused_adj_matmul_int4``'s)."""
     if plan is not None:
         return "plan", 0
     return "scan", scan_passes(d)
 
 
-def _check_plan(plan: DualPlan, m: torch.Tensor) -> None:
-    if tuple(plan.shape) != tuple(m.shape) or plan.device != m.device:
+def _check_plan(plan: DualPlan, m: torch.Tensor, shape: tuple[int, int] | None = None) -> None:
+    """``plan`` is the plan of a matrix of M's logical ``shape`` (default
+    ``m``'s own; the packed int4 matrix stores half the columns) on M's
+    device."""
+    shape = tuple(m.shape) if shape is None else shape
+    if tuple(plan.shape) != shape or plan.device != m.device:
         raise ValueError(f"the plan of M {tuple(plan.shape)} on {plan.device} does not fit M "
-                         f"{tuple(m.shape)} on {m.device}")
+                         f"{shape} on {m.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -886,9 +894,11 @@ def fused_adj_matmul_int8_plain(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Te
     return yuT.T.contiguous(), yiT.T.contiguous()
 
 
-def fused_adj_matmul_int4_plain(m4: torch.Tensor, qu: torch.Tensor,
-                                qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K8: unpack, then K7's plain version."""
+def fused_adj_matmul_int4_plain(m4: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                                plan: DualPlan | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K8: unpack, then K7's plain version. ``plan`` is
+    taken, as the kernel's wrapper takes it, and not needed."""
     return fused_adj_matmul_int8_plain(unpack_nibbles(m4), qu, qi)
 
 
@@ -918,26 +928,29 @@ def _launch_dual_n(quant: str, m: torch.Tensor, qu: torch.Tensor,
     return yu.view(torch.float32), yi.view(torch.float32), passes.value
 
 
-def _launch_int8_plan(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
-                      plan: DualPlan) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7's walk of ``plan`` on CUDA tensors, operands as `_launch_dual_n`
-    checks them: one zero fill of both int32 sums, the walk, their
-    conversion to float32 in place. M is not read."""
-    u_pad, i_pad = m8.shape
+def _launch_plan(quant: str, m: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                 plan: DualPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's (``quant`` 'int8') or K8's ('int4') walk of ``plan``, the plan
+    of M's logical [U_pad, I_pad], on CUDA tensors, operands as
+    `_launch_dual_n` checks them: one zero fill of both int32 sums, the
+    walk, their conversion to float32 in place. M is not read."""
+    kernel = _N_KERNELS[quant]
+    u_pad, m_cols = m.shape
+    i_pad = 2 * m_cols if quant == "int4" else m_cols
     d = qu.shape[1]
-    _check_operand("m", m8, torch.int8, (u_pad, i_pad), m8.device)
-    _check_operand("qu", qu, torch.int8, (u_pad, d), m8.device)
-    _check_operand("qi", qi, torch.int8, (i_pad, d), m8.device)
-    _require_n(_N_KERNELS["int8"], "int8", u_pad, i_pad, d)
-    _check_plan(plan, m8)
-    sums = torch.zeros((u_pad + i_pad, d), dtype=torch.int32, device=m8.device)
+    _check_operand("m", m, torch.int8, (u_pad, m_cols), m.device)
+    _check_operand("qu", qu, torch.int8, (u_pad, d), m.device)
+    _check_operand("qi", qi, torch.int8, (i_pad, d), m.device)
+    _require_n(kernel, quant, u_pad, i_pad, d)
+    _check_plan(plan, m, (u_pad, i_pad))
+    sums = torch.zeros((u_pad + i_pad, d), dtype=torch.int32, device=m.device)
     yu, yi = sums[:u_pad], sums[u_pad:]
-    lib = _lib("dual_int8_n")
-    code = lib.dual_int8_n_plan(ctypes.addressof(plan.pointers), plan.nnz, qu.data_ptr(),
-                                qi.data_ptr(), yu.data_ptr(), yi.data_ptr(), u_pad, i_pad, d,
-                                walk_features(d), WALK_CHUNK,
-                                torch.cuda.current_stream(m8.device).cuda_stream)
-    _build.check(lib, "dual_int8_n", code)
+    lib = _lib(kernel)
+    code = getattr(lib, f"{kernel}_plan")(
+        ctypes.addressof(plan.pointers), plan.nnz, qu.data_ptr(), qi.data_ptr(), yu.data_ptr(),
+        yi.data_ptr(), u_pad, i_pad, d, walk_features(d), WALK_CHUNK,
+        torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check(lib, kernel, code)
     return yu.view(torch.float32), yi.view(torch.float32)
 
 
@@ -970,7 +983,7 @@ def fused_adj_matmul_int8(m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
         return padded_features(functools.partial(fused_adj_matmul_int8, plan=plan), m8, qu, qi)
     path, reads = dual_path(qu.shape[1], plan)
     if path == "plan":
-        yu, yi = _launch_int8_plan(m8, qu, qi, plan)
+        yu, yi = _launch_plan("int8", m8, qu, qi, plan)
     else:
         yu, yi, reads = _launch_dual_n("int8", m8, qu, qi)
     fused_adj_matmul_int8.path, fused_adj_matmul_int8.passes = path, reads
@@ -983,29 +996,38 @@ fused_adj_matmul_int8.passes = 0
 fused_adj_matmul_int8.path = "scan"
 
 
-def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor,
-                          qi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_adj_matmul_int4(m4: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor,
+                          plan: DualPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """`fused_adj_matmul_int8` on the nibble-packed matrix: m4 int8
     [U_pad, I_pad // 2] in `pack_nibbles` layout, qu int8 [U_pad, d], qi
     int8 [I_pad, d] -> float32 (yu [U_pad, d], yi [I_pad, d]), equal to
     K7's output on `unpack_nibbles(m4)`.
 
     CPU tensors take the plain version; CUDA tensors launch K8 or
-    raise. K8 is K7's scan on the packed bytes, each non-zero nibble an
-    entry: it takes d % 32 == 0 (another d zero-padded as K7's), U_pad %
-    64 == 0, I_pad % 2,048 == 0, and reads m4 `scan_passes` (d) times: once at d = 64 and d = 128.
-    The last launch's reads of m4, as its launcher reports them, are in
-    ``fused_adj_matmul_int4.passes``."""
+    raise. K8 takes d % 32 == 0 (another d zero-padded as K7's), U_pad %
+    64 == 0, I_pad % 2,048 == 0. With ``plan`` (`dual_plan` of the
+    unpacked matrix, as `propagate.build_adjacency` makes it before
+    packing) it walks M's non-zero entries as K7 does and does not read
+    m4; without, it is K7's scan on the packed bytes, each non-zero
+    nibble an entry, and reads m4 `scan_passes` (d) times (`dual_path`).
+    The sums are the same integers either way. The last launch's path and
+    reads of m4 are in ``fused_adj_matmul_int4.path`` and ``.passes``."""
     if m4.device.type == "cpu":
         return fused_adj_matmul_int4_plain(m4, qu, qi)
     if m4.device.type != "cuda":
         raise ValueError(f"unsupported device {m4.device}")
     if qu.shape[1] % _FEATURE_GROUP:
-        return padded_features(fused_adj_matmul_int4, m4, qu, qi)
-    yu, yi, fused_adj_matmul_int4.passes = _launch_dual_n("int4", m4, qu, qi)
+        return padded_features(functools.partial(fused_adj_matmul_int4, plan=plan), m4, qu, qi)
+    path, reads = dual_path(qu.shape[1], plan)
+    if path == "plan":
+        yu, yi = _launch_plan("int4", m4, qu, qi, plan)
+    else:
+        yu, yi, reads = _launch_dual_n("int4", m4, qu, qi)
+    fused_adj_matmul_int4.path, fused_adj_matmul_int4.passes = path, reads
     fused_adj_matmul_int4.launches += 1
     return yu, yi
 
 
 fused_adj_matmul_int4.launches = 0
 fused_adj_matmul_int4.passes = 0
+fused_adj_matmul_int4.path = "scan"

@@ -49,7 +49,8 @@ direction).
 SGL's per-epoch edge-dropout views (`build_dropout_adjacency`) share
 the model's binary matrix, or packed pair, made once
 (`build_dropout_shared`): a view is the full product less its dropped
-edges' share, summed on kernel K4 (`scatter.correction`) in
+edges' share, summed on kernel K4's sorted-segment entry
+(`scatter.correction`, each list with its row offsets) in
 `DenseDropSquareAdj` (K6), `BitDropSquareAdj` (K11),
 `shared_chain_matmul` (the clean chain and the views side by side, one
 K6 launch at k·d) and `fused_chain_views_t` (the quantized chains at
@@ -237,7 +238,7 @@ def dual_t_route(m: torch.Tensor, d: int, quant: str) -> str | None:
 def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: str,
                 plan: fusedmm.DualPlan | None = None):
     """(qiT · Mᵀ, quT · M) as float32 raw integer sums, [d, N] layout, on
-    the kernel `dual_t_route` names (K7 walking ``plan``, M's, where
+    the kernel `dual_t_route` names (K7 or K8 walking ``plan``, M's, where
     given); a matrix neither takes raises."""
     d = quT.shape[0]
     route = dual_t_route(m, d, quant)
@@ -247,8 +248,7 @@ def _raw_dual_t(m: torch.Tensor, quT: torch.Tensor, qiT: torch.Tensor, quant: st
     if route is None:
         raise ValueError(f"the quantized dual in [d, N] layout: no kernel of the port takes "
                          f"M's padded shape {tuple(m.shape)}")
-    plan_arg = (plan,) if quant == "int8" else ()
-    yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous(), *plan_arg)
+    yu, yi = getattr(fusedmm, n_name)(m, quT.T.contiguous(), qiT.T.contiguous(), plan)
     return yu.T, yi.T
 
 
@@ -286,8 +286,8 @@ def quant_fused_dual_t(m: torch.Tensor, ziT: torch.Tensor, zuT: torch.Tensor,
     the bits it gets alone. The raw sums come from K1 / K5 at d = 64 and
     from K7 / K8 on the transposed integers at every other width
     (`dual_t_route`; the same integers in either layout; off 32 on
-    zero-padded features). ``plan``: M's `fusedmm.DualPlan`, which K7
-    walks (int8)."""
+    zero-padded features). ``plan``: M's `fusedmm.DualPlan` (int4: the
+    unpacked matrix's), which K7 and K8 walk."""
     if quant not in _DUALS:
         raise ValueError(f"unknown quant mode {quant!r}")
     return _QuantFusedDualT.apply(m, ziT, zuT, quant, plan)
@@ -366,11 +366,18 @@ def _k7(plan, m8: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor):
     return fusedmm.fused_adj_matmul_int8(m8, qu, qi, plan)
 
 
-def quant_fused_dual4(m4: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor):
+def quant_fused_dual4(m4: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor,
+                      plan: fusedmm.DualPlan | None = None):
     """int4 twin of `quant_fused_dual` on the nibble-packed matrix
-    (kernel K8): the same activations and the same values."""
-    return _SwappedDual.apply(functools.partial(_quant_impl, fusedmm.fused_adj_matmul_int4),
+    (kernel K8, walking ``plan``, the unpacked matrix's, where given): the
+    same activations and the same values."""
+    return _SwappedDual.apply(functools.partial(_quant_impl, functools.partial(_k8, plan)),
                               m4, zi, zu)
+
+
+def _k8(plan, m4: torch.Tensor, qu: torch.Tensor, qi: torch.Tensor):
+    """K8 on ``plan`` (looked up at call time)."""
+    return fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan)
 
 
 def exact_dual_matmul(m: torch.Tensor, zi: torch.Tensor, zu: torch.Tensor,
@@ -613,8 +620,8 @@ class FusedSquareAdj:
     # the mesh whose model axis ``m8`` is row-sharded over (``m8`` then
     # holds this rank's rows only; parallel/spmm_shard.py), or None
     shard: object = None
-    # ``m8``'s plan (`fusedmm.dual_plan`), which K6 and K7 walk (quant
-    # 'none' and 'int8'; K8 scans the packed matrix)
+    # ``m8``'s plan (`fusedmm.dual_plan`), which K6, K7 and K8 walk (int4:
+    # the plan of the unpacked matrix, made before packing)
     plan: fusedmm.DualPlan | None = None
 
     @property
@@ -658,7 +665,8 @@ class FusedSquareAdj:
             yu, yi = yu[:nu], yi[:ni]
         elif self.quant == "int4":
             u_pad, i_pad = self.padded_shape
-            yu, yi = quant_fused_dual4(self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad))
+            yu, yi = quant_fused_dual4(self.m8, _pad_rows(zi, i_pad), _pad_rows(zu, u_pad),
+                                       self.plan)
             yu, yi = yu[:nu], yi[:ni]
         else:
             yu, yi = fusedmm.fused_adj_matmul(self.m8, zu, zi, self.plan)
@@ -715,12 +723,14 @@ class BitSquareAdj:
 
 def _drop_corrections(view, zu: torch.Tensor, zi: torch.Tensor):
     """(drop_u [U, d], drop_i [I, d]): the view's dropped edges' share of
-    M @ zi and Mᵀ @ zu, summed on K4 (`scatter.correction`) from the
-    unrounded float32 right-scaled activations, as the JAX package sums
-    them. zu [≥ U, d] and zi [≥ I, d] may be views of any strides. Each
-    sum's backward runs on the other side's list, the same edges sorted
-    the other way."""
-    by_user, by_item = (view.du_rows, view.du_cols), (view.di_rows, view.di_cols)
+    M @ zi and Mᵀ @ zu, summed on K4's sorted-segment entry
+    (`scatter.correction`, the lists' row offsets made with the view) from
+    the unrounded float32 right-scaled activations, as the JAX package
+    sums them. zu [≥ U, d] and zi [≥ I, d] may be views of any strides.
+    Each sum's backward runs on the other side's list, the same edges
+    sorted the other way."""
+    by_user = (view.du_rows, view.du_cols, view.du_ptr)
+    by_item = (view.di_rows, view.di_cols, view.di_ptr)
     return (scatter.correction(zi, by_user, by_item, view.num_users),
             scatter.correction(zu, by_item, by_user, view.num_items))
 
@@ -754,8 +764,10 @@ class DropLists:
     right_i: torch.Tensor  # f32 [I]
     du_rows: torch.Tensor  # int64 [Dn] the dropped edges' users, sorted (stably)
     du_cols: torch.Tensor  # int64 [Dn] their items
+    du_ptr: torch.Tensor   # int64 [U + 1] the offsets of du_rows' users
     di_rows: torch.Tensor  # int64 [Dn] the dropped edges' items, sorted (stably)
     di_cols: torch.Tensor  # int64 [Dn] their users
+    di_ptr: torch.Tensor   # int64 [I + 1] the offsets of di_rows' items
     num_users: int
     num_items: int
 
@@ -1220,8 +1232,9 @@ def fused_chain_views_t(adj: FusedSquareAdj, view_lists, emb0: torch.Tensor, num
     `quant_fused_dual_t` of ``adj.m8`` with the k chains side by side as
     [k·d, N] activations (on the card K7 or K8 at k·d = 192 for SGL's
     three chains at d = 64), then each view's dropped edges subtracted
-    (on K4, from the unquantized float32 right-scaled activations: the
-    gathered rows turned to [Dn, d], summed, turned back) and every
+    (on K4's sorted-segment entry, from the unquantized float32
+    right-scaled activations: each [d, N] block passed as its [N, d]
+    view, which the entry's wrapper copies, the sums turned back) and every
     chain's left scales; each chain's output is the mean of its layers,
     layer 0 included. ``adj.m8`` must be the binary matrix the views
     factor over (binary counts) and ``adj`` has no self-loop diag.
@@ -1426,10 +1439,13 @@ def build_adjacency(
             raise ValueError(
                 "compute_dtype = int4 requires interaction counts "
                 f"<= {fusedmm.NIBBLE_MAX} (got {top}); use int8")
-        m8 = fusedmm.pack_nibbles(m8)
     if width > 1:
         m8 = _row_shard(m8, 1, mesh, dev)
-    plan = fusedmm.dual_plan(m8) if quant != "int4" else None
+    # the plan K6, K7 and K8 walk; int4's from the unpacked matrix (or its
+    # row shard), which packing then frees: only the packed copy stays
+    plan = fusedmm.dual_plan(m8)
+    if quant == "int4":
+        m8 = fusedmm.pack_nibbles(m8)
     return FusedSquareAdj(m8, lu, li, ru, ri, diag_u, diag_i, nu, ni, has_diag, quant,
                           mesh if width > 1 else None, plan)
 
@@ -1606,13 +1622,16 @@ def build_dropout_adjacency(data: Dataset, drop_ratio: float, np_rng: np.random.
     di = (np.bincount(items, minlength=data.num_items).astype(np.float64)
           - np.bincount(d_items, minlength=data.num_items))
 
-    def by(rows, cols):
+    def by(rows, cols, n_rows):
+        # the list sorted by row, and its row offsets (K4's sorted-segment entry)
         order = np.argsort(rows, kind="stable")
-        return (torch.from_numpy(rows[order]).to(dev), torch.from_numpy(cols[order]).to(dev))
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n_rows))])
+        return (torch.from_numpy(rows[order]).to(dev), torch.from_numpy(cols[order]).to(dev),
+                torch.from_numpy(ptr.astype(np.int64)).to(dev))
 
     scale_u, scale_i = _inv_pow_vec(du, 0.5, dev), _inv_pow_vec(di, 0.5, dev)
-    fields = (scale_u, scale_i, scale_u, scale_i, *by(d_users, d_items), *by(d_items, d_users),
-              data.num_users, data.num_items)
+    fields = (scale_u, scale_i, scale_u, scale_i, *by(d_users, d_items, data.num_users),
+              *by(d_items, d_users, data.num_items), data.num_users, data.num_items)
     if backend == "bitpack":
         return BitDropSquareAdj(*fields, *shared)
     if shared is None:

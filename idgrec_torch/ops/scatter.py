@@ -32,7 +32,10 @@ batch: the backward all-gathers the rows' cotangents over the data axis
 (`parallel.mesh.WholeBatch`) and K4 scatters the whole batch's in batch
 order, so every data rank gets one process's table cotangent, bit for
 bit. `correction` is SGL's sum over an edge-dropout view's dropped
-edges, K4 both ways.
+edges, both ways on K4's sorted-segment entry `segment_sum_rows`: a list
+sorted by row with its row offsets and the rows of a table to gather,
+one launch a call, no scratch (its plain version is K4's on the
+gathered rows, `segment_sum_rows_plain`).
 """
 
 from __future__ import annotations
@@ -94,6 +97,10 @@ def _k4_lib() -> ctypes.CDLL:
     lib = _build.library(_K4)
     lib.scatter_add_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.scatter_add_rows.restype = ctypes.c_int
+    lib.segment_sum_rows.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                                     + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                                     + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.segment_sum_rows.restype = ctypes.c_int
     return lib
 
 
@@ -223,34 +230,132 @@ def gather_user_pos(user_all: torch.Tensor, item_all: torch.Tensor, u: torch.Ten
     return _GatherUserPos.apply(user_all, item_all, u, p)
 
 
+# ---------------------------------------------------------------------------
+# K4's sorted-segment entry: SGL's drop corrections
+
+
+def row_offsets(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """int64 [n_rows + 1]: the offsets of the runs of ``rows`` (int64,
+    sorted, each in [0, n_rows)), ptr[r] = #{e: rows[e] < r}, on rows'
+    device without a synchronisation. The views carry theirs, made on the
+    host with the lists (`propagate.build_dropout_adjacency`)."""
+    return torch.searchsorted(rows, torch.arange(n_rows + 1, device=rows.device))
+
+
+def _check_segments(ptr: torch.Tensor, cols: torch.Tensor, z: torch.Tensor,
+                    out_rows: int) -> None:
+    """The checks that read no tensor data: types, shapes, devices."""
+    if ptr.dtype != torch.int64 or ptr.ndim != 1 or ptr.numel() < 1:
+        raise ValueError(f"ptr: expected int64 [n_rows + 1], got {ptr.dtype} {tuple(ptr.shape)}")
+    if cols.dtype != torch.int64 or cols.ndim != 1:
+        raise ValueError(f"cols: expected int64 [E], got {cols.dtype} {tuple(cols.shape)}")
+    if z.dtype != torch.float32 or z.ndim != 2:
+        raise ValueError(f"z: expected float32 [N, d], got {z.dtype} {tuple(z.shape)}")
+    if not ptr.device == cols.device == z.device:
+        raise ValueError(f"ptr on {ptr.device}, cols on {cols.device}, z on {z.device}")
+    if out_rows < ptr.numel() - 1:
+        raise ValueError(f"out_rows {out_rows} below the list's {ptr.numel() - 1} rows")
+
+
+def segment_sum_rows_plain(ptr: torch.Tensor, cols: torch.Tensor, z: torch.Tensor,
+                           out_rows: int | None = None) -> torch.Tensor:
+    """Plain version of K4's sorted-segment entry: K4's plain version on
+    the gathered rows, `scatter_add_rows_plain` (rows, z[cols], out_rows)
+    with the rows the offsets ``ptr`` give (row r holds the entries
+    [ptr[r], ptr[r + 1]) of the list)."""
+    n_rows = ptr.numel() - 1
+    out_rows = n_rows if out_rows is None else out_rows
+    _check_segments(ptr, cols, z, out_rows)
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=ptr.device), ptr.diff())
+    return scatter_add_rows_plain(rows, z[cols], out_rows)
+
+
+def segment_sum_rows(ptr: torch.Tensor, cols: torch.Tensor, z: torch.Tensor,
+                     out_rows: int | None = None) -> torch.Tensor:
+    """K4's sorted-segment entry (see `segment_sum_rows_plain`): ptr int64
+    [n_rows + 1], the offsets of a list sorted by row (ptr[n_rows] ==
+    len(cols)); cols int64 [E], rows of z; z float32 [N, d] of any strides
+    -> float32 [out_rows, d] (default n_rows; rows past n_rows are 0),
+    out[r] = ((0 + z[c_e0]) + z[c_e1]) + ... over row r's entries in list
+    order. CPU tensors take the plain version; CUDA tensors launch the
+    entry of csrc/scatter_add_rows.cu or raise: one launch, no scratch,
+    the gather inside, nothing read back (a z whose features are strided
+    is made contiguous first, a second launch). The offsets and columns
+    are trusted (made with the view, `propagate.build_dropout_adjacency`);
+    nothing is checked on the device."""
+    if z.device.type == "cpu":
+        return segment_sum_rows_plain(ptr, cols, z, out_rows)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    n_rows = ptr.numel() - 1
+    out_rows = n_rows if out_rows is None else out_rows
+    _check_segments(ptr, cols, z, out_rows)
+    d = z.shape[1]
+    out = torch.empty((out_rows, d), dtype=torch.float32, device=z.device)
+    if out_rows == 0 or d == 0:
+        return out
+    if not ptr.is_contiguous() or not cols.is_contiguous():
+        raise ValueError("ptr and cols must be contiguous")
+    if out_rows * d >= 2**31 or cols.numel() >= 2**31:
+        raise ValueError(f"[{out_rows}, {d}] or {cols.numel()} entries exceed the kernel's "
+                         "int32 sizes")
+    if z.stride(1) != 1:
+        # a transposed view (the quantized views route's): one copy and the
+        # kernel's 16-byte loads measured faster than reading it in place
+        # (PERF.md §6), so a call is two device launches here
+        z = z.contiguous()
+    lib = _k4_lib()
+    code = lib.segment_sum_rows(ptr.data_ptr(), cols.data_ptr(), z.data_ptr(), z.stride(0),
+                                z.stride(1), out.data_ptr(), n_rows, out_rows, d, cols.numel(),
+                                torch._C._cuda_getCurrentRawStream(z.device.index))
+    _build.check(lib, _K4, code)
+    segment_sum_rows.launches += 1
+    return out
+
+
+# launches of K4's sorted-segment entry
+segment_sum_rows.launches = 0
+
+
+def _segments(edges, n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ptr, cols) of an edge list given as (rows, cols, ptr) or (rows,
+    cols), whose offsets are then made here (`row_offsets`)."""
+    if len(edges) == 3:
+        return edges[2], edges[1]
+    rows, cols = edges
+    return row_offsets(rows, n_rows), cols
+
+
 class _Correction(torch.autograd.Function):
-    """out[r] = Σ_e z[c_e] over the edges (r, c_e), on K4; the backward is
-    the same sum the other way, on the edges sorted by column."""
+    """out[r] = Σ_e z[c_e] over the edges (r, c_e), on K4's sorted-segment
+    entry; the backward is the same sum the other way, on the edges
+    sorted by column."""
 
     @staticmethod
     def forward(ctx, z, by_row, by_col, n_rows):
-        rows, cols = by_row
-        ctx.save_for_backward(*by_col)
+        ptr, cols = _segments(by_row, n_rows)
+        ctx.save_for_backward(*_segments(by_col, z.shape[0]))
         ctx.z_rows = z.shape[0]
-        return scatter_add_rows_unchecked(rows, z[cols].contiguous(), n_rows)
+        return segment_sum_rows(ptr, cols, z, n_rows)
 
     @staticmethod
     def backward(ctx, g):
-        t_rows, t_cols = ctx.saved_tensors
-        return scatter_add_rows_unchecked(t_rows, _f32(g[t_cols]), ctx.z_rows), None, None, None
+        t_ptr, t_cols = ctx.saved_tensors
+        return segment_sum_rows(t_ptr, t_cols, g.to(torch.float32), ctx.z_rows), None, None, None
 
 
-def correction(z: torch.Tensor, by_row: tuple[torch.Tensor, torch.Tensor],
-               by_col: tuple[torch.Tensor, torch.Tensor], n_rows: int) -> torch.Tensor:
+def correction(z: torch.Tensor, by_row, by_col, n_rows: int) -> torch.Tensor:
     """The edge list's sum Σ_e onehot(rows[e]) · z[cols[e]], float32
     [n_rows, d], for float32 z [N, d] (a view of any strides): the dropped
     edges of an SGL view, subtracted from the full matrix's product
-    (ops/propagate.py `_drop_corrections`). ``by_row`` is (rows, cols),
-    int64, sorted by row; ``by_col`` the same edges sorted by column, as
-    (cols, rows). The JAX package computes the sum with XLA's sorted
-    segment sum; here the forward is one K4 launch on (rows, z[cols]) and
-    the backward one on by_col's (cols, g[rows]) into len(z) rows, so both
-    launches read a sorted index. K4 adds in list order, so both repeat bit
-    for bit; nothing is read back to the host. CPU tensors run K4's plain
-    version."""
+    (ops/propagate.py `_drop_corrections`). ``by_row`` is (rows, cols,
+    ptr), int64, sorted by row, with its row offsets (`row_offsets`;
+    (rows, cols) has them made on the device at each call); ``by_col``
+    the same edges sorted by column, as (cols, rows, col_ptr). The JAX
+    package computes the sum with XLA's sorted segment sum; here the
+    forward is one launch of K4's sorted-segment entry on (ptr, cols, z)
+    and the backward one on by_col's (col_ptr, rows, g) into len(z)
+    rows: the gathers inside, in list order, so both repeat bit for bit;
+    nothing is read back to the host. CPU tensors run the entry's plain
+    version, K4's on the gathered rows."""
     return _Correction.apply(z, by_row, by_col, n_rows)

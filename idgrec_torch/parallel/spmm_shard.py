@@ -7,14 +7,15 @@ rank k holds M_k = M[k·U_pad/n : (k+1)·U_pad/n] on its card and nothing
 else of M (`propagate.build_adjacency` builds M on the host and uploads
 the rank's rows), so each rank reads 1/n of M an application. Between
 the collectives each rank runs the kernel the single-card route runs,
-on its shard (`shard_dual`), K6 and K7 walking the shard's own plan
-(`fusedmm.dual_plan` of M_k, made at build beside it):
+on its shard (`shard_dual`), K6, K7 and K8 walking the shard's own plan
+(`fusedmm.dual_plan` of M_k, made at build beside it; K8's of the
+unpacked shard, before packing):
 
 * bfloat16 on ``fused``, and on ``dense`` where K6 takes the width: K6
   (`fusedmm.fused_adj_matmul`);
 * int8: K7 (`fused_adj_matmul_int8`; ``dense`` off K7's widths: the
   float32 products of the integers, as on one card);
-* int4: K8 (`fused_adj_matmul_int4`) on the nibble-packed shard;
+* int4: K8 (`fused_adj_matmul_int4`) on the nibble-packed shard's plan;
 * float32: `fusedmm.dual_matmul_f32`, as on one card.
 
 On the CPU the wrappers run their plain versions; on CUDA tensors they
@@ -100,14 +101,14 @@ def shard_dual(route: str, m_k: torch.Tensor, zu_k: torch.Tensor, zi: torch.Tens
     [I_pad, d] partial of yi, float32, by ``route`` (`shard_route`).
     zu_k [U_pad/n, d] and zi [I_pad, d] are float activations ('k6',
     'exact' rounds them to ``dtype``) or int8 ('k7', 'k8', 'int8_f32',
-    whose results are the raw integer sums). K6 and K7 walk ``plan``,
-    M_k's, where given. Not differentiable."""
+    whose results are the raw integer sums). K6, K7 and K8 walk ``plan``,
+    M_k's (K8's: of the unpacked shard), where given. Not differentiable."""
     if route == "k6":
         return fusedmm.fused_adj_matmul(m_k, zu_k, zi, plan)
     if route == "k7":
         return fusedmm.fused_adj_matmul_int8(m_k, zu_k, zi, plan)
     if route == "k8":
-        return fusedmm.fused_adj_matmul_int4(m_k, zu_k, zi)
+        return fusedmm.fused_adj_matmul_int4(m_k, zu_k, zi, plan)
     if route == "int8_f32":
         return fusedmm.dual_matmul_f32(m_k, zu_k, zi)
     if route == "exact":

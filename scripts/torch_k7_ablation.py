@@ -110,8 +110,11 @@ and its public wrapper is timed with the check taken out) and the public
 wrapper (with the range check), beside ``index_add_`` into a zeroed
 table. Then K4 at SGL's drop-list lengths (`k4_sgl_lists`): one view's
 dropped edges into the users and into the items, each on the list
-sorted by its index and on the one sorted the other way, timed and
-profiled by kernel name.
+sorted by its index and on the one sorted the other way: the generic
+entry, and on the sorted lists the sorted-segment entry
+(``segment_sum_rows``, the gather inside; z contiguous, strided, and
+made contiguous first; its constants varied one at a time), beside
+``index_add_``, timed and profiled by kernel name.
 
 Prints one line per measurement, the card's name and power limit, and a
 JSON object last.
@@ -1430,17 +1433,43 @@ def k4_split(dev, data, scatter) -> dict:
     return res
 
 
-def k4_sgl_lists(dev, data, scatter) -> dict:
+# K4's sorted-segment entry (``segment_sum_rows``): its constants changed one
+# at a time; every variant computes the right sums
+SEGMENT_VARIANTS = {
+    "full": [],
+    "stages_2": [(r"constexpr int SEG_STAGES = 4;", "constexpr int SEG_STAGES = 2;")],
+    "stages_3": [(r"constexpr int SEG_STAGES = 4;", "constexpr int SEG_STAGES = 3;")],
+    "stages_6": [(r"constexpr int SEG_STAGES = 4;", "constexpr int SEG_STAGES = 6;")],
+    "warps_4": [(r"constexpr int SEG_THREADS = 64;", "constexpr int SEG_THREADS = 128;")],
+    "window_32": [(r"constexpr int SEG_WINDOW = 64;", "constexpr int SEG_WINDOW = 32;")],
+    "window_128": [(r"constexpr int SEG_WINDOW = 64;", "constexpr int SEG_WINDOW = 128;")],
+    # 4-byte copies (the path of a strided z) on the contiguous z
+    "copies_4": [(r"const bool vec = z_feat == 1", "const bool vec = false && z_feat == 1")],
+    # timed only (wrong sums): the gathered copies or the adds taken out
+    "no_loads": [(r"for \(int q = 0; q < width; q \+= 4\) cp_async<16>\(dst \+ q, src \+ q\);",
+                  "")],
+    "no_adds": [(r"acc = __fadd_rn\(acc, x\[(j|u)\]\);", r"acc = x[\1];")],
+}
+SEGMENT_TIMED_ONLY = ("no_loads", "no_adds")
+
+
+def k4_sgl_lists(dev, data, build_mod, scatter) -> dict:
     """K4 at SGL's drop-list lengths: one edge-dropout view of the
     yelp2018-scale set at ``ssl_ratio`` 0.1, its dropped edges drawn as
     `propagate.build_dropout_adjacency` draws them (a permutation from a
     numpy generator seeded 0, the tail dropped, the lists sorted stably by
-    user and by item), d = 64, random values. Four library calls: into
-    the users and into the items, each on the list sorted by its index
-    (what the drop corrections launch, forward and backward) and on the
-    list sorted the other way (the index unsorted). Each is held to K4's
-    plain version and timed under CUDA events; then each is profiled by
-    kernel name."""
+    user and by item), d = 64, random tables. Into the users and into the
+    items on the list sorted by its index (a correction's forward and
+    backward): the sorted-segment entry (``segment_sum_rows``, the gather
+    inside) through its wrapper, on a contiguous z and on the [N, d] view of
+    a [d, N] one (read in place, and made contiguous first), beside the
+    generic K4 library call on the gathered rows (preallocated buffers, the
+    gather not counted), the generic entry's wrapper with the gather, and
+    ``index_add_`` of the gathered rows; on the list sorted the other way
+    (the index unsorted) the generic library call. Each is held to K4's
+    plain version and timed under CUDA events; the entry's variants
+    (`SEGMENT_VARIANTS`, where the tree has the entry) through the wrapper;
+    then each call is profiled by kernel name."""
     nnz = int(data.nnz)
     users = np.repeat(np.arange(data.num_users, dtype=np.int64), np.diff(data.row_ptr))
     items = data.col_idx.astype(np.int64)
@@ -1448,36 +1477,130 @@ def k4_sgl_lists(dev, data, scatter) -> dict:
     d_users, d_items = users[dropped], items[dropped]
     by_user, by_item = np.argsort(d_users, kind="stable"), np.argsort(d_items, kind="stable")
     nu, ni, d = data.num_users, data.num_items, 64
-    cases = {"users_sorted": (d_users[by_user], nu), "items_sorted": (d_items[by_item], ni),
-             "items_unsorted": (d_items[by_user], ni), "users_unsorted": (d_users[by_item], nu)}
-    vals = torch.randn(dropped.size, d, generator=torch.Generator().manual_seed(2)).to(dev)
+    g = torch.Generator().manual_seed(2)
+    z_of = {"users": torch.randn(nu, d, generator=g).to(dev),
+            "items": torch.randn(ni, d, generator=g).to(dev)}
+    # name -> (rows, the other side's ids, rows into, the table gathered)
+    cases = {"users_sorted": (d_users[by_user], d_items[by_user], nu, "items"),
+             "items_sorted": (d_items[by_item], d_users[by_item], ni, "users"),
+             "items_unsorted": (d_items[by_user], d_users[by_user], ni, "users"),
+             "users_unsorted": (d_users[by_item], d_items[by_item], nu, "items")}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = scatter._k4_lib()
-    res, kernels = {"rows": int(dropped.size)}, {}
-    for name, (idx_np, nr) in cases.items():
+    segmented = hasattr(scatter, "segment_sum_rows")
+    res, calls = {"rows": int(dropped.size)}, {}
+    for name, (idx_np, other_np, nr, side) in cases.items():
         idx = torch.from_numpy(idx_np).to(dev)
+        other = torch.from_numpy(other_np).to(dev)
+        z = z_of[side]
+        vals = z[other].contiguous()
         out = torch.empty((nr, d), dtype=torch.float32, device=dev)
         buf = torch.empty(scatter.scratch_size(nr, idx.numel()), dtype=torch.int32, device=dev)
 
-        def kernel(idx=idx, nr=nr, out=out, buf=buf):
+        def kernel(idx=idx, nr=nr, out=out, buf=buf, vals=vals):
             code = lib.scatter_add_rows(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
                                         buf.data_ptr(), idx.numel(), d, nr, stream)
             if code:
                 raise RuntimeError(f"K4: CUDA error {code}")
 
         kernel()
-        if not torch.equal(out, scatter.scatter_add_rows_plain(idx, vals, nr)):
+        want = scatter.scatter_add_rows_plain(idx, vals, nr)
+        if not torch.equal(out, want):
             raise RuntimeError(f"K4 differs from its plain version on SGL's list ({name})")
-        res[name] = {"ms": timed(kernel, 20),
-                     "hot_rows": int((np.bincount(idx_np, minlength=nr) > 32).sum())}
-        kernels[name] = kernel
+        r = {"ms": timed(kernel, 20),
+             "hot_rows": int((np.bincount(idx_np, minlength=nr) > 32).sum()),
+             "longest": int(np.bincount(idx_np, minlength=nr).max())}
+        calls[name] = {"generic": kernel}
+        if name.endswith("_sorted"):
+            r["generic_with_gather_ms"] = timed(
+                lambda idx=idx, z=z, other=other, nr=nr:
+                scatter.scatter_add_rows_unchecked(idx, z[other], nr), 20)
+            r["index_add_ms"] = timed(
+                lambda idx=idx, z=z, other=other, nr=nr:
+                torch.zeros((nr, d), device=dev).index_add_(0, idx, z[other]), 20)
+        if name.endswith("_sorted") and segmented:
+            ptr = scatter.row_offsets(idx, nr)
+            z_t = z.T.contiguous().T  # strides (1, N)
+
+            def entry(ptr=ptr, other=other, z=z):
+                return scatter.segment_sum_rows(ptr, other, z)
+
+            for layout, zz in (("contiguous", z), ("strided", z_t)):
+                if not torch.equal(scatter.segment_sum_rows(ptr, other, zz), want):
+                    raise RuntimeError(f"the sorted-segment entry differs from K4's plain "
+                                       f"version on SGL's list ({name}, {layout})")
+            r["segment_ms"] = timed(entry, 50)
+            # a strided z read in place (the library call: the wrapper copies it)
+            out_s = torch.empty((nr, d), dtype=torch.float32, device=dev)
+
+            def in_place(ptr=ptr, other=other, z_t=z_t, out_s=out_s, nr=nr):
+                code = lib.segment_sum_rows(ptr.data_ptr(), other.data_ptr(), z_t.data_ptr(),
+                                            z_t.stride(0), z_t.stride(1), out_s.data_ptr(), nr,
+                                            nr, d, other.numel(), stream)
+                if code:
+                    raise RuntimeError(f"K4's sorted-segment entry: CUDA error {code}")
+                return out_s
+
+            if not torch.equal(in_place(), want):
+                raise RuntimeError(f"the sorted-segment entry read in place differs ({name})")
+            r["segment_strided_ms"] = timed(in_place, 50)
+            r["segment_copied_ms"] = timed(
+                lambda ptr=ptr, other=other, z_t=z_t: scatter.segment_sum_rows(ptr, other, z_t),
+                50)
+            r["segment_device_launches"] = device_launches(entry)
+            calls[name]["segment"] = entry
+        res[name] = r
+        print(f"K4 on SGL's drop list ({res['rows']} rows of {d}) {name}: the generic library "
+              f"call {r['ms']:.4f} ms" + (
+                  f", its wrapper with the gather {r['generic_with_gather_ms']:.4f}, index_add_ "
+                  f"{r['index_add_ms']:.4f}" if "index_add_ms" in r else "") + (
+                  f"; the sorted-segment entry {r['segment_ms']:.4f} ms (z strided, read in "
+                  f"place {r['segment_strided_ms']:.4f}, made contiguous first by the wrapper "
+                  f"{r['segment_copied_ms']:.4f}; {r['segment_device_launches']} device "
+                  f"launches a call)" if "segment_ms" in r else "")
+              + f"; {r['hot_rows']} rows with more than 32 entries, the longest {r['longest']}",
+              flush=True)
+    if segmented:
+        source = build_mod.source_path("scatter_add_rows")
+        built = build_all(build_mod, source, SEGMENT_VARIANTS, tag="k4")
+        print("K4 full variant ptxas: " + " | ".join(_ptxas(built["full"][1])), flush=True)
+        res["segment_variants"] = {}
+        for vname, (so, log) in built.items():
+            if so is None:
+                print(f"K4 variant {vname}: build failed\n{log}", flush=True)
+                continue
+            _swapped(build_mod, scatter, scatter._k4_lib, "scatter_add_rows", so)
+            try:
+                row = {}
+                for name in ("users_sorted", "items_sorted"):
+                    fn = calls[name]["segment"]
+                    idx_np, _, nr, _ = cases[name]
+                    if vname not in SEGMENT_TIMED_ONLY and not torch.equal(
+                            fn(), scatter.scatter_add_rows_plain(
+                                torch.from_numpy(idx_np).to(dev), z_of[cases[name][3]][
+                                    torch.from_numpy(cases[name][1]).to(dev)], nr)):
+                        raise RuntimeError(f"K4 variant {vname} differs on {name}")
+                    row[name] = timed(fn, 50)
+                # one row of n entries alone: the time an entry of a hot row
+                for n_hot in (2_000, 8_000):
+                    cols_h = torch.randint(0, nu, (n_hot,), generator=g).to(dev)
+                    ptr_h = torch.tensor([0, n_hot], device=dev)
+                    row[f"one_row_{n_hot}"] = timed(
+                        lambda ptr_h=ptr_h, cols_h=cols_h:
+                        scatter.segment_sum_rows(ptr_h, cols_h, z_of["users"]), 20)
+            finally:
+                _restored(build_mod, scatter._k4_lib, "scatter_add_rows")
+            res["segment_variants"][vname] = row
+            print(f"K4 sorted-segment variant {vname}: into the users {row['users_sorted']:.4f} "
+                  f"ms, into the items {row['items_sorted']:.4f} ms; one row of 2,000 entries "
+                  f"{row['one_row_2000']:.4f} ms, of 8,000 {row['one_row_8000']:.4f}", flush=True)
     # profiled after every timing: the profiler slows the later launches
-    for name, kernel in kernels.items():
-        res[name]["device_ms_by_kernel"] = device_ms_by_kernel(kernel)
-        print(f"K4 on SGL's drop list ({res['rows']} rows of {d}) {name}: {res[name]['ms']:.4f} "
-              f"ms ({res[name]['hot_rows']} rows with more than 32 entries); device ms by "
-              "kernel " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                     res[name]["device_ms_by_kernel"].items()), flush=True)
+    for name, fns in calls.items():
+        for what, fn in fns.items():
+            by = device_ms_by_kernel(fn)
+            res[name][f"{what}_device_ms_by_kernel"] = by
+            print(f"K4 {what} on SGL's list {name}: device ms by kernel "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in by.items()), flush=True)
     return res
 
 
@@ -1521,7 +1644,7 @@ def main() -> int:
         result["k8"] = k8_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k4:
         result["k4"] = k4_split(dev, data, scatter)
-        result["k4_sgl"] = k4_sgl_lists(dev, data, scatter)
+        result["k4_sgl"] = k4_sgl_lists(dev, data, _build, scatter)
     if not args.skip_k6:
         result["k6"] = k6_ablation(dev, data, _build, fusedmm, propagate)
     if not args.skip_k11:

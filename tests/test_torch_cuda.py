@@ -66,7 +66,12 @@ widths off 32 (d = 16 and 48) K6, K7 and K8 run on features zero-padded
 to the next multiple of 32: K7 and K8 equal their plain versions bit for
 bit, K6 stays within its bar, and so do `FusedSquareAdj.matmul`,
 `quant_fused_dual_t` and SGL's quantized views on them against the same
-calls on the plain versions."""
+calls on the plain versions. K4's sorted-segment entry (SGL's drop
+corrections) equals its plain version, K4's on the gathered rows, bit for
+bit and across two launches, on SGL's yelp2018-scale lists both ways, hot
+rows and a strided z included, in one device launch and without a
+synchronisation; K8 on the plan of the unpacked matrix equals its plain
+version and its scan bit for bit, on row shards too."""
 
 from __future__ import annotations
 
@@ -2556,12 +2561,14 @@ def test_rect_model_step_on_k6(cuda, name):
 # the route on its kernels' plain versions, the launches a step)
 _SGL_ROUTES = {
     ("auto", "bfloat16"): ((("fused_adj_matmul", _plain_k6),),
-                           {"fused_adj_matmul": 6, "scatter_add_rows": 24}),
+                           {"fused_adj_matmul": 6, "segment_sum_rows": 24}),
     ("auto", "int8"): ((("fused_adj_matmul_int8", fusedmm.fused_adj_matmul_int8_plain),),
-                       {"fused_adj_matmul_int8": 6, "quantize_rows": 12, "scatter_add_rows": 26}),
+                       {"fused_adj_matmul_int8": 6, "quantize_rows": 12, "scatter_add_rows": 2,
+                        "segment_sum_rows": 24}),
     ("auto", "int4"): ((("fused_adj_matmul_int4", fusedmm.fused_adj_matmul_int4_plain),),
-                       {"fused_adj_matmul_int4": 6, "quantize_rows": 12, "scatter_add_rows": 26}),
-    ("bitpack", "bfloat16"): ((), {"bit_matmul": 36, "scatter_add_rows": 24}),
+                       {"fused_adj_matmul_int4": 6, "quantize_rows": 12, "scatter_add_rows": 2,
+                        "segment_sum_rows": 24}),
+    ("bitpack", "bfloat16"): ((), {"bit_matmul": 36, "segment_sum_rows": 24}),
 }
 
 
@@ -2570,7 +2577,8 @@ def test_sgl_step_on_its_kernels(cuda, backend, dtype):
     """SGL at its published config (d = 64, 3 layers, 'ed') on each route:
     the shared chain on K6 at d = 192 (bfloat16 on `auto`, dense), the
     quantized views on K7 / K8 at 192 with K3 (int8 / int4, `fused`),
-    bitpack on K11; every drop correction on K4. One step against the
+    bitpack on K11; every drop correction on K4's sorted-segment entry
+    (K7 and K8 on the adjacency's plan). One step against the
     same step on the kernels' plain versions from the same views (loss
     terms within rtol 3e-5 / atol 3e-6, gradients within 2**-7 of the
     largest entry), its launches counted, then a step under sync debug
@@ -2594,7 +2602,8 @@ def test_sgl_step_on_its_kernels(cuda, backend, dtype):
              "neg": torch.randint(0, data.num_items, (1024,), generator=g).to(cuda)}
     counted = {f.__name__: f for f in (fusedmm.fused_adj_matmul, fusedmm.fused_adj_matmul_int8,
                                        fusedmm.fused_adj_matmul_int4, propagate.quantize_rows,
-                                       scatter.scatter_add_rows, bitmm.bit_matmul)}
+                                       scatter.scatter_add_rows, scatter.segment_sum_rows,
+                                       bitmm.bit_matmul)}
 
     def step():
         model.zero_grad(set_to_none=True)
@@ -2608,15 +2617,20 @@ def test_sgl_step_on_its_kernels(cuda, backend, dtype):
     torch.cuda.synchronize()
     launches = {k: f.launches - before[k] for k, f in counted.items() if f.launches > before[k]}
     assert launches == want_launches
+    if dtype in ("int8", "int4"):  # K7 / K8 walked the adjacency's plan
+        assert model.graph.plan is not None
+        assert getattr(fusedmm, f"fused_adj_matmul_{dtype}").path == "plan"
     saved = ([(fusedmm, n, getattr(fusedmm, n)) for n, _ in swaps]
              + [(propagate, "quantize_rows", propagate.quantize_rows),
                 (scatter, "scatter_add_rows_unchecked", scatter.scatter_add_rows_unchecked),
+                (scatter, "segment_sum_rows", scatter.segment_sum_rows),
                 (bitmm, "bit_matmul", bitmm.bit_matmul)])
     try:
         for n, fn in swaps:
             setattr(fusedmm, n, fn)
         propagate.quantize_rows = propagate.quantize_rows_plain
         scatter.scatter_add_rows_unchecked = scatter.scatter_add_rows_plain
+        scatter.segment_sum_rows = scatter.segment_sum_rows_plain
         bitmm.bit_matmul = lambda packed, x, n_rows, plan=None: bitmm.bit_matmul_plain(
             packed, x, n_rows)
         want = step()
@@ -2792,3 +2806,159 @@ def test_fused_matmul_and_dual_t_at_off_32_widths(cuda, monkeypatch, dtype, d):
         else:
             assert bool(((y - wy).abs() <= 3e-5 * wy.abs() + 3e-6 * wy.abs().max()).all())
             assert float((gx - wg).abs().max()) <= 2.0 ** -7 * float(wg.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K4's sorted-segment entry (SGL's drop corrections) and K8 on the plan
+
+
+@pytest.fixture(scope="module")
+def sgl_lists():
+    """One SGL view's drop lists at the yelp2018 scale of chip_smoke.py
+    (123,726 dropped edges, hot items of up to ~2,000 entries), drawn as
+    `propagate.build_dropout_adjacency` draws them, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    data = make_synthetic_dataset(31_668, 38_048, 1_237_259, 324_147, seed=0)
+    view = propagate.build_dropout_adjacency(data, 0.1, np.random.default_rng(0), "dense",
+                                             device="cuda")
+    return view
+
+
+def _segment_case(view, side):
+    """(ptr, cols, rows, n_rows, n_z) of the view's list into ``side``."""
+    if side == "users":
+        return view.du_ptr, view.du_cols, view.du_rows, view.num_users, view.num_items
+    return view.di_ptr, view.di_cols, view.di_rows, view.num_items, view.num_users
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("side", ["users", "items"])
+@pytest.mark.parametrize("d", [16, 48, 64, 192])
+def test_segment_sum_equals_plain_on_sgl_lists(cuda, sgl_lists, d, side, layout):
+    """K4's sorted-segment entry on an SGL drop list, both directions (the
+    items' list has the hot rows), z contiguous or the [N, d] view of a
+    [d, N] tensor (the quantized views route's): equal to its plain
+    version, K4's plain version on the gathered rows, bit for bit, and the
+    same bits on a second launch; one launch counted."""
+    ptr, cols, rows, n_rows, n_z = _segment_case(sgl_lists, side)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    if layout == "contiguous":
+        z = torch.randn((n_z, d), generator=g, device=cuda)
+    else:
+        z = torch.randn((d, n_z + 7), generator=g, device=cuda).T
+    before = scatter.segment_sum_rows.launches
+    got = scatter.segment_sum_rows(ptr, cols, z)
+    again = scatter.segment_sum_rows(ptr, cols, z)
+    assert scatter.segment_sum_rows.launches == before + 2
+    want = scatter.scatter_add_rows_plain(rows, z[cols], n_rows)
+    assert got.shape == (n_rows, d) and torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [6, 16, 64])
+def test_segment_sum_hot_rows_and_padding(cuda, d):
+    """Rows of 1, 33, 4,100 and 20,000 entries, runs of empty rows, out
+    rows past the list: equal to the plain version bit for bit (d = 6:
+    rows that are not 16-byte multiples, the kernel's 4-byte copies)."""
+    rng = np.random.default_rng(d)
+    per = rng.poisson(2.0, 3000)
+    per[rng.random(3000) < 0.5] = 0
+    per[[5, 6, 700, 2999]] = [1, 33, 4_100, 20_000]
+    per[1000:1400] = 0
+    rows = torch.from_numpy(np.repeat(np.arange(3000), per)).to(cuda)
+    cols = torch.from_numpy(rng.integers(0, 5000, rows.numel())).to(cuda)
+    ptr = scatter.row_offsets(rows, 3000)
+    z = torch.from_numpy(rng.normal(size=(5000, d)).astype(np.float32)).to(cuda)
+    got = scatter.segment_sum_rows(ptr, cols, z, 3100)
+    want = scatter.segment_sum_rows_plain(ptr, cols, z, 3100)
+    assert torch.equal(got, want) and not got[3000:].any()
+
+
+def test_segment_sum_one_launch_no_sync(cuda, sgl_lists):
+    """A correction (forward and backward) under sync debug mode "error",
+    and one device launch a call of the entry (torch.profiler: kernels
+    and memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    view = sgl_lists
+    by_user = (view.du_rows, view.du_cols, view.du_ptr)
+    by_item = (view.di_rows, view.di_cols, view.di_ptr)
+    z = torch.randn((view.num_items, 64), device=cuda, requires_grad=True)
+    g = torch.randn((view.num_users, 64), device=cuda)
+    scatter.correction(z, by_user, by_item, view.num_users).backward(g)  # built outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = scatter.correction(z, by_user, by_item, view.num_users)
+        out.backward(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out.detach(), scatter.segment_sum_rows_plain(
+        view.du_ptr, view.du_cols, z.detach()))
+    zd = z.detach()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scatter.segment_sum_rows(view.du_ptr, view.du_cols, zd)
+        torch.cuda.synchronize()
+    n = sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+    assert n in (0, 1)  # 0 where the profiler records no device activity
+
+
+def _k8_case(rng, d, u_pad=1024, i_pad=4096):
+    m = _counts(rng, u_pad, i_pad, 0.05, fusedmm.NIBBLE_MAX)
+    return m, _int8(rng, (u_pad, d)), _int8(rng, (i_pad, d))
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 192])
+def test_k8_plan_equals_plain(cuda, d):
+    """K8 walking the plan of the unpacked matrix: its path and zero reads
+    of m4, equal to its plain version and to the scan bit for bit, the
+    same bits on a second launch."""
+    rng = np.random.default_rng(d)
+    m, qu, qi = (t.to(cuda) for t in _k8_case(rng, d))
+    m4 = fusedmm.pack_nibbles(m)
+    plan = fusedmm.dual_plan(m)
+    before = fusedmm.fused_adj_matmul_int4.launches
+    got = fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan)
+    assert (fusedmm.fused_adj_matmul_int4.path, fusedmm.fused_adj_matmul_int4.passes) == (
+        "plan", 0)
+    again = fusedmm.fused_adj_matmul_int4(m4, qu, qi, plan)
+    scan = fusedmm.fused_adj_matmul_int4(m4, qu, qi)
+    assert fusedmm.fused_adj_matmul_int4.path == "scan"
+    assert fusedmm.fused_adj_matmul_int4.launches == before + 3
+    for a, b, c, e in zip(got, again, scan, fusedmm.fused_adj_matmul_int4_plain(m4, qu, qi)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, c) and torch.equal(a, e)
+
+
+def test_k8_refuses_a_plan_of_another_matrix(cuda):
+    rng = np.random.default_rng(2)
+    m, qu, qi = (t.to(cuda) for t in _k8_case(rng, 64))
+    with pytest.raises(ValueError, match="does not fit"):
+        fusedmm.fused_adj_matmul_int4(fusedmm.pack_nibbles(m), qu, qi,
+                                      fusedmm.dual_plan(m[:, :2048]))
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_k8_plan_on_packed_row_shards(cuda, width):
+    """Each row shard of the int4 adjacency built under a model axis of
+    ``width`` (its packed rows and the plan of those rows unpacked, as
+    `build_adjacency` makes them) runs K8 on its plan, equal to K8's plain
+    version bit for bit."""
+    from idgrec_torch.parallel import spmm_shard
+    from idgrec_torch.parallel.mesh import Mesh, use_mesh
+
+    data = make_synthetic_dataset(900, 1300, 20_000, 2_000, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(width)
+    for k in range(width):
+        with use_mesh(Mesh(1, width, k)):
+            adj = propagate.build_adjacency(data, "sym", "fused", compute_dtype="int4",
+                                            device=cuda)
+        assert adj.plan is not None and spmm_shard.shard_route(adj, 64) == "k8"
+        rows, i_pad = adj.m8.shape[0], 2 * adj.m8.shape[1]
+        qu = propagate._quantize_cols(torch.randn((rows, 64), generator=g, device=cuda))[0]
+        qi = propagate._quantize_cols(torch.randn((i_pad, 64), generator=g, device=cuda))[0]
+        got = spmm_shard.shard_dual("k8", adj.m8, qu, qi, plan=adj.plan)
+        assert fusedmm.fused_adj_matmul_int4.path == "plan"
+        for a, b in zip(got, fusedmm.fused_adj_matmul_int4_plain(adj.m8, qu, qi)):
+            assert torch.equal(a, b)

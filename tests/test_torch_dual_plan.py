@@ -1,4 +1,4 @@
-"""The plan of M's non-zero entries that kernels K6 and K7 walk
+"""The plan of M's non-zero entries that kernels K6, K7 and K8 walk
 (`fusedmm.DualPlan`, `dual_plan`, `dual_path`), K6's plain version in its
 own arithmetic (`fused_adj_matmul_fixed_plain`), and the plans the
 adjacencies, SGL's shared state and a mesh shard hold, on the CPU.
@@ -13,9 +13,12 @@ Bars:
   bfloat16 operands and exact products, each rounded once at 2**-31 of
   its side's largest activation, sums in another order; with and without
   the plan equal bit for bit;
-* every plan an object holds equals `dual_plan` of its own matrix;
-* gradients through `fused_adj_matmul`, `quant_fused_dual` and
-  `quant_fused_dual_t` with a plan equal those without one.
+* every plan an object holds equals `dual_plan` of its own matrix (int4:
+  of the unpacked matrix);
+* gradients through `fused_adj_matmul`, `quant_fused_dual`,
+  `quant_fused_dual4` and `quant_fused_dual_t` with a plan equal those
+  without one; K8's plain version with a plan equals it without one and
+  K7's plain version on the unpacked matrix, bit for bit.
 """
 
 from __future__ import annotations
@@ -225,11 +228,15 @@ def _same_plan(plan, m):
 
 @pytest.mark.parametrize("backend,dtype,has_plan", [
     ("dense", "bfloat16", True), ("dense", "int8", True), ("dense", "float32", False),
-    ("fused", "bfloat16", True), ("fused", "int8", True), ("fused", "int4", False),
+    ("fused", "bfloat16", True), ("fused", "int8", True), ("fused", "int4", True),
     ("fused", "float32", True)])
 def test_square_adjacency_carries_the_plan_of_its_matrix(data, backend, dtype, has_plan):
+    """The int4 matrix's plan is the unpacked matrix's, made before
+    packing (K8 walks it)."""
     adj = t_prop.build_adjacency(data, "sym", backend, compute_dtype=dtype, device="cpu")
     m = adj.m if backend == "dense" else adj.m8
+    if backend == "fused" and dtype == "int4":
+        m = t_fused.unpack_nibbles(m)
     if has_plan:
         _same_plan(adj.plan, m)
     else:
@@ -360,3 +367,80 @@ def test_plan_of_another_matrix_is_refused():
     other = t_fused.dual_plan(m[:256])
     with pytest.raises(ValueError, match="does not fit"):
         t_fused.fused_adj_matmul_fixed_plain(m, torch.ones(290, 32), torch.ones(470, 32), other)
+
+
+# ---------------------------------------------------------------------------
+# K8 on the plan of the unpacked matrix
+
+
+def _packed(case: str) -> torch.Tensor:
+    """A `_matrix` padded to `fusedmm.PACK_TILE` columns and its counts cut
+    to `NIBBLE_MAX`, packed."""
+    m = np.zeros((320, t_fused.PACK_TILE), dtype=np.int8)
+    m[:, :512] = np.minimum(_matrix(case), t_fused.NIBBLE_MAX)
+    return t_fused.pack_nibbles(torch.from_numpy(m))
+
+
+@pytest.mark.parametrize("case", ["binary", "counts", "hot"])
+def test_int4_plan_is_the_plan_of_the_unpacked_matrix(case):
+    m4 = _packed(case)
+    plan = t_fused.dual_plan(t_fused.unpack_nibbles(m4))
+    assert plan.shape == (320, 2 * m4.shape[1])
+    _same_plan(plan, t_fused.unpack_nibbles(m4))
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+def test_k8_plain_with_plan_equals_without_and_k7(d):
+    """K8's plain version (and its wrapper on the CPU) takes the plan and
+    gives the bits it gives without one, which are K7's plain version's on
+    the unpacked matrix."""
+    rng = np.random.default_rng(d)
+    m4 = _packed("counts")
+    m8 = t_fused.unpack_nibbles(m4)
+    plan = t_fused.dual_plan(m8)
+    qu = torch.from_numpy(rng.integers(-127, 128, (320, d)).astype(np.int8))
+    qi = torch.from_numpy(rng.integers(-127, 128, (m8.shape[1], d)).astype(np.int8))
+    want = t_fused.fused_adj_matmul_int8_plain(m8, qu, qi)
+    for got in (t_fused.fused_adj_matmul_int4_plain(m4, qu, qi, plan),
+                t_fused.fused_adj_matmul_int4_plain(m4, qu, qi),
+                t_fused.fused_adj_matmul_int4(m4, qu, qi, plan)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_int4_duals_gradient_with_plan_equals_without():
+    rng = np.random.default_rng(6)
+    m4 = _packed("counts")
+    plan = t_fused.dual_plan(t_fused.unpack_nibbles(m4))
+    zi = torch.from_numpy(rng.normal(size=(2 * m4.shape[1], 32)).astype(np.float32))
+    zu = torch.from_numpy(rng.normal(size=(320, 32)).astype(np.float32))
+
+    def n_dual(m_, a, b, plan_):
+        return t_prop.quant_fused_dual4(m_, b, a, plan_)
+
+    def t_dual(m_, a, b, plan_):
+        return t_prop.quant_fused_dual_t(m_, b.T, a.T, "int4", plan_)
+
+    for fn in (n_dual, t_dual):
+        for a, b in zip(_grads(fn, m4, zu, zi, plan), _grads(fn, m4, zu, zi, None)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_int4_mesh_shard_carries_the_plan_of_its_rows(data, rank):
+    """Under a model axis of 2 the int4 adjacency holds this rank's packed
+    rows and the plan of those rows unpacked; K8's shard product on it
+    equals the product without one."""
+    with use_mesh(Mesh(1, 2, rank)):
+        adj = t_prop.build_adjacency(data, "sym", "fused", compute_dtype="int4", device="cpu")
+    whole = t_prop.build_adjacency(data, "sym", "fused", compute_dtype="int4", device="cpu")
+    rows = adj.m8.shape[0]
+    assert adj.shard is not None and t_shard.shard_route(adj, 32) == "k8"
+    assert torch.equal(adj.m8, whole.m8[rank * rows:(rank + 1) * rows])
+    _same_plan(adj.plan, t_fused.unpack_nibbles(adj.m8))
+    rng = np.random.default_rng(rank)
+    zu = torch.from_numpy(rng.integers(-127, 128, (rows, 32)).astype(np.int8))
+    zi = torch.from_numpy(rng.integers(-127, 128, (2 * adj.m8.shape[1], 32)).astype(np.int8))
+    for a, b in zip(t_shard.shard_dual("k8", adj.m8, zu, zi, plan=adj.plan),
+                    t_shard.shard_dual("k8", adj.m8, zu, zi)):
+        assert torch.equal(a, b)
