@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from idgrec_torch.config import Config
 from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
+from idgrec_torch.engine import profiling
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.ops.metrics import topk_metric_sums
 from idgrec_torch.parallel.mesh import use_mesh
@@ -148,7 +149,7 @@ class Evaluator:
         ``generator`` draws whatever the representation draws (the JAX
         evaluator's key)."""
         self.model.eval()
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh), profiling.span("models.eval_embeddings"):
             return self.model.eval_embeddings(generator)
 
     def _sweep(self, eval_repr) -> dict[str, torch.Tensor]:
@@ -160,20 +161,23 @@ class Evaluator:
         if self._items_sharded:
             items, width = item_slice(num_items, self.mesh)
         for b in range(p.users.shape[0]):
-            ratings = self.model.score_batch(eval_repr, p.users[b], items).to(torch.float32)
+            with profiling.span("engine.evaluator.score"):
+                ratings = self.model.score_batch(eval_repr, p.users[b], items).to(torch.float32)
             # mask train positives below any reachable score; one spare
             # column takes the pad index num_items (sharded: every id
             # outside the slice), then goes
-            cols = p.excl_cols[b]
-            if self._items_sharded:
-                cols = local_columns(cols, items)
-            ratings = F.pad(ratings, (0, 1))
-            ratings[p.excl_rows[b], cols] = _MASK_VALUE
-            ratings = ratings[:, :-1] if self._items_sharded else ratings[:, :num_items]
-            if self._items_sharded:
-                topk_idx = sharded_topk(ratings, items, width, self.mesh, self.max_k)[1]
-            else:
-                topk_idx = torch.topk(ratings, self.max_k, dim=1).indices
+            with profiling.span("engine.evaluator.mask"):
+                cols = p.excl_cols[b]
+                if self._items_sharded:
+                    cols = local_columns(cols, items)
+                ratings = F.pad(ratings, (0, 1))
+                ratings[p.excl_rows[b], cols] = _MASK_VALUE
+                ratings = ratings[:, :-1] if self._items_sharded else ratings[:, :num_items]
+            with profiling.span("engine.evaluator.topk"):
+                if self._items_sharded:
+                    topk_idx = sharded_topk(ratings, items, width, self.mesh, self.max_k)[1]
+                else:
+                    topk_idx = torch.topk(ratings, self.max_k, dim=1).indices
             m = topk_metric_sums(topk_idx, p.truth[b], self.top_ks, valid=p.valid[b])
             sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
         return sums
@@ -185,11 +189,12 @@ class Evaluator:
         `compute_repr`) to reuse one representation across several
         evaluators instead of propagating again; otherwise it is
         computed here with ``generator``."""
-        if eval_repr is None:
-            eval_repr = self.compute_repr(generator)
-        sums = self._sweep(eval_repr)
-        n = float(self.plan.num_test_users)
-        return {k: sums[k].cpu().numpy() / n for k in ("recall", "precision", "ndcg")}
+        with profiling.span("engine.evaluator.sweep"):
+            if eval_repr is None:
+                eval_repr = self.compute_repr(generator)
+            sums = self._sweep(eval_repr)
+            n = float(self.plan.num_test_users)
+            return {k: sums[k].cpu().numpy() / n for k in ("recall", "precision", "ndcg")}
 
 
 @dataclass

@@ -51,12 +51,7 @@ from idgrec_torch.device import resolve_device
 from idgrec_torch.engine import checkpoint as ckpt
 from idgrec_torch.engine.evaluator import BestResults, Evaluator
 from idgrec_torch.engine.logging_utils import RunLogger, loss_string
-from idgrec_torch.engine.profiling import (
-    ThroughputMeter,
-    debug_options,
-    dense_dims_of,
-    maybe_trace,
-)
+from idgrec_torch.engine.profiling import ThroughputMeter, debug_options, maybe_trace
 from idgrec_torch.engine.sampler import NegativeSampler
 from idgrec_torch.engine.trainer import EpochRunner
 from idgrec_torch.models import get_model
@@ -159,7 +154,6 @@ def train_model(
     epochs = max_epochs if max_epochs is not None else config.int("training_epochs")
     interval = config.int("interval")
     num_batch_norm = runner.num_train // runner.batch_size + 1  # the reference's divisor
-    graph = getattr(model, "graph", None)
     meter = ThroughputMeter(
         num_train=runner.num_train,
         nnz=data.nnz,
@@ -167,7 +161,6 @@ def train_model(
         num_layers=getattr(model, "num_layers", 0) or 0,
         steps_per_epoch=runner.num_batches,
         aggregates_per_step=model.aggregates_per_step,
-        dense_dims=dense_dims_of(graph),
     )
 
     history: list[dict] = []

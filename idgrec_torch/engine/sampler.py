@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from idgrec_torch.device import resolve_device
+from idgrec_torch.engine import profiling
 
 
 def _membership(row_ptr: torch.Tensor, col_idx: torch.Tensor, users: torch.Tensor,
@@ -122,19 +123,20 @@ class NegativeSampler:
     def sample_epoch(self, generator: torch.Generator):
         """Shuffled (users, pos, neg) int64 tensors [num_train] on the
         sampler's device; ``generator`` must live there too."""
-        users, pos = self.train_user, self.train_item
-        n = users.shape[0]
+        with profiling.span("engine.sampler.sample_epoch"):
+            users, pos = self.train_user, self.train_item
+            n = users.shape[0]
 
-        def draw():
-            return torch.randint(0, self.num_items, (n,), generator=generator,
-                                 device=self.device, dtype=torch.int64)
+            def draw():
+                return torch.randint(0, self.num_items, (n,), generator=generator,
+                                     device=self.device, dtype=torch.int64)
 
-        neg = draw()
-        for _ in range(self.rounds):
-            neg = torch.where(self.member(users, neg), draw(), neg)
-        # shuffle the epoch
-        perm = torch.randperm(n, generator=generator, device=self.device)
-        return users[perm], pos[perm], neg[perm]
+            neg = draw()
+            for _ in range(self.rounds):
+                neg = torch.where(self.member(users, neg), draw(), neg)
+            # shuffle the epoch
+            perm = torch.randperm(n, generator=generator, device=self.device)
+            return users[perm], pos[perm], neg[perm]
 
 
 @torch.no_grad()

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from idgrec_torch.engine import profiling
 from idgrec_torch.models.base import RecModel
 from idgrec_torch.parallel import mesh as mesh_lib
 from idgrec_torch.parallel import padding
@@ -202,19 +203,23 @@ class EpochRunner:
         term_total = None
         with mesh_lib.use_mesh(self.mesh):
             for step in range(self.num_batches):
-                self.opt.zero_grad(set_to_none=True)
-                if self.tables is not None:
-                    self.tables.gather(requires_grad=True)
-                with mesh_lib.split_batch(self.mesh, {k: v[step] for k, v in
-                                                      batches.items()}) as batch:
-                    terms = model.loss_terms(batch, generator, epoch)
-                    total = terms[0]
-                    for t in terms[1:]:
-                        total = total + t
-                    total.backward()
-                self.opt.step()
-                stacked = torch.stack([t.detach().to(torch.float32) for t in terms])
-                term_total = stacked if term_total is None else term_total + stacked
+                with profiling.span("engine.trainer.step"):
+                    self.opt.zero_grad(set_to_none=True)
+                    if self.tables is not None:
+                        self.tables.gather(requires_grad=True)
+                    with mesh_lib.split_batch(self.mesh, {k: v[step] for k, v in
+                                                          batches.items()}) as batch:
+                        with profiling.span("engine.trainer.forward"):
+                            terms = model.loss_terms(batch, generator, epoch)
+                            total = terms[0]
+                            for t in terms[1:]:
+                                total = total + t
+                        with profiling.span("engine.trainer.backward"):
+                            total.backward()
+                    with profiling.span("engine.trainer.adam"):
+                        self.opt.step()
+                    stacked = torch.stack([t.detach().to(torch.float32) for t in terms])
+                    term_total = stacked if term_total is None else term_total + stacked
         if self.tables is not None:
             self.tables.gather(requires_grad=False)
         if self.mesh is not None:

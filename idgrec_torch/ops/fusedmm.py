@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from idgrec_torch.device import check_exact_matmul
+from idgrec_torch.engine import profiling
 from idgrec_torch.ops import _build
 
 TU = 1024  # row padding multiple of the fused matrix
@@ -826,12 +827,19 @@ class _FusedAdjMatmul(torch.autograd.Function):
 
 
 def _fused_fwd(m8, zu, zi, plan=None):
-    if m8.device.type == "cpu":
-        return fused_adj_matmul_plain(m8, zu, zi)
-    if m8.device.type != "cuda":
-        raise ValueError(f"unsupported device {m8.device}")
-    if (zu if zu is not None else zi).shape[1] % _FEATURE_GROUP:
-        return padded_features(functools.partial(_fused_fwd, plan=plan), m8, zu, zi)
+    """One K6 application, forward or backward, in span
+    ``ops.fusedmm.k6``."""
+    with profiling.span("ops.fusedmm.k6"):
+        if m8.device.type == "cpu":
+            return fused_adj_matmul_plain(m8, zu, zi)
+        if m8.device.type != "cuda":
+            raise ValueError(f"unsupported device {m8.device}")
+        if (zu if zu is not None else zi).shape[1] % _FEATURE_GROUP:
+            return padded_features(functools.partial(_fused_launch, plan=plan), m8, zu, zi)
+        return _fused_launch(m8, zu, zi, plan)
+
+
+def _fused_launch(m8, zu, zi, plan=None):
     yu, yi, fused_adj_matmul.path, fused_adj_matmul.passes = _launch_bf16(m8, zu, zi, plan)
     fused_adj_matmul.launches += 1
     return yu, yi

@@ -85,7 +85,7 @@ def main(argv=None) -> int:
     from idgrec_torch.data.dataset import make_synthetic_dataset
     from idgrec_torch.device import resolve_device
     from idgrec_torch.engine.evaluator import Evaluator
-    from idgrec_torch.engine.profiling import ThroughputMeter, dense_dims_of
+    from idgrec_torch.engine.profiling import ThroughputMeter
     from idgrec_torch.engine.sampler import NegativeSampler
     from idgrec_torch.engine.trainer import EpochRunner
     from idgrec_torch.models import get_model
@@ -182,12 +182,9 @@ def main(argv=None) -> int:
 
     meter = ThroughputMeter(
         num_train=data.num_train, nnz=data.nnz, emb_size=args.emb, num_layers=args.layers,
-        steps_per_epoch=setup["runner"].num_batches,
-        dense_dims=dense_dims_of(model.graph))
+        steps_per_epoch=setup["runner"].num_batches)
     rates = meter.rates(epoch_time)
-    log(f"propagation: {rates['sparse_gflops']:.1f} sparse-GFLOP/s (algorithmic), "
-        f"{rates['mxu_gflops']:.1f} dense-GFLOP/s (the fused backend's tensor-core work; 0 "
-        "on the other backends)")
+    log(f"propagation: {rates['sparse_gflops']:.1f} sparse-GFLOP/s (algorithmic)")
     pairs_per_sec = data.num_train / epoch_time
     log(f"mode {chosen}: epoch time {epoch_time:.3f}s, {pairs_per_sec:,.0f} pairs/s")
 

@@ -71,7 +71,12 @@ corrections) equals its plain version, K4's on the gathered rows, bit for
 bit and across two launches, on SGL's yelp2018-scale lists both ways, hot
 rows and a strided z included, in one device launch and without a
 synchronisation; K8 on the plan of the unpacked matrix equals its plain
-version and its scan bit for bit, on row shards too."""
+version and its scan bit for bit, on row shards too. The program's
+spans (`engine.profiling.span`) under `torch.profiler`: K6's span
+times what CUDA events around the same calls time, within 10 %; a
+profiled step has the same device-side events with spans as without;
+a LightGCN step records 2·GCN_layer K6 spans, the backward's on
+autograd's device thread."""
 
 from __future__ import annotations
 
@@ -2962,3 +2967,116 @@ def test_k8_plan_on_packed_row_shards(cuda, width):
         assert fusedmm.fused_adj_matmul_int4.path == "plan"
         for a, b in zip(got, fusedmm.fused_adj_matmul_int4_plain(adj.m8, qu, qi)):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the program's spans on the card (engine.profiling.span)
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    from idgrec_torch.engine import profiling
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    log = profiling.span_log()
+    profiling.clear_spans()
+    return prof, log
+
+
+def test_k6_span_device_ms_agrees_with_cuda_events(cuda):
+    """The ``ops.fusedmm.k6`` span's device interval, two events on the
+    stream inside the call, against two events around the same
+    `fused_adj_matmul` calls: within 10 % over 20 applications at
+    RecDCL's width on the plan."""
+    data = make_synthetic_dataset(3000, 4700, 60_000, 1000, seed=1)
+    adj = propagate.build_adjacency(data, "sym", "dense", compute_dtype="bfloat16", device=cuda)
+    rng = np.random.default_rng(9)
+    zu = torch.from_numpy(rng.normal(size=(data.num_users, 2048)).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy(rng.normal(size=(data.num_items, 2048)).astype(np.float32)).to(cuda)
+    fusedmm.fused_adj_matmul(adj.m, zu, zi, adj.plan)  # built and loaded outside
+    outer = []
+
+    def calls():
+        for _ in range(20):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fusedmm.fused_adj_matmul(adj.m, zu, zi, adj.plan)
+            b.record()
+            outer.append((a, b))
+
+    _, log = _profiled(calls)
+    assert [s.name for s in log] == ["ops.fusedmm.k6"] * 20 and all(s.whole for s in log)
+    events_ms = sum(a.elapsed_time(b) for a, b in outer)
+    spans_ms = sum(s.device_ms for s in log)
+    assert 0 < spans_ms <= events_ms * 1.001
+    assert spans_ms >= 0.9 * events_ms, (spans_ms, events_ms)
+
+
+def _lightgcn_step(cuda):
+    from idgrec_torch.engine.trainer import EpochRunner
+
+    data = make_synthetic_dataset(3000, 5000, 60_000, 1000, seed=1)
+    cfg = Config({"dataset": "t", "embedding_size": "64", "GCN_layer": "3",
+                  "compute_dtype": "bfloat16", "propagation_backend": "dense",
+                  "learn_rate": "0.001", "reg_lambda": "0.0001", "batch_size": "2048",
+                  "test_batch_size": "2048", "top_K": "[20]"})
+    model = get_model("LightGCN")(cfg, data, device=cuda,
+                                  generator=torch.Generator().manual_seed(0))
+    assert model.graph.runs_kernel(64)
+    runner = EpochRunner(model, cfg.float("learn_rate"), 2048, 2048)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    pick = torch.randint(0, data.num_train, (2048,), generator=g).numpy()
+    users = torch.from_numpy(data.train_user[pick]).to(cuda)
+    pos = torch.from_numpy(data.train_item[pick]).to(cuda)
+    neg = torch.randint(0, data.num_items, (2048,), generator=g).to(cuda)
+    runner.run_epoch(users, pos, neg)  # kernels built, Adam's state made
+    torch.cuda.synchronize()
+    return lambda: runner.run_epoch(users, pos, neg)
+
+
+def test_spans_add_no_device_side_event(cuda, monkeypatch):
+    """A profiled training step launches as many device-side events with
+    the spans as with the spans off: a span is a host record and two
+    stream events, no device annotation."""
+    import contextlib
+
+    from idgrec_torch.engine import profiling
+
+    step = _lightgcn_step(cuda)
+
+    def device_events(prof):
+        return sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    with_spans, log = _profiled(step)
+    assert "engine.trainer.step" in {s.name for s in log}
+    monkeypatch.setattr(profiling, "span", lambda name: contextlib.nullcontext())
+    without, none = _profiled(step)
+    assert none == []
+    assert device_events(with_spans) == device_events(without)
+    names = {s.name for s in log}
+    assert not names & {e.name for e in with_spans.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_lightgcn_step_records_its_k6_spans_on_autograd_thread(cuda):
+    """A profiled LightGCN step: 2·GCN_layer K6 spans, the forward's
+    inside ``engine.trainer.forward`` on the caller's thread, the
+    backward's on autograd's device thread with no parent; the gate and
+    the record hold there too."""
+    import threading
+
+    _, log = _profiled(_lightgcn_step(cuda))
+    k6 = [s for s in log if s.name == "ops.fusedmm.k6"]
+    assert len(k6) == 2 * 3 and all(s.whole and s.device_ms > 0 for s in k6)
+    forward = next(k for k, s in enumerate(log) if s.name == "engine.trainer.forward")
+    main = threading.get_ident()
+    assert [s.parent for s in k6 if s.thread == main] == [forward] * 3
+    backward = [s for s in k6 if s.thread != main]
+    assert len(backward) == 3 and all(s.parent is None for s in backward)
+    step = [s for s in log if s.name == "engine.trainer.step"]
+    assert len(step) == 1 and step[0].device_ms >= sum(s.device_ms for s in k6)

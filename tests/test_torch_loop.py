@@ -123,7 +123,9 @@ def test_jsonl_events_match_jax(runs):
     assert [e["kind"] for e in te] == [e["kind"] for e in je] == [
         "train_epoch", "eval", "train_epoch", "train_epoch", "eval", "train_epoch", "best"]
     for a, b in zip(te, je):
-        assert set(a) == set(b), a["kind"]
+        # the port logs no dense padded rate (``mxu_gflops``): no route of
+        # it does the padded dense product that rate counts
+        assert set(a) == set(b) - {"mxu_gflops"}, a["kind"]
         assert a["epoch"] == b["epoch"] or a["kind"] == "best"
     first = te[0]
     assert len(first["loss_terms"]) == 2 and first["seconds"] > 0
@@ -245,9 +247,14 @@ def test_debug_nans_turns_on_anomaly_detection():
 
 @pytest.mark.parametrize("dense_dims", [None, (1024, 2048)])
 def test_throughput_meter_matches_jax(dense_dims):
+    """The port's rates are the JAX meter's without ``mxu_gflops``, the
+    dense padded work no route of the port does, whatever dense dims the
+    JAX meter is given."""
     kw = dict(num_train=3000, nnz=2900, emb_size=16, num_layers=3, steps_per_epoch=12,
-              aggregates_per_step=2, dense_dims=dense_dims)
-    assert t_profiling.ThroughputMeter(**kw).rates(0.37) == j_profiling.ThroughputMeter(**kw).rates(0.37)
+              aggregates_per_step=2)
+    want = j_profiling.ThroughputMeter(**kw, dense_dims=dense_dims).rates(0.37)
+    del want["mxu_gflops"]
+    assert t_profiling.ThroughputMeter(**kw).rates(0.37) == want
 
 
 @pytest.mark.parametrize("sums,n", [([3.0, 0.004], 12), ([1e-7], 3), ([2.5, 1.25, 0.1], 7)])
