@@ -271,7 +271,11 @@ launch counts set to 0 just before and read just after:
   bfloat16 on K6, its published config) the same way, its last recall@20
   at least LEARN_FACTOR times the popularity level and not below its
   first; whether it also holds LightGCN's bar (LEARN_FACTOR times its own
-  first evaluation, which is already far above popularity) is printed.
+  first evaluation, which is already far above popularity) is printed;
+* the evaluator's fused score-mask-rank op (`score_topk_phase`) on a
+  batch of 2,048 amazon-book-scale users against a LightGCN encoder's
+  representation: equal to its plain version and to the chain it
+  replaced, timed beside its float32 FMA bound.
 
 It times each kernel beside its bound, its plain version and a library
 call, and the paths end to end.
@@ -416,7 +420,27 @@ KMEANS_ITERS = 20
 # step and the plain one each get their own, seeded alike
 ZOO_NOISE_SEED = 17
 AMAZON = (52_643, 91_599, 2_380_730, 603_378)
+# the H100 SXM's non-tensor float32 peak (data sheet), the bound of the
+# evaluator's fused op
+F32_FFMA_TFLOPS = 66.9
 ZOO_STEPS, ZOO_REQUEST = 24, 256
+
+
+def eval_launches(data, cfg, evaluations: int = 1) -> int:
+    """The evaluator's fused score-mask-rank launches (`ops.score_topk`,
+    two a batch) in ``evaluations`` evaluations of every test user of
+    ``data`` in batches of ``cfg``'s test_batch_size."""
+    return 2 * evaluations * max(1, -(-len(data.test_dict) // cfg.int("test_batch_size")))
+
+
+def require_fused(evaluator, counts: dict, path: str) -> None:
+    """One evaluation by ``evaluator`` took the fused route on every batch:
+    two `ops.score_topk` launches a batch in ``counts``, no chained batch."""
+    nb = evaluator.plan.users.shape[0]
+    require(counts["score_topk"] == 2 * nb
+            and evaluator.route_batches == {"fused": nb, "chained": 0},
+            f"{path}: score_topk launches {counts['score_topk']} and routes "
+            f"{evaluator.route_batches}, expected {2 * nb} and {nb} fused batches")
 
 
 def launch_counters():
@@ -425,8 +449,11 @@ def launch_counters():
     bitpack and batch-row kernels', all of them, the fused sweeps among
     them). A fused sweep also counts the sides it ran, each one standalone
     epilogue launch of the route it replaced, and the (z, amax) inputs its
-    turn-in rounded, each one K3 launch of that route."""
-    from idgrec_torch.ops import bitmm, chainmm, fusedmm, gathermm, propagate, scatter
+    turn-in rounded, each one K3 launch of that route. The evaluator's
+    fused op (`ops.score_topk`) is among all of them: every evaluation of
+    a model that scores by `RecModel.score_batch` launches it."""
+    from idgrec_torch.ops import (bitmm, chainmm, fusedmm, gathermm, propagate, scatter,
+                                  score_topk)
 
     int8_counters = (fusedmm.fused_adj_matmul_int8_t, chainmm.chain_sweep_epilogue,
                      chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows)
@@ -438,7 +465,7 @@ def launch_counters():
     row_counters = (bitmm.bit_matmul, gathermm.gather_rows_matmul, gathermm.gather_rows_matmul_t)
     counters = (int8_counters + (fusedmm.fused_adj_matmul_int4_t, chainmm.chain_sweep_inject,
                                  propagate.quantize_rows, scatter.segment_sum_rows)
-                + n_counters + tanh_counters + row_counters)
+                + n_counters + tanh_counters + row_counters + (score_topk.score_topk,))
     sweeps = [fn for fn in counters if isinstance(fn, chainmm.DualSweep)]
     return int8_counters, int4_counters, n_counters, tanh_counters, row_counters, counters, sweeps
 
@@ -1010,7 +1037,9 @@ def sgl_phase(h) -> dict:
     sgl_paths = {"sgl_train_model": read_counts()}
     want_k6_t = steps_t * step_k6_s + 3 * repr_k6_s  # steps, two evaluations, the server
     got_l = {k_: n for k_, n in sgl_paths["sgl_train_model"].items() if n}
-    want_l = {"fused_adj_matmul": want_k6_t, "segment_sum_rows": steps_t * step_k4_s}
+    # SGL evaluates after its epoch and again after its last: both fused
+    want_l = {"fused_adj_matmul": want_k6_t, "segment_sum_rows": steps_t * step_k4_s,
+              "score_topk": eval_launches(data, cfg_s, 2)}
     require(got_l == want_l and bool(np.isfinite(res_s.last_result["recall"]).all())
             and np.isfinite(scores_t).all() and len(res_s.history) == 1,
             f"SGL through train_model: launches {got_l}, expected {want_l}; recall "
@@ -1438,6 +1467,10 @@ def mesh_phase(h) -> dict:
     r_one = loop_lib.train_model("LightGCN", quick, config=cfg, seed=2024, log_dir=None,
                                  echo=False, device=dev)
     require(nccl_counts["fused_adj_matmul"] > 0, "mesh: the NCCL run launched no K6")
+    # a 1x1 mesh shards no items: its one evaluation takes the fused route
+    require(nccl_counts["score_topk"] == eval_launches(quick, cfg),
+            f"mesh: {nccl_counts['score_topk']} score_topk launches, expected "
+            f"{eval_launches(quick, cfg)}")
     # a 1x1 mesh shards nothing: the same launches, so the same bits
     l_mesh = [h_["loss"] for h_ in r_mesh.history]
     l_one = [h_["loss"] for h_ in r_one.history]
@@ -2006,6 +2039,54 @@ def data_axis_phase(h) -> dict:
     return {"paths": paths, "seconds": seconds,
             "peaks": {key: ([r_[key]["peak"] for r_ in ranks], one["peak"])
                       for key, one in ones.items()}}
+
+
+def score_topk_phase(h) -> dict:
+    """The evaluator's fused score-mask-rank op (`ops.score_topk`,
+    csrc/score_topk.cu; no TPU kernel: the JAX package ranks with XLA's
+    lax.top_k, and the op replaces the chain of SIMT SGEMM, sigmoid, pad,
+    mask and torch.topk that wrote the [2,048 x 91,599] score block) on
+    the first test batch of the amazon-book-scale set, against a LightGCN
+    encoder's representation (LightCCF's): equal to its plain version and
+    to the chain it replaces, index for index (the sigmoid rounds products
+    of that size onto ties, so this holds torch.topk's tie order too), and
+    bit-equal across two launches; two kernel launches a call (and one
+    memset). Times (CUDA events): the op, its plain version and the chain,
+    beside the bound, the batch's 2·B·I·d float32 FMA operations at the
+    card's non-tensor float32 peak."""
+    from idgrec_torch.engine.evaluator import build_eval_plan
+    from idgrec_torch.ops import score_topk as st
+
+    data, dev, rep, k = h.data, h.dev, h.rep, max(TOP_KS)
+    ut, it = (t.detach().float().contiguous() for t in rep)
+    plan = build_eval_plan(data, 2048, device=dev)
+    users, ptr, cols = plan.users[0], plan.excl_ptr[0], plan.excl_cols[0]
+
+    def chain():
+        ratings = torch.nn.functional.pad(torch.sigmoid(ut[users] @ it.T), (0, 1))
+        ratings[plan.excl_rows[0], plan.excl_cols[0]] = st.MASK_VALUE
+        return torch.topk(ratings[:, :data.num_items], k, dim=1).indices
+
+    before = st.score_topk.launches
+    got = st.score_topk(users, ut, it, ptr, cols, k)
+    again = st.score_topk(users, ut, it, ptr, cols, k)
+    require(st.score_topk.launches == before + 4, "score_topk: two launches a call")
+    require(torch.equal(got, again), "score_topk: two calls differ")
+    require(torch.equal(got, st.score_topk_plain(users, ut, it, ptr, cols, k)),
+            "score_topk differs from its plain version")
+    require(torch.equal(got, chain()), "score_topk differs from the chain it replaces")
+    b, n, d = users.shape[0], data.num_items, ut.shape[1]
+    ops = 2.0 * b * n * d
+    bound_ms = 1e3 * ops / (F32_FFMA_TFLOPS * 1e12)
+    ms = cuda_ms(lambda: st.score_topk(users, ut, it, ptr, cols, k), 20)
+    plain_ms = cuda_ms(lambda: st.score_topk_plain(users, ut, it, ptr, cols, k), 3, 1)
+    chain_ms = cuda_ms(chain, 10)
+    log(f"score_topk on a batch of {b} users x {n} items, d = {d}, k = {k}: {ms:.4f} ms "
+        f"(bound {bound_ms:.4f} ms: {ops / 1e9:.1f} GFLOP of float32 FMA at {F32_FFMA_TFLOPS} "
+        f"TFLOP/s; plain {plain_ms:.4f} ms; the chain it replaces, SGEMM, sigmoid, pad, mask "
+        f"and torch.topk, {chain_ms:.4f} ms); equal to both, two launches bit-equal")
+    return {"name": "score_topk", "ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+            "library_ms": chain_ms, "launches_per_call": 2}
 
 
 def main() -> int:
@@ -2759,6 +2840,7 @@ def main() -> int:
     require(all(train_launches[k_] == v for k_, v in want_train.items()),
             f"training path: expected {want_train}")
     require_no_k3(train_launches, "training", 2 * LAYERS * (2 * n_train + 1))
+    require_fused(evaluator, train_launches, "training path")
 
     # one int4 epoch through the same runner code, for the int8-vs-int4 times
     runner4 = EpochRunner(model4, lr, BATCH, data.num_train)
@@ -2847,6 +2929,9 @@ def main() -> int:
         require(harness_launches["fused_adj_matmul_int4_t"] == want_k5
                 and harness_launches["fused_adj_matmul_int8_t"] == 0,
                 f"run harness: expected {want_k5} K5 and no K1 launches")
+        require(harness_launches["score_topk"] == eval_launches(data, cfg_run, EPOCHS),
+                f"run harness: {harness_launches['score_topk']} score_topk launches, expected "
+                f"{eval_launches(data, cfg_run, EPOCHS)} ({EPOCHS} fused evaluations)")
 
         require(ckpt_lib.latest_checkpoint(ck_dir) == EPOCHS, "no checkpoint of the last epoch")
         for (it_a, sc_a), (it_b, sc_b) in zip(answers_result, answers_ckpt):
@@ -2921,6 +3006,11 @@ def main() -> int:
         for fn in int4_counters:
             require(fn.launches > 0, f"{fn.__name__} was never launched by the command lines")
         require_no_k3(cli_launches, "command lines")
+        # main's two evaluations (interval 1), fused; serve evaluates nothing
+        want_cli = eval_launches(quick, load_model_config("LightGCN"), 2)
+        require(cli_launches["score_topk"] == want_cli,
+                f"command lines: {cli_launches['score_topk']} score_topk launches, expected "
+                f"{want_cli}")
         require("compute_dtype : int4" in out_main.getvalue()
                 and "Best epoch:" in out_main.getvalue(), "main's output")
         rows = [json.loads(line) for line in out_serve.getvalue().strip().splitlines()]
@@ -3173,7 +3263,9 @@ def main() -> int:
     require(bf_launches["fused_adj_matmul"] == want_k6,
             f"bfloat16-fused path: {bf_launches['fused_adj_matmul']} K6 launches, expected "
             f"{want_k6}")
-    require(all(n == 0 for name_, n in bf_launches.items() if name_ != "fused_adj_matmul"),
+    require_fused(evaluator_bf, bf_launches, "bfloat16-fused path")
+    require(all(n == 0 for name_, n in bf_launches.items()
+                if name_ not in ("fused_adj_matmul", "score_topk")),
             "another kernel ran on the bfloat16-fused path")
     for users, (items, scores) in zip(requests, answers_bf):
         check_answers_close(ref_gather, data, users, items, scores, BF16_SCORE)
@@ -3817,6 +3909,7 @@ def main() -> int:
             f"EGCF training: expected {want_e}")
     # the backward's seed sweep rounds the users alone
     require_no_k3(egcf_train_launches, "EGCF training", (2 * n_e + 1) * (2 * LAYERS + 1))
+    require_fused(evaluator_e, egcf_train_launches, "EGCF training")
     for epoch, terms in enumerate(e_terms):
         require(terms.shape == (3,) and bool(np.isfinite(terms).all()),
                 f"EGCF epoch {epoch}: loss terms {terms}")
@@ -3915,6 +4008,9 @@ def main() -> int:
                                          chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's train_model")
         require_no_k3(egcf_harness_launches, "EGCF run harness")
+        require(egcf_harness_launches["score_topk"] == eval_launches(data, cfg_e),
+                f"EGCF run harness: {egcf_harness_launches['score_topk']} score_topk launches, "
+                f"expected {eval_launches(data, cfg_e)}")
         require(ckpt_lib.latest_checkpoint(ck_e) == 1
                 and np.array_equal(items_ck, items_res) and np.array_equal(scores_ck, scores_res),
                 "EGCF: no checkpoint, or from_checkpoint and from_train_result disagree")
@@ -3946,6 +4042,10 @@ def main() -> int:
                                          chainmm.dual_sweep_tanh_inject):
             require(fn.launches > 0, f"{fn.__name__} was never launched by EGCF's command line")
         require_no_k3(egcf_cli_launches, "EGCF command line")
+        want_cli_e = eval_launches(quick_e, load_model_config("EGCF"))
+        require(egcf_cli_launches["score_topk"] == want_cli_e,
+                f"EGCF command line: {egcf_cli_launches['score_topk']} score_topk launches, "
+                f"expected {want_cli_e}")
         log(f"EGCF run harness: train_model one epoch with evaluation and a checkpoint, both "
             f"Recommender constructors, {egcf_harness_s:.2f} s; main.main(['--model=EGCF', ...]) "
             f"on {quick_e.num_users} x {quick_e.num_items} in {egcf_cli_s:.2f} s")
@@ -4084,8 +4184,10 @@ def main() -> int:
         # and backward), the evaluation's chain
         want_k11 = 2 * LAYERS + 2 * BIT_STEPS * 4 * LAYERS + 2 * LAYERS
         require(launches_b["bit_matmul"] == want_k11
-                and all(n == 0 for name_, n in launches_b.items() if name_ != "bit_matmul"),
+                and all(n == 0 for name_, n in launches_b.items()
+                        if name_ not in ("bit_matmul", "score_topk")),
                 f"bitpack {dt}: expected {want_k11} K11 launches and nothing else")
+        require_fused(evaluator_b, launches_b, f"bitpack {dt}")
         for users, (items, scores) in zip(requests, answers_b):
             check_answers_close(ref_gather, data, users, items, scores, BF16_SCORE)
         require(all(t_.shape == (2,) and bool(np.isfinite(t_).all()) for t_ in terms_b)
@@ -4546,12 +4648,14 @@ def main() -> int:
         t0 = time.perf_counter()
         a_terms.append(runner_a.run_epoch(*triple_a, generator=gen, epoch=epoch).cpu().numpy())
         a_epoch_ms.append((time.perf_counter() - t0) * 1e3)
-    result_a = Evaluator(alt8, data, cfg_alt).evaluate()
+    evaluator_a = Evaluator(alt8, data, cfg_alt)
+    result_a = evaluator_a.evaluate()
     alt_train_launches = read_counts()
     log(f"EGCF alternating int8 training path launches: {alt_train_launches}")
+    require_fused(evaluator_a, alt_train_launches, "EGCF alternating int8")
     require(alt_train_launches["scatter_add_rows"] == 2 * n_e
             and all(n == 0 for name_, n in alt_train_launches.items()
-                    if name_ != "scatter_add_rows"),
+                    if name_ not in ("scatter_add_rows", "score_topk")),
             f"EGCF alternating int8: expected {2 * n_e} K4 launches and nothing else")
     # at EGCF's published learn_rate and SSL weights, on this data the BPR
     # sum of the alternating mode rises over the first epochs while the
@@ -5087,11 +5191,14 @@ def main() -> int:
             cvga_train_launches = rect_paths["zoo_cvga_train_model"] = read_counts()
             steps_c = -(-nu // bs)
             want_c = 2 * steps_c + 2  # the epoch's steps, its evaluation, the server
+            # CVGA scores by its decoder: its evaluation keeps the chain
             require(cvga_train_launches["fused_adj_matmul"] == want_c
+                    and cvga_train_launches["score_topk"] == 0
                     and bool(np.isfinite(res_c.last_result["recall"]).all())
                     and np.isfinite(scores_c).all(),
                     f"CVGA through train_model: K6 launches "
-                    f"{cvga_train_launches['fused_adj_matmul']}, {want_c} expected, recall "
+                    f"{cvga_train_launches['fused_adj_matmul']}, {want_c} expected, score_topk "
+                    f"{cvga_train_launches['score_topk']}, 0 expected, recall "
                     f"{res_c.last_result['recall']}")
             extra_z = (f"; train_model one epoch of user rows ({steps_c} steps, an evaluation) "
                        f"in {cvga_epoch_s:.1f} s, recall@{cfg_z.int_list('top_K')} "
@@ -5162,6 +5269,9 @@ def main() -> int:
         f"{k6a_bound[1]} at its plan's {g_a.plan.nbytes} bytes, plain {k6a_plain:.4f} ms, "
         f"torch.matmul x2 on a bfloat16 copy {k6a_lib:.4f} ms); on the plan, two launches "
         f"bit-equal, within TIGHT of its plain version")
+    with torch.no_grad():
+        score_res = score_topk_phase(SimpleNamespace(
+            data=amazon, dev=dev, rep=zoo_models["LightCCF"].eval_embeddings()))
     # K6 at d = 192, SimGCL's three chains side by side, on its yelp2018-scale
     # dense M's plan (no read of M), held to its plain version bit for bit,
     # timed beside three d = 64 applications and its bound
@@ -5311,7 +5421,11 @@ def main() -> int:
         # count, mu, nu and params of four tables, the two generators' states
         require(len(leaves_z) == 3 * 4 + 3, f"MAWU's checkpoint has {len(leaves_z)} leaves")
         got_l = {k_: n for k_, n in mawu_cli_launches.items() if n}
-        require(set(got_l) == {"fused_adj_matmul"}, f"MAWU's command line launched {got_l}")
+        # its one evaluation (interval 1) on the fused route
+        want_mawu = eval_launches(quick_z, load_model_config("MAWU"))
+        require(set(got_l) == {"fused_adj_matmul", "score_topk"}
+                and got_l["score_topk"] == want_mawu,
+                f"MAWU's command line launched {got_l}, {want_mawu} score_topk expected")
         log(f"main.main(['--model=MAWU', ...]) on {quick_z.num_users} x {quick_z.num_items}: one "
             f"epoch, an evaluation, a checkpoint of four tables, K6 x "
             f"{got_l['fused_adj_matmul']}, {mawu_cli_s:.2f} s")
@@ -5360,6 +5474,10 @@ def main() -> int:
     for fn in (fusedmm.fused_adj_matmul_int8_t, fusedmm.fused_adj_matmul_int4_t,
                chainmm.dual_sweep, chainmm.dual_sweep_inject, scatter.scatter_add_rows):
         require(fn.launches > 0, f"{fn.__name__} was never launched on the learnability path")
+    # two evaluations a mode, each fused
+    require(learn_launches["score_topk"] == eval_launches(latent, cfg_l, 4),
+            f"learnability: {learn_launches['score_topk']} score_topk launches, expected "
+            f"{eval_launches(latent, cfg_l, 4)}")
     log(f"learnability: recall@20 {evals8[0][1]:.5f} after epoch 1, {evals8[-1][1]:.5f} after "
         f"epoch {LEARN_EPOCHS} ({evals8[-1][1] / evals8[0][1]:.2f} x, at least {LEARN_FACTOR}); "
         f"int4's metrics and loss sums equal int8's; {learn['int8'][2]:.1f} s int8, "
@@ -5388,7 +5506,8 @@ def main() -> int:
         f"{np.round(losses_dl[0], 5).tolist()}, after epoch {len(losses_dl)} "
         f"{np.round(losses_dl[-1], 5).tolist()}; {wall_dl:.1f} s")
     steps_dl = -(-latent.num_train // cfg_dl.int("batch_size"))
-    want_dl = {"fused_adj_matmul": LEARN_EPOCHS * steps_dl * 2 * LAYERS + 2 * LAYERS}
+    want_dl = {"fused_adj_matmul": LEARN_EPOCHS * steps_dl * 2 * LAYERS + 2 * LAYERS,
+               "score_topk": eval_launches(latent, cfg_dl, 2)}
     got_dl = {k_: n for k_, n in learn_dl_launches.items() if n}
     require(got_dl == want_dl, f"DirectAU learnability: launches {got_dl}, expected {want_dl}")
     require(len(evals_dl) == 2 and evals_dl[0][0] == 1 and evals_dl[-1][0] == LEARN_EPOCHS
@@ -5793,7 +5912,9 @@ def main() -> int:
         + "; a chain sweep (both sides) " + ", ".join(f"{w} {n_}" for w, n_ in sweep_calls.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # the evaluator's fused op on the paths above, its own phase's calls aside
+    score_res["launches_main_path"] = sum(c["score_topk"] for c in by_path.values())
+    print(json.dumps({"kernels": kernels + [score_res]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

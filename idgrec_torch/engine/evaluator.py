@@ -8,6 +8,13 @@ number of test users:
 * the model representation is computed once per sweep;
 * train positives are masked with a large negative value below any
   possible score;
+* where the model scores by the sigmoid of a product of two float32
+  tables (`RecModel.score_factors`) and the items are not sharded, one
+  op scores, masks and ranks each batch (`ops.score_topk`: on the card
+  one kernel that never writes the [B, num_items] scores), with the
+  same indices as the chain of product, sigmoid, mask and
+  ``torch.topk`` on the card; every other model keeps that chain.
+  ``route_batches`` counts the batches of each route;
 * metric sums accumulate on the device; only the final per-k vectors
   return to the host.
 
@@ -34,6 +41,7 @@ from idgrec_torch.data.dataset import Dataset
 from idgrec_torch.device import resolve_device
 from idgrec_torch.engine import profiling
 from idgrec_torch.models.base import RecModel
+from idgrec_torch.ops import score_topk
 from idgrec_torch.ops.metrics import topk_metric_sums
 from idgrec_torch.parallel.mesh import use_mesh
 from idgrec_torch.parallel.topk import item_slice, items_sharded, local_columns, sharded_topk
@@ -43,7 +51,7 @@ from idgrec_torch.parallel.topk import item_slice, items_sharded, local_columns,
 # with the same exact `torch.topk`
 TOPK_MODES = ("exact", "approx")
 
-_MASK_VALUE = -1e9
+_MASK_VALUE = score_topk.MASK_VALUE
 
 
 @dataclass
@@ -55,6 +63,7 @@ class EvalPlan:
     truth: torch.Tensor  # [nb, B, T] int64, -1 padded
     excl_rows: torch.Tensor  # [nb, P] int64 local batch row
     excl_cols: torch.Tensor  # [nb, P] int64 item col (num_items = spare column)
+    excl_ptr: torch.Tensor  # [nb, B + 1] int64 a batch row's first entry of excl_cols
     num_test_users: int
 
 
@@ -82,8 +91,9 @@ def build_eval_plan(data: Dataset, batch_size: int, users: list[int] | None = No
     truth_flat[~valid] = -1  # padding rows have no ground truth
     t_width = truth_flat.shape[1]
 
-    # per-batch flat exclusion lists (train positives of batch users),
-    # one CSR scatter over the batch users' interactions
+    # per-batch flat exclusion lists (train positives of batch users, by
+    # batch row, each row's items sorted: the dataset's CSR order), one
+    # CSR scatter over the batch users' interactions, and each row's offset
     degrees = np.diff(data.row_ptr)
     batch_users = users_pad.reshape(nb, batch_size)
     batch_valid = valid.reshape(nb, batch_size)
@@ -103,6 +113,8 @@ def build_eval_plan(data: Dataset, batch_size: int, users: list[int] | None = No
         src = np.repeat(data.row_ptr[users_pad], deg_pad) + within
         excl_rows[dst_b, dst_slot] = np.repeat(np.arange(padded) % batch_size, deg_pad)
         excl_cols[dst_b, dst_slot] = data.col_idx[src]
+    excl_ptr = np.zeros((nb, batch_size + 1), dtype=np.int64)
+    np.cumsum(deg_b, axis=1, out=excl_ptr[:, 1:])
 
     dev = resolve_device(device)
 
@@ -115,6 +127,7 @@ def build_eval_plan(data: Dataset, batch_size: int, users: list[int] | None = No
         truth=put(truth_flat.reshape(nb, batch_size, t_width), torch.int64),
         excl_rows=put(excl_rows, torch.int64),
         excl_cols=put(excl_cols, torch.int64),
+        excl_ptr=put(excl_ptr, torch.int64),
         num_test_users=int(n),
     )
 
@@ -141,6 +154,7 @@ class Evaluator:
             torch.set_float32_matmul_precision("highest")
         self.plan = build_eval_plan(data, config.int("test_batch_size"), users=users,
                                     device=model.device)
+        self.route_batches = {"fused": 0, "chained": 0}
 
     @torch.no_grad()
     def compute_repr(self, generator: torch.Generator | None = None):
@@ -152,6 +166,26 @@ class Evaluator:
         with use_mesh(self.mesh), profiling.span("models.eval_embeddings"):
             return self.model.eval_embeddings(generator)
 
+    def fused_factors(self, eval_repr) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The (user, item) float32 tables that `ops.score_topk` scores a
+        batch from, or None where this evaluator keeps the chain: a model
+        that scores otherwise, items sharded over a model axis, an item
+        table of other than num_items rows (the op ranks every row, the
+        chain the first num_items), another dtype, or a width or k the
+        kernel does not take."""
+        if self._items_sharded:
+            return None
+        factors = self.model.score_factors(eval_repr)
+        if factors is None:
+            return None
+        users, items = factors
+        if (items.shape[0] != self.data.num_items
+                or users.dtype != torch.float32 or items.dtype != torch.float32
+                or not score_topk.supports(items.shape[1], self.max_k)
+                or self.max_k > items.shape[0]):
+            return None
+        return users.contiguous(), items.contiguous()
+
     def _sweep(self, eval_repr) -> dict[str, torch.Tensor]:
         p = self.plan
         num_items = self.data.num_items
@@ -160,27 +194,39 @@ class Evaluator:
         items, width = slice(None), num_items
         if self._items_sharded:
             items, width = item_slice(num_items, self.mesh)
+        factors = self.fused_factors(eval_repr)
         for b in range(p.users.shape[0]):
-            with profiling.span("engine.evaluator.score"):
-                ratings = self.model.score_batch(eval_repr, p.users[b], items).to(torch.float32)
-            # mask train positives below any reachable score; one spare
-            # column takes the pad index num_items (sharded: every id
-            # outside the slice), then goes
-            with profiling.span("engine.evaluator.mask"):
-                cols = p.excl_cols[b]
-                if self._items_sharded:
-                    cols = local_columns(cols, items)
-                ratings = F.pad(ratings, (0, 1))
-                ratings[p.excl_rows[b], cols] = _MASK_VALUE
-                ratings = ratings[:, :-1] if self._items_sharded else ratings[:, :num_items]
-            with profiling.span("engine.evaluator.topk"):
-                if self._items_sharded:
-                    topk_idx = sharded_topk(ratings, items, width, self.mesh, self.max_k)[1]
-                else:
-                    topk_idx = torch.topk(ratings, self.max_k, dim=1).indices
+            if factors is not None:
+                with profiling.span("engine.evaluator.topk"):
+                    topk_idx = score_topk.score_topk(p.users[b], *factors, p.excl_ptr[b],
+                                                     p.excl_cols[b], self.max_k)
+                self.route_batches["fused"] += 1
+            else:
+                topk_idx = self._chained_topk(eval_repr, b, items, width)
+                self.route_batches["chained"] += 1
             m = topk_metric_sums(topk_idx, p.truth[b], self.top_ks, valid=p.valid[b])
             sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
         return sums
+
+    def _chained_topk(self, eval_repr, b: int, items: slice, width: int) -> torch.Tensor:
+        """Batch ``b``'s top-k by the chain: scores, mask, ranking."""
+        p = self.plan
+        with profiling.span("engine.evaluator.score"):
+            ratings = self.model.score_batch(eval_repr, p.users[b], items).to(torch.float32)
+        # mask train positives below any reachable score; one spare
+        # column takes the pad index num_items (sharded: every id
+        # outside the slice), then goes
+        with profiling.span("engine.evaluator.mask"):
+            cols = p.excl_cols[b]
+            if self._items_sharded:
+                cols = local_columns(cols, items)
+            ratings = F.pad(ratings, (0, 1))
+            ratings[p.excl_rows[b], cols] = _MASK_VALUE
+            ratings = ratings[:, :-1] if self._items_sharded else ratings[:, :self.data.num_items]
+        with profiling.span("engine.evaluator.topk"):
+            if self._items_sharded:
+                return sharded_topk(ratings, items, width, self.mesh, self.max_k)[1]
+            return torch.topk(ratings, self.max_k, dim=1).indices
 
     @torch.no_grad()
     def evaluate(self, eval_repr=None,

@@ -205,6 +205,17 @@ class RecModel(nn.Module):
         check_exact_matmul(user_emb.device)
         return torch.sigmoid(torch.matmul(user_emb[users], item_emb[items].T))
 
+    def score_factors(self, eval_repr: Any) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """(user table, item table) of ``eval_repr`` where the model scores
+        by this class's `score_batch`, the sigmoid of their product, so
+        that the evaluator may score, mask and rank a batch in one op
+        (`ops.score_topk`); None where a model scores otherwise (CVGA's
+        decoder)."""
+        if type(self).score_batch is not RecModel.score_batch:
+            return None
+        user_emb, item_emb = eval_repr
+        return user_emb, item_emb
+
 
 # ---------------------------------------------------------------------------
 # Shared propagation rules

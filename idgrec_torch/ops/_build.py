@@ -12,7 +12,10 @@ together.
 
 No ``--use_fast_math``: the quantization needs IEEE division and
 round-half-even. ``-fmad=false`` keeps nvcc from contracting the
-epilogues' multiply-adds into FMAs.
+epilogues' multiply-adds into FMAs. The sources in ``FMAD_SOURCES`` build
+with ``-fmad=true`` instead, as PyTorch's own kernels do, so that the
+CUDA math library's ``expf`` there gives PyTorch's bits; they write
+their own multiply-adds as ``__fmaf_rn``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNEL_SOURCES = ("dual_int8_t", "dual_int4_t", "dual_bf16", "dual_int8_n", "dual_int4_n",
                   "chain_sweep_epilogue", "chain_sweep_tanh", "quantize_rows", "scatter_add_rows",
-                  "bit_matmul", "gather_rows_matmul")
+                  "bit_matmul", "gather_rows_matmul", "score_topk")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,7 +40,16 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
+FMAD_SOURCES = ("score_topk",)
+
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags kernel ``name`` builds with."""
+    if name in FMAD_SOURCES:
+        return tuple("-fmad=true" if f == "-fmad=false" else f for f in NVCC_FLAGS)
+    return NVCC_FLAGS
 
 
 def nvcc_path() -> str:
@@ -60,7 +72,7 @@ def library_path(name: str) -> str:
     for path in (source_path(name), *(os.path.join(CSRC_DIR, f) for f in headers)):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -68,7 +80,7 @@ def _start(name: str) -> tuple[subprocess.Popen, str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = library_path(name)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, source_path(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -76,7 +76,13 @@ spans (`engine.profiling.span`) under `torch.profiler`: K6's span
 times what CUDA events around the same calls time, within 10 %; a
 profiled step has the same device-side events with spans as without;
 a LightGCN step records 2·GCN_layer K6 spans, the backward's on
-autograd's device thread."""
+autograd's device thread. The evaluator's fused score-mask-rank op
+(`ops.score_topk`) gives its plain version's indices, which are the card's
+``torch.topk`` of the masked sigmoid scores, tie order included, at small
+ragged shapes and at the evaluation cell's 2,048 × 91,599 with products
+of the size whose sigmoids tie; the same bits on a second launch, two
+kernel launches a call, no synchronisation; `Evaluator.evaluate` of a
+LightGCN takes it for every batch and gives the chained route's metrics."""
 
 from __future__ import annotations
 
@@ -3080,3 +3086,121 @@ def test_lightgcn_step_records_its_k6_spans_on_autograd_thread(cuda):
     assert len(backward) == 3 and all(s.parent is None for s in backward)
     step = [s for s in log if s.name == "engine.trainer.step"]
     assert len(step) == 1 and step[0].device_ms >= sum(s.device_ms for s in k6)
+
+
+def _score_case(dev, b, n_items, d, k, ties, scale, seed):
+    """(users, user table, item table, row offsets, positives, rows) of a
+    batch: sorted distinct positives a row, at most 40, leaving k items."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if ties:  # groups of identical item rows tie for every user
+        it = torch.randn((60, d), generator=g, device=dev)[
+            torch.randint(0, 60, (n_items,), generator=g, device=dev)].contiguous()
+    else:
+        it = torch.randn((n_items, d), generator=g, device=dev)
+    ut = torch.randn((b + 10, d), generator=g, device=dev)
+    ut, it = ut * scale, it * scale
+    if scale < 0:  # products near -d·scale²: every sigmoid underflows to 0, all tie
+        ut, it = ut.abs() - scale, -it.abs() + scale
+    users = torch.randperm(b + 10, generator=g, device=dev)[:b]
+    rng = np.random.default_rng(seed)
+    lists = [np.sort(rng.choice(n_items, size=min(int(n), n_items - k), replace=False))
+             for n in rng.integers(0, 41, b)]
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum([len(x) for x in lists])]),
+                       dtype=torch.int64, device=dev)
+    cols = torch.tensor(np.concatenate(lists + [np.zeros(0)]).astype(np.int64), device=dev)
+    rows = torch.repeat_interleave(torch.arange(b, device=dev), ptr[1:] - ptr[:-1])
+    return users, ut, it, ptr, cols, rows
+
+
+def _card_topk_of(users, ut, it, rows, cols, k):
+    from idgrec_torch.ops import score_topk as st
+
+    scores = torch.sigmoid(ut[users] @ it.T)
+    scores[rows, cols] = st.MASK_VALUE
+    return torch.topk(scores, k, dim=1).indices
+
+
+@pytest.mark.parametrize("b,n_items,d,k,ties,scale", [
+    (1, 100, 64, 20, False, 1.0),       # one user, one tile
+    (70, 1037, 48, 1, False, 1.0),      # ragged users and items, d off 32
+    (130, 5000, 64, 20, True, 1.0),     # planted ties
+    (70, 1037, 256, 40, False, 0.2),    # wide rows, k above 32
+    (200, 3000, 64, 128, True, 1.0),    # the largest k
+    (64, 20, 16, 20, False, 1.0),       # k = every item
+    (300, 9000, 64, 32, True, 1.0),     # the bitonic sort's widest k
+    (65, 4097, 128, 33, True, 1.0),     # the stable sort's narrowest k
+    (257, 20000, 64, 20, False, 1e-2),  # sigmoid rounding ties
+    (70, 3000, 64, 20, False, -3.0),    # the sigmoid underflows: every item ties at 0
+])
+def test_score_topk_equals_plain_and_torch_topk(cuda, b, n_items, d, k, ties, scale):
+    """The op equals its plain version and the card's ``torch.topk`` of the
+    masked sigmoid scores, index for index; a second call gives the same
+    bits; two kernel launches a call."""
+    from idgrec_torch.ops import score_topk as st
+
+    users, ut, it, ptr, cols, rows = _score_case(cuda, b, n_items, d, k, ties, scale, b + d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    before = st.score_topk.launches
+    got = st.score_topk(users, ut, it, ptr, cols, k)
+    again = st.score_topk(users, ut, it, ptr, cols, k)
+    assert st.score_topk.launches == before + 4
+    assert got.shape == (b, k) and got.dtype == torch.int64
+    assert torch.equal(got, again)
+    assert torch.equal(got, st.score_topk_plain(users, ut, it, ptr, cols, k))
+    assert torch.equal(got, _card_topk_of(users, ut, it, rows, cols, k))
+    # the wrapper's shared-memory rule (`supports`) is the launcher's
+    assert st._lib().score_topk_smem(d, k) == st.smem_bytes(d, k)
+
+
+def test_score_topk_at_the_eval_cells_shape(cuda):
+    """2,048 users × 91,599 items, d = 64, k = 20, products of ~1e-5 as a
+    LightGCN representation at amazon-book scale gives, so the sigmoid
+    ties most top 20s: the card's ``torch.topk`` order, and among ties at
+    the 20th the lowest indices; no synchronisation."""
+    from idgrec_torch.ops import score_topk as st
+
+    users, ut, it, ptr, cols, rows = _score_case(cuda, 2048, 91_599, 64, 20, False, 1.0, 7)
+    ut, it = ut * 1e-3, it * 2e-3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    want = _card_topk_of(users, ut, it, rows, cols, 20)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = st.score_topk(users, ut, it, ptr, cols, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    scores = torch.sigmoid(ut[users] @ it.T)
+    scores[rows, cols] = st.MASK_VALUE
+    top = torch.sort(scores, 1, descending=True).values[:, :21]
+    assert (top[:, 1:] == top[:, :-1]).any(1).float().mean() > 0.5
+    lowest = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :20]
+    assert torch.equal(torch.sort(got, 1).values, torch.sort(lowest, 1).values)
+
+
+def test_evaluator_fused_route_on_card(cuda, monkeypatch):
+    """`Evaluator.evaluate` of a LightGCN on the card: every batch on the
+    fused op (two launches each), metrics equal to the chained route's on
+    the same representation."""
+    from idgrec_torch.engine.evaluator import Evaluator
+    from idgrec_torch.ops import score_topk as st
+
+    data = make_synthetic_dataset(1500, 2300, 30000, 6000, seed=3)
+    cfg = Config({"dataset": "t", "top_K": "[10, 20]", "embedding_size": "64",
+                  "batch_size": "1024", "test_batch_size": "512", "learn_rate": "0.001",
+                  "reg_lambda": "0.0001", "GCN_layer": "3", "compute_dtype": "bfloat16",
+                  "propagation_backend": "dense"})
+    model = get_model("LightGCN")(cfg, data, device=cuda, generator=torch.Generator())
+    ev = Evaluator(model, data, cfg)
+    rep = ev.compute_repr()
+    nb = ev.plan.users.shape[0]
+    before = st.score_topk.launches
+    fused = ev.evaluate(rep)
+    assert st.score_topk.launches == before + 2 * nb
+    assert ev.route_batches == {"fused": nb, "chained": 0}
+    monkeypatch.setattr(ev, "fused_factors", lambda r: None)
+    chained = ev.evaluate(rep)
+    assert ev.route_batches == {"fused": nb, "chained": nb}
+    for m in ("recall", "precision", "ndcg"):
+        assert np.array_equal(fused[m], chained[m])

@@ -2,7 +2,8 @@
 is the shared no-op object and the log stays empty; under
 `torch.profiler` a training epoch, an evaluation sweep and K6's plain
 version record their spans, nested as the code nests them, on the
-profiler's clock around the ops they run; a schedule records its active
+profiler's clock around the ops they run (a LightGCN sweep on the fused
+score-mask-rank route one span a batch, the chained route three); a schedule records its active
 steps only; the log empties with `clear_spans` and when `maybe_trace`
 ends."""
 
@@ -34,7 +35,9 @@ _CFG = {"dataset": "tiny", "embedding_size": "32", "reg_lambda": "0.0001", "GCN_
         "batch_size": "1024", "test_batch_size": "64", "top_K": "[5, 10]"}
 LAYERS = 2
 TRAIN = ("engine.trainer.forward", "engine.trainer.backward", "engine.trainer.adam")
+# a batch's spans on the chained route; the fused route opens the last alone
 BATCH = ("engine.evaluator.score", "engine.evaluator.mask", "engine.evaluator.topk")
+FUSED = ("engine.evaluator.topk",)
 K6 = "ops.fusedmm.k6"
 
 
@@ -103,20 +106,42 @@ def test_an_evaluation_sweep_records_its_representation_and_batches(program):
         evaluator.evaluate()
     log = profiling.span_log()
     assert log[0].name == "engine.evaluator.sweep" and log[0].parent is None
-    assert _children(log, 0) == ["models.eval_embeddings"] + list(BATCH) * batches
+    assert _children(log, 0) == ["models.eval_embeddings"] + list(FUSED) * batches
     assert _children(log, 1) == [K6] * LAYERS
+    assert len(log) == 2 + LAYERS + batches
+    assert all(s.whole and s.device_ms > 0 for s in log)
+    assert evaluator.route_batches == {"fused": batches, "chained": 0}
+
+
+def test_a_chained_sweep_records_score_mask_and_topk(program, monkeypatch):
+    """The chained route (a model that scores otherwise, or items sharded)
+    records its three spans a batch."""
+    evaluator = Evaluator(program["model"], program["data"], program["cfg"])
+    monkeypatch.setattr(evaluator, "fused_factors", lambda rep: None)
+    batches = evaluator.plan.users.shape[0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        evaluator.evaluate()
+    log = profiling.span_log()
+    assert _children(log, 0) == ["models.eval_embeddings"] + list(BATCH) * batches
     assert len(log) == 2 + LAYERS + 3 * batches
     assert all(s.whole and s.device_ms > 0 for s in log)
+    assert evaluator.route_batches == {"fused": 0, "chained": batches}
 
 
-def test_the_profiler_holds_each_span_around_its_ops_on_its_clock(program):
+def test_the_profiler_holds_each_span_around_its_ops_on_its_clock(program, monkeypatch):
+    # a sweep on each route: the fused one's span and the chain's three
+    fused = Evaluator(program["model"], program["data"], program["cfg"])
+    chained = Evaluator(program["model"], program["data"], program["cfg"])
+    monkeypatch.setattr(chained, "fused_factors", lambda rep: None)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         program["runner"].run_epoch(*program["triples"])
-        Evaluator(program["model"], program["data"], program["cfg"]).evaluate()
+        fused.evaluate()
+        chained.evaluate()
+    assert fused.route_batches["chained"] == chained.route_batches["fused"] == 0
     events = list(prof.events())
     names = {s.name for s in profiling.span_log()}
     assert names == {"engine.trainer.step", *TRAIN, K6, "engine.evaluator.sweep",
-                     "models.eval_embeddings", *BATCH}
+                     "models.eval_embeddings", *FUSED, *BATCH}
     ops = [e for e in events if e.name.startswith("aten::")]
     for name in names:
         spans = [e for e in events if e.name == name]
